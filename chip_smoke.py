@@ -5,20 +5,32 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
-engine latency cycle `build_cycle_fn()(snapshot)` — at BASELINE config
-#4's cluster size (5000 nodes, 12000 running pods) with config #2's
-constraint mix on 10000 pending pods (node selectors, taints and
-tolerations, no inter-pod affinity). Phases:
+engine latency cycle `build_cycle_fn()(snapshot)` — on two workloads at
+BASELINE config #4's cluster size (5000 nodes, 12000 running pods, 10000
+pending pods, padded P=16384, N=8192):
+
+  slice 1  config #2's constraint mix on the pending side (node selectors,
+           taints and tolerations; no inter-pod affinity);
+  affinity config #4's own workload: running pods with inter-pod affinity
+           and topology spread, pending pods with required affinity,
+           anti-affinity, spread, selectors, tolerations, four priorities
+           (preemption is not run: ROADMAP A6).
+
+Phases:
 
   1. device   — the card's name and power limit;
-  2. build    — nvcc builds K1 `static_base` (csrc/static_base.cu), Triton
-                compiles K2 `claim_pass`;
-  3. kernels  — each kernel against its plain torch version at the main
-                path's shapes, with timings and the card's bound;
-  4. e2e      — a warm cycle, the same cycle on the plain versions (same
-                assignment required), then three timed cycles whose
-                placements are checked for validity with the port's plain
-                functions, with launch counts read around them.
+  2. build    — nvcc builds every csrc/*.cu at once (one process per
+                source), Triton compiles K2 `claim_pass` meanwhile;
+  3. slice 1  — a warm cycle, the same cycle on the plain versions (same
+                decisions required), K1/K2 against their plain versions
+                with timings, then three timed cycles whose placements are
+                checked (capacity, static masks, unplaced => infeasible),
+                launch counts read around them;
+  4. affinity — the same on config #4's workload, with K3-K6 held against
+                their plain versions at full size (bit-equal), and each
+                timed placement also checked for anti-affinity (both
+                directions), required affinity or its bootstrap, and
+                DoNotSchedule skew at the round each pod was placed in.
 
 The second-to-last lines are the kernel table (JSON) and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
@@ -28,6 +40,7 @@ port's package beside it, or when any check fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +54,8 @@ PEAK_F32_OPS_PER_S = 67e12
 STATIC_BASE_TOL = 1e-3  # max |kernel - plain| of the static base (target 0)
 N_NODES, N_EXISTING, N_PENDING = 5000, 12000, 10000
 WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
+AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
+EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 
 
 def log(msg: str) -> None:
@@ -75,7 +90,207 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(nbytes_: int, ops: int) -> tuple[float, str]:
+    """(least ms on the card, what bounds it): bytes over HBM bandwidth vs
+    operations over the f32 peak."""
+    tb, to = nbytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def same_decisions(torch, a, b) -> dict:
+    return {f: torch.equal(getattr(a, f), getattr(b, f))
+            for f in ("assignment", "node_requested", "unschedulable", "gang_dropped")}
+
+
+class Recorder:
+    """Wraps a plain version: records the arguments of chosen calls (by
+    call index) and returns the plain result."""
+
+    def __init__(self, fn, keep=(0,)):
+        self.fn, self.keep, self.calls, self.args = fn, set(keep), 0, {}
+
+    def __call__(self, *args):
+        if self.calls in self.keep:
+            self.args[self.calls] = args
+        self.calls += 1
+        return self.fn(*args)
+
+
+def preferred_variant(torch, snap, gen):
+    """`snap` with preferred inter-pod terms (the pod's first required
+    affinity term, and in 30% of pods that term again as a duplicate slot,
+    else its first anti term), integer weights in [-100, 100], and half its
+    spread constraints ScheduleAnyway — seeded, on the card."""
+    from k8s_scheduler_tpu_torch.models import encoding as enc_mod
+
+    dev = snap.device
+    dup = torch.rand(snap.P, generator=gen, device=dev) < 0.3
+    first = snap.pod_aff_terms[:, 0]
+    pref = snap.pod_aff_terms.clone()
+    pref[:, -1] = torch.where(dup[:, None], first, snap.pod_anti_terms[:, 0])
+    soft = torch.rand(snap.pod_tsc.shape[:2], generator=gen, device=dev) < 0.5
+    tsc = snap.pod_tsc.clone()
+    tsc[..., 2] = torch.where(soft, enc_mod.WHEN_SCHEDULE_ANYWAY, tsc[..., 2])
+    w = torch.randint(-100, 101, snap.pod_pref_aff_w.shape, generator=gen, device=dev)
+    return dataclasses.replace(snap, pod_pref_aff=pref, pod_tsc=tsc,
+                               pod_pref_aff_w=w.float())
+
+
+def check_placements(torch, snap, d, fw, kernels_plain):
+    """Placement validity with the port's plain functions: the final
+    node_requested, capacity of every node that received pods, static
+    masks, and no unplaced pod feasible against the final state."""
+    from k8s_scheduler_tpu_torch.core.cycle import sampling_window
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.ops.capacity import index_add_exact
+    from k8s_scheduler_tpu_torch.ops.resources import fit_slack
+
+    P = snap.P
+    a = d.assignment
+    placed = snap.pod_valid & (a >= 0)
+    n_real = int(snap.num_nodes)
+    check(tuple(a.shape) == (P,) and a.dtype == torch.int32, "assignment shape")
+    check(bool(((a >= -1) & (a < n_real)).all()), "assignment out of range")
+    check(not bool((~snap.pod_valid & (a >= 0)).any()), "padding pod placed")
+    check(bool(torch.isfinite(d.node_requested).all()), "node_requested not finite")
+    req = snap.pod_requested
+    expect = index_add_exact(snap.node_requested, a[placed], req[placed])
+    check(torch.equal(expect, d.node_requested),
+          "node_requested != running requests + placed requests")
+    # a node that received pods this cycle ends within its allocatable
+    # (the running workload alone may already exceed it)
+    alloc = snap.node_allocatable
+    over = (d.node_requested > alloc + fit_slack(alloc)).any(dim=1)
+    check(not bool(over[a[placed].long()].any()), "a node that received pods is over capacity")
+    ctx = CycleContext(snap, kernels_plain)
+    smask = sb.static_base_plain(sb.static_base_inputs(
+        fw, ctx, fit=True, sampling=sampling_window(snap, 0))) > sb.NEG_INF / 2
+    pidx = torch.nonzero(placed, as_tuple=True)[0]
+    check(bool(smask[pidx, a[pidx].long()].all()), "a placed pod's static mask is false at its node")
+    extra = fw.extra_update_batched(ctx, fw.extra_init(ctx), placed, torch.where(placed, a, 0))
+    feasible, _ = fw.dyn_batched(ctx, d.node_requested, extra, smask)
+    open_ = snap.pod_valid & (a < 0) & ~d.gang_dropped
+    n_open_feasible = int((feasible.any(dim=1) & open_).sum())
+    check(n_open_feasible == 0, f"{n_open_feasible} unplaced pods still have a feasible node")
+    return ctx, extra
+
+
+def check_affinity(torch, snap, d, ctx, final_extra):
+    """Inter-pod constraints of every placement, with the port's plain
+    functions over the final state (and, for spread, the state at the start
+    of the round the pod was placed in):
+      - required anti-affinity: no other pod matching the term in the pod's
+        domain, and no running pod's anti term covering its node;
+      - required affinity: a matching pod in the domain, or the pod matches
+        its own term (bootstrap);
+      - DoNotSchedule: the key present, and count + same-round lower-rank
+        arrivals + 1 - min <= maxSkew at the pod's round.
+    Returns counts of the checked terms."""
+    from k8s_scheduler_tpu_torch.models import encoding as enc
+    from k8s_scheduler_tpu_torch.ops import interpod as ip
+
+    P, N = snap.P, snap.N
+    a, rnd = d.assignment, d.placed_round
+    placed = snap.pod_valid & (a >= 0)
+    mp = ctx.matched_pending  # [S, P]
+    state0 = ctx.initial_affinity_state()
+    final = next(v for v in final_extra.values() if isinstance(v, ip.AffinityState))
+    S, D = final.counts.shape
+    K = snap.node_domains.shape[1]
+    check(float(final.pref_sym.abs().max()) < EXACT_F32 and
+          float(final.counts.max()) < EXACT_F32,
+          "affinity tables left the exact f32 integer range")
+    pid = torch.arange(P, device=a.device)
+    node_dom = snap.node_domains[a.clamp(0, N - 1).long()]  # [P, K]
+
+    def term_dom(terms_k):
+        return node_dom.gather(1, terms_k.clamp(0, K - 1).long()[:, None])[:, 0]
+
+    n_anti = n_aff = n_spread = 0
+    for t in range(snap.pod_anti_terms.shape[1]):
+        sel = snap.pod_anti_terms[:, t, 0]
+        dd = term_dom(snap.pod_anti_terms[:, t, 1])
+        on = placed & (sel >= 0) & (dd >= 0)
+        scl = sel.clamp(0, S - 1).long()
+        others = final.counts[scl, dd.clamp(0, D - 1).long()] - mp[scl, pid].float()
+        check(not bool((on & (others > 0)).any()), "required anti-affinity violated")
+        n_anti += int(on.sum())
+    blocked = (mp.T.float() @ state0.anti_presence.float()) > 0  # [P, N]
+    check(not bool((placed & blocked[pid, a.clamp(0, N - 1).long()]).any()),
+          "a running pod's anti-affinity term covers a placed pod")
+    for t in range(snap.pod_aff_terms.shape[1]):
+        sel = snap.pod_aff_terms[:, t, 0]
+        dd = term_dom(snap.pod_aff_terms[:, t, 1])
+        scl = sel.clamp(0, S - 1).long()
+        on = placed & (sel >= 0) & ~mp[scl, pid]
+        found = (dd >= 0) & (final.counts[scl, dd.clamp(0, D - 1).long()] > 0)
+        check(not bool((on & ~found).any()), "required affinity unsatisfied")
+        n_aff += int((placed & (sel >= 0)).sum())
+    # DoNotSchedule, round by round
+    state = state0
+    rank = snap.pod_order.long()
+    for r in range(int(rnd.max()) + 1):
+        minc = ip.spread_minc(snap, state)
+        in_r = placed & (rnd == r)
+        for c in range(snap.pod_tsc.shape[1]):
+            k, sel, when = (snap.pod_tsc[:, c, i] for i in range(3))
+            hard = in_r & (k >= 0) & (when == enc.WHEN_DO_NOT_SCHEDULE)
+            if not bool(hard.any()):
+                continue
+            dd = term_dom(k)
+            check(not bool((hard & (dd < 0)).any()), "spread key absent at a placed pod's node")
+            rows = torch.nonzero(hard, as_tuple=True)[0]
+            kr, sr, dr = k[rows].clamp(0, K - 1).long(), sel[rows].long(), dd[rows].long()
+            q_dom = snap.node_domains.T[kr][:, a.clamp(0, N - 1).long()]  # [n, P]
+            arrivals = (mp[sr] & in_r[None, :] & (q_dom == dr[:, None])
+                        & (rank[None, :] < rank[rows][:, None])).sum(dim=1)
+            cnt = state.counts[sr, dr]
+            skew = snap.pod_tsc_skew[rows, c].float()
+            check(bool((cnt + arrivals + 1 - minc[kr * S + sr] <= skew).all()),
+                  f"DoNotSchedule skew exceeded in round {r}")
+            n_spread += len(rows)
+        state = ip.affinity_update_batched(snap, state, mp, in_r, torch.where(in_r, a, 0))
+    return n_anti, n_aff, n_spread
+
+
+def timed_cycles(torch, kb, cycle, snaps, seeds):
+    """Cycles on `seeds` with the launch counts set to 0 just before and
+    read just after; (results, launches)."""
+    results = []
+    kb.reset_launch_counts()
+    for s in seeds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        d = cycle(snaps[s])
+        end.record()
+        torch.cuda.synchronize()
+        results.append((s, d, start.elapsed_time(end), (time.time() - t0) * 1e3))
+    return results, dict(kb.launch_counts)
+
+
+def encode_all(torch, enc, nodes, existing, pending):
+    snaps, ms = {}, {}
+    for s, pods in pending.items():
+        t0 = time.time()
+        snaps[s] = enc.encode(nodes, pods, existing)
+        torch.cuda.synchronize()
+        ms[str(s)] = round((time.time() - t0) * 1e3, 1)
+    return snaps, ms
+
+
+def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms,
+                 nbytes_, ops, library_ms=None):
+    b, by = bound(nbytes_, ops)
+    return {"name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -92,20 +307,25 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 3
     from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn, sampling_window
-    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels, CycleContext
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.models import encoding as enc_mod
+    from k8s_scheduler_tpu_torch.ops import affinity_update as au
+    from k8s_scheduler_tpu_torch.ops import capacity as cap
     from k8s_scheduler_tpu_torch.ops import claim_pass as cp
+    from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
+    from k8s_scheduler_tpu_torch.ops import interpod as ip
+    from k8s_scheduler_tpu_torch.ops import interpod_terms as ipt
     from k8s_scheduler_tpu_torch.ops import kernel_build as kb
-    from k8s_scheduler_tpu_torch.ops import rounds as rounds_ops
     from k8s_scheduler_tpu_torch.ops import static_base as sb
-    from k8s_scheduler_tpu_torch.ops.resources import fit_slack
     from k8s_scheduler_tpu_torch.utils import synth
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     dev = torch.device("cuda")
+    plain_kernels = AffinityKernels.plain()
 
     # ---- 1. device ----
     name = torch.cuda.get_device_name(0)
@@ -113,20 +333,22 @@ def main() -> int:
     log(f"phase device: {name} x{torch.cuda.device_count()} | nvidia-smi: {smi} "
         f"| torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 2. build: nvcc for K1 in a thread while Triton compiles K2 ----
+    # ---- 2. build: one nvcc per CUDA source, all at once, while Triton
+    # compiles K2 ----
     build_err: list[BaseException] = []
     build_s: dict[str, float] = {}
 
-    def build_k1():
+    def build(src):
         t0 = time.time()
         try:
-            kb.load_cuda_library("static_base", ("--fmad=false",))
+            kb.load_cuda_library(src)
         except BaseException as e:  # re-raised on the main thread below
             build_err.append(e)
-        build_s["static_base"] = time.time() - t0
+        build_s[src] = round(time.time() - t0, 2)
 
-    th = threading.Thread(target=build_k1)
-    th.start()
+    threads = [threading.Thread(target=build, args=(s,)) for s in kb.CUDA_KERNELS]
+    for th in threads:
+        th.start()
     t0 = time.time()
     z = torch.zeros((2, 8), device=dev)
     zb = torch.zeros((2, 8), dtype=torch.bool, device=dev)
@@ -134,52 +356,37 @@ def main() -> int:
                          torch.zeros(2, dtype=torch.int32, device=dev),
                          torch.full((2,), -1, dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
-    build_s["claim_pass"] = time.time() - t0
-    th.join()
+    build_s["claim_pass (triton)"] = round(time.time() - t0, 2)
+    for th in threads:
+        th.join()
     if build_err:
         raise build_err[0]
-    log(f"phase build: static_base nvcc {build_s['static_base']:.2f}s, "
-        f"claim_pass triton {build_s['claim_pass']:.2f}s")
-
-    # ---- data: config #4's cluster, config #2's constraint mix ----
-    t0 = time.time()
-    nodes, existing, pending = synth.config4_cluster_config2_pending(
-        (WARM_SEED,) + TIMED_SEEDS, N_NODES, N_EXISTING, N_PENDING
-    )
-    gen_s = time.time() - t0
-    enc = SnapshotEncoder(device=dev)
-    encode_ms = {}
-    snaps = {}
-    for s, pods in pending.items():
-        t0 = time.time()
-        snaps[s] = enc.encode(nodes, pods, existing)
-        torch.cuda.synchronize()
-        encode_ms[s] = (time.time() - t0) * 1e3
-    snap0 = snaps[WARM_SEED]
-    P, N = snap0.P, snap0.N
-    log(f"phase data: {N_NODES} nodes, {N_EXISTING} running, {N_PENDING} pending "
-        f"-> padded P={P} N={N}; generate {gen_s:.1f}s; encode ms "
-        + json.dumps({str(k): round(v, 1) for k, v in encode_ms.items()}))
+    log(f"phase build (s): {json.dumps(build_s)}")
+    for src, text in kb.build_logs.items():
+        usage = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"  ptxas {src}: " + " | ".join(usage))
 
     fw = Framework.from_config()
     cycle_k = build_cycle_fn(device=dev)
+    kernels: dict[str, dict] = {}
 
-    # ---- 3a. warm cycle (kernels) and the same cycle on the plain
-    # versions, recording the claim-pass inputs of round 0 ----
-    recorded = {}
+    # ================= slice 1: config #2's pending mix =================
+    t0 = time.time()
+    nodes, existing, pending = synth.config4_cluster_config2_pending(
+        (WARM_SEED,) + TIMED_SEEDS, N_NODES, N_EXISTING, N_PENDING)
+    gen_s = time.time() - t0
+    enc = SnapshotEncoder(device=dev)
+    snaps, encode_ms = encode_all(torch, enc, nodes, existing, pending)
+    snap0 = snaps[WARM_SEED]
+    P, N = snap0.P, snap0.N
+    log(f"phase slice1 data: {N_NODES} nodes, {N_EXISTING} running, {N_PENDING} "
+        f"pending -> padded P={P} N={N}; generate {gen_s:.1f}s; encode ms "
+        + json.dumps(encode_ms))
 
-    def recording_claim_pass(base, mask, dead, acc, delta, gid, nominated):
-        i = recorded.setdefault("calls", 0)
-        recorded["calls"] = i + 1
-        if i in (0, 3):  # round 0, passes 0 and 3
-            recorded[i] = tuple(
-                t.clone() if isinstance(t, torch.Tensor) else t
-                for t in (base, mask, dead, acc, delta, gid, nominated)
-            )
-        return cp.claim_pass_plain(base, mask, dead, acc, delta, gid, nominated)
-
+    rec_cp = Recorder(cp.claim_pass_plain, keep=(0, 3))  # round 0, passes 0, 3
     cycle_p = build_cycle_fn(device=dev, static_base_fn=sb.static_base_plain,
-                             claim_pass_fn=recording_claim_pass)
+                             claim_pass_fn=rec_cp)
     t0 = time.time()
     dk = cycle_k(snap0)
     torch.cuda.synchronize()
@@ -188,18 +395,12 @@ def main() -> int:
     dp = cycle_p(snap0)
     torch.cuda.synchronize()
     plain_cycle_ms = (time.time() - t0) * 1e3
-    same = {
-        "assignment": torch.equal(dk.assignment, dp.assignment),
-        "node_requested": torch.equal(dk.node_requested, dp.node_requested),
-        "unschedulable": torch.equal(dk.unschedulable, dp.unschedulable),
-        "gang_dropped": torch.equal(dk.gang_dropped, dp.gang_dropped),
-    }
-    log(f"phase e2e-parity: kernels cycle {warm_ms:.1f} ms (warm-up), plain "
+    same = same_decisions(torch, dk, dp)
+    log(f"phase slice1 e2e-parity: kernels cycle {warm_ms:.1f} ms (warm-up), plain "
         f"cycle {plain_cycle_ms:.1f} ms, placed {int((dk.assignment >= 0).sum())}"
         f"; kernels == plain: {json.dumps(same)}")
-    check(all(same.values()), "kernel cycle differs from the plain-versions cycle")
+    check(all(same.values()), "slice-1 kernel cycle differs from the plain-versions cycle")
 
-    # ---- 3b. kernels against their plain versions ----
     ctx = CycleContext(snap0)
     x = sb.static_base_inputs(fw, ctx, fit=True, sampling=sampling_window(snap0, 0))
     k_out = sb.static_base_cuda(x)
@@ -213,18 +414,17 @@ def main() -> int:
     del k_out, p_out, k_mask, p_mask
     k1_ms = time_ms(torch, lambda: sb.static_base_cuda(x), 20)
     k1_plain_ms = time_ms(torch, lambda: sb.static_base_plain(x), 3)
-    in_bytes = nbytes(*[v for v in vars(x).values() if isinstance(v, torch.Tensor)])
-    k1_bytes = P * N * 4 + in_bytes
+    k1_bytes = P * N * 4 + nbytes(*[v for v in vars(x).values()
+                                    if isinstance(v, torch.Tensor)])
     k1_ops = P * N * (2 * len(x.terms) + 2)
-    k1_bound = 1e3 * max(k1_bytes / PEAK_BYTES_PER_S, k1_ops / PEAK_F32_OPS_PER_S)
     log(f"phase kernel static_base: [{P}, {N}] mask equal {mask_equal}, "
         f"max|err| {k1_err}; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
-        f"bound {k1_bound:.3f} ms (bytes {k1_bytes})")
+        f"bound {bound(k1_bytes, k1_ops)[0]:.3f} ms (bytes {k1_bytes})")
 
-    check(0 in recorded and 3 in recorded, "claim-pass states were not recorded")
+    check(set(rec_cp.args) == {0, 3}, "claim-pass states were not recorded")
     k2_err = 0.0
     for i in (0, 3):
-        args = recorded[i]
+        args = rec_cp.args[i]
         bk, hk = cp.claim_pass_triton(*args)
         bp, hp = cp.claim_pass_plain(*args)
         equal = torch.equal(bk, bp) and torch.equal(hk, hp)
@@ -232,7 +432,7 @@ def main() -> int:
         log(f"phase kernel claim_pass pass {i}: best/has equal {equal} "
             f"(acc {int(args[3].sum())}, dead {int(args[2].sum())})")
         check(equal, f"claim_pass differs from its plain version at pass {i}")
-    args0 = recorded[0]
+    args0 = rec_cp.args[0]
     base, mask, dead, acc, delta, gid, nominated = args0
     B = base.shape[0]
     k2_ms = time_ms(torch, lambda: cp.claim_pass_triton(*args0), 20)
@@ -243,103 +443,277 @@ def main() -> int:
     del avail, eff
     k2_bytes = nbytes(base, mask, dead, acc, gid, nominated) + B * (4 + 1)
     k2_ops = B * N * 8
-    k2_bound = 1e3 * max(k2_bytes / PEAK_BYTES_PER_S, k2_ops / PEAK_F32_OPS_PER_S)
     log(f"phase kernel claim_pass: [{B}, {N}] kernel {k2_ms:.3f} ms, plain "
         f"{k2_plain_ms:.3f} ms, torch.argmax yardstick {k2_lib_ms:.3f} ms, "
-        f"bound {k2_bound:.3f} ms (bytes {k2_bytes})")
-    del recorded, args0, args, base, mask, dead
+        f"bound {bound(k2_bytes, k2_ops)[0]:.3f} ms (bytes {k2_bytes})")
+    del rec_cp, args0, args, base, mask, dead, x, dk, dp
 
-    # ---- 4. the main path: three timed cycles, launch counts around them ----
-    kb.reset_launch_counts()
-    results = []
-    for s in TIMED_SEEDS:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.time()
-        start.record()
-        d = cycle_k(snaps[s])
-        end.record()
-        torch.cuda.synchronize()
-        results.append((s, d, start.elapsed_time(end), (time.time() - t0) * 1e3))
-    launches = dict(kb.launch_counts)
-    log(f"phase e2e launches over {len(TIMED_SEEDS)} cycles: {json.dumps(launches)}")
+    # the slice-1 main path: counts set to 0 just before, read just after
+    results, launches1 = timed_cycles(torch, kb, cycle_k, snaps, TIMED_SEEDS)
+    log(f"phase slice1 launches over {len(TIMED_SEEDS)} cycles: {json.dumps(launches1)}")
+    for k in ("static_base", "claim_pass", "capacity"):
+        check(launches1[k] > 0, f"kernel {k} was not launched on the slice-1 path")
+    timed1 = []
+    for s, d, dev_ms, host_ms in results:
+        check_placements(torch, snaps[s], d, fw, plain_kernels)
+        timed1.append(round(dev_ms, 1))
+        log(f"phase slice1 cycle seed {s}: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
+            f"placed {int((d.assignment >= 0).sum())}, unschedulable "
+            f"{int(d.unschedulable.sum())}, valid: capacity, static masks, "
+            f"unplaced infeasible")
+    kernels["static_base"] = kernel_entry(
+        "static_base", "cuda", "k8s_scheduler_tpu_torch/csrc/static_base.cu",
+        "k8s_scheduler_tpu/ops/rounds.py:338", launches1["static_base"], k1_err,
+        k1_ms, k1_plain_ms, k1_bytes, k1_ops)
+    kernels["claim_pass"] = kernel_entry(
+        "claim_pass", "triton", "k8s_scheduler_tpu_torch/ops/claim_pass.py",
+        "k8s_scheduler_tpu/ops/rounds.py:805", launches1["claim_pass"], k2_err,
+        k2_ms, k2_plain_ms, k2_bytes, k2_ops, k2_lib_ms)
+    del results, snaps, snap0, ctx
+
+    # ============ affinity: config #4's workload (minus preemption) ============
+    t0 = time.time()
+    nodes, existing, pending = synth.config4_workload(
+        (AFF_WARM_SEED,) + AFF_TIMED_SEEDS, N_NODES, N_EXISTING, N_PENDING)
+    gen_s = time.time() - t0
+    snaps, encode_ms = encode_all(torch, SnapshotEncoder(device=dev), nodes,
+                                  existing, pending)
+    snap0 = snaps[AFF_WARM_SEED]
+    P, N = snap0.P, snap0.N
+    check(snap0.has_inter_pod_affinity and snap0.has_topology_spread,
+          "config #4's workload carries no affinity/spread")
+    S, D = snap0.sel_exprs.shape[0], snap0.domain_key.shape[0]
+    log(f"phase affinity data: {N_NODES} nodes, {N_EXISTING} running, {N_PENDING} "
+        f"pending (config #4 mix) -> padded P={P} N={N}, S={S} selectors, D={D} "
+        f"domains, K={snap0.node_domains.shape[1]}, MA={snap0.pod_aff_terms.shape[1]}, "
+        f"MC={snap0.pod_tsc.shape[1]}; generate {gen_s:.1f}s; encode ms "
+        + json.dumps(encode_ms))
+
+    rec = {
+        "interpod_terms": Recorder(ipt.interpod_terms_plain),
+        "interpod_norm": Recorder(ipt.interpod_norm_plain, keep=(0, 1)),
+        "affinity_update": Recorder(au.affinity_update_plain),
+        "capacity": Recorder(cap.capacity_plain, keep=(0, 10)),  # round 0: pass 0, revocation
+        "guard_sweep": Recorder(gs.guard_sweep_plain),
+    }
+    cycle_ap = build_cycle_fn(
+        device=dev, static_base_fn=sb.static_base_plain,
+        claim_pass_fn=cp.claim_pass_plain,
+        interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=rec["interpod_norm"],
+        affinity_update_fn=rec["affinity_update"], capacity_fn=rec["capacity"],
+        guard_sweep_fn=rec["guard_sweep"])
+    t0 = time.time()
+    dk = cycle_k(snap0)
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    dp = cycle_ap(snap0)
+    torch.cuda.synchronize()
+    plain_cycle_ms = (time.time() - t0) * 1e3
+    same = same_decisions(torch, dk, dp)
+    log(f"phase affinity e2e-parity: kernels cycle {warm_ms:.1f} ms (warm-up), plain "
+        f"cycle {plain_cycle_ms:.1f} ms, placed {int((dk.assignment >= 0).sum())}, "
+        f"rounds {int(dk.placed_round.max()) + 1}; kernels == plain: {json.dumps(same)}")
+    check(all(same.values()), "affinity kernel cycle differs from the plain-versions cycle")
+    del dk, dp
+
+    # ---- K3-K6 against their plain versions on round-0 inputs ----
+    def equal_outputs(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, (tuple, list)):
+            return all(equal_outputs(x, y) for x, y in zip(a, b))
+        if a is None:
+            return b is None
+        fa, fb = vars(a), vars(b)
+        return fa.keys() == fb.keys() and all(equal_outputs(fa[k], fb[k]) for k in fa)
+
+    for k, r in rec.items():
+        check(set(r.args) == r.keep, f"{k}: inputs were not recorded ({sorted(r.args)})")
+
+    # K3 terms (the wrapper: two symmetric matmuls + the kernel)
+    t_args = rec["interpod_terms"].args[0]
+    tsnap, tstate, tmp, tminc = t_args
+    out_k, out_p = ipt.interpod_terms_cuda(*t_args), ipt.interpod_terms_plain(*t_args)
+    k3_equal = equal_outputs(out_k, out_p)
+    check(k3_equal, "interpod_terms differs from its plain version")
+    k3_ms = time_ms(torch, lambda: ipt.interpod_terms_cuda(*t_args), 10)
+    k3_plain_ms = time_ms(torch, lambda: ipt.interpod_terms_plain(*t_args), 2)
+    k3_sym_ms = time_ms(torch, lambda: (ip.symmetric_anti(tstate, tmp),
+                                        ip.symmetric_pref(tstate, tmp)), 10)
+    B3 = tsnap.P
+    n_match = int(tmp.sum())
+    n_terms = int(((tsnap.pod_aff_terms[..., 0] >= 0).sum()
+                   + (tsnap.pod_anti_terms[..., 0] >= 0).sum()
+                   + (tsnap.pod_pref_aff[..., 0] >= 0).sum()
+                   + (tsnap.pod_tsc[..., 0] >= 0).sum()))
+    k3_bytes = (nbytes(tstate.counts, tstate.total, tstate.anti_presence,
+                       tstate.pref_sym, tsnap.node_domains, tminc, tmp,
+                       tsnap.pod_aff_terms, tsnap.pod_anti_terms, tsnap.pod_pref_aff,
+                       tsnap.pod_pref_aff_w, tsnap.pod_tsc, tsnap.pod_tsc_skew)
+                + nbytes(out_k.aff_mask, out_k.aff_raw, out_k.spread_mask, out_k.spread_raw))
+    k3_ops = 2 * 2 * n_match * N + 3 * n_terms * N  # sparse symmetric sums + term tests
+    log(f"phase kernel interpod_terms: [{B3}, {N}] equal {k3_equal}; wrapper "
+        f"{k3_ms:.3f} ms (of which the two symmetric matmuls {k3_sym_ms:.3f} ms), "
+        f"plain {k3_plain_ms:.3f} ms, bound {bound(k3_bytes, k3_ops)[0]:.3f} ms "
+        f"(bytes {k3_bytes}, ops {k3_ops}); {n_terms} pod terms, {n_match} matches")
+
+    # config #4's workload has no preferred terms and no ScheduleAnyway
+    # constraint: hold K3 (and K4 below) also on a seeded variant of the
+    # same inputs that has both
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vsnap = preferred_variant(torch, tsnap, gen)
+    vstate = ip.AffinityState(
+        tstate.counts, tstate.total,
+        torch.rand(tstate.anti_presence.shape, generator=gen, device=dev) < 0.01,
+        torch.randint(0, 4, tstate.pref_sym.shape, generator=gen, device=dev).float())
+    v_args = (vsnap, vstate, tmp, tminc)
+    vk, vp = ipt.interpod_terms_cuda(*v_args), ipt.interpod_terms_plain(*v_args)
+    check(equal_outputs(vk, vp), "interpod_terms differs from its plain version "
+          "on the preferred/soft variant")
+    vfeas = vk.aff_mask & vk.spread_mask
+    for raw_v, spread in ((vk.aff_raw, False), (vk.spread_raw, True)):
+        check(torch.equal(ipt.interpod_norm_cuda(raw_v, vfeas, spread),
+                          ipt.interpod_norm_plain(raw_v, vfeas, spread)),
+              f"interpod_norm (spread={spread}) differs on the preferred/soft variant")
+    log(f"phase kernel interpod_terms + interpod_norm, preferred/soft variant: equal "
+        f"True ({int((vsnap.pod_pref_aff[..., 0] >= 0).sum())} preferred terms, "
+        f"{int(((vsnap.pod_tsc[..., 0] >= 0) & (vsnap.pod_tsc[..., 2] == enc_mod.WHEN_SCHEDULE_ANYWAY)).sum())} "
+        f"soft constraints, "
+        f"{int((vk.aff_raw != 0).sum())} nonzero raw scores)")
+    del vstate, v_args, vk, vp, vfeas
+
+    # K3 normalisation, both modes on their recorded inputs
+    k3n = {}
+    for i in (0, 1):
+        raw, feas, spread = rec["interpod_norm"].args[i]
+        ok_ = torch.equal(ipt.interpod_norm_cuda(raw, feas, spread),
+                          ipt.interpod_norm_plain(raw, feas, spread))
+        check(ok_, f"interpod_norm (spread={spread}) differs from its plain version")
+        k3n[spread] = (raw, feas)
+    raw, feas = k3n[False]
+    k3n_ms = time_ms(torch, lambda: ipt.interpod_norm_cuda(raw, feas, False), 20)
+    k3n_plain_ms = time_ms(torch, lambda: ipt.interpod_norm_plain(raw, feas, False), 5)
+    # raw is read where feasible (the max) and in rows whose max is > 0
+    # (the divide; other rows write 0 without reading it)
+    live_rows = torch.where(feas, raw.abs(), 0.0).amax(dim=1) > 0
+    n_raw = int(feas[~live_rows].sum()) + int(live_rows.sum()) * N
+    k3n_bytes = nbytes(feas) + raw.numel() * 4 + n_raw * 4
+    k3n_ops = int(feas.sum()) + int(live_rows.sum()) * N * 3
+    log(f"phase kernel interpod_norm: [{raw.shape[0]}, {N}] equal True (both modes), "
+        f"{int(live_rows.sum())} rows with a score; kernel {k3n_ms:.3f} ms, plain {k3n_plain_ms:.3f} ms, bound "
+        f"{bound(k3n_bytes, k3n_ops)[0]:.3f} ms")
+
+    # K4 affinity update
+    u_args = rec["affinity_update"].args[0]
+    usnap, ustate, ump, uacc, unode = u_args
+    uk, up = au.affinity_update_cuda(*u_args), au.affinity_update_plain(*u_args)
+    k4_equal = equal_outputs(uk, up)
+    check(k4_equal, "affinity_update differs from its plain version")
+    check(float(uk.pref_sym.abs().max()) < EXACT_F32, "pref_sym left the exact f32 range")
+    vu_args = (preferred_variant(torch, usnap, gen), ustate, ump, uacc, unode)
+    vuk = au.affinity_update_cuda(*vu_args)
+    check(equal_outputs(vuk, au.affinity_update_plain(*vu_args)),
+          "affinity_update differs from its plain version on the preferred variant")
+    check(float(vuk.pref_sym.abs().max()) < EXACT_F32, "pref_sym left the exact f32 range")
+    log(f"phase kernel affinity_update, preferred variant: equal True (max |pref_sym| "
+        f"{float(vuk.pref_sym.abs().max())})")
+    del vu_args, vuk
+    k4_ms = time_ms(torch, lambda: au.affinity_update_cuda(*u_args), 20)
+    k4_plain_ms = time_ms(torch, lambda: au.affinity_update_plain(*u_args), 2)
+    k4_bytes = (nbytes(ump, uacc, unode, usnap.node_domains, usnap.pod_anti_terms,
+                       usnap.pod_pref_aff, usnap.pod_pref_aff_w)
+                + 2 * nbytes(ustate.counts, ustate.total, ustate.anti_presence,
+                             ustate.pref_sym))
+    n_acc_match = int((ump & uacc[None, :]).sum())
+    k4_ops = n_acc_match * (1 + usnap.node_domains.shape[1]) + int(uacc.sum()) * 2 * N
+    log(f"phase kernel affinity_update: [{ump.shape[0]}, {ump.shape[1]}] equal "
+        f"{k4_equal} ({int(uacc.sum())} accepted, max pref_sym "
+        f"{float(uk.pref_sym.abs().max())}); kernel {k4_ms:.3f} ms, plain "
+        f"{k4_plain_ms:.3f} ms, bound {bound(k4_bytes, k4_ops)[0]:.3f} ms")
+
+    # K5 capacity: a round-0 pass and a revocation fold
+    for i in (0, 10):
+        c_args = rec["capacity"].args[i]
+        ck, cpn = cap.capacity_cuda(*c_args), cap.capacity_plain(*c_args)
+        check(equal_outputs(ck, cpn), f"capacity differs from its plain version (call {i})")
+    c_args = rec["capacity"].args[0]
+    s_key, order, rank_bits, creq, cnode_req, calloc, cslack, _ = c_args
+    node_run = (s_key >> rank_bits)
+    longest = int(torch.unique_consecutive(node_run[node_run < N],
+                                           return_counts=True)[1].max())
+    k5_ms = time_ms(torch, lambda: cap.capacity_cuda(*c_args), 20)
+    k5_plain_ms = time_ms(torch, lambda: cap.capacity_plain(*c_args), 5)
+    B5 = s_key.shape[0]
+    k5_bytes = (nbytes(s_key, order, cnode_req, calloc, cslack) + B5 * creq.shape[1] * 4
+                + B5 + cnode_req.numel() * 4)
+    k5_ops = 4 * B5 * creq.shape[1]
+    log(f"phase kernel capacity: B={B5} claims, longest node run {longest}; equal "
+        f"True (pass and revocation fold); kernel {k5_ms:.3f} ms, plain "
+        f"{k5_plain_ms:.3f} ms, bound {bound(k5_bytes, k5_ops)[0]:.3f} ms")
+
+    # K6 guard sweep
+    g_args = rec["guard_sweep"].args[0]
+    s_packed, gperm, grank_bits, gB, role_tab, gcaps, gk_invalid = g_args
+    okk, okp = gs.guard_sweep_cuda(*g_args), gs.guard_sweep_plain(*g_args)
+    check(torch.equal(okk, okp), "guard_sweep differs from its plain version")
+    k6_ms = time_ms(torch, lambda: gs.guard_sweep_cuda(*g_args), 20)
+    k6_plain_ms = time_ms(torch, lambda: gs.guard_sweep_plain(*g_args), 5)
+    L = s_packed.shape[0]
+    n_valid = int(((s_packed >> grank_bits) != gk_invalid).sum())
+    k6_bytes = nbytes(s_packed, gperm, role_tab, gcaps) + gB
+    k6_ops = 8 * n_valid
+    log(f"phase kernel guard_sweep: L={L} entries ({n_valid} valid, "
+        f"{role_tab.shape[0]} slots x {gB}); revoked {int((~okk).sum())}; equal True; "
+        f"kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms, bound "
+        f"{bound(k6_bytes, k6_ops)[0]:.3f} ms")
+    del rec, t_args, u_args, c_args, g_args, out_k, out_p, uk, up, k3n, raw, feas
+
+    # the affinity main path: counts set to 0 just before, read just after
+    results, launches = timed_cycles(torch, kb, cycle_k, snaps, AFF_TIMED_SEEDS)
+    log(f"phase affinity launches over {len(AFF_TIMED_SEEDS)} cycles: {json.dumps(launches)}")
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
-
+        check(v > 0, f"kernel {k} was not launched on the affinity path")
+    timed = []
     for s, d, dev_ms, host_ms in results:
         snap = snaps[s]
-        a = d.assignment
-        placed = snap.pod_valid & (a >= 0)
-        n_real = int(snap.num_nodes)
-        check(tuple(a.shape) == (P,) and a.dtype == torch.int32, "assignment shape")
-        check(bool(((a >= -1) & (a < n_real)).all()), "assignment out of range")
-        check(not bool((~snap.pod_valid & (a >= 0)).any()), "padding pod placed")
-        check(bool(torch.isfinite(d.node_requested).all()), "node_requested not finite")
-        req = snap.pod_requested
-        expect = rounds_ops.index_add_exact(snap.node_requested, a[placed], req[placed])
-        check(torch.equal(expect, d.node_requested),
-              "node_requested != running requests + placed requests")
-        # a node that received pods this cycle ends within its allocatable
-        # (the running workload alone may already exceed it)
-        alloc = snap.node_allocatable
-        over = (d.node_requested > alloc + fit_slack(alloc)).any(dim=1)
-        check(not bool(over[a[placed].long()].any()),
-              "a node that received pods is over capacity")
-        ctx = CycleContext(snap)
-        smask = sb.static_base_plain(sb.static_base_inputs(
-            fw, ctx, fit=True, sampling=sampling_window(snap, 0)
-        )) > sb.NEG_INF / 2
-        pidx = torch.nonzero(placed, as_tuple=True)[0]
-        check(bool(smask[pidx, a[pidx].long()].all()),
-              "a placed pod's static mask is false at its node")
-        extra = fw.extra_update_batched(
-            ctx, fw.extra_init(ctx), placed, torch.where(placed, a, 0)
-        )
-        feasible, _ = fw.dyn_batched(ctx, d.node_requested, extra, smask)
-        open_ = snap.pod_valid & (a < 0) & ~d.gang_dropped
-        n_open_feasible = int((feasible.any(dim=1) & open_).sum())
-        check(n_open_feasible == 0,
-              f"{n_open_feasible} unplaced pods still have a feasible node")
-        del smask, feasible
-        log(f"phase e2e cycle seed {s}: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
-            f"placed {int(placed.sum())}, unschedulable {int(d.unschedulable.sum())}, "
-            f"valid: capacity ok, static masks ok, unplaced infeasible")
+        ctx, extra = check_placements(torch, snap, d, fw, plain_kernels)
+        n_anti, n_aff, n_spread = check_affinity(torch, snap, d, ctx, extra)
+        timed.append(round(dev_ms, 1))
+        log(f"phase affinity cycle seed {s}: device {dev_ms:.1f} ms, host "
+            f"{host_ms:.1f} ms, placed {int((d.assignment >= 0).sum())}, unschedulable "
+            f"{int(d.unschedulable.sum())}, rounds {int(d.placed_round.max()) + 1}; "
+            f"valid: capacity, static masks, unplaced infeasible, {n_anti} anti terms, "
+            f"{n_aff} affinity terms, {n_spread} DoNotSchedule constraints")
+    del results
 
-    kernels = [
-        {
-            "name": "static_base",
-            "route": "cuda",
-            "source": "k8s_scheduler_tpu_torch/csrc/static_base.cu",
-            "replaces": "k8s_scheduler_tpu/ops/rounds.py:338",
-            "launches": launches["static_base"],
-            "max_abs_err": k1_err,
-            "ms": k1_ms,
-            "plain_ms": k1_plain_ms,
-            "bound_ms": k1_bound,
-            "bound_by": "bytes" if k1_bytes / PEAK_BYTES_PER_S
-            >= k1_ops / PEAK_F32_OPS_PER_S else "operations",
-            "library_ms": None,
-        },
-        {
-            "name": "claim_pass",
-            "route": "triton",
-            "source": "k8s_scheduler_tpu_torch/ops/claim_pass.py",
-            "replaces": "k8s_scheduler_tpu/ops/rounds.py:805",
-            "launches": launches["claim_pass"],
-            "max_abs_err": k2_err,
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound,
-            "bound_by": "bytes" if k2_bytes / PEAK_BYTES_PER_S
-            >= k2_ops / PEAK_F32_OPS_PER_S else "operations",
-            "library_ms": k2_lib_ms,
-        },
-    ]
-    timed = [r[2] for r in results]
-    log(f"phase summary: cycle device ms {[round(t, 1) for t in timed]}, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+    kernels["interpod_terms"] = kernel_entry(
+        "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
+        "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
+        k3_ms, k3_plain_ms, k3_bytes, k3_ops)
+    kernels["interpod_norm"] = kernel_entry(
+        "interpod_norm", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
+        "k8s_scheduler_tpu/ops/interpod.py:416", launches["interpod_norm"], 0.0,
+        k3n_ms, k3n_plain_ms, k3n_bytes, k3n_ops)
+    kernels["affinity_update"] = kernel_entry(
+        "affinity_update", "cuda", "k8s_scheduler_tpu_torch/csrc/affinity_update.cu",
+        "k8s_scheduler_tpu/ops/interpod.py:489", launches["affinity_update"], 0.0,
+        k4_ms, k4_plain_ms, k4_bytes, k4_ops)
+    kernels["capacity"] = kernel_entry(
+        "capacity", "cuda", "k8s_scheduler_tpu_torch/csrc/capacity.cu",
+        "k8s_scheduler_tpu/ops/rounds.py:592", launches["capacity"], 0.0,
+        k5_ms, k5_plain_ms, k5_bytes, k5_ops)
+    kernels["guard_sweep"] = kernel_entry(
+        "guard_sweep", "cuda", "k8s_scheduler_tpu_torch/csrc/guard_sweep.cu",
+        "k8s_scheduler_tpu/ops/rounds.py:342", launches["guard_sweep"], 0.0,
+        k6_ms, k6_plain_ms, k6_bytes, k6_ops)
+    for k in kernels.values():
+        log(f"  kernel {k['name']:16s} ms {k['ms']:9.3f}  bound {k['bound_ms']:8.3f} "
+            f"({k['bound_by']})  plain {k['plain_ms']:9.3f}  launches {k['launches']}")
+    log(f"phase summary: slice-1 cycle device ms {timed1}, affinity cycle device ms "
+        f"{timed}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

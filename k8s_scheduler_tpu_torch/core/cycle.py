@@ -4,13 +4,18 @@ placements out, on one device.
 Per cycle, for the whole pending set:
 
     CycleContext precomputes -> static base (K1 `static_base`: static
-    filters, static scores, node sampling) -> rounds engine (K2
-    `claim_pass` inside every acceptance pass) -> gang unwind
+    filters, static scores, node sampling) -> rounds engine: per round the
+    inter-pod affinity / spread terms (K3 `interpod_terms`,
+    `interpod_norm`), per pass the claim (K2 `claim_pass`) and capacity
+    resolution (K5 `capacity`), at round end the guard sweep (K6
+    `guard_sweep`) and the affinity-state fold (K4 `affinity_update`)
+    -> gang unwind
 
 This slice builds the latency cycle of the rounds engine
-(`build_cycle_fn(commit_mode="rounds", outputs="latency")`). The scan
-engine, full outputs, the carry/packed/multi-cycle/arena builders and
-preemption are ROADMAP items A5-A13."""
+(`build_cycle_fn(commit_mode="rounds", outputs="latency")`), with inter-
+pod affinity and topology spread. Volumes (A4b), the scan engine, full
+outputs, the carry/packed/multi-cycle/arena builders and preemption are
+ROADMAP items A5-A13."""
 
 from __future__ import annotations
 
@@ -19,9 +24,13 @@ from typing import Callable
 
 import torch
 
-from ..framework.interfaces import CycleContext
+from ..framework.interfaces import AffinityKernels, CycleContext
 from ..framework.runtime import Framework
+from ..ops import affinity_update as affinity_update_ops
+from ..ops import capacity as capacity_ops
 from ..ops import claim_pass as claim_pass_ops
+from ..ops import guard_sweep as guard_sweep_ops
+from ..ops import interpod_terms as interpod_terms_ops
 from ..ops import rounds as rounds_ops
 from ..ops import static_base as static_base_ops
 from ..utils.device import resolve_device
@@ -35,6 +44,8 @@ class CycleDecision:
     node_requested: torch.Tensor  # f32 [N, R] post-cycle
     unschedulable: torch.Tensor  # bool [P] valid pod that found no node
     gang_dropped: torch.Tensor  # bool [P] placed, then unwound
+    placed_round: torch.Tensor  # i32 [P] rounds-engine round of each
+    # placement (-1 unplaced or unwound); validity checks replay the rounds
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +100,7 @@ def _gang_unwind(snap, assignment, node_requested):
     counts.index_add_(0, gid, (in_group & placed).to(counts.dtype))
     fail = counts < snap.group_min_member
     dropped = in_group & fail[gid] & placed
-    node_requested = rounds_ops.index_add_exact(
+    node_requested = capacity_ops.index_add_exact(
         node_requested, assignment[dropped], -snap.pod_requested[dropped]
     )
     assignment = torch.where(dropped, -1, assignment)
@@ -107,15 +118,21 @@ def build_cycle_fn(
     device=None,
     static_base_fn: Callable = static_base_ops.static_base,
     claim_pass_fn: Callable = claim_pass_ops.claim_pass,
+    interpod_terms_fn: Callable = interpod_terms_ops.interpod_terms,
+    interpod_norm_fn: Callable = interpod_terms_ops.interpod_norm,
+    affinity_update_fn: Callable = affinity_update_ops.affinity_update,
+    capacity_fn: Callable = capacity_ops.capacity,
+    guard_sweep_fn: Callable = guard_sweep_ops.guard_sweep,
 ) -> Callable:
     """The cycle for a framework (default: the default plugin set) on one
     device: `cycle(snapshot) -> CycleDecision`.
 
     `device` None means the card (raises without one). The default
-    `static_base_fn` / `claim_pass_fn` run the hand-written kernels on CUDA
-    and their plain torch versions on CPU; passing the plain versions
-    (`static_base_plain`, `claim_pass_plain`) runs them on the card too —
-    the run the kernels are held against.
+    kernel functions (`static_base_fn`, `claim_pass_fn`, `interpod_terms_fn`,
+    `interpod_norm_fn`, `affinity_update_fn`, `capacity_fn`,
+    `guard_sweep_fn`) run the hand-written kernels on CUDA and their plain
+    torch versions on CPU; passing the plain versions (`*_plain`) runs them
+    on the card too — the run the kernels are held against.
 
     Placements follow the reference's rounds engine: bit-equal
     assignment / node_requested / unschedulable / gang_dropped (held by
@@ -136,13 +153,15 @@ def build_cycle_fn(
         raise NotImplementedError(f"rounds options not ported: {sorted(unknown)}")
     dev = resolve_device(device)
     fw = framework or Framework.from_config()
+    kernels = AffinityKernels(interpod_terms_fn, interpod_norm_fn,
+                              affinity_update_fn)
 
     def cycle(snap) -> CycleDecision:
         if snap.device.type != dev.type:
             raise ValueError(
                 f"snapshot on {snap.device}, cycle built for {dev}"
             )
-        ctx = CycleContext(snap)
+        ctx = CycleContext(snap, kernels)
         sbase = static_base_fn(static_base_ops.static_base_inputs(
             fw, ctx, fit=True,
             sampling=sampling_window(snap, percentage_of_nodes_to_score),
@@ -167,6 +186,8 @@ def build_cycle_fn(
             max_rounds=max_rounds,
             score_anchor_fn=lambda nr: fw.score_anchor(ctx, nr),
             claim_pass_fn=claim_pass_fn,
+            capacity_fn=capacity_fn,
+            guard_sweep_fn=guard_sweep_fn,
             **kw,
         )
         assignment, node_req = rres.assignment, rres.node_requested
@@ -174,6 +195,7 @@ def build_cycle_fn(
         if gang_scheduling:
             assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
         unsched = snap.pod_valid & (assignment < 0)
-        return CycleDecision(assignment, node_req, unsched, dropped)
+        placed_round = torch.where(assignment >= 0, rres.placed_round, -1)
+        return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
 
     return cycle

@@ -11,19 +11,41 @@ engine of this slice, so plugins implement the whole-pending-set hooks.
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
+from ..ops import affinity_update as update_ops
 from ..ops import interpod, labels
+from ..ops import interpod_terms as terms_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class AffinityKernels:
+    """The functions the InterPodAffinity / PodTopologySpread hooks call:
+    by default the dispatching wrappers of K3 and K4 (the kernel for CUDA
+    tensors, the plain version for CPU ones); `plain()` forces the plain
+    versions on any device."""
+
+    interpod_terms: Callable = terms_ops.interpod_terms
+    interpod_norm: Callable = terms_ops.interpod_norm
+    affinity_update: Callable = update_ops.affinity_update
+
+    @staticmethod
+    def plain() -> "AffinityKernels":
+        return AffinityKernels(terms_ops.interpod_terms_plain,
+                               terms_ops.interpod_norm_plain,
+                               update_ops.affinity_update_plain)
 
 
 class CycleContext:
     """Shared per-cycle precomputes (the PreFilter-state analogue), computed
     lazily and cached for the cycle."""
 
-    def __init__(self, snap):
+    def __init__(self, snap, kernels: AffinityKernels | None = None):
         self.snap = snap
+        self.kernels = kernels or AffinityKernels()
         self._cache: dict[str, Any] = {}
 
     def get(self, key: str, compute) -> Any:
@@ -39,11 +61,21 @@ class CycleContext:
     def matched_pending(self) -> torch.Tensor:  # bool [S, P]
         return self.get("matched_pending", interpod.matched_pending)
 
+    @property
+    def matched_existing(self) -> torch.Tensor:  # bool [S, E]
+        return self.get("matched_existing", interpod.matched_existing)
+
+    def initial_affinity_state(self) -> interpod.AffinityState:
+        return self.get(
+            "initial_affinity_state",
+            lambda s: interpod.initial_state(s, self.matched_existing),
+        )
+
     def view(self, vsnap, vmp) -> "CycleContext":
         """A context for a pod-axis view of the snapshot: it shares the
         node-side precomputes and swaps in the view's matched-pending
         columns."""
-        vctx = CycleContext(vsnap)
+        vctx = CycleContext(vsnap, self.kernels)
         vctx._cache.update(self._cache)
         vctx._cache["matched_pending"] = vmp
         return vctx

@@ -1,18 +1,19 @@
 """The default plugin set (`k8s_scheduler_tpu/framework/plugins.py`).
 
 Ported: NodeUnschedulable, NodeName, NodePorts, NodeResourcesFit,
-NodeResourcesBalancedAllocation, NodeAffinity, TaintToleration and
-ImageLocality. InterPodAffinity, PodTopologySpread, VolumeBinding and
+NodeResourcesBalancedAllocation, NodeAffinity, TaintToleration,
+ImageLocality, InterPodAffinity and PodTopologySpread. VolumeBinding and
 DefaultPreemption are in the default set but not ported yet: each is
-inert exactly where the reference's is (its capability flag is off) and
-raises NotImplementedError naming its ROADMAP item where it would act,
-so it can never return a wrong answer."""
+inert exactly where the reference's is (no volumes; PostFilter not run)
+and raises NotImplementedError naming its ROADMAP item (A4b, A6) where
+it would act, so it can never return a wrong answer."""
 
 from __future__ import annotations
 
 import torch
 
 from ..ops import images as images_ops
+from ..ops import interpod as interpod_ops
 from ..ops import labels as labels_ops
 from ..ops import ports as ports_ops
 from ..ops import resources as res_ops
@@ -200,7 +201,7 @@ class VolumeBinding(PluginBase):
 
     def _check(self, ctx: CycleContext):
         if ctx.snap.has_volumes:
-            raise _not_ported(self.name, "PVC/PV binding", "A4")
+            raise _not_ported(self.name, "PVC/PV binding", "A4b")
 
     def static_mask(self, ctx: CycleContext):
         self._check(ctx)
@@ -216,44 +217,107 @@ class VolumeBinding(PluginBase):
         return None
 
 
-class _AffinityStatePlugin(PluginBase):
-    """InterPodAffinity / PodTopologySpread: both consume the reference's
-    per-(selector, domain) count state, which exists only when a snapshot
-    carries affinity or spread terms."""
+# --- shared affinity-state plumbing -----------------------------------------
+# InterPodAffinity and PodTopologySpread both consume the per-(selector,
+# domain) count state; whichever is initialized FIRST (filter order) owns
+# the carried slot and maintains it, the other reads it.
 
-    flag = ""
-    item = "A4"
+_AFFINITY_OWNER_KEY = "__affinity_state_owner__"
 
-    def _active(self, snap) -> bool:
-        return bool(getattr(snap, self.flag))
+
+def _claim_affinity_state(ctx: CycleContext, name: str):
+    snap = ctx.snap
+    if not (snap.has_inter_pod_affinity or snap.has_topology_spread):
+        return None
+    owner = ctx._cache.get(_AFFINITY_OWNER_KEY)
+    if owner is not None and owner != name:
+        return None  # someone else owns the slot
+    ctx._cache[_AFFINITY_OWNER_KEY] = name
+    return ctx.initial_affinity_state()
+
+
+def _affinity_state(ctx: CycleContext, extra):
+    return extra[ctx._cache[_AFFINITY_OWNER_KEY]]
+
+
+def _update_affinity_state_batched(ctx: CycleContext, name, state, accepted,
+                                   node_of):
+    if ctx._cache.get(_AFFINITY_OWNER_KEY) != name:
+        return state
+    return ctx.kernels.affinity_update(
+        ctx.snap, state, ctx.matched_pending, accepted, node_of
+    )
+
+
+def _shared_terms(ctx: CycleContext, state, shared):
+    """The round's affinity and spread terms (K3), computed once and shared
+    between InterPodAffinity and PodTopologySpread; `spread_minc` rides
+    along once per round too."""
+    if "interpod_terms" not in shared:
+        snap = ctx.snap
+        minc = None
+        if snap.has_topology_spread:
+            minc = shared["spread_minc"] = interpod_ops.spread_minc(snap, state)
+        shared["interpod_terms"] = ctx.kernels.interpod_terms(
+            snap, state, ctx.matched_pending, minc
+        )
+    return shared["interpod_terms"]
+
+
+class InterPodAffinity(PluginBase):
+    """Required and preferred inter-pod affinity and required anti-
+    affinity, as counts over (selector, topology-domain) instead of pairwise
+    pod comparisons (ops/interpod.py)."""
+
+    name = "InterPodAffinity"
 
     def extra_init(self, ctx: CycleContext):
-        snap = ctx.snap
-        if snap.has_inter_pod_affinity or snap.has_topology_spread:
-            raise _not_ported(self.name, "the affinity count state", self.item)
-        return None
+        return _claim_affinity_state(ctx, self.name)
 
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
-        if self._active(ctx.snap):
-            raise _not_ported(self.name, "the batched mask", self.item)
-        return None
+        if not ctx.snap.has_inter_pod_affinity:
+            return None
+        return _shared_terms(ctx, _affinity_state(ctx, extra), shared).aff_mask
 
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
                           feasible, shared):
-        if self._active(ctx.snap):
-            raise _not_ported(self.name, "the batched score", self.item)
-        return None
+        if not ctx.snap.has_inter_pod_affinity:
+            return None
+        terms = _shared_terms(ctx, _affinity_state(ctx, extra), shared)
+        return ctx.kernels.interpod_norm(terms.aff_raw, feasible, False)
+
+    def extra_update_batched(self, ctx: CycleContext, extra, accepted,
+                             node_of):
+        return _update_affinity_state_batched(
+            ctx, self.name, extra, accepted, node_of
+        )
 
 
-class InterPodAffinity(_AffinityStatePlugin):
-    name = "InterPodAffinity"
-    flag = "has_inter_pod_affinity"
-
-
-class PodTopologySpread(_AffinityStatePlugin):
+class PodTopologySpread(PluginBase):
     name = "PodTopologySpread"
-    flag = "has_topology_spread"
+
+    def extra_init(self, ctx: CycleContext):
+        return _claim_affinity_state(ctx, self.name)
+
+    def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
+                         shared):
+        if not ctx.snap.has_topology_spread:
+            return None
+        return _shared_terms(ctx, _affinity_state(ctx, extra), shared).spread_mask
+
+    def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
+                          feasible, shared):
+        if not ctx.snap.has_topology_spread:
+            return None
+        terms = _shared_terms(ctx, _affinity_state(ctx, extra), shared)
+        return ctx.kernels.interpod_norm(terms.spread_raw, feasible, True)
+
+    def extra_update_batched(self, ctx: CycleContext, extra, accepted,
+                             node_of):
+        return _update_affinity_state_batched(
+            ctx, self.name, extra, accepted, node_of
+        )
 
 
 class DefaultPreemption(PluginBase):

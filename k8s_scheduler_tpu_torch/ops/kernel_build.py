@@ -20,16 +20,32 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# every CUDA source under csrc/ and its extra flags: --fmad=false keeps each
+# multiply and add separately rounded where the reference's arithmetic is
+# reproduced bit for bit
+CUDA_KERNELS: dict[str, tuple[str, ...]] = {
+    "static_base": ("--fmad=false",),
+    "interpod_terms": ("--fmad=false",),
+    "affinity_update": (),
+    "capacity": ("--fmad=false",),
+    "guard_sweep": (),
+}
 
-launch_counts: dict[str, int] = {"static_base": 0, "claim_pass": 0}
+launch_counts: dict[str, int] = {
+    "static_base": 0, "claim_pass": 0, "interpod_terms": 0, "interpod_norm": 0,
+    "affinity_update": 0, "capacity": 0, "guard_sweep": 0,
+}
 _libs: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build
 
 
 def reset_launch_counts() -> None:
@@ -51,10 +67,10 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_cuda_library(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
+def build_cuda_library(name: str) -> Path:
     """Compile csrc/<name>.cu into _build/lib<name>-<hash>.so (cached)."""
     src = CSRC_DIR / f"{name}.cu"
-    flags = NVCC_FLAGS + tuple(extra_flags)
+    flags = NVCC_FLAGS + CUDA_KERNELS[name]
     digest = hashlib.sha1(src.read_bytes() + repr(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
@@ -69,12 +85,37 @@ def build_cuda_library(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
                 f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}"
             )
         os.replace(tmp, out)
+        build_logs[name] = proc.stderr
     return out
 
 
-def load_cuda_library(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+def load_cuda_library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_cuda_library(name, extra_flags)))
+        lib = ctypes.CDLL(str(build_cuda_library(name)))
         _libs[name] = lib
     return lib
+
+
+def checked(kernel: str, t: torch.Tensor, dtype: torch.dtype, shape,
+            device: torch.device) -> torch.Tensor:
+    """`t` as a contiguous kernel argument, or ValueError if its dtype,
+    shape or device is not what the kernel takes."""
+    if t.dtype != dtype or t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: want {dtype} {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on_error(kernel: str, err: int) -> None:
+    """A C launcher returns cudaGetLastError() after its launches."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")

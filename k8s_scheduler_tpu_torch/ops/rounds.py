@@ -9,19 +9,20 @@ handful of batched passes.
   2. ACCEPT — `passes` capacity passes: every unaccepted pod claims its
               best live choice with the node-local score re-anchored to
               the in-round node_req; claims resolve per node in rank order
-              (sorted segmented prefix of requests); a loser that no longer
-              fits the node alone marks that choice dead. One guard sweep
-              at round end revokes claims that conflict within the round
-              (hostPort exclusivity in this slice).
+              (K5 `capacity` over the (node, rank) sort); a loser that no
+              longer fits the node alone marks that choice dead. One guard
+              sweep at round end (K6 `guard_sweep`) revokes claims that
+              conflict within the round: anti-affinity in both directions,
+              affinity bootstrap, DoNotSchedule spread caps, hostPorts.
   3. UPDATE — accepted placements fold into the running state.
 
 Round 0 covers the whole pending set; later rounds run over a compacted
 view of the lowest-rank `compact_window(P)` actives. The loop is a Python
 loop whose stop condition reads one device scalar per round.
 
-Not in this slice: the shortlist path, one-hot compaction, the mesh, and
-the anti-affinity/spread/bootstrap/PV guard roles (ROADMAP A4, A13) — a
-snapshot that needs them raises NotImplementedError."""
+Not in this slice: the shortlist path, one-hot compaction, the mesh
+(ROADMAP A13) and the static-PV guard role (A4b) — a snapshot with
+volumes raises NotImplementedError."""
 
 from __future__ import annotations
 
@@ -30,7 +31,10 @@ from typing import Any, Callable
 
 import torch
 
+from ..models import encoding as enc
+from . import guard_sweep as gs
 from . import interpod as interpod_ops
+from .capacity import capacity
 from .claim_pass import NEG_INF, claim_pass
 from .resources import fit_slack
 
@@ -43,30 +47,13 @@ class RoundsResult:
     assignment: torch.Tensor  # i32 [P] node index or -1
     node_requested: torch.Tensor  # f32 [N, R] post-commit
     extra: Any  # final plugin state
+    placed_round: torch.Tensor  # i32 [P] round each pod was accepted in, or -1
 
 
 def compact_window(P: int, compact: int = 8) -> int:
     """Row count of the compacted per-round view: the `P/compact`
     lowest-rank actives, padded to a multiple of 128."""
     return min(P, max(256, -(-P // compact) // 128 * 128))
-
-
-def index_add_exact(target: torch.Tensor, idx: torch.Tensor,
-                    rows: torch.Tensor) -> torch.Tensor:
-    """target + (rows summed per index), with each index's sum taken in f64
-    in a fixed order and rounded once: deterministic on every device, and
-    equal to the reference's f32 one-hot product wherever that is exact."""
-    if idx.numel() == 0:
-        return target
-    order = torch.argsort(idx, stable=True)
-    s_idx = idx[order].long()
-    s_rows = rows[order].to(torch.float64)
-    cum = torch.cumsum(s_rows, dim=0)
-    last = torch.ones_like(s_idx, dtype=torch.bool)
-    last[:-1] = s_idx[1:] != s_idx[:-1]
-    ends = cum[last]
-    totals = ends - torch.cat([ends.new_zeros((1,) + ends.shape[1:]), ends[:-1]])
-    return target.index_add(0, s_idx[last], totals.to(target.dtype))
 
 
 def _matched_active(m_pending, active_sel, ms: int):
@@ -95,22 +82,11 @@ def _pod_view(snap, gid: torch.Tensor):
     return dataclasses.replace(snap, **updates)
 
 
-def _seg_scan_tables(keys, pods, counts: dict[str, torch.Tensor]):
-    """Entries sorted by (key, rank): for each 0/1 indicator column, the
-    in-segment count strictly before each entry's POD (one pod's own
-    entries never block each other)."""
-    L = keys.shape[0]
-    i = torch.arange(L, device=keys.device)
-    first = torch.ones((1,), dtype=torch.bool, device=keys.device)
-    seg_start = torch.cat([first, keys[1:] != keys[:-1]])
-    run_start = seg_start | torch.cat([first, pods[1:] != pods[:-1]])
-    seg_first = torch.cummax(torch.where(seg_start, i, -1), dim=0).values
-    run_first = torch.cummax(torch.where(run_start, i, -1), dim=0).values
-    names = list(counts)
-    x = torch.stack([counts[n] for n in names], dim=1).to(torch.int64)
-    before = torch.cumsum(x, dim=0) - x
-    delta = before[run_first] - before[seg_first]
-    return {n: delta[:, c] for c, n in enumerate(names)}
+def _owner_state(ext_state):
+    for v in ext_state.values():
+        if isinstance(v, interpod_ops.AffinityState):
+            return v
+    return None
 
 
 def rounds_commit(
@@ -127,74 +103,126 @@ def rounds_commit(
     passes_round0: int = 10,
     score_anchor_fn: Callable | None = None,  # node_requested -> f32 [N]
     claim_pass_fn: Callable = claim_pass,
+    capacity_fn: Callable = capacity,
+    guard_sweep_fn: Callable = gs.guard_sweep,
 ) -> RoundsResult:
-    if snap.has_inter_pod_affinity or snap.has_topology_spread:
-        raise NotImplementedError(
-            "rounds guards for inter-pod affinity / topology spread are not "
-            "ported yet (ROADMAP A4)"
-        )
     if snap.has_volumes:
         raise NotImplementedError(
-            "the rounds engine's static-PV guard is not ported yet (ROADMAP A4)"
+            "the rounds engine's static-PV guard is not ported yet (ROADMAP A4b)"
         )
     P, N = sbase.shape
     dev = sbase.device
     S = m_pending.shape[0]
     D = snap.domain_key.shape[0]
+    K = snap.node_domains.shape[1]
+    MA = snap.pod_anti_terms.shape[1]
+    MC = snap.pod_tsc.shape[1]
     Q = snap.num_distinct_ports
     V = snap.pv_avail.shape[0]
     MPorts = snap.pod_port_ids.shape[1]
     rank_g = snap.pod_order.to(torch.int32)  # [P] lower = earlier
-    rank_space = 1 << int(P - 1).bit_length()  # active ranks are < P
+    rank_bits = int(P - 1).bit_length()
+    rank_space = 1 << rank_bits  # active ranks are < P
 
     anti_active, spread_active = interpod_ops.selector_activity(snap)
     active_sel = anti_active | spread_active | interpod_ops.affinity_used(snap)
-    # the per-pod matched-selector lists feed the anti-affinity/spread guard
-    # roles (A4); this slice reads only their overflow flags
-    _, overflow_g = _matched_active(m_pending, active_sel, MS_MATCH)
+    matched_sels_g, overflow_g = _matched_active(m_pending, active_sel, MS_MATCH)
 
+    has_guards = bool(snap.has_inter_pod_affinity or snap.has_topology_spread)
+    has_port_guards = Q > 0
     # group-key space as in the reference: domain groups, per-selector
     # global groups, (node, port) groups, static-PV groups, invalid
-    GK_PORT = S * (D + 1) + S
-    GK_INVALID = GK_PORT + N * Q + V + 1
+    GK_GLOBAL = S * (D + 1)
+    GK_PORT = GK_GLOBAL + S
+    GK_PV = GK_PORT + N * Q
+    GK_INVALID = GK_PV + V + 1
 
     alloc = snap.node_allocatable  # [N, R]
     slack = fit_slack(alloc)
 
-    def guards_ok(vsnap, vrank, choice, live):
+    def guards_ok(vsnap, vrank, vsels, choice, live, ext_state):
         """Participant-table sweep over the round's accepted claims: within
-        a (node, port) group the lowest rank wins. ok bool [B]."""
+        a (selector, domain) / (node, port) group, entries resolve in rank
+        order (K6 after the sort). ok bool [B]."""
         B = vrank.shape[0]
-        nsafe = choice.clamp(0, N - 1).to(torch.int64)
-        keys = []
-        for j in range(MPorts):
-            ids = vsnap.pod_port_ids[:, j]
-            key = GK_PORT + nsafe * Q + ids.clamp(0, Q - 1).to(torch.int64)
-            keys.append(torch.where((ids >= 0) & live, key, GK_INVALID))
-        keys_c = torch.stack(keys, dim=0).reshape(-1)
-        ranks_c = vrank.clamp(max=rank_space - 1).to(torch.int64).repeat(len(keys))
-        order = torch.argsort(keys_c * rank_space + ranks_c, stable=True)
-        keys_s = keys_c[order]
-        pods_s = order % B
-        before = _seg_scan_tables(
-            keys_s, pods_s, {"port": torch.ones_like(keys_s)}
-        )
-        ok_e = (before["port"] == 0) | (keys_s == GK_INVALID)
-        ok = torch.ones(B, dtype=torch.bool, device=dev)
-        ok[pods_s[~ok_e]] = False
-        return ok
+        state = _owner_state(ext_state) if has_guards else None
+        if state is None and not has_port_guards:
+            return torch.ones(B, dtype=torch.bool, device=dev)
+        nsafe = choice.clamp(0, N - 1).long()
+        keys, roles, caps = [], [], []
+
+        def emit(key, valid, role, cap=None):
+            keys.append(torch.where(valid & live, key, GK_INVALID))
+            roles.append(role)
+            caps.append(cap)
+
+        def dom_key(sel, d):
+            return sel.clamp(0, S - 1).long() * (D + 1) + (d.long() + 1)
+
+        if state is not None:
+            node_dom = snap.node_domains[nsafe]  # [B, K]
+            boot_active = state.total == 0  # [S]
+            if snap.has_inter_pod_affinity:
+                for a in range(MA):
+                    sel = vsnap.pod_anti_terms[:, a, 0]
+                    k = vsnap.pod_anti_terms[:, a, 1].clamp(0, K - 1).long()
+                    d = node_dom.gather(1, k[:, None])[:, 0]
+                    emit(dom_key(sel, d), (sel >= 0) & (d >= 0), gs.RB_ANTI)
+                for a in range(MA):
+                    sel = vsnap.pod_aff_terms[:, a, 0]
+                    scl = sel.clamp(0, S - 1).long()
+                    emit(GK_GLOBAL + scl, (sel >= 0) & boot_active[scl], gs.RB_BOOT)
+            if snap.has_topology_spread:
+                minc = interpod_ops.spread_minc(snap, state)  # [K*S]
+                for c in range(MC):
+                    k = vsnap.pod_tsc[:, c, 0]
+                    sel = vsnap.pod_tsc[:, c, 1]
+                    when = vsnap.pod_tsc[:, c, 2]
+                    kcl = k.clamp(0, K - 1).long()
+                    d = node_dom.gather(1, kcl[:, None])[:, 0]
+                    scl = sel.clamp(0, S - 1).long()
+                    hard = (k >= 0) & (when == enc.WHEN_DO_NOT_SCHEDULE) & (d >= 0)
+                    cnt = state.counts[scl, d.clamp(0, D - 1).long()]
+                    cap = ((vsnap.pod_tsc_skew[:, c].to(torch.float32) - cnt)
+                           + minc[kcl * S + scl]).to(torch.int32)
+                    emit(dom_key(sel, d), hard, gs.RB_SPREAD, cap=cap.clamp(min=1))
+            # matchers feed the anti guard and the spread arrival counts
+            for m in range(MS_MATCH):
+                sel = vsels[:, m]
+                scl = sel.clamp(0, S - 1).long()
+                for k in range(K):
+                    d = node_dom[:, k]
+                    emit(dom_key(sel, d), (sel >= 0) & (d >= 0), gs.RB_MATCH)
+                if snap.has_inter_pod_affinity:
+                    emit(GK_GLOBAL + scl, (sel >= 0) & boot_active[scl], gs.RB_GMATCH)
+        if has_port_guards:
+            for j in range(MPorts):
+                ids = vsnap.pod_port_ids[:, j]
+                emit(GK_PORT + nsafe * Q + ids.clamp(0, Q - 1).long(), ids >= 0,
+                     gs.RB_PORT)
+
+        keys_c = torch.stack(keys, dim=0).reshape(-1)  # slot-major [slots * B]
+        ranks_c = vrank.clamp(max=rank_space - 1).long().repeat(len(keys))
+        s_packed, perm = torch.sort(keys_c * rank_space + ranks_c, stable=True)
+        caps_c = None
+        if any(c is not None for c in caps):
+            no_cap = torch.full((B,), gs.NO_CAP, dtype=torch.int32, device=dev)
+            caps_c = torch.stack([no_cap if c is None else c for c in caps]).reshape(-1)
+        role_tab = torch.tensor(roles, dtype=torch.int32, device=dev)
+        return guard_sweep_fn(s_packed, perm, rank_bits, B, role_tab, caps_c,
+                              GK_INVALID)
 
     def one_round(gid, act_v, node_req, ext, n_passes: int, identity: bool):
         B = gid.shape[0]
         if identity:
             vsnap, vmp, vsbase = snap, m_pending, sbase
-            vrank, vovf = rank_g, overflow_g
+            vrank, vsels, vovf = rank_g, matched_sels_g, overflow_g
         else:
             g = gid.long()
             vsnap = _pod_view(snap, gid)
             vmp = m_pending[:, g]
             vsbase = sbase[g]
-            vrank, vovf = rank_g[g], overflow_g[g]
+            vrank, vsels, vovf = rank_g[g], matched_sels_g[g], overflow_g[g]
         vsmask = vsbase > NEG_INF * 0.5
         mask, score = dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsmask)
         mask = mask & vsmask & act_v[:, None]
@@ -202,32 +230,15 @@ def rounds_commit(
         anchor0 = score_anchor_fn(node_req) if score_anchor_fn is not None else None
         pid = torch.arange(B, device=dev)
         req = vsnap.pod_requested
+        rkey = vrank.clamp(max=rank_space - 1).long()
 
         def resolve_capacity(live, best, node_req):
             """Rank-ordered capacity resolution of one pass's claims:
             (accepted bool [B], node_req')."""
-            nkey = torch.where(live, best, N).to(torch.int64)
-            rkey = vrank.clamp(max=rank_space - 1).to(torch.int64)
+            nkey = torch.where(live, best, N).long()
             s_key, order = torch.sort(nkey * rank_space + rkey, stable=True)
-            s_node = s_key // rank_space
-            s_live = s_node < N
-            s_req = torch.where(s_live[:, None], req[order], 0.0)
-            # segmented exclusive prefix within each node's run, in f64
-            # (exact for request sums of any realistic size)
-            cum = torch.cumsum(s_req.to(torch.float64), dim=0)
-            before = cum - s_req.to(torch.float64)
-            i = torch.arange(B, device=dev)
-            seg_start = torch.ones(B, dtype=torch.bool, device=dev)
-            seg_start[1:] = s_node[1:] != s_node[:-1]
-            seg_first = torch.cummax(torch.where(seg_start, i, -1), dim=0).values
-            seg_before = (before - before[seg_first]).to(torch.float32)
-            nsafe = s_node.clamp(0, N - 1)
-            free = (alloc[nsafe] - node_req[nsafe]) + slack[nsafe]
-            fits = torch.all(seg_before + s_req <= free, dim=1) & s_live
-            accepted = torch.zeros(B, dtype=torch.bool, device=dev)
-            accepted[order] = fits
-            node_req = index_add_exact(node_req, best[accepted], req[accepted])
-            return accepted, node_req
+            return capacity_fn(s_key, order, rank_bits, req, node_req, alloc,
+                               slack, True)
 
         def fits_alone_at(best, node_req):
             # a capacity loser keeps the node alive if it still fits ALONE
@@ -267,9 +278,12 @@ def rounds_commit(
 
         # round-end guard sweep over ALL capacity-accepted claims; revoked
         # pods retry next round against refreshed masks
-        g_ok = guards_ok(vsnap, vrank, acc_node, acc)
+        g_ok = guards_ok(vsnap, vrank, vsels, acc_node, acc, ext)
         revoked = acc & ~g_ok
-        node_req = index_add_exact(node_req, acc_node[revoked], -req[revoked])
+        s_key, order = torch.sort(torch.where(revoked, acc_node, N).long(),
+                                  stable=True)
+        _, node_req = capacity_fn(s_key, order, 0, -req, node_req, alloc,
+                                  slack, False)
         acc = acc & g_ok
         acc_node = torch.where(acc, acc_node, -1)
         ext = update_batched_view_fn(
@@ -283,6 +297,7 @@ def rounds_commit(
         gid0, snap.pod_valid, snap.node_requested, extra, passes_round0, True
     )
     placed = torch.where(acc0, node0, -1)
+    placed_round = torch.where(acc0, 0, -1).to(torch.int32)
     active = snap.pod_valid & ~acc0
 
     # ---- rounds 1+: compacted to the lowest-rank actives. A zero-accept
@@ -304,6 +319,7 @@ def rounds_commit(
         )
         g = gid.long()
         placed[g] = torch.where(accepted, node_of, placed[g])
+        placed_round[g] = torch.where(accepted, rnd, placed_round[g])
         active[g] = act_v & ~accepted
         skip = torch.where(accepted.any(), 0, skip + B)
         rnd += 1
@@ -312,4 +328,5 @@ def rounds_commit(
         assignment=placed.to(torch.int32),
         node_requested=node_req,
         extra=extra,
+        placed_round=placed_round,
     )

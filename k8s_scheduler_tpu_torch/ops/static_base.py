@@ -235,7 +235,7 @@ _ARGTYPES = (
 
 
 def _library():
-    lib = load_cuda_library("static_base", ("--fmad=false",))
+    lib = load_cuda_library("static_base")
     if lib.static_base_launch.argtypes is None:
         lib.static_base_launch.argtypes = _ARGTYPES
         lib.static_base_launch.restype = ctypes.c_int

@@ -1,6 +1,7 @@
-"""Where a cycle's time goes on the card: torch.profiler over cycles of the
-slice workload (`utils.synth.config4_cluster_config2_pending`, the
-workload chip_smoke.py drives).
+"""Where a cycle's time goes on the card: torch.profiler over cycles of
+BASELINE config #4's workload (`utils.synth.config4_workload`, the
+workload of chip_smoke.py's phase affinity: inter-pod affinity and spread
+on both sides, 10000 pending x 5000 nodes x 12000 running).
 
     python3 -m k8s_scheduler_tpu_torch.profile_cycle [--cycles 2] [--out PATH]
 
@@ -37,7 +38,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     seeds = tuple(range(201, 202 + args.cycles))
-    nodes, existing, pending = synth.config4_cluster_config2_pending(seeds)
+    nodes, existing, pending = synth.config4_workload(seeds)
     enc = SnapshotEncoder(device=dev)
     snaps = [enc.encode(nodes, pending[s], existing) for s in seeds]
     cycle = build_cycle_fn(device=dev)
@@ -63,7 +64,8 @@ def main(argv=None) -> int:
     ).stdout.strip()
     lines = [
         f"card: {smi}",
-        f"cycles profiled: {args.cycles} (slice workload, 10000 pending x 5000 nodes)",
+        f"cycles profiled: {args.cycles} (config #4's workload, 10000 pending "
+        "x 5000 nodes, 12000 running)",
         f"wall ms/cycle: {wall_ms:.3f}",
         f"device kernel ms/cycle: {dev_ms:.3f}",
         f"device busy share: {dev_ms / wall_ms:.4f}",

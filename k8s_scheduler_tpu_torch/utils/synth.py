@@ -116,6 +116,40 @@ def make_gang_pods(
     return pods, groups
 
 
+# BASELINE config #4's pending mix (`bench_suite.py` PENDING_PARAMS[4])
+CONFIG4_PENDING = dict(
+    affinity_fraction=0.3, anti_affinity_fraction=0.2, spread_fraction=0.2,
+    selector_fraction=0.3, toleration_fraction=0.1,
+    priorities=(0, 0, 10, 100), num_apps=500,
+)
+
+
+def config4_workload(
+    pending_seeds,
+    num_nodes: int = 5000,
+    num_existing: int = 12000,
+    num_pending: int = 10000,
+    num_apps: int = 500,
+) -> tuple[list[Node], list[tuple[Pod, str]], dict[int, list[Pod]]]:
+    """BASELINE config #4's workload (`bench_suite.py`
+    make_config_workload(4)): small nodes, a running workload with
+    inter-pod affinity and topology spread bound round-robin, and the
+    config's pending mix (required affinity and anti-affinity, spread,
+    node selectors, tolerations, four priority levels). The defaults are
+    the config's full size; smaller sizes keep its shapes for tests.
+    Returns (nodes, existing, {seed: pending})."""
+    nodes = make_cluster(num_nodes, taint_fraction=0.1, cpu_choices=(4, 8, 16))
+    running = make_pods(num_existing, seed=991, name_prefix="run",
+                        affinity_fraction=0.1, spread_fraction=0.1,
+                        num_apps=num_apps)
+    existing = [(p, f"node-{i % num_nodes}") for i, p in enumerate(running)]
+    pending = {
+        s: make_pods(num_pending, seed=s, **dict(CONFIG4_PENDING, num_apps=num_apps))
+        for s in pending_seeds
+    }
+    return nodes, existing, pending
+
+
 def config4_cluster_config2_pending(
     pending_seeds,
     num_nodes: int = 5000,

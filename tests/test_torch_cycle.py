@@ -6,7 +6,7 @@ bit-equal to the reference on every fixture: the synthetic configs #1,
 #2 and #5 (a gang that unwinds), hostPort contention that only the guard
 sweep resolves, nominated pods, and node sampling on clusters past the
 100-node floor. The reference's own validity oracle holds the port's
-placements too. Snapshots the slice does not cover raise
+placements too. Snapshots the port does not cover yet (volumes) raise
 NotImplementedError; entry points never run on the CPU unasked; the port
 imports nothing of JAX or the JAX package."""
 
@@ -124,19 +124,29 @@ def test_cycle_bit_equal_to_reference(case):
     assert violations == []
 
 
-@pytest.mark.parametrize("feature", ["inter_pod_affinity", "topology_spread"])
+@pytest.mark.parametrize("feature", ["bound_pvc", "unbound_pvc"])
 def test_cycle_raises_on_uncovered_features(feature):
-    kw = ({"affinity_fraction": 0.5} if feature == "inter_pod_affinity"
-          else {"spread_fraction": 0.5})
+    """Volumes are the next slice (ROADMAP A4b): a snapshot with a volume
+    claim raises instead of scheduling without the VolumeBinding filter."""
+    from k8s_scheduler_tpu.models.api import (PersistentVolume,
+                                              PersistentVolumeClaim, StorageClass)
+
+    bound = feature == "bound_pvc"
+    pvc = PersistentVolumeClaim("data", storage_class="fast", request=1.0,
+                                volume_name="pv0" if bound else "")
+    pv = PersistentVolume("pv0", capacity=2.0, storage_class="fast",
+                          claim_ref="default/data" if bound else "")
     ref_snap = ref_models.SnapshotEncoder().encode(
-        ref_synth.make_cluster(8), ref_synth.make_pods(20, seed=1, **kw)
+        ref_synth.make_cluster(8),
+        [ref_models.MakePod("p").req({"cpu": "1"}).volume("data").obj()],
+        pvcs=[pvc], pvs=[pv], storage_classes=[StorageClass("fast")],
     )
     port_snap = snapshot_from_numpy(
         ref_snap.array_fields(), {k: getattr(ref_snap, k) for k in AUX_FIELDS},
         device="cpu",
     )
-    assert getattr(port_snap, f"has_{feature}")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    assert port_snap.has_volumes
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
         build_cycle_fn(device="cpu")(port_snap)
 
 

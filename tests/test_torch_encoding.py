@@ -2,7 +2,10 @@
 
 Both packages build the same synthetic objects from the same seeds with
 their own builders; every array field (dtype, shape, values) and every
-static flag of the port's snapshot must equal the reference snapshot's."""
+static flag of the port's snapshot must equal the reference snapshot's —
+on config #3- and #4-shaped workloads too, whose inter-pod affinity,
+spread, selector, domain and existing-pod term fields the affinity path
+reads."""
 
 from __future__ import annotations
 
@@ -104,10 +107,25 @@ def fixture(name: str, models, synth):
         return _mixed(M)
     if name == "nominated":
         return _nominated(M)
+    if name == "cfg3":  # bench_suite's config #3 mix at 48 nodes
+        return (synth.make_cluster(48),
+                synth.make_pods(200, seed=3, affinity_fraction=0.3,
+                                anti_affinity_fraction=0.2, spread_fraction=0.2,
+                                num_apps=500), [], [])
+    if name == "cfg4":  # config #4: running affinity/spread pods, full mix
+        nodes = synth.make_cluster(48, taint_fraction=0.1, cpu_choices=(4, 8, 16))
+        running = synth.make_pods(120, seed=991, name_prefix="run",
+                                  affinity_fraction=0.1, spread_fraction=0.1,
+                                  num_apps=40)
+        pods = synth.make_pods(200, seed=4, affinity_fraction=0.3,
+                               anti_affinity_fraction=0.2, spread_fraction=0.2,
+                               selector_fraction=0.3, toleration_fraction=0.1,
+                               priorities=(0, 0, 10, 100), num_apps=40)
+        return nodes, pods, [(p, f"node-{i % 48}") for i, p in enumerate(running)], []
     raise ValueError(name)
 
 
-FIXTURES = ["cfg1", "cfg2", "cfg5", "mixed", "nominated"]
+FIXTURES = ["cfg1", "cfg2", "cfg5", "mixed", "nominated", "cfg3", "cfg4"]
 
 
 def reference_snapshot(name):
@@ -138,7 +156,15 @@ def assert_same_snapshot(ref, port):
 
 @pytest.mark.parametrize("name", FIXTURES)
 def test_encoder_matches_reference(name):
-    assert_same_snapshot(reference_snapshot(name), port_snapshot(name))
+    ref = reference_snapshot(name)
+    assert_same_snapshot(ref, port_snapshot(name))
+    if name in ("cfg3", "cfg4"):
+        for f in ("pod_aff_terms", "pod_anti_terms", "pod_tsc", "sel_exprs"):
+            assert (np.asarray(getattr(ref, f)) >= 0).any(), f
+        assert ref.has_inter_pod_affinity and ref.has_topology_spread
+    if name == "cfg4":
+        assert (np.asarray(ref.exist_label_keys) >= 0).any()
+        assert (np.asarray(ref.domain_node_count) > 0).sum() > 6
 
 
 def test_encoder_matches_reference_across_encodes():

@@ -31,7 +31,9 @@ from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
 from k8s_scheduler_tpu_torch.ops import (
     argsel,
+    capacity,
     claim_pass,
+    guard_sweep,
     images,
     interpod,
     labels,
@@ -248,7 +250,7 @@ def test_rounds_helpers():
     cols = {"a": rng.integers(0, 2, 60).astype(np.int32),
             "b": rng.integers(0, 2, 60).astype(np.int32)}
     want = jax.jit(ref_rounds._seg_scan_tables)(keys, pods, cols)
-    got = rounds._seg_scan_tables(torch.from_numpy(keys), torch.from_numpy(pods),
+    got = guard_sweep.seg_scan_tables(torch.from_numpy(keys), torch.from_numpy(pods),
                                   {k: torch.from_numpy(v) for k, v in cols.items()})
     for k in cols:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
@@ -262,7 +264,7 @@ def test_index_add_exact():
     idx = rng.integers(0, 6, 40).astype(np.int32)
     rows = (rng.integers(1, 16, (40, 3)) * 250.0).astype(np.float32)
     want = np.asarray(jnp.asarray(target).at[idx].add(rows))
-    got = rounds.index_add_exact(torch.from_numpy(target), torch.from_numpy(idx),
+    got = capacity.index_add_exact(torch.from_numpy(target), torch.from_numpy(idx),
                                  torch.from_numpy(rows))
     assert_exact(got, want)
 
