@@ -13,8 +13,9 @@ pending pods, padded P=16384, N=8192):
            taints and tolerations; no inter-pod affinity);
   affinity config #4's own workload: running pods with inter-pod affinity
            and topology spread, pending pods with required affinity,
-           anti-affinity, spread, selectors, tolerations, four priorities
-           (preemption is not run: ROADMAP A6).
+           anti-affinity, spread, selectors, tolerations, four priorities;
+           the preemption phase then runs DefaultPreemption after each of
+           its cycles, which makes config #4 whole.
 
 Phases:
 
@@ -30,7 +31,19 @@ Phases:
                 their plain versions at full size (bit-equal), and each
                 timed placement also checked for anti-affinity (both
                 directions), required affinity or its bootstrap, and
-                DoNotSchedule skew at the round each pod was placed in.
+                DoNotSchedule skew at the round each pod was placed in;
+  5. preemption — `build_preemption_fn()` (K7 `preempt_prefilter`, K8
+                `preempt_whatif`, K9 `preempt_claim`) on the affinity
+                phase's snapshots and decisions: the kernels' preemption
+                equal to the plain-versions preemption, K7-K9 each equal to
+                its plain version at full size on each seed's real inputs
+                (K8 also with them cut to 512 nodes of 72 pods), and every nomination valid (unplaced, may preempt, not
+                gang-dropped; victims a contiguous lower-priority run on its
+                node that makes it fit after the earlier nominations there;
+                static gate; at most scan_budget nominations); at least one
+                preemptor; then the same on a variant with one PDB per app
+                (GP = 500), counting nominations that needed a violation,
+                and on slice 1's workload (no affinity tables).
 
 The second-to-last lines are the kernel table (JSON) and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
@@ -55,6 +68,7 @@ STATIC_BASE_TOL = 1e-3  # max |kernel - plain| of the static base (target 0)
 N_NODES, N_EXISTING, N_PENDING = 5000, 12000, 10000
 WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
 AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
+PDB_SEED = 17  # config4_pdbs draw of the PDB variant
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 
 
@@ -293,6 +307,306 @@ def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms,
             "library_ms": library_ms}
 
 
+def check_preemption(torch, snap, d, r, gate_fn, scan_budget):
+    """Nominations checked with the port's plain functions, without the
+    reference: every nominated pod was left unplaced by the cycle, may
+    preempt and was not gang-dropped; per node, the victims are a prefix
+    of node_pods and split, in rank order, into one non-empty run per
+    nominated pod (each run's greedy smallest end where its victims are all
+    below the pod's priority and the pod fits on the post-cycle requests
+    minus the victims so far plus the pods nominated there before it; the
+    last run ends at the prefix); no victim elsewhere; the nominated node
+    passes the static gate; at most scan_budget nominations. Returns
+    (nominations, victims, nominations that needed a PDB violation)."""
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.ops.resources import fit_slack
+
+    nom = r.nominated
+    ids = torch.nonzero(nom >= 0, as_tuple=True)[0]
+    n_nom = int(ids.numel())
+    check(int(r.num_preemptors) == n_nom, "num_preemptors != nominated count")
+    check(n_nom <= scan_budget, f"{n_nom} nominations > scan_budget {scan_budget}")
+    check(bool(((nom >= -1) & (nom < int(snap.num_nodes))).all()), "nomination out of range")
+    check(bool((d.assignment[ids] < 0).all()), "a nominated pod was placed by the cycle")
+    check(bool(snap.pod_can_preempt[ids].all() & snap.pod_valid[ids].all()),
+          "a nominated pod may not preempt")
+    check(not bool(d.gang_dropped[ids].any()), "a gang-dropped pod was nominated")
+    if n_nom:
+        gate = gate_fn(ids.to(torch.int32))
+        check(bool(gate[torch.arange(n_nom), nom[ids].long()].all()),
+              "a nominated node fails the static gate")
+    vt = pre.victim_tables(snap)
+    E = snap.exist_valid.shape[0]
+    vict = r.victims.clone()
+    check(not bool((vict & ~snap.exist_valid).any()), "a padding slot is a victim")
+    base = (snap.node_allocatable - d.node_requested).cpu()
+    slack = fit_slack(snap.node_allocatable).cpu()
+    order = ids[torch.argsort(snap.pod_order[ids])].tolist()  # rank order
+    prio = snap.pod_priority.cpu()
+    req = snap.pod_requested.cpu()
+    freed = vt.prefix_freed.cpu()
+    vprio = vt.vict_prio.cpu()
+    pods_of = vt.node_pods.cpu()
+    vpdb = vt.vict_pdb.cpu()
+    vict_c = vict.cpu()
+    allowed = snap.pdb_allowed.cpu()
+    used = torch.zeros_like(allowed)
+    k_at: dict[int, int] = {}
+    nominated_req: dict[int, torch.Tensor] = {}
+    last_on = {}
+    for p in order:
+        last_on[int(nom[p])] = p
+    n_viol = 0
+    for p in order:
+        b = int(nom[p])
+        row = pods_of[b]
+        on_node = vict_c[row.clamp(0, E - 1).long()] & (row >= 0)
+        K = int(on_node.sum())
+        check(bool(on_node[:K].all()), f"victims on node {b} are not a prefix of node_pods")
+        k0 = k_at.get(b, 0)
+        nreq = nominated_req.get(b, torch.zeros_like(base[b]))
+        free = (base[b] - nreq) + slack[b]  # the claim loop's operation order
+        ends = [k for k in range(k0 + 1, row.shape[0] + 1)
+                if int(vprio[b, k - 1]) < int(prio[p])
+                and bool((req[p] <= free + freed[b, k]).all())]
+        if last_on[b] == p:
+            check(K in ends, f"pod {p}'s run on node {b} does not end at the victim prefix")
+            k1 = K
+        else:
+            check(bool(ends), f"pod {p} has no run on node {b}")
+            k1 = ends[0]
+        run = vpdb[b, k0:k1]  # [run, MB]
+        viol = False
+        for j in range(run.shape[0]):
+            for g in run[j][run[j] >= 0].tolist():
+                ordinal = int((run[: j + 1] == g).any(dim=1).sum())
+                viol |= ordinal > int(allowed[g] - used[g])
+        for g in run[run >= 0].tolist():
+            used[g] += 1
+        n_viol += int(viol)
+        k_at[b] = k1
+        nominated_req[b] = nreq + req[p]
+    n_vict = sum(k_at.values())
+    check(n_vict == int(vict_c.sum()), "a victim lies outside the nominated nodes' runs")
+    return n_nom, n_vict, n_viol
+
+
+def wide_whatif(wi, nodes: int = 512, reps: int = 9):
+    """K8's inputs cut to their first `nodes` nodes, each node's victim
+    slots repeated `reps` times: more than 63 pods per node, so the what-if
+    takes more than one 64-prefix word."""
+    return dataclasses.replace(
+        wi, node_pods=wi.node_pods[:nodes].repeat(1, reps).contiguous(),
+        node_domains=wi.node_domains[:nodes].contiguous(),
+        winner_conf=wi.winner_conf[:, :nodes].contiguous())
+
+
+def whatif_bytes(torch, wi) -> int:
+    """The bytes K8 must move on these inputs: the verdicts written once;
+    the node and candidate tables read once; of the [S, D] count and
+    [S, E] match tables only the rows of selectors the candidates' terms
+    name; the running pods' anti terms where there is affinity, and their
+    ports and the winner-port rows only for candidates with host ports."""
+    C2, N = wi.winner_conf.shape
+    MPN = wi.node_pods.shape[1]
+    b = C2 * N * (MPN + 1) + nbytes(wi.node_pods, wi.node_domains, wi.ports)
+    placed = int(torch.unique(wi.node_pods[wi.node_pods >= 0]).numel())
+    with_ports = int((wi.ports >= 0).any(dim=1).sum())
+    if with_ports:
+        b += with_ports * N + placed * wi.exist_ports.shape[1] * 4
+    sels = []
+    if wi.has_affinity:
+        sels += [wi.anti[..., 0].reshape(-1), wi.aff[..., 0].reshape(-1)]
+        b += nbytes(wi.anti, wi.aff, wi.row_d) + placed * wi.exist_anti[0].numel() * 4
+    if wi.has_spread:
+        hard = (wi.tsc[..., 0] >= 0) & (wi.tsc[..., 2] == 0)
+        sels.append(wi.tsc[..., 1][hard])
+        b += nbytes(wi.tsc, wi.tsc_skew, wi.sp_min1, wi.sp_amin, wi.sp_min2)
+    if sels:
+        s = torch.cat(sels)
+        rows = int(torch.unique(s[s >= 0]).numel())
+        b += rows * (wi.counts.shape[1] * 4 + wi.me.shape[1]) + nbytes(wi.total, wi.mp_c)
+    return b
+
+
+def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisions,
+                     cycle_ms, cycle_k, smi, slice1_case):
+    """Phase 5 (module docstring), plus the same checks on slice 1's first
+    timed snapshot and decision (no affinity or spread: K8's path without
+    the affinity tables). Returns {"kernels": entries, "ms": [...]}."""
+    from k8s_scheduler_tpu_torch.core.cycle import _preemption_gate_rows, build_preemption_fn
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
+    from k8s_scheduler_tpu_torch.ops import preempt_prefilter as k7
+    from k8s_scheduler_tpu_torch.ops import preempt_whatif as k8
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    pre_k = build_preemption_fn(fw, device=dev)
+
+    def plain_run(snap, d):
+        """The plain-versions preemption, recording each stage's inputs."""
+        rec = {"prefilter": Recorder(pre.prefilter_plain),
+               "whatif": Recorder(pre.nonresource_ok_plain),
+               "claim": Recorder(pre.claim_loop_plain)}
+        fn = build_preemption_fn(fw, device=dev, prefilter_fn=rec["prefilter"],
+                                 whatif_fn=rec["whatif"], claim_fn=rec["claim"])
+        t0 = time.time()
+        out = fn(snap, d)
+        torch.cuda.synchronize()
+        return out, {k: v.args[0] for k, v in rec.items()}, (time.time() - t0) * 1e3
+
+    def same(a, b):
+        return {f: torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("nominated", "victims", "num_preemptors")}
+
+    def stages_equal(args, tag):
+        pf, wi, cl = args["prefilter"], args["whatif"][0], args["claim"][0]
+        check(torch.equal(k7.preempt_prefilter_cuda(*pf), pre.prefilter_plain(*pf)),
+              f"{tag}: preempt_prefilter differs from its plain version")
+        check(torch.equal(k8.preempt_whatif_cuda(wi), pre.nonresource_ok_plain(wi)),
+              f"{tag}: preempt_whatif differs from its plain version")
+        wide = wide_whatif(wi)
+        check(torch.equal(k8.preempt_whatif_cuda(wide), pre.nonresource_ok_plain(wide)),
+              f"{tag}: preempt_whatif differs from its plain version at "
+              f"{wide.node_pods.shape[1]} pods per node")
+        (nk, ck), (np_, cp_) = k9.preempt_claim_cuda(cl), pre.claim_loop_plain(cl)
+        check(torch.equal(nk, np_) and all(torch.equal(getattr(ck, f), getattr(cp_, f))
+                                           for f in vars(ck)),
+              f"{tag}: preempt_claim differs from its plain version (nominations or carry)")
+        return int(cl.n_live.item())
+
+    def run_seed(tag, snap, d, rk):
+        rp, args, plain_ms = plain_run(snap, d)
+        eq = same(rk, rp)
+        check(all(eq.values()), f"{tag}: kernels' preemption differs from the plain one: {eq}")
+        n_live = stages_equal(args, tag)
+        gate_fn = _preemption_gate_rows(fw, CycleContext(snap))
+        n_nom, n_vict, n_viol = check_preemption(torch, snap, d, rk, gate_fn,
+                                                 pre.DEFAULT_SCAN_BUDGET)
+        return args, n_live, n_nom, n_vict, n_viol, plain_ms
+
+    # warm-up on the warm seed (allocator, first launches)
+    t0 = time.time()
+    pre_k(snaps[AFF_WARM_SEED], decisions[AFF_WARM_SEED])
+    torch.cuda.synchronize()
+    log(f"phase preemption warm-up: {(time.time() - t0) * 1e3:.1f} ms")
+
+    # the preemption main path: counts set to 0 just before, read just after
+    timed = []
+    kb.reset_launch_counts()
+    for s in AFF_TIMED_SEEDS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        r = pre_k(snaps[s], decisions[s])
+        end.record()
+        torch.cuda.synchronize()
+        timed.append((s, r, start.elapsed_time(end), (time.time() - t0) * 1e3))
+    launches = dict(kb.launch_counts)
+    log(f"phase preemption launches over {len(AFF_TIMED_SEEDS)} passes: {json.dumps(launches)}")
+    for k in ("preempt_prefilter", "preempt_whatif", "preempt_claim", "affinity_update"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the preemption path")
+    check(launches["preempt_claim"] == len(AFF_TIMED_SEEDS),
+          "the claim loop took more than one launch per pass")
+
+    stage_args = None
+    ms = []
+    for s, r, dev_ms, host_ms in timed:
+        args, n_live, n_nom, n_vict, n_viol, plain_ms = run_seed(f"seed {s}", snaps[s],
+                                                                 decisions[s], r)
+        check(n_nom > 0, f"seed {s}: no preemptor on config #4's workload")
+        stage_args = stage_args or args
+        ms.append(round(dev_ms, 2))
+        log(f"phase preemption seed {s}: cycle device {cycle_ms[s]:.1f} ms, preemption "
+            f"device {dev_ms:.2f} ms (host {host_ms:.1f} ms, plain versions "
+            f"{plain_ms:.1f} ms host); unschedulable {int(decisions[s].unschedulable.sum())}, "
+            f"{n_live} live candidates, {n_nom} nominations, {n_vict} victims, "
+            f"{n_viol} with a PDB violation; kernels == plain, K7-K9 == plain, "
+            f"nominations valid | {smi}")
+
+    # K7-K9 against their plain versions: timings on the first timed seed
+    pf, wi, cl = stage_args["prefilter"], stage_args["whatif"][0], stage_args["claim"][0]
+    C, R = pf[1].shape
+    N, MPN = pf[3].shape
+    C2 = wi.ports.shape[0]
+    k7_ms = time_ms(torch, lambda: k7.preempt_prefilter_cuda(*pf), 20)
+    k7_plain = time_ms(torch, lambda: pre.prefilter_plain(*pf), 3)
+    k7_bytes = nbytes(*pf) + C
+    gated = pf[6] & pf[7][None, :]
+    elig = (pf[3][None] < pf[0][:, None, None]).sum(dim=2)
+    k7_ops = int(gated.sum()) * MPN + 2 * R * int((elig * gated).sum())
+    k8_ms = time_ms(torch, lambda: k8.preempt_whatif_cuda(wi), 20)
+    k8_plain = time_ms(torch, lambda: pre.nonresource_ok_plain(wi), 2)
+    k8_bytes = whatif_bytes(torch, wi)
+    n_terms = C2 + int((wi.ports >= 0).any(dim=1).sum())  # symmetric, ports
+    for tab in (wi.anti, wi.aff):
+        if tab is not None:
+            n_terms += int((tab[..., 0] >= 0).sum())
+    if wi.tsc is not None:
+        n_terms += int(((wi.tsc[..., 0] >= 0) & (wi.tsc[..., 2] == 0)).sum())
+    k8_ops = n_terms * N * (MPN + 1) * 4  # per prefix: match, count, compare
+    k9_ms = time_ms(torch, lambda: k9.preempt_claim_cuda(cl), 20)
+    k9_plain = time_ms(torch, lambda: pre.claim_loop_plain(cl), 2)
+    n_live = int(cl.n_live.item())
+    t = cl.tables
+    k9_bytes = (n_live * N * (MPN + 2) + nbytes(t.node_pods, t.vict_prio, t.vict_start,
+                                               t.vict_pdb, t.prefix_freed, t.prefix_prio,
+                                               cl.alloc, cl.node_requested, cl.slack,
+                                               cl.node_valid, cl.pdb_allowed)
+                + C2 * 4 + N * 4 + N * R * 4)
+    k9_ops = n_live * N * (MPN + 1) * (2 * R + 4)
+    log(f"phase kernel preempt_prefilter: [{C}, {N}, {MPN + 1}] equal True; kernel "
+        f"{k7_ms:.3f} ms, plain {k7_plain:.3f} ms, bound {bound(k7_bytes, k7_ops)[0]:.4f} ms")
+    log(f"phase kernel preempt_whatif: [{C2}, {N}, {MPN + 1}] equal True (also at "
+        f"{wide_whatif(wi).node_pods.shape[1]} pods per node on 512 nodes); kernel "
+        f"{k8_ms:.3f} ms, plain {k8_plain:.3f} ms, bound {bound(k8_bytes, k8_ops)[0]:.4f} ms")
+    log(f"phase kernel preempt_claim: {n_live} live ranks over [{N}] nodes, one launch; "
+        f"equal True (nominations, carry); kernel {k9_ms:.3f} ms, plain {k9_plain:.3f} ms, "
+        f"bound {bound(k9_bytes, k9_ops)[0]:.4f} ms")
+    del stage_args, pf, wi, cl
+
+    # the PDB variant: one budget per app over the running pods
+    t0 = time.time()
+    pdbs = synth.config4_pdbs(seed=PDB_SEED)
+    psnap = SnapshotEncoder(device=dev).encode(nodes, pending[AFF_TIMED_SEEDS[0]], existing,
+                                               pdbs=pdbs)
+    torch.cuda.synchronize()
+    enc_ms = (time.time() - t0) * 1e3
+    pd = cycle_k(psnap)
+    _, n_live, n_nom, n_vict, n_viol, _ = run_seed("PDB variant", psnap, pd,
+                                                   pre_k(psnap, pd))
+    covered = int((psnap.exist_pdb[:, 0] >= 0).sum())
+    log(f"phase preemption PDB variant: GP={psnap.pdb_allowed.shape[0]} budgets over "
+        f"{covered} running pods (encode {enc_ms:.0f} ms); {n_live} live candidates, "
+        f"{n_nom} nominations, {n_vict} victims, {n_viol} nominations with a PDB "
+        f"violation; kernels == plain, K7-K9 == plain, nominations valid")
+    check(n_nom > 0, "PDB variant: no preemptor")
+    snap1, d1 = slice1_case
+    _, n_live, n_nom, n_vict, _, _ = run_seed("slice-1 workload", snap1, d1,
+                                              pre_k(snap1, d1))
+    log(f"phase preemption on slice 1's workload (no affinity/spread): {n_live} live "
+        f"candidates, {n_nom} nominations, {n_vict} victims; kernels == plain, K7-K9 == "
+        f"plain, nominations valid")
+
+    src = "k8s_scheduler_tpu_torch/csrc/"
+    ref = "k8s_scheduler_tpu/ops/preemption.py:"
+    entries = {
+        "preempt_prefilter": kernel_entry(
+            "preempt_prefilter", "cuda", src + "preempt_prefilter.cu", ref + "201",
+            launches["preempt_prefilter"], 0.0, k7_ms, k7_plain, k7_bytes, k7_ops),
+        "preempt_whatif": kernel_entry(
+            "preempt_whatif", "cuda", src + "preempt_whatif.cu", ref + "246",
+            launches["preempt_whatif"], 0.0, k8_ms, k8_plain, k8_bytes, k8_ops),
+        "preempt_claim": kernel_entry(
+            "preempt_claim", "cuda", src + "preempt_claim.cu", ref + "402",
+            launches["preempt_claim"], 0.0, k9_ms, k9_plain, k9_bytes, k9_ops),
+    }
+    return {"kernels": entries, "ms": ms}
+
+
 def main() -> int:
     import torch
 
@@ -469,6 +783,7 @@ def main() -> int:
         "claim_pass", "triton", "k8s_scheduler_tpu_torch/ops/claim_pass.py",
         "k8s_scheduler_tpu/ops/rounds.py:805", launches1["claim_pass"], k2_err,
         k2_ms, k2_plain_ms, k2_bytes, k2_ops, k2_lib_ms)
+    slice1_case = (snaps[results[0][0]], results[0][1])  # for the preemption phase
     del results, snaps, snap0, ctx
 
     # ============ affinity: config #4's workload (minus preemption) ============
@@ -515,7 +830,8 @@ def main() -> int:
         f"cycle {plain_cycle_ms:.1f} ms, placed {int((dk.assignment >= 0).sum())}, "
         f"rounds {int(dk.placed_round.max()) + 1}; kernels == plain: {json.dumps(same)}")
     check(all(same.values()), "affinity kernel cycle differs from the plain-versions cycle")
-    del dk, dp
+    decisions = {AFF_WARM_SEED: dk}
+    del dp
 
     # ---- K3-K6 against their plain versions on round-0 inputs ----
     def equal_outputs(a, b):
@@ -672,8 +988,9 @@ def main() -> int:
     # the affinity main path: counts set to 0 just before, read just after
     results, launches = timed_cycles(torch, kb, cycle_k, snaps, AFF_TIMED_SEEDS)
     log(f"phase affinity launches over {len(AFF_TIMED_SEEDS)} cycles: {json.dumps(launches)}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the affinity path")
+    for k in ("static_base", "claim_pass", "interpod_terms", "interpod_norm",
+              "affinity_update", "capacity", "guard_sweep"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the affinity path")
     timed = []
     for s, d, dev_ms, host_ms in results:
         snap = snaps[s]
@@ -685,7 +1002,14 @@ def main() -> int:
             f"{int(d.unschedulable.sum())}, rounds {int(d.placed_round.max()) + 1}; "
             f"valid: capacity, static masks, unplaced infeasible, {n_anti} anti terms, "
             f"{n_aff} affinity terms, {n_spread} DoNotSchedule constraints")
+        decisions[s] = d
+    cycle_ms = {s: dev_ms for s, _, dev_ms, _ in results}
     del results
+
+    # ============ preemption: DefaultPreemption after config #4's cycles ============
+    pre_stats = preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps,
+                                 decisions, cycle_ms, cycle_k, smi, slice1_case)
+    kernels.update(pre_stats.pop("kernels"))
 
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
@@ -711,7 +1035,8 @@ def main() -> int:
         log(f"  kernel {k['name']:16s} ms {k['ms']:9.3f}  bound {k['bound_ms']:8.3f} "
             f"({k['bound_by']})  plain {k['plain_ms']:9.3f}  launches {k['launches']}")
     log(f"phase summary: slice-1 cycle device ms {timed1}, affinity cycle device ms "
-        f"{timed}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+        f"{timed}, preemption device ms {pre_stats['ms']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -11,11 +11,17 @@ Per cycle, for the whole pending set:
     `guard_sweep`) and the affinity-state fold (K4 `affinity_update`)
     -> gang unwind
 
+and, when the cycle leaves pods unplaced, the PostFilter
+(`build_preemption_fn`): DefaultPreemption's prefilter (K7
+`preempt_prefilter`), non-resource what-if (K8 `preempt_whatif`) and
+serial claim loop (K9 `preempt_claim`), a separate call so a cycle that
+places every pod pays nothing for it.
+
 This slice builds the latency cycle of the rounds engine
 (`build_cycle_fn(commit_mode="rounds", outputs="latency")`), with inter-
-pod affinity and topology spread. Volumes (A4b), the scan engine, full
-outputs, the carry/packed/multi-cycle/arena builders and preemption are
-ROADMAP items A5-A13."""
+pod affinity and topology spread, and preemption after it. Volumes (A4b),
+the scan engine, full outputs and the carry/packed/multi-cycle/arena
+builders are ROADMAP items A5 and A7-A13."""
 
 from __future__ import annotations
 
@@ -24,15 +30,19 @@ from typing import Callable
 
 import torch
 
-from ..framework.interfaces import AffinityKernels, CycleContext
+from ..framework.interfaces import AffinityKernels, CycleContext, PreemptionKernels
 from ..framework.runtime import Framework
 from ..ops import affinity_update as affinity_update_ops
 from ..ops import capacity as capacity_ops
 from ..ops import claim_pass as claim_pass_ops
 from ..ops import guard_sweep as guard_sweep_ops
 from ..ops import interpod_terms as interpod_terms_ops
+from ..ops import preempt_claim as preempt_claim_ops
+from ..ops import preempt_prefilter as preempt_prefilter_ops
+from ..ops import preempt_whatif as preempt_whatif_ops
 from ..ops import rounds as rounds_ops
 from ..ops import static_base as static_base_ops
+from ..ops.argsel import wrap_i32
 from ..utils.device import resolve_device
 
 
@@ -46,12 +56,6 @@ class CycleDecision:
     gang_dropped: torch.Tensor  # bool [P] placed, then unwound
     placed_round: torch.Tensor  # i32 [P] rounds-engine round of each
     # placement (-1 unplaced or unwound); validity checks replay the rounds
-
-
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> the int32 two's-complement value (the reference's i32
-    arithmetic wraps)."""
-    return ((x + 2**31) % 2**32) - 2**31
 
 
 def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
@@ -69,7 +73,7 @@ def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
     adaptive = max(50 - n // 125, 5) if pct <= 0 else pct
     k = max(n * adaptive // 100, 100)
     mod = max(n, 1)
-    off = _wrap_i32(
+    off = wrap_i32(
         snap.pod_order.to(torch.int64) * 75347
         + int(snap.cycle_index) * 31337
     ) % mod
@@ -199,3 +203,64 @@ def build_cycle_fn(
         return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
 
     return cycle
+
+
+def _preemption_gate_rows(fw: Framework, ctx: CycleContext) -> Callable:
+    """Per-candidate static gate for preemption: every static filter EXCEPT
+    NodePorts (conflicts with running pods' ports are exactly what eviction
+    can free; the what-if checks them per victim prefix), on the pod view of
+    the candidates. Returns gate_rows(ids i32 [C]) -> bool [C, N]."""
+
+    def gate_rows(ids):
+        snap = ctx.snap
+        vctx = CycleContext(rounds_ops._pod_view(snap, ids), ctx.kernels,
+                            ctx.preemption_kernels)
+        vctx._cache.update(ctx._cache)
+        base = snap.node_valid[None, :].expand(ids.shape[0], snap.N)
+        for f in fw.filters:
+            if f.name == "NodePorts":
+                continue
+            m = f.static_mask(vctx)
+            if m is not None:
+                base = base & m
+        return base
+
+    return gate_rows
+
+
+def build_preemption_fn(
+    framework: Framework | None = None,
+    device=None,
+    prefilter_fn: Callable = preempt_prefilter_ops.preempt_prefilter,
+    whatif_fn: Callable = preempt_whatif_ops.preempt_whatif,
+    claim_fn: Callable = preempt_claim_ops.preempt_claim,
+) -> Callable | None:
+    """The PostFilter pass, called with the cycle's decision when pods stay
+    unplaced: `post_filter(snapshot, decision) -> PreemptionResult`
+    (nominated i32 [P], victims bool [E], num_preemptors i32 []). None when
+    no PostFilter plugin is enabled.
+
+    `device` None means the card. The default stage functions run K7-K9 on
+    CUDA and their plain versions on CPU; passing the plain versions
+    (`preemption.prefilter_plain`, `nonresource_ok_plain`,
+    `claim_loop_plain`) runs them on the card too. Results are bit-equal to
+    the reference's `build_preemption_fn` on the same snapshot and decision
+    (held by tests/test_torch_preemption.py)."""
+    dev = resolve_device(device)
+    fw = framework or Framework.from_config()
+    if not fw.post_filters:
+        return None
+    stages = PreemptionKernels(prefilter_fn, whatif_fn, claim_fn)
+
+    def post_filter(snap, decision):
+        if snap.device.type != dev.type:
+            raise ValueError(
+                f"snapshot on {snap.device}, preemption built for {dev}"
+            )
+        ctx = CycleContext(snap, preemption_kernels=stages)
+        return fw.post_filter(
+            ctx, decision.assignment, decision.node_requested,
+            _preemption_gate_rows(fw, ctx), excluded=decision.gang_dropped,
+        )
+
+    return post_filter

@@ -7,6 +7,7 @@ engine of this slice, so plugins implement the whole-pending-set hooks.
                and `dyn_mask_batched` ([P, N] against the running state).
 - Score     -> `static_score` / `dyn_score_batched`, each 0..100; the
                runtime applies the configured plugin weight.
+- PostFilter -> `post_filter` (DefaultPreemption), after the cycle.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..ops import affinity_update as update_ops
 from ..ops import interpod, labels
 from ..ops import interpod_terms as terms_ops
+from ..ops import preempt_claim, preempt_prefilter, preempt_whatif
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,13 +41,25 @@ class AffinityKernels:
                                update_ops.affinity_update_plain)
 
 
+@dataclasses.dataclass(frozen=True)
+class PreemptionKernels:
+    """The three stages DefaultPreemption runs: by default the dispatching
+    wrappers of K7-K9 (`build_preemption_fn`'s arguments select others)."""
+
+    prefilter: Callable = preempt_prefilter.preempt_prefilter
+    whatif: Callable = preempt_whatif.preempt_whatif
+    claim: Callable = preempt_claim.preempt_claim
+
+
 class CycleContext:
     """Shared per-cycle precomputes (the PreFilter-state analogue), computed
     lazily and cached for the cycle."""
 
-    def __init__(self, snap, kernels: AffinityKernels | None = None):
+    def __init__(self, snap, kernels: AffinityKernels | None = None,
+                 preemption_kernels: PreemptionKernels | None = None):
         self.snap = snap
         self.kernels = kernels or AffinityKernels()
+        self.preemption_kernels = preemption_kernels or PreemptionKernels()
         self._cache: dict[str, Any] = {}
 
     def get(self, key: str, compute) -> Any:
@@ -75,7 +89,7 @@ class CycleContext:
         """A context for a pod-axis view of the snapshot: it shares the
         node-side precomputes and swaps in the view's matched-pending
         columns."""
-        vctx = CycleContext(vsnap, self.kernels)
+        vctx = CycleContext(vsnap, self.kernels, self.preemption_kernels)
         vctx._cache.update(self._cache)
         vctx._cache["matched_pending"] = vmp
         return vctx
@@ -121,4 +135,11 @@ class PluginBase:
         """Node-local component of this plugin's dynamic score at the given
         node_requested (f32 [N]), used only to re-rank claims between
         acceptance passes."""
+        return None
+
+    # --- PostFilter ---
+    def post_filter(self, ctx: CycleContext, assignment, node_requested,
+                    gate_rows, excluded=None):
+        """Nominations for the pods the cycle left unplaced (a
+        PreemptionResult), or None."""
         return None

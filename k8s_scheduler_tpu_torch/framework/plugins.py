@@ -2,11 +2,11 @@
 
 Ported: NodeUnschedulable, NodeName, NodePorts, NodeResourcesFit,
 NodeResourcesBalancedAllocation, NodeAffinity, TaintToleration,
-ImageLocality, InterPodAffinity and PodTopologySpread. VolumeBinding and
-DefaultPreemption are in the default set but not ported yet: each is
-inert exactly where the reference's is (no volumes; PostFilter not run)
-and raises NotImplementedError naming its ROADMAP item (A4b, A6) where
-it would act, so it can never return a wrong answer."""
+ImageLocality, InterPodAffinity, PodTopologySpread and DefaultPreemption.
+VolumeBinding is in the default set but not ported yet: it is inert
+exactly where the reference's is (no volumes) and raises
+NotImplementedError naming its ROADMAP item (A4b) where it would act, so
+it can never return a wrong answer."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from ..ops import images as images_ops
 from ..ops import interpod as interpod_ops
 from ..ops import labels as labels_ops
 from ..ops import ports as ports_ops
+from ..ops import preemption as preemption_ops
 from ..ops import resources as res_ops
 from ..ops import taints as taints_ops
 from .interfaces import CycleContext, PluginBase
@@ -321,10 +322,22 @@ class PodTopologySpread(PluginBase):
 
 
 class DefaultPreemption(PluginBase):
-    """PostFilter: batched what-if preemption. The latency cycle of this
-    slice never runs PostFilter; preemption is ROADMAP item A6."""
+    """PostFilter: batched what-if preemption (ops/preemption.py), its three
+    stages the context's `preemption_kernels` (K7-K9 by default).
+
+    Config args: `budget` (candidates prefiltered per cycle, default 256)
+    and `scan_budget` (nominations per cycle, default 64) — the per-cycle
+    latency budgets; pods beyond them retry next cycle."""
 
     name = "DefaultPreemption"
 
-    def post_filter(self, ctx: CycleContext, *args, **kwargs):
-        raise _not_ported(self.name, "preemption", "A6")
+    def post_filter(self, ctx: CycleContext, assignment, node_requested,
+                    gate_rows, excluded=None):
+        kw = {k: int(self.args[k]) for k in ("budget", "scan_budget")
+              if k in self.args}
+        stages = ctx.preemption_kernels
+        return preemption_ops.run_preemption(
+            ctx, assignment=assignment, node_requested=node_requested,
+            gate_rows=gate_rows, excluded=excluded,
+            prefilter_fn=stages.prefilter, whatif_fn=stages.whatif,
+            claim_fn=stages.claim, **kw)

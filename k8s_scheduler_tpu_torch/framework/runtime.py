@@ -134,3 +134,14 @@ class Framework:
                     ctx, out[pl.name], accepted, node_of
                 )
         return out
+
+    def post_filter(self, ctx: CycleContext, assignment, node_requested,
+                    gate_rows, excluded=None):
+        """Run PostFilter plugins in order; the first non-None result wins
+        (upstream RunPostFilterPlugins stops at the first nomination)."""
+        for p in self.post_filters:
+            r = p.post_filter(ctx, assignment, node_requested, gate_rows,
+                              excluded)
+            if r is not None:
+                return r
+        return None

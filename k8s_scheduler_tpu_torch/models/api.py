@@ -1,6 +1,7 @@
 """Typed object model for the scheduler's API surface — the port's own
 copy of `k8s_scheduler_tpu/models/api.py`, cut to the objects the
-rounds-engine slice encodes (no volume, PDB or dict-constructor types yet).
+rounds-engine and preemption slices encode (no volume or dict-constructor
+types yet).
 
 This is the subset of the Kubernetes Pod/Node API that the scheduler family
 consumes (the reference's inputs arrive as client-go informer objects; here
@@ -284,3 +285,18 @@ class PodGroup:
 
     name: str
     min_member: int
+
+
+@dataclass
+class PodDisruptionBudget:
+    """PDB, as preemption consumes it: how many voluntary disruptions the
+    selected pods can absorb right now (status.disruptionsAllowed)."""
+
+    name: str
+    namespace: str = "default"
+    selector: "LabelSelector" = field(default_factory=lambda: LabelSelector())
+    disruptions_allowed: int = 0
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"

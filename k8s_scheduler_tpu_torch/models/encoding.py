@@ -15,9 +15,14 @@ Encoding strategy (as in the reference):
 - **Padding.** Every ragged axis is padded to a bucketed size with -1
   sentinels so shapes are stable across cycles.
 
-Not in this slice (ROADMAP A4 and later): volumes and PDBs as encoder
-inputs (their snapshot fields are emitted at their empty pads, and a pod
-that mounts a PVC raises), and the delta/fold/arena encode paths.
+PodDisruptionBudgets are an encoder input (`pdbs=`): `pdb_allowed` [GP]
+holds each budget's disruptionsAllowed and `exist_pdb` [E, MB] the first
+MB budgets (in list order) whose selector covers each running pod, as
+preemption reads them.
+
+Not in this slice (ROADMAP A4b and later): volumes as encoder inputs
+(their snapshot fields are emitted at their empty pads, and a pod that
+mounts a PVC raises), and the delta/fold/arena encode paths.
 """
 
 from __future__ import annotations
@@ -151,6 +156,59 @@ def _pow2_bucket(n: int, minimum: int = 8) -> int:
     """Round up to the next power of two (P/N padding)."""
     n = max(n, minimum)
     return 1 << (n - 1).bit_length()
+
+
+MB = 2  # PDBs tracked per running pod (the reference's bound: a third
+# budget selecting one pod is pathological; the first two protect it)
+
+
+def _pdb_matches(pdb: api.PodDisruptionBudget, p: Pod) -> bool:
+    """Does `pdb`'s selector cover pod `p`?"""
+    if p.namespace != pdb.namespace:
+        return False
+    sel = pdb.selector
+    labels = p.metadata.labels
+    for k, v in sel.match_labels.items():
+        if labels.get(k) != v:
+            return False
+    for e in sel.match_expressions:
+        val = labels.get(e.key)
+        if e.operator == api.OP_IN and val not in e.values:
+            return False
+        if e.operator == api.OP_NOT_IN and val in e.values:
+            return False
+        if e.operator == api.OP_EXISTS and val is None:
+            return False
+        if e.operator == api.OP_DOES_NOT_EXIST and val is not None:
+            return False
+    return True
+
+
+def _pdb_tables(pdbs, existing, E: int) -> tuple[np.ndarray, np.ndarray]:
+    """(pdb_allowed i32 [GP], exist_pdb i32 [E, MB]): each running pod's
+    first MB covering budgets in list order. A budget with matchLabels only
+    tests the pods carrying its first label pair (an index over the running
+    pods), so hundreds of budgets over 12000 pods stay cheap."""
+    GP = max(len(pdbs), 1)
+    pdb_allowed = np.zeros(GP, np.int32)
+    exist_pdb = np.full((E, MB), -1, np.int32)
+    if not pdbs:
+        return pdb_allowed, exist_pdb
+    by_label: dict[tuple[str, str], list[int]] = {}
+    for i, (p, _nm) in enumerate(existing):
+        for kv in p.metadata.labels.items():
+            by_label.setdefault(kv, []).append(i)
+    n_set = np.zeros(E, np.int32)
+    everyone = range(len(existing))
+    for gi, pdb in enumerate(pdbs):
+        pdb_allowed[gi] = pdb.disruptions_allowed
+        ml = pdb.selector.match_labels
+        cands = by_label.get(next(iter(ml.items())), []) if ml else everyone
+        for i in cands:
+            if n_set[i] < MB and _pdb_matches(pdb, existing[i][0]):
+                exist_pdb[i, n_set[i]] = gi
+                n_set[i] += 1
+    return pdb_allowed, exist_pdb
 
 
 def _num_or_nan(s: str) -> float:
@@ -416,10 +474,13 @@ class SnapshotEncoder:
         pending: Sequence[Pod],
         existing: Sequence[tuple[Pod, str]] = (),
         pod_groups: Sequence[api.PodGroup] = (),
+        *,
+        pdbs: Sequence[api.PodDisruptionBudget] = (),
     ) -> ClusterSnapshot:
         """One-shot encode onto the encoder's device. `existing` is
         (pod, node_name) for every pod already assigned."""
-        fields, aux = self.encode_numpy(nodes, pending, existing, pod_groups)
+        fields, aux = self.encode_numpy(nodes, pending, existing, pod_groups,
+                                        pdbs=pdbs)
         return snapshot_from_numpy(fields, aux, self.device)
 
     def encode_numpy(
@@ -428,6 +489,8 @@ class SnapshotEncoder:
         pending: Sequence[Pod],
         existing: Sequence[tuple[Pod, str]] = (),
         pod_groups: Sequence[api.PodGroup] = (),
+        *,
+        pdbs: Sequence[api.PodDisruptionBudget] = (),
     ) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
         """The host half of `encode`: (array fields, aux fields) as numpy."""
         for p in list(pending) + [p for p, _ in existing]:
@@ -742,6 +805,7 @@ class SnapshotEncoder:
         stable_key = (
             tuple(id(nd) for nd in nodes),
             tuple((id(p), nm) for p, nm in existing),
+            tuple((id(b), b.disruptions_allowed) for b in pdbs),
             self._node_epoch, N, E, R, MPL, MA,
             len(exprs_t.rows), len(reqs_t.rows), len(prefs_t.rows),
             len(tols_t.rows), len(taints_t.rows), len(sels_t.rows),
@@ -752,11 +816,11 @@ class SnapshotEncoder:
             st = self._stable
         else:
             st = self._build_stable(
-                nodes, existing, node_rows, exist_rows, node_index,
+                nodes, existing, pdbs, node_rows, exist_rows, node_index,
                 n_real, e_real, N, E, R, MPL, MA,
             )
             # strong refs keep cached id()s from being reused
-            st["__refs"] = (list(nodes), [p for p, _ in existing])
+            st["__refs"] = (list(nodes), [p for p, _ in existing], list(pdbs))
             self._stable_key = stable_key
             self._stable = st
 
@@ -933,7 +997,7 @@ class SnapshotEncoder:
         return fields, aux
 
     def _build_stable(
-        self, nodes, existing, node_rows, exist_rows, node_index,
+        self, nodes, existing, pdbs, node_rows, exist_rows, node_index,
         n_real, e_real, N, E, R, MPL, MA,
     ) -> dict:
         """The stable (node/existing/table) side of the snapshot."""
@@ -957,15 +1021,14 @@ class SnapshotEncoder:
         _scatter_rows(nl_vals, [d["lab_v"] for d in node_rows])
         _scatter_rows(nl_num, [d["lab_num"] for d in node_rows])
 
-        # volumes and PDBs are not encoder inputs in this slice: their
-        # tables keep the reference's empty pads (V bucket 4, GP 1, MB 2)
+        # volumes are not encoder inputs in this slice: their tables keep
+        # the reference's empty pads (V bucket 4)
         V = _pad_dim(0, 4)
         st["pv_req_id"] = np.full(V, -1, np.int32)
         st["pv_class"] = np.full(V, -1, np.int32)
         st["pv_capacity"] = np.zeros(V, np.float32)
         st["pv_avail"] = np.zeros(V, bool)
-        st["pdb_allowed"] = np.zeros(1, np.int32)
-        st["exist_pdb"] = np.full((E, 2), -1, np.int32)
+        st["pdb_allowed"], st["exist_pdb"] = _pdb_tables(pdbs, existing, E)
 
         # ---- existing-pod arrays ----
         # start times relative to the oldest existing pod (f32 resolution)

@@ -24,3 +24,10 @@ def argmax_first(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def index_dtype(n: int) -> torch.dtype:
     """Minimal index dtype addressing `n` values."""
     return torch.int16 if n <= 2**15 - 1 else torch.int32
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 two's-complement value, as i32 (the reference's
+    i32 arithmetic wraps; torch's integer sums and cumsums widen to
+    int64)."""
+    return (((x.to(torch.int64) + 2**31) % 2**32) - 2**31).to(torch.int32)

@@ -372,3 +372,48 @@ def selector_activity(snap) -> tuple[torch.Tensor, torch.Tensor]:
 def affinity_used(snap) -> torch.Tensor:
     """bool [S]: selectors named by a pending pod's required affinity."""
     return _mark(snap.pod_aff_terms[..., 0], snap.sel_exprs.shape[0])
+
+
+def spread_min2(snap, counts) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per (key, selector): (min1 f32, argmin-domain i32, min2 f32) of the
+    matching-pod counts over eligible domains, each [K*S].
+
+    Preemption's what-if needs "min over domains EXCLUDING d" for the
+    candidate node's domain d (evicting on one node only lowers that
+    domain's count): min2 if argmin == d else min1. A (key, selector) with
+    a single eligible domain gets min2 = 1e9; argmin is the first index of
+    the minimum (0 when no domain is eligible)."""
+    K = snap.node_domains.shape[1]
+    _, D = counts.shape
+    dev = counts.device
+    inf = torch.full((), float("inf"), device=dev)
+    d_ids = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
+    m1s, aas, m2s = [], [], []
+    for k in range(K):
+        eligible = (snap.domain_key == k) & (snap.domain_node_count > 0)
+        vals = torch.where(eligible[None, :], counts, inf)  # [S, D]
+        m1 = vals.amin(dim=1)
+        a1 = torch.where(vals == m1[:, None], d_ids, D).amin(dim=1)
+        m2 = torch.where(d_ids == a1[:, None], inf, vals).amin(dim=1)
+        m1s.append(torch.where(torch.isfinite(m1), m1, torch.zeros((), device=dev)))
+        aas.append(a1.to(torch.int32))
+        m2s.append(torch.where(torch.isfinite(m2), m2, torch.full((), 1e9, device=dev)))
+    return torch.cat(m1s), torch.cat(aas), torch.cat(m2s)
+
+
+def anti_owner_counts(snap, assignment) -> torch.Tensor:  # f32 [S, D]
+    """How many pods (running + placed this cycle) OWN a required anti-
+    affinity term (sel, key) whose key-domain is d: the count version of
+    AffinityState.anti_presence, which preemption needs to know whether
+    evicting a node's victim prefix removes the last owner blocking a
+    symmetric-anti candidate. Integer sums: exact in any order."""
+    S = snap.sel_exprs.shape[0]
+    D = snap.domain_key.shape[0]
+    dev = snap.device
+    ones_e = torch.ones(snap.exist_anti_terms.shape[:2], device=dev)
+    cnt = _flat_table(snap.exist_anti_terms, ones_e, _exist_domains(snap), S, D)
+    placed = snap.pod_valid & (assignment >= 0)
+    node_dom = snap.node_domains[assignment.clamp(0, snap.N - 1).long()]
+    terms_p = torch.where(placed[:, None, None], snap.pod_anti_terms, -1)
+    ones_p = torch.ones(terms_p.shape[:2], device=dev)
+    return cnt + _flat_table(terms_p, ones_p, node_dom, S, D)

@@ -38,11 +38,15 @@ CUDA_KERNELS: dict[str, tuple[str, ...]] = {
     "affinity_update": (),
     "capacity": ("--fmad=false",),
     "guard_sweep": (),
+    "preempt_prefilter": ("--fmad=false",),
+    "preempt_whatif": ("--fmad=false",),
+    "preempt_claim": ("--fmad=false",),
 }
 
 launch_counts: dict[str, int] = {
     "static_base": 0, "claim_pass": 0, "interpod_terms": 0, "interpod_norm": 0,
     "affinity_update": 0, "capacity": 0, "guard_sweep": 0,
+    "preempt_prefilter": 0, "preempt_whatif": 0, "preempt_claim": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build

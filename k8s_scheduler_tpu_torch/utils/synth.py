@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..models.api import Node, Pod, PodGroup
+from ..models.api import LabelSelector, Node, Pod, PodDisruptionBudget, PodGroup
 from ..models.builders import MakeNode, MakePod
 
 ZONES = [f"zone-{c}" for c in "abcdef"]
@@ -172,3 +172,18 @@ def config4_cluster_config2_pending(
         for s in pending_seeds
     }
     return nodes, existing, pending
+
+
+def config4_pdbs(num_apps: int = 500, seed: int = 0,
+                 max_allowed: int = 2) -> list[PodDisruptionBudget]:
+    """One PodDisruptionBudget per `app` label of config #4's workload
+    (`app-0` .. `app-{num_apps-1}`), disruptionsAllowed drawn uniformly
+    from 0..max_allowed: the PDB variant of the preemption checks (GP =
+    num_apps budget groups over the running pods)."""
+    rng = np.random.default_rng(seed)
+    return [
+        PodDisruptionBudget(
+            f"pdb-app-{a}", selector=LabelSelector(match_labels={"app": f"app-{a}"}),
+            disruptions_allowed=int(rng.integers(0, max_allowed + 1)))
+        for a in range(num_apps)
+    ]

@@ -5,7 +5,8 @@ their own builders; every array field (dtype, shape, values) and every
 static flag of the port's snapshot must equal the reference snapshot's —
 on config #3- and #4-shaped workloads too, whose inter-pod affinity,
 spread, selector, domain and existing-pod term fields the affinity path
-reads."""
+reads, and with PodDisruptionBudgets of every selector form (the PDB
+fields preemption reads)."""
 
 from __future__ import annotations
 
@@ -188,6 +189,70 @@ def test_snapshot_from_numpy_carries_reference_fields():
     )
     assert_same_snapshot(ref, snap)
     assert snap.device.type == "cpu" and snap.P == ref.P and snap.N == ref.N
+
+
+def _pdb_cluster(m, api):
+    """PodDisruptionBudgets of every selector form over running pods in two
+    namespaces: matchLabels, each matchExpressions operator, an empty
+    selector (every pod of its namespace), another namespace's budget, and
+    three budgets over one pod (the MB = 2 cap keeps the first two)."""
+    LS, Req = api.LabelSelector, api.NodeSelectorRequirement
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj() for i in range(4)]
+    existing = []
+    for i in range(14):
+        b = m.MakePod(f"e{i}").req({"cpu": f"{(i % 3 + 1) * 300}m"}).priority(i % 4)
+        b.labels({"app": f"a{i % 3}", **({"tier": "web"} if i % 2 else {})})
+        pod = b.obj()
+        if i % 5 == 4:
+            pod.metadata.namespace = "other"
+        existing.append((pod, f"n{i % 4}"))
+    P = api.PodDisruptionBudget
+    pdbs = [
+        P("by-app", selector=LS(match_labels={"app": "a0"}), disruptions_allowed=1),
+        P("in", selector=LS(match_expressions=(Req("app", "In", ("a1", "a2")),)),
+          disruptions_allowed=2),
+        P("not-in", selector=LS(match_expressions=(Req("app", "NotIn", ("a1",)),)),
+          disruptions_allowed=0),
+        P("exists", selector=LS(match_expressions=(Req("tier", "Exists"),))),
+        P("absent", selector=LS(match_expressions=(Req("tier", "DoesNotExist"),)),
+          disruptions_allowed=3),
+        P("everyone", selector=LS(), disruptions_allowed=1),
+        P("other-ns", namespace="other", selector=LS(match_labels={"app": "a1"}),
+          disruptions_allowed=1),
+    ]
+    pods = [m.MakePod("p").req({"cpu": "1"}).priority(5).obj()]
+    return nodes, pods, existing, pdbs
+
+
+@pytest.mark.parametrize("name", ["selectors", "cfg4"])
+def test_encoder_pdb_fields_match_reference(name):
+    """PDBs as an encoder input: `pdb_allowed` and `exist_pdb` (and every
+    other field) equal the reference encoder's, for every selector form and
+    for config #4's one-budget-per-app variant (`synth.config4_pdbs`)."""
+    import k8s_scheduler_tpu.models.api as ref_api
+    import k8s_scheduler_tpu_torch.models.api as port_api
+
+    def build(m, api, synth):
+        if name == "selectors":
+            return _pdb_cluster(m, api)
+        nodes, pods, existing, _ = fixture("cfg4", m, synth)
+        pdbs = [api.PodDisruptionBudget(
+            b.name, selector=api.LabelSelector(match_labels=dict(b.selector.match_labels)),
+            disruptions_allowed=b.disruptions_allowed)
+            for b in port_synth.config4_pdbs(40, seed=3)]
+        return nodes, pods, existing, pdbs
+
+    r_nodes, r_pods, r_existing, r_pdbs = build(ref_models, ref_api, ref_synth)
+    p_nodes, p_pods, p_existing, p_pdbs = build(port_models, port_api, port_synth)
+    ref = ref_models.SnapshotEncoder().encode(r_nodes, r_pods, r_existing, pdbs=r_pdbs)
+    port = port_models.SnapshotEncoder(device="cpu").encode(p_nodes, p_pods, p_existing,
+                                                           pdbs=p_pdbs)
+    assert_same_snapshot(ref, port)
+    exist_pdb = port.exist_pdb.numpy()
+    assert port.pdb_allowed.shape[0] == len(p_pdbs)
+    assert (exist_pdb[:, 0] >= 0).sum() > 5
+    if name == "selectors":
+        assert (exist_pdb[:, 1] >= 0).any()  # a pod under several budgets
 
 
 def test_encoder_raises_on_volumes():

@@ -319,3 +319,19 @@ def test_port_encoder_matches_reference_on_affinity_fixtures(name):
     nodes, pods, existing, groups = affinity_fixture(name, port_models, port_synth)
     port = port_models.SnapshotEncoder(device="cpu").encode(nodes, pods, existing, groups)
     assert_same_snapshot(reference_affinity_snapshot(name), port)
+
+
+@pytest.mark.parametrize("name", AFFINITY_FIXTURES)
+def test_spread_min2_and_anti_owner_counts(name):
+    """Preemption's what-if tables: min1/argmin/min2 over eligible domains
+    of the mid-cycle counts, and anti-term owner counts of running plus
+    placed pods (a seeded assignment)."""
+    c = case(name)
+    want = jax.jit(ref_ip.spread_min2)(c.ref, c.state_ref.counts)
+    got = ip.spread_min2(c.port, c.state.counts)
+    for g, w, f in zip(got, want, ("min1", "argmin", "min2")):
+        _eq(g, w, f)
+    assignment = np.where(c.accepted, c.node_of, -1).astype(np.int32)
+    want = jax.jit(ref_ip.anti_owner_counts)(c.ref, assignment)
+    _eq(ip.anti_owner_counts(c.port, torch.from_numpy(assignment)), want,
+        "anti_owner_counts")

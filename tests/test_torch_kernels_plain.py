@@ -14,10 +14,18 @@ against these plain versions on the card by chip_smoke.py).
 - K6 `guard_sweep_plain` against the reference's `_seg_scan_tables` sweep
   and its per-role tests over random participant tables with every role,
   and against a sequential per-entry count: bit-equal.
+- K7-K9, preemption's `prefilter_plain`, `nonresource_ok_plain` and
+  `claim_loop_plain`, on hand-made inputs with known answers: each
+  node-choice key deciding in turn, PDB budgets over three groups spent
+  across ranks, claimed ports, gates, what-if verdicts, every what-if
+  constraint; `prefix_sums_f32` against jnp.cumsum across XLA's scan
+  chunks.
 - On CPU tensors the dispatching wrappers run the plain versions and
   launch nothing."""
 
 from __future__ import annotations
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +44,9 @@ from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
 from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
 from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, guard_sweep,
-                                         interpod_terms, kernel_build, static_base)
+                                         interpod_terms, kernel_build, preempt_claim,
+                                         preempt_prefilter, preempt_whatif, preemption,
+                                         static_base)
 from test_torch_encoding import reference_snapshot
 
 SBASE_ATOL = 1e-3  # f32 static-base values (observed: exact)
@@ -143,9 +153,20 @@ def test_wrappers_use_plain_versions_on_cpu():
     raw, feas = torch.randn(5, 9), torch.rand(5, 9) < 0.5
     assert torch.equal(interpod_terms.interpod_norm(raw, feas, True),
                        interpod_terms.interpod_norm_plain(raw, feas, True))
+    x = _claim_inputs([[(1, 2, 0, [0]), (2, 2, 0, [])]], [(9, 2, 0), (9, 2, -1)], free=[0])
+    got, want = preempt_claim.preempt_claim(x), preemption.claim_loop_plain(x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].victims, want[1].victims)
+    t = x.tables
+    pf_args = (x.prio, x.req, x.live, t.vict_prio, t.prefix_freed,
+               x.alloc - x.node_requested, x.gate, x.node_valid)
+    assert torch.equal(preempt_prefilter.preempt_prefilter(*pf_args),
+                       preemption.prefilter_plain(*pf_args))
+    w = _whatif_case()
+    assert torch.equal(preempt_whatif.preempt_whatif(w), preemption.nonresource_ok_plain(w))
     assert set(kernel_build.launch_counts) == {
         "static_base", "claim_pass", "interpod_terms", "interpod_norm",
-        "affinity_update", "capacity", "guard_sweep"}
+        "affinity_update", "capacity", "guard_sweep", "preempt_prefilter",
+        "preempt_whatif", "preempt_claim"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
 
@@ -331,3 +352,210 @@ def test_guard_sweep_plain_matches_reference_sweep(seed):
     np.testing.assert_array_equal(got, np.asarray(want))
     np.testing.assert_array_equal(got, _sequential_guard(*args))
     assert 0 < got.sum() < B
+
+
+# ---- K7-K9 preemption stages ------------------------------------------------
+
+
+def _victim_tables(nodes, R=1):
+    """VictimTables of hand-made nodes: each a list of victims (priority,
+    request, start, pdb ids), listed ascending by priority as the encoder
+    sorts them."""
+    N = len(nodes)
+    MPN = max(1, max(len(v) for v in nodes))
+    E = sum(len(v) for v in nodes) + 1
+    node_pods = np.full((N, MPN), -1, np.int32)
+    prio = np.zeros(E, np.int32)
+    req = np.zeros((E, R), np.float32)
+    start = np.zeros(E, np.float32)
+    pdb = np.full((E, 2), -1, np.int32)
+    e = 0
+    for n, vs in enumerate(nodes):
+        for j, (p, q, s, gs) in enumerate(vs):
+            node_pods[n, j] = e
+            prio[e], req[e], start[e] = p, q, s
+            pdb[e, : len(gs)] = gs
+            e += 1
+    t = torch.from_numpy
+    snap = types.SimpleNamespace(
+        exist_valid=t(np.arange(E) < e), node_pods=t(node_pods), exist_priority=t(prio),
+        exist_requested=t(req), exist_start=t(start), exist_pdb=t(pdb),
+        device=torch.device("cpu"))
+    return preemption.victim_tables(snap), E
+
+
+def _claim_inputs(nodes, preemptors, free, pdb_allowed=(0,), gate=None, ok_nr=None,
+                  Q=2):
+    """ClaimInputs for hand-made nodes (see `_victim_tables`; one resource),
+    preemptors (priority, request, port id or -1) in rank order, each node's
+    free room before eviction, PDB budgets, and optional gate / what-if
+    tables (all true by default)."""
+    vt, E = _victim_tables(nodes)
+    N, MPN = vt.node_pods.shape
+    C2 = len(preemptors)
+    t = torch.tensor
+    alloc = torch.full((N, 1), 100.0)
+    return preemption.ClaimInputs(
+        n_live=t([C2], dtype=torch.int32), live=torch.ones(C2, dtype=torch.bool),
+        prio=t([p for p, _, _ in preemptors], dtype=torch.int32),
+        req=t([[float(q)] for _, q, _ in preemptors]),
+        port_ids=t([[port] for _, _, port in preemptors], dtype=torch.int32),
+        gate=torch.ones((C2, N), dtype=torch.bool) if gate is None else t(gate),
+        ok_nr=(torch.ones((C2, N, MPN + 1), dtype=torch.bool) if ok_nr is None
+               else t(ok_nr)),
+        node_valid=torch.ones(N, dtype=torch.bool), alloc=alloc,
+        node_requested=alloc - t([[float(f)] for f in free]), slack=torch.zeros((N, 1)),
+        pdb_allowed=t(list(pdb_allowed), dtype=torch.int32), tables=vt,
+        num_existing=E, num_ports=Q)
+
+
+def test_prefix_sums_follow_the_reference_cumsum_order():
+    """`prefix_sums_f32` against jnp.cumsum on f32 values that round, over
+    lengths inside and across XLA's 16-entry scan chunk."""
+    rng = np.random.default_rng(3)
+    for L in (1, 8, 16, 17, 24, 40):
+        x = (rng.integers(10**8, 10**9, (64, L, 2)) * rng.choice([1.0, 0.37], (64, L, 2))
+             ).astype(np.float32)
+        want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(x))
+        got = preemption.prefix_sums_f32(torch.from_numpy(x), dim=1).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"L={L}")
+        if L >= 24:  # a plain left-to-right sum differs somewhere
+            assert (np.cumsum(x, axis=1, dtype=np.float32) != want).any()
+
+
+def test_prefilter_plain_known_answers():
+    """Five candidates against three nodes: a fit needing both victims, a
+    priority that makes only a too-small prefix eligible, a gate that
+    excludes the only fitting node, a non-candidate, and an invalid node."""
+    vt, _ = _victim_tables([[(1, 1.0, 0, []), (5, 2.0, 0, [])], [],
+                            [(2, 1.0, 0, []), (3, 1.0, 0, [])]])
+    t = torch.tensor
+    prio = t([10, 4, 10, 10, 10], dtype=torch.int32)
+    req = t([[3.0], [3.0], [2.0], [1.0], [2.0]])
+    cand_ok = t([True, True, True, False, True])
+    free0 = t([[0.0], [10.0], [0.0]])
+    gate = t([[1, 1, 1], [1, 1, 1], [0, 1, 1], [1, 1, 1], [1, 0, 1]], dtype=torch.bool)
+    node_valid = t([True, True, False])
+    got = preemption.prefilter_plain(prio, req, cand_ok, vt.vict_prio, vt.prefix_freed,
+                                     free0, gate, node_valid)
+    assert got.tolist() == [True, False, False, False, True]
+
+
+@pytest.mark.parametrize("case", ["viol", "max_prio", "prio_sum", "count", "start", "index"])
+def test_claim_loop_plain_lexmin_keys(case):
+    """Two nodes that tie on every node-choice key before `case` and differ
+    at it; the winner is the node the key prefers."""
+    v = {  # (node 0 victims, node 1 victims, PDB budgets, winner)
+        "viol": ([(1, 4, 0, [0])], [(2, 4, 0, [1])], (0, 1), 1),
+        "max_prio": ([(5, 4, 0, [])], [(3, 4, 0, [])], (0,), 1),
+        "prio_sum": ([(2, 2, 0, []), (3, 2, 0, [])], [(0, 1, 0, []), (3, 3, 0, [])], (0,), 1),
+        "count": ([(0, 2, 0, []), (3, 2, 0, [])], [(3, 4, 0, [])], (0,), 1),
+        "start": ([(3, 4, 5.0, [])], [(3, 4, 9.0, [])], (0,), 1),
+        "index": ([(3, 4, 7.0, [])], [(3, 4, 7.0, [])], (0,), 0),
+    }[case]
+    n0, n1, budgets, winner = v
+    x = _claim_inputs([n0, n1], [(10, 4, -1)], free=[0, 0], pdb_allowed=budgets)
+    noms, cy = preemption.claim_loop_plain(x)
+    assert noms.tolist() == [winner]
+    k = len((n0, n1)[winner])
+    assert cy.k_claimed.tolist() == [k if n == winner else 0 for n in range(2)]
+    assert cy.nominated_req[winner].tolist() == [4.0]
+    assert int(cy.victims.sum()) == k
+
+
+def test_claim_loop_plain_carry_across_ranks():
+    """Three PDB groups (GP = 3) and three ranks: rank 0 takes node 0's
+    first victim without a violation (group 0's budget is then spent);
+    rank 1 violates one budget on every node (group 0 on node 0, group 2 on
+    nodes 1 and 2) and takes node 1, whose victim has the lowest priority,
+    holding port 1 there; rank 2 wants port 1, so node 1 is out, and of the
+    two last-resort nodes takes node 0 (victim priority 2 < 3), past
+    k_claimed = 1."""
+    nodes = [[(1, 2, 0, [0]), (2, 2, 0, [0])],
+             [(1, 2, 0, [1, 2])],
+             [(3, 2, 0, [2]), (3, 2, 1.0, [2])]]
+    x = _claim_inputs(nodes, [(9, 2, -1), (8, 2, 1), (7, 2, 1)], free=[0, 0, 0],
+                      pdb_allowed=(1, 1, 0))
+    noms, cy = preemption.claim_loop_plain(x)
+    assert noms.tolist() == [0, 1, 0]
+    assert cy.k_claimed.tolist() == [2, 1, 0]
+    assert cy.pdb_used.tolist() == [2, 1, 1]
+    assert cy.victims.nonzero().flatten().tolist() == [0, 1, 2]
+    assert cy.claimed_q.tolist() == [[False, True], [False, True], [False, False]]
+    assert cy.nominated_req[:, 0].tolist() == [4.0, 2.0, 0.0]
+
+
+def test_claim_loop_plain_gates_and_whatif():
+    """A rank that fits only on a gated node, or only past a prefix the
+    what-if forbids, gets no nomination; a dead rank nominates nothing."""
+    nodes = [[(1, 2, 0, []), (2, 2, 0, [])]]
+    ok_nr = [[[True, True, False]], [[True, False, True]]]
+    x = _claim_inputs(nodes, [(9, 4, -1), (9, 2, -1)], free=[0], ok_nr=ok_nr)
+    noms, cy = preemption.claim_loop_plain(x)
+    # rank 0 needs both victims (k=2 forbidden); rank 1's k=1 forbidden,
+    # k=2 allowed (two victims for a 2-unit pod)
+    assert noms.tolist() == [-1, 0] and cy.k_claimed.tolist() == [2]
+    x = _claim_inputs(nodes, [(9, 2, -1)], free=[0], gate=[[False]])
+    assert preemption.claim_loop_plain(x)[0].tolist() == [-1]
+    x = _claim_inputs(nodes, [(9, 2, -1)], free=[0])
+    x.n_live = torch.tensor([0], dtype=torch.int32)
+    assert preemption.claim_loop_plain(x)[0].tolist() == [-1]
+
+
+def _whatif_case():
+    """One candidate on two nodes (one zone domain each, hostname keys),
+    node 0's victims: slot 0 matches selector 0 and holds port 80, slot 1
+    matches selector 0 and owns an anti term against selector 1."""
+    t = torch.tensor
+    node_pods = t([[0, 1], [2, -1]], dtype=torch.int32)
+    node_domains = t([[0, 2], [1, 3]], dtype=torch.int32)  # keys: zone, hostname
+    me = t([[True, True, False], [False, False, True]])  # [S=2, E=3]
+    counts = t([[2.0, 0.0, 2.0, 0.0], [0.0, 1.0, 0.0, 1.0]])  # [S, D]
+    x = preemption.WhatIfInputs(
+        node_pods=node_pods, node_domains=node_domains,
+        ports=t([[-1]], dtype=torch.int32),
+        exist_ports=t([[80], [-1], [-1]], dtype=torch.int32),
+        winner_conf=t([[False, False]]), has_affinity=True, has_spread=False,
+        anti=t([[[-1, -1]]], dtype=torch.int32), aff=t([[[-1, -1]]], dtype=torch.int32),
+        counts=counts, total=counts[:, :2].sum(dim=1), mp_c=t([[False, False]]), me=me,
+        exist_anti=t([[[-1, -1]], [[1, 1]], [[-1, -1]]], dtype=torch.int32),
+        row_d=torch.zeros((1, 4)))
+    return x
+
+
+@pytest.mark.parametrize("term", ["anti", "aff", "aff_boot", "symmetric", "ports",
+                                  "winner", "spread"])
+def test_whatif_plain_known_answers(term):
+    x = _whatif_case()
+    t = torch.tensor
+    if term == "anti":  # anti toward selector 0 by hostname: both matches must go
+        x.anti = t([[[0, 1]]], dtype=torch.int32)
+        want = [[False, False, True], [True, True, True]]
+    elif term == "aff":  # affinity to selector 0 by hostname: keep one match
+        x.aff = t([[[0, 1]]], dtype=torch.int32)
+        want = [[True, True, False], [False, False, False]]
+    elif term == "aff_boot":  # selector 1 (one pod, on node 1); the candidate
+        x.aff = t([[[1, 1]]], dtype=torch.int32)  # matches it: evicting the
+        x.mp_c = t([[False, True]])  # last one bootstraps
+        want = [[False, False, False], [True, True, True]]
+    elif term == "symmetric":  # slot 1 owns anti(selector 1) by hostname
+        x.mp_c = t([[False, True]])
+        x.row_d = t([[0.0, 0.0, 1.0, 0.0]])
+        want = [[False, False, True], [True, True, True]]
+    elif term == "ports":
+        x.ports = t([[80]], dtype=torch.int32)
+        want = [[False, True, True], [True, True, True]]
+    elif term == "winner":
+        x.ports = t([[80]], dtype=torch.int32)
+        x.winner_conf = t([[False, True]])
+        want = [[False, True, True], [False, False, False]]
+    else:  # DoNotSchedule maxSkew 1 by zone on selector 0: zone 0 holds 2,
+        x.has_affinity, x.has_spread = False, True  # zone 1 holds 0
+        x.tsc = t([[[0, 0, 0]]], dtype=torch.int32)
+        x.tsc_skew = t([[1]], dtype=torch.int32)
+        x.sp_min1, x.sp_amin, x.sp_min2 = (t([0.0, 0.0, 0.0, 0.0]),
+                                           t([1, 1, 0, 0], dtype=torch.int32),
+                                           t([2.0, 1.0, 1e9, 1e9]))
+        want = [[False, False, True], [True, True, True]]
+    got = preemption.nonresource_ok_plain(x)
+    assert got[0].tolist() == want
