@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
-engine latency cycle `build_cycle_fn()(snapshot)` — on two workloads at
+engine latency cycle `build_cycle_fn()(snapshot)` — on three workloads at
 BASELINE config #4's cluster size (5000 nodes, 12000 running pods, 10000
 pending pods, padded P=16384, N=8192):
 
@@ -15,7 +15,9 @@ pending pods, padded P=16384, N=8192):
            and topology spread, pending pods with required affinity,
            anti-affinity, spread, selectors, tolerations, four priorities;
            the preemption phase then runs DefaultPreemption after each of
-           its cycles, which makes config #4 whole.
+           its cycles, which makes config #4 whole;
+  volumes  config #4's workload with local and zonal persistent volumes,
+           cycles and preemption.
 
 Phases:
 
@@ -43,7 +45,26 @@ Phases:
                 static gate; at most scan_budget nominations); at least one
                 preemptor; then the same on a variant with one PDB per app
                 (GP = 500), counting nominations that needed a violation,
-                and on slice 1's workload (no affinity tables).
+                and on slice 1's workload (no affinity tables);
+  6. volumes  — config #4's workload with local and zonal persistent
+                volumes (`utils/synth.config4_volumes`: two local PVs per
+                node, a quarter of them bound to running pods, 1000 pre-
+                bound zonal pairs; 40% of the pending pods mount one or two
+                PVCs): the kernels' cycle equal to the plain-versions
+                cycle, K1 `static_base` with VolumeBinding's static
+                mask as its operand equal to its plain version at full
+                size, K10 `volume_mask` (static and unbound), K11
+                `pv_choice` and K12 `pv_fold` each equal to its plain
+                version on round 0's inputs (K12 also on a contended batch
+                that takes several passes), three timed cycles whose
+                placements are checked as in the affinity phase and for
+                volumes (bound claims on their PVs' nodes; a matching of
+                the claimed PVs to placed unbound slots: no PV claimed
+                twice, every slot served statically or dynamically), K10
+                once per cycle plus once per round, K11 and K12 once per
+                round, then DefaultPreemption after each cycle (K10 once
+                per pass), equal to its plain versions, nominations valid
+                and through the volume gate.
 
 The second-to-last lines are the kernel table (JSON) and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
@@ -120,17 +141,19 @@ def same_decisions(torch, a, b) -> dict:
 
 
 class Recorder:
-    """Wraps a plain version: records the arguments of chosen calls (by
-    call index) and returns the plain result."""
+    """Wraps a function: records the arguments of chosen calls (by call
+    index) and the latest result, and returns the result."""
 
     def __init__(self, fn, keep=(0,)):
         self.fn, self.keep, self.calls, self.args = fn, set(keep), 0, {}
+        self.last = None
 
     def __call__(self, *args):
         if self.calls in self.keep:
             self.args[self.calls] = args
         self.calls += 1
-        return self.fn(*args)
+        self.last = self.fn(*args)
+        return self.last
 
 
 def preferred_variant(torch, snap, gen):
@@ -153,12 +176,15 @@ def preferred_variant(torch, snap, gen):
                                pod_pref_aff_w=w.float())
 
 
-def check_placements(torch, snap, d, fw, kernels_plain):
+def check_placements(torch, snap, d, fw, kernels_plain, volume_kernels=None):
     """Placement validity with the port's plain functions: the final
     node_requested, capacity of every node that received pods, static
-    masks, and no unplaced pod feasible against the final state."""
+    masks, and no unplaced pod feasible against the final state.
+    `volume_kernels` (VolumeBinding's functions; default the plain
+    versions) may hand over the cycle's own final claim bitmap as the fold
+    of all placements."""
     from k8s_scheduler_tpu_torch.core.cycle import sampling_window
-    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
     from k8s_scheduler_tpu_torch.ops import static_base as sb
     from k8s_scheduler_tpu_torch.ops.capacity import index_add_exact
     from k8s_scheduler_tpu_torch.ops.resources import fit_slack
@@ -180,7 +206,7 @@ def check_placements(torch, snap, d, fw, kernels_plain):
     alloc = snap.node_allocatable
     over = (d.node_requested > alloc + fit_slack(alloc)).any(dim=1)
     check(not bool(over[a[placed].long()].any()), "a node that received pods is over capacity")
-    ctx = CycleContext(snap, kernels_plain)
+    ctx = CycleContext(snap, kernels_plain, volume_kernels=volume_kernels or VolumeKernels.plain())
     smask = sb.static_base_plain(sb.static_base_inputs(
         fw, ctx, fit=True, sampling=sampling_window(snap, 0))) > sb.NEG_INF / 2
     pidx = torch.nonzero(placed, as_tuple=True)[0]
@@ -607,6 +633,454 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     return {"kernels": entries, "ms": ms}
 
 
+def max_matching(cands: list[list[int]]) -> tuple[int, dict[int, int]]:
+    """Maximum bipartite matching of left vertices (their candidate right
+    vertices) by augmenting paths: (size, right -> left)."""
+    owner: dict[int, int] = {}
+
+    def augment(u, seen):
+        for v in cands[u]:
+            if v in seen:
+                continue
+            seen.add(v)
+            if v not in owner or augment(owner[v], seen):
+                owner[v] = u
+                return True
+        return False
+
+    sys.setrecursionlimit(max(10000, 4 * len(cands)))
+    return sum(augment(u, set()) for u in range(len(cands))), owner
+
+
+def check_volumes(torch, snap, d, tables, claimed):
+    """Volume validity of every placement, from the cycle's final claim
+    bitmap (the last K12 fold's output), with the port's plain functions:
+      - a bound claim (mode 0) is placed only where its PV's nodeAffinity
+        admits the node;
+      - the static PVs the cycle claimed and the placed pods' unbound slots
+        (mode 1) admit a matching in which every claimed PV has its own
+        slot (no PV claimed twice, none claimed for nobody) and every slot
+        that cannot ride dynamic provisioning at its node has a PV of its
+        class and size that the node admits.
+    Returns (bound slots, unbound slots, claims, slots riding dynamic)."""
+    from k8s_scheduler_tpu_torch.ops import volumes as vol
+
+    a = d.assignment
+    placed = snap.pod_valid & (a >= 0)
+    node = a.clamp(min=0)
+    mode, rid = snap.pod_vol_mode, snap.pod_vol_req
+    req = tables.req
+    at = req[rid.clamp(0, req.shape[0] - 1).long(), node[:, None].long()]  # [P, MVol]
+    bound = placed[:, None] & (mode == 0)
+    check(bool((~bound | (rid < 0) | at).all()), "a bound claim placed off its PV's affinity")
+    dyn = vol._dyn_at_node(snap, req, a)  # [P, MVol]
+    unb = placed[:, None] & (mode == 1)
+    pv_ok = vol.pv_node_table(snap, req)  # [V, N] available and admitted
+    check(not bool((claimed & ~snap.pv_avail).any()), "an unavailable PV was claimed")
+    new = torch.nonzero(claimed, as_tuple=True)[0]
+    col = {int(v): i for i, v in enumerate(new.tolist())}
+    rows = torch.nonzero(unb, as_tuple=True)
+    cls, cap = snap.pv_class[new], snap.pv_capacity[new] + vol._CAP_EPS
+    p_ids, j_ids = rows
+    cand = ((cls[None, :] == snap.pod_vol_class[p_ids, j_ids][:, None])
+            & (cap[None, :] >= snap.pod_vol_size[p_ids, j_ids][:, None])
+            & pv_ok[new][:, node[p_ids].long()].T)  # [slots, claims]
+    lists = [torch.nonzero(r, as_tuple=True)[0].tolist() for r in cand.cpu()]
+    needy = (~dyn[p_ids, j_ids]).cpu().tolist()
+    n_all, owner = max_matching(lists)
+    check(n_all == len(col), f"{len(col) - n_all} claimed PVs have no placed slot of their own")
+    n_needy, _ = max_matching([c if nd else [] for c, nd in zip(lists, needy)])
+    check(n_needy == sum(needy), f"{sum(needy) - n_needy} placed unbound slots lack a "
+          "static PV and cannot ride dynamic provisioning")
+    return int(bound.sum()), len(lists), len(col), len(lists) - sum(needy)
+
+
+def volume_edge_fixtures():
+    """Small clusters that reach what the volume cell does not: eight slots
+    (the capped subset enumeration, dominance groups), PVs without
+    nodeAffinity (the global list), zone-wide available PVs, bound and
+    missing claims, Immediate classes and dynamic provisioning. Each is
+    (nodes, pods, encode kwargs)."""
+    from k8s_scheduler_tpu_torch.models import MakeNode, MakePod
+    from k8s_scheduler_tpu_torch.models import api as A
+
+    gib, zone = 2**30, "topology.kubernetes.io/zone"
+
+    def term(*zones):
+        return (A.NodeSelectorTerm((A.NodeSelectorRequirement(zone, "In", zones),)),)
+
+    def joint(sizes, caps, prov=False):
+        pvs = [A.PersistentVolume(f"pv-{v}", capacity=c * gib, storage_class="local")
+               for v, c in enumerate(caps)]
+        pvcs = [A.PersistentVolumeClaim(f"c{j}", storage_class="local", request=z * gib)
+                for j, z in enumerate(sizes)]
+        pod = MakePod("w").req({"cpu": "1"})
+        for j in range(len(sizes)):
+            pod = pod.volume(f"c{j}")
+        local = A.StorageClass("local", A.VOLUME_BINDING_WAIT, provisioner=prov)
+        return ([MakeNode("n0").capacity({"cpu": "8"}).obj()], [pod.obj()],
+                dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    nodes = [MakeNode(f"{z}-n{i}").capacity({"cpu": "8"}).labels({zone: z}).obj()
+             for z in ("z0", "z1", "z2") for i in range(3)]
+    classes = [A.StorageClass("local", A.VOLUME_BINDING_WAIT, provisioner=False),
+               A.StorageClass("ebs", A.VOLUME_BINDING_WAIT, allowed_topologies=term("z2")),
+               A.StorageClass("imm")]
+    pvs = [A.PersistentVolume(f"pv-{i}", capacity=(4 + 3 * (i % 3)) * gib,
+                              storage_class="local", node_affinity=term(f"z{i % 3}"))
+           for i in range(7)]
+    pvs += [A.PersistentVolume("pv-free", capacity=8 * gib, storage_class="local"),
+            A.PersistentVolume("pv-b", capacity=gib, storage_class="ebs",
+                               node_affinity=term("z1"), claim_ref="default/b")]
+    pvcs = [A.PersistentVolumeClaim(f"l{j}", storage_class="local", request=(2 + j) * gib)
+            for j in range(12)]
+    pvcs += [A.PersistentVolumeClaim("b", storage_class="ebs", request=gib, volume_name="pv-b"),
+             A.PersistentVolumeClaim("e", storage_class="ebs", request=gib),
+             A.PersistentVolumeClaim("i", storage_class="imm", request=gib)]
+    mix = [("l0",), ("l1", "l2"), ("l3", "b"), ("e",), ("l4", "e"), ("i",), ("ghost",),
+           ("l5", "l6", "l7"), ("b",), ("l8",), ("l9", "l10", "l11")]
+    pods = []
+    for k, claims in enumerate(mix):
+        pod = MakePod(f"m{k}").req({"cpu": "1"}).created(float(k))
+        for c in claims:
+            pod = pod.volume(c)
+        pods.append(pod.obj())
+    return {
+        "eight_tight": joint((8, 8, 8, 1, 1, 1, 1, 1), (10, 10, 2, 2, 2, 2, 2, 2)),
+        "eight_dominance": joint((1, 8, 8, 8, 1, 1, 1, 1), (10, 10, 10, 2, 2, 2, 2, 2)),
+        "chain": joint((1, 5, 8), (10, 6, 2)),
+        "two_slots_provisioner": joint((5, 5), (10,), prov=True),
+        "zones_mixed": (nodes, pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=classes)),
+    }
+
+
+def volume_edge_checks(torch, dev) -> int:
+    """K10 (both variants), K11 and K12 against their plain versions on
+    `volume_edge_fixtures`, three seeded claim bitmaps, nodes and claimant
+    sets each. Returns the number of comparisons."""
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.ops import pv_choice as k11
+    from k8s_scheduler_tpu_torch.ops import pv_fold as k12
+    from k8s_scheduler_tpu_torch.ops import volume_mask as k10
+    from k8s_scheduler_tpu_torch.ops import volumes as vol
+
+    n = 0
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, (nodes, pods, kw) in volume_edge_fixtures().items():
+        snap = SnapshotEncoder(device=dev).encode(nodes, pods, **kw)
+        tables = CycleContext(snap).volume_tables
+        P, V = snap.P, snap.pv_avail.shape[0]
+        for draw in range(3):
+            claimed = torch.rand(V, generator=gen, device=dev) < 0.3 * draw
+            node_of = torch.randint(0, len(nodes), (P,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+            if draw == 2:  # every claimant on one node: contention
+                node_of = torch.zeros_like(node_of)
+            active = snap.pod_valid & (torch.rand(P, generator=gen, device=dev) < 0.9)
+            rank = snap.pod_order.to(torch.int32)
+            pairs = {
+                "volume_mask static": (k10.volume_mask_cuda, vol.volume_mask_plain,
+                                       (snap, tables, None, False)),
+                "volume_mask unbound": (k10.volume_mask_cuda, vol.volume_mask_plain,
+                                        (snap, tables, claimed, True)),
+                "pv_choice": (k11.pv_choice_cuda, vol.pv_choice_plain,
+                              (snap, tables, claimed, node_of, active)),
+                "pv_fold": (k12.pv_fold_cuda, vol.pv_fold_plain,
+                            (snap, tables, claimed, active, node_of, rank)),
+            }
+            for what, (kernel, plain, args) in pairs.items():
+                check(torch.equal(kernel(*args), plain(*args)),
+                      f"{what} differs from its plain version on {name} (draw {draw})")
+                n += 1
+    return n
+
+
+def volume_kinds(torch, snap) -> dict:
+    mode, rid = snap.pod_vol_mode, snap.pod_vol_req
+    n1 = (mode == 1).sum(dim=1)
+    return {"local x1": int(((n1 == 1) & (rid == -2).any(dim=1)).sum()),
+            "local x2": int((n1 == 2).sum()),
+            "zonal bound": int((mode == 0).any(dim=1).sum()),
+            "zonal dynamic": int(((n1 == 1) & ((mode == 1) & (rid >= -1)).any(dim=1)).sum())}
+
+
+def compare_static_base(torch, sb, x):
+    """K1 against its plain version on the inputs x: the masks equal, the
+    gap within STATIC_BASE_TOL. Returns (True, max |kernel - plain|)."""
+    k_out = sb.static_base_cuda(x)
+    p_out = sb.static_base_plain(x)
+    mask_equal = torch.equal(k_out > sb.NEG_INF / 2, p_out > sb.NEG_INF / 2)
+    k1_err = float((k_out - p_out).abs().max())
+    check(mask_equal, "static_base mask differs from its plain version")
+    check(k1_err <= STATIC_BASE_TOL,
+          f"static_base max|kernel - plain| {k1_err} > {STATIC_BASE_TOL}")
+    return mask_equal, k1_err
+
+
+def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kernels):
+    """Phase 6 (module docstring). Returns {"kernels": entries, "ms": [...],
+    "pre_ms": [...]}."""
+    from k8s_scheduler_tpu_torch.core.cycle import (_preemption_gate_rows, build_cycle_fn,
+                                                    build_preemption_fn, sampling_window)
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.ops import affinity_update as au
+    from k8s_scheduler_tpu_torch.ops import capacity as cap
+    from k8s_scheduler_tpu_torch.ops import claim_pass as cp
+    from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
+    from k8s_scheduler_tpu_torch.ops import interpod_terms as ipt
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.ops import pv_choice as k11
+    from k8s_scheduler_tpu_torch.ops import pv_fold as k12
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.ops import volume_mask as k10
+    from k8s_scheduler_tpu_torch.ops import volumes as vol
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    n_edge = volume_edge_checks(torch, dev)
+    log(f"phase volumes edge fixtures: {n_edge} comparisons, K10-K12 == plain (up to 8 "
+        "slots, PVs without affinity, zone-wide PVs, modes 0/1/2, dynamic provisioning)")
+
+    # ---- data: config #4's workload with local and zonal volumes ----
+    enc = SnapshotEncoder(device=dev)
+    snaps, encode_ms = {}, {}
+    t0 = time.time()
+    drawn = {s: synth.config4_volumes(nodes, existing, pending[s], seed=s)
+             for s in (AFF_WARM_SEED,) + AFF_TIMED_SEEDS}
+    gen_s = time.time() - t0
+    for s, (ex, pods, pvcs, pvs, classes) in drawn.items():
+        t0 = time.time()
+        snaps[s] = enc.encode(nodes, pods, ex, pvcs=pvcs, pvs=pvs, storage_classes=classes)
+        torch.cuda.synchronize()
+        encode_ms[str(s)] = round((time.time() - t0) * 1e3, 1)
+    del drawn
+    snap0 = snaps[AFF_WARM_SEED]
+    P, N = snap0.P, snap0.N
+    V, MVol = snap0.pv_avail.shape[0], snap0.pod_vol_mode.shape[1]
+    check(snap0.has_volumes and snap0.has_multi_volume and MVol == 2,
+          "the volume workload carries no multi-volume pods")
+    log(f"phase volumes data: {N_NODES} nodes, {N_EXISTING} running, {N_PENDING} pending "
+        f"(config #4 mix + config4_volumes) -> padded P={P} N={N}, V={V} PVs "
+        f"({int(snap0.pv_avail.sum())} available), MVol={MVol}, Rq={snap0.rq_exprs.shape[0]}, "
+        f"Ex={snap0.ex_key.shape[0]}; pods with volumes {json.dumps(volume_kinds(torch, snap0))}; "
+        f"generate {gen_s:.1f}s; encode ms " + json.dumps(encode_ms))
+
+    # ---- the kernels' cycle against the plain-versions cycle ----
+    rec = {"volume_mask": Recorder(vol.volume_mask_plain, keep=(0, 1)),  # static, round 0
+           "pv_choice": Recorder(vol.pv_choice_plain),
+           "pv_fold": Recorder(vol.pv_fold_plain)}
+    cycle_vp = build_cycle_fn(
+        device=dev, static_base_fn=sb.static_base_plain, claim_pass_fn=cp.claim_pass_plain,
+        interpod_terms_fn=ipt.interpod_terms_plain, interpod_norm_fn=ipt.interpod_norm_plain,
+        affinity_update_fn=au.affinity_update_plain, capacity_fn=cap.capacity_plain,
+        guard_sweep_fn=gs.guard_sweep_plain, volume_mask_fn=rec["volume_mask"],
+        pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"])
+    fold_k = Recorder(k12.pv_fold, keep=())  # the last fold: the final claims
+    cycle_k = build_cycle_fn(device=dev, pv_fold_fn=fold_k)
+    t0 = time.time()
+    dk = cycle_k(snap0)
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    dp = cycle_vp(snap0)
+    torch.cuda.synchronize()
+    plain_cycle_ms = (time.time() - t0) * 1e3
+    same = same_decisions(torch, dk, dp)
+    log(f"phase volumes e2e-parity: kernels cycle {warm_ms:.1f} ms (warm-up), plain "
+        f"cycle {plain_cycle_ms:.1f} ms, placed {int((dk.assignment >= 0).sum())}, rounds "
+        f"{int(dk.placed_round.max()) + 1}; kernels == plain: {json.dumps(same)}")
+    check(all(same.values()), "volume kernel cycle differs from the plain-versions cycle")
+    del dp
+
+    # ---- K1 with VolumeBinding's static mask operand (F_MASK) ----
+    x = sb.static_base_inputs(fw, CycleContext(snap0), fit=True,
+                              sampling=sampling_window(snap0, 0))
+    check(bool(x.flags & sb.F_MASK), "static_base inputs carry no volume mask operand")
+    _, k1_err = compare_static_base(torch, sb, x)
+    log(f"phase volumes kernel static_base with the volume mask operand: [{P}, {N}] "
+        f"mask equal True, max|err| {k1_err}; {int((~x.mask).sum())} (pod, node) pairs "
+        "masked by VolumeBinding")
+    del x
+
+    # ---- K10-K12 against their plain versions on round 0's inputs ----
+    for k, r in rec.items():
+        check(set(r.args) == r.keep, f"{k}: inputs were not recorded ({sorted(r.args)})")
+    s_args, u_args = rec["volume_mask"].args[0], rec["volume_mask"].args[1]
+    check(s_args[3] is False and u_args[3] is True, "volume_mask calls out of order")
+    tables = s_args[1]
+    for tag, args in (("static", s_args), ("unbound", u_args)):
+        check(torch.equal(k10.volume_mask_cuda(*args), vol.volume_mask_plain(*args)),
+              f"volume_mask ({tag}) differs from its plain version")
+    k10_ms = time_ms(torch, lambda: k10.volume_mask_cuda(*s_args), 20)
+    k10u_ms = time_ms(torch, lambda: k10.volume_mask_cuda(*u_args), 20)
+    k10_plain = time_ms(torch, lambda: vol.volume_mask_plain(*s_args), 2)
+    k10u_plain = time_ms(torch, lambda: vol.volume_mask_plain(*u_args), 2)
+    cand_f = vol.pod_pv_cand(snap0, 0).float()
+    pv_ok_f = vol.pv_node_table(snap0, tables.req).float()
+    k10_lib = time_ms(torch, lambda: cand_f @ pv_ok_f, 3)
+    del cand_f, pv_ok_f
+    L, G = tables.node_pv.shape[0], tables.global_pv.shape[0]
+    n_sub = MVol + len(vol._hall_subsets(MVol))
+    walkers = int((snap0.pod_vol_mode == 1).any(dim=1).sum())
+    rids = snap0.pod_vol_req[snap0.pod_vol_mode >= 0]
+    k10_bytes = (P * N + P * MVol * 16 + (N + 1) * 4 + (L + G) * 4
+                 + int(torch.unique(torch.cat([tables.node_pv, tables.global_pv])).numel()) * 8
+                 + int(torch.unique(rids[rids >= 0]).numel()) * N)
+    k10_ops = walkers * (L + N * G) * (3 * MVol + n_sub) + P * N
+    log(f"phase kernel volume_mask: [{P}, {N}] equal True (static and unbound); kernel "
+        f"{k10_ms:.3f} ms static, {k10u_ms:.3f} ms unbound; plain {k10_plain:.3f} / "
+        f"{k10u_plain:.3f} ms; dense count product [{P}, {V}] x [{V}, {N}] f32 "
+        f"{k10_lib:.3f} ms; bound {bound(k10_bytes, k10_ops)[0]:.4f} ms; {walkers} pods "
+        f"walk {L} node-list entries + {G} global PVs")
+
+    c_args = rec["pv_choice"].args[0]
+    csnap, _, cclaimed, cnode, clive = c_args
+    check(torch.equal(k11.pv_choice_cuda(*c_args), vol.pv_choice_plain(*c_args)),
+          "pv_choice differs from its plain version")
+    k11_ms = time_ms(torch, lambda: k11.pv_choice_cuda(*c_args), 20)
+    k11_plain = time_ms(torch, lambda: vol.pv_choice_plain(*c_args), 2)
+
+    def list_bytes(snap_v, nodes_v, rows):
+        """Bytes of the claimants' rows and of their nodes' lists (each
+        node's list and each listed PV's class and capacity read once)."""
+        un = torch.unique(nodes_v[rows].long())
+        lens = (tables.node_off[un + 1] - tables.node_off[un]).sum()
+        return int(rows.sum()) * MVol * 16 + int(lens) * 12 + G * 12 + un.numel() * 8
+
+    c_rows = clive & (csnap.pod_vol_mode == 1).any(dim=1)
+    B11 = cnode.shape[0]
+    k11_bytes = B11 * (MVol * 4 + 5) + list_bytes(csnap, cnode, c_rows) + V
+    k11_ops = int(c_rows.sum()) * MVol * 3 * (2 + G) * (3 * MVol + 4)
+    f_args = rec["pv_fold"].args[0]
+    fsnap, _, fclaimed, facc, fnode, frank = f_args
+    fold0, passes0 = vol.fold_pv_claims_passes(fsnap, tables.req, *f_args[2:])
+    check(torch.equal(k12.pv_fold_cuda(*f_args), fold0),
+          "pv_fold differs from its plain version")
+    # contended: every pod with an unbound slot accepted at a seeded node
+    gen = torch.Generator(device=dev).manual_seed(11)
+    many = fsnap.pod_valid & (fsnap.pod_vol_mode == 1).any(dim=1)
+    rnd_node = torch.randint(0, N_NODES, (fsnap.P,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    cont = (fsnap, tables, fclaimed, many, rnd_node, frank)
+    fold_c, passes_c = vol.fold_pv_claims_passes(fsnap, tables.req, *cont[2:])
+    check(torch.equal(k12.pv_fold_cuda(*cont), fold_c),
+          "pv_fold differs from its plain version on the contended batch")
+    check(passes_c > 1, "the contended batch folded in one pass")
+    k12_ms = time_ms(torch, lambda: k12.pv_fold_cuda(*f_args), 20)
+    k12_plain = time_ms(torch, lambda: vol.pv_fold_plain(*f_args), 2)
+    f_rows = facc & (fsnap.pod_vol_mode == 1).any(dim=1)
+    k12_bytes = fnode.shape[0] * 9 + list_bytes(fsnap, fnode, f_rows) + 2 * V
+    k12_ops = int(f_rows.sum()) * MVol * passes0 * 3 * (2 + G) * (3 * MVol + 4)
+    log(f"phase kernel pv_choice: {int(c_rows.sum())} claimants with unbound slots of "
+        f"B={B11}; equal True; kernel {k11_ms:.3f} ms, plain {k11_plain:.3f} ms, bound "
+        f"{bound(k11_bytes, k11_ops)[0]:.4f} ms")
+    log(f"phase kernel pv_fold: {int(f_rows.sum())} claimants, {passes0} pass(es) in one "
+        f"launch; equal True, also on a contended batch ({int(many.sum())} claimants at "
+        f"seeded nodes, {passes_c} passes); kernel {k12_ms:.3f} ms, plain {k12_plain:.3f} ms, "
+        f"bound {bound(k12_bytes, k12_ops)[0]:.4f} ms")
+    del rec, s_args, u_args, c_args, f_args, cont
+
+    # ---- the volume main path: counts set to 0 just before, read just after ----
+    results, finals = [], {}
+    kb.reset_launch_counts()
+    for s in AFF_TIMED_SEEDS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        d = cycle_k(snaps[s])
+        end.record()
+        torch.cuda.synchronize()
+        finals[s] = fold_k.last
+        results.append((s, d, start.elapsed_time(end), (time.time() - t0) * 1e3))
+    launches = dict(kb.launch_counts)
+    log(f"phase volumes launches over {len(AFF_TIMED_SEEDS)} cycles: {json.dumps(launches)}")
+    rounds = launches["guard_sweep"]
+    check(launches["volume_mask"] == rounds + len(AFF_TIMED_SEEDS),
+          "volume_mask: not once per cycle plus once per round")
+    check(launches["pv_choice"] == rounds and launches["pv_fold"] == rounds,
+          "pv_choice / pv_fold: not once per round")
+    ms, decisions = [], {}
+    for s, d, dev_ms, host_ms in results:
+        snap = snaps[s]
+        claimed = finals[s]
+        vk = VolumeKernels(vol.volume_mask_plain, vol.pv_choice_plain,
+                           lambda *a, c=claimed: c)
+        ctx, extra = check_placements(torch, snap, d, fw, plain_kernels, vk)
+        n_anti, n_aff, n_spread = check_affinity(torch, snap, d, ctx, extra)
+        n_b, n_u, n_c, n_dyn = check_volumes(torch, snap, d, ctx.volume_tables, claimed)
+        ms.append(round(dev_ms, 1))
+        decisions[s] = d
+        log(f"phase volumes cycle seed {s}: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
+            f"placed {int((d.assignment >= 0).sum())}, unschedulable "
+            f"{int(d.unschedulable.sum())}, rounds {int(d.placed_round.max()) + 1}; valid: "
+            f"capacity, static masks, unplaced infeasible, {n_anti} anti, {n_aff} affinity, "
+            f"{n_spread} spread; {n_b} bound claims on their PVs' nodes, {n_u} unbound slots "
+            f"placed, {n_c} static PVs claimed once each, {n_dyn} slots riding dynamic")
+    del results
+
+    # ---- preemption after each cycle, with the volume gate ----
+    pre_k = build_preemption_fn(fw, device=dev)
+    pre_p = build_preemption_fn(fw, device=dev, prefilter_fn=pre.prefilter_plain,
+                                whatif_fn=pre.nonresource_ok_plain,
+                                claim_fn=pre.claim_loop_plain,
+                                volume_mask_fn=vol.volume_mask_plain)
+    pre_k(snap0, dk)
+    torch.cuda.synchronize()
+    timed = []
+    kb.reset_launch_counts()
+    for s in AFF_TIMED_SEEDS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = pre_k(snaps[s], decisions[s])
+        end.record()
+        torch.cuda.synchronize()
+        timed.append((s, r, start.elapsed_time(end)))
+    p_launches = dict(kb.launch_counts)
+    log(f"phase volumes preemption launches over {len(AFF_TIMED_SEEDS)} passes: "
+        f"{json.dumps(p_launches)}")
+    check(p_launches["volume_mask"] == len(AFF_TIMED_SEEDS),
+          "volume_mask: not once per preemption pass")
+    pre_ms = []
+    for s, r, dev_ms in timed:
+        snap, d = snaps[s], decisions[s]
+        rp = pre_p(snap, d)
+        eq = {f: torch.equal(getattr(r, f), getattr(rp, f))
+              for f in ("nominated", "victims", "num_preemptors")}
+        check(all(eq.values()), f"seed {s}: kernels' preemption differs from the plain one: {eq}")
+        gate_fn = _preemption_gate_rows(fw, CycleContext(snap))
+        n_nom, n_vict, n_viol = check_preemption(torch, snap, d, r, gate_fn,
+                                                 pre.DEFAULT_SCAN_BUDGET)
+        nom = r.nominated
+        ids = torch.nonzero(nom >= 0, as_tuple=True)[0]
+        vol_gate = k10.volume_mask_cuda(snap, CycleContext(snap).volume_tables, None, False)
+        check(bool(vol_gate[ids, nom[ids].long()].all()),
+              "a nominated node fails the volume gate")
+        n_vp = int((snap.pod_vol_mode[ids] >= 0).any(dim=1).sum())
+        pre_ms.append(round(dev_ms, 2))
+        log(f"phase volumes preemption seed {s}: device {dev_ms:.2f} ms; {n_nom} "
+            f"nominations ({n_vp} of pods with volumes), {n_vict} victims, {n_viol} with "
+            f"a PDB violation; kernels == plain, nominations valid incl. the volume gate "
+            f"| {smi}")
+
+    src = "k8s_scheduler_tpu_torch/csrc/"
+    ref = "k8s_scheduler_tpu/ops/volumes.py:"
+    entries = {
+        "volume_mask": kernel_entry(
+            "volume_mask", "cuda", src + "volume_mask.cu", ref + "159",
+            launches["volume_mask"], 0.0, k10_ms, k10_plain, k10_bytes, k10_ops, k10_lib),
+        "pv_choice": kernel_entry(
+            "pv_choice", "cuda", src + "pv_choice.cu", ref + "535",
+            launches["pv_choice"], 0.0, k11_ms, k11_plain, k11_bytes, k11_ops),
+        "pv_fold": kernel_entry(
+            "pv_fold", "cuda", src + "pv_fold.cu", ref + "419",
+            launches["pv_fold"], 0.0, k12_ms, k12_plain, k12_bytes, k12_ops),
+    }
+    return {"kernels": entries, "ms": ms, "pre_ms": pre_ms}
+
+
 def main() -> int:
     import torch
 
@@ -717,15 +1191,7 @@ def main() -> int:
 
     ctx = CycleContext(snap0)
     x = sb.static_base_inputs(fw, ctx, fit=True, sampling=sampling_window(snap0, 0))
-    k_out = sb.static_base_cuda(x)
-    p_out = sb.static_base_plain(x)
-    k_mask, p_mask = k_out > sb.NEG_INF / 2, p_out > sb.NEG_INF / 2
-    mask_equal = torch.equal(k_mask, p_mask)
-    k1_err = float((k_out - p_out).abs().max())
-    check(mask_equal, "static_base mask differs from its plain version")
-    check(k1_err <= STATIC_BASE_TOL,
-          f"static_base max|kernel - plain| {k1_err} > {STATIC_BASE_TOL}")
-    del k_out, p_out, k_mask, p_mask
+    mask_equal, k1_err = compare_static_base(torch, sb, x)
     k1_ms = time_ms(torch, lambda: sb.static_base_cuda(x), 20)
     k1_plain_ms = time_ms(torch, lambda: sb.static_base_plain(x), 3)
     k1_bytes = P * N * 4 + nbytes(*[v for v in vars(x).values()
@@ -1010,6 +1476,12 @@ def main() -> int:
     pre_stats = preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps,
                                  decisions, cycle_ms, cycle_k, smi, slice1_case)
     kernels.update(pre_stats.pop("kernels"))
+    del snaps, decisions
+
+    # ============ volumes: config #4's workload with local and zonal PVs ============
+    vol_stats = volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi,
+                              plain_kernels)
+    kernels.update(vol_stats.pop("kernels"))
 
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
@@ -1035,7 +1507,8 @@ def main() -> int:
         log(f"  kernel {k['name']:16s} ms {k['ms']:9.3f}  bound {k['bound_ms']:8.3f} "
             f"({k['bound_by']})  plain {k['plain_ms']:9.3f}  launches {k['launches']}")
     log(f"phase summary: slice-1 cycle device ms {timed1}, affinity cycle device ms "
-        f"{timed}, preemption device ms {pre_stats['ms']}, peak memory "
+        f"{timed}, preemption device ms {pre_stats['ms']}, volumes cycle device ms "
+        f"{vol_stats['ms']}, volumes preemption device ms {vol_stats['pre_ms']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -3,25 +3,28 @@ placements out, on one device.
 
 Per cycle, for the whole pending set:
 
-    CycleContext precomputes -> static base (K1 `static_base`: static
-    filters, static scores, node sampling) -> rounds engine: per round the
-    inter-pod affinity / spread terms (K3 `interpod_terms`,
-    `interpod_norm`), per pass the claim (K2 `claim_pass`) and capacity
-    resolution (K5 `capacity`), at round end the guard sweep (K6
-    `guard_sweep`) and the affinity-state fold (K4 `affinity_update`)
-    -> gang unwind
+    CycleContext precomputes -> VolumeBinding's static mask (K10
+    `volume_mask`) -> static base (K1 `static_base`: static filters, static
+    scores, node sampling) -> rounds engine: per round the inter-pod
+    affinity / spread terms (K3 `interpod_terms`, `interpod_norm`) and the
+    volumes' unbound residue (K10), per pass the claim (K2 `claim_pass`)
+    and capacity resolution (K5 `capacity`), at round end the PV guard key
+    (K11 `pv_choice`), the guard sweep (K6 `guard_sweep`), the affinity-
+    state fold (K4 `affinity_update`) and the PV claim fold (K12
+    `pv_fold`) -> gang unwind
 
 and, when the cycle leaves pods unplaced, the PostFilter
 (`build_preemption_fn`): DefaultPreemption's prefilter (K7
 `preempt_prefilter`), non-resource what-if (K8 `preempt_whatif`) and
 serial claim loop (K9 `preempt_claim`), a separate call so a cycle that
-places every pod pays nothing for it.
+places every pod pays nothing for it; its static gate ANDs VolumeBinding's
+static mask (K10) over the candidates.
 
 This slice builds the latency cycle of the rounds engine
 (`build_cycle_fn(commit_mode="rounds", outputs="latency")`), with inter-
-pod affinity and topology spread, and preemption after it. Volumes (A4b),
-the scan engine, full outputs and the carry/packed/multi-cycle/arena
-builders are ROADMAP items A5 and A7-A13."""
+pod affinity, topology spread and volumes, and preemption after it. The
+scan engine, full outputs (with `_pv_claimed_after_unwind`) and the
+carry/packed/multi-cycle/arena builders are ROADMAP items A5 and A7-A13."""
 
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from typing import Callable
 
 import torch
 
-from ..framework.interfaces import AffinityKernels, CycleContext, PreemptionKernels
+from ..framework.interfaces import (AffinityKernels, CycleContext, PreemptionKernels,
+                                    VolumeKernels)
 from ..framework.runtime import Framework
 from ..ops import affinity_update as affinity_update_ops
 from ..ops import capacity as capacity_ops
@@ -40,8 +44,11 @@ from ..ops import interpod_terms as interpod_terms_ops
 from ..ops import preempt_claim as preempt_claim_ops
 from ..ops import preempt_prefilter as preempt_prefilter_ops
 from ..ops import preempt_whatif as preempt_whatif_ops
+from ..ops import pv_choice as pv_choice_ops
+from ..ops import pv_fold as pv_fold_ops
 from ..ops import rounds as rounds_ops
 from ..ops import static_base as static_base_ops
+from ..ops import volume_mask as volume_mask_ops
 from ..ops.argsel import wrap_i32
 from ..utils.device import resolve_device
 
@@ -127,6 +134,9 @@ def build_cycle_fn(
     affinity_update_fn: Callable = affinity_update_ops.affinity_update,
     capacity_fn: Callable = capacity_ops.capacity,
     guard_sweep_fn: Callable = guard_sweep_ops.guard_sweep,
+    volume_mask_fn: Callable = volume_mask_ops.volume_mask,
+    pv_choice_fn: Callable = pv_choice_ops.pv_choice,
+    pv_fold_fn: Callable = pv_fold_ops.pv_fold,
 ) -> Callable:
     """The cycle for a framework (default: the default plugin set) on one
     device: `cycle(snapshot) -> CycleDecision`.
@@ -134,9 +144,10 @@ def build_cycle_fn(
     `device` None means the card (raises without one). The default
     kernel functions (`static_base_fn`, `claim_pass_fn`, `interpod_terms_fn`,
     `interpod_norm_fn`, `affinity_update_fn`, `capacity_fn`,
-    `guard_sweep_fn`) run the hand-written kernels on CUDA and their plain
-    torch versions on CPU; passing the plain versions (`*_plain`) runs them
-    on the card too — the run the kernels are held against.
+    `guard_sweep_fn`, `volume_mask_fn`, `pv_choice_fn`, `pv_fold_fn`) run
+    the hand-written kernels on CUDA and their plain torch versions on CPU;
+    passing the plain versions (`*_plain`) runs them on the card too — the
+    run the kernels are held against.
 
     Placements follow the reference's rounds engine: bit-equal
     assignment / node_requested / unschedulable / gang_dropped (held by
@@ -159,13 +170,14 @@ def build_cycle_fn(
     fw = framework or Framework.from_config()
     kernels = AffinityKernels(interpod_terms_fn, interpod_norm_fn,
                               affinity_update_fn)
+    vkernels = VolumeKernels(volume_mask_fn, pv_choice_fn, pv_fold_fn)
 
     def cycle(snap) -> CycleDecision:
         if snap.device.type != dev.type:
             raise ValueError(
                 f"snapshot on {snap.device}, cycle built for {dev}"
             )
-        ctx = CycleContext(snap, kernels)
+        ctx = CycleContext(snap, kernels, volume_kernels=vkernels)
         sbase = static_base_fn(static_base_ops.static_base_inputs(
             fw, ctx, fit=True,
             sampling=sampling_window(snap, percentage_of_nodes_to_score),
@@ -192,6 +204,7 @@ def build_cycle_fn(
             claim_pass_fn=claim_pass_fn,
             capacity_fn=capacity_fn,
             guard_sweep_fn=guard_sweep_fn,
+            pv_choice_fn=_make_pv_choice_fn(ctx),
             **kw,
         )
         assignment, node_req = rres.assignment, rres.node_requested
@@ -205,6 +218,24 @@ def build_cycle_fn(
     return cycle
 
 
+def _make_pv_choice_fn(ctx: CycleContext) -> Callable | None:
+    """The rounds engine's PV guard hook: the PV per (claimant, slot)
+    against the live claim bitmap in VolumeBinding's extra state (K11).
+    None when the snapshot has no volumes."""
+    if not ctx.snap.has_volumes:
+        return None
+
+    def pv_choice_fn(vsnap, node_of, live, ext_state):
+        claimed = ext_state.get("VolumeBinding")
+        if claimed is None:  # plugin disabled in this profile
+            return torch.full((node_of.shape[0], vsnap.pod_vol_mode.shape[1]), -1,
+                              dtype=torch.int32, device=node_of.device)
+        return ctx.volume_kernels.pv_choice(vsnap, ctx.volume_tables, claimed,
+                                            node_of, live)
+
+    return pv_choice_fn
+
+
 def _preemption_gate_rows(fw: Framework, ctx: CycleContext) -> Callable:
     """Per-candidate static gate for preemption: every static filter EXCEPT
     NodePorts (conflicts with running pods' ports are exactly what eviction
@@ -214,7 +245,7 @@ def _preemption_gate_rows(fw: Framework, ctx: CycleContext) -> Callable:
     def gate_rows(ids):
         snap = ctx.snap
         vctx = CycleContext(rounds_ops._pod_view(snap, ids), ctx.kernels,
-                            ctx.preemption_kernels)
+                            ctx.preemption_kernels, ctx.volume_kernels)
         vctx._cache.update(ctx._cache)
         base = snap.node_valid[None, :].expand(ids.shape[0], snap.N)
         for f in fw.filters:
@@ -234,16 +265,19 @@ def build_preemption_fn(
     prefilter_fn: Callable = preempt_prefilter_ops.preempt_prefilter,
     whatif_fn: Callable = preempt_whatif_ops.preempt_whatif,
     claim_fn: Callable = preempt_claim_ops.preempt_claim,
+    volume_mask_fn: Callable = volume_mask_ops.volume_mask,
 ) -> Callable | None:
     """The PostFilter pass, called with the cycle's decision when pods stay
     unplaced: `post_filter(snapshot, decision) -> PreemptionResult`
     (nominated i32 [P], victims bool [E], num_preemptors i32 []). None when
     no PostFilter plugin is enabled.
 
-    `device` None means the card. The default stage functions run K7-K9 on
-    CUDA and their plain versions on CPU; passing the plain versions
+    `device` None means the card. The default stage functions run K7-K9
+    (and K10 for VolumeBinding's part of the static gate) on CUDA and their
+    plain versions on CPU; passing the plain versions
     (`preemption.prefilter_plain`, `nonresource_ok_plain`,
-    `claim_loop_plain`) runs them on the card too. Results are bit-equal to
+    `claim_loop_plain`, `volumes.volume_mask_plain`) runs them on the card
+    too. Results are bit-equal to
     the reference's `build_preemption_fn` on the same snapshot and decision
     (held by tests/test_torch_preemption.py)."""
     dev = resolve_device(device)
@@ -257,7 +291,8 @@ def build_preemption_fn(
             raise ValueError(
                 f"snapshot on {snap.device}, preemption built for {dev}"
             )
-        ctx = CycleContext(snap, preemption_kernels=stages)
+        ctx = CycleContext(snap, preemption_kernels=stages,
+                           volume_kernels=VolumeKernels(volume_mask=volume_mask_fn))
         return fw.post_filter(
             ctx, decision.assignment, decision.node_requested,
             _preemption_gate_rows(fw, ctx), excluded=decision.gang_dropped,

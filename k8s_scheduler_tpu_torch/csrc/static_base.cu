@@ -7,11 +7,12 @@
 // with (static_mask, static_score) = Framework.static_lean
 // (k8s_scheduler_tpu/framework/runtime.py:103), optionally ANDed with
 // core/cycle.py sampling_mask and resources.fit_mask_single against the
-// snapshot's node_requested.
+// snapshot's node_requested, and with a bool [P, N] mask operand
+// (VolumeBinding's static mask, computed by volume_mask.cu).
 //
 // mask  = node_valid & NodeUnschedulable & NodeName & toleration-pair lookup
 //         & requirement rows (pod_req_id, pod_sel_req_id) & no host-port
-//         conflict & [fit] & [sampling window]
+//         conflict & [fit] & [sampling window] & [mask operand]
 // score = fused multiply-add of the weighted static plugin scores in the
 //         framework's order (ImageLocality, NodeAffinity preferred,
 //         TaintToleration by default), the same single roundings XLA's
@@ -39,7 +40,7 @@ constexpr int kThreads = 256;
 
 // filter bits (ops/static_base.py mirrors these)
 constexpr int kUnsched = 1, kNodeName = 2, kTaint = 4, kAffinity = 8,
-              kPorts = 16, kFit = 32, kSample = 64;
+              kPorts = 16, kFit = 32, kSample = 64, kMask = 128;
 // score term codes
 constexpr int kTermImage = 1, kTermPref = 2, kTermTaint = 3;
 
@@ -72,6 +73,7 @@ struct Args {
   int Pf;
   const float* img;  // [Is, N]
   int Is;
+  const uint8_t* mask;  // [P, N] (kMask)
   int flags;
   int term[3];
   float weight[3];
@@ -128,6 +130,7 @@ __global__ void static_base_kernel(Args a) {
       if (win < 0) win += a.samp_n;
       ok = ok && win < a.samp_k;
     }
+    if (flags & kMask) ok = ok && a.mask[(size_t)p * a.N + n] != 0;
     float out = kNegInf;
     if (ok) {
       float s = 0.0f;
@@ -166,7 +169,7 @@ extern "C" int static_base_launch(
     const float* img, int Is,
     int flags, int term0, int term1, int term2,
     float w0, float w1, float w2, int n_terms,
-    void* stream) {
+    void* stream, const uint8_t* mask) {
   if (P <= 0 || N <= 0) return 0;
   Args a;
   a.out = out; a.P = P; a.N = N; a.R = R;
@@ -180,6 +183,7 @@ extern "C" int static_base_launch(
   a.MUP = MUP; a.node_room = node_room;
   a.sched = sched; a.tscore = tscore; a.Tl = Tl; a.Ts = Ts;
   a.req = req; a.Rq = Rq; a.pref = pref; a.Pf = Pf; a.img = img; a.Is = Is;
+  a.mask = mask;
   a.flags = flags;
   a.term[0] = term0; a.term[1] = term1; a.term[2] = term2;
   a.weight[0] = w0; a.weight[1] = w1; a.weight[2] = w2;

@@ -21,6 +21,7 @@ from ..ops import affinity_update as update_ops
 from ..ops import interpod, labels
 from ..ops import interpod_terms as terms_ops
 from ..ops import preempt_claim, preempt_prefilter, preempt_whatif
+from ..ops import pv_choice, pv_fold, volume_mask, volumes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,15 +52,32 @@ class PreemptionKernels:
     claim: Callable = preempt_claim.preempt_claim
 
 
+@dataclasses.dataclass(frozen=True)
+class VolumeKernels:
+    """The functions the VolumeBinding hooks call: by default the
+    dispatching wrappers of K10-K12; `plain()` forces the plain versions."""
+
+    volume_mask: Callable = volume_mask.volume_mask
+    pv_choice: Callable = pv_choice.pv_choice
+    pv_fold: Callable = pv_fold.pv_fold
+
+    @staticmethod
+    def plain() -> "VolumeKernels":
+        return VolumeKernels(volumes.volume_mask_plain, volumes.pv_choice_plain,
+                             volumes.pv_fold_plain)
+
+
 class CycleContext:
     """Shared per-cycle precomputes (the PreFilter-state analogue), computed
     lazily and cached for the cycle."""
 
     def __init__(self, snap, kernels: AffinityKernels | None = None,
-                 preemption_kernels: PreemptionKernels | None = None):
+                 preemption_kernels: PreemptionKernels | None = None,
+                 volume_kernels: VolumeKernels | None = None):
         self.snap = snap
         self.kernels = kernels or AffinityKernels()
         self.preemption_kernels = preemption_kernels or PreemptionKernels()
+        self.volume_kernels = volume_kernels or VolumeKernels()
         self._cache: dict[str, Any] = {}
 
     def get(self, key: str, compute) -> Any:
@@ -79,6 +97,20 @@ class CycleContext:
     def matched_existing(self) -> torch.Tensor:  # bool [S, E]
         return self.get("matched_existing", interpod.matched_existing)
 
+    @property
+    def requirement_rows(self) -> torch.Tensor:  # bool [Rq, N]
+        """Every node-affinity requirement (pods', PVs', storage classes')
+        against every node (node-side: shared by pod views)."""
+        return self.get("requirement_rows", lambda s: labels.requirement_mask(
+            s.rq_exprs, self.expr_node_mask))
+
+    @property
+    def volume_tables(self) -> volumes.VolumeTables:
+        """The requirement rows and per-node lists of available PVs the
+        volume kernels read (node-side: shared by pod views)."""
+        return self.get("volume_tables",
+                        lambda s: volumes.volume_tables(s, self.requirement_rows))
+
     def initial_affinity_state(self) -> interpod.AffinityState:
         return self.get(
             "initial_affinity_state",
@@ -89,7 +121,8 @@ class CycleContext:
         """A context for a pod-axis view of the snapshot: it shares the
         node-side precomputes and swaps in the view's matched-pending
         columns."""
-        vctx = CycleContext(vsnap, self.kernels, self.preemption_kernels)
+        vctx = CycleContext(vsnap, self.kernels, self.preemption_kernels,
+                            self.volume_kernels)
         vctx._cache.update(self._cache)
         vctx._cache["matched_pending"] = vmp
         return vctx

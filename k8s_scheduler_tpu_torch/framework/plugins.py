@@ -2,11 +2,9 @@
 
 Ported: NodeUnschedulable, NodeName, NodePorts, NodeResourcesFit,
 NodeResourcesBalancedAllocation, NodeAffinity, TaintToleration,
-ImageLocality, InterPodAffinity, PodTopologySpread and DefaultPreemption.
-VolumeBinding is in the default set but not ported yet: it is inert
-exactly where the reference's is (no volumes) and raises
-NotImplementedError naming its ROADMAP item (A4b) where it would act, so
-it can never return a wrong answer."""
+ImageLocality, VolumeBinding, InterPodAffinity, PodTopologySpread and
+DefaultPreemption, with their batched hooks (the rounds engine's); the
+per-pod hooks of the scan engine are ROADMAP A8."""
 
 from __future__ import annotations
 
@@ -20,13 +18,6 @@ from ..ops import preemption as preemption_ops
 from ..ops import resources as res_ops
 from ..ops import taints as taints_ops
 from .interfaces import CycleContext, PluginBase
-
-
-def _not_ported(plugin: str, what: str, item: str):
-    return NotImplementedError(
-        f"{plugin}: {what} is not ported to the torch package yet "
-        f"(ROADMAP {item})"
-    )
 
 
 def _score_resource_weights(snap, args: dict) -> tuple[float, ...]:
@@ -172,7 +163,8 @@ class NodeAffinity(PluginBase):
     name = "NodeAffinity"
 
     def static_mask(self, ctx: CycleContext):
-        return labels_ops.pod_requirement_mask(ctx.snap, ctx.expr_node_mask)
+        return labels_ops.pod_requirement_mask(ctx.snap, ctx.expr_node_mask,
+                                               ctx.requirement_rows)
 
     def static_score(self, ctx: CycleContext):
         return labels_ops.preferred_score(ctx.snap, ctx.expr_node_mask)
@@ -196,26 +188,47 @@ class ImageLocality(PluginBase):
 
 
 class VolumeBinding(PluginBase):
-    """PVC/PV feasibility: inert on snapshots without volumes."""
+    """PVC/PV feasibility (ops/volumes.py): bound-PV node affinity, static-
+    PV candidacy and dynamic-provisioning topology for WaitForFirstConsumer
+    claims, joint over a pod's slots. The static mask (K10) covers pre-
+    cycle availability; a `pv_claimed` bitmap in the extra state carries
+    the cycle's claims (K12 folds each round's placements into it) and the
+    unbound residue (K10 again) re-checks unbound slots against it every
+    round. Inert on snapshots without volumes."""
 
     name = "VolumeBinding"
 
-    def _check(self, ctx: CycleContext):
-        if ctx.snap.has_volumes:
-            raise _not_ported(self.name, "PVC/PV binding", "A4b")
-
     def static_mask(self, ctx: CycleContext):
-        self._check(ctx)
-        return None
+        if not ctx.snap.has_volumes:
+            return None
+        return ctx.volume_kernels.volume_mask(ctx.snap, ctx.volume_tables, None, False)
+
+    def _has_static_claims(self, snap) -> bool:
+        # claim tracking matters only when volumes and static PVs exist
+        return bool(snap.has_volumes and snap.pv_avail.shape[0] > 0)
 
     def extra_init(self, ctx: CycleContext):
-        self._check(ctx)
-        return None
+        if not self._has_static_claims(ctx.snap):
+            return None
+        return torch.zeros((ctx.snap.pv_avail.shape[0],), dtype=torch.bool,
+                           device=ctx.snap.device)
 
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
-        self._check(ctx)
-        return None
+        if not self._has_static_claims(ctx.snap):
+            return None
+        return ctx.volume_kernels.volume_mask(ctx.snap, ctx.volume_tables,
+                                              extra[self.name], True)
+
+    def extra_update_batched(self, ctx: CycleContext, extra, accepted,
+                             node_of):
+        if extra is None:
+            return extra
+        # fixed-point fold, exact for any batch; under the rounds engine's
+        # PV guard the batch is claim-disjoint and one pass suffices
+        snap = ctx.snap
+        return ctx.volume_kernels.pv_fold(snap, ctx.volume_tables, extra, accepted,
+                                          node_of, snap.pod_order.to(torch.int32))
 
 
 # --- shared affinity-state plumbing -----------------------------------------

@@ -1,6 +1,6 @@
 """Typed object model for the scheduler's API surface — the port's own
 copy of `k8s_scheduler_tpu/models/api.py`, cut to the objects the
-rounds-engine and preemption slices encode (no volume or dict-constructor
+rounds-engine, preemption and volume slices encode (no dict-constructor
 types yet).
 
 This is the subset of the Kubernetes Pod/Node API that the scheduler family
@@ -296,6 +296,48 @@ class PodDisruptionBudget:
     namespace: str = "default"
     selector: "LabelSelector" = field(default_factory=lambda: LabelSelector())
     disruptions_allowed: int = 0
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+# ---------------------------------------------------------------------------
+# Volumes (VolumeBinding filter inputs)
+# ---------------------------------------------------------------------------
+
+VOLUME_BINDING_IMMEDIATE = "Immediate"
+VOLUME_BINDING_WAIT = "WaitForFirstConsumer"
+
+
+@dataclass
+class StorageClass:
+    name: str
+    volume_binding_mode: str = VOLUME_BINDING_IMMEDIATE
+    # dynamic provisioning available (provisioner != no-provisioner)
+    provisioner: bool = True
+    # allowedTopologies, compiled like node-affinity terms (OR of terms)
+    allowed_topologies: tuple[NodeSelectorTerm, ...] = ()
+
+
+@dataclass
+class PersistentVolume:
+    name: str
+    capacity: float = 0.0  # storage bytes
+    storage_class: str = ""
+    # spec.nodeAffinity.required: OR of terms restricting usable nodes
+    node_affinity: tuple[NodeSelectorTerm, ...] = ()
+    # claimRef: bound to this PVC ("namespace/name"); "" = available
+    claim_ref: str = ""
+
+
+@dataclass
+class PersistentVolumeClaim:
+    name: str
+    namespace: str = "default"
+    storage_class: str = ""
+    request: float = 0.0  # requested storage bytes
+    volume_name: str = ""  # bound PV ("" = unbound)
 
     @property
     def key(self) -> str:

@@ -20,9 +20,16 @@ holds each budget's disruptionsAllowed and `exist_pdb` [E, MB] the first
 MB budgets (in list order) whose selector covers each running pod, as
 preemption reads them.
 
-Not in this slice (ROADMAP A4b and later): volumes as encoder inputs
-(their snapshot fields are emitted at their empty pads, and a pod that
-mounts a PVC raises), and the delta/fold/arena encode paths.
+Volumes are an encoder input (`pvcs=`, `pvs=`, `storage_classes=`): each
+pending pod's mounted claims become rows of `pod_vol_*` [P, MVol] (mode 0
+bound PV, its nodeAffinity requirement in `pod_vol_req`; mode 1 unbound
+WaitForFirstConsumer, with class, size and the dynamic-provisioning
+requirement or -1 any / -2 none; mode 2 unschedulable), and the PVs the
+table `pv_*` [V]. PV nodeAffinity and class allowedTopologies are interned
+through the same requirement table as pod node affinity, in the
+reference's order.
+
+Not in this slice (ROADMAP A1): the delta/fold/arena encode paths.
 """
 
 from __future__ import annotations
@@ -446,6 +453,8 @@ class SnapshotEncoder:
         self._sticky_flags: dict[str, bool] = {}
         self._stable_key = None
         self._stable: dict = {}
+        self._vol_sig = None
+        self._vol_epoch = 0
 
     def _stick(self, key: str, val: int) -> int:
         val = max(val, self._sticky_dims.get(key, 0))
@@ -475,11 +484,16 @@ class SnapshotEncoder:
         existing: Sequence[tuple[Pod, str]] = (),
         pod_groups: Sequence[api.PodGroup] = (),
         *,
+        pvcs: Sequence[api.PersistentVolumeClaim] = (),
+        pvs: Sequence[api.PersistentVolume] = (),
+        storage_classes: Sequence[api.StorageClass] = (),
         pdbs: Sequence[api.PodDisruptionBudget] = (),
     ) -> ClusterSnapshot:
         """One-shot encode onto the encoder's device. `existing` is
         (pod, node_name) for every pod already assigned."""
         fields, aux = self.encode_numpy(nodes, pending, existing, pod_groups,
+                                        pvcs=pvcs, pvs=pvs,
+                                        storage_classes=storage_classes,
                                         pdbs=pdbs)
         return snapshot_from_numpy(fields, aux, self.device)
 
@@ -490,15 +504,12 @@ class SnapshotEncoder:
         existing: Sequence[tuple[Pod, str]] = (),
         pod_groups: Sequence[api.PodGroup] = (),
         *,
+        pvcs: Sequence[api.PersistentVolumeClaim] = (),
+        pvs: Sequence[api.PersistentVolume] = (),
+        storage_classes: Sequence[api.StorageClass] = (),
         pdbs: Sequence[api.PodDisruptionBudget] = (),
     ) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
         """The host half of `encode`: (array fields, aux fields) as numpy."""
-        for p in list(pending) + [p for p, _ in existing]:
-            if p.spec.volumes:
-                raise NotImplementedError(
-                    f"pod {p.namespace}/{p.name} mounts PVCs: VolumeBinding "
-                    "is not ported yet (ROADMAP A4)"
-                )
         S = self.strings
         rn = self.resource_names
 
@@ -651,6 +662,79 @@ class SnapshotEncoder:
                 group_ids[name] = i
             return i
 
+        # ---- volumes (VolumeBinding inputs) ----
+        pvc_map = {c.key: c for c in pvcs}
+        pv_map = {v.name: v for v in pvs}
+        class_map = {s.name: s for s in storage_classes}
+        vol_sig = (
+            tuple(sorted(
+                (c.key, c.volume_name, c.storage_class, c.request)
+                for c in pvcs
+            )),
+            tuple(sorted(
+                (v.name, v.claim_ref, v.storage_class, v.capacity,
+                 v.node_affinity)
+                for v in pvs
+            )),
+            tuple(sorted(
+                (s.name, s.volume_binding_mode, s.provisioner,
+                 s.allowed_topologies)
+                for s in storage_classes
+            )),
+        )
+        if vol_sig != self._vol_sig:
+            self._vol_sig = vol_sig
+            self._vol_epoch += 1
+        vol_epoch = self._vol_epoch
+
+        def compile_pod_vols(p: Pod) -> tuple[list, bool]:
+            """((mode, req_id, class_id, size) per mounted PVC, uses_fields):
+            mode 0 bound (req_id = the PV's nodeAffinity), 1 unbound
+            WaitForFirstConsumer (req_id = the class's allowedTopologies, -1
+            any node, -2 no provisioner), 2 unschedulable (missing PVC or PV,
+            unbound Immediate claim). uses_fields marks requirements that
+            bake node indices in (matchFields)."""
+            rows: list[tuple[int, int, int, float]] = []
+            uses_fields = False
+            for claim in p.spec.volumes:
+                pvc = pvc_map.get(f"{p.namespace}/{claim}")
+                if pvc is None:  # missing PVC: UnschedulableAndUnresolvable
+                    rows.append((2, -1, -1, 0.0))
+                    continue
+                if pvc.volume_name:
+                    pv = pv_map.get(pvc.volume_name)
+                    if pv is None:
+                        rows.append((2, -1, -1, 0.0))
+                        continue
+                    rid = (
+                        compile_node_affinity_required(pv.node_affinity)
+                        if pv.node_affinity else -1
+                    )
+                    uses_fields |= any(t.match_fields for t in pv.node_affinity)
+                    rows.append((0, rid, -1, 0.0))
+                    continue
+                cls = class_map.get(pvc.storage_class)
+                if cls is None or (
+                    cls.volume_binding_mode != api.VOLUME_BINDING_WAIT
+                ):
+                    # unbound Immediate-mode PVC: the volume binder owns it
+                    rows.append((2, -1, -1, 0.0))
+                    continue
+                if cls.provisioner:
+                    dyn = (
+                        compile_node_affinity_required(cls.allowed_topologies)
+                        if cls.allowed_topologies else -1
+                    )
+                    uses_fields |= any(
+                        t.match_fields for t in cls.allowed_topologies
+                    )
+                else:
+                    dyn = -2
+                rows.append(
+                    (1, dyn, S.intern(pvc.storage_class), float(pvc.request))
+                )
+            return rows, uses_fields
+
         # ---- walk nodes (cached per object) ----
         def node_rowdata(nd: Node) -> dict:
             hit = self._node_cache.get(id(nd))
@@ -687,7 +771,11 @@ class SnapshotEncoder:
             hit = self._pod_cache.get(id(p))
             if hit is not None and hit[0] is p:
                 data = hit[1]
-                if data["epoch"] is None or data["epoch"] == self._node_epoch:
+                if (
+                    data["epoch"] is None or data["epoch"] == self._node_epoch
+                ) and (
+                    data["vol_epoch"] is None or data["vol_epoch"] == vol_epoch
+                ):
                     return data
             a = p.spec.affinity or Affinity()
             req_id = -1
@@ -747,6 +835,9 @@ class SnapshotEncoder:
                 port * 4 + {"TCP": 0, "UDP": 1, "SCTP": 2}.get(proto, 3)
                 for (port, proto, _) in p.host_ports()
             ]
+            # after the ports and before the tolerations: the reference's
+            # interning order
+            vols, vol_fields = compile_pod_vols(p)
             data = {
                 "reqvec": self._resources_vec(p.resource_requests()),
                 "prio": p.spec.priority,
@@ -768,7 +859,14 @@ class SnapshotEncoder:
                 "gid": group_id(p.spec.pod_group),
                 "imageset": compile_imageset(p.images()),
                 "can_preempt": p.spec.preemption_policy != "Never",
-                "epoch": self._node_epoch if uses_fields else None,
+                "vol_mode": _i32([m for m, _, _, _ in vols]),
+                "vol_req": _i32([r for _, r, _, _ in vols]),
+                "vol_cls": _i32([c for _, _, c, _ in vols]),
+                "vol_size": _f32([z for _, _, _, z in vols]),
+                "vol_epoch": vol_epoch if p.spec.volumes else None,
+                "epoch": (
+                    self._node_epoch if (uses_fields or vol_fields) else None
+                ),
             }
             self._pod_cache[id(p)] = (p, data)
             return data
@@ -805,6 +903,7 @@ class SnapshotEncoder:
         stable_key = (
             tuple(id(nd) for nd in nodes),
             tuple((id(p), nm) for p, nm in existing),
+            vol_sig,
             tuple((id(b), b.disruptions_allowed) for b in pdbs),
             self._node_epoch, N, E, R, MPL, MA,
             len(exprs_t.rows), len(reqs_t.rows), len(prefs_t.rows),
@@ -818,9 +917,12 @@ class SnapshotEncoder:
             st = self._build_stable(
                 nodes, existing, pdbs, node_rows, exist_rows, node_index,
                 n_real, e_real, N, E, R, MPL, MA,
+                pv_tables=self._pv_tables(pvs, pvcs,
+                                          compile_node_affinity_required),
             )
             # strong refs keep cached id()s from being reused
-            st["__refs"] = (list(nodes), [p for p, _ in existing], list(pdbs))
+            st["__refs"] = (list(nodes), [p for p, _ in existing], list(pvs),
+                            list(pvcs), list(storage_classes), list(pdbs))
             self._stable_key = stable_key
             self._stable = st
 
@@ -868,9 +970,10 @@ class SnapshotEncoder:
         pod_tsc = np.full((P, MC, 3), -1, np.int32)
         pod_tsc_skew = np.zeros((P, MC), np.int32)
 
-        # volumes are not encoded in this slice: their per-pod axis keeps
-        # the reference's empty pad (MVol bucket 2)
-        MVol = self._stick("MVol", _pad_dim(1, 2))
+        MVol = self._stick(
+            "MVol",
+            _pad_dim(max([len(d["vol_mode"]) for d in pend_rows] + [1]), 2),
+        )
         pod_vol_mode = np.full((P, MVol), -1, np.int32)
         pod_vol_req = np.full((P, MVol), -1, np.int32)
         pod_vol_class = np.full((P, MVol), -1, np.int32)
@@ -897,6 +1000,10 @@ class SnapshotEncoder:
         _scatter_rows(pod_pref_aff_w, [d["pref_w"] for d in pend_rows])
         _scatter_rows(pod_tsc.reshape(P, MC * 3), [d["tsc"] for d in pend_rows])
         _scatter_rows(pod_tsc_skew, [d["tsc_skew"] for d in pend_rows])
+        _scatter_rows(pod_vol_mode, [d["vol_mode"] for d in pend_rows])
+        _scatter_rows(pod_vol_req, [d["vol_req"] for d in pend_rows])
+        _scatter_rows(pod_vol_class, [d["vol_cls"] for d in pend_rows])
+        _scatter_rows(pod_vol_size, [d["vol_size"] for d in pend_rows])
         # sparse per-pod residue: pinned/nominated nodes and the per-cycle
         # distinct-port interning
         for i, (p, d) in enumerate(zip(pending, pend_rows)):
@@ -991,18 +1098,46 @@ class SnapshotEncoder:
             "has_topology_spread": self._stick_flag(
                 "tsc", bool((pod_tsc >= 0).any())
             ),
-            "has_volumes": self._stick_flag("vol", False),
-            "has_multi_volume": self._stick_flag("mvol", False),
+            "has_volumes": self._stick_flag(
+                "vol", bool((pod_vol_mode >= 0).any())
+            ),
+            "has_multi_volume": self._stick_flag(
+                "mvol", bool(((pod_vol_mode >= 0).sum(axis=1) >= 2).any())
+            ),
         }
         return fields, aux
 
+    def _pv_tables(self, pvs, pvcs, compile_node_affinity_required) -> dict:
+        """The PV table [V] (V bucket 4): nodeAffinity requirement (-1 any
+        node), interned class, capacity, and availability (no claimRef and
+        no PVC names it)."""
+        S = self.strings
+        V = _pad_dim(len(pvs), 4)
+        pv_req = np.full(V, -1, np.int32)
+        pv_class = np.full(V, -1, np.int32)
+        pv_cap = np.zeros(V, np.float32)
+        pv_avail = np.zeros(V, bool)
+        claimed_pvs = {c.volume_name for c in pvcs if c.volume_name}
+        for i, pv in enumerate(pvs):
+            pv_req[i] = (
+                compile_node_affinity_required(pv.node_affinity)
+                if pv.node_affinity else -1
+            )
+            pv_class[i] = S.intern(pv.storage_class)
+            pv_cap[i] = pv.capacity
+            pv_avail[i] = not pv.claim_ref and pv.name not in claimed_pvs
+        return {"pv_req_id": pv_req, "pv_class": pv_class,
+                "pv_capacity": pv_cap, "pv_avail": pv_avail}
+
     def _build_stable(
         self, nodes, existing, pdbs, node_rows, exist_rows, node_index,
-        n_real, e_real, N, E, R, MPL, MA,
+        n_real, e_real, N, E, R, MPL, MA, pv_tables,
     ) -> dict:
-        """The stable (node/existing/table) side of the snapshot."""
+        """The stable (node/existing/table) side of the snapshot; the PV
+        table is compiled before it (`_pv_tables`) because it interns into
+        the requirement tables finalised here."""
         S = self.strings
-        st: dict[str, Any] = {}
+        st: dict[str, Any] = dict(pv_tables)
 
         ML = _pad_dim(max([len(d["lab_k"]) for d in node_rows] + [1]), 8)
         node_alloc = np.zeros((N, R), np.float32)
@@ -1021,13 +1156,6 @@ class SnapshotEncoder:
         _scatter_rows(nl_vals, [d["lab_v"] for d in node_rows])
         _scatter_rows(nl_num, [d["lab_num"] for d in node_rows])
 
-        # volumes are not encoder inputs in this slice: their tables keep
-        # the reference's empty pads (V bucket 4)
-        V = _pad_dim(0, 4)
-        st["pv_req_id"] = np.full(V, -1, np.int32)
-        st["pv_class"] = np.full(V, -1, np.int32)
-        st["pv_capacity"] = np.zeros(V, np.float32)
-        st["pv_avail"] = np.zeros(V, bool)
         st["pdb_allowed"], st["exist_pdb"] = _pdb_tables(pdbs, existing, E)
 
         # ---- existing-pod arrays ----

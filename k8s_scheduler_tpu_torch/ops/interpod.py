@@ -34,9 +34,16 @@ from . import labels as labels_ops
 
 
 def selector_match(snap, label_keys, label_vals) -> torch.Tensor:  # [S, X]
-    """Every deduplicated selector against every labeled subject."""
-    em = labels_ops.expr_pod_mask(snap, label_keys, label_vals)  # [Ex, X]
-    g = labels_ops._gather_expr(em, snap.sel_exprs, fill=True)  # [S, MSE, X]
+    """Every deduplicated selector against every labeled subject. Only the
+    expressions the selectors name are evaluated (the table also holds the
+    node-affinity and PV-affinity expressions)."""
+    sel = snap.sel_exprs
+    used, inv = torch.unique(sel.clamp(min=0), return_inverse=True)
+    em = labels_ops.expr_match(
+        snap.ex_key[used], snap.ex_op[used], snap.ex_vals[used], snap.ex_num[used],
+        label_keys, label_vals)  # [U, X]
+    ids = torch.where(sel >= 0, inv.to(sel.dtype), -1)
+    g = labels_ops._gather_expr(em, ids, fill=True)  # [S, MSE, X]
     return g.all(dim=1)
 
 

@@ -41,12 +41,16 @@ CUDA_KERNELS: dict[str, tuple[str, ...]] = {
     "preempt_prefilter": ("--fmad=false",),
     "preempt_whatif": ("--fmad=false",),
     "preempt_claim": ("--fmad=false",),
+    "volume_mask": ("--fmad=false",),
+    "pv_choice": ("--fmad=false",),
+    "pv_fold": ("--fmad=false",),
 }
 
 launch_counts: dict[str, int] = {
     "static_base": 0, "claim_pass": 0, "interpod_terms": 0, "interpod_norm": 0,
     "affinity_update": 0, "capacity": 0, "guard_sweep": 0,
     "preempt_prefilter": 0, "preempt_whatif": 0, "preempt_claim": 0,
+    "volume_mask": 0, "pv_choice": 0, "pv_fold": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build
@@ -72,10 +76,13 @@ def nvcc_path() -> str:
 
 
 def build_cuda_library(name: str) -> Path:
-    """Compile csrc/<name>.cu into _build/lib<name>-<hash>.so (cached)."""
+    """Compile csrc/<name>.cu into _build/lib<name>-<hash>.so (cached; the
+    hash covers the source, the csrc/ headers and the flags)."""
     src = CSRC_DIR / f"{name}.cu"
     flags = NVCC_FLAGS + CUDA_KERNELS[name]
-    digest = hashlib.sha1(src.read_bytes() + repr(flags).encode()).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(h.read_bytes()
+                                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + repr(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

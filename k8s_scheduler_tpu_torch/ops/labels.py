@@ -22,6 +22,31 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor, fill) -> torch.Tensor:
     return torch.where((ids >= 0)[:, None], out, fill_t)
 
 
+EXPR_CHUNK = 1024  # expressions gathered at once (bounds the [Ex, MV, X] temporary)
+_SENTINEL = torch.iinfo(torch.int64).max
+
+
+def _presence(codes: torch.Tensor, valid: torch.Tensor, X: int):
+    """(sorted distinct codes + a sentinel, bool [Q + 1, X] incidence):
+    which subjects carry each code, from codes [X, M] valid where `valid`."""
+    x_idx = torch.nonzero(valid, as_tuple=True)[0]
+    uniq, inv = torch.unique(codes[valid], return_inverse=True)
+    table = torch.zeros((uniq.shape[0] + 1, X), dtype=torch.bool, device=codes.device)
+    table[inv, x_idx] = True
+    sentinel = torch.full((1,), _SENTINEL, dtype=uniq.dtype, device=uniq.device)
+    return torch.cat([uniq, sentinel]), table
+
+
+def _any_present(uniq, table, codes, valid) -> torch.Tensor:
+    """bool [Ex, X]: some valid code of the row (codes [Ex, M]) is carried
+    by the subject."""
+    pos = torch.searchsorted(uniq, codes).clamp(max=uniq.shape[0] - 1)
+    hit = valid & (uniq[pos] == codes)
+    return torch.cat([
+        (table[pos[i:i + EXPR_CHUNK]] & hit[i:i + EXPR_CHUNK, :, None]).any(dim=1)
+        for i in range(0, codes.shape[0], EXPR_CHUNK)])
+
+
 def expr_match(
     ex_key: torch.Tensor,  # i32 [Ex]
     ex_op: torch.Tensor,  # i32 [Ex]
@@ -32,45 +57,51 @@ def expr_match(
     label_num: torch.Tensor | None = None,  # f32 [X, ML] (nan if not numeric)
     subject_index: torch.Tensor | None = None,  # i32 [X] for FIELD_IN
 ) -> torch.Tensor:  # bool [Ex, X]
-    """Evaluate every expression against every labeled subject."""
-    key_eq = label_keys[None, :, :] == ex_key[:, None, None]  # [Ex, X, ML]
-    key_eq &= label_keys[None, :, :] >= 0
-    has_key = key_eq.any(-1)  # [Ex, X]
-    val_in = (
-        (label_vals[None, :, :, None] == ex_vals[:, None, None, :])
-        & (ex_vals >= 0)[:, None, None, :]
-    ).any(-1)
-    key_and_val = (key_eq & val_in).any(-1)  # [Ex, X]
-    false = torch.zeros_like(has_key)
+    """Evaluate every expression against every labeled subject.
 
-    if label_num is not None:
-        # nan compares False, so non-numeric labels never satisfy Gt/Lt
-        gt = (key_eq & (label_num[None, :, :] > ex_num[:, None, None])).any(-1)
-        lt = (key_eq & (label_num[None, :, :] < ex_num[:, None, None])).any(-1)
-    else:
-        gt = lt = false
-
-    if subject_index is not None:
-        field_in = (
-            (subject_index[None, :, None] == ex_vals[:, None, :])
-            & (ex_vals >= 0)[:, None, :]
-        ).any(-1)
-    else:
-        field_in = false
+    The reference compares every expression with every label slot, [Ex, X,
+    ML, MV]; with thousands of hostname expressions (local volumes) that
+    dominates a cycle. Here the subjects' (key, value) pairs and keys are
+    interned once and each expression looks its own up: In / NotIn are
+    "some (key, value) of the row is carried", Exists / DoesNotExist "the
+    key is carried" — the same sets, exactly. Gt, Lt and field matches
+    keep the dense form on their (few) rows."""
+    Ex, X = ex_key.shape[0], label_keys.shape[0]
+    dev = ex_key.device
+    keys, vals = label_keys.long(), label_vals.long()
+    span = int(torch.stack([label_vals.max(), ex_vals.max()]).clamp(min=0).max()) + 1
+    uniq, table = _presence(keys * span + vals, (label_keys >= 0) & (label_vals >= 0), X)
+    key_and_val = _any_present(uniq, table, ex_key.long()[:, None] * span + ex_vals.long(),
+                               (ex_key >= 0)[:, None] & (ex_vals >= 0))
+    uniq, table = _presence(keys, label_keys >= 0, X)
+    has_key = _any_present(uniq, table, ex_key.long()[:, None], (ex_key >= 0)[:, None])
 
     op = ex_op[:, None]
-    out = false
-    # first matching case wins, as jnp.select: cases are disjoint on op
+    out = torch.zeros((Ex, X), dtype=torch.bool, device=dev)
     for code, val in (
         (enc.OP_IN, key_and_val),
         (enc.OP_NOT_IN, ~key_and_val),  # absent key matches NotIn
         (enc.OP_EXISTS, has_key),
         (enc.OP_DOES_NOT_EXIST, ~has_key),
-        (enc.OP_GT, gt),
-        (enc.OP_LT, lt),
-        (enc.OP_FIELD_IN, field_in),
     ):
         out = torch.where(op == code, val, out)
+    if label_num is not None:
+        rows = torch.nonzero((ex_op == enc.OP_GT) | (ex_op == enc.OP_LT),
+                             as_tuple=True)[0]
+        if rows.numel():
+            key_eq = (label_keys[None, :, :] == ex_key[rows][:, None, None]) & (
+                label_keys[None, :, :] >= 0)
+            # nan compares False, so non-numeric labels never satisfy Gt/Lt
+            num = ex_num[rows][:, None, None]
+            gt = (key_eq & (label_num[None, :, :] > num)).any(-1)
+            lt = (key_eq & (label_num[None, :, :] < num)).any(-1)
+            out[rows] = torch.where(ex_op[rows][:, None] == enc.OP_GT, gt, lt)
+    if subject_index is not None:
+        rows = torch.nonzero(ex_op == enc.OP_FIELD_IN, as_tuple=True)[0]
+        if rows.numel():
+            v = ex_vals[rows]
+            out[rows] = ((subject_index[None, :, None] == v[:, None, :])
+                         & (v >= 0)[:, None, :]).any(-1)
     return out  # OP_IMPOSSIBLE / padding stay False
 
 
@@ -79,14 +110,6 @@ def expr_node_mask(snap) -> torch.Tensor:  # bool [Ex, N]
         snap.ex_key, snap.ex_op, snap.ex_vals, snap.ex_num,
         snap.node_label_keys, snap.node_label_vals, snap.node_label_num,
         subject_index=torch.arange(snap.N, dtype=torch.int32, device=snap.device),
-    )
-
-
-def expr_pod_mask(snap, label_keys, label_vals) -> torch.Tensor:  # [Ex, X]
-    """Expressions against pod labels (selectors); no numeric axis."""
-    return expr_match(
-        snap.ex_key, snap.ex_op, snap.ex_vals, snap.ex_num,
-        label_keys, label_vals,
     )
 
 
@@ -106,9 +129,12 @@ def requirement_mask(rq_exprs: torch.Tensor, expr_mask: torch.Tensor) -> torch.T
     return (term_ok & term_valid[:, :, None]).any(dim=1)
 
 
-def pod_requirement_mask(snap, expr_mask: torch.Tensor) -> torch.Tensor:
-    """Per-pod node-affinity + nodeSelector feasibility: bool [P, N]."""
-    req = requirement_mask(snap.rq_exprs, expr_mask)  # [Rq, N]
+def pod_requirement_mask(snap, expr_mask: torch.Tensor,
+                         req: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pod node-affinity + nodeSelector feasibility: bool [P, N]
+    (`req`: the [Rq, N] requirement rows, when already built)."""
+    if req is None:
+        req = requirement_mask(snap.rq_exprs, expr_mask)  # [Rq, N]
     return take_rows(req, snap.pod_req_id, True) & take_rows(
         req, snap.pod_sel_req_id, True
     )

@@ -13,16 +13,16 @@ handful of batched passes.
               longer fits the node alone marks that choice dead. One guard
               sweep at round end (K6 `guard_sweep`) revokes claims that
               conflict within the round: anti-affinity in both directions,
-              affinity bootstrap, DoNotSchedule spread caps, hostPorts.
+              affinity bootstrap, DoNotSchedule spread caps, hostPorts, and
+              two claimants of one static PV (keyed by `pv_choice_fn`).
   3. UPDATE — accepted placements fold into the running state.
 
 Round 0 covers the whole pending set; later rounds run over a compacted
 view of the lowest-rank `compact_window(P)` actives. The loop is a Python
 loop whose stop condition reads one device scalar per round.
 
-Not in this slice: the shortlist path, one-hot compaction, the mesh
-(ROADMAP A13) and the static-PV guard role (A4b) — a snapshot with
-volumes raises NotImplementedError."""
+Not in this slice: the shortlist path, one-hot compaction and the mesh
+(ROADMAP A13)."""
 
 from __future__ import annotations
 
@@ -105,11 +105,13 @@ def rounds_commit(
     claim_pass_fn: Callable = claim_pass,
     capacity_fn: Callable = capacity,
     guard_sweep_fn: Callable = gs.guard_sweep,
+    pv_choice_fn: Callable | None = None,  # (vsnap, node_of, live, ext)
+    # -> i32 [B, MVol] chosen static PV per claimant and slot (-1 none): the
+    # guard keeps the first claimant by rank of each PV
 ) -> RoundsResult:
-    if snap.has_volumes:
-        raise NotImplementedError(
-            "the rounds engine's static-PV guard is not ported yet (ROADMAP A4b)"
-        )
+    if snap.has_volumes and pv_choice_fn is None:
+        raise ValueError("rounds_commit: a snapshot with volumes needs pv_choice_fn "
+                         "(the static-PV guard)")
     P, N = sbase.shape
     dev = sbase.device
     S = m_pending.shape[0]
@@ -136,6 +138,7 @@ def rounds_commit(
     GK_PORT = GK_GLOBAL + S
     GK_PV = GK_PORT + N * Q
     GK_INVALID = GK_PV + V + 1
+    has_pv_guards = bool(snap.has_volumes)
 
     alloc = snap.node_allocatable  # [N, R]
     slack = fit_slack(alloc)
@@ -146,7 +149,7 @@ def rounds_commit(
         order (K6 after the sort). ok bool [B]."""
         B = vrank.shape[0]
         state = _owner_state(ext_state) if has_guards else None
-        if state is None and not has_port_guards:
+        if state is None and not has_port_guards and not has_pv_guards:
             return torch.ones(B, dtype=torch.bool, device=dev)
         nsafe = choice.clamp(0, N - 1).long()
         keys, roles, caps = [], [], []
@@ -200,6 +203,12 @@ def rounds_commit(
                 ids = vsnap.pod_port_ids[:, j]
                 emit(GK_PORT + nsafe * Q + ids.clamp(0, Q - 1).long(), ids >= 0,
                      gs.RB_PORT)
+        if has_pv_guards:
+            # one entry per (claimant, slot) naming the PV it would bind
+            pvc = pv_choice_fn(vsnap, nsafe.to(torch.int32), live, ext_state)
+            for j in range(pvc.shape[1]):
+                ids = pvc[:, j]
+                emit(GK_PV + ids.clamp(0, V - 1).long(), ids >= 0, gs.RB_PV)
 
         keys_c = torch.stack(keys, dim=0).reshape(-1)  # slot-major [slots * B]
         ranks_c = vrank.clamp(max=rank_space - 1).long().repeat(len(keys))

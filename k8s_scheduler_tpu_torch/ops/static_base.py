@@ -6,7 +6,8 @@ Reference: `ops/rounds.py:338` over `Framework.static_lean`
 (`framework/runtime.py:103`), the composition `core/cycle.py:1092-1096`
 also uses. Plain torch precomputes the small deduplicated tables once per
 cycle (`static_base_inputs`); the kernel (`csrc/static_base.cu`) or its
-plain version here does the [P, N] gather-and-combine. The wrapper runs
+plain version here does the [P, N] gather-and-combine. VolumeBinding's
+static mask (K10's, bool [P, N]) comes in as one more operand. The wrapper runs
 the kernel for CUDA tensors and the plain version for CPU tensors — never
 one in place of the other."""
 
@@ -27,8 +28,8 @@ from .kernel_build import count_launch, load_cuda_library
 NEG_INF = -1e9
 
 # filter bits and score-term codes (csrc/static_base.cu mirrors these)
-F_UNSCHED, F_NODENAME, F_TAINT, F_AFFINITY, F_PORTS, F_FIT, F_SAMPLE = (
-    1, 2, 4, 8, 16, 32, 64
+F_UNSCHED, F_NODENAME, F_TAINT, F_AFFINITY, F_PORTS, F_FIT, F_SAMPLE, F_MASK = (
+    1, 2, 4, 8, 16, 32, 64, 128
 )
 TERM_IMAGE, TERM_PREF, TERM_TAINT = 1, 2, 3
 
@@ -39,6 +40,9 @@ _FILTER_BITS = {
     "NodeAffinity": F_AFFINITY,
     "NodePorts": F_PORTS,
 }
+# static filters whose [P, N] mask another kernel computes: ANDed into the
+# one mask operand
+_MASK_OPERAND = ("VolumeBinding",)
 _SCORE_TERMS = {
     "ImageLocality": TERM_IMAGE,
     "NodeAffinity": TERM_PREF,
@@ -74,6 +78,7 @@ class StaticBaseInputs:
     req: torch.Tensor  # bool [Rq, N] requirement rows
     pref: torch.Tensor  # f32 [Pf, N] preferred-affinity score rows
     img: torch.Tensor  # f32 [Is, N] image-locality score rows
+    mask: torch.Tensor | None = None  # bool [P, N] (F_MASK), or None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -98,10 +103,16 @@ def static_base_inputs(fw, ctx, *, fit: bool = False,
     snap = ctx.snap
     dev = snap.device
     flags = 0
+    operand = None
     for f in fw.filters:
         bit = _FILTER_BITS.get(f.name)
         if bit is not None:
             flags |= bit
+        elif f.name in _MASK_OPERAND:
+            m = f.static_mask(ctx)
+            if m is not None:
+                operand = m if operand is None else operand & m
+                flags |= F_MASK
         elif _overrides(f, "static_mask") and f.static_mask(ctx) is not None:
             raise NotImplementedError(
                 f"static filter {f.name!r} is not covered by static_base"
@@ -162,9 +173,10 @@ def static_base_inputs(fw, ctx, *, fit: bool = False,
         node_room=room,
         sched=sched,
         tscore=tscore,
-        req=labels_ops.requirement_mask(snap.rq_exprs, em),
+        req=ctx.requirement_rows,
         pref=labels_ops.preferred_table(snap, em),
         img=images_ops.image_table(snap),
+        mask=operand,
     )
 
 
@@ -202,6 +214,8 @@ def static_base_plain(x: StaticBaseInputs) -> torch.Tensor:
         cols = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
         win = (cols - x.samp_off[:, None]) % x.samp_n
         mask = mask & (win < x.samp_k)
+    if x.flags & F_MASK:
+        mask = mask & x.mask
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     score = torch.zeros((P, N), dtype=torch.float32, device=dev)
     for code, w in x.terms:
@@ -218,8 +232,8 @@ def static_base_plain(x: StaticBaseInputs) -> torch.Tensor:
                        torch.full((), NEG_INF, device=dev))
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
 _ARGTYPES = (
@@ -231,6 +245,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
        ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p]
 )
 
 
@@ -278,6 +293,7 @@ def static_base_cuda(x: StaticBaseInputs) -> torch.Tensor:
         u8(x.sched, Tl, Ts), f32(x.tscore, Tl, Ts),
         u8(x.req, x.req.shape[0], N), f32(x.pref, x.pref.shape[0], N),
         f32(x.img, x.img.shape[0], N),
+        u8(x.mask, P, N) if x.flags & F_MASK else None,
     ]
     out = torch.empty((P, N), dtype=torch.float32, device=dev)
     terms = list(x.terms) + [(0, 0.0)] * (3 - len(x.terms))
@@ -292,7 +308,7 @@ def static_base_cuda(x: StaticBaseInputs) -> torch.Tensor:
         _ptr(keep[18]), keep[18].shape[0],
         x.flags, terms[0][0], terms[1][0], terms[2][0],
         terms[0][1], terms[1][1], terms[2][1], len(x.terms),
-        ctypes.c_void_p(stream),
+        ctypes.c_void_p(stream), _ptr(keep[19]),
     )
     if err != 0:
         raise RuntimeError(f"static_base launch failed: CUDA error {err}")

@@ -2,12 +2,15 @@
 BASELINE config #4's workload (`utils.synth.config4_workload`, the
 workload of chip_smoke.py's phases affinity and preemption: inter-pod
 affinity and spread on both sides, 10000 pending x 5000 nodes x 12000
-running), each followed by DefaultPreemption (`build_preemption_fn`) on
-its decision, as a serving host runs them.
+running) and of the same workload with local and zonal volumes
+(`utils.synth.config4_volumes`, chip_smoke.py's phase volumes), each cycle
+followed by DefaultPreemption (`build_preemption_fn`) on its decision, as
+a serving host runs them.
 
     python3 -m k8s_scheduler_tpu_torch.profile_cycle [--cycles 2] [--out PATH]
 
-Prints, for the cycles and for the preemption passes separately: wall ms,
+Prints, per workload, for the cycles and for the preemption passes
+separately: wall ms,
 summed device-kernel ms, the device busy share (kernel time over wall
 time; one stream, so kernels never overlap), device-activity count, the
 hand kernels' launch counts, and the device kernels ranked by total time —
@@ -80,28 +83,39 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     seeds = tuple(range(201, 202 + args.cycles))
     nodes, existing, pending = synth.config4_workload(seeds)
-    enc = SnapshotEncoder(device=dev)
-    snaps = [enc.encode(nodes, pending[s], existing) for s in seeds]
     cycle = build_cycle_fn(device=dev)
     preempt = build_preemption_fn(device=dev)
-    preempt(snaps[0], cycle(snaps[0]))  # warm-up: kernel builds, allocator, Triton
-    torch.cuda.synchronize()
-
-    decisions = []
-    c_wall, c_names, c_launch = _profile(
-        lambda s: decisions.append(cycle(s)), [(s,) for s in snaps[1:]])
-    p_wall, p_names, p_launch = _profile(preempt, list(zip(snaps[1:], decisions)))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    lines = [
-        f"card: {smi}",
-        "workload: config #4 (10000 pending x 5000 nodes, 12000 running), "
-        f"seeds {list(seeds[1:])}",
-        *_report("cycles", args.cycles, c_wall, c_names, c_launch, args.top),
-        *_report("preemption passes", args.cycles, p_wall, p_names, p_launch, args.top),
-    ]
+    lines = [f"card: {smi}"]
+    for wl in ("config4", "volumes"):
+        enc = SnapshotEncoder(device=dev)
+        snaps = []
+        for s in seeds:
+            if wl == "volumes":
+                ex, pods, pvcs, pvs, classes = synth.config4_volumes(
+                    nodes, existing, pending[s], seed=s)
+                snaps.append(enc.encode(nodes, pods, ex, pvcs=pvcs, pvs=pvs,
+                                        storage_classes=classes))
+            else:
+                snaps.append(enc.encode(nodes, pending[s], existing))
+        preempt(snaps[0], cycle(snaps[0]))  # warm-up: builds, allocator, Triton
+        torch.cuda.synchronize()
+        decisions = []
+        c_wall, c_names, c_launch = _profile(
+            lambda s: decisions.append(cycle(s)), [(s,) for s in snaps[1:]])
+        p_wall, p_names, p_launch = _profile(preempt, list(zip(snaps[1:], decisions)))
+        extra = " with local and zonal volumes" if wl == "volumes" else ""
+        lines += [
+            f"workload: config #4{extra} (10000 pending x 5000 nodes, 12000 running), "
+            f"seeds {list(seeds[1:])}",
+            *_report("cycles", args.cycles, c_wall, c_names, c_launch, args.top),
+            *_report("preemption passes", args.cycles, p_wall, p_names, p_launch,
+                     args.top),
+        ]
+        del snaps, decisions
     report = "\n".join(lines)
     print(report)
     if args.out:

@@ -7,9 +7,23 @@ templates as parameterized generators)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from ..models.api import LabelSelector, Node, Pod, PodDisruptionBudget, PodGroup
+from ..models.api import (
+    VOLUME_BINDING_WAIT,
+    LabelSelector,
+    Node,
+    NodeSelectorRequirement,
+    NodeSelectorTerm,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    Pod,
+    PodDisruptionBudget,
+    PodGroup,
+    StorageClass,
+)
 from ..models.builders import MakeNode, MakePod
 
 ZONES = [f"zone-{c}" for c in "abcdef"]
@@ -187,3 +201,124 @@ def config4_pdbs(num_apps: int = 500, seed: int = 0,
             disruptions_allowed=int(rng.integers(0, max_allowed + 1)))
         for a in range(num_apps)
     ]
+
+
+GiB = 2**30
+LOCAL_CLASS = "local-storage"
+ZONAL_CLASS = "zonal-ssd"
+ZONE_KEY = "topology.kubernetes.io/zone"
+HOST_KEY = "kubernetes.io/hostname"
+
+
+def _with_volumes(p: Pod, claims: tuple[str, ...]) -> Pod:
+    """A copy of `p` that mounts `claims` (the input pod is untouched)."""
+    return dataclasses.replace(
+        p, spec=dataclasses.replace(p.spec, volumes=p.spec.volumes + claims))
+
+
+def config4_volumes(
+    nodes: list[Node],
+    existing: list[tuple[Pod, str]],
+    pending: list[Pod],
+    seed: int = 0,
+) -> tuple[list[tuple[Pod, str]], list[Pod], list[PersistentVolumeClaim],
+           list[PersistentVolume], list[StorageClass]]:
+    """Local and zonal persistent volumes drawn onto config #4's workload
+    (`config4_workload`), after two public deployments:
+
+    - the Kubernetes docs' local-volume StorageClass
+      (kubernetes.io/docs/concepts/storage/storage-classes/#local:
+      no-provisioner, WaitForFirstConsumer), as sig-storage-local-static-
+      provisioner deploys it: class `local-storage`, two PVs per node
+      pinned by `kubernetes.io/hostname`, capacity drawn from {100, 200,
+      400} GiB; a running pod i on node k = i % n in block b = i // n holds
+      a bound PVC on its node's first free local PV iff (k + b) % 4 == 0
+      (a quarter of the running pods, at most one per node at config #4's
+      size);
+    - the pre-bound, zone-pinned PV/PVC pairs of upstream
+      test/integration/scheduler_perf (its PV cases such as
+      SchedulingCSIPVs): class `zonal-ssd` (provisioner, WaitForFirstConsumer,
+      allowedTopologies = the first two zones), one 100 GiB PV per pair
+      pinned to a zone drawn uniformly.
+
+    A seeded permutation of the pending pods picks 20% that mount one
+    unbound `local-storage` PVC (request from {50, 150, 300} GiB), 5% that
+    mount two (data from {50, 150, 300} GiB and a 50 GiB wal: multi-volume),
+    10% that mount one pre-bound zonal PVC, and 5% that mount one unbound
+    `zonal-ssd` PVC (dynamic provisioning). Returns (existing, pending,
+    pvcs, pvs, storage_classes): the pod lists with copies of the pods that
+    mount volumes; nothing passed in is modified."""
+    rng = np.random.default_rng(seed)
+    n = len(nodes)
+    classes = [
+        StorageClass(LOCAL_CLASS, VOLUME_BINDING_WAIT, provisioner=False),
+        StorageClass(ZONAL_CLASS, VOLUME_BINDING_WAIT, provisioner=True,
+                     allowed_topologies=(NodeSelectorTerm((
+                         NodeSelectorRequirement(ZONE_KEY, "In",
+                                                 tuple(ZONES[:2])),)),)),
+    ]
+    caps = rng.choice([100, 200, 400], size=2 * n)
+    pvs = [
+        PersistentVolume(
+            f"local-{nd.name}-{j}", capacity=float(caps[2 * i + j] * GiB),
+            storage_class=LOCAL_CLASS,
+            node_affinity=(NodeSelectorTerm((
+                NodeSelectorRequirement(HOST_KEY, "In", (nd.name,)),)),))
+        for i, nd in enumerate(nodes) for j in range(2)
+    ]
+    pv_index = {nd.name: 2 * i for i, nd in enumerate(nodes)}
+    pvcs: list[PersistentVolumeClaim] = []
+    used: dict[str, int] = {}
+    existing_out = []
+    for i, (p, node_name) in enumerate(existing):
+        k = pv_index.get(node_name)
+        if k is not None and (i % n + i // n) % 4 == 0 and used.get(node_name, 0) < 2:
+            pv = pvs[k + used.get(node_name, 0)]
+            used[node_name] = used.get(node_name, 0) + 1
+            claim = f"{p.name}-data"
+            pvcs.append(PersistentVolumeClaim(
+                claim, p.namespace, LOCAL_CLASS, pv.capacity, volume_name=pv.name))
+            pv.claim_ref = f"{p.namespace}/{claim}"
+            p = _with_volumes(p, (claim,))
+        existing_out.append((p, node_name))
+
+    m = len(pending)
+    order = rng.permutation(m)
+    cuts = np.cumsum([int(m * f) for f in (0.20, 0.05, 0.10, 0.05)])
+    kind = np.full(m, -1)
+    for c, (lo, hi) in enumerate(zip(np.r_[0, cuts[:-1]], cuts)):
+        kind[order[lo:hi]] = c
+    sizes = rng.choice([50, 150, 300], size=m)
+    zones = rng.integers(0, len(ZONES), size=m)
+    pending_out = []
+    for i, p in enumerate(pending):
+        c = int(kind[i])
+        if c < 0:
+            pending_out.append(p)
+            continue
+        ns = p.namespace
+        if c in (0, 1):  # unbound local: data (and wal)
+            claims = [(f"{p.name}-data", float(sizes[i] * GiB))]
+            if c == 1:
+                claims.append((f"{p.name}-wal", float(50 * GiB)))
+            for name, req in claims:
+                pvcs.append(PersistentVolumeClaim(name, ns, LOCAL_CLASS, req))
+        elif c == 2:  # pre-bound zonal pair
+            name = f"{p.name}-zonal"
+            pv = PersistentVolume(
+                f"zonal-{p.name}", capacity=float(100 * GiB),
+                storage_class=ZONAL_CLASS,
+                node_affinity=(NodeSelectorTerm((NodeSelectorRequirement(
+                    ZONE_KEY, "In", (ZONES[int(zones[i])],)),)),),
+                claim_ref=f"{ns}/{name}")
+            pvs.append(pv)
+            pvcs.append(PersistentVolumeClaim(name, ns, ZONAL_CLASS,
+                                              float(100 * GiB), volume_name=pv.name))
+            claims = [(name, 0.0)]
+        else:  # unbound zonal: dynamic provisioning
+            name = f"{p.name}-scratch"
+            pvcs.append(PersistentVolumeClaim(name, ns, ZONAL_CLASS,
+                                              float(sizes[i] * GiB)))
+            claims = [(name, 0.0)]
+        pending_out.append(_with_volumes(p, tuple(nm for nm, _ in claims)))
+    return existing_out, pending_out, pvcs, pvs, classes

@@ -6,7 +6,7 @@ bit-equal to the reference on every fixture: the synthetic configs #1,
 #2 and #5 (a gang that unwinds), hostPort contention that only the guard
 sweep resolves, nominated pods, and node sampling on clusters past the
 100-node floor. The reference's own validity oracle holds the port's
-placements too. Snapshots the port does not cover yet (volumes) raise
+placements too. Engines and outputs the port does not cover yet raise
 NotImplementedError; entry points never run on the CPU unasked; the port
 imports nothing of JAX or the JAX package."""
 
@@ -126,8 +126,10 @@ def test_cycle_bit_equal_to_reference(case):
 
 @pytest.mark.parametrize("feature", ["bound_pvc", "unbound_pvc"])
 def test_cycle_raises_on_uncovered_features(feature):
-    """Volumes are the next slice (ROADMAP A4b): a snapshot with a volume
-    claim raises instead of scheduling without the VolumeBinding filter."""
+    """A snapshot with a volume claim now schedules through VolumeBinding,
+    bit-equal to the reference; what the port does not cover with volumes
+    either — the scan engine (ROADMAP A8) and the full outputs with their
+    claim bitmap (A9) — raises instead of scheduling."""
     from k8s_scheduler_tpu.models.api import (PersistentVolume,
                                               PersistentVolumeClaim, StorageClass)
 
@@ -146,8 +148,16 @@ def test_cycle_raises_on_uncovered_features(feature):
         device="cpu",
     )
     assert port_snap.has_volumes
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        build_cycle_fn(device="cpu")(port_snap)
+    want = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency")(ref_snap)
+    got = build_cycle_fn(device="cpu")(port_snap)
+    np.testing.assert_array_equal(got.assignment.numpy(), np.asarray(want.assignment))
+    # bound: placed on any node (the PV has no affinity); unbound Immediate
+    # claim: unschedulable
+    assert (int(got.assignment[0]) >= 0) == bound
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        build_cycle_fn(commit_mode="scan", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        build_cycle_fn(outputs="full", device="cpu")
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

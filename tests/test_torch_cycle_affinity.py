@@ -9,7 +9,7 @@ workload with existing affinity pods, self-anti-affinity one per node,
 spread skew, affinity bootstrap and colocation, duplicate term slots), and
 the reference's validity oracle must hold the port's placements. The
 cycle on the plain versions of K3-K6 forced explicitly gives the same
-decisions; snapshots with volumes still raise."""
+decisions (volumes: test_torch_cycle_volumes)."""
 
 from __future__ import annotations
 

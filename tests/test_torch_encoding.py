@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import k8s_scheduler_tpu.models as ref_models
+import k8s_scheduler_tpu.models.api as ref_api
 import k8s_scheduler_tpu.utils.synth as ref_synth
 import k8s_scheduler_tpu_torch.models as port_models
 import k8s_scheduler_tpu_torch.utils.synth as port_synth
@@ -256,7 +257,74 @@ def test_encoder_pdb_fields_match_reference(name):
 
 
 def test_encoder_raises_on_volumes():
+    """The encoder no longer refuses a pod that mounts a PVC: a claim it
+    was not given encodes as unschedulable (mode 2), as in the reference."""
     nodes = [port_models.MakeNode("n").capacity({"cpu": "1"}).obj()]
     pods = [port_models.MakePod("p").req({"cpu": "1"}).volume("data").obj()]
-    with pytest.raises(NotImplementedError, match="A4"):
-        port_models.SnapshotEncoder(device="cpu").encode(nodes, pods)
+    snap = port_models.SnapshotEncoder(device="cpu").encode(nodes, pods)
+    assert snap.has_volumes and snap.pod_vol_mode[0].tolist() == [2, -1]
+    ref = ref_models.SnapshotEncoder().encode(
+        [ref_models.MakeNode("n").capacity({"cpu": "1"}).obj()],
+        [ref_models.MakePod("p").req({"cpu": "1"}).volume("data").obj()])
+    assert_same_snapshot(ref, snap)
+
+
+VOLUME_FIELDS = ("pod_vol_mode", "pod_vol_req", "pod_vol_class", "pod_vol_size",
+                 "pv_req_id", "pv_class", "pv_capacity", "pv_avail", "rq_exprs",
+                 "ex_key", "ex_op", "ex_vals", "ex_num")
+
+
+def _volume_objects(name, m, synth, seed=5):
+    """(nodes, pods, existing, pvcs, pvs, classes) for `m`'s object model:
+    config #4's workload at 120 nodes with `config4_volumes`' draw (seed
+    `seed`), or a tests/test_torch_volumes.py fixture."""
+    import test_torch_volumes as tv
+
+    if name == "cfg4_volumes":
+        nodes, existing, pending = port_synth.config4_workload((4,), 120, 300, 240,
+                                                               num_apps=30)
+        out = port_synth.config4_volumes(nodes, existing, pending[4], seed=seed)
+        existing, pods, pvcs, pvs, classes = out
+        objs = (nodes, pods, existing, pvcs, pvs, classes)
+        return objs if m is port_models else tv.to_api(objs, ref_api)
+    mm = tv.PORT if m is port_models else tv.REF
+    nodes, pods, existing, _groups, vol = tv.objects(name, mm)
+    return nodes, pods, existing, vol["pvcs"], vol["pvs"], vol["storage_classes"]
+
+
+@pytest.mark.parametrize("name", ["cfg4_volumes", "three_slot_chain", "unschedulable",
+                                  "conjunction", "dynamic_topologies", "eight_slot_dominance"])
+def test_encoder_volume_fields_match_reference(name):
+    """Volumes as an encoder input: every volume field (the pod rows, the
+    PV table, and the requirement and expression tables the PV affinity
+    and class topologies intern into, in the reference's order) equals the
+    reference encoder's, field by field."""
+    rn, rp, re_, rc, rv, rs = _volume_objects(name, ref_models, ref_synth)
+    pn, pp, pe, pc, pv, ps = _volume_objects(name, port_models, port_synth)
+    ref = ref_models.SnapshotEncoder().encode(rn, rp, re_, pvcs=rc, pvs=rv,
+                                              storage_classes=rs)
+    port = port_models.SnapshotEncoder(device="cpu").encode(
+        pn, pp, pe, pvcs=pc, pvs=pv, storage_classes=ps)
+    for f in VOLUME_FIELDS:
+        np.testing.assert_array_equal(getattr(port, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+        assert getattr(port, f).numpy().dtype == np.asarray(getattr(ref, f)).dtype, f
+    assert (port.has_volumes, port.has_multi_volume) == (ref.has_volumes,
+                                                         ref.has_multi_volume)
+    assert_same_snapshot(ref, port)
+
+
+def test_encoder_volume_fields_match_reference_across_encodes():
+    """One encoder per package, three encodes whose volume sets change
+    (another draw, then the first again): the per-pod cache's volume epoch,
+    the sticky MVol pad and flags, and the stable side's PV table follow
+    the reference."""
+    r_enc = ref_models.SnapshotEncoder()
+    p_enc = port_models.SnapshotEncoder(device="cpu")
+    for seed in (5, 6, 5):
+        rn, rp, re_, rc, rv, rs = _volume_objects("cfg4_volumes", ref_models, ref_synth, seed)
+        pn, pp, pe, pc, pv, ps = _volume_objects("cfg4_volumes", port_models, port_synth,
+                                                 seed)
+        ref = r_enc.encode(rn, rp, re_, pvcs=rc, pvs=rv, storage_classes=rs)
+        port = p_enc.encode(pn, pp, pe, pvcs=pc, pvs=pv, storage_classes=ps)
+        assert_same_snapshot(ref, port)

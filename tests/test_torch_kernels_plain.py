@@ -20,6 +20,12 @@ against these plain versions on the card by chip_smoke.py).
   across ranks, claimed ports, gates, what-if verdicts, every what-if
   constraint; `prefix_sums_f32` against jnp.cumsum across XLA's scan
   chunks.
+- K10-K12, `volumes.volume_mask_plain` (both variants),
+  `pv_choice_plain` and `pv_fold_plain` on their kernels' signatures,
+  against the reference's volume_mask / volume_mask_unbound,
+  chosen_pv_slots and fold_pv_claims: bit-equal, with the static base
+  ANDing K10's mask equal to the reference's static_lean composition, and
+  a contended batch whose fold needs more than one pass.
 - On CPU tensors the dispatching wrappers run the plain versions and
   launch nothing."""
 
@@ -166,7 +172,7 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert set(kernel_build.launch_counts) == {
         "static_base", "claim_pass", "interpod_terms", "interpod_norm",
         "affinity_update", "capacity", "guard_sweep", "preempt_prefilter",
-        "preempt_whatif", "preempt_claim"}
+        "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
 
@@ -559,3 +565,94 @@ def test_whatif_plain_known_answers(term):
         want = [[False, False, True], [True, True, True]]
     got = preemption.nonresource_ok_plain(x)
     assert got[0].tolist() == want
+
+
+# ---- K10-K12 volume_mask, pv_choice, pv_fold ------------------------------
+
+
+def _volume_case(name):
+    import test_torch_volumes as tv
+
+    ref = tv.reference_snapshot(name)
+    port = _carry(ref)
+    ctx = CycleContext(port)
+    return ref, port, ref_if.CycleContext(ref).expr_node_mask, ctx.volume_tables
+
+
+@pytest.mark.parametrize("name", ["cfg4_volumes", "eight_slot_tight", "contending",
+                                  "conjunction"])
+def test_volume_kernel_twins_match_reference(name):
+    import k8s_scheduler_tpu.ops.volumes as ref_vol
+
+    from k8s_scheduler_tpu_torch.ops import volumes
+
+    ref, port, em, tables = _volume_case(name)
+    rng = np.random.default_rng(3)
+    V, P = port.pv_avail.shape[0], port.P
+    claimed = rng.random(V) < 0.25
+    node_of = rng.integers(0, int(port.num_nodes), P).astype(np.int32)
+    active = (rng.random(P) < 0.9) & np.asarray(ref.pod_valid)
+    t, j = torch.from_numpy, jnp.asarray
+    pairs = [
+        (volumes.volume_mask_plain(port, tables, None, False), ref_vol.volume_mask(ref, em)),
+        (volumes.volume_mask_plain(port, tables, t(claimed), True),
+         ref_vol.volume_mask_unbound(ref, em, j(claimed))),
+        (volumes.pv_choice_plain(port, tables, t(claimed), t(node_of), t(active)),
+         ref_vol.chosen_pv_slots(ref, em, j(claimed), j(node_of), j(active))),
+        (volumes.pv_fold_plain(port, tables, t(claimed), t(active), t(node_of),
+                               port.pod_order.to(torch.int32)),
+         ref_vol.fold_pv_claims(ref, em, j(claimed), j(active), j(node_of),
+                                j(np.asarray(ref.pod_order).astype(np.int32)))),
+    ]
+    for got, want in pairs:
+        w = np.asarray(want)
+        assert got.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+@pytest.mark.parametrize("name", ["cfg4_volumes", "bound_zone", "three_slot_chain"])
+def test_static_base_with_volume_mask_matches_reference(name):
+    """K1 with VolumeBinding's static mask as its mask operand equals the
+    reference's where(static_lean mask, clip(score), NEG_INF)."""
+    ref, port, _, _ = _volume_case(name)
+    fw = Framework.from_config()
+    x = static_base.static_base_inputs(fw, CycleContext(port), fit=False)
+    assert x.flags & static_base.F_MASK and x.mask is not None
+    mask, score = ref_rt.Framework.from_config().static_lean(ref_if.CycleContext(ref))
+    want = np.where(np.asarray(mask), np.clip(np.asarray(score), -1e6, 1e6),
+                    np.float32(static_base.NEG_INF))
+    got = static_base.static_base_plain(x).numpy()
+    np.testing.assert_array_equal(got > static_base.NEG_INF / 2, np.asarray(mask))
+    np.testing.assert_allclose(got, want, atol=SBASE_ATOL, rtol=0)
+
+
+def test_pv_fold_plain_contended_batch_takes_several_passes():
+    """Four claimants of one class on one node over two equivalent PVs, all
+    accepted at once: every claimant chooses pv-0 in the first pass, the
+    lowest rank wins it, the next pass gives pv-1 to the next rank — the
+    fold takes more than one pass, as the reference's, while the guard key
+    (K11's function, contention-free) names pv-0 for all four."""
+    import k8s_scheduler_tpu.ops.volumes as ref_vol
+
+    from k8s_scheduler_tpu_torch.ops import volumes
+
+    ref, port, em, tables = _volume_case("two_pvs_4")
+    P, V = port.P, port.pv_avail.shape[0]
+    accepted = np.asarray(ref.pod_valid).copy()
+    node_of = np.zeros(P, np.int32)
+    claimed0 = np.zeros(V, bool)
+    rank = np.asarray(ref.pod_order).astype(np.int32)
+    t, j = torch.from_numpy, jnp.asarray
+    keys = volumes.pv_choice_plain(port, tables, t(claimed0), t(node_of), t(accepted))
+    assert keys[:4, 0].tolist() == [0, 0, 0, 0]
+    got = volumes.pv_fold_plain(port, tables, t(claimed0), t(accepted), t(node_of), t(rank))
+    want = ref_vol.fold_pv_claims(ref, em, j(claimed0), j(accepted), j(node_of), j(rank))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[:2].tolist() == [True, True] and int(got.sum()) == 2
+    # one pass alone claims only pv-0: the second claim needed a second pass
+    one = volumes.chosen_pv(port, tables.req, t(claimed0), t(node_of), t(accepted), 0)
+    assert set(one[:4].tolist()) == {0}
+    # pv-0, then pv-1, then a pass in which the last two find nothing
+    claimed, n_passes = volumes.fold_pv_claims_passes(
+        port, tables.req, t(claimed0), t(accepted), t(node_of), t(rank))
+    assert torch.equal(claimed, got) and n_passes == 3

@@ -332,3 +332,32 @@ def test_nodeports_state_update(snaps):
     got = pfw.extra_update_batched(ctx, pfw.extra_init(ctx),
                                    torch.from_numpy(accepted), torch.from_numpy(node_of))
     assert_exact(got["NodePorts"], want["NodePorts"])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_expr_match_random_tables_match_reference(seed):
+    """`labels.expr_match` (interned (key, value) lookups) against the
+    reference's dense [Ex, X, ML, MV] comparison on random tables with every
+    operator, duplicate keys on one subject, negative values, numeric and
+    non-numeric labels, field matches and padding rows: bit-equal."""
+    from k8s_scheduler_tpu_torch.ops import labels as port_labels
+
+    rng = np.random.default_rng(seed)
+    Ex, X, ML, MV = 300, 70, 6, 4
+    keys = rng.integers(-1, 9, (X, ML)).astype(np.int32)
+    vals = rng.integers(-1, 12, (X, ML)).astype(np.int32)
+    nums = np.where(rng.random((X, ML)) < 0.6, rng.integers(-5, 20, (X, ML)),
+                    np.nan).astype(np.float32)
+    ex_key = rng.integers(-1, 10, Ex).astype(np.int32)
+    ex_op = rng.integers(0, 8, Ex).astype(np.int32)
+    ex_vals = rng.integers(-1, 13, (Ex, MV)).astype(np.int32)
+    ex_num = rng.integers(-5, 20, Ex).astype(np.float32)
+    subj = np.arange(X, dtype=np.int32)
+    args = (ex_key, ex_op, ex_vals, ex_num, keys, vals, nums, subj)
+    want = np.asarray(jax.jit(ref_labels.expr_match)(*[jnp.asarray(a) for a in args]))
+    got = port_labels.expr_match(*[torch.from_numpy(a) for a in args]).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < got.size
+    got_pods = port_labels.expr_match(*[torch.from_numpy(a) for a in args[:6]]).numpy()
+    want_pods = np.asarray(jax.jit(ref_labels.expr_match)(*[jnp.asarray(a) for a in args[:6]]))
+    np.testing.assert_array_equal(got_pods, want_pods)
