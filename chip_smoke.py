@@ -5,9 +5,10 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
-engine latency cycle `build_cycle_fn()(snapshot)` — on three workloads at
-BASELINE config #4's cluster size (5000 nodes, 12000 running pods, 10000
-pending pods, padded P=16384, N=8192):
+engine latency cycle `build_cycle_fn()(snapshot)`, and the scan engine's
+`build_cycle_fn(commit_mode="scan")` — on three workloads at BASELINE
+config #4's cluster size (5000 nodes, 12000 running pods, 10000 pending
+pods, padded P=16384, N=8192):
 
   slice 1  config #2's constraint mix on the pending side (node selectors,
            taints and tolerations; no inter-pod affinity);
@@ -15,7 +16,8 @@ pending pods, padded P=16384, N=8192):
            and topology spread, pending pods with required affinity,
            anti-affinity, spread, selectors, tolerations, four priorities;
            the preemption phase then runs DefaultPreemption after each of
-           its cycles, which makes config #4 whole;
+           its cycles, which makes config #4 whole, and the scan phase runs
+           the same snapshots through the scan engine;
   volumes  config #4's workload with local and zonal persistent volumes,
            cycles and preemption.
 
@@ -46,7 +48,27 @@ Phases:
                 preemptor; then the same on a variant with one PDB per app
                 (GP = 500), counting nominations that needed a violation,
                 and on slice 1's workload (no affinity tables);
-  6. volumes  — config #4's workload with local and zonal persistent
+  6. scan     — the affinity phase's snapshots through `build_cycle_fn(
+                commit_mode="scan")`: K13 `scan_commit` equal to its plain
+                version (`scan_commit_plain`) on the packed inputs of one
+                seed at full size (assignment, node_requested, the port
+                bitmap and the four affinity tables bit-equal; both
+                timed), and on a seeded variant of the same cluster with
+                the pending set cut to its first 2048 pods and given
+                preferred terms, ScheduleAnyway constraints, nominated
+                nodes and host ports (also under a profile whose one
+                dynamic score is BalancedAllocation), three timed cycles with
+                one K13 launch each whose placements are checked (capacity,
+                static masks; anti-affinity both ways, required affinity or
+                its bootstrap and DoNotSchedule skew, each at the pod's own
+                step, by a host replay in rank order), DefaultPreemption after
+                each equal to the plain versions' pass with every nomination
+                valid, a second scan cycle over the pods one seed's scan
+                left unplaced (its placements running), and one scan cycle
+                on slice 1's workload (resource-
+                only dynamic filters: unplaced => infeasible against the
+                final state);
+  7. volumes  — config #4's workload with local and zonal persistent
                 volumes (`utils/synth.config4_volumes`: two local PVs per
                 node, a quarter of them bound to running pods, 1000 pre-
                 bound zonal pairs; 40% of the pending pods mount one or two
@@ -86,6 +108,7 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 STATIC_BASE_TOL = 1e-3  # max |kernel - plain| of the static base (target 0)
+SCAN_CUT = 2048  # pending pods of the scan kernel's variant comparisons
 N_NODES, N_EXISTING, N_PENDING = 5000, 12000, 10000
 WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
 AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
@@ -135,6 +158,42 @@ def bound(nbytes_: int, ops: int) -> tuple[float, str]:
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
+def scan_bytes(torch, x, rk) -> int:
+    """Bytes K13 must move on this run's data, each read once and each
+    written once: the static base rows and the per-pod operands of the
+    valid pods (the kernel skips pad pods), the node tables, and of the
+    carried affinity state only the rows the valid pods' terms and matched
+    selectors read or write."""
+    P = x.shape[0]
+    valid = x.pod_valid
+    nv = int(valid.sum())
+    per_pod = (x.sbase, x.order, x.pod_nominated, x.pod_requested, x.pod_port_ids,
+               x.aff_terms, x.aff_self, x.anti_terms, x.pref_terms, x.pref_w, x.tsc,
+               x.tsc_skew)
+    b = sum(nbytes(t) // P * nv for t in per_pod) + nbytes(x.pod_valid)
+    b += nbytes(x.node_allocatable, x.node_requested, x.slack, x.ports, x.node_domains,
+                x.dom_ptr, x.dom_list, x.sel_ptr, x.sel_list, x.state.total)
+    b += nbytes(rk.assignment, rk.node_requested, rk.ports, rk.state.total)
+
+    def sels(t):  # the selectors of the valid pods' terms
+        t = t[valid]
+        return set(t[t >= 0].tolist())
+
+    matched = set(x.sel_list.tolist())
+    term_sels = (sels(x.aff_terms[..., 0]) | sels(x.anti_terms[..., 0])
+                 | sels(x.pref_terms[..., 0]) | sels(x.tsc[..., 1]))
+    anti_w, pref_w = sels(x.anti_terms[..., 0]), sels(x.pref_terms[..., 0])
+    st = x.state
+    row = {n: nbytes(getattr(st, n)) // getattr(st, n).shape[0]
+           for n in ("counts", "anti_presence", "pref_sym")}
+    # counts: read for terms, written for matched selectors; the anti and
+    # preferred tables: read for matched selectors, written for terms
+    b += row["counts"] * (len(term_sels | matched) + len(matched))
+    b += row["anti_presence"] * (len(matched | anti_w) + len(anti_w))
+    b += row["pref_sym"] * (len(matched | pref_w) + len(pref_w))
+    return b
+
+
 def same_decisions(torch, a, b) -> dict:
     return {f: torch.equal(getattr(a, f), getattr(b, f))
             for f in ("assignment", "node_requested", "unschedulable", "gang_dropped")}
@@ -176,13 +235,34 @@ def preferred_variant(torch, snap, gen):
                                pod_pref_aff_w=w.float())
 
 
-def check_placements(torch, snap, d, fw, kernels_plain, volume_kernels=None):
+def scan_variant(torch, snap, gen):
+    """`preferred_variant(snap)` with, besides, a nominated node for 10% of
+    the pods and one host port (of the Q pending port ids) for 5% — the
+    scan kernel's paths config #4's workload leaves cold; seeded, on the
+    card."""
+    dev = snap.device
+    P, n_real = snap.P, int(snap.num_nodes)
+    v = preferred_variant(torch, snap, gen)
+    i32 = torch.int32
+    nom = torch.where(torch.rand(P, generator=gen, device=dev) < 0.1,
+                      torch.randint(0, n_real, (P,), generator=gen, device=dev, dtype=i32),
+                      torch.full((), -1, dtype=i32, device=dev))
+    ports = snap.pod_port_ids.clone()
+    port = torch.randint(0, snap.num_distinct_ports, (P,), generator=gen, device=dev,
+                         dtype=i32)
+    ports[:, 0] = torch.where(torch.rand(P, generator=gen, device=dev) < 0.05, port,
+                              ports[:, 0])
+    return dataclasses.replace(v, pod_nominated=nom, pod_port_ids=ports)
+
+
+def check_placements(torch, snap, d, fw, kernels_plain, volume_kernels=None,
+                     unplaced_infeasible=True):
     """Placement validity with the port's plain functions: the final
     node_requested, capacity of every node that received pods, static
-    masks, and no unplaced pod feasible against the final state.
-    `volume_kernels` (VolumeBinding's functions; default the plain
-    versions) may hand over the cycle's own final claim bitmap as the fold
-    of all placements."""
+    masks, and (`unplaced_infeasible`) no unplaced pod feasible against the
+    final state. `volume_kernels` (VolumeBinding's functions; default the
+    plain versions) may hand over the cycle's own final claim bitmap as the
+    fold of all placements."""
     from k8s_scheduler_tpu_torch.core.cycle import sampling_window
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
     from k8s_scheduler_tpu_torch.ops import static_base as sb
@@ -212,10 +292,11 @@ def check_placements(torch, snap, d, fw, kernels_plain, volume_kernels=None):
     pidx = torch.nonzero(placed, as_tuple=True)[0]
     check(bool(smask[pidx, a[pidx].long()].all()), "a placed pod's static mask is false at its node")
     extra = fw.extra_update_batched(ctx, fw.extra_init(ctx), placed, torch.where(placed, a, 0))
-    feasible, _ = fw.dyn_batched(ctx, d.node_requested, extra, smask)
-    open_ = snap.pod_valid & (a < 0) & ~d.gang_dropped
-    n_open_feasible = int((feasible.any(dim=1) & open_).sum())
-    check(n_open_feasible == 0, f"{n_open_feasible} unplaced pods still have a feasible node")
+    if unplaced_infeasible:
+        feasible, _ = fw.dyn_batched(ctx, d.node_requested, extra, smask)
+        open_ = snap.pod_valid & (a < 0) & ~d.gang_dropped
+        n_open_feasible = int((feasible.any(dim=1) & open_).sum())
+        check(n_open_feasible == 0, f"{n_open_feasible} unplaced pods still have a feasible node")
     return ctx, extra
 
 
@@ -1081,6 +1162,244 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     return {"kernels": entries, "ms": ms, "pre_ms": pre_ms}
 
 
+def check_scan_affinity(torch, snap, d, ctx):
+    """Inter-pod constraints of every scan placement, each checked at the
+    pod's own step: a host replay in rank order over the placed pods that
+    keeps the (selector, domain) counts, totals and anti-affinity owners'
+    domains in numpy, seeded with the running pods:
+      - required anti-affinity: no matching pod in the pod's domain;
+      - symmetric: no running or earlier-placed pod's anti term whose
+        selector matches the pod covers its node;
+      - required affinity: a matching pod in the domain, or nothing matching
+        anywhere and the pod matching its own term (bootstrap);
+      - DoNotSchedule: the key present, count + 1 - min over the key's
+        domains <= maxSkew.
+    Returns counts of the checked terms."""
+    import numpy as np
+
+    from k8s_scheduler_tpu_torch.models import encoding as enc
+    from k8s_scheduler_tpu_torch.ops import interpod as ip
+
+    check(not bool(d.gang_dropped.any()), "the replay needs every committed pod's node")
+    S, D = snap.sel_exprs.shape[0], snap.domain_key.shape[0]
+    mp = ctx.matched_pending.cpu().numpy()  # [S, P]
+    state0 = ctx.initial_affinity_state()
+    counts = state0.counts.double().cpu().numpy().copy()
+    total = state0.total.double().cpu().numpy().copy()
+    anti_flat = ip._flat_table(snap.exist_anti_terms, None, ip._exist_domains(snap),
+                               S, D).cpu().numpy().copy()  # [S, D] owners' domains
+    nd = snap.node_domains.cpu().numpy()
+    dkey = snap.domain_key.cpu().numpy()
+    elig = [np.flatnonzero((dkey == k) & (snap.domain_node_count.cpu().numpy() > 0))
+            for k in range(nd.shape[1])]
+    aff, anti = snap.pod_aff_terms.cpu().numpy(), snap.pod_anti_terms.cpu().numpy()
+    tsc, skew = snap.pod_tsc.cpu().numpy(), snap.pod_tsc_skew.cpu().numpy()
+    a = d.assignment.cpu().numpy()
+    order = np.argsort(snap.pod_order.cpu().numpy(), kind="stable")
+    n_anti = n_aff = n_spread = 0
+    for p in order[a[order] >= 0]:
+        n = a[p]
+        dom = nd[n]
+        sels = np.flatnonzero(mp[:, p])
+        for sel, k in anti[p]:
+            if sel >= 0 and dom[k] >= 0:
+                check(counts[sel, dom[k]] == 0, f"pod {p}: required anti-affinity violated")
+                n_anti += 1
+        hit = anti_flat[sels][:, dom[dom >= 0]] if len(sels) else np.zeros((0, 0), bool)
+        check(not hit.any(), f"pod {p}: an anti term of a placed or running pod covers it")
+        for sel, k in aff[p]:
+            if sel >= 0:
+                boot = total[sel] == 0 and mp[sel, p]
+                check(boot or (dom[k] >= 0 and counts[sel, dom[k]] > 0),
+                      f"pod {p}: required affinity unsatisfied")
+                n_aff += 1
+        for (k, sel, when), sk in zip(tsc[p], skew[p]):
+            if k >= 0 and when == enc.WHEN_DO_NOT_SCHEDULE:
+                check(dom[k] >= 0, f"pod {p}: spread key absent at its node")
+                minc = counts[sel, elig[k]].min() if len(elig[k]) else 0.0
+                check(counts[sel, dom[k]] + 1 - minc <= sk,
+                      f"pod {p}: DoNotSchedule skew exceeded at its step")
+                n_spread += 1
+        for k in range(nd.shape[1]):
+            if dom[k] >= 0:
+                counts[sels, dom[k]] += 1
+        total[sels] += 1
+        for sel, k in anti[p]:
+            if sel >= 0 and dom[k] >= 0:
+                anti_flat[sel, dom[k]] = True
+    return n_anti, n_aff, n_spread
+
+
+def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_case,
+               plain_kernels):
+    """Phase 6 (module docstring). Returns {"kernels": entries, "ms": [...],
+    "pre_ms": [...]}."""
+    from k8s_scheduler_tpu_torch.core.cycle import (_preemption_gate_rows, build_cycle_fn,
+                                                    build_preemption_fn, sampling_window)
+    from k8s_scheduler_tpu_torch.config import (PluginSet, Plugins, Profile,
+                                                SchedulerConfiguration)
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.framework.runtime import Framework
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.models import encoding as enc_mod
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.ops import scan_commit as sc
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+
+    cycle_s = build_cycle_fn(fw, commit_mode="scan", device=dev)
+    t0 = time.time()
+    dw = cycle_s(snaps[AFF_WARM_SEED])
+    torch.cuda.synchronize()
+    log(f"phase scan warm-up cycle: {(time.time() - t0) * 1e3:.1f} ms, placed "
+        f"{int((dw.assignment >= 0).sum())}")
+
+    def packed(snap, fw_=fw):
+        ctx = CycleContext(snap)
+        sbase = sb.static_base_cuda(sb.static_base_inputs(
+            fw_, ctx, fit=True, sampling=sampling_window(snap, 0)))
+        return sc.scan_commit_inputs(fw_, ctx, sbase, fw_.extra_init(ctx))
+
+    # K13 against its plain version at full size on one seed (the plain
+    # scan takes 7-10 ms per step on the card, 70-105 s at 10000 pods)
+    def kernel_vs_plain(xc, tag):
+        rk = sc.scan_commit_cuda(xc)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        rp = sc.scan_commit_plain(xc)
+        end.record()
+        torch.cuda.synchronize()
+        eq = {"assignment": torch.equal(rk.assignment, rp.assignment),
+              "node_requested": torch.equal(rk.node_requested, rp.node_requested),
+              "ports": torch.equal(rk.ports, rp.ports),
+              **{f: torch.equal(getattr(rk.state, f), getattr(rp.state, f))
+                 for f in ("counts", "total", "anti_presence", "pref_sym")}}
+        log(f"phase kernel scan_commit, {tag}: kernel == plain: {json.dumps(eq)}")
+        check(all(eq.values()), f"scan_commit differs from its plain version ({tag})")
+        return rk, start.elapsed_time(end)
+
+    seed = AFF_TIMED_SEEDS[0]
+    x = packed(snaps[seed])
+    nv = int(x.pod_valid.sum())
+    rk, k13_plain = kernel_vs_plain(x, f"full size, seed {seed}")
+    k13_ms = time_ms(torch, lambda: sc.scan_commit_cuda(x), 3)
+    k13_bytes = scan_bytes(torch, x, rk)
+    n_sel = int(x.sel_ptr[-1])
+    n_terms = int(((x.aff_terms[..., 0] >= 0).sum() + (x.anti_terms[..., 0] >= 0).sum()
+                   + (x.pref_terms[..., 0] >= 0).sum() + (x.tsc[..., 0] >= 0).sum()))
+    # per step and node: static test, fit (2R), two resource scores (~8R),
+    # the sum and the argmax; per term and matched selector one lookup
+    R = x.pod_requested.shape[1]
+    k13_ops = nv * x.shape[1] * (10 * R + 8) + (n_terms + n_sel) * x.shape[1]
+    k13_bound, k13_by = bound(k13_bytes, k13_ops)
+    log(f"phase kernel scan_commit: full size, {nv} steps over [{x.shape[1]}] nodes: "
+        f"kernel {k13_ms:.3f} ms ({1e3 * k13_ms / nv:.2f} us per step), plain "
+        f"{k13_plain:.1f} ms ({k13_plain / nv:.3f} ms per step), bound {k13_bound:.4f} ms "
+        f"({k13_by}, bytes {k13_bytes}); placed {int((rk.assignment >= 0).sum())}; "
+        f"{n_terms} pod terms, {n_sel} matched selectors | {smi}")
+    del rk, x
+    # config #4's workload has no preferred term, no ScheduleAnyway
+    # constraint, no nominated pod and no host port: hold K13 also on a
+    # seeded variant that has all four, on the same cluster with the
+    # pending set cut to its first SCAN_CUT pods
+    snap_cut = SnapshotEncoder(device=dev).encode(nodes, pending[seed][:SCAN_CUT], existing)
+    vsnap = scan_variant(torch, snap_cut, torch.Generator(device=dev).manual_seed(11))
+    xv = packed(vsnap)
+    rv, _ = kernel_vs_plain(xv, f"the first {SCAN_CUT} pending pods of seed {seed}, "
+                                "preferred / ScheduleAnyway / nominated / host-port variant")
+    noms = vsnap.pod_nominated
+    honoured = int(((noms >= 0) & (rv.assignment == noms)).sum())
+    log(f"phase kernel scan_commit variant: {int((vsnap.pod_pref_aff[..., 0] >= 0).sum())} "
+        f"preferred terms, {int(((vsnap.pod_tsc[..., 0] >= 0) & (vsnap.pod_tsc[..., 2] == enc_mod.WHEN_SCHEDULE_ANYWAY)).sum())} "
+        f"soft constraints, {int((noms[vsnap.pod_valid] >= 0).sum())} nominations "
+        f"({honoured} honoured), {int(rv.ports.sum())} host ports claimed, max |pref_sym| "
+        f"{float(rv.state.pref_sym.abs().max())}")
+    check(honoured > 0 and bool(rv.ports.any()), "the scan variant left a path cold")
+    # a profile whose one dynamic score is BalancedAllocation: the score sum
+    # is one bare product, fused into the static score's add
+    bal = SchedulerConfiguration(profiles=[Profile(plugins=Plugins(score=PluginSet(
+        disabled=["NodeResourcesFit", "InterPodAffinity", "PodTopologySpread"])))])
+    xb = packed(vsnap, Framework.from_config(bal))
+    check(xb.terms == ((sc.T_BALANCED, 1.0),), "the lone-product profile packs other terms")
+    kernel_vs_plain(xb, "variant, BalancedAllocation the one dynamic score")
+    del xv, xb, rv, vsnap, snap_cut
+
+    # the scan main path: counts set to 0 just before, read just after
+    results, launches = timed_cycles(torch, kb, cycle_s, snaps, AFF_TIMED_SEEDS)
+    log(f"phase scan launches over {len(AFF_TIMED_SEEDS)} cycles: {json.dumps(launches)}")
+    check(launches["scan_commit"] == len(AFF_TIMED_SEEDS),
+          "the scan commit took other than one launch per cycle")
+    check(launches["static_base"] == len(AFF_TIMED_SEEDS), "K1 not once per scan cycle")
+    check(launches["claim_pass"] == 0 and launches["capacity"] == 0,
+          "a scan cycle launched the rounds engine's kernels")
+    pre_k = build_preemption_fn(fw, device=dev)
+    pre_p = build_preemption_fn(fw, device=dev, prefilter_fn=pre.prefilter_plain,
+                                whatif_fn=pre.nonresource_ok_plain,
+                                claim_fn=pre.claim_loop_plain)
+    ms, pre_ms = [], []
+    kb.reset_launch_counts()
+    for s, d, dev_ms, host_ms in results:
+        snap = snaps[s]
+        ctx, _ = check_placements(torch, snap, d, fw, plain_kernels,
+                                  unplaced_infeasible=False)
+        n_anti, n_aff, n_spread = check_scan_affinity(torch, snap, d, ctx)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rk = pre_k(snap, d)
+        end.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(end)
+        rp = pre_p(snap, d)
+        same = {f: torch.equal(getattr(rk, f), getattr(rp, f))
+                for f in ("nominated", "victims", "num_preemptors")}
+        check(all(same.values()), f"seed {s}: preemption after the scan differs from the "
+              f"plain versions' pass: {same}")
+        n_nom, n_vict, _ = check_preemption(torch, snap, d, rk,
+                                            _preemption_gate_rows(fw, CycleContext(snap)),
+                                            pre.DEFAULT_SCAN_BUDGET)
+        ms.append(round(dev_ms, 1))
+        pre_ms.append(round(p_ms, 2))
+        log(f"phase scan cycle seed {s}: device {dev_ms:.1f} ms, host {host_ms:.1f} ms, "
+            f"placed {int((d.assignment >= 0).sum())}, unschedulable "
+            f"{int(d.unschedulable.sum())}; valid: capacity, static masks, at each pod's "
+            f"step {n_anti} anti terms, {n_aff} affinity terms, {n_spread} DoNotSchedule "
+            f"constraints; preemption after it {p_ms:.2f} ms device, {n_nom} nominations, "
+            f"{n_vict} victims, kernels == plain, nominations valid")
+    pre_launch = dict(kb.launch_counts)
+    check(pre_launch["preempt_claim"] >= len(AFF_TIMED_SEEDS) and pre_launch["scan_commit"] == 0,
+          "preemption after the scan did not run its kernels")
+    # the scan decides each pod once, at its rank; a second scan cycle over
+    # the pods the first left unplaced, with its placements running, places
+    # those that later placements made feasible (the rounds engine retries
+    # a rejected pod in its later rounds)
+    s, d = results[0][0], results[0][1]
+    a = d.assignment[:len(pending[s])].tolist()
+    ex2 = existing + [(p, nodes[n].metadata.name) for p, n in zip(pending[s], a) if n >= 0]
+    left = [p for p, n in zip(pending[s], a) if n < 0]
+    d2 = cycle_s(SnapshotEncoder(device=dev).encode(nodes, left, ex2))
+    log(f"phase scan second pass, seed {s}: of the {len(left)} pods the scan left "
+        f"unplaced, a second scan cycle with its placements running places "
+        f"{int((d2.assignment >= 0).sum())}")
+
+    # slice 1's workload: resource-only dynamic filters, so an unplaced pod
+    # stays infeasible against the final state
+    snap1 = slice1_case[0]
+    kb.reset_launch_counts()
+    d1 = cycle_s(snap1)
+    torch.cuda.synchronize()
+    check(kb.launch_counts["scan_commit"] == 1, "slice-1 scan cycle: K13 not launched once")
+    check_placements(torch, snap1, d1, fw, plain_kernels)
+    log(f"phase scan on slice 1's workload: placed {int((d1.assignment >= 0).sum())}, "
+        f"unschedulable {int(d1.unschedulable.sum())}; valid: capacity, static masks, "
+        f"unplaced infeasible against the final state")
+
+    entry = kernel_entry(
+        "scan_commit", "cuda", "k8s_scheduler_tpu_torch/csrc/scan_commit.cu",
+        "k8s_scheduler_tpu/ops/commit.py:63", launches["scan_commit"], 0.0,
+        k13_ms, k13_plain, k13_bytes, k13_ops)
+    return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1476,7 +1795,13 @@ def main() -> int:
     pre_stats = preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps,
                                  decisions, cycle_ms, cycle_k, smi, slice1_case)
     kernels.update(pre_stats.pop("kernels"))
-    del snaps, decisions
+    del decisions
+
+    # ============ scan: config #4's workload through the scan engine ============
+    scan_stats = scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi,
+                            slice1_case, plain_kernels)
+    kernels.update(scan_stats.pop("kernels"))
+    del snaps
 
     # ============ volumes: config #4's workload with local and zonal PVs ============
     vol_stats = volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi,
@@ -1507,8 +1832,10 @@ def main() -> int:
         log(f"  kernel {k['name']:16s} ms {k['ms']:9.3f}  bound {k['bound_ms']:8.3f} "
             f"({k['bound_by']})  plain {k['plain_ms']:9.3f}  launches {k['launches']}")
     log(f"phase summary: slice-1 cycle device ms {timed1}, affinity cycle device ms "
-        f"{timed}, preemption device ms {pre_stats['ms']}, volumes cycle device ms "
-        f"{vol_stats['ms']}, volumes preemption device ms {vol_stats['pre_ms']}, peak memory "
+        f"{timed}, preemption device ms {pre_stats['ms']}, scan cycle device ms "
+        f"{scan_stats['ms']}, scan preemption device ms {scan_stats['pre_ms']}, volumes "
+        f"cycle device ms {vol_stats['ms']}, volumes preemption device ms "
+        f"{vol_stats['pre_ms']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

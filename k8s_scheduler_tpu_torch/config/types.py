@@ -53,8 +53,8 @@ class SchedulerConfiguration:
     profiles: list[Profile] = field(default_factory=lambda: [Profile()])
     percentage_of_nodes_to_score: int = 0  # 0 = adaptive (upstream default)
     gang_scheduling: bool = True
-    # in-cycle commitment engine; the port has only the rounds engine
-    # ("scan" waits for ROADMAP item A8)
+    # in-cycle commitment engine: "rounds" or "scan" (build_cycle_fn's
+    # commit_mode)
     commit_mode: str = "rounds"
 
     def profile(self, scheduler_name: str = "default-scheduler") -> Profile:

@@ -20,11 +20,16 @@ serial claim loop (K9 `preempt_claim`), a separate call so a cycle that
 places every pod pays nothing for it; its static gate ANDs VolumeBinding's
 static mask (K10) over the candidates.
 
-This slice builds the latency cycle of the rounds engine
-(`build_cycle_fn(commit_mode="rounds", outputs="latency")`), with inter-
-pod affinity, topology spread and volumes, and preemption after it. The
-scan engine, full outputs (with `_pv_claimed_after_unwind`) and the
-carry/packed/multi-cycle/arena builders are ROADMAP items A5 and A7-A13."""
+The scan engine (`commit_mode="scan"`, the strict one-pod-at-a-time
+ScheduleOne commit) replaces the rounds engine with one launch of K13
+`scan_commit` over the same static base; volumes are not in it yet
+(ROADMAP A8b).
+
+This package builds the latency cycle of both engines
+(`build_cycle_fn(commit_mode=..., outputs="latency")`), with inter-pod
+affinity, topology spread and (rounds only) volumes, and preemption after
+either. Full outputs (with `_pv_claimed_after_unwind`) and the carry/
+packed/multi-cycle/arena builders are ROADMAP items A5, A7 and A9-A13."""
 
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..framework.runtime import Framework
 from ..ops import affinity_update as affinity_update_ops
 from ..ops import capacity as capacity_ops
 from ..ops import claim_pass as claim_pass_ops
+from ..ops import commit as commit_ops
 from ..ops import guard_sweep as guard_sweep_ops
 from ..ops import interpod_terms as interpod_terms_ops
 from ..ops import preempt_claim as preempt_claim_ops
@@ -47,6 +53,7 @@ from ..ops import preempt_whatif as preempt_whatif_ops
 from ..ops import pv_choice as pv_choice_ops
 from ..ops import pv_fold as pv_fold_ops
 from ..ops import rounds as rounds_ops
+from ..ops import scan_commit as scan_commit_ops
 from ..ops import static_base as static_base_ops
 from ..ops import volume_mask as volume_mask_ops
 from ..ops.argsel import wrap_i32
@@ -62,7 +69,9 @@ class CycleDecision:
     unschedulable: torch.Tensor  # bool [P] valid pod that found no node
     gang_dropped: torch.Tensor  # bool [P] placed, then unwound
     placed_round: torch.Tensor  # i32 [P] rounds-engine round of each
-    # placement (-1 unplaced or unwound); validity checks replay the rounds
+    # placement (-1 unplaced or unwound); validity checks replay the rounds.
+    # The scan engine reports 0 for every placement (the reference's
+    # rounds_used is 0 in scan mode): its steps follow the queue rank
 
 
 def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
@@ -111,11 +120,10 @@ def _gang_unwind(snap, assignment, node_requested):
     counts.index_add_(0, gid, (in_group & placed).to(counts.dtype))
     fail = counts < snap.group_min_member
     dropped = in_group & fail[gid] & placed
-    node_requested = capacity_ops.index_add_exact(
-        node_requested, assignment[dropped], -snap.pod_requested[dropped]
-    )
-    assignment = torch.where(dropped, -1, assignment)
-    return assignment, node_requested, dropped
+    res = commit_ops.unwind_assignments(
+        commit_ops.CommitResult(assignment, node_requested, None), dropped,
+        snap.pod_requested)
+    return res.assignment, res.node_requested, dropped
 
 
 def build_cycle_fn(
@@ -137,6 +145,7 @@ def build_cycle_fn(
     volume_mask_fn: Callable = volume_mask_ops.volume_mask,
     pv_choice_fn: Callable = pv_choice_ops.pv_choice,
     pv_fold_fn: Callable = pv_fold_ops.pv_fold,
+    scan_commit_fn: Callable = scan_commit_ops.scan_commit,
 ) -> Callable:
     """The cycle for a framework (default: the default plugin set) on one
     device: `cycle(snapshot) -> CycleDecision`.
@@ -144,19 +153,19 @@ def build_cycle_fn(
     `device` None means the card (raises without one). The default
     kernel functions (`static_base_fn`, `claim_pass_fn`, `interpod_terms_fn`,
     `interpod_norm_fn`, `affinity_update_fn`, `capacity_fn`,
-    `guard_sweep_fn`, `volume_mask_fn`, `pv_choice_fn`, `pv_fold_fn`) run
-    the hand-written kernels on CUDA and their plain torch versions on CPU;
-    passing the plain versions (`*_plain`) runs them on the card too — the
-    run the kernels are held against.
+    `guard_sweep_fn`, `volume_mask_fn`, `pv_choice_fn`, `pv_fold_fn`,
+    `scan_commit_fn`) run the hand-written kernels on CUDA and their plain
+    torch versions on CPU; passing the plain versions (`*_plain`) runs them
+    on the card too — the run the kernels are held against.
 
-    Placements follow the reference's rounds engine: bit-equal
-    assignment / node_requested / unschedulable / gang_dropped (held by
-    tests/test_torch_cycle.py)."""
-    if commit_mode != "rounds":
-        raise NotImplementedError(
-            f"commit_mode {commit_mode!r}: only the rounds engine is ported "
-            "(the scan engine is ROADMAP A8)"
-        )
+    `commit_mode` "rounds" (the default) runs the rounds engine: K1, then
+    per round K3/K10, K2 and K5 per pass, K11/K6/K4/K12 at round end.
+    "scan" runs the strict sequential engine: K1, then K13 `scan_commit`
+    once. Placements follow the reference's engine of the same name:
+    bit-equal assignment / node_requested / unschedulable / gang_dropped
+    (held by tests/test_torch_cycle*.py)."""
+    if commit_mode not in ("rounds", "scan"):
+        raise ValueError(f"commit_mode {commit_mode!r}: 'rounds' or 'scan'")
     if outputs != "latency":
         raise NotImplementedError(
             f"outputs {outputs!r}: only the latency outputs are ported "
@@ -178,6 +187,8 @@ def build_cycle_fn(
                 f"snapshot on {snap.device}, cycle built for {dev}"
             )
         ctx = CycleContext(snap, kernels, volume_kernels=vkernels)
+        if commit_mode == "scan":
+            return scan_cycle(snap, ctx)
         sbase = static_base_fn(static_base_ops.static_base_inputs(
             fw, ctx, fit=True,
             sampling=sampling_window(snap, percentage_of_nodes_to_score),
@@ -213,6 +224,29 @@ def build_cycle_fn(
             assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
         unsched = snap.pod_valid & (assignment < 0)
         placed_round = torch.where(assignment >= 0, rres.placed_round, -1)
+        return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
+
+    def scan_cycle(snap, ctx) -> CycleDecision:
+        if snap.has_volumes and any(f.name == "VolumeBinding" for f in fw.filters):
+            raise NotImplementedError(
+                "commit_mode 'scan' on a snapshot with volumes: VolumeBinding's "
+                "per-pod hooks are ROADMAP A8b (the rounds engine covers volumes)")
+        # K1's fit test against the cycle-start state only removes nodes the
+        # scan's fit test would reject at every step (node_requested only
+        # grows during the scan); its clip to +-1e6 is the identity on the
+        # default plugins' static scores (held by tests/test_torch_commit.py)
+        sbase = static_base_fn(static_base_ops.static_base_inputs(
+            fw, ctx, fit=True,
+            sampling=sampling_window(snap, percentage_of_nodes_to_score),
+        ))
+        res = scan_commit_fn(scan_commit_ops.scan_commit_inputs(
+            fw, ctx, sbase, fw.extra_init(ctx)))
+        assignment, node_req = res.assignment, res.node_requested
+        dropped = torch.zeros_like(snap.pod_valid)
+        if gang_scheduling:
+            assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
+        unsched = snap.pod_valid & (assignment < 0)
+        placed_round = torch.where(assignment >= 0, 0, -1).to(torch.int32)
         return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
 
     return cycle

@@ -1,12 +1,14 @@
 """Scheduler-framework extension points (`k8s_scheduler_tpu/framework/
-interfaces.py`), batched form only: the rounds engine is the one commit
-engine of this slice, so plugins implement the whole-pending-set hooks.
+interfaces.py`). Two commit engines call the dynamic hooks: the rounds
+engine the whole-pending-set (batched) ones, the scan engine the per-pod
+ones (one pod's [N] row per step).
 
 - PreFilter -> `CycleContext`: shared per-cycle precomputes, computed once.
-- Filter    -> `static_mask` ([P, N], independent of in-cycle commitments)
-               and `dyn_mask_batched` ([P, N] against the running state).
-- Score     -> `static_score` / `dyn_score_batched`, each 0..100; the
-               runtime applies the configured plugin weight.
+- Filter    -> `static_mask` ([P, N], independent of in-cycle commitments),
+               `dyn_mask` ([N] for one pod) and `dyn_mask_batched` ([P, N]),
+               both against the running state.
+- Score     -> `static_score` / `dyn_score` / `dyn_score_batched`, each
+               0..100; the runtime applies the configured plugin weight.
 - PostFilter -> `post_filter` (DefaultPreemption), after the cycle.
 """
 
@@ -138,13 +140,34 @@ class PluginBase:
     def static_mask(self, ctx: CycleContext) -> torch.Tensor | None:
         return None
 
+    def dyn_mask(self, ctx: CycleContext, p, node_requested,
+                 extra) -> torch.Tensor | None:
+        """bool [N] for pod `p` (an i32 0-d tensor) against the running
+        state, at one step of the scan engine."""
+        return None
+
     # --- Score (0..100; runtime applies weight) ---
     def static_score(self, ctx: CycleContext) -> torch.Tensor | None:
         return None
 
-    # --- per-cycle plugin state carried through the rounds ---
+    def dyn_score(self, ctx: CycleContext, p, node_requested, extra,
+                  feasible) -> torch.Tensor | None:
+        """f32 [N] for pod `p`; `feasible` is the pod's full feasibility row
+        [N] (static & every dynamic mask), for upstream-style normalize-
+        over-feasible scoring. A score that is x * c may return the
+        factors as a `commit.Product` instead, so the runtime can fuse the
+        multiply into the score sum as the reference's compiled scan step
+        does (`Framework.dyn`)."""
+        return None
+
+    # --- per-cycle plugin state carried through the commit ---
     def extra_init(self, ctx: CycleContext) -> Any | None:
         return None
+
+    def extra_update(self, ctx: CycleContext, extra, p, node, committed):
+        """Fold one scan step (pod `p` to `node`, i32 0-d tensors, when the
+        bool 0-d `committed` holds) into this plugin's extra state."""
+        return extra
 
     # --- batched dynamic path (ops/rounds.py) ---
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,

@@ -3,8 +3,9 @@
 Ported: NodeUnschedulable, NodeName, NodePorts, NodeResourcesFit,
 NodeResourcesBalancedAllocation, NodeAffinity, TaintToleration,
 ImageLocality, VolumeBinding, InterPodAffinity, PodTopologySpread and
-DefaultPreemption, with their batched hooks (the rounds engine's); the
-per-pod hooks of the scan engine are ROADMAP A8."""
+DefaultPreemption, with their batched hooks (the rounds engine's) and their
+per-pod hooks (the scan engine's), except VolumeBinding's per-pod hooks
+(ROADMAP A8b: the scan refuses a snapshot with volumes)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from ..ops import ports as ports_ops
 from ..ops import preemption as preemption_ops
 from ..ops import resources as res_ops
 from ..ops import taints as taints_ops
+from ..ops.commit import Product
+from ..ops.interpod import take_row
 from .interfaces import CycleContext, PluginBase
 
 
@@ -55,7 +58,7 @@ class NodeName(PluginBase):
 class NodePorts(PluginBase):
     """hostPort conflicts: against EXISTING pods via the static mask, and
     against pods placed earlier in this cycle via an [N, Q] port-claim
-    bitmap carried through the rounds (Q = distinct pending ports)."""
+    bitmap carried through the commit (Q = distinct pending ports)."""
 
     name = "NodePorts"
 
@@ -67,6 +70,25 @@ class NodePorts(PluginBase):
         snap = ctx.snap
         return torch.zeros((snap.N, snap.num_distinct_ports), dtype=torch.bool,
                            device=snap.device)
+
+    def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
+        claimed = extra[self.name]  # [N, Q]
+        ids = take_row(ctx.snap.pod_port_ids, p)  # [MPorts]
+        want = claimed[:, ids.clamp(0, claimed.shape[1] - 1).long()]  # [N, MPorts]
+        return ~(want & (ids >= 0)[None, :]).any(dim=1)
+
+    def extra_update(self, ctx: CycleContext, extra, p, node, committed):
+        ids = take_row(ctx.snap.pod_port_ids, p)
+        Q = extra.shape[1]
+        q = torch.arange(Q, device=ids.device)
+        # the pod's claimed ports as one [Q] row (pad slots clamp onto
+        # real ids, so a scatter of the slots would race with them)
+        hit = ((q[None, :] == ids.clamp(0, Q - 1)[:, None])
+               & (committed & (ids >= 0))[:, None]).any(dim=0)
+        row = node.long().reshape(1)
+        out = extra.clone()
+        out.index_copy_(0, row, out.index_select(0, row) | hit[None, :])
+        return out
 
     @staticmethod
     def _port_onehot(snap) -> torch.Tensor:  # bool [P, Q]
@@ -112,6 +134,21 @@ class NodeResourcesFit(PluginBase):
             else res_ops.least_requested_score
         )
 
+    def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
+        snap = ctx.snap
+        return res_ops.fit_mask_single(
+            take_row(snap.pod_requested, p), snap.node_allocatable, node_requested
+        )
+
+    def dyn_score(self, ctx: CycleContext, p, node_requested, extra, feasible):
+        snap = ctx.snap
+        return self._strategy_fn()(
+            take_row(snap.pod_requested, p),
+            snap.node_allocatable,
+            node_requested,
+            _score_resource_weights(snap, self.args),
+        )
+
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
         snap = ctx.snap
@@ -141,6 +178,15 @@ class NodeResourcesFit(PluginBase):
 
 class NodeResourcesBalancedAllocation(PluginBase):
     name = "NodeResourcesBalancedAllocation"
+
+    def dyn_score(self, ctx: CycleContext, p, node_requested, extra, feasible):
+        # the factors of (1 - std) * 100, so that the runtime fuses the
+        # multiply into the score sum as the reference's scan step does
+        snap = ctx.snap
+        return Product(res_ops.balanced_allocation_factor(
+            take_row(snap.pod_requested, p), snap.node_allocatable, node_requested,
+            _score_resource_weights(snap, self.args),
+        ), res_ops.MAX_NODE_SCORE)
 
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
                           feasible, shared):
@@ -254,6 +300,14 @@ def _affinity_state(ctx: CycleContext, extra):
     return extra[ctx._cache[_AFFINITY_OWNER_KEY]]
 
 
+def _update_affinity_state(ctx: CycleContext, name, state, p, node, committed):
+    if ctx._cache.get(_AFFINITY_OWNER_KEY) != name:
+        return state
+    return interpod_ops.affinity_update(
+        ctx.snap, state, ctx.matched_pending, p, node, committed
+    )
+
+
 def _update_affinity_state_batched(ctx: CycleContext, name, state, accepted,
                                    node_of):
     if ctx._cache.get(_AFFINITY_OWNER_KEY) != name:
@@ -288,6 +342,23 @@ class InterPodAffinity(PluginBase):
     def extra_init(self, ctx: CycleContext):
         return _claim_affinity_state(ctx, self.name)
 
+    def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
+        if not ctx.snap.has_inter_pod_affinity:
+            return None
+        return interpod_ops.affinity_dyn_mask(
+            ctx.snap, _affinity_state(ctx, extra), ctx.matched_pending, p
+        )
+
+    def dyn_score(self, ctx: CycleContext, p, node_requested, extra, feasible):
+        if not ctx.snap.has_inter_pod_affinity:
+            return None
+        return interpod_ops.affinity_dyn_score(
+            ctx.snap, _affinity_state(ctx, extra), ctx.matched_pending, p, feasible
+        )
+
+    def extra_update(self, ctx: CycleContext, extra, p, node, committed):
+        return _update_affinity_state(ctx, self.name, extra, p, node, committed)
+
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
         if not ctx.snap.has_inter_pod_affinity:
@@ -313,6 +384,21 @@ class PodTopologySpread(PluginBase):
 
     def extra_init(self, ctx: CycleContext):
         return _claim_affinity_state(ctx, self.name)
+
+    def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
+        if not ctx.snap.has_topology_spread:
+            return None
+        return interpod_ops.spread_dyn_mask(ctx.snap, _affinity_state(ctx, extra), p)
+
+    def dyn_score(self, ctx: CycleContext, p, node_requested, extra, feasible):
+        if not ctx.snap.has_topology_spread:
+            return None
+        return interpod_ops.spread_dyn_score(
+            ctx.snap, _affinity_state(ctx, extra), p, feasible
+        )
+
+    def extra_update(self, ctx: CycleContext, extra, p, node, committed):
+        return _update_affinity_state(ctx, self.name, extra, p, node, committed)
 
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):

@@ -1,6 +1,6 @@
 """Framework runtime (`k8s_scheduler_tpu/framework/runtime.py`): asks each
-enabled plugin for its batched mask/score fragments and ANDs / weighted-
-sums them.
+enabled plugin for its mask/score fragments — batched for the rounds
+engine, per pod for the scan engine — and ANDs / weighted-sums them.
 
 Weighted sums reproduce the reference's compiled arithmetic: XLA contracts
 `score + w * v` into one fused multiply-add, so each term here is folded
@@ -10,9 +10,11 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..config import SchedulerConfiguration, default_plugins
+from ..ops.commit import Product
 from ..ops.resources import _fma
 from .interfaces import CycleContext, PluginBase
 from .registry import Registry, default_registry
@@ -96,6 +98,63 @@ class Framework:
             if e is not None:
                 extra[p.name] = e
         return extra
+
+    def dyn(self, ctx: CycleContext, p, node_requested, extra, static_row):
+        """(mask [N], score [N]) of pod `p` (i32 0-d) against the running
+        state, at one scan step: the dynamic filters ANDed onto the static
+        row in filter order, then every dynamic score, fed the full
+        feasibility row, weighted and summed in score order (a
+        `commit.Product` when the sum is one bare product). (The
+        reference's per-filter reject counts belong to the full outputs,
+        ROADMAP A9; its latency program drops them.)
+
+        The sum follows the reference's compiled scan step, where the whole
+        step is one fused loop: each add takes a multiply feeding it into
+        a fused multiply-add — the running sum's when that is still a bare
+        product (a first term given as factors, a `commit.Product`,
+        with the weight folded into its constant), else the new term's (a
+        weight other than 1, or factors)."""
+        mask = static_row
+        for f in self.filters:
+            m = f.dyn_mask(ctx, p, node_requested, extra)
+            if m is not None:
+                mask = mask & m
+        acc, held = None, None  # the running sum; a bare product (x, c)
+        for s, w in self.scores:
+            v = s.dyn_score(ctx, p, node_requested, extra, mask)
+            if v is None:
+                continue
+            if isinstance(v, Product):
+                x, c = v.x, float(np.float32(v.c) * np.float32(w))
+            else:
+                x, c = (v, None) if w == 1.0 else (v, float(w))
+            if acc is None and held is None:
+                if c is None:
+                    acc = x
+                else:
+                    held = (x, c)
+            elif held is not None:
+                acc = _fma(held[0], held[1], x if c is None else x * c)
+                held = None
+            elif c is None:
+                acc = acc + x
+            else:
+                acc = _fma(x, c, acc)
+        if held is not None:  # one product: the static score's add fuses it
+            return mask, Product(*held)
+        if acc is None:
+            acc = torch.zeros((ctx.snap.N,), dtype=torch.float32,
+                              device=static_row.device)
+        return mask, acc
+
+    def extra_update(self, ctx: CycleContext, extra, p, node, committed):
+        """Fold one scan step into every stateful plugin's extra state."""
+        out = dict(extra)
+        for pl in self._stateful_plugins():
+            if pl.name in out:
+                out[pl.name] = pl.extra_update(ctx, out[pl.name], p, node,
+                                               committed)
+        return out
 
     def dyn_batched(self, ctx: CycleContext, node_requested, extra,
                     static_mask):

@@ -1,6 +1,9 @@
 """Inter-pod affinity and topology spread (`k8s_scheduler_tpu/ops/
-interpod.py`), batched form: the rounds engine evaluates every pending pod
-against the round-start state at once.
+interpod.py`) in two forms: batched, where the rounds engine evaluates
+every pending pod against the round-start state at once, and per step,
+where the scan engine evaluates one pod's [N] row against the state after
+every earlier placement (`affinity_dyn_mask` ... `spread_dyn_score`,
+`affinity_update`; the plain versions K13 `scan_commit` is held against).
 
 The state collapses to per-(selector, topology-domain) counts [S, D] plus
 per-selector node tables [S, N] for the symmetric checks; label selectors
@@ -142,6 +145,158 @@ def _flat_to_node(snap, flat, bool_mode: bool):
         else:
             out = out + torch.where(m, g, torch.zeros((), device=g.device))
     return out
+
+
+# --------------------------------------------------------------------------
+# per step (the scan engine): one pod p, an i32 0-d tensor, per call; every
+# index stays a tensor, so a step never synchronises with the host
+# --------------------------------------------------------------------------
+
+
+def take_row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """t[i] along dim 0 for a 0-d index tensor i."""
+    return t.index_select(0, i.reshape(1).long())[0]
+
+
+def _node_domain_match(snap, k, d) -> torch.Tensor:  # bool [N]
+    """Nodes whose k-domain is d (none when d < 0)."""
+    K = snap.node_domains.shape[1]
+    nd = take_row(snap.node_domains.T, k.clamp(0, K - 1))
+    return (nd == d) & (d >= 0)
+
+
+def _counts_at_nodes(snap, state: AffinityState, sel, k) -> torch.Tensor:
+    """counts[sel, domain(n, k)] for all nodes n; -1 where n lacks key k."""
+    S, D = state.counts.shape
+    K = snap.node_domains.shape[1]
+    nd = take_row(snap.node_domains.T, k.clamp(0, K - 1))  # [N]
+    row = take_row(state.counts, sel.clamp(0, S - 1))  # [D]
+    c = row[nd.clamp(0, D - 1).long()]
+    return torch.where(nd >= 0, c, torch.full((), -1.0, device=c.device))
+
+
+def affinity_dyn_mask(snap, state: AffinityState, m_pending, p) -> torch.Tensor:
+    """Required affinity (or its bootstrap) + anti-affinity + symmetric
+    anti for pod p: bool [N]."""
+    S = state.total.shape[0]
+    ok = torch.ones((snap.N,), dtype=torch.bool, device=snap.device)
+    aff = take_row(snap.pod_aff_terms, p)  # [MA, 2]
+    anti = take_row(snap.pod_anti_terms, p)
+    mp = take_row(m_pending.T, p)  # [S]
+    for a in range(aff.shape[0]):
+        sel, k = aff[a, 0], aff[a, 1]
+        c = _counts_at_nodes(snap, state, sel, k)
+        sc = sel.clamp(0, S - 1)
+        # bootstrap: nothing matches the selector anywhere and the pod
+        # matches its own selector -> the term is ignored
+        boot = (take_row(state.total, sc) == 0) & take_row(mp, sc)
+        ok = ok & torch.where(sel >= 0, boot | (c > 0), True)
+    for a in range(anti.shape[0]):
+        sel, k = anti[a, 0], anti[a, 1]
+        c = _counts_at_nodes(snap, state, sel, k)
+        # c == -1 (key absent) cannot be violated; c == 0 is fine
+        ok = ok & torch.where(sel >= 0, c <= 0, True)
+    # symmetric: placed pods' anti terms whose selector matches p
+    viol = (mp[:, None] & state.anti_presence).any(dim=0)
+    return ok & ~viol
+
+
+def affinity_dyn_score(snap, state: AffinityState, m_pending, p,
+                       feasible) -> torch.Tensor:
+    """Preferred-term score for pod p in [-100, 100]: w * count over its
+    terms plus the placed pods' weights toward it, normalised by max |raw|
+    over the feasible nodes. Every term is an integer-valued f32 far below
+    2^24, so the sums are exact in any order."""
+    zero = torch.zeros((), device=snap.device)
+    raw = torch.zeros((snap.N,), dtype=torch.float32, device=snap.device)
+    pref = take_row(snap.pod_pref_aff, p)
+    w = take_row(snap.pod_pref_aff_w, p)
+    for a in range(pref.shape[0]):
+        sel, k = pref[a, 0], pref[a, 1]
+        c = _counts_at_nodes(snap, state, sel, k)
+        raw = raw + torch.where((sel >= 0) & (c > 0), w[a] * c.clamp(min=0.0), zero)
+    raw = raw + take_row(m_pending.T, p).to(torch.float32) @ state.pref_sym
+    hi = torch.where(feasible, raw.abs(), zero).amax()
+    return torch.where(hi > 0, raw / hi * 100.0, zero)
+
+
+def affinity_update(snap, state: AffinityState, m_pending, p, node,
+                    committed) -> AffinityState:
+    """Pod p committed to `node` (when `committed`): fold it into counts,
+    total and, for its own anti and preferred terms, the node tables. New
+    tables; the input state is left as it was."""
+    K = snap.node_domains.shape[1]
+    S, D = state.counts.shape
+    zero = torch.zeros((), device=snap.device)
+    mp = torch.where(committed, take_row(m_pending.T, p).to(torch.float32), zero)  # [S]
+    node_dom = take_row(snap.node_domains, node)  # [K]
+    counts = state.counts.clone()
+    for k in range(K):
+        d = node_dom[k]
+        counts.index_add_(1, d.clamp(0, D - 1).reshape(1).long(),
+                          torch.where(d >= 0, mp, zero)[:, None])
+    total = state.total + mp
+    anti, pref = state.anti_presence, state.pref_sym
+    if not snap.has_inter_pod_affinity:
+        return AffinityState(counts, total, anti, pref)
+    anti, pref = anti.clone(), pref.clone()
+    anti_terms = take_row(snap.pod_anti_terms, p)
+    pref_terms = take_row(snap.pod_pref_aff, p)
+    pref_w = take_row(snap.pod_pref_aff_w, p)
+    for a in range(anti_terms.shape[0]):
+        sel, k = anti_terms[a, 0], anti_terms[a, 1]
+        row = (_node_domain_match(snap, k, node_dom[k.clamp(0, K - 1)])
+               & (sel >= 0) & committed)
+        si = sel.clamp(0, S - 1).reshape(1).long()
+        anti.index_copy_(0, si, (anti.index_select(0, si)[0] | row)[None])
+        sel2, k2 = pref_terms[a, 0], pref_terms[a, 1]
+        row2 = (_node_domain_match(snap, k2, node_dom[k2.clamp(0, K - 1)])
+                & (sel2 >= 0) & committed)
+        pref.index_add_(0, sel2.clamp(0, S - 1).reshape(1).long(),
+                        torch.where(row2, pref_w[a], zero)[None])
+    return AffinityState(counts, total, anti, pref)
+
+
+def _eligible_min(snap, row, k) -> torch.Tensor:
+    """Min of a [D] count row over the domains of key k that hold a node (0
+    when there is none)."""
+    inf = torch.full((), float("inf"), device=row.device)
+    eligible = (snap.domain_key == k) & (snap.domain_node_count > 0)
+    m = torch.where(eligible, row, inf).amin()
+    return torch.where(torch.isfinite(m), m, torch.zeros((), device=row.device))
+
+
+def spread_dyn_mask(snap, state: AffinityState, p) -> torch.Tensor:
+    """DoNotSchedule constraints of pod p: count(dom) + 1 - min over the
+    key's domains <= maxSkew; nodes missing the key fail. bool [N]."""
+    S = state.counts.shape[0]
+    ok = torch.ones((snap.N,), dtype=torch.bool, device=snap.device)
+    tsc = take_row(snap.pod_tsc, p)  # [MC, 3]
+    skews = take_row(snap.pod_tsc_skew, p)
+    for c in range(tsc.shape[0]):
+        k, sel, when = tsc[c, 0], tsc[c, 1], tsc[c, 2]
+        cnt = _counts_at_nodes(snap, state, sel, k)
+        minc = _eligible_min(snap, take_row(state.counts, sel.clamp(0, S - 1)), k)
+        viol = (cnt + 1.0 - minc > skews[c].to(torch.float32)) | (cnt < 0)
+        hard = (k >= 0) & (when == enc.WHEN_DO_NOT_SCHEDULE)
+        ok = ok & torch.where(hard, ~viol, True)
+    return ok
+
+
+def spread_dyn_score(snap, state: AffinityState, p, feasible) -> torch.Tensor:
+    """ScheduleAnyway constraints of pod p: raw = the summed counts of its
+    node's domains, (1 - raw / max raw over feasible nodes) * 100."""
+    zero = torch.zeros((), device=snap.device)
+    raw = torch.zeros((snap.N,), dtype=torch.float32, device=snap.device)
+    tsc = take_row(snap.pod_tsc, p)
+    for c in range(tsc.shape[0]):
+        k, sel, when = tsc[c, 0], tsc[c, 1], tsc[c, 2]
+        cnt = _counts_at_nodes(snap, state, sel, k)
+        soft = (k >= 0) & (when == enc.WHEN_SCHEDULE_ANYWAY)
+        raw = raw + torch.where(soft, cnt.clamp(min=0.0), zero)
+    hi = torch.where(feasible, raw, zero).amax()
+    return torch.where(hi > 0, (1.0 - raw / hi) * 100.0,
+                       torch.full((), 100.0, device=raw.device))
 
 
 def counts_by_node(snap, state: AffinityState) -> torch.Tensor:

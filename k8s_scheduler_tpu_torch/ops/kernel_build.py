@@ -44,13 +44,14 @@ CUDA_KERNELS: dict[str, tuple[str, ...]] = {
     "volume_mask": ("--fmad=false",),
     "pv_choice": ("--fmad=false",),
     "pv_fold": ("--fmad=false",),
+    "scan_commit": ("--fmad=false",),
 }
 
 launch_counts: dict[str, int] = {
     "static_base": 0, "claim_pass": 0, "interpod_terms": 0, "interpod_norm": 0,
     "affinity_update": 0, "capacity": 0, "guard_sweep": 0,
     "preempt_prefilter": 0, "preempt_whatif": 0, "preempt_claim": 0,
-    "volume_mask": 0, "pv_choice": 0, "pv_fold": 0,
+    "volume_mask": 0, "pv_choice": 0, "pv_fold": 0, "scan_commit": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build

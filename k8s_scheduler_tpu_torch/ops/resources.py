@@ -112,6 +112,19 @@ def balanced_allocation_score(
     """NodeResourcesBalancedAllocation: (1 - std(fractions)) * 100 over the
     participating resources (plain sums: the reference's masked reduction
     is not contracted)."""
+    return balanced_allocation_factor(
+        pod_requested, node_allocatable, node_requested, resource_weights
+    ) * MAX_NODE_SCORE
+
+
+def balanced_allocation_factor(
+    pod_requested: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    node_requested: torch.Tensor,
+    resource_weights: Sequence[float],
+) -> torch.Tensor:
+    """1 - std(fractions): the balanced-allocation score before its final
+    multiply by 100."""
     frac = torch.clamp(
         _used_fraction(pod_requested, node_allocatable, node_requested), 0.0, 1.0
     )
@@ -129,4 +142,4 @@ def balanced_allocation_score(
     # sqrt through f64: correctly rounded on every backend (the CPU f32
     # kernel is not)
     std = torch.sqrt((var / n).double()).float()
-    return (1.0 - std) * MAX_NODE_SCORE
+    return 1.0 - std

@@ -1,0 +1,335 @@
+"""K13 `scan_commit`: the scan engine's whole sequential commit in one
+launch.
+
+Reference: `k8s_scheduler_tpu/ops/commit.py:63 greedy_commit` (a
+`lax.scan` over the priority-ordered pending set) with the default plugin
+set's per-pod hooks (`framework/plugins.py`, `ops/interpod.py:151-315`,
+`ops/resources.py`), minus VolumeBinding's (ROADMAP A8b).
+
+`scan_commit_inputs` packs the operands once per cycle: the static base
+from K1, the rank order, the per-pod terms, the running state (requested
+resources, the host-port bitmap, the affinity state) and two short lists
+the kernel walks instead of dense tables — each pod's matched selectors
+(from `matched_pending` [S, P]) and each topology key's domains that hold
+a node. `scan_commit_plain` runs the same contract through
+`commit.greedy_commit` with the framework's per-pod hooks;
+`scan_commit_cuda` launches csrc/scan_commit.cu: one persistent block of
+1024 threads runs every step, each thread owning N / 1024 nodes, with
+block reductions for the spread minimum, the normalisation maxima and the
+first-index argmax, and the step's commit applied in device memory.
+`scan_commit` picks the kernel for CUDA tensors and the plain version for
+CPU ones. Latency-bound on an H100: P dependent steps in one block."""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..framework.plugins import _score_resource_weights
+from . import interpod as ip
+from .commit import CommitResult, greedy_commit
+from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
+                           raise_on_error, stream_of)
+from .resources import MAX_NODE_SCORE, fit_slack
+from .static_base import _overrides
+
+NEG_INF = -1e9
+EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
+# csrc/scan_commit.cu limits (kMax*)
+MAX_RESOURCES, MAX_PORTS, MAX_TERMS, MAX_CONSTRAINTS, MAX_KEYS = 8, 8, 8, 8, 8
+MAX_NODES = 16 * 1024  # 8 bytes of shared memory per node, one bit per node a thread
+
+# flag bits and score-term codes (csrc/scan_commit.cu mirrors these)
+F_PORTS, F_FIT, F_AFFINITY, F_SPREAD, F_PORT_STATE, F_STATE, F_TABLES, F_MOST = (
+    1, 2, 4, 8, 16, 32, 64, 128
+)
+T_FIT, T_BALANCED, T_AFFINITY, T_SPREAD = 1, 2, 3, 4
+
+# the plugins whose per-pod hooks the kernel implements
+_COVERED = ("NodePorts", "NodeResourcesFit", "NodeResourcesBalancedAllocation",
+            "InterPodAffinity", "PodTopologySpread")
+_PER_POD_HOOKS = ("dyn_mask", "dyn_score", "extra_update")
+
+
+@dataclasses.dataclass
+class ScanInputs:
+    """Everything one scan commit reads. The tensors are the kernel's
+    operands; `fw`, `ctx` and `extra` let the plain version run the
+    framework's own hooks on the same cycle."""
+
+    fw: Any
+    ctx: Any
+    extra: dict  # the framework's initial extra state
+    flags: int
+    terms: tuple[tuple[int, float], ...]  # (term code, weight), score order
+    fit_w100: tuple[float, ...]  # [R] f32(w) * f32(100) of the fit score
+    fit_wsum: float
+    bal_cols: tuple[bool, ...]  # [R] resources BalancedAllocation averages
+    sbase: torch.Tensor  # f32 [P, N] static base (K1)
+    order: torch.Tensor  # i32 [P] pod at each rank
+    pod_valid: torch.Tensor  # bool [P]
+    pod_nominated: torch.Tensor  # i32 [P]
+    pod_requested: torch.Tensor  # f32 [P, R]
+    node_allocatable: torch.Tensor  # f32 [N, R]
+    node_requested: torch.Tensor  # f32 [N, R] at cycle start
+    slack: torch.Tensor  # f32 [N, R] fit slack
+    pod_port_ids: torch.Tensor  # i32 [P, MP]
+    ports: torch.Tensor  # bool [N, Q] host ports claimed this cycle
+    state: ip.AffinityState  # counts [S, D], total [S], anti [S, N], pref [S, N]
+    aff_terms: torch.Tensor  # i32 [P, MA, 2] (selector, key)
+    aff_self: torch.Tensor  # bool [P, MA] the pod matches the term's selector
+    anti_terms: torch.Tensor  # i32 [P, MA, 2]
+    pref_terms: torch.Tensor  # i32 [P, MA, 2]
+    pref_w: torch.Tensor  # f32 [P, MA]
+    tsc: torch.Tensor  # i32 [P, MC, 3] (key, selector, when)
+    tsc_skew: torch.Tensor  # i32 [P, MC]
+    node_domains: torch.Tensor  # i32 [N, K]
+    dom_ptr: torch.Tensor  # i32 [K + 1] CSR of each key's domains with a node
+    dom_list: torch.Tensor  # i32 [nd]
+    sel_ptr: torch.Tensor  # i32 [P + 1] CSR of each pod's matched selectors
+    sel_list: torch.Tensor  # i32 [nnz]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.sbase.shape)
+
+
+@dataclasses.dataclass
+class ScanResult:
+    assignment: torch.Tensor  # i32 [P] node or -1
+    node_requested: torch.Tensor  # f32 [N, R] after the commit
+    ports: torch.Tensor  # bool [N, Q]
+    state: ip.AffinityState  # the affinity state after the commit
+
+
+def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int):
+    """(ptr i32 [n_rows + 1], cols i32) of (row, col) pairs sorted by row."""
+    counts = torch.bincount(rows, minlength=n_rows)
+    ptr_ = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+    ptr_[1:] = torch.cumsum(counts, 0)
+    return ptr_.to(torch.int32), cols.to(torch.int32).contiguous()
+
+
+def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict) -> ScanInputs:
+    """Pack one cycle's scan operands. `sbase` is K1's static base (fit
+    against the cycle-start state folded in: node_requested only grows
+    during the scan, so that is the dynamic fit test's first step);
+    `extra` is `fw.extra_init(ctx)`. A plugin with per-pod hooks that the
+    kernel does not implement raises NotImplementedError."""
+    snap = ctx.snap
+    dev = snap.device
+    P, N = snap.P, snap.N
+    for pl in fw.filters + [s for s, _ in fw.scores]:
+        if pl.name not in _COVERED and any(_overrides(pl, h) for h in _PER_POD_HOOKS):
+            raise NotImplementedError(
+                f"plugin {pl.name!r}: its per-pod hooks are not in scan_commit")
+    names = {f.name for f in fw.filters}
+    flags = 0
+    if "NodePorts" in names:
+        flags |= F_PORTS
+    if "NodeResourcesFit" in names:
+        flags |= F_FIT
+    if "InterPodAffinity" in names and snap.has_inter_pod_affinity:
+        flags |= F_AFFINITY
+    if "PodTopologySpread" in names and snap.has_topology_spread:
+        flags |= F_SPREAD
+    if "NodePorts" in extra:
+        flags |= F_PORT_STATE
+    state = next((v for v in extra.values() if isinstance(v, ip.AffinityState)), None)
+    if state is not None:
+        flags |= F_STATE
+        if snap.has_inter_pod_affinity:
+            flags |= F_TABLES
+    R = snap.node_allocatable.shape[1]
+    terms, fit_w100, fit_wsum, bal_cols = [], [0.0] * R, 1.0, [False] * R
+    for s, w in fw.scores:
+        if s.name == "NodeResourcesFit":
+            wr = _score_resource_weights(snap, s.args)
+            fit_w100 = [float(np.float32(v) * np.float32(MAX_NODE_SCORE)) for v in wr]
+            fit_wsum = max(float(np.float32(sum(wr))), 1e-9)
+            if s.args.get("scoring_strategy", "LeastAllocated") == "MostAllocated":
+                flags |= F_MOST
+            terms.append((T_FIT, float(w)))
+        elif s.name == "NodeResourcesBalancedAllocation":
+            bal_cols = [v > 0 for v in _score_resource_weights(snap, s.args)]
+            terms.append((T_BALANCED, float(w)))
+        elif s.name == "InterPodAffinity" and snap.has_inter_pod_affinity:
+            terms.append((T_AFFINITY, float(w)))
+        elif s.name == "PodTopologySpread" and snap.has_topology_spread:
+            terms.append((T_SPREAD, float(w)))
+
+    i32 = torch.int32
+    if state is None:  # nothing reads the tables; keep every operand well-formed
+        S, D = 1, max(int(snap.domain_key.shape[0]), 1)
+        state = ip.AffinityState(
+            torch.zeros((S, D), device=dev), torch.zeros((S,), device=dev),
+            torch.zeros((S, N), dtype=torch.bool, device=dev),
+            torch.zeros((S, N), device=dev))
+        mp = torch.zeros((S, P), dtype=torch.bool, device=dev)
+    else:
+        mp = ctx.matched_pending
+    S = state.counts.shape[0]
+    pods, sels = torch.nonzero(mp.T, as_tuple=True)  # sorted by pod, then selector
+    sel_ptr, sel_list = _csr(pods, sels, P)
+    K = snap.node_domains.shape[1]
+    elig = torch.nonzero(snap.domain_node_count > 0, as_tuple=True)[0]
+    keys = snap.domain_key[elig].long()
+    in_range = (keys >= 0) & (keys < K)
+    keys, elig = keys[in_range], elig[in_range]
+    by_key = torch.argsort(keys, stable=True)
+    dom_ptr, dom_list = _csr(keys[by_key], elig[by_key], K)
+    aff = snap.pod_aff_terms
+    pid = torch.arange(P, device=dev)[:, None]
+    aff_self = (aff[..., 0] >= 0) & mp[aff[..., 0].clamp(0, S - 1).long(), pid]
+    ports = extra.get("NodePorts")
+    if ports is None:
+        ports = torch.zeros((N, max(int(snap.num_distinct_ports), 1)),
+                            dtype=torch.bool, device=dev)
+    return ScanInputs(
+        fw=fw, ctx=ctx, extra=extra, flags=flags, terms=tuple(terms),
+        fit_w100=tuple(fit_w100), fit_wsum=fit_wsum, bal_cols=tuple(bal_cols),
+        sbase=sbase, order=torch.argsort(snap.pod_order, stable=True).to(i32),
+        pod_valid=snap.pod_valid, pod_nominated=snap.pod_nominated,
+        pod_requested=snap.pod_requested, node_allocatable=snap.node_allocatable,
+        node_requested=snap.node_requested, slack=fit_slack(snap.node_allocatable),
+        pod_port_ids=snap.pod_port_ids, ports=ports, state=state,
+        aff_terms=aff, aff_self=aff_self, anti_terms=snap.pod_anti_terms,
+        pref_terms=snap.pod_pref_aff, pref_w=snap.pod_pref_aff_w,
+        tsc=snap.pod_tsc, tsc_skew=snap.pod_tsc_skew,
+        node_domains=snap.node_domains, dom_ptr=dom_ptr, dom_list=dom_list,
+        sel_ptr=sel_ptr, sel_list=sel_list,
+    )
+
+
+def _result(x: ScanInputs, res: CommitResult) -> ScanResult:
+    state = next((v for v in res.extra.values() if isinstance(v, ip.AffinityState)),
+                 x.state)
+    return ScanResult(res.assignment, res.node_requested,
+                      res.extra.get("NodePorts", x.ports), state)
+
+
+def scan_commit_plain(x: ScanInputs) -> ScanResult:
+    """The kernel's function through `greedy_commit` and the framework's
+    per-pod hooks (`Framework.dyn`, `Framework.extra_update`)."""
+    fw, ctx = x.fw, x.ctx
+    res = greedy_commit(
+        order=x.order, static_mask=x.sbase > NEG_INF / 2, static_score=x.sbase,
+        pod_requested=x.pod_requested, pod_valid=x.pod_valid,
+        pod_nominated=x.pod_nominated, node_requested=x.node_requested,
+        dyn_fn=lambda p, nr, ext, row: fw.dyn(ctx, p, nr, ext, row),
+        extra=x.extra,
+        update_fn=lambda ext, p, node, ok: fw.extra_update(ctx, ext, p, node, ok),
+    )
+    return _result(x, res)
+
+
+def exact_range_bound(x: ScanInputs) -> float:
+    """An upper bound on every integer-valued f32 the scan forms (counts,
+    totals, preferred weights and the raw affinity and spread sums): the
+    kernel's sums are exact in any order below 2^24."""
+    st = x.state
+    nv = float(x.pod_valid.sum())
+    MA = x.pref_terms.shape[1]
+    MC = x.tsc.shape[1]
+    maxw = float(x.pref_w.abs().max()) if x.pref_w.numel() else 0.0
+    maxc = (float(st.counts.max()) if st.counts.numel() else 0.0) + nv
+    maxpref = (float(st.pref_sym.abs().max()) if st.pref_sym.numel() else 0.0) + nv * MA * maxw
+    per_pod = x.sel_ptr[1:] - x.sel_ptr[:-1]
+    nsel = float(per_pod.max()) if per_pod.numel() else 0.0
+    return max(maxc, float(st.total.max()) + nv if st.total.numel() else 0.0,
+               MA * maxw * maxc + nsel * maxpref, MC * maxc)
+
+
+_ARGTYPES = (
+    [ctypes.c_int] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+    + [ctypes.c_float] * MAX_RESOURCES + [ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_void_p] * 28
+)
+
+
+def _library():
+    lib = load_cuda_library("scan_commit")
+    if lib.scan_commit_launch.argtypes is None:
+        lib.scan_commit_launch.argtypes = _ARGTYPES
+        lib.scan_commit_launch.restype = ctypes.c_int
+    return lib
+
+
+def scan_commit_cuda(x: ScanInputs) -> ScanResult:
+    """Launch csrc/scan_commit.cu on the current stream."""
+    k = "scan_commit"
+    P, N = x.shape
+    R = x.pod_requested.shape[1]
+    MP = x.pod_port_ids.shape[1]
+    MA = x.aff_terms.shape[1]
+    MC = x.tsc.shape[1]
+    K = x.node_domains.shape[1]
+    S, D = x.state.counts.shape
+    Q = x.ports.shape[1]
+    dev = x.sbase.device
+    if (R > MAX_RESOURCES or MP > MAX_PORTS or MA > MAX_TERMS or MC > MAX_CONSTRAINTS
+            or K > MAX_KEYS or N > MAX_NODES or len(x.terms) > 4):
+        raise ValueError(
+            f"scan_commit: R={R} MP={MP} MA={MA} MC={MC} K={K} N={N} terms="
+            f"{len(x.terms)} over the kernel's limits ({MAX_RESOURCES}, {MAX_PORTS}, "
+            f"{MAX_TERMS}, {MAX_CONSTRAINTS}, {MAX_KEYS}, {MAX_NODES}, 4)")
+    if x.flags & F_STATE and exact_range_bound(x) >= EXACT_F32:
+        raise ValueError("scan_commit: affinity counts or weights reach 2^24, where "
+                         "the kernel's f32 sums stop being exact")
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    keep = [
+        checked(k, x.sbase, f32, (P, N), dev),
+        checked(k, x.order, i32, (P,), dev),
+        checked(k, x.pod_valid, b8, (P,), dev),
+        checked(k, x.pod_nominated, i32, (P,), dev),
+        checked(k, x.pod_requested, f32, (P, R), dev),
+        checked(k, x.node_allocatable, f32, (N, R), dev),
+        checked(k, x.slack, f32, (N, R), dev),
+        checked(k, x.pod_port_ids, i32, (P, MP), dev),
+        checked(k, x.aff_terms, i32, (P, MA, 2), dev),
+        checked(k, x.aff_self, b8, (P, MA), dev),
+        checked(k, x.anti_terms, i32, (P, MA, 2), dev),
+        checked(k, x.pref_terms, i32, (P, MA, 2), dev),
+        checked(k, x.pref_w, f32, (P, MA), dev),
+        checked(k, x.tsc, i32, (P, MC, 3), dev),
+        checked(k, x.tsc_skew, i32, (P, MC), dev),
+        checked(k, x.node_domains, i32, (N, K), dev),
+        checked(k, x.dom_ptr, i32, (K + 1,), dev),
+        checked(k, x.dom_list, i32, (x.dom_list.shape[0],), dev),
+        checked(k, x.sel_ptr, i32, (P + 1,), dev),
+        checked(k, x.sel_list, i32, (x.sel_list.shape[0],), dev),
+    ]
+    # outputs: copies of the carried state, updated in place by the kernel
+    assignment = torch.empty(P, dtype=i32, device=dev)
+    node_req = checked(k, x.node_requested, f32, (N, R), dev).clone()
+    ports = checked(k, x.ports, b8, (N, Q), dev).clone()
+    st = x.state
+    counts = checked(k, st.counts, f32, (S, D), dev).clone()
+    total = checked(k, st.total, f32, (S,), dev).clone()
+    anti = checked(k, st.anti_presence, b8, (S, N), dev).clone()
+    pref = checked(k, st.pref_sym, f32, (S, N), dev).clone()
+    terms = list(x.terms) + [(0, 0.0)] * (4 - len(x.terms))
+    w100 = list(x.fit_w100) + [0.0] * (MAX_RESOURCES - R)
+    bal_mask = sum(1 << r for r, on in enumerate(x.bal_cols) if on)
+    err = _library().scan_commit_launch(
+        P, N, R, MP, MA, MC, K, S, D, Q, x.flags,
+        *[t for t, _ in terms], *[w for _, w in terms],
+        *w100, x.fit_wsum, bal_mask,
+        *[ptr(t) for t in keep],
+        ptr(assignment), ptr(node_req), ptr(ports), ptr(counts), ptr(total),
+        ptr(anti), ptr(pref), stream_of(dev),
+    )
+    raise_on_error(k, err)
+    count_launch(k)
+    return ScanResult(assignment, node_req, ports,
+                      ip.AffinityState(counts, total, anti, pref))
+
+
+def scan_commit(x: ScanInputs) -> ScanResult:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = scan_commit_cuda if x.sbase.device.type == "cuda" else scan_commit_plain
+    return fn(x)

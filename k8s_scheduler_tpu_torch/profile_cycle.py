@@ -2,10 +2,12 @@
 BASELINE config #4's workload (`utils.synth.config4_workload`, the
 workload of chip_smoke.py's phases affinity and preemption: inter-pod
 affinity and spread on both sides, 10000 pending x 5000 nodes x 12000
-running) and of the same workload with local and zonal volumes
-(`utils.synth.config4_volumes`, chip_smoke.py's phase volumes), each cycle
-followed by DefaultPreemption (`build_preemption_fn`) on its decision, as
-a serving host runs them.
+running), of the same workload with local and zonal volumes
+(`utils.synth.config4_volumes`, chip_smoke.py's phase volumes), and of
+config #4's workload through the scan engine (`build_cycle_fn(commit_mode=
+"scan")`, chip_smoke.py's phase scan), each cycle followed by
+DefaultPreemption (`build_preemption_fn`) on its decision, as a serving
+host runs them.
 
     python3 -m k8s_scheduler_tpu_torch.profile_cycle [--cycles 2] [--out PATH]
 
@@ -83,14 +85,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     seeds = tuple(range(201, 202 + args.cycles))
     nodes, existing, pending = synth.config4_workload(seeds)
-    cycle = build_cycle_fn(device=dev)
+    cycles = {"config4": build_cycle_fn(device=dev),
+              "volumes": build_cycle_fn(device=dev),
+              "scan": build_cycle_fn(commit_mode="scan", device=dev)}
     preempt = build_preemption_fn(device=dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     lines = [f"card: {smi}"]
-    for wl in ("config4", "volumes"):
+    for wl, cycle in cycles.items():
         enc = SnapshotEncoder(device=dev)
         snaps = []
         for s in seeds:
@@ -107,7 +111,8 @@ def main(argv=None) -> int:
         c_wall, c_names, c_launch = _profile(
             lambda s: decisions.append(cycle(s)), [(s,) for s in snaps[1:]])
         p_wall, p_names, p_launch = _profile(preempt, list(zip(snaps[1:], decisions)))
-        extra = " with local and zonal volumes" if wl == "volumes" else ""
+        extra = {"config4": "", "volumes": " with local and zonal volumes",
+                 "scan": " through the scan engine"}[wl]
         lines += [
             f"workload: config #4{extra} (10000 pending x 5000 nodes, 12000 running), "
             f"seeds {list(seeds[1:])}",

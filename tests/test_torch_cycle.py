@@ -128,8 +128,9 @@ def test_cycle_bit_equal_to_reference(case):
 def test_cycle_raises_on_uncovered_features(feature):
     """A snapshot with a volume claim now schedules through VolumeBinding,
     bit-equal to the reference; what the port does not cover with volumes
-    either — the scan engine (ROADMAP A8) and the full outputs with their
-    claim bitmap (A9) — raises instead of scheduling."""
+    either — the scan engine's per-pod VolumeBinding hooks (ROADMAP A8b)
+    and the full outputs with their claim bitmap (A9) — raises instead of
+    scheduling."""
     from k8s_scheduler_tpu.models.api import (PersistentVolume,
                                               PersistentVolumeClaim, StorageClass)
 
@@ -154,8 +155,8 @@ def test_cycle_raises_on_uncovered_features(feature):
     # bound: placed on any node (the PV has no affinity); unbound Immediate
     # claim: unschedulable
     assert (int(got.assignment[0]) >= 0) == bound
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build_cycle_fn(commit_mode="scan", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+        build_cycle_fn(commit_mode="scan", device="cpu")(port_snap)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         build_cycle_fn(outputs="full", device="cpu")
 

@@ -172,7 +172,8 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert set(kernel_build.launch_counts) == {
         "static_base", "claim_pass", "interpod_terms", "interpod_norm",
         "affinity_update", "capacity", "guard_sweep", "preempt_prefilter",
-        "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold"}
+        "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold",
+        "scan_commit"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
 
