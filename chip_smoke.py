@@ -32,7 +32,10 @@ Phases:
                 checked (capacity, static masks, unplaced => infeasible),
                 launch counts read around them;
   4. affinity — the same on config #4's workload, with K3-K6 held against
-                their plain versions at full size (bit-equal), and each
+                their plain versions at full size (bit-equal; K3 also on a
+                preferred / ScheduleAnyway variant), a cycle under resource
+                scores over three resources against its plain-versions
+                cycle, and each
                 timed placement also checked for anti-affinity (both
                 directions), required affinity or its bootstrap, and
                 DoNotSchedule skew at the round each pod was placed in;
@@ -57,7 +60,8 @@ Phases:
                 the pending set cut to its first 2048 pods and given
                 preferred terms, ScheduleAnyway constraints, nominated
                 nodes and host ports (also under a profile whose one
-                dynamic score is BalancedAllocation), three timed cycles with
+                dynamic score is BalancedAllocation, and under resource
+                scores over three resources, and over four on 512 pods), three timed cycles with
                 one K13 launch each whose placements are checked (capacity,
                 static masks; anti-affinity both ways, required affinity or
                 its bootstrap and DoNotSchedule skew, each at the pod's own
@@ -75,8 +79,8 @@ Phases:
                 PVCs): the kernels' cycle equal to the plain-versions
                 cycle, K1 `static_base` with VolumeBinding's static
                 mask as its operand equal to its plain version at full
-                size, K10 `volume_mask` (static and unbound), K11
-                `pv_choice` and K12 `pv_fold` each equal to its plain
+                size, K3 `interpod_terms`, K10 `volume_mask` (static and
+                unbound), K11 `pv_choice` and K12 `pv_fold` each equal to its plain
                 version on round 0's inputs (K12 also on a contended batch
                 that takes several passes), three timed cycles whose
                 placements are checked as in the affinity phase and for
@@ -107,8 +111,8 @@ import time
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 (non-tensor)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-STATIC_BASE_TOL = 1e-3  # max |kernel - plain| of the static base (target 0)
 SCAN_CUT = 2048  # pending pods of the scan kernel's variant comparisons
+RESOURCES_3 = ("cpu", "memory", "ephemeral-storage")  # a weight sum of 3
 N_NODES, N_EXISTING, N_PENDING = 5000, 12000, 10000
 WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
 AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
@@ -215,6 +219,16 @@ class Recorder:
         return self.last
 
 
+def resource_profile(resources):
+    """The default profile with NodeResourcesFit and BalancedAllocation
+    scoring `resources`."""
+    from k8s_scheduler_tpu_torch.config import Profile, SchedulerConfiguration
+
+    args = {"score_resources": tuple(resources)}
+    return SchedulerConfiguration(profiles=[Profile(plugin_config={
+        "NodeResourcesFit": args, "NodeResourcesBalancedAllocation": args})])
+
+
 def preferred_variant(torch, snap, gen):
     """`snap` with preferred inter-pod terms (the pod's first required
     affinity term, and in 30% of pods that term again as a duplicate slot,
@@ -231,8 +245,10 @@ def preferred_variant(torch, snap, gen):
     tsc = snap.pod_tsc.clone()
     tsc[..., 2] = torch.where(soft, enc_mod.WHEN_SCHEDULE_ANYWAY, tsc[..., 2])
     w = torch.randint(-100, 101, snap.pod_pref_aff_w.shape, generator=gen, device=dev)
+    bound_ = enc_mod.pref_raw_bound(pref.cpu(), w.float().cpu(), tsc.cpu(),
+                                    snap.exist_pref_aff.cpu(), snap.exist_pref_aff_w.cpu())
     return dataclasses.replace(snap, pod_pref_aff=pref, pod_tsc=tsc,
-                               pod_pref_aff_w=w.float())
+                               pod_pref_aff_w=w.float(), pref_raw_bound=bound_)
 
 
 def scan_variant(torch, snap, gen):
@@ -887,15 +903,15 @@ def volume_kinds(torch, snap) -> dict:
 
 
 def compare_static_base(torch, sb, x):
-    """K1 against its plain version on the inputs x: the masks equal, the
-    gap within STATIC_BASE_TOL. Returns (True, max |kernel - plain|)."""
+    """K1 against its plain version on the inputs x: the masks and every
+    value bit-equal. Returns (True, max |kernel - plain|)."""
     k_out = sb.static_base_cuda(x)
     p_out = sb.static_base_plain(x)
     mask_equal = torch.equal(k_out > sb.NEG_INF / 2, p_out > sb.NEG_INF / 2)
     k1_err = float((k_out - p_out).abs().max())
     check(mask_equal, "static_base mask differs from its plain version")
-    check(k1_err <= STATIC_BASE_TOL,
-          f"static_base max|kernel - plain| {k1_err} > {STATIC_BASE_TOL}")
+    check(torch.equal(k_out, p_out),
+          f"static_base differs from its plain version (max |err| {k1_err})")
     return mask_equal, k1_err
 
 
@@ -950,10 +966,11 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     # ---- the kernels' cycle against the plain-versions cycle ----
     rec = {"volume_mask": Recorder(vol.volume_mask_plain, keep=(0, 1)),  # static, round 0
            "pv_choice": Recorder(vol.pv_choice_plain),
-           "pv_fold": Recorder(vol.pv_fold_plain)}
+           "pv_fold": Recorder(vol.pv_fold_plain),
+           "interpod_terms": Recorder(ipt.interpod_terms_plain)}
     cycle_vp = build_cycle_fn(
         device=dev, static_base_fn=sb.static_base_plain, claim_pass_fn=cp.claim_pass_plain,
-        interpod_terms_fn=ipt.interpod_terms_plain, interpod_norm_fn=ipt.interpod_norm_plain,
+        interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=ipt.interpod_norm_plain,
         affinity_update_fn=au.affinity_update_plain, capacity_fn=cap.capacity_plain,
         guard_sweep_fn=gs.guard_sweep_plain, volume_mask_fn=rec["volume_mask"],
         pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"])
@@ -984,9 +1001,17 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         "masked by VolumeBinding")
     del x
 
-    # ---- K10-K12 against their plain versions on round 0's inputs ----
+    # ---- K3, K10-K12 against their plain versions on round 0's inputs ----
     for k, r in rec.items():
         check(set(r.args) == r.keep, f"{k}: inputs were not recorded ({sorted(r.args)})")
+    t_args = rec["interpod_terms"].args[0]
+    tk, tp = ipt.interpod_terms_cuda(*t_args), ipt.interpod_terms_plain(*t_args)
+    check(all((x is None) == (y is None) and (x is None or torch.equal(x, y))
+              for x, y in ((getattr(tk, f), getattr(tp, f)) for f in
+                           ("aff_mask", "aff_raw", "spread_mask", "spread_raw"))),
+          "interpod_terms differs from its plain version on the volume workload")
+    log(f"phase volumes kernel interpod_terms: [{t_args[0].P}, {N}] round 0, equal True")
+    del t_args, tk, tp
     s_args, u_args = rec["volume_mask"].args[0], rec["volume_mask"].args[1]
     check(s_args[3] is False and u_args[3] is True, "volume_mask calls out of order")
     tables = s_args[1]
@@ -1013,7 +1038,9 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"{k10_ms:.3f} ms static, {k10u_ms:.3f} ms unbound; plain {k10_plain:.3f} / "
         f"{k10u_plain:.3f} ms; dense count product [{P}, {V}] x [{V}, {N}] f32 "
         f"{k10_lib:.3f} ms; bound {bound(k10_bytes, k10_ops)[0]:.4f} ms; {walkers} pods "
-        f"walk {L} node-list entries + {G} global PVs")
+        f"walk {L} node-list entries (mean {L / N_NODES:.2f} a node) + G = {G} global "
+        f"PVs; {int((snap0.pod_vol_mode >= 0).any(dim=1).sum())} of "
+        f"{int(snap0.pod_valid.sum())} pods with a volume slot")
 
     c_args = rec["pv_choice"].args[0]
     csnap, _, cclaimed, cnode, clive = c_args
@@ -1234,6 +1261,8 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
                plain_kernels):
     """Phase 6 (module docstring). Returns {"kernels": entries, "ms": [...],
     "pre_ms": [...]}."""
+    import numpy as np
+
     from k8s_scheduler_tpu_torch.core.cycle import (_preemption_gate_rows, build_cycle_fn,
                                                     build_preemption_fn, sampling_window)
     from k8s_scheduler_tpu_torch.config import (PluginSet, Plugins, Profile,
@@ -1322,7 +1351,18 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     xb = packed(vsnap, Framework.from_config(bal))
     check(xb.terms == ((sc.T_BALANCED, 1.0),), "the lone-product profile packs other terms")
     kernel_vs_plain(xb, "variant, BalancedAllocation the one dynamic score")
-    del xv, xb, rv, vsnap, snap_cut
+    # resource scores averaged over three resources (the reciprocal of the
+    # weight sum and of the resource count) and, on the first 512 of those
+    # pods, over all four (the sum of rounded products, the fused variance)
+    vsnap512 = scan_variant(torch, SnapshotEncoder(device=dev).encode(
+        nodes, pending[seed][:512], existing), torch.Generator(device=dev).manual_seed(11))
+    for res, vs in ((RESOURCES_3, vsnap), (RESOURCES_3 + ("pods",), vsnap512)):
+        xr = packed(vs, Framework.from_config(resource_profile(res)))
+        check(xr.fit_rwsum == xr.bal_rn == float(np.float32(1) / np.float32(len(res))),
+              "the resource-mean profile packs other constants")
+        kernel_vs_plain(xr, f"variant ({int(vs.pod_valid.sum())} pods), resource scores "
+                            f"over {', '.join(res)}")
+    del xv, xb, xr, rv, vsnap, vsnap512, snap_cut
 
     # the scan main path: counts set to 0 just before, read just after
     results, launches = timed_cycles(torch, kb, cycle_s, snaps, AFF_TIMED_SEEDS)
@@ -1617,6 +1657,23 @@ def main() -> int:
     check(all(same.values()), "affinity kernel cycle differs from the plain-versions cycle")
     decisions = {AFF_WARM_SEED: dk}
     del dp
+    # resource scores averaged over three resources (a weight sum whose
+    # reciprocal is inexact): the kernels' cycle against the plain versions'
+    fw3 = Framework.from_config(resource_profile(RESOURCES_3))
+    d3k = build_cycle_fn(fw3, device=dev)(snap0)
+    d3p = build_cycle_fn(
+        fw3, device=dev, static_base_fn=sb.static_base_plain,
+        claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
+        interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
+        capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain)(snap0)
+    same3 = same_decisions(torch, d3k, d3p)
+    log(f"phase affinity e2e-parity, resource scores over {', '.join(RESOURCES_3)}: placed "
+        f"{int((d3k.assignment >= 0).sum())} (default profile "
+        f"{int((dk.assignment >= 0).sum())}), {int((d3k.assignment != dk.assignment).sum())} "
+        f"placements differ from the default profile's; kernels == plain: {json.dumps(same3)}")
+    check(all(same3.values()), "the three-resource kernel cycle differs from the plain-versions "
+          "cycle")
+    del d3k, d3p, fw3
 
     # ---- K3-K6 against their plain versions on round-0 inputs ----
     def equal_outputs(a, b):
@@ -1655,9 +1712,12 @@ def main() -> int:
                 + nbytes(out_k.aff_mask, out_k.aff_raw, out_k.spread_mask, out_k.spread_raw))
     k3_ops = 2 * 2 * n_match * N + 3 * n_terms * N  # sparse symmetric sums + term tests
     log(f"phase kernel interpod_terms: [{B3}, {N}] equal {k3_equal}; wrapper "
-        f"{k3_ms:.3f} ms (of which the two symmetric matmuls {k3_sym_ms:.3f} ms), "
+        f"{k3_ms:.3f} ms (before the fused symmetric sums: 7.680 ms, PERF.md kernel "
+        f"table B5), the two symmetric matmuls it no longer runs {k3_sym_ms:.3f} ms, "
         f"plain {k3_plain_ms:.3f} ms, bound {bound(k3_bytes, k3_ops)[0]:.3f} ms "
-        f"(bytes {k3_bytes}, ops {k3_ops}); {n_terms} pod terms, {n_match} matches")
+        f"(bytes {k3_bytes}, ops {k3_ops}); {n_terms} pod terms, {n_match} matches "
+        f"(at most {int(tmp.sum(dim=0).max())} a pod); raw-sum bound "
+        f"{tsnap.pref_raw_bound:g} < 2^24")
 
     # config #4's workload has no preferred terms and no ScheduleAnyway
     # constraint: hold K3 (and K4 below) also on a seeded variant of the
@@ -1668,6 +1728,10 @@ def main() -> int:
         tstate.counts, tstate.total,
         torch.rand(tstate.anti_presence.shape, generator=gen, device=dev) < 0.01,
         torch.randint(0, 4, tstate.pref_sym.shape, generator=gen, device=dev).float())
+    # the random symmetric table is not the snapshot's: its largest column
+    # sum joins the host-side bound
+    vsnap = dataclasses.replace(vsnap, pref_raw_bound=vsnap.pref_raw_bound
+                                + float(vstate.pref_sym.abs().sum(dim=0).max()))
     v_args = (vsnap, vstate, tmp, tminc)
     vk, vp = ipt.interpod_terms_cuda(*v_args), ipt.interpod_terms_plain(*v_args)
     check(equal_outputs(vk, vp), "interpod_terms differs from its plain version "

@@ -66,7 +66,7 @@ constexpr int kWhenDoNotSchedule = 0, kWhenScheduleAnyway = 1;
 
 // flag bits and score-term codes (ops/scan_commit.py mirrors these)
 constexpr int kPorts = 1, kFit = 2, kAffinity = 4, kSpread = 8, kPortState = 16,
-              kState = 32, kTables = 64, kMost = 128;
+              kState = 32, kTables = 64, kMost = 128, kFitOnes = 256, kBalAll = 512;
 constexpr int kTermFit = 1, kTermBalanced = 2, kTermAffinity = 3, kTermSpread = 4;
 
 struct Args {
@@ -74,7 +74,8 @@ struct Args {
   int term[4];
   float weight[4];
   float w100[kMaxR];  // fit score: f32(w) * f32(100) per resource
-  float wsum;
+  float rwsum;  // f32(1 / weight sum): the fit score's constant factor
+  float rnf;    // f32(1 / count) of the resources BalancedAllocation averages
   int bal_mask;  // resources BalancedAllocation averages
   const float* sbase;          // [P, N]
   const int* order;            // [P]
@@ -167,14 +168,19 @@ __device__ __forceinline__ float used_fraction(const Args& a, const Pod& pod, in
   return al > 0.0f ? after / fmaxf(al, 1e-9f) : 1.0f;
 }
 
-__device__ float fit_score(const Args& a, const Pod& pod, int n) {
+// the fit score's weighted sum; the score is this times a.rwsum, a product
+// the score sum fuses (the reference divides by the constant weight sum as
+// a multiply by its reciprocal). With every weight 1 the reference's
+// weight multiply folds away and the sum adds rounded products.
+__device__ float fit_sum(const Args& a, const Pod& pod, int n) {
   float acc = 0.0f;
   for (int r = 0; r < a.R; ++r) {
     if (a.w100[r] == 0.0f) continue;  // adds an exact 0
     const float f = clamp01(used_fraction(a, pod, n, r));
-    acc = __fmaf_rn((a.flags & kMost) ? f : 1.0f - f, a.w100[r], acc);
+    const float x = (a.flags & kMost) ? f : 1.0f - f;
+    acc = (a.flags & kFitOnes) ? acc + x * a.w100[r] : __fmaf_rn(x, a.w100[r], acc);
   }
-  return acc / a.wsum;
+  return acc;
 }
 
 // 1 - std of the used fractions: the balanced-allocation score before its
@@ -182,22 +188,21 @@ __device__ float fit_score(const Args& a, const Pod& pod, int n) {
 __device__ float balanced_factor(const Args& a, const Pod& pod, int n) {
   float frac[kMaxR];
   float tot = 0.0f;
-  int cnt = 0;
   for (int r = 0; r < a.R; ++r) {
     if (!((a.bal_mask >> r) & 1)) continue;
     frac[r] = clamp01(used_fraction(a, pod, n, r));
     tot = tot + frac[r];
-    ++cnt;
   }
-  const float nf = (float)max(cnt, 1);
-  const float mean = tot / nf;
+  const float mean = tot * a.rnf;
+  // the masked sum is not contracted; over every resource the mask folds
+  // away and the squares fuse into the sum
   float var = 0.0f;
   for (int r = 0; r < a.R; ++r) {
     if (!((a.bal_mask >> r) & 1)) continue;
     const float d = frac[r] - mean;
-    var = var + d * d;
+    var = (a.flags & kBalAll) ? __fmaf_rn(d, d, var) : var + d * d;
   }
-  return 1.0f - sqrtf(var / nf);
+  return 1.0f - sqrtf(var * a.rnf);
 }
 
 __global__ void __launch_bounds__(kThreads, 1) scan_kernel(Args a) {
@@ -373,7 +378,10 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(Args a) {
       for (int t = 0; t < 4; ++t) {
         float x, c = a.weight[t];
         switch (a.term[t]) {
-          case kTermFit: x = fit_score(a, pod, n); break;
+          case kTermFit:
+            x = fit_sum(a, pod, n);
+            c = a.rwsum * a.weight[t];
+            break;
           case kTermBalanced:
             x = balanced_factor(a, pod, n);
             c = 100.0f * a.weight[t];
@@ -386,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(Args a) {
             break;
           default: continue;
         }
-        const bool prod = a.term[t] == kTermBalanced || c != 1.0f;
+        const bool prod = c != 1.0f;
         if (!have) {
           have = true;
           if (prod) {
@@ -473,7 +481,7 @@ extern "C" int scan_commit_launch(
     int P, int N, int R, int MP, int MA, int MC, int K, int S, int D, int Q,
     int flags, int t0, int t1, int t2, int t3, float w0, float w1, float w2,
     float w3, float f0, float f1, float f2, float f3, float f4, float f5,
-    float f6, float f7, float wsum, int bal_mask, const float* sbase,
+    float f6, float f7, float rwsum, float rnf, int bal_mask, const float* sbase,
     const int* order, const uint8_t* pod_valid, const int* nominated,
     const float* req, const float* alloc, const float* slack,
     const int* port_ids, const int* aff, const uint8_t* aff_self,
@@ -487,7 +495,7 @@ extern "C" int scan_commit_launch(
       N < 1 || N > 16 * kThreads)
     return (int)cudaErrorInvalidValue;
   Args a{P, N, R, MP, MA, MC, K, S, D, Q, flags, {t0, t1, t2, t3}, {w0, w1, w2, w3},
-         {f0, f1, f2, f3, f4, f5, f6, f7}, wsum, bal_mask, sbase, order,
+         {f0, f1, f2, f3, f4, f5, f6, f7}, rwsum, rnf, bal_mask, sbase, order,
          pod_valid, nominated, req, alloc, slack, port_ids, aff, aff_self,
          anti_terms, pref_terms, pref_w, tsc, tsc_skew, node_domains, dom_ptr,
          dom_list, sel_ptr, sel_list, assignment, node_req, ports, counts,

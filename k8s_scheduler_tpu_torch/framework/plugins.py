@@ -126,13 +126,14 @@ class NodeResourcesFit(PluginBase):
 
     name = "NodeResourcesFit"
 
-    def _strategy_fn(self):
-        strategy = self.args.get("scoring_strategy", "LeastAllocated")
-        return (
-            res_ops.most_requested_score
-            if strategy == "MostAllocated"
-            else res_ops.least_requested_score
-        )
+    def _score(self, snap, pod_requested, node_requested) -> Product:
+        """The strategy's score as its factors (sum, 1 / weight sum), so
+        that the runtime fuses the multiply into the score sum as the
+        reference's compiled program does."""
+        most = self.args.get("scoring_strategy", "LeastAllocated") == "MostAllocated"
+        return Product(*res_ops.requested_score_factors(
+            pod_requested, snap.node_allocatable, node_requested,
+            _score_resource_weights(snap, self.args), most=most))
 
     def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
         snap = ctx.snap
@@ -142,12 +143,7 @@ class NodeResourcesFit(PluginBase):
 
     def dyn_score(self, ctx: CycleContext, p, node_requested, extra, feasible):
         snap = ctx.snap
-        return self._strategy_fn()(
-            take_row(snap.pod_requested, p),
-            snap.node_allocatable,
-            node_requested,
-            _score_resource_weights(snap, self.args),
-        )
+        return self._score(snap, take_row(snap.pod_requested, p), node_requested)
 
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
@@ -159,21 +155,12 @@ class NodeResourcesFit(PluginBase):
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
                           feasible, shared):
         snap = ctx.snap
-        return self._strategy_fn()(
-            snap.pod_requested[:, None, :],
-            snap.node_allocatable,
-            node_requested,
-            _score_resource_weights(snap, self.args),
-        )
+        return self._score(snap, snap.pod_requested[:, None, :], node_requested)
 
     def score_node_anchor(self, ctx: CycleContext, node_requested):
         snap = ctx.snap
-        return self._strategy_fn()(
-            torch.zeros((1, 1), dtype=torch.float32, device=snap.device),
-            snap.node_allocatable,
-            node_requested,
-            _score_resource_weights(snap, self.args),
-        )
+        zero_pod = torch.zeros((1, 1), dtype=torch.float32, device=snap.device)
+        return self._score(snap, zero_pod, node_requested)
 
 
 class NodeResourcesBalancedAllocation(PluginBase):
@@ -191,18 +178,18 @@ class NodeResourcesBalancedAllocation(PluginBase):
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
                           feasible, shared):
         snap = ctx.snap
-        return res_ops.balanced_allocation_score(
+        return Product(res_ops.balanced_allocation_factor(
             snap.pod_requested[:, None, :], snap.node_allocatable,
             node_requested, _score_resource_weights(snap, self.args),
-        )
+        ), res_ops.MAX_NODE_SCORE)
 
     def score_node_anchor(self, ctx: CycleContext, node_requested):
         snap = ctx.snap
-        return res_ops.balanced_allocation_score(
+        return Product(res_ops.balanced_allocation_factor(
             torch.zeros((1, 1), dtype=torch.float32, device=snap.device),
             snap.node_allocatable, node_requested,
             _score_resource_weights(snap, self.args),
-        )
+        ), res_ops.MAX_NODE_SCORE)
 
 
 class NodeAffinity(PluginBase):

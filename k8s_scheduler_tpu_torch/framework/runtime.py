@@ -4,7 +4,11 @@ engine, per pod for the scan engine — and ANDs / weighted-sums them.
 
 Weighted sums reproduce the reference's compiled arithmetic: XLA contracts
 `score + w * v` into one fused multiply-add, so each term here is folded
-with `resources._fma` (a weight of 1 makes it a plain add either way)."""
+with `resources._fma` (a weight of 1 makes it a plain add either way). A
+dynamic score that ends in a multiply by a constant (BalancedAllocation's
+`* 100`, the resource scores' `* 1 / weight sum`) comes as its factors, a
+`commit.Product`, and `_sum_terms` fuses that multiply where the compiled
+program does, in the batched and the per-pod sums alike."""
 
 from __future__ import annotations
 
@@ -27,6 +31,42 @@ def _accumulate(total, weight: float, value: torch.Tensor) -> torch.Tensor:
     if weight == 1.0:  # the fused form of a unit weight is a plain add
         return total + value
     return _fma(value, weight, total)
+
+
+def _sum_terms(terms):
+    """Weighted sum of score terms, each (value, weight) with value a
+    tensor, a `commit.Product` or None, in the reference's compiled
+    arithmetic: each add fuses a multiply feeding it — the running sum's
+    while that is still a bare product (a first term given as factors,
+    with the weight folded into its constant), else the new term's (a
+    weight other than 1, or factors). Returns None (no term), a tensor, or
+    a `commit.Product` when the whole sum is one bare product."""
+    acc, held = None, None  # the running sum; a bare product (x, c)
+    for v, w in terms:
+        if v is None:
+            continue
+        if isinstance(v, Product):
+            x, c = v.x, float(np.float32(v.c) * np.float32(w))
+        else:
+            x, c = (v, None) if w == 1.0 else (v, float(w))
+        if acc is None and held is None:
+            if c is None:
+                acc = x
+            else:
+                held = (x, c)
+        elif held is not None:
+            acc = _fma(held[0], held[1], x if c is None else x * c)
+            held = None
+        elif c is None:
+            acc = acc + x
+        else:
+            acc = _fma(x, c, acc)
+    return Product(*held) if held is not None else acc
+
+
+def _rounded(v):
+    """A sum of `_sum_terms` as a tensor (a bare product rounded once)."""
+    return v.x * v.c if isinstance(v, Product) else v
 
 
 class Framework:
@@ -104,48 +144,21 @@ class Framework:
         state, at one scan step: the dynamic filters ANDed onto the static
         row in filter order, then every dynamic score, fed the full
         feasibility row, weighted and summed in score order (a
-        `commit.Product` when the sum is one bare product). (The
+        `commit.Product` when the sum is one bare product, which the
+        reference's scan step fuses into the static score's add). (The
         reference's per-filter reject counts belong to the full outputs,
-        ROADMAP A9; its latency program drops them.)
-
-        The sum follows the reference's compiled scan step, where the whole
-        step is one fused loop: each add takes a multiply feeding it into
-        a fused multiply-add — the running sum's when that is still a bare
-        product (a first term given as factors, a `commit.Product`,
-        with the weight folded into its constant), else the new term's (a
-        weight other than 1, or factors)."""
+        ROADMAP A9; its latency program drops them.)"""
         mask = static_row
         for f in self.filters:
             m = f.dyn_mask(ctx, p, node_requested, extra)
             if m is not None:
                 mask = mask & m
-        acc, held = None, None  # the running sum; a bare product (x, c)
-        for s, w in self.scores:
-            v = s.dyn_score(ctx, p, node_requested, extra, mask)
-            if v is None:
-                continue
-            if isinstance(v, Product):
-                x, c = v.x, float(np.float32(v.c) * np.float32(w))
-            else:
-                x, c = (v, None) if w == 1.0 else (v, float(w))
-            if acc is None and held is None:
-                if c is None:
-                    acc = x
-                else:
-                    held = (x, c)
-            elif held is not None:
-                acc = _fma(held[0], held[1], x if c is None else x * c)
-                held = None
-            elif c is None:
-                acc = acc + x
-            else:
-                acc = _fma(x, c, acc)
-        if held is not None:  # one product: the static score's add fuses it
-            return mask, Product(*held)
-        if acc is None:
-            acc = torch.zeros((ctx.snap.N,), dtype=torch.float32,
+        dyn = _sum_terms((s.dyn_score(ctx, p, node_requested, extra, mask), w)
+                         for s, w in self.scores)
+        if dyn is None:
+            dyn = torch.zeros((ctx.snap.N,), dtype=torch.float32,
                               device=static_row.device)
-        return mask, acc
+        return mask, dyn
 
     def extra_update(self, ctx: CycleContext, extra, p, node, committed):
         """Fold one scan step into every stateful plugin's extra state."""
@@ -158,7 +171,8 @@ class Framework:
 
     def dyn_batched(self, ctx: CycleContext, node_requested, extra,
                     static_mask):
-        """Returns (mask [P, N], score [P, N]) against the running state."""
+        """Returns (mask [P, N], score [P, N]) against the running state,
+        the score summed by `_sum_terms` (a bare product rounded once)."""
         snap = ctx.snap
         shared: dict = {}
         mask = static_mask
@@ -166,23 +180,19 @@ class Framework:
             m = f.dyn_mask_batched(ctx, node_requested, extra, shared)
             if m is not None:
                 mask = mask & m
-        score = torch.zeros((snap.P, snap.N), dtype=torch.float32,
-                            device=snap.device)
-        for s, w in self.scores:
-            v = s.dyn_score_batched(ctx, node_requested, extra, mask, shared)
-            if v is not None:
-                score = _accumulate(score, w, v)
-        return mask, score
+        score = _sum_terms(
+            (s.dyn_score_batched(ctx, node_requested, extra, mask, shared), w)
+            for s, w in self.scores)
+        if score is None:
+            score = torch.zeros((snap.P, snap.N), dtype=torch.float32,
+                                device=snap.device)
+        return mask, _rounded(score)
 
     def score_anchor(self, ctx: CycleContext, node_requested):
         """Weighted sum of the score plugins' node-local capacity components
         (f32 [N]), or None when no plugin has one."""
-        total = None
-        for s, w in self.scores:
-            a = s.score_node_anchor(ctx, node_requested)
-            if a is not None:
-                total = _accumulate(total, w, a)
-        return total
+        return _rounded(_sum_terms((s.score_node_anchor(ctx, node_requested), w)
+                                   for s, w in self.scores))
 
     def extra_update_batched(self, ctx: CycleContext, extra, accepted,
                              node_of):

@@ -359,6 +359,8 @@ class ClusterSnapshot:
     pdb_allowed: torch.Tensor  # i32 [GP]
 
     has_extender: bool = False
+    # host-side bound on the inter-pod raw score sums (pref_raw_bound)
+    pref_raw_bound: float = 0.0
 
     @property
     def P(self) -> int:
@@ -384,9 +386,11 @@ ARRAY_FIELDS = tuple(
     f.name for f in dataclasses.fields(ClusterSnapshot)
     if f.type == "torch.Tensor"
 )
+# the reference snapshot's non-array fields (pref_raw_bound is the port's,
+# derived from the arrays)
 AUX_FIELDS = tuple(
     f.name for f in dataclasses.fields(ClusterSnapshot)
-    if f.type != "torch.Tensor"
+    if f.type != "torch.Tensor" and f.name != "pref_raw_bound"
 )
 
 
@@ -408,7 +412,28 @@ def snapshot_from_numpy(
     kw = {n: torch.from_numpy(np.array(fields[n], order="C")).to(dev)
           for n in ARRAY_FIELDS}
     kw.update({n: aux[n] for n in AUX_FIELDS if n in aux})
+    kw["pref_raw_bound"] = pref_raw_bound(
+        fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
+        fields["exist_pref_aff"], fields["exist_pref_aff_w"])
     return ClusterSnapshot(**kw)
+
+
+def pref_raw_bound(pod_terms, pod_w, pod_tsc, exist_terms, exist_w) -> float:
+    """An upper bound, from the host arrays alone, on |every partial sum|
+    of a raw inter-pod score that a cycle over this snapshot forms (K3's
+    integer-valued f32 sums are exact in any order below 2^24): a pod's own
+    preferred rows sum at most its |weights| times a count, and a count at
+    most every pod (pending and existing); its symmetric sum at most the
+    |weight| of every preferred term of every pod, each term counted once
+    per node; a ScheduleAnyway sum at most MC counts."""
+    def weights(terms, w):
+        return np.where(np.asarray(terms)[..., 0] >= 0, np.abs(np.asarray(w)), 0.0)
+
+    pw, ew = weights(pod_terms, pod_w), weights(exist_terms, exist_w)
+    pods = pw.shape[0] + ew.shape[0]
+    own = float(pw.sum(axis=1).max(initial=0.0)) * pods
+    soft = float(np.asarray(pod_tsc).shape[1]) * pods
+    return max(own + float(pw.sum() + ew.sum()), soft)
 
 
 class SnapshotEncoder:

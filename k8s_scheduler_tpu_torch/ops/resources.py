@@ -11,6 +11,7 @@ produce)."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -22,6 +23,12 @@ _REL_EPS = 1e-5
 
 def _fma(a, b, c) -> torch.Tensor:
     """f32 fused multiply-add a * b + c with one rounding."""
+    if (isinstance(b, float) and isinstance(c, torch.Tensor)
+            and math.frexp(b)[0] in (0.5, -0.5)):
+        # a power-of-two factor: the f32 product is exact (scores and
+        # quantities never reach the subnormal range), so the f32 add is
+        # the one rounding, without f64 temporaries
+        return a * b + c
     def f64(v):
         if isinstance(v, torch.Tensor):
             return v.double()
@@ -78,8 +85,9 @@ def least_requested_score(
 ) -> torch.Tensor:  # f32 [N] or [P, N]
     """LeastRequested: weighted mean over resources of
     (allocatable - requested_after) / allocatable * 100."""
-    frac = _used_fraction(pod_requested, node_allocatable, node_requested)
-    return _weighted_mean(1.0 - torch.clamp(frac, 0.0, 1.0), resource_weights)
+    acc, c = requested_score_factors(pod_requested, node_allocatable,
+                                     node_requested, resource_weights)
+    return acc * c
 
 
 def most_requested_score(
@@ -87,20 +95,48 @@ def most_requested_score(
     resource_weights: Sequence[float],
 ) -> torch.Tensor:
     """MostRequested (bin-packing variant of LeastRequested)."""
-    frac = _used_fraction(pod_requested, node_allocatable, node_requested)
-    return _weighted_mean(torch.clamp(frac, 0.0, 1.0), resource_weights)
+    acc, c = requested_score_factors(pod_requested, node_allocatable,
+                                     node_requested, resource_weights, most=True)
+    return acc * c
 
 
-def _weighted_mean(x: torch.Tensor, weights: Sequence[float]) -> torch.Tensor:
-    """sum_r(x_r * 100 * w_r) / sum(w), in the reference's compiled op
-    order: the constant 100 folds into the weights, and the reduction
-    accumulates left to right with fused multiply-adds."""
-    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
-    for r, w in enumerate(weights):
-        if w != 0.0:  # a zero weight adds an exact 0 to the sum
-            acc = _fma(x[..., r], float(np.float32(w) * np.float32(MAX_NODE_SCORE)), acc)
-    wsum = max(float(np.float32(sum(weights))), 1e-9)
-    return acc / wsum
+def requested_score_factors(
+    pod_requested, node_allocatable, node_requested,
+    resource_weights: Sequence[float], most: bool = False,
+) -> tuple[torch.Tensor, float]:
+    """LeastRequested (MostRequested with `most`) as two factors, the
+    weighted sum and the f32 reciprocal of the weight sum, whose product is
+    the score: the reference's compiled program divides by the constant
+    weight sum as a multiply, which the score sum may fuse.
+
+    The sum is sum_r(x_r * 100 * w_r) in the reference's compiled op order:
+    the 100 folds into the constant weights and the reduction accumulates
+    left to right with fused multiply-adds, or, when every weight is 1 and
+    the weight multiply folds away, adds the rounded `x_r * 100` terms."""
+    frac = torch.clamp(
+        _used_fraction(pod_requested, node_allocatable, node_requested), 0.0, 1.0)
+    x = frac if most else 1.0 - frac
+    ones = all(w == 1.0 for w in resource_weights)
+    acc = None
+    for r, w in enumerate(resource_weights):
+        if w == 0.0:  # a zero weight adds an exact 0 to the sum
+            continue
+        c = MAX_NODE_SCORE if ones else float(np.float32(w) * np.float32(MAX_NODE_SCORE))
+        if acc is None:  # 0 + x * c rounds once, fused or not (x * c >= 0)
+            acc = x[..., r] * c
+        elif ones:
+            acc = acc + x[..., r] * c
+        else:
+            acc = _fma(x[..., r], c, acc)
+    if acc is None:
+        acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    return acc, _reciprocal(max(float(np.float32(sum(resource_weights))), 1e-9))
+
+
+def _reciprocal(d: float) -> float:
+    """f32(1 / d), rounded once: XLA rewrites a division by a compile-time
+    constant as a multiply by this."""
+    return float(np.float32(1.0) / np.float32(d))
 
 
 def balanced_allocation_score(
@@ -110,8 +146,7 @@ def balanced_allocation_score(
     resource_weights: Sequence[float],  # [R] — which resources participate
 ) -> torch.Tensor:
     """NodeResourcesBalancedAllocation: (1 - std(fractions)) * 100 over the
-    participating resources (plain sums: the reference's masked reduction
-    is not contracted)."""
+    participating resources."""
     return balanced_allocation_factor(
         pod_requested, node_allocatable, node_requested, resource_weights
     ) * MAX_NODE_SCORE
@@ -124,22 +159,25 @@ def balanced_allocation_factor(
     resource_weights: Sequence[float],
 ) -> torch.Tensor:
     """1 - std(fractions): the balanced-allocation score before its final
-    multiply by 100."""
+    multiply by 100. The divisions by the constant resource count are
+    multiplies by its f32 reciprocal, as compiled; the masked sum of
+    squares is not contracted, but over every resource (no mask) it is."""
     frac = torch.clamp(
         _used_fraction(pod_requested, node_allocatable, node_requested), 0.0, 1.0
     )
     cols = [r for r, w in enumerate(resource_weights) if w > 0]
-    n = float(max(len(cols), 1))
+    rn = _reciprocal(max(len(cols), 1))
     shape = frac.shape[:-1]
     total = torch.zeros(shape, dtype=torch.float32, device=frac.device)
     for r in cols:
         total = total + frac[..., r]
-    mean = total / n
+    mean = total * rn
+    fused = len(cols) == len(resource_weights)
     var = torch.zeros(shape, dtype=torch.float32, device=frac.device)
     for r in cols:
         d = frac[..., r] - mean
-        var = var + d * d
+        var = _fma(d, d, var) if fused else var + d * d
     # sqrt through f64: correctly rounded on every backend (the CPU f32
     # kernel is not)
-    std = torch.sqrt((var / n).double()).float()
+    std = torch.sqrt((var * rn).double()).float()
     return 1.0 - std

@@ -34,7 +34,7 @@ from . import interpod as ip
 from .commit import CommitResult, greedy_commit
 from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
                            raise_on_error, stream_of)
-from .resources import MAX_NODE_SCORE, fit_slack
+from .resources import MAX_NODE_SCORE, _reciprocal, fit_slack
 from .static_base import _overrides
 
 NEG_INF = -1e9
@@ -47,6 +47,9 @@ MAX_NODES = 16 * 1024  # 8 bytes of shared memory per node, one bit per node a t
 F_PORTS, F_FIT, F_AFFINITY, F_SPREAD, F_PORT_STATE, F_STATE, F_TABLES, F_MOST = (
     1, 2, 4, 8, 16, 32, 64, 128
 )
+# the fit weights are all 1 (the sum adds rounded products); every resource
+# is BalancedAllocation's (its variance sum fuses the squares)
+F_FIT_ONES, F_BAL_ALL = 256, 512
 T_FIT, T_BALANCED, T_AFFINITY, T_SPREAD = 1, 2, 3, 4
 
 # the plugins whose per-pod hooks the kernel implements
@@ -67,8 +70,9 @@ class ScanInputs:
     flags: int
     terms: tuple[tuple[int, float], ...]  # (term code, weight), score order
     fit_w100: tuple[float, ...]  # [R] f32(w) * f32(100) of the fit score
-    fit_wsum: float
+    fit_rwsum: float  # f32(1 / weight sum) of the fit score
     bal_cols: tuple[bool, ...]  # [R] resources BalancedAllocation averages
+    bal_rn: float  # f32(1 / their count)
     sbase: torch.Tensor  # f32 [P, N] static base (K1)
     order: torch.Tensor  # i32 [P] pod at each rank
     pod_valid: torch.Tensor  # bool [P]
@@ -145,17 +149,21 @@ def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict) -> ScanInputs:
         if snap.has_inter_pod_affinity:
             flags |= F_TABLES
     R = snap.node_allocatable.shape[1]
-    terms, fit_w100, fit_wsum, bal_cols = [], [0.0] * R, 1.0, [False] * R
+    terms, fit_w100, fit_rwsum, bal_cols = [], [0.0] * R, 1.0, [False] * R
     for s, w in fw.scores:
         if s.name == "NodeResourcesFit":
             wr = _score_resource_weights(snap, s.args)
             fit_w100 = [float(np.float32(v) * np.float32(MAX_NODE_SCORE)) for v in wr]
-            fit_wsum = max(float(np.float32(sum(wr))), 1e-9)
+            fit_rwsum = _reciprocal(max(float(np.float32(sum(wr))), 1e-9))
+            if all(v == 1.0 for v in wr):
+                flags |= F_FIT_ONES
             if s.args.get("scoring_strategy", "LeastAllocated") == "MostAllocated":
                 flags |= F_MOST
             terms.append((T_FIT, float(w)))
         elif s.name == "NodeResourcesBalancedAllocation":
             bal_cols = [v > 0 for v in _score_resource_weights(snap, s.args)]
+            if all(bal_cols):
+                flags |= F_BAL_ALL
             terms.append((T_BALANCED, float(w)))
         elif s.name == "InterPodAffinity" and snap.has_inter_pod_affinity:
             terms.append((T_AFFINITY, float(w)))
@@ -191,7 +199,8 @@ def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict) -> ScanInputs:
                             dtype=torch.bool, device=dev)
     return ScanInputs(
         fw=fw, ctx=ctx, extra=extra, flags=flags, terms=tuple(terms),
-        fit_w100=tuple(fit_w100), fit_wsum=fit_wsum, bal_cols=tuple(bal_cols),
+        fit_w100=tuple(fit_w100), fit_rwsum=fit_rwsum, bal_cols=tuple(bal_cols),
+        bal_rn=_reciprocal(max(sum(bal_cols), 1)),
         sbase=sbase, order=torch.argsort(snap.pod_order, stable=True).to(i32),
         pod_valid=snap.pod_valid, pod_nominated=snap.pod_nominated,
         pod_requested=snap.pod_requested, node_allocatable=snap.node_allocatable,
@@ -246,7 +255,7 @@ def exact_range_bound(x: ScanInputs) -> float:
 
 _ARGTYPES = (
     [ctypes.c_int] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-    + [ctypes.c_float] * MAX_RESOURCES + [ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_float] * MAX_RESOURCES + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p] * 28
 )
 
@@ -318,7 +327,7 @@ def scan_commit_cuda(x: ScanInputs) -> ScanResult:
     err = _library().scan_commit_launch(
         P, N, R, MP, MA, MC, K, S, D, Q, x.flags,
         *[t for t, _ in terms], *[w for _, w in terms],
-        *w100, x.fit_wsum, bal_mask,
+        *w100, x.fit_rwsum, x.bal_rn, bal_mask,
         *[ptr(t) for t in keep],
         ptr(assignment), ptr(node_req), ptr(ports), ptr(counts), ptr(total),
         ptr(anti), ptr(pref), stream_of(dev),

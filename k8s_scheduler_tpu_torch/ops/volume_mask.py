@@ -5,12 +5,16 @@ variant, once per cycle and in the preemption gate) and `:208
 volume_mask_unbound` (the unbound residue against the live claim bitmap,
 once per round), with `_hall_ok` (:109). `volumes.volume_mask_plain` is
 the plain version (the reference's dense [P, V] x [V, N] count products);
-this module launches csrc/volume_mask.cu for CUDA tensors: one thread per
-(pod, node) walks the node's short list of available PVs
-(`volumes.VolumeTables`) and counts per slot and per Hall subset. Slot
-subsets go in as bitmasks; above 6 slots the dominance-group membership
-on the raw candidate sets comes from plain torch. At most
-MAX_VOLUME_SLOTS volume slots per pod."""
+this module launches csrc/volume_mask.cu for CUDA tensors: a block per
+group of pods and tile of nodes decodes the pods' slots once, fills the
+rows of pods with nothing to test, and otherwise counts per slot and per
+Hall subset the available PVs of each node's short list
+(`volumes.VolumeTables`) — as per-node histograms over the tile's PV
+types (class, capacity) masked per pod, or by walking the list — 16
+nodes a thread with 16-byte loads and stores. Slot subsets go in as
+bitmasks; above 6 slots the dominance-group membership on the raw
+candidate sets comes from plain torch. At most MAX_VOLUME_SLOTS volume
+slots per pod."""
 
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ def _library():
         lib.volume_mask_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int] + CTX_ARGTYPES
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+               ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         lib.volume_mask_launch.restype = ctypes.c_int
     return lib
 
@@ -117,9 +121,13 @@ def volume_mask_cuda(snap, tables: volumes.VolumeTables, pv_claimed,
     subs = _subset_masks(MVol, multi, str(dev))
     member = _membership_table(snap) if multi and MVol > 6 else None
     out = torch.empty((B, snap.N), dtype=torch.bool, device=dev)
+    # 16-byte row loads and stores where every row starts 16-byte aligned
+    req = ctx[5]
+    vec = snap.N % 16 == 0 and out.data_ptr() % 16 == 0 and req.data_ptr() % 16 == 0
     err = _library().volume_mask_launch(
         ptr(out), B, *ctx_dims(snap, tables), *[ptr(t) for t in ctx], ptr(claimed),
-        int(unbound), int(multi), ptr(subs), subs.shape[0], ptr(member), stream_of(dev))
+        int(unbound), int(multi), ptr(subs), subs.shape[0], ptr(member), int(vec),
+        stream_of(dev))
     raise_on_error(k, err)
     count_launch(k)
     return out

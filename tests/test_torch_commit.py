@@ -278,18 +278,29 @@ def _extra_eq(got, want):
             _eq(got[k], want[k], k)
 
 
+_THREE = ("cpu", "memory", "ephemeral-storage")
+RESOURCE_PROFILES = {
+    "three_resources": _THREE,
+    "four_resources": _THREE + ("pods",),
+    "three_weighted": _THREE,
+    "three_no_balanced": _THREE,
+}
+
+
 def _profile(config, name):
     """A scheduler profile (either package's config module) that moves the
     dynamic score sum: other weights, a missing first term, a lone term,
-    the MostAllocated strategy on one resource."""
+    the MostAllocated strategy on one resource, resource scores averaged
+    over three or all four resources (a weight sum whose reciprocal is
+    inexact, a weight vector of ones)."""
     E = config.PluginEntry
     if name == "default":
         return None
-    if name == "weighted":
+    if name.endswith("weighted"):
         score = config.PluginSet(enabled=[
             E("NodeResourcesBalancedAllocation", 3), E("InterPodAffinity", 2),
             E("NodeResourcesFit", 5), E("PodTopologySpread", 1)])
-    elif name == "no_balanced":
+    elif name.endswith("no_balanced"):
         score = config.PluginSet(disabled=["NodeResourcesBalancedAllocation"])
     elif name == "balanced_only":
         score = config.PluginSet(disabled=["*"],
@@ -302,6 +313,9 @@ def _profile(config, name):
     args = ({"NodeResourcesFit": {"scoring_strategy": "MostAllocated",
                                   "score_resources": ("cpu",)}}
             if name == "most_cpu" else {})
+    if name in RESOURCE_PROFILES:  # constant means over 3 or 4 resources
+        a = {"score_resources": RESOURCE_PROFILES[name]}
+        args = {"NodeResourcesFit": a, "NodeResourcesBalancedAllocation": a}
     return config.SchedulerConfiguration(profiles=[config.Profile(
         plugins=config.Plugins(score=score), plugin_config=args)])
 
@@ -319,7 +333,8 @@ class _Plain:
 DYN_CASES = [(f, "default") for f in HOOK_FIXTURES + ["cfg2", "mixed"]] + [
     (f, prof) for f in ("duplicates", "cfg2")
     for prof in ("weighted", "no_balanced", "balanced_only", "balanced_static",
-                 "most_cpu")]
+                 "most_cpu")] + [
+    ("c1", prof) for prof in RESOURCE_PROFILES]
 
 
 @pytest.mark.parametrize("name,profile", DYN_CASES)
@@ -331,7 +346,7 @@ def test_framework_dyn_and_extra_update_step_by_step(name, profile):
     import k8s_scheduler_tpu.config as ref_config
     import k8s_scheduler_tpu_torch.config as port_config
 
-    c = _Plain(name) if name in ("cfg2", "mixed") else case(name)
+    c = _Plain(name) if name in ("cfg2", "mixed", "c1") else case(name)
     ref_fw = ref_runtime.Framework.from_config(_profile(ref_config, profile))
     fw = Framework.from_config(_profile(port_config, profile))
 
@@ -482,8 +497,8 @@ def test_packed_operands_follow_the_snapshot():
                        | sc.F_PORT_STATE | sc.F_STATE | sc.F_TABLES)
     assert x.terms == ((sc.T_BALANCED, 1.0), (sc.T_AFFINITY, 1.0), (sc.T_FIT, 1.0),
                        (sc.T_SPREAD, 2.0))
-    assert x.fit_w100[:2] == (100.0, 100.0) and x.fit_wsum == 2.0
-    assert x.bal_cols[:2] == (True, True) and not any(x.bal_cols[2:])
+    assert x.fit_w100[:2] == (100.0, 100.0) and x.fit_rwsum == 0.5
+    assert x.bal_cols[:2] == (True, True) and not any(x.bal_cols[2:]) and x.bal_rn == 0.5
     mp = CycleContext(snap).matched_pending
     rebuilt = torch.zeros_like(mp.T)
     for p in range(snap.P):
@@ -500,6 +515,22 @@ def test_packed_operands_follow_the_snapshot():
     assert torch.equal(x.aff_self, want_self) and x.aff_self.any()
     assert sc.exact_range_bound(x) < sc.EXACT_F32
     assert torch.equal(x.order, torch.argsort(snap.pod_order, stable=True).to(I32))
+
+
+@pytest.mark.parametrize("profile", ["three_resources", "four_resources"])
+def test_packing_of_resource_means(profile):
+    """K13's constants for resource scores averaged over three or four
+    resources: the f32 reciprocals of the weight sum and of the resource
+    count, and the bits that say the weights are all 1 and every resource
+    is averaged (snapshot resources: cpu, memory, pods, ephemeral-storage)."""
+    import k8s_scheduler_tpu_torch.config as port_config
+
+    x = _packed(Framework.from_config(_profile(port_config, profile)), _port_snapshot("cfg4"))
+    four = profile == "four_resources"
+    assert x.fit_rwsum == x.bal_rn == float(np.float32(1) / np.float32(4 if four else 3))
+    assert x.fit_w100 == (100.0, 100.0, 100.0 if four else 0.0, 100.0)
+    assert x.bal_cols == (True, True, four, True)
+    assert bool(x.flags & sc.F_FIT_ONES) == four == bool(x.flags & sc.F_BAL_ALL)
 
 
 def test_packing_follows_the_profile():

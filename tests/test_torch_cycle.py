@@ -4,8 +4,9 @@
 must give assignment, node_requested, unschedulable and gang_dropped
 bit-equal to the reference on every fixture: the synthetic configs #1,
 #2 and #5 (a gang that unwinds), hostPort contention that only the guard
-sweep resolves, nominated pods, and node sampling on clusters past the
-100-node floor. The reference's own validity oracle holds the port's
+sweep resolves, nominated pods, node sampling on clusters past the
+100-node floor, and resource scores averaged over three or four
+resources. The reference's own validity oracle holds the port's
 placements too. Engines and outputs the port does not cover yet raise
 NotImplementedError; entry points never run on the CPU unasked; the port
 imports nothing of JAX or the JAX package."""
@@ -71,19 +72,35 @@ CASES = {
         "max_rounds": 1, "rounds_kw": {"passes_round0": 1}}),
     "sampled_adaptive": ("sampled", {}),
     "sampled_pct30": ("sampled", {"percentage_of_nodes_to_score": 30}),
+    # ROADMAP C1's seeded input under profiles that average the resource
+    # scores over three or four resources
+    "c1_three_resources": ("c1", {"profile": "three_resources"}),
+    "c1_four_resources": ("c1", {"profile": "four_resources"}),
 }
 
 
 def run_both(name, kw):
     nodes, pods, existing, groups = ref_objects(name)
     ref_snap = ref_models.SnapshotEncoder().encode(nodes, pods, existing, groups)
-    want = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency", **kw)(ref_snap)
+    ref_kw, port_kw = dict(kw), dict(kw)
+    profile = kw.get("profile")
+    if profile is not None:
+        import k8s_scheduler_tpu.config as ref_config
+        import k8s_scheduler_tpu.framework.runtime as ref_runtime
+        import k8s_scheduler_tpu_torch.config as port_config
+        from k8s_scheduler_tpu_torch.framework.runtime import Framework
+        from test_torch_commit import _profile
+
+        del ref_kw["profile"], port_kw["profile"]
+        ref_kw["framework"] = ref_runtime.Framework.from_config(_profile(ref_config, profile))
+        port_kw["framework"] = Framework.from_config(_profile(port_config, profile))
+    want = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency", **ref_kw)(ref_snap)
     port_snap = snapshot_from_numpy(
         ref_snap.array_fields(), {k: getattr(ref_snap, k) for k in AUX_FIELDS},
         device="cpu",
     )
     got = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu",
-                         **kw)(port_snap)
+                         **port_kw)(port_snap)
     return (nodes, pods, existing), want, got
 
 
@@ -121,6 +138,11 @@ def test_cycle_bit_equal_to_reference(case):
         # sampling may leave a pod unplaced that a node outside its
         # window could take; the oracle does not model the window
         violations = [v for v in violations if "feasible" not in v]
+    # running pods that overcommit a node before the cycle (C1's seeded
+    # input) are the input's, reported alike with nothing placed
+    before = oracle.validate_rounds_assignment(nodes, pods, np.full(len(pods), -1),
+                                               existing)
+    violations = [v for v in violations if not ("over capacity" in v and v in before)]
     assert violations == []
 
 

@@ -36,7 +36,7 @@ from k8s_scheduler_tpu.models.api import (NodeSelectorRequirement, NodeSelectorT
 from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn
 from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.ops import kernel_build
-from test_torch_commit import _profile
+from test_torch_commit import RESOURCE_PROFILES, _profile
 from test_torch_cycle import ref_objects
 from test_torch_interpod import AFFINITY_FIXTURES, affinity_fixture, carry
 
@@ -389,7 +389,8 @@ def _cfg4_tenth():
 
 # synthetic configs #1-#5 and the port's other cycle fixtures
 SYNTH = {**{f"{n}": functools.partial(ref_objects, n)
-            for n in ("cfg1", "cfg2", "cfg5", "mixed", "nominated", "hostport", "sampled")},
+            for n in ("cfg1", "cfg2", "cfg5", "mixed", "nominated", "hostport", "sampled",
+                      "c1")},
          "cfg4_tenth": _cfg4_tenth,
          **{f"affinity_{n}": functools.partial(affinity_fixture, n, ref_models, ref_synth)
             for n in AFFINITY_FIXTURES}}
@@ -500,7 +501,8 @@ def test_scan_cycle_options_bit_equal_to_reference(case):
 
 
 PROFILE_CASES = [(f, p) for f in ("affinity_duplicates", "affinity_cfg4", "cfg2")
-                 for p in ("weighted", "no_balanced", "balanced_static", "most_cpu")]
+                 for p in ("weighted", "no_balanced", "balanced_static", "most_cpu")] + [
+    (f, p) for f in ("c1", "affinity_cfg4") for p in RESOURCE_PROFILES]
 
 
 @pytest.mark.parametrize("name,profile", PROFILE_CASES)

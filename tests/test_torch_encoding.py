@@ -124,6 +124,11 @@ def fixture(name: str, models, synth):
                                selector_fraction=0.3, toleration_fraction=0.1,
                                priorities=(0, 0, 10, 100), num_apps=40)
         return nodes, pods, [(p, f"node-{i % 48}") for i, p in enumerate(running)], []
+    if name == "c1":  # ROADMAP C1's seeded input: non-dyadic usage fractions
+        running = synth.make_pods(400, seed=991, name_prefix="run")
+        return (synth.make_cluster(300, cpu_choices=(4, 8, 16)),
+                synth.make_pods(1500, seed=1, selector_fraction=0.3),
+                [(p, f"node-{i % 300}") for i, p in enumerate(running)], [])
     raise ValueError(name)
 
 

@@ -4,7 +4,7 @@ against these plain versions on the card by chip_smoke.py).
 
 - K1 `static_base_plain` against where(static_lean mask, clip(score),
   NEG_INF) from the JAX framework, alone and with node sampling and the
-  fit filter folded in: masks bit-equal, values within atol 1e-3.
+  fit filter folded in: masks and values bit-equal.
 - K2 `claim_pass_plain` against the reference's pass body (round + u32
   hash tie-break + argmax_first + nominated override), across dead,
   accepted, nominated and anchor-delta states: bit-equal.
@@ -55,9 +55,6 @@ from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, guard_sweep,
                                          static_base)
 from test_torch_encoding import reference_snapshot
 
-SBASE_ATOL = 1e-3  # f32 static-base values (observed: exact)
-
-
 def _carry(ref):
     return snapshot_from_numpy(
         ref.array_fields(), {k: getattr(ref, k) for k in AUX_FIELDS}, device="cpu"
@@ -95,7 +92,7 @@ def test_static_base_plain_matches_reference(fixture, variant):
     )
     got = static_base.static_base_plain(x).numpy()
     np.testing.assert_array_equal(got > -5e8, want > -5e8)
-    np.testing.assert_allclose(got, want, rtol=0, atol=SBASE_ATOL)
+    np.testing.assert_array_equal(got, want)
 
 
 def _reference_pass(base, mask, dead, acc, delta, gid, nominated):
@@ -175,6 +172,35 @@ def test_wrappers_use_plain_versions_on_cpu():
         "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold",
         "scan_commit"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
+
+
+def test_interpod_terms_guard_on_the_raw_sums():
+    """K3's host-side guard: config #4's full workload (no preferred terms:
+    the ScheduleAnyway bound, MC counts) is accepted; existing pods whose
+    preferred weights the symmetric sums could add past 2^24 are refused
+    before any launch. The bound is the snapshot's, read with no device
+    sync."""
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    nodes, existing, pending = synth.config4_workload([202])
+    snap = SnapshotEncoder(device="cpu").encode(nodes, pending[202], existing)
+    assert snap.pref_raw_bound == snap.pod_tsc.shape[1] * (snap.P + snap.exist_node.shape[0])
+    interpod_terms.check_exact_range(snap)
+
+    ref = reference_snapshot("cfg4")
+    fields = dict(ref.array_fields())
+    terms = np.array(fields["exist_pref_aff"])
+    weights = np.array(fields["exist_pref_aff_w"])
+    terms[:, 0] = (0, 0)  # every existing pod: one preferred term ...
+    weights[:, 0] = np.float32(2**24 // terms.shape[0] + 1)  # ... summing past 2^24
+    fields["exist_pref_aff"], fields["exist_pref_aff_w"] = terms, weights
+    heavy = snapshot_from_numpy(fields, {k: getattr(ref, k) for k in AUX_FIELDS},
+                                device="cpu")
+    assert heavy.pref_raw_bound >= interpod_terms.EXACT_F32
+    with pytest.raises(ValueError, match="2\\^24"):
+        interpod_terms.check_exact_range(heavy)
+    interpod_terms.check_exact_range(_carry(ref))
 
 
 def test_static_base_rejects_an_uncovered_static_plugin():
@@ -624,7 +650,7 @@ def test_static_base_with_volume_mask_matches_reference(name):
                     np.float32(static_base.NEG_INF))
     got = static_base.static_base_plain(x).numpy()
     np.testing.assert_array_equal(got > static_base.NEG_INF / 2, np.asarray(mask))
-    np.testing.assert_allclose(got, want, atol=SBASE_ATOL, rtol=0)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pv_fold_plain_contended_batch_takes_several_passes():

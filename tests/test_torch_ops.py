@@ -3,8 +3,8 @@ snapshot carried across with `snapshot_from_numpy` (identical inputs).
 
 The reference runs jitted, as it does in the cycle: XLA's compiled
 arithmetic (fused multiply-adds, reassociated constants) is what the port
-reproduces. Integer and bool outputs are compared bit for bit; f32 scores
-with atol 1e-3 (the port currently matches them exactly)."""
+reproduces, weights closed over as constants where the cycle builds them
+so. Every output, f32 scores included, is compared bit for bit."""
 
 from __future__ import annotations
 
@@ -42,9 +42,8 @@ from k8s_scheduler_tpu_torch.ops import (
     rounds,
     taints,
 )
-from test_torch_encoding import reference_snapshot
-
-SCORE_ATOL = 1e-3  # f32 scores (observed: exact)
+from test_torch_commit import RESOURCE_PROFILES, _profile
+from test_torch_encoding import fixture, reference_snapshot
 
 
 @pytest.fixture(scope="module", params=["mixed", "cfg2"])
@@ -73,7 +72,7 @@ def assert_exact(got, want):
 def assert_scores(got, want):
     got, want = _np(got), np.asarray(want)
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("case", ["taint_tables", "taint_filter", "taint_score"])
@@ -207,6 +206,56 @@ def test_resource_scores(kind, fn):
     want0 = jax.jit(getattr(ref_res, fn))(np.zeros((1, 1), np.float32), alloc, nreq, w)
     got0 = getattr(resources, fn)(torch.zeros((1, 1)), t(alloc), t(nreq), tuple(w.tolist()))
     assert_scores(got0, want0)
+
+
+@pytest.mark.parametrize("kind", ["dyadic", "arbitrary"])
+@pytest.mark.parametrize("w", [(1, 1, 0, 1), (1, 1, 1, 1), (1, 0, 1, 0)])
+@pytest.mark.parametrize("fn", [
+    "least_requested_score", "balanced_allocation_score", "most_requested_score",
+])
+def test_resource_scores_constant_weights(kind, w, fn):
+    """The weights as the cycle builds them, constants of the compiled
+    program: XLA multiplies by the f32 reciprocal of the weight sum and of
+    the resource count, and folds a weight vector of ones (ROADMAP C1)."""
+    preq, alloc, nreq = _resource_inputs(kind)
+    wc = np.array(w, np.float32)
+    ref_fn = jax.jit(lambda a, b, c: getattr(ref_res, fn)(a, b, c, wc))
+    t = torch.from_numpy
+    got = getattr(resources, fn)(t(preq)[:, None, :], t(alloc), t(nreq), tuple(wc.tolist()))
+    assert_scores(got, ref_fn(preq[:, None, :], alloc, nreq))
+
+
+@pytest.mark.parametrize("profile", list(RESOURCE_PROFILES))
+def test_dyn_batched_resource_means(profile):
+    """`dyn_batched` and `score_anchor` under a profile that averages the
+    resource scores over three or four resources, on ROADMAP C1's seeded
+    input: bit-equal, where dividing by the weight sum was up to 2 ulp off."""
+    import k8s_scheduler_tpu.config as ref_config
+    import k8s_scheduler_tpu.models as ref_models
+    import k8s_scheduler_tpu.utils.synth as ref_synth
+    import k8s_scheduler_tpu_torch.config as port_config
+
+    nodes, pods, existing, groups = fixture("c1", ref_models, ref_synth)
+    ref = ref_models.SnapshotEncoder().encode(nodes, pods, existing, groups)
+    port = snapshot_from_numpy(
+        ref.array_fields(), {k: getattr(ref, k) for k in AUX_FIELDS}, device="cpu"
+    )
+    rfw = ref_rt.Framework.from_config(_profile(ref_config, profile))
+    pfw = Framework.from_config(_profile(port_config, profile))
+
+    def ref_dyn(s):
+        c = ref_if.CycleContext(s)
+        m, sc, _ = rfw.dyn_batched(c, s.node_requested, rfw.extra_init(c),
+                                   s.node_valid[None, :] & jnp.ones((s.P, 1), bool))
+        return m, sc, rfw.score_anchor(c, s.node_requested)
+
+    wm, ws, wa = _ref(ref_dyn, ref)
+    ctx = CycleContext(port)
+    gm, gs = pfw.dyn_batched(ctx, port.node_requested, pfw.extra_init(ctx),
+                             port.node_valid[None, :].expand(port.P, port.N))
+    assert_exact(gm, wm)
+    assert_scores(gs, ws)
+    assert_scores(pfw.score_anchor(ctx, port.node_requested), wa)
 
 
 @pytest.mark.parametrize("kind", ["dyadic", "arbitrary"])
