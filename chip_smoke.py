@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`k8s_scheduler_tpu_torch`) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--prev-csrc DIR]
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
 engine latency cycle `build_cycle_fn()(snapshot)`, and the scan engine's
@@ -25,17 +25,28 @@ Phases:
 
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every csrc/*.cu at once (one process per
-                source), Triton compiles K2 `claim_pass` meanwhile;
+                source; with --prev-csrc, also an earlier design's
+                capacity.cu and static_base.cu, timed beside the kernels as
+                prev_ms), Triton compiles K2 `claim_pass` meanwhile; then
+                K5 `capacity` and K1 `static_base` against their plain
+                versions, bit for bit, on the seeded edge cases of
+                `utils/kernel_cases.py` (node runs across 32 and 256 claims,
+                every claim dead, R = 1 and 8, a revocation fold; each
+                filter bit alone, 0-3 score terms, N = 8 and 13, misaligned
+                rows, P = 65537);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
                 decisions required), K1/K2 against their plain versions
-                with timings, then three timed cycles whose placements are
+                with timings (K1 beside `torch.empty(P, N).fill_(-1e9)`),
+                then three timed cycles whose placements are
                 checked (capacity, static masks, unplaced => infeasible),
                 launch counts read around them;
   4. affinity — the same on config #4's workload, with K3-K6 held against
                 their plain versions at full size (bit-equal; K3 also on a
-                preferred / ScheduleAnyway variant), a cycle under resource
-                scores over three resources against its plain-versions
-                cycle, and each
+                preferred / ScheduleAnyway variant; K5 on every pass and
+                revocation fold of the cycle, timed on the device), cycles
+                under resource scores over three resources and under the
+                fit score over them as the one dynamic score against their
+                plain-versions cycles, K1 on the phase's snapshot, and each
                 timed placement also checked for anti-affinity (both
                 directions), required affinity or its bootstrap, and
                 DoNotSchedule skew at the round each pod was placed in;
@@ -82,7 +93,7 @@ Phases:
                 size, K3 `interpod_terms`, K10 `volume_mask` (static and
                 unbound), K11 `pv_choice` and K12 `pv_fold` each equal to its plain
                 version on round 0's inputs (K12 also on a contended batch
-                that takes several passes), three timed cycles whose
+                that takes several passes; K5 on every call of the cycle), three timed cycles whose
                 placements are checked as in the affinity phase and for
                 volumes (bound claims on their PVs' nodes; a matching of
                 the claimed PVs to placed unbound slots: no PV claimed
@@ -100,6 +111,7 @@ port's package beside it, or when any check fails.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -107,6 +119,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 (non-tensor)
 PEAK_BYTES_PER_S = 3.35e12
@@ -205,14 +218,20 @@ def same_decisions(torch, a, b) -> dict:
 
 class Recorder:
     """Wraps a function: records the arguments of chosen calls (by call
-    index) and the latest result, and returns the result."""
+    index; `keep=None`: every call) and the latest result, and returns the
+    result."""
 
     def __init__(self, fn, keep=(0,)):
-        self.fn, self.keep, self.calls, self.args = fn, set(keep), 0, {}
+        self.fn, self.calls, self.args = fn, 0, {}
+        self.keep = None if keep is None else set(keep)
         self.last = None
 
+    def recorded(self) -> bool:
+        return set(self.args) == (set(range(self.calls)) if self.keep is None
+                                  else self.keep)
+
     def __call__(self, *args):
-        if self.calls in self.keep:
+        if self.keep is None or self.calls in self.keep:
             self.args[self.calls] = args
         self.calls += 1
         self.last = self.fn(*args)
@@ -227,6 +246,19 @@ def resource_profile(resources):
     args = {"score_resources": tuple(resources)}
     return SchedulerConfiguration(profiles=[Profile(plugin_config={
         "NodeResourcesFit": args, "NodeResourcesBalancedAllocation": args})])
+
+
+def fit_only_profile(resources):
+    """The default profile with NodeResourcesFit scoring `resources` as the
+    one dynamic score, the static scores on."""
+    from k8s_scheduler_tpu_torch.config import (PluginSet, Plugins, Profile,
+                                                SchedulerConfiguration)
+
+    score = PluginSet(disabled=["NodeResourcesBalancedAllocation", "InterPodAffinity",
+                                "PodTopologySpread"])
+    return SchedulerConfiguration(profiles=[Profile(
+        plugins=Plugins(score=score),
+        plugin_config={"NodeResourcesFit": {"score_resources": tuple(resources)}})])
 
 
 def preferred_variant(torch, snap, gen):
@@ -422,12 +454,65 @@ def encode_all(torch, enc, nodes, existing, pending):
 
 
 def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms,
-                 nbytes_, ops, library_ms=None):
+                 nbytes_, ops, library_ms=None, **extra):
     b, by = bound(nbytes_, ops)
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (-0.0 is not 0.0)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def prev_ms(torch, kb, prev_libs, name, fn, reps, timer=None):
+    """fn's device ms (`timer`, else CUDA events around eager calls) with
+    kernel `name` launched from the earlier design's library
+    (`--prev-csrc`), or None without one."""
+    from k8s_scheduler_tpu_torch.kernel_variants import with_library
+
+    if name not in prev_libs:
+        return None
+    timer = timer or (lambda f, r: time_ms(torch, f, r))
+    return with_library(name, prev_libs[name], lambda: timer(fn, reps))
+
+
+def capacity_calls_equal(torch, cap, calls, tag) -> tuple[int, int]:
+    """K5 against `capacity_plain` on every recorded call, outputs bit-equal;
+    (passes, revocation folds)."""
+    folds = 0
+    for i, args in sorted(calls.items()):
+        (ak, nk), (ap, np_) = cap.capacity_cuda(*args), cap.capacity_plain(*args)
+        check(bits_equal(torch, ak, ap) and bits_equal(torch, nk, np_),
+              f"capacity differs from its plain version ({tag}, call {i})")
+        folds += args[-1] is False
+    return len(calls) - folds, folds
+
+
+def capacity_edge_checks(torch, cap, dev) -> list[str]:
+    """K5 against `capacity_plain` on the seeded edge cases
+    (`utils/kernel_cases.capacity_cases`)."""
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import capacity_cases
+
+    cases = capacity_cases(dev)
+    for tag, (args, _) in cases.items():
+        capacity_calls_equal(torch, cap, {0: args}, tag)
+    return list(cases)
+
+
+def static_base_edge_checks(torch, sb, dev) -> list[str]:
+    """K1 against `static_base_plain` on the seeded edge cases
+    (`utils/kernel_cases.static_base_edge_inputs`), bit-equal."""
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import static_base_edge_inputs
+
+    cases = static_base_edge_inputs(dev)
+    for tag, x in cases.items():
+        compare_static_base(torch, sb, x, tag)
+    return list(cases)
 
 
 def check_preemption(torch, snap, d, r, gate_fn, scan_budget):
@@ -902,16 +987,16 @@ def volume_kinds(torch, snap) -> dict:
             "zonal dynamic": int(((n1 == 1) & ((mode == 1) & (rid >= -1)).any(dim=1)).sum())}
 
 
-def compare_static_base(torch, sb, x):
+def compare_static_base(torch, sb, x, tag=""):
     """K1 against its plain version on the inputs x: the masks and every
     value bit-equal. Returns (True, max |kernel - plain|)."""
     k_out = sb.static_base_cuda(x)
     p_out = sb.static_base_plain(x)
     mask_equal = torch.equal(k_out > sb.NEG_INF / 2, p_out > sb.NEG_INF / 2)
     k1_err = float((k_out - p_out).abs().max())
-    check(mask_equal, "static_base mask differs from its plain version")
-    check(torch.equal(k_out, p_out),
-          f"static_base differs from its plain version (max |err| {k1_err})")
+    check(mask_equal, f"static_base mask differs from its plain version {tag}")
+    check(bits_equal(torch, k_out, p_out),
+          f"static_base differs from its plain version {tag} (max |err| {k1_err})")
     return mask_equal, k1_err
 
 
@@ -968,10 +1053,11 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
            "pv_choice": Recorder(vol.pv_choice_plain),
            "pv_fold": Recorder(vol.pv_fold_plain),
            "interpod_terms": Recorder(ipt.interpod_terms_plain)}
+    cap_rec = Recorder(cap.capacity_plain, keep=None)  # every pass and fold
     cycle_vp = build_cycle_fn(
         device=dev, static_base_fn=sb.static_base_plain, claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=ipt.interpod_norm_plain,
-        affinity_update_fn=au.affinity_update_plain, capacity_fn=cap.capacity_plain,
+        affinity_update_fn=au.affinity_update_plain, capacity_fn=cap_rec,
         guard_sweep_fn=gs.guard_sweep_plain, volume_mask_fn=rec["volume_mask"],
         pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"])
     fold_k = Recorder(k12.pv_fold, keep=())  # the last fold: the final claims
@@ -990,6 +1076,10 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"{int(dk.placed_round.max()) + 1}; kernels == plain: {json.dumps(same)}")
     check(all(same.values()), "volume kernel cycle differs from the plain-versions cycle")
     del dp
+    n_pass, n_fold = capacity_calls_equal(torch, cap, cap_rec.args, "volume cycle")
+    log(f"phase volumes kernel capacity: equal bit for bit on all {n_pass} passes and "
+        f"{n_fold} revocation folds of the cycle")
+    del cap_rec
 
     # ---- K1 with VolumeBinding's static mask operand (F_MASK) ----
     x = sb.static_base_inputs(fw, CycleContext(snap0), fit=True,
@@ -1003,7 +1093,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
 
     # ---- K3, K10-K12 against their plain versions on round 0's inputs ----
     for k, r in rec.items():
-        check(set(r.args) == r.keep, f"{k}: inputs were not recorded ({sorted(r.args)})")
+        check(r.recorded(), f"{k}: inputs were not recorded ({sorted(r.args)})")
     t_args = rec["interpod_terms"].args[0]
     tk, tp = ipt.interpod_terms_cuda(*t_args), ipt.interpod_terms_plain(*t_args)
     check(all((x is None) == (y is None) and (x is None or torch.equal(x, y))
@@ -1440,9 +1530,17 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--prev-csrc", default=None,
+                    help="a directory holding an earlier design's capacity.cu and "
+                         "static_base.cu (same C interface): timed beside the "
+                         "kernels on the same inputs, as prev_ms")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1455,6 +1553,7 @@ def main() -> int:
         return 3
     from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn, sampling_window
     from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels, CycleContext
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
@@ -1493,7 +1592,21 @@ def main() -> int:
             build_err.append(e)
         build_s[src] = round(time.time() - t0, 2)
 
+    prev_libs: dict = {}
+
+    def build_prev(src):
+        t0 = time.time()
+        try:
+            path = kb.build_cuda_library(src, Path(args.prev_csrc).resolve() / f"{src}.cu")
+            prev_libs[src] = ctypes.CDLL(str(path))
+        except BaseException as e:  # re-raised on the main thread below
+            build_err.append(e)
+        build_s[f"{src} (earlier design)"] = round(time.time() - t0, 2)
+
     threads = [threading.Thread(target=build, args=(s,)) for s in kb.CUDA_KERNELS]
+    if args.prev_csrc:
+        threads += [threading.Thread(target=build_prev, args=(s,))
+                    for s in ("capacity", "static_base")]
     for th in threads:
         th.start()
     t0 = time.time()
@@ -1513,6 +1626,12 @@ def main() -> int:
         usage = [ln.strip() for ln in text.splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"  ptxas {src}: " + " | ".join(usage))
+    edge = capacity_edge_checks(torch, cap, dev)
+    log(f"phase kernel capacity, seeded edge cases: equal to capacity_plain bit for bit "
+        f"on {len(edge)} cases: {json.dumps(edge)}")
+    edge = static_base_edge_checks(torch, sb, dev)
+    log(f"phase kernel static_base, seeded edge cases: mask equal, max|err| 0.0 on "
+        f"{len(edge)} cases: {json.dumps(edge)}")
 
     fw = Framework.from_config()
     cycle_k = build_cycle_fn(device=dev)
@@ -1552,12 +1671,18 @@ def main() -> int:
     x = sb.static_base_inputs(fw, ctx, fit=True, sampling=sampling_window(snap0, 0))
     mask_equal, k1_err = compare_static_base(torch, sb, x)
     k1_ms = time_ms(torch, lambda: sb.static_base_cuda(x), 20)
+    k1_prev_ms = prev_ms(torch, kb, prev_libs, "static_base",
+                         lambda: sb.static_base_cuda(x), 20)
+    k1_fill_ms = time_ms(torch, lambda: torch.empty((P, N), device=dev).fill_(sb.NEG_INF),
+                         20)
     k1_plain_ms = time_ms(torch, lambda: sb.static_base_plain(x), 3)
     k1_bytes = P * N * 4 + nbytes(*[v for v in vars(x).values()
                                     if isinstance(v, torch.Tensor)])
     k1_ops = P * N * (2 * len(x.terms) + 2)
     log(f"phase kernel static_base: [{P}, {N}] mask equal {mask_equal}, "
-        f"max|err| {k1_err}; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
+        f"max|err| {k1_err}; kernel {k1_ms:.3f} ms (earlier design "
+        f"{'not built' if k1_prev_ms is None else f'{k1_prev_ms:.3f} ms'}), "
+        f"torch.empty(P, N).fill_(-1e9) {k1_fill_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
         f"bound {bound(k1_bytes, k1_ops)[0]:.3f} ms (bytes {k1_bytes})")
 
     check(set(rec_cp.args) == {0, 3}, "claim-pass states were not recorded")
@@ -1603,7 +1728,7 @@ def main() -> int:
     kernels["static_base"] = kernel_entry(
         "static_base", "cuda", "k8s_scheduler_tpu_torch/csrc/static_base.cu",
         "k8s_scheduler_tpu/ops/rounds.py:338", launches1["static_base"], k1_err,
-        k1_ms, k1_plain_ms, k1_bytes, k1_ops)
+        k1_ms, k1_plain_ms, k1_bytes, k1_ops, prev_ms=k1_prev_ms, fill_ms=k1_fill_ms)
     kernels["claim_pass"] = kernel_entry(
         "claim_pass", "triton", "k8s_scheduler_tpu_torch/ops/claim_pass.py",
         "k8s_scheduler_tpu/ops/rounds.py:805", launches1["claim_pass"], k2_err,
@@ -1633,7 +1758,7 @@ def main() -> int:
         "interpod_terms": Recorder(ipt.interpod_terms_plain),
         "interpod_norm": Recorder(ipt.interpod_norm_plain, keep=(0, 1)),
         "affinity_update": Recorder(au.affinity_update_plain),
-        "capacity": Recorder(cap.capacity_plain, keep=(0, 10)),  # round 0: pass 0, revocation
+        "capacity": Recorder(cap.capacity_plain, keep=None),  # every pass and fold
         "guard_sweep": Recorder(gs.guard_sweep_plain),
     }
     cycle_ap = build_cycle_fn(
@@ -1673,7 +1798,28 @@ def main() -> int:
         f"placements differ from the default profile's; kernels == plain: {json.dumps(same3)}")
     check(all(same3.values()), "the three-resource kernel cycle differs from the plain-versions "
           "cycle")
-    del d3k, d3p, fw3
+    # ... and the fit score over those three resources as the one dynamic
+    # score: a bare product that the round's base add fuses (ROADMAP C3)
+    fwf = Framework.from_config(fit_only_profile(RESOURCES_3))
+    dfk = build_cycle_fn(fwf, device=dev)(snap0)
+    dfp = build_cycle_fn(
+        fwf, device=dev, static_base_fn=sb.static_base_plain,
+        claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
+        interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
+        capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain)(snap0)
+    samef = same_decisions(torch, dfk, dfp)
+    log(f"phase affinity e2e-parity, the fit score over {', '.join(RESOURCES_3)} as the one "
+        f"dynamic score: placed {int((dfk.assignment >= 0).sum())}; kernels == plain: "
+        f"{json.dumps(samef)}")
+    check(all(samef.values()), "the fit-alone kernel cycle differs from the plain-versions "
+          "cycle")
+    del d3k, d3p, fw3, dfk, dfp, fwf
+    # K1 on the affinity phase's snapshot
+    xa = sb.static_base_inputs(fw, CycleContext(snap0), fit=True,
+                               sampling=sampling_window(snap0, 0))
+    _, k1a_err = compare_static_base(torch, sb, xa, "(affinity snapshot)")
+    log(f"phase affinity kernel static_base: [{P}, {N}] mask equal True, max|err| {k1a_err}")
+    del xa
 
     # ---- K3-K6 against their plain versions on round-0 inputs ----
     def equal_outputs(a, b):
@@ -1687,7 +1833,7 @@ def main() -> int:
         return fa.keys() == fb.keys() and all(equal_outputs(fa[k], fb[k]) for k in fa)
 
     for k, r in rec.items():
-        check(set(r.args) == r.keep, f"{k}: inputs were not recorded ({sorted(r.args)})")
+        check(r.recorded(), f"{k}: inputs were not recorded ({sorted(r.args)})")
 
     # K3 terms (the wrapper: two symmetric matmuls + the kernel)
     t_args = rec["interpod_terms"].args[0]
@@ -1797,25 +1943,41 @@ def main() -> int:
         f"{float(uk.pref_sym.abs().max())}); kernel {k4_ms:.3f} ms, plain "
         f"{k4_plain_ms:.3f} ms, bound {bound(k4_bytes, k4_ops)[0]:.3f} ms")
 
-    # K5 capacity: a round-0 pass and a revocation fold
-    for i in (0, 10):
-        c_args = rec["capacity"].args[i]
-        ck, cpn = cap.capacity_cuda(*c_args), cap.capacity_plain(*c_args)
-        check(equal_outputs(ck, cpn), f"capacity differs from its plain version (call {i})")
-    c_args = rec["capacity"].args[0]
+    # K5 capacity: every pass and revocation fold of the cycle
+    c_calls = rec["capacity"].args
+    n_pass, n_fold = capacity_calls_equal(torch, cap, c_calls, "affinity cycle")
+    c_args = c_calls[0]
+    fold_args = c_calls[min(i for i, a in c_calls.items() if a[-1] is False)]
     s_key, order, rank_bits, creq, cnode_req, calloc, cslack, _ = c_args
     node_run = (s_key >> rank_bits)
     longest = int(torch.unique_consecutive(node_run[node_run < N],
                                            return_counts=True)[1].max())
-    k5_ms = time_ms(torch, lambda: cap.capacity_cuda(*c_args), 20)
+    # device times from CUDA-graph replays: a K5 call's wrapper takes longer
+    # on the host than the kernel on the card (kernel_variants.device_ms)
+    k5_ms = device_ms(lambda: cap.capacity_cuda(*c_args), 50)
+    k5_fold_ms = device_ms(lambda: cap.capacity_cuda(*fold_args), 50)
+    k5_mean_ms = sum(device_ms(lambda: cap.capacity_cuda(*a), 10)
+                     for a in c_calls.values()) / len(c_calls)
+    k5_wall_ms = time_ms(torch, lambda: cap.capacity_cuda(*c_args), 50)
+    k5_prev_ms = prev_ms(torch, kb, prev_libs, "capacity",
+                         lambda: cap.capacity_cuda(*c_args), 50, device_ms)
+    k5_prev_mean_ms = None if k5_prev_ms is None else sum(
+        prev_ms(torch, kb, prev_libs, "capacity", lambda: cap.capacity_cuda(*a), 10,
+                device_ms)
+        for a in c_calls.values()) / len(c_calls)
     k5_plain_ms = time_ms(torch, lambda: cap.capacity_plain(*c_args), 5)
     B5 = s_key.shape[0]
     k5_bytes = (nbytes(s_key, order, cnode_req, calloc, cslack) + B5 * creq.shape[1] * 4
                 + B5 + cnode_req.numel() * 4)
     k5_ops = 4 * B5 * creq.shape[1]
     log(f"phase kernel capacity: B={B5} claims, longest node run {longest}; equal "
-        f"True (pass and revocation fold); kernel {k5_ms:.3f} ms, plain "
-        f"{k5_plain_ms:.3f} ms, bound {bound(k5_bytes, k5_ops)[0]:.3f} ms")
+        f"bit for bit on all {n_pass} passes and {n_fold} revocation folds of the cycle; "
+        f"kernel {k5_ms:.4f} ms round-0 pass, {k5_fold_ms:.4f} ms round-0 revocation "
+        f"fold, {k5_mean_ms:.4f} ms mean over the cycle's calls, device time (the "
+        f"wrapper back to back, host-bound: {k5_wall_ms:.4f} ms; earlier design "
+        + ("not built" if k5_prev_ms is None else
+           f"{k5_prev_ms:.4f} ms round-0 pass, {k5_prev_mean_ms:.4f} ms mean")
+        + f"), plain {k5_plain_ms:.3f} ms, bound {bound(k5_bytes, k5_ops)[0]:.4f} ms")
 
     # K6 guard sweep
     g_args = rec["guard_sweep"].args[0]
@@ -1887,7 +2049,8 @@ def main() -> int:
     kernels["capacity"] = kernel_entry(
         "capacity", "cuda", "k8s_scheduler_tpu_torch/csrc/capacity.cu",
         "k8s_scheduler_tpu/ops/rounds.py:592", launches["capacity"], 0.0,
-        k5_ms, k5_plain_ms, k5_bytes, k5_ops)
+        k5_ms, k5_plain_ms, k5_bytes, k5_ops, prev_ms=k5_prev_ms, fold_ms=k5_fold_ms,
+        mean_ms=k5_mean_ms, prev_mean_ms=k5_prev_mean_ms, wall_ms=k5_wall_ms)
     kernels["guard_sweep"] = kernel_entry(
         "guard_sweep", "cuda", "k8s_scheduler_tpu_torch/csrc/guard_sweep.cu",
         "k8s_scheduler_tpu/ops/rounds.py:342", launches["guard_sweep"], 0.0,

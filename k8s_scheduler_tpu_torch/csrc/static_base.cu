@@ -19,16 +19,36 @@
 //         contraction gives the reference.
 //
 // Bound on an H100: bytes. The only [P, N]-sized traffic is the output
-// (4 B per element); per-pod values are broadcast reads and the small
-// deduplicated tables ([Tl, Ts], [Rq, N], [Pf, N], [Is, N]) stay in L2.
-// Design: one block of 256 threads per (pod, 256-node tile); per-pod ids,
-// port slots and requests are read once per thread from a broadcast
-// address, each thread writes one coalesced output element. No per-plugin
-// [P, N] temporaries.
+// (4 B per element, 537 MB at P=16384, N=8192: 0.16 ms); per-pod values
+// and the small deduplicated tables ([Tl, Ts], [Rq, N], [Pf, N], [Is, N])
+// stay in L2.
+//
+// Design: node-stationary tiles. A block of 256 threads owns 2048
+// consecutive nodes, 8 a thread in two chunks of 4 (chunk c of thread t at
+// tile node 1024 c + 4 t, so that each 16-byte load or store of a warp
+// covers one contiguous 512-byte stretch of a row), and walks groups of 32
+// pods (the groups over gridDim.y, and a loop past 65535 groups). The
+// node-side values (valid, unschedulable, taint set) load once into
+// registers for every pod of every group; the tile's room table
+// ([R][2048], for the fit filter) and each group's per-pod scalars (ids,
+// the sampling window at the tile's first node, requests, the tolerated
+// taint sets as one bit each and the TaintToleration score row) are
+// staged in shared memory by one coalesced load, so a pod costs each
+// thread a few broadcast reads and no table lookup in device memory; a pod
+// pinned to no node skips NodeName, a pod with no host port the port test.
+// Requirement and mask-operand rows are read as uchar4, score rows as
+// float4, and the output leaves as float4 streaming stores (__stcs: the
+// plane is far larger than the 50 MB L2), two per pod and thread. The
+// launcher takes this path when N is a multiple of 4 and every row pointer
+// is aligned for its vector width; otherwise the same kernel runs with
+// scalar loads and stores and a guard per node (an N not a multiple of 4,
+// a view at an odd offset).
+//
+// Bit-equality: the mask is a bool AND, its order free; the score keeps the
+// per-element __fmaf_rn chain in term order (zero terms included) under
+// --fmad=false, then the fminf/fmaxf clip and NEG_INF where masked.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a --fmad=false ...
-// (--fmad=false keeps every multiply and add separately rounded except
-// the explicit __fmaf_rn calls).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +57,11 @@ namespace {
 
 constexpr float kNegInf = -1e9f;
 constexpr int kThreads = 256;
+constexpr int kPerThread = 8;  // a multiple of 4
+constexpr int kTile = kThreads * kPerThread;  // nodes per block
+constexpr int kPodGroup = 32;                 // pods per group
+constexpr int kMaxGridY = 65535;
+constexpr int kMaxTs = 32;  // taint sets held as one bit each
 
 // filter bits (ops/static_base.py mirrors these)
 constexpr int kUnsched = 1, kNodeName = 2, kTaint = 4, kAffinity = 8,
@@ -80,77 +105,284 @@ struct Args {
   int n_terms;
 };
 
+struct Pod {  // one pod's scalars, staged per group
+  int pin, tl, rid, sid, fid, iid, win, has_port;  // win: (tile0 - off) mod n
+  unsigned tol;  // bit t: taint set t tolerated (Ts <= kMaxTs)
+};
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void static_base_kernel(Args a) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  if (n >= a.N) return;
-  const int flags = a.flags;
-  // node-side values: one coalesced read per node
-  const bool valid = a.node_valid[n] != 0;
-  const bool unsched = a.node_unsched[n] != 0;
-  const int ts = clampi(a.node_taintset[n], 0, a.Ts - 1);
+// A thread's nodes: kPerThread / 4 chunks of 4 consecutive nodes, chunk c
+// at n0 + c * kStride (n0 = tile0 + 4 * threadIdx.x), so that each vector
+// load or store of a warp covers one contiguous stretch of the row.
+constexpr int kStride = kThreads * 4;
+constexpr int kChunks = kPerThread / 4;
 
-  for (int p = blockIdx.y; p < a.P; p += gridDim.y) {
-    bool ok = valid;
-    if (flags & kUnsched) ok = ok && !unsched;
-    if (flags & kNodeName) {
-      const int pin = a.pod_node_name[p];
-      if (pin >= 0) ok = ok && (n == pin);
-      if (pin == -2) ok = false;
+__device__ __forceinline__ int node_of(int n0, int i) {
+  return n0 + (i >> 2) * kStride + (i & 3);
+}
+
+// the thread's kPerThread values of a row; kVec: one aligned 4-wide load a
+// chunk (a chunk lies wholly below N or wholly at or past it), else a
+// guarded load a node; zero past N
+template <bool kVec>
+__device__ __forceinline__ void loadn(const uint8_t* row, int n0, int N, bool* v) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int nc = n0 + c * kStride;
+    if (kVec) {
+      uchar4 x = make_uchar4(0, 0, 0, 0);
+      if (nc < N) x = *reinterpret_cast<const uchar4*>(row + nc);
+      v[4 * c] = x.x != 0; v[4 * c + 1] = x.y != 0; v[4 * c + 2] = x.z != 0; v[4 * c + 3] = x.w != 0;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 * c + i] = nc + i < N && row[nc + i] != 0;
     }
-    const int tl = clampi(a.pod_tolset[p], 0, a.Tl - 1);
-    if (flags & kTaint) ok = ok && a.sched[(size_t)tl * a.Ts + ts] != 0;
-    if (flags & kAffinity) {
-      const int rid = a.pod_req_id[p];
-      if (rid >= 0) ok = ok && a.req[(size_t)clampi(rid, 0, a.Rq - 1) * a.N + n] != 0;
-      const int sid = a.pod_sel_req_id[p];
-      if (sid >= 0) ok = ok && a.req[(size_t)clampi(sid, 0, a.Rq - 1) * a.N + n] != 0;
-    }
-    if (flags & kPorts) {
-      for (int j = 0; j < a.MPp; ++j) {
-        const int pp = a.pod_ports[(size_t)p * a.MPp + j];
-        if (pp < 0) continue;
-        for (int k = 0; k < a.MUP; ++k) {
-          if (a.node_used_ports[(size_t)n * a.MUP + k] == pp) ok = false;
-        }
-      }
-    }
-    if (flags & kFit) {
-      for (int r = 0; r < a.R; ++r) {
-        if (!(a.pod_requested[(size_t)p * a.R + r] <= a.node_room[(size_t)n * a.R + r]))
-          ok = false;
-      }
-    }
-    if (flags & kSample) {
-      // (n - off) mod samp_n, floor semantics; samp_n >= 1
-      int win = (n - a.samp_off[p]) % a.samp_n;
-      if (win < 0) win += a.samp_n;
-      ok = ok && win < a.samp_k;
-    }
-    if (flags & kMask) ok = ok && a.mask[(size_t)p * a.N + n] != 0;
-    float out = kNegInf;
-    if (ok) {
-      float s = 0.0f;
-      for (int t = 0; t < a.n_terms; ++t) {
-        float v = 0.0f;
-        if (a.term[t] == kTermImage) {
-          const int iid = a.pod_imageset[p];
-          if (iid >= 0) v = a.img[(size_t)clampi(iid, 0, a.Is - 1) * a.N + n];
-        } else if (a.term[t] == kTermPref) {
-          const int fid = a.pod_pref_id[p];
-          if (fid >= 0) v = a.pref[(size_t)clampi(fid, 0, a.Pf - 1) * a.N + n];
-        } else if (a.term[t] == kTermTaint) {
-          v = a.tscore[(size_t)tl * a.Ts + ts];
-        }
-        s = __fmaf_rn(a.weight[t], v, s);
-      }
-      out = fminf(fmaxf(s, -1e6f), 1e6f);
-    }
-    a.out[(size_t)p * a.N + n] = out;
   }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void loadn(const float* row, int n0, int N, float* v) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int nc = n0 + c * kStride;
+    if (kVec) {
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (nc < N) x = __ldg(reinterpret_cast<const float4*>(row + nc));
+      v[4 * c] = x.x; v[4 * c + 1] = x.y; v[4 * c + 2] = x.z; v[4 * c + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 * c + i] = nc + i < N ? __ldg(row + nc + i) : 0.0f;
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void loadn(const int* row, int n0, int N, int* v) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int nc = n0 + c * kStride;
+    if (kVec) {
+      int4 x = make_int4(0, 0, 0, 0);
+      if (nc < N) x = __ldg(reinterpret_cast<const int4*>(row + nc));
+      v[4 * c] = x.x; v[4 * c + 1] = x.y; v[4 * c + 2] = x.z; v[4 * c + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 * c + i] = nc + i < N ? __ldg(row + nc + i) : 0;
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 3) static_base_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* room_s = reinterpret_cast<float*>(smem4);  // [R][kTile] (kFit)
+  float* preq_s = room_s + (size_t)a.R * kTile;     // [kPodGroup][R] (kFit)
+  __shared__ Pod pods[kPodGroup];
+  __shared__ float tsc_s[kPodGroup][kMaxTs];  // the pods' TaintToleration rows
+
+  const int flags = a.flags, N = a.N, R = a.R;
+  const int tile0 = blockIdx.x * kTile;
+  const int n0 = tile0 + 4 * threadIdx.x;  // the thread's first node
+  const bool active = n0 < N;
+  const bool ts_bits = a.Ts <= kMaxTs;  // taint lookups from staged rows
+
+  if (flags & kFit) {  // the tile's room, resource-major, one coalesced pass
+    const int nodes = min(kTile, N - tile0);
+    const float* src = a.node_room + (size_t)tile0 * R;
+    for (int k = threadIdx.x; k < nodes * R; k += kThreads)
+      room_s[(k % R) * kTile + k / R] = src[k];
+  }
+  // node-side values, once for every pod
+  bool valid[kPerThread], unsched[kPerThread];
+  int ts[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) valid[i] = unsched[i] = false, ts[i] = 0;
+  if (active) {
+    loadn<kVec>(a.node_valid, n0, N, valid);
+    loadn<kVec>(a.node_unsched, n0, N, unsched);
+    loadn<kVec>(a.node_taintset, n0, N, ts);
+  }
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    ts[i] = clampi(ts[i], 0, a.Ts - 1);
+    if (flags & kUnsched) valid[i] = valid[i] && !unsched[i];
+  }
+
+  const int groups = (a.P + kPodGroup - 1) / kPodGroup;
+  for (int gi = blockIdx.y; gi < groups; gi += gridDim.y) {
+    const int p0 = gi * kPodGroup;
+    const int np = min(kPodGroup, a.P - p0);
+    __syncthreads();  // the previous group's staging is consumed
+    if (threadIdx.x < np) {
+      const int p = p0 + threadIdx.x;
+      Pod q;
+      q.pin = a.pod_node_name[p];
+      q.tl = clampi(a.pod_tolset[p], 0, a.Tl - 1);
+      q.rid = a.pod_req_id[p] >= 0 ? clampi(a.pod_req_id[p], 0, a.Rq - 1) : -1;
+      q.sid = a.pod_sel_req_id[p] >= 0 ? clampi(a.pod_sel_req_id[p], 0, a.Rq - 1) : -1;
+      q.fid = a.pod_pref_id[p] >= 0 ? clampi(a.pod_pref_id[p], 0, a.Pf - 1) : -1;
+      q.iid = a.pod_imageset[p] >= 0 ? clampi(a.pod_imageset[p], 0, a.Is - 1) : -1;
+      q.win = 0;
+      if (flags & kSample) {  // (tile0 - off) mod n, floor semantics
+        q.win = (tile0 - a.samp_off[p]) % a.samp_n;
+        if (q.win < 0) q.win += a.samp_n;
+      }
+      q.has_port = 0;
+      if (flags & kPorts)
+        for (int j = 0; j < a.MPp; ++j) q.has_port |= a.pod_ports[(size_t)p * a.MPp + j] >= 0;
+      q.tol = 0;
+      if (ts_bits)
+        for (int t = 0; t < a.Ts; ++t) q.tol |= (unsigned)(a.sched[(size_t)q.tl * a.Ts + t] != 0) << t;
+      pods[threadIdx.x] = q;
+    }
+    if (ts_bits)
+      for (int k = threadIdx.x; k < np * a.Ts; k += kThreads) {
+        const int tl = clampi(a.pod_tolset[p0 + k / a.Ts], 0, a.Tl - 1);
+        tsc_s[k / a.Ts][k % a.Ts] = a.tscore[(size_t)tl * a.Ts + k % a.Ts];
+      }
+    if (flags & kFit)
+      for (int k = threadIdx.x; k < np * R; k += kThreads)
+        preq_s[k] = a.pod_requested[(size_t)p0 * R + k];
+    __syncthreads();
+    if (!active) continue;
+
+    for (int k = 0; k < np; ++k) {
+      const Pod q = pods[k];
+      const int p = p0 + k;
+      bool ok[kPerThread];
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) ok[i] = valid[i];
+      if ((flags & kNodeName) && q.pin != -1) {
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) {
+          if (q.pin >= 0) ok[i] = ok[i] && node_of(n0, i) == q.pin;
+          if (q.pin == -2) ok[i] = false;
+        }
+      }
+      if ((flags & kTaint) && ts_bits) {
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) ok[i] = ok[i] && ((q.tol >> ts[i]) & 1u);
+      } else if (flags & kTaint) {
+        const uint8_t* row = a.sched + (size_t)q.tl * a.Ts;
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) ok[i] = ok[i] && __ldg(row + ts[i]) != 0;
+      }
+      if (flags & kAffinity) {
+        bool b[kPerThread];
+        if (q.rid >= 0) {
+          loadn<kVec>(a.req + (size_t)q.rid * N, n0, N, b);
+#pragma unroll
+          for (int i = 0; i < kPerThread; ++i) ok[i] = ok[i] && b[i];
+        }
+        if (q.sid >= 0) {
+          loadn<kVec>(a.req + (size_t)q.sid * N, n0, N, b);
+#pragma unroll
+          for (int i = 0; i < kPerThread; ++i) ok[i] = ok[i] && b[i];
+        }
+      }
+      if ((flags & kPorts) && q.has_port) {
+        for (int j = 0; j < a.MPp; ++j) {
+          const int pp = a.pod_ports[(size_t)p * a.MPp + j];
+          if (pp < 0) continue;
+#pragma unroll
+          for (int i = 0; i < kPerThread; ++i) {
+            if (node_of(n0, i) >= N) continue;
+            const int* used = a.node_used_ports + (size_t)node_of(n0, i) * a.MUP;
+            for (int u = 0; u < a.MUP; ++u)
+              if (used[u] == pp) ok[i] = false;
+          }
+        }
+      }
+      if (flags & kFit) {
+        for (int r = 0; r < R; ++r) {
+          const float need = preq_s[k * R + r];
+          const float4* room = reinterpret_cast<const float4*>(room_s + (size_t)r * kTile) +
+                               threadIdx.x;
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const float4 x = room[c * kThreads];
+            ok[4 * c] = ok[4 * c] && need <= x.x;
+            ok[4 * c + 1] = ok[4 * c + 1] && need <= x.y;
+            ok[4 * c + 2] = ok[4 * c + 2] && need <= x.z;
+            ok[4 * c + 3] = ok[4 * c + 3] && need <= x.w;
+          }
+        }
+      }
+      if (flags & kSample) {
+        // (n - off) mod n from the pod's window at the tile's first node
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          int w = q.win + (n0 - tile0) + c * kStride;
+          if (w >= a.samp_n) w = w - a.samp_n < a.samp_n ? w - a.samp_n : w % a.samp_n;
+#pragma unroll
+          for (int i = 4 * c; i < 4 * c + 4; ++i) {
+            ok[i] = ok[i] && w < a.samp_k;
+            w = w + 1 == a.samp_n ? 0 : w + 1;
+          }
+        }
+      }
+      if (flags & kMask) {
+        bool b[kPerThread];
+        loadn<kVec>(a.mask + (size_t)p * N, n0, N, b);
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) ok[i] = ok[i] && b[i];
+      }
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) any = any || ok[i];
+      float s[kPerThread];
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) s[i] = 0.0f;
+      if (any) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          if (t >= a.n_terms) break;
+          float v[kPerThread];
+#pragma unroll
+          for (int i = 0; i < kPerThread; ++i) v[i] = 0.0f;
+          if (a.term[t] == kTermImage) {
+            if (q.iid >= 0) loadn<kVec>(a.img + (size_t)q.iid * N, n0, N, v);
+          } else if (a.term[t] == kTermPref) {
+            if (q.fid >= 0) loadn<kVec>(a.pref + (size_t)q.fid * N, n0, N, v);
+          } else if (a.term[t] == kTermTaint && ts_bits) {
+#pragma unroll
+            for (int i = 0; i < kPerThread; ++i) v[i] = tsc_s[k][ts[i]];
+          } else if (a.term[t] == kTermTaint) {
+            const float* row = a.tscore + (size_t)q.tl * a.Ts;
+#pragma unroll
+            for (int i = 0; i < kPerThread; ++i) v[i] = __ldg(row + ts[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < kPerThread; ++i) s[i] = __fmaf_rn(a.weight[t], v[i], s[i]);
+        }
+      }
+      float o[kPerThread];
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i)
+        o[i] = ok[i] ? fminf(fmaxf(s[i], -1e6f), 1e6f) : kNegInf;
+      float* dst = a.out + (size_t)p * N + n0;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int nc = n0 + c * kStride;
+        if (kVec) {
+          if (nc < N)
+            __stcs(reinterpret_cast<float4*>(dst + c * kStride),
+                   make_float4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (nc + i < N) __stcs(dst + c * kStride + i, o[4 * c + i]);
+        }
+      }
+    }
+  }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -188,7 +420,29 @@ extern "C" int static_base_launch(
   a.term[0] = term0; a.term[1] = term1; a.term[2] = term2;
   a.weight[0] = w0; a.weight[1] = w1; a.weight[2] = w2;
   a.n_terms = n_terms;
-  dim3 grid((N + kThreads - 1) / kThreads, P < 65535 ? P : 65535);
-  static_base_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
+  // the vector path: every row 4-node aligned for its width
+  const bool vec = N % 4 == 0 && aligned(out, 16) && aligned(pref, 16) &&
+                   aligned(img, 16) && aligned(node_taintset, 16) &&
+                   aligned(req, 4) && aligned(mask, 4) && aligned(node_valid, 4) &&
+                   aligned(node_unsched, 4);
+  const size_t smem = (flags & kFit) ? (size_t)R * (kTile + kPodGroup) * sizeof(float) : 0;
+  const int groups = (P + kPodGroup - 1) / kPodGroup;
+  dim3 grid((N + kTile - 1) / kTile, groups < kMaxGridY ? groups : kMaxGridY);
+  cudaError_t err;
+  if (vec) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(static_base_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    static_base_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  } else {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(static_base_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    static_base_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

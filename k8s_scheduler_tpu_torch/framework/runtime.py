@@ -172,7 +172,10 @@ class Framework:
     def dyn_batched(self, ctx: CycleContext, node_requested, extra,
                     static_mask):
         """Returns (mask [P, N], score [P, N]) against the running state,
-        the score summed by `_sum_terms` (a bare product rounded once)."""
+        the score summed by `_sum_terms`: a tensor, or a `commit.Product`
+        when the sum is one bare product, which the rounds engine's base
+        add fuses (`commit.add_static`), as the reference's round program
+        does."""
         snap = ctx.snap
         shared: dict = {}
         mask = static_mask
@@ -186,7 +189,7 @@ class Framework:
         if score is None:
             score = torch.zeros((snap.P, snap.N), dtype=torch.float32,
                                 device=snap.device)
-        return mask, _rounded(score)
+        return mask, score
 
     def score_anchor(self, ctx: CycleContext, node_requested):
         """Weighted sum of the score plugins' node-local capacity components

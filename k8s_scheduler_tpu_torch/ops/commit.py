@@ -35,7 +35,9 @@ class Product(NamedTuple):
 
 
 def add_static(static_row: torch.Tensor, dyn) -> torch.Tensor:
-    """static + dynamic score of one step, with the reference's rounding."""
+    """static + dynamic score, with the reference's rounding: one scan
+    step's row, or a rounds-engine round's [B, N] base, whose compiled add
+    fuses a dynamic sum that is one bare product all the same."""
     if isinstance(dyn, Product):
         return _fma(dyn.x, dyn.c, static_row)
     return static_row + dyn

@@ -4,12 +4,16 @@ holding a pod's images score higher, scaled by image size (ramp between
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import labels as labels_ops
 
 _MIN_IMG = 23.0 * 2**20  # images below this don't move the score
 _MAX_IMG = 1.0 * 2**30  # per upstream maxContainerThreshold
+# the ramp's `/ (max - min) * 100` as the reference's compiled program folds
+# it: one multiply by the f32 constant 100 / (max - min)
+_RAMP = float(np.float32(100.0) / np.float32(_MAX_IMG - _MIN_IMG))
 
 
 def image_table(snap) -> torch.Tensor:  # f32 [Is, N]
@@ -21,7 +25,7 @@ def image_table(snap) -> torch.Tensor:  # f32 [Is, N]
     weighted = snap.imgset_sizes * spread[None, :]  # [Is, I]
     have = node_imgs @ weighted.T  # [N, Is]
     clipped = torch.clamp(have, _MIN_IMG, _MAX_IMG)
-    return ((clipped - _MIN_IMG) / (_MAX_IMG - _MIN_IMG) * 100.0).T.contiguous()
+    return ((clipped - _MIN_IMG) * _RAMP).T.contiguous()
 
 
 def image_locality_score(snap) -> torch.Tensor:  # f32 [P, N] in [0, 100]

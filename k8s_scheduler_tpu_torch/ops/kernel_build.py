@@ -76,10 +76,11 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_cuda_library(name: str) -> Path:
-    """Compile csrc/<name>.cu into _build/lib<name>-<hash>.so (cached; the
-    hash covers the source, the csrc/ headers and the flags)."""
-    src = CSRC_DIR / f"{name}.cu"
+def build_cuda_library(name: str, src: Path | None = None) -> Path:
+    """Compile csrc/<name>.cu, or the source `src` with <name>'s flags,
+    into _build/lib<name>-<hash>.so (cached; the hash covers the source,
+    the csrc/ headers and the flags)."""
+    src = src or CSRC_DIR / f"{name}.cu"
     flags = NVCC_FLAGS + CUDA_KERNELS[name]
     text = src.read_bytes() + b"".join(h.read_bytes()
                                        for h in sorted(CSRC_DIR.glob("*.cuh")))
@@ -97,7 +98,7 @@ def build_cuda_library(name: str) -> Path:
                 f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}"
             )
         os.replace(tmp, out)
-        build_logs[name] = proc.stderr
+        build_logs[name if src.parent == CSRC_DIR else str(src)] = proc.stderr
     return out
 
 

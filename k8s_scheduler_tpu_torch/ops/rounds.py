@@ -36,6 +36,7 @@ from . import guard_sweep as gs
 from . import interpod as interpod_ops
 from .capacity import capacity
 from .claim_pass import NEG_INF, claim_pass
+from .commit import add_static
 from .resources import fit_slack
 
 MS_MATCH = 4  # guard-active selectors tracked per pod (overflow = defer)
@@ -94,7 +95,9 @@ def rounds_commit(
     snap,
     sbase: torch.Tensor,  # f32 [P, N] static base (NEG_INF where infeasible)
     m_pending: torch.Tensor,  # bool [S, P]
-    dyn_batched_view_fn: Callable,  # (vsnap, vmp, node_req, ext, vsmask) -> (mask, score)
+    # (vsnap, vmp, node_req, ext, vsmask) -> (mask, score); score f32 [B, N]
+    # or a `commit.Product`, which the base add fuses as the reference does
+    dyn_batched_view_fn: Callable,
     update_batched_view_fn: Callable,  # (vsnap, vmp, ext, accepted, node_of) -> ext
     extra: Any,
     max_rounds: int = 64,
@@ -235,7 +238,7 @@ def rounds_commit(
         vsmask = vsbase > NEG_INF * 0.5
         mask, score = dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsmask)
         mask = mask & vsmask & act_v[:, None]
-        base = vsbase + score
+        base = add_static(vsbase, score)
         anchor0 = score_anchor_fn(node_req) if score_anchor_fn is not None else None
         pid = torch.arange(B, device=dev)
         req = vsnap.pod_requested

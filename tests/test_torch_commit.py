@@ -308,6 +308,9 @@ def _profile(config, name):
     elif name == "balanced_static":  # the one dynamic score, static ones on
         score = config.PluginSet(disabled=["NodeResourcesFit", "InterPodAffinity",
                                            "PodTopologySpread"])
+    elif name == "fit_three_static":  # the fit score over three resources alone
+        score = config.PluginSet(disabled=["NodeResourcesBalancedAllocation",
+                                           "InterPodAffinity", "PodTopologySpread"])
     else:
         score = config.PluginSet()
     args = ({"NodeResourcesFit": {"scoring_strategy": "MostAllocated",
@@ -316,6 +319,8 @@ def _profile(config, name):
     if name in RESOURCE_PROFILES:  # constant means over 3 or 4 resources
         a = {"score_resources": RESOURCE_PROFILES[name]}
         args = {"NodeResourcesFit": a, "NodeResourcesBalancedAllocation": a}
+    if name == "fit_three_static":
+        args = {"NodeResourcesFit": {"score_resources": _THREE}}
     return config.SchedulerConfiguration(profiles=[config.Profile(
         plugins=config.Plugins(score=score), plugin_config=args)])
 

@@ -76,6 +76,9 @@ CASES = {
     # scores over three or four resources
     "c1_three_resources": ("c1", {"profile": "three_resources"}),
     "c1_four_resources": ("c1", {"profile": "four_resources"}),
+    # ... and the fit score over three resources as the one dynamic score:
+    # a bare product the round's base add fuses (ROADMAP C3)
+    "c1_fit_three_static": ("c1", {"profile": "fit_three_static"}),
 }
 
 

@@ -53,6 +53,7 @@ from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, guard_sweep,
                                          interpod_terms, kernel_build, preempt_claim,
                                          preempt_prefilter, preempt_whatif, preemption,
                                          static_base)
+from k8s_scheduler_tpu_torch.utils import kernel_cases
 from test_torch_encoding import reference_snapshot
 
 def _carry(ref):
@@ -203,6 +204,51 @@ def test_interpod_terms_guard_on_the_raw_sums():
     interpod_terms.check_exact_range(_carry(ref))
 
 
+# the seeded K1 edge cases (utils/kernel_cases.py): each static filter
+# alone, the fit filter and the sampling window alone, 0-3 score terms
+K1_EDGE = (
+    [(f"{f} alone", (f,), 3, None) for f in kernel_cases.K1_FILTERS]
+    + [("fit alone", (), 3, "fit"), ("sampling alone", (), 3, "sampling")]
+    + [(f"{k} score terms", kernel_cases.K1_FILTERS, k, None) for k in range(4)])
+
+
+@pytest.mark.parametrize("case", K1_EDGE, ids=[c[0] for c in K1_EDGE])
+def test_static_base_plain_edge_cases_match_reference(case):
+    import k8s_scheduler_tpu.config as ref_config
+    import k8s_scheduler_tpu.models as ref_models
+    import k8s_scheduler_tpu_torch.config as port_config
+
+    _, filters, n_scores, extra = case
+    nodes, pods, existing = kernel_cases.k1_objects(ref_models)
+    ref = ref_models.SnapshotEncoder().encode(nodes, pods, existing)
+    port = _carry(ref)
+    rfw = ref_rt.Framework.from_config(kernel_cases.k1_profile(ref_config, filters, n_scores))
+    pct = kernel_cases.K1_SAMPLING_PCT
+
+    def ref_sbase(s):
+        mask, score = rfw.static_lean(ref_if.CycleContext(s))
+        if extra == "sampling":
+            mask = mask & ref_cycle.sampling_mask(s, pct)
+        if extra == "fit":
+            mask = mask & ref_res.fit_mask(s.pod_requested, s.node_allocatable,
+                                           s.node_requested)
+        return jnp.where(mask, jnp.clip(score, -1e6, 1e6), ref_rounds.NEG_INF)
+
+    want = np.asarray(jax.jit(ref_sbase)(ref))
+    x = static_base.static_base_inputs(
+        Framework.from_config(kernel_cases.k1_profile(port_config, filters, n_scores)),
+        CycleContext(port), fit=extra == "fit",
+        sampling=sampling_window(port, pct) if extra == "sampling" else None)
+    assert len(x.terms) == n_scores
+    got = static_base.static_base_plain(x).numpy()
+    np.testing.assert_array_equal(got > -5e8, want > -5e8)
+    np.testing.assert_array_equal(got, want)
+    # the filter under test masks pairs that node validity alone keeps
+    valid = np.asarray(ref.node_valid)[None, :] & np.asarray(ref.pod_valid)[:, None]
+    if filters != kernel_cases.K1_FILTERS:
+        assert ((got < -5e8) & valid).any()
+
+
 def test_static_base_rejects_an_uncovered_static_plugin():
     from k8s_scheduler_tpu_torch.framework.interfaces import PluginBase
 
@@ -294,6 +340,38 @@ def test_capacity_plain_revocation_fold_matches_scatter(seed):
     t = torch.from_numpy
     acc, got = capacity.capacity_plain(t(key[order]), t(order), 0, t(-req), t(node_req),
                                        t(alloc), t(slack), False)
+    want = jax.jit(lambda nr: nr.at[jnp.where(revoked, best, 0)].add(
+        jnp.where(revoked[:, None], -req, 0.0)))(node_req)
+    np.testing.assert_array_equal(acc.numpy(), revoked)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+_CAPACITY_CASES = kernel_cases.capacity_cases()
+
+
+@pytest.mark.parametrize("tag", [t for t in _CAPACITY_CASES if "fold" not in t])
+def test_capacity_plain_edge_cases_match_reference(tag):
+    """The seeded K5 edge cases (utils/kernel_cases.py): node runs across
+    the 32- and 256-claim boundaries, one and eight resources, every claim
+    dead."""
+    args, raw = _CAPACITY_CASES[tag]
+    want = jax.jit(_reference_capacity)(*raw)
+    got = capacity.capacity_plain(*args)
+    live = raw[0]
+    assert int(np.asarray(want[0]).sum()) == 0 if not live.any() else \
+        0 < int(np.asarray(want[0]).sum()) < int(live.sum())
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    # by value: the cases' -0.0 rows (the kernel's bit-copy rule, held on
+    # the card) come out +0.0 from the reference's one-hot add where no
+    # claim lands; the encoder never makes -0.0
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_capacity_plain_edge_fold_matches_scatter():
+    """The seeded revocation fold of five claims (check=False, negative
+    requests): the reference's `.at[node].add(-req)`."""
+    args, (revoked, best, req, node_req) = _CAPACITY_CASES["revocation fold, 5 claims"]
+    acc, got = capacity.capacity_plain(*args)
     want = jax.jit(lambda nr: nr.at[jnp.where(revoked, best, 0)].add(
         jnp.where(revoked[:, None], -req, 0.0)))(node_req)
     np.testing.assert_array_equal(acc.numpy(), revoked)
