@@ -5,10 +5,10 @@ NVIDIA GPU.
     python3 chip_smoke.py [--prev-csrc DIR]
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
-engine latency cycle `build_cycle_fn()(snapshot)`, and the scan engine's
-`build_cycle_fn(commit_mode="scan")` — on three workloads at BASELINE
-config #4's cluster size (5000 nodes, 12000 running pods, 10000 pending
-pods, padded P=16384, N=8192):
+engine latency cycle `build_cycle_fn(commit_mode="rounds")(snapshot)`, and
+the scan engine's (`commit_mode="scan"`, `build_cycle_fn`'s default) — on
+three workloads at BASELINE config #4's cluster size (5000 nodes, 12000
+running pods, 10000 pending pods, padded P=16384, N=8192):
 
   slice 1  config #2's constraint mix on the pending side (node selectors,
            taints and tolerations; no inter-pod affinity);
@@ -26,14 +26,22 @@ Phases:
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every csrc/*.cu at once (one process per
                 source; with --prev-csrc, also an earlier design's
-                capacity.cu and static_base.cu, timed beside the kernels as
-                prev_ms), Triton compiles K2 `claim_pass` meanwhile; then
-                K5 `capacity` and K1 `static_base` against their plain
+                preempt_claim.cu and affinity_update.cu, timed beside the
+                kernels as prev_device_ms), Triton compiles K2 `claim_pass`
+                meanwhile; then K5 `capacity`, K1 `static_base`, K9
+                `preempt_claim` and K4 `affinity_update` against their plain
                 versions, bit for bit, on the seeded edge cases of
                 `utils/kernel_cases.py` (node runs across 32 and 256 claims,
                 every claim dead, R = 1 and 8, a revocation fold; each
                 filter bit alone, 0-3 score terms, N = 8 and 13, misaligned
-                rows, P = 65537);
+                rows, P = 65537; K9 at N = 13, 8193 and 8199, the winner in
+                the last node slice, equal keys in two slices, one node
+                taken by consecutive ranks, PDB budgets spent, ports that
+                block, n_live 0 and C2, R = 1 and 8, MB = 4, wrapping
+                priority sums; K4 with nodes without a domain, empty term
+                slots, one selector for many pods, preferred sums near
+                2^24, MA = 1 and 4, B = 13, no accepted pod, no inter-pod
+                affinity);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
                 decisions required), K1/K2 against their plain versions
                 with timings (K1 beside `torch.empty(P, N).fill_(-1e9)`),
@@ -42,8 +50,9 @@ Phases:
                 launch counts read around them;
   4. affinity — the same on config #4's workload, with K3-K6 held against
                 their plain versions at full size (bit-equal; K3 also on a
-                preferred / ScheduleAnyway variant; K5 on every pass and
-                revocation fold of the cycle, timed on the device), cycles
+                preferred / ScheduleAnyway variant; K4 on every round and
+                K5 on every pass and revocation fold of the cycle, timed on
+                the device), cycles
                 under resource scores over three resources and under the
                 fit score over them as the one dynamic score against their
                 plain-versions cycles, K1 on the phase's snapshot, and each
@@ -77,7 +86,8 @@ Phases:
                 static masks; anti-affinity both ways, required affinity or
                 its bootstrap and DoNotSchedule skew, each at the pod's own
                 step, by a host replay in rank order), DefaultPreemption after
-                each equal to the plain versions' pass with every nomination
+                each equal to the plain versions' pass (and K9 to
+                `claim_loop_plain` on each pass) with every nomination
                 valid, a second scan cycle over the pods one seed's scan
                 left unplaced (its placements running), and one scan cycle
                 on slice 1's workload (resource-
@@ -100,11 +110,15 @@ Phases:
                 twice, every slot served statically or dynamically), K10
                 once per cycle plus once per round, K11 and K12 once per
                 round, then DefaultPreemption after each cycle (K10 once
-                per pass), equal to its plain versions, nominations valid
+                per pass), equal to its plain versions (K9 to
+                `claim_loop_plain` on each pass), nominations valid
                 and through the volume gate.
 
-The second-to-last lines are the kernel table (JSON) and the card's
-`nvidia-smi` name and power limit; the last line is the result JSON.
+The second-to-last lines are the kernel table (JSON; each kernel's `ms`
+by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
+graph of the calls replayed between events — K13's from torch.profiler)
+and the card's `nvidia-smi` name and power limit; the last line is the
+result JSON.
 Exits non-zero, printing no result, without a CUDA device, without the
 port's package beside it, or when any check fails.
 """
@@ -131,6 +145,7 @@ WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
 AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
 PDB_SEED = 17  # config4_pdbs draw of the PDB variant
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
+PREV_KERNELS = ("preempt_claim", "affinity_update")  # timed against --prev-csrc
 
 
 def log(msg: str) -> None:
@@ -453,13 +468,32 @@ def encode_all(torch, enc, nodes, existing, pending):
     return snaps, ms
 
 
-def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms,
+def kernel_entry(name, route, source, replaces, launches, err, ms, device_ms_, plain_ms,
                  nbytes_, ops, library_ms=None, **extra):
+    """One kernel's line of the JSON table: `ms` by CUDA events around
+    eager wrapper calls, `device_ms` the device's time for the calls (a
+    CUDA-graph replay, `kernel_variants.device_ms`, unless said otherwise)."""
     b, by = bound(nbytes_, ops)
     return {"name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms_,
             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": library_ms, **extra}
+
+
+def profiled_device_ms(torch, fn, reps: int) -> float:
+    """Mean device ms per call of fn's kernels, from torch.profiler's CUDA
+    activities: for a wrapper that reads device values on the host (K13's
+    exactness bound), which a CUDA graph cannot capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -479,6 +513,59 @@ def prev_ms(torch, kb, prev_libs, name, fn, reps, timer=None):
         return None
     timer = timer or (lambda f, r: time_ms(torch, f, r))
     return with_library(name, prev_libs[name], lambda: timer(fn, reps))
+
+
+def claim_edge_checks(torch, dev) -> dict:
+    """K9 against `claim_loop_plain` on the seeded edge cases
+    (`utils/kernel_cases.claim_cases`): nominations and carry bit-equal;
+    {case: the launch's shape}."""
+    from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import claim_cases
+
+    shapes = {}
+    for tag, x in claim_cases(dev).items():
+        (nk, ck), (np_, cp_) = k9.preempt_claim_cuda(x), pre.claim_loop_plain(x)
+        check(torch.equal(nk, np_) and all(torch.equal(getattr(ck, f), getattr(cp_, f))
+                                           for f in vars(ck)),
+              f"preempt_claim differs from claim_loop_plain ({tag})")
+        shapes[tag] = k9.claim_shape(x)
+    return shapes
+
+
+def claims_equal(torch, rec, tag) -> int:
+    """K9 against `claim_loop_plain` on every pass `rec` (a Recorder of the
+    claim stage) saw, nominations and carry bit-equal; the pass count."""
+    from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+
+    for i, (x,) in sorted(rec.args.items()):
+        (nk, ck), (np_, cp_) = k9.preempt_claim_cuda(x), pre.claim_loop_plain(x)
+        check(torch.equal(nk, np_) and all(torch.equal(getattr(ck, f), getattr(cp_, f))
+                                           for f in vars(ck)),
+              f"{tag}: preempt_claim differs from claim_loop_plain (pass {i})")
+    return len(rec.args)
+
+
+def affinity_update_edge_checks(torch, dev) -> list[str]:
+    """K4 against `affinity_update_plain` on the seeded edge cases
+    (`utils/kernel_cases.affinity_update_raw_cases`), twice each (a call
+    must leave nothing that changes the next), tables bit-equal and below
+    2^24."""
+    from k8s_scheduler_tpu_torch.kernel_variants import states_equal
+    from k8s_scheduler_tpu_torch.ops import affinity_update as au
+    from k8s_scheduler_tpu_torch.utils import kernel_cases
+
+    cases = kernel_cases.affinity_update_raw_cases()
+    for tag, raw in cases.items():
+        args = kernel_cases.affinity_update_args(raw, dev)
+        for _ in range(2):
+            got = au.affinity_update_cuda(*args)
+            check(states_equal(got, au.affinity_update_plain(*args)),
+                  f"affinity_update differs from its plain version ({tag})")
+            check(float(got.pref_sym.abs().max()) < EXACT_F32,
+                  f"pref_sym left the exact f32 range ({tag})")
+    return list(cases)
 
 
 def capacity_calls_equal(torch, cap, calls, tag) -> tuple[int, int]:
@@ -638,12 +725,13 @@ def whatif_bytes(torch, wi) -> int:
 
 
 def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisions,
-                     cycle_ms, cycle_k, smi, slice1_case):
+                     cycle_ms, cycle_k, smi, slice1_case, prev_libs):
     """Phase 5 (module docstring), plus the same checks on slice 1's first
     timed snapshot and decision (no affinity or spread: K8's path without
     the affinity tables). Returns {"kernels": entries, "ms": [...]}."""
     from k8s_scheduler_tpu_torch.core.cycle import _preemption_gate_rows, build_preemption_fn
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
     from k8s_scheduler_tpu_torch.ops import preempt_prefilter as k7
@@ -741,12 +829,14 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     N, MPN = pf[3].shape
     C2 = wi.ports.shape[0]
     k7_ms = time_ms(torch, lambda: k7.preempt_prefilter_cuda(*pf), 20)
+    k7_dev = device_ms(lambda: k7.preempt_prefilter_cuda(*pf), 20)
     k7_plain = time_ms(torch, lambda: pre.prefilter_plain(*pf), 3)
     k7_bytes = nbytes(*pf) + C
     gated = pf[6] & pf[7][None, :]
     elig = (pf[3][None] < pf[0][:, None, None]).sum(dim=2)
     k7_ops = int(gated.sum()) * MPN + 2 * R * int((elig * gated).sum())
     k8_ms = time_ms(torch, lambda: k8.preempt_whatif_cuda(wi), 20)
+    k8_dev = device_ms(lambda: k8.preempt_whatif_cuda(wi), 20)
     k8_plain = time_ms(torch, lambda: pre.nonresource_ok_plain(wi), 2)
     k8_bytes = whatif_bytes(torch, wi)
     n_terms = C2 + int((wi.ports >= 0).any(dim=1).sum())  # symmetric, ports
@@ -757,6 +847,10 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
         n_terms += int(((wi.tsc[..., 0] >= 0) & (wi.tsc[..., 2] == 0)).sum())
     k8_ops = n_terms * N * (MPN + 1) * 4  # per prefix: match, count, compare
     k9_ms = time_ms(torch, lambda: k9.preempt_claim_cuda(cl), 20)
+    k9_dev = device_ms(lambda: k9.preempt_claim_cuda(cl), 20)
+    k9_prev = prev_ms(torch, kb, prev_libs, "preempt_claim",
+                      lambda: k9.preempt_claim_cuda(cl), 20, device_ms)
+    k9_shape = k9.claim_shape(cl)
     k9_plain = time_ms(torch, lambda: pre.claim_loop_plain(cl), 2)
     n_live = int(cl.n_live.item())
     t = cl.tables
@@ -767,13 +861,19 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
                 + C2 * 4 + N * 4 + N * R * 4)
     k9_ops = n_live * N * (MPN + 1) * (2 * R + 4)
     log(f"phase kernel preempt_prefilter: [{C}, {N}, {MPN + 1}] equal True; kernel "
-        f"{k7_ms:.3f} ms, plain {k7_plain:.3f} ms, bound {bound(k7_bytes, k7_ops)[0]:.4f} ms")
+        f"{k7_ms:.3f} ms ({k7_dev:.4f} ms device), plain {k7_plain:.3f} ms, bound "
+        f"{bound(k7_bytes, k7_ops)[0]:.4f} ms")
     log(f"phase kernel preempt_whatif: [{C2}, {N}, {MPN + 1}] equal True (also at "
         f"{wide_whatif(wi).node_pods.shape[1]} pods per node on 512 nodes); kernel "
-        f"{k8_ms:.3f} ms, plain {k8_plain:.3f} ms, bound {bound(k8_bytes, k8_ops)[0]:.4f} ms")
-    log(f"phase kernel preempt_claim: {n_live} live ranks over [{N}] nodes, one launch; "
-        f"equal True (nominations, carry); kernel {k9_ms:.3f} ms, plain {k9_plain:.3f} ms, "
-        f"bound {bound(k9_bytes, k9_ops)[0]:.4f} ms")
+        f"{k8_ms:.3f} ms ({k8_dev:.4f} ms device), plain {k8_plain:.3f} ms, bound "
+        f"{bound(k8_bytes, k8_ops)[0]:.4f} ms")
+    log(f"phase kernel preempt_claim: {n_live} live ranks over [{N}] nodes, one cluster "
+        f"launch of {k9_shape['cluster']} CTAs (victim tables in shared memory "
+        f"{k9_shape['staged']}, {k9_shape['smem']} B a CTA); equal True (nominations, "
+        f"carry); kernel {k9_ms:.3f} ms, {k9_dev:.4f} ms device ("
+        f"{1e3 * k9_dev / max(n_live, 1):.2f} us a step; earlier design: "
+        f"{'not built' if k9_prev is None else f'{k9_prev:.4f} ms device'}), plain "
+        f"{k9_plain:.3f} ms, bound {bound(k9_bytes, k9_ops)[0]:.4f} ms")
     del stage_args, pf, wi, cl
 
     # the PDB variant: one budget per app over the running pods
@@ -804,13 +904,14 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     entries = {
         "preempt_prefilter": kernel_entry(
             "preempt_prefilter", "cuda", src + "preempt_prefilter.cu", ref + "201",
-            launches["preempt_prefilter"], 0.0, k7_ms, k7_plain, k7_bytes, k7_ops),
+            launches["preempt_prefilter"], 0.0, k7_ms, k7_dev, k7_plain, k7_bytes, k7_ops),
         "preempt_whatif": kernel_entry(
             "preempt_whatif", "cuda", src + "preempt_whatif.cu", ref + "246",
-            launches["preempt_whatif"], 0.0, k8_ms, k8_plain, k8_bytes, k8_ops),
+            launches["preempt_whatif"], 0.0, k8_ms, k8_dev, k8_plain, k8_bytes, k8_ops),
         "preempt_claim": kernel_entry(
             "preempt_claim", "cuda", src + "preempt_claim.cu", ref + "402",
-            launches["preempt_claim"], 0.0, k9_ms, k9_plain, k9_bytes, k9_ops),
+            launches["preempt_claim"], 0.0, k9_ms, k9_dev, k9_plain, k9_bytes, k9_ops,
+            prev_device_ms=k9_prev, cluster=k9_shape["cluster"]),
     }
     return {"kernels": entries, "ms": ms}
 
@@ -1006,12 +1107,14 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     from k8s_scheduler_tpu_torch.core.cycle import (_preemption_gate_rows, build_cycle_fn,
                                                     build_preemption_fn, sampling_window)
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.ops import affinity_update as au
     from k8s_scheduler_tpu_torch.ops import capacity as cap
     from k8s_scheduler_tpu_torch.ops import claim_pass as cp
     from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
     from k8s_scheduler_tpu_torch.ops import interpod_terms as ipt
+    from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
     from k8s_scheduler_tpu_torch.ops import preemption as pre
     from k8s_scheduler_tpu_torch.ops import pv_choice as k11
     from k8s_scheduler_tpu_torch.ops import pv_fold as k12
@@ -1055,13 +1158,14 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
            "interpod_terms": Recorder(ipt.interpod_terms_plain)}
     cap_rec = Recorder(cap.capacity_plain, keep=None)  # every pass and fold
     cycle_vp = build_cycle_fn(
-        device=dev, static_base_fn=sb.static_base_plain, claim_pass_fn=cp.claim_pass_plain,
+        commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
+        claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=ipt.interpod_norm_plain,
         affinity_update_fn=au.affinity_update_plain, capacity_fn=cap_rec,
         guard_sweep_fn=gs.guard_sweep_plain, volume_mask_fn=rec["volume_mask"],
         pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"])
     fold_k = Recorder(k12.pv_fold, keep=())  # the last fold: the final claims
-    cycle_k = build_cycle_fn(device=dev, pv_fold_fn=fold_k)
+    cycle_k = build_cycle_fn(commit_mode="rounds", device=dev, pv_fold_fn=fold_k)
     t0 = time.time()
     dk = cycle_k(snap0)
     torch.cuda.synchronize()
@@ -1110,6 +1214,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
               f"volume_mask ({tag}) differs from its plain version")
     k10_ms = time_ms(torch, lambda: k10.volume_mask_cuda(*s_args), 20)
     k10u_ms = time_ms(torch, lambda: k10.volume_mask_cuda(*u_args), 20)
+    k10_dev = device_ms(lambda: k10.volume_mask_cuda(*s_args), 10)
+    k10u_dev = device_ms(lambda: k10.volume_mask_cuda(*u_args), 10)
     k10_plain = time_ms(torch, lambda: vol.volume_mask_plain(*s_args), 2)
     k10u_plain = time_ms(torch, lambda: vol.volume_mask_plain(*u_args), 2)
     cand_f = vol.pod_pv_cand(snap0, 0).float()
@@ -1125,7 +1231,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
                  + int(torch.unique(rids[rids >= 0]).numel()) * N)
     k10_ops = walkers * (L + N * G) * (3 * MVol + n_sub) + P * N
     log(f"phase kernel volume_mask: [{P}, {N}] equal True (static and unbound); kernel "
-        f"{k10_ms:.3f} ms static, {k10u_ms:.3f} ms unbound; plain {k10_plain:.3f} / "
+        f"{k10_ms:.3f} ms static, {k10u_ms:.3f} ms unbound ({k10_dev:.4f} / {k10u_dev:.4f} "
+        f"ms device); plain {k10_plain:.3f} / "
         f"{k10u_plain:.3f} ms; dense count product [{P}, {V}] x [{V}, {N}] f32 "
         f"{k10_lib:.3f} ms; bound {bound(k10_bytes, k10_ops)[0]:.4f} ms; {walkers} pods "
         f"walk {L} node-list entries (mean {L / N_NODES:.2f} a node) + G = {G} global "
@@ -1137,6 +1244,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     check(torch.equal(k11.pv_choice_cuda(*c_args), vol.pv_choice_plain(*c_args)),
           "pv_choice differs from its plain version")
     k11_ms = time_ms(torch, lambda: k11.pv_choice_cuda(*c_args), 20)
+    k11_dev = device_ms(lambda: k11.pv_choice_cuda(*c_args), 20)
     k11_plain = time_ms(torch, lambda: vol.pv_choice_plain(*c_args), 2)
 
     def list_bytes(snap_v, nodes_v, rows):
@@ -1166,16 +1274,19 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
           "pv_fold differs from its plain version on the contended batch")
     check(passes_c > 1, "the contended batch folded in one pass")
     k12_ms = time_ms(torch, lambda: k12.pv_fold_cuda(*f_args), 20)
+    k12_dev = device_ms(lambda: k12.pv_fold_cuda(*f_args), 20)
     k12_plain = time_ms(torch, lambda: vol.pv_fold_plain(*f_args), 2)
     f_rows = facc & (fsnap.pod_vol_mode == 1).any(dim=1)
     k12_bytes = fnode.shape[0] * 9 + list_bytes(fsnap, fnode, f_rows) + 2 * V
     k12_ops = int(f_rows.sum()) * MVol * passes0 * 3 * (2 + G) * (3 * MVol + 4)
     log(f"phase kernel pv_choice: {int(c_rows.sum())} claimants with unbound slots of "
-        f"B={B11}; equal True; kernel {k11_ms:.3f} ms, plain {k11_plain:.3f} ms, bound "
+        f"B={B11}; equal True; kernel {k11_ms:.3f} ms ({k11_dev:.4f} ms device), plain "
+        f"{k11_plain:.3f} ms, bound "
         f"{bound(k11_bytes, k11_ops)[0]:.4f} ms")
     log(f"phase kernel pv_fold: {int(f_rows.sum())} claimants, {passes0} pass(es) in one "
         f"launch; equal True, also on a contended batch ({int(many.sum())} claimants at "
-        f"seeded nodes, {passes_c} passes); kernel {k12_ms:.3f} ms, plain {k12_plain:.3f} ms, "
+        f"seeded nodes, {passes_c} passes); kernel {k12_ms:.3f} ms ({k12_dev:.4f} ms device), "
+        f"plain {k12_plain:.3f} ms, "
         f"bound {bound(k12_bytes, k12_ops)[0]:.4f} ms")
     del rec, s_args, u_args, c_args, f_args, cont
 
@@ -1219,7 +1330,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     del results
 
     # ---- preemption after each cycle, with the volume gate ----
-    pre_k = build_preemption_fn(fw, device=dev)
+    claims = Recorder(k9.preempt_claim, keep=None)
+    pre_k = build_preemption_fn(fw, device=dev, claim_fn=claims)
     pre_p = build_preemption_fn(fw, device=dev, prefilter_fn=pre.prefilter_plain,
                                 whatif_fn=pre.nonresource_ok_plain,
                                 claim_fn=pre.claim_loop_plain,
@@ -1241,6 +1353,9 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"{json.dumps(p_launches)}")
     check(p_launches["volume_mask"] == len(AFF_TIMED_SEEDS),
           "volume_mask: not once per preemption pass")
+    n_claims = claims_equal(torch, claims, "volumes preemption")
+    log(f"phase volumes preemption: K9 equal to claim_loop_plain bit for bit on all "
+        f"{n_claims} passes")
     pre_ms = []
     for s, r, dev_ms in timed:
         snap, d = snaps[s], decisions[s]
@@ -1268,13 +1383,14 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     entries = {
         "volume_mask": kernel_entry(
             "volume_mask", "cuda", src + "volume_mask.cu", ref + "159",
-            launches["volume_mask"], 0.0, k10_ms, k10_plain, k10_bytes, k10_ops, k10_lib),
+            launches["volume_mask"], 0.0, k10_ms, k10_dev, k10_plain, k10_bytes, k10_ops,
+            k10_lib, unbound_device_ms=k10u_dev),
         "pv_choice": kernel_entry(
             "pv_choice", "cuda", src + "pv_choice.cu", ref + "535",
-            launches["pv_choice"], 0.0, k11_ms, k11_plain, k11_bytes, k11_ops),
+            launches["pv_choice"], 0.0, k11_ms, k11_dev, k11_plain, k11_bytes, k11_ops),
         "pv_fold": kernel_entry(
             "pv_fold", "cuda", src + "pv_fold.cu", ref + "419",
-            launches["pv_fold"], 0.0, k12_ms, k12_plain, k12_bytes, k12_ops),
+            launches["pv_fold"], 0.0, k12_ms, k12_dev, k12_plain, k12_bytes, k12_ops),
     }
     return {"kernels": entries, "ms": ms, "pre_ms": pre_ms}
 
@@ -1361,6 +1477,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
+    from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
     from k8s_scheduler_tpu_torch.ops import preemption as pre
     from k8s_scheduler_tpu_torch.ops import scan_commit as sc
     from k8s_scheduler_tpu_torch.ops import static_base as sb
@@ -1402,6 +1519,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     nv = int(x.pod_valid.sum())
     rk, k13_plain = kernel_vs_plain(x, f"full size, seed {seed}")
     k13_ms = time_ms(torch, lambda: sc.scan_commit_cuda(x), 3)
+    k13_dev = profiled_device_ms(torch, lambda: sc.scan_commit_cuda(x), 2)
     k13_bytes = scan_bytes(torch, x, rk)
     n_sel = int(x.sel_ptr[-1])
     n_terms = int(((x.aff_terms[..., 0] >= 0).sum() + (x.anti_terms[..., 0] >= 0).sum()
@@ -1412,7 +1530,8 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     k13_ops = nv * x.shape[1] * (10 * R + 8) + (n_terms + n_sel) * x.shape[1]
     k13_bound, k13_by = bound(k13_bytes, k13_ops)
     log(f"phase kernel scan_commit: full size, {nv} steps over [{x.shape[1]}] nodes: "
-        f"kernel {k13_ms:.3f} ms ({1e3 * k13_ms / nv:.2f} us per step), plain "
+        f"kernel {k13_ms:.3f} ms ({1e3 * k13_ms / nv:.2f} us per step; {k13_dev:.3f} ms "
+        f"device, torch.profiler), plain "
         f"{k13_plain:.1f} ms ({k13_plain / nv:.3f} ms per step), bound {k13_bound:.4f} ms "
         f"({k13_by}, bytes {k13_bytes}); placed {int((rk.assignment >= 0).sum())}; "
         f"{n_terms} pod terms, {n_sel} matched selectors | {smi}")
@@ -1462,7 +1581,8 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     check(launches["static_base"] == len(AFF_TIMED_SEEDS), "K1 not once per scan cycle")
     check(launches["claim_pass"] == 0 and launches["capacity"] == 0,
           "a scan cycle launched the rounds engine's kernels")
-    pre_k = build_preemption_fn(fw, device=dev)
+    claims = Recorder(k9.preempt_claim, keep=None)
+    pre_k = build_preemption_fn(fw, device=dev, claim_fn=claims)
     pre_p = build_preemption_fn(fw, device=dev, prefilter_fn=pre.prefilter_plain,
                                 whatif_fn=pre.nonresource_ok_plain,
                                 claim_fn=pre.claim_loop_plain)
@@ -1498,6 +1618,9 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     pre_launch = dict(kb.launch_counts)
     check(pre_launch["preempt_claim"] >= len(AFF_TIMED_SEEDS) and pre_launch["scan_commit"] == 0,
           "preemption after the scan did not run its kernels")
+    n_claims = claims_equal(torch, claims, "preemption after the scan")
+    log(f"phase scan preemption: K9 equal to claim_loop_plain bit for bit on all "
+        f"{n_claims} passes")
     # the scan decides each pod once, at its rank; a second scan cycle over
     # the pods the first left unplaced, with its placements running, places
     # those that later placements made feasible (the rounds engine retries
@@ -1526,7 +1649,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     entry = kernel_entry(
         "scan_commit", "cuda", "k8s_scheduler_tpu_torch/csrc/scan_commit.cu",
         "k8s_scheduler_tpu/ops/commit.py:63", launches["scan_commit"], 0.0,
-        k13_ms, k13_plain, k13_bytes, k13_ops)
+        k13_ms, k13_dev, k13_plain, k13_bytes, k13_ops, device_ms_by="torch.profiler")
     return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
@@ -1537,9 +1660,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--prev-csrc", default=None,
-                    help="a directory holding an earlier design's capacity.cu and "
-                         "static_base.cu (same C interface): timed beside the "
-                         "kernels on the same inputs, as prev_ms")
+                    help="a directory holding an earlier design's preempt_claim.cu "
+                         "and affinity_update.cu: timed beside the kernels on the "
+                         "same inputs, as prev_device_ms")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1553,7 +1676,7 @@ def main(argv=None) -> int:
         return 3
     from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn, sampling_window
     from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels, CycleContext
-    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms, prev_affinity_update
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
@@ -1605,8 +1728,7 @@ def main(argv=None) -> int:
 
     threads = [threading.Thread(target=build, args=(s,)) for s in kb.CUDA_KERNELS]
     if args.prev_csrc:
-        threads += [threading.Thread(target=build_prev, args=(s,))
-                    for s in ("capacity", "static_base")]
+        threads += [threading.Thread(target=build_prev, args=(s,)) for s in PREV_KERNELS]
     for th in threads:
         th.start()
     t0 = time.time()
@@ -1632,9 +1754,15 @@ def main(argv=None) -> int:
     edge = static_base_edge_checks(torch, sb, dev)
     log(f"phase kernel static_base, seeded edge cases: mask equal, max|err| 0.0 on "
         f"{len(edge)} cases: {json.dumps(edge)}")
+    shapes = claim_edge_checks(torch, dev)
+    log(f"phase kernel preempt_claim, seeded edge cases: equal to claim_loop_plain bit "
+        f"for bit on {len(shapes)} cases; launch shapes {json.dumps(shapes)}")
+    edge = affinity_update_edge_checks(torch, dev)
+    log(f"phase kernel affinity_update, seeded edge cases: equal to affinity_update_plain "
+        f"on {len(edge)} cases (each twice): {json.dumps(edge)}")
 
     fw = Framework.from_config()
-    cycle_k = build_cycle_fn(device=dev)
+    cycle_k = build_cycle_fn(commit_mode="rounds", device=dev)
     kernels: dict[str, dict] = {}
 
     # ================= slice 1: config #2's pending mix =================
@@ -1651,7 +1779,8 @@ def main(argv=None) -> int:
         + json.dumps(encode_ms))
 
     rec_cp = Recorder(cp.claim_pass_plain, keep=(0, 3))  # round 0, passes 0, 3
-    cycle_p = build_cycle_fn(device=dev, static_base_fn=sb.static_base_plain,
+    cycle_p = build_cycle_fn(commit_mode="rounds", device=dev,
+                             static_base_fn=sb.static_base_plain,
                              claim_pass_fn=rec_cp)
     t0 = time.time()
     dk = cycle_k(snap0)
@@ -1671,8 +1800,7 @@ def main(argv=None) -> int:
     x = sb.static_base_inputs(fw, ctx, fit=True, sampling=sampling_window(snap0, 0))
     mask_equal, k1_err = compare_static_base(torch, sb, x)
     k1_ms = time_ms(torch, lambda: sb.static_base_cuda(x), 20)
-    k1_prev_ms = prev_ms(torch, kb, prev_libs, "static_base",
-                         lambda: sb.static_base_cuda(x), 20)
+    k1_dev = device_ms(lambda: sb.static_base_cuda(x), 10)
     k1_fill_ms = time_ms(torch, lambda: torch.empty((P, N), device=dev).fill_(sb.NEG_INF),
                          20)
     k1_plain_ms = time_ms(torch, lambda: sb.static_base_plain(x), 3)
@@ -1680,8 +1808,7 @@ def main(argv=None) -> int:
                                     if isinstance(v, torch.Tensor)])
     k1_ops = P * N * (2 * len(x.terms) + 2)
     log(f"phase kernel static_base: [{P}, {N}] mask equal {mask_equal}, "
-        f"max|err| {k1_err}; kernel {k1_ms:.3f} ms (earlier design "
-        f"{'not built' if k1_prev_ms is None else f'{k1_prev_ms:.3f} ms'}), "
+        f"max|err| {k1_err}; kernel {k1_ms:.3f} ms ({k1_dev:.4f} ms device), "
         f"torch.empty(P, N).fill_(-1e9) {k1_fill_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
         f"bound {bound(k1_bytes, k1_ops)[0]:.3f} ms (bytes {k1_bytes})")
 
@@ -1700,6 +1827,7 @@ def main(argv=None) -> int:
     base, mask, dead, acc, delta, gid, nominated = args0
     B = base.shape[0]
     k2_ms = time_ms(torch, lambda: cp.claim_pass_triton(*args0), 20)
+    k2_dev = device_ms(lambda: cp.claim_pass_triton(*args0), 20)
     k2_plain_ms = time_ms(torch, lambda: cp.claim_pass_plain(*args0), 5)
     avail = mask & ~dead & ~acc[:, None]
     eff = torch.where(avail, torch.round(base) + cp.tie_break(gid, N), cp.NEG_INF)
@@ -1707,7 +1835,8 @@ def main(argv=None) -> int:
     del avail, eff
     k2_bytes = nbytes(base, mask, dead, acc, gid, nominated) + B * (4 + 1)
     k2_ops = B * N * 8
-    log(f"phase kernel claim_pass: [{B}, {N}] kernel {k2_ms:.3f} ms, plain "
+    log(f"phase kernel claim_pass: [{B}, {N}] kernel {k2_ms:.3f} ms ({k2_dev:.4f} ms "
+        f"device), plain "
         f"{k2_plain_ms:.3f} ms, torch.argmax yardstick {k2_lib_ms:.3f} ms, "
         f"bound {bound(k2_bytes, k2_ops)[0]:.3f} ms (bytes {k2_bytes})")
     del rec_cp, args0, args, base, mask, dead, x, dk, dp
@@ -1728,11 +1857,11 @@ def main(argv=None) -> int:
     kernels["static_base"] = kernel_entry(
         "static_base", "cuda", "k8s_scheduler_tpu_torch/csrc/static_base.cu",
         "k8s_scheduler_tpu/ops/rounds.py:338", launches1["static_base"], k1_err,
-        k1_ms, k1_plain_ms, k1_bytes, k1_ops, prev_ms=k1_prev_ms, fill_ms=k1_fill_ms)
+        k1_ms, k1_dev, k1_plain_ms, k1_bytes, k1_ops, fill_ms=k1_fill_ms)
     kernels["claim_pass"] = kernel_entry(
         "claim_pass", "triton", "k8s_scheduler_tpu_torch/ops/claim_pass.py",
         "k8s_scheduler_tpu/ops/rounds.py:805", launches1["claim_pass"], k2_err,
-        k2_ms, k2_plain_ms, k2_bytes, k2_ops, k2_lib_ms)
+        k2_ms, k2_dev, k2_plain_ms, k2_bytes, k2_ops, k2_lib_ms)
     slice1_case = (snaps[results[0][0]], results[0][1])  # for the preemption phase
     del results, snaps, snap0, ctx
 
@@ -1757,12 +1886,12 @@ def main(argv=None) -> int:
     rec = {
         "interpod_terms": Recorder(ipt.interpod_terms_plain),
         "interpod_norm": Recorder(ipt.interpod_norm_plain, keep=(0, 1)),
-        "affinity_update": Recorder(au.affinity_update_plain),
+        "affinity_update": Recorder(au.affinity_update_plain, keep=None),  # every round
         "capacity": Recorder(cap.capacity_plain, keep=None),  # every pass and fold
         "guard_sweep": Recorder(gs.guard_sweep_plain),
     }
     cycle_ap = build_cycle_fn(
-        device=dev, static_base_fn=sb.static_base_plain,
+        commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=rec["interpod_norm"],
         affinity_update_fn=rec["affinity_update"], capacity_fn=rec["capacity"],
@@ -1785,9 +1914,9 @@ def main(argv=None) -> int:
     # resource scores averaged over three resources (a weight sum whose
     # reciprocal is inexact): the kernels' cycle against the plain versions'
     fw3 = Framework.from_config(resource_profile(RESOURCES_3))
-    d3k = build_cycle_fn(fw3, device=dev)(snap0)
+    d3k = build_cycle_fn(fw3, commit_mode="rounds", device=dev)(snap0)
     d3p = build_cycle_fn(
-        fw3, device=dev, static_base_fn=sb.static_base_plain,
+        fw3, commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
         interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
         capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain)(snap0)
@@ -1801,9 +1930,9 @@ def main(argv=None) -> int:
     # ... and the fit score over those three resources as the one dynamic
     # score: a bare product that the round's base add fuses (ROADMAP C3)
     fwf = Framework.from_config(fit_only_profile(RESOURCES_3))
-    dfk = build_cycle_fn(fwf, device=dev)(snap0)
+    dfk = build_cycle_fn(fwf, commit_mode="rounds", device=dev)(snap0)
     dfp = build_cycle_fn(
-        fwf, device=dev, static_base_fn=sb.static_base_plain,
+        fwf, commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
         interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
         capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain)(snap0)
@@ -1842,6 +1971,7 @@ def main(argv=None) -> int:
     k3_equal = equal_outputs(out_k, out_p)
     check(k3_equal, "interpod_terms differs from its plain version")
     k3_ms = time_ms(torch, lambda: ipt.interpod_terms_cuda(*t_args), 10)
+    k3_dev = device_ms(lambda: ipt.interpod_terms_cuda(*t_args), 10)
     k3_plain_ms = time_ms(torch, lambda: ipt.interpod_terms_plain(*t_args), 2)
     k3_sym_ms = time_ms(torch, lambda: (ip.symmetric_anti(tstate, tmp),
                                         ip.symmetric_pref(tstate, tmp)), 10)
@@ -1858,7 +1988,7 @@ def main(argv=None) -> int:
                 + nbytes(out_k.aff_mask, out_k.aff_raw, out_k.spread_mask, out_k.spread_raw))
     k3_ops = 2 * 2 * n_match * N + 3 * n_terms * N  # sparse symmetric sums + term tests
     log(f"phase kernel interpod_terms: [{B3}, {N}] equal {k3_equal}; wrapper "
-        f"{k3_ms:.3f} ms (before the fused symmetric sums: 7.680 ms, PERF.md kernel "
+        f"{k3_ms:.3f} ms ({k3_dev:.4f} ms device; before the fused symmetric sums: 7.680 ms, PERF.md kernel "
         f"table B5), the two symmetric matmuls it no longer runs {k3_sym_ms:.3f} ms, "
         f"plain {k3_plain_ms:.3f} ms, bound {bound(k3_bytes, k3_ops)[0]:.3f} ms "
         f"(bytes {k3_bytes}, ops {k3_ops}); {n_terms} pod terms, {n_match} matches "
@@ -1904,6 +2034,7 @@ def main(argv=None) -> int:
         k3n[spread] = (raw, feas)
     raw, feas = k3n[False]
     k3n_ms = time_ms(torch, lambda: ipt.interpod_norm_cuda(raw, feas, False), 20)
+    k3n_dev = device_ms(lambda: ipt.interpod_norm_cuda(raw, feas, False), 20)
     k3n_plain_ms = time_ms(torch, lambda: ipt.interpod_norm_plain(raw, feas, False), 5)
     # raw is read where feasible (the max) and in rows whose max is > 0
     # (the divide; other rows write 0 without reading it)
@@ -1912,10 +2043,15 @@ def main(argv=None) -> int:
     k3n_bytes = nbytes(feas) + raw.numel() * 4 + n_raw * 4
     k3n_ops = int(feas.sum()) + int(live_rows.sum()) * N * 3
     log(f"phase kernel interpod_norm: [{raw.shape[0]}, {N}] equal True (both modes), "
-        f"{int(live_rows.sum())} rows with a score; kernel {k3n_ms:.3f} ms, plain {k3n_plain_ms:.3f} ms, bound "
+        f"{int(live_rows.sum())} rows with a score; kernel {k3n_ms:.3f} ms ({k3n_dev:.4f} "
+        f"ms device), plain {k3n_plain_ms:.3f} ms, bound "
         f"{bound(k3n_bytes, k3n_ops)[0]:.3f} ms")
 
-    # K4 affinity update
+    # K4 affinity update: every round of the cycle, timed on round 0's
+    for i, a_ in sorted(rec["affinity_update"].args.items()):
+        check(equal_outputs(au.affinity_update_cuda(*a_), au.affinity_update_plain(*a_)),
+              f"affinity_update differs from its plain version (round {i})")
+    n_k4 = len(rec["affinity_update"].args)
     u_args = rec["affinity_update"].args[0]
     usnap, ustate, ump, uacc, unode = u_args
     uk, up = au.affinity_update_cuda(*u_args), au.affinity_update_plain(*u_args)
@@ -1931,6 +2067,9 @@ def main(argv=None) -> int:
         f"{float(vuk.pref_sym.abs().max())})")
     del vu_args, vuk
     k4_ms = time_ms(torch, lambda: au.affinity_update_cuda(*u_args), 20)
+    k4_dev = device_ms(lambda: au.affinity_update_cuda(*u_args), 20)
+    k4_prev = None if "affinity_update" not in prev_libs else device_ms(
+        lambda: prev_affinity_update(prev_libs["affinity_update"], *u_args), 20)
     k4_plain_ms = time_ms(torch, lambda: au.affinity_update_plain(*u_args), 2)
     k4_bytes = (nbytes(ump, uacc, unode, usnap.node_domains, usnap.pod_anti_terms,
                        usnap.pod_pref_aff, usnap.pod_pref_aff_w)
@@ -1939,9 +2078,10 @@ def main(argv=None) -> int:
     n_acc_match = int((ump & uacc[None, :]).sum())
     k4_ops = n_acc_match * (1 + usnap.node_domains.shape[1]) + int(uacc.sum()) * 2 * N
     log(f"phase kernel affinity_update: [{ump.shape[0]}, {ump.shape[1]}] equal "
-        f"{k4_equal} ({int(uacc.sum())} accepted, max pref_sym "
-        f"{float(uk.pref_sym.abs().max())}); kernel {k4_ms:.3f} ms, plain "
-        f"{k4_plain_ms:.3f} ms, bound {bound(k4_bytes, k4_ops)[0]:.3f} ms")
+        f"{k4_equal} on all {n_k4} rounds of the cycle ({int(uacc.sum())} accepted in round 0, max pref_sym "
+        f"{float(uk.pref_sym.abs().max())}); kernel {k4_ms:.3f} ms, {k4_dev:.4f} ms device "
+        f"(earlier design: {'not built' if k4_prev is None else f'{k4_prev:.4f} ms device'}), "
+        f"plain {k4_plain_ms:.3f} ms, bound {bound(k4_bytes, k4_ops)[0]:.4f} ms")
 
     # K5 capacity: every pass and revocation fold of the cycle
     c_calls = rec["capacity"].args
@@ -1959,12 +2099,6 @@ def main(argv=None) -> int:
     k5_mean_ms = sum(device_ms(lambda: cap.capacity_cuda(*a), 10)
                      for a in c_calls.values()) / len(c_calls)
     k5_wall_ms = time_ms(torch, lambda: cap.capacity_cuda(*c_args), 50)
-    k5_prev_ms = prev_ms(torch, kb, prev_libs, "capacity",
-                         lambda: cap.capacity_cuda(*c_args), 50, device_ms)
-    k5_prev_mean_ms = None if k5_prev_ms is None else sum(
-        prev_ms(torch, kb, prev_libs, "capacity", lambda: cap.capacity_cuda(*a), 10,
-                device_ms)
-        for a in c_calls.values()) / len(c_calls)
     k5_plain_ms = time_ms(torch, lambda: cap.capacity_plain(*c_args), 5)
     B5 = s_key.shape[0]
     k5_bytes = (nbytes(s_key, order, cnode_req, calloc, cslack) + B5 * creq.shape[1] * 4
@@ -1974,10 +2108,8 @@ def main(argv=None) -> int:
         f"bit for bit on all {n_pass} passes and {n_fold} revocation folds of the cycle; "
         f"kernel {k5_ms:.4f} ms round-0 pass, {k5_fold_ms:.4f} ms round-0 revocation "
         f"fold, {k5_mean_ms:.4f} ms mean over the cycle's calls, device time (the "
-        f"wrapper back to back, host-bound: {k5_wall_ms:.4f} ms; earlier design "
-        + ("not built" if k5_prev_ms is None else
-           f"{k5_prev_ms:.4f} ms round-0 pass, {k5_prev_mean_ms:.4f} ms mean")
-        + f"), plain {k5_plain_ms:.3f} ms, bound {bound(k5_bytes, k5_ops)[0]:.4f} ms")
+        f"wrapper back to back, host-bound: {k5_wall_ms:.4f} ms), plain "
+        f"{k5_plain_ms:.3f} ms, bound {bound(k5_bytes, k5_ops)[0]:.4f} ms")
 
     # K6 guard sweep
     g_args = rec["guard_sweep"].args[0]
@@ -1985,6 +2117,7 @@ def main(argv=None) -> int:
     okk, okp = gs.guard_sweep_cuda(*g_args), gs.guard_sweep_plain(*g_args)
     check(torch.equal(okk, okp), "guard_sweep differs from its plain version")
     k6_ms = time_ms(torch, lambda: gs.guard_sweep_cuda(*g_args), 20)
+    k6_dev = device_ms(lambda: gs.guard_sweep_cuda(*g_args), 20)
     k6_plain_ms = time_ms(torch, lambda: gs.guard_sweep_plain(*g_args), 5)
     L = s_packed.shape[0]
     n_valid = int(((s_packed >> grank_bits) != gk_invalid).sum())
@@ -1992,8 +2125,8 @@ def main(argv=None) -> int:
     k6_ops = 8 * n_valid
     log(f"phase kernel guard_sweep: L={L} entries ({n_valid} valid, "
         f"{role_tab.shape[0]} slots x {gB}); revoked {int((~okk).sum())}; equal True; "
-        f"kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms, bound "
-        f"{bound(k6_bytes, k6_ops)[0]:.3f} ms")
+        f"kernel {k6_ms:.3f} ms ({k6_dev:.4f} ms device), plain {k6_plain_ms:.3f} ms, bound "
+        f"{bound(k6_bytes, k6_ops)[0]:.4f} ms")
     del rec, t_args, u_args, c_args, g_args, out_k, out_p, uk, up, k3n, raw, feas
 
     # the affinity main path: counts set to 0 just before, read just after
@@ -2019,7 +2152,7 @@ def main(argv=None) -> int:
 
     # ============ preemption: DefaultPreemption after config #4's cycles ============
     pre_stats = preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps,
-                                 decisions, cycle_ms, cycle_k, smi, slice1_case)
+                                 decisions, cycle_ms, cycle_k, smi, slice1_case, prev_libs)
     kernels.update(pre_stats.pop("kernels"))
     del decisions
 
@@ -2037,27 +2170,28 @@ def main(argv=None) -> int:
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
-        k3_ms, k3_plain_ms, k3_bytes, k3_ops)
+        k3_ms, k3_dev, k3_plain_ms, k3_bytes, k3_ops)
     kernels["interpod_norm"] = kernel_entry(
         "interpod_norm", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:416", launches["interpod_norm"], 0.0,
-        k3n_ms, k3n_plain_ms, k3n_bytes, k3n_ops)
+        k3n_ms, k3n_dev, k3n_plain_ms, k3n_bytes, k3n_ops)
     kernels["affinity_update"] = kernel_entry(
         "affinity_update", "cuda", "k8s_scheduler_tpu_torch/csrc/affinity_update.cu",
         "k8s_scheduler_tpu/ops/interpod.py:489", launches["affinity_update"], 0.0,
-        k4_ms, k4_plain_ms, k4_bytes, k4_ops)
+        k4_ms, k4_dev, k4_plain_ms, k4_bytes, k4_ops, prev_device_ms=k4_prev)
     kernels["capacity"] = kernel_entry(
         "capacity", "cuda", "k8s_scheduler_tpu_torch/csrc/capacity.cu",
         "k8s_scheduler_tpu/ops/rounds.py:592", launches["capacity"], 0.0,
-        k5_ms, k5_plain_ms, k5_bytes, k5_ops, prev_ms=k5_prev_ms, fold_ms=k5_fold_ms,
-        mean_ms=k5_mean_ms, prev_mean_ms=k5_prev_mean_ms, wall_ms=k5_wall_ms)
+        k5_wall_ms, k5_ms, k5_plain_ms, k5_bytes, k5_ops, fold_device_ms=k5_fold_ms,
+        mean_device_ms=k5_mean_ms)
     kernels["guard_sweep"] = kernel_entry(
         "guard_sweep", "cuda", "k8s_scheduler_tpu_torch/csrc/guard_sweep.cu",
         "k8s_scheduler_tpu/ops/rounds.py:342", launches["guard_sweep"], 0.0,
-        k6_ms, k6_plain_ms, k6_bytes, k6_ops)
+        k6_ms, k6_dev, k6_plain_ms, k6_bytes, k6_ops)
     for k in kernels.values():
-        log(f"  kernel {k['name']:16s} ms {k['ms']:9.3f}  bound {k['bound_ms']:8.3f} "
-            f"({k['bound_by']})  plain {k['plain_ms']:9.3f}  launches {k['launches']}")
+        log(f"  kernel {k['name']:17s} ms {k['ms']:9.3f}  device {k['device_ms']:9.4f}  "
+            f"bound {k['bound_ms']:8.4f} ({k['bound_by']})  plain {k['plain_ms']:9.3f}  "
+            f"launches {k['launches']}")
     log(f"phase summary: slice-1 cycle device ms {timed1}, affinity cycle device ms "
         f"{timed}, preemption device ms {pre_stats['ms']}, scan cycle device ms "
         f"{scan_stats['ms']}, scan preemption device ms {scan_stats['pre_ms']}, volumes "

@@ -129,7 +129,7 @@ def _gang_unwind(snap, assignment, node_requested):
 def build_cycle_fn(
     framework: Framework | None = None,
     gang_scheduling: bool = True,
-    commit_mode: str = "rounds",
+    commit_mode: str = "scan",
     max_rounds: int = 64,
     percentage_of_nodes_to_score: int = 0,  # 0 = adaptive (upstream default)
     rounds_kw: dict | None = None,  # compact / passes / passes_round0
@@ -158,10 +158,12 @@ def build_cycle_fn(
     torch versions on CPU; passing the plain versions (`*_plain`) runs them
     on the card too — the run the kernels are held against.
 
-    `commit_mode` "rounds" (the default) runs the rounds engine: K1, then
-    per round K3/K10, K2 and K5 per pass, K11/K6/K4/K12 at round end.
-    "scan" runs the strict sequential engine: K1, then K13 `scan_commit`
-    once. Placements follow the reference's engine of the same name:
+    `commit_mode` "scan" (the default, as in the reference) runs the strict
+    sequential engine: K1, then K13 `scan_commit` once. "rounds" runs the
+    rounds engine, the one serving runs (`config/types.py` commitMode): K1,
+    then per round K3/K10, K2 and K5 per pass, K11/K6/K4/K12 at round end.
+    `outputs` stays "latency" here where the reference defaults to "full"
+    (ROADMAP A9). Placements follow the reference's engine of the same name:
     bit-equal assignment / node_requested / unschedulable / gang_dropped
     (held by tests/test_torch_cycle*.py)."""
     if commit_mode not in ("rounds", "scan"):

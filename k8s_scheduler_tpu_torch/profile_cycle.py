@@ -85,8 +85,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     seeds = tuple(range(201, 202 + args.cycles))
     nodes, existing, pending = synth.config4_workload(seeds)
-    cycles = {"config4": build_cycle_fn(device=dev),
-              "volumes": build_cycle_fn(device=dev),
+    cycles = {"config4": build_cycle_fn(commit_mode="rounds", device=dev),
+              "volumes": build_cycle_fn(commit_mode="rounds", device=dev),
               "scan": build_cycle_fn(commit_mode="scan", device=dev)}
     preempt = build_preemption_fn(device=dev)
     smi = subprocess.run(

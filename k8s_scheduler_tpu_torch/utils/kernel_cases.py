@@ -219,3 +219,219 @@ def static_base_edge_inputs(device) -> dict:
     cases["misaligned rows, scalar path"] = _misaligned(x)
     cases["P=65537 x N=64"] = _tile_pods(_narrow(x, 64), 65537)
     return cases
+
+
+# ---- K9 `preempt_claim` ---------------------------------------------------
+
+CLAIM_SLICES = 16  # csrc/preempt_claim.cu kClusterWant: the cluster's node slices
+
+
+def _claim_inputs(rng, device, *, N=8192, C2=64, n_live=None, R=4, MPN=8, MB=2, GP=4,
+                  Q=4, MP=2, prio_base=0, gate_p=0.9, ok_p=0.9, port_p=0.2, pdb_p=0.2,
+                  same_nodes=False):
+    """A `ClaimInputs` made with numpy: per node 0..MPN victims in ascending
+    priority (prio_base + 0..49) with whole-unit requests, so the prefix
+    sums of freed requests are exact; preemptors at prio_base + 20..59
+    needing 1-4 units a resource against 0-2 units of room; gate and
+    what-if verdicts drawn with gate_p and ok_p, ports from Q ids with
+    port_p, each victim in up to MB of GP budgets with pdb_p each. With
+    `same_nodes` every node has the same victims."""
+    from ..ops import preemption as pre
+    from ..ops.argsel import wrap_i32
+    from ..ops.resources import fit_slack
+
+    n_live = C2 if n_live is None else n_live
+    units = np.array([_UNITS[r % len(_UNITS)] for r in range(R)], np.float64)
+    if same_nodes:
+        cnt = np.full(N, MPN)
+        prio_row = np.sort(rng.integers(0, 50, MPN))
+        vprio = np.tile(prio_row, (N, 1))
+        vreq = np.tile(rng.integers(1, 4, (1, MPN, R)), (N, 1, 1))
+        vstart = np.tile(rng.integers(0, 100, (1, MPN)), (N, 1))
+        room = np.tile(rng.integers(0, 3, (1, R)), (N, 1))
+    else:
+        cnt = rng.integers(0, MPN + 1, N)
+        vprio = np.sort(rng.integers(0, 50, (N, MPN)), axis=1)
+        vreq = rng.integers(1, 4, (N, MPN, R))
+        vstart = rng.integers(0, 100, (N, MPN))
+        room = rng.integers(0, 3, (N, R))
+    valid = np.arange(MPN)[None, :] < cnt[:, None]
+    E = int(valid.sum()) + 5
+    node_pods = np.full((N, MPN), -1, np.int64)
+    node_pods[valid] = rng.permutation(int(valid.sum()))
+    vict_prio = np.where(valid, prio_base + vprio, pre.BIG_I32)
+    vict_start = np.where(valid, vstart, 0).astype(np.float32)
+    vict_pdb = np.where(valid[..., None] & (rng.random((N, MPN, MB)) < pdb_p),
+                        rng.integers(0, GP, (N, MPN, MB)), -1)
+    freed = np.where(valid[..., None], vreq * units, 0.0)
+    prefix_freed = np.concatenate([np.zeros((N, 1, R)), np.cumsum(freed, axis=1)], axis=1)
+    alloc = np.full((N, R), 8.0) * units
+    node_req = alloc - room * units
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(device)  # noqa: E731
+    prefix_prio = torch.cat([torch.zeros((N, 1), dtype=torch.int32), wrap_i32(torch.cumsum(
+        torch.from_numpy(np.where(valid, vict_prio, 0)), dim=1))], dim=1).to(device)
+    tables = pre.VictimTables(
+        t(node_pods, torch.int32), t(vict_prio, torch.int32), t(vict_start, torch.float32),
+        t(vict_pdb, torch.int32), t(prefix_freed, torch.float32), prefix_prio)
+    alloc_t = t(alloc, torch.float32)
+    return pre.ClaimInputs(
+        n_live=torch.tensor([n_live], dtype=torch.int32, device=device),
+        live=t(np.arange(C2) < n_live, torch.bool),
+        prio=t(prio_base + rng.integers(20, 60, C2), torch.int32),
+        req=t(rng.integers(1, 5, (C2, R)) * units, torch.float32),
+        port_ids=t(np.where(rng.random((C2, MP)) < port_p, rng.integers(0, Q, (C2, MP)), -1),
+                   torch.int32),
+        gate=t(rng.random((C2, N)) < gate_p, torch.bool),
+        ok_nr=t(rng.random((C2, N, MPN + 1)) < ok_p, torch.bool),
+        node_valid=t(rng.random(N) < 0.97, torch.bool),
+        alloc=alloc_t, node_requested=t(node_req, torch.float32), slack=fit_slack(alloc_t),
+        pdb_allowed=t(rng.integers(0, 3, GP), torch.int32),
+        tables=tables, num_existing=E, num_ports=Q)
+
+
+def _gate_only(x, nodes):
+    """x with every rank's gate open on `nodes` only."""
+    gate = torch.zeros_like(x.gate)
+    gate[:, list(nodes)] = True
+    return dataclasses.replace(x, gate=gate)
+
+
+def _one_node(x, node):
+    """x with the gate open on `node` only, no room there, prefix k of
+    every node's victims freeing k units of each resource and every rank
+    asking one unit above all victims' priorities: rank r takes victim r
+    (k_claimed grows by one a rank) until the node runs out."""
+    N, M1, R = x.tables.prefix_freed.shape
+    dev = x.req.device
+    units = torch.tensor([_UNITS[r % len(_UNITS)] for r in range(R)],
+                         dtype=torch.float32, device=dev)
+    freed = torch.arange(M1, dtype=torch.float32, device=dev)[None, :, None] * units
+    return _gate_only(dataclasses.replace(
+        x, req=units.expand_as(x.req).contiguous(), prio=torch.full_like(x.prio, 1000),
+        node_requested=x.alloc.clone(),
+        tables=dataclasses.replace(x.tables, prefix_freed=freed.expand(N, M1, R).contiguous())),
+        [node])
+
+
+def claim_cases(device="cpu") -> dict:
+    """{tag: ClaimInputs} of K9's edge cases, at shapes that stress the
+    cluster's split of the nodes into CLAIM_SLICES slices: N = 13 (three
+    slices empty), 8193 and 16 * 512 + 7 (uneven slices); the winner in
+    the last slice; keys equal on every field in two slices (the lower
+    index wins); one node taken by consecutive ranks; PDB budgets spent
+    part way through a 64-rank loop; port claims that block later ranks;
+    n_live 0 and n_live = C2; R = 1 and 8 (8 reads the victim tables from
+    L2: they do not fit in shared memory), MB = 4; victim priorities near
+    2^30, so the priority sums wrap in i32."""
+    rng = np.random.default_rng(90210)
+    last = 8192 - 8192 // CLAIM_SLICES
+    return {
+        "N=13": _claim_inputs(rng, device, N=13, C2=16),
+        "N=8193": _claim_inputs(rng, device, N=8193),
+        "N=16*512+7": _claim_inputs(rng, device, N=16 * 512 + 7),
+        "winner in the last slice": _gate_only(
+            _claim_inputs(rng, device, C2=16, ok_p=1.0), range(last, 8192)),
+        "equal keys in two slices": _gate_only(
+            _claim_inputs(rng, device, C2=16, ok_p=1.0, port_p=0.0, pdb_p=0.0,
+                          same_nodes=True), [700, 7000]),
+        "one node, consecutive ranks": _one_node(
+            _claim_inputs(rng, device, C2=16, ok_p=1.0, port_p=0.0, pdb_p=0.0,
+                          same_nodes=True), 4321),
+        "PDB budgets spent, 64 ranks": _claim_inputs(rng, device, GP=4, pdb_p=0.9),
+        "ports block later ranks": _gate_only(
+            _claim_inputs(rng, device, C2=32, Q=2, MP=1, port_p=1.0, ok_p=1.0),
+            range(0, 8192, 1024)),
+        "n_live=0": _claim_inputs(rng, device, n_live=0),
+        "n_live=C2": _claim_inputs(rng, device, C2=64, n_live=64, gate_p=0.3),
+        "n_live<C2": _claim_inputs(rng, device, C2=64, n_live=40),
+        "R=1": _claim_inputs(rng, device, R=1),
+        "R=8": _claim_inputs(rng, device, R=8),
+        "MB=4": _claim_inputs(rng, device, MB=4, GP=8, pdb_p=0.5),
+        "priority sums wrap": _claim_inputs(rng, device, prio_base=2**30),
+    }
+
+
+# ---- K4 `affinity_update` -------------------------------------------------
+
+def _affinity_update_raw(rng, *, S=24, N=64, Z=4, B=100, MA=2, acc_p=0.5, match_p=0.1,
+                         sel_none_p=0.5, no_zone_p=0.0, no_host_p=0.0, has_aff=True,
+                         one_selector=False, pref0=None, w_lo=-100, w_hi=100):
+    """numpy inputs of `affinity_update_batched`: N nodes with a zone (Z
+    zones, key 0) and a hostname (key 1) domain, either missing with the
+    given odds; D = Z + N + 3 global domain ids (3 unused); B pods, a
+    share accepted on random nodes (-1 for some of the rest); MA anti and
+    preferred term slots a pod over S selectors and both keys, integer
+    weights in [w_lo, w_hi]; an integer-valued old state (pref_sym all
+    `pref0` when given)."""
+    D = Z + N + 3
+    zone = np.where(rng.random(N) < no_zone_p, -1, rng.integers(0, Z, N))
+    host = np.where(rng.random(N) < no_host_p, -1, Z + np.arange(N))
+    node_domains = np.stack([zone, host], axis=1).astype(np.int32)
+    accepted = rng.random(B) < acc_p
+    node_of = np.where(accepted | (rng.random(B) < 0.7), rng.integers(0, N, B), -1)
+
+    def terms():
+        sel = np.where(rng.random((B, MA)) < sel_none_p, -1, rng.integers(0, S, (B, MA)))
+        if one_selector:
+            sel[:] = 0
+        return np.stack([sel, rng.integers(0, 2, (B, MA))], axis=2).astype(np.int32)
+
+    m_pending = rng.random((S, B)) < match_p
+    if one_selector:
+        m_pending[0] = True
+    return {
+        "node_domains": node_domains, "pod_anti_terms": terms(), "pod_pref_aff": terms(),
+        "pod_pref_aff_w": rng.integers(w_lo, w_hi + 1, (B, MA)).astype(np.float32),
+        "has_inter_pod_affinity": has_aff,
+        "counts": rng.integers(0, 5, (S, D)).astype(np.float32),
+        "total": rng.integers(0, 50, S).astype(np.float32),
+        "anti_presence": rng.random((S, N)) < 0.05,
+        "pref_sym": (np.full((S, N), pref0, np.float32) if pref0 is not None
+                     else rng.integers(-20, 20, (S, N)).astype(np.float32)),
+        "m_pending": m_pending, "accepted": accepted, "node_of": node_of.astype(np.int32),
+    }
+
+
+def affinity_update_raw_cases() -> dict:
+    """{tag: numpy inputs} of K4's edge cases: nodes with no domain for a
+    key (d < 0), mostly empty term slots (sel = -1), hostname and zone
+    terms in one round (every case), many accepted pods on one selector,
+    preferred sums near 2^24, MA = 1 and 4, B not a multiple of 32 (and
+    N = 13, D = 20: the row fold's scalar path), no accepted pod, and a
+    snapshot without inter-pod affinity (counts and totals only)."""
+    rng = np.random.default_rng(4404)
+    return {
+        "nodes without a domain (d < 0)": _affinity_update_raw(rng, no_zone_p=0.3,
+                                                               no_host_p=0.1),
+        "mostly empty term slots (sel = -1)": _affinity_update_raw(rng, sel_none_p=0.8),
+        "zone and hostname terms": _affinity_update_raw(rng, sel_none_p=0.0),
+        "many accepted pods on one selector": _affinity_update_raw(
+            rng, acc_p=0.9, one_selector=True),
+        "preferred sums near 2^24": _affinity_update_raw(
+            rng, acc_p=1.0, sel_none_p=0.0, pref0=float(2**24 - 2**16), w_lo=1, w_hi=100),
+        "MA=1": _affinity_update_raw(rng, MA=1),
+        "MA=4": _affinity_update_raw(rng, MA=4),
+        "B=13, N=13": _affinity_update_raw(rng, B=13, N=13),
+        "B=100": _affinity_update_raw(rng, B=100),
+        "no accepted pod": _affinity_update_raw(rng, acc_p=0.0),
+        "no inter-pod affinity": _affinity_update_raw(rng, has_aff=False),
+    }
+
+
+def affinity_update_args(raw: dict, device) -> tuple:
+    """(snap, state, m_pending, accepted, node_of) of the port's
+    `affinity_update` from `affinity_update_raw_cases` inputs; `snap`
+    holds just the fields the function reads."""
+    import types
+
+    from ..ops import interpod as ip
+
+    t = lambda k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)  # noqa: E731
+    B = raw["accepted"].shape[0]
+    N = raw["node_domains"].shape[0]
+    snap = types.SimpleNamespace(
+        P=B, N=N, node_domains=t("node_domains"), pod_anti_terms=t("pod_anti_terms"),
+        pod_pref_aff=t("pod_pref_aff"), pod_pref_aff_w=t("pod_pref_aff_w"),
+        has_inter_pod_affinity=raw["has_inter_pod_affinity"])
+    state = ip.AffinityState(t("counts"), t("total"), t("anti_presence"), t("pref_sym"))
+    return snap, state, t("m_pending"), t("accepted"), t("node_of")

@@ -7,7 +7,8 @@ bit-equal to the reference on every fixture: the synthetic configs #1,
 sweep resolves, nominated pods, node sampling on clusters past the
 100-node floor, and resource scores averaged over three or four
 resources. The reference's own validity oracle holds the port's
-placements too. Engines and outputs the port does not cover yet raise
+placements too. `build_cycle_fn()` runs the reference's default engine,
+the scan (ROADMAP C5). Engines and outputs the port does not cover yet raise
 NotImplementedError; entry points never run on the CPU unasked; the port
 imports nothing of JAX or the JAX package."""
 
@@ -175,7 +176,7 @@ def test_cycle_raises_on_uncovered_features(feature):
     )
     assert port_snap.has_volumes
     want = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency")(ref_snap)
-    got = build_cycle_fn(device="cpu")(port_snap)
+    got = build_cycle_fn(commit_mode="rounds", device="cpu")(port_snap)
     np.testing.assert_array_equal(got.assignment.numpy(), np.asarray(want.assignment))
     # bound: placed on any node (the PV has no affinity); unbound Immediate
     # claim: unschedulable
@@ -184,6 +185,46 @@ def test_cycle_raises_on_uncovered_features(feature):
         build_cycle_fn(commit_mode="scan", device="cpu")(port_snap)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         build_cycle_fn(outputs="full", device="cpu")
+
+
+# fixtures where the scan and rounds engines place differently (the
+# reference's scan and rounds assignments differ on 52 of cfg1's 60 pods,
+# 3 of nominated's 11 and 7 of hostport's 20)
+@pytest.mark.parametrize("name", ["cfg1", "nominated", "hostport"])
+def test_default_engine_is_the_reference_default(name):
+    """ROADMAP C5: `build_cycle_fn()` places as the reference's
+    `build_cycle_fn()` does, the scan engine in both packages."""
+    nodes, pods, existing, groups = ref_objects(name)
+    ref_snap = ref_models.SnapshotEncoder().encode(nodes, pods, existing, groups)
+    want = ref_cycle.build_cycle_fn(outputs="latency")(ref_snap)
+    rounds = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency")(ref_snap)
+    assert not np.array_equal(np.asarray(want.assignment), np.asarray(rounds.assignment))
+    port_snap = snapshot_from_numpy(
+        ref_snap.array_fields(), {k: getattr(ref_snap, k) for k in AUX_FIELDS},
+        device="cpu",
+    )
+    got = build_cycle_fn(device="cpu")(port_snap)
+    for field in ("assignment", "node_requested", "unschedulable", "gang_dropped"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)), err_msg=field)
+
+
+def test_build_cycle_fn_defaults_match_reference():
+    """Every parameter the two `build_cycle_fn`s share has the same
+    default, except `outputs`: "latency" in the port until the diagnosis
+    outputs are ported (ROADMAP A9; C5's open half)."""
+    import inspect
+
+    ref = inspect.signature(ref_cycle.build_cycle_fn).parameters
+    port = inspect.signature(build_cycle_fn).parameters
+    shared = [k for k in ref if k in port]
+    assert shared == ["framework", "gang_scheduling", "commit_mode", "max_rounds",
+                      "percentage_of_nodes_to_score", "rounds_kw", "outputs"]
+    for k in shared:
+        if k == "outputs":
+            assert (ref[k].default, port[k].default) == ("full", "latency")
+        else:
+            assert port[k].default == ref[k].default, k
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

@@ -9,11 +9,17 @@ scores must be bit-equal. Fixtures: config #3- and #4-shaped synthetic
 workloads at a few dozen nodes, a denser #4 mix, a mixed workload with
 existing affinity pods, self-anti-affinity, spread skew, an affinity
 bootstrap group, and duplicate (selector, key) term slots with preferred
-(anti-)affinity and ScheduleAnyway spread on both sides."""
+(anti-)affinity and ScheduleAnyway spread on both sides; the state fold
+(`affinity_update_batched`) also on K4's seeded edge cases
+(`utils/kernel_cases.affinity_update_raw_cases`), against the reference
+called eagerly."""
 
 from __future__ import annotations
 
+import types
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +31,7 @@ import k8s_scheduler_tpu_torch.models as port_models
 import k8s_scheduler_tpu_torch.utils.synth as port_synth
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
 from k8s_scheduler_tpu_torch.ops import interpod as ip
+from k8s_scheduler_tpu_torch.utils import kernel_cases
 
 ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"
@@ -246,8 +253,29 @@ def test_matched_tables_and_initial_state(name):
     _state_eq(ip.initial_state(c.port, m_exist), c.state0_ref)
 
 
-@pytest.mark.parametrize("name", AFFINITY_FIXTURES)
+# K4's seeded edge cases (utils/kernel_cases.affinity_update_raw_cases),
+# which chip_smoke.py holds the kernel against the plain version on
+_K4_CASES = kernel_cases.affinity_update_raw_cases()
+
+
+@pytest.mark.parametrize("name", AFFINITY_FIXTURES + [f"k4: {t}" for t in _K4_CASES])
 def test_affinity_update_batched(name):
+    if name.startswith("k4: "):
+        raw = _K4_CASES[name[4:]]
+        ref_snap = types.SimpleNamespace(
+            N=raw["node_domains"].shape[0],
+            **{k: jnp.asarray(raw[k]) for k in ("node_domains", "pod_anti_terms",
+                                                "pod_pref_aff", "pod_pref_aff_w")},
+            has_inter_pod_affinity=raw["has_inter_pod_affinity"])
+        want = ref_ip.affinity_update_batched(
+            ref_snap, ref_ip.AffinityState(*[jnp.asarray(raw[k]) for k in (
+                "counts", "total", "anti_presence", "pref_sym")]),
+            jnp.asarray(raw["m_pending"]), jnp.asarray(raw["accepted"]),
+            jnp.asarray(raw["node_of"]))
+        got = ip.affinity_update_batched(*kernel_cases.affinity_update_args(raw, "cpu"))
+        _state_eq(got, want)
+        assert float(got.pref_sym.abs().max()) < 2**24
+        return
     c = case(name)
     got = ip.affinity_update_batched(
         c.port, _port_state(c.state0_ref), c.m_pending,

@@ -19,7 +19,8 @@ against these plain versions on the card by chip_smoke.py).
   node-choice key deciding in turn, PDB budgets over three groups spent
   across ranks, claimed ports, gates, what-if verdicts, every what-if
   constraint; `prefix_sums_f32` against jnp.cumsum across XLA's scan
-  chunks.
+  chunks; K9's seeded edge cases (`utils/kernel_cases.claim_cases`) each
+  set up the situation it is named for.
 - K10-K12, `volumes.volume_mask_plain` (both variants),
   `pv_choice_plain` and `pv_fold_plain` on their kernels' signatures,
   against the reference's volume_mask / volume_mask_unbound,
@@ -611,6 +612,63 @@ def test_claim_loop_plain_gates_and_whatif():
     x = _claim_inputs(nodes, [(9, 2, -1)], free=[0])
     x.n_live = torch.tensor([0], dtype=torch.int32)
     assert preemption.claim_loop_plain(x)[0].tolist() == [-1]
+
+
+_CLAIM_CASES = kernel_cases.claim_cases()
+
+
+@pytest.mark.parametrize("tag", list(_CLAIM_CASES))
+def test_claim_edge_cases_exercise_their_situation(tag):
+    """The seeded K9 edge cases (utils/kernel_cases.claim_cases, held
+    against the kernel on the card) set up what each is named for, under
+    the plain loop; every case's victims are the claimed prefixes."""
+    x = _CLAIM_CASES[tag]
+    noms, cy = preemption.claim_loop_plain(x)
+    n_live, N = int(x.n_live), x.gate.shape[1]
+    got = [n for n in noms.tolist() if n >= 0]
+    assert noms[n_live:].eq(-1).all()
+    assert int(cy.victims.sum()) == int(cy.k_claimed.sum())
+    if tag == "n_live=0":
+        assert not got
+    else:
+        assert got
+    if tag == "N=13":  # one node a slice: the last slices hold no node
+        assert -(-N // kernel_cases.CLAIM_SLICES) * (kernel_cases.CLAIM_SLICES - 1) >= N
+    if tag.startswith("N="):
+        assert N % kernel_cases.CLAIM_SLICES != 0
+    if tag == "winner in the last slice":
+        assert min(got) >= N - N // kernel_cases.CLAIM_SLICES
+    if tag == "equal keys in two slices":
+        assert got[:2] == [700, 7000] and set(got) == {700, 7000}
+    if tag == "one node, consecutive ranks":
+        assert got == [4321] * 8 and int(cy.k_claimed[4321]) == 8
+    if tag == "PDB budgets spent, 64 ranks":
+        assert n_live == 64 and bool((cy.pdb_used >= x.pdb_allowed).any())
+    if tag == "ports block later ranks":
+        assert len(got) < n_live
+    if tag in ("n_live=C2", "PDB budgets spent, 64 ranks"):
+        assert n_live == x.live.shape[0]
+    if tag == "R=8":
+        assert x.req.shape[1] == 8
+    if tag == "MB=4":
+        assert x.tables.vict_pdb.shape[2] == 4
+    if tag == "priority sums wrap":
+        assert bool((x.tables.prefix_prio < 0).any())
+
+
+@pytest.mark.parametrize("N, refused", [(preempt_claim.MAX_NODES, False),
+                                        (preempt_claim.MAX_NODES + 1, True)])
+def test_preempt_claim_node_limit(N, refused):
+    """K9's cluster holds at most 2048 nodes a CTA: above 16 CTAs' worth
+    the wrapper refuses the inputs with a ValueError naming the limit,
+    before it touches the card (here, CPU tensors)."""
+    x = kernel_cases._claim_inputs(np.random.default_rng(5), "cpu", N=N, C2=1, R=1, MPN=1,
+                                   MB=1, GP=1, Q=1, MP=1)
+    if refused:
+        with pytest.raises(ValueError, match=f"at most {preempt_claim.MAX_NODES}"):
+            preempt_claim.preempt_claim_cuda(x)
+    else:
+        assert preempt_claim._dims(x)[1] == N
 
 
 def _whatif_case():

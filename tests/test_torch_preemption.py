@@ -339,6 +339,34 @@ def _crowded_node(m):
     return nodes, [pend], existing, []
 
 
+def _claim_loop(m, wrap):
+    """A 40-rank claim loop over 16 full nodes (4 one-cpu victims each).
+    Node 0's victims are the cheapest, so consecutive ranks take it
+    (k_claimed grows); nodes 1-15 tie on every key field, so the lowest
+    index wins; app=a (every odd node's second victim) has a budget of 2,
+    spent part way through, after which the odd nodes' second victims
+    violate it; every third preemptor asks for hostPort 8080, so a node
+    nominated for one of them is closed to the later ones. With `wrap` the
+    victims of nodes 8-15 sit at priority 2^30 + j, so their priority sums
+    wrap in i32. Both variants pad to one shape."""
+    big = 2**30
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "4"}).obj() for i in range(16)]
+    existing = []
+    for i in range(16):
+        for j in range(4):
+            prio = 1 + j if i == 0 else (big + j if wrap and i >= 8 else 10 + j)
+            app = "a" if j == 1 and i % 2 == 1 else "b"
+            existing.append((m.MakePod(f"v{i}-{j}").req({"cpu": "1"}).labels({"app": app})
+                             .priority(prio).created(float(j)).obj(), f"n{i}"))
+    pods = []
+    for k in range(40):
+        b = m.MakePod(f"p{k}").req({"cpu": "1"}).priority(2**31 - 1).created(float(k))
+        if k % 3 == 0:
+            b.host_port(8080)
+        pods.append(b.obj())
+    return nodes, pods, existing, [_pdb(m, "pdb-a", "a", 2)]
+
+
 FIXTURES = {
     "basic": _basic, "higher_priority": _higher_priority, "policy_never": _policy_never,
     "minimal_victims": _minimal_victims, "cheapest_victims": _cheapest_victims,
@@ -357,6 +385,8 @@ FIXTURES = {
     "cfg4": lambda m: _cfg4(m, False), "cfg4_pdbs": lambda m: _cfg4(m, True),
     "cfg4_tight_pdbs": lambda m: _cfg4(m, True, num_nodes=120),
     "nondyadic": _nondyadic, "i32_wrap": _i32_wrap, "crowded_node": _crowded_node,
+    "claim_loop": lambda m: _claim_loop(m, False),
+    "claim_loop_wrap": lambda m: _claim_loop(m, True),
 }
 # the whatif cases run on the reference's test encoder pads (16 pods, 8 nodes)
 _WHATIF = {"anti_toward_victim", "victim_port", "winner_port", "spread_pressure",
@@ -395,7 +425,7 @@ def run_both(name, args=None):
     want = ref_cycle.build_preemption_fn(ref_fw)(ref_snap, want_dec)
     port_snap = carry(ref_snap)
     fw = Framework.from_config(_framework_config(PORT, args))
-    got_dec = build_cycle_fn(framework=fw, device="cpu")(port_snap)
+    got_dec = build_cycle_fn(framework=fw, commit_mode="rounds", device="cpu")(port_snap)
     for f in ("assignment", "node_requested", "gang_dropped"):
         np.testing.assert_array_equal(getattr(got_dec, f).numpy(),
                                       np.asarray(getattr(want_dec, f)), err_msg=f)
@@ -432,6 +462,10 @@ def test_preemption_bit_equal_to_reference(name):
         assert snap.node_pods.shape[1] > 16 and len(vic) >= 17
     if name == "cfg4_pdbs":
         assert int(snap.pdb_allowed.shape[0]) == 60 and (snap.exist_pdb >= 0).any()
+    if name.startswith("claim_loop"):
+        # ranks 0-2 take node 0 in turn; rank 3 (hostPort 8080, as rank 0)
+        # finds it closed and takes node 1; rank 4 returns to node 0
+        assert nom[:5] == [0, 0, 0, 1, 0] and int(got.num_preemptors) == 40
 
 
 @functools.cache
@@ -469,7 +503,7 @@ def test_forced_plain_stages_give_the_same_result():
     plain = build_preemption_fn(device="cpu", prefilter_fn=preemption.prefilter_plain,
                                 whatif_fn=preemption.nonresource_ok_plain,
                                 claim_fn=preemption.claim_loop_plain)
-    d = build_cycle_fn(device="cpu")(snap)
+    d = build_cycle_fn(commit_mode="rounds", device="cpu")(snap)
     assert_same_result(plain(snap, d), want)
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
@@ -482,7 +516,7 @@ def test_preemption_entry_point_on_cpu():
     existing = [(m.MakePod("low").req({"cpu": "1500m"}).priority(1).obj(), "n0")]
     pods = [m.MakePod("urgent").req({"cpu": "1"}).priority(10).obj()]
     snap = m.SnapshotEncoder(device="cpu").encode(nodes, pods, existing)
-    d = build_cycle_fn(device="cpu")(snap)
+    d = build_cycle_fn(commit_mode="rounds", device="cpu")(snap)
     r = build_preemption_fn(device="cpu")(snap, d)
     assert int(d.assignment[0]) == -1
     assert int(r.nominated[0]) == 0 and r.victims[:1].tolist() == [True]
