@@ -26,10 +26,11 @@ Phases:
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every csrc/*.cu at once (one process per
                 source; with --prev-csrc, also an earlier design's
-                preempt_claim.cu and affinity_update.cu, timed beside the
-                kernels as prev_device_ms), Triton compiles K2 `claim_pass`
-                meanwhile; then K5 `capacity`, K1 `static_base`, K9
-                `preempt_claim` and K4 `affinity_update` against their plain
+                preempt_claim.cu, affinity_update.cu and scan_commit.cu,
+                timed beside the kernels as prev_device_ms), Triton
+                compiles K2 `claim_pass` meanwhile; then K5 `capacity`, K1
+                `static_base`, K9 `preempt_claim`, K4 `affinity_update` and
+                K13 `scan_commit` against their plain
                 versions, bit for bit, on the seeded edge cases of
                 `utils/kernel_cases.py` (node runs across 32 and 256 claims,
                 every claim dead, R = 1 and 8, a revocation fold; each
@@ -41,7 +42,14 @@ Phases:
                 priority sums; K4 with nodes without a domain, empty term
                 slots, one selector for many pods, preferred sums near
                 2^24, MA = 1 and 4, B = 13, no accepted pod, no inter-pod
-                affinity);
+                affinity; K13 at N = 13, 8193 and 8199, the winner in the
+                last slice, equal best scores in two slices, a -0.0 / +0.0
+                tie, nominated nodes in another slice and infeasible, a pod
+                no node fits, a hard spread minimum in other slices' zone,
+                matched selectors counted in a zone other slices read,
+                affinity bootstrapped by total == 0, anti-affinity and host
+                ports between consecutive pods, pad pods interleaved, R = 1
+                and 8; each case's cluster and slice printed);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
                 decisions required), K1/K2 against their plain versions
                 with timings (K1 beside `torch.empty(P, N).fill_(-1e9)`),
@@ -76,8 +84,11 @@ Phases:
                 version (`scan_commit_plain`) on the packed inputs of one
                 seed at full size (assignment, node_requested, the port
                 bitmap and the four affinity tables bit-equal; both
-                timed), and on a seeded variant of the same cluster with
-                the pending set cut to its first 2048 pods and given
+                timed; the kernel alone by torch.profiler, its us a step
+                and its cluster size printed, and with --prev-csrc the
+                earlier design's, equal too), and on a seeded variant of
+                the same cluster with the pending set cut to its first 2048
+                pods and given
                 preferred terms, ScheduleAnyway constraints, nominated
                 nodes and host ports (also under a profile whose one
                 dynamic score is BalancedAllocation, and under resource
@@ -90,7 +101,8 @@ Phases:
                 `claim_loop_plain` on each pass) with every nomination
                 valid, a second scan cycle over the pods one seed's scan
                 left unplaced (its placements running), and one scan cycle
-                on slice 1's workload (resource-
+                on slice 1's workload (K13 equal to its plain version on
+                its packed inputs; resource-
                 only dynamic filters: unplaced => infeasible against the
                 final state);
   7. volumes  — config #4's workload with local and zonal persistent
@@ -145,7 +157,7 @@ WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
 AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
 PDB_SEED = 17  # config4_pdbs draw of the PDB variant
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
-PREV_KERNELS = ("preempt_claim", "affinity_update")  # timed against --prev-csrc
+PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit")  # timed against --prev-csrc
 
 
 def log(msg: str) -> None:
@@ -566,6 +578,23 @@ def affinity_update_edge_checks(torch, dev) -> list[str]:
             check(float(got.pref_sym.abs().max()) < EXACT_F32,
                   f"pref_sym left the exact f32 range ({tag})")
     return list(cases)
+
+
+def scan_edge_checks(torch, dev) -> dict:
+    """K13 against `scan_commit_plain` on the seeded edge cases
+    (`utils/kernel_cases.scan_cases`): all seven outputs equal; {case: the
+    launch's cluster and slice}."""
+    from k8s_scheduler_tpu_torch.kernel_variants import scans_equal
+    from k8s_scheduler_tpu_torch.ops import scan_commit as sc
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import scan_cases
+
+    shapes = {}
+    for tag, x in scan_cases(dev).items():
+        check(scans_equal(sc.scan_commit_cuda(x), sc.scan_commit_plain(x)),
+              f"scan_commit differs from scan_commit_plain ({tag})")
+        shape = sc.scan_shape(x)
+        shapes[tag] = [shape["cluster"], shape["slice"]]
+    return shapes
 
 
 def capacity_calls_equal(torch, cap, calls, tag) -> tuple[int, int]:
@@ -1464,7 +1493,7 @@ def check_scan_affinity(torch, snap, d, ctx):
 
 
 def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_case,
-               plain_kernels):
+               plain_kernels, prev_libs):
     """Phase 6 (module docstring). Returns {"kernels": entries, "ms": [...],
     "pre_ms": [...]}."""
     import numpy as np
@@ -1475,6 +1504,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
                                                 SchedulerConfiguration)
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
+    from k8s_scheduler_tpu_torch.kernel_variants import kernel_ms, prev_scan_commit, scans_equal
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
     from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
@@ -1518,8 +1548,16 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     x = packed(snaps[seed])
     nv = int(x.pod_valid.sum())
     rk, k13_plain = kernel_vs_plain(x, f"full size, seed {seed}")
+    k13_shape = sc.scan_shape(x)
     k13_ms = time_ms(torch, lambda: sc.scan_commit_cuda(x), 3)
     k13_dev = profiled_device_ms(torch, lambda: sc.scan_commit_cuda(x), 2)
+    k13_kernel = kernel_ms(lambda: sc.scan_commit_cuda(x), 2, "scan_kernel")
+    k13_prev = None
+    if "scan_commit" in prev_libs:  # the earlier design on the same inputs
+        check(scans_equal(prev_scan_commit(prev_libs["scan_commit"], x), rk),
+              "the earlier scan_commit differs from the kernel")
+        k13_prev = kernel_ms(lambda: prev_scan_commit(prev_libs["scan_commit"], x), 2,
+                             "scan_kernel")
     k13_bytes = scan_bytes(torch, x, rk)
     n_sel = int(x.sel_ptr[-1])
     n_terms = int(((x.aff_terms[..., 0] >= 0).sum() + (x.anti_terms[..., 0] >= 0).sum()
@@ -1529,9 +1567,13 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     R = x.pod_requested.shape[1]
     k13_ops = nv * x.shape[1] * (10 * R + 8) + (n_terms + n_sel) * x.shape[1]
     k13_bound, k13_by = bound(k13_bytes, k13_ops)
-    log(f"phase kernel scan_commit: full size, {nv} steps over [{x.shape[1]}] nodes: "
-        f"kernel {k13_ms:.3f} ms ({1e3 * k13_ms / nv:.2f} us per step; {k13_dev:.3f} ms "
-        f"device, torch.profiler), plain "
+    log(f"phase kernel scan_commit: full size, {nv} steps over [{x.shape[1]}] nodes on a "
+        f"cluster of {k13_shape['cluster']} CTAs ({k13_shape['slice']} nodes each, "
+        f"{k13_shape['smem']} bytes of shared memory): kernel {k13_ms:.3f} ms ({k13_dev:.3f} "
+        f"ms device, torch.profiler; the kernel alone {k13_kernel:.3f} ms, "
+        f"{1e3 * k13_kernel / nv:.3f} us per step; earlier design "
+        f"{'not built' if k13_prev is None else f'{k13_prev:.3f} ms, {1e3 * k13_prev / nv:.3f} us per step'}"
+        f"), plain "
         f"{k13_plain:.1f} ms ({k13_plain / nv:.3f} ms per step), bound {k13_bound:.4f} ms "
         f"({k13_by}, bytes {k13_bytes}); placed {int((rk.assignment >= 0).sum())}; "
         f"{n_terms} pod terms, {n_sel} matched selectors | {smi}")
@@ -1637,6 +1679,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     # slice 1's workload: resource-only dynamic filters, so an unplaced pod
     # stays infeasible against the final state
     snap1 = slice1_case[0]
+    kernel_vs_plain(packed(snap1), "slice 1's workload (resource-only dynamic filters)")
     kb.reset_launch_counts()
     d1 = cycle_s(snap1)
     torch.cuda.synchronize()
@@ -1649,7 +1692,9 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     entry = kernel_entry(
         "scan_commit", "cuda", "k8s_scheduler_tpu_torch/csrc/scan_commit.cu",
         "k8s_scheduler_tpu/ops/commit.py:63", launches["scan_commit"], 0.0,
-        k13_ms, k13_dev, k13_plain, k13_bytes, k13_ops, device_ms_by="torch.profiler")
+        k13_ms, k13_dev, k13_plain, k13_bytes, k13_ops, device_ms_by="torch.profiler",
+        kernel_ms=k13_kernel, us_per_step=1e3 * k13_kernel / nv, prev_device_ms=k13_prev,
+        cluster=k13_shape["cluster"])
     return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
@@ -1660,9 +1705,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--prev-csrc", default=None,
-                    help="a directory holding an earlier design's preempt_claim.cu "
-                         "and affinity_update.cu: timed beside the kernels on the "
-                         "same inputs, as prev_device_ms")
+                    help="a directory holding an earlier design's preempt_claim.cu, "
+                         "affinity_update.cu and scan_commit.cu: timed beside the "
+                         "kernels on the same inputs, as prev_device_ms")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1676,7 +1721,7 @@ def main(argv=None) -> int:
         return 3
     from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn, sampling_window
     from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels, CycleContext
-    from k8s_scheduler_tpu_torch.kernel_variants import device_ms, prev_affinity_update
+    from k8s_scheduler_tpu_torch.kernel_variants import affinity_update_with, device_ms
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
@@ -1760,6 +1805,9 @@ def main(argv=None) -> int:
     edge = affinity_update_edge_checks(torch, dev)
     log(f"phase kernel affinity_update, seeded edge cases: equal to affinity_update_plain "
         f"on {len(edge)} cases (each twice): {json.dumps(edge)}")
+    shapes = scan_edge_checks(torch, dev)
+    log(f"phase kernel scan_commit, seeded edge cases: equal to scan_commit_plain on "
+        f"{len(shapes)} cases; [cluster, slice] {json.dumps(shapes)}")
 
     fw = Framework.from_config()
     cycle_k = build_cycle_fn(commit_mode="rounds", device=dev)
@@ -2069,7 +2117,7 @@ def main(argv=None) -> int:
     k4_ms = time_ms(torch, lambda: au.affinity_update_cuda(*u_args), 20)
     k4_dev = device_ms(lambda: au.affinity_update_cuda(*u_args), 20)
     k4_prev = None if "affinity_update" not in prev_libs else device_ms(
-        lambda: prev_affinity_update(prev_libs["affinity_update"], *u_args), 20)
+        lambda: affinity_update_with(prev_libs["affinity_update"])(*u_args), 20)
     k4_plain_ms = time_ms(torch, lambda: au.affinity_update_plain(*u_args), 2)
     k4_bytes = (nbytes(ump, uacc, unode, usnap.node_domains, usnap.pod_anti_terms,
                        usnap.pod_pref_aff, usnap.pod_pref_aff_w)
@@ -2158,7 +2206,7 @@ def main(argv=None) -> int:
 
     # ============ scan: config #4's workload through the scan engine ============
     scan_stats = scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi,
-                            slice1_case, plain_kernels)
+                            slice1_case, plain_kernels, prev_libs)
     kernels.update(scan_stats.pop("kernels"))
     del snaps
 

@@ -1,4 +1,4 @@
-// scan_commit: the scan engine's sequential commit, one persistent block.
+// scan_commit: the scan engine's sequential commit, one thread-block cluster.
 //
 // Replaces (no Pallas kernel existed; this is the XLA-compiled device
 // function): k8s_scheduler_tpu/ops/commit.py:63 greedy_commit — a lax.scan
@@ -6,7 +6,7 @@
 // default plugin set (k8s_scheduler_tpu/framework/plugins.py NodePorts,
 // NodeResourcesFit, NodeResourcesBalancedAllocation, InterPodAffinity,
 // PodTopologySpread; k8s_scheduler_tpu/ops/interpod.py:151-315). For each
-// rank in order, pod p = order[rank] (pad pods change nothing: skipped):
+// valid pod p in rank order:
 //   feasible[n] = sbase[p, n] > NEG_INF / 2 (K1: every static filter)
 //                 & no host port of p claimed at n this cycle
 //                 & p's request fits (allocatable - requested) + slack
@@ -27,40 +27,93 @@
 // anti-presence / preferred-weight rows of p's own terms over the nodes
 // of best's domains.
 //
-// The scan is P dependent steps of O(N) work each: a launch per step (the
-// plain version pays some 150 small launches per step) costs more than the
-// step. One block of 1024 threads runs every step: each thread owns the
-// nodes n = tid + j * 1024 (their feasibility as bits of one register,
-// their raw scores in shared memory, 8 bytes per node); block
-// reductions (warp shuffles, then every warp reduces the 32 warp partials,
-// so one __syncthreads per reduction) give the spread minimum, the two
-// normalisation maxima and the argmax over (score, -index); every thread
-// then knows the decision, and the commit is split over the threads with
-// no two writing one word. The carried state lives in device memory (block-
-// scope visibility through __syncthreads), read through the ordinary data
-// path, never the read-only cache.
+// Bound on an H100: latency — P dependent steps of O(N) work each. Bytes
+// (the [P, N] static base once) take a tenth of a millisecond; a step is
+// bound by the latency of its loads and of agreeing on one winner. One
+// block (the earlier design) read every node's state through one SM, 15 us
+// a step.
 //
-// Bound on an H100: latency (one block, P dependent steps). Bytes: the
-// [P, N] static base read once; the rest stays in L2.
+// Design: one cluster of 16 CTAs (8, the portable size, where the card
+// cannot schedule 16) of 512 threads, launched once per scan. CTA c owns
+// the node slice [c * ns, (c + 1) * ns), ns = ceil(N / cluster size), at
+// most two nodes a thread (node ln of the slice: thread ln % 512):
+//   - once per launch, each CTA stages its slice's allocatable, slack,
+//     requested resources, topology domains and host-port bits in shared
+//     memory ([R][ns], [K][ns], [QW][ns] words), and a replica of the
+//     selector totals [S]; a node's requested resources and port bits are
+//     read and written only by its thread;
+//   - the affinity counts [S, D]: each CTA keeps a replica of its own in
+//     device memory (CTA 0 the output, the others scratch copied at
+//     launch) and applies every step's +1s to it, so no count crosses
+//     CTAs. With one owner per domain a zone's count, read by every slice
+//     the zone spans, would need a cluster barrier between each commit
+//     and the next step's lookups; a replica needs a __syncthreads;
+//   - the anti-presence and preferred-weight columns [S, n] are read and
+//     written only by node n's thread;
+//   - per step: the spread minimum of the pod's DoNotSchedule constraints
+//     over the CTA's replica (a block reduction), the masks and raw scores
+//     of the thread's nodes, the two normalisation maxima (a cluster
+//     exchange, only for a pod whose raw affinity or spread score can be
+//     nonzero: the wrapper's pod flags; otherwise both maxima are 0), the
+//     scores and the thread's best key, and the winner: each CTA reduces
+//     to one record (per warp, then warp 0 over the warps) and stores it
+//     with st.async into slot [step parity][its rank] of every CTA, where
+//     it completes 48 bytes on that CTA's mbarrier of the parity; each CTA
+//     waits for its mbarrier's phase, and every warp reduces the records
+//     the same way, so all agree. No cluster barrier: its release would
+//     wait for the step's device-memory writes to reach L2 (the counts
+//     reductions, the table stores), which no other CTA reads. A CTA sends
+//     step t + 2's records only after it has all of step t + 1's, which no
+//     CTA sends before it has read step t's: the parity slots are free;
+//   - a key is (score, -index) as two order-preserving words (-0 as +0:
+//     the reference ties them and the index decides), one redux.sync a
+//     word; the record carries the node's domains, so the commit reads
+//     none from device memory; the owner of the nominated node ORs its
+//     feasibility into its record;
+//   - the wrapper packs each pod's operands into one row (request, port
+//     ids, terms, constraints, its first kPodSels matched selectors,
+//     flags) and the valid pods' rank order; each step loads the next
+//     rank's row word and static-base values into registers, and stores
+//     the row into shared memory at the next step's start (on an H100 80GB
+//     HBM3 at 700 W, config #4's scan: 0.3 us a step faster than loading
+//     them then; a cp.async copy of the row during the step 5% slower, a
+//     prefetch of its lines into L2 no faster).
+// A step has a CTA barrier after the staging (which also orders the last
+// commit's counts and totals before this step's lookups), the CTA barrier
+// and the mbarrier wait of the winner, a CTA barrier for the spread
+// minimum and a CTA and cluster barrier for the maxima when the pod needs
+// them.
+//
+// Exactness: the per-node arithmetic is the one-block design's; minimum,
+// maximum and the first-index argmax are exact in any partition; counts
+// and totals take integer +1s; each preferred-weight column is updated by
+// one thread in rank and slot order.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a --fmad=false ...
 // (--fmad=false keeps every multiply and add separately rounded except
 // the explicit __fmaf_rn calls, where the reference's compiled arithmetic
 // fuses them).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 2;            // nodes a thread at most
+constexpr int kMaxCluster = 16;    // record slots per parity
+constexpr size_t kSmemLimit = 232448;  // 227 KB a block
 constexpr int kMaxR = 8;   // ops/scan_commit.py MAX_RESOURCES
 constexpr int kMaxMP = 8;  // MAX_PORTS
 constexpr int kMaxMA = 8;  // MAX_TERMS
 constexpr int kMaxMC = 8;  // MAX_CONSTRAINTS
 constexpr int kMaxK = 8;   // MAX_KEYS
+constexpr int kPodSels = 8;  // POD_SELS: matched selectors carried in a pod row
 constexpr float kNegInf = -1e9f;
 constexpr int kWhenDoNotSchedule = 0, kWhenScheduleAnyway = 1;
 
@@ -68,116 +121,153 @@ constexpr int kWhenDoNotSchedule = 0, kWhenScheduleAnyway = 1;
 constexpr int kPorts = 1, kFit = 2, kAffinity = 4, kSpread = 8, kPortState = 16,
               kState = 32, kTables = 64, kMost = 128, kFitOnes = 256, kBalAll = 512;
 constexpr int kTermFit = 1, kTermBalanced = 2, kTermAffinity = 3, kTermSpread = 4;
+// pod flags: a DoNotSchedule constraint; a raw affinity / spread score
+// that can be nonzero (else its normalisation maximum is 0 everywhere)
+constexpr int kPodHard = 1, kPodAffNorm = 2, kPodSprNorm = 4;
 
+// ops/scan_commit.py ScanArgs mirrors this struct field for field
 struct Args {
-  int P, N, R, MP, MA, MC, K, S, D, Q, flags;
+  int P, N, R, MP, MA, MC, K, S, D, Q, QW, W, flags, csize, ns, rep_stride;
   int term[4];
   float weight[4];
   float w100[kMaxR];  // fit score: f32(w) * f32(100) per resource
   float rwsum;  // f32(1 / weight sum): the fit score's constant factor
   float rnf;    // f32(1 / count) of the resources BalancedAllocation averages
   int bal_mask;  // resources BalancedAllocation averages
+  // shared memory layout (byte offsets) and its size
+  int o_slot3, o_slot2, o_wbest, o_wred, o_smin, o_dptr, o_rows, o_mbar, o_total, o_alloc,
+      o_slack, o_nreq, o_ndom, o_pbits, smem;
+  // a pod row (int offsets): request (f32 bits) [R], port ids [MP], required
+  // terms [MA, 2], self-match [MA], anti terms [MA, 2], preferred terms
+  // [MA, 2], their weights (f32 bits) [MA], constraints [MC, 3], skews [MC],
+  // the first kPodSels matched selectors, where the list starts, its length,
+  // the nominated node and its domains [K], pod flags, the pod
+  int r_req, r_ports, r_aff, r_self, r_anti, r_pref, r_prefw, r_tsc, r_skew, r_sels,
+      r_sel0, r_nsel, r_nom, r_nomdom, r_flags, r_p;
   const float* sbase;          // [P, N]
-  const int* order;            // [P]
-  const uint8_t* pod_valid;    // [P]
-  const int* nominated;        // [P]
-  const float* req;            // [P, R]
+  const int* vorder;           // [P] the valid pods in rank order
+  const int* nv;               // [1] how many
+  const int* rows;             // [P, W]
   const float* alloc;          // [N, R]
   const float* slack;          // [N, R]
-  const int* port_ids;         // [P, MP]
-  const int* aff;              // [P, MA, 2]
-  const uint8_t* aff_self;     // [P, MA]
-  const int* anti_terms;       // [P, MA, 2]
-  const int* pref_terms;       // [P, MA, 2]
-  const float* pref_w;         // [P, MA]
-  const int* tsc;              // [P, MC, 3]
-  const int* tsc_skew;         // [P, MC]
   const int* node_domains;     // [N, K]
   const int* dom_ptr;          // [K + 1]
   const int* dom_list;         // [nd]
-  const int* sel_ptr;          // [P + 1]
   const int* sel_list;         // [nnz]
   // outputs; the carried state arrives as copies of the cycle-start state
   int* assignment;             // [P]
   float* node_req;             // [N, R]
   uint8_t* ports;              // [N, Q]
-  float* counts;               // [S, D]
+  float* counts;               // [S, D] (CTA 0's replica)
+  float* counts_rep;           // [csize - 1, rep_stride] the other replicas
   float* total;                // [S]
   uint8_t* anti;               // [S, N]
   float* pref;                 // [S, N]
 };
 
-// the pod of the current step, staged in shared memory
-struct Pod {
-  float req[kMaxR];
-  int ports[kMaxMP];
-  int aff_sel[kMaxMA], aff_k[kMaxMA], aff_boot[kMaxMA];
-  int anti_sel[kMaxMA], anti_k[kMaxMA];
-  int pref_sel[kMaxMA], pref_k[kMaxMA];
-  float pref_w[kMaxMA];
-  int tsc_k[kMaxMC], tsc_sel[kMaxMC], tsc_when[kMaxMC];
-  float skew[kMaxMC], minc[kMaxMC];
-  int sel0, sel1, nom;
-  int any_hard;
+// a node's key: hi the score's order-preserving word, lo ~index (the lower
+// index the larger word); none is all zeros
+struct alignas(16) Rec {
+  uint32_t hi, lo, nomf, pad;
+  int dom[kMaxK];
 };
+static_assert(sizeof(Rec) == 48, "ops/scan_commit.py REC_BYTES");
 
-struct Red {  // warp partials of one reduction (double-buffered)
-  float v[kMaxMC][kWarps];
-  int i[kWarps];
-};
+__device__ __forceinline__ Rec none_rec() {
+  Rec r;
+  r.hi = r.lo = r.nomf = r.pad = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) r.dom[k] = -1;
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ord_f32(float f) {
+  const uint32_t b = __float_as_uint(f == 0.0f ? 0.0f : f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// every lane ends with the warp's best record: the largest (hi, lo), the
+// OR of the nominated-node bits
+__device__ __forceinline__ Rec warp_best(const Rec& r, int K) {
+  Rec o;
+  o.hi = __reduce_max_sync(0xffffffffu, r.hi);
+  const bool eq = r.hi == o.hi;
+  o.lo = __reduce_max_sync(0xffffffffu, eq ? r.lo : 0u);
+  const int src = __ffs(__ballot_sync(0xffffffffu, eq && r.lo == o.lo)) - 1;
+  o.nomf = __reduce_or_sync(0xffffffffu, r.nomf);
+  o.pad = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) o.dom[k] = k < K ? __shfl_sync(0xffffffffu, r.dom[k], src) : -1;
+  return o;
+}
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+template <typename T>
+__device__ __forceinline__ T* at(unsigned char* smem, int off) {
+  return reinterpret_cast<T*>(smem + off);
 }
 
-// (score, index): the larger score, the lower index on ties (-0 == +0)
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
+// the CTA's slice in shared memory, indexed [field][slot]
+struct Slice {
+  int ns;
+  const float* alloc;  // [R][ns]
+  const float* slack;  // [R][ns]
+  float* nreq;         // [R][ns]
+  const int* ndom;     // [K][ns]
+  uint32_t* pbits;     // [QW][ns]
+  float* rep;          // the CTA's counts replica [S, D] (device memory)
+};
 
 // counts[sel, domain(n, k)], -1 where n lacks key k (reference
 // _counts_at_nodes, with its clamps)
-__device__ __forceinline__ float count_at(const Args& a, int n, int sel, int k) {
+// (the load is unconditional, so the lookups of a node issue together)
+__device__ __forceinline__ float count_at(const Args& a, const Slice& s, int ln, int sel,
+                                          int k) {
   k = min(max(k, 0), a.K - 1);
-  const int d = a.node_domains[(size_t)n * a.K + k];
-  if (d < 0) return -1.0f;
+  const int d = s.ndom[k * s.ns + ln];
   sel = min(max(sel, 0), a.S - 1);
-  return a.counts[(size_t)sel * a.D + min(d, a.D - 1)];
+  const float c = s.rep[(size_t)sel * a.D + min(max(d, 0), a.D - 1)];
+  return d < 0 ? -1.0f : c;
 }
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
+__device__ __forceinline__ float pod_req(const Args& a, const int* pod, int r) {
+  return __int_as_float(pod[a.r_req + r]);
+}
+
 // (node_requested + request) / allocatable, 1 where allocatable is 0
-__device__ __forceinline__ float used_fraction(const Args& a, const Pod& pod, int n, int r) {
-  const size_t nr = (size_t)n * a.R + r;
-  const float al = a.alloc[nr];
-  const float after = a.node_req[nr] + pod.req[r];
+__device__ __forceinline__ float used_fraction(const Args& a, const Slice& s, const int* pod,
+                                               int ln, int r) {
+  const float al = s.alloc[r * s.ns + ln];
+  const float after = s.nreq[r * s.ns + ln] + pod_req(a, pod, r);
   return al > 0.0f ? after / fmaxf(al, 1e-9f) : 1.0f;
+}
+
+// clamp01(used fraction) of each resource a resource score reads, each
+// computed once for both scores (their loads and divisions independent)
+__device__ __forceinline__ void used_fractions(const Args& a, const Slice& s, const int* pod,
+                                               int ln, float (&frac)[kMaxR]) {
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r)
+    frac[r] = r < a.R && (a.w100[r] != 0.0f || ((a.bal_mask >> r) & 1))
+                  ? clamp01(used_fraction(a, s, pod, ln, r)) : 0.0f;
 }
 
 // the fit score's weighted sum; the score is this times a.rwsum, a product
 // the score sum fuses (the reference divides by the constant weight sum as
 // a multiply by its reciprocal). With every weight 1 the reference's
 // weight multiply folds away and the sum adds rounded products.
-__device__ float fit_sum(const Args& a, const Pod& pod, int n) {
+__device__ __forceinline__ float fit_sum(const Args& a, const float (&frac)[kMaxR]) {
   float acc = 0.0f;
-  for (int r = 0; r < a.R; ++r) {
-    if (a.w100[r] == 0.0f) continue;  // adds an exact 0
-    const float f = clamp01(used_fraction(a, pod, n, r));
-    const float x = (a.flags & kMost) ? f : 1.0f - f;
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    if (r >= a.R || a.w100[r] == 0.0f) continue;  // adds an exact 0
+    const float x = (a.flags & kMost) ? frac[r] : 1.0f - frac[r];
     acc = (a.flags & kFitOnes) ? acc + x * a.w100[r] : __fmaf_rn(x, a.w100[r], acc);
   }
   return acc;
@@ -185,325 +275,553 @@ __device__ float fit_sum(const Args& a, const Pod& pod, int n) {
 
 // 1 - std of the used fractions: the balanced-allocation score before its
 // final multiply by 100 (which the score sum fuses)
-__device__ float balanced_factor(const Args& a, const Pod& pod, int n) {
-  float frac[kMaxR];
+__device__ __forceinline__ float balanced_factor(const Args& a, const float (&frac)[kMaxR]) {
   float tot = 0.0f;
-  for (int r = 0; r < a.R; ++r) {
-    if (!((a.bal_mask >> r) & 1)) continue;
-    frac[r] = clamp01(used_fraction(a, pod, n, r));
-    tot = tot + frac[r];
-  }
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r)
+    if (r < a.R && ((a.bal_mask >> r) & 1)) tot = tot + frac[r];
   const float mean = tot * a.rnf;
   // the masked sum is not contracted; over every resource the mask folds
   // away and the squares fuse into the sum
   float var = 0.0f;
-  for (int r = 0; r < a.R; ++r) {
-    if (!((a.bal_mask >> r) & 1)) continue;
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    if (r >= a.R || !((a.bal_mask >> r) & 1)) continue;
     const float d = frac[r] - mean;
     var = (a.flags & kBalAll) ? __fmaf_rn(d, d, var) : var + d * d;
   }
   return 1.0f - sqrtf(var * a.rnf);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) scan_kernel(Args a) {
-  // the raw affinity and spread scores of every node, between the masks
-  // and the argmax (each thread reads only its own nodes)
-  extern __shared__ float s_raw[];  // [2, N]
-  float* aff_raw = s_raw;
-  float* spr_raw = s_raw + a.N;
-  __shared__ Pod pod;
-  __shared__ Red red[2];
-  __shared__ int s_nom_feasible;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool ports_on = a.flags & kPorts, fit_on = a.flags & kFit,
-             aff_on = a.flags & kAffinity, spread_on = a.flags & kSpread;
-  bool aff_score = false, spr_score = false;  // raw scores someone reads
-  for (int t = 0; t < 4; ++t) {
-    aff_score |= a.term[t] == kTermAffinity;
-    spr_score |= a.term[t] == kTermSpread;
+// fn(selector) for each matched selector of the pod: the first kPodSels
+// from its row, the rest from the list (two loops: no device-memory load
+// for the common case, not even a speculated one)
+template <typename F>
+__device__ __forceinline__ void for_each_sel(const Args& a, const int* pod, F fn) {
+  const int nsel = pod[a.r_nsel];
+  for (int j = 0; j < min(nsel, kPodSels); ++j) fn(pod[a.r_sels + j]);
+  for (int j = kPodSels; j < nsel; ++j) fn(__ldg(a.sel_list + pod[a.r_sel0] + j));
+}
+
+// node ln's feasibility for the pod (the one-block design's tests, each
+// ANDed in; no test waits on an earlier one, so the node's device-memory
+// lookups issue together)
+__device__ __forceinline__ bool node_mask(const Args& a, const Slice& s, const int* pod,
+                                          int ln, int n, float sb, const float (&minc)[kMaxMC],
+                                          const float* total) {
+  bool f = sb > kNegInf / 2;
+  if (a.flags & kPorts) {
+    for (int m = 0; m < a.MP; ++m) {
+      const int q = pod[a.r_ports + m];
+      if (q < 0) continue;
+      const int qq = min(q, a.Q - 1);
+      if ((s.pbits[(qq >> 5) * s.ns + ln] >> (qq & 31)) & 1u) f = false;
+    }
   }
-  for (int i = tid; i < a.P; i += kThreads) a.assignment[i] = -1;
-  int buf = 0;
-  __syncthreads();
-  for (int rank = 0; rank < a.P; ++rank) {
-    const int p = a.order[rank];
-    if (!a.pod_valid[p]) continue;  // the same branch in every thread
-    // ---- stage the pod ----
-    if (tid < a.R) pod.req[tid] = a.req[(size_t)p * a.R + tid];
-    if (tid < a.MP) pod.ports[tid] = a.port_ids[(size_t)p * a.MP + tid];
-    if (tid < a.MA) {
-      const size_t t = (size_t)p * a.MA + tid;
-      pod.aff_sel[tid] = a.aff[2 * t];
-      pod.aff_k[tid] = a.aff[2 * t + 1];
-      pod.aff_boot[tid] = a.aff_self[t];  // & total == 0, below
-      pod.anti_sel[tid] = a.anti_terms[2 * t];
-      pod.anti_k[tid] = a.anti_terms[2 * t + 1];
-      pod.pref_sel[tid] = a.pref_terms[2 * t];
-      pod.pref_k[tid] = a.pref_terms[2 * t + 1];
-      pod.pref_w[tid] = a.pref_w[t];
-      if (pod.aff_sel[tid] >= 0 && aff_on)
-        pod.aff_boot[tid] &= a.total[min(pod.aff_sel[tid], a.S - 1)] == 0.0f;
+  if (a.flags & kFit) {
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= a.R) break;
+      const int i = r * s.ns + ln;
+      if (!(pod_req(a, pod, r) <= (s.alloc[i] - s.nreq[i]) + s.slack[i])) f = false;
     }
-    if (tid < a.MC) {
-      const size_t t = (size_t)p * a.MC + tid;
-      pod.tsc_k[tid] = a.tsc[3 * t];
-      pod.tsc_sel[tid] = a.tsc[3 * t + 1];
-      pod.tsc_when[tid] = a.tsc[3 * t + 2];
-      pod.skew[tid] = (float)a.tsc_skew[t];
+  }
+  if (a.flags & kAffinity) {
+#pragma unroll
+    for (int t = 0; t < kMaxMA; ++t) {
+      if (t >= a.MA) break;
+      const int sel = pod[a.r_aff + 2 * t];
+      if (sel >= 0) {
+        const bool boot = pod[a.r_self + t] && total[min(sel, a.S - 1)] == 0.0f;
+        if (!(boot || count_at(a, s, ln, sel, pod[a.r_aff + 2 * t + 1]) > 0.0f)) f = false;
+      }
+      const int asel = pod[a.r_anti + 2 * t];
+      if (asel >= 0 && !(count_at(a, s, ln, asel, pod[a.r_anti + 2 * t + 1]) <= 0.0f))
+        f = false;
     }
-    if (tid == 0) {
-      pod.sel0 = a.sel_ptr[p];
-      pod.sel1 = a.sel_ptr[p + 1];
-      pod.nom = a.nominated[p];
-      s_nom_feasible = 0;
-      int hard = 0;
-      for (int c = 0; c < a.MC; ++c)
-        hard |= a.tsc[3 * ((size_t)p * a.MC + c)] >= 0 &&
-                a.tsc[3 * ((size_t)p * a.MC + c) + 2] == kWhenDoNotSchedule;
-      pod.any_hard = spread_on && hard;
+    for_each_sel(a, pod, [&](int sl) {
+      if (a.anti[(size_t)sl * a.N + n]) f = false;
+    });
+  }
+  if (pod[a.r_flags] & kPodHard) {
+#pragma unroll
+    for (int c = 0; c < kMaxMC; ++c) {
+      if (c >= a.MC) break;
+      const int k = pod[a.r_tsc + 3 * c];
+      if (k < 0 || pod[a.r_tsc + 3 * c + 2] != kWhenDoNotSchedule) continue;
+      const float cnt = count_at(a, s, ln, pod[a.r_tsc + 3 * c + 1], k);
+      if ((cnt + 1.0f) - minc[c] > (float)pod[a.r_skew + c] || cnt < 0.0f) f = false;
     }
+  }
+  return f;
+}
+
+// integer-valued terms far below 2^24 (the wrapper checks): exact
+__device__ __forceinline__ float affinity_raw(const Args& a, const Slice& s, const int* pod,
+                                              int ln, int n) {
+  float raw = 0.0f;
+  for (int t = 0; t < a.MA; ++t) {
+    const int sel = pod[a.r_pref + 2 * t];
+    if (sel < 0) continue;
+    const float c = count_at(a, s, ln, sel, pod[a.r_pref + 2 * t + 1]);
+    if (c > 0.0f) raw = raw + __int_as_float(pod[a.r_prefw + t]) * c;
+  }
+  for_each_sel(a, pod, [&](int sl) { raw = raw + a.pref[(size_t)sl * a.N + n]; });
+  return raw;
+}
+
+__device__ __forceinline__ float spread_raw(const Args& a, const Slice& s, const int* pod,
+                                            int ln) {
+  float sraw = 0.0f;
+  for (int c = 0; c < a.MC; ++c) {
+    const int k = pod[a.r_tsc + 3 * c];
+    if (k < 0 || pod[a.r_tsc + 3 * c + 2] != kWhenScheduleAnyway) continue;
+    sraw = sraw + fmaxf(count_at(a, s, ln, pod[a.r_tsc + 3 * c + 1], k), 0.0f);
+  }
+  return sraw;
+}
+
+// the static score plus the dynamic score sum as the reference's fused
+// scan step forms it (framework/runtime.py Framework.dyn): each add fuses
+// a multiply feeding it — the running sum's while that is a bare product
+// (a first term that is one), else the new term's; one bare product alone
+// fuses into the static score's add
+__device__ __forceinline__ float node_score(const Args& a, const Slice& s, const int* pod,
+                                            int ln, float sb, float araw, float aff_hi,
+                                            float sraw, float spr_hi) {
+  float frac[kMaxR];
+  used_fractions(a, s, pod, ln, frac);
+  float dyn = 0.0f, hx = 0.0f, hc = 0.0f;
+  bool have = false, held = false;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    float x, c = a.weight[t];
+    switch (a.term[t]) {
+      case kTermFit:
+        x = fit_sum(a, frac);
+        c = a.rwsum * a.weight[t];
+        break;
+      case kTermBalanced:
+        x = balanced_factor(a, frac);
+        c = 100.0f * a.weight[t];
+        break;
+      case kTermAffinity:
+        x = aff_hi > 0.0f ? (araw / aff_hi) * 100.0f : 0.0f;
+        break;
+      case kTermSpread:
+        x = spr_hi > 0.0f ? (1.0f - sraw / spr_hi) * 100.0f : 100.0f;
+        break;
+      default: continue;
+    }
+    const bool prod = c != 1.0f;
+    if (!have) {
+      have = true;
+      if (prod) {
+        held = true;
+        hx = x;
+        hc = c;
+      } else {
+        dyn = x;
+      }
+    } else if (held) {
+      dyn = __fmaf_rn(hx, hc, prod ? x * c : x);
+      held = false;
+    } else {
+      dyn = prod ? __fmaf_rn(x, c, dyn) : dyn + x;
+    }
+  }
+  return held ? __fmaf_rn(hx, hc, sb) : sb + dyn;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the shared::cluster address of `addr` (this CTA's) in CTA `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// one arrival on this CTA's mbarrier, expecting `bytes` of st.async stores
+__device__ __forceinline__ void mbar_expect(uint64_t* mbar, uint32_t bytes) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 %0, [%1], %2;"
+               : "=l"(state) : "r"(smem_addr(mbar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* mbar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(mbar)), "r"(parity) : "memory");
+}
+
+// record `r` into the slot at `dst` of another CTA (shared::cluster
+// addresses), completing 48 bytes on that CTA's mbarrier at `mbar`
+__device__ __forceinline__ void st_async4(uint32_t dst, uint32_t mbar, uint32_t x, uint32_t y,
+                                          uint32_t z, uint32_t w) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" :: "r"(dst), "r"(x), "r"(y), "r"(z), "r"(w), "r"(mbar) : "memory");
+}
+
+__device__ __forceinline__ void send_rec(uint32_t dst, uint32_t mbar, const Rec& r) {
+  st_async4(dst, mbar, r.hi, r.lo, r.nomf, r.pad);
+  st_async4(dst + 16, mbar, r.dom[0], r.dom[1], r.dom[2], r.dom[3]);
+  st_async4(dst + 32, mbar, r.dom[4], r.dom[5], r.dom[6], r.dom[7]);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int me = (int)cluster.block_rank();
+  const int csize = a.csize, ns = a.ns, R = a.R, K = a.K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = me * ns;
+  const int nn = max(0, min(ns, a.N - n0));  // nodes this CTA owns
+
+  Rec* slot3 = at<Rec>(smem, a.o_slot3);       // [2][kMaxCluster] winner records
+  uint2* slot2 = at<uint2>(smem, a.o_slot2);   // [2][kMaxCluster] maxima
+  Rec* wbest = at<Rec>(smem, a.o_wbest);       // [kWarps]
+  uint2* wred = at<uint2>(smem, a.o_wred);     // [kWarps]
+  float* smin = at<float>(smem, a.o_smin);     // [kMaxMC][kWarps]
+  int* dptr = at<int>(smem, a.o_dptr);         // [K + 1]
+  int* rows = at<int>(smem, a.o_rows);         // [2][W] the step's pod row, by parity
+  uint64_t* mbar = at<uint64_t>(smem, a.o_mbar);  // [2] the winner records' arrival
+  float* total = at<float>(smem, a.o_total);   // [S]
+  Slice s{ns, at<float>(smem, a.o_alloc), at<float>(smem, a.o_slack),
+          at<float>(smem, a.o_nreq), at<int>(smem, a.o_ndom), at<uint32_t>(smem, a.o_pbits),
+          me == 0 ? a.counts : a.counts_rep + (size_t)(me - 1) * a.rep_stride};
+  const bool aff_score = a.term[0] == kTermAffinity || a.term[1] == kTermAffinity ||
+                         a.term[2] == kTermAffinity || a.term[3] == kTermAffinity;
+  const bool spr_score = a.term[0] == kTermSpread || a.term[1] == kTermSpread ||
+                         a.term[2] == kTermSpread || a.term[3] == kTermSpread;
+
+  // ---- stage the slice, the totals and the counts replica ----
+  {
+    float* alloc = at<float>(smem, a.o_alloc);
+    float* slack = at<float>(smem, a.o_slack);
+    int* ndom = at<int>(smem, a.o_ndom);
+    for (int i = tid; i < nn * R; i += kThreads) {
+      const int ln = i / R, r = i % R;
+      const size_t g = (size_t)n0 * R + i;
+      alloc[r * ns + ln] = a.alloc[g];
+      slack[r * ns + ln] = a.slack[g];
+      s.nreq[r * ns + ln] = a.node_req[g];
+    }
+    for (int i = tid; i < nn * K; i += kThreads)
+      ndom[(i % K) * ns + i / K] = a.node_domains[(size_t)n0 * K + i];
+    for (int i = tid; i < nn * a.QW; i += kThreads) {
+      const int ln = i / a.QW, w = i % a.QW;
+      uint32_t bits = 0;
+      for (int q = w * 32; q < min(a.Q, w * 32 + 32); ++q)
+        bits |= (uint32_t)(a.ports[(size_t)(n0 + ln) * a.Q + q] != 0) << (q & 31);
+      s.pbits[w * ns + ln] = bits;
+    }
+  }
+  for (int i = tid; i < a.S; i += kThreads) total[i] = a.total[i];
+  for (int i = tid; i <= K; i += kThreads) dptr[i] = a.dom_ptr[i];
+  if (me > 0) {
+    const size_t m = (size_t)a.S * a.D;
+    const float4* src = reinterpret_cast<const float4*>(a.counts);
+    float4* dst = reinterpret_cast<float4*>(s.rep);
+    for (size_t i = tid; i < m / 4; i += kThreads) dst[i] = src[i];
+    for (size_t i = m / 4 * 4 + tid; i < m; i += kThreads) s.rep[i] = a.counts[i];
+  }
+  if (me == 0)
+    for (int i = tid; i < a.P; i += kThreads) a.assignment[i] = -1;
+  const int nv = *a.nv;
+
+  if (tid < 2)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&mbar[tid])));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  // the next rank's pod (loaded two steps ahead), its row word and its
+  // static-base values (loaded a step ahead, into registers)
+  int p_next = nv > 1 ? a.vorder[1] : 0, row_next = 0;
+  float sb_next[kPer];
+  if (nv > 0) {
+    const int p0 = a.vorder[0];
+    row_next = tid < a.W ? __ldg(a.rows + (size_t)p0 * a.W + tid) : 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int ln = tid + i * kThreads;
+      sb_next[i] = ln < nn ? __ldcs(a.sbase + (size_t)p0 * a.N + n0 + ln) : kNegInf;
+    }
+  }
+  cluster.sync();  // staged, and every CTA of the cluster is running
+
+  for (int rank = 0; rank < nv; ++rank) {
+    const int par = rank & 1;
+    // ---- stage the pod's row and its static-base values, and load the
+    // next rank's ----
+    const int p_after = rank + 2 < nv ? __ldg(a.vorder + rank + 2) : 0;
+    int* pod = rows + par * a.W;
+    if (tid < a.W) pod[tid] = row_next;
+    float sb_cur[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) sb_cur[i] = sb_next[i];
+    if (rank + 1 < nv) {
+      row_next = tid < a.W ? __ldg(a.rows + (size_t)p_next * a.W + tid) : 0;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int ln = tid + i * kThreads;
+        sb_next[i] = ln < nn ? __ldcs(a.sbase + (size_t)p_next * a.N + n0 + ln) : kNegInf;
+      }
+    }
+    if (tid == 0) mbar_expect(&mbar[par], (uint32_t)(csize * sizeof(Rec)));
+    // the row, and the previous step's counts and totals
     __syncthreads();
+    const int pflags = pod[a.r_flags];
 
     // ---- spread: min count over each hard constraint's key domains ----
-    if (pod.any_hard) {
-      float m[kMaxMC];
-      for (int c = 0; c < a.MC; ++c) {
-        m[c] = INFINITY;
-        const int k = pod.tsc_k[c];
-        if (k < 0 || pod.tsc_when[c] != kWhenDoNotSchedule || k >= a.K) continue;
-        const int sel = min(max(pod.tsc_sel[c], 0), a.S - 1);
-        const float* row = a.counts + (size_t)sel * a.D;
-        for (int i = a.dom_ptr[k] + tid; i < a.dom_ptr[k + 1]; i += kThreads)
-          m[c] = fminf(m[c], row[a.dom_list[i]]);
-      }
-      for (int c = 0; c < a.MC; ++c) {
-        const float w = warp_min(m[c]);
-        if (lane == 0) red[buf].v[c][warp] = w;
+    float minc[kMaxMC];
+#pragma unroll
+    for (int c = 0; c < kMaxMC; ++c) minc[c] = 0.0f;
+    if (pflags & kPodHard) {
+#pragma unroll
+      for (int c = 0; c < kMaxMC; ++c) {
+        if (c >= a.MC) break;
+        float m = INFINITY;
+        const int k = pod[a.r_tsc + 3 * c];
+        if (k >= 0 && pod[a.r_tsc + 3 * c + 2] == kWhenDoNotSchedule && k < K) {
+          const int sel = min(max(pod[a.r_tsc + 3 * c + 1], 0), a.S - 1);
+          const float* row = s.rep + (size_t)sel * a.D;
+          for (int i = dptr[k] + tid; i < dptr[k + 1]; i += kThreads)
+            m = fminf(m, row[__ldg(a.dom_list + i)]);
+        }
+        m = warp_min(m);
+        if (lane == 0) smin[c * kWarps + warp] = m;
       }
       __syncthreads();
-      if (tid < a.MC) {  // one thread per constraint finishes its minimum
-        float v = INFINITY;
-        for (int w = 0; w < kWarps; ++w) v = fminf(v, red[buf].v[tid][w]);
-        pod.minc[tid] = isfinite(v) ? v : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kMaxMC; ++c) {
+        if (c >= a.MC) break;
+        const float v = warp_min(lane < kWarps ? smin[c * kWarps + lane] : INFINITY);
+        minc[c] = isfinite(v) ? v : 0.0f;
       }
-      buf ^= 1;
-      __syncthreads();
     }
 
     // ---- masks and raw affinity / spread scores of this thread's nodes ----
-    unsigned feas = 0;  // bit j: node tid + j * kThreads is feasible
+    const bool need_aff = aff_score && (pflags & kPodAffNorm);
+    const bool need_spr = spr_score && (pflags & kPodSprNorm);
+    const int nom = pod[a.r_nom];
+    const int nom_n = nom >= 0 ? min(nom, a.N - 1) : -1;
+    unsigned feas = 0, nomf = 0;
+    float araw[kPer], sraw[kPer];
     float aff_hi = 0.0f, spr_hi = 0.0f;
-    for (int j = 0, n = tid; n < a.N; ++j, n += kThreads) {
-      bool f = a.sbase[(size_t)p * a.N + n] > kNegInf / 2;
-      if (f && ports_on) {
-        for (int m = 0; m < a.MP; ++m) {
-          const int q = pod.ports[m];
-          if (q >= 0 && a.ports[(size_t)n * a.Q + min(q, a.Q - 1)]) f = false;
-        }
-      }
-      if (f && fit_on) {
-        for (int r = 0; r < a.R; ++r) {
-          const size_t nr = (size_t)n * a.R + r;
-          if (!(pod.req[r] <= (a.alloc[nr] - a.node_req[nr]) + a.slack[nr])) f = false;
-        }
-      }
-      if (f && aff_on) {
-        for (int t = 0; t < a.MA; ++t) {
-          const int sel = pod.aff_sel[t];
-          if (sel >= 0 && !(pod.aff_boot[t] || count_at(a, n, sel, pod.aff_k[t]) > 0.0f))
-            f = false;
-          const int asel = pod.anti_sel[t];
-          if (asel >= 0 && !(count_at(a, n, asel, pod.anti_k[t]) <= 0.0f)) f = false;
-        }
-        for (int i = pod.sel0; i < pod.sel1 && f; ++i)
-          if (a.anti[(size_t)a.sel_list[i] * a.N + n]) f = false;
-      }
-      if (f && pod.any_hard) {
-        for (int c = 0; c < a.MC; ++c) {
-          if (pod.tsc_k[c] < 0 || pod.tsc_when[c] != kWhenDoNotSchedule) continue;
-          const float cnt = count_at(a, n, pod.tsc_sel[c], pod.tsc_k[c]);
-          if ((cnt + 1.0f) - pod.minc[c] > pod.skew[c] || cnt < 0.0f) f = false;
-        }
-      }
-      if (pod.nom >= 0 && n == min(pod.nom, a.N - 1)) s_nom_feasible = f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      araw[i] = sraw[i] = 0.0f;
+      const int ln = tid + i * kThreads;
+      if (ln >= nn) continue;
+      const int n = n0 + ln;
+      const bool f = node_mask(a, s, pod, ln, n, sb_cur[i], minc, total);
+      if (n == nom_n) nomf = f;
       if (!f) continue;
-      feas |= 1u << j;
-      // integer-valued terms far below 2^24 (the wrapper checks): exact
-      if (aff_score) {
-        float raw = 0.0f;
-        for (int t = 0; t < a.MA; ++t) {
-          const int sel = pod.pref_sel[t];
-          if (sel < 0) continue;
-          const float c = count_at(a, n, sel, pod.pref_k[t]);
-          if (c > 0.0f) raw = raw + pod.pref_w[t] * c;
-        }
-        for (int i = pod.sel0; i < pod.sel1; ++i)
-          raw = raw + a.pref[(size_t)a.sel_list[i] * a.N + n];
-        aff_raw[n] = raw;
-        aff_hi = fmaxf(aff_hi, fabsf(raw));
+      feas |= 1u << i;
+      if (need_aff) {
+        araw[i] = affinity_raw(a, s, pod, ln, n);
+        aff_hi = fmaxf(aff_hi, fabsf(araw[i]));
       }
-      if (spr_score) {
-        float sraw = 0.0f;
-        for (int c = 0; c < a.MC; ++c) {
-          if (pod.tsc_k[c] < 0 || pod.tsc_when[c] != kWhenScheduleAnyway) continue;
-          sraw = sraw + fmaxf(count_at(a, n, pod.tsc_sel[c], pod.tsc_k[c]), 0.0f);
-        }
-        spr_raw[n] = sraw;
-        spr_hi = fmaxf(spr_hi, sraw);
+      if (need_spr) {
+        sraw[i] = spread_raw(a, s, pod, ln);
+        spr_hi = fmaxf(spr_hi, sraw[i]);
       }
     }
-    // ---- the two normalisation maxima over feasible nodes ----
-    aff_hi = warp_max(aff_hi);
-    spr_hi = warp_max(spr_hi);
-    if (lane == 0) {
-      red[buf].v[0][warp] = aff_hi;
-      red[buf].v[1][warp] = spr_hi;
+    // ---- the two normalisation maxima over the cluster's feasible nodes
+    // (non-negative floats: their bits order as unsigned words) ----
+    if (need_aff || need_spr) {
+      const uint32_t ah = __reduce_max_sync(0xffffffffu, __float_as_uint(aff_hi));
+      const uint32_t sh = __reduce_max_sync(0xffffffffu, __float_as_uint(spr_hi));
+      if (lane == 0) wred[warp] = make_uint2(ah, sh);
+      __syncthreads();
+      if (warp == 0) {
+        const uint2 v = lane < kWarps ? wred[lane] : make_uint2(0u, 0u);
+        const uint2 m = make_uint2(__reduce_max_sync(0xffffffffu, v.x),
+                                   __reduce_max_sync(0xffffffffu, v.y));
+        if (lane < csize) *cluster.map_shared_rank(&slot2[par * kMaxCluster + me], lane) = m;
+      }
+      cluster.sync();
+      const uint2 v = lane < csize ? slot2[par * kMaxCluster + lane] : make_uint2(0u, 0u);
+      aff_hi = __uint_as_float(__reduce_max_sync(0xffffffffu, v.x));
+      spr_hi = __uint_as_float(__reduce_max_sync(0xffffffffu, v.y));
     }
-    __syncthreads();
-    aff_hi = warp_max(red[buf].v[0][lane]);
-    spr_hi = warp_max(red[buf].v[1][lane]);
-    buf ^= 1;
 
-    // ---- scores and the first-index argmax ----
-    float best_v = -INFINITY;
-    int best_i = a.N;
-    for (int j = 0, n = tid; n < a.N; ++j, n += kThreads) {
-      if (!((feas >> j) & 1u)) continue;
-      // the dynamic score sum as the reference's fused scan step forms it
-      // (framework/runtime.py Framework.dyn): each add fuses a multiply
-      // feeding it — the running sum's while that is a bare product (a
-      // first term that is one), else the new term's
-      float dyn = 0.0f, hx = 0.0f, hc = 0.0f;
-      bool have = false, held = false;
-      for (int t = 0; t < 4; ++t) {
-        float x, c = a.weight[t];
-        switch (a.term[t]) {
-          case kTermFit:
-            x = fit_sum(a, pod, n);
-            c = a.rwsum * a.weight[t];
-            break;
-          case kTermBalanced:
-            x = balanced_factor(a, pod, n);
-            c = 100.0f * a.weight[t];
-            break;
-          case kTermAffinity:
-            x = aff_hi > 0.0f ? (aff_raw[n] / aff_hi) * 100.0f : 0.0f;
-            break;
-          case kTermSpread:
-            x = spr_hi > 0.0f ? (1.0f - spr_raw[n] / spr_hi) * 100.0f : 100.0f;
-            break;
-          default: continue;
-        }
-        const bool prod = c != 1.0f;
-        if (!have) {
-          have = true;
-          if (prod) {
-            held = true;
-            hx = x;
-            hc = c;
-          } else {
-            dyn = x;
-          }
-        } else if (held) {
-          dyn = __fmaf_rn(hx, hc, prod ? x * c : x);
-          held = false;
-        } else {
-          dyn = prod ? __fmaf_rn(x, c, dyn) : dyn + x;
-        }
-      }
-      // one bare product: the static score's add fuses it
-      const float sb = a.sbase[(size_t)p * a.N + n];
-      const float s = held ? __fmaf_rn(hx, hc, sb) : sb + dyn;
-      if (s > best_v) {  // j ascends, so n does: ties keep the lower index
-        best_v = s;
-        best_i = n;
+    // ---- scores and this thread's best (score, -index) ----
+    Rec best = none_rec();
+    int best_ln = -1;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (!((feas >> i) & 1u)) continue;
+      const int ln = tid + i * kThreads;
+      const float sc = node_score(a, s, pod, ln, sb_cur[i], araw[i], aff_hi, sraw[i], spr_hi);
+      if (!(sc > -INFINITY)) continue;
+      const uint32_t hi = ord_f32(sc), lo = ~(uint32_t)(n0 + ln);
+      if (hi > best.hi || (hi == best.hi && lo > best.lo)) {
+        best.hi = hi;
+        best.lo = lo;
+        best_ln = ln;
       }
     }
-    warp_argmax(best_v, best_i);
-    if (lane == 0) {
-      red[buf].v[0][warp] = best_v;
-      red[buf].i[warp] = best_i;
+    if (best_ln >= 0) {
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) best.dom[k] = k < K ? s.ndom[k * ns + best_ln] : -1;
+    }
+    best.nomf = nomf;
+    // ---- the winner: per warp, over the warps, over the cluster ----
+    {
+      const Rec w = warp_best(best, K);
+      if (lane == 0) wbest[warp] = w;
     }
     __syncthreads();
-    best_v = red[buf].v[0][lane];
-    best_i = red[buf].i[lane];
-    warp_argmax(best_v, best_i);
-    buf ^= 1;
-    const bool nom_ok = pod.nom >= 0 && s_nom_feasible;
-    const int best = nom_ok ? min(pod.nom, a.N - 1) : best_i;
-    const bool ok = nom_ok || best_i < a.N;
+    if (warp == 0) {
+      const Rec c = warp_best(lane < kWarps ? wbest[lane] : none_rec(), K);
+      if (lane < csize)
+        send_rec(cluster_addr(smem_addr(&slot3[par * kMaxCluster + me]), lane),
+                 cluster_addr(smem_addr(&mbar[par]), lane), c);
+    }
+    mbar_wait(&mbar[par], (rank >> 1) & 1);  // every CTA's record has arrived
+    const Rec win = warp_best(lane < csize ? slot3[par * kMaxCluster + lane] : none_rec(), K);
+    const bool nom_ok = nom >= 0 && win.nomf;
+    const int bn = nom_ok ? nom_n : (int)~win.lo;
+    const bool ok = nom_ok || win.hi != 0u;
 
     // ---- the commit ----
+    const int nsel = pod[a.r_nsel];
     if (ok) {
-      if (tid == 0) a.assignment[p] = best;
-      if (tid < a.R) a.node_req[(size_t)best * a.R + tid] += pod.req[tid];
-      if ((a.flags & kPortState) && tid < a.MP) {
-        const int q = pod.ports[tid];
-        if (q >= 0) a.ports[(size_t)best * a.Q + min(q, a.Q - 1)] = 1;
+      int dom[kMaxK];
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k)
+        dom[k] = k >= K ? -1 : nom_ok ? pod[a.r_nomdom + k] : win.dom[k];
+      const int bl = bn - n0;
+      if (bl >= 0 && bl < nn && tid == bl % kThreads) {  // the node's thread
+        a.assignment[pod[a.r_p]] = bn;
+        for (int r = 0; r < R; ++r) s.nreq[r * ns + bl] += pod_req(a, pod, r);
+        if (a.flags & kPortState) {
+          for (int m = 0; m < a.MP; ++m) {
+            const int q = pod[a.r_ports + m];
+            if (q < 0) continue;
+            const int qq = min(q, a.Q - 1);
+            s.pbits[(qq >> 5) * ns + bl] |= 1u << (qq & 31);
+          }
+        }
       }
       if (a.flags & kState) {
-        // matched selectors: +1 in each of best's domains (distinct words)
-        for (int i = pod.sel0 + tid; i < pod.sel1; i += kThreads) {
-          const int s = a.sel_list[i];
-          for (int k = 0; k < a.K; ++k) {
-            const int d = a.node_domains[(size_t)best * a.K + k];
-            if (d >= 0) a.counts[(size_t)s * a.D + min(d, a.D - 1)] += 1.0f;
-          }
-          a.total[s] += 1.0f;
-        }
+        // matched selectors: +1 in each of best's domains (distinct words),
+        // all by thread 0
+        if (tid == 0)
+          for_each_sel(a, pod, [&](int sl) {
+#pragma unroll
+            for (int k = 0; k < kMaxK; ++k)
+              if (k < K && dom[k] >= 0)  // a reduction: no load on the step's path
+                atomicAdd(s.rep + (size_t)sl * a.D + min(dom[k], a.D - 1), 1.0f);
+            total[sl] += 1.0f;
+          });
       }
       if (a.flags & kTables) {
         // p's own terms over the nodes of best's domain; each thread its
         // own nodes, terms in slot order
         for (int t = 0; t < a.MA; ++t) {
-          const int asel = pod.anti_sel[t], psel = pod.pref_sel[t];
-          const int ak = min(max(pod.anti_k[t], 0), a.K - 1);
-          const int pk = min(max(pod.pref_k[t], 0), a.K - 1);
-          const int ad = a.node_domains[(size_t)best * a.K + ak];
-          const int pd = a.node_domains[(size_t)best * a.K + pk];
-          for (int n = tid; n < a.N; n += kThreads) {
-            if (asel >= 0 && ad >= 0 && a.node_domains[(size_t)n * a.K + ak] == ad)
+          const int asel = pod[a.r_anti + 2 * t], psel = pod[a.r_pref + 2 * t];
+          if (asel < 0 && psel < 0) continue;
+          const int ak = min(max(pod[a.r_anti + 2 * t + 1], 0), K - 1);
+          const int pk = min(max(pod[a.r_pref + 2 * t + 1], 0), K - 1);
+          int ad = -1, pd = -1;
+#pragma unroll
+          for (int k = 0; k < kMaxK; ++k) {
+            if (k == ak) ad = dom[k];
+            if (k == pk) pd = dom[k];
+          }
+          const float pw = __int_as_float(pod[a.r_prefw + t]);
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) {
+            const int ln = tid + i * kThreads;
+            if (ln >= nn) continue;
+            const size_t n = (size_t)n0 + ln;
+            if (asel >= 0 && ad >= 0 && s.ndom[ak * ns + ln] == ad)
               a.anti[(size_t)min(asel, a.S - 1) * a.N + n] = 1;
-            if (psel >= 0 && pd >= 0 && a.node_domains[(size_t)n * a.K + pk] == pd)
-              a.pref[(size_t)min(psel, a.S - 1) * a.N + n] += pod.pref_w[t];
+            if (psel >= 0 && pd >= 0 && s.ndom[pk * ns + ln] == pd)
+              a.pref[(size_t)min(psel, a.S - 1) * a.N + n] += pw;
           }
         }
       }
     }
-    __syncthreads();
+    p_next = p_after;
   }
+
+  __syncthreads();
+  for (int i = tid; i < nn * R; i += kThreads)
+    a.node_req[(size_t)n0 * R + i] = s.nreq[(i % R) * ns + i / R];
+  for (int i = tid; i < nn * a.Q; i += kThreads) {
+    const int ln = i / a.Q, q = i % a.Q;
+    a.ports[(size_t)n0 * a.Q + i] = (s.pbits[(q >> 5) * ns + ln] >> (q & 31)) & 1u;
+  }
+  if (me == 0)
+    for (int i = tid; i < a.S; i += kThreads) a.total[i] = total[i];
+  cluster.sync();  // no CTA leaves while another may still address it
 }
 
+cudaError_t configure(const Args& a, cudaStream_t st, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr) {
+  const void* fn = (const void*)scan_kernel;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (e != cudaSuccess) return e;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(a.csize, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = a.smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
 
 }  // namespace
 
-extern "C" int scan_commit_launch(
-    int P, int N, int R, int MP, int MA, int MC, int K, int S, int D, int Q,
-    int flags, int t0, int t1, int t2, int t3, float w0, float w1, float w2,
-    float w3, float f0, float f1, float f2, float f3, float f4, float f5,
-    float f6, float f7, float rwsum, float rnf, int bal_mask, const float* sbase,
-    const int* order, const uint8_t* pod_valid, const int* nominated,
-    const float* req, const float* alloc, const float* slack,
-    const int* port_ids, const int* aff, const uint8_t* aff_self,
-    const int* anti_terms, const int* pref_terms, const float* pref_w,
-    const int* tsc, const int* tsc_skew, const int* node_domains,
-    const int* dom_ptr, const int* dom_list, const int* sel_ptr,
-    const int* sel_list, int* assignment, float* node_req, uint8_t* ports,
-    float* counts, float* total, uint8_t* anti, float* pref, void* stream) {
-  if (P <= 0) return 0;
-  if (R > kMaxR || MP > kMaxMP || MA > kMaxMA || MC > kMaxMC || K > kMaxK || K < 1 ||
-      N < 1 || N > 16 * kThreads)
+extern "C" int scan_commit_args_size() { return (int)sizeof(Args); }
+
+// how many clusters of `csize` CTAs with `smem` bytes each the card can
+// hold at once (0: it cannot schedule one)
+extern "C" int scan_commit_clusters(int csize, int smem, int* clusters) {
+  if (csize < 1 || csize > kMaxCluster || smem < 0 || (size_t)smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  Args a{P, N, R, MP, MA, MC, K, S, D, Q, flags, {t0, t1, t2, t3}, {w0, w1, w2, w3},
-         {f0, f1, f2, f3, f4, f5, f6, f7}, rwsum, rnf, bal_mask, sbase, order,
-         pod_valid, nominated, req, alloc, slack, port_ids, aff, aff_self,
-         anti_terms, pref_terms, pref_w, tsc, tsc_skew, node_domains, dom_ptr,
-         dom_list, sel_ptr, sel_list, assignment, node_req, ports, counts,
-         total, anti, pref};
-  const size_t smem = 2 * (size_t)N * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(a);
+  Args a{};
+  a.csize = csize;
+  a.smem = smem;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(a, nullptr, cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)scan_kernel, &cfg);
+}
+
+// `args` points at an Args (an opaque pointer: a type of the anonymous
+// namespace in the signature would give the function internal linkage)
+extern "C" int scan_commit_launch(const void* args, void* stream) {
+  const Args& a = *static_cast<const Args*>(args);
+  if (a.P <= 0) return 0;
+  if (a.R < 1 || a.R > kMaxR || a.MP > kMaxMP || a.MA > kMaxMA || a.MC > kMaxMC ||
+      a.K < 1 || a.K > kMaxK || a.N < 1 || a.csize < 1 || a.csize > kMaxCluster ||
+      a.ns < 1 || a.ns > kThreads * kPer || (long long)a.ns * a.csize < a.N ||
+      a.smem < 0 || (size_t)a.smem > kSmemLimit || a.W > kThreads ||
+      (a.csize > 1 && a.rep_stride % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(a, (cudaStream_t)stream, cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, scan_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,34 @@
 """Where the port's kernels spend their time on the card: device times of
-the small kernels on the main path, and timed variants of K9
-`preempt_claim`, K4 `affinity_update`, K5 `capacity` and K1 `static_base`,
-built from edited copies of their sources, on full-size inputs recorded
-from the main path.
+the small kernels on the main path, and timed variants of K13
+`scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K5 `capacity` and
+K1 `static_base`, built from edited copies of their sources, on full-size
+inputs recorded from the main path.
 
     python3 -m k8s_scheduler_tpu_torch.kernel_variants [--csrc DIR] [--out PATH]
+        [--kernels scan_commit,small,preempt_claim,affinity_update,capacity,static_base]
 
-`--csrc` names the directory whose `preempt_claim.cu`, `affinity_update.cu`,
-`capacity.cu` and `static_base.cu` are varied (default: the package's own
-`csrc/`; an earlier checkout's `csrc/` times that design on the same
-inputs, K4 through its earlier C interface, `prev_affinity_update`). Each
-variant is a list of text edits; a variant whose anchors are not in the
-source is reported as not applicable. The variants compute wrong results
-on purpose: they are timed, never compared. The edited copies are built
+`--csrc` names the directory whose `scan_commit.cu`, `preempt_claim.cu`,
+`affinity_update.cu`, `capacity.cu` and `static_base.cu` are varied
+(default: the package's own `csrc/`; an earlier checkout's `csrc/` times
+that design on the same inputs, K13 and K4 through their earlier C
+interfaces, `prev_scan_commit` and `prev_affinity_update`). `--kernels`
+picks sections (default all). Each variant is a list of text edits; a
+variant whose anchors are not in the source is reported as not
+applicable. The variants that skip work compute wrong results on
+purpose: they are timed, never compared. The edited copies are built
 into `_build/variants/`.
 
 Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
 10000 pending; P=16384, N=8192), as `chip_smoke.py` makes them:
+  K13    the scan cycle's packed inputs of config #4's workload (seed 202,
+         10000 steps): the kernel, its floor (the barriers, the record
+         exchange and the argmax without the node work), the counts
+         committed by read-modify-write, the portable 8 CTAs (the
+         wrapper's `cluster=8`), and a copy that sums clock64() per phase
+         of a step in every thread and prints each CTA's slowest thread
+         per phase;
+         kernel time by torch.profiler (the wrapper reads device values,
+         so no CUDA graph), ms and us a step;
   small  every call of K4, K5, K6 `guard_sweep` (one rounds cycle of
          config #4's workload, seed 202), K7-K9 (the preemption pass after it),
          K11 `pv_choice` and K12 `pv_fold` (one rounds cycle of the same
@@ -41,13 +53,16 @@ Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
 Device times come from calls captured in a CUDA graph and replayed between
 CUDA events (`device_ms`: a small kernel's wrapper takes longer on the host
 than the kernel on the card, so events around eager calls measure the
-host). K1 times are CUDA events around eager calls, the variants in turn,
-the best of three turns. With the package's own sources, the kernels are
-first held against their plain versions on every input,
-`utils/kernel_cases.py`'s edge cases included. Prints one line per variant
-with its ms and the card's name and power limit, and writes the table as
-JSON to `--out` (default `_build/kernel_variants.json` in the package).
-Needs a CUDA device."""
+host); K13's from torch.profiler (`kernel_ms`). K1 times are CUDA events
+around eager calls, the variants in turn, the best of three turns. With
+the package's own sources, the kernels are first held against their plain
+versions on every input, `utils/kernel_cases.py`'s edge cases included
+(K13 also at full size, about 60-80 s of plain scan, unless
+`--no-full-plain`, and the variants that compute the same function
+too). Prints one line per variant with its ms and
+the card's name and power limit, and writes the table as JSON to `--out`
+(default `_build/kernel_variants.json` in the package). Needs a CUDA
+device."""
 
 from __future__ import annotations
 
@@ -149,6 +164,57 @@ AFFINITY_UPDATE_VARIANTS = {
     "fold: copy alone (no domain pass, no match scan)": [
         (_DOMAIN_LAUNCH, ""), (_MATCH_SCAN, _MATCH_SCAN.replace("< a.B / 16", "< 0"))],
 }
+
+_SCAN_NODE_WORK = "      const bool f = node_mask(a, s, pod, ln, n, sb_cur[i], minc, total);"
+SCAN_VARIANTS = {
+    "today": [],
+    # csrc/scan_commit.cu as it stands: a cluster of 16 CTAs
+    "cluster: floor (barriers, exchange and argmax, no node work)": [
+        (_SCAN_NODE_WORK, "      const bool f = false;")],
+    "cluster: counts committed by read-modify-write": [(
+        "              atomicAdd(s.rep + (size_t)sl * a.D + min(dom[k], a.D - 1), 1.0f);",
+        "              s.rep[(size_t)sl * a.D + min(dom[k], a.D - 1)] += 1.0f;")],
+}
+
+
+def _scan_phase_marks() -> list:
+    """Edits that time each phase of a K13 step with clock64() in every
+    thread and print, for each CTA, the largest cycle sum of each phase
+    over its threads (device printf): the split of a step that variants
+    skipping work cannot give, since they change which node wins."""
+    def mark(i):
+        return f"    {{ const long long t = clock64(); ph[{i}] += t - tc; tc = t; }}\n"
+
+    loop = "  for (int rank = 0; rank < nv; ++rank) {\n    const int par = rank & 1;"
+    end = "  __syncthreads();\n  for (int i = tid; i < nn * R; i += kThreads)\n    a.node_req["
+    names = ("staging", "spread minimum", "masks", "maxima", "scores", "winner", "commit")
+    fmt = " ".join(f"{n} %lld" for n in names)
+    return [
+        ("#include <stdint.h>", "#include <stdint.h>\n#include <cstdio>"),
+        (loop, "  long long ph[7] = {0, 0, 0, 0, 0, 0, 0}, tc = clock64();\n" + loop),
+        ("    const int pflags = pod[a.r_flags];",
+         mark(0) + "    const int pflags = pod[a.r_flags];"),
+        ("    // ---- masks and raw affinity / spread scores of this thread's nodes ----",
+         mark(1) + "    // ---- masks and raw affinity / spread scores of this thread's nodes ----"),
+        ("    // ---- the two normalisation maxima over the cluster's feasible nodes",
+         mark(2) + "    // ---- the two normalisation maxima over the cluster's feasible nodes"),
+        ("    // ---- scores and this thread's best (score, -index) ----",
+         mark(3) + "    // ---- scores and this thread's best (score, -index) ----"),
+        ("    // ---- the winner: per warp, over the warps, over the cluster ----",
+         mark(4) + "    // ---- the winner: per warp, over the warps, over the cluster ----"),
+        ("    // ---- the commit ----", mark(5) + "    // ---- the commit ----"),
+        ("    p_next = p_after;\n  }", mark(6) + "    p_next = p_after;\n  }"),
+        (end, "  __shared__ unsigned long long phmax[7];\n"
+              "  if (tid < 7) phmax[tid] = 0;\n  __syncthreads();\n"
+              "  for (int i = 0; i < 7; ++i) atomicMax(&phmax[i], (unsigned long long)ph[i]);\n"
+              "  __syncthreads();\n"
+              f'  if (tid == 0) printf("scan_commit phase cycles, slowest thread of CTA %d: '
+              f'{fmt} steps %d\\n", me, phmax[0], phmax[1], phmax[2], phmax[3], phmax[4], '
+              f'phmax[5], phmax[6], nv);\n' + end),
+    ]
+
+
+SCAN_VARIANTS["cluster: phase clocks"] = _scan_phase_marks()
 
 VARIANT_OF: dict[str, str] = {}  # edited source -> "kernel, variant"
 
@@ -496,44 +562,181 @@ def static_base_cases(dev):
     return cases
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--csrc", type=Path, default=None)
-    ap.add_argument("--out", type=Path, default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device", file=sys.stderr)
-        return 2
-    from .ops import capacity as cap
-    from .ops import kernel_build as kb
+def kernel_ms(fn, reps: int, name: str) -> float:
+    """Mean device ms per call of fn's kernels whose name holds `name`,
+    from torch.profiler's CUDA activities: for a wrapper that reads device
+    values on the host (K13's exactness bound), which a CUDA graph cannot
+    capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if not ks:
+        raise RuntimeError(f"torch.profiler saw no kernel named {name!r}")
+    return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / reps
+
+
+def prev_scan_commit(lib, x):
+    """K13 through the one-block design's C interface (`scan_commit_launch`
+    with every operand an argument): the carried state cloned, then
+    updated in place by the library's kernel."""
+    import ctypes
+
+    from .ops import interpod as ip
+    from .ops import scan_commit as sc
+    from .ops.kernel_build import ptr, raise_on_error, stream_of
+
+    fn = lib.scan_commit_launch
+    fn.argtypes = ([ctypes.c_int] * 15 + [ctypes.c_float] * (4 + sc.MAX_RESOURCES + 2)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 28)
+    fn.restype = ctypes.c_int
+    P, N = x.shape
+    st = x.state
+    S, D = st.counts.shape
+    dev = x.sbase.device
+    out = (torch.empty(P, dtype=torch.int32, device=dev), x.node_requested.clone(),
+           x.ports.clone(), st.counts.clone(), st.total.clone(), st.anti_presence.clone(),
+           st.pref_sym.clone())
+    terms = list(x.terms) + [(0, 0.0)] * (4 - len(x.terms))
+    R = x.pod_requested.shape[1]
+    ins = (x.sbase, x.order, x.pod_valid, x.pod_nominated, x.pod_requested,
+           x.node_allocatable, x.slack, x.pod_port_ids, x.aff_terms, x.aff_self,
+           x.anti_terms, x.pref_terms, x.pref_w, x.tsc, x.tsc_skew, x.node_domains,
+           x.dom_ptr, x.dom_list, x.sel_ptr, x.sel_list)
+    raise_on_error("scan_commit", fn(
+        P, N, R, x.pod_port_ids.shape[1], x.aff_terms.shape[1], x.tsc.shape[1],
+        x.node_domains.shape[1], S, D, x.ports.shape[1], x.flags,
+        *[t for t, _ in terms], *[w for _, w in terms],
+        *(list(x.fit_w100) + [0.0] * (sc.MAX_RESOURCES - R)), x.fit_rwsum, x.bal_rn,
+        sum(1 << r for r, on in enumerate(x.bal_cols) if on),
+        *[ptr(t.contiguous()) for t in ins], *[ptr(t) for t in out], stream_of(dev)))
+    return sc.ScanResult(out[0], out[1], out[2], ip.AffinityState(*out[3:]))
+
+
+def scan_with(lib, cluster=None):
+    """K13's wrapper for library `lib`: the package's interface (on a
+    cluster of `cluster` CTAs, default the wrapper's), or the one-block
+    design's (`prev_scan_commit`) for a library without it."""
+    from .ops import scan_commit as sc
+
+    if hasattr(lib, "scan_commit_clusters"):
+        kw = {} if cluster is None else {"cluster": cluster}
+        return lambda x: with_library("scan_commit", lib, lambda: sc.scan_commit_cuda(x, **kw))
+    return lambda x: prev_scan_commit(lib, x)
+
+
+def scans_equal(a, b) -> bool:
+    """Two scan commits' seven outputs equal (`torch.equal`, as the smoke's
+    full-size comparison)."""
+    return (torch.equal(a.assignment, b.assignment)
+            and torch.equal(a.node_requested, b.node_requested)
+            and torch.equal(a.ports, b.ports)
+            and states_equal(a.state, b.state))
+
+
+def scan_full_inputs(dev, seed: int = 202):
+    """K13's full-size ScanInputs: config #4's workload (seed 202, the
+    smoke's first timed scan seed), K1's static base, packed as the scan
+    cycle packs them."""
+    from .core.cycle import sampling_window
+    from .framework.interfaces import CycleContext
+    from .framework.runtime import Framework
+    from .models import SnapshotEncoder
+    from .ops import scan_commit as sc
     from .ops import static_base as sb
+    from .utils import synth
 
-    dev = torch.device("cuda")
-    csrc = args.csrc or kb.CSRC_DIR
-    smi = _smi()
-    print(f"device: {smi} | csrc {csrc}", flush=True)
-    t0 = time.time()
+    fw = Framework.from_config()
+    nodes, existing, pending = synth.config4_workload((seed,), N_NODES, N_EXISTING, N_PENDING)
+    snap = SnapshotEncoder(device=dev).encode(nodes, pending[seed], existing)
+    ctx = CycleContext(snap)
+    base = sb.static_base_cuda(sb.static_base_inputs(fw, ctx, fit=True,
+                                                     sampling=sampling_window(snap, 0)))
+    return sc.scan_commit_inputs(fw, ctx, base, fw.extra_init(ctx))
+
+
+def time_scan_variants(dev, csrc: Path, check: bool, full_plain: bool = True) -> dict:
+    """K13's variants (SCAN_VARIANTS, and today's kernel on the portable 8
+    CTAs) in kernel time (torch.profiler) on the full-size inputs: ms and
+    us a step. With the package's own source, the kernel is first held
+    against `scan_commit_plain` on its seeded edge cases and (with
+    `full_plain`) at full size, and so is every variant that computes the
+    same function (8 CTAs, the counts by read-modify-write)."""
+    from .ops import scan_commit as sc
+    from .utils import kernel_cases
+
+    libs = build_variants("scan_commit", csrc, SCAN_VARIANTS)
+    x = scan_full_inputs(dev)
+    nv = int(x.pod_valid.sum())
+    runs = {v: scan_with(lib) for v, lib in libs.items() if lib is not None}
+    if "today" in runs and hasattr(libs["today"], "scan_commit_clusters"):
+        runs["cluster: 8 CTAs"] = scan_with(libs["today"], cluster=sc.CLUSTER_PORTABLE)
+    if check:
+        cases = kernel_cases.scan_cases(dev)
+        exact = ("today", "cluster: 8 CTAs", "cluster: counts committed by read-modify-write")
+        for tag, xc in cases.items():
+            want = sc.scan_commit_plain(xc)
+            for v in exact:
+                if v == "cluster: 8 CTAs" and xc.shape[1] > sc.MAX_NODES_PORTABLE:
+                    continue  # above the portable cluster's limit
+                if not scans_equal(runs[v](xc), want):
+                    raise RuntimeError(f"scan_commit ({v}) differs from scan_commit_plain "
+                                       f"({tag})")
+        shapes = {tag: {k: v for k, v in sc.scan_shape(xc).items() if k != "layout"}
+                  for tag, xc in cases.items()}
+        print(f"scan_commit ({', '.join(exact)}; 8 CTAs where N <= "
+              f"{sc.MAX_NODES_PORTABLE}) equal to scan_commit_plain on {len(cases)} edge "
+              f"cases; launch "
+              f"shapes {json.dumps(shapes)}",
+              flush=True)
+    if check and full_plain:
+        t0 = time.time()
+        want = sc.scan_commit_plain(x)
+        plain_s = time.time() - t0
+        for v in exact:
+            if not scans_equal(runs[v](x), want):
+                raise RuntimeError(f"scan_commit ({v}) differs from scan_commit_plain at "
+                                   "full size")
+        print(f"scan_commit ({', '.join(exact)}) equal to scan_commit_plain at full size "
+              f"({nv} steps; plain {plain_s:.1f} s)", flush=True)
+    valid = x.pod_valid
+    fl = sc.pod_flags(x)[valid]
+    nsel = (x.sel_ptr[1:] - x.sel_ptr[:-1])[valid]
+    mix = {"steps": nv, "hard spread": int((fl & sc.POD_HARD > 0).sum()),
+           "affinity maximum exchanged": int((fl & sc.POD_AFF_NORM > 0).sum()),
+           "spread maximum exchanged": int((fl & sc.POD_SPR_NORM > 0).sum()),
+           "with matched selectors": int((nsel > 0).sum()),
+           "with required or anti terms": int(((x.aff_terms[..., 0] >= 0)
+                                                | (x.anti_terms[..., 0] >= 0)).any(1)[valid].sum())}
+    print(f"scan_commit full-size steps: {json.dumps(mix)}", flush=True)
+    out = {"steps": mix}
+    for v in libs:
+        if libs[v] is None:
+            out[v] = "not applicable"
+    for v, fn in runs.items():
+        ms = kernel_ms(lambda: fn(x), 3, "scan_kernel")
+        out[v] = {"ms": ms, "us a step": 1e3 * ms / nv}
+        print(f"  scan_commit {v:62s} {ms:.3f} ms  {1e3 * ms / nv:.3f} us a step", flush=True)
+    if "today" in runs and hasattr(libs["today"], "scan_commit_clusters"):
+        out["launch shape"] = {k: v for k, v in sc.scan_shape(x).items() if k != "layout"}
+    return out
+
+
+def time_capacity_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K5's variants (CAPACITY_VARIANTS) in device time on the recorded
+    calls of one rounds cycle; with the package's own source, K5 first
+    held against `capacity_plain` on them and on its seeded edge cases."""
+    from .ops import capacity as cap
+
     cap_libs = build_variants("capacity", csrc, CAPACITY_VARIANTS)
-    sb_libs = build_variants("static_base", csrc, STATIC_BASE_VARIANTS)
-    print(f"built in {time.time() - t0:.1f}s", flush=True)
-    table = {"device": smi, "csrc": str(csrc), "capacity": {}, "static_base": {}}
-
-    small = record_small_calls(dev)
-    print("small kernels on recorded main-path calls: "
-          + json.dumps({k: len(v) for k, v in small.items()}), flush=True)
-    table["small kernels"] = time_small_kernels(small)
-    out = args.out or kb.BUILD_DIR / "kernel_variants.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(table, indent=1))
-    table["preempt_claim"] = time_claim_variants(dev, csrc, small["preempt_claim"],
-                                                 csrc == kb.CSRC_DIR)
-    table["affinity_update"] = time_affinity_update_variants(
-        dev, csrc, small["affinity_update"], csrc == kb.CSRC_DIR)
-    out.write_text(json.dumps(table, indent=1))
-    calls = small.pop("capacity")
+    table = {"capacity": {}}
     N = calls[0][4].shape[0]
-    del small
-
     folds = [i for i, c in enumerate(calls) if c[-1] is False]
     passes = [i for i, c in enumerate(calls) if c[-1] is not False]
     picks = {"round-0 pass": passes[0], "late pass": passes[-1],
@@ -551,7 +754,7 @@ def main(argv=None) -> int:
                                "folds": len(folds), "picked": shape}
     print(f"capacity: {len(calls)} calls ({len(passes)} passes, {len(folds)} folds); "
           f"{json.dumps(shape)}", flush=True)
-    if csrc == kb.CSRC_DIR:  # the package's kernels against their plain versions
+    if check:  # the package's kernels against their plain versions
         from .utils import kernel_cases
 
         edge = [a for a, _ in kernel_cases.capacity_cases(dev).values()]
@@ -579,10 +782,20 @@ def main(argv=None) -> int:
         table["capacity"][v] = row
         print(f"  capacity {v:32s} " + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()),
               flush=True)
-    del calls
+    return table
 
+
+def time_static_base_variants(dev, csrc: Path, check: bool) -> dict:
+    """K1's variants (STATIC_BASE_VARIANTS) by CUDA events, best of three
+    turns, on slice 1's and the volume phase's inputs beside a fill of the
+    plane; with the package's own source, K1 first held against
+    `static_base_plain` on them and on its seeded edge cases."""
+    from .ops import static_base as sb
+
+    sb_libs = build_variants("static_base", csrc, STATIC_BASE_VARIANTS)
+    table = {"static_base": {}}
     cases = static_base_cases(dev)
-    if csrc == kb.CSRC_DIR:
+    if check:
         from .utils import kernel_cases
 
         for x in list(cases.values()) + list(kernel_cases.static_base_edge_inputs(dev).values()):
@@ -612,12 +825,65 @@ def main(argv=None) -> int:
         if isinstance(row, dict):
             print(f"  static_base {v:32s} "
                   + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+    return table
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", type=Path, default=None)
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--no-full-plain", action="store_true",
+                    help="skip K13's full-size comparison with its plain version "
+                         "(about 70 s; chip_smoke.py makes it too)")
+    ap.add_argument("--kernels", default="all",
+                    help="comma list of sections: small, preempt_claim, affinity_update, "
+                         "capacity, static_base, scan_commit (default all)")
+    args = ap.parse_args(argv)
+    want = set(args.kernels.split(",")) if args.kernels != "all" else None
+
+    def on(name):
+        return want is None or name in want
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    from .ops import kernel_build as kb
+
+    dev = torch.device("cuda")
+    csrc = args.csrc or kb.CSRC_DIR
+    smi = _smi()
+    print(f"device: {smi} | csrc {csrc}", flush=True)
+    table = {"device": smi, "csrc": str(csrc)}
+    own = csrc == kb.CSRC_DIR
+    out = args.out or kb.BUILD_DIR / "kernel_variants.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if on("scan_commit"):
+        table["scan_commit"] = time_scan_variants(dev, csrc, own, not args.no_full_plain)
+        out.write_text(json.dumps(table, indent=1))
+    if any(on(k) for k in ("small", "preempt_claim", "affinity_update", "capacity")):
+        small = record_small_calls(dev)
+        print("small kernels on recorded main-path calls: "
+              + json.dumps({k: len(v) for k, v in small.items()}), flush=True)
+        if on("small"):
+            table["small kernels"] = time_small_kernels(small)
+            out.write_text(json.dumps(table, indent=1))
+        if on("preempt_claim"):
+            table["preempt_claim"] = time_claim_variants(dev, csrc, small["preempt_claim"], own)
+        if on("affinity_update"):
+            table["affinity_update"] = time_affinity_update_variants(
+                dev, csrc, small["affinity_update"], own)
+        out.write_text(json.dumps(table, indent=1))
+        calls = small.pop("capacity")
+        del small
+        if on("capacity"):
+            table.update(time_capacity_variants(dev, csrc, calls, own))
+        del calls
+    if on("static_base"):
+        table.update(time_static_base_variants(dev, csrc, own))
     for src, text in kb.build_logs.items():
         usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         if src in VARIANT_OF:
             print(f"  ptxas {VARIANT_OF[src]}: " + " | ".join(usage), flush=True)
-    out = args.out or kb.BUILD_DIR / "kernel_variants.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(table, indent=1))
     print(smi)
     return 0

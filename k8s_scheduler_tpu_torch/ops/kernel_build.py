@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -88,7 +89,9 @@ def build_cuda_library(name: str, src: Path | None = None) -> Path:
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # per process and thread: an earlier checkout's identical source
+        # builds to the same library in another thread at once
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.run(
             [nvcc_path(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True,

@@ -13,12 +13,18 @@ the kernel walks instead of dense tables — each pod's matched selectors
 (from `matched_pending` [S, P]) and each topology key's domains that hold
 a node. `scan_commit_plain` runs the same contract through
 `commit.greedy_commit` with the framework's per-pod hooks;
-`scan_commit_cuda` launches csrc/scan_commit.cu: one persistent block of
-1024 threads runs every step, each thread owning N / 1024 nodes, with
-block reductions for the spread minimum, the normalisation maxima and the
-first-index argmax, and the step's commit applied in device memory.
+`scan_commit_cuda` launches csrc/scan_commit.cu: one thread-block cluster
+(16 CTAs where the card can schedule them, else the portable 8) runs
+every step, each CTA over its own slice of the nodes with the slice's
+state in shared memory and a replica of the affinity counts; the CTAs
+agree on each step's first-index argmax through records sent to every
+CTA with st.async and awaited on an mbarrier (a cluster barrier only for
+the normalisation maxima of a pod whose raw affinity or spread score can
+be nonzero). The wrapper packs each pod's operands into one row
+(`pod_rows`) and the valid pods' rank order (`valid_order`);
+`launch_shape` gives a launch's slices and shared memory without a card.
 `scan_commit` picks the kernel for CUDA tensors and the plain version for
-CPU ones. Latency-bound on an H100: P dependent steps in one block."""
+CPU ones. Latency-bound on an H100: P dependent steps."""
 
 from __future__ import annotations
 
@@ -30,10 +36,11 @@ import numpy as np
 import torch
 
 from ..framework.plugins import _score_resource_weights
+from ..models.encoding import WHEN_DO_NOT_SCHEDULE, WHEN_SCHEDULE_ANYWAY
 from . import interpod as ip
 from .commit import CommitResult, greedy_commit
-from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
-                           raise_on_error, stream_of)
+from .kernel_build import (checked, count_launch, load_cuda_library, raise_on_error,
+                           stream_of)
 from .resources import MAX_NODE_SCORE, _reciprocal, fit_slack
 from .static_base import _overrides
 
@@ -41,7 +48,21 @@ NEG_INF = -1e9
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 # csrc/scan_commit.cu limits (kMax*)
 MAX_RESOURCES, MAX_PORTS, MAX_TERMS, MAX_CONSTRAINTS, MAX_KEYS = 8, 8, 8, 8, 8
-MAX_NODES = 16 * 1024  # 8 bytes of shared memory per node, one bit per node a thread
+# the launch: CTAs of THREADS threads, at most NODES_A_THREAD nodes a thread
+# (kThreads, kPer), a cluster of CLUSTER CTAs where the card can schedule
+# it, else CLUSTER_PORTABLE; so at most 1024 nodes a CTA
+THREADS, NODES_A_THREAD = 512, 2
+CLUSTER, CLUSTER_PORTABLE = 16, 8
+MAX_NODES = CLUSTER * THREADS * NODES_A_THREAD  # 16384
+MAX_NODES_PORTABLE = CLUSTER_PORTABLE * THREADS * NODES_A_THREAD  # 8192
+SMEM_LIMIT = 232448  # shared memory bytes a CTA can use (227 KB)
+POD_SELS = 8  # matched selectors carried in a pod row (kPodSels)
+REC_BYTES, WARPS = 48, THREADS // 32  # sizeof(Rec), kWarps
+POD_HARD, POD_AFF_NORM, POD_SPR_NORM = 1, 2, 4  # pod flags (kPod*)
+_ROW_FIELDS = ("req", "ports", "aff", "self", "anti", "pref", "prefw", "tsc", "skew",
+               "sels", "sel0", "nsel", "nom", "nomdom", "flags", "p")
+_SMEM_FIELDS = ("slot3", "slot2", "wbest", "wred", "smin", "dptr", "rows", "mbar", "total",
+                "alloc", "slack", "nreq", "ndom", "pbits")
 
 # flag bits and score-term codes (csrc/scan_commit.cu mirrors these)
 F_PORTS, F_FIT, F_AFFINITY, F_SPREAD, F_PORT_STATE, F_STATE, F_TABLES, F_MOST = (
@@ -253,24 +274,9 @@ def exact_range_bound(x: ScanInputs) -> float:
                MA * maxw * maxc + nsel * maxpref, MC * maxc)
 
 
-_ARGTYPES = (
-    [ctypes.c_int] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-    + [ctypes.c_float] * MAX_RESOURCES + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
-    + [ctypes.c_void_p] * 28
-)
-
-
-def _library():
-    lib = load_cuda_library("scan_commit")
-    if lib.scan_commit_launch.argtypes is None:
-        lib.scan_commit_launch.argtypes = _ARGTYPES
-        lib.scan_commit_launch.restype = ctypes.c_int
-    return lib
-
-
-def scan_commit_cuda(x: ScanInputs) -> ScanResult:
-    """Launch csrc/scan_commit.cu on the current stream."""
-    k = "scan_commit"
+def _dims(x: ScanInputs) -> tuple[int, ...]:
+    """(P, N, R, MP, MA, MC, K, S, D, Q), or ValueError on what the kernel
+    does not take (the node limit is `launch_shape`'s)."""
     P, N = x.shape
     R = x.pod_requested.shape[1]
     MP = x.pod_port_ids.shape[1]
@@ -279,40 +285,233 @@ def scan_commit_cuda(x: ScanInputs) -> ScanResult:
     K = x.node_domains.shape[1]
     S, D = x.state.counts.shape
     Q = x.ports.shape[1]
-    dev = x.sbase.device
     if (R > MAX_RESOURCES or MP > MAX_PORTS or MA > MAX_TERMS or MC > MAX_CONSTRAINTS
-            or K > MAX_KEYS or N > MAX_NODES or len(x.terms) > 4):
+            or K > MAX_KEYS or len(x.terms) > 4):
         raise ValueError(
-            f"scan_commit: R={R} MP={MP} MA={MA} MC={MC} K={K} N={N} terms="
-            f"{len(x.terms)} over the kernel's limits ({MAX_RESOURCES}, {MAX_PORTS}, "
-            f"{MAX_TERMS}, {MAX_CONSTRAINTS}, {MAX_KEYS}, {MAX_NODES}, 4)")
+            f"scan_commit: R={R} MP={MP} MA={MA} MC={MC} K={K} terms={len(x.terms)} over "
+            f"the kernel's limits ({MAX_RESOURCES}, {MAX_PORTS}, {MAX_TERMS}, "
+            f"{MAX_CONSTRAINTS}, {MAX_KEYS}, 4)")
+    launch_shape(N, R, K, Q, S, row_layout(R, MP, MA, MC, K)["W"])
+    return P, N, R, MP, MA, MC, K, S, D, Q
+
+
+def row_layout(R: int, MP: int, MA: int, MC: int, K: int) -> dict[str, int]:
+    """Where each field of a pod row starts (ints; csrc `Args.r_*`) and the
+    row's width W."""
+    widths = (R, MP, 2 * MA, MA, 2 * MA, 2 * MA, MA, 3 * MC, MC, POD_SELS, 1, 1, 1, K, 1, 1)
+    out, off = {}, 0
+    for f, w in zip(_ROW_FIELDS, widths):
+        out[f] = off
+        off += w
+    out["W"] = off
+    return out
+
+
+def smem_layout(ns: int, R: int, K: int, QW: int, S: int, W: int) -> dict[str, int]:
+    """A CTA's shared memory (csrc `Args.o_*`, byte offsets, 16-aligned)
+    for a slice of ns nodes, and its size `smem`."""
+    sizes = (2 * CLUSTER * REC_BYTES, 2 * CLUSTER * 8, WARPS * REC_BYTES, WARPS * 8,
+             MAX_CONSTRAINTS * WARPS * 4, (K + 1) * 4, 2 * W * 4, 2 * 8, S * 4,
+             R * ns * 4, R * ns * 4, R * ns * 4, K * ns * 4, QW * ns * 4)
+    out, off = {}, 0
+    for f, b in zip(_SMEM_FIELDS, sizes):
+        out[f] = off
+        off = (off + b + 15) // 16 * 16
+    out["smem"] = off
+    return out
+
+
+def launch_shape(N: int, R: int, K: int, Q: int, S: int, W: int,
+                 cluster: int = CLUSTER) -> dict:
+    """The launch for N nodes on a cluster of `cluster` CTAs: the slice a CTA
+    owns, nodes a thread and the shared memory layout; ValueError naming
+    the limit the inputs pass."""
+    ns = -(-N // cluster)
+    if ns > THREADS * NODES_A_THREAD:
+        raise ValueError(
+            f"scan_commit: {N} nodes; the kernel takes at most "
+            f"{cluster * THREADS * NODES_A_THREAD} on a cluster of {cluster} CTAs "
+            f"({THREADS * NODES_A_THREAD} a CTA: {MAX_NODES} with {CLUSTER}, "
+            f"{MAX_NODES_PORTABLE} on a card that schedules only the portable "
+            f"{CLUSTER_PORTABLE})")
+    lay = smem_layout(ns, R, K, -(-Q // 32), S, W)
+    if lay["smem"] > SMEM_LIMIT:
+        raise ValueError(
+            f"scan_commit: {lay['smem']} bytes of shared memory a CTA for a slice of {ns} "
+            f"nodes (R={R}, K={K}, Q={Q}) and S={S} selector totals; a CTA has at most "
+            f"{SMEM_LIMIT}")
+    return {"cluster": cluster, "slice": ns, "nodes_a_thread": -(-ns // THREADS),
+            "smem": lay["smem"], "layout": lay}
+
+
+class ScanArgs(ctypes.Structure):
+    """csrc/scan_commit.cu `Args`, field for field."""
+
+    _fields_ = (
+        [(f, ctypes.c_int) for f in ("P", "N", "R", "MP", "MA", "MC", "K", "S", "D", "Q",
+                                     "QW", "W", "flags", "csize", "ns", "rep_stride")]
+        + [("term", ctypes.c_int * 4), ("weight", ctypes.c_float * 4),
+           ("w100", ctypes.c_float * MAX_RESOURCES), ("rwsum", ctypes.c_float),
+           ("rnf", ctypes.c_float), ("bal_mask", ctypes.c_int)]
+        + [(f"o_{f}", ctypes.c_int) for f in _SMEM_FIELDS] + [("smem", ctypes.c_int)]
+        + [(f"r_{f}", ctypes.c_int) for f in _ROW_FIELDS]
+        + [(f, ctypes.c_void_p) for f in (
+            "sbase", "vorder", "nv", "rows", "alloc", "slack", "node_domains", "dom_ptr",
+            "dom_list", "sel_list", "assignment", "node_req", "ports", "counts",
+            "counts_rep", "total", "anti", "pref")]
+    )
+
+
+def _library():
+    lib = load_cuda_library("scan_commit")
+    if lib.scan_commit_launch.argtypes is None:
+        if lib.scan_commit_args_size() != ctypes.sizeof(ScanArgs):
+            raise RuntimeError("scan_commit: ScanArgs does not match csrc/scan_commit.cu Args")
+        lib.scan_commit_launch.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
+        lib.scan_commit_launch.restype = ctypes.c_int
+        lib.scan_commit_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.scan_commit_clusters.restype = ctypes.c_int
+    return lib
+
+
+def scan_shape(x: ScanInputs, cluster: int = CLUSTER) -> dict:
+    """The launch csrc/scan_commit.cu makes for these inputs on this card:
+    a cluster of `cluster` CTAs where the card can schedule it, else the
+    portable 8 (`launch_shape`'s dict). ValueError when `cluster` CTAs
+    cannot hold the inputs; RuntimeError naming each shape tried when the
+    card schedules none."""
+    P, N, R, MP, MA, MC, K, S, D, Q = _dims(x)
+    W = row_layout(R, MP, MA, MC, K)["W"]
+    shapes, tried = [launch_shape(N, R, K, Q, S, W, cluster)], []
+    if cluster != CLUSTER_PORTABLE:
+        try:
+            shapes.append(launch_shape(N, R, K, Q, S, W, CLUSTER_PORTABLE))
+        except ValueError as e:
+            tried.append(str(e))
+    lib = _library()
+    for shape in shapes:
+        n = ctypes.c_int(0)
+        raise_on_error("scan_commit", lib.scan_commit_clusters(
+            shape["cluster"], shape["smem"], ctypes.byref(n)))
+        if n.value >= 1:
+            return shape
+        tried.append(f"the card schedules no cluster of {shape['cluster']} CTAs with "
+                     f"{shape['smem']} bytes of shared memory each")
+    raise RuntimeError("scan_commit: no cluster shape this card can run: " + "; ".join(tried))
+
+
+def pod_flags(x: ScanInputs) -> torch.Tensor:
+    """i32 [P]: POD_HARD where the kernel tests a DoNotSchedule constraint
+    of the pod, POD_AFF_NORM where its raw affinity score can be nonzero
+    (a preferred term, or a matched selector whose preferred-weight row is
+    nonzero at cycle start or written by a valid pod's preferred term),
+    POD_SPR_NORM where its raw spread score can (a ScheduleAnyway
+    constraint). Without them a maximum is 0 on every node and the kernel
+    skips its exchange."""
+    P = x.shape[0]
+    dev = x.sbase.device
+    key, when = x.tsc[..., 0], x.tsc[..., 2]
+    flags = torch.zeros(P, dtype=torch.int32, device=dev)
+    codes = {t for t, _ in x.terms}
+    if x.flags & F_SPREAD:
+        flags |= POD_HARD * ((key >= 0) & (when == WHEN_DO_NOT_SCHEDULE)).any(1).int()
+    if T_AFFINITY in codes:
+        st = x.state
+        S = st.counts.shape[0]
+        psel = x.pref_terms[..., 0]
+        written = (psel >= 0) & x.pod_valid[:, None]
+        live = torch.zeros(S, dtype=torch.int32, device=dev).index_add_(
+            0, psel.clamp(0, S - 1).reshape(-1).long(), written.reshape(-1).int())
+        live = (live > 0) | (st.pref_sym != 0).any(1)
+        norm = (psel >= 0).any(1)
+        nnz = x.sel_list.shape[0]
+        if nnz:
+            pod_of = torch.searchsorted(
+                x.sel_ptr[1:].contiguous(),
+                torch.arange(nnz, dtype=torch.int32, device=dev), right=True)
+            norm = norm | (torch.zeros(P, dtype=torch.int32, device=dev).index_add_(
+                0, pod_of, live[x.sel_list.long()].int()) > 0)
+        flags |= POD_AFF_NORM * norm.int()
+    if T_SPREAD in codes:
+        flags |= POD_SPR_NORM * ((key >= 0) & (when == WHEN_SCHEDULE_ANYWAY)).any(1).int()
+    return flags
+
+
+def pod_rows(x: ScanInputs) -> torch.Tensor:
+    """i32 [P, W]: each pod's operands in one row (`row_layout`; floats
+    as their bits; the nominated node's domains, so the commit reads no
+    node table)."""
+    P = x.shape[0]
+    dev = x.sbase.device
+    i32 = torch.int32
+    nsel = x.sel_ptr[1:] - x.sel_ptr[:-1]
+    j = torch.arange(POD_SELS, device=dev)
+    nnz = x.sel_list.shape[0]
+    sels = torch.full((P, POD_SELS), -1, dtype=i32, device=dev)
+    if nnz:
+        idx = (x.sel_ptr[:-1, None].long() + j).clamp(max=nnz - 1)
+        sels = torch.where(j < nsel[:, None], x.sel_list[idx], sels)
+    cols = [x.pod_requested.contiguous().view(i32), x.pod_port_ids,
+            x.aff_terms.reshape(P, -1), x.aff_self, x.anti_terms.reshape(P, -1),
+            x.pref_terms.reshape(P, -1), x.pref_w.contiguous().view(i32),
+            x.tsc.reshape(P, -1), x.tsc_skew, sels, x.sel_ptr[:-1, None], nsel[:, None],
+            x.pod_nominated[:, None],
+            x.node_domains[x.pod_nominated.clamp(0, x.shape[1] - 1).long()],
+            pod_flags(x)[:, None],
+            torch.arange(P, device=dev)[:, None]]
+    return torch.cat([c.to(i32) for c in cols], 1).contiguous()
+
+
+def valid_order(x: ScanInputs) -> tuple[torch.Tensor, torch.Tensor]:
+    """(i32 [P] the valid pods in rank order, then the others; i32 [1] how
+    many are valid), without a host synchronisation."""
+    vr = x.pod_valid[x.order.long()]
+    idx = torch.argsort((~vr).to(torch.int8), stable=True)
+    return x.order[idx].contiguous(), vr.sum(dtype=torch.int32).reshape(1)
+
+
+def scan_commit_cuda(x: ScanInputs, cluster: int = CLUSTER) -> ScanResult:
+    """Launch csrc/scan_commit.cu on the current stream: one cluster of
+    `cluster` CTAs, or of the portable 8 where the card cannot schedule it
+    (`scan_shape`)."""
+    k = "scan_commit"
+    P, N, R, MP, MA, MC, K, S, D, Q = _dims(x)
     if x.flags & F_STATE and exact_range_bound(x) >= EXACT_F32:
         raise ValueError("scan_commit: affinity counts or weights reach 2^24, where "
                          "the kernel's f32 sums stop being exact")
+    shape = scan_shape(x, cluster)
+    dev = x.sbase.device
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    x = dataclasses.replace(
+        x,
+        order=checked(k, x.order, i32, (P,), dev),
+        pod_valid=checked(k, x.pod_valid, b8, (P,), dev),
+        pod_nominated=checked(k, x.pod_nominated, i32, (P,), dev),
+        pod_requested=checked(k, x.pod_requested, f32, (P, R), dev),
+        pod_port_ids=checked(k, x.pod_port_ids, i32, (P, MP), dev),
+        aff_terms=checked(k, x.aff_terms, i32, (P, MA, 2), dev),
+        aff_self=checked(k, x.aff_self, b8, (P, MA), dev),
+        anti_terms=checked(k, x.anti_terms, i32, (P, MA, 2), dev),
+        pref_terms=checked(k, x.pref_terms, i32, (P, MA, 2), dev),
+        pref_w=checked(k, x.pref_w, f32, (P, MA), dev),
+        tsc=checked(k, x.tsc, i32, (P, MC, 3), dev),
+        tsc_skew=checked(k, x.tsc_skew, i32, (P, MC), dev),
+        sel_ptr=checked(k, x.sel_ptr, i32, (P + 1,), dev),
+        sel_list=checked(k, x.sel_list, i32, (x.sel_list.shape[0],), dev))
     keep = [
         checked(k, x.sbase, f32, (P, N), dev),
-        checked(k, x.order, i32, (P,), dev),
-        checked(k, x.pod_valid, b8, (P,), dev),
-        checked(k, x.pod_nominated, i32, (P,), dev),
-        checked(k, x.pod_requested, f32, (P, R), dev),
+        *valid_order(x),
+        pod_rows(x),
         checked(k, x.node_allocatable, f32, (N, R), dev),
         checked(k, x.slack, f32, (N, R), dev),
-        checked(k, x.pod_port_ids, i32, (P, MP), dev),
-        checked(k, x.aff_terms, i32, (P, MA, 2), dev),
-        checked(k, x.aff_self, b8, (P, MA), dev),
-        checked(k, x.anti_terms, i32, (P, MA, 2), dev),
-        checked(k, x.pref_terms, i32, (P, MA, 2), dev),
-        checked(k, x.pref_w, f32, (P, MA), dev),
-        checked(k, x.tsc, i32, (P, MC, 3), dev),
-        checked(k, x.tsc_skew, i32, (P, MC), dev),
         checked(k, x.node_domains, i32, (N, K), dev),
         checked(k, x.dom_ptr, i32, (K + 1,), dev),
         checked(k, x.dom_list, i32, (x.dom_list.shape[0],), dev),
-        checked(k, x.sel_ptr, i32, (P + 1,), dev),
-        checked(k, x.sel_list, i32, (x.sel_list.shape[0],), dev),
+        x.sel_list,
     ]
-    # outputs: copies of the carried state, updated in place by the kernel
+    # outputs: copies of the carried state, updated in place by the kernel;
+    # scratch: the other CTAs' replicas of the counts (16-byte rows)
     assignment = torch.empty(P, dtype=i32, device=dev)
     node_req = checked(k, x.node_requested, f32, (N, R), dev).clone()
     ports = checked(k, x.ports, b8, (N, Q), dev).clone()
@@ -321,17 +520,29 @@ def scan_commit_cuda(x: ScanInputs) -> ScanResult:
     total = checked(k, st.total, f32, (S,), dev).clone()
     anti = checked(k, st.anti_presence, b8, (S, N), dev).clone()
     pref = checked(k, st.pref_sym, f32, (S, N), dev).clone()
+    c = shape["cluster"]
+    rep_stride = -(-S * D // 4) * 4
+    counts_rep = torch.empty(max(c - 1, 1) * rep_stride, dtype=f32, device=dev)
     terms = list(x.terms) + [(0, 0.0)] * (4 - len(x.terms))
     w100 = list(x.fit_w100) + [0.0] * (MAX_RESOURCES - R)
-    bal_mask = sum(1 << r for r, on in enumerate(x.bal_cols) if on)
-    err = _library().scan_commit_launch(
-        P, N, R, MP, MA, MC, K, S, D, Q, x.flags,
-        *[t for t, _ in terms], *[w for _, w in terms],
-        *w100, x.fit_rwsum, x.bal_rn, bal_mask,
-        *[ptr(t) for t in keep],
-        ptr(assignment), ptr(node_req), ptr(ports), ptr(counts), ptr(total),
-        ptr(anti), ptr(pref), stream_of(dev),
-    )
+    rl = row_layout(R, MP, MA, MC, K)
+    a = ScanArgs(
+        P=P, N=N, R=R, MP=MP, MA=MA, MC=MC, K=K, S=S, D=D, Q=Q, QW=-(-Q // 32), W=rl["W"],
+        flags=x.flags, csize=c, ns=shape["slice"], rep_stride=rep_stride,
+        term=(ctypes.c_int * 4)(*[t for t, _ in terms]),
+        weight=(ctypes.c_float * 4)(*[w for _, w in terms]),
+        w100=(ctypes.c_float * MAX_RESOURCES)(*w100), rwsum=x.fit_rwsum, rnf=x.bal_rn,
+        bal_mask=sum(1 << r for r, on in enumerate(x.bal_cols) if on),
+        smem=shape["smem"],
+        **{f"o_{f}": shape["layout"][f] for f in _SMEM_FIELDS},
+        **{f"r_{f}": rl[f] for f in _ROW_FIELDS},
+        **{f: t.data_ptr() for f, t in zip(
+            ("sbase", "vorder", "nv", "rows", "alloc", "slack", "node_domains", "dom_ptr",
+             "dom_list", "sel_list"), keep)},
+        assignment=assignment.data_ptr(), node_req=node_req.data_ptr(),
+        ports=ports.data_ptr(), counts=counts.data_ptr(), counts_rep=counts_rep.data_ptr(),
+        total=total.data_ptr(), anti=anti.data_ptr(), pref=pref.data_ptr())
+    err = _library().scan_commit_launch(ctypes.byref(a), stream_of(dev))
     raise_on_error(k, err)
     count_launch(k)
     return ScanResult(assignment, node_req, ports,

@@ -435,3 +435,247 @@ def affinity_update_args(raw: dict, device) -> tuple:
         has_inter_pod_affinity=raw["has_inter_pod_affinity"])
     state = ip.AffinityState(t("counts"), t("total"), t("anti_presence"), t("pref_sym"))
     return snap, state, t("m_pending"), t("accepted"), t("node_of")
+
+
+# ---- K13 `scan_commit` ----------------------------------------------------
+
+SCAN_SLICES = 16  # ops/scan_commit.CLUSTER: the cluster's CTAs
+
+
+def scan_cta(n: int, N: int) -> int:
+    """The CTA of a 16-CTA cluster that owns node n of N: the one whose
+    slice of ceil(N / 16) nodes holds it."""
+    return n // -(-N // SCAN_SLICES)
+
+SCAN_TAGS = (
+    "N=13", "N=8193", "N=16*512+7", "winner in the last slice",
+    "equal best scores in two slices", "-0.0 / +0.0 tie",
+    "nominated: another slice, and infeasible", "no feasible node",
+    "hard spread, minimum in another slice's zone",
+    "matched selectors counted in another slice's zone",
+    "required affinity bootstrapped by total == 0",
+    "anti-affinity written by one pod and read by the next",
+    "host-port conflicts between consecutive pods", "pad pods interleaved in order",
+    "R=1", "R=8")
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
+_EXTENDED = ("example.com/a", "example.com/b", "example.com/c", "example.com/d")
+
+
+def _scan_nodes(m, n, zones=3, cpu=4, big=(), big_cpu=64, extra=None):
+    """n nodes `node-i` of `cpu` cores (`big` ones of big_cpu) in `zones`
+    contiguous zones z0, z1, ..., with hostname labels; `extra` adds 8 of
+    each extended resource."""
+    nodes = []
+    for i in range(n):
+        cap = {"cpu": str(big_cpu if i in big else cpu), "memory": "32Gi"}
+        if extra:
+            cap.update({r: "8" for r in extra})
+        nodes.append(m.MakeNode(f"node-{i}").capacity(cap).labels(
+            {ZONE: f"z{i * zones // n}", HOST: f"node-{i}"}).obj())
+    return nodes
+
+
+def _pod(m, name, cpu="500m", app="a", extra=None):
+    req = {"cpu": cpu}
+    if extra:
+        req.update({r: "1" for r in extra})
+    return m.MakePod(name).req(req).labels({"app": app})
+
+
+def scan_objects(m, tags=None) -> dict:
+    """{tag: (nodes, pods, existing, opts)} of K13's edge cases (SCAN_TAGS,
+    or those of `tags`), made with a models module (`MakeNode`, `MakePod`)
+    of either package. `opts`:
+    `resources` the encoder's resource names, `narrow` to cut the padded
+    node axis to the real nodes (so the kernel's N is theirs),
+    `keep_resources` to keep the first k resources (cpu alone: R = 1,
+    which the encoder cannot give, every pod asking for one of `pods`),
+    `profile`
+    "static scores" for a profile without dynamic scores, `edit` a change
+    of the packed inputs (`scan_inputs`)."""
+    cases = {}
+
+    def mixed(n, n_pods, zones=3, big=()):
+        """Pods over two apps with required zone affinity, hostname
+        anti-affinity, zone spread (hard and soft), preferred terms, host
+        ports and one nomination; running pods of both apps."""
+        rng = np.random.default_rng(1313 + n)
+        nodes = _scan_nodes(m, n, zones=zones, big=big)
+        pods = []
+        for j in range(n_pods):
+            app = ("a", "b")[j % 2]
+            b = _pod(m, f"p{j}", cpu=f"{int(rng.integers(1, 6)) * 250}m", app=app)
+            kind = j % 6
+            if kind == 0:
+                b.pod_affinity(ZONE, {"app": app})
+            elif kind == 1:
+                b.pod_affinity(HOST, {"app": app}, anti=True)
+            elif kind == 2:
+                b.spread(1, ZONE, {"app": app})
+            elif kind == 3:
+                b.spread(1, ZONE, {"app": app}, when_unsatisfiable="ScheduleAnyway")
+                b.pod_affinity(ZONE, {"app": "b"}, weight=5)
+            elif kind == 4:
+                b.host_port(8080)
+            if j == 5:
+                b.nominated(f"node-{n - 2}")
+            pods.append(b.obj())
+        existing = [(_pod(m, f"e{k}", app=("a", "b")[k % 2]).obj(), f"node-{(7 * k) % n}")
+                    for k in range(6)]
+        return nodes, pods, existing
+
+    cases["N=13"] = lambda: (*mixed(13, 12), {"narrow": True})
+    cases["N=8193"] = lambda: (*mixed(8193, 24), {"narrow": True})
+    cases["N=16*512+7"] = lambda: (*mixed(16 * 512 + 7, 24), {"narrow": True})
+    # N = 32: two nodes a CTA; the two big nodes are the last CTA's
+    cases["winner in the last slice"] = lambda: (
+        _scan_nodes(m, 32, big=(30, 31)),
+        [_pod(m, f"p{j}").obj() for j in range(6)], [], {})
+    cases["equal best scores in two slices"] = lambda: (
+        _scan_nodes(m, 32, big=(5, 20)),
+        [_pod(m, f"p{j}").obj() for j in range(4)], [], {})
+    cases["-0.0 / +0.0 tie"] = lambda: (
+        _scan_nodes(m, 32), [_pod(m, f"p{j}").obj() for j in range(3)], [],
+        {"profile": "static scores", "edit": "signed zeros"})
+    cases["nominated: another slice, and infeasible"] = lambda: (
+        _scan_nodes(m, 32, big=(30, 31)),
+        [_pod(m, "p0").nominated("node-3").obj(), _pod(m, "p1").obj(),
+         _pod(m, "p2", cpu="8").nominated("node-4").obj()], [], {})
+    cases["no feasible node"] = lambda: (
+        _scan_nodes(m, 32), [_pod(m, "p0").obj(), _pod(m, "p1", cpu="100").obj(),
+                             _pod(m, "p2").obj()], [], {})
+    # zones z0 = nodes 0-15, z1 = 16-23, z2 = 24-31: running pods of app a
+    # in z0 and z1 only, so z2 (CTAs 12-15) holds the minimum
+    spread_nodes = lambda: [m.MakeNode(f"node-{i}").capacity({"cpu": "8", "memory": "32Gi"}).labels(
+        {ZONE: "z0" if i < 16 else "z1" if i < 24 else "z2", HOST: f"node-{i}"}).obj()
+        for i in range(32)]
+    cases["hard spread, minimum in another slice's zone"] = lambda: (
+        spread_nodes(),
+        [_pod(m, f"p{j}").spread(1, ZONE, {"app": "a"}).obj() for j in range(4)],
+        [(_pod(m, f"e{k}").obj(), f"node-{(0, 3, 17, 20)[k]}") for k in range(4)], {})
+    cases["matched selectors counted in another slice's zone"] = lambda: (
+        _scan_nodes(m, 32, zones=2),
+        [_pod(m, "p0", app="w").pod_affinity(ZONE, {"app": "w"}).obj()]
+        + [_pod(m, f"p{j}", app="w").obj() for j in range(1, 4)]
+        + [_pod(m, f"q{j}", app="v").pod_affinity(ZONE, {"app": "w"}).obj()
+           for j in range(4)], [], {})
+    cases["required affinity bootstrapped by total == 0"] = lambda: (
+        _scan_nodes(m, 32),
+        [_pod(m, f"p{j}", app="solo").pod_affinity(ZONE, {"app": "solo"}).obj()
+         for j in range(4)], [], {})
+    cases["anti-affinity written by one pod and read by the next"] = lambda: (
+        _scan_nodes(m, 32, big=(30,)),
+        [_pod(m, f"p{j}", app="x").pod_affinity(HOST, {"app": "x"}, anti=True).obj()
+         for j in range(4)], [], {})
+    cases["host-port conflicts between consecutive pods"] = lambda: (
+        _scan_nodes(m, 32, big=(30,)),
+        [_pod(m, f"p{j}").host_port(8080).obj() for j in range(4)], [], {})
+    cases["pad pods interleaved in order"] = lambda: (
+        _scan_nodes(m, 32), [_pod(m, f"p{j}").obj() for j in range(9)], [],
+        {"edit": "interleave pads"})
+    cases["R=1"] = lambda: (
+        _scan_nodes(m, 32), [_pod(m, f"p{j}", cpu="3").obj() for j in range(5)], [],
+        {"keep_resources": 1})
+    cases["R=8"] = lambda: (
+        _scan_nodes(m, 32, extra=_EXTENDED),
+        [_pod(m, f"p{j}", extra=_EXTENDED[: j % 5]).obj() for j in range(6)], [],
+        {"resources": ("cpu", "memory", "pods", "ephemeral-storage") + _EXTENDED})
+    return {t: f() for t, f in cases.items() if tags is None or t in tags}
+
+
+_RESOURCE_FIELDS = ("node_allocatable", "node_requested", "pod_requested", "exist_requested")
+
+
+def narrow_resources(snap, k: int):
+    """The snapshot with its first k resources alone (either package's)."""
+    return dataclasses.replace(snap, resource_names=snap.resource_names[:k], **{
+        f: getattr(snap, f)[:, :k] for f in _RESOURCE_FIELDS})
+
+
+def prepare(snap, opts: dict):
+    """A case's encoded snapshot cut as its `opts` say (either package's)."""
+    if opts.get("narrow"):
+        snap = narrow_nodes(snap)
+    if "keep_resources" in opts:
+        snap = narrow_resources(snap, opts["keep_resources"])
+    return snap
+
+
+def narrow_nodes(snap):
+    """The snapshot with its node fields cut from the padded N to the real
+    nodes (either package's `ClusterSnapshot`)."""
+    n = int(snap.num_nodes)
+    return dataclasses.replace(snap, **{
+        f.name: getattr(snap, f.name)[:n] for f in dataclasses.fields(snap)
+        if f.name.startswith("node_")})
+
+
+def scan_profile(config, name):
+    """The scheduler configuration of a case's `profile` (either package's
+    config module): None for the default; "static scores" keeps the
+    default filters and scores with the static plugins alone."""
+    if name is None:
+        return None
+    E = config.PluginEntry
+    return config.SchedulerConfiguration(profiles=[config.Profile(plugins=config.Plugins(
+        score=config.PluginSet(disabled=["*"], enabled=[E("TaintToleration", 1),
+                                                        E("NodeAffinity", 1)])))])
+
+
+def scan_inputs(snap, opts: dict):
+    """A case's `ScanInputs` from its (narrowed) port snapshot: K1's plain
+    static base under the case's profile, packed, then its edit — "signed
+    zeros": every feasible static-base entry -7 except -0.0 at node 9 and
+    +0.0 at node 25 (a tie: the lower index wins); "interleave pads": the
+    rank order with a pad pod after every valid one."""
+    from .. import config
+    from ..core.cycle import sampling_window
+    from ..framework.interfaces import CycleContext
+    from ..framework.runtime import Framework
+    from ..ops import scan_commit as sc
+    from ..ops import static_base as sb
+
+    fw = Framework.from_config(scan_profile(config, opts.get("profile")))
+    ctx = CycleContext(snap)
+    base = sb.static_base_plain(sb.static_base_inputs(
+        fw, ctx, fit=True, sampling=sampling_window(snap, 0)))
+    x = sc.scan_commit_inputs(fw, ctx, base, fw.extra_init(ctx))
+    edit = opts.get("edit")
+    if edit == "signed zeros":
+        live = x.sbase > sc.NEG_INF / 2
+        s = torch.where(live, torch.full_like(x.sbase, -7.0), x.sbase)
+        s[:, 9] = torch.where(live[:, 9], -0.0, s[:, 9])
+        s[:, 25] = torch.where(live[:, 25], 0.0, s[:, 25])
+        x = dataclasses.replace(x, sbase=s)
+    elif edit == "interleave pads":
+        valid = x.pod_valid[x.order.long()]
+        v, pads = x.order[valid], x.order[~valid]
+        k = min(len(v), len(pads))
+        mixed = torch.stack([v[:k], pads[:k]], 1).reshape(-1)
+        x = dataclasses.replace(x, order=torch.cat([mixed, v[k:], pads[k:]]).contiguous())
+    return x
+
+
+def scan_cases(device="cpu", tags=None) -> dict:
+    """{tag: ScanInputs} of K13's edge cases (`scan_objects`), encoded and
+    packed by the port on `device`, on the kernel's 16 CTAs (node n in CTA
+    `scan_cta(n, N)`): N = 13 (three CTAs own no node), 8193 and 16 * 512 +
+    7 (a ragged last slice, two nodes for one thread), the winner in the last
+    CTA, equal best scores in two CTAs (the lower index wins), a -0.0 /
+    +0.0 tie, a nominated node in another CTA than the argmax and a
+    nominated node that is infeasible, a pod no node fits, a hard spread
+    constraint whose minimum zone lies in other CTAs, matched selectors
+    counted in a zone other CTAs read, required
+    affinity bootstrapped by total == 0, anti-affinity written by one pod
+    and read by the next, host-port conflicts between consecutive pods,
+    pad pods interleaved in the rank order, R = 1 and R = 8."""
+    from .. import models
+
+    out = {}
+    for tag, (nodes, pods, existing, opts) in scan_objects(models, tags).items():
+        enc = models.SnapshotEncoder(device=device, **(
+            {"resource_names": opts["resources"]} if "resources" in opts else {}))
+        snap = enc.encode(nodes, pods, existing)
+        out[tag] = scan_inputs(prepare(snap, opts), opts)
+    return out

@@ -569,7 +569,7 @@ def test_packing_follows_the_profile():
 
 def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
     """The wrapper's limits hold before anything is launched (and without a
-    card: the check precedes the build)."""
+    card: the check precedes the build), each named in its error."""
     fw = Framework.from_config()
     x = _packed(fw, _port_snapshot("cfg3"))
     big = dataclasses.replace(x, tsc=torch.zeros((x.shape[0], sc.MAX_CONSTRAINTS + 1, 3),
@@ -579,3 +579,15 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
     heavy = dataclasses.replace(x, pref_w=torch.full_like(x.pref_w, 2.0**20))
     with pytest.raises(ValueError, match="2\\^24"):
         sc.scan_commit_cuda(heavy)
+    # the cluster's limits: 1024 nodes a CTA of 16 (8192 on the portable 8),
+    # and a CTA's shared memory (the selector totals are replicated in it)
+    wide = dataclasses.replace(x, sbase=torch.zeros((x.shape[0], sc.MAX_NODES + 1)))
+    with pytest.raises(ValueError, match=f"at most {sc.MAX_NODES} on a cluster of 16"):
+        sc.scan_commit_cuda(wide)
+    with pytest.raises(ValueError, match=f"at most {sc.MAX_NODES_PORTABLE} on a cluster of 8"):
+        sc.scan_commit_cuda(dataclasses.replace(
+            x, sbase=torch.zeros((x.shape[0], sc.MAX_NODES_PORTABLE + 1))), cluster=8)
+    many = dataclasses.replace(x, state=ip.AffinityState(
+        torch.zeros((60000, 1)), torch.zeros(60000), x.state.anti_presence, x.state.pref_sym))
+    with pytest.raises(ValueError, match=f"at most {sc.SMEM_LIMIT}"):
+        sc.scan_commit_cuda(many)

@@ -43,6 +43,7 @@ import torch
 import k8s_scheduler_tpu.core.cycle as ref_cycle
 import k8s_scheduler_tpu.framework.interfaces as ref_if
 import k8s_scheduler_tpu.framework.runtime as ref_rt
+import k8s_scheduler_tpu.models as ref_models
 import k8s_scheduler_tpu.ops.argsel as ref_argsel
 import k8s_scheduler_tpu.ops.resources as ref_res
 import k8s_scheduler_tpu.ops.rounds as ref_rounds
@@ -53,7 +54,7 @@ from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_nu
 from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, guard_sweep,
                                          interpod_terms, kernel_build, preempt_claim,
                                          preempt_prefilter, preempt_whatif, preemption,
-                                         static_base)
+                                         scan_commit, static_base)
 from k8s_scheduler_tpu_torch.utils import kernel_cases
 from test_torch_encoding import reference_snapshot
 
@@ -819,3 +820,210 @@ def test_pv_fold_plain_contended_batch_takes_several_passes():
     claimed, n_passes = volumes.fold_pv_claims_passes(
         port, tables.req, t(claimed0), t(accepted), t(node_of), t(rank))
     assert torch.equal(claimed, got) and n_passes == 3
+
+
+# ---- K13 `scan_commit`: its seeded edge cases and its launch shape -------
+
+def test_scan_tags_name_every_case():
+    assert tuple(kernel_cases.scan_objects(ref_models)) == kernel_cases.SCAN_TAGS
+
+
+def _scan_case(tag):
+    """(reference snapshot, port ScanInputs, opts) of one K13 edge case:
+    the objects encoded by the reference, cut as the case says, carried to
+    the port and packed there."""
+    nodes, pods, existing, opts = kernel_cases.scan_objects(ref_models, (tag,))[tag]
+    enc = ref_models.SnapshotEncoder(**(
+        {"resource_names": opts["resources"]} if "resources" in opts else {}))
+    ref = kernel_cases.prepare(enc.encode(nodes, pods, existing), opts)
+    return ref, kernel_cases.scan_inputs(_carry(ref), opts), opts
+
+
+def _reference_scan(ref, x, opts):
+    """The reference's greedy_commit with its framework's per-pod hooks
+    (jitted) over the packed static base and rank order."""
+    import k8s_scheduler_tpu.config as ref_config
+    import k8s_scheduler_tpu.ops.commit as ref_commit
+
+    fw = ref_rt.Framework.from_config(kernel_cases.scan_profile(ref_config,
+                                                                opts.get("profile")))
+
+    def run(snap, order, sbase):
+        ctx = ref_if.CycleContext(snap)
+        ctx.matched_pending  # materialised at the trace's own scope, as the cycle does
+        return ref_commit.greedy_commit(
+            order=order, static_mask=sbase > scan_commit.NEG_INF / 2, static_score=sbase,
+            pod_requested=snap.pod_requested, pod_valid=snap.pod_valid,
+            pod_nominated=snap.pod_nominated, node_allocatable=snap.node_allocatable,
+            node_requested=snap.node_requested,
+            dyn_fn=lambda p, nr, ext, row: fw.dyn(ctx, p, nr, ext, row),
+            extra=fw.extra_init(ctx),
+            update_fn=lambda ext, p, node, ok: fw.extra_update(ctx, ext, p, node, ok))
+
+    return jax.jit(run)(ref, jnp.asarray(x.order.numpy()), jnp.asarray(x.sbase.numpy()))
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("tag", kernel_cases.SCAN_TAGS)
+def test_scan_plain_edge_cases_match_reference(tag):
+    """`scan_commit_plain` (what K13 is held against on the card) on each
+    seeded K13 edge case equals the reference's greedy_commit with its
+    hooks bit for bit: assignment, requested resources, the port bitmap
+    and the four affinity tables."""
+    ref, x, opts = _scan_case(tag)
+    got = scan_commit.scan_commit_plain(x)
+    want = _reference_scan(ref, x, opts)
+    np.testing.assert_array_equal(got.assignment.numpy(), np.asarray(want.assignment))
+    np.testing.assert_array_equal(_bits(got.node_requested.numpy()),
+                                  _bits(want.node_requested))
+    np.testing.assert_array_equal(got.ports.numpy(), np.asarray(want.extra["NodePorts"]))
+    st = want.extra.get("InterPodAffinity")
+    if st is not None:
+        for f in ("counts", "total", "anti_presence", "pref_sym"):
+            np.testing.assert_array_equal(_bits(getattr(got.state, f).numpy()),
+                                          _bits(getattr(st, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("tag", kernel_cases.SCAN_TAGS)
+def test_scan_edge_cases_exercise_their_situation(tag):
+    """Each K13 edge case sets up what it is named for, under the plain
+    scan, on the kernel's 16 CTAs (CTA c owns the slice of ceil(N / 16)
+    nodes from c * ceil(N / 16))."""
+    _, x, _ = _scan_case(tag)
+    res = scan_commit.scan_commit_plain(x)
+    P, N = x.shape
+    ranked = [p for p in x.order.tolist() if x.pod_valid[p]]
+    a = res.assignment.tolist()
+    placed = [a[p] for p in ranked]
+    assert any(n >= 0 for n in placed)
+    assert all(a[p] == -1 for p in range(P) if not x.pod_valid[p])
+    ns = -(-N // kernel_cases.SCAN_SLICES)
+    def _cta(n):
+        return kernel_cases.scan_cta(n, N)
+
+    if tag == "N=13":  # one node a CTA: the last three CTAs hold no node
+        assert N == 13 < kernel_cases.SCAN_SLICES
+    if tag in ("N=8193", "N=16*512+7"):  # ragged: thread 0 of a CTA owns two nodes
+        assert N % kernel_cases.SCAN_SLICES != 0 and ns > scan_commit.THREADS
+        assert len({_cta(n) for n in placed if n >= 0}) > 2
+    if tag == "winner in the last slice":
+        assert _cta(placed[0]) == kernel_cases.SCAN_SLICES - 1
+    if tag == "equal best scores in two slices":
+        assert placed[:2] == [5, 20] and _cta(5) != _cta(20)
+    if tag == "-0.0 / +0.0 tie":
+        row = x.sbase[ranked[0]]
+        assert str(float(row[9])) == "-0.0" and str(float(row[25])) == "0.0"
+        assert placed[0] == 9 and x.terms == ()
+    if tag == "nominated: another slice, and infeasible":
+        nom = x.pod_nominated.tolist()
+        assert placed[0] == nom[ranked[0]] == 3  # honoured, though node 30 scores higher
+        assert _cta(placed[1]) != _cta(3)  # the argmax, unnominated
+        assert nom[ranked[2]] == 4 and placed[2] not in (-1, 4)  # infeasible: argmax
+    if tag == "no feasible node":
+        assert placed[1] == -1 and placed[2] >= 0
+    if tag == "hard spread, minimum in another slice's zone":
+        # z2 (nodes 24-31, CTAs 12-15), the minimum, in other CTAs than the
+        # counted pods' nodes
+        assert placed[0] >= 24 and _cta(placed[0]) not in {_cta(n) for n in (0, 3, 17, 20)}
+        assert bool(((x.tsc[..., 0] >= 0) & (x.tsc[..., 2] == 0)).any())
+    if tag == "matched selectors counted in another slice's zone":
+        zone = x.node_domains[placed[0], 1] if x.node_domains.shape[1] > 1 else None
+        assert zone is not None
+        later = placed[4:]  # affinity to app w: the zone its +1s went to
+        assert all(int(x.node_domains[n, 1]) == int(zone) for n in later)
+        assert len({_cta(n) for n in later}) > 1
+    if tag == "required affinity bootstrapped by total == 0":
+        assert float(x.state.total.sum()) == 0 and placed[0] >= 0
+        assert bool(x.aff_self[ranked[0]].any())
+    if tag in ("anti-affinity written by one pod and read by the next",
+               "host-port conflicts between consecutive pods"):
+        assert len(set(placed)) == len(placed) == 4 and -1 not in placed
+    if tag == "host-port conflicts between consecutive pods":
+        assert int(res.ports.sum()) == 4
+    if tag == "pad pods interleaved in order":
+        v = x.pod_valid[x.order.long()].tolist()
+        assert v[:4] == [True, False, True, False]
+    if tag == "R=1":
+        assert x.pod_requested.shape[1] == 1
+    if tag == "R=8":
+        assert x.pod_requested.shape[1] == 8
+
+
+@pytest.mark.parametrize("N, cluster, slice_, per_thread", [
+    (13, 16, 1, 1), (8192, 16, 512, 1), (8193, 16, 513, 2),
+    (scan_commit.MAX_NODES, 16, 1024, 2), (8192, 8, 1024, 2),
+    (scan_commit.MAX_NODES_PORTABLE, 8, 1024, 2)])
+def test_scan_commit_launch_shape(N, cluster, slice_, per_thread):
+    """K13's launch without a card: a cluster of 16 CTAs (or the portable
+    8) of 512 threads, CTA c owning nodes [c * ns, (c + 1) * ns); config
+    #4's shape (R = 4, K = 2, one port, S = 500) fits shared memory, its
+    slice's node state far below the 227 KB."""
+    W = scan_commit.row_layout(4, 1, 1, 1, 2)["W"]
+    shape = scan_commit.launch_shape(N, 4, 2, 1, 500, W, cluster)
+    assert (shape["cluster"], shape["slice"], shape["nodes_a_thread"]) == (
+        cluster, slice_, per_thread)
+    lay = shape["layout"]
+    node_bytes = 4 * slice_ * (3 * 4 + 2 + 1)  # [R] x 3, [K], one port word
+    assert shape["smem"] <= scan_commit.SMEM_LIMIT
+    assert 0 <= shape["smem"] - lay["alloc"] - node_bytes < 5 * 16
+    assert lay["alloc"] - lay["total"] >= 500 * 4
+
+
+@pytest.mark.parametrize("N, cluster", [(scan_commit.MAX_NODES + 1, 16),
+                                        (scan_commit.MAX_NODES_PORTABLE + 1, 8)])
+def test_scan_commit_refuses_more_nodes_than_a_cluster_holds(N, cluster):
+    """Above 1024 nodes a CTA the launch is refused with a ValueError that
+    names the limit: 16384 on 16 CTAs, 8192 on the portable 8."""
+    W = scan_commit.row_layout(4, 1, 1, 1, 2)["W"]
+    with pytest.raises(ValueError, match=f"at most {cluster * 1024} on a cluster of {cluster}"):
+        scan_commit.launch_shape(N, 4, 2, 1, 500, W, cluster)
+
+
+def test_scan_pod_rows_and_order():
+    """The wrapper's packing: each pod row holds the pod's operands (and its
+    nominated node's domains) where `row_layout` says, the valid pods come
+    first in rank order, and the
+    pod flags say which pods the kernel may skip an exchange for (no
+    preferred term and no matched selector whose preferred-weight row the
+    scan ever makes nonzero; no ScheduleAnyway constraint)."""
+    _, x, _ = _scan_case("N=13")
+    rows = scan_commit.pod_rows(x)
+    P, R, MA, MC = x.shape[0], x.pod_requested.shape[1], x.aff_terms.shape[1], x.tsc.shape[1]
+    K = x.node_domains.shape[1]
+    lay = scan_commit.row_layout(R, x.pod_port_ids.shape[1], MA, MC, K)
+    assert rows.shape == (P, lay["W"]) and rows.dtype == torch.int32
+    f32 = rows.view(torch.float32)
+    assert torch.equal(f32[:, lay["req"]:lay["req"] + R], x.pod_requested)
+    assert torch.equal(rows[:, lay["tsc"]:lay["tsc"] + 3 * MC], x.tsc.reshape(P, -1))
+    assert torch.equal(rows[:, lay["nom"]], x.pod_nominated)
+    nom = x.pod_nominated
+    assert bool((nom >= 0).any())
+    assert torch.equal(rows[nom >= 0, lay["nomdom"]:lay["nomdom"] + K],
+                       x.node_domains[nom[nom >= 0].long()])
+    assert torch.equal(rows[:, lay["p"]], torch.arange(P, dtype=torch.int32))
+    nsel = x.sel_ptr[1:] - x.sel_ptr[:-1]
+    assert torch.equal(rows[:, lay["nsel"]], nsel) and int(nsel.max()) >= 1
+    for p in range(P):
+        want = x.sel_list[int(x.sel_ptr[p]):int(x.sel_ptr[p + 1])].tolist()[:scan_commit.POD_SELS]
+        got = rows[p, lay["sels"]:lay["sels"] + scan_commit.POD_SELS].tolist()
+        assert got == want + [-1] * (scan_commit.POD_SELS - len(want))
+    vorder, nv = scan_commit.valid_order(x)
+    ranked = [p for p in x.order.tolist() if x.pod_valid[p]]
+    assert int(nv) == len(ranked) and vorder[:len(ranked)].tolist() == ranked
+    flags = rows[:, lay["flags"]]
+    final = scan_commit.scan_commit_plain(x).state
+    has_pref = (x.pref_terms[..., 0] >= 0).any(1)
+    soft = ((x.tsc[..., 0] >= 0) & (x.tsc[..., 2] == 1)).any(1)
+    hard = ((x.tsc[..., 0] >= 0) & (x.tsc[..., 2] == 0)).any(1)
+    assert torch.equal((flags & scan_commit.POD_HARD) > 0, hard)
+    assert torch.equal((flags & scan_commit.POD_SPR_NORM) > 0, soft)
+    for p in range(P):
+        sels = x.sel_list[int(x.sel_ptr[p]):int(x.sel_ptr[p + 1])].long()
+        if not flags[p] & scan_commit.POD_AFF_NORM:
+            assert not has_pref[p] and not bool(final.pref_sym[sels].any())
+    assert bool((flags & scan_commit.POD_AFF_NORM).any()) and bool(
+        ((flags & scan_commit.POD_AFF_NORM) == 0).any())
