@@ -157,7 +157,8 @@ WARM_SEED, TIMED_SEEDS = 101, (102, 103, 104)
 AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
 PDB_SEED = 17  # config4_pdbs draw of the PDB variant
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
-PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit")  # timed against --prev-csrc
+# timed against --prev-csrc
+PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold")
 
 
 def log(msg: str) -> None:
@@ -629,6 +630,58 @@ def static_base_edge_checks(torch, sb, dev) -> list[str]:
     for tag, x in cases.items():
         compare_static_base(torch, sb, x, tag)
     return list(cases)
+
+
+def guard_prefix_bytes(torch, tile, args) -> int:
+    """Bytes K6's design must move on these inputs: the valid entries' keys
+    and permutation (and caps, for their spread entries), the role table,
+    the ok bytes, and the two or three keys each tile without a valid entry
+    reads before it leaves."""
+    s_packed, perm, rank_bits, B, role_tab, caps, gk_invalid = args
+    L = s_packed.shape[0]
+    valid = (s_packed >> rank_bits) != gk_invalid
+    idx = torch.nonzero(valid).flatten()
+    work = int(torch.unique(idx // tile).numel())
+    n_caps = 0
+    if caps is not None:
+        n_caps = int((role_tab[perm[idx] // B] == 16).sum())  # RB_SPREAD
+    return (int(valid.sum()) * 16 + n_caps * 4 + role_tab.numel() * 4 + B
+            + (-(-L // tile) - work) * 24)
+
+
+def guard_edge_checks(torch, dev) -> list[str]:
+    """K6 against `guard_sweep_plain` on the seeded edge cases
+    (`utils/kernel_cases.guard_cases`), each twice (a call after a call)."""
+    from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import guard_cases
+
+    cases = guard_cases(dev)
+    for tag, args in cases.items():
+        want = gs.guard_sweep_plain(*args)
+        for _ in range(2):
+            check(torch.equal(gs.guard_sweep_cuda(*args), want),
+                  f"guard_sweep differs from its plain version ({tag})")
+    return list(cases)
+
+
+def fold_edge_checks(torch, dev) -> dict:
+    """K12 against `pv_fold_plain` on the seeded edge cases
+    (`utils/kernel_cases.fold_cases`), on 16 CTAs and on the portable 8;
+    {case: [clusters launched]}."""
+    from k8s_scheduler_tpu_torch.ops import pv_fold as k12
+    from k8s_scheduler_tpu_torch.ops import volumes as vol
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import fold_cases
+
+    shapes = {}
+    for tag, args in fold_cases(dev).items():
+        want = vol.pv_fold_plain(*args)
+        B, V = args[0].P, args[0].pv_avail.shape[0]
+        for cl in (k12.CLUSTER, k12.CLUSTER_PORTABLE):
+            check(torch.equal(k12.pv_fold_cuda(*args, cluster=cl), want),
+                  f"pv_fold differs from its plain version ({tag}, {cl} CTAs)")
+        shapes[tag] = [k12.fold_shape(B, V, cl)["cluster"]
+                       for cl in (k12.CLUSTER, k12.CLUSTER_PORTABLE)]
+    return shapes
 
 
 def check_preemption(torch, snap, d, r, gate_fn, scan_budget):
@@ -1130,13 +1183,15 @@ def compare_static_base(torch, sb, x, tag=""):
     return mask_equal, k1_err
 
 
-def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kernels):
+def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kernels,
+                  prev_libs):
     """Phase 6 (module docstring). Returns {"kernels": entries, "ms": [...],
     "pre_ms": [...]}."""
     from k8s_scheduler_tpu_torch.core.cycle import (_preemption_gate_rows, build_cycle_fn,
                                                     build_preemption_fn, sampling_window)
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
-    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
+    from k8s_scheduler_tpu_torch.kernel_variants import (contended_fold_args, device_ms,
+                                                         pv_fold_with)
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.ops import affinity_update as au
     from k8s_scheduler_tpu_torch.ops import capacity as cap
@@ -1183,7 +1238,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     # ---- the kernels' cycle against the plain-versions cycle ----
     rec = {"volume_mask": Recorder(vol.volume_mask_plain, keep=(0, 1)),  # static, round 0
            "pv_choice": Recorder(vol.pv_choice_plain),
-           "pv_fold": Recorder(vol.pv_fold_plain),
+           "pv_fold": Recorder(vol.pv_fold_plain, keep=None),  # every round
            "interpod_terms": Recorder(ipt.interpod_terms_plain)}
     cap_rec = Recorder(cap.capacity_plain, keep=None)  # every pass and fold
     cycle_vp = build_cycle_fn(
@@ -1287,23 +1342,34 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     B11 = cnode.shape[0]
     k11_bytes = B11 * (MVol * 4 + 5) + list_bytes(csnap, cnode, c_rows) + V
     k11_ops = int(c_rows.sum()) * MVol * 3 * (2 + G) * (3 * MVol + 4)
-    f_args = rec["pv_fold"].args[0]
+    # K12 on every round of the cycle and on a contended batch, 16 and 8 CTAs
+    f_calls = rec["pv_fold"].args
+    f_args = f_calls[0]
     fsnap, _, fclaimed, facc, fnode, frank = f_args
+    cont = contended_fold_args(f_args)
     fold0, passes0 = vol.fold_pv_claims_passes(fsnap, tables.req, *f_args[2:])
-    check(torch.equal(k12.pv_fold_cuda(*f_args), fold0),
-          "pv_fold differs from its plain version")
-    # contended: every pod with an unbound slot accepted at a seeded node
-    gen = torch.Generator(device=dev).manual_seed(11)
-    many = fsnap.pod_valid & (fsnap.pod_vol_mode == 1).any(dim=1)
-    rnd_node = torch.randint(0, N_NODES, (fsnap.P,), generator=gen, device=dev,
-                             dtype=torch.int32)
-    cont = (fsnap, tables, fclaimed, many, rnd_node, frank)
     fold_c, passes_c = vol.fold_pv_claims_passes(fsnap, tables.req, *cont[2:])
-    check(torch.equal(k12.pv_fold_cuda(*cont), fold_c),
-          "pv_fold differs from its plain version on the contended batch")
     check(passes_c > 1, "the contended batch folded in one pass")
+    for i, a_ in sorted(f_calls.items()) + [("contended", cont)]:
+        want = fold0 if i == 0 else (fold_c if i == "contended" else vol.pv_fold_plain(*a_))
+        for cl in (k12.CLUSTER, k12.CLUSTER_PORTABLE):
+            check(torch.equal(k12.pv_fold_cuda(*a_, cluster=cl), want),
+                  f"pv_fold differs from its plain version (call {i}, {cl} CTAs)")
+    k12_shape = k12.fold_shape(fsnap.P, V)
     k12_ms = time_ms(torch, lambda: k12.pv_fold_cuda(*f_args), 20)
     k12_dev = device_ms(lambda: k12.pv_fold_cuda(*f_args), 20)
+    k12_mean = sum(device_ms(lambda: k12.pv_fold_cuda(*a), 5)
+                   for a in f_calls.values()) / len(f_calls)
+    k12_cont = device_ms(lambda: k12.pv_fold_cuda(*cont), 10)
+    k12_prev = k12_prev_mean = k12_prev_cont = None
+    if "pv_fold" in prev_libs:  # the earlier design on the same calls
+        prev_k12 = pv_fold_with(prev_libs["pv_fold"])
+        check(torch.equal(prev_k12(*f_args), fold0) and torch.equal(prev_k12(*cont), fold_c),
+              "the earlier pv_fold differs from the plain version")
+        k12_prev = device_ms(lambda: prev_k12(*f_args), 20)
+        k12_prev_mean = sum(device_ms(lambda: prev_k12(*a), 5)
+                            for a in f_calls.values()) / len(f_calls)
+        k12_prev_cont = device_ms(lambda: prev_k12(*cont), 10)
     k12_plain = time_ms(torch, lambda: vol.pv_fold_plain(*f_args), 2)
     f_rows = facc & (fsnap.pod_vol_mode == 1).any(dim=1)
     k12_bytes = fnode.shape[0] * 9 + list_bytes(fsnap, fnode, f_rows) + 2 * V
@@ -1312,12 +1378,17 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"B={B11}; equal True; kernel {k11_ms:.3f} ms ({k11_dev:.4f} ms device), plain "
         f"{k11_plain:.3f} ms, bound "
         f"{bound(k11_bytes, k11_ops)[0]:.4f} ms")
+    k12_prev_txt = ("not built" if k12_prev is None else
+                    f"{k12_prev:.4f} ms device, mean {k12_prev_mean:.4f}, contended "
+                    f"{k12_prev_cont:.4f}")
     log(f"phase kernel pv_fold: {int(f_rows.sum())} claimants, {passes0} pass(es) in one "
-        f"launch; equal True, also on a contended batch ({int(many.sum())} claimants at "
-        f"seeded nodes, {passes_c} passes); kernel {k12_ms:.3f} ms ({k12_dev:.4f} ms device), "
-        f"plain {k12_plain:.3f} ms, "
-        f"bound {bound(k12_bytes, k12_ops)[0]:.4f} ms")
-    del rec, s_args, u_args, c_args, f_args, cont
+        f"launch; equal True on all {len(f_calls)} rounds of the cycle and on a contended "
+        f"batch ({int(cont[3].sum())} claimants at seeded nodes, {passes_c} passes), on 16 "
+        f"and 8 CTAs (launch {json.dumps(k12_shape)}); kernel {k12_ms:.3f} ms "
+        f"({k12_dev:.4f} ms device, mean {k12_mean:.4f} over the rounds, contended "
+        f"{k12_cont:.4f}; earlier design: {k12_prev_txt}), plain {k12_plain:.3f} ms, bound "
+        f"{bound(k12_bytes, k12_ops)[0]:.4f} ms")
+    del rec, s_args, u_args, c_args, f_args, f_calls, cont
 
     # ---- the volume main path: counts set to 0 just before, read just after ----
     results, finals = [], {}
@@ -1419,7 +1490,10 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
             launches["pv_choice"], 0.0, k11_ms, k11_dev, k11_plain, k11_bytes, k11_ops),
         "pv_fold": kernel_entry(
             "pv_fold", "cuda", src + "pv_fold.cu", ref + "419",
-            launches["pv_fold"], 0.0, k12_ms, k12_dev, k12_plain, k12_bytes, k12_ops),
+            launches["pv_fold"], 0.0, k12_ms, k12_dev, k12_plain, k12_bytes, k12_ops,
+            mean_device_ms=k12_mean, contended_device_ms=k12_cont, prev_device_ms=k12_prev,
+            prev_mean_device_ms=k12_prev_mean, prev_contended_device_ms=k12_prev_cont,
+            cluster=k12_shape["cluster"]),
     }
     return {"kernels": entries, "ms": ms, "pre_ms": pre_ms}
 
@@ -1504,7 +1578,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
                                                 SchedulerConfiguration)
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
-    from k8s_scheduler_tpu_torch.kernel_variants import kernel_ms, prev_scan_commit, scans_equal
+    from k8s_scheduler_tpu_torch.kernel_variants import kernel_ms, scan_with, scans_equal
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
     from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
@@ -1554,10 +1628,10 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     k13_kernel = kernel_ms(lambda: sc.scan_commit_cuda(x), 2, "scan_kernel")
     k13_prev = None
     if "scan_commit" in prev_libs:  # the earlier design on the same inputs
-        check(scans_equal(prev_scan_commit(prev_libs["scan_commit"], x), rk),
+        prev_k13 = scan_with(prev_libs["scan_commit"])  # its own C interface
+        check(scans_equal(prev_k13(x), rk),
               "the earlier scan_commit differs from the kernel")
-        k13_prev = kernel_ms(lambda: prev_scan_commit(prev_libs["scan_commit"], x), 2,
-                             "scan_kernel")
+        k13_prev = kernel_ms(lambda: prev_k13(x), 2, "scan_kernel")
     k13_bytes = scan_bytes(torch, x, rk)
     n_sel = int(x.sel_ptr[-1])
     n_terms = int(((x.aff_terms[..., 0] >= 0).sum() + (x.anti_terms[..., 0] >= 0).sum()
@@ -1721,7 +1795,8 @@ def main(argv=None) -> int:
         return 3
     from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn, sampling_window
     from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels, CycleContext
-    from k8s_scheduler_tpu_torch.kernel_variants import affinity_update_with, device_ms
+    from k8s_scheduler_tpu_torch.kernel_variants import (affinity_update_with, device_ms,
+                                                         guard_sweep_with)
     from k8s_scheduler_tpu_torch.framework.runtime import Framework
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.models import encoding as enc_mod
@@ -1808,6 +1883,12 @@ def main(argv=None) -> int:
     shapes = scan_edge_checks(torch, dev)
     log(f"phase kernel scan_commit, seeded edge cases: equal to scan_commit_plain on "
         f"{len(shapes)} cases; [cluster, slice] {json.dumps(shapes)}")
+    edge = guard_edge_checks(torch, dev)
+    log(f"phase kernel guard_sweep, seeded edge cases: equal to guard_sweep_plain on "
+        f"{len(edge)} cases (each twice): {json.dumps(edge)}")
+    shapes = fold_edge_checks(torch, dev)
+    log(f"phase kernel pv_fold, seeded edge cases: equal to pv_fold_plain on "
+        f"{len(shapes)} cases, on 16 and 8 CTAs (clusters launched): {json.dumps(shapes)}")
 
     fw = Framework.from_config()
     cycle_k = build_cycle_fn(commit_mode="rounds", device=dev)
@@ -1936,7 +2017,7 @@ def main(argv=None) -> int:
         "interpod_norm": Recorder(ipt.interpod_norm_plain, keep=(0, 1)),
         "affinity_update": Recorder(au.affinity_update_plain, keep=None),  # every round
         "capacity": Recorder(cap.capacity_plain, keep=None),  # every pass and fold
-        "guard_sweep": Recorder(gs.guard_sweep_plain),
+        "guard_sweep": Recorder(gs.guard_sweep_plain, keep=None),  # every round
     }
     cycle_ap = build_cycle_fn(
         commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
@@ -2159,23 +2240,43 @@ def main(argv=None) -> int:
         f"wrapper back to back, host-bound: {k5_wall_ms:.4f} ms), plain "
         f"{k5_plain_ms:.3f} ms, bound {bound(k5_bytes, k5_ops)[0]:.4f} ms")
 
-    # K6 guard sweep
-    g_args = rec["guard_sweep"].args[0]
+    # K6 guard sweep: every round of the cycle
+    g_calls = rec["guard_sweep"].args
+    for i, a_ in sorted(g_calls.items()):
+        check(torch.equal(gs.guard_sweep_cuda(*a_), gs.guard_sweep_plain(*a_)),
+              f"guard_sweep differs from its plain version (round {i})")
+    g_args = g_calls[0]
     s_packed, gperm, grank_bits, gB, role_tab, gcaps, gk_invalid = g_args
-    okk, okp = gs.guard_sweep_cuda(*g_args), gs.guard_sweep_plain(*g_args)
-    check(torch.equal(okk, okp), "guard_sweep differs from its plain version")
+    okk = gs.guard_sweep_cuda(*g_args)
     k6_ms = time_ms(torch, lambda: gs.guard_sweep_cuda(*g_args), 20)
     k6_dev = device_ms(lambda: gs.guard_sweep_cuda(*g_args), 20)
+    k6_mean = sum(device_ms(lambda: gs.guard_sweep_cuda(*a), 10)
+                  for a in g_calls.values()) / len(g_calls)
+    k6_prev = k6_prev_mean = None
+    if "guard_sweep" in prev_libs:  # the earlier design on the same calls
+        prev_k6 = guard_sweep_with(prev_libs["guard_sweep"])
+        check(torch.equal(prev_k6(*g_args), okk),
+              "the earlier guard_sweep differs from the kernel")
+        k6_prev = device_ms(lambda: prev_k6(*g_args), 20)
+        k6_prev_mean = sum(device_ms(lambda: prev_k6(*a), 10)
+                           for a in g_calls.values()) / len(g_calls)
     k6_plain_ms = time_ms(torch, lambda: gs.guard_sweep_plain(*g_args), 5)
     L = s_packed.shape[0]
     n_valid = int(((s_packed >> grank_bits) != gk_invalid).sum())
-    k6_bytes = nbytes(s_packed, gperm, role_tab, gcaps) + gB
+    k6_bytes_all = nbytes(s_packed, gperm, role_tab, gcaps) + gB
+    check(gs._library().guard_sweep_tile() == gs.TILE, "guard_sweep: TILE is not kTile")
+    k6_bytes = guard_prefix_bytes(torch, gs.TILE, g_args)
     k6_ops = 8 * n_valid
+    k6_prev_txt = ("not built" if k6_prev is None else
+                   f"{k6_prev:.4f} ms device, mean {k6_prev_mean:.4f}")
     log(f"phase kernel guard_sweep: L={L} entries ({n_valid} valid, "
-        f"{role_tab.shape[0]} slots x {gB}); revoked {int((~okk).sum())}; equal True; "
-        f"kernel {k6_ms:.3f} ms ({k6_dev:.4f} ms device), plain {k6_plain_ms:.3f} ms, bound "
-        f"{bound(k6_bytes, k6_ops)[0]:.4f} ms")
-    del rec, t_args, u_args, c_args, g_args, out_k, out_p, uk, up, k3n, raw, feas
+        f"{role_tab.shape[0]} slots x {gB}); revoked {int((~okk).sum())}; equal True on all "
+        f"{len(g_calls)} rounds of the cycle; kernel {k6_ms:.3f} ms ({k6_dev:.4f} ms device, "
+        f"mean {k6_mean:.4f} over the rounds; earlier design: {k6_prev_txt}), plain "
+        f"{k6_plain_ms:.3f} ms, bound {bound(k6_bytes, k6_ops)[0]:.4f} ms (the valid prefix, "
+        f"{k6_bytes} bytes) / {bound(k6_bytes_all, k6_ops)[0]:.4f} ms (all of L, "
+        f"{k6_bytes_all} bytes)")
+    del rec, t_args, u_args, c_args, g_args, g_calls, out_k, out_p, uk, up, k3n, raw, feas
 
     # the affinity main path: counts set to 0 just before, read just after
     results, launches = timed_cycles(torch, kb, cycle_k, snaps, AFF_TIMED_SEEDS)
@@ -2212,7 +2313,7 @@ def main(argv=None) -> int:
 
     # ============ volumes: config #4's workload with local and zonal PVs ============
     vol_stats = volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi,
-                              plain_kernels)
+                              plain_kernels, prev_libs)
     kernels.update(vol_stats.pop("kernels"))
 
     kernels["interpod_terms"] = kernel_entry(
@@ -2235,7 +2336,9 @@ def main(argv=None) -> int:
     kernels["guard_sweep"] = kernel_entry(
         "guard_sweep", "cuda", "k8s_scheduler_tpu_torch/csrc/guard_sweep.cu",
         "k8s_scheduler_tpu/ops/rounds.py:342", launches["guard_sweep"], 0.0,
-        k6_ms, k6_dev, k6_plain_ms, k6_bytes, k6_ops)
+        k6_ms, k6_dev, k6_plain_ms, k6_bytes, k6_ops,
+        bound_all_ms=bound(k6_bytes_all, k6_ops)[0], mean_device_ms=k6_mean,
+        prev_device_ms=k6_prev, prev_mean_device_ms=k6_prev_mean)
     for k in kernels.values():
         log(f"  kernel {k['name']:17s} ms {k['ms']:9.3f}  device {k['device_ms']:9.4f}  "
             f"bound {k['bound_ms']:8.4f} ({k['bound_by']})  plain {k['plain_ms']:9.3f}  "

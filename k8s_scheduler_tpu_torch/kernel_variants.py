@@ -1,17 +1,20 @@
 """Where the port's kernels spend their time on the card: device times of
 the small kernels on the main path, and timed variants of K13
-`scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K5 `capacity` and
-K1 `static_base`, built from edited copies of their sources, on full-size
-inputs recorded from the main path.
+`scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K6 `guard_sweep`,
+K12 `pv_fold`, K5 `capacity` and K1 `static_base`, built from edited
+copies of their sources, on full-size inputs recorded from the main path.
 
     python3 -m k8s_scheduler_tpu_torch.kernel_variants [--csrc DIR] [--out PATH]
-        [--kernels scan_commit,small,preempt_claim,affinity_update,capacity,static_base]
+        [--kernels scan_commit,small,preempt_claim,affinity_update,guard_sweep,pv_fold,
+                   capacity,static_base]
 
 `--csrc` names the directory whose `scan_commit.cu`, `preempt_claim.cu`,
-`affinity_update.cu`, `capacity.cu` and `static_base.cu` are varied
-(default: the package's own `csrc/`; an earlier checkout's `csrc/` times
-that design on the same inputs, K13 and K4 through their earlier C
-interfaces, `prev_scan_commit` and `prev_affinity_update`). `--kernels`
+`affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `capacity.cu` and
+`static_base.cu` are varied (default: the package's own `csrc/`; an
+earlier checkout's `csrc/` times that design on the same inputs, K13, K4,
+K6 and K12 through their earlier C interfaces where they differ,
+`prev_scan_commit`, `prev_affinity_update`, `prev_guard_sweep` and
+`prev_pv_fold`). `--kernels`
 picks sections (default all). Each variant is a list of text edits; a
 variant whose anchors are not in the source is reported as not
 applicable. The variants that skip work compute wrong results on
@@ -41,6 +44,22 @@ Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
          plain version), the victim tables from L2 against shared memory;
   K4     the recorded calls (round 0 and the mean): the kernel, the domain
          pass alone, without the match scan, the copy alone;
+  K6     the recorded calls of the rounds cycle (round 0 and the mean): the
+         kernel, the read of the valid prefix alone (keys, permutation,
+         roles and caps, no scan), the fill with an empty launch, the fill
+         alone, a memset in place of the fill, chunks of the tile without
+         the look-ahead, the first design's 1024-entry tiles on 256
+         threads, 256 and 64 threads a 256-entry tile, the role table
+         staged in shared memory;
+  K12    the recorded calls of the volume cycle (round 0 and the mean) and
+         a contended batch beside round 0 (`contended_fold_args`: every
+         pod with an unbound slot accepted at a seeded node, several
+         passes): the kernel, its floor (the launch, the compaction, the
+         barriers and the loop condition without `choose`), 8 CTAs (the
+         portable cluster), the launch alone, the launch with the copy,
+         the compaction and the first barrier, contiguous row slices
+         instead of blocks of rows dealt round-robin, one row a thread a
+         round of loads, 512 and 128 threads a CTA;
   K5     every `capacity` call of one rounds cycle of config #4's workload
          (seed 202): the round-0 pass, a late pass and the round-0
          revocation fold are timed alone, the mean over all recorded calls
@@ -163,6 +182,76 @@ AFFINITY_UPDATE_VARIANTS = {
     "fold: no match scan": [(_MATCH_SCAN, _MATCH_SCAN.replace("< a.B / 16", "< 0"))],
     "fold: copy alone (no domain pass, no match scan)": [
         (_DOMAIN_LAUNCH, ""), (_MATCH_SCAN, _MATCH_SCAN.replace("< a.B / 16", "< 0"))],
+}
+
+_GUARD_LAUNCH = ("    guard_kernel<<<(unsigned)((L + kTile - 1) / kTile), kThreads, 0, "
+                 "st>>>(a);")
+_GUARD_FILL = "  fill_ones<<<(B + 16 * 256 - 1) / (16 * 256), 256, 0, st>>>(ok, B);\n"
+GUARD_VARIANTS = {
+    "today": [],
+    # csrc/guard_sweep.cu as it stands: a fill kernel, then a CTA per tile
+    "tile: read of the valid prefix alone (keys, permutation, roles, caps)": [(
+        "    // ---- the group scan ----\n",
+        "    {\n      unsigned x = 0;\n      for (int q = 0; q < kPer; ++q)\n"
+        "        x ^= (unsigned)sp[q] ^ (unsigned)e[q] ^ (unsigned)role[q] ^ (unsigned)pod[q]"
+        " ^ (unsigned)cap[q];\n"
+        "      if (x == 0x9e3779b9u) g.ok[0] = 0;\n      return;\n    }\n")],
+    "tile: the fill and an empty launch": [(
+        "  const int t0 = blockIdx.x * kTile;\n", "  if (g.L >= 0) return;\n"
+        "  const int t0 = blockIdx.x * kTile;\n")],
+    "tile: the fill alone": [(_GUARD_LAUNCH, "    (void)a;")],
+    "tile: a memset in place of the fill": [(
+        _GUARD_FILL, "  cudaError_t e = cudaMemsetAsync(ok, 1, (size_t)B, st);\n"
+        "  if (e != cudaSuccess) return (int)e;\n")],
+    "tile: no look-ahead (chunks of the tile)": [("constexpr int kPer = 3;",
+                                                  "constexpr int kPer = 2;")],
+    "tile: 1024 entries on 256 threads, look-ahead 256 (the first tile)": [
+        ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
+        ("constexpr int kTile = 256;", "constexpr int kTile = 1024;"),
+        ("constexpr int kPer = 3;", "constexpr int kPer = 5;")],
+    "tile: 256 threads, 2 entries a thread (look-ahead 256)": [
+        ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
+        ("constexpr int kPer = 3;", "constexpr int kPer = 2;")],
+    "tile: 64 threads, 5 entries a thread (look-ahead 64)": [
+        ("constexpr int kThreads = 128;", "constexpr int kThreads = 64;"),
+        ("constexpr int kPer = 3;", "constexpr int kPer = 5;")],
+    "tile: roles staged in shared memory": [
+        ("  // no group starts here: the padding, or a group that started earlier\n",
+         "  __shared__ int role_s[256];\n"
+         "  const bool shared = g.slots <= 256;\n"
+         "  for (int i = tid; shared && i < g.slots; i += kThreads) role_s[i] = g.role_tab[i];\n"
+         "  // no group starts here: the padding, or a group that started earlier\n"),
+        ("  if ((k_first == inv && k_last == inv) || (has_prev && k_last == k_prev)) return;\n",
+         "  if ((k_first == inv && k_last == inv) || (has_prev && k_last == k_prev)) return;\n"
+         "  __syncthreads();\n"),
+        ("      role[q] = mine[q] ? g.role_tab[slot] : 0;",
+         "      role[q] = !mine[q] ? 0 : (shared ? role_s[slot] : g.role_tab[slot]);")],
+}
+GUARD_EXACT = ("today", "tile: a memset in place of the fill",
+               "tile: no look-ahead (chunks of the tile)",
+               "tile: 1024 entries on 256 threads, look-ahead 256 (the first tile)",
+               "tile: 256 threads, 2 entries a thread (look-ahead 256)",
+               "tile: 64 threads, 5 entries a thread (look-ahead 64)",
+               "tile: roles staged in shared memory")
+_CHOOSE = ("        const int ch = pv::choose(c, a.sdr, s, c_node[k], j, pb, a.claimed, "
+           "nullptr, 0);")
+FOLD_VARIANTS = {
+    "today": [],
+    # csrc/pv_fold.cu as it stands: a cluster of 16 CTAs
+    "cluster: floor (launch, compaction, barriers, loop condition; no choose)": [
+        (_CHOOSE, "        const int ch = -1;\n        (void)s;")],
+    "cluster: the launch alone": [("  const pv::Ctx& c = a.c;\n",
+                                   "  const pv::Ctx& c = a.c;\n  if (a.B >= 0) return;\n")],
+    "cluster: launch, copy, compaction and the first barrier": [(
+        "  cluster.sync();  // every share copied and cleared, every CTA running\n",
+        "  cluster.sync();  // every share copied and cleared, every CTA running\n"
+        "  if (a.B >= 0) return;\n")],
+    "cluster: contiguous row slices": [(
+        "return ((lr >> 5) * csize + me) * 32 + (lr & 31);", "return me * a.rows + lr;")],
+    "cluster: one row a thread per round of loads": [("constexpr int kU = 4;",
+                                                      "constexpr int kU = 1;")],
+    "cluster: 512 threads": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+    "cluster: 128 threads": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
 }
 
 _SCAN_NODE_WORK = "      const bool f = node_mask(a, s, pod, ln, n, sb_cur[i], minc, total);"
@@ -294,7 +383,7 @@ def build_variants(name: str, csrc: Path, variants: dict) -> dict:
 
     def one(v, path):
         try:
-            libs[v] = kb.build_cuda_library(name, path)
+            libs[v] = kb.build_cuda_library(name, path, include=csrc)
         except BaseException as e:  # re-raised below
             errs.append(e)
 
@@ -533,6 +622,188 @@ def time_affinity_update_variants(dev, csrc: Path, calls: list, check: bool) -> 
         lambda: [t.clone() for t in tables], 20)
     print(f"  affinity_update the four old tables cloned by torch "
           f"{out['the four old tables cloned by torch (a copy floor)']:.4f} ms", flush=True)
+    return out
+
+
+def prev_guard_sweep(lib, s_packed, perm, rank_bits, B, role_tab, caps, gk_invalid):
+    """K6 through the earlier C interface (`guard_sweep_launch` with a
+    group list and its counter, the design before the tile sweep): its
+    scratch allocated and the counter zeroed as its wrapper did."""
+    import ctypes
+
+    from .ops.kernel_build import ptr, raise_on_error, stream_of
+
+    fn = lib.guard_sweep_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    L, dev = s_packed.shape[0], s_packed.device
+    seg_list = torch.empty(L, dtype=torch.int32, device=dev)
+    n_seg = torch.zeros(1, dtype=torch.int32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    raise_on_error("guard_sweep", fn(
+        L, B, rank_bits, role_tab.shape[0], gk_invalid, ptr(s_packed), ptr(perm),
+        ptr(role_tab), ptr(caps), ptr(seg_list), ptr(n_seg), ptr(ok), stream_of(dev)))
+    return ok
+
+
+def guard_sweep_with(lib):
+    """K6's wrapper for library `lib`: the package's interface, or the
+    earlier one (`prev_guard_sweep`) for a library with the group list."""
+    from .ops import guard_sweep as gs
+
+    if hasattr(lib, "guard_sweep_tile"):
+        return lambda *args: with_library("guard_sweep", lib,
+                                          lambda: gs.guard_sweep_cuda(*args))
+    return lambda *args: prev_guard_sweep(lib, *args)
+
+
+def prev_pv_fold(lib, snap, tables, pv_claimed, accepted, node_of, rank):
+    """K12 through the one-block design's C interface (`pv_fold_launch`
+    with its winner, choice and pending tables as scratch): the bitmap
+    cloned, then folded in place by the library's kernel."""
+    import ctypes
+
+    from .ops import volumes
+    from .ops.kernel_build import ptr, raise_on_error, stream_of
+    from .ops.volume_mask import CTX_ARGTYPES, ctx_args, ctx_dims, sdr_tables
+
+    fn = lib.pv_fold_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + CTX_ARGTYPES + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 6)
+    fn.restype = ctypes.c_int
+    B, MVol = snap.pod_vol_mode.shape
+    V, dev = snap.pv_avail.shape[0], snap.device
+    claimed = pv_claimed.clone()
+    masks, off = sdr_tables(MVol, str(dev))
+    scratch = [torch.empty(n, dtype=torch.int32, device=dev) for n in (V, B, B)]
+    raise_on_error("pv_fold", fn(
+        ptr(claimed), B, *ctx_dims(snap, tables), *[ptr(t) for t in ctx_args(
+            "pv_fold", snap, tables)], ptr(node_of), ptr(accepted), ptr(rank),
+        int(volumes._multi(snap)), ptr(masks), ptr(off), *[ptr(t) for t in scratch],
+        stream_of(dev)))
+    return claimed
+
+
+def pv_fold_with(lib, cluster=None):
+    """K12's wrapper for library `lib`: the package's interface (on a
+    cluster of `cluster` CTAs, default the wrapper's), or the one-block
+    design's (`prev_pv_fold`) for a library without it."""
+    from .ops import pv_fold as k12
+
+    if hasattr(lib, "pv_fold_clusters"):
+        kw = {} if cluster is None else {"cluster": cluster}
+        return lambda *args: with_library("pv_fold", lib,
+                                          lambda: k12.pv_fold_cuda(*args, **kw))
+    return lambda *args: prev_pv_fold(lib, *args)
+
+
+def contended_fold_args(args, n_nodes: int = N_NODES, seed: int = 11):
+    """A contended K12 batch beside a recorded call: every valid pod with an
+    unbound slot accepted, at a node drawn from `seed`, against the call's
+    bitmap and ranks (several passes)."""
+    snap, tables, claimed, _, _, rank = args
+    gen = torch.Generator(device=snap.device).manual_seed(seed)
+    many = snap.pod_valid & (snap.pod_vol_mode == 1).any(dim=1)
+    node = torch.randint(0, n_nodes, (snap.P,), generator=gen, device=snap.device,
+                         dtype=torch.int32)
+    return (snap, tables, claimed, many, node, rank)
+
+
+def time_guard_sweep_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K6's variants (GUARD_VARIANTS) in device time on the recorded calls
+    of one rounds cycle (the round-0 call and the mean over the calls);
+    with the package's own source, K6 first held against
+    `guard_sweep_plain` on them and on its seeded edge cases."""
+    from .ops import guard_sweep as gs
+
+    libs = build_variants("guard_sweep", csrc, GUARD_VARIANTS)
+    if check:
+        from .utils import kernel_cases
+
+        edge = kernel_cases.guard_cases(dev)
+        for v in GUARD_EXACT:
+            fn = guard_sweep_with(libs[v])
+            for tag, c in list(edge.items()) + [(f"call {i}", c) for i, c in enumerate(calls)]:
+                if not torch.equal(fn(*c), gs.guard_sweep_plain(*c)):
+                    raise RuntimeError(f"guard_sweep ({v}) differs from guard_sweep_plain "
+                                       f"({tag})")
+        print(f"guard_sweep ({', '.join(GUARD_EXACT)}) equal to guard_sweep_plain on "
+              f"{len(calls)} recorded calls and {len(edge)} edge cases", flush=True)
+    valid, longest = [], []
+    for c in calls:
+        keys = c[0] >> c[2]
+        run = torch.unique_consecutive(keys[keys != c[6]], return_counts=True)[1]
+        valid.append(int(run.sum()))
+        longest.append(int(run.max()) if run.numel() else 0)
+    L = calls[0][0].shape[0]
+    out = {"calls": {"n": len(calls), "L": L, "valid": valid, "longest group": longest}}
+    print(f"guard_sweep: {len(calls)} calls of L = {L}, valid entries {valid}, longest "
+          f"group {longest}", flush=True)
+    for v, lib in libs.items():
+        if lib is None:
+            out[v] = "not applicable"
+            continue
+        fn = guard_sweep_with(lib)
+        row = {"round 0": device_ms(lambda: fn(*calls[0]), 20),
+               "mean over the calls": sum(device_ms(lambda: fn(*c), 10)
+                                          for c in calls) / len(calls)}
+        out[v] = row
+        print(f"  guard_sweep {v:66s} "
+              + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+    return out
+
+
+def time_pv_fold_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K12's variants (FOLD_VARIANTS, and today's kernel on the portable 8
+    CTAs) in device time on the recorded calls of one volume cycle (round
+    0, the mean over the calls) and on a contended batch beside round 0
+    (`contended_fold_args`); with the package's own source, K12 first held
+    against `pv_fold_plain` on them and on its seeded edge cases, on 16
+    CTAs and on 8."""
+    from .ops import pv_fold as k12
+    from .ops import volumes
+
+    libs = build_variants("pv_fold", csrc, FOLD_VARIANTS)
+    cont = contended_fold_args(calls[0])
+    runs = {v: pv_fold_with(lib) for v, lib in libs.items() if lib is not None}
+    if "today" in runs and hasattr(libs["today"], "pv_fold_clusters"):
+        runs["cluster: 8 CTAs"] = pv_fold_with(libs["today"], cluster=k12.CLUSTER_PORTABLE)
+    if check:
+        from .utils import kernel_cases
+
+        edge = kernel_cases.fold_cases(dev)
+        inputs = (list(edge.items()) + [(f"call {i}", c) for i, c in enumerate(calls)]
+                  + [("contended batch", cont)])
+        exact = ("today", "cluster: 8 CTAs", "cluster: contiguous row slices",
+                 "cluster: one row a thread per round of loads", "cluster: 512 threads",
+                 "cluster: 128 threads")
+        for v in exact:
+            for tag, c in inputs:
+                if not torch.equal(runs[v](*c), volumes.pv_fold_plain(*c)):
+                    raise RuntimeError(f"pv_fold ({v}) differs from pv_fold_plain ({tag})")
+        print(f"pv_fold ({', '.join(exact)}) equal to pv_fold_plain on {len(calls)} "
+              f"recorded calls, the contended batch and {len(edge)} edge cases", flush=True)
+    shapes = []
+    for c in calls + [cont]:
+        snap, tables, claimed, acc, node, rank = c
+        rows = acc & (snap.pod_vol_mode == 1).any(dim=1)
+        shapes.append({"B": snap.P, "claimants": int(rows.sum()), "passes":
+                       volumes.fold_pv_claims_passes(snap, tables.req, claimed, acc, node,
+                                                     rank)[1]})
+    out = {"calls": shapes[:-1], "contended batch": shapes[-1]}
+    print(f"pv_fold: calls {json.dumps(shapes[:-1])}; contended batch "
+          f"{json.dumps(shapes[-1])}", flush=True)
+    for v, fn in runs.items():
+        row = {"round 0": device_ms(lambda: fn(*calls[0]), 20),
+               "mean over the calls": sum(device_ms(lambda: fn(*c), 5)
+                                          for c in calls) / len(calls),
+               "contended batch": device_ms(lambda: fn(*cont), 10)}
+        out[v] = row
+        print(f"  pv_fold {v:72s} "
+              + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+    for v in libs:
+        if libs[v] is None:
+            out[v] = "not applicable"
     return out
 
 
@@ -837,7 +1108,8 @@ def main(argv=None) -> int:
                          "(about 70 s; chip_smoke.py makes it too)")
     ap.add_argument("--kernels", default="all",
                     help="comma list of sections: small, preempt_claim, affinity_update, "
-                         "capacity, static_base, scan_commit (default all)")
+                         "guard_sweep, pv_fold, capacity, static_base, scan_commit "
+                         "(default all)")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(",")) if args.kernels != "all" else None
 
@@ -860,7 +1132,8 @@ def main(argv=None) -> int:
     if on("scan_commit"):
         table["scan_commit"] = time_scan_variants(dev, csrc, own, not args.no_full_plain)
         out.write_text(json.dumps(table, indent=1))
-    if any(on(k) for k in ("small", "preempt_claim", "affinity_update", "capacity")):
+    if any(on(k) for k in ("small", "preempt_claim", "affinity_update", "capacity",
+                           "guard_sweep", "pv_fold")):
         small = record_small_calls(dev)
         print("small kernels on recorded main-path calls: "
               + json.dumps({k: len(v) for k, v in small.items()}), flush=True)
@@ -872,6 +1145,11 @@ def main(argv=None) -> int:
         if on("affinity_update"):
             table["affinity_update"] = time_affinity_update_variants(
                 dev, csrc, small["affinity_update"], own)
+        if on("guard_sweep"):
+            table["guard_sweep"] = time_guard_sweep_variants(dev, csrc, small["guard_sweep"],
+                                                             own)
+        if on("pv_fold"):
+            table["pv_fold"] = time_pv_fold_variants(dev, csrc, small["pv_fold"], own)
         out.write_text(json.dumps(table, indent=1))
         calls = small.pop("capacity")
         del small

@@ -15,15 +15,21 @@ own entries never block each other) decides:
     PORT   ok iff no PORT before         PV     ok iff no PV before
 
 and a pod survives iff all its entries do. Entries keyed GK_INVALID are
-padding. Equal packed keys belong to one pod's run, so the sort's tie
-order never matters.
+padding. Equal packed keys belong to one pod's run (the ranks are a
+permutation of the claimants: `snap.pod_order` in the rounds engine), so
+the sort's tie order never matters.
 
 `guard_sweep_plain` is `_seg_scan_tables` over the whole table (int64
-prefix counts, exact); `guard_sweep_cuda` launches csrc/guard_sweep.cu:
-one kernel lists the group starts, a second sweeps each group with one
-warp (ballot/popcount prefix counts, a carry across 32-entry chunks, and a
-walk back of at most one pod's entries to its run start). Bound on an
-H100: bytes (the sorted keys and the permutation, each read once)."""
+prefix counts, exact); `guard_sweep_cuda` launches csrc/guard_sweep.cu: a
+fill kernel sets ok to 1, then a sweep whose CTA t sweeps the groups that
+start in its tile of TILE entries (following a longer group to its end)
+by a block-wide segmented scan, finding each pod run's head by `s_packed`
+equality; a CTA in which no group starts leaves after reading two or
+three keys, so the padding after the valid prefix is never read. Two
+launches a call, one counted: the ones must be written before any clear,
+and a fill kernel was faster than a memset. Bound on an H100: bytes (the
+valid prefix of the sorted keys and of the permutation, each read once,
+and the ok bytes)."""
 
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ RB_SPREAD = 16
 RB_PORT = 32
 RB_PV = 64
 NO_CAP = 2**30  # cap of an entry that carries none
+TILE = 256  # entries a CTA of csrc/guard_sweep.cu owns (kTile)
 
 
 def seg_scan_tables(keys, pods, counts: dict[str, torch.Tensor]):
@@ -99,7 +106,7 @@ def _library():
     lib = load_cuda_library("guard_sweep")
     if lib.guard_sweep_launch.argtypes is None:
         lib.guard_sweep_launch.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
+            [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
         )
         lib.guard_sweep_launch.restype = ctypes.c_int
     return lib
@@ -107,24 +114,24 @@ def _library():
 
 def guard_sweep_cuda(s_packed, perm, rank_bits: int, B: int, role_tab, caps,
                      gk_invalid: int) -> torch.Tensor:
-    """Launch csrc/guard_sweep.cu on the current stream."""
+    """Launch csrc/guard_sweep.cu on the current stream: the fill of ok,
+    then the sweep."""
     L = s_packed.shape[0]
     dev = s_packed.device
     slots = role_tab.shape[0]
     if L != slots * B:
         raise ValueError(f"guard_sweep: table of {L} entries != {slots} slots x {B}")
+    if L >= 2**31:
+        raise ValueError(f"guard_sweep: table of {L} entries; the kernel indexes in 32 bits")
     keep = [
         checked("guard_sweep", s_packed, torch.int64, (L,), dev),
         checked("guard_sweep", perm, torch.int64, (L,), dev),
         checked("guard_sweep", role_tab, torch.int32, (slots,), dev),
         None if caps is None else checked("guard_sweep", caps, torch.int32, (L,), dev),
     ]
-    seg_list = torch.empty(L, dtype=torch.int32, device=dev)
-    n_seg = torch.zeros(1, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     err = _library().guard_sweep_launch(
-        L, B, rank_bits, slots, gk_invalid, *[ptr(t) for t in keep],
-        ptr(seg_list), ptr(n_seg), ptr(ok), stream_of(dev),
+        L, B, rank_bits, slots, gk_invalid, *[ptr(t) for t in keep], ptr(ok), stream_of(dev),
     )
     raise_on_error("guard_sweep", err)
     count_launch("guard_sweep")

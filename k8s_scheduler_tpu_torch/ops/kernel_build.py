@@ -77,14 +77,17 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_cuda_library(name: str, src: Path | None = None) -> Path:
-    """Compile csrc/<name>.cu, or the source `src` with <name>'s flags,
-    into _build/lib<name>-<hash>.so (cached; the hash covers the source,
-    the csrc/ headers and the flags)."""
+def build_cuda_library(name: str, src: Path | None = None,
+                       include: Path | None = None) -> Path:
+    """Compile csrc/<name>.cu, or the source `src` with <name>'s flags and
+    the headers of `include` (default: the source's own directory), into
+    _build/lib<name>-<hash>.so (cached; the hash covers the source, those
+    headers and the flags)."""
     src = src or CSRC_DIR / f"{name}.cu"
-    flags = NVCC_FLAGS + CUDA_KERNELS[name]
+    include = include or src.parent
+    flags = NVCC_FLAGS + CUDA_KERNELS[name] + (f"-I{include}",)
     text = src.read_bytes() + b"".join(h.read_bytes()
-                                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+                                       for h in sorted(include.glob("*.cuh")))
     digest = hashlib.sha1(text + repr(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():

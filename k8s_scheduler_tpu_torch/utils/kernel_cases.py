@@ -679,3 +679,313 @@ def scan_cases(device="cpu", tags=None) -> dict:
         snap = enc.encode(nodes, pods, existing)
         out[tag] = scan_inputs(prepare(snap, opts), opts)
     return out
+
+
+# ---- K6 `guard_sweep` -----------------------------------------------------
+
+GUARD_TILE = 256  # ops/guard_sweep.TILE: the entries a CTA owns
+GUARD_BOUNDARY = 1024  # the tile boundary "a pod run across a tile boundary" crosses
+GUARD_TAGS = (
+    "a pod run across a tile boundary", "a group longer than several tiles",
+    "no padding", "all padding", "a pod with entries in every slot", "spread caps at 1",
+    "L not a multiple of the tile", "no spread caps", "keys after the padding key",
+    "config #4's shape")
+# role bits (ops/guard_sweep.RB_*)
+_MATCH, _ANTI, _BOOT, _GMATCH, _SPREAD, _PORT, _PV = 1, 2, 4, 8, 16, 32, 64
+_ALL_ROLES = (_MATCH, _ANTI, _BOOT, _GMATCH, _SPREAD, _PORT, _PV, _MATCH)
+
+
+def _guard_table(keys, roles, caps, rank, gk_invalid):
+    """numpy (s_packed, perm, rank_bits, B, role_tab, caps, gk_invalid) of a
+    slot-major participant table: keys [slots, B] (gk_invalid for
+    padding), roles [slots], caps [slots, B] or None, rank [B] a
+    permutation; sorted on key * 2^rank_bits + rank as the rounds engine
+    sorts it."""
+    slots, B = keys.shape
+    rank_bits = int(B - 1).bit_length()
+    packed = ((keys.astype(np.int64) << rank_bits) + rank[None, :]).reshape(-1)
+    perm = np.argsort(packed, kind="stable")
+    return (packed[perm], perm.astype(np.int64), rank_bits, B,
+            np.asarray(roles, np.int32),
+            None if caps is None else caps.reshape(-1).astype(np.int32), gk_invalid)
+
+
+def _guard_keys(rng, slots, B, n_keys, pad_p, gk_invalid, lo=0):
+    keys = rng.integers(lo, lo + n_keys, (slots, B))
+    keys[rng.random((slots, B)) < pad_p] = gk_invalid
+    return keys
+
+
+def _guard_caps(rng, roles, B, lo=1, hi=4):
+    return np.where(np.asarray(roles)[:, None] == _SPREAD,
+                    rng.integers(lo, hi, (len(roles), B)), 2**30)
+
+
+def guard_raw_cases() -> dict:
+    """{tag: numpy args} of K6's edge cases (GUARD_TAGS), each a sorted
+    table as the rounds engine gives K6 (`_guard_table`):
+      - a pod run across a tile boundary: 1023 GMATCH entries of other
+        pods open a group, then one pod's MATCH, ANTI, SPREAD (cap 1),
+        PORT and PV at entries 1023-1027: its ANTI and SPREAD pass only if
+        its own MATCH, in the previous tile, is not counted;
+      - a group longer than several tiles: 3300 MATCH / SPREAD entries of
+        one key starting mid-tile, spread caps up to 3500, so the arrival
+        count carried across tiles decides;
+      - no padding, all padding, a pod with entries in every slot (runs of
+        8), spread caps at 1, L = 1665, no caps, keys above the padding
+        key (the padding run in the middle of the table);
+      - config #4's shape: 22 slots x 2048 claimants, 96% padding, groups
+        of a few entries."""
+    rng = np.random.default_rng(4406)
+    inv = 1000
+    out = {}
+
+    # a pod run across a tile boundary
+    B, roles = 600, (_MATCH, _ANTI, _BOOT, _GMATCH, _SPREAD, _PORT, _PV, _GMATCH)
+    rank = rng.permutation(B)
+    by_rank = np.argsort(rank)
+    keys = _guard_keys(rng, len(roles), B, 2000, 0.4, inv, lo=1)
+    keys[3, by_rank[:511]] = 0
+    keys[7, by_rank[:511]] = 0
+    keys[3, by_rank[511]] = 0
+    x = by_rank[512]
+    keys[:, x] = inv
+    keys[[0, 1, 4, 5, 6], x] = 0
+    tail = by_rank[513:560]
+    keys[rng.integers(0, len(roles), tail.shape[0]), tail] = 0
+    caps = _guard_caps(rng, roles, B)
+    caps[4, x] = 1
+    out["a pod run across a tile boundary"] = _guard_table(keys, roles, caps, rank, inv)
+
+    # a group longer than several tiles, starting mid-tile
+    B, roles = 1100, (_MATCH, _SPREAD, _ANTI, _PORT, _MATCH, _PV)
+    keys = _guard_keys(rng, len(roles), B, 3000, 0.5, inv)
+    keys[keys == 5] = 6
+    keys[[0, 1, 4], :] = 5
+    caps = _guard_caps(rng, roles, B, 1, 3500)
+    out["a group longer than several tiles"] = _guard_table(
+        keys, roles, caps, rng.permutation(B), inv)
+
+    B, roles = 300, _ALL_ROLES[:7]
+    out["no padding"] = _guard_table(_guard_keys(rng, len(roles), B, 500, 0.0, inv), roles,
+                                     _guard_caps(rng, roles, B), rng.permutation(B), inv)
+    B, roles = 200, _ALL_ROLES[:5]
+    out["all padding"] = _guard_table(np.full((len(roles), B), inv), roles,
+                                      _guard_caps(rng, roles, B), rng.permutation(B), inv)
+
+    B, roles = 160, _ALL_ROLES
+    keys = _guard_keys(rng, len(roles), B, 100, 0.3, inv)
+    keys[:, rng.choice(B, 12, replace=False)] = 3
+    out["a pod with entries in every slot"] = _guard_table(
+        keys, roles, _guard_caps(rng, roles, B), rng.permutation(B), inv)
+
+    B, roles = 400, (_MATCH, _SPREAD, _SPREAD, _MATCH, _ANTI, _SPREAD)
+    out["spread caps at 1"] = _guard_table(
+        _guard_keys(rng, len(roles), B, 400, 0.2, inv), roles,
+        _guard_caps(rng, roles, B, 1, 2), rng.permutation(B), inv)
+
+    B, roles = 333, (_PORT, _PV, _MATCH, _SPREAD, _ANTI)
+    out["L not a multiple of the tile"] = _guard_table(
+        _guard_keys(rng, len(roles), B, 300, 0.3, inv), roles, _guard_caps(rng, roles, B),
+        rng.permutation(B), inv)
+
+    B, roles = 256, _ALL_ROLES
+    out["no spread caps"] = _guard_table(_guard_keys(rng, len(roles), B, 300, 0.3, inv),
+                                         roles, None, rng.permutation(B), inv)
+
+    B, roles = 256, _ALL_ROLES
+    out["keys after the padding key"] = _guard_table(
+        _guard_keys(rng, len(roles), B, 400, 0.3, 200), roles, _guard_caps(rng, roles, B),
+        rng.permutation(B), 200)
+
+    # config #4's shape: anti and bootstrap terms, spread, matchers over
+    # (selector, domain) groups, ports and PVs; most slots padding
+    B = 2048
+    roles = ((_ANTI,) * 2 + (_BOOT,) * 2 + (_SPREAD,) * 2 + (_MATCH,) * 8 + (_GMATCH,) * 4
+             + (_PORT,) * 2 + (_PV,) * 2)
+    keys = _guard_keys(rng, len(roles), B, 6000, 0.96, 10**6)
+    out["config #4's shape"] = _guard_table(keys, roles, _guard_caps(rng, roles, B, 1, 6),
+                                            rng.permutation(B), 10**6)
+    assert tuple(out) == GUARD_TAGS
+    return out
+
+
+def guard_cases(device="cpu") -> dict:
+    """{tag: args of `guard_sweep_plain` / `guard_sweep_cuda`} of K6's edge
+    cases (`guard_raw_cases`) as tensors on `device`."""
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {tag: (t(sp), t(perm), rb, B, t(roles), t(caps), inv)
+            for tag, (sp, perm, rb, B, roles, caps, inv) in guard_raw_cases().items()}
+
+
+# ---- K12 `pv_fold` --------------------------------------------------------
+
+FOLD_CLUSTER = 16  # ops/pv_fold.CLUSTER: the cluster's CTAs
+FOLD_TAGS = (
+    "no claimant", "more claimants than a CTA's threads", "a contended batch",
+    "SDR pods whose greedy choice dead-ends", "one PV, claimants in two CTAs",
+    "V = 97")
+_GIB = 2**30
+FOLD_PVS = {"V = 97": 97}  # cases whose PV axis is cut to the real PVs
+
+
+def narrow_pvs(snap, V: int):
+    """The snapshot with its PV fields cut from the padded V to the first V
+    (either package's `ClusterSnapshot`; the padding PVs are unavailable)."""
+    return dataclasses.replace(snap, **{
+        f.name: getattr(snap, f.name)[:V] for f in dataclasses.fields(snap)
+        if f.name.startswith("pv_")})
+
+
+def fold_cta(row: int, cluster: int = FOLD_CLUSTER) -> int:
+    """The CTA of the fold's cluster that lists pod row `row` (blocks of 32
+    rows dealt round-robin)."""
+    return row // 32 % cluster
+
+
+def _host_term(api, node):
+    return (api.NodeSelectorTerm((api.NodeSelectorRequirement(HOST, "In", (node,)),)),)
+
+
+def fold_objects(m, api) -> dict:
+    """{tag: (nodes, pods, encode kwargs)} of K12's edge cases (FOLD_TAGS),
+    made with a models module (`MakeNode`, `MakePod`) and its api module of
+    either package. PVs pinned to a node by hostname, others without
+    nodeAffinity (the global list), one WaitForFirstConsumer class
+    without a provisioner; pod k is created at time k, so its rank is k
+    unless the case says otherwise."""
+    local = api.StorageClass("local", api.VOLUME_BINDING_WAIT, provisioner=False)
+
+    def nodes(n):
+        return [m.MakeNode(f"n{i}").capacity({"cpu": "64"}).labels({HOST: f"n{i}"}).obj()
+                for i in range(n)]
+
+    def pinned(name, node, gib=10):
+        return api.PersistentVolume(name, capacity=gib * _GIB, storage_class="local",
+                                    node_affinity=_host_term(api, node))
+
+    def free(name, gib=10):
+        return api.PersistentVolume(name, capacity=gib * _GIB, storage_class="local")
+
+    def claimants(sizes_of, created=None):
+        """one pod a claim-size tuple, its PVCs named after it"""
+        pods, pvcs = [], []
+        for k, sizes in enumerate(sizes_of):
+            pod = m.MakePod(f"p{k}").req({"cpu": "1"}).created(
+                float(k if created is None else created[k]))
+            for j, z in enumerate(sizes):
+                pvcs.append(api.PersistentVolumeClaim(f"c{k}-{j}", storage_class="local",
+                                                      request=z * _GIB))
+                pod = pod.volume(f"c{k}-{j}")
+            pods.append(pod.obj())
+        return pods, pvcs
+
+    out = {}
+    pods, pvcs = claimants([(5,)] * 24)
+    pvs = [free(f"g{v}") for v in range(3)] + [pinned(f"pv{i}", f"n{i}") for i in range(4)]
+    out["no claimant"] = (nodes(4), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    # 4400 claimants (275 a CTA of 16, 550 of 8, on 256 threads), 5
+    # global PVs ahead of 3 per node: every claimant contends for the
+    # global ones, 8-9 passes
+    pods, pvcs = claimants([(5,)] * 4400)
+    pvs = [free(f"g{v}") for v in range(5)]
+    pvs += [pinned(f"pv{i}-{k}", f"n{i}") for i in range(64) for k in range(3)]
+    out["more claimants than a CTA's threads"] = (
+        nodes(64), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    # 12 claimants over 3 nodes of 2 PVs each and one global PV: passes
+    # hand the PVs out one rank at a time
+    pods, pvcs = claimants([(5,)] * 12)
+    pvs = [free("g0")] + [pinned(f"pv{i}-{k}", f"n{i}") for i in range(3) for k in range(2)]
+    out["a contended batch"] = (nodes(3), pods, dict(pvcs=pvcs, pvs=pvs,
+                                                    storage_classes=[local]))
+
+    # three slots of 1, 5 and 8 GiB over node PVs of 10, 6 and 2 GiB: the
+    # lowest usable PV for the 1 GiB slot (the 10 GiB one) leaves nothing
+    # for the 8 GiB slot, so the SDR-safe choice takes the 2 GiB PV; two
+    # such pods a node, and single-volume pods beside them
+    pods, pvcs = claimants([(1, 5, 8)] * 8 + [(5,)] * 4)
+    pvs = [pinned(f"pv{i}-{c}", f"n{i}", c) for i in range(4) for c in (10, 6, 2)]
+    out["SDR pods whose greedy choice dead-ends"] = (
+        nodes(4), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    # 40 pods (rows 0 and 39 in CTAs 0 and 1) and 50 PVs (V pads to 52:
+    # PV 45's winner entry in CTA 11 of 16, 6 of 8), PV 45 the one both can
+    # take; row 39 ranks first
+    created = [float(k + 1) for k in range(40)]
+    created[39] = 0.0
+    pods, pvcs = claimants([(5,)] * 40, created)
+    pvs = [pinned(f"pv{v}", f"n{1 + v % 3}") for v in range(45)]
+    pvs += [pinned("pv45", "n0")] + [pinned(f"pv{v}", f"n{1 + v % 3}") for v in range(46, 50)]
+    out["one PV, claimants in two CTAs"] = (nodes(4), pods, dict(pvcs=pvcs, pvs=pvs,
+                                                                storage_classes=[local]))
+
+    # V = 97 (FOLD_PVS cuts the encoder's padding of the PV axis): pinned
+    # PVs over 20 nodes and 7 global ones, single- and two-volume pods
+    rng = np.random.default_rng(97)
+    pvs = [free(f"g{v}", int(rng.integers(2, 12))) for v in range(7)]
+    pvs += [pinned(f"pv{v}", f"n{int(rng.integers(0, 20))}", int(rng.integers(2, 12)))
+            for v in range(90)]
+    sizes = [tuple(int(z) for z in rng.integers(1, 10, int(rng.integers(1, 3))))
+             for _ in range(150)]
+    pods, pvcs = claimants(sizes)
+    out["V = 97"] = (nodes(20), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+    assert tuple(out) == FOLD_TAGS
+    return out
+
+
+def fold_draws(tag: str, P: int, V: int, n_nodes: int, pod_valid) -> list[dict]:
+    """numpy (claimed, accepted, node_of) draws of a K12 case: three seeded
+    draws (no PV claimed before, a quarter, a half), with the case's own
+    claimants and nodes where it names them."""
+    rng = np.random.default_rng(FOLD_TAGS.index(tag) + 120)
+    valid = np.asarray(pod_valid)
+    out = []
+    for share in (0.0, 0.25, 0.5):
+        claimed = rng.random(V) < share
+        accepted = valid & (rng.random(P) < 0.9)
+        node_of = rng.integers(0, n_nodes, P).astype(np.int32)
+        if tag == "no claimant":
+            accepted[:] = False
+        elif tag == "more claimants than a CTA's threads":
+            accepted = valid.copy()
+        elif tag == "a contended batch":
+            claimed[:] = False
+            accepted = valid.copy()
+            node_of = (np.arange(P) % 3).astype(np.int32)
+        elif tag == "SDR pods whose greedy choice dead-ends":
+            accepted = valid.copy()
+            node_of = (np.arange(P) % 4).astype(np.int32)
+        elif tag == "one PV, claimants in two CTAs":
+            claimed[:] = False
+            accepted = np.zeros(P, bool)
+            accepted[[0, 39]] = True
+            node_of[:] = 0
+        out.append({"claimed": claimed, "accepted": accepted, "node_of": node_of})
+    return out
+
+
+def fold_cases(device="cpu") -> dict:
+    """{"tag, draw d": args of `pv_fold_plain` / `pv_fold_cuda`} of K12's
+    edge cases (`fold_objects`, `fold_draws`), encoded by the port on
+    `device`; the rank is the snapshot's pod order, as the rounds engine
+    passes it."""
+    from .. import models
+    from ..framework.interfaces import CycleContext
+
+    out = {}
+    for tag, (nodes, pods, kw) in fold_objects(models, models.api).items():
+        snap = models.SnapshotEncoder(device=device).encode(nodes, pods, **kw)
+        if tag in FOLD_PVS:
+            snap = narrow_pvs(snap, FOLD_PVS[tag])
+        tables = CycleContext(snap).volume_tables
+        rank = snap.pod_order.to(torch.int32)
+        for d, draw in enumerate(fold_draws(tag, snap.P, snap.pv_avail.shape[0],
+                                            len(nodes), snap.pod_valid.cpu())):
+            t = {k: torch.from_numpy(v).to(device) for k, v in draw.items()}
+            out[f"{tag}, draw {d}"] = (snap, tables, t["claimed"], t["accepted"],
+                                       t["node_of"], rank)
+    return out
