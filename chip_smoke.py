@@ -49,9 +49,15 @@ Phases:
                 matched selectors counted in a zone other slices read,
                 affinity bootstrapped by total == 0, anti-affinity and host
                 ports between consecutive pods, pad pods interleaved, R = 1
-                and 8; each case's cluster and slice printed);
+                and 8; each case's cluster and slice printed; K14 `dyn_mask`
+                and K15 `dyn_score`, K15 also as the score anchor, on
+                `dyn_cases`: zero allocatable, an exact fit at the slack,
+                full nodes, R = 1 and 8, Q = 0, pad port slots, every row
+                NEG_INF, B = 1 and 13, N = 13 and 8199, no term, a lone
+                BalancedAllocation, weights other than 1);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
-                decisions required), K1/K2 against their plain versions
+                decisions required; K14 / K15 held against their plain
+                versions on every call of it), K1/K2 against their plain versions
                 with timings (K1 beside `torch.empty(P, N).fill_(-1e9)`),
                 then three timed cycles whose placements are
                 checked (capacity, static masks, unplaced => infeasible),
@@ -67,6 +73,12 @@ Phases:
                 timed placement also checked for anti-affinity (both
                 directions), required affinity or its bootstrap, and
                 DoNotSchedule skew at the round each pod was placed in;
+                K14 / K15 on every call of the cycle, timed on round 0's
+                (device time, plain, bound, the two stages' round-0 peak
+                memory against the plain versions'), and round 0 of a
+                variant whose pods name host ports (NodePorts' fold, one
+                `dyn_batched`, `rounds_commit(max_rounds=1)`) under
+                `torch.cuda.set_sync_debug_mode("error")`;
   5. preemption — `build_preemption_fn()` (K7 `preempt_prefilter`, K8
                 `preempt_whatif`, K9 `preempt_claim`) on the affinity
                 phase's snapshots and decisions: the kernels' preemption
@@ -115,7 +127,8 @@ Phases:
                 size, K3 `interpod_terms`, K10 `volume_mask` (static and
                 unbound), K11 `pv_choice` and K12 `pv_fold` each equal to its plain
                 version on round 0's inputs (K12 also on a contended batch
-                that takes several passes; K5 on every call of the cycle), three timed cycles whose
+                that takes several passes; K5, K14 and K15 on every call of
+                the cycle), three timed cycles whose
                 placements are checked as in the affinity phase and for
                 volumes (bound claims on their PVs' nodes; a matching of
                 the claimed PVs to placed unbound slots: no PV claimed
@@ -340,7 +353,8 @@ def check_placements(torch, snap, d, fw, kernels_plain, volume_kernels=None,
     plain versions) may hand over the cycle's own final claim bitmap as the
     fold of all placements."""
     from k8s_scheduler_tpu_torch.core.cycle import sampling_window
-    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
+    from k8s_scheduler_tpu_torch.framework.interfaces import (CycleContext, DynKernels,
+                                                              VolumeKernels)
     from k8s_scheduler_tpu_torch.ops import static_base as sb
     from k8s_scheduler_tpu_torch.ops.capacity import index_add_exact
     from k8s_scheduler_tpu_torch.ops.resources import fit_slack
@@ -362,14 +376,16 @@ def check_placements(torch, snap, d, fw, kernels_plain, volume_kernels=None,
     alloc = snap.node_allocatable
     over = (d.node_requested > alloc + fit_slack(alloc)).any(dim=1)
     check(not bool(over[a[placed].long()].any()), "a node that received pods is over capacity")
-    ctx = CycleContext(snap, kernels_plain, volume_kernels=volume_kernels or VolumeKernels.plain())
-    smask = sb.static_base_plain(sb.static_base_inputs(
-        fw, ctx, fit=True, sampling=sampling_window(snap, 0))) > sb.NEG_INF / 2
+    ctx = CycleContext(snap, kernels_plain, volume_kernels=volume_kernels or VolumeKernels.plain(),
+                       dyn_kernels=DynKernels.plain())
+    sbase = sb.static_base_plain(sb.static_base_inputs(
+        fw, ctx, fit=True, sampling=sampling_window(snap, 0)))
+    smask = sbase > sb.NEG_INF / 2
     pidx = torch.nonzero(placed, as_tuple=True)[0]
     check(bool(smask[pidx, a[pidx].long()].all()), "a placed pod's static mask is false at its node")
     extra = fw.extra_update_batched(ctx, fw.extra_init(ctx), placed, torch.where(placed, a, 0))
     if unplaced_infeasible:
-        feasible, _ = fw.dyn_batched(ctx, d.node_requested, extra, smask)
+        feasible, _ = fw.dyn_batched(ctx, d.node_requested, extra, sbase)
         open_ = snap.pod_valid & (a < 0) & ~d.gang_dropped
         n_open_feasible = int((feasible.any(dim=1) & open_).sum())
         check(n_open_feasible == 0, f"{n_open_feasible} unplaced pods still have a feasible node")
@@ -514,6 +530,146 @@ def bits_equal(torch, a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+def dyn_outputs_equal(torch, dr, kind, args) -> bool:
+    """K14 (`kind` "mask") or K15 ("score") against its plain version on
+    one call's arguments, bit for bit."""
+    if kind == "mask":
+        (mk, fk), (mp, fp) = dr.dyn_mask_cuda(*args), dr.dyn_mask_plain(*args)
+        return torch.equal(mk, mp) and torch.equal(fk, fp)
+    return bits_equal(torch, dr.dyn_score_cuda(*args), dr.dyn_score_plain(*args))
+
+
+def dyn_recorders(dr):
+    """Recorders of every K14 and K15 call of a cycle on the plain versions."""
+    return Recorder(dr.dyn_mask_plain, keep=None), Recorder(dr.dyn_score_plain, keep=None)
+
+
+def dyn_calls_equal(torch, dr, recs, tag) -> tuple[int, int]:
+    """Each recorded call of a cycle through K14 and K15 against the plain
+    versions, bit for bit: (mask calls, score calls, anchors among them)."""
+    for kind, rec in zip(("mask", "score"), recs):
+        check(rec.calls > 0 and rec.recorded(), f"{tag}: dyn_{kind} calls not recorded")
+        for i, args in sorted(rec.args.items()):
+            check(dyn_outputs_equal(torch, dr, kind, args),
+                  f"dyn_{kind} differs from its plain version ({tag}, call {i})")
+    anchors = sum(a[0] is None for a in recs[1].args.values())
+    return len(recs[0].args), len(recs[1].args), anchors
+
+
+def dyn_edge_checks(torch, dev) -> dict:
+    """K14 and K15 (and K15 as the score anchor) against their plain
+    versions on every `utils/kernel_cases.dyn_cases` case: {tag: [B, N]}."""
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+    from k8s_scheduler_tpu_torch.utils import kernel_cases as kc
+
+    out = {}
+    for tag, x in kc.dyn_cases(dev).items():
+        check(dyn_outputs_equal(torch, dr, "mask", x["mask"]), f"dyn_mask differs on {tag!r}")
+        check(dyn_outputs_equal(torch, dr, "score", x["score"]), f"dyn_score differs on {tag!r}")
+        if x["anchor"] is not None:
+            check(dyn_outputs_equal(torch, dr, "score", x["anchor"]),
+                  f"dyn_score (anchor) differs on {tag!r}")
+        out[tag] = list(x["mask"][0].shape)
+    return out
+
+
+def dyn_bytes(torch, dr, m_args, s_args) -> tuple[int, int, int, int]:
+    """(K14 bytes, ops, K15 bytes, ops) of one round's calls: each input read
+    once, each output written once."""
+    vsbase, parts, act = m_args
+    B, N = vsbase.shape
+    b14 = nbytes(vsbase, act) + B * N * (2 if act is not None else 1)
+    n_parts = 0
+    for p in parts:
+        n_parts += 1
+        b14 += nbytes(*p) if isinstance(p, tuple) else nbytes(p)
+    prog, planes, res, _, _, _, _ = dr.score_program(s_args[1])
+    b15 = nbytes(s_args[0], *planes) + B * N * 4 + (nbytes(*res) if res is not None else 0)
+    R = res[1].shape[1] if res is not None else 0
+    return b14, B * N * (1 + n_parts + R), b15, B * N * (8 * R + 4 * len(prog) + 2)
+
+
+def dyn_peak_mib(torch, fn_mask, fn_score, m_args, s_args) -> float:
+    """Peak device memory (MiB) above what was allocated before, of one
+    round's two stages on `m_args` / `s_args` (the score's planes given)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = (fn_mask(*m_args), fn_score(*s_args))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak / 2**20
+
+
+def ports_variant(torch, snap, gen):
+    """`snap` with host ports (of the Q pending port ids) named by 5% of the
+    pods, one to three each with pad slots between them — the port paths
+    of K14 and of NodePorts' fold that config #4's workload leaves cold;
+    seeded, on the card."""
+    dev, P, Q = snap.device, snap.P, snap.num_distinct_ports
+    ports = snap.pod_port_ids.clone()
+    MP = ports.shape[1]
+    named = torch.rand(P, generator=gen, device=dev) < 0.05
+    for j in range(0, min(MP, 5), 2):  # slots 0, 2, 4: slot 1 and 3 stay pads
+        ids = torch.randint(0, Q, (P,), generator=gen, device=dev, dtype=torch.int32)
+        ports[:, j] = torch.where(named & (torch.rand(P, generator=gen, device=dev) < 0.7),
+                                  ids, ports[:, j])
+    return dataclasses.replace(snap, pod_port_ids=ports)
+
+
+def round_without_sync(torch, fw, snap) -> str:
+    """Round 0 of the rounds engine (`rounds_commit` with max_rounds=1: no
+    stop test) and, before it, one round-0 `dyn_batched` and NodePorts'
+    `extra_update_batched` alone, under torch.cuda.set_sync_debug_mode(
+    "error"): no operation may wait for the device. The inputs (context
+    tables, static base, extra state) are made before; the dyn_batched
+    after the fold is then held against the plain versions'. Returns a
+    summary."""
+    import traceback
+
+    from k8s_scheduler_tpu_torch.core import cycle as cy
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, DynKernels
+    from k8s_scheduler_tpu_torch.ops import rounds as ro
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+
+    ctx = CycleContext(snap)
+    sbase = sb.static_base(sb.static_base_inputs(fw, ctx, fit=True,
+                                                 sampling=cy.sampling_window(snap, 0)))
+    extra = fw.extra_init(ctx)
+    mp = ctx.matched_pending
+    pv_choice_fn = cy._make_pv_choice_fn(ctx)
+    node_of = (torch.arange(snap.P, device=snap.device) % max(int(snap.num_nodes), 1)).int()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ext = fw.extra_update_batched(ctx, extra, snap.pod_valid, node_of)
+        mask, base = fw.dyn_batched(ctx, snap.node_requested, ext, sbase, snap.pod_valid)
+        res = ro.rounds_commit(
+            snap=snap, sbase=sbase, m_pending=mp,
+            dyn_batched_view_fn=lambda vs, vmp, nr, e, vsb, act: fw.dyn_batched(
+                ctx.view(vs, vmp), nr, e, vsb, act),
+            update_batched_view_fn=lambda vs, vmp, e, acc, node: fw.extra_update_batched(
+                ctx.view(vs, vmp), e, acc, node),
+            extra=extra, max_rounds=1, score_anchor_fn=lambda nr: fw.score_anchor(ctx, nr),
+            pv_choice_fn=pv_choice_fn)
+    except RuntimeError:
+        log("  a host sync under set_sync_debug_mode('error'):\n" + traceback.format_exc())
+        raise
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ctx_p = CycleContext(snap, dyn_kernels=DynKernels.plain())
+    ctx_p._cache.update(ctx._cache)  # the tables and the affinity state's owner
+    mask_p, base_p = fw.dyn_batched(ctx_p, snap.node_requested, ext, sbase, snap.pod_valid)
+    check(torch.equal(mask, mask_p) and bits_equal(torch, base, base_p),
+          "dyn_batched after NodePorts' fold differs from the plain versions'")
+    return (f"feasible pairs {int(mask.sum())}, (node, port) claims folded "
+            f"{int(ext['NodePorts'].sum()) if 'NodePorts' in ext else 0} of "
+            f"{int((snap.pod_port_ids >= 0).sum())} named ports, equal to the plain "
+            f"versions; round 0 placed {int((res.assignment >= 0).sum())}")
 
 
 def prev_ms(torch, kb, prev_libs, name, fn, reps, timer=None):
@@ -1196,6 +1352,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     from k8s_scheduler_tpu_torch.ops import affinity_update as au
     from k8s_scheduler_tpu_torch.ops import capacity as cap
     from k8s_scheduler_tpu_torch.ops import claim_pass as cp
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
     from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
     from k8s_scheduler_tpu_torch.ops import interpod_terms as ipt
     from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
@@ -1241,13 +1398,15 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
            "pv_fold": Recorder(vol.pv_fold_plain, keep=None),  # every round
            "interpod_terms": Recorder(ipt.interpod_terms_plain)}
     cap_rec = Recorder(cap.capacity_plain, keep=None)  # every pass and fold
+    rec_dyn = dyn_recorders(dr)  # every K14 / K15 call
     cycle_vp = build_cycle_fn(
         commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=ipt.interpod_norm_plain,
         affinity_update_fn=au.affinity_update_plain, capacity_fn=cap_rec,
         guard_sweep_fn=gs.guard_sweep_plain, volume_mask_fn=rec["volume_mask"],
-        pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"])
+        pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"],
+        dyn_mask_fn=rec_dyn[0], dyn_score_fn=rec_dyn[1])
     fold_k = Recorder(k12.pv_fold, keep=())  # the last fold: the final claims
     cycle_k = build_cycle_fn(commit_mode="rounds", device=dev, pv_fold_fn=fold_k)
     t0 = time.time()
@@ -1264,6 +1423,11 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"{int(dk.placed_round.max()) + 1}; kernels == plain: {json.dumps(same)}")
     check(all(same.values()), "volume kernel cycle differs from the plain-versions cycle")
     del dp
+    n_dyn = dyn_calls_equal(torch, dr, rec_dyn, "volume cycle")
+    log(f"phase volumes kernels dyn_mask + dyn_score: equal to their plain versions bit for "
+        f"bit on every call of the cycle ({n_dyn[0]} mask calls, {n_dyn[1]} score calls, "
+        f"{n_dyn[2]} of them score anchors)")
+    del rec_dyn
     n_pass, n_fold = capacity_calls_equal(torch, cap, cap_rec.args, "volume cycle")
     log(f"phase volumes kernel capacity: equal bit for bit on all {n_pass} passes and "
         f"{n_fold} revocation folds of the cycle")
@@ -1410,6 +1574,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
           "volume_mask: not once per cycle plus once per round")
     check(launches["pv_choice"] == rounds and launches["pv_fold"] == rounds,
           "pv_choice / pv_fold: not once per round")
+    check(launches["dyn_mask"] == rounds and launches["dyn_score"] > rounds,
+          "dyn_mask / dyn_score: not once per round (and per score anchor)")
     ms, decisions = [], {}
     for s, d, dev_ms, host_ms in results:
         snap = snaps[s]
@@ -1495,7 +1661,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
             prev_mean_device_ms=k12_prev_mean, prev_contended_device_ms=k12_prev_cont,
             cluster=k12_shape["cluster"]),
     }
-    return {"kernels": entries, "ms": ms, "pre_ms": pre_ms}
+    return {"kernels": entries, "ms": ms, "pre_ms": pre_ms,
+            "dyn_launches": {k: launches[k] for k in ("dyn_mask", "dyn_score")}}
 
 
 def check_scan_affinity(torch, snap, d, ctx):
@@ -1803,6 +1970,7 @@ def main(argv=None) -> int:
     from k8s_scheduler_tpu_torch.ops import affinity_update as au
     from k8s_scheduler_tpu_torch.ops import capacity as cap
     from k8s_scheduler_tpu_torch.ops import claim_pass as cp
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
     from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
     from k8s_scheduler_tpu_torch.ops import interpod as ip
     from k8s_scheduler_tpu_torch.ops import interpod_terms as ipt
@@ -1889,6 +2057,10 @@ def main(argv=None) -> int:
     shapes = fold_edge_checks(torch, dev)
     log(f"phase kernel pv_fold, seeded edge cases: equal to pv_fold_plain on "
         f"{len(shapes)} cases, on 16 and 8 CTAs (clusters launched): {json.dumps(shapes)}")
+    shapes = dyn_edge_checks(torch, dev)
+    log(f"phase kernel dyn_mask + dyn_score, seeded edge cases: equal to dyn_mask_plain and "
+        f"dyn_score_plain bit for bit (and the score anchor) on {len(shapes)} cases; [B, N] "
+        f"{json.dumps(shapes)}")
 
     fw = Framework.from_config()
     cycle_k = build_cycle_fn(commit_mode="rounds", device=dev)
@@ -1908,9 +2080,11 @@ def main(argv=None) -> int:
         + json.dumps(encode_ms))
 
     rec_cp = Recorder(cp.claim_pass_plain, keep=(0, 3))  # round 0, passes 0, 3
+    rec_dyn = dyn_recorders(dr)  # every K14 / K15 call
     cycle_p = build_cycle_fn(commit_mode="rounds", device=dev,
                              static_base_fn=sb.static_base_plain,
-                             claim_pass_fn=rec_cp)
+                             claim_pass_fn=rec_cp, dyn_mask_fn=rec_dyn[0],
+                             dyn_score_fn=rec_dyn[1])
     t0 = time.time()
     dk = cycle_k(snap0)
     torch.cuda.synchronize()
@@ -1924,6 +2098,11 @@ def main(argv=None) -> int:
         f"cycle {plain_cycle_ms:.1f} ms, placed {int((dk.assignment >= 0).sum())}"
         f"; kernels == plain: {json.dumps(same)}")
     check(all(same.values()), "slice-1 kernel cycle differs from the plain-versions cycle")
+    n_dyn = dyn_calls_equal(torch, dr, rec_dyn, "slice-1 cycle")
+    log(f"phase slice1 kernels dyn_mask + dyn_score: equal to their plain versions bit for "
+        f"bit on every call of the cycle ({n_dyn[0]} mask calls, {n_dyn[1]} score calls, "
+        f"{n_dyn[2]} of them score anchors)")
+    del rec_dyn
 
     ctx = CycleContext(snap0)
     x = sb.static_base_inputs(fw, ctx, fit=True, sampling=sampling_window(snap0, 0))
@@ -1973,7 +2152,7 @@ def main(argv=None) -> int:
     # the slice-1 main path: counts set to 0 just before, read just after
     results, launches1 = timed_cycles(torch, kb, cycle_k, snaps, TIMED_SEEDS)
     log(f"phase slice1 launches over {len(TIMED_SEEDS)} cycles: {json.dumps(launches1)}")
-    for k in ("static_base", "claim_pass", "capacity"):
+    for k in ("static_base", "claim_pass", "capacity", "dyn_mask", "dyn_score"):
         check(launches1[k] > 0, f"kernel {k} was not launched on the slice-1 path")
     timed1 = []
     for s, d, dev_ms, host_ms in results:
@@ -2019,12 +2198,13 @@ def main(argv=None) -> int:
         "capacity": Recorder(cap.capacity_plain, keep=None),  # every pass and fold
         "guard_sweep": Recorder(gs.guard_sweep_plain, keep=None),  # every round
     }
+    rec_dyn = dyn_recorders(dr)  # every K14 / K15 call
     cycle_ap = build_cycle_fn(
         commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=rec["interpod_norm"],
         affinity_update_fn=rec["affinity_update"], capacity_fn=rec["capacity"],
-        guard_sweep_fn=rec["guard_sweep"])
+        guard_sweep_fn=rec["guard_sweep"], dyn_mask_fn=rec_dyn[0], dyn_score_fn=rec_dyn[1])
     t0 = time.time()
     dk = cycle_k(snap0)
     torch.cuda.synchronize()
@@ -2040,6 +2220,41 @@ def main(argv=None) -> int:
     check(all(same.values()), "affinity kernel cycle differs from the plain-versions cycle")
     decisions = {AFF_WARM_SEED: dk}
     del dp
+
+    # ---- K14 / K15: every call of the cycle, timed on round 0's ----
+    gen_ports = torch.Generator(device=dev).manual_seed(11)
+    n_dyn = dyn_calls_equal(torch, dr, rec_dyn, "affinity cycle")
+    m_args = rec_dyn[0].args[0]
+    s_calls = rec_dyn[1].args
+    s_args = next(a for _, a in sorted(s_calls.items()) if a[0] is not None)
+    anchors = [a for _, a in sorted(s_calls.items()) if a[0] is None]
+    k14_ms = time_ms(torch, lambda: dr.dyn_mask_cuda(*m_args), 20)
+    k14_dev = device_ms(lambda: dr.dyn_mask_cuda(*m_args), 10)
+    k14_plain = time_ms(torch, lambda: dr.dyn_mask_plain(*m_args), 3)
+    k15_ms = time_ms(torch, lambda: dr.dyn_score_cuda(*s_args), 20)
+    k15_dev = device_ms(lambda: dr.dyn_score_cuda(*s_args), 10)
+    k15_plain = time_ms(torch, lambda: dr.dyn_score_plain(*s_args), 3)
+    k15a_dev = device_ms(lambda: dr.dyn_score_cuda(*anchors[0]), 50)
+    k15a_plain = time_ms(torch, lambda: dr.dyn_score_plain(*anchors[0]), 20)
+    k14_bytes, k14_ops, k15_bytes, k15_ops = dyn_bytes(torch, dr, m_args, s_args)
+    peak_k = dyn_peak_mib(torch, dr.dyn_mask_cuda, dr.dyn_score_cuda, m_args, s_args)
+    peak_p = dyn_peak_mib(torch, dr.dyn_mask_plain, dr.dyn_score_plain, m_args, s_args)
+    B14, N14 = m_args[0].shape
+    log(f"phase kernel dyn_mask + dyn_score: equal to their plain versions bit for bit on "
+        f"every call of the cycle ({n_dyn[0]} mask calls, {n_dyn[1]} score calls, {n_dyn[2]} "
+        f"of them score anchors); round 0 [{B14}, {N14}], {len(m_args[1])} mask parts, "
+        f"{len(s_args[1])} score terms: dyn_mask {k14_ms:.3f} ms ({k14_dev:.4f} ms device), "
+        f"plain {k14_plain:.3f} ms, bound {bound(k14_bytes, k14_ops)[0]:.4f} ms (bytes "
+        f"{k14_bytes}); dyn_score {k15_ms:.3f} ms ({k15_dev:.4f} ms device), plain "
+        f"{k15_plain:.3f} ms, bound {bound(k15_bytes, k15_ops)[0]:.4f} ms (bytes {k15_bytes}); "
+        f"score anchor [1, {N14}] {k15a_dev:.4f} ms device, plain {k15a_plain:.3f} ms; "
+        f"round-0 peak memory of the two stages: kernels {peak_k:.1f} MiB, plain versions "
+        f"{peak_p:.1f} MiB")
+    del rec_dyn, m_args, s_args, s_calls, anchors
+    log(f"phase affinity round 0 without a host sync (set_sync_debug_mode('error'): "
+        f"NodePorts' fold, one dyn_batched, then rounds_commit(max_rounds=1)), on a variant "
+        f"whose pods name host ports: "
+        f"{round_without_sync(torch, fw, ports_variant(torch, snap0, gen_ports))}")
     # resource scores averaged over three resources (a weight sum whose
     # reciprocal is inexact): the kernels' cycle against the plain versions'
     fw3 = Framework.from_config(resource_profile(RESOURCES_3))
@@ -2282,7 +2497,7 @@ def main(argv=None) -> int:
     results, launches = timed_cycles(torch, kb, cycle_k, snaps, AFF_TIMED_SEEDS)
     log(f"phase affinity launches over {len(AFF_TIMED_SEEDS)} cycles: {json.dumps(launches)}")
     for k in ("static_base", "claim_pass", "interpod_terms", "interpod_norm",
-              "affinity_update", "capacity", "guard_sweep"):
+              "affinity_update", "capacity", "guard_sweep", "dyn_mask", "dyn_score"):
         check(launches[k] > 0, f"kernel {k} was not launched on the affinity path")
     timed = []
     for s, d, dev_ms, host_ms in results:
@@ -2333,6 +2548,19 @@ def main(argv=None) -> int:
         "k8s_scheduler_tpu/ops/rounds.py:592", launches["capacity"], 0.0,
         k5_wall_ms, k5_ms, k5_plain_ms, k5_bytes, k5_ops, fold_device_ms=k5_fold_ms,
         mean_device_ms=k5_mean_ms)
+    by_path = {k: {"slice1": launches1[k], "affinity": launches[k],
+                   "volumes": vol_stats["dyn_launches"][k]} for k in ("dyn_mask", "dyn_score")}
+    kernels["dyn_mask"] = kernel_entry(
+        "dyn_mask", "cuda", "k8s_scheduler_tpu_torch/csrc/dyn_round.cu",
+        "k8s_scheduler_tpu/framework/runtime.py:202", launches["dyn_mask"], 0.0,
+        k14_ms, k14_dev, k14_plain, k14_bytes, k14_ops, launches_by_path=by_path["dyn_mask"],
+        round0_peak_mib=peak_k, plain_round0_peak_mib=peak_p)
+    kernels["dyn_score"] = kernel_entry(
+        "dyn_score", "cuda", "k8s_scheduler_tpu_torch/csrc/dyn_round.cu",
+        "k8s_scheduler_tpu/framework/runtime.py:202", launches["dyn_score"], 0.0,
+        k15_ms, k15_dev, k15_plain, k15_bytes, k15_ops, launches_by_path=by_path["dyn_score"],
+        anchor_device_ms=k15a_dev, anchor_plain_ms=k15a_plain,
+        anchor_replaces="k8s_scheduler_tpu/framework/runtime.py:242")
     kernels["guard_sweep"] = kernel_entry(
         "guard_sweep", "cuda", "k8s_scheduler_tpu_torch/csrc/guard_sweep.cu",
         "k8s_scheduler_tpu/ops/rounds.py:342", launches["guard_sweep"], 0.0,

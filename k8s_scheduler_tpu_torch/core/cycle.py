@@ -6,8 +6,9 @@ Per cycle, for the whole pending set:
     CycleContext precomputes -> VolumeBinding's static mask (K10
     `volume_mask`) -> static base (K1 `static_base`: static filters, static
     scores, node sampling) -> rounds engine: per round the inter-pod
-    affinity / spread terms (K3 `interpod_terms`, `interpod_norm`) and the
-    volumes' unbound residue (K10), per pass the claim (K2 `claim_pass`)
+    affinity / spread terms (K3 `interpod_terms`, `interpod_norm`), the
+    volumes' unbound residue (K10) and the dynamic masks and claim base
+    (K14 `dyn_mask`, K15 `dyn_score`), per pass the claim (K2 `claim_pass`)
     and capacity resolution (K5 `capacity`), at round end the PV guard key
     (K11 `pv_choice`), the guard sweep (K6 `guard_sweep`), the affinity-
     state fold (K4 `affinity_update`) and the PV claim fold (K12
@@ -38,13 +39,14 @@ from typing import Callable
 
 import torch
 
-from ..framework.interfaces import (AffinityKernels, CycleContext, PreemptionKernels,
-                                    VolumeKernels)
+from ..framework.interfaces import (AffinityKernels, CycleContext, DynKernels,
+                                    PreemptionKernels, VolumeKernels)
 from ..framework.runtime import Framework
 from ..ops import affinity_update as affinity_update_ops
 from ..ops import capacity as capacity_ops
 from ..ops import claim_pass as claim_pass_ops
 from ..ops import commit as commit_ops
+from ..ops import dyn_round as dyn_round_ops
 from ..ops import guard_sweep as guard_sweep_ops
 from ..ops import interpod_terms as interpod_terms_ops
 from ..ops import preempt_claim as preempt_claim_ops
@@ -146,6 +148,8 @@ def build_cycle_fn(
     pv_choice_fn: Callable = pv_choice_ops.pv_choice,
     pv_fold_fn: Callable = pv_fold_ops.pv_fold,
     scan_commit_fn: Callable = scan_commit_ops.scan_commit,
+    dyn_mask_fn: Callable = dyn_round_ops.dyn_mask,
+    dyn_score_fn: Callable = dyn_round_ops.dyn_score,
 ) -> Callable:
     """The cycle for a framework (default: the default plugin set) on one
     device: `cycle(snapshot) -> CycleDecision`.
@@ -154,14 +158,17 @@ def build_cycle_fn(
     kernel functions (`static_base_fn`, `claim_pass_fn`, `interpod_terms_fn`,
     `interpod_norm_fn`, `affinity_update_fn`, `capacity_fn`,
     `guard_sweep_fn`, `volume_mask_fn`, `pv_choice_fn`, `pv_fold_fn`,
-    `scan_commit_fn`) run the hand-written kernels on CUDA and their plain
+    `scan_commit_fn`, `dyn_mask_fn`, `dyn_score_fn`) run the hand-written
+    kernels on CUDA and their plain
     torch versions on CPU; passing the plain versions (`*_plain`) runs them
     on the card too — the run the kernels are held against.
 
     `commit_mode` "scan" (the default, as in the reference) runs the strict
     sequential engine: K1, then K13 `scan_commit` once. "rounds" runs the
     rounds engine, the one serving runs (`config/types.py` commitMode): K1,
-    then per round K3/K10, K2 and K5 per pass, K11/K6/K4/K12 at round end.
+    then per round K3/K10 and K14/K15 (the dynamic masks and the claim
+    base), K2 and K5 per pass (K15 also for the score anchor),
+    K11/K6/K4/K12 at round end.
     `outputs` stays "latency" here where the reference defaults to "full"
     (ROADMAP A9). Placements follow the reference's engine of the same name:
     bit-equal assignment / node_requested / unschedulable / gang_dropped
@@ -182,13 +189,15 @@ def build_cycle_fn(
     kernels = AffinityKernels(interpod_terms_fn, interpod_norm_fn,
                               affinity_update_fn)
     vkernels = VolumeKernels(volume_mask_fn, pv_choice_fn, pv_fold_fn)
+    dkernels = DynKernels(dyn_mask_fn, dyn_score_fn)
 
     def cycle(snap) -> CycleDecision:
         if snap.device.type != dev.type:
             raise ValueError(
                 f"snapshot on {snap.device}, cycle built for {dev}"
             )
-        ctx = CycleContext(snap, kernels, volume_kernels=vkernels)
+        ctx = CycleContext(snap, kernels, volume_kernels=vkernels,
+                           dyn_kernels=dkernels)
         if commit_mode == "scan":
             return scan_cycle(snap, ctx)
         sbase = static_base_fn(static_base_ops.static_base_inputs(
@@ -197,8 +206,8 @@ def build_cycle_fn(
         ))
         extra = fw.extra_init(ctx)
 
-        def dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsmask):
-            return fw.dyn_batched(ctx.view(vsnap, vmp), node_req, ext, vsmask)
+        def dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsbase, act_v):
+            return fw.dyn_batched(ctx.view(vsnap, vmp), node_req, ext, vsbase, act_v)
 
         def update_batched_view_fn(vsnap, vmp, ext, accepted, node_of):
             return fw.extra_update_batched(

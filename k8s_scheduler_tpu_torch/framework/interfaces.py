@@ -20,7 +20,7 @@ from typing import Any, Callable
 import torch
 
 from ..ops import affinity_update as update_ops
-from ..ops import interpod, labels
+from ..ops import dyn_round, interpod, labels
 from ..ops import interpod_terms as terms_ops
 from ..ops import preempt_claim, preempt_prefilter, preempt_whatif
 from ..ops import pv_choice, pv_fold, volume_mask, volumes
@@ -69,17 +69,33 @@ class VolumeKernels:
                              volumes.pv_fold_plain)
 
 
+@dataclasses.dataclass(frozen=True)
+class DynKernels:
+    """The rounds engine's two dynamic stages (`Framework.dyn_batched`,
+    `score_anchor`): by default the dispatching wrappers of K14 `dyn_mask`
+    and K15 `dyn_score`; `plain()` forces the plain versions."""
+
+    dyn_mask: Callable = dyn_round.dyn_mask
+    dyn_score: Callable = dyn_round.dyn_score
+
+    @staticmethod
+    def plain() -> "DynKernels":
+        return DynKernels(dyn_round.dyn_mask_plain, dyn_round.dyn_score_plain)
+
+
 class CycleContext:
     """Shared per-cycle precomputes (the PreFilter-state analogue), computed
     lazily and cached for the cycle."""
 
     def __init__(self, snap, kernels: AffinityKernels | None = None,
                  preemption_kernels: PreemptionKernels | None = None,
-                 volume_kernels: VolumeKernels | None = None):
+                 volume_kernels: VolumeKernels | None = None,
+                 dyn_kernels: DynKernels | None = None):
         self.snap = snap
         self.kernels = kernels or AffinityKernels()
         self.preemption_kernels = preemption_kernels or PreemptionKernels()
         self.volume_kernels = volume_kernels or VolumeKernels()
+        self.dyn_kernels = dyn_kernels or DynKernels()
         self._cache: dict[str, Any] = {}
 
     def get(self, key: str, compute) -> Any:
@@ -124,7 +140,7 @@ class CycleContext:
         node-side precomputes and swaps in the view's matched-pending
         columns."""
         vctx = CycleContext(vsnap, self.kernels, self.preemption_kernels,
-                            self.volume_kernels)
+                            self.volume_kernels, self.dyn_kernels)
         vctx._cache.update(self._cache)
         vctx._cache["matched_pending"] = vmp
         return vctx
@@ -171,13 +187,18 @@ class PluginBase:
 
     # --- batched dynamic path (ops/rounds.py) ---
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
-                         shared: dict) -> torch.Tensor | None:
-        """`shared` is a per-round scratch dict for precomputes that
-        co-enabled plugins reuse."""
+                         shared: dict) -> Any | None:
+        """bool [P, N] of the view's pods, or operands that K14 evaluates
+        itself (`dyn_round.FitMask`, `dyn_round.PortMask`). `shared` is a
+        per-round scratch dict for precomputes that co-enabled plugins
+        reuse."""
         return None
 
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
-                          feasible, shared: dict) -> torch.Tensor | None:
+                          feasible, shared: dict) -> Any | None:
+        """f32 [P, N], or operands that K15 evaluates itself
+        (`dyn_round.FitScore`, `dyn_round.BalancedScore`); `feasible` is
+        the static row AND every dynamic mask."""
         return None
 
     def extra_update_batched(self, ctx: CycleContext, extra, accepted,
@@ -187,10 +208,10 @@ class PluginBase:
         return extra
 
     def score_node_anchor(self, ctx: CycleContext,
-                          node_requested) -> torch.Tensor | None:
+                          node_requested) -> Any | None:
         """Node-local component of this plugin's dynamic score at the given
-        node_requested (f32 [N]), used only to re-rank claims between
-        acceptance passes."""
+        node_requested (f32 [N], or a one-row score operand of K15), used
+        only to re-rank claims between acceptance passes."""
         return None
 
     # --- PostFilter ---

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import dyn_round
 from ..ops import images as images_ops
 from ..ops import interpod as interpod_ops
 from ..ops import labels as labels_ops
@@ -31,6 +32,13 @@ def _score_resource_weights(snap, args: dict) -> tuple[float, ...]:
         if r in snap.resource_names:
             w[snap.resource_names.index(r)] = 1.0
     return tuple(w)
+
+
+def _zero_pod(snap) -> torch.Tensor:
+    """The score anchor's pod row: no request (f32 [1, R]; one per cycle
+    context, so that the resource scores' anchors share it)."""
+    return torch.zeros((1, snap.node_allocatable.shape[1]), dtype=torch.float32,
+                       device=snap.device)
 
 
 class NodeUnschedulable(PluginBase):
@@ -90,34 +98,22 @@ class NodePorts(PluginBase):
         out.index_copy_(0, row, out.index_select(0, row) | hit[None, :])
         return out
 
-    @staticmethod
-    def _port_onehot(snap) -> torch.Tensor:  # bool [P, Q]
-        Q = snap.num_distinct_ports
-        ids = snap.pod_port_ids  # [P, MPorts]
-        oh = torch.zeros((snap.P, Q), dtype=torch.bool, device=snap.device)
-        rows, slots = torch.nonzero(ids >= 0, as_tuple=True)
-        oh[rows, ids[rows, slots].long()] = True
-        return oh
-
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
-        snap = ctx.snap
-        claimed = extra[self.name]  # [N, Q]
-        if "port_onehot" not in shared:
-            shared["port_onehot"] = self._port_onehot(snap)
-        oh = shared["port_onehot"]
-        # 0/1 products with small sums: exact in f32
-        conflict = (oh.to(torch.float32) @ claimed.T.to(torch.float32)) > 0.0
-        return ~conflict
+        return dyn_round.PortMask(ctx.snap.pod_port_ids, extra[self.name])
 
     def extra_update_batched(self, ctx: CycleContext, extra, accepted,
                              node_of):
+        # the reference's `.at[].max` scatter as a scatter of True into a
+        # flat [N * Q + 1] buffer whose last slot takes the pad entries:
+        # no size is read from the device
         ids = ctx.snap.pod_port_ids  # [P, MPorts]
+        N, Q = extra.shape
         add = accepted[:, None] & (ids >= 0)
-        rows, slots = torch.nonzero(add, as_tuple=True)
-        out = extra.clone()
-        out[node_of[rows].long(), ids[rows, slots].long()] = True
-        return out
+        cell = node_of.clamp(0, N - 1).long()[:, None] * Q + ids.clamp(0, max(Q - 1, 0))
+        flat = torch.cat([extra.reshape(-1), extra.new_zeros(1)])
+        flat.index_fill_(0, torch.where(add, cell, N * Q).reshape(-1).long(), True)
+        return flat[:N * Q].reshape(N, Q)
 
 
 class NodeResourcesFit(PluginBase):
@@ -145,22 +141,24 @@ class NodeResourcesFit(PluginBase):
         snap = ctx.snap
         return self._score(snap, take_row(snap.pod_requested, p), node_requested)
 
+    def _batched_score(self, snap, pod_requested, node_requested):
+        return dyn_round.FitScore(
+            pod_requested, snap.node_allocatable, node_requested,
+            _score_resource_weights(snap, self.args),
+            self.args.get("scoring_strategy", "LeastAllocated") == "MostAllocated")
+
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
         snap = ctx.snap
-        return res_ops.fit_mask(
-            snap.pod_requested, snap.node_allocatable, node_requested
-        )
+        return dyn_round.FitMask(snap.pod_requested, snap.node_allocatable,
+                                 node_requested)
 
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
                           feasible, shared):
-        snap = ctx.snap
-        return self._score(snap, snap.pod_requested[:, None, :], node_requested)
+        return self._batched_score(ctx.snap, ctx.snap.pod_requested, node_requested)
 
     def score_node_anchor(self, ctx: CycleContext, node_requested):
-        snap = ctx.snap
-        zero_pod = torch.zeros((1, 1), dtype=torch.float32, device=snap.device)
-        return self._score(snap, zero_pod, node_requested)
+        return self._batched_score(ctx.snap, ctx.get("zero_pod", _zero_pod), node_requested)
 
 
 class NodeResourcesBalancedAllocation(PluginBase):
@@ -178,18 +176,15 @@ class NodeResourcesBalancedAllocation(PluginBase):
     def dyn_score_batched(self, ctx: CycleContext, node_requested, extra,
                           feasible, shared):
         snap = ctx.snap
-        return Product(res_ops.balanced_allocation_factor(
-            snap.pod_requested[:, None, :], snap.node_allocatable,
-            node_requested, _score_resource_weights(snap, self.args),
-        ), res_ops.MAX_NODE_SCORE)
+        return dyn_round.BalancedScore(snap.pod_requested, snap.node_allocatable,
+                                       node_requested,
+                                       _score_resource_weights(snap, self.args))
 
     def score_node_anchor(self, ctx: CycleContext, node_requested):
         snap = ctx.snap
-        return Product(res_ops.balanced_allocation_factor(
-            torch.zeros((1, 1), dtype=torch.float32, device=snap.device),
-            snap.node_allocatable, node_requested,
-            _score_resource_weights(snap, self.args),
-        ), res_ops.MAX_NODE_SCORE)
+        return dyn_round.BalancedScore(ctx.get("zero_pod", _zero_pod), snap.node_allocatable,
+                                       node_requested,
+                                       _score_resource_weights(snap, self.args))
 
 
 class NodeAffinity(PluginBase):

@@ -7,18 +7,21 @@ Weighted sums reproduce the reference's compiled arithmetic: XLA contracts
 with `resources._fma` (a weight of 1 makes it a plain add either way). A
 dynamic score that ends in a multiply by a constant (BalancedAllocation's
 `* 100`, the resource scores' `* 1 / weight sum`) comes as its factors, a
-`commit.Product`, and `_sum_terms` fuses that multiply where the compiled
-program does, in the batched and the per-pod sums alike."""
+`commit.Product`, and `dyn_round.sum_terms` fuses that multiply where the
+compiled program does. The batched path (the rounds engine's) runs in two
+stages, K14 `dyn_mask` and K15 `dyn_score` (`ops/dyn_round.py`, the
+context's `dyn_kernels`), whose round program also fuses
+BalancedAllocation's multiply in preference to a held one
+(`dyn_round.dyn_score_plain`)."""
 
 from __future__ import annotations
 
 from typing import Any
 
-import numpy as np
 import torch
 
 from ..config import SchedulerConfiguration, default_plugins
-from ..ops.commit import Product
+from ..ops.dyn_round import sum_terms
 from ..ops.resources import _fma
 from .interfaces import CycleContext, PluginBase
 from .registry import Registry, default_registry
@@ -31,42 +34,6 @@ def _accumulate(total, weight: float, value: torch.Tensor) -> torch.Tensor:
     if weight == 1.0:  # the fused form of a unit weight is a plain add
         return total + value
     return _fma(value, weight, total)
-
-
-def _sum_terms(terms):
-    """Weighted sum of score terms, each (value, weight) with value a
-    tensor, a `commit.Product` or None, in the reference's compiled
-    arithmetic: each add fuses a multiply feeding it — the running sum's
-    while that is still a bare product (a first term given as factors,
-    with the weight folded into its constant), else the new term's (a
-    weight other than 1, or factors). Returns None (no term), a tensor, or
-    a `commit.Product` when the whole sum is one bare product."""
-    acc, held = None, None  # the running sum; a bare product (x, c)
-    for v, w in terms:
-        if v is None:
-            continue
-        if isinstance(v, Product):
-            x, c = v.x, float(np.float32(v.c) * np.float32(w))
-        else:
-            x, c = (v, None) if w == 1.0 else (v, float(w))
-        if acc is None and held is None:
-            if c is None:
-                acc = x
-            else:
-                held = (x, c)
-        elif held is not None:
-            acc = _fma(held[0], held[1], x if c is None else x * c)
-            held = None
-        elif c is None:
-            acc = acc + x
-        else:
-            acc = _fma(x, c, acc)
-    return Product(*held) if held is not None else acc
-
-
-def _rounded(v):
-    """A sum of `_sum_terms` as a tensor (a bare product rounded once)."""
-    return v.x * v.c if isinstance(v, Product) else v
 
 
 class Framework:
@@ -153,8 +120,8 @@ class Framework:
             m = f.dyn_mask(ctx, p, node_requested, extra)
             if m is not None:
                 mask = mask & m
-        dyn = _sum_terms((s.dyn_score(ctx, p, node_requested, extra, mask), w)
-                         for s, w in self.scores)
+        dyn = sum_terms((s.dyn_score(ctx, p, node_requested, extra, mask), w)
+                        for s, w in self.scores)
         if dyn is None:
             dyn = torch.zeros((ctx.snap.N,), dtype=torch.float32,
                               device=static_row.device)
@@ -169,33 +136,34 @@ class Framework:
                                                committed)
         return out
 
-    def dyn_batched(self, ctx: CycleContext, node_requested, extra,
-                    static_mask):
-        """Returns (mask [P, N], score [P, N]) against the running state,
-        the score summed by `_sum_terms`: a tensor, or a `commit.Product`
-        when the sum is one bare product, which the rounds engine's base
-        add fuses (`commit.add_static`), as the reference's round program
-        does."""
-        snap = ctx.snap
+    def dyn_batched(self, ctx: CycleContext, node_requested, extra, vsbase,
+                    act_v=None):
+        """(mask, base), bool and f32 [B, N], of every pod row of the view
+        against the running state, as the reference's round program forms
+        them (`ops/rounds.py:577-581`), in two stages (the context's
+        `dyn_kernels`, K14 and K15 on the card): feasible = the static row
+        (vsbase > NEG_INF / 2) AND every filter's dynamic mask, mask =
+        feasible & act_v (None: every row); base = vsbase + the dynamic
+        scores, fed `feasible`, weighted and summed in score order
+        (`dyn_round.sum_terms`; a lone bare product fuses into the add)."""
         shared: dict = {}
-        mask = static_mask
-        for f in self.filters:
-            m = f.dyn_mask_batched(ctx, node_requested, extra, shared)
-            if m is not None:
-                mask = mask & m
-        score = _sum_terms(
-            (s.dyn_score_batched(ctx, node_requested, extra, mask, shared), w)
-            for s, w in self.scores)
-        if score is None:
-            score = torch.zeros((snap.P, snap.N), dtype=torch.float32,
-                                device=snap.device)
-        return mask, score
+        parts = tuple(m for f in self.filters
+                      if (m := f.dyn_mask_batched(ctx, node_requested, extra, shared))
+                      is not None)
+        mask, feasible = ctx.dyn_kernels.dyn_mask(vsbase, parts, act_v)
+        terms = tuple((v, w) for s, w in self.scores
+                      if (v := s.dyn_score_batched(ctx, node_requested, extra, feasible,
+                                                   shared)) is not None)
+        return mask, ctx.dyn_kernels.dyn_score(vsbase, terms)
 
     def score_anchor(self, ctx: CycleContext, node_requested):
         """Weighted sum of the score plugins' node-local capacity components
-        (f32 [N]), or None when no plugin has one."""
-        return _rounded(_sum_terms((s.score_node_anchor(ctx, node_requested), w)
-                                   for s, w in self.scores))
+        (f32 [N]; K15 on one zero-request pod row), or None when no plugin
+        has one."""
+        terms = tuple((v.reshape(1, -1) if isinstance(v, torch.Tensor) else v, w)
+                      for s, w in self.scores
+                      if (v := s.score_node_anchor(ctx, node_requested)) is not None)
+        return ctx.dyn_kernels.dyn_score(None, terms)[0] if terms else None
 
     def extra_update_batched(self, ctx: CycleContext, extra, accepted,
                              node_of):

@@ -1,16 +1,16 @@
 """Where the port's kernels spend their time on the card: device times of
 the small kernels on the main path, and timed variants of K13
 `scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K6 `guard_sweep`,
-K12 `pv_fold`, K5 `capacity` and K1 `static_base`, built from edited
+K12 `pv_fold`, K15 `dyn_score`, K5 `capacity` and K1 `static_base`, built from edited
 copies of their sources, on full-size inputs recorded from the main path.
 
     python3 -m k8s_scheduler_tpu_torch.kernel_variants [--csrc DIR] [--out PATH]
         [--kernels scan_commit,small,preempt_claim,affinity_update,guard_sweep,pv_fold,
-                   capacity,static_base]
+                   dyn_score,capacity,static_base]
 
 `--csrc` names the directory whose `scan_commit.cu`, `preempt_claim.cu`,
-`affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `capacity.cu` and
-`static_base.cu` are varied (default: the package's own `csrc/`; an
+`affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `dyn_round.cu`,
+`capacity.cu` and `static_base.cu` are varied (default: the package's own `csrc/`; an
 earlier checkout's `csrc/` times that design on the same inputs, K13, K4,
 K6 and K12 through their earlier C interfaces where they differ,
 `prev_scan_commit`, `prev_affinity_update`, `prev_guard_sweep` and
@@ -32,8 +32,16 @@ Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
          per phase;
          kernel time by torch.profiler (the wrapper reads device values,
          so no CUDA graph), ms and us a step;
-  small  every call of K4, K5, K6 `guard_sweep` (one rounds cycle of
-         config #4's workload, seed 202), K7-K9 (the preemption pass after it),
+  K15    the recorded calls of the rounds cycle (round 0, the later
+         rounds' mean, the score anchors' mean): the kernel, the first
+         design's unroll of the resource loops to 8, 128 pod groups a
+         column of blocks, at most 40 registers, and without the division,
+         the sqrt or the used fractions at all (the loads, the term fold and
+         the stores);
+  small  every call of K4, K5, K6 `guard_sweep`, K14 `dyn_mask` and K15
+         `dyn_score` (one rounds cycle of config #4's workload, seed 202;
+         K15's first call is round 0's, most of its calls are score
+         anchors of one node row), K7-K9 (the preemption pass after it),
          K11 `pv_choice` and K12 `pv_fold` (one rounds cycle of the same
          workload with local and zonal volumes, seed 201; K9 also in the
          pass after it): the first call by CUDA events around eager calls
@@ -266,6 +274,25 @@ SCAN_VARIANTS = {
 }
 
 
+DYN_SCORE_VARIANTS = {
+    "today": [],
+    "resources unrolled to 8 (the first design)": [("  const bool r4 = R <= 4;",
+                                                    "  const bool r4 = false;")],
+    "128 pod groups a column of blocks": [("constexpr int kScoreGridY = 512;",
+                                           "constexpr int kScoreGridY = 128;")],
+    "at most 40 registers": [
+        ("__global__ void __launch_bounds__(kThreads) dyn_score_kernel(",
+         "__global__ void __launch_bounds__(kThreads, 6) dyn_score_kernel(")],
+    "no division": [("after / fmaxf(al, 1e-9f)", "after * al")],
+    "no sqrt": [("return 1.0f - sqrtf(var * a.rn);", "return 1.0f - var * a.rn;")],
+    "no fractions (loads, fold and stores)": [("        if (!res) continue;\n",
+                                               "        continue;\n")],
+}
+# the variants that compute the kernel's function: held against it
+DYN_SCORE_EXACT = ("today", "resources unrolled to 8 (the first design)",
+                   "128 pod groups a column of blocks", "at most 40 registers")
+
+
 def _scan_phase_marks() -> list:
     """Edits that time each phase of a K13 step with clock64() in every
     thread and print, for each CTA, the largest cycle sum of each phase
@@ -425,6 +452,8 @@ SMALL_KERNELS = {
     "preempt_claim": ("preempt_claim", "preempt_claim_cuda"),
     "pv_choice": ("pv_choice", "pv_choice_cuda"),
     "pv_fold": ("pv_fold", "pv_fold_cuda"),
+    "dyn_mask": ("dyn_round", "dyn_mask_cuda"),
+    "dyn_score": ("dyn_round", "dyn_score_cuda"),
 }
 
 
@@ -438,7 +467,8 @@ def cuda_fn(name: str):
 
 def record_small_calls(dev) -> dict:
     """{kernel: [args of each call]} of the small kernels on the main path:
-    K4 `affinity_update`, K5 `capacity` and K6 `guard_sweep` over one
+    K4 `affinity_update`, K5 `capacity`, K6 `guard_sweep`, K14 `dyn_mask`
+    and K15 `dyn_score` (the round's and the score anchor's calls) over one
     rounds cycle of config #4's workload (seed 202), K7-K9 in the preemption pass after
     it, K11 `pv_choice` and K12 `pv_fold` over one rounds cycle of the
     same workload with local and zonal volumes (seed 201), and K9 in the
@@ -464,7 +494,8 @@ def record_small_calls(dev) -> dict:
     d = build_cycle_fn(commit_mode="rounds", device=dev,
                        affinity_update_fn=rec("affinity_update"),
                        capacity_fn=rec("capacity"),
-                       guard_sweep_fn=rec("guard_sweep"))(snap)
+                       guard_sweep_fn=rec("guard_sweep"), dyn_mask_fn=rec("dyn_mask"),
+                       dyn_score_fn=rec("dyn_score"))(snap)
     build_preemption_fn(device=dev, prefilter_fn=rec("preempt_prefilter"),
                         whatif_fn=rec("preempt_whatif"),
                         claim_fn=rec("preempt_claim"))(snap, d)
@@ -1056,6 +1087,53 @@ def time_capacity_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
     return table
 
 
+def time_dyn_score_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K15's variants (DYN_SCORE_VARIANTS) in device time on the recorded
+    calls of one rounds cycle: round 0's, the mean over the later rounds'
+    and over the score anchors'. The exact variants are held against the
+    kernel on every call; with the package's own source the kernel is first
+    held against `dyn_score_plain` on them and on `dyn_cases`."""
+    from .ops import dyn_round as dr
+
+    libs = build_variants("dyn_round", csrc, DYN_SCORE_VARIANTS)
+    rounds = [c for c in calls if c[0] is not None]
+    anchors = [c for c in calls if c[0] is None]
+    if check:
+        from .utils import kernel_cases
+
+        edge = [x[k] for x in kernel_cases.dyn_cases(dev).values() for k in ("score", "anchor")
+                if x[k] is not None]
+        for c in calls + edge:
+            if not torch.equal(dr.dyn_score_cuda(*c).view(torch.int32),
+                               dr.dyn_score_plain(*c).view(torch.int32)):
+                raise RuntimeError("dyn_score differs from dyn_score_plain")
+        print(f"dyn_score equal to dyn_score_plain bit for bit on the {len(calls)} calls "
+              f"and {len(edge)} edge cases", flush=True)
+    want = [dr.dyn_score_cuda(*c) for c in calls]
+    table = {}
+    for v, lib in libs.items():
+        if lib is None:
+            table[v] = "not applicable"
+            continue
+        if v in DYN_SCORE_EXACT:
+            got = with_library("dyn_round", lib, lambda: [dr.dyn_score_cuda(*c) for c in calls])
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want)):
+                raise RuntimeError(f"dyn_score variant {v!r} differs from the kernel")
+        row = {"round 0": with_library("dyn_round", lib, lambda: device_ms(
+                   lambda: dr.dyn_score_cuda(*rounds[0]), 10)),
+               "later rounds, mean": sum(with_library("dyn_round", lib, lambda: device_ms(
+                   lambda: dr.dyn_score_cuda(*c), 10)) for c in rounds[1:]) / max(
+                       len(rounds) - 1, 1),
+               "anchors, mean": sum(with_library("dyn_round", lib, lambda: device_ms(
+                   lambda: dr.dyn_score_cuda(*c), 20)) for c in anchors[:8]) / max(
+                       min(len(anchors), 8), 1)}
+        table[v] = row
+        print(f"  dyn_score {v:40s} " + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()),
+              flush=True)
+    return {"dyn_score": table}
+
+
 def time_static_base_variants(dev, csrc: Path, check: bool) -> dict:
     """K1's variants (STATIC_BASE_VARIANTS) by CUDA events, best of three
     turns, on slice 1's and the volume phase's inputs beside a fill of the
@@ -1108,8 +1186,8 @@ def main(argv=None) -> int:
                          "(about 70 s; chip_smoke.py makes it too)")
     ap.add_argument("--kernels", default="all",
                     help="comma list of sections: small, preempt_claim, affinity_update, "
-                         "guard_sweep, pv_fold, capacity, static_base, scan_commit "
-                         "(default all)")
+                         "guard_sweep, pv_fold, dyn_score, capacity, static_base, "
+                         "scan_commit (default all)")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(",")) if args.kernels != "all" else None
 
@@ -1133,7 +1211,7 @@ def main(argv=None) -> int:
         table["scan_commit"] = time_scan_variants(dev, csrc, own, not args.no_full_plain)
         out.write_text(json.dumps(table, indent=1))
     if any(on(k) for k in ("small", "preempt_claim", "affinity_update", "capacity",
-                           "guard_sweep", "pv_fold")):
+                           "guard_sweep", "pv_fold", "dyn_score")):
         small = record_small_calls(dev)
         print("small kernels on recorded main-path calls: "
               + json.dumps({k: len(v) for k, v in small.items()}), flush=True)
@@ -1150,6 +1228,8 @@ def main(argv=None) -> int:
                                                              own)
         if on("pv_fold"):
             table["pv_fold"] = time_pv_fold_variants(dev, csrc, small["pv_fold"], own)
+        if on("dyn_score"):
+            table.update(time_dyn_score_variants(dev, csrc, small["dyn_score"], own))
         out.write_text(json.dumps(table, indent=1))
         calls = small.pop("capacity")
         del small

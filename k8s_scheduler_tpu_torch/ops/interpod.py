@@ -514,9 +514,10 @@ def affinity_update_batched(snap, state: AffinityState, m_pending,
 def _mark(terms_sel: torch.Tensor, S: int) -> torch.Tensor:
     """i32 selector ids (-1 pad) -> bool [S] referenced-set."""
     flat = terms_sel.reshape(-1)
-    out = torch.zeros((S,), dtype=torch.bool, device=flat.device)
-    out[flat[flat >= 0].long()] = True
-    return out
+    # a scatter into [S + 1] whose last slot takes the pads: no size read
+    out = torch.zeros((S + 1,), dtype=torch.bool, device=flat.device)
+    out.index_fill_(0, torch.where(flat >= 0, flat, S).long(), True)
+    return out[:S]
 
 
 def selector_activity(snap) -> tuple[torch.Tensor, torch.Tensor]:

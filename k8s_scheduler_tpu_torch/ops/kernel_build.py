@@ -46,6 +46,7 @@ CUDA_KERNELS: dict[str, tuple[str, ...]] = {
     "pv_choice": ("--fmad=false",),
     "pv_fold": ("--fmad=false",),
     "scan_commit": ("--fmad=false",),
+    "dyn_round": ("--fmad=false",),
 }
 
 launch_counts: dict[str, int] = {
@@ -53,6 +54,7 @@ launch_counts: dict[str, int] = {
     "affinity_update": 0, "capacity": 0, "guard_sweep": 0,
     "preempt_prefilter": 0, "preempt_whatif": 0, "preempt_claim": 0,
     "volume_mask": 0, "pv_choice": 0, "pv_fold": 0, "scan_commit": 0,
+    "dyn_mask": 0, "dyn_score": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build

@@ -19,7 +19,8 @@ handful of batched passes.
 
 Round 0 covers the whole pending set; later rounds run over a compacted
 view of the lowest-rank `compact_window(P)` actives. The loop is a Python
-loop whose stop condition reads one device scalar per round.
+loop whose stop condition reads one device scalar per round, its one wait
+for the device.
 
 Not in this slice: the shortlist path, one-hot compaction and the mesh
 (ROADMAP A13)."""
@@ -36,7 +37,6 @@ from . import guard_sweep as gs
 from . import interpod as interpod_ops
 from .capacity import capacity
 from .claim_pass import NEG_INF, claim_pass
-from .commit import add_static
 from .resources import fit_slack
 
 MS_MATCH = 4  # guard-active selectors tracked per pod (overflow = defer)
@@ -83,6 +83,13 @@ def _pod_view(snap, gid: torch.Tensor):
     return dataclasses.replace(snap, **updates)
 
 
+def _host_table(values, dev) -> torch.Tensor:
+    """i32 [n] of host values on `dev`; on the card by a pinned copy that
+    does not wait for the device (a pageable one would)."""
+    t = torch.tensor(values, dtype=torch.int32)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
 def _owner_state(ext_state):
     for v in ext_state.values():
         if isinstance(v, interpod_ops.AffinityState):
@@ -95,8 +102,9 @@ def rounds_commit(
     snap,
     sbase: torch.Tensor,  # f32 [P, N] static base (NEG_INF where infeasible)
     m_pending: torch.Tensor,  # bool [S, P]
-    # (vsnap, vmp, node_req, ext, vsmask) -> (mask, score); score f32 [B, N]
-    # or a `commit.Product`, which the base add fuses as the reference does
+    # (vsnap, vmp, node_req, ext, vsbase, act_v) -> (mask, base), [B, N]:
+    # the static row and the dynamic filters ANDed with act_v, and vsbase
+    # plus the dynamic scores (`Framework.dyn_batched`)
     dyn_batched_view_fn: Callable,
     update_batched_view_fn: Callable,  # (vsnap, vmp, ext, accepted, node_of) -> ext
     extra: Any,
@@ -220,7 +228,7 @@ def rounds_commit(
         if any(c is not None for c in caps):
             no_cap = torch.full((B,), gs.NO_CAP, dtype=torch.int32, device=dev)
             caps_c = torch.stack([no_cap if c is None else c for c in caps]).reshape(-1)
-        role_tab = torch.tensor(roles, dtype=torch.int32, device=dev)
+        role_tab = _host_table(roles, dev)
         return guard_sweep_fn(s_packed, perm, rank_bits, B, role_tab, caps_c,
                               GK_INVALID)
 
@@ -235,10 +243,7 @@ def rounds_commit(
             vmp = m_pending[:, g]
             vsbase = sbase[g]
             vrank, vsels, vovf = rank_g[g], matched_sels_g[g], overflow_g[g]
-        vsmask = vsbase > NEG_INF * 0.5
-        mask, score = dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsmask)
-        mask = mask & vsmask & act_v[:, None]
-        base = add_static(vsbase, score)
+        mask, base = dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsbase, act_v)
         anchor0 = score_anchor_fn(node_req) if score_anchor_fn is not None else None
         pid = torch.arange(B, device=dev)
         req = vsnap.pod_requested

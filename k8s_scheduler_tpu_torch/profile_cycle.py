@@ -5,7 +5,10 @@ affinity and spread on both sides, 10000 pending x 5000 nodes x 12000
 running), of the same workload with local and zonal volumes
 (`utils.synth.config4_volumes`, chip_smoke.py's phase volumes), and of
 config #4's workload through the scan engine (`build_cycle_fn(commit_mode=
-"scan")`, chip_smoke.py's phase scan), each cycle followed by
+"scan")`, chip_smoke.py's phase scan), and of config #4's rounds cycle
+with the plain versions of K14 `dyn_mask` and K15 `dyn_score` (the run
+the kernels are held against, for a before and after in one call), each
+cycle followed by
 DefaultPreemption (`build_preemption_fn`) on its decision, as a serving
 host runs them.
 
@@ -80,12 +83,16 @@ def main(argv=None) -> int:
         return 2
     from .core.cycle import build_cycle_fn, build_preemption_fn
     from .models import SnapshotEncoder
+    from .ops import dyn_round as dr
     from .utils import synth
 
     dev = torch.device("cuda")
     seeds = tuple(range(201, 202 + args.cycles))
     nodes, existing, pending = synth.config4_workload(seeds)
     cycles = {"config4": build_cycle_fn(commit_mode="rounds", device=dev),
+              "config4 plain dyn": build_cycle_fn(
+                  commit_mode="rounds", device=dev, dyn_mask_fn=dr.dyn_mask_plain,
+                  dyn_score_fn=dr.dyn_score_plain),
               "volumes": build_cycle_fn(commit_mode="rounds", device=dev),
               "scan": build_cycle_fn(commit_mode="scan", device=dev)}
     preempt = build_preemption_fn(device=dev)
@@ -111,7 +118,9 @@ def main(argv=None) -> int:
         c_wall, c_names, c_launch = _profile(
             lambda s: decisions.append(cycle(s)), [(s,) for s in snaps[1:]])
         p_wall, p_names, p_launch = _profile(preempt, list(zip(snaps[1:], decisions)))
-        extra = {"config4": "", "volumes": " with local and zonal volumes",
+        extra = {"config4": "",
+                 "config4 plain dyn": " with the plain versions of K14 and K15",
+                 "volumes": " with local and zonal volumes",
                  "scan": " through the scan engine"}[wl]
         lines += [
             f"workload: config #4{extra} (10000 pending x 5000 nodes, 12000 running), "

@@ -989,3 +989,174 @@ def fold_cases(device="cpu") -> dict:
             out[f"{tag}, draw {d}"] = (snap, tables, t["claimed"], t["accepted"],
                                        t["node_of"], rank)
     return out
+
+
+# ---- K14 `dyn_mask`, K15 `dyn_score` --------------------------------------
+
+DYN_TAGS = (
+    "zero allocatable", "an exact fit at the slack", "full nodes", "R = 1", "R = 8",
+    "Q = 0", "pad port slots, a pod with 3 ports", "every row NEG_INF", "B = 1",
+    "B = 13, N = 13", "N = 8199", "an empty term program", "a lone BalancedAllocation",
+    "weights other than 1, a plane first")
+_NEG_INF = -1e9
+_DEFAULT_W = (1.0, 1.0, 0.0, 0.0)  # cpu and memory of four resources
+
+
+def _slack32(alloc):
+    """f32 fma(alloc, 1e-5, 1e-5) (exact f64 product, one rounding)."""
+    eps = np.float64(np.float32(1e-5))
+    return (alloc.astype(np.float64) * eps + eps).astype(np.float32)
+
+
+def _dyn_raw(rng, B, N, R, *, n_mplanes=2, n_splanes=2, ports=None, Q=0, MP=2,
+             terms=None, act=True, neg_p=0.2):
+    """numpy inputs of one round's two stages: requests in encoder-like
+    units, a static base with NEG_INF rows and entries (and a -0.0 and a
+    +0.0 row), bool and f32 planes, and the term program (default: the fit
+    score and BalancedAllocation over the first two resources, then the
+    planes at weight 1)."""
+    units = np.array([_UNITS[r % len(_UNITS)] for r in range(R)])
+    alloc = (rng.integers(1, 64, (N, R)) * units).astype(np.float32)
+    nreq = (rng.integers(0, 48, (N, R)) * units).astype(np.float32)
+    preq = (rng.integers(0, 12, (B, R)) * units).astype(np.float32)
+    vsbase = (rng.random((B, N)) * 300.0).astype(np.float32)
+    vsbase[rng.random((B, N)) < neg_p] = _NEG_INF
+    vsbase[rng.random(B) < 0.1] = _NEG_INF
+    if B > 2:
+        vsbase[1], vsbase[2] = -0.0, 0.0
+    w = tuple(1.0 if r < 2 else 0.0 for r in range(R))
+    if terms is None:
+        terms = [("fit", 1.0, w, False), ("balanced", 1.0, w)] + [
+            ("plane", 1.0, i) for i in range(n_splanes)]
+    ids = claimed = None
+    if ports:
+        ids = np.where(rng.random((B, MP)) < 0.3, rng.integers(0, max(Q, 1), (B, MP)), -1)
+        claimed = rng.random((N, Q)) < 0.4
+    return {
+        "vsbase": vsbase, "act": (rng.random(B) < 0.85) if act else None,
+        "preq": preq, "alloc": alloc, "nreq": nreq, "fit": True,
+        "ids": None if ids is None else ids.astype(np.int32), "claimed": claimed,
+        "mplanes": [rng.random((B, N)) < 0.9 for _ in range(n_mplanes)],
+        "splanes": [(rng.random((B, N)) * 100.0).astype(np.float32)
+                    for _ in range(n_splanes)],
+        "terms": terms,
+    }
+
+
+def dyn_raw_cases() -> dict:
+    """{tag: numpy inputs} of K14's and K15's edge cases (DYN_TAGS):
+      - allocatable 0 in some resources (the used fraction is 1, the room
+        the slack less the requested);
+      - requests exactly at the room (fit) and one ulp above it (no fit);
+      - full nodes: requested above allocatable (fractions clamped to 1),
+        MostAllocated;
+      - R = 1 (every weight 1: rounded `x * 100` adds, the squares fused)
+        and R = 8 (six of eight resources scored, four for the balance);
+      - Q = 0; pad port slots between real ones and a pod with 3 ports;
+      - every static row NEG_INF; B = 1; B = N = 13 and N = 8199 (the
+        guarded path, a partial tile); no mask part and no score term;
+      - BalancedAllocation as the one term (a lone product fused into the
+        base add) and its anchor;
+      - weights 3, 2, 5 and 1 (the "weighted" profile's), a plane first at
+        weight 2 (a held product), BalancedAllocation meeting it."""
+    rng = np.random.default_rng(1411)
+    out = {}
+
+    x = _dyn_raw(rng, 64, 96, 4)
+    x["alloc"][rng.random((96, 4)) < 0.3] = 0.0
+    out["zero allocatable"] = x
+
+    x = _dyn_raw(rng, 48, 64, 4)
+    x["nreq"] = np.minimum(x["nreq"], x["alloc"])
+    room = (x["alloc"] - x["nreq"]) + _slack32(x["alloc"])
+    x["preq"] = room[rng.integers(0, 64, 48)]
+    half = np.arange(48) % 2 == 1
+    x["preq"][half] = np.nextafter(x["preq"][half], np.float32(np.inf))
+    out["an exact fit at the slack"] = x
+
+    x = _dyn_raw(rng, 40, 72, 4, terms=[("fit", 1.0, _DEFAULT_W, True),
+                                        ("balanced", 1.0, _DEFAULT_W), ("plane", 1.0, 0)],
+                 n_splanes=1)
+    x["nreq"] = x["nreq"] + x["alloc"] * np.float32(1.5)
+    out["full nodes"] = x
+
+    out["R = 1"] = _dyn_raw(rng, 40, 64, 1, terms=[("fit", 1.0, (1.0,), False),
+                                                   ("plane", 1.0, 0)], n_splanes=1)
+    w8 = (1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 1.0)
+    b8 = (1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0)
+    out["R = 8"] = _dyn_raw(rng, 40, 64, 8, terms=[("fit", 1.0, w8, True),
+                                                   ("balanced", 1.0, b8), ("plane", 1.0, 0)],
+                            n_splanes=1)
+
+    x = _dyn_raw(rng, 32, 64, 4, ports=True, Q=0, MP=2)
+    x["ids"][:] = -1
+    out["Q = 0"] = x
+
+    x = _dyn_raw(rng, 64, 80, 4, ports=True, Q=5, MP=4)
+    x["ids"][::3] = [-1, 3, -1, 1]
+    x["ids"][1::7] = [4, 0, 2, -1]
+    out["pad port slots, a pod with 3 ports"] = x
+
+    x = _dyn_raw(rng, 32, 64, 4)
+    x["vsbase"][:] = _NEG_INF
+    out["every row NEG_INF"] = x
+
+    out["B = 1"] = _dyn_raw(rng, 1, 128, 4, ports=True, Q=3)
+    out["B = 13, N = 13"] = _dyn_raw(rng, 13, 13, 4, ports=True, Q=4, MP=3)
+    out["N = 8199"] = _dyn_raw(rng, 5, 8199, 4, ports=True, Q=2)
+
+    x = _dyn_raw(rng, 32, 64, 4, n_mplanes=0, n_splanes=0, terms=[], act=False)
+    x["fit"] = False
+    out["an empty term program"] = x
+
+    out["a lone BalancedAllocation"] = _dyn_raw(
+        rng, 48, 64, 4, terms=[("balanced", 1.0, _DEFAULT_W)], n_splanes=0)
+
+    three = (1.0, 1.0, 1.0, 0.0)
+    out["weights other than 1, a plane first"] = _dyn_raw(
+        rng, 48, 64, 4, n_splanes=3,
+        terms=[("plane", 2.0, 0), ("balanced", 3.0, three), ("plane", 2.0, 1),
+               ("fit", 5.0, three, False), ("plane", 3.0, 2), ("plane", 1.0, 1)])
+    assert tuple(out) == DYN_TAGS
+    return out
+
+
+def dyn_inputs(raw: dict, device) -> dict:
+    """The port's arguments of one raw case on `device`: `mask` for
+    `dyn_mask_*` (vsbase, parts, act_v), `score` for `dyn_score_*` (vsbase,
+    terms) and `anchor` (None, the resource terms on one zero-request row,
+    or None when the program has none)."""
+    from ..ops import dyn_round as dr
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    vsbase, preq, alloc, nreq = (t(raw[k]) for k in ("vsbase", "preq", "alloc", "nreq"))
+    parts = [t(m) for m in raw["mplanes"]]
+    if raw["fit"]:
+        parts.append(dr.FitMask(preq, alloc, nreq))
+    if raw["ids"] is not None:
+        parts.append(dr.PortMask(t(raw["ids"]), t(raw["claimed"])))
+    planes = [t(p) for p in raw["splanes"]]
+    zero = torch.zeros((1, alloc.shape[1]), dtype=torch.float32, device=device)
+
+    def terms(pod):
+        out = []
+        for term in raw["terms"]:
+            kind, w = term[0], term[1]
+            if kind == "fit":
+                out.append((dr.FitScore(pod, alloc, nreq, term[2], term[3]), w))
+            elif kind == "balanced":
+                out.append((dr.BalancedScore(pod, alloc, nreq, term[2]), w))
+            elif pod is preq:
+                out.append((planes[term[2]], w))
+        return tuple(out)
+
+    anchor = terms(zero)
+    return {"mask": (vsbase, tuple(parts), t(raw["act"])), "score": (vsbase, terms(preq)),
+            "anchor": (None, anchor) if anchor else None}
+
+
+def dyn_cases(device="cpu") -> dict:
+    """{tag: `dyn_inputs`} of K14's and K15's edge cases (`dyn_raw_cases`)."""
+    return {tag: dyn_inputs(raw, device) for tag, raw in dyn_raw_cases().items()}

@@ -51,7 +51,7 @@ from k8s_scheduler_tpu_torch.core.cycle import sampling_window
 from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
 from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
-from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, guard_sweep,
+from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, dyn_round, guard_sweep,
                                          interpod_terms, kernel_build, preempt_claim,
                                          preempt_prefilter, preempt_whatif, preemption,
                                          scan_commit, static_base)
@@ -169,11 +169,14 @@ def test_wrappers_use_plain_versions_on_cpu():
                        preemption.prefilter_plain(*pf_args))
     w = _whatif_case()
     assert torch.equal(preempt_whatif.preempt_whatif(w), preemption.nonresource_ok_plain(w))
+    d = kernel_cases.dyn_cases("cpu")["B = 13, N = 13"]
+    assert torch.equal(dyn_round.dyn_mask(*d["mask"])[0], dyn_round.dyn_mask_plain(*d["mask"])[0])
+    assert torch.equal(dyn_round.dyn_score(*d["score"]), dyn_round.dyn_score_plain(*d["score"]))
     assert set(kernel_build.launch_counts) == {
         "static_base", "claim_pass", "interpod_terms", "interpod_norm",
         "affinity_update", "capacity", "guard_sweep", "preempt_prefilter",
         "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold",
-        "scan_commit"}
+        "scan_commit", "dyn_mask", "dyn_score"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
 

@@ -27,7 +27,7 @@ import k8s_scheduler_tpu.ops.rounds as ref_rounds
 import k8s_scheduler_tpu.ops.taints as ref_taints
 from k8s_scheduler_tpu_torch.core import cycle as port_cycle
 from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
-from k8s_scheduler_tpu_torch.framework.runtime import Framework, _rounded
+from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
 from k8s_scheduler_tpu_torch.ops import (
     argsel,
@@ -57,6 +57,17 @@ def snaps(request):
 
 def _ref(fn, snap):
     return jax.tree_util.tree_map(np.asarray, jax.jit(fn)(snap))
+
+
+def _ref2(fn, snap, vsbase):
+    """`fn(snap, vsbase)` jitted, vsbase an argument as the round passes it."""
+    return jax.tree_util.tree_map(np.asarray, jax.jit(fn)(snap, vsbase.numpy()))
+
+
+def _valid_row(port):
+    """A static base of zeros on the valid nodes, NEG_INF elsewhere."""
+    row = torch.where(port.node_valid, 0.0, rounds.NEG_INF).to(torch.float32)
+    return row[None, :].expand(port.P, port.N).contiguous()
 
 
 def _np(t):
@@ -243,18 +254,18 @@ def test_dyn_batched_resource_means(profile):
     rfw = ref_rt.Framework.from_config(_profile(ref_config, profile))
     pfw = Framework.from_config(_profile(port_config, profile))
 
-    def ref_dyn(s):
+    def ref_dyn(s, vsbase):
         c = ref_if.CycleContext(s)
         m, sc, _ = rfw.dyn_batched(c, s.node_requested, rfw.extra_init(c),
-                                   s.node_valid[None, :] & jnp.ones((s.P, 1), bool))
-        return m, sc, rfw.score_anchor(c, s.node_requested)
+                                   vsbase > rounds.NEG_INF * 0.5)
+        return m, vsbase + sc, rfw.score_anchor(c, s.node_requested)
 
-    wm, ws, wa = _ref(ref_dyn, ref)
+    vsbase = _valid_row(port)
+    wm, wb, wa = _ref2(ref_dyn, ref, vsbase)
     ctx = CycleContext(port)
-    gm, gs = pfw.dyn_batched(ctx, port.node_requested, pfw.extra_init(ctx),
-                             port.node_valid[None, :].expand(port.P, port.N))
+    gm, gb = pfw.dyn_batched(ctx, port.node_requested, pfw.extra_init(ctx), vsbase)
     assert_exact(gm, wm)
-    assert_scores(_rounded(gs), ws)  # a lone product, materialised as jit does
+    assert_scores(gb, wb)  # a lone product fused into the add, as jit does
     assert_scores(pfw.score_anchor(ctx, port.node_requested), wa)
 
 
@@ -349,18 +360,17 @@ def test_framework_static_and_dynamic(snaps):
     extra = pfw.extra_init(ctx)
     assert sorted(extra) == ["NodePorts"]
 
-    def ref_dyn(s):
+    def ref_dyn(s, vsbase):
         c = ref_if.CycleContext(s)
         ext = rfw.extra_init(c)
-        m, sc, _ = rfw.dyn_batched(c, s.node_requested, ext, s.node_valid[None, :]
-                                   & jnp.ones((s.P, 1), bool))
-        return m, sc, rfw.score_anchor(c, s.node_requested)
+        m, sc, _ = rfw.dyn_batched(c, s.node_requested, ext, vsbase > rounds.NEG_INF * 0.5)
+        return m, vsbase + sc, rfw.score_anchor(c, s.node_requested)
 
-    wm, ws, wa = _ref(ref_dyn, ref)
-    gm, gs = pfw.dyn_batched(ctx, port.node_requested, extra,
-                             port.node_valid[None, :].expand(port.P, port.N))
+    vsbase = _valid_row(port)
+    wm, wb, wa = _ref2(ref_dyn, ref, vsbase)
+    gm, gb = pfw.dyn_batched(ctx, port.node_requested, extra, vsbase)
     assert_exact(gm, wm)
-    assert_scores(_rounded(gs), ws)
+    assert_scores(gb, wb)
     assert_scores(pfw.score_anchor(ctx, port.node_requested), wa)
 
 

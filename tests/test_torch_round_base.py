@@ -1,5 +1,5 @@
-"""The rounds engine's claim base, `base = vsbase + score` with `score`
-from `Framework.dyn_batched`, against the reference's round program
+"""The rounds engine's claim base, `base = vsbase + score` from
+`Framework.dyn_batched`, against the reference's round program
 (`k8s_scheduler_tpu/ops/rounds.py:581`), jitted as the round jits it, bit
 for bit before the claim pass rounds it.
 
@@ -24,7 +24,7 @@ import k8s_scheduler_tpu_torch.config as port_config
 from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
 from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
-from k8s_scheduler_tpu_torch.ops import commit, rounds, static_base
+from k8s_scheduler_tpu_torch.ops import rounds, static_base
 from test_torch_commit import _profile
 from test_torch_encoding import reference_snapshot
 
@@ -50,7 +50,6 @@ def test_round_base_matches_reference_round_program(fixture, profile):
         return vsbase + score
 
     want = np.asarray(jax.jit(ref_base)(ref, vsbase.numpy()))
-    _, score = fw.dyn_batched(ctx, port.node_requested, fw.extra_init(ctx), vsmask)
-    got = commit.add_static(vsbase, score)
+    _, got = fw.dyn_batched(ctx, port.node_requested, fw.extra_init(ctx), vsbase)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
