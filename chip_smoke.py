@@ -26,7 +26,7 @@ Phases:
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every csrc/*.cu at once (one process per
                 source; with --prev-csrc, also an earlier design's
-                preempt_claim.cu, affinity_update.cu and scan_commit.cu,
+                sources of PREV_KERNELS (K9, K4, K13, K6, K12, K11, K8),
                 timed beside the kernels as prev_device_ms), Triton
                 compiles K2 `claim_pass` meanwhile; then K5 `capacity`, K1
                 `static_base`, K9 `preempt_claim`, K4 `affinity_update` and
@@ -54,7 +54,17 @@ Phases:
                 `dyn_cases`: zero allocatable, an exact fit at the slack,
                 full nodes, R = 1 and 8, Q = 0, pad port slots, every row
                 NEG_INF, B = 1 and 13, N = 13 and 8199, no term, a lone
-                BalancedAllocation, weights other than 1);
+                BalancedAllocation, weights other than 1, R = 1 under both
+                resource scores, BalancedAllocation over one of four
+                resources); K11 `pv_choice` on `pv_choice_cases` (a node
+                list over the kernel's register cap, global PVs, MVol = 1
+                and 8, every PV claimed, inactive rows, node_of out of
+                range, dynamic provisioning, capacities at the + 1e-3
+                edge; three draws each) and K8 `preempt_whatif` on
+                `whatif_cases` (72 pods a node, nodes without a domain,
+                candidates without terms, winner ports, affinity or spread
+                alone, ScheduleAnyway, counts at their thresholds, the
+                bootstrap rule);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
                 decisions required; K14 / K15 held against their plain
                 versions on every call of it), K1/K2 against their plain versions
@@ -84,7 +94,9 @@ Phases:
                 phase's snapshots and decisions: the kernels' preemption
                 equal to the plain-versions preemption, K7-K9 each equal to
                 its plain version at full size on each seed's real inputs
-                (K8 also with them cut to 512 nodes of 72 pods), and every nomination valid (unplaced, may preempt, not
+                (K8 also with them cut to 512 nodes of 72 pods, and timed
+                both ways against the earlier design with --prev-csrc),
+                and every nomination valid (unplaced, may preempt, not
                 gang-dropped; victims a contiguous lower-priority run on its
                 node that makes it fit after the earlier nominations there;
                 static gate; at most scan_budget nominations); at least one
@@ -125,10 +137,12 @@ Phases:
                 cycle, K1 `static_base` with VolumeBinding's static
                 mask as its operand equal to its plain version at full
                 size, K3 `interpod_terms`, K10 `volume_mask` (static and
-                unbound), K11 `pv_choice` and K12 `pv_fold` each equal to its plain
-                version on round 0's inputs (K12 also on a contended batch
-                that takes several passes; K5, K14 and K15 on every call of
-                the cycle), three timed cycles whose
+                unbound) equal to its plain version on round 0's inputs,
+                K11 `pv_choice` and K12 `pv_fold` on every round's (K12
+                also on a contended batch that takes several passes; K5,
+                K14 and K15 on every call of the cycle; K11 timed on round
+                0 and over the rounds, with --prev-csrc beside the earlier
+                design), three timed cycles whose
                 placements are checked as in the affinity phase and for
                 volumes (bound claims on their PVs' nodes; a matching of
                 the claimed PVs to placed unbound slots: no PV claimed
@@ -171,7 +185,8 @@ AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
 PDB_SEED = 17  # config4_pdbs draw of the PDB variant
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 # timed against --prev-csrc
-PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold")
+PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold",
+                "pv_choice", "preempt_whatif")
 
 
 def log(msg: str) -> None:
@@ -820,6 +835,36 @@ def guard_edge_checks(torch, dev) -> list[str]:
     return list(cases)
 
 
+def pv_choice_edge_checks(torch, dev) -> list[str]:
+    """K11 against `pv_choice_plain` on the seeded edge cases
+    (`utils/kernel_cases.pv_choice_cases`, three draws each)."""
+    from k8s_scheduler_tpu_torch.ops import pv_choice as k11
+    from k8s_scheduler_tpu_torch.ops import volumes as vol
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import pv_choice_cases
+
+    cases = pv_choice_cases(dev)
+    for tag, args in cases.items():
+        check(torch.equal(k11.pv_choice_cuda(*args), vol.pv_choice_plain(*args)),
+              f"pv_choice differs from its plain version ({tag})")
+    return list(cases)
+
+
+def whatif_edge_checks(torch, dev) -> dict:
+    """K8 against `nonresource_ok_plain` on the seeded edge cases
+    (`utils/kernel_cases.whatif_cases`); {case: [C2, N, MPN+1]}."""
+    from k8s_scheduler_tpu_torch.ops import preempt_whatif as k8
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import whatif_cases
+
+    shapes = {}
+    for tag, x in whatif_cases(dev).items():
+        want = pre.nonresource_ok_plain(x)
+        check(torch.equal(k8.preempt_whatif_cuda(x), want),
+              f"preempt_whatif differs from its plain version ({tag})")
+        shapes[tag] = list(want.shape)
+    return shapes
+
+
 def fold_edge_checks(torch, dev) -> dict:
     """K12 against `pv_fold_plain` on the seeded edge cases
     (`utils/kernel_cases.fold_cases`), on 16 CTAs and on the portable 8;
@@ -924,16 +969,6 @@ def check_preemption(torch, snap, d, r, gate_fn, scan_budget):
     return n_nom, n_vict, n_viol
 
 
-def wide_whatif(wi, nodes: int = 512, reps: int = 9):
-    """K8's inputs cut to their first `nodes` nodes, each node's victim
-    slots repeated `reps` times: more than 63 pods per node, so the what-if
-    takes more than one 64-prefix word."""
-    return dataclasses.replace(
-        wi, node_pods=wi.node_pods[:nodes].repeat(1, reps).contiguous(),
-        node_domains=wi.node_domains[:nodes].contiguous(),
-        winner_conf=wi.winner_conf[:, :nodes].contiguous())
-
-
 def whatif_bytes(torch, wi) -> int:
     """The bytes K8 must move on these inputs: the verdicts written once;
     the node and candidate tables read once; of the [S, D] count and
@@ -969,7 +1004,7 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     the affinity tables). Returns {"kernels": entries, "ms": [...]}."""
     from k8s_scheduler_tpu_torch.core.cycle import _preemption_gate_rows, build_preemption_fn
     from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
-    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms, wide_whatif
     from k8s_scheduler_tpu_torch.models import SnapshotEncoder
     from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
     from k8s_scheduler_tpu_torch.ops import preempt_prefilter as k7
@@ -1075,6 +1110,12 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     k7_ops = int(gated.sum()) * MPN + 2 * R * int((elig * gated).sum())
     k8_ms = time_ms(torch, lambda: k8.preempt_whatif_cuda(wi), 20)
     k8_dev = device_ms(lambda: k8.preempt_whatif_cuda(wi), 20)
+    wide = wide_whatif(wi)
+    k8_wide = device_ms(lambda: k8.preempt_whatif_cuda(wide), 20)
+    k8_prev = prev_ms(torch, kb, prev_libs, "preempt_whatif",
+                      lambda: k8.preempt_whatif_cuda(wi), 20, device_ms)
+    k8_prev_wide = prev_ms(torch, kb, prev_libs, "preempt_whatif",
+                           lambda: k8.preempt_whatif_cuda(wide), 20, device_ms)
     k8_plain = time_ms(torch, lambda: pre.nonresource_ok_plain(wi), 2)
     k8_bytes = whatif_bytes(torch, wi)
     n_terms = C2 + int((wi.ports >= 0).any(dim=1).sum())  # symmetric, ports
@@ -1101,10 +1142,12 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     log(f"phase kernel preempt_prefilter: [{C}, {N}, {MPN + 1}] equal True; kernel "
         f"{k7_ms:.3f} ms ({k7_dev:.4f} ms device), plain {k7_plain:.3f} ms, bound "
         f"{bound(k7_bytes, k7_ops)[0]:.4f} ms")
+    k8_prev_txt = ("not built" if k8_prev is None else
+                   f"{k8_prev:.4f} ms device, {k8_prev_wide:.4f} widened")
     log(f"phase kernel preempt_whatif: [{C2}, {N}, {MPN + 1}] equal True (also at "
-        f"{wide_whatif(wi).node_pods.shape[1]} pods per node on 512 nodes); kernel "
-        f"{k8_ms:.3f} ms ({k8_dev:.4f} ms device), plain {k8_plain:.3f} ms, bound "
-        f"{bound(k8_bytes, k8_ops)[0]:.4f} ms")
+        f"{wide.node_pods.shape[1]} pods per node on 512 nodes); kernel "
+        f"{k8_ms:.3f} ms ({k8_dev:.4f} ms device, {k8_wide:.4f} widened; earlier design: "
+        f"{k8_prev_txt}), plain {k8_plain:.3f} ms, bound {bound(k8_bytes, k8_ops)[0]:.4f} ms")
     log(f"phase kernel preempt_claim: {n_live} live ranks over [{N}] nodes, one cluster "
         f"launch of {k9_shape['cluster']} CTAs (victim tables in shared memory "
         f"{k9_shape['staged']}, {k9_shape['smem']} B a CTA); equal True (nominations, "
@@ -1112,7 +1155,7 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
         f"{1e3 * k9_dev / max(n_live, 1):.2f} us a step; earlier design: "
         f"{'not built' if k9_prev is None else f'{k9_prev:.4f} ms device'}), plain "
         f"{k9_plain:.3f} ms, bound {bound(k9_bytes, k9_ops)[0]:.4f} ms")
-    del stage_args, pf, wi, cl
+    del stage_args, pf, wi, cl, wide
 
     # the PDB variant: one budget per app over the running pods
     t0 = time.time()
@@ -1145,7 +1188,8 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
             launches["preempt_prefilter"], 0.0, k7_ms, k7_dev, k7_plain, k7_bytes, k7_ops),
         "preempt_whatif": kernel_entry(
             "preempt_whatif", "cuda", src + "preempt_whatif.cu", ref + "246",
-            launches["preempt_whatif"], 0.0, k8_ms, k8_dev, k8_plain, k8_bytes, k8_ops),
+            launches["preempt_whatif"], 0.0, k8_ms, k8_dev, k8_plain, k8_bytes, k8_ops,
+            prev_device_ms=k8_prev, wide_device_ms=k8_wide, prev_wide_device_ms=k8_prev_wide),
         "preempt_claim": kernel_entry(
             "preempt_claim", "cuda", src + "preempt_claim.cu", ref + "402",
             launches["preempt_claim"], 0.0, k9_ms, k9_dev, k9_plain, k9_bytes, k9_ops,
@@ -1394,7 +1438,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
 
     # ---- the kernels' cycle against the plain-versions cycle ----
     rec = {"volume_mask": Recorder(vol.volume_mask_plain, keep=(0, 1)),  # static, round 0
-           "pv_choice": Recorder(vol.pv_choice_plain),
+           "pv_choice": Recorder(vol.pv_choice_plain, keep=None),  # every round
            "pv_fold": Recorder(vol.pv_fold_plain, keep=None),  # every round
            "interpod_terms": Recorder(ipt.interpod_terms_plain)}
     cap_rec = Recorder(cap.capacity_plain, keep=None)  # every pass and fold
@@ -1487,12 +1531,21 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"PVs; {int((snap0.pod_vol_mode >= 0).any(dim=1).sum())} of "
         f"{int(snap0.pod_valid.sum())} pods with a volume slot")
 
-    c_args = rec["pv_choice"].args[0]
+    c_calls = rec["pv_choice"].args
+    c_args = c_calls[0]
     csnap, _, cclaimed, cnode, clive = c_args
-    check(torch.equal(k11.pv_choice_cuda(*c_args), vol.pv_choice_plain(*c_args)),
-          "pv_choice differs from its plain version")
+    for i, a_ in sorted(c_calls.items()):
+        check(torch.equal(k11.pv_choice_cuda(*a_), vol.pv_choice_plain(*a_)),
+              f"pv_choice differs from its plain version (call {i})")
     k11_ms = time_ms(torch, lambda: k11.pv_choice_cuda(*c_args), 20)
     k11_dev = device_ms(lambda: k11.pv_choice_cuda(*c_args), 20)
+    k11_mean = sum(device_ms(lambda: k11.pv_choice_cuda(*a), 10)
+                   for a in c_calls.values()) / len(c_calls)
+    k11_prev = prev_ms(torch, kb, prev_libs, "pv_choice",
+                       lambda: k11.pv_choice_cuda(*c_args), 20, device_ms)
+    k11_prev_mean = None if k11_prev is None else sum(
+        prev_ms(torch, kb, prev_libs, "pv_choice", lambda: k11.pv_choice_cuda(*a), 10,
+                device_ms) for a in c_calls.values()) / len(c_calls)
     k11_plain = time_ms(torch, lambda: vol.pv_choice_plain(*c_args), 2)
 
     def list_bytes(snap_v, nodes_v, rows):
@@ -1538,9 +1591,12 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     f_rows = facc & (fsnap.pod_vol_mode == 1).any(dim=1)
     k12_bytes = fnode.shape[0] * 9 + list_bytes(fsnap, fnode, f_rows) + 2 * V
     k12_ops = int(f_rows.sum()) * MVol * passes0 * 3 * (2 + G) * (3 * MVol + 4)
+    k11_prev_txt = ("not built" if k11_prev is None else
+                    f"{k11_prev:.4f} ms device, mean {k11_prev_mean:.4f}")
     log(f"phase kernel pv_choice: {int(c_rows.sum())} claimants with unbound slots of "
-        f"B={B11}; equal True; kernel {k11_ms:.3f} ms ({k11_dev:.4f} ms device), plain "
-        f"{k11_plain:.3f} ms, bound "
+        f"B={B11}; equal True on all {len(c_calls)} rounds of the cycle; kernel {k11_ms:.3f} "
+        f"ms ({k11_dev:.4f} ms device, mean {k11_mean:.4f} over the rounds; earlier design: "
+        f"{k11_prev_txt}), plain {k11_plain:.3f} ms, bound "
         f"{bound(k11_bytes, k11_ops)[0]:.4f} ms")
     k12_prev_txt = ("not built" if k12_prev is None else
                     f"{k12_prev:.4f} ms device, mean {k12_prev_mean:.4f}, contended "
@@ -1552,7 +1608,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         f"({k12_dev:.4f} ms device, mean {k12_mean:.4f} over the rounds, contended "
         f"{k12_cont:.4f}; earlier design: {k12_prev_txt}), plain {k12_plain:.3f} ms, bound "
         f"{bound(k12_bytes, k12_ops)[0]:.4f} ms")
-    del rec, s_args, u_args, c_args, f_args, f_calls, cont
+    del rec, s_args, u_args, c_args, c_calls, f_args, f_calls, cont
 
     # ---- the volume main path: counts set to 0 just before, read just after ----
     results, finals = [], {}
@@ -1653,7 +1709,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
             k10_lib, unbound_device_ms=k10u_dev),
         "pv_choice": kernel_entry(
             "pv_choice", "cuda", src + "pv_choice.cu", ref + "535",
-            launches["pv_choice"], 0.0, k11_ms, k11_dev, k11_plain, k11_bytes, k11_ops),
+            launches["pv_choice"], 0.0, k11_ms, k11_dev, k11_plain, k11_bytes, k11_ops,
+            mean_device_ms=k11_mean, prev_device_ms=k11_prev, prev_mean_device_ms=k11_prev_mean),
         "pv_fold": kernel_entry(
             "pv_fold", "cuda", src + "pv_fold.cu", ref + "419",
             launches["pv_fold"], 0.0, k12_ms, k12_dev, k12_plain, k12_bytes, k12_ops,
@@ -1946,9 +2003,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--prev-csrc", default=None,
-                    help="a directory holding an earlier design's preempt_claim.cu, "
-                         "affinity_update.cu and scan_commit.cu: timed beside the "
-                         "kernels on the same inputs, as prev_device_ms")
+                    help="a directory holding an earlier design's sources of "
+                         "PREV_KERNELS: timed beside the kernels on the same inputs, "
+                         "as prev_device_ms")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2057,6 +2114,12 @@ def main(argv=None) -> int:
     shapes = fold_edge_checks(torch, dev)
     log(f"phase kernel pv_fold, seeded edge cases: equal to pv_fold_plain on "
         f"{len(shapes)} cases, on 16 and 8 CTAs (clusters launched): {json.dumps(shapes)}")
+    edge = pv_choice_edge_checks(torch, dev)
+    log(f"phase kernel pv_choice, seeded edge cases: equal to pv_choice_plain on {len(edge)} "
+        f"cases: {json.dumps(edge)}")
+    shapes = whatif_edge_checks(torch, dev)
+    log(f"phase kernel preempt_whatif, seeded edge cases: equal to nonresource_ok_plain on "
+        f"{len(shapes)} cases; [C2, N, MPN+1] {json.dumps(shapes)}")
     shapes = dyn_edge_checks(torch, dev)
     log(f"phase kernel dyn_mask + dyn_score, seeded edge cases: equal to dyn_mask_plain and "
         f"dyn_score_plain bit for bit (and the score anchor) on {len(shapes)} cases; [B, N] "

@@ -17,7 +17,8 @@
 //        mask[b, n]     = feasible[b, n] & act[b]
 //   K15  base[b, n]     = vsbase[b, n] + the term program's weighted sum,
 //        each term the fit score's sum (LeastAllocated / MostAllocated), the
-//        balanced factor 1 - std, or an f32 plane (the K3 norms), folded as
+//        balanced factor 1 - std (over one resource the folded constant
+//        100 * w, a bare value: ROADMAP C7), or an f32 plane (the K3 norms), folded as
 //        ops/dyn_round.py dyn_score_plain folds them (a held bare product,
 //        the weight folded into a product's constant, an fma where the
 //        constant is not 1; where BalancedAllocation's product meets a held
@@ -86,7 +87,8 @@ constexpr int kMaxTerms = 8;   // MAX_TERMS
 // flag bits and term codes (ops/dyn_round.py mirrors these)
 constexpr int kMaskFit = 1, kMaskPorts = 2, kMaskAct = 4;
 constexpr int kMost = 1, kFitOnes = 2, kBalAll = 4, kStatic = 8;
-constexpr int kTermFit = 1, kTermBalanced = 2, kTermPlane = 3;
+// kTermConst: BalancedAllocation over one resource, folded to 100 * w (c)
+constexpr int kTermFit = 1, kTermBalanced = 2, kTermPlane = 3, kTermConst = 4;
 constexpr int kBare = 0, kProduct = 1, kPreferred = 2;  // a term's form
 
 struct MaskArgs {
@@ -364,6 +366,9 @@ __global__ void __launch_bounds__(kThreads) dyn_score_kernel(ScoreArgs a) {
         } else if (a.code[t] == kTermBalanced) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) x[i] = bx[i];
+        } else if (a.code[t] == kTermConst) {  // a bare value (prod is kBare)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[i] = a.c[t];
         } else {
           load4<kVec>(a.planes[a.plane[t]] + row, n0, N, x);
         }

@@ -120,7 +120,10 @@ constexpr int kWhenDoNotSchedule = 0, kWhenScheduleAnyway = 1;
 // flag bits and score-term codes (ops/scan_commit.py mirrors these)
 constexpr int kPorts = 1, kFit = 2, kAffinity = 4, kSpread = 8, kPortState = 16,
               kState = 32, kTables = 64, kMost = 128, kFitOnes = 256, kBalAll = 512;
-constexpr int kTermFit = 1, kTermBalanced = 2, kTermAffinity = 3, kTermSpread = 4;
+// kTermConst: BalancedAllocation over one resource, folded to the constant
+// 100 * w its weight slot holds (a bare value)
+constexpr int kTermFit = 1, kTermBalanced = 2, kTermAffinity = 3, kTermSpread = 4,
+              kTermConst = 5;
 // pod flags: a DoNotSchedule constraint; a raw affinity / spread score
 // that can be nonzero (else its normalisation maximum is 0 everywhere)
 constexpr int kPodHard = 1, kPodAffNorm = 2, kPodSprNorm = 4;
@@ -410,6 +413,10 @@ __device__ __forceinline__ float node_score(const Args& a, const Slice& s, const
         break;
       case kTermSpread:
         x = spr_hi > 0.0f ? (1.0f - sraw / spr_hi) * 100.0f : 100.0f;
+        break;
+      case kTermConst:
+        x = a.weight[t];
+        c = 1.0f;
         break;
       default: continue;
     }

@@ -19,7 +19,7 @@ from ..ops import ports as ports_ops
 from ..ops import preemption as preemption_ops
 from ..ops import resources as res_ops
 from ..ops import taints as taints_ops
-from ..ops.commit import Product
+from ..ops.commit import Constant, OneResourceFit, Product
 from ..ops.interpod import take_row
 from .interfaces import CycleContext, PluginBase
 
@@ -122,14 +122,19 @@ class NodeResourcesFit(PluginBase):
 
     name = "NodeResourcesFit"
 
-    def _score(self, snap, pod_requested, node_requested) -> Product:
+    def _score(self, snap, pod_requested, node_requested):
         """The strategy's score as its factors (sum, 1 / weight sum), so
         that the runtime fuses the multiply into the score sum as the
-        reference's compiled program does."""
+        reference's compiled program does; over a snapshot's one resource
+        the fraction and 100 (`commit.OneResourceFit`)."""
         most = self.args.get("scoring_strategy", "LeastAllocated") == "MostAllocated"
+        weights = _score_resource_weights(snap, self.args)
+        if dyn_round.one_resource_fit(snap.node_allocatable, weights):
+            return OneResourceFit(res_ops.fit_fraction(
+                pod_requested, snap.node_allocatable, node_requested, most)[..., 0],
+                res_ops.MAX_NODE_SCORE)
         return Product(*res_ops.requested_score_factors(
-            pod_requested, snap.node_allocatable, node_requested,
-            _score_resource_weights(snap, self.args), most=most))
+            pod_requested, snap.node_allocatable, node_requested, weights, most=most))
 
     def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
         snap = ctx.snap
@@ -166,8 +171,11 @@ class NodeResourcesBalancedAllocation(PluginBase):
 
     def dyn_score(self, ctx: CycleContext, p, node_requested, extra, feasible):
         # the factors of (1 - std) * 100, so that the runtime fuses the
-        # multiply into the score sum as the reference's scan step does
+        # multiply into the score sum as the reference's scan step does;
+        # over one resource the constant 100 it folds to
         snap = ctx.snap
+        if dyn_round.balanced_is_constant(snap.node_allocatable):
+            return Constant((snap.N,), node_requested.device, res_ops.MAX_NODE_SCORE)
         return Product(res_ops.balanced_allocation_factor(
             take_row(snap.pod_requested, p), snap.node_allocatable, node_requested,
             _score_resource_weights(snap, self.args),

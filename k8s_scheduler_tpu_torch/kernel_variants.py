@@ -1,16 +1,17 @@
 """Where the port's kernels spend their time on the card: device times of
 the small kernels on the main path, and timed variants of K13
 `scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K6 `guard_sweep`,
-K12 `pv_fold`, K15 `dyn_score`, K5 `capacity` and K1 `static_base`, built from edited
-copies of their sources, on full-size inputs recorded from the main path.
+K12 `pv_fold`, K11 `pv_choice`, K8 `preempt_whatif`, K15 `dyn_score`, K5 `capacity`
+and K1 `static_base`, built from edited copies of their sources, on full-size
+inputs recorded from the main path.
 
     python3 -m k8s_scheduler_tpu_torch.kernel_variants [--csrc DIR] [--out PATH]
         [--kernels scan_commit,small,preempt_claim,affinity_update,guard_sweep,pv_fold,
-                   dyn_score,capacity,static_base]
+                   pv_choice,preempt_whatif,dyn_score,capacity,static_base]
 
 `--csrc` names the directory whose `scan_commit.cu`, `preempt_claim.cu`,
-`affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `dyn_round.cu`,
-`capacity.cu` and `static_base.cu` are varied (default: the package's own `csrc/`; an
+`affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `pv_choice.cu`,
+`preempt_whatif.cu`, `dyn_round.cu`, `capacity.cu` and `static_base.cu` are varied (default: the package's own `csrc/`; an
 earlier checkout's `csrc/` times that design on the same inputs, K13, K4,
 K6 and K12 through their earlier C interfaces where they differ,
 `prev_scan_commit`, `prev_affinity_update`, `prev_guard_sweep` and
@@ -68,6 +69,18 @@ Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
          the compaction and the first barrier, contiguous row slices
          instead of blocks of rows dealt round-robin, one row a thread a
          round of loads, 512 and 128 threads a CTA;
+  K11    the recorded calls of the volume cycle (round 0 and the mean): the
+         kernel, its latency floor (the launch, the gate and one dependent
+         chain node_of -> node_off -> the first list entry -> its claimed
+         flag, no choice), 128 and 256 threads a CTA;
+  K8     the recorded call of the preemption pass after config #4's cycle,
+         slice 1's (no affinity tables, `slice1_whatif_call`) and the first
+         widened to 72 pods a node (`wide_whatif`): the kernel, its floor
+         (the launch, one read of the node tables and the verdicts
+         written, no term), without the me gathers, without the symmetric
+         walk, without the ports, byte stores from each thread instead of
+         the staged 16-byte span, 64 and 256 nodes and 1, 2 and 8
+         candidates a CTA;
   K5     every `capacity` call of one rounds cycle of config #4's workload
          (seed 202): the round-0 pass, a late pass and the round-0
          revocation fold are timed alone, the mean over all recorded calls
@@ -94,6 +107,7 @@ device."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -288,6 +302,55 @@ DYN_SCORE_VARIANTS = {
     "no fractions (loads, fold and stores)": [("        if (!res) continue;\n",
                                                "        continue;\n")],
 }
+_PV_GATE = "  const int beg = c.node_off[node], end = c.node_off[node + 1];\n"
+PV_CHOICE_VARIANTS = {
+    "today": [],
+    # csrc/pv_choice.cu as it stands: 64 threads a CTA, one walk a claimant
+    "floor (launch, gate, node_of -> node_off -> first entry -> claimed; no choice)": [(
+        _PV_GATE, _PV_GATE + "  if (B > 0) {\n    const int v0 = beg < end ? c.node_pv[beg] : 0;\n"
+        "    o[0] = pv::claimed_at(claimed, v0) ? 1 : -1;\n    return;\n  }\n")],
+    "128 threads a CTA": [("constexpr int kThreads = 64;", "constexpr int kThreads = 128;")],
+    "256 threads a CTA": [("constexpr int kThreads = 64;", "constexpr int kThreads = 256;")],
+}
+PV_CHOICE_EXACT = ("today", "128 threads a CTA", "256 threads a CTA")
+
+_WI_AFF = "      unsigned m[kW];\n      if (a.has_aff) {\n"
+_WI_SPREAD = "      if (a.has_spread) {\n        for (int t = 0; t < a.MC; ++t) {"
+_WI_PORTS = "      if (has_p) {\n"
+_WI_HELD = "      for (int q = 0; q < a.MEP; ++q) hp |= "
+_WI_OWNERS = "      if (!a.has_aff) continue;\n"
+_WI_ME = "            if (a.me[(size_t)s * a.E + s_vic[j * kThreads + tid]]) m[w] |= 1u << (j & 31);"
+_WI_CHUNK = "constexpr int kChunk = 4;"
+WHATIF_VARIANTS = {
+    "today": [],
+    # csrc/preempt_whatif.cu as it stands: 128 nodes x 4 candidates a CTA
+    "floor (launch, the node tables read once, the verdicts written; no term)": [
+        (_WI_AFF, _WI_AFF.replace("a.has_aff", "false")),
+        (_WI_SPREAD, _WI_SPREAD.replace("a.has_spread", "false")),
+        (_WI_PORTS, _WI_PORTS.replace("has_p", "false"))],
+    "no me gathers (match bits made up)": [
+        (_WI_ME, "            m[w] |= (unsigned)(j & 1) << (j & 31);")],
+    "no symmetric walk (nor its owners read)": [
+        (_WI_OWNERS, "      continue;\n"),
+        ("          for (int i = 0; i < n_own;) {", "          for (int i = 0; i < 0;) {"),
+        ("        for (int k = 0; k < a.K; ++k) {\n          const int d = s_dom",
+         "        for (int k = 0; k < 0; ++k) {\n          const int d = s_dom")],
+    "no ports": [(_WI_PORTS, _WI_PORTS.replace("has_p", "false")),
+                 (_WI_HELD, _WI_HELD.replace("q < a.MEP", "q < 0"))],
+    "byte stores from each thread (no shared-memory span)": [
+        ("      uint8_t* r = s_buf + ((cc & 1) * kThreads + tid) * (M + 1);",
+         "      uint8_t* r = a.out + ((size_t)c * a.N + n) * (M + 1);"),
+        ("    const int len = (min(kThreads, a.N - n0)) * (M + 1);", "    const int len = 0;")],
+    "64 nodes a CTA": [("constexpr int kThreads = 128;", "constexpr int kThreads = 64;")],
+    "256 nodes a CTA": [("constexpr int kThreads = 128;", "constexpr int kThreads = 256;")],
+    "1 candidate a CTA": [(_WI_CHUNK, "constexpr int kChunk = 1;")],
+    "2 candidates a CTA": [(_WI_CHUNK, "constexpr int kChunk = 2;")],
+    "8 candidates a CTA (the first shape)": [(_WI_CHUNK, "constexpr int kChunk = 8;")],
+}
+WHATIF_EXACT = ("today", "byte stores from each thread (no shared-memory span)",
+                "64 nodes a CTA", "256 nodes a CTA", "1 candidate a CTA", "2 candidates a CTA",
+                "8 candidates a CTA (the first shape)")
+
 # the variants that compute the kernel's function: held against it
 DYN_SCORE_EXACT = ("today", "resources unrolled to 8 (the first design)",
                    "128 pod groups a column of blocks", "at most 40 registers")
@@ -1134,6 +1197,125 @@ def time_dyn_score_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
     return {"dyn_score": table}
 
 
+def time_pv_choice_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K11's variants (PV_CHOICE_VARIANTS) in device time on the recorded
+    calls of one volume cycle (round 0, the mean over the calls); with the
+    package's own source, K11 and its exact variants first held against
+    `pv_choice_plain` on them and on `kernel_cases.pv_choice_cases`."""
+    from .ops import pv_choice as k11
+    from .ops import volumes
+
+    libs = build_variants("pv_choice", csrc, PV_CHOICE_VARIANTS)
+    if check:
+        from .utils import kernel_cases
+
+        edge = kernel_cases.pv_choice_cases(dev)
+        inputs = list(edge.items()) + [(f"call {i}", c) for i, c in enumerate(calls)]
+        for v in PV_CHOICE_EXACT:
+            for tag, c in inputs:
+                got = with_library("pv_choice", libs[v], lambda: k11.pv_choice_cuda(*c))
+                if not torch.equal(got, volumes.pv_choice_plain(*c)):
+                    raise RuntimeError(f"pv_choice ({v}) differs from pv_choice_plain ({tag})")
+        print(f"pv_choice ({', '.join(PV_CHOICE_EXACT)}) equal to pv_choice_plain on "
+              f"{len(calls)} recorded calls and {len(edge)} edge cases", flush=True)
+    shapes = [{"B": c[0].P, "claimants": int((c[4] & (c[0].pod_vol_mode == 1).any(dim=1)).sum()),
+               "MVol": c[0].pod_vol_mode.shape[1], "G": c[1].global_pv.shape[0]} for c in calls]
+    out = {"calls": shapes}
+    print(f"pv_choice: calls {json.dumps(shapes)}", flush=True)
+    for v, lib in libs.items():
+        if lib is None:
+            out[v] = "not applicable"
+            continue
+
+        def fn(c, lib=lib):
+            return with_library("pv_choice", lib, lambda: k11.pv_choice_cuda(*c))
+        row = {"round 0": device_ms(lambda: fn(calls[0]), 20),
+               "mean over the calls": sum(device_ms(lambda: fn(c), 10)
+                                          for c in calls) / len(calls)}
+        out[v] = row
+        print(f"  pv_choice {v:80s} "
+              + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+    return out
+
+
+def wide_whatif(wi, nodes: int = 512, reps: int = 9):
+    """K8's inputs cut to their first `nodes` nodes, each node's victim
+    slots repeated `reps` times: more than 63 pods per node, so the what-if
+    takes more than one 64-prefix word (and more than one 32-bit one)."""
+    return dataclasses.replace(
+        wi, node_pods=wi.node_pods[:nodes].repeat(1, reps).contiguous(),
+        node_domains=wi.node_domains[:nodes].contiguous(),
+        winner_conf=wi.winner_conf[:, :nodes].contiguous())
+
+
+def slice1_whatif_call(dev):
+    """K8's inputs of the preemption pass after one rounds cycle of slice
+    1's workload (config #2's pending mix on config #4's cluster, seed
+    101): no affinity or spread tables."""
+    from .core.cycle import build_cycle_fn, build_preemption_fn
+    from .models import SnapshotEncoder
+    from .ops import preemption
+    from .utils import synth
+
+    nodes, existing, pending = synth.config4_cluster_config2_pending(
+        (101,), N_NODES, N_EXISTING, N_PENDING)
+    snap = SnapshotEncoder(device=dev).encode(nodes, pending[101], existing)
+    d = build_cycle_fn(commit_mode="rounds", device=dev)(snap)
+    seen = []
+
+    def rec(x):
+        seen.append(x)
+        return preemption.nonresource_ok_plain(x)
+    build_preemption_fn(device=dev, whatif_fn=rec)(snap, d)
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def time_whatif_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K8's variants (WHATIF_VARIANTS) in device time on the recorded call
+    of the preemption pass after config #4's rounds cycle, on slice 1's
+    (no affinity tables, `slice1_whatif_call`) and on the first one widened
+    to 72 pods a node (`wide_whatif`); the exact variants held against the
+    kernel there, and with the package's own source K8 first held against
+    `nonresource_ok_plain` on them and on `kernel_cases.whatif_cases`."""
+    from .ops import preempt_whatif as k8
+    from .ops import preemption
+
+    libs = build_variants("preempt_whatif", csrc, WHATIF_VARIANTS)
+    inputs = {"config #4": calls[0][0], "slice 1": slice1_whatif_call(dev),
+              "config #4, 72 pods a node": wide_whatif(calls[0][0])}
+    if check:
+        from .utils import kernel_cases
+
+        edge = kernel_cases.whatif_cases(dev)
+        for tag, x in list(edge.items()) + list(inputs.items()):
+            if not torch.equal(k8.preempt_whatif_cuda(x), preemption.nonresource_ok_plain(x)):
+                raise RuntimeError(f"preempt_whatif differs from nonresource_ok_plain ({tag})")
+        print(f"preempt_whatif equal to nonresource_ok_plain on {len(inputs)} inputs and "
+              f"{len(edge)} edge cases", flush=True)
+    want = {t: k8.preempt_whatif_cuda(x) for t, x in inputs.items()}
+    shapes = {t: list(x.winner_conf.shape) + [x.node_pods.shape[1] + 1]
+              for t, x in inputs.items()}
+    out = {"inputs [C2, N, MPN+1]": shapes}
+    print(f"preempt_whatif: inputs {json.dumps(shapes)}", flush=True)
+    for v, lib in libs.items():
+        if lib is None:
+            out[v] = "not applicable"
+            continue
+
+        def fn(x, lib=lib):
+            return with_library("preempt_whatif", lib, lambda: k8.preempt_whatif_cuda(x))
+        if check and v in WHATIF_EXACT:
+            for t, x in inputs.items():
+                if not torch.equal(fn(x), want[t]):
+                    raise RuntimeError(f"preempt_whatif variant {v!r} differs ({t})")
+        row = {t: device_ms(lambda: fn(x), 20) for t, x in inputs.items()}
+        out[v] = row
+        print(f"  preempt_whatif {v:75s} "
+              + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+    return out
+
+
 def time_static_base_variants(dev, csrc: Path, check: bool) -> dict:
     """K1's variants (STATIC_BASE_VARIANTS) by CUDA events, best of three
     turns, on slice 1's and the volume phase's inputs beside a fill of the
@@ -1186,8 +1368,8 @@ def main(argv=None) -> int:
                          "(about 70 s; chip_smoke.py makes it too)")
     ap.add_argument("--kernels", default="all",
                     help="comma list of sections: small, preempt_claim, affinity_update, "
-                         "guard_sweep, pv_fold, dyn_score, capacity, static_base, "
-                         "scan_commit (default all)")
+                         "guard_sweep, pv_fold, pv_choice, preempt_whatif, dyn_score, "
+                         "capacity, static_base, scan_commit (default all)")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(",")) if args.kernels != "all" else None
 
@@ -1211,7 +1393,8 @@ def main(argv=None) -> int:
         table["scan_commit"] = time_scan_variants(dev, csrc, own, not args.no_full_plain)
         out.write_text(json.dumps(table, indent=1))
     if any(on(k) for k in ("small", "preempt_claim", "affinity_update", "capacity",
-                           "guard_sweep", "pv_fold", "dyn_score")):
+                           "guard_sweep", "pv_fold", "dyn_score", "pv_choice",
+                           "preempt_whatif")):
         small = record_small_calls(dev)
         print("small kernels on recorded main-path calls: "
               + json.dumps({k: len(v) for k, v in small.items()}), flush=True)
@@ -1228,6 +1411,11 @@ def main(argv=None) -> int:
                                                              own)
         if on("pv_fold"):
             table["pv_fold"] = time_pv_fold_variants(dev, csrc, small["pv_fold"], own)
+        if on("pv_choice"):
+            table["pv_choice"] = time_pv_choice_variants(dev, csrc, small["pv_choice"], own)
+        if on("preempt_whatif"):
+            table["preempt_whatif"] = time_whatif_variants(dev, csrc, small["preempt_whatif"],
+                                                           own)
         if on("dyn_score"):
             table.update(time_dyn_score_variants(dev, csrc, small["dyn_score"], own))
         out.write_text(json.dumps(table, indent=1))

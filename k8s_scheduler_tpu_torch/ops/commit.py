@@ -34,6 +34,27 @@ class Product(NamedTuple):
     c: float
 
 
+class Constant(NamedTuple):
+    """A dynamic score that the reference's compiled program folds to the
+    constant c times its weight: BalancedAllocation over one resource, whose
+    std is 0 (ROADMAP C7). A bare value in the score sum, never a product,
+    so a held product fuses into the add that takes it."""
+
+    shape: tuple[int, ...]
+    device: torch.device
+    c: float
+
+
+class OneResourceFit(NamedTuple):
+    """NodeResourcesFit's score over a snapshot's one resource, x * c (x the
+    clamped free or used fraction, c = 100): the compiled program folds
+    the weight into c. Beside a `Constant` the product fuses into the score
+    sum; without one it is rounded alone, a bare value (ROADMAP C7)."""
+
+    x: torch.Tensor
+    c: float
+
+
 def add_static(static_row: torch.Tensor, dyn) -> torch.Tensor:
     """static + dynamic score, with the reference's rounding: one scan
     step's row, or a rounds-engine round's [B, N] base, whose compiled add

@@ -41,11 +41,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .commit import NEG_INF, Product, add_static
+from .commit import NEG_INF, Constant, OneResourceFit, Product, add_static
 from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
                            raise_on_error, stream_of)
 from .resources import (MAX_NODE_SCORE, _fma, _reciprocal, balanced_allocation_factor,
-                        fit_mask, requested_score_factors)
+                        fit_fraction, fit_mask, requested_score_factors)
 
 MAX_RESOURCES = 8  # csrc/dyn_round.cu kMaxR
 MAX_PLANES = 8  # kMaxPlanes: plane parts of a mask, plane terms of a score
@@ -54,7 +54,7 @@ MAX_TERMS = 8  # kMaxTerms
 # csrc/dyn_round.cu mirrors these
 M_FIT, M_PORTS, M_ACT = 1, 2, 4
 S_MOST, S_FIT_ONES, S_BAL_ALL, S_STATIC = 1, 2, 4, 8
-T_FIT, T_BALANCED, T_PLANE = 1, 2, 3
+T_FIT, T_BALANCED, T_PLANE, T_CONST = 1, 2, 3, 4
 P_BARE, P_PRODUCT, P_PREFERRED = 0, 1, 2
 
 
@@ -97,21 +97,33 @@ class BalancedScore(NamedTuple):
 
 def sum_terms(terms, prefer=frozenset()):
     """Weighted sum of score terms, each (value, weight) with value a
-    tensor, a `commit.Product` or None, in the reference's compiled
-    arithmetic: each add fuses a multiply feeding it — the running sum's
-    while that is still a bare product (a first term given as factors,
-    with the weight folded into its constant), else the new term's (a
-    weight other than 1, or factors); but where the new term's index is in
-    `prefer` and it is a product too, its multiply fuses and the held one
-    is rounded (the round program's BalancedAllocation). Returns None (no
-    term), a tensor, or a `commit.Product` when the whole sum is one bare
-    product."""
+    tensor, a `commit.Product`, a `commit.Constant` (a bare value: its
+    constant times the weight, folded), a `commit.OneResourceFit` (a
+    product with the weight folded into its constant where a Constant is
+    among the terms, else that product rounded, a bare value) or None, in
+    the reference's compiled arithmetic: each add fuses a multiply feeding
+    it — the running sum's while that is still a bare product (a first
+    term given as factors, with the weight folded into its constant), else
+    the new term's (a weight other than 1, or factors); but where the new
+    term's index is in `prefer` and it is a product too, its multiply fuses
+    and the held one is rounded (the round program's BalancedAllocation).
+    Returns None (no term), a tensor, or a `commit.Product` when the whole
+    sum is one bare product."""
+    terms = list(terms)
+    folded = any(isinstance(v, Constant) for v, _ in terms)
     acc, held = None, None  # the running sum; a bare product (x, c)
     for i, (v, w) in enumerate(terms):
         if v is None:
             continue
         if isinstance(v, Product):
             x, c = v.x, float(np.float32(v.c) * np.float32(w))
+        elif isinstance(v, OneResourceFit):
+            x, c = v.x, _times(v.c, w)
+            if not folded:
+                x, c = x * c, None
+        elif isinstance(v, Constant):
+            x, c = torch.full(v.shape, _times(v.c, w), dtype=torch.float32,
+                              device=v.device), None
         else:
             x, c = (v, None) if w == 1.0 else (v, float(w))
         if acc is None and held is None:
@@ -170,12 +182,35 @@ def dyn_mask_plain(vsbase, parts, act_v=None):
     return mask, feasible
 
 
+def balanced_is_constant(node_allocatable: torch.Tensor) -> bool:
+    """Over one resource BalancedAllocation's std is frac - frac = 0 and its
+    score the constant 100: the reference's compiled program folds it, so
+    a held product fuses into the add that takes it (ROADMAP C7). Over
+    more resources, one of them weighted alone, it does not fold: the
+    masked mean and variance stay computed."""
+    return node_allocatable.shape[1] == 1
+
+
+def one_resource_fit(node_allocatable: torch.Tensor, weights) -> bool:
+    """The fit score over a snapshot's one resource, scored: the compiled
+    program folds its weight sum and the weight into one constant
+    (`commit.OneResourceFit`)."""
+    return node_allocatable.shape[1] == 1 and tuple(weights) == (1.0,)
+
+
 def _plain_value(v):
+    if isinstance(v, FitScore) and one_resource_fit(v.node_allocatable, v.weights):
+        return OneResourceFit(fit_fraction(v.pod_requested[:, None, :], v.node_allocatable,
+                                           v.node_requested, v.most)[..., 0],
+                              MAX_NODE_SCORE)
     if isinstance(v, FitScore):
         return Product(*requested_score_factors(
             v.pod_requested[:, None, :], v.node_allocatable, v.node_requested,
             v.weights, most=v.most))
     if isinstance(v, BalancedScore):
+        if balanced_is_constant(v.node_allocatable):
+            return Constant((v.pod_requested.shape[0], v.node_allocatable.shape[0]),
+                            v.node_allocatable.device, MAX_NODE_SCORE)
         return Product(balanced_allocation_factor(
             v.pod_requested[:, None, :], v.node_allocatable, v.node_requested,
             v.weights), MAX_NODE_SCORE)
@@ -279,12 +314,18 @@ def score_program(terms):
     flags, fit weights x 100 [R], balanced column bits, the balanced
     count's f32 reciprocal), each term (code, plane, constant, form) as
     `dyn_score_plain` folds it. The value and constant: a FitScore's
-    (fit sum, f32(1 / weight sum) * w), a BalancedScore's (1 - std,
-    100 * w), a plane's (x, w). The form: P_BARE where the constant is 1
-    (no multiply), else P_PRODUCT, or P_PREFERRED for BalancedAllocation,
-    whose multiply fuses into the add in preference to a held product's."""
+    (fit sum, f32(1 / weight sum) * w), over one resource the fraction
+    and 100 * w (its fit sum's one constant 1) beside the folded
+    BalancedAllocation, else the fraction times 100 * w (bare); a
+    BalancedScore's (1 - std, 100 * w), over one resource the folded
+    constant 100 * w itself (T_CONST, bare); a plane's (x, w). The form:
+    P_BARE where the constant is 1 (no multiply), else P_PRODUCT, or
+    P_PREFERRED for BalancedAllocation, whose multiply fuses into the add
+    in preference to a held product's."""
     prog, planes, res, flags = [], [], None, 0
     w100, bal, rn = (), 0, 1.0
+    folded = any(isinstance(v, BalancedScore) and balanced_is_constant(v.node_allocatable)
+                 for v, _ in terms)
     for v, w in terms:
         if isinstance(v, (FitScore, BalancedScore)):
             ops = (v.pod_requested, v.node_allocatable, v.node_requested)
@@ -292,13 +333,23 @@ def score_program(terms):
                 raise ValueError("dyn_score: the resource scores read different operands")
             res = ops
         form = P_PRODUCT
-        if isinstance(v, FitScore):
+        if isinstance(v, FitScore) and one_resource_fit(v.node_allocatable, v.weights):
+            # the fraction times 100 * w: held as a product beside the
+            # folded BalancedAllocation, else rounded as the fit sum's
+            # one product
+            c = _times(MAX_NODE_SCORE, w)
+            w100, c = ((1.0,), c) if folded else ((c,), 1.0)
+            flags |= S_MOST if v.most else 0
+            code, plane = T_FIT, 0
+        elif isinstance(v, FitScore):
             ones = all(x == 1.0 for x in v.weights)
             w100 = tuple(MAX_NODE_SCORE if ones else _times(x, MAX_NODE_SCORE)
                          for x in v.weights)
             flags |= (S_FIT_ONES if ones else 0) | (S_MOST if v.most else 0)
             rws = _reciprocal(max(_f32(sum(v.weights)), 1e-9))
             code, plane, c = T_FIT, 0, _times(rws, w)
+        elif isinstance(v, BalancedScore) and balanced_is_constant(v.node_allocatable):
+            code, plane, c, form = T_CONST, 0, _times(MAX_NODE_SCORE, w), P_BARE
         elif isinstance(v, BalancedScore):
             cols = [r for r, x in enumerate(v.weights) if x > 0]
             bal = sum(1 << r for r in cols)
@@ -308,7 +359,7 @@ def score_program(terms):
         else:
             code, plane, c = T_PLANE, len(planes), _f32(w)
             planes.append(v)
-        prog.append((code, plane, c, P_BARE if c == 1.0 else form))
+        prog.append((code, plane, c, P_BARE if c == 1.0 or code == T_CONST else form))
     return prog, planes, res, flags, w100, bal, rn
 
 

@@ -4,11 +4,13 @@ candidates, bool [C2, N, MPN+1].
 Reference: `k8s_scheduler_tpu/ops/preemption.py:246-398`
 (nonresource_ok_batched). `preemption.nonresource_ok_plain` is the plain
 version; this module launches csrc/preempt_whatif.cu for CUDA tensors:
-one thread per (candidate, node), each victim's selector match and owned
-anti terms gathered directly instead of the reference's one-hot products
-over [S, N*MPN] tables. The inputs (`preemption.whatif_inputs`) keep the
-[C2, S] x [S, D] symmetric-owner product as `torch.matmul`. Bound on an
-H100: bytes (the verdicts written once, the node tables read once)."""
+node-stationary, a thread per node over a chunk of candidates, each
+victim's selector match gathered once a (candidate, term) into a word of
+match bits instead of the reference's one-hot products over [S, N*MPN]
+tables. The inputs (`preemption.whatif_inputs`) keep the [C2, S] x [S, D]
+symmetric-owner product as `torch.matmul`. Bound on an H100: bytes (the
+verdicts written once, the node tables read once). At most MAX_PREFIXES
+verdicts a (candidate, node): 255 pods a node."""
 
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import torch
 from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
                            raise_on_error, stream_of)
 from .preemption import WhatIfInputs, nonresource_ok_plain
+
+MAX_PREFIXES = 256  # csrc/preempt_whatif.cu 32 * kMaxW: MPN + 1 verdicts
 
 
 def _library():
@@ -39,6 +43,8 @@ def preempt_whatif_cuda(x: WhatIfInputs) -> torch.Tensor:
     E, MEP = x.exist_ports.shape
     dev = x.ports.device
     k = "preempt_whatif"
+    if MPN + 1 > MAX_PREFIXES:
+        raise ValueError(f"{k}: {MPN} pods a node over the kernel's {MAX_PREFIXES - 1}")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     keep = [
         checked(k, x.node_pods, i32, (N, MPN), dev),

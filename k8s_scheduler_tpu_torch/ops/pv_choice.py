@@ -4,9 +4,11 @@ volume slot, i32 [B, MVol] — the rounds engine's PV guard key.
 Reference: `k8s_scheduler_tpu/ops/volumes.py:535 chosen_pv_slots` (with
 `chosen_pv`, `chosen_pv_sdr`, `_sdr_safe_choice`, `_dyn_at_node`).
 `volumes.pv_choice_plain` is the plain version; this module launches
-csrc/pv_choice.cu for CUDA tensors: one thread per claimant walks its
-node's list of available PVs in index order (csrc/pv_common.cuh
-pv::choose, shared with K12)."""
+csrc/pv_choice.cu for CUDA tensors: a thread per pod row, rows without a
+pending slot leave after one round of loads; a claimant walks its node's
+list of available PVs once into per-slot candidate words in registers and
+makes every slot's choice from them (a list over 32 entries takes
+csrc/pv_common.cuh pv::choose, K12's walk)."""
 
 from __future__ import annotations
 

@@ -100,6 +100,14 @@ def most_requested_score(
     return acc * c
 
 
+def fit_fraction(pod_requested, node_allocatable, node_requested, most: bool = False):
+    """The clamped used fraction (MostRequested) or 1 minus it
+    (LeastRequested) per resource: what the fit score weights by 100."""
+    frac = torch.clamp(
+        _used_fraction(pod_requested, node_allocatable, node_requested), 0.0, 1.0)
+    return frac if most else 1.0 - frac
+
+
 def requested_score_factors(
     pod_requested, node_allocatable, node_requested,
     resource_weights: Sequence[float], most: bool = False,
@@ -113,9 +121,7 @@ def requested_score_factors(
     the 100 folds into the constant weights and the reduction accumulates
     left to right with fused multiply-adds, or, when every weight is 1 and
     the weight multiply folds away, adds the rounded `x_r * 100` terms."""
-    frac = torch.clamp(
-        _used_fraction(pod_requested, node_allocatable, node_requested), 0.0, 1.0)
-    x = frac if most else 1.0 - frac
+    x = fit_fraction(pod_requested, node_allocatable, node_requested, most)
     ones = all(w == 1.0 for w in resource_weights)
     acc = None
     for r, w in enumerate(resource_weights):

@@ -39,6 +39,7 @@ from ..framework.plugins import _score_resource_weights
 from ..models.encoding import WHEN_DO_NOT_SCHEDULE, WHEN_SCHEDULE_ANYWAY
 from . import interpod as ip
 from .commit import CommitResult, greedy_commit
+from .dyn_round import balanced_is_constant, one_resource_fit
 from .kernel_build import (checked, count_launch, load_cuda_library, raise_on_error,
                            stream_of)
 from .resources import MAX_NODE_SCORE, _reciprocal, fit_slack
@@ -71,7 +72,9 @@ F_PORTS, F_FIT, F_AFFINITY, F_SPREAD, F_PORT_STATE, F_STATE, F_TABLES, F_MOST = 
 # the fit weights are all 1 (the sum adds rounded products); every resource
 # is BalancedAllocation's (its variance sum fuses the squares)
 F_FIT_ONES, F_BAL_ALL = 256, 512
-T_FIT, T_BALANCED, T_AFFINITY, T_SPREAD = 1, 2, 3, 4
+# T_CONST: BalancedAllocation over one resource, the constant 100 * w its
+# weight holds (the reference folds it: ROADMAP C7)
+T_FIT, T_BALANCED, T_AFFINITY, T_SPREAD, T_CONST = 1, 2, 3, 4, 5
 
 # the plugins whose per-pod hooks the kernel implements
 _COVERED = ("NodePorts", "NodeResourcesFit", "NodeResourcesBalancedAllocation",
@@ -89,7 +92,8 @@ class ScanInputs:
     ctx: Any
     extra: dict  # the framework's initial extra state
     flags: int
-    terms: tuple[tuple[int, float], ...]  # (term code, weight), score order
+    # (term code, weight; T_CONST: 100 * w), score order
+    terms: tuple[tuple[int, float], ...]
     fit_w100: tuple[float, ...]  # [R] f32(w) * f32(100) of the fit score
     fit_rwsum: float  # f32(1 / weight sum) of the fit score
     bal_cols: tuple[bool, ...]  # [R] resources BalancedAllocation averages
@@ -171,16 +175,29 @@ def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict) -> ScanInputs:
             flags |= F_TABLES
     R = snap.node_allocatable.shape[1]
     terms, fit_w100, fit_rwsum, bal_cols = [], [0.0] * R, 1.0, [False] * R
+    folded = R == 1 and any(s.name == "NodeResourcesBalancedAllocation"
+                            for s, _ in fw.scores)
     for s, w in fw.scores:
         if s.name == "NodeResourcesFit":
             wr = _score_resource_weights(snap, s.args)
-            fit_w100 = [float(np.float32(v) * np.float32(MAX_NODE_SCORE)) for v in wr]
-            fit_rwsum = _reciprocal(max(float(np.float32(sum(wr))), 1e-9))
-            if all(v == 1.0 for v in wr):
-                flags |= F_FIT_ONES
             if s.args.get("scoring_strategy", "LeastAllocated") == "MostAllocated":
                 flags |= F_MOST
-            terms.append((T_FIT, float(w)))
+            if one_resource_fit(snap.node_allocatable, wr):
+                # commit.OneResourceFit: the fraction times 100 * w, a
+                # product beside the folded BalancedAllocation, else
+                # rounded (bare)
+                c = float(np.float32(MAX_NODE_SCORE) * np.float32(w))
+                fit_w100 = [1.0] if folded else [c]
+                terms.append((T_FIT, c if folded else 1.0))
+            else:
+                fit_w100 = [float(np.float32(v) * np.float32(MAX_NODE_SCORE)) for v in wr]
+                fit_rwsum = _reciprocal(max(float(np.float32(sum(wr))), 1e-9))
+                if all(v == 1.0 for v in wr):
+                    flags |= F_FIT_ONES
+                terms.append((T_FIT, float(w)))
+        elif (s.name == "NodeResourcesBalancedAllocation"
+              and balanced_is_constant(snap.node_allocatable)):
+            terms.append((T_CONST, float(np.float32(MAX_NODE_SCORE) * np.float32(w))))
         elif s.name == "NodeResourcesBalancedAllocation":
             bal_cols = [v > 0 for v in _score_resource_weights(snap, s.args)]
             if all(bal_cols):

@@ -997,7 +997,8 @@ DYN_TAGS = (
     "zero allocatable", "an exact fit at the slack", "full nodes", "R = 1", "R = 8",
     "Q = 0", "pad port slots, a pod with 3 ports", "every row NEG_INF", "B = 1",
     "B = 13, N = 13", "N = 8199", "an empty term program", "a lone BalancedAllocation",
-    "weights other than 1, a plane first")
+    "weights other than 1, a plane first", "R = 1, both resource scores",
+    "BalancedAllocation over one of four resources")
 _NEG_INF = -1e9
 _DEFAULT_W = (1.0, 1.0, 0.0, 0.0)  # cpu and memory of four resources
 
@@ -1058,7 +1059,12 @@ def dyn_raw_cases() -> dict:
       - BalancedAllocation as the one term (a lone product fused into the
         base add) and its anchor;
       - weights 3, 2, 5 and 1 (the "weighted" profile's), a plane first at
-        weight 2 (a held product), BalancedAllocation meeting it."""
+        weight 2 (a held product), BalancedAllocation meeting it;
+      - ROADMAP C7's input (its own draw of seed 1411): R = 1 scored by the
+        fit score and BalancedAllocation (folded to the constant 100, the
+        fit's product fused into it), then a plane; and BalancedAllocation
+        over one of four resources (not folded: a masked mean and
+        variance) beside the fit score over two."""
     rng = np.random.default_rng(1411)
     out = {}
 
@@ -1117,6 +1123,14 @@ def dyn_raw_cases() -> dict:
         rng, 48, 64, 4, n_splanes=3,
         terms=[("plane", 2.0, 0), ("balanced", 3.0, three), ("plane", 2.0, 1),
                ("fit", 5.0, three, False), ("plane", 3.0, 2), ("plane", 1.0, 1)])
+
+    out["R = 1, both resource scores"] = _dyn_raw(
+        np.random.default_rng(1411), 40, 64, 1, n_splanes=1,
+        terms=[("fit", 1.0, (1.0,), False), ("balanced", 1.0, (1.0,)), ("plane", 1.0, 0)])
+    out["BalancedAllocation over one of four resources"] = _dyn_raw(
+        rng, 48, 64, 4, n_splanes=1,
+        terms=[("balanced", 1.0, (1.0, 0.0, 0.0, 0.0)), ("plane", 1.0, 0),
+               ("fit", 1.0, _DEFAULT_W, False)])
     assert tuple(out) == DYN_TAGS
     return out
 
@@ -1160,3 +1174,323 @@ def dyn_inputs(raw: dict, device) -> dict:
 def dyn_cases(device="cpu") -> dict:
     """{tag: `dyn_inputs`} of K14's and K15's edge cases (`dyn_raw_cases`)."""
     return {tag: dyn_inputs(raw, device) for tag, raw in dyn_raw_cases().items()}
+
+
+# ---- K11 `pv_choice` --------------------------------------------------------
+
+PV_CHOICE_CAP = 32  # csrc/pv_choice.cu kCap: list entries held in registers
+PV_CHOICE_TAGS = (
+    "a node list longer than the register cap", "global PVs merged with the node's list",
+    "MVol = 1", "MVol = 8", "every PV claimed", "inactive rows with slots",
+    "node_of out of range", "slots that ride dynamic provisioning",
+    "capacities at the + 1e-3 edge")
+PV_CHOICE_VOL = {"MVol = 1": 1}  # cases whose slot axis is cut to its first slots
+_ZONE = "topology.kubernetes.io/zone"
+
+
+def narrow_vol_slots(snap, k: int):
+    """The snapshot with its pod volume slots cut to the first k (either
+    package's `ClusterSnapshot`)."""
+    return dataclasses.replace(snap, **{
+        f.name: getattr(snap, f.name)[:, :k] for f in dataclasses.fields(snap)
+        if f.name.startswith("pod_vol_")})
+
+
+def pv_choice_objects(m, api) -> dict:
+    """{tag: (nodes, pods, encode kwargs)} of K11's edge cases
+    (PV_CHOICE_TAGS), made with a models module and its api module of
+    either package. Nodes labelled by hostname (and zone: node i in zone
+    i % 3); PVs pinned to a node by hostname, or without nodeAffinity (the
+    global list); one WaitForFirstConsumer class without a provisioner
+    unless the case says otherwise; pod k created at time k."""
+    local = api.StorageClass("local", api.VOLUME_BINDING_WAIT, provisioner=False)
+
+    def nodes(n):
+        return [m.MakeNode(f"n{i}").capacity({"cpu": "64"})
+                .labels({HOST: f"n{i}", _ZONE: f"z{i % 3}"}).obj() for i in range(n)]
+
+    def pinned(name, node, gib=10.0, cls="local"):
+        return api.PersistentVolume(name, capacity=gib * _GIB, storage_class=cls,
+                                    node_affinity=_host_term(api, node))
+
+    def free(name, gib=10.0, cls="local"):
+        return api.PersistentVolume(name, capacity=gib * _GIB, storage_class=cls)
+
+    def claimants(sizes_of, cls="local"):
+        """one pod a claim-size tuple (GiB; a (class, GiB) pair picks the
+        class), its PVCs named after it"""
+        pods, pvcs = [], []
+        for k, sizes in enumerate(sizes_of):
+            pod = m.MakePod(f"p{k}").req({"cpu": "1"}).created(float(k))
+            for j, z in enumerate(sizes):
+                c, z = z if isinstance(z, tuple) else (cls, z)
+                pvcs.append(api.PersistentVolumeClaim(f"c{k}-{j}", storage_class=c,
+                                                      request=z * _GIB))
+                pod = pod.volume(f"c{k}-{j}")
+            pods.append(pod.obj())
+        return pods, pvcs
+
+    rng = np.random.default_rng(1102)
+    out = {}
+    # node 0 lists 40 PVs (over the 32 a word holds), nodes 1-3 a few;
+    # single-, two- and three-volume pods
+    pvs = [pinned(f"a{v}", "n0", float(rng.integers(2, 12))) for v in range(40)]
+    pvs += [pinned(f"b{v}", f"n{1 + v % 3}", float(rng.integers(2, 12))) for v in range(9)]
+    pods, pvcs = claimants([tuple(int(z) for z in rng.integers(1, 10, 1 + k % 3))
+                            for k in range(60)])
+    out["a node list longer than the register cap"] = (
+        nodes(4), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    # PVs without nodeAffinity between the pinned ones in index order
+    pvs = []
+    for v in range(24):
+        pvs.append(free(f"g{v}", float(rng.integers(2, 12))) if v % 3 == 1 else
+                   pinned(f"pv{v}", f"n{v % 6}", float(rng.integers(2, 12))))
+    pods, pvcs = claimants([tuple(int(z) for z in rng.integers(1, 10, 1 + k % 2))
+                            for k in range(40)])
+    out["global PVs merged with the node's list"] = (
+        nodes(6), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    # single-volume pods, the slot axis cut to 1 (PV_CHOICE_VOL)
+    pvs = [pinned(f"pv{v}", f"n{v % 5}", float(rng.integers(2, 12))) for v in range(20)]
+    pvs += [free("g0", 6.0)]
+    pods, pvcs = claimants([(int(rng.integers(1, 10)),) for _ in range(30)])
+    out["MVol = 1"] = (nodes(5), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    # eight slots: the capped subsets and the dominance groups
+    pvs = [pinned(f"pv{i}-{v}", f"n{i}", c) for i in range(3)
+           for v, c in enumerate((10, 10, 10, 2, 2, 2, 2, 2, 2, 6))]
+    pods, pvcs = claimants([(1, 8, 8, 8, 1, 1, 1, 1), (8, 8, 8, 1, 1, 1, 1, 1),
+                            (1, 5, 8, 1, 1, 1, 1), (2, 2)] * 3)
+    out["MVol = 8"] = (nodes(3), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local]))
+
+    pvs = [pinned(f"pv{v}", f"n{v % 4}") for v in range(12)] + [free("g0")]
+    pods, pvcs = claimants([(5,), (5, 5)] * 10)
+    out["every PV claimed"] = (nodes(4), pods, dict(pvcs=pvcs, pvs=pvs,
+                                                    storage_classes=[local]))
+    out["inactive rows with slots"] = (nodes(4), pods, dict(pvcs=pvcs, pvs=pvs,
+                                                            storage_classes=[local]))
+    out["node_of out of range"] = (nodes(4), pods, dict(pvcs=pvcs, pvs=pvs,
+                                                        storage_classes=[local]))
+
+    # a provisioning class allowed in zones z0 and z1: its slots ride
+    # dynamic provisioning there (the SDR choice's needy set and its -1),
+    # beside static PVs of the class and local ones
+    zonal = (api.NodeSelectorTerm((api.NodeSelectorRequirement(_ZONE, "In", ("z0", "z1")),)),)
+    prov = api.StorageClass("prov", api.VOLUME_BINDING_WAIT, allowed_topologies=zonal)
+    pvs = [pinned(f"pv{v}", f"n{v % 6}", 4.0 + v % 3, "prov" if v % 2 else "local")
+           for v in range(18)]
+    pods, pvcs = claimants([(("prov", 5), 3), (("prov", 3), ("prov", 3)), (3, 5, ("prov", 2)),
+                            (("prov", 4),)] * 6)
+    out["slots that ride dynamic provisioning"] = (
+        nodes(6), pods, dict(pvcs=pvcs, pvs=pvs, storage_classes=[local, prov]))
+
+    # capacities of a few bytes: f32 pv_cap + 1e-3 against the request, at
+    # the edge (equal), one step over it and under it
+    one = 1.0 / _GIB  # bytes, in the GiB unit of `pinned`
+    pvs = [pinned(f"pv{v}", f"n{v % 3}", (1.0 + v % 3) * one) for v in range(9)]
+    sizes = [float(np.float32(np.float32(1 + k % 3) + np.float32(1e-3))) for k in range(9)]
+    sizes += [float(np.nextafter(np.float32(z), np.float32(np.inf))) for z in sizes[:3]]
+    sizes += [float(np.nextafter(np.float32(z), np.float32(0))) for z in sizes[:3]]
+    pods, pvcs = claimants([(z * one,) for z in sizes] + [(z * one, z * one) for z in sizes[:6]])
+    out["capacities at the + 1e-3 edge"] = (nodes(3), pods, dict(pvcs=pvcs, pvs=pvs,
+                                                                 storage_classes=[local]))
+    assert tuple(out) == PV_CHOICE_TAGS
+    return out
+
+
+def pv_choice_draws(tag: str, P: int, V: int, n_nodes: int, pod_valid) -> list[dict]:
+    """numpy (claimed, node_of, active) draws of a K11 case: three seeded
+    draws (no PV claimed before, a quarter, a half), with the case's own
+    bitmap, nodes or active rows where it names them."""
+    rng = np.random.default_rng(PV_CHOICE_TAGS.index(tag) + 1100)
+    valid = np.asarray(pod_valid)
+    out = []
+    for d, share in enumerate((0.0, 0.25, 0.5)):
+        claimed = rng.random(V) < share
+        node_of = rng.integers(0, n_nodes, P).astype(np.int32)
+        active = valid & (rng.random(P) < 0.9)
+        if tag == "a node list longer than the register cap":
+            node_of[rng.random(P) < 0.6] = 0
+        elif tag == "every PV claimed":
+            claimed[:] = True
+            if d == 1:  # all but one
+                claimed[rng.integers(0, V)] = False
+        elif tag == "inactive rows with slots":
+            active = valid & (np.arange(P) % 2 == d % 2)
+        elif tag == "node_of out of range":
+            node_of[::3] = -1 - d
+            node_of[1::3] = n_nodes + 64 + 100 * d  # past the padded node axis
+        out.append({"claimed": claimed, "node_of": node_of, "active": active})
+    return out
+
+
+def pv_choice_cases(device="cpu") -> dict:
+    """{"tag, draw d": args of `pv_choice_plain` / `pv_choice_cuda`} of
+    K11's edge cases (`pv_choice_objects`, `pv_choice_draws`), encoded by
+    the port on `device`."""
+    from .. import models
+    from ..framework.interfaces import CycleContext
+
+    out = {}
+    for tag, (nodes, pods, kw) in pv_choice_objects(models, models.api).items():
+        snap = models.SnapshotEncoder(device=device).encode(nodes, pods, **kw)
+        if tag in PV_CHOICE_VOL:
+            snap = narrow_vol_slots(snap, PV_CHOICE_VOL[tag])
+        tables = CycleContext(snap).volume_tables
+        for d, draw in enumerate(pv_choice_draws(tag, snap.P, snap.pv_avail.shape[0],
+                                                 len(nodes), snap.pod_valid.cpu())):
+            t = {k: torch.from_numpy(v).to(device) for k, v in draw.items()}
+            out[f"{tag}, draw {d}"] = (snap, tables, t["claimed"], t["node_of"], t["active"])
+    return out
+
+
+# ---- K8 `preempt_whatif` ----------------------------------------------------
+
+WHATIF_TAGS = (
+    "MPN = 72", "nodes with no domain for a key", "candidates with no terms",
+    "host ports with winner_conf set", "affinity without spread", "spread without affinity",
+    "a ScheduleAnyway spread term", "counts at the 0.5 thresholds", "the bootstrap rule")
+WHATIF_OWN_CAP = 16  # csrc/preempt_whatif.cu kOwnCap: owned anti terms a node keeps
+
+
+def whatif_objects(m) -> dict:
+    """{tag: (nodes, pending, existing)} of K8's edge cases (WHATIF_TAGS),
+    made with a models module of either package. Full nodes of 4 cores
+    (labelled by hostname, zone z{i % 3} unless the case drops it) hold
+    low-priority running pods of apps a-c; the pending pods ask for a
+    core at priority 100, so each needs victims, and carry the case's
+    terms, drawn from a seed."""
+    rng = np.random.default_rng(808)
+    apps = ("a", "b", "c")
+
+    def nodes(n, no_zone=()):
+        return [m.MakeNode(f"n{i}").capacity({"cpu": "4"}).labels(
+            {HOST: f"n{i}"} if i in no_zone else {HOST: f"n{i}", _ZONE: f"z{i % 3}"}).obj()
+            for i in range(n)]
+
+    def running(n_nodes, per_node, owners=0.0, ports=0.0, extra=None, key=HOST):
+        """per_node pods a node (a dict: by node, None the rest) filling its
+        4 cores; with probability
+        `owners` a pod owns an anti term (`key`) against a random app, with
+        `ports` it holds host port 8080 or 8081"""
+        out = []
+        for i in range(n_nodes):
+            n_here = per_node.get(i, per_node[None]) if isinstance(per_node, dict) else per_node
+            for j in range(n_here):
+                p = (m.MakePod(f"r{i}-{j}").req({"cpu": f"{4000 // n_here}m"})
+                     .labels({"app": apps[int(rng.integers(0, 3))]})
+                     .priority(int(rng.integers(0, 6))).created(float(j)))
+                if rng.random() < owners:
+                    p = p.pod_affinity(key, {"app": apps[int(rng.integers(0, 3))]}, anti=True)
+                if rng.random() < ports:
+                    p = p.host_port(8080 + int(rng.integers(0, 2)))
+                if extra is not None:
+                    p = extra(p, i, j)
+                out.append((p.obj(), f"n{i}"))
+        return out
+
+    def pending(n, terms, cpu="1", prio=100, label=True):
+        out = []
+        for k in range(n):
+            p = m.MakePod(f"q{k}").req({"cpu": cpu}).priority(prio).created(100.0 + k)
+            if label:
+                p = p.labels({"app": apps[int(rng.integers(0, 3))]})
+            out.append(terms(p, k).obj())
+        return out
+
+    def anti_aff_spread(p, k, key=_ZONE):
+        a = apps[int(rng.integers(0, 3))]
+        if k % 3 == 0:
+            p = p.pod_affinity(HOST if k % 2 else key, {"app": a}, anti=True)
+        if k % 3 == 1:
+            p = p.pod_affinity(key, {"app": a})
+        if k % 2 == 0:
+            p = p.spread(1 + k % 2, key, {"app": apps[int(rng.integers(0, 3))]})
+        return p
+
+    out = {}
+    # node 0: 70 running pods (MPN 72: three verdict words), 30 of them
+    # owning an anti term (over the kept 16); the preemptors' terms match
+    # the crowded node's victims past slot 63
+    out["MPN = 72"] = (nodes(4), pending(12, lambda p, k: anti_aff_spread(p, k, HOST)),
+                       running(4, {0: 70, None: 4}, owners=0.45))
+    out["nodes with no domain for a key"] = (
+        nodes(6, no_zone=(1, 4)), pending(12, anti_aff_spread),
+        running(6, 4, owners=0.2))
+    # no terms; running owners' anti terms select the preemptors' apps
+    out["candidates with no terms"] = (nodes(5), pending(10, lambda p, k: p),
+                                       running(5, 4, owners=0.5))
+    # winners with ports 8080/8081 placed this cycle on nodes 4-5 (2 free
+    # cores each); preemptors asking for the same ports; victims with ports
+    ns = nodes(6)
+    ex = running(4, 4, ports=0.4) + [
+        (m.MakePod(f"s{i}").req({"cpu": "2"}).labels({"app": "a"}).priority(0).obj(), f"n{i}")
+        for i in (4, 5)]
+    win = [m.MakePod(f"w{i}").req({"cpu": "1"}).host_port(8080 + i).priority(500)
+           .created(float(i)).obj() for i in range(2)]
+    pre = pending(8, lambda p, k: p.host_port(8080 + k % 2) if k % 4 else p, cpu="3")
+    out["host ports with winner_conf set"] = (ns, win + pre, ex)
+    out["affinity without spread"] = (
+        nodes(6), pending(12, lambda p, k: p.pod_affinity(
+            HOST if k % 2 else _ZONE, {"app": apps[k % 3]}, anti=k % 3 != 1)),
+        running(6, 4, owners=0.3))
+    out["spread without affinity"] = (
+        nodes(6, no_zone=(5,)), pending(12, lambda p, k: p.spread(
+            1 + k % 3, _ZONE if k % 2 else HOST, {"app": apps[k % 3]})),
+        running(6, 4))
+    out["a ScheduleAnyway spread term"] = (
+        nodes(6), pending(12, lambda p, k: p.spread(
+            1, _ZONE, {"app": apps[k % 3]}, when_unsatisfiable="ScheduleAnyway").spread(
+            2, HOST, {"app": apps[(k + 1) % 3]})),
+        running(6, 4))
+    # every node holds 2 app-a pods: anti-affinity to app a by hostname
+    # clears exactly when both are evicted (count - evicted = 0); zone
+    # counts 4 / 4 / 4 of app b and maxSkew 1 (after + 1 - min = 1)
+    ex = running(6, 4, extra=lambda p, i, j: p.labels({"app": "a" if j < 2 else "b"}))
+    out["counts at the 0.5 thresholds"] = (
+        nodes(6), pending(12, lambda p, k: p.pod_affinity(HOST, {"app": "a"}, anti=True)
+                          if k % 2 else p.spread(1, _ZONE, {"app": "b"}), label=False), ex)
+    # required affinity to the preemptors' own app, whose only pods are
+    # low-priority victims on node 0 (the bootstrap once all are evicted)
+    ex = running(4, 4, extra=lambda p, i, j: p.labels({"app": "solo"}) if i == 0 and j < 2
+                 else p)
+    out["the bootstrap rule"] = (
+        nodes(4), pending(8, lambda p, k: p.labels({"app": "solo"}).pod_affinity(
+            HOST if k % 2 else _ZONE, {"app": "solo"}), label=False), ex)
+    assert tuple(out) == WHATIF_TAGS
+    return out
+
+
+def whatif_inputs_of(tag: str):
+    """(snapshot, decision, the `WhatIfInputs` of its preemption pass) of
+    one K8 case, on the CPU: the port's rounds cycle, then preemption with
+    the plain stages, the what-if's inputs recorded."""
+    from .. import models
+    from ..core.cycle import build_cycle_fn, build_preemption_fn
+    from ..ops import preemption
+
+    nodes, pods, existing = whatif_objects(models)[tag]
+    snap = models.SnapshotEncoder(device="cpu").encode(nodes, pods, existing)
+    d = build_cycle_fn(commit_mode="rounds", device="cpu")(snap)
+    seen = []
+
+    def whatif(x):
+        seen.append(x)
+        return preemption.nonresource_ok_plain(x)
+
+    r = build_preemption_fn(device="cpu", prefilter_fn=preemption.prefilter_plain,
+                            whatif_fn=whatif, claim_fn=preemption.claim_loop_plain)(snap, d)
+    return snap, d, r, seen[0]
+
+
+def whatif_cases(device="cpu") -> dict:
+    """{tag: `WhatIfInputs`} of K8's edge cases (`whatif_objects`), recorded
+    on the CPU (`whatif_inputs_of`) and moved to `device`."""
+    out = {}
+    for tag in WHATIF_TAGS:
+        x = whatif_inputs_of(tag)[3]
+        out[tag] = dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).to(device) for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)})
+    return out

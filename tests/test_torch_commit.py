@@ -45,6 +45,7 @@ from k8s_scheduler_tpu_torch.ops import interpod as ip
 from k8s_scheduler_tpu_torch.ops import resources as res
 from k8s_scheduler_tpu_torch.ops import scan_commit as sc
 from k8s_scheduler_tpu_torch.ops import static_base as sb
+from k8s_scheduler_tpu_torch.utils import kernel_cases
 from test_torch_interpod import _eq, _port_state, _state_eq, carry, case
 from test_torch_encoding import fixture
 
@@ -325,12 +326,31 @@ def _profile(config, name):
         plugins=config.Plugins(score=score), plugin_config=args)])
 
 
+def _c7_objects(m):
+    """ROADMAP C7's scan input: 40 nodes of 3, 6, 7 or 12 cores and 120
+    pending pods of seeded millicore requests (usage fractions whose
+    products with 100 round), running pods on every node."""
+    rng = np.random.default_rng(1411)
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": f"{int(rng.choice([3, 6, 7, 12]))}"}).obj()
+             for i in range(40)]
+    pods = [m.MakePod(f"p{j}").req({"cpu": f"{int(rng.integers(50, 1900))}m"})
+            .created(float(j)).obj() for j in range(120)]
+    running = [(m.MakePod(f"r{i}").req({"cpu": f"{int(rng.integers(100, 2500))}m"}).obj(),
+                f"n{i % 40}") for i in range(60)]
+    return nodes, pods, running, []
+
+
 class _Plain:
     """A hook case for a fixture without affinity (no mid-cycle state)."""
 
     def __init__(self, name):
-        nodes, pods, existing, groups = fixture(name, ref_models, ref_synth)
+        if name == "c7":
+            nodes, pods, existing, groups = _c7_objects(ref_models)
+        else:
+            nodes, pods, existing, groups = fixture(name, ref_models, ref_synth)
         self.ref = ref_models.SnapshotEncoder().encode(nodes, pods, existing, groups)
+        if name == "c7":  # cpu alone: R = 1
+            self.ref = kernel_cases.narrow_resources(self.ref, 1)
         self.port = carry(self.ref)
         self.feasible = np.random.default_rng(3).random((self.ref.P, self.ref.N)) < 0.8
 
@@ -339,7 +359,9 @@ DYN_CASES = [(f, "default") for f in HOOK_FIXTURES + ["cfg2", "mixed"]] + [
     (f, prof) for f in ("duplicates", "cfg2")
     for prof in ("weighted", "no_balanced", "balanced_only", "balanced_static",
                  "most_cpu")] + [
-    ("c1", prof) for prof in RESOURCE_PROFILES]
+    ("c1", prof) for prof in RESOURCE_PROFILES] + [
+    ("c7", prof) for prof in ("default", "weighted", "no_balanced", "balanced_only",
+                                   "most_cpu")]
 
 
 @pytest.mark.parametrize("name,profile", DYN_CASES)
@@ -351,7 +373,7 @@ def test_framework_dyn_and_extra_update_step_by_step(name, profile):
     import k8s_scheduler_tpu.config as ref_config
     import k8s_scheduler_tpu_torch.config as port_config
 
-    c = _Plain(name) if name in ("cfg2", "mixed", "c1") else case(name)
+    c = _Plain(name) if name in ("cfg2", "mixed", "c1", "c7") else case(name)
     ref_fw = ref_runtime.Framework.from_config(_profile(ref_config, profile))
     fw = Framework.from_config(_profile(port_config, profile))
 
@@ -419,6 +441,61 @@ def test_lone_balanced_score_adds_to_the_static_score(name):
         m, dyn = fw.dyn(ctx, _i32(p), _t(nr), ext, _t(row))
         assert isinstance(dyn, commit.Product)
         _eq(torch.where(m, commit.add_static(sscore[p], dyn), -1e9), want, f"score p{p}")
+
+
+@pytest.mark.parametrize("profile", ["default", "weighted", "no_balanced"])
+def test_one_resource_scan_matches_reference(profile):
+    """ROADMAP C7's scan half: its cpu-only input (`_c7_objects`, R = 1)
+    through `greedy_commit` with the framework's hooks, in both
+    packages: the placements, the requested resources and every step's
+    score row (the reference's through `dyn_aux`) bit for bit."""
+    import k8s_scheduler_tpu.config as ref_config
+    import k8s_scheduler_tpu_torch.config as port_config
+
+    c = _Plain("c7")
+    ref_fw = ref_runtime.Framework.from_config(_profile(ref_config, profile))
+    fw = Framework.from_config(_profile(port_config, profile))
+    snap = c.port
+    ctx = CycleContext(snap)
+    smask, sscore = fw.static_lean(ctx)
+    smask = smask & sampling_mask(snap, 0)
+    order = torch.argsort(snap.pod_order, stable=True).to(I32)
+    rows = {}
+
+    def dyn_fn(p, nr, ext, row):
+        m, d = fw.dyn(ctx, p, nr, ext, row)
+        rows[int(p)] = torch.where(m & row, commit.add_static(sscore[int(p)], d),
+                                   commit.NEG_INF)
+        return m, d
+
+    got = commit.greedy_commit(
+        order=order, static_mask=smask, static_score=sscore,
+        pod_requested=snap.pod_requested, pod_valid=snap.pod_valid,
+        pod_nominated=snap.pod_nominated, node_requested=snap.node_requested,
+        dyn_fn=dyn_fn, extra=fw.extra_init(ctx),
+        update_fn=lambda ext, p, node, ok: fw.extra_update(ctx, ext, p, node, ok))
+
+    def ref_run(s, smask, sscore, order):
+        rc = _ref_ctx(s, ref_fw)
+
+        def ref_dyn(p, nr, ext, row):
+            m, d, _ = ref_fw.dyn(rc, p, nr, ext, row)
+            return m, d, jnp.where(m & row, sscore[p] + d, commit.NEG_INF)
+
+        return ref_commit.greedy_commit(
+            order=order, static_mask=smask, static_score=sscore,
+            pod_requested=s.pod_requested, pod_valid=s.pod_valid,
+            pod_nominated=s.pod_nominated, node_allocatable=s.node_allocatable,
+            node_requested=s.node_requested, dyn_fn=ref_dyn, extra=ref_fw.extra_init(rc),
+            update_fn=lambda ext, p, node, ok: ref_fw.extra_update(rc, ext, p, node, ok))
+
+    want = jax.jit(ref_run)(c.ref, smask.numpy(), sscore.numpy(), order.numpy())
+    _eq(got.assignment, want.assignment, "assignment")
+    _eq(got.node_requested, want.node_requested, "node_requested")
+    aux = np.asarray(want.dyn_aux)
+    assert len(rows) > 0
+    for p, row in rows.items():
+        _eq(row, aux[p], f"score row of pod {p}")
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_nu
 from k8s_scheduler_tpu_torch.ops import dyn_round as dr
 from k8s_scheduler_tpu_torch.ops import rounds, static_base
 from k8s_scheduler_tpu_torch.utils import kernel_cases as kc
-from test_torch_commit import _profile
+from test_torch_commit import _c7_objects, _profile
 from test_torch_encoding import fixture
 
 NEG_INF = rounds.NEG_INF
@@ -58,6 +58,8 @@ def _hostports(m):
 
 
 def _objects(name, models, synth):
+    if name == "c7":
+        return _c7_objects(models)
     return _hostports(models) if name == "hostports" else fixture(name, models, synth)
 
 
@@ -93,7 +95,20 @@ def test_dyn_round_plain_matches_reference_round_program(name, profile):
     """`Framework.dyn_batched` on the plain versions (K14's and K15's) after
     a fold of earlier placements (NodePorts' claims, the affinity state):
     the round's mask and base bit for bit, and the score anchor."""
-    ref, port = _snapshots(name)
+    _round_program_check(*_snapshots(name), profile)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_one_resource_round_program_matches_reference(profile):
+    """ROADMAP C7 through the framework: its cpu-only input cut to one
+    resource (R = 1), where BalancedAllocation folds to a constant and the
+    fit score is one product, under every profile."""
+    ref, port = (kc.narrow_resources(s, 1) for s in _snapshots("c7"))
+    assert port.node_allocatable.shape[1] == 1
+    _round_program_check(ref, port, profile)
+
+
+def _round_program_check(ref, port, profile):
     rfw = ref_rt.Framework.from_config(_profile(ref_config, profile))
     fw = Framework.from_config(_profile(port_config, profile))
     accepted, node_of, nreq, act = _round_state(ref, 7)
@@ -263,8 +278,9 @@ def _k15_model(vsbase, terms):
         bx = f32(1.0) - np.sqrt(np.float64(var * f32(rn))).astype(f32)
     acc, have, held, hx, hc = None, False, False, None, None
     for code, plane, c, prod in prog:
-        x = fx if code == dr.T_FIT else bx if code == dr.T_BALANCED else planes[plane].numpy()
         c = f32(c)
+        x = (fx if code == dr.T_FIT else bx if code == dr.T_BALANCED else
+             np.full(fx.shape, c, f32) if code == dr.T_CONST else planes[plane].numpy())
         if not have:
             have = True
             if prod:
@@ -285,6 +301,50 @@ def _k15_model(vsbase, terms):
     if held:
         return _fma(hx, hc, sb)
     return sb + (np.zeros_like(sb) if acc is None else acc)
+
+
+_FIT = ("fit", 1.0, (1.0,), False)
+_BAL = ("balanced", 1.0, (1.0,))
+# ROADMAP C7's term programs: one resource, in both orders, with weights,
+# MostAllocated, beside planes; the fit score alone (no constant to fuse
+# into: its product rounded, the weight folded into it); and
+# BalancedAllocation weighting one of four resources (not folded)
+ONE_RESOURCE = {
+    "fit, balanced": (1, [_FIT, _BAL]),
+    "balanced, fit": (1, [_BAL, _FIT]),
+    "fit 5, balanced 3": (1, [("fit", 5.0, (1.0,), False), ("balanced", 3.0, (1.0,))]),
+    "most, balanced": (1, [("fit", 1.0, (1.0,), True), _BAL]),
+    "plane, balanced, fit": (1, [("plane", 1.0, 0), _BAL, _FIT]),
+    "weighted profile's order": (1, [("balanced", 3.0, (1.0,)), ("plane", 2.0, 0),
+                                     ("fit", 5.0, (1.0,), False), ("plane", 1.0, 1)]),
+    "balanced weight 0, fit": (1, [_FIT, ("balanced", 1.0, (0.0,))]),
+    "fit 5 alone": (1, [("fit", 5.0, (1.0,), False)]),
+    "fit 5, plane": (1, [("fit", 5.0, (1.0,), False), ("plane", 1.0, 0)]),
+    "one of four balanced, fit": (4, [("balanced", 1.0, (1.0, 0.0, 0.0, 0.0)),
+                                      ("fit", 1.0, (1.0, 1.0, 0.0, 0.0), False)]),
+    "fit, one of four balanced 3": (4, [("fit", 1.0, (1.0, 0.0, 0.0, 0.0), False),
+                                        ("balanced", 3.0, (0.0, 1.0, 0.0, 0.0))]),
+}
+
+
+@pytest.mark.parametrize("name", list(ONE_RESOURCE))
+def test_one_resource_scores_match_reference(name):
+    """ROADMAP C7: `dyn_score_plain` and the anchor against the reference's
+    jitted arithmetic on C7's input (a seed-1411 draw at R = 1) under each
+    term program, and K15's program model against the plain version."""
+    R, terms = ONE_RESOURCE[name]
+    n_planes = 1 + max([t[2] for t in terms if t[0] == "plane"], default=-1)
+    raw = kc._dyn_raw(np.random.default_rng(1411), 40, 64, R, terms=terms,
+                      n_splanes=n_planes)
+    _, _, want_base, want_anchor = _ref_case(raw)
+    x = kc.dyn_inputs(raw, "cpu")
+    base = dr.dyn_score_plain(*x["score"]).numpy()
+    np.testing.assert_array_equal(base, want_base)
+    np.testing.assert_array_equal(_k15_model(*x["score"]), base)
+    if any(t[0] != "plane" for t in terms):
+        anchor = dr.dyn_score_plain(*x["anchor"]).numpy()
+        np.testing.assert_array_equal(anchor[0], want_anchor.reshape(-1))
+        np.testing.assert_array_equal(_k15_model(*x["anchor"]), anchor)
 
 
 @pytest.mark.parametrize("tag", kc.DYN_TAGS)
