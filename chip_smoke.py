@@ -19,14 +19,19 @@ running pods, 10000 pending pods, padded P=16384, N=8192):
            its cycles, which makes config #4 whole, and the scan phase runs
            the same snapshots through the scan engine;
   volumes  config #4's workload with local and zonal persistent volumes,
-           cycles and preemption.
+           cycles and preemption;
+
+and the device-carry latency path serving runs (`encode_packed`, the
+carried static base, the packed cycle and preemption) over churn frames
+of config #4's workload, with and without volumes (phase 8).
 
 Phases:
 
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every csrc/*.cu at once (one process per
                 source; with --prev-csrc, also an earlier design's
-                sources of PREV_KERNELS (K9, K4, K13, K6, K12, K11, K8),
+                sources of PREV_KERNELS (K9, K4, K13, K6, K12, K11, K8,
+                K7),
                 timed beside the kernels as prev_device_ms), Triton
                 compiles K2 `claim_pass` meanwhile; then K5 `capacity`, K1
                 `static_base`, K9 `preempt_claim`, K4 `affinity_update` and
@@ -64,7 +69,13 @@ Phases:
                 `whatif_cases` (72 pods a node, nodes without a domain,
                 candidates without terms, winner ports, affinity or spread
                 alone, ScheduleAnyway, counts at their thresholds, the
-                bootstrap rule);
+                bootstrap rule) and K7 `preempt_prefilter` on
+                `prefilter_cases` (no victim below the priority, every
+                candidate infeasible, cand_ok false, the only fit on the
+                last node at N = 8199 and 13, an exact fit at equality,
+                negative free room, R = 1 and 8, MPN = 1 and 16, C = 1 and
+                256, node_valid false on the only fit, prefix rooms out of
+                order, tables read from L2);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
                 decisions required; K14 / K15 held against their plain
                 versions on every call of it), K1/K2 against their plain versions
@@ -95,7 +106,9 @@ Phases:
                 equal to the plain-versions preemption, K7-K9 each equal to
                 its plain version at full size on each seed's real inputs
                 (K8 also with them cut to 512 nodes of 72 pods, and timed
-                both ways against the earlier design with --prev-csrc),
+                both ways against the earlier design with --prev-csrc; K7
+                timed in device time on config #4's call, slice 1's and the
+                PDB variant's, beside the earlier design),
                 and every nomination valid (unplaced, may preempt, not
                 gang-dropped; victims a contiguous lower-priority run on its
                 node that makes it fit after the earlier nominations there;
@@ -151,7 +164,26 @@ Phases:
                 round, then DefaultPreemption after each cycle (K10 once
                 per pass), equal to its plain versions (K9 to
                 `claim_loop_plain` on each pass), nominations valid
-                and through the volume gate.
+                and through the volume gate;
+  8. carry    — the device-carry latency path that serving runs, on config
+                #4's workload and again with `config4_volumes`: a full
+                `SnapshotEncoder.encode_packed` (one pinned upload a
+                buffer), `build_stable_state_fn`, `CarryKeeper` (carry_init:
+                K1 over every row), then 4 churn frames, each binding the
+                previous frame's first 500 placements into the running set
+                (their slots refilled by fresh draws of config #4's mix)
+                and replacing 200 other slots: the keeper's update (K1 on
+                the dirty bucket's rows, scattered into the carried static
+                base), `build_packed_cycle_carry_fn` and
+                `build_packed_preemption_fn`, launch counts read around
+                them; on every frame the carried sbase / mp equal to a
+                fresh carry_init bit for bit, the decisions equal to
+                `build_cycle_fn(commit_mode="rounds")` on the frame's
+                snapshot and the preemption equal to `build_preemption_fn`'s;
+                dirty counts, encode and upload ms, the carry's, cycle's
+                and preemption's events ms against the fresh cycle's, and
+                (torch.profiler) carry_init against the update and the
+                cycles' device time and busy share.
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -185,8 +217,10 @@ AFF_WARM_SEED, AFF_TIMED_SEEDS = 201, (202, 203, 204)
 PDB_SEED = 17  # config4_pdbs draw of the PDB variant
 EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 # timed against --prev-csrc
+CARRY_FRAMES, CARRY_REPLACED, CARRY_BOUND = 4, 200, 500  # the carry phase's churn
+CARRY_SEED = 205
 PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold",
-                "pv_choice", "preempt_whatif")
+                "pv_choice", "preempt_whatif", "preempt_prefilter")
 
 
 def log(msg: str) -> None:
@@ -849,6 +883,32 @@ def pv_choice_edge_checks(torch, dev) -> list[str]:
     return list(cases)
 
 
+def prefilter_edge_checks(torch, dev) -> dict:
+    """K7 against `prefilter_plain` on the seeded edge cases
+    (`utils/kernel_cases.prefilter_cases`); {case: [C, N, MPN, R] and the
+    launch's shape}. The launcher's shared memory a CTA is checked against
+    `preempt_prefilter.launch_shape`."""
+    from k8s_scheduler_tpu_torch.ops import preempt_prefilter as k7
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import prefilter_cases
+
+    lib = k7._library()
+    lib.preempt_prefilter_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    shapes = {}
+    for tag, args in prefilter_cases(dev).items():
+        want = pre.prefilter_plain(*args)
+        check(torch.equal(k7.preempt_prefilter_cuda(*args), want),
+              f"preempt_prefilter differs from its plain version ({tag})")
+        C, R = args[1].shape
+        N, MPN = args[3].shape
+        shape = k7.launch_shape(C, N, MPN, R)
+        check(lib.preempt_prefilter_smem(MPN, R) == (shape["smem"] if shape["staged"] else 0),
+              f"preempt_prefilter: the launcher's shared memory is not launch_shape's ({tag})")
+        shapes[tag] = [[C, N, MPN, R], shape["grid"], "staged" if shape["staged"] else "L2",
+                       int(want.sum())]
+    return shapes
+
+
 def whatif_edge_checks(torch, dev) -> dict:
     """K8 against `nonresource_ok_plain` on the seeded edge cases
     (`utils/kernel_cases.whatif_cases`); {case: [C2, N, MPN+1]}."""
@@ -1102,7 +1162,6 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     N, MPN = pf[3].shape
     C2 = wi.ports.shape[0]
     k7_ms = time_ms(torch, lambda: k7.preempt_prefilter_cuda(*pf), 20)
-    k7_dev = device_ms(lambda: k7.preempt_prefilter_cuda(*pf), 20)
     k7_plain = time_ms(torch, lambda: pre.prefilter_plain(*pf), 3)
     k7_bytes = nbytes(*pf) + C
     gated = pf[6] & pf[7][None, :]
@@ -1139,9 +1198,6 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
                                                cl.node_valid, cl.pdb_allowed)
                 + C2 * 4 + N * 4 + N * R * 4)
     k9_ops = n_live * N * (MPN + 1) * (2 * R + 4)
-    log(f"phase kernel preempt_prefilter: [{C}, {N}, {MPN + 1}] equal True; kernel "
-        f"{k7_ms:.3f} ms ({k7_dev:.4f} ms device), plain {k7_plain:.3f} ms, bound "
-        f"{bound(k7_bytes, k7_ops)[0]:.4f} ms")
     k8_prev_txt = ("not built" if k8_prev is None else
                    f"{k8_prev:.4f} ms device, {k8_prev_wide:.4f} widened")
     log(f"phase kernel preempt_whatif: [{C2}, {N}, {MPN + 1}] equal True (also at "
@@ -1155,7 +1211,7 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
         f"{1e3 * k9_dev / max(n_live, 1):.2f} us a step; earlier design: "
         f"{'not built' if k9_prev is None else f'{k9_prev:.4f} ms device'}), plain "
         f"{k9_plain:.3f} ms, bound {bound(k9_bytes, k9_ops)[0]:.4f} ms")
-    del stage_args, pf, wi, cl, wide
+    del stage_args, wi, cl, wide
 
     # the PDB variant: one budget per app over the running pods
     t0 = time.time()
@@ -1165,8 +1221,8 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
     torch.cuda.synchronize()
     enc_ms = (time.time() - t0) * 1e3
     pd = cycle_k(psnap)
-    _, n_live, n_nom, n_vict, n_viol, _ = run_seed("PDB variant", psnap, pd,
-                                                   pre_k(psnap, pd))
+    pdb_args, n_live, n_nom, n_vict, n_viol, _ = run_seed("PDB variant", psnap, pd,
+                                                          pre_k(psnap, pd))
     covered = int((psnap.exist_pdb[:, 0] >= 0).sum())
     log(f"phase preemption PDB variant: GP={psnap.pdb_allowed.shape[0]} budgets over "
         f"{covered} running pods (encode {enc_ms:.0f} ms); {n_live} live candidates, "
@@ -1174,18 +1230,42 @@ def preemption_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, decisi
         f"violation; kernels == plain, K7-K9 == plain, nominations valid")
     check(n_nom > 0, "PDB variant: no preemptor")
     snap1, d1 = slice1_case
-    _, n_live, n_nom, n_vict, _, _ = run_seed("slice-1 workload", snap1, d1,
-                                              pre_k(snap1, d1))
+    s1_args, n_live, n_nom, n_vict, _, _ = run_seed("slice-1 workload", snap1, d1,
+                                                    pre_k(snap1, d1))
     log(f"phase preemption on slice 1's workload (no affinity/spread): {n_live} live "
         f"candidates, {n_nom} nominations, {n_vict} victims; kernels == plain, K7-K9 == "
         f"plain, nominations valid")
+
+    # K7 in device time on the three calls, and the earlier design on them
+    k7_calls = {"config #4": pf, "slice 1": s1_args["prefilter"],
+                "PDB variant": pdb_args["prefilter"]}
+    k7_devs = {t: device_ms(lambda: k7.preempt_prefilter_cuda(*a), 50)
+               for t, a in k7_calls.items()}
+    k7_prevs = {t: prev_ms(torch, kb, prev_libs, "preempt_prefilter",
+                           lambda: k7.preempt_prefilter_cuda(*a), 50, device_ms)
+                for t, a in k7_calls.items()}
+    k7_dev = k7_devs["config #4"]
+    k7_shape = k7.launch_shape(C, N, MPN, R)
+    log(f"phase kernel preempt_prefilter: [{C}, {N}, {MPN + 1}] x {R} equal True, grid "
+        f"{k7_shape['grid']}, {k7_shape['smem']} B of shared memory a CTA; kernel "
+        f"{k7_ms:.3f} ms, device " + ", ".join(
+            f"{t} {ms:.4f} ms (earlier design: "
+            f"{'not built' if k7_prevs[t] is None else f'{k7_prevs[t]:.4f} ms'})"
+            for t, ms in k7_devs.items())
+        + f"; plain {k7_plain:.3f} ms, bound {bound(k7_bytes, k7_ops)[0]:.4f} ms; feasible "
+        + json.dumps({t: int(k7.preempt_prefilter_cuda(*a).sum())
+                      for t, a in k7_calls.items()}))
+    del pf, k7_calls, pdb_args, s1_args
 
     src = "k8s_scheduler_tpu_torch/csrc/"
     ref = "k8s_scheduler_tpu/ops/preemption.py:"
     entries = {
         "preempt_prefilter": kernel_entry(
             "preempt_prefilter", "cuda", src + "preempt_prefilter.cu", ref + "201",
-            launches["preempt_prefilter"], 0.0, k7_ms, k7_dev, k7_plain, k7_bytes, k7_ops),
+            launches["preempt_prefilter"], 0.0, k7_ms, k7_dev, k7_plain, k7_bytes, k7_ops,
+            slice1_device_ms=k7_devs["slice 1"], pdb_device_ms=k7_devs["PDB variant"],
+            prev_device_ms=k7_prevs["config #4"], prev_slice1_device_ms=k7_prevs["slice 1"],
+            prev_pdb_device_ms=k7_prevs["PDB variant"]),
         "preempt_whatif": kernel_entry(
             "preempt_whatif", "cuda", src + "preempt_whatif.cu", ref + "246",
             launches["preempt_whatif"], 0.0, k8_ms, k8_dev, k8_plain, k8_bytes, k8_ops,
@@ -1996,6 +2076,168 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
+def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool) -> dict:
+    """Phase 8 (module docstring) on one variant: config #4's workload,
+    with `config4_volumes` when `volumes`. Returns {"launches": counts
+    over the carry path's frames, "ms": [carry cycle device ms]}."""
+    import numpy as np
+
+    from k8s_scheduler_tpu_torch.core.cycle import (CarryKeeper, build_carry_fns,
+                                                    build_cycle_fn,
+                                                    build_packed_cycle_carry_fn,
+                                                    build_packed_preemption_fn,
+                                                    build_preemption_fn,
+                                                    build_stable_state_fn)
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    tag = "carry, volumes" if volumes else "carry"
+    seed = AFF_TIMED_SEEDS[0]
+    rng = np.random.default_rng(CARRY_SEED + int(volumes))
+    pods, running, vol = list(pending[seed]), list(existing), {}
+    if volumes:
+        running, pods, pvcs, pvs, classes = synth.config4_volumes(nodes, existing, pods,
+                                                                  seed=seed)
+        vol = dict(pvcs=pvcs, pvs=pvs, storage_classes=classes)
+    names = [nd.name for nd in nodes]
+    enc = SnapshotEncoder(device=dev)
+    cycle_f = build_cycle_fn(fw, commit_mode="rounds", device=dev)
+    pre_f = build_preemption_fn(fw, device=dev)
+    keeper, assignment, updates, prev_spec = None, None, 0, None
+    counts = dict.fromkeys(kb.launch_counts, 0)
+    ms = []
+
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    for f in range(CARRY_FRAMES + 1):
+        if f:  # churn: bind the first placements, refill their slots, replace others
+            bound = np.nonzero(assignment[:len(pods)] >= 0)[0][:CARRY_BOUND]
+            running += [(pods[i], names[assignment[i]]) for i in bound]
+            others = rng.choice(np.setdiff1d(np.arange(len(pods)), bound), CARRY_REPLACED,
+                                replace=False)
+            slots = np.concatenate([bound, others])
+            fresh = synth.make_pods(len(slots), seed=CARRY_SEED + 100 * f + int(volumes),
+                                    name_prefix=f"carry{f}-", **synth.CONFIG4_PENDING)
+            for i, p in zip(slots, fresh):
+                pods[i] = p
+        torch.cuda.synchronize()
+        t0 = time.time()
+        frame = enc.encode_packed(nodes, pods, running, **vol)
+        encode_ms = (time.time() - t0) * 1e3
+        upload_ms = enc.last_upload_ms()
+        w, b, spec = frame.wbuf, frame.bbuf, frame.spec
+
+        # the carry path: counts set to 0 just before, read just after
+        ev = events(5)
+        kb.reset_launch_counts()
+        t0 = time.time()
+        ev[0].record()
+        stable = build_stable_state_fn(spec, device=dev)(w, b)
+        if keeper is None or keeper.spec.layout_key() != spec.layout_key():
+            keeper = CarryKeeper(spec, fw, device=dev)
+        ev[1].record()
+        carry = keeper.state(w, b, stable, frame.dirty, enc._carry_key)
+        ev[2].record()
+        t1 = time.time()
+        r = build_packed_cycle_carry_fn(spec, fw, device=dev)(w, b, stable, carry)
+        ev[3].record()
+        torch.cuda.synchronize()
+        t2 = time.time()
+        rp = build_packed_preemption_fn(spec, fw, device=dev)(w, b, r, stable)
+        ev[4].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+        cycle_wall = (t2 - t1) * 1e3
+        launched = dict(kb.launch_counts)
+        for k, v in launched.items():
+            counts[k] += v
+        t_stable, t_carry, t_cycle, t_pre = (ev[i].elapsed_time(ev[i + 1]) for i in range(4))
+
+        # held against a fresh carry_init and the fresh rounds cycle
+        ci = build_carry_fns(spec, fw, device=dev)[0]
+        e = events(2)
+        e[0].record()
+        fresh = ci(w, b, stable)
+        e[1].record()
+        torch.cuda.synchronize()
+        init_ms = e[0].elapsed_time(e[1])
+        check(bits_equal(torch, carry["sbase"], fresh["sbase"])
+              and torch.equal(carry["mp"], fresh["mp"]),
+              f"{tag} frame {f}: the carried sbase / mp differ from a fresh carry_init")
+        del fresh
+        e = events(2)
+        t0 = time.time()
+        e[0].record()
+        d = cycle_f(frame.snap)
+        e[1].record()
+        torch.cuda.synchronize()
+        fresh_wall = (time.time() - t0) * 1e3
+        fresh_ms = e[0].elapsed_time(e[1])
+        same = same_decisions(torch, r, d)
+        check(all(same.values()), f"{tag} frame {f}: the carry cycle differs from the fresh "
+              f"rounds cycle: {same}")
+        pd = pre_f(frame.snap, d)
+        check(all(torch.equal(getattr(rp, k), getattr(pd, k))
+                  for k in ("nominated", "victims", "num_preemptors")),
+              f"{tag} frame {f}: packed preemption differs from build_preemption_fn's")
+        if volumes:
+            check(bool(frame.snap.has_volumes), f"{tag}: the frame carries no volumes")
+        n_dirty = "none (full)" if frame.dirty is None else len(frame.dirty)
+        if frame.dirty is None and prev_spec is not None:  # what moved the carry key
+            moved = [n for (n, *a), (m, *b) in zip(spec.words + spec.bools,
+                                                   prev_spec.words + prev_spec.bools)
+                     if n != m or a[-2] != b[-2]]
+            moved += [k for (k, v), (j, w) in zip(spec.aux, prev_spec.aux)
+                      if k != "pref_raw_bound" and v != w]
+            n_dirty += f" (the layout moved: {moved or 'no field; the encoder key'})"
+        prev_spec = spec
+        k1_rows = spec.shape_of("pod_priority")[0] if keeper.last == "init" else keeper.bucket
+        ms.append(round(t_cycle, 2))
+        log(f"phase {tag} frame {f}: dirty {n_dirty} (rows changed "
+            f"{'-' if enc.last_changed_slots is None else len(enc.last_changed_slots)}), "
+            f"carry {keeper.last}: K1 launches {launched['static_base']} at {k1_rows} rows; "
+            f"encode {encode_ms:.1f} ms host, upload {upload_ms:.3f} ms device "
+            f"({(spec.n_words * 4 + spec.n_bytes) / 2**20:.1f} MiB); events ms: stable "
+            f"{t_stable:.2f}, carry {t_carry:.2f} (a fresh carry_init {init_ms:.2f}), cycle "
+            f"{t_cycle:.2f} (wall {cycle_wall:.1f}), preemption {t_pre:.2f}, all {wall_ms:.1f} "
+            f"wall; fresh rounds cycle {fresh_ms:.2f} (wall {fresh_wall:.1f}); placed "
+            f"{int((r.assignment >= 0).sum())}, nominated {int(rp.num_preemptors)}; carry == "
+            f"carry_init, decisions == fresh cycle, preemption == build_preemption_fn")
+        if keeper.last == "update" and not updates:
+            # device times of the carry programs and the cycles, by torch.profiler
+            idx = np.full(keeper.bucket, frame.dirty[0], np.int32)
+            idx[:len(frame.dirty)] = frame.dirty
+            update = keeper._cu(keeper.bucket)
+            init_dev = profiled_device_ms(torch, lambda: ci(w, b, stable), 3)
+            upd_dev = profiled_device_ms(
+                torch, lambda: update(w, b, stable, keeper.carry, idx), 3)
+            cyc = build_packed_cycle_carry_fn(spec, fw, device=dev)
+            carry_dev = profiled_device_ms(torch, lambda: cyc(w, b, stable, keeper.carry), 1)
+            fresh_dev = profiled_device_ms(torch, lambda: cycle_f(frame.snap), 1)
+            log(f"phase {tag} device time (torch.profiler, kernels summed): carry_init "
+                f"{init_dev:.3f} ms, carry update of {keeper.bucket} rows {upd_dev:.3f} ms; "
+                f"carry cycle {carry_dev:.3f} ms (busy share {carry_dev / cycle_wall:.4f} of "
+                f"its {cycle_wall:.1f} ms wall), fresh rounds cycle {fresh_dev:.3f} ms (busy "
+                f"share {fresh_dev / fresh_wall:.4f} of {fresh_wall:.1f} ms) | {smi}")
+        updates += keeper.last == "update"
+        assignment = r.assignment.cpu().numpy()
+        del frame, w, b, stable, carry, r, rp, d, pd
+    log(f"phase {tag} launches over the carry path of {CARRY_FRAMES + 1} frames: "
+        f"{json.dumps(counts)}")
+    want = ["static_base", "claim_pass", "capacity", "guard_sweep", "interpod_terms",
+            "interpod_norm", "affinity_update", "dyn_mask", "dyn_score", "preempt_prefilter",
+            "preempt_whatif", "preempt_claim"]
+    if volumes:
+        want += ["volume_mask", "pv_choice", "pv_fold"]
+    for k in want:
+        check(counts[k] > 0, f"kernel {k} was not launched on the {tag} path")
+    check(updates > 0, f"{tag}: no frame updated the carry (every one rebuilt it)")
+    check(counts["static_base"] == CARRY_FRAMES + 1,
+          f"{tag}: K1 ran {counts['static_base']} times over {CARRY_FRAMES + 1} frames")
+    return {"launches": counts, "ms": ms}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2120,6 +2362,10 @@ def main(argv=None) -> int:
     shapes = whatif_edge_checks(torch, dev)
     log(f"phase kernel preempt_whatif, seeded edge cases: equal to nonresource_ok_plain on "
         f"{len(shapes)} cases; [C2, N, MPN+1] {json.dumps(shapes)}")
+    shapes = prefilter_edge_checks(torch, dev)
+    log(f"phase kernel preempt_prefilter, seeded edge cases: equal to prefilter_plain on "
+        f"{len(shapes)} cases; [C, N, MPN, R], grid, node tables, feasible "
+        f"{json.dumps(shapes)}")
     shapes = dyn_edge_checks(torch, dev)
     log(f"phase kernel dyn_mask + dyn_score, seeded edge cases: equal to dyn_mask_plain and "
         f"dyn_score_plain bit for bit (and the score anchor) on {len(shapes)} cases; [B, N] "
@@ -2594,6 +2840,14 @@ def main(argv=None) -> int:
                               plain_kernels, prev_libs)
     kernels.update(vol_stats.pop("kernels"))
 
+    # ============ carry: the device-carry latency path over churn ============
+    carry_stats = {v: carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, v)
+                   for v in (False, True)}
+    kernels["static_base"]["carry_launches"] = sum(
+        c["launches"]["static_base"] for c in carry_stats.values())
+    for k in ("preempt_prefilter", "preempt_whatif", "preempt_claim"):
+        kernels[k]["carry_launches"] = sum(c["launches"][k] for c in carry_stats.values())
+
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
@@ -2638,7 +2892,8 @@ def main(argv=None) -> int:
         f"{timed}, preemption device ms {pre_stats['ms']}, scan cycle device ms "
         f"{scan_stats['ms']}, scan preemption device ms {scan_stats['pre_ms']}, volumes "
         f"cycle device ms {vol_stats['ms']}, volumes preemption device ms "
-        f"{vol_stats['pre_ms']}, peak memory "
+        f"{vol_stats['pre_ms']}, carry cycle device ms {carry_stats[False]['ms']}, with "
+        f"volumes {carry_stats[True]['ms']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -29,14 +29,23 @@ ScheduleOne commit) replaces the rounds engine with one launch of K13
 This package builds the latency cycle of both engines
 (`build_cycle_fn(commit_mode=..., outputs="latency")`), with inter-pod
 affinity, topology spread and (rounds only) volumes, and preemption after
-either. Full outputs (with `_pv_claimed_after_unwind`) and the carry/
-packed/multi-cycle/arena builders are ROADMAP items A5, A7 and A9-A13."""
+either; and the device-carry latency path that serving runs (reference
+`core/cycle.py:1050-1583`): a packed frame (`SnapshotEncoder.
+encode_packed`, `models/packing.py`), the stable tables
+(`build_stable_state_fn`), the [P, N] static base and [S, P] matched-
+pending carried on the device and updated for the changed pod rows only
+(`build_carry_fns`, `CarryKeeper`: K1 at the dirty bucket's row count),
+the rounds cycle over the carry (`build_packed_cycle_carry_fn`) and
+preemption on the packed frame (`build_packed_preemption_fn`). Full
+outputs and the multi-cycle / arena builders are ROADMAP items A9 and
+A11-A13; extender verdicts A10."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..framework.interfaces import (AffinityKernels, CycleContext, DynKernels,
@@ -190,6 +199,8 @@ def build_cycle_fn(
                               affinity_update_fn)
     vkernels = VolumeKernels(volume_mask_fn, pv_choice_fn, pv_fold_fn)
     dkernels = DynKernels(dyn_mask_fn, dyn_score_fn)
+    engine = dict(kw, claim_pass_fn=claim_pass_fn, capacity_fn=capacity_fn,
+                  guard_sweep_fn=guard_sweep_fn)
 
     def cycle(snap) -> CycleDecision:
         if snap.device.type != dev.type:
@@ -204,38 +215,7 @@ def build_cycle_fn(
             fw, ctx, fit=True,
             sampling=sampling_window(snap, percentage_of_nodes_to_score),
         ))
-        extra = fw.extra_init(ctx)
-
-        def dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsbase, act_v):
-            return fw.dyn_batched(ctx.view(vsnap, vmp), node_req, ext, vsbase, act_v)
-
-        def update_batched_view_fn(vsnap, vmp, ext, accepted, node_of):
-            return fw.extra_update_batched(
-                ctx.view(vsnap, vmp), ext, accepted, node_of
-            )
-
-        rres = rounds_ops.rounds_commit(
-            snap=snap,
-            sbase=sbase,
-            m_pending=ctx.matched_pending,
-            dyn_batched_view_fn=dyn_batched_view_fn,
-            update_batched_view_fn=update_batched_view_fn,
-            extra=extra,
-            max_rounds=max_rounds,
-            score_anchor_fn=lambda nr: fw.score_anchor(ctx, nr),
-            claim_pass_fn=claim_pass_fn,
-            capacity_fn=capacity_fn,
-            guard_sweep_fn=guard_sweep_fn,
-            pv_choice_fn=_make_pv_choice_fn(ctx),
-            **kw,
-        )
-        assignment, node_req = rres.assignment, rres.node_requested
-        dropped = torch.zeros_like(snap.pod_valid)
-        if gang_scheduling:
-            assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
-        unsched = snap.pod_valid & (assignment < 0)
-        placed_round = torch.where(assignment >= 0, rres.placed_round, -1)
-        return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
+        return _rounds_decision(fw, ctx, sbase, gang_scheduling, max_rounds, engine)[0]
 
     def scan_cycle(snap, ctx) -> CycleDecision:
         if snap.has_volumes and any(f.name == "VolumeBinding" for f in fw.filters):
@@ -261,6 +241,42 @@ def build_cycle_fn(
         return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
 
     return cycle
+
+
+def _rounds_decision(fw: Framework, ctx: CycleContext, sbase: torch.Tensor,
+                     gang_scheduling: bool, max_rounds: int,
+                     kw: dict) -> tuple[CycleDecision, object]:
+    """The rounds engine over the static base `sbase` and the context's
+    matched-pending table, then the gang unwind: (decision, the engine's
+    final plugin state). `kw` goes to `rounds_commit` (its pass counts and
+    the K2 / K5 / K6 functions)."""
+    snap = ctx.snap
+
+    def dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsbase, act_v):
+        return fw.dyn_batched(ctx.view(vsnap, vmp), node_req, ext, vsbase, act_v)
+
+    def update_batched_view_fn(vsnap, vmp, ext, accepted, node_of):
+        return fw.extra_update_batched(ctx.view(vsnap, vmp), ext, accepted, node_of)
+
+    rres = rounds_ops.rounds_commit(
+        snap=snap,
+        sbase=sbase,
+        m_pending=ctx.matched_pending,
+        dyn_batched_view_fn=dyn_batched_view_fn,
+        update_batched_view_fn=update_batched_view_fn,
+        extra=fw.extra_init(ctx),
+        max_rounds=max_rounds,
+        score_anchor_fn=lambda nr: fw.score_anchor(ctx, nr),
+        pv_choice_fn=_make_pv_choice_fn(ctx),
+        **kw,
+    )
+    assignment, node_req = rres.assignment, rres.node_requested
+    dropped = torch.zeros_like(snap.pod_valid)
+    if gang_scheduling:
+        assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
+    unsched = snap.pod_valid & (assignment < 0)
+    placed_round = torch.where(assignment >= 0, rres.placed_round, -1)
+    return CycleDecision(assignment, node_req, unsched, dropped, placed_round), rres.extra
 
 
 def _make_pv_choice_fn(ctx: CycleContext) -> Callable | None:
@@ -344,3 +360,246 @@ def build_preemption_fn(
         )
 
     return post_filter
+
+
+# --------------------------------------------------------------------------
+# the device-carry latency path (reference core/cycle.py:1050-1583): packed
+# buffers in, the [P, N] static base and [S, P] matched-pending carried on
+# the device across cycles and rebuilt only for changed pod rows
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CycleResult:
+    """The carry cycle's outputs (the reference's `CycleResult`, without
+    the per-round diagnostics of its full outputs: ROADMAP A9)."""
+
+    assignment: torch.Tensor  # i32 [P] node index or -1
+    node_requested: torch.Tensor  # f32 [N, R] post-cycle
+    unschedulable: torch.Tensor  # bool [P] valid pod that found no node
+    gang_dropped: torch.Tensor  # bool [P] placed, then unwound
+    reject_counts: torch.Tensor  # i32 [P, F] zeros: attribution is off the
+    # decision path (the reference's carry cycle returns zeros too)
+    pv_claimed: torch.Tensor  # bool [V] static PVs claimed by the placements
+    placed_round: torch.Tensor  # i32 [P] as CycleDecision's
+
+
+def _on_device(snap, dev, what: str) -> None:
+    if snap.device.type != dev.type:
+        raise ValueError(f"snapshot on {snap.device}, {what} built for {dev}")
+
+
+def _pv_claimed_of(snap, extra) -> torch.Tensor:
+    """The VolumeBinding claim bitmap out of the engine's final plugin
+    state (all False when the plugin carries none)."""
+    pv = extra.get("VolumeBinding")
+    if pv is None:
+        return torch.zeros(snap.pv_avail.shape, dtype=torch.bool, device=snap.device)
+    return pv
+
+
+def _pv_claimed_after_unwind(snap, ctx: CycleContext, extra, assignment, dropped):
+    """The claim bitmap with the gang-unwound pods' static-PV claims
+    released: when a pod was dropped, the claims of the surviving
+    placements refolded in rank order from empty (K12 `pv_fold` on the
+    card; reference `core/cycle.py:480`). The test for a drop reads one
+    device value."""
+    pv = _pv_claimed_of(snap, extra)
+    if "VolumeBinding" not in extra or not snap.has_volumes or not bool(dropped.any()):
+        return pv
+    accepted = snap.pod_valid & (assignment >= 0)  # post-unwind
+    return ctx.volume_kernels.pv_fold(
+        snap, ctx.volume_tables, torch.zeros_like(pv), accepted,
+        assignment.clamp(min=0), snap.pod_order.to(torch.int32))
+
+
+def build_stable_state_fn(spec, device=None) -> Callable:
+    """`stable(wbuf, bbuf) -> dict` of the tables valid while the nodes and
+    the existing pods stay: the label expressions against the nodes, and
+    when the snapshot has inter-pod affinity or spread the existing pods'
+    selector matches and the initial affinity state. The carry and the
+    packed cycle and preemption take it to seed their contexts."""
+    from ..models import packing
+
+    dev = resolve_device(device)
+
+    def stable(wbuf, bbuf):
+        snap = packing.unpack(wbuf, bbuf, spec)
+        _on_device(snap, dev, "stable state")
+        ctx = CycleContext(snap)
+        out = {"expr_node_mask": ctx.expr_node_mask}
+        if snap.has_inter_pod_affinity or snap.has_topology_spread:
+            out["matched_existing"] = ctx.matched_existing
+            out["initial_affinity_state"] = ctx.initial_affinity_state()
+        return out
+
+    return stable
+
+
+def build_carry_fns(spec, framework: Framework | None = None, device=None):
+    """(carry_init, carry_update_for_bucket): the device-resident static
+    carry `{"sbase": f32 [P, N], "mp": bool [S, P]}`. `sbase` is
+    where(static mask, clip(static score, +-1e6), NEG_INF) of the
+    framework's static plugins (K1 without the fit test and without
+    sampling, which the cycle applies), `mp` the pending pods' selector
+    matches. Both depend on pod rows x node tables x interning dims only,
+    so a frame updates the rows of its changed slots.
+
+    `carry_update_for_bucket(n)` gives `update(wbuf, bbuf, stable, carry,
+    dirty)` for `n` slot ids (pad entries repeat a real slot: the same row
+    written twice): K1 on the pod view of the slots, `index_copy_` of the
+    rows into the carried `sbase` and of their selector matches into the
+    columns of `mp`. It updates the carry in place (the reference returns
+    new arrays) and returns it."""
+    from ..models import packing
+    from ..ops import interpod as interpod_ops
+
+    dev = resolve_device(device)
+    fw = framework or Framework.from_config()
+
+    def context(snap, stable):
+        ctx = CycleContext(snap)
+        ctx._cache.update(stable)
+        return ctx
+
+    def carry_init(wbuf, bbuf, stable):
+        snap = packing.unpack(wbuf, bbuf, spec)
+        _on_device(snap, dev, "carry")
+        ctx = context(snap, stable)
+        sbase = static_base_ops.static_base(static_base_ops.static_base_inputs(fw, ctx, fit=False))
+        return {"sbase": sbase, "mp": ctx.matched_pending}
+
+    def carry_update_for_bucket(n_bucket: int):
+        def carry_update(wbuf, bbuf, stable, carry, dirty):
+            idx = rounds_ops._host_table([int(i) for i in dirty], dev)
+            if idx.shape[0] != n_bucket:
+                raise ValueError(f"carry update for {n_bucket} slots got {idx.shape[0]}")
+            snap = packing.unpack(wbuf, bbuf, spec)
+            _on_device(snap, dev, "carry")
+            vsnap = rounds_ops._pod_view(snap, idx)
+            rows = static_base_ops.static_base(static_base_ops.static_base_inputs(
+                fw, context(vsnap, stable), fit=False))
+            cols = interpod_ops.matched_pending(vsnap)
+            carry["sbase"].index_copy_(0, idx.long(), rows)
+            carry["mp"].index_copy_(1, idx.long(), cols)
+            return carry
+
+        return carry_update
+
+    return carry_init, carry_update_for_bucket
+
+
+class CarryKeeper:
+    """Host-side carry maintenance (reference `core/cycle.py:1148`): one
+    fixed dirty bucket, min(P, next_pow2(max(256, P // 4))) slots, so every
+    update launches K1 at one row count; a rebuild through carry_init
+    whenever the regime key changes, the frame's dirty set is None, or it
+    overflows the bucket. One keeper serves every frame of one pack layout
+    (`PackSpec.layout_key`); the carry programs read no other aux field."""
+
+    def __init__(self, spec, framework: Framework | None = None, device=None):
+        self.spec = spec
+        self.ci, self._cu = build_carry_fns(spec, framework, device)
+        P = spec.shape_of("pod_priority")[0]
+        self.bucket = min(P, 1 << (max(256, P // 4) - 1).bit_length())
+        self.key = None
+        self.carry = None
+        self.last = None  # "init", "update" or "none": what the last state() ran
+
+    def state(self, wbuf, bbuf, stable, dirty, regime_key):
+        """The carry for this frame (`dirty` and `regime_key` from the
+        frame's `encode_packed`: its `dirty` and the encoder's
+        `_carry_key`)."""
+        if self.key != regime_key or dirty is None or len(dirty) > self.bucket:
+            self.carry = self.ci(wbuf, bbuf, stable)
+            self.key = regime_key
+            self.last = "init"
+        elif len(dirty):
+            idx = np.full(self.bucket, dirty[0], np.int32)
+            idx[: len(dirty)] = dirty
+            self.carry = self._cu(self.bucket)(wbuf, bbuf, stable, self.carry, idx)
+            self.last = "update"
+        else:
+            self.last = "none"
+        return self.carry
+
+
+def build_packed_cycle_carry_fn(
+    spec,
+    framework: Framework | None = None,
+    gang_scheduling: bool = True,
+    max_rounds: int = 64,
+    percentage_of_nodes_to_score: int = 0,
+    rounds_kw: dict | None = None,  # compact / passes / passes_round0
+    extender_args: bool = False,
+    device=None,
+) -> Callable:
+    """The latency-path cycle (reference `core/cycle.py:1304`):
+    `cycle(wbuf, bbuf, stable, carry) -> CycleResult`. The static base and
+    matched-pending come from the carry (`build_carry_fns`, `CarryKeeper`)
+    instead of being rebuilt; the cycle applies the node-sampling window
+    to the carried base, runs the rounds engine with the same kernels as
+    `build_cycle_fn(commit_mode="rounds")` (K2-K6, K10-K12, K14, K15 on
+    the card, their plain versions on the CPU) and the gang unwind,
+    and returns the claim bitmap of the surviving placements. Decisions
+    are bit-equal to the reference's carry cycle and to the fresh rounds
+    cycle on the same frame (tests/test_torch_carry.py).
+
+    Extender verdicts wait for ROADMAP A10: `extender_args=True` raises."""
+    if extender_args:
+        raise NotImplementedError("extender verdicts are not ported yet (ROADMAP A10)")
+    from ..models import packing
+
+    kw = dict(rounds_kw or {})
+    unknown = set(kw) - {"compact", "passes", "passes_round0"}
+    if unknown:
+        raise NotImplementedError(f"rounds options not ported: {sorted(unknown)}")
+    dev = resolve_device(device)
+    fw = framework or Framework.from_config()
+
+    def cycle(wbuf, bbuf, stable, carry) -> CycleResult:
+        snap = packing.unpack(wbuf, bbuf, spec)
+        _on_device(snap, dev, "cycle")
+        ctx = CycleContext(snap)
+        ctx._cache.update(stable)
+        ctx._cache["matched_pending"] = carry["mp"]
+        sbase = carry["sbase"]
+        if percentage_of_nodes_to_score < 100:
+            sbase = torch.where(sampling_mask(snap, percentage_of_nodes_to_score), sbase,
+                                static_base_ops.NEG_INF)
+        d, extra = _rounds_decision(fw, ctx, sbase, gang_scheduling, max_rounds, kw)
+        return CycleResult(
+            d.assignment, d.node_requested, d.unschedulable, d.gang_dropped,
+            torch.zeros((snap.P, len(fw.filters)), dtype=torch.int32, device=snap.device),
+            _pv_claimed_after_unwind(snap, ctx, extra, d.assignment, d.gang_dropped),
+            d.placed_round)
+
+    return cycle
+
+
+def build_packed_preemption_fn(spec, framework: Framework | None = None,
+                               device=None) -> Callable | None:
+    """`build_preemption_fn` on packed buffers (reference
+    `core/cycle.py:1554`): `packed(wbuf, bbuf, result, stable=None) ->
+    PreemptionResult`, its context seeded with the stable tables the
+    cycle used instead of computing them again. Same stages (K7-K9, and
+    K10 in the static gate, on the card) and results as
+    `build_preemption_fn` on the frame's snapshot. None when no PostFilter
+    plugin is enabled."""
+    from ..models import packing
+
+    dev = resolve_device(device)
+    fw = framework or Framework.from_config()
+    if not fw.post_filters:
+        return None
+
+    def packed(wbuf, bbuf, result, stable=None):
+        snap = packing.unpack(wbuf, bbuf, spec)
+        _on_device(snap, dev, "preemption")
+        ctx = CycleContext(snap)
+        if stable is not None:
+            ctx._cache.update(stable)
+        return fw.post_filter(ctx, result.assignment, result.node_requested,
+                              _preemption_gate_rows(fw, ctx), excluded=result.gang_dropped)
+
+    return packed

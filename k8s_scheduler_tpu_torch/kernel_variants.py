@@ -1,17 +1,19 @@
 """Where the port's kernels spend their time on the card: device times of
 the small kernels on the main path, and timed variants of K13
 `scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K6 `guard_sweep`,
-K12 `pv_fold`, K11 `pv_choice`, K8 `preempt_whatif`, K15 `dyn_score`, K5 `capacity`
-and K1 `static_base`, built from edited copies of their sources, on full-size
+K12 `pv_fold`, K11 `pv_choice`, K8 `preempt_whatif`, K7 `preempt_prefilter`,
+K15 `dyn_score`, K5 `capacity` and K1 `static_base`, built from edited copies of their sources, on full-size
 inputs recorded from the main path.
 
     python3 -m k8s_scheduler_tpu_torch.kernel_variants [--csrc DIR] [--out PATH]
         [--kernels scan_commit,small,preempt_claim,affinity_update,guard_sweep,pv_fold,
-                   pv_choice,preempt_whatif,dyn_score,capacity,static_base]
+                   pv_choice,preempt_whatif,preempt_prefilter,dyn_score,capacity,
+                   static_base]
 
 `--csrc` names the directory whose `scan_commit.cu`, `preempt_claim.cu`,
 `affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `pv_choice.cu`,
-`preempt_whatif.cu`, `dyn_round.cu`, `capacity.cu` and `static_base.cu` are varied (default: the package's own `csrc/`; an
+`preempt_whatif.cu`, `preempt_prefilter.cu`, `dyn_round.cu`, `capacity.cu` and
+`static_base.cu` are varied (default: the package's own `csrc/`; an
 earlier checkout's `csrc/` times that design on the same inputs, K13, K4,
 K6 and K12 through their earlier C interfaces where they differ,
 `prev_scan_commit`, `prev_affinity_update`, `prev_guard_sweep` and
@@ -81,6 +83,15 @@ Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
          walk, without the ports, byte stores from each thread instead of
          the staged 16-byte span, 64 and 256 nodes and 1, 2 and 8
          candidates a CTA;
+  K7     the recorded call of the preemption pass after config #4's cycle
+         and slice 1's (`slice1_prefilter_call`): the kernel, its floor
+         (the launch, the staged node tables and the gate read, no fit
+         walk), the node tables read from L2 instead of staged, the staged
+         rows without their padding (bank conflicts), 64 and 256 nodes and
+         16 candidates a CTA, every gated node walked from L2 (no
+         monotone test), one 16-byte load of the prefix table in flight
+         while staging, elig
+         counted for every candidate;
   K5     every `capacity` call of one rounds cycle of config #4's workload
          (seed 202): the round-0 pass, a late pass and the round-0
          revocation fold are timed alone, the mean over all recorded calls
@@ -350,6 +361,34 @@ WHATIF_VARIANTS = {
 WHATIF_EXACT = ("today", "byte stores from each thread (no shared-memory span)",
                 "64 nodes a CTA", "256 nodes a CTA", "1 candidate a CTA", "2 candidates a CTA",
                 "8 candidates a CTA (the first shape)")
+
+_PF_WALK = "  for (unsigned m = gbits; m; m &= m - 1) {\n"
+PREFILTER_VARIANTS = {
+    "today": [],
+    # csrc/preempt_prefilter.cu as it stands: 128 nodes x 32 candidates a CTA
+    "floor (launch, the staged tables, the gate read; no fit walk)": [
+        (_PF_WALK, "  mine = gbits;\n  for (unsigned m = 0; m; m &= m - 1) {\n")],
+    "tables from L2 (nothing staged)": [
+        ("  if (staged <= (size_t)kSmemMax) {", "  if (false) {")],
+    "no padded pitch (bank conflicts in the staging)": [
+        ("constexpr int kPitch = kNodes + 1;", "constexpr int kPitch = kNodes;")],
+    "64 nodes a CTA": [("constexpr int kNodes = 128;", "constexpr int kNodes = 64;")],
+    "256 nodes a CTA": [("constexpr int kNodes = 128;", "constexpr int kNodes = 256;")],
+    "16 candidates a CTA": [("constexpr int kChunk = 32;", "constexpr int kChunk = 16;")],
+    "every gated node walked from L2 (no monotone test)": [
+        ("      if (found && !mono) found = walk_l2(a, n, elig, q);",
+         "      if (found) found = walk_l2(a, n, elig, q);")],
+    "one 16-byte load of the prefix table in flight a thread while staging": [
+        ("constexpr int kBatch = 8;", "constexpr int kBatch = 1;")],
+    "elig counted for every candidate (no reuse across a priority)": [
+        ("    if (elig < 0 || p != last_p) {", "    if (true) {")],
+}
+PREFILTER_EXACT = ("today", "tables from L2 (nothing staged)",
+                   "no padded pitch (bank conflicts in the staging)", "64 nodes a CTA",
+                   "256 nodes a CTA", "16 candidates a CTA",
+                   "every gated node walked from L2 (no monotone test)",
+                   "one 16-byte load of the prefix table in flight a thread while staging",
+                   "elig counted for every candidate (no reuse across a priority)")
 
 # the variants that compute the kernel's function: held against it
 DYN_SCORE_EXACT = ("today", "resources unrolled to 8 (the first design)",
@@ -1271,6 +1310,70 @@ def slice1_whatif_call(dev):
     return seen[0]
 
 
+def slice1_prefilter_call(dev):
+    """K7's arguments in the preemption pass after one rounds cycle of
+    slice 1's workload (seed 101)."""
+    from .core.cycle import build_cycle_fn, build_preemption_fn
+    from .models import SnapshotEncoder
+    from .ops import preemption
+    from .utils import synth
+
+    nodes, existing, pending = synth.config4_cluster_config2_pending(
+        (101,), N_NODES, N_EXISTING, N_PENDING)
+    snap = SnapshotEncoder(device=dev).encode(nodes, pending[101], existing)
+    d = build_cycle_fn(commit_mode="rounds", device=dev)(snap)
+    seen = []
+
+    def rec(*args):
+        seen.append(args)
+        return preemption.prefilter_plain(*args)
+    build_preemption_fn(device=dev, prefilter_fn=rec)(snap, d)
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def time_prefilter_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
+    """K7's variants (PREFILTER_VARIANTS) in device time on the recorded
+    call of the preemption pass after config #4's rounds cycle and on
+    slice 1's (`slice1_prefilter_call`); the exact variants held against
+    the kernel there, and with the package's own source K7 first held
+    against `prefilter_plain` on them and on `kernel_cases.prefilter_cases`."""
+    from .ops import preempt_prefilter as k7
+    from .ops import preemption
+
+    libs = build_variants("preempt_prefilter", csrc, PREFILTER_VARIANTS)
+    inputs = {"config #4": calls[0], "slice 1": slice1_prefilter_call(dev)}
+    if check:
+        from .utils import kernel_cases
+
+        edge = kernel_cases.prefilter_cases(dev)
+        for tag, a in list(edge.items()) + list(inputs.items()):
+            if not torch.equal(k7.preempt_prefilter_cuda(*a), preemption.prefilter_plain(*a)):
+                raise RuntimeError(f"preempt_prefilter differs from prefilter_plain ({tag})")
+        print(f"preempt_prefilter equal to prefilter_plain on {len(inputs)} inputs and "
+              f"{len(edge)} edge cases", flush=True)
+    want = {t: k7.preempt_prefilter_cuda(*a) for t, a in inputs.items()}
+    shapes = {t: list(a[1].shape) + list(a[3].shape) for t, a in inputs.items()}
+    out = {"inputs [C, R, N, MPN]": shapes}
+    print(f"preempt_prefilter: inputs {json.dumps(shapes)}", flush=True)
+    for v, lib in libs.items():
+        if lib is None:
+            out[v] = "not applicable"
+            continue
+
+        def fn(a, lib=lib):
+            return with_library("preempt_prefilter", lib, lambda: k7.preempt_prefilter_cuda(*a))
+        if check and v in PREFILTER_EXACT:
+            for t, a in inputs.items():
+                if not torch.equal(fn(a), want[t]):
+                    raise RuntimeError(f"preempt_prefilter variant {v!r} differs ({t})")
+        row = {t: device_ms(lambda: fn(a), 50) for t, a in inputs.items()}
+        out[v] = row
+        print(f"  preempt_prefilter {v:62s} "
+              + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+    return out
+
+
 def time_whatif_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
     """K8's variants (WHATIF_VARIANTS) in device time on the recorded call
     of the preemption pass after config #4's rounds cycle, on slice 1's
@@ -1368,7 +1471,8 @@ def main(argv=None) -> int:
                          "(about 70 s; chip_smoke.py makes it too)")
     ap.add_argument("--kernels", default="all",
                     help="comma list of sections: small, preempt_claim, affinity_update, "
-                         "guard_sweep, pv_fold, pv_choice, preempt_whatif, dyn_score, "
+                         "guard_sweep, pv_fold, pv_choice, preempt_whatif, preempt_prefilter, "
+                         "dyn_score, "
                          "capacity, static_base, scan_commit (default all)")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(",")) if args.kernels != "all" else None
@@ -1394,7 +1498,7 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(table, indent=1))
     if any(on(k) for k in ("small", "preempt_claim", "affinity_update", "capacity",
                            "guard_sweep", "pv_fold", "dyn_score", "pv_choice",
-                           "preempt_whatif")):
+                           "preempt_whatif", "preempt_prefilter")):
         small = record_small_calls(dev)
         print("small kernels on recorded main-path calls: "
               + json.dumps({k: len(v) for k, v in small.items()}), flush=True)
@@ -1416,6 +1520,9 @@ def main(argv=None) -> int:
         if on("preempt_whatif"):
             table["preempt_whatif"] = time_whatif_variants(dev, csrc, small["preempt_whatif"],
                                                            own)
+        if on("preempt_prefilter"):
+            table["preempt_prefilter"] = time_prefilter_variants(
+                dev, csrc, small["preempt_prefilter"], own)
         if on("dyn_score"):
             table.update(time_dyn_score_variants(dev, csrc, small["dyn_score"], own))
         out.write_text(json.dumps(table, indent=1))

@@ -29,6 +29,12 @@ table `pv_*` [V]. PV nodeAffinity and class allowedTopologies are interned
 through the same requirement table as pod node affinity, in the
 reference's order.
 
+`encode_packed` returns an `EncodedFrame`: the snapshot packed into two
+device buffers (`models/packing.py`) and the pod slots whose rows changed
+since the previous frame, for the device-resident carry
+(`core/cycle.py build_carry_fns`). It runs the full encode and finds the
+changed rows by comparing them with the previous frame's.
+
 Not in this slice (ROADMAP A1): the delta/fold/arena encode paths.
 """
 
@@ -36,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -92,6 +98,33 @@ NAMESPACE_KEY = "__namespace__"
 HOSTNAME_LABEL = "kubernetes.io/hostname"
 _EMPTY_I32 = np.empty(0, np.int32)
 _EMPTY_F32 = np.empty(0, np.float32)
+
+
+class EncodedFrame(NamedTuple):
+    """encode_packed's result: the device buffers, their spec, a snapshot
+    whose fields are views into them, and which pod slots changed.
+    `dirty` is None when the carry key changed (every row must be rebuilt)
+    and else an i32 array of slot ids: every slot whose row of a pod-axis
+    field changed since the previous frame, plus, when the existing set
+    moved NodePorts' used ports, every slot of a pod that names a host
+    port."""
+
+    wbuf: torch.Tensor
+    bbuf: torch.Tensor
+    spec: Any
+    snap: "ClusterSnapshot"
+    dirty: np.ndarray | None
+
+
+# pod-axis fields the carried tables do not read, left out of the row
+# comparison: the queue rank moves for every later pod when one changes
+_UNCARRIED_POD_FIELDS = ("pod_order",)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """The array's bit patterns (floats compared exactly: -0.0 is not 0.0,
+    a NaN equals itself)."""
+    return a.view(np.int32) if a.dtype == np.float32 else a
 
 
 def _i32(xs) -> np.ndarray:
@@ -480,6 +513,16 @@ class SnapshotEncoder:
         self._stable: dict = {}
         self._vol_sig = None
         self._vol_epoch = 0
+        self._carry_key = None
+        # encode_packed: the previous frame's regime, pod rows and used
+        # ports, and pinned host buffers with the events around their last
+        # upload
+        self._frame_key = None
+        self._frame_rows: dict[str, np.ndarray] = {}
+        self._frame_ports: np.ndarray | None = None
+        self._pinned = None
+        self._upload_done = None
+        self.last_changed_slots: np.ndarray | None = None
 
     def _stick(self, key: str, val: int) -> int:
         val = max(val, self._sticky_dims.get(key, 0))
@@ -521,6 +564,103 @@ class SnapshotEncoder:
                                         storage_classes=storage_classes,
                                         pdbs=pdbs)
         return snapshot_from_numpy(fields, aux, self.device)
+
+    def encode_packed(
+        self,
+        nodes: Sequence[Node],
+        pending: Sequence[Pod],
+        existing: Sequence[tuple[Pod, str]] = (),
+        pod_groups: Sequence[api.PodGroup] = (),
+        pvcs: Sequence[api.PersistentVolumeClaim] = (),
+        pvs: Sequence[api.PersistentVolume] = (),
+        storage_classes: Sequence[api.StorageClass] = (),
+        pdbs: Sequence[api.PodDisruptionBudget] = (),
+    ) -> EncodedFrame:
+        """Encode, pack and upload in one step (reference
+        `models/encoding.py:1898`, without its incremental delta encode:
+        ROADMAP A1). The buffers are new device tensors each frame, so an
+        earlier frame's snapshot stays valid.
+
+        `dirty` (see `EncodedFrame`) is None on the first frame and
+        whenever the carry key changes: `_carry_key`, the reference's rule
+        (node objects, volumes, pads and interning dims, not the
+        existing-pod set or PDBs), with the pack layout (pod pads, the
+        capability flags, the distinct-port axis). Else it compares every
+        pod row of every pod-axis field but the queue rank bit for bit with
+        the previous frame's (a superset of the rows whose carried tables
+        change, never a subset), and adds every port-bearing slot when
+        NodePorts' used ports moved. `last_changed_slots` holds the
+        compared rows alone, as the reference's does."""
+        from . import packing
+
+        fields, aux = self.encode_numpy(
+            nodes, pending, existing, pod_groups, pvcs=pvcs, pvs=pvs,
+            storage_classes=storage_classes, pdbs=pdbs)
+        if aux.get("has_extender"):
+            raise NotImplementedError(
+                "HTTP-extender verdicts are not ported yet (ROADMAP A10)")
+        aux = dict(aux, pref_raw_bound=pref_raw_bound(
+            fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
+            fields["exist_pref_aff"], fields["exist_pref_aff_w"]))
+        spec = packing.spec_of_fields(fields, aux)
+        wbuf, bbuf = self._upload(fields, spec)
+        snap = packing.unpack(wbuf, bbuf, spec)
+
+        key = (self._carry_key, spec.layout_key())
+        rows = {n: _bits(a).copy() for n, a in fields.items()
+                if n.startswith("pod_") and n not in _UNCARRIED_POD_FIELDS}
+        ports = fields["node_used_ports"].copy()
+        dirty = None
+        self.last_changed_slots = None
+        if key == self._frame_key:
+            P = fields["pod_valid"].shape[0]
+            changed = np.zeros(P, bool)
+            for n, a in rows.items():
+                changed |= (a != self._frame_rows[n]).reshape(P, -1).any(axis=1)
+            self.last_changed_slots = np.nonzero(changed)[0].astype(np.int32)
+            if not np.array_equal(ports, self._frame_ports):
+                changed |= (fields["pod_ports"] >= 0).any(axis=1)
+            dirty = np.nonzero(changed)[0].astype(np.int32)
+        self._frame_key, self._frame_rows, self._frame_ports = key, rows, ports
+        self._carry_key = key  # the regime key a CarryKeeper compares
+        return EncodedFrame(wbuf, bbuf, spec, snap, dirty)
+
+    def _upload(self, fields, spec) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pack `fields` and copy the two buffers to the encoder's device:
+        on the card from pinned host buffers (kept across frames; the next
+        frame waits for this frame's copies before it packs over them), one
+        asynchronous copy each."""
+        from . import packing
+
+        if self.device.type != "cuda":
+            w, b = packing.pack(fields, spec)
+            return torch.from_numpy(w.view(np.int32)), torch.from_numpy(b)
+        if self._upload_done is not None:
+            self._upload_done[1].synchronize()
+        hw, hb = self._pinned or (None, None)
+        if hw is None or hw.numel() < spec.n_words or hb.numel() < spec.n_bytes:
+            hw = torch.empty(spec.n_words, dtype=torch.int32, pin_memory=True)
+            hb = torch.empty(spec.n_bytes, dtype=torch.uint8, pin_memory=True)
+            self._pinned = (hw, hb)
+        hw, hb = hw[:spec.n_words], hb[:spec.n_bytes]
+        packing.pack(fields, spec, out=(hw.numpy().view(np.uint32), hb.numpy()))
+        wbuf = torch.empty(spec.n_words, dtype=torch.int32, device=self.device)
+        bbuf = torch.empty(spec.n_bytes, dtype=torch.uint8, device=self.device)
+        self._upload_done = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+        self._upload_done[0].record()
+        wbuf.copy_(hw, non_blocking=True)
+        bbuf.copy_(hb, non_blocking=True)
+        self._upload_done[1].record()
+        return wbuf, bbuf
+
+    def last_upload_ms(self) -> float | None:
+        """Device ms of the last frame's two copies (CUDA events around
+        them; None off the card). Waits for them."""
+        if self._upload_done is None:
+            return None
+        self._upload_done[1].synchronize()
+        return self._upload_done[0].elapsed_time(self._upload_done[1])
 
     def encode_numpy(
         self,
@@ -950,6 +1090,12 @@ class SnapshotEncoder:
                             list(pvcs), list(storage_classes), list(pdbs))
             self._stable_key = stable_key
             self._stable = st
+        # the reference's carry key: the carried [P, N] static base and
+        # [S, P] matched-pending depend on pod rows x node tables x volumes
+        # x interning dims, not on the existing-pod set or PDBs (the one
+        # existing coupling, NodePorts' used ports, is repaired by marking
+        # port-bearing pending slots dirty; `encode_packed`)
+        self._carry_key = (stable_key[0], stable_key[2]) + stable_key[4:]
 
         # group_min_member depends on the per-call pod_groups argument
         G = max(len(group_ids), 1)

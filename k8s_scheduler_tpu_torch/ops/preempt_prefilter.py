@@ -3,9 +3,13 @@
 Reference: `k8s_scheduler_tpu/ops/preemption.py:201-232` (the
 [C, N, MPN+1] fit table of the budgeted candidates against the post-cycle
 state). `preemption.prefilter_plain` is the plain version; this module
-launches csrc/preempt_prefilter.cu for CUDA tensors: one block per
-candidate, nodes strided over its threads, a block-wide OR. Bound on an
-H100: bytes (the [C, N] gate and the per-node victim tables)."""
+launches csrc/preempt_prefilter.cu for CUDA tensors: node-stationary, a
+CTA of NODES nodes (one a thread) over a chunk of CHUNK candidates, the
+tile's victim priorities and the prefix maxima of its rooms staged in
+shared memory once (a walk from L2 only where a node's rooms are not
+monotone), the verdicts ORed by warp ballots into one write per (CTA,
+candidate).
+Bound on an H100: bytes (the [C, N] gate and the per-node victim tables)."""
 
 from __future__ import annotations
 
@@ -18,6 +22,19 @@ from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
 from .preemption import prefilter_plain
 
 MAX_RESOURCES = 8  # csrc/preempt_prefilter.cu kMaxR
+NODES, CHUNK = 128, 32  # csrc/preempt_prefilter.cu kNodes, kChunk
+SMEM_MAX = 232448  # shared memory a CTA may take on sm_90
+
+
+def launch_shape(C: int, N: int, MPN: int, R: int) -> dict:
+    """The kernel's grid and its shared memory a CTA (the launcher's
+    arithmetic): the node tables staged when they fit, else read from L2."""
+    cand = CHUNK * (R + 1) + 2
+    node = NODES * R + (NODES + 1) * (MPN + MPN * R)
+    staged = 4 * (cand + node)
+    fits = staged <= SMEM_MAX
+    return {"grid": [-(-N // NODES), -(-C // CHUNK)], "staged": fits,
+            "smem": staged if fits else 4 * cand}
 
 
 def _library():

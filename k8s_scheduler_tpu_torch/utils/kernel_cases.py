@@ -1494,3 +1494,133 @@ def whatif_cases(device="cpu") -> dict:
             f.name: getattr(x, f.name).to(device) for f in dataclasses.fields(x)
             if isinstance(getattr(x, f.name), torch.Tensor)})
     return out
+
+
+# ---- K7 `preempt_prefilter` -----------------------------------------------
+
+PREFILTER_TAGS = (
+    "drawn", "no victim below the priority", "every candidate infeasible",
+    "cand_ok false on half", "the only fit on the last node, N = 8199",
+    "the only fit on the last node, N = 13", "an exact fit at equality",
+    "negative free room", "R = 1", "R = 8", "MPN = 1", "MPN = 16", "C = 1",
+    "C = 256, N = 8192", "node_valid false on the only fit",
+    "prefix rooms out of order", "tables from L2: MPN = 64, R = 8",
+)
+_BIG_I32 = 2**31 - 1
+
+
+def _prefilter_raw(rng, *, C=256, N=2048, MPN=8, R=4, gate_p=0.003, ok_p=0.9,
+                   valid_p=0.97, room=(0, 3), need=(1, 5)) -> dict:
+    """K7's inputs as numpy arrays: per node 0..MPN victims in ascending
+    priority (0..49, empty slots BIG_I32) freeing 1-3 whole units a
+    resource (the prefix sums exact), free room of `room` units; candidates
+    at priority 20..59 needing `need` units, the gate open with gate_p."""
+    units = np.array([_UNITS[r % len(_UNITS)] for r in range(R)], np.float64)
+    cnt = rng.integers(0, MPN + 1, N)
+    valid = np.arange(MPN)[None, :] < cnt[:, None]
+    vprio = np.sort(rng.integers(0, 50, (N, MPN)), axis=1)
+    freed = np.where(valid[..., None], rng.integers(1, 4, (N, MPN, R)) * units, 0.0)
+    return {
+        "prio": rng.integers(20, 60, C).astype(np.int32),
+        "req": (rng.integers(need[0], need[1], (C, R)) * units).astype(np.float32),
+        "cand_ok": rng.random(C) < ok_p,
+        "vict_prio": np.where(valid, vprio, _BIG_I32).astype(np.int32),
+        "prefix_freed": np.concatenate([np.zeros((N, 1, R)), np.cumsum(freed, axis=1)],
+                                       axis=1).astype(np.float32),
+        "free0": (rng.integers(room[0], room[1], (N, R)) * units).astype(np.float32),
+        "gate": rng.random((C, N)) < gate_p,
+        "node_valid": rng.random(N) < valid_p,
+    }
+
+
+def _only_node(x: dict, node: int, fits: bool = True) -> dict:
+    """x with the gate open on `node` alone; with `fits`, that node holds
+    MPN victims at priority 0 and enough room for every request at k = 1."""
+    x = dict(x)
+    gate = np.zeros_like(x["gate"])
+    gate[:, node] = True
+    x["gate"] = gate
+    if fits:
+        MPN = x["vict_prio"].shape[1]
+        x["vict_prio"] = x["vict_prio"].copy()
+        x["vict_prio"][node] = 0
+        x["free0"] = x["free0"].copy()
+        x["free0"][node] = x["req"].max(axis=0)
+        x["node_valid"] = x["node_valid"].copy()
+        x["node_valid"][node] = True
+        x["cand_ok"] = np.ones_like(x["cand_ok"])
+        assert MPN >= 1
+    return x
+
+
+def prefilter_raw_cases() -> dict:
+    """{tag: numpy inputs} of K7's edge cases (PREFILTER_TAGS), each a draw
+    of one seeded generator: no victim below any candidate's priority;
+    requests no node can meet; cand_ok false on every other candidate; the
+    only fitting node the last of an N that is not a multiple of the CTA's
+    128 nodes (8199, and 13: one partial tile); requests equal to free room
+    plus a prefix exactly (a fit) beside ones a ulp above (none); free room
+    below zero, so that only longer prefixes fit; one and eight resources;
+    one and sixteen victim slots; one candidate (a chunk of 32 mostly
+    empty) and 256 at config #4's N; the only fit on a node that is not
+    valid; prefix rooms that are not monotone in k (the walk must try them
+    in order); and 64 slots of eight resources, whose tables do not fit in
+    a CTA's shared memory (the kernel reads them from L2)."""
+    rng = np.random.default_rng(7707)
+    out = {"drawn": _prefilter_raw(rng, gate_p=0.3)}
+    x = _prefilter_raw(rng)
+    x["prio"] = np.zeros_like(x["prio"])
+    out["no victim below the priority"] = x
+    out["every candidate infeasible"] = _prefilter_raw(rng, need=(40, 60), gate_p=0.9)
+    x = _prefilter_raw(rng, gate_p=0.9)
+    x["cand_ok"] = np.arange(x["cand_ok"].shape[0]) % 2 == 1
+    out["cand_ok false on half"] = x
+    for n in (8199, 13):
+        out[f"the only fit on the last node, N = {n}"] = _only_node(
+            _prefilter_raw(rng, N=n, C=40), n - 1)
+    # node 5 alone: requests equal to its free room plus prefix 2 (every
+    # victim below the priorities), half of them one ulp above
+    x = _only_node(_prefilter_raw(rng, C=64, MPN=4), 5, fits=False)
+    x["vict_prio"][5] = [1, 2, 3, 4]
+    x["node_valid"][5] = True
+    x["cand_ok"][:] = True
+    exact = x["free0"][5] + x["prefix_freed"][5, 2]
+    req = np.broadcast_to(exact, x["req"].shape).copy()
+    req[1::2] = np.nextafter(req[1::2], np.float32(np.inf))
+    x["req"] = req.astype(np.float32)
+    x["prefix_freed"][5, 3:] = 0.0  # longer prefixes free nothing more
+    out["an exact fit at equality"] = x
+    out["negative free room"] = _prefilter_raw(rng, room=(-6, -2), need=(1, 3))
+    out["R = 1"] = _prefilter_raw(rng, R=1)
+    out["R = 8"] = _prefilter_raw(rng, R=8)
+    out["MPN = 1"] = _prefilter_raw(rng, MPN=1)
+    out["MPN = 16"] = _prefilter_raw(rng, MPN=16, C=64)
+    out["C = 1"] = _prefilter_raw(rng, C=1)
+    out["C = 256, N = 8192"] = _prefilter_raw(rng, N=8192, gate_p=0.0008)
+    x = _only_node(_prefilter_raw(rng, C=40), 77)
+    x["node_valid"][77] = False
+    out["node_valid false on the only fit"] = x
+    x = _prefilter_raw(rng, room=(-3, 0))
+    units = np.array([_UNITS[r % len(_UNITS)] for r in range(4)], np.float32)
+    pf = rng.integers(0, 6, x["prefix_freed"].shape).astype(np.float32) * units
+    pf[:, 0] = 0.0
+    x["prefix_freed"] = pf
+    out["prefix rooms out of order"] = x
+    out["tables from L2: MPN = 64, R = 8"] = _prefilter_raw(rng, C=40, N=1024, MPN=64, R=8)
+    assert tuple(out) == PREFILTER_TAGS
+    return out
+
+
+PREFILTER_ARGS = ("prio", "req", "cand_ok", "vict_prio", "prefix_freed", "free0", "gate",
+                  "node_valid")
+
+
+def prefilter_args(raw: dict, device) -> tuple:
+    """One case's numpy inputs as K7's argument tuple on `device`."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)
+                 for k in PREFILTER_ARGS)
+
+
+def prefilter_cases(device="cpu") -> dict:
+    """{tag: K7's argument tuple} of `prefilter_raw_cases` on `device`."""
+    return {t: prefilter_args(x, device) for t, x in prefilter_raw_cases().items()}

@@ -15,7 +15,9 @@ against these plain versions on the card by chip_smoke.py).
   and its per-role tests over random participant tables with every role,
   and against a sequential per-entry count: bit-equal.
 - K7-K9, preemption's `prefilter_plain`, `nonresource_ok_plain` and
-  `claim_loop_plain`, on hand-made inputs with known answers: each
+  `claim_loop_plain`, on hand-made inputs with known answers (K7 also on
+  its seeded edge cases, `kernel_cases.prefilter_cases`, against a numpy
+  transcription of the reference's prefilter): each
   node-choice key deciding in turn, PDB budgets over three groups spent
   across ranks, claimed ports, gates, what-if verdicts, every what-if
   constraint; `prefix_sums_f32` against jnp.cumsum across XLA's scan
@@ -555,6 +557,59 @@ def test_prefilter_plain_known_answers():
     got = preemption.prefilter_plain(prio, req, cand_ok, vt.vict_prio, vt.prefix_freed,
                                      free0, gate, node_valid)
     assert got.tolist() == [True, False, False, False, True]
+
+
+def _reference_prefilter(x: dict) -> np.ndarray:
+    """Reference `ops/preemption.py:219-232` in numpy, candidates in chunks:
+    elig over the valid victims below the priority, the fit of every
+    prefix in f32 (free0 + prefix_freed, one rounding), prefixes 1..elig,
+    gate and node_valid, then cand_ok."""
+    prio, req, vict_prio = x["prio"], x["req"], x["vict_prio"]
+    vict_valid = vict_prio != kernel_cases._BIG_I32
+    ks = np.arange(vict_prio.shape[1] + 1)
+    out = []
+    for c0 in range(0, prio.shape[0], 16):
+        sl = slice(c0, c0 + 16)
+        elig = np.sum(vict_valid[None] & (vict_prio[None] < prio[sl, None, None]), axis=2)
+        fits = np.all(req[sl, None, None, :]
+                      <= x["free0"][None, :, None, :] + x["prefix_freed"][None], axis=-1)
+        allowed = fits & (ks[None, None] >= 1) & (ks[None, None] <= elig[:, :, None])
+        out.append(np.any(allowed & x["gate"][sl, :, None] & x["node_valid"][None, :, None],
+                          axis=(1, 2)))
+    return np.concatenate(out) & x["cand_ok"]
+
+
+@pytest.mark.parametrize("tag", kernel_cases.PREFILTER_TAGS)
+def test_prefilter_plain_edge_cases_match_reference(tag):
+    """K7's seeded edge cases (`kernel_cases.prefilter_cases`, which the
+    card holds the kernel against): `prefilter_plain` equals the numpy
+    transcription of the reference's prefilter on each, and the case sets
+    up what it is named for."""
+    raw = kernel_cases.prefilter_raw_cases()[tag]
+    args = kernel_cases.prefilter_args(raw, "cpu")
+    want = _reference_prefilter(raw)
+    got = preemption.prefilter_plain(*args)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(preempt_prefilter.preempt_prefilter(*args), got)
+    C, R = raw["req"].shape
+    N, MPN = raw["vict_prio"].shape
+    shape = preempt_prefilter.launch_shape(C, N, MPN, R)
+    assert shape["staged"] == (not tag.startswith("tables from L2")), shape
+    if tag in ("no victim below the priority", "every candidate infeasible",
+               "node_valid false on the only fit"):
+        assert not want.any() and raw["cand_ok"].any()
+    if tag.startswith("the only fit") or tag == "C = 1":
+        assert want.all()
+    if tag == "an exact fit at equality":
+        assert want.tolist() == [c % 2 == 0 for c in range(C)]
+    if tag == "cand_ok false on half":
+        assert want.any() and not want[::2].any()
+    if tag in ("MPN = 1", "prefix rooms out of order", "negative free room"):
+        assert 0 < want.sum() < raw["cand_ok"].sum()
+    if tag == "negative free room":
+        assert (raw["free0"] < 0).all()
+    if tag == "prefix rooms out of order":
+        assert (np.diff(raw["prefix_freed"][:, 1:], axis=1) < 0).any()
 
 
 @pytest.mark.parametrize("case", ["viol", "max_prio", "prio_sum", "count", "start", "index"])
