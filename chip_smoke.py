@@ -5,8 +5,10 @@ NVIDIA GPU.
     python3 chip_smoke.py [--prev-csrc DIR]
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
-engine latency cycle `build_cycle_fn(commit_mode="rounds")(snapshot)`, and
-the scan engine's (`commit_mode="scan"`, `build_cycle_fn`'s default) — on
+engine latency cycle `build_cycle_fn(commit_mode="rounds", outputs=
+"latency")(snapshot)`, and the scan engine's (`commit_mode="scan"`,
+`build_cycle_fn`'s default), then the full outputs (`outputs="full"`,
+`build_cycle_fn`'s default) and the diagnosis program — on
 three workloads at BASELINE config #4's cluster size (5000 nodes, 12000
 running pods, 10000 pending pods, padded P=16384, N=8192):
 
@@ -22,8 +24,9 @@ running pods, 10000 pending pods, padded P=16384, N=8192):
            cycles and preemption;
 
 and the device-carry latency path serving runs (`encode_packed`, the
-carried static base, the packed cycle and preemption) over churn frames
-of config #4's workload, with and without volumes (phase 8).
+carried static base, the packed cycle and preemption, and off the
+decision path `build_diagnosis_fn`) over churn frames of config #4's
+workload, with and without volumes (phases 8 and 9).
 
 Phases:
 
@@ -75,7 +78,15 @@ Phases:
                 last node at N = 8199 and 13, an exact fit at equality,
                 negative free room, R = 1 and 8, MPN = 1 and 16, C = 1 and
                 256, node_valid false on the only fit, prefix rooms out of
-                order, tables read from L2);
+                order, tables read from L2); K16 `static_rejects` on
+                `static_reject_cases` and K17 `dyn_rejects` on
+                `dyn_reject_cases` (a filter without a mask between two
+                with one, every node rejected by the first filter, rows all
+                false and all true, F = 1 and 9, columns out of the filters'
+                order, one part of each kind alone, a start mask all false,
+                N = 8 and 13, misaligned rows, P = 2049, N = 8199), and K13's
+                full mode on the scan cases' full inputs (the per-step
+                rejects too);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
                 decisions required; K14 / K15 held against their plain
                 versions on every call of it), K1/K2 against their plain versions
@@ -183,7 +194,30 @@ Phases:
                 dirty counts, encode and upload ms, the carry's, cycle's
                 and preemption's events ms against the fresh cycle's, and
                 (torch.profiler) carry_init against the update and the
-                cycles' device time and busy share.
+                cycles' device time and busy share; on the last frame the
+                diagnosis program (phase 9);
+  9. full outputs and diagnosis — `build_cycle_fn(outputs="full")` at
+                config #4 (seed 202) in the rounds engine, with and without
+                `config4_volumes`: K16 over every pod row and K17 over the
+                final window of unplaced pods, one launch each; every
+                CycleResult field equal to the plain-versions full cycle's,
+                the decisions equal to the latency cycle's,
+                sum(accepted_per_round) equal to the placements before the
+                gang unwind; events and device ms (torch.profiler) against
+                the latency cycle; in the scan engine, K13's full mode:
+                decisions equal to the latency cycle's at full size, the
+                kernel's us a step against the latency instance's in the
+                same call, and equal to its plain version on the 2048-pod
+                variant (the plain scan at full size would take a minute);
+                then, on the last carry frame of each variant,
+                `build_diagnosis_fn` fed the carry cycle's assignment,
+                node_requested and pv_claimed: equal to the program on the
+                plain versions, rows nonzero only for valid unplaced pods,
+                one K16 and one K17 launch a 2048-pod window, the first
+                three unplaced pods' FailedScheduling lines, events ms a
+                frame and a window; K16 and K17 timed by CUDA-graph
+                replays on the full cycle's and the diagnosis windows'
+                calls.
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -803,15 +837,61 @@ def scan_edge_checks(torch, dev) -> dict:
     return shapes
 
 
+def scan_full_edge_checks(torch, dev) -> dict:
+    """K13's full mode against `scan_commit_plain`'s on the seeded edge
+    cases' full inputs (`utils/kernel_cases.scan_cases(full=True)`): the
+    seven outputs and the per-step rejects equal; {case: rejects counted}."""
+    from k8s_scheduler_tpu_torch.kernel_variants import scans_equal
+    from k8s_scheduler_tpu_torch.ops import scan_commit as sc
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import scan_cases
+
+    out = {}
+    for tag, x in scan_cases(dev, full=True).items():
+        rk, rp = sc.scan_commit_cuda(x), sc.scan_commit_plain(x)
+        check(scans_equal(rk, rp) and torch.equal(rk.rejects, rp.rejects),
+              f"scan_commit's full mode differs from scan_commit_plain's ({tag})")
+        out[tag] = int(rk.rejects.sum())
+    return out
+
+
+def reject_edge_checks(torch, dev) -> dict:
+    """K16 `static_rejects` and K17 `dyn_rejects` against their plain
+    versions on the seeded edge cases (`utils/kernel_cases.
+    static_reject_cases`, `dyn_reject_cases`), bit for bit; {case: [rows,
+    F, nodes counted]}."""
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.utils.kernel_cases import (dyn_reject_cases,
+                                                            static_reject_cases)
+
+    out = {}
+    for tag, (x, rows) in static_reject_cases(dev).items():
+        k = sb.static_rejects_cuda(x, rows)
+        check(torch.equal(k, sb.static_rejects_plain(x, rows)),
+              f"static_rejects differs from its plain version ({tag})")
+        out[f"K16 {tag}"] = [*k.shape, int(k.sum())]
+    for tag, args in dyn_reject_cases(dev).items():
+        k = dr.dyn_rejects_cuda(*args)
+        check(torch.equal(k, dr.dyn_rejects_plain(*args)),
+              f"dyn_rejects differs from its plain version ({tag})")
+        out[f"K17 {tag}"] = [*k.shape, int(k.sum())]
+    return out
+
+
 def capacity_calls_equal(torch, cap, calls, tag) -> tuple[int, int]:
     """K5 against `capacity_plain` on every recorded call, outputs bit-equal;
     (passes, revocation folds)."""
     folds = 0
     for i, args in sorted(calls.items()):
-        (ak, nk), (ap, np_) = cap.capacity_cuda(*args), cap.capacity_plain(*args)
-        check(bits_equal(torch, ak, ap) and bits_equal(torch, nk, np_),
+        # the round's counter row, if the call had one, fresh for each side
+        rows = [None, None] if len(args) < 9 or args[8] is None else [
+            torch.zeros_like(args[8]), torch.zeros_like(args[8])]
+        (ak, nk), (ap, np_) = (cap.capacity_cuda(*args[:8], rows[0]),
+                               cap.capacity_plain(*args[:8], rows[1]))
+        check(bits_equal(torch, ak, ap) and bits_equal(torch, nk, np_)
+              and (rows[0] is None or torch.equal(rows[0], rows[1])),
               f"capacity differs from its plain version ({tag}, call {i})")
-        folds += args[-1] is False
+        folds += args[7] is False
     return len(calls) - folds, folds
 
 
@@ -1524,7 +1604,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
     cap_rec = Recorder(cap.capacity_plain, keep=None)  # every pass and fold
     rec_dyn = dyn_recorders(dr)  # every K14 / K15 call
     cycle_vp = build_cycle_fn(
-        commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
+        commit_mode="rounds", outputs="latency", device=dev,
+        static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=ipt.interpod_norm_plain,
         affinity_update_fn=au.affinity_update_plain, capacity_fn=cap_rec,
@@ -1532,7 +1613,8 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         pv_choice_fn=rec["pv_choice"], pv_fold_fn=rec["pv_fold"],
         dyn_mask_fn=rec_dyn[0], dyn_score_fn=rec_dyn[1])
     fold_k = Recorder(k12.pv_fold, keep=())  # the last fold: the final claims
-    cycle_k = build_cycle_fn(commit_mode="rounds", device=dev, pv_fold_fn=fold_k)
+    cycle_k = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev,
+                             pv_fold_fn=fold_k)
     t0 = time.time()
     dk = cycle_k(snap0)
     torch.cuda.synchronize()
@@ -1890,7 +1972,7 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     from k8s_scheduler_tpu_torch.ops import scan_commit as sc
     from k8s_scheduler_tpu_torch.ops import static_base as sb
 
-    cycle_s = build_cycle_fn(fw, commit_mode="scan", device=dev)
+    cycle_s = build_cycle_fn(fw, commit_mode="scan", outputs="latency", device=dev)
     t0 = time.time()
     dw = cycle_s(snaps[AFF_WARM_SEED])
     torch.cuda.synchronize()
@@ -2076,10 +2158,338 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
+def static_reject_cost(torch, x, rows=None) -> tuple[int, int]:
+    """(bytes, operations) K16 must move and do on these inputs: every
+    operand its tests read, once (the per-pod ids and port slots, the node
+    vectors and port lists, the toleration table, the requirement rows,
+    the mask operand, `rows`), the i32 [P, F] output written once; a test
+    a (pod, node) pair for each filter the flags name, and its count."""
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+
+    P, N = x.shape
+    b = nbytes(x.pod_node_name, x.pod_tolset, x.pod_req_id, x.pod_sel_req_id, x.pod_ports,
+               x.node_valid, x.node_unsched, x.node_taintset, x.node_used_ports, x.sched,
+               x.req, rows) + P * x.n_filters * 4
+    if x.flags & sb.F_MASK:
+        b += nbytes(x.mask)
+    tests = sum(bool(x.flags & bit) for _, bit in sb.REJECT_TESTS)
+    return b, P * N * (tests + 1)
+
+
+def dyn_reject_cost(torch, start, parts, F, rows) -> tuple[int, int]:
+    """(bytes, operations) K17 must move and do: the start mask, each part's
+    operands (a plane; a FitMask's requests and node tables; a PortMask's
+    ids and claimed bitmap) and `rows` read once, the i32 [B, F] output
+    written once; a test a (row, node) pair for each part (R compares for
+    the fit), and its count."""
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+
+    B, N = start.shape
+    b, per = nbytes(start, rows) + B * F * 4, 1
+    for _, p in parts:
+        if isinstance(p, dr.FitMask):
+            b += nbytes(*p)
+            per += p.pod_requested.shape[1]
+        elif isinstance(p, dr.PortMask):
+            b += nbytes(*p)
+            per += p.pod_port_ids.shape[1]
+        else:
+            b += nbytes(p)
+            per += 1
+    return b, B * N * per
+
+
+def reject_kernel_entries(torch, full_stats, carry_stats) -> dict:
+    """K16's and K17's lines of the kernel table, timed on the calls the
+    full rounds cycle (no volumes) recorded: K16 over every pod row, K17 on
+    the final window; and on the diagnosis program's first window of the
+    carry phase's last frame (no volumes). `device_ms` by CUDA-graph
+    replays; launches over the full cycles and the diagnosis frames."""
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+
+    full16, full17 = full_stats["calls"]["rounds"]
+    diag16, diag17 = carry_stats[False]["diagnosis"]["calls"]
+    launches = {k: full_stats["launches"][k] + sum(c["diagnosis"]["launches"][k]
+                                                    for c in carry_stats.values())
+                for k in ("static_rejects", "dyn_rejects")}
+    out = {}
+    for name, fn, plain, cost, full_call, diag_call, replaces in (
+            ("static_rejects", sb.static_rejects_cuda, sb.static_rejects_plain,
+             static_reject_cost, full16[0], diag16.get(0),
+             "k8s_scheduler_tpu/framework/runtime.py:79"),
+            ("dyn_rejects", dr.dyn_rejects_cuda, dr.dyn_rejects_plain, dyn_reject_cost,
+             full17[0], diag17.get(0), "k8s_scheduler_tpu/framework/runtime.py:223")):
+        a = full_call
+        ms = time_ms(torch, lambda: fn(*a), 10)
+        dms = device_ms(lambda: fn(*a), 10)
+        pms = time_ms(torch, lambda: plain(*a), 2)
+        nb, ops = cost(torch, *a)
+        extra = {"rows": a[0].shape[0], "nodes": a[0].shape[1]}
+        if diag_call is not None:
+            d = diag_call
+            nb_d, ops_d = cost(torch, *d)
+            extra.update(window_device_ms=device_ms(lambda: fn(*d), 10),
+                         window_plain_ms=time_ms(torch, lambda: plain(*d), 2),
+                         window_bound_ms=bound(nb_d, ops_d)[0], window_rows=d[0].shape[0])
+        out[name] = kernel_entry(
+            name, "cuda", f"k8s_scheduler_tpu_torch/csrc/"
+            f"{'static_base' if name == 'static_rejects' else 'dyn_round'}.cu",
+            replaces, launches[name], 0.0, ms, dms, pms, nb, ops,
+            launches_by_path={"full cycles": full_stats["launches"][name],
+                              "diagnosis": launches[name] - full_stats["launches"][name]},
+            **extra)
+        log(f"phase kernel {name}: {extra['rows']} rows x {extra['nodes']} nodes (the full "
+            f"rounds cycle's call): kernel {ms:.4f} ms events, {dms:.4f} ms device, plain "
+            f"{pms:.3f} ms, bound {bound(nb, ops)[0]:.4f} ms ({bound(nb, ops)[1]}); the "
+            f"diagnosis window: {json.dumps({k: v for k, v in extra.items() if 'window' in k})}"
+            f"; launches {launches[name]}")
+    return out
+
+
+def plain_kwargs():
+    """`build_cycle_fn`'s kernel functions, every one its plain version."""
+    from k8s_scheduler_tpu_torch.ops import affinity_update as au
+    from k8s_scheduler_tpu_torch.ops import capacity as cap
+    from k8s_scheduler_tpu_torch.ops import claim_pass as cp
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+    from k8s_scheduler_tpu_torch.ops import guard_sweep as gs
+    from k8s_scheduler_tpu_torch.ops import interpod_terms as ipt
+    from k8s_scheduler_tpu_torch.ops import scan_commit as sc
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.ops import volumes
+
+    return dict(
+        static_base_fn=sb.static_base_plain, static_rejects_fn=sb.static_rejects_plain,
+        claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
+        interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
+        capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain,
+        volume_mask_fn=volumes.volume_mask_plain, pv_choice_fn=volumes.pv_choice_plain,
+        pv_fold_fn=volumes.pv_fold_plain, scan_commit_fn=sc.scan_commit_plain,
+        dyn_mask_fn=dr.dyn_mask_plain, dyn_score_fn=dr.dyn_score_plain,
+        dyn_rejects_fn=dr.dyn_rejects_plain)
+
+
+def results_equal(torch, a, b) -> dict:
+    """Every field of two CycleResults, floats by their bits."""
+    return {f.name: bits_equal(torch, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)}
+
+
+def full_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi) -> dict:
+    """Phase 9 (module docstring): the full outputs at config #4 (seed
+    AFF_TIMED_SEEDS[0]) in the rounds engine, with and without
+    `config4_volumes`, and in the scan engine. Returns {"calls": the
+    recorded K16 / K17 calls by tag, "launches": counts over the full
+    cycles, "ms": {...}}."""
+    from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn, sampling_window
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
+    from k8s_scheduler_tpu_torch.kernel_variants import kernel_ms, scans_equal
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+    from k8s_scheduler_tpu_torch.ops import scan_commit as sc
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    seed = AFF_TIMED_SEEDS[0]
+    running, pods, pvcs, pvs, classes = synth.config4_volumes(nodes, existing,
+                                                              list(pending[seed]), seed=seed)
+    cases = {"rounds": snaps[seed], "rounds, volumes": SnapshotEncoder(device=dev).encode(
+        nodes, pods, running, pvcs=pvcs, pvs=pvs, storage_classes=classes)}
+    rec16 = Recorder(sb.static_rejects_cuda, keep=None)
+    rec17 = Recorder(dr.dyn_rejects_cuda, keep=None)
+    full_k = build_cycle_fn(fw, commit_mode="rounds", device=dev)
+    full_r = build_cycle_fn(fw, commit_mode="rounds", device=dev, static_rejects_fn=rec16,
+                            dyn_rejects_fn=rec17)
+    lean = build_cycle_fn(fw, commit_mode="rounds", outputs="latency", device=dev)
+    full_p = build_cycle_fn(fw, commit_mode="rounds", device=dev, **plain_kwargs())
+    calls, ms, launches = {}, {}, dict.fromkeys(kb.launch_counts, 0)
+
+    def timed(fn, snap):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kb.reset_launch_counts()
+        start.record()
+        out = fn(snap)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), dict(kb.launch_counts)
+
+    for tag, snap in cases.items():
+        full_r(snap)  # the K16 / K17 calls, recorded
+        calls[tag] = (dict(rec16.args), dict(rec17.args))
+        rec16.args.clear()
+        rec17.args.clear()
+        # the main path: counts set to 0 just before, read just after
+        rk, full_ms, counted = timed(full_k, snap)
+        for k, v in counted.items():
+            launches[k] += v
+        check(counted["static_rejects"] == 1 and counted["dyn_rejects"] == 1,
+              f"full {tag} cycle: K16 / K17 launches {counted['static_rejects']} / "
+              f"{counted['dyn_rejects']}, one each expected")
+        d, lean_ms, lean_counted = timed(lean, snap)
+        extra = {k: counted[k] - lean_counted[k] for k in counted if counted[k] != lean_counted[k]}
+        full_dev = profiled_device_ms(torch, lambda: full_k(snap), 1)
+        lean_dev = profiled_device_ms(torch, lambda: lean(snap), 1)
+        t0 = time.time()
+        rp = full_p(snap)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        eq = results_equal(torch, rk, rp)
+        check(all(eq.values()), f"full {tag} cycle: kernels differ from the plain versions: {eq}")
+        same = same_decisions(torch, rk, d)
+        check(all(same.values()), f"full {tag} cycle decides otherwise than the latency "
+              f"cycle: {same}")
+        placed = int((rk.assignment >= 0).sum() + rk.gang_dropped.sum())
+        check(int(rk.accepted_per_round.sum()) == placed,
+              f"full {tag} cycle: sum(accepted_per_round) != placements before the unwind")
+        unplaced = snap.pod_valid & (rk.assignment < 0)
+        n_r = int(rk.rounds_used)
+        ms[tag] = {"full_events_ms": round(full_ms, 2), "latency_events_ms": round(lean_ms, 2),
+                   "full_device_ms": round(full_dev, 3), "latency_device_ms": round(lean_dev, 3)}
+        log(f"phase full {tag} cycle, seed {seed}: events {full_ms:.2f} ms (latency cycle "
+            f"{lean_ms:.2f}), device {full_dev:.3f} ms (latency {lean_dev:.3f}) by "
+            f"torch.profiler; launches beyond the latency cycle's {json.dumps(extra)}; "
+            f"kernels == plain on every CycleResult field (the plain full cycle "
+            f"{plain_s:.1f} s); decisions == latency cycle; rounds {n_r}, accepted per round "
+            f"{rk.accepted_per_round[:n_r].tolist()} (sum {placed} = placements before the "
+            f"unwind), diag per round {rk.diag_per_round[:n_r].tolist()}; unplaced "
+            f"{int(unplaced.sum())}, reject counts summed by filter "
+            f"{dict(zip(fw.filter_names, rk.reject_counts.sum(0).tolist()))} | {smi}")
+        del rk, rp, d
+
+    # the scan engine: K13's full mode at full size, held on decisions
+    # against the latency instance (its plain version on the edge cases and
+    # the cut variant below)
+    snap = snaps[seed]
+    scan_full = build_cycle_fn(fw, commit_mode="scan", device=dev)
+    scan_lean = build_cycle_fn(fw, commit_mode="scan", outputs="latency", device=dev)
+    rk, sfull_ms, counted = timed(scan_full, snap)
+    for k, v in counted.items():
+        launches[k] += v
+    check(counted["scan_commit"] == 1 and counted["static_rejects"] == 1,
+          "full scan cycle: K13 and K16 not once each")
+    d, slean_ms, _ = timed(scan_lean, snap)
+    same = same_decisions(torch, rk, d)
+    check(all(same.values()), f"the full scan cycle decides otherwise than the latency "
+          f"one: {same}")
+
+    def packed(snap_, full):
+        ctx = CycleContext(snap_)
+        sbase = sb.static_base_cuda(sb.static_base_inputs(
+            fw, ctx, fit=not full, sampling=sampling_window(snap_, 0)))
+        return sc.scan_commit_inputs(fw, ctx, sbase, fw.extra_init(ctx), rejects=full)
+
+    xf, xl = packed(snap, True), packed(snap, False)
+    first = sc.scan_commit_cuda(xf)
+    k_full = kernel_ms(lambda: sc.scan_commit_cuda(xf), 2, "scan_kernel")
+    k_lean = kernel_ms(lambda: sc.scan_commit_cuda(xl), 2, "scan_kernel")
+    # events around the wrappers too (their host work included): a check on
+    # the profiler's kernel times
+    e_full = time_ms(torch, lambda: sc.scan_commit_cuda(xf), 2)
+    e_lean = time_ms(torch, lambda: sc.scan_commit_cuda(xl), 2)
+    again = sc.scan_commit_cuda(xf)
+    check(scans_equal(first, again) and torch.equal(first.rejects, again.rejects),
+          "K13's full mode gave another result on a later launch of the same inputs")
+    nv, P = int(xl.pod_valid.sum()), xf.shape[0]
+    ms["scan"] = {"full_events_ms": round(sfull_ms, 2), "latency_events_ms": round(slean_ms, 2),
+                  "k13_full_kernel_ms": round(k_full, 3), "k13_latency_kernel_ms": round(k_lean, 3),
+                  "k13_full_us_per_step": round(1e3 * k_full / P, 3),
+                  "k13_latency_us_per_step": round(1e3 * k_lean / nv, 3),
+                  "k13_full_wrapper_events_ms": round(e_full, 3),
+                  "k13_latency_wrapper_events_ms": round(e_lean, 3)}
+    log(f"phase full scan cycle, seed {seed}: events {sfull_ms:.2f} ms (latency cycle "
+        f"{slean_ms:.2f}); decisions == latency cycle; K13 full mode {k_full:.3f} ms over "
+        f"{P} steps ({nv} valid: {1e3 * k_full / P:.3f} us a step, "
+        f"{1e3 * (k_full - k_lean) / max(P - nv, 1):.3f} us more an invalid step if the "
+        f"valid ones cost as before), latency instance {k_lean:.3f} ms over {nv} steps "
+        f"({1e3 * k_lean / nv:.3f} us a step), torch.profiler, in the same call (events "
+        f"around the wrappers {e_full:.3f} and {e_lean:.3f} ms; a later launch equal to the "
+        f"first); reject "
+        f"counts summed by filter {dict(zip(fw.filter_names, rk.reject_counts.sum(0).tolist()))}"
+        f" | {smi}")
+    del xf, xl, rk, d, first, again
+    # K13's full mode against its plain version on the cut variant (the
+    # plain scan at full size would take a minute)
+    snap_cut = SnapshotEncoder(device=dev).encode(nodes, pending[seed][:SCAN_CUT], existing)
+    vsnap = scan_variant(torch, snap_cut, torch.Generator(device=dev).manual_seed(11))
+    xv = packed(vsnap, True)
+    rk, rp = sc.scan_commit_cuda(xv), sc.scan_commit_plain(xv)
+    check(scans_equal(rk, rp) and torch.equal(rk.rejects, rp.rejects),
+          "scan_commit's full mode differs from its plain version on the cut variant")
+    log(f"phase kernel scan_commit full mode, the first {SCAN_CUT} pending pods of seed "
+        f"{seed} (preferred / ScheduleAnyway / nominated / host-port variant): the seven "
+        f"outputs and the rejects ({int(rk.rejects.sum())} counted) equal to "
+        f"scan_commit_plain's")
+    del xv, rk, rp, vsnap, snap_cut
+    return {"calls": calls, "launches": launches, "ms": ms}
+
+
+def diagnosis_frame(torch, kb, fw, dev, spec, w, b, stable, r, snap, tag, smi) -> dict:
+    """The diagnosis program on one carry frame, fed the carry cycle's
+    outputs: kernels against the plain versions, rows nonzero only for valid
+    unplaced pods, the first three pods' FailedScheduling lines; {"launches",
+    "ms", "windows", "calls": the recorded K16 / K17 calls}."""
+    from k8s_scheduler_tpu_torch.core.cycle import build_diagnosis_fn
+    from k8s_scheduler_tpu_torch.core.events import failed_scheduling_message
+
+    from k8s_scheduler_tpu_torch.ops import dyn_round as dr
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+
+    pk = plain_kwargs()
+    rec16 = Recorder(sb.static_rejects_cuda, keep=(0,))
+    rec17 = Recorder(dr.dyn_rejects_cuda, keep=(0,))
+    diag_r = build_diagnosis_fn(spec, fw, device=dev, static_rejects_fn=rec16,
+                                dyn_rejects_fn=rec17)
+    diag_k = build_diagnosis_fn(spec, fw, device=dev)
+    diag_p = build_diagnosis_fn(spec, fw, device=dev, **{
+        k: pk[k] for k in ("static_base_fn", "static_rejects_fn", "dyn_rejects_fn",
+                           "interpod_terms_fn", "affinity_update_fn", "volume_mask_fn",
+                           "pv_fold_fn")})
+    args = (w, b, stable, r.assignment, r.node_requested, r.pv_claimed)
+    diag_r(*args)  # warm; the first window's K16 / K17 calls recorded
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    kb.reset_launch_counts()  # the program's path: counts read just after
+    t0 = time.time()
+    start.record()
+    rk = diag_k(*args)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    ev_ms = start.elapsed_time(end)
+    launched = dict(kb.launch_counts)
+    rp = diag_p(*args)
+    check(torch.equal(rk, rp), f"{tag}: the diagnosis program differs from its plain versions")
+    unplaced = snap.pod_valid & (r.assignment < 0)
+    n_un = int(unplaced.sum())
+    check(not bool(rk[~unplaced].any()), f"{tag}: diagnosis rows beyond the unplaced pods")
+    windows = -(-n_un // min(2048, snap.P))
+    check(launched["static_rejects"] == windows and launched["dyn_rejects"] == windows,
+          f"{tag}: K16 / K17 launched {launched['static_rejects']} / "
+          f"{launched['dyn_rejects']} times over {windows} windows")
+    order = torch.argsort(torch.where(unplaced, snap.pod_order.to(torch.int32),
+                                      torch.iinfo(torch.int32).max), stable=True)
+    n = int(snap.num_nodes)
+    for p in order[:min(3, n_un)].tolist():
+        log(f"  FailedScheduling {tag} pod slot {p}: " + failed_scheduling_message(
+            n, zip(fw.filter_names, rk[p].tolist())))
+    dev_ms = profiled_device_ms(torch, lambda: diag_k(*args), 1)
+    log(f"phase diagnosis {tag}: {n_un} unplaced pods in {windows} windows of 2048; events "
+        f"{ev_ms:.2f} ms a frame ({ev_ms / max(windows, 1):.2f} a window; wall {wall:.1f} "
+        f"ms), device {dev_ms:.3f} ms by torch.profiler; kernels == plain versions; rows "
+        f"nonzero: {int((rk.sum(1) > 0).sum())} of the {n_un} unplaced, none elsewhere; "
+        f"launches {json.dumps({k: v for k, v in launched.items() if v})} | {smi}")
+    return {"launches": launched, "ms": round(ev_ms, 2), "device_ms": round(dev_ms, 3),
+            "windows": windows, "unplaced": n_un,
+            "calls": (dict(rec16.args), dict(rec17.args))}
+
+
 def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool) -> dict:
     """Phase 8 (module docstring) on one variant: config #4's workload,
     with `config4_volumes` when `volumes`. Returns {"launches": counts
-    over the carry path's frames, "ms": [carry cycle device ms]}."""
+    over the carry path's frames, "ms": [carry cycle device ms],
+    "diagnosis": the last frame's `diagnosis_frame`}."""
     import numpy as np
 
     from k8s_scheduler_tpu_torch.core.cycle import (CarryKeeper, build_carry_fns,
@@ -2101,7 +2511,7 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
         vol = dict(pvcs=pvcs, pvs=pvs, storage_classes=classes)
     names = [nd.name for nd in nodes]
     enc = SnapshotEncoder(device=dev)
-    cycle_f = build_cycle_fn(fw, commit_mode="rounds", device=dev)
+    cycle_f = build_cycle_fn(fw, commit_mode="rounds", outputs="latency", device=dev)
     pre_f = build_preemption_fn(fw, device=dev)
     keeper, assignment, updates, prev_spec = None, None, 0, None
     counts = dict.fromkeys(kb.launch_counts, 0)
@@ -2221,6 +2631,9 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
                 f"its {cycle_wall:.1f} ms wall), fresh rounds cycle {fresh_dev:.3f} ms (busy "
                 f"share {fresh_dev / fresh_wall:.4f} of {fresh_wall:.1f} ms) | {smi}")
         updates += keeper.last == "update"
+        if f == CARRY_FRAMES:  # phase 9: the diagnosis program on the last frame
+            diag = diagnosis_frame(torch, kb, fw, dev, spec, w, b, stable, r, frame.snap,
+                                   tag, smi)
         assignment = r.assignment.cpu().numpy()
         del frame, w, b, stable, carry, r, rp, d, pd
     log(f"phase {tag} launches over the carry path of {CARRY_FRAMES + 1} frames: "
@@ -2235,7 +2648,7 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
     check(updates > 0, f"{tag}: no frame updated the carry (every one rebuilt it)")
     check(counts["static_base"] == CARRY_FRAMES + 1,
           f"{tag}: K1 ran {counts['static_base']} times over {CARRY_FRAMES + 1} frames")
-    return {"launches": counts, "ms": ms}
+    return {"launches": counts, "ms": ms, "diagnosis": diag}
 
 
 def main(argv=None) -> int:
@@ -2370,9 +2783,17 @@ def main(argv=None) -> int:
     log(f"phase kernel dyn_mask + dyn_score, seeded edge cases: equal to dyn_mask_plain and "
         f"dyn_score_plain bit for bit (and the score anchor) on {len(shapes)} cases; [B, N] "
         f"{json.dumps(shapes)}")
+    shapes = reject_edge_checks(torch, dev)
+    log(f"phase kernel static_rejects + dyn_rejects, seeded edge cases: equal to "
+        f"static_rejects_plain and dyn_rejects_plain bit for bit on {len(shapes)} cases; "
+        f"[rows, F, counted] {json.dumps(shapes)}")
+    shapes = scan_full_edge_checks(torch, dev)
+    log(f"phase kernel scan_commit full mode, seeded edge cases: the seven outputs and the "
+        f"per-step rejects equal to scan_commit_plain's on {len(shapes)} cases; rejects "
+        f"counted {json.dumps(shapes)}")
 
     fw = Framework.from_config()
-    cycle_k = build_cycle_fn(commit_mode="rounds", device=dev)
+    cycle_k = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev)
     kernels: dict[str, dict] = {}
 
     # ================= slice 1: config #2's pending mix =================
@@ -2390,7 +2811,7 @@ def main(argv=None) -> int:
 
     rec_cp = Recorder(cp.claim_pass_plain, keep=(0, 3))  # round 0, passes 0, 3
     rec_dyn = dyn_recorders(dr)  # every K14 / K15 call
-    cycle_p = build_cycle_fn(commit_mode="rounds", device=dev,
+    cycle_p = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev,
                              static_base_fn=sb.static_base_plain,
                              claim_pass_fn=rec_cp, dyn_mask_fn=rec_dyn[0],
                              dyn_score_fn=rec_dyn[1])
@@ -2509,7 +2930,8 @@ def main(argv=None) -> int:
     }
     rec_dyn = dyn_recorders(dr)  # every K14 / K15 call
     cycle_ap = build_cycle_fn(
-        commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
+        commit_mode="rounds", outputs="latency", device=dev,
+        static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain,
         interpod_terms_fn=rec["interpod_terms"], interpod_norm_fn=rec["interpod_norm"],
         affinity_update_fn=rec["affinity_update"], capacity_fn=rec["capacity"],
@@ -2567,9 +2989,10 @@ def main(argv=None) -> int:
     # resource scores averaged over three resources (a weight sum whose
     # reciprocal is inexact): the kernels' cycle against the plain versions'
     fw3 = Framework.from_config(resource_profile(RESOURCES_3))
-    d3k = build_cycle_fn(fw3, commit_mode="rounds", device=dev)(snap0)
+    d3k = build_cycle_fn(fw3, commit_mode="rounds", outputs="latency", device=dev)(snap0)
     d3p = build_cycle_fn(
-        fw3, commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
+        fw3, commit_mode="rounds", outputs="latency", device=dev,
+        static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
         interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
         capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain)(snap0)
@@ -2583,9 +3006,10 @@ def main(argv=None) -> int:
     # ... and the fit score over those three resources as the one dynamic
     # score: a bare product that the round's base add fuses (ROADMAP C3)
     fwf = Framework.from_config(fit_only_profile(RESOURCES_3))
-    dfk = build_cycle_fn(fwf, commit_mode="rounds", device=dev)(snap0)
+    dfk = build_cycle_fn(fwf, commit_mode="rounds", outputs="latency", device=dev)(snap0)
     dfp = build_cycle_fn(
-        fwf, commit_mode="rounds", device=dev, static_base_fn=sb.static_base_plain,
+        fwf, commit_mode="rounds", outputs="latency", device=dev,
+        static_base_fn=sb.static_base_plain,
         claim_pass_fn=cp.claim_pass_plain, interpod_terms_fn=ipt.interpod_terms_plain,
         interpod_norm_fn=ipt.interpod_norm_plain, affinity_update_fn=au.affinity_update_plain,
         capacity_fn=cap.capacity_plain, guard_sweep_fn=gs.guard_sweep_plain)(snap0)
@@ -2740,8 +3164,8 @@ def main(argv=None) -> int:
     c_calls = rec["capacity"].args
     n_pass, n_fold = capacity_calls_equal(torch, cap, c_calls, "affinity cycle")
     c_args = c_calls[0]
-    fold_args = c_calls[min(i for i, a in c_calls.items() if a[-1] is False)]
-    s_key, order, rank_bits, creq, cnode_req, calloc, cslack, _ = c_args
+    fold_args = c_calls[min(i for i, a in c_calls.items() if a[7] is False)]
+    s_key, order, rank_bits, creq, cnode_req, calloc, cslack = c_args[:7]
     node_run = (s_key >> rank_bits)
     longest = int(torch.unique_consecutive(node_run[node_run < N],
                                            return_counts=True)[1].max())
@@ -2833,6 +3257,10 @@ def main(argv=None) -> int:
     scan_stats = scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi,
                             slice1_case, plain_kernels, prev_libs)
     kernels.update(scan_stats.pop("kernels"))
+
+    # ============ full outputs: the reject attribution and round counters ============
+    full_stats = full_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi)
+    kernels["scan_commit"].update(full_mode=full_stats["ms"]["scan"])
     del snaps
 
     # ============ volumes: config #4's workload with local and zonal PVs ============
@@ -2847,6 +3275,7 @@ def main(argv=None) -> int:
         c["launches"]["static_base"] for c in carry_stats.values())
     for k in ("preempt_prefilter", "preempt_whatif", "preempt_claim"):
         kernels[k]["carry_launches"] = sum(c["launches"][k] for c in carry_stats.values())
+    kernels.update(reject_kernel_entries(torch, full_stats, carry_stats))
 
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
@@ -2893,7 +3322,9 @@ def main(argv=None) -> int:
         f"{scan_stats['ms']}, scan preemption device ms {scan_stats['pre_ms']}, volumes "
         f"cycle device ms {vol_stats['ms']}, volumes preemption device ms "
         f"{vol_stats['pre_ms']}, carry cycle device ms {carry_stats[False]['ms']}, with "
-        f"volumes {carry_stats[True]['ms']}, peak memory "
+        f"volumes {carry_stats[True]['ms']}, full cycles "
+        f"{json.dumps(full_stats['ms'])}, diagnosis ms a frame "
+        f"{[c['diagnosis']['ms'] for c in carry_stats.values()]}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -26,19 +26,26 @@ ScheduleOne commit) replaces the rounds engine with one launch of K13
 `scan_commit` over the same static base; volumes are not in it yet
 (ROADMAP A8b).
 
-This package builds the latency cycle of both engines
-(`build_cycle_fn(commit_mode=..., outputs="latency")`), with inter-pod
-affinity, topology spread and (rounds only) volumes, and preemption after
-either; and the device-carry latency path that serving runs (reference
+This package builds the cycle of both engines, with inter-pod affinity,
+topology spread and (rounds only) volumes, and preemption after either:
+its latency outputs (`outputs="latency"`, a `CycleDecision`) and its full
+outputs (`outputs="full"`, the default as in the reference: a
+`CycleResult` with the per-filter reject counts, the PV claim bitmap and
+the rounds engine's convergence counters; the static attribution by K16
+`static_rejects`, the dynamic one by K17 `dyn_rejects` over the rounds
+cycle's final window of unplaced pods or by K13's full mode at every scan
+step). Then the device-carry latency path that serving runs (reference
 `core/cycle.py:1050-1583`): a packed frame (`SnapshotEncoder.
 encode_packed`, `models/packing.py`), the stable tables
 (`build_stable_state_fn`), the [P, N] static base and [S, P] matched-
 pending carried on the device and updated for the changed pod rows only
 (`build_carry_fns`, `CarryKeeper`: K1 at the dirty bucket's row count),
-the rounds cycle over the carry (`build_packed_cycle_carry_fn`) and
-preemption on the packed frame (`build_packed_preemption_fn`). Full
-outputs and the multi-cycle / arena builders are ROADMAP items A9 and
-A11-A13; extender verdicts A10."""
+the rounds cycle over the carry (`build_packed_cycle_carry_fn`),
+preemption on the packed frame (`build_packed_preemption_fn`) and the
+off-path diagnosis program (`build_diagnosis_fn`: every unplaced pod's
+FailedScheduling attribution, K16 and K17 over windows of them). The
+multi-cycle / arena builders are ROADMAP items A11-A13; extender verdicts
+A10."""
 
 from __future__ import annotations
 
@@ -83,6 +90,26 @@ class CycleDecision:
     # placement (-1 unplaced or unwound); validity checks replay the rounds.
     # The scan engine reports 0 for every placement (the reference's
     # rounds_used is 0 in scan mode): its steps follow the queue rank
+
+
+@dataclasses.dataclass
+class CycleResult:
+    """The full outputs of a cycle (the reference's `CycleResult`), and the
+    port's `placed_round`."""
+
+    assignment: torch.Tensor  # i32 [P] node index or -1
+    node_requested: torch.Tensor  # f32 [N, R] post-cycle
+    unschedulable: torch.Tensor  # bool [P] valid pod that found no node
+    gang_dropped: torch.Tensor  # bool [P] placed, then unwound
+    reject_counts: torch.Tensor  # i32 [P, F] nodes first rejected per filter,
+    # static + dynamic (columns `Framework.filter_names`); zeros from the
+    # carry cycle, whose attribution is the diagnosis program's
+    pv_claimed: torch.Tensor  # bool [V] static PVs claimed by the placements
+    rounds_used: torch.Tensor  # i32 [] rounds run (0 in scan mode)
+    accepted_per_round: torch.Tensor  # i32 [max_rounds] (zeros in scan mode)
+    diag_per_round: torch.Tensor  # i32 [max_rounds, 3] a round's (live
+    # claims, capacity rejections, guard revocations), summed over passes
+    placed_round: torch.Tensor  # i32 [P] as CycleDecision's
 
 
 def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
@@ -144,9 +171,10 @@ def build_cycle_fn(
     max_rounds: int = 64,
     percentage_of_nodes_to_score: int = 0,  # 0 = adaptive (upstream default)
     rounds_kw: dict | None = None,  # compact / passes / passes_round0
-    outputs: str = "latency",
+    outputs: str = "full",  # "full" -> CycleResult, "latency" -> CycleDecision
     device=None,
     static_base_fn: Callable = static_base_ops.static_base,
+    static_rejects_fn: Callable = static_base_ops.static_rejects,
     claim_pass_fn: Callable = claim_pass_ops.claim_pass,
     interpod_terms_fn: Callable = interpod_terms_ops.interpod_terms,
     interpod_norm_fn: Callable = interpod_terms_ops.interpod_norm,
@@ -159,15 +187,18 @@ def build_cycle_fn(
     scan_commit_fn: Callable = scan_commit_ops.scan_commit,
     dyn_mask_fn: Callable = dyn_round_ops.dyn_mask,
     dyn_score_fn: Callable = dyn_round_ops.dyn_score,
+    dyn_rejects_fn: Callable = dyn_round_ops.dyn_rejects,
 ) -> Callable:
     """The cycle for a framework (default: the default plugin set) on one
-    device: `cycle(snapshot) -> CycleDecision`.
+    device: `cycle(snapshot) -> CycleResult` (`outputs="full"`, the
+    default, as in the reference) or `CycleDecision` (`"latency"`).
 
     `device` None means the card (raises without one). The default
     kernel functions (`static_base_fn`, `claim_pass_fn`, `interpod_terms_fn`,
     `interpod_norm_fn`, `affinity_update_fn`, `capacity_fn`,
     `guard_sweep_fn`, `volume_mask_fn`, `pv_choice_fn`, `pv_fold_fn`,
-    `scan_commit_fn`, `dyn_mask_fn`, `dyn_score_fn`) run the hand-written
+    `scan_commit_fn`, `dyn_mask_fn`, `dyn_score_fn`, and for the full
+    outputs `static_rejects_fn`, `dyn_rejects_fn`) run the hand-written
     kernels on CUDA and their plain
     torch versions on CPU; passing the plain versions (`*_plain`) runs them
     on the card too — the run the kernels are held against.
@@ -178,17 +209,22 @@ def build_cycle_fn(
     then per round K3/K10 and K14/K15 (the dynamic masks and the claim
     base), K2 and K5 per pass (K15 also for the score anchor),
     K11/K6/K4/K12 at round end.
-    `outputs` stays "latency" here where the reference defaults to "full"
-    (ROADMAP A9). Placements follow the reference's engine of the same name:
-    bit-equal assignment / node_requested / unschedulable / gang_dropped
-    (held by tests/test_torch_cycle*.py)."""
+    The full outputs add, after the decisions: K16 over every pod row for
+    the static attribution; in the rounds engine K17 over the final window
+    of unplaced pods (`compact_window(P)` of them, preemption-eligible ones
+    first by rank, against the final state, from their sampled static
+    mask: K1 on the window's rows) for the dynamic one, in the scan K13's
+    full mode (its static base then without the fit test); and the claim
+    bitmap of the surviving placements. Placements follow the reference's
+    engine of the same name and do not depend on `outputs`: bit-equal
+    assignment / node_requested / unschedulable / gang_dropped, and the
+    full outputs bit-equal to the reference's (held by
+    tests/test_torch_cycle*.py and tests/test_torch_diagnosis.py)."""
     if commit_mode not in ("rounds", "scan"):
         raise ValueError(f"commit_mode {commit_mode!r}: 'rounds' or 'scan'")
-    if outputs != "latency":
-        raise NotImplementedError(
-            f"outputs {outputs!r}: only the latency outputs are ported "
-            "(diagnosis outputs are ROADMAP A9)"
-        )
+    if outputs not in ("full", "latency"):
+        raise ValueError(f"outputs {outputs!r}: 'full' or 'latency'")
+    lean = outputs == "latency"
     kw = dict(rounds_kw or {})
     unknown = set(kw) - {"compact", "passes", "passes_round0"}
     if unknown:
@@ -198,11 +234,12 @@ def build_cycle_fn(
     kernels = AffinityKernels(interpod_terms_fn, interpod_norm_fn,
                               affinity_update_fn)
     vkernels = VolumeKernels(volume_mask_fn, pv_choice_fn, pv_fold_fn)
-    dkernels = DynKernels(dyn_mask_fn, dyn_score_fn)
+    dkernels = DynKernels(dyn_mask_fn, dyn_score_fn, dyn_rejects_fn)
     engine = dict(kw, claim_pass_fn=claim_pass_fn, capacity_fn=capacity_fn,
                   guard_sweep_fn=guard_sweep_fn)
+    pct = percentage_of_nodes_to_score
 
-    def cycle(snap) -> CycleDecision:
+    def cycle(snap):
         if snap.device.type != dev.type:
             raise ValueError(
                 f"snapshot on {snap.device}, cycle built for {dev}"
@@ -211,13 +248,23 @@ def build_cycle_fn(
                            dyn_kernels=dkernels)
         if commit_mode == "scan":
             return scan_cycle(snap, ctx)
-        sbase = static_base_fn(static_base_ops.static_base_inputs(
-            fw, ctx, fit=True,
-            sampling=sampling_window(snap, percentage_of_nodes_to_score),
-        ))
-        return _rounds_decision(fw, ctx, sbase, gang_scheduling, max_rounds, engine)[0]
+        x = static_base_ops.static_base_inputs(fw, ctx, fit=True,
+                                               sampling=sampling_window(snap, pct))
+        d, rres = _rounds_decision(fw, ctx, static_base_fn(x), gang_scheduling, max_rounds,
+                                   engine)
+        if lean:
+            return d
+        srej = static_rejects_fn(static_base_ops.reject_inputs(x))
+        dyn_aux = _final_window_rejects(fw, ctx, rres, pct, static_base_fn)
+        return CycleResult(
+            d.assignment, d.node_requested, d.unschedulable, d.gang_dropped,
+            reject_counts=srej + dyn_aux,
+            pv_claimed=_pv_claimed_after_unwind(snap, ctx, rres.extra, d.assignment,
+                                                d.gang_dropped),
+            rounds_used=rres.rounds_used, accepted_per_round=rres.accepted_per_round,
+            diag_per_round=rres.diag_per_round, placed_round=d.placed_round)
 
-    def scan_cycle(snap, ctx) -> CycleDecision:
+    def scan_cycle(snap, ctx):
         if snap.has_volumes and any(f.name == "VolumeBinding" for f in fw.filters):
             raise NotImplementedError(
                 "commit_mode 'scan' on a snapshot with volumes: VolumeBinding's "
@@ -225,31 +272,42 @@ def build_cycle_fn(
         # K1's fit test against the cycle-start state only removes nodes the
         # scan's fit test would reject at every step (node_requested only
         # grows during the scan); its clip to +-1e6 is the identity on the
-        # default plugins' static scores (held by tests/test_torch_commit.py)
-        sbase = static_base_fn(static_base_ops.static_base_inputs(
-            fw, ctx, fit=True,
-            sampling=sampling_window(snap, percentage_of_nodes_to_score),
-        ))
+        # default plugins' static scores (held by tests/test_torch_commit.py).
+        # The full outputs leave the fit test to the scan: the reference
+        # counts those nodes under NodeResourcesFit at every step
+        x = static_base_ops.static_base_inputs(fw, ctx, fit=lean,
+                                               sampling=sampling_window(snap, pct))
         res = scan_commit_fn(scan_commit_ops.scan_commit_inputs(
-            fw, ctx, sbase, fw.extra_init(ctx)))
+            fw, ctx, static_base_fn(x), fw.extra_init(ctx), rejects=not lean))
         assignment, node_req = res.assignment, res.node_requested
         dropped = torch.zeros_like(snap.pod_valid)
         if gang_scheduling:
             assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
         unsched = snap.pod_valid & (assignment < 0)
         placed_round = torch.where(assignment >= 0, 0, -1).to(torch.int32)
-        return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
+        if lean:
+            return CycleDecision(assignment, node_req, unsched, dropped, placed_round)
+        srej = static_rejects_fn(static_base_ops.reject_inputs(x))
+        i32 = torch.int32
+        return CycleResult(
+            assignment, node_req, unsched, dropped,
+            reject_counts=srej + res.rejects,
+            pv_claimed=_pv_claimed_of(snap, {}),
+            rounds_used=torch.zeros((), dtype=i32, device=snap.device),
+            accepted_per_round=torch.zeros((max_rounds,), dtype=i32, device=snap.device),
+            diag_per_round=torch.zeros((max_rounds, 3), dtype=i32, device=snap.device),
+            placed_round=placed_round)
 
     return cycle
 
 
 def _rounds_decision(fw: Framework, ctx: CycleContext, sbase: torch.Tensor,
                      gang_scheduling: bool, max_rounds: int,
-                     kw: dict) -> tuple[CycleDecision, object]:
+                     kw: dict) -> tuple[CycleDecision, rounds_ops.RoundsResult]:
     """The rounds engine over the static base `sbase` and the context's
     matched-pending table, then the gang unwind: (decision, the engine's
-    final plugin state). `kw` goes to `rounds_commit` (its pass counts and
-    the K2 / K5 / K6 functions)."""
+    result: its final plugin state and counters). `kw` goes to
+    `rounds_commit` (its pass counts and the K2 / K5 / K6 functions)."""
     snap = ctx.snap
 
     def dyn_batched_view_fn(vsnap, vmp, node_req, ext, vsbase, act_v):
@@ -276,7 +334,32 @@ def _rounds_decision(fw: Framework, ctx: CycleContext, sbase: torch.Tensor,
         assignment, node_req, dropped = _gang_unwind(snap, assignment, node_req)
     unsched = snap.pod_valid & (assignment < 0)
     placed_round = torch.where(assignment >= 0, rres.placed_round, -1)
-    return CycleDecision(assignment, node_req, unsched, dropped, placed_round), rres.extra
+    return CycleDecision(assignment, node_req, unsched, dropped, placed_round), rres
+
+
+def _final_window_rejects(fw: Framework, ctx: CycleContext, rres, pct: int,
+                          static_base_fn: Callable) -> torch.Tensor:
+    """The rounds cycle's dynamic attribution (reference
+    `core/cycle.py:638-665`), i32 [P, F]: the pods the engine left unplaced,
+    `compact_window(P)` of them (preemption-eligible ones first by rank,
+    then the others), against the final state and plugin state, from their
+    sampled static mask (K1 on the window's rows without the fit test),
+    counted by K17 at their rows; zero elsewhere."""
+    snap = ctx.snap
+    unplaced = snap.pod_valid & (rres.assignment < 0)
+    rank = snap.pod_order.to(torch.int32)
+    big = torch.iinfo(torch.int32).max
+    ukey = torch.where(unplaced & snap.pod_can_preempt, rank,
+                       torch.where(unplaced, rank + (1 << 24), big))
+    ugid = torch.argsort(ukey, stable=True)[:rounds_ops.compact_window(snap.P)]
+    uact = unplaced[ugid]
+    uvsnap = rounds_ops._pod_view(snap, ugid)
+    uvctx = ctx.view(uvsnap, ctx.matched_pending[:, ugid])
+    start = static_base_fn(static_base_ops.static_base_inputs(
+        fw, uvctx, sampling=sampling_window(uvsnap, pct))) > static_base_ops.NEG_INF / 2
+    urej = fw.dyn_rejects(uvctx, rres.node_requested, rres.extra, start, rows=uact)
+    out = torch.zeros((snap.P, len(fw.filters)), dtype=torch.int32, device=snap.device)
+    return out.index_copy_(0, ugid, urej)  # ugid: distinct pods
 
 
 def _make_pv_choice_fn(ctx: CycleContext) -> Callable | None:
@@ -367,21 +450,6 @@ def build_preemption_fn(
 # buffers in, the [P, N] static base and [S, P] matched-pending carried on
 # the device across cycles and rebuilt only for changed pod rows
 # --------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class CycleResult:
-    """The carry cycle's outputs (the reference's `CycleResult`, without
-    the per-round diagnostics of its full outputs: ROADMAP A9)."""
-
-    assignment: torch.Tensor  # i32 [P] node index or -1
-    node_requested: torch.Tensor  # f32 [N, R] post-cycle
-    unschedulable: torch.Tensor  # bool [P] valid pod that found no node
-    gang_dropped: torch.Tensor  # bool [P] placed, then unwound
-    reject_counts: torch.Tensor  # i32 [P, F] zeros: attribution is off the
-    # decision path (the reference's carry cycle returns zeros too)
-    pv_claimed: torch.Tensor  # bool [V] static PVs claimed by the placements
-    placed_round: torch.Tensor  # i32 [P] as CycleDecision's
 
 
 def _on_device(snap, dev, what: str) -> None:
@@ -541,9 +609,11 @@ def build_packed_cycle_carry_fn(
     to the carried base, runs the rounds engine with the same kernels as
     `build_cycle_fn(commit_mode="rounds")` (K2-K6, K10-K12, K14, K15 on
     the card, their plain versions on the CPU) and the gang unwind,
-    and returns the claim bitmap of the surviving placements. Decisions
-    are bit-equal to the reference's carry cycle and to the fresh rounds
-    cycle on the same frame (tests/test_torch_carry.py).
+    and returns the claim bitmap of the surviving placements and the
+    engine's round counters; its reject counts are zeros, as the
+    reference's (attribution is `build_diagnosis_fn`'s, off the decision
+    path). Decisions are bit-equal to the reference's carry cycle and to
+    the fresh rounds cycle on the same frame (tests/test_torch_carry.py).
 
     Extender verdicts wait for ROADMAP A10: `extender_args=True` raises."""
     if extender_args:
@@ -567,12 +637,15 @@ def build_packed_cycle_carry_fn(
         if percentage_of_nodes_to_score < 100:
             sbase = torch.where(sampling_mask(snap, percentage_of_nodes_to_score), sbase,
                                 static_base_ops.NEG_INF)
-        d, extra = _rounds_decision(fw, ctx, sbase, gang_scheduling, max_rounds, kw)
+        d, rres = _rounds_decision(fw, ctx, sbase, gang_scheduling, max_rounds, kw)
         return CycleResult(
             d.assignment, d.node_requested, d.unschedulable, d.gang_dropped,
-            torch.zeros((snap.P, len(fw.filters)), dtype=torch.int32, device=snap.device),
-            _pv_claimed_after_unwind(snap, ctx, extra, d.assignment, d.gang_dropped),
-            d.placed_round)
+            reject_counts=torch.zeros((snap.P, len(fw.filters)), dtype=torch.int32,
+                                      device=snap.device),
+            pv_claimed=_pv_claimed_after_unwind(snap, ctx, rres.extra, d.assignment,
+                                                d.gang_dropped),
+            rounds_used=rres.rounds_used, accepted_per_round=rres.accepted_per_round,
+            diag_per_round=rres.diag_per_round, placed_round=d.placed_round)
 
     return cycle
 
@@ -603,3 +676,83 @@ def build_packed_preemption_fn(spec, framework: Framework | None = None,
                               _preemption_gate_rows(fw, ctx), excluded=result.gang_dropped)
 
     return packed
+
+
+def build_diagnosis_fn(
+    spec,
+    framework: Framework | None = None,
+    window: int = 2048,
+    extender_args: bool = False,
+    donate: bool = False,
+    device=None,
+    static_base_fn: Callable = static_base_ops.static_base,
+    static_rejects_fn: Callable = static_base_ops.static_rejects,
+    dyn_rejects_fn: Callable = dyn_round_ops.dyn_rejects,
+    interpod_terms_fn: Callable = interpod_terms_ops.interpod_terms,
+    affinity_update_fn: Callable = affinity_update_ops.affinity_update,
+    volume_mask_fn: Callable = volume_mask_ops.volume_mask,
+    pv_fold_fn: Callable = pv_fold_ops.pv_fold,
+) -> Callable:
+    """The diagnosis program (reference `core/cycle.py:1425`), off the
+    decision path: `diagnose(wbuf, bbuf, stable, assignment, node_requested,
+    pv_claimed=None) -> i32 [P, F]`, the FailedScheduling attribution of
+    every valid unplaced pod (static + dynamic against the cycle's final
+    state; other rows zero).
+
+    The cycle's placements replay into the plugins' state (K4, K12 and
+    NodePorts' fold), the engine's claim bitmap `pv_claimed` replacing the
+    replayed one where given. Then rank-ordered windows of `window` unplaced
+    pods (the last clamped to end at P, so it may repeat earlier pods, whose
+    rows come out the same): per window K16 from node_valid for the static
+    filters, K1 without fit and sampling for the static mask, and K17 over
+    the dynamic parts (K3, K10) from it. The host reads the unplaced count
+    once. `device` None means the card; the `*_fn` arguments select other
+    kernel functions (the plain versions: the run the kernels are held
+    against). Extender verdicts wait for ROADMAP A10 (`extender_args=True`
+    raises); `donate` is accepted and changes nothing (the reference's
+    buffer donation has no counterpart here)."""
+    if extender_args:
+        raise NotImplementedError("extender verdicts are not ported yet (ROADMAP A10)")
+    del donate
+    from ..models import packing
+
+    dev = resolve_device(device)
+    fw = framework or Framework.from_config()
+    F = len(fw.filters)
+    kernels = AffinityKernels(interpod_terms=interpod_terms_fn,
+                              affinity_update=affinity_update_fn)
+    vkernels = VolumeKernels(volume_mask=volume_mask_fn, pv_fold=pv_fold_fn)
+    dkernels = DynKernels(dyn_rejects=dyn_rejects_fn)
+
+    def diagnose(wbuf, bbuf, stable, assignment, node_requested, pv_claimed=None):
+        snap = packing.unpack(wbuf, bbuf, spec)
+        _on_device(snap, dev, "diagnosis")
+        P = snap.P
+        B = min(window, P)
+        ctx = CycleContext(snap, kernels, volume_kernels=vkernels, dyn_kernels=dkernels)
+        ctx._cache.update(stable)
+        mp = ctx.matched_pending
+        placed = snap.pod_valid & (assignment >= 0)
+        extra = fw.extra_update_batched(ctx, fw.extra_init(ctx), placed,
+                                        torch.where(placed, assignment, 0))
+        if pv_claimed is not None and "VolumeBinding" in extra:
+            extra = dict(extra, VolumeBinding=pv_claimed)
+        unplaced = snap.pod_valid & (assignment < 0)
+        order = torch.argsort(torch.where(unplaced, snap.pod_order.to(torch.int32),
+                                          torch.iinfo(torch.int32).max), stable=True)
+        rej = torch.zeros((P, F), dtype=torch.int32, device=snap.device)
+        n_un = int(unplaced.sum())  # the program's one host read
+        for w in range(-(-n_un // B)):
+            start = min(w * B, P - B)
+            ids = order[start:start + B]
+            act = unplaced[ids]
+            vsnap = rounds_ops._pod_view(snap, ids)
+            vctx = ctx.view(vsnap, mp[:, ids])
+            x = static_base_ops.static_base_inputs(fw, vctx)
+            smask = static_base_fn(x) > static_base_ops.NEG_INF / 2
+            srej = static_rejects_fn(x, act)
+            drej = fw.dyn_rejects(vctx, node_requested, extra, smask, rows=act)
+            rej.index_copy_(0, ids, srej + drej)
+        return rej
+
+    return diagnose

@@ -42,6 +42,13 @@
 // of up to 2^20 of them is exact in any order. Exact sums round once to
 // the same f32.
 //
+// With a counter row (ops/rounds.py diag_per_round, i32 [3]; null where the
+// caller keeps none) the kernel also adds the pass's live claims and
+// capacity rejections to its first two entries, or with check = 0 the
+// fold's revocations to its third: each warp counts its run, the warps'
+// sums meet in shared memory, and a block adds them with one integer
+// atomic a counter (exact in any order).
+//
 // Bound on an H100: bytes — keys, permutation and gathered requests of the
 // B claims, the [N, R] tables, each read once, and the outputs written
 // once: about 0.3 us for a round-0 pass. What it costs in practice is one
@@ -77,23 +84,18 @@ __device__ __forceinline__ int warp_lower_bound(const long long* key, int B,
   return lo + __popc(__ballot_sync(kAll, below));
 }
 
+// node j's run of claims, by its warp: the accept flags and node j's row of
+// node_req_out; n_live / n_acc (every lane) count the run's claims and the
+// accepted ones
 template <int kR>  // R, a compile-time constant: every array in registers
-__global__ void __launch_bounds__(kThreads)
-capacity_kernel(int B, int N, int rank_bits, int check,
-                const long long* __restrict__ s_key,
-                const long long* __restrict__ order,
-                const float* __restrict__ req,
-                const float* __restrict__ node_req,
-                const float* __restrict__ alloc,
-                const float* __restrict__ slack, uint8_t* __restrict__ accepted,
-                float* __restrict__ node_req_out) {
+__device__ __forceinline__ void resolve_node(
+    int j, int lane, int B, int rank_bits, int check, const long long* __restrict__ s_key,
+    const long long* __restrict__ order, const float* __restrict__ req,
+    const float* __restrict__ node_req, const float* __restrict__ alloc,
+    const float* __restrict__ slack, uint8_t* __restrict__ accepted,
+    float* __restrict__ node_req_out, int& n_live, int& n_acc) {
   constexpr int kN = kR > 0 ? kR : 1;
   constexpr int kU = 8;  // claims a lane in a step of a long run
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g < B && (s_key[g] >> rank_bits) >= N) accepted[order[g]] = 0;
-  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (j >= N) return;
   const float own = lane < kR ? node_req[(size_t)j * kR + lane] : 0.0f;
   const int lo = warp_lower_bound(s_key, B, rank_bits, j, lane);
   if (lo >= B || (s_key[lo] >> rank_bits) != j) {  // no claim: a bit-copy
@@ -156,6 +158,8 @@ capacity_kernel(int B, int N, int rank_bits, int check,
       }
       accepted[pi[u]] = fits;
       any = any || fits;
+      n_live += 1;
+      n_acc += fits;
 #pragma unroll
       for (int r = 0; r < kR; ++r)
         if (fits) part[r] += (double)q[r];
@@ -174,13 +178,59 @@ capacity_kernel(int B, int N, int rank_bits, int check,
     node_req_out[(size_t)j * kR + lane] = any_acc ? own + (float)mine : own;
 }
 
+template <int kR>
+__global__ void __launch_bounds__(kThreads)
+capacity_kernel(int B, int N, int rank_bits, int check,
+                const long long* __restrict__ s_key,
+                const long long* __restrict__ order,
+                const float* __restrict__ req,
+                const float* __restrict__ node_req,
+                const float* __restrict__ alloc,
+                const float* __restrict__ slack, uint8_t* __restrict__ accepted,
+                float* __restrict__ node_req_out, int* __restrict__ diag) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g < B && (s_key[g] >> rank_bits) >= N) accepted[order[g]] = 0;
+  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  int n_live = 0, n_acc = 0;
+  if (j < N)
+    resolve_node<kR>(j, lane, B, rank_bits, check, s_key, order, req, node_req, alloc,
+                     slack, accepted, node_req_out, n_live, n_acc);
+  if (diag == nullptr) return;
+  // the round's counters (ops/rounds.py diag_per_round): live claims and
+  // capacity rejections of a pass, or the revocations of a fold; the
+  // warps' sums in shared memory, then one atomic a counter per block
+  __shared__ int cnt[2];
+  if (threadIdx.x == 0) cnt[0] = cnt[1] = 0;
+  __syncthreads();
+  n_live = __reduce_add_sync(kAll, n_live);
+  n_acc = __reduce_add_sync(kAll, n_acc);
+  if (lane == 0 && n_live > 0) {
+    atomicAdd(&cnt[0], n_live);
+    atomicAdd(&cnt[1], n_acc);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && cnt[0] > 0) {
+    if (check) {
+      atomicAdd(diag, cnt[0]);
+      atomicAdd(diag + 1, cnt[0] - cnt[1]);
+    } else {
+      atomicAdd(diag + 2, cnt[0]);
+    }
+  }
+}
+
 }  // namespace
+
+// the launcher's interface: 2 since it takes the counter row (ops/capacity.py
+// refuses a library built from a source without it)
+extern "C" int capacity_interface() { return 2; }
 
 extern "C" int capacity_launch(int B, int N, int R, int rank_bits, int check,
                                const long long* s_key, const long long* order,
                                const float* req, const float* node_req,
                                const float* alloc, const float* slack,
-                               uint8_t* accepted, float* node_req_out,
+                               uint8_t* accepted, float* node_req_out, int* diag,
                                void* stream) {
   if (N <= 0 && B <= 0) return 0;
   if (R < 0 || R > kMaxR) return (int)cudaErrorInvalidValue;
@@ -194,7 +244,8 @@ extern "C" int capacity_launch(int B, int N, int R, int rank_bits, int check,
   case r:                                                                      \
     capacity_kernel<r><<<grid, kThreads, 0, st>>>(B, N, rank_bits, check, s_key, \
                                                   order, req, node_req, alloc,   \
-                                                  slack, accepted, node_req_out); \
+                                                  slack, accepted, node_req_out, \
+                                                  diag);                           \
     break;
   switch (R) {
     CAPACITY_CASE(0) CAPACITY_CASE(1) CAPACITY_CASE(2) CAPACITY_CASE(3)

@@ -27,6 +27,14 @@
 //        add). With no static row it is the score anchor: a lone product is
 //        rounded once.
 //
+//   K17  rejects[b, c]  = the nodes n with start[b, n] whose first failing
+//        part, in column order, is the part of column c (each part at its
+//        filter's index), for the rows b with rows[b] (all without rows):
+//        k8s_scheduler_tpu/framework/runtime.py:223 attribute_rejects over
+//        :202 dyn_batched's per-filter masks, as the rounds cycle's final
+//        window (core/cycle.py:638-665) and the diagnosis program's windows
+//        (:1492-1495) use it.
+//
 // K14 writes both planes when the caller gives act (the round: the K3
 // norms take `feasible`, as the reference's do, and the claim pass takes
 // `mask`); without act it writes `mask` alone, which is then `feasible`.
@@ -55,6 +63,14 @@
 // division and the sqrt alone 0.1 ms each). The launcher takes the
 // vector path when N is a multiple of 4 and every plane pointer is aligned
 // for its width; otherwise the same kernel runs with a guard per node.
+//
+// K17 shares K14's tiles, staging and part tests: each part's test goes
+// into its own 4 flags, a node's first rejector is the smallest column
+// that fails where the start mask holds, a warp sums a column's nodes with
+// one __reduce_add_sync, the warps add into the group's [32][F] table in
+// shared memory, and each block adds a row's nonzero counts to the output
+// with one integer atomic (exact in any order). Bound on an H100: bytes,
+// the start mask and the planes (one byte an element) of the B x N window.
 //
 // Bit-equality: the masks are bool ANDs, their order free. The arithmetic
 // is the plain version's, op for op, under --fmad=false: the slack's fma
@@ -170,6 +186,67 @@ __device__ __forceinline__ void store4(float* row, int n0, int N, const float (&
   }
 }
 
+// the tile's room (allocatable - requested) + slack, resource-major, once
+// for every pod row (kMaskFit)
+__device__ __forceinline__ void stage_room(const MaskArgs& a, int tile0, float* room_s) {
+  const int nodes = min(kTile, a.N - tile0);
+  const size_t base = (size_t)tile0 * a.R;
+  for (int k = threadIdx.x; k < nodes * a.R; k += kThreads) {
+    const float al = a.alloc[base + k];
+    room_s[(k % a.R) * kTile + k / a.R] = (al - a.nreq[base + k]) + __fmaf_rn(al, 1e-5f, 1e-5f);
+  }
+}
+
+// a group's act flags, whether a row names a host port, and its requests
+__device__ __forceinline__ void stage_group(const MaskArgs& a, int b0, int nb, float* req_s,
+                                            uint8_t* act_s, uint8_t* port_s) {
+  if (threadIdx.x < nb) {
+    const int b = b0 + threadIdx.x;
+    act_s[threadIdx.x] = (a.flags & kMaskAct) ? a.act[b] : 1;
+    uint8_t any = 0;
+    if (a.flags & kMaskPorts)
+      for (int j = 0; j < a.MP; ++j) any |= a.ids[(size_t)b * a.MP + j] >= 0;
+    port_s[threadIdx.x] = any;
+  }
+  if (a.flags & kMaskFit)
+    for (int k = threadIdx.x; k < nb * a.R; k += kThreads)
+      req_s[k] = a.req[(size_t)b0 * a.R + k];
+}
+
+// the parts' tests of row k of the group (pod row b) at the thread's 4
+// nodes from n0, each ANDed into f
+template <bool kVec>
+__device__ __forceinline__ void and_plane(const uint8_t* plane, size_t row, int n0, int N,
+                                          bool (&f)[4]) {
+  bool m[4];
+  load4<kVec>(plane + row, n0, N, m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = f[i] && m[i];
+}
+
+__device__ __forceinline__ void and_fit(const MaskArgs& a, const float* req_s,
+                                        const float* room_s, int k, bool (&f)[4]) {
+  for (int r = 0; r < a.R; ++r) {
+    const float need = req_s[k * a.R + r];
+    const float4 room = reinterpret_cast<const float4*>(room_s + (size_t)r * kTile)[threadIdx.x];
+    f[0] = f[0] && need <= room.x;
+    f[1] = f[1] && need <= room.y;
+    f[2] = f[2] && need <= room.z;
+    f[3] = f[3] && need <= room.w;
+  }
+}
+
+__device__ __forceinline__ void and_ports(const MaskArgs& a, int b, int n0, bool (&f)[4]) {
+  for (int j = 0; j < a.MP; ++j) {
+    const int q = __ldg(a.ids + (size_t)b * a.MP + j);
+    if (q < 0) continue;  // a pad slot names no port
+    const int qq = min(q, a.Q - 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (n0 + i < a.N && __ldg(a.claimed + (size_t)(n0 + i) * a.Q + qq)) f[i] = false;
+  }
+}
+
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads) dyn_mask_kernel(MaskArgs a) {
   extern __shared__ float smem[];
@@ -177,33 +254,16 @@ __global__ void __launch_bounds__(kThreads) dyn_mask_kernel(MaskArgs a) {
   float* req_s = room_s + (size_t)a.R * kTile;    // [kPodGroup][R] (kMaskFit)
   __shared__ uint8_t act_s[kPodGroup], port_s[kPodGroup];
 
-  const int N = a.N, R = a.R, flags = a.flags;
+  const int N = a.N, flags = a.flags;
   const int tile0 = blockIdx.x * kTile;
   const int n0 = tile0 + 4 * threadIdx.x;  // the thread's first node
-  if (flags & kMaskFit) {  // the tile's room, once for every pod row
-    const int nodes = min(kTile, N - tile0);
-    const size_t base = (size_t)tile0 * R;
-    for (int k = threadIdx.x; k < nodes * R; k += kThreads) {
-      const float al = a.alloc[base + k];
-      room_s[(k % R) * kTile + k / R] = (al - a.nreq[base + k]) + __fmaf_rn(al, 1e-5f, 1e-5f);
-    }
-  }
+  if (flags & kMaskFit) stage_room(a, tile0, room_s);
   const int groups = (a.B + kPodGroup - 1) / kPodGroup;
   for (int gi = blockIdx.y; gi < groups; gi += gridDim.y) {
     const int b0 = gi * kPodGroup;
     const int nb = min(kPodGroup, a.B - b0);
     __syncthreads();  // the previous group's staging is consumed (and the room staged)
-    if (threadIdx.x < nb) {
-      const int b = b0 + threadIdx.x;
-      act_s[threadIdx.x] = (flags & kMaskAct) ? a.act[b] : 1;
-      uint8_t any = 0;
-      if (flags & kMaskPorts)
-        for (int j = 0; j < a.MP; ++j) any |= a.ids[(size_t)b * a.MP + j] >= 0;
-      port_s[threadIdx.x] = any;
-    }
-    if (flags & kMaskFit)
-      for (int k = threadIdx.x; k < nb * R; k += kThreads)
-        req_s[k] = a.req[(size_t)b0 * R + k];
+    stage_group(a, b0, nb, req_s, act_s, port_s);
     __syncthreads();
     if (n0 >= N) continue;
 
@@ -218,38 +278,110 @@ __global__ void __launch_bounds__(kThreads) dyn_mask_kernel(MaskArgs a) {
 #pragma unroll
       for (int j = 0; j < kMaxPlanes; ++j) {
         if (j >= a.n_planes) break;
-        bool m[4];
-        load4<kVec>(a.planes[j] + row, n0, N, m);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) f[i] = f[i] && m[i];
+        and_plane<kVec>(a.planes[j], row, n0, N, f);
       }
-      if (flags & kMaskFit) {
-        for (int r = 0; r < R; ++r) {
-          const float need = req_s[k * R + r];
-          const float4 room =
-              reinterpret_cast<const float4*>(room_s + (size_t)r * kTile)[threadIdx.x];
-          f[0] = f[0] && need <= room.x;
-          f[1] = f[1] && need <= room.y;
-          f[2] = f[2] && need <= room.z;
-          f[3] = f[3] && need <= room.w;
-        }
-      }
-      if (port_s[k]) {
-        for (int j = 0; j < a.MP; ++j) {
-          const int q = __ldg(a.ids + (size_t)b * a.MP + j);
-          if (q < 0) continue;  // a pad slot names no port
-          const int qq = min(q, a.Q - 1);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (n0 + i < N && __ldg(a.claimed + (size_t)(n0 + i) * a.Q + qq)) f[i] = false;
-        }
-      }
+      if (flags & kMaskFit) and_fit(a, req_s, room_s, k, f);
+      if (port_s[k]) and_ports(a, b, n0, f);
       if (flags & kMaskAct) {
         store4<kVec>(a.feas + row, n0, N, f);
 #pragma unroll
         for (int i = 0; i < 4; ++i) f[i] = f[i] && act_s[k];
       }
       store4<kVec>(a.mask + row, n0, N, f);
+    }
+  }
+}
+
+// K17: first-rejector counts of K14's parts, each part at its column (the
+// filter's index); `m` carries the parts as K14 takes them (its act flags
+// are the rows to count, its vsbase, mask and feas unused)
+struct RejArgs {
+  MaskArgs m;
+  const uint8_t* start;  // [B, N] the mask the chain starts from
+  int* out;              // [B, F], zeroed by the caller
+  int F, fit_col, port_col;
+  int plane_col[kMaxPlanes];
+};
+
+constexpr int kMaxF = 32;  // ops/dyn_round.py MAX_FILTERS
+constexpr int kNoCol = 1 << 30;
+
+// the warp's count of nodes whose first rejector is column c, into the
+// group's shared row (lanes agree on c; every lane takes part)
+__device__ __forceinline__ void count_col(int c, const int (&first)[4], int* cnt_row) {
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) n += first[i] == c;
+  n = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0 && n > 0) atomicAdd(cnt_row + c, n);
+}
+
+// a node's first rejector so far: where the chain still holds it (start)
+// and part column c rejects it, the smaller column
+__device__ __forceinline__ void reject_at(int c, const bool (&st)[4], const bool (&t)[4],
+                                          int (&first)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (st[i] && !t[i]) first[i] = min(first[i], c);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) dyn_rejects_kernel(RejArgs ra) {
+  const MaskArgs& a = ra.m;
+  extern __shared__ float smem[];
+  float* room_s = smem;                           // [R][kTile] (kMaskFit)
+  float* req_s = room_s + (size_t)a.R * kTile;    // [kPodGroup][R] (kMaskFit)
+  __shared__ uint8_t act_s[kPodGroup], port_s[kPodGroup];
+  __shared__ int cnt_s[kPodGroup][kMaxF];
+
+  const int N = a.N, F = ra.F, flags = a.flags;
+  const int tile0 = blockIdx.x * kTile;
+  const int n0 = tile0 + 4 * threadIdx.x;
+  const bool on = n0 < N;  // threads past N take part in the warp sums with no node
+  if (flags & kMaskFit) stage_room(a, tile0, room_s);
+  const int groups = (a.B + kPodGroup - 1) / kPodGroup;
+  for (int gi = blockIdx.y; gi < groups; gi += gridDim.y) {
+    const int b0 = gi * kPodGroup;
+    const int nb = min(kPodGroup, a.B - b0);
+    __syncthreads();  // the previous group's counts are out (and the room staged)
+    stage_group(a, b0, nb, req_s, act_s, port_s);
+    for (int k = threadIdx.x; k < nb * kMaxF; k += kThreads) cnt_s[k / kMaxF][k % kMaxF] = 0;
+    __syncthreads();
+
+    for (int k = 0; k < nb; ++k) {
+      if (!act_s[k]) continue;  // a row that counts nothing (uniform)
+      const int b = b0 + k;
+      const size_t row = (size_t)b * N;
+      bool st[4] = {false, false, false, false};
+      if (on) load4<kVec>(ra.start + row, n0, N, st);
+      int first[4] = {kNoCol, kNoCol, kNoCol, kNoCol};
+      if (on) {
+#pragma unroll
+        for (int j = 0; j < kMaxPlanes; ++j) {
+          if (j >= a.n_planes) break;
+          bool t[4] = {true, true, true, true};
+          and_plane<kVec>(a.planes[j], row, n0, N, t);
+          reject_at(ra.plane_col[j], st, t, first);
+        }
+        if (flags & kMaskFit) {
+          bool t[4] = {true, true, true, true};
+          and_fit(a, req_s, room_s, k, t);
+          reject_at(ra.fit_col, st, t, first);
+        }
+        if (port_s[k]) {
+          bool t[4] = {true, true, true, true};
+          and_ports(a, b, n0, t);
+          reject_at(ra.port_col, st, t, first);
+        }
+      }
+      for (int j = 0; j < a.n_planes; ++j) count_col(ra.plane_col[j], first, cnt_s[k]);
+      if (flags & kMaskFit) count_col(ra.fit_col, first, cnt_s[k]);
+      if (flags & kMaskPorts) count_col(ra.port_col, first, cnt_s[k]);
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < nb * F; k += kThreads) {
+      const int v = cnt_s[k / F][k % F];
+      if (v > 0) atomicAdd(ra.out + (size_t)(b0 + k / F) * F + k % F, v);
     }
   }
 }
@@ -507,6 +639,43 @@ extern "C" int dyn_score_launch(int B, int N, int R, int n_terms, int flags,
                 : launch(dyn_score_kernel<true, 8>, grid, smem, st, &a))
           : (r4 ? launch(dyn_score_kernel<false, 4>, grid, smem, st, &a)
                 : launch(dyn_score_kernel<false, 8>, grid, smem, st, &a));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dyn_rejects_launch(int B, int N, int R, int MP, int Q, const float* req,
+                                  const float* alloc, const float* nreq, const int* ids,
+                                  const uint8_t* claimed, const void* const* planes,
+                                  int n_planes, const int* plane_col, int fit_col,
+                                  const uint8_t* start, int port_col, int F,
+                                  const uint8_t* rows, int* out, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (R > kMaxR || n_planes > kMaxPlanes || F < 1 || F > kMaxF)
+    return (int)cudaErrorInvalidValue;
+  RejArgs ra;
+  MaskArgs& a = ra.m;
+  a.B = B; a.N = N; a.R = R; a.MP = MP; a.Q = Q; a.n_planes = n_planes;
+  a.flags = (req ? kMaskFit : 0) | (ids && Q > 0 ? kMaskPorts : 0) | (rows ? kMaskAct : 0);
+  a.vsbase = nullptr; a.act = rows; a.req = req; a.alloc = alloc; a.nreq = nreq;
+  a.ids = ids; a.claimed = claimed; a.mask = nullptr; a.feas = nullptr;
+  ra.start = start; ra.out = out; ra.F = F; ra.fit_col = fit_col; ra.port_col = port_col;
+  if (((a.flags & kMaskFit) && (fit_col < 0 || fit_col >= F)) ||
+      ((a.flags & kMaskPorts) && (port_col < 0 || port_col >= F)))
+    return (int)cudaErrorInvalidValue;
+  bool vec = N % 4 == 0 && aligned(start, 4);
+  for (int j = 0; j < kMaxPlanes; ++j) {
+    const bool used = j < n_planes;
+    a.planes[j] = used ? static_cast<const uint8_t*>(planes[j]) : nullptr;
+    ra.plane_col[j] = used ? plane_col[j] : 0;
+    if (used && (plane_col[j] < 0 || plane_col[j] >= F)) return (int)cudaErrorInvalidValue;
+    if (used) vec = vec && aligned(planes[j], 4);
+  }
+  const size_t smem = (a.flags & kMaskFit) ? (size_t)R * (kTile + kPodGroup) * sizeof(float) : 0;
+  const cudaError_t err =
+      vec ? launch(dyn_rejects_kernel<true>, grid_of(B, N, kMaxGridY), smem,
+                   (cudaStream_t)stream, &ra)
+          : launch(dyn_rejects_kernel<false>, grid_of(B, N, kMaxGridY), smem,
+                   (cudaStream_t)stream, &ra);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

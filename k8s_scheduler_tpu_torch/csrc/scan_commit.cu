@@ -125,8 +125,12 @@ constexpr int kPorts = 1, kFit = 2, kAffinity = 4, kSpread = 8, kPortState = 16,
 constexpr int kTermFit = 1, kTermBalanced = 2, kTermAffinity = 3, kTermSpread = 4,
               kTermConst = 5;
 // pod flags: a DoNotSchedule constraint; a raw affinity / spread score
-// that can be nonzero (else its normalisation maximum is 0 everywhere)
-constexpr int kPodHard = 1, kPodAffNorm = 2, kPodSprNorm = 4;
+// that can be nonzero (else its normalisation maximum is 0 everywhere); an
+// invalid pod row (the full mode walks it without a commit)
+constexpr int kPodHard = 1, kPodAffNorm = 2, kPodSprNorm = 4, kPodInvalid = 8;
+// the full mode's dynamic parts, in the order of their fail bits: NodePorts,
+// NodeResourcesFit, InterPodAffinity, PodTopologySpread
+constexpr int kParts = 4;
 
 // ops/scan_commit.py ScanArgs mirrors this struct field for field
 struct Args {
@@ -139,7 +143,7 @@ struct Args {
   int bal_mask;  // resources BalancedAllocation averages
   // shared memory layout (byte offsets) and its size
   int o_slot3, o_slot2, o_wbest, o_wred, o_smin, o_dptr, o_rows, o_mbar, o_total, o_alloc,
-      o_slack, o_nreq, o_ndom, o_pbits, smem;
+      o_slack, o_nreq, o_ndom, o_pbits, o_wcnt, smem;
   // a pod row (int offsets): request (f32 bits) [R], port ids [MP], required
   // terms [MA, 2], self-match [MA], anti terms [MA, 2], preferred terms
   // [MA, 2], their weights (f32 bits) [MA], constraints [MC, 3], skews [MC],
@@ -166,6 +170,11 @@ struct Args {
   float* total;                // [S]
   uint8_t* anti;               // [S, N]
   float* pref;                 // [S, N]
+  // the full mode: rejects[p, rej_col[j]] += the nodes whose first failing
+  // part is j (null in the latency instance)
+  int* rejects;                // [P, F], zeroed by the caller
+  int F;
+  int rej_col[kParts];         // each part's column (-1: no such filter)
 };
 
 // a node's key: hi the score's order-preserving word, lo ~index (the lower
@@ -308,17 +317,22 @@ __device__ __forceinline__ void for_each_sel(const Args& a, const int* pod, F fn
 
 // node ln's feasibility for the pod (the one-block design's tests, each
 // ANDed in; no test waits on an earlier one, so the node's device-memory
-// lookups issue together)
+// lookups issue together); kFull also sets bit j of `fail` where part j
+// (kParts' order) rejects the node
+template <bool kFull>
 __device__ __forceinline__ bool node_mask(const Args& a, const Slice& s, const int* pod,
                                           int ln, int n, float sb, const float (&minc)[kMaxMC],
-                                          const float* total) {
+                                          const float* total, unsigned& fail) {
   bool f = sb > kNegInf / 2;
   if (a.flags & kPorts) {
     for (int m = 0; m < a.MP; ++m) {
       const int q = pod[a.r_ports + m];
       if (q < 0) continue;
       const int qq = min(q, a.Q - 1);
-      if ((s.pbits[(qq >> 5) * s.ns + ln] >> (qq & 31)) & 1u) f = false;
+      if ((s.pbits[(qq >> 5) * s.ns + ln] >> (qq & 31)) & 1u) {
+        f = false;
+        if constexpr (kFull) fail |= 1u;
+      }
     }
   }
   if (a.flags & kFit) {
@@ -326,7 +340,10 @@ __device__ __forceinline__ bool node_mask(const Args& a, const Slice& s, const i
     for (int r = 0; r < kMaxR; ++r) {
       if (r >= a.R) break;
       const int i = r * s.ns + ln;
-      if (!(pod_req(a, pod, r) <= (s.alloc[i] - s.nreq[i]) + s.slack[i])) f = false;
+      if (!(pod_req(a, pod, r) <= (s.alloc[i] - s.nreq[i]) + s.slack[i])) {
+        f = false;
+        if constexpr (kFull) fail |= 2u;
+      }
     }
   }
   if (a.flags & kAffinity) {
@@ -336,14 +353,22 @@ __device__ __forceinline__ bool node_mask(const Args& a, const Slice& s, const i
       const int sel = pod[a.r_aff + 2 * t];
       if (sel >= 0) {
         const bool boot = pod[a.r_self + t] && total[min(sel, a.S - 1)] == 0.0f;
-        if (!(boot || count_at(a, s, ln, sel, pod[a.r_aff + 2 * t + 1]) > 0.0f)) f = false;
+        if (!(boot || count_at(a, s, ln, sel, pod[a.r_aff + 2 * t + 1]) > 0.0f)) {
+          f = false;
+          if constexpr (kFull) fail |= 4u;
+        }
       }
       const int asel = pod[a.r_anti + 2 * t];
-      if (asel >= 0 && !(count_at(a, s, ln, asel, pod[a.r_anti + 2 * t + 1]) <= 0.0f))
+      if (asel >= 0 && !(count_at(a, s, ln, asel, pod[a.r_anti + 2 * t + 1]) <= 0.0f)) {
         f = false;
+        if constexpr (kFull) fail |= 4u;
+      }
     }
     for_each_sel(a, pod, [&](int sl) {
-      if (a.anti[(size_t)sl * a.N + n]) f = false;
+      if (a.anti[(size_t)sl * a.N + n]) {
+        f = false;
+        if constexpr (kFull) fail |= 4u;
+      }
     });
   }
   if (pod[a.r_flags] & kPodHard) {
@@ -353,7 +378,10 @@ __device__ __forceinline__ bool node_mask(const Args& a, const Slice& s, const i
       const int k = pod[a.r_tsc + 3 * c];
       if (k < 0 || pod[a.r_tsc + 3 * c + 2] != kWhenDoNotSchedule) continue;
       const float cnt = count_at(a, s, ln, pod[a.r_tsc + 3 * c + 1], k);
-      if ((cnt + 1.0f) - minc[c] > (float)pod[a.r_skew + c] || cnt < 0.0f) f = false;
+      if ((cnt + 1.0f) - minc[c] > (float)pod[a.r_skew + c] || cnt < 0.0f) {
+        f = false;
+        if constexpr (kFull) fail |= 8u;
+      }
     }
   }
   return f;
@@ -483,6 +511,43 @@ __device__ __forceinline__ void send_rec(uint32_t dst, uint32_t mbar, const Rec&
   st_async4(dst + 32, mbar, r.dom[4], r.dom[5], r.dom[6], r.dom[7]);
 }
 
+// the full mode's counts of one step: each warp's nodes whose first failing
+// part (the smallest column among the parts that reject a node the static
+// base admits) is part j, into wcnt[warp][j]
+__device__ __forceinline__ void count_parts(const Args& a, const unsigned (&failb)[kPer],
+                                            int* wcnt, int lane, int warp) {
+  int first[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    first[i] = -1;
+    int col = 1 << 30;
+#pragma unroll
+    for (int j = 0; j < kParts; ++j)
+      if (((failb[i] >> j) & 1u) && a.rej_col[j] >= 0 && a.rej_col[j] < col) {
+        col = a.rej_col[j];
+        first[i] = j;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kParts; ++j) {
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) n += first[i] == j;
+    n = __reduce_add_sync(0xffffffffu, n);
+    if (lane == 0) wcnt[warp * kParts + j] = n;
+  }
+}
+
+// the step's counts over the CTA's warps, one integer atomic a part (lanes
+// 0 .. kParts - 1 of the calling warp)
+__device__ __forceinline__ void add_parts(const Args& a, const int* wcnt, int p, int lane) {
+  if (lane >= kParts || a.rej_col[lane] < 0) return;
+  int n = 0;
+  for (int w = 0; w < kWarps; ++w) n += wcnt[w * kParts + lane];
+  if (n > 0) atomicAdd(a.rejects + (size_t)p * a.F + a.rej_col[lane], n);
+}
+
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -501,6 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   int* rows = at<int>(smem, a.o_rows);         // [2][W] the step's pod row, by parity
   uint64_t* mbar = at<uint64_t>(smem, a.o_mbar);  // [2] the winner records' arrival
   float* total = at<float>(smem, a.o_total);   // [S]
+  int* wcnt = at<int>(smem, a.o_wcnt);         // [kWarps][kParts] (kFull)
   Slice s{ns, at<float>(smem, a.o_alloc), at<float>(smem, a.o_slack),
           at<float>(smem, a.o_nreq), at<int>(smem, a.o_ndom), at<uint32_t>(smem, a.o_pbits),
           me == 0 ? a.counts : a.counts_rep + (size_t)(me - 1) * a.rep_stride};
@@ -562,6 +628,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   }
   cluster.sync();  // staged, and every CTA of the cluster is running
 
+  int ex = 0;  // kFull: the winner exchanges so far (a step of a valid pod)
   for (int rank = 0; rank < nv; ++rank) {
     const int par = rank & 1;
     // ---- stage the pod's row and its static-base values, and load the
@@ -580,10 +647,18 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
         sb_next[i] = ln < nn ? __ldcs(a.sbase + (size_t)p_next * a.N + n0 + ln) : kNegInf;
       }
     }
-    if (tid == 0) mbar_expect(&mbar[par], (uint32_t)(csize * sizeof(Rec)));
+    p_next = p_after;
+    if (!kFull && tid == 0) mbar_expect(&mbar[par], (uint32_t)(csize * sizeof(Rec)));
     // the row, and the previous step's counts and totals
     __syncthreads();
     const int pflags = pod[a.r_flags];
+    // kFull walks every rank: an invalid pod's step counts its rejections
+    // and exchanges nothing; the exchanges take their slots and phases by
+    // their own count
+    const bool live = !kFull || !(pflags & kPodInvalid);
+    const int xs = kFull ? ex : rank;
+    const int xpar = xs & 1;
+    if (kFull && live && tid == 0) mbar_expect(&mbar[xpar], (uint32_t)(csize * sizeof(Rec)));
 
     // ---- spread: min count over each hard constraint's key domains ----
     float minc[kMaxMC];
@@ -619,15 +694,18 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
     const int nom = pod[a.r_nom];
     const int nom_n = nom >= 0 ? min(nom, a.N - 1) : -1;
     unsigned feas = 0, nomf = 0;
+    unsigned failb[kPer];
     float araw[kPer], sraw[kPer];
     float aff_hi = 0.0f, spr_hi = 0.0f;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       araw[i] = sraw[i] = 0.0f;
+      failb[i] = 0;
       const int ln = tid + i * kThreads;
       if (ln >= nn) continue;
       const int n = n0 + ln;
-      const bool f = node_mask(a, s, pod, ln, n, sb_cur[i], minc, total);
+      const bool f = node_mask<kFull>(a, s, pod, ln, n, sb_cur[i], minc, total, failb[i]);
+      if (kFull && !(sb_cur[i] > kNegInf / 2)) failb[i] = 0;  // the static base's rejection
       if (n == nom_n) nomf = f;
       if (!f) continue;
       feas |= 1u << i;
@@ -638,6 +716,14 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
       if (need_spr) {
         sraw[i] = spread_raw(a, s, pod, ln);
         spr_hi = fmaxf(spr_hi, sraw[i]);
+      }
+    }
+    if constexpr (kFull) {
+      count_parts(a, failb, wcnt, lane, warp);
+      if (!live) {  // an invalid pod: its counts out, no exchange, no commit
+        __syncthreads();
+        if (warp == 0) add_parts(a, wcnt, pod[a.r_p], lane);
+        continue;
       }
     }
     // ---- the two normalisation maxima over the cluster's feasible nodes
@@ -651,10 +737,10 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
         const uint2 v = lane < kWarps ? wred[lane] : make_uint2(0u, 0u);
         const uint2 m = make_uint2(__reduce_max_sync(0xffffffffu, v.x),
                                    __reduce_max_sync(0xffffffffu, v.y));
-        if (lane < csize) *cluster.map_shared_rank(&slot2[par * kMaxCluster + me], lane) = m;
+        if (lane < csize) *cluster.map_shared_rank(&slot2[xpar * kMaxCluster + me], lane) = m;
       }
       cluster.sync();
-      const uint2 v = lane < csize ? slot2[par * kMaxCluster + lane] : make_uint2(0u, 0u);
+      const uint2 v = lane < csize ? slot2[xpar * kMaxCluster + lane] : make_uint2(0u, 0u);
       aff_hi = __uint_as_float(__reduce_max_sync(0xffffffffu, v.x));
       spr_hi = __uint_as_float(__reduce_max_sync(0xffffffffu, v.y));
     }
@@ -689,11 +775,13 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
     if (warp == 0) {
       const Rec c = warp_best(lane < kWarps ? wbest[lane] : none_rec(), K);
       if (lane < csize)
-        send_rec(cluster_addr(smem_addr(&slot3[par * kMaxCluster + me]), lane),
-                 cluster_addr(smem_addr(&mbar[par]), lane), c);
+        send_rec(cluster_addr(smem_addr(&slot3[xpar * kMaxCluster + me]), lane),
+                 cluster_addr(smem_addr(&mbar[xpar]), lane), c);
     }
-    mbar_wait(&mbar[par], (rank >> 1) & 1);  // every CTA's record has arrived
-    const Rec win = warp_best(lane < csize ? slot3[par * kMaxCluster + lane] : none_rec(), K);
+    if (kFull && warp == 1) add_parts(a, wcnt, pod[a.r_p], lane);
+    mbar_wait(&mbar[xpar], (xs >> 1) & 1);  // every CTA's record has arrived
+    if (kFull) ++ex;
+    const Rec win = warp_best(lane < csize ? slot3[xpar * kMaxCluster + lane] : none_rec(), K);
     const bool nom_ok = nom >= 0 && win.nomf;
     const int bn = nom_ok ? nom_n : (int)~win.lo;
     const bool ok = nom_ok || win.hi != 0u;
@@ -758,7 +846,6 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
         }
       }
     }
-    p_next = p_after;
   }
 
   __syncthreads();
@@ -773,9 +860,14 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   cluster.sync();  // no CTA leaves while another may still address it
 }
 
+// the latency instance, or the full mode's where the caller gives rejects
+const void* kernel_of(bool full) {
+  return full ? (const void*)scan_kernel<true> : (const void*)scan_kernel<false>;
+}
+
 cudaError_t configure(const Args& a, cudaStream_t st, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
-  const void* fn = (const void*)scan_kernel;
+  const void* fn = kernel_of(a.rejects != nullptr);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
@@ -799,18 +891,21 @@ cudaError_t configure(const Args& a, cudaStream_t st, cudaLaunchConfig_t& cfg,
 extern "C" int scan_commit_args_size() { return (int)sizeof(Args); }
 
 // how many clusters of `csize` CTAs with `smem` bytes each the card can
-// hold at once (0: it cannot schedule one)
-extern "C" int scan_commit_clusters(int csize, int smem, int* clusters) {
+// hold at once (0: it cannot schedule one), of the latency instance or
+// (`full`) the full mode's
+extern "C" int scan_commit_clusters(int csize, int smem, int full, int* clusters) {
   if (csize < 1 || csize > kMaxCluster || smem < 0 || (size_t)smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.csize = csize;
   a.smem = smem;
+  int dummy = 0;
+  a.rejects = full ? &dummy : nullptr;  // selects the instance only
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(a, nullptr, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)scan_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel_of(full != 0), &cfg);
 }
 
 // `args` points at an Args (an opaque pointer: a type of the anonymous
@@ -822,13 +917,15 @@ extern "C" int scan_commit_launch(const void* args, void* stream) {
       a.K < 1 || a.K > kMaxK || a.N < 1 || a.csize < 1 || a.csize > kMaxCluster ||
       a.ns < 1 || a.ns > kThreads * kPer || (long long)a.ns * a.csize < a.N ||
       a.smem < 0 || (size_t)a.smem > kSmemLimit || a.W > kThreads ||
-      (a.csize > 1 && a.rep_stride % 4 != 0))
+      (a.csize > 1 && a.rep_stride % 4 != 0) ||
+      (a.rejects != nullptr && (a.F < 1 || a.o_wcnt < 0)))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(a, (cudaStream_t)stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, scan_kernel, a);
+  e = a.rejects != nullptr ? cudaLaunchKernelEx(&cfg, scan_kernel<true>, a)
+                           : cudaLaunchKernelEx(&cfg, scan_kernel<false>, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

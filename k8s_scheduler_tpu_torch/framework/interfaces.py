@@ -72,15 +72,19 @@ class VolumeKernels:
 @dataclasses.dataclass(frozen=True)
 class DynKernels:
     """The rounds engine's two dynamic stages (`Framework.dyn_batched`,
-    `score_anchor`): by default the dispatching wrappers of K14 `dyn_mask`
-    and K15 `dyn_score`; `plain()` forces the plain versions."""
+    `score_anchor`) and the dynamic reject attribution
+    (`Framework.dyn_rejects`): by default the dispatching wrappers of K14
+    `dyn_mask`, K15 `dyn_score` and K17 `dyn_rejects`; `plain()` forces the
+    plain versions."""
 
     dyn_mask: Callable = dyn_round.dyn_mask
     dyn_score: Callable = dyn_round.dyn_score
+    dyn_rejects: Callable = dyn_round.dyn_rejects
 
     @staticmethod
     def plain() -> "DynKernels":
-        return DynKernels(dyn_round.dyn_mask_plain, dyn_round.dyn_score_plain)
+        return DynKernels(dyn_round.dyn_mask_plain, dyn_round.dyn_score_plain,
+                          dyn_round.dyn_rejects_plain)
 
 
 class CycleContext:

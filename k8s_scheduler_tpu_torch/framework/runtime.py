@@ -21,7 +21,8 @@ from typing import Any
 import torch
 
 from ..config import SchedulerConfiguration, default_plugins
-from ..ops.dyn_round import sum_terms
+from ..ops import static_base as static_base_ops
+from ..ops.dyn_round import first_rejects, sum_terms
 from ..ops.resources import _fma
 from .interfaces import CycleContext, PluginBase
 from .registry import Registry, default_registry
@@ -74,6 +75,23 @@ class Framework:
         ]
         return Framework(filters, scores, post_filters)
 
+    @property
+    def filter_names(self) -> list[str]:
+        """Column names of the per-pod reject-count tables: the filter
+        order, which is the first-rejector attribution order."""
+        return [f.name for f in self.filters]
+
+    def static(self, ctx: CycleContext
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """`static_lean`'s (mask [P, N], score [P, N]) and rejects i32 [P, F]:
+        rejects[p, i] counts the valid nodes that static filter i rejects
+        first for pod p (K16 `static_rejects` on the card, its plain
+        version on the CPU)."""
+        mask, score = self.static_lean(ctx)
+        rejects = static_base_ops.static_rejects(
+            static_base_ops.static_base_inputs(self, ctx))
+        return mask, score, rejects
+
     def static_lean(self, ctx: CycleContext) -> tuple[torch.Tensor, torch.Tensor]:
         """Static filters ANDed (mask [P, N]) and static scores weighted and
         summed in plugin order (score [P, N])."""
@@ -106,26 +124,36 @@ class Framework:
                 extra[p.name] = e
         return extra
 
-    def dyn(self, ctx: CycleContext, p, node_requested, extra, static_row):
-        """(mask [N], score [N]) of pod `p` (i32 0-d) against the running
-        state, at one scan step: the dynamic filters ANDed onto the static
-        row in filter order, then every dynamic score, fed the full
-        feasibility row, weighted and summed in score order (a
-        `commit.Product` when the sum is one bare product, which the
-        reference's scan step fuses into the static score's add). (The
-        reference's per-filter reject counts belong to the full outputs,
-        ROADMAP A9; its latency program drops them.)"""
+    def dyn(self, ctx: CycleContext, p, node_requested, extra, static_row,
+            rejects: bool = True):
+        """(mask [N], score [N], rejects i32 [F]) of pod `p` (i32 0-d)
+        against the running state, at one scan step: the dynamic filters
+        ANDed onto the static row in filter order, then every dynamic
+        score, fed the full feasibility row, weighted and summed in score
+        order (a `commit.Product` when the sum is one bare product, which
+        the reference's scan step fuses into the static score's add).
+        rejects[i] counts the nodes that filter i's dynamic mask rejects
+        first (0 for a filter without one; the static rejections are
+        `static`'s). With `rejects=False` (the latency outputs, whose
+        reference program drops the counts) it is None."""
         mask = static_row
+        counts = []
         for f in self.filters:
             m = f.dyn_mask(ctx, p, node_requested, extra)
-            if m is not None:
+            if m is None:
+                if rejects:
+                    counts.append(torch.zeros((), dtype=torch.int32,
+                                              device=static_row.device))
+            else:
+                if rejects:
+                    counts.append((mask & ~m).sum(dtype=torch.int32))
                 mask = mask & m
         dyn = sum_terms((s.dyn_score(ctx, p, node_requested, extra, mask), w)
                         for s, w in self.scores)
         if dyn is None:
             dyn = torch.zeros((ctx.snap.N,), dtype=torch.float32,
                               device=static_row.device)
-        return mask, dyn
+        return mask, dyn, torch.stack(counts) if rejects else None
 
     def extra_update(self, ctx: CycleContext, extra, p, node, committed):
         """Fold one scan step into every stateful plugin's extra state."""
@@ -135,6 +163,29 @@ class Framework:
                 out[pl.name] = pl.extra_update(ctx, out[pl.name], p, node,
                                                committed)
         return out
+
+    def dyn_parts(self, ctx: CycleContext, node_requested, extra, shared: dict
+                  ) -> tuple[tuple[int, Any], ...]:
+        """Every filter's dynamic part against the running state (a bool
+        [B, N] plane, `dyn_round.FitMask` or `dyn_round.PortMask`), in
+        filter order, each with its column: the filter's index."""
+        return tuple((i, m) for i, f in enumerate(self.filters)
+                     if (m := f.dyn_mask_batched(ctx, node_requested, extra, shared))
+                     is not None)
+
+    def dyn_rejects(self, ctx: CycleContext, node_requested, extra, start, rows=None):
+        """i32 [B, F] first-rejector counts of the dynamic filters of every
+        pod row of the view against the running state, from the start mask
+        `start` (bool [B, N]); rows where `rows` (bool [B]) is False count
+        nothing (the context's `dyn_kernels`: K17 `dyn_rejects` on the
+        card)."""
+        parts = self.dyn_parts(ctx, node_requested, extra, {})
+        return ctx.dyn_kernels.dyn_rejects(start, parts, len(self.filters), rows)
+
+    def attribute_rejects(self, base_mask, per_filter, rows=None):
+        """First-rejector attribution over a chain of filter masks in
+        filter order (plain torch, `dyn_round.first_rejects`): i32 [P, F]."""
+        return first_rejects(base_mask, per_filter, rows)
 
     def dyn_batched(self, ctx: CycleContext, node_requested, extra, vsbase,
                     act_v=None):
@@ -147,9 +198,7 @@ class Framework:
         scores, fed `feasible`, weighted and summed in score order
         (`dyn_round.sum_terms`; a lone bare product fuses into the add)."""
         shared: dict = {}
-        parts = tuple(m for f in self.filters
-                      if (m := f.dyn_mask_batched(ctx, node_requested, extra, shared))
-                      is not None)
+        parts = tuple(m for _, m in self.dyn_parts(ctx, node_requested, extra, shared))
         mask, feasible = ctx.dyn_kernels.dyn_mask(vsbase, parts, act_v)
         terms = tuple((v, w) for s, w in self.scores
                       if (v := s.dyn_score_batched(ctx, node_requested, extra, feasible,

@@ -593,7 +593,7 @@ def record_small_calls(dev) -> dict:
     nodes, existing, pending = synth.config4_workload((201, 202), N_NODES, N_EXISTING,
                                                       N_PENDING)
     snap = enc.encode(nodes, pending[202], existing)
-    d = build_cycle_fn(commit_mode="rounds", device=dev,
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev,
                        affinity_update_fn=rec("affinity_update"),
                        capacity_fn=rec("capacity"),
                        guard_sweep_fn=rec("guard_sweep"), dyn_mask_fn=rec("dyn_mask"),
@@ -604,8 +604,8 @@ def record_small_calls(dev) -> dict:
     ex, pods, pvcs, pvs, classes = synth.config4_volumes(nodes, existing, pending[201],
                                                          seed=201)
     vsnap = enc.encode(nodes, pods, ex, pvcs=pvcs, pvs=pvs, storage_classes=classes)
-    d = build_cycle_fn(commit_mode="rounds", device=dev, pv_choice_fn=rec("pv_choice"),
-                       pv_fold_fn=rec("pv_fold"))(vsnap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev,
+                       pv_choice_fn=rec("pv_choice"), pv_fold_fn=rec("pv_fold"))(vsnap)
     build_preemption_fn(device=dev, claim_fn=rec("preempt_claim"))(vsnap, d)
     torch.cuda.synchronize()
     return calls
@@ -1141,8 +1141,8 @@ def time_capacity_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
     cap_libs = build_variants("capacity", csrc, CAPACITY_VARIANTS)
     table = {"capacity": {}}
     N = calls[0][4].shape[0]
-    folds = [i for i, c in enumerate(calls) if c[-1] is False]
-    passes = [i for i, c in enumerate(calls) if c[-1] is not False]
+    folds = [i for i, c in enumerate(calls) if c[7] is False]
+    passes = [i for i, c in enumerate(calls) if c[7] is not False]
     picks = {"round-0 pass": passes[0], "late pass": passes[-1],
              "round-0 revocation fold": folds[0]}
     shape = {}
@@ -1299,7 +1299,7 @@ def slice1_whatif_call(dev):
     nodes, existing, pending = synth.config4_cluster_config2_pending(
         (101,), N_NODES, N_EXISTING, N_PENDING)
     snap = SnapshotEncoder(device=dev).encode(nodes, pending[101], existing)
-    d = build_cycle_fn(commit_mode="rounds", device=dev)(snap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev)(snap)
     seen = []
 
     def rec(x):
@@ -1321,7 +1321,7 @@ def slice1_prefilter_call(dev):
     nodes, existing, pending = synth.config4_cluster_config2_pending(
         (101,), N_NODES, N_EXISTING, N_PENDING)
     snap = SnapshotEncoder(device=dev).encode(nodes, pending[101], existing)
-    d = build_cycle_fn(commit_mode="rounds", device=dev)(snap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev)(snap)
     seen = []
 
     def rec(*args):

@@ -14,7 +14,10 @@ The fold is `index_add_exact`'s: equal to the reference's f32 one-hot
 product wherever that is exact (every request sum the encoder makes is a
 dyadic multiple far below 2^53). With `check=False` every live claim is
 accepted: the round-end revocation fold (`rounds.py:852`) and the same
-kernel.
+kernel. `diag`, the round's row of the rounds engine's counters (i32 [3],
+`rounds.py:753-757`, `:838-842`), takes the pass's live claims and
+capacity rejections, or the fold's revocations (its third entry), added in
+place; None keeps no count.
 
 `capacity_plain` is the plain torch version (a global f64 cumsum and
 segment-start differences); `capacity_cuda` launches csrc/capacity.cu: one
@@ -63,8 +66,19 @@ def index_add_exact(target: torch.Tensor, idx: torch.Tensor,
     return target.index_add(0, s_idx[last], totals.to(target.dtype))
 
 
+def _count(diag, live, fits, check: bool) -> None:
+    if diag is None:
+        return
+    n = live.sum(dtype=torch.int32)
+    if check:
+        diag[0] += n
+        diag[1] += n - fits.sum(dtype=torch.int32)
+    else:
+        diag[2] += n
+
+
 def capacity_plain(s_key, order, rank_bits: int, req, node_req, alloc, slack,
-                   check: bool = True):
+                   check: bool = True, diag=None):
     """(accepted bool [B], node_req' f32 [N, R]) for claims sorted on
     `s_key` (i64 [B]) with permutation `order` (i64 [B])."""
     B = s_key.shape[0]
@@ -86,6 +100,7 @@ def capacity_plain(s_key, order, rank_bits: int, req, node_req, alloc, slack,
         fits = torch.all(seg_before + s_req <= free, dim=1) & s_live
     else:
         fits = s_live
+    _count(diag, s_live, fits, check)
     accepted = torch.zeros(B, dtype=torch.bool, device=dev)
     accepted[order] = fits
     return accepted, index_add_exact(node_req, s_node[fits], s_req[fits])
@@ -94,15 +109,17 @@ def capacity_plain(s_key, order, rank_bits: int, req, node_req, alloc, slack,
 def _library():
     lib = load_cuda_library("capacity")
     if lib.capacity_launch.argtypes is None:
+        if not hasattr(lib, "capacity_interface") or lib.capacity_interface() != 2:
+            raise RuntimeError("capacity: the library's launcher predates the counter row")
         lib.capacity_launch.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8 + [ctypes.c_void_p]
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + [ctypes.c_void_p]
         )
         lib.capacity_launch.restype = ctypes.c_int
     return lib
 
 
 def capacity_cuda(s_key, order, rank_bits: int, req, node_req, alloc, slack,
-                  check: bool = True):
+                  check: bool = True, diag=None):
     """Launch csrc/capacity.cu on the current stream."""
     B = s_key.shape[0]
     N, R = node_req.shape
@@ -117,11 +134,15 @@ def capacity_cuda(s_key, order, rank_bits: int, req, node_req, alloc, slack,
         checked("capacity", alloc, torch.float32, (N, R), dev),
         checked("capacity", slack, torch.float32, (N, R), dev),
     ]
+    if diag is not None and (diag.dtype != torch.int32 or diag.device != dev
+                             or tuple(diag.shape) != (3,) or not diag.is_contiguous()):
+        raise ValueError(f"capacity: want a contiguous i32 (3,) counter row on {dev}, got "
+                         f"{diag.dtype} {tuple(diag.shape)} on {diag.device}")
     accepted = torch.empty(B, dtype=torch.bool, device=dev)
     out = torch.empty_like(keep[3])
     err = _library().capacity_launch(
         B, N, R, rank_bits, int(check), *[ptr(t) for t in keep],
-        ptr(accepted), ptr(out), stream_of(dev),
+        ptr(accepted), ptr(out), ptr(diag), stream_of(dev),
     )
     raise_on_error("capacity", err)
     count_launch("capacity")
@@ -129,7 +150,7 @@ def capacity_cuda(s_key, order, rank_bits: int, req, node_req, alloc, slack,
 
 
 def capacity(s_key, order, rank_bits: int, req, node_req, alloc, slack,
-             check: bool = True):
+             check: bool = True, diag=None):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = capacity_cuda if node_req.device.type == "cuda" else capacity_plain
-    return fn(s_key, order, rank_bits, req, node_req, alloc, slack, check)
+    return fn(s_key, order, rank_bits, req, node_req, alloc, slack, check, diag)

@@ -65,7 +65,8 @@ def add_static(static_row: torch.Tensor, dyn) -> torch.Tensor:
 
 
 # dyn_fn(p i32 0-d, node_requested [N, R], extra, static_row bool [N])
-#   -> (feasibility mask [N] bool, dynamic score [N] f32 or a Product)
+#   -> (feasibility mask [N] bool, dynamic score [N] f32 or a Product[,
+#   per-filter rejects i32 [F]])
 DynFn = Callable[[torch.Tensor, torch.Tensor, Any, torch.Tensor],
                  tuple[torch.Tensor, torch.Tensor]]
 # update_fn(extra, p, node, committed) -> extra (p, node i32 0-d; committed bool 0-d)
@@ -77,6 +78,7 @@ class CommitResult:
     assignment: torch.Tensor  # i32 [P] node index or -1
     node_requested: torch.Tensor  # f32 [N, R] post-commit
     extra: Any  # final plugin state
+    dyn_aux: torch.Tensor | None = None  # i32 [P, F] per-step rejects (or None)
 
 
 def greedy_commit(
@@ -91,16 +93,25 @@ def greedy_commit(
     dyn_fn: DynFn,
     extra: Any = None,
     update_fn: UpdateFn | None = None,
+    rejects: int | None = None,
 ) -> CommitResult:
     """Per step, for pod p = order[rank]: feasible = dyn mask & static row;
     score = static + dynamic where feasible, NEG_INF elsewhere; the
     nominated node when it is feasible, else the first-index argmax;
     committed when that node is feasible; node_requested[best] += request
-    (f32, committed only); update_fn on every step."""
+    (f32, committed only); update_fn on every step.
+
+    `rejects` (F) collects the third output of `dyn_fn` of each step into
+    `dyn_aux` i32 [P, F] at the step's pod (reference `ops/commit.py:84`,
+    `:114-117`); the walk then takes every rank, an invalid pod's step too,
+    as the reference's scan does."""
     P, N = static_mask.shape
     dev = static_mask.device
     ranked = order.long()
-    ranked = ranked[pod_valid[ranked]]  # the valid pods in rank order
+    if rejects is None:
+        ranked = ranked[pod_valid[ranked]]  # the valid pods in rank order
+    dyn_aux = (torch.zeros((P, rejects), dtype=torch.int32, device=dev)
+               if rejects is not None else None)
     node_req = node_requested.clone()
     assignment = torch.full((P,), -1, dtype=torch.int32, device=dev)
     neg_inf = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
@@ -109,7 +120,10 @@ def greedy_commit(
         pi = ranked[i:i + 1]  # [1]
         p = pi[0].to(torch.int32)
         srow = static_mask.index_select(0, pi)[0]
-        feasible, dyn_score = dyn_fn(p, node_req, extra, srow)
+        out = dyn_fn(p, node_req, extra, srow)
+        feasible, dyn_score = out[0], out[1]
+        if dyn_aux is not None:
+            dyn_aux.index_copy_(0, pi, out[2][None, :])
         # AND the static row again: a dyn_fn that ignores it cannot bypass
         # the static filters
         feasible = feasible & srow
@@ -126,7 +140,7 @@ def greedy_commit(
             ok[:, None], pod_requested.index_select(0, pi), zero))
         if update_fn is not None:
             extra = update_fn(extra, p, best[0].to(torch.int32), ok[0])
-    return CommitResult(assignment, node_req, extra)
+    return CommitResult(assignment, node_req, extra, dyn_aux)
 
 
 def unwind_assignments(result: CommitResult, drop: torch.Tensor,
@@ -157,4 +171,4 @@ def unwind_assignments(result: CommitResult, drop: torch.Tensor,
             at = pos == j  # at most one pod per node
             node_req.index_add_(0, node[at], -pod_requested[idx[at]])
     assignment = torch.where(undo, -1, a)
-    return CommitResult(assignment, node_req, result.extra)
+    return CommitResult(assignment, node_req, result.extra, result.dyn_aux)

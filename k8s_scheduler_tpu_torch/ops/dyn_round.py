@@ -27,7 +27,15 @@ that every filter gives (K3 `interpod_norm` runs between them):
   vsbase None it is the score anchor (`Framework.score_anchor`): one pod
   row, a lone product rounded once.
 
-The plain versions (`dyn_mask_plain`, `dyn_score_plain`) are the plugin
+- `dyn_rejects(start, parts, F, rows)` -> i32 [B, F] (K17): first-rejector
+  attribution over the same parts, each with its column (the filter's
+  index, `Framework.dyn_parts`): column c counts the nodes of `start`
+  (bool [B, N]) that no part of a smaller column rejects and part c does
+  (the reference's `Framework.attribute_rejects` over `dyn_batched`'s
+  per-filter masks, `core/cycle.py:657-660`, `:1492-1495`); rows where
+  `rows` (bool [B]) is False count nothing.
+
+The plain versions (`dyn_mask_plain`, `dyn_score_plain`, `dyn_rejects_plain`) are the plugin
 arithmetic of `ops/resources.py` and the one-hot port test; the kernels
 (csrc/dyn_round.cu) compute the same per element in one pass each, bit for
 bit. Bound on an H100: bytes of the [B, N] planes (vsbase, the plane
@@ -182,6 +190,33 @@ def dyn_mask_plain(vsbase, parts, act_v=None):
     return mask, feasible
 
 
+def first_rejects(base_mask, per_filter, rows=None):
+    """First-rejector attribution over a chain of filter masks (the
+    reference's `Framework.attribute_rejects`): i32 [B, F], column i the
+    nodes still in the chain from `base_mask` that mask i rejects (a None
+    entry counts none); rows where `rows` (bool [B]) is False count
+    nothing."""
+    mask = base_mask
+    cols = []
+    for m in per_filter:
+        if m is None:
+            cols.append(torch.zeros((base_mask.shape[0],), dtype=torch.int32,
+                                    device=base_mask.device))
+        else:
+            c = (mask & ~m).sum(dim=1, dtype=torch.int32)
+            cols.append(c if rows is None else torch.where(rows, c, 0))
+            mask = mask & m
+    return torch.stack(cols, dim=1)
+
+
+def dyn_rejects_plain(start, parts, F: int, rows=None):
+    """i32 [B, F]; see the module note."""
+    per_filter = [None] * F
+    for col, part in parts:
+        per_filter[col] = _plain_part(part)
+    return first_rejects(start, per_filter, rows)
+
+
 def balanced_is_constant(node_allocatable: torch.Tensor) -> bool:
     """Over one resource BalancedAllocation's std is frac - frac = 0 and its
     score the constant 100: the reference's compiled program folds it, so
@@ -245,6 +280,11 @@ def _library():
             [ctypes.c_int] * 5 + [ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float]
             + [ctypes.c_void_p] * 2)
         lib.dyn_score_launch.restype = ctypes.c_int
+        lib.dyn_rejects_launch.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 3)
+        lib.dyn_rejects_launch.restype = ctypes.c_int
     return lib
 
 
@@ -299,6 +339,60 @@ def dyn_mask(vsbase, parts, act_v=None):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = dyn_mask_cuda if vsbase.device.type == "cuda" else dyn_mask_plain
     return fn(vsbase, parts, act_v)
+
+
+MAX_FILTERS = 32  # csrc/dyn_round.cu kMaxF: columns of a reject table
+
+
+def dyn_rejects_cuda(start, parts, F: int, rows=None):
+    """Launch K17 of csrc/dyn_round.cu on the current stream."""
+    c = "dyn_rejects"
+    B, N = start.shape
+    dev = start.device
+    if not 0 < F <= MAX_FILTERS:
+        raise ValueError(f"{c}: {F} columns; the kernel takes 1 to {MAX_FILTERS}")
+    cols = [col for col, _ in parts]
+    if len(set(cols)) != len(cols) or any(not 0 <= col < F for col in cols):
+        raise ValueError(f"{c}: part columns {cols} are not distinct columns of {F}")
+    fit = [(col, p) for col, p in parts if isinstance(p, FitMask)]
+    port = [(col, p) for col, p in parts if isinstance(p, PortMask)]
+    planes = [(col, checked(c, p, torch.bool, (B, N), dev)) for col, p in parts
+              if isinstance(p, torch.Tensor)]
+    if len(fit) > 1 or len(port) > 1 or len(planes) > MAX_PLANES:
+        raise ValueError(f"{c}: at most one FitMask, one PortMask and {MAX_PLANES} planes")
+    st = checked(c, start, torch.bool, (B, N), dev)
+    rw = None if rows is None else checked(c, rows, torch.bool, (B,), dev)
+    R = MP = Q = 0
+    fit_col = port_col = -1
+    req = alloc = nreq = ids = claimed = None
+    if fit:
+        fit_col, f = fit[0]
+        R = f.pod_requested.shape[1]
+        if R > MAX_RESOURCES:
+            raise ValueError(f"{c}: {R} resources > {MAX_RESOURCES}")
+        req = checked(c, f.pod_requested, torch.float32, (B, R), dev)
+        alloc = checked(c, f.node_allocatable, torch.float32, (N, R), dev)
+        nreq = checked(c, f.node_requested, torch.float32, (N, R), dev)
+    if port and port[0][1].claimed.shape[1] > 0:  # Q = 0: no port can conflict
+        port_col, pm = port[0]
+        MP, Q = pm.pod_port_ids.shape[1], pm.claimed.shape[1]
+        ids = checked(c, pm.pod_port_ids, torch.int32, (B, MP), dev)
+        claimed = checked(c, pm.claimed, torch.bool, (N, Q), dev)
+    out = torch.zeros((B, F), dtype=torch.int32, device=dev)
+    err = _library().dyn_rejects_launch(
+        B, N, R, MP, Q, ptr(req), ptr(alloc), ptr(nreq), ptr(ids), ptr(claimed),
+        _ptrs([t for _, t in planes]), len(planes),
+        (ctypes.c_int * MAX_PLANES)(*[col for col, _ in planes]), fit_col,
+        ptr(st), port_col, F, ptr(rw), ptr(out), stream_of(dev))
+    raise_on_error(c, err)
+    count_launch(c)
+    return out
+
+
+def dyn_rejects(start, parts, F: int, rows=None):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = dyn_rejects_cuda if start.device.type == "cuda" else dyn_rejects_plain
+    return fn(start, parts, F, rows)
 
 
 def _f32(v: float) -> float:

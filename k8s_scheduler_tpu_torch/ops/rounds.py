@@ -22,6 +22,13 @@ view of the lowest-rank `compact_window(P)` actives. The loop is a Python
 loop whose stop condition reads one device scalar per round, its one wait
 for the device.
 
+The reference's convergence counters (`rounds.py:753-757`, `:838-842`,
+`:876-879`) stay on the device: K5 adds each pass's live claims and
+capacity rejections, and each round-end fold's revocations, into the
+round's row of one i32 [max_rounds, 3] table (`capacity`'s `diag`); a
+round's acceptances are its live claims less both, since every accepted
+claim was live in one pass and survives unless revoked.
+
 Not in this slice: the shortlist path, one-hot compaction and the mesh
 (ROADMAP A13)."""
 
@@ -49,6 +56,10 @@ class RoundsResult:
     node_requested: torch.Tensor  # f32 [N, R] post-commit
     extra: Any  # final plugin state
     placed_round: torch.Tensor  # i32 [P] round each pod was accepted in, or -1
+    rounds_used: torch.Tensor  # i32 [] rounds run (round 0 included)
+    accepted_per_round: torch.Tensor  # i32 [max_rounds] acceptances a round
+    diag_per_round: torch.Tensor  # i32 [max_rounds, 3] a round's (live
+    # claims, capacity rejections, guard revocations), summed over passes
 
 
 def compact_window(P: int, compact: int = 8) -> int:
@@ -232,7 +243,9 @@ def rounds_commit(
         return guard_sweep_fn(s_packed, perm, rank_bits, B, role_tab, caps_c,
                               GK_INVALID)
 
-    def one_round(gid, act_v, node_req, ext, n_passes: int, identity: bool):
+    diag = torch.zeros((max_rounds, 3), dtype=torch.int32, device=dev)
+
+    def one_round(gid, act_v, node_req, ext, n_passes: int, identity: bool, rnd: int):
         B = gid.shape[0]
         if identity:
             vsnap, vmp, vsbase = snap, m_pending, sbase
@@ -255,7 +268,7 @@ def rounds_commit(
             nkey = torch.where(live, best, N).long()
             s_key, order = torch.sort(nkey * rank_space + rkey, stable=True)
             return capacity_fn(s_key, order, rank_bits, req, node_req, alloc,
-                               slack, True)
+                               slack, True, diag[rnd])
 
         def fits_alone_at(best, node_req):
             # a capacity loser keeps the node alive if it still fits ALONE
@@ -300,7 +313,7 @@ def rounds_commit(
         s_key, order = torch.sort(torch.where(revoked, acc_node, N).long(),
                                   stable=True)
         _, node_req = capacity_fn(s_key, order, 0, -req, node_req, alloc,
-                                  slack, False)
+                                  slack, False, diag[rnd])
         acc = acc & g_ok
         acc_node = torch.where(acc, acc_node, -1)
         ext = update_batched_view_fn(
@@ -311,7 +324,7 @@ def rounds_commit(
     # ---- round 0: full pending set ----
     gid0 = torch.arange(P, dtype=torch.int32, device=dev)
     acc0, node0, node_req, extra = one_round(
-        gid0, snap.pod_valid, snap.node_requested, extra, passes_round0, True
+        gid0, snap.pod_valid, snap.node_requested, extra, passes_round0, True, 0
     )
     placed = torch.where(acc0, node0, -1)
     placed_round = torch.where(acc0, 0, -1).to(torch.int32)
@@ -332,7 +345,7 @@ def rounds_commit(
         gid = order[start + span]
         act_v = active[gid.long()]
         accepted, node_of, node_req, extra = one_round(
-            gid, act_v, node_req, extra, passes, False
+            gid, act_v, node_req, extra, passes, False, rnd
         )
         g = gid.long()
         placed[g] = torch.where(accepted, node_of, placed[g])
@@ -346,4 +359,7 @@ def rounds_commit(
         node_requested=node_req,
         extra=extra,
         placed_round=placed_round,
+        rounds_used=torch.full((), rnd, dtype=torch.int32, device=dev),
+        accepted_per_round=diag[:, 0] - diag[:, 1] - diag[:, 2],
+        diag_per_round=diag,
     )

@@ -24,7 +24,18 @@ be nonzero). The wrapper packs each pod's operands into one row
 (`pod_rows`) and the valid pods' rank order (`valid_order`);
 `launch_shape` gives a launch's slices and shared memory without a card.
 `scan_commit` picks the kernel for CUDA tensors and the plain version for
-CPU ones. Latency-bound on an H100: P dependent steps."""
+CPU ones. Latency-bound on an H100: P dependent steps.
+
+The full outputs (`scan_commit_inputs(..., rejects=True)`) add the
+reference's per-step reject attribution (`ops/commit.py:60`, `:84`,
+`:114-117` over `framework/runtime.py:139 Framework.dyn`): i32 [P, F], row p
+the nodes of p's static row that each dynamic filter (NodePorts,
+NodeResourcesFit, InterPodAffinity, PodTopologySpread, at their columns in
+the framework's order) rejects first at p's step. The kernel's instance
+for them walks every rank, an invalid pod's step counting against the
+state of its rank without an exchange or a commit; each CTA counts its
+slice's nodes per part and adds them with one integer atomic a part, off
+the step's exchange."""
 
 from __future__ import annotations
 
@@ -59,11 +70,13 @@ MAX_NODES_PORTABLE = CLUSTER_PORTABLE * THREADS * NODES_A_THREAD  # 8192
 SMEM_LIMIT = 232448  # shared memory bytes a CTA can use (227 KB)
 POD_SELS = 8  # matched selectors carried in a pod row (kPodSels)
 REC_BYTES, WARPS = 48, THREADS // 32  # sizeof(Rec), kWarps
-POD_HARD, POD_AFF_NORM, POD_SPR_NORM = 1, 2, 4  # pod flags (kPod*)
+POD_HARD, POD_AFF_NORM, POD_SPR_NORM, POD_INVALID = 1, 2, 4, 8  # pod flags (kPod*)
+# the full mode's dynamic parts, in csrc/scan_commit.cu's fail-bit order
+REJECT_PARTS = ("NodePorts", "NodeResourcesFit", "InterPodAffinity", "PodTopologySpread")
 _ROW_FIELDS = ("req", "ports", "aff", "self", "anti", "pref", "prefw", "tsc", "skew",
                "sels", "sel0", "nsel", "nom", "nomdom", "flags", "p")
 _SMEM_FIELDS = ("slot3", "slot2", "wbest", "wred", "smin", "dptr", "rows", "mbar", "total",
-                "alloc", "slack", "nreq", "ndom", "pbits")
+                "alloc", "slack", "nreq", "ndom", "pbits", "wcnt")
 
 # flag bits and score-term codes (csrc/scan_commit.cu mirrors these)
 F_PORTS, F_FIT, F_AFFINITY, F_SPREAD, F_PORT_STATE, F_STATE, F_TABLES, F_MOST = (
@@ -121,6 +134,15 @@ class ScanInputs:
     dom_list: torch.Tensor  # i32 [nd]
     sel_ptr: torch.Tensor  # i32 [P + 1] CSR of each pod's matched selectors
     sel_list: torch.Tensor  # i32 [nnz]
+    # the full outputs: each REJECT_PARTS entry's column (its filter's
+    # index, -1 where the framework has no such filter) of n_filters; None
+    # for the latency outputs
+    reject_cols: tuple[int, ...] | None = None
+    n_filters: int = 0
+
+    @property
+    def full(self) -> bool:
+        return self.reject_cols is not None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -133,6 +155,7 @@ class ScanResult:
     node_requested: torch.Tensor  # f32 [N, R] after the commit
     ports: torch.Tensor  # bool [N, Q]
     state: ip.AffinityState  # the affinity state after the commit
+    rejects: torch.Tensor | None = None  # i32 [P, F] (the full outputs)
 
 
 def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int):
@@ -143,12 +166,16 @@ def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int):
     return ptr_.to(torch.int32), cols.to(torch.int32).contiguous()
 
 
-def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict) -> ScanInputs:
+def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict,
+                       rejects: bool = False) -> ScanInputs:
     """Pack one cycle's scan operands. `sbase` is K1's static base (fit
-    against the cycle-start state folded in: node_requested only grows
-    during the scan, so that is the dynamic fit test's first step);
-    `extra` is `fw.extra_init(ctx)`. A plugin with per-pod hooks that the
-    kernel does not implement raises NotImplementedError."""
+    against the cycle-start state folded in for the latency outputs:
+    node_requested only grows during the scan, so that is the dynamic fit
+    test's first step; without it for the full outputs, whose attribution
+    counts those nodes under NodeResourcesFit at every step); `extra` is
+    `fw.extra_init(ctx)`; `rejects` asks for the full outputs' per-step
+    attribution. A plugin with per-pod hooks that the kernel does not
+    implement raises NotImplementedError."""
     snap = ctx.snap
     dev = snap.device
     P, N = snap.P, snap.N
@@ -249,6 +276,9 @@ def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict) -> ScanInputs:
         tsc=snap.pod_tsc, tsc_skew=snap.pod_tsc_skew,
         node_domains=snap.node_domains, dom_ptr=dom_ptr, dom_list=dom_list,
         sel_ptr=sel_ptr, sel_list=sel_list,
+        reject_cols=tuple(fw.filter_names.index(n) if n in fw.filter_names else -1
+                          for n in REJECT_PARTS) if rejects else None,
+        n_filters=len(fw.filters),
     )
 
 
@@ -256,20 +286,23 @@ def _result(x: ScanInputs, res: CommitResult) -> ScanResult:
     state = next((v for v in res.extra.values() if isinstance(v, ip.AffinityState)),
                  x.state)
     return ScanResult(res.assignment, res.node_requested,
-                      res.extra.get("NodePorts", x.ports), state)
+                      res.extra.get("NodePorts", x.ports), state, res.dyn_aux)
 
 
 def scan_commit_plain(x: ScanInputs) -> ScanResult:
     """The kernel's function through `greedy_commit` and the framework's
-    per-pod hooks (`Framework.dyn`, `Framework.extra_update`)."""
+    per-pod hooks (`Framework.dyn`, `Framework.extra_update`); the full
+    outputs walk every rank, as the reference's scan does, and collect
+    `Framework.dyn`'s rejects."""
     fw, ctx = x.fw, x.ctx
     res = greedy_commit(
         order=x.order, static_mask=x.sbase > NEG_INF / 2, static_score=x.sbase,
         pod_requested=x.pod_requested, pod_valid=x.pod_valid,
         pod_nominated=x.pod_nominated, node_requested=x.node_requested,
-        dyn_fn=lambda p, nr, ext, row: fw.dyn(ctx, p, nr, ext, row),
+        dyn_fn=lambda p, nr, ext, row: fw.dyn(ctx, p, nr, ext, row, rejects=x.full),
         extra=x.extra,
         update_fn=lambda ext, p, node, ok: fw.extra_update(ctx, ext, p, node, ok),
+        rejects=x.n_filters if x.full else None,
     )
     return _result(x, res)
 
@@ -324,12 +357,15 @@ def row_layout(R: int, MP: int, MA: int, MC: int, K: int) -> dict[str, int]:
     return out
 
 
-def smem_layout(ns: int, R: int, K: int, QW: int, S: int, W: int) -> dict[str, int]:
+def smem_layout(ns: int, R: int, K: int, QW: int, S: int, W: int,
+                full: bool = False) -> dict[str, int]:
     """A CTA's shared memory (csrc `Args.o_*`, byte offsets, 16-aligned)
-    for a slice of ns nodes, and its size `smem`."""
+    for a slice of ns nodes, and its size `smem` (`full`: with the full
+    mode's per-warp counts, after everything else)."""
     sizes = (2 * CLUSTER * REC_BYTES, 2 * CLUSTER * 8, WARPS * REC_BYTES, WARPS * 8,
              MAX_CONSTRAINTS * WARPS * 4, (K + 1) * 4, 2 * W * 4, 2 * 8, S * 4,
-             R * ns * 4, R * ns * 4, R * ns * 4, K * ns * 4, QW * ns * 4)
+             R * ns * 4, R * ns * 4, R * ns * 4, K * ns * 4, QW * ns * 4,
+             WARPS * len(REJECT_PARTS) * 4 if full else 0)
     out, off = {}, 0
     for f, b in zip(_SMEM_FIELDS, sizes):
         out[f] = off
@@ -339,10 +375,10 @@ def smem_layout(ns: int, R: int, K: int, QW: int, S: int, W: int) -> dict[str, i
 
 
 def launch_shape(N: int, R: int, K: int, Q: int, S: int, W: int,
-                 cluster: int = CLUSTER) -> dict:
-    """The launch for N nodes on a cluster of `cluster` CTAs: the slice a CTA
-    owns, nodes a thread and the shared memory layout; ValueError naming
-    the limit the inputs pass."""
+                 cluster: int = CLUSTER, full: bool = False) -> dict:
+    """The launch for N nodes on a cluster of `cluster` CTAs (`full`: the
+    full outputs' instance): the slice a CTA owns, nodes a thread and the
+    shared memory layout; ValueError naming the limit the inputs pass."""
     ns = -(-N // cluster)
     if ns > THREADS * NODES_A_THREAD:
         raise ValueError(
@@ -351,7 +387,7 @@ def launch_shape(N: int, R: int, K: int, Q: int, S: int, W: int,
             f"({THREADS * NODES_A_THREAD} a CTA: {MAX_NODES} with {CLUSTER}, "
             f"{MAX_NODES_PORTABLE} on a card that schedules only the portable "
             f"{CLUSTER_PORTABLE})")
-    lay = smem_layout(ns, R, K, -(-Q // 32), S, W)
+    lay = smem_layout(ns, R, K, -(-Q // 32), S, W, full)
     if lay["smem"] > SMEM_LIMIT:
         raise ValueError(
             f"scan_commit: {lay['smem']} bytes of shared memory a CTA for a slice of {ns} "
@@ -375,7 +411,8 @@ class ScanArgs(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in (
             "sbase", "vorder", "nv", "rows", "alloc", "slack", "node_domains", "dom_ptr",
             "dom_list", "sel_list", "assignment", "node_req", "ports", "counts",
-            "counts_rep", "total", "anti", "pref")]
+            "counts_rep", "total", "anti", "pref", "rejects")]
+        + [("F", ctypes.c_int), ("rej_col", ctypes.c_int * len(REJECT_PARTS))]
     )
 
 
@@ -386,7 +423,7 @@ def _library():
             raise RuntimeError("scan_commit: ScanArgs does not match csrc/scan_commit.cu Args")
         lib.scan_commit_launch.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
         lib.scan_commit_launch.restype = ctypes.c_int
-        lib.scan_commit_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+        lib.scan_commit_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.scan_commit_clusters.restype = ctypes.c_int
     return lib
@@ -400,17 +437,17 @@ def scan_shape(x: ScanInputs, cluster: int = CLUSTER) -> dict:
     card schedules none."""
     P, N, R, MP, MA, MC, K, S, D, Q = _dims(x)
     W = row_layout(R, MP, MA, MC, K)["W"]
-    shapes, tried = [launch_shape(N, R, K, Q, S, W, cluster)], []
+    shapes, tried = [launch_shape(N, R, K, Q, S, W, cluster, x.full)], []
     if cluster != CLUSTER_PORTABLE:
         try:
-            shapes.append(launch_shape(N, R, K, Q, S, W, CLUSTER_PORTABLE))
+            shapes.append(launch_shape(N, R, K, Q, S, W, CLUSTER_PORTABLE, x.full))
         except ValueError as e:
             tried.append(str(e))
     lib = _library()
     for shape in shapes:
         n = ctypes.c_int(0)
         raise_on_error("scan_commit", lib.scan_commit_clusters(
-            shape["cluster"], shape["smem"], ctypes.byref(n)))
+            shape["cluster"], shape["smem"], int(x.full), ctypes.byref(n)))
         if n.value >= 1:
             return shape
         tried.append(f"the card schedules no cluster of {shape['cluster']} CTAs with "
@@ -452,6 +489,8 @@ def pod_flags(x: ScanInputs) -> torch.Tensor:
         flags |= POD_AFF_NORM * norm.int()
     if T_SPREAD in codes:
         flags |= POD_SPR_NORM * ((key >= 0) & (when == WHEN_SCHEDULE_ANYWAY)).any(1).int()
+    if x.full:
+        flags |= POD_INVALID * (~x.pod_valid).int()
     return flags
 
 
@@ -482,7 +521,12 @@ def pod_rows(x: ScanInputs) -> torch.Tensor:
 
 def valid_order(x: ScanInputs) -> tuple[torch.Tensor, torch.Tensor]:
     """(i32 [P] the valid pods in rank order, then the others; i32 [1] how
-    many are valid), without a host synchronisation."""
+    many are valid), without a host synchronisation; for the full outputs
+    every pod in rank order, and P."""
+    if x.full:
+        P = x.shape[0]
+        return x.order.contiguous(), torch.full((1,), P, dtype=torch.int32,
+                                                device=x.order.device)
     vr = x.pod_valid[x.order.long()]
     idx = torch.argsort((~vr).to(torch.int8), stable=True)
     return x.order[idx].contiguous(), vr.sum(dtype=torch.int32).reshape(1)
@@ -537,6 +581,10 @@ def scan_commit_cuda(x: ScanInputs, cluster: int = CLUSTER) -> ScanResult:
     total = checked(k, st.total, f32, (S,), dev).clone()
     anti = checked(k, st.anti_presence, b8, (S, N), dev).clone()
     pref = checked(k, st.pref_sym, f32, (S, N), dev).clone()
+    rejects = (torch.zeros((P, x.n_filters), dtype=i32, device=dev) if x.full
+               else None)
+    if x.full and not 0 < x.n_filters:
+        raise ValueError("scan_commit: the full outputs need the framework's filters")
     c = shape["cluster"]
     rep_stride = -(-S * D // 4) * 4
     counts_rep = torch.empty(max(c - 1, 1) * rep_stride, dtype=f32, device=dev)
@@ -558,12 +606,14 @@ def scan_commit_cuda(x: ScanInputs, cluster: int = CLUSTER) -> ScanResult:
              "dom_list", "sel_list"), keep)},
         assignment=assignment.data_ptr(), node_req=node_req.data_ptr(),
         ports=ports.data_ptr(), counts=counts.data_ptr(), counts_rep=counts_rep.data_ptr(),
-        total=total.data_ptr(), anti=anti.data_ptr(), pref=pref.data_ptr())
+        total=total.data_ptr(), anti=anti.data_ptr(), pref=pref.data_ptr(),
+        rejects=0 if rejects is None else rejects.data_ptr(), F=x.n_filters,
+        rej_col=(ctypes.c_int * len(REJECT_PARTS))(*(x.reject_cols or (-1,) * 4)))
     err = _library().scan_commit_launch(ctypes.byref(a), stream_of(dev))
     raise_on_error(k, err)
     count_launch(k)
     return ScanResult(assignment, node_req, ports,
-                      ip.AffinityState(counts, total, anti, pref))
+                      ip.AffinityState(counts, total, anti, pref), rejects)
 
 
 def scan_commit(x: ScanInputs) -> ScanResult:

@@ -22,7 +22,17 @@ streaming stores per pod. Bound on an H100: bytes, the f32 [P, N] output
 not a multiple of 4, or a row that is not aligned for the vector loads,
 takes the same kernel with scalar loads and stores (the launcher checks
 the pointers). The score is the same `__fmaf_rn` chain in term order, so
-the kernel is bit-equal to `static_base_plain`."""
+the kernel is bit-equal to `static_base_plain`.
+
+K16 `static_rejects` (the same source, `static_rejects_kernel`) takes the
+same inputs without fit and sampling (`Framework.static`, the reference's
+`framework/runtime.py:79`, has neither) and gives the reference's
+first-rejector attribution over the static filters (`runtime.py:223
+attribute_rejects`): i32 [P, F], column i the valid nodes that filter i
+(the framework's order) rejects and no earlier filter does, for the rows
+that `rows` (bool [P]) selects. It shares K1's per-node tests; the counts
+are integer sums, exact in any order. `static_rejects_plain` is its plain
+version."""
 
 from __future__ import annotations
 
@@ -36,7 +46,9 @@ from . import images as images_ops
 from . import labels as labels_ops
 from . import resources as res_ops
 from . import taints as taints_ops
-from .kernel_build import count_launch, load_cuda_library
+from .dyn_round import first_rejects
+from .kernel_build import (checked, count_launch, load_cuda_library, raise_on_error,
+                           stream_of)
 
 NEG_INF = -1e9
 
@@ -56,6 +68,12 @@ _FILTER_BITS = {
 # static filters whose [P, N] mask another kernel computes: ANDed into the
 # one mask operand
 _MASK_OPERAND = ("VolumeBinding",)
+# K16's tests, in csrc/static_base.cu's order: the filter each one is, and
+# its bit (VolumeBinding's is the mask operand's)
+REJECT_TESTS = (("NodeUnschedulable", F_UNSCHED), ("NodeName", F_NODENAME),
+                ("TaintToleration", F_TAINT), ("NodeAffinity", F_AFFINITY),
+                ("NodePorts", F_PORTS), ("VolumeBinding", F_MASK))
+MAX_FILTERS = 32  # csrc/static_base.cu kMaxF
 _SCORE_TERMS = {
     "ImageLocality": TERM_IMAGE,
     "NodeAffinity": TERM_PREF,
@@ -92,6 +110,10 @@ class StaticBaseInputs:
     pref: torch.Tensor  # f32 [Pf, N] preferred-affinity score rows
     img: torch.Tensor  # f32 [Is, N] image-locality score rows
     mask: torch.Tensor | None = None  # bool [P, N] (F_MASK), or None
+    # K16: each REJECT_TESTS entry's column (its filter's index, -1 where
+    # the framework has no such filter or its mask is None) of F columns
+    columns: tuple[int, ...] = (-1,) * len(REJECT_TESTS)
+    n_filters: int = 0
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -117,15 +139,18 @@ def static_base_inputs(fw, ctx, *, fit: bool = False,
     dev = snap.device
     flags = 0
     operand = None
-    for f in fw.filters:
+    columns = {}
+    for i, f in enumerate(fw.filters):
         bit = _FILTER_BITS.get(f.name)
         if bit is not None:
             flags |= bit
+            columns.setdefault(f.name, i)
         elif f.name in _MASK_OPERAND:
             m = f.static_mask(ctx)
             if m is not None:
                 operand = m if operand is None else operand & m
                 flags |= F_MASK
+                columns.setdefault(f.name, i)
         elif _overrides(f, "static_mask") and f.static_mask(ctx) is not None:
             raise NotImplementedError(
                 f"static filter {f.name!r} is not covered by static_base"
@@ -190,11 +215,51 @@ def static_base_inputs(fw, ctx, *, fit: bool = False,
         pref=labels_ops.preferred_table(snap, em),
         img=images_ops.image_table(snap),
         mask=operand,
+        columns=tuple(columns.get(name, -1) for name, _ in REJECT_TESTS),
+        n_filters=len(fw.filters),
     )
+
+
+def reject_inputs(x: StaticBaseInputs) -> StaticBaseInputs:
+    """K16's inputs from a cycle's K1 inputs: the same tables without the
+    fit test and the sampling window."""
+    return dataclasses.replace(x, flags=x.flags & ~(F_FIT | F_SAMPLE))
 
 
 def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids.clamp(0, table.shape[0] - 1).long()]
+
+
+def _filter_masks(x: StaticBaseInputs) -> dict[int, torch.Tensor]:
+    """{filter bit: bool [P, N]} of the static filters the flags name."""
+    P, N = x.shape
+    dev = x.node_valid.device
+    out = {}
+    if x.flags & F_UNSCHED:
+        out[F_UNSCHED] = ~x.node_unsched[None, :].expand(P, N)
+    if x.flags & F_NODENAME:
+        pin = x.pod_node_name[:, None]
+        cols = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+        out[F_NODENAME] = torch.where(pin >= 0, cols == pin, True) & (pin != -2)
+    if x.flags & F_TAINT:
+        ts = x.node_taintset.clamp(0, x.sched.shape[1] - 1).long()
+        tl = x.pod_tolset.clamp(0, x.sched.shape[0] - 1).long()
+        out[F_TAINT] = x.sched[tl][:, ts]
+    if x.flags & F_AFFINITY:
+        m = torch.ones((P, N), dtype=torch.bool, device=dev)
+        for ids in (x.pod_req_id, x.pod_sel_req_id):
+            m = m & torch.where(ids[:, None] >= 0, _rows(x.req, ids), True)
+        out[F_AFFINITY] = m
+    if x.flags & F_PORTS:
+        m = torch.ones((P, N), dtype=torch.bool, device=dev)
+        for j in range(x.pod_ports.shape[1]):
+            pj = x.pod_ports[:, j, None]
+            for k in range(x.node_used_ports.shape[1]):
+                m = m & ~((pj >= 0) & (pj == x.node_used_ports[None, :, k]))
+        out[F_PORTS] = m
+    if x.flags & F_MASK:
+        out[F_MASK] = x.mask
+    return out
 
 
 def static_base_plain(x: StaticBaseInputs) -> torch.Tensor:
@@ -202,24 +267,10 @@ def static_base_plain(x: StaticBaseInputs) -> torch.Tensor:
     P, N = x.shape
     dev = x.node_valid.device
     mask = x.node_valid[None, :].expand(P, N)
-    if x.flags & F_UNSCHED:
-        mask = mask & ~x.node_unsched[None, :]
-    if x.flags & F_NODENAME:
-        pin = x.pod_node_name[:, None]
-        cols = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
-        mask = mask & torch.where(pin >= 0, cols == pin, True) & (pin != -2)
+    for m in _filter_masks(x).values():
+        mask = mask & m
     ts = x.node_taintset.clamp(0, x.sched.shape[1] - 1).long()
     tl = x.pod_tolset.clamp(0, x.sched.shape[0] - 1).long()
-    if x.flags & F_TAINT:
-        mask = mask & x.sched[tl][:, ts]
-    if x.flags & F_AFFINITY:
-        for ids in (x.pod_req_id, x.pod_sel_req_id):
-            mask = mask & torch.where(ids[:, None] >= 0, _rows(x.req, ids), True)
-    if x.flags & F_PORTS:
-        for j in range(x.pod_ports.shape[1]):
-            pj = x.pod_ports[:, j, None]
-            for k in range(x.node_used_ports.shape[1]):
-                mask = mask & ~((pj >= 0) & (pj == x.node_used_ports[None, :, k]))
     if x.flags & F_FIT:
         for r in range(x.pod_requested.shape[1]):
             mask = mask & (x.pod_requested[:, r, None] <= x.node_room[None, :, r])
@@ -227,8 +278,6 @@ def static_base_plain(x: StaticBaseInputs) -> torch.Tensor:
         cols = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
         win = (cols - x.samp_off[:, None]) % x.samp_n
         mask = mask & (win < x.samp_k)
-    if x.flags & F_MASK:
-        mask = mask & x.mask
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     score = torch.zeros((P, N), dtype=torch.float32, device=dev)
     for code, w in x.terms:
@@ -267,32 +316,27 @@ def _library():
     if lib.static_base_launch.argtypes is None:
         lib.static_base_launch.argtypes = _ARGTYPES
         lib.static_base_launch.restype = ctypes.c_int
+        lib.static_rejects_launch.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p,
+                                                          ctypes.c_void_p]
+        lib.static_rejects_launch.restype = ctypes.c_int
     return lib
 
 
-def static_base_cuda(x: StaticBaseInputs) -> torch.Tensor:
-    """Launch csrc/static_base.cu on the current stream."""
+def _common_args(x: StaticBaseInputs, kernel: str) -> tuple[list, list]:
+    """The launchers' common arguments after the output (csrc
+    STATIC_PARAMS) and the tensors they point into, checked."""
     P, N = x.shape
     dev = x.node_valid.device
     R = x.pod_requested.shape[1]
 
     def i32(t, *shape):
-        if t.dtype != torch.int32 or t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"static_base: want i32 {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        return t.contiguous()
+        return checked(kernel, t, torch.int32, shape, dev)
 
     def f32(t, *shape):
-        if t.dtype != torch.float32 or t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"static_base: want f32 {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        return t.contiguous()
+        return checked(kernel, t, torch.float32, shape, dev)
 
     def u8(t, *shape):
-        if t.dtype != torch.bool or t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"static_base: want bool {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        return t.contiguous().view(torch.uint8)
+        return checked(kernel, t, torch.bool, shape, dev).view(torch.uint8)
 
     Tl, Ts = x.sched.shape
     MPp, MUP = x.pod_ports.shape[1], x.node_used_ports.shape[1]
@@ -308,11 +352,9 @@ def static_base_cuda(x: StaticBaseInputs) -> torch.Tensor:
         f32(x.img, x.img.shape[0], N),
         u8(x.mask, P, N) if x.flags & F_MASK else None,
     ]
-    out = torch.empty((P, N), dtype=torch.float32, device=dev)
     terms = list(x.terms) + [(0, 0.0)] * (3 - len(x.terms))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().static_base_launch(
-        _ptr(out), P, N, R,
+    args = [
+        P, N, R,
         *[_ptr(t) for t in keep[:7]], MPp, _ptr(keep[7]), _ptr(keep[8]),
         x.samp_k, x.samp_n,
         *[_ptr(t) for t in keep[9:13]], MUP, _ptr(keep[13]),
@@ -321,10 +363,17 @@ def static_base_cuda(x: StaticBaseInputs) -> torch.Tensor:
         _ptr(keep[18]), keep[18].shape[0],
         x.flags, terms[0][0], terms[1][0], terms[2][0],
         terms[0][1], terms[1][1], terms[2][1], len(x.terms),
-        ctypes.c_void_p(stream), _ptr(keep[19]),
-    )
-    if err != 0:
-        raise RuntimeError(f"static_base launch failed: CUDA error {err}")
+        stream_of(dev), _ptr(keep[19]),
+    ]
+    return args, keep
+
+
+def static_base_cuda(x: StaticBaseInputs) -> torch.Tensor:
+    """Launch csrc/static_base.cu on the current stream."""
+    P, N = x.shape
+    args, _keep = _common_args(x, "static_base")
+    out = torch.empty((P, N), dtype=torch.float32, device=x.node_valid.device)
+    raise_on_error("static_base", _library().static_base_launch(_ptr(out), *args))
     count_launch("static_base")
     return out
 
@@ -334,3 +383,50 @@ def static_base(x: StaticBaseInputs) -> torch.Tensor:
     if x.node_valid.device.type == "cuda":
         return static_base_cuda(x)
     return static_base_plain(x)
+
+
+def static_rejects_plain(x: StaticBaseInputs, rows=None) -> torch.Tensor:
+    """K16's function in plain torch: the reference's attribution over the
+    static filters' masks, in column order, from node_valid."""
+    P, N = x.shape
+    masks = _filter_masks(x)
+    per_filter = [None] * x.n_filters
+    for (_, bit), col in zip(REJECT_TESTS, x.columns):
+        if col >= 0 and bit in masks:
+            per_filter[col] = masks[bit]
+    return first_rejects(x.node_valid[None, :].expand(P, N), per_filter, rows)
+
+
+def _check_reject_inputs(x: StaticBaseInputs) -> None:
+    if x.flags & (F_FIT | F_SAMPLE):
+        raise ValueError("static_rejects: the inputs take neither fit nor sampling")
+    if not 0 < x.n_filters <= MAX_FILTERS:
+        raise ValueError(f"static_rejects: {x.n_filters} filters; the kernel takes 1 to "
+                         f"{MAX_FILTERS}")
+
+
+def static_rejects_cuda(x: StaticBaseInputs, rows=None) -> torch.Tensor:
+    """Launch K16 (csrc/static_base.cu static_rejects_kernel) on the current
+    stream."""
+    k = "static_rejects"
+    _check_reject_inputs(x)
+    P, N = x.shape
+    dev = x.node_valid.device
+    args, _keep = _common_args(x, k)
+    rw = None if rows is None else checked(k, rows, torch.bool, (P,), dev)
+    out = torch.zeros((P, x.n_filters), dtype=torch.int32, device=dev)
+    err = _library().static_rejects_launch(
+        _ptr(out), *args, x.n_filters,
+        (ctypes.c_int * len(REJECT_TESTS))(*x.columns), _ptr(rw))
+    raise_on_error(k, err)
+    count_launch(k)
+    return out
+
+
+def static_rejects(x: StaticBaseInputs, rows=None) -> torch.Tensor:
+    """i32 [P, F] static first-rejector counts: the kernel on CUDA, the
+    plain version on CPU."""
+    if x.node_valid.device.type == "cuda":
+        return static_rejects_cuda(x, rows)
+    _check_reject_inputs(x)
+    return static_rejects_plain(x, rows)

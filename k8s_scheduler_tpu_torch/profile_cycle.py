@@ -89,12 +89,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     seeds = tuple(range(201, 202 + args.cycles))
     nodes, existing, pending = synth.config4_workload(seeds)
-    cycles = {"config4": build_cycle_fn(commit_mode="rounds", device=dev),
+    cycles = {"config4": build_cycle_fn(commit_mode="rounds", outputs="latency",
+                                        device=dev),
               "config4 plain dyn": build_cycle_fn(
-                  commit_mode="rounds", device=dev, dyn_mask_fn=dr.dyn_mask_plain,
-                  dyn_score_fn=dr.dyn_score_plain),
-              "volumes": build_cycle_fn(commit_mode="rounds", device=dev),
-              "scan": build_cycle_fn(commit_mode="scan", device=dev)}
+                  commit_mode="rounds", outputs="latency", device=dev,
+                  dyn_mask_fn=dr.dyn_mask_plain, dyn_score_fn=dr.dyn_score_plain),
+              "volumes": build_cycle_fn(commit_mode="rounds", outputs="latency", device=dev),
+              "scan": build_cycle_fn(commit_mode="scan", outputs="latency", device=dev)}
     preempt = build_preemption_fn(device=dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

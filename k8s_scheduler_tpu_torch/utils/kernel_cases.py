@@ -17,7 +17,14 @@ host ports, room for the fit filter, a sampling window that bites — and
 the three static score terms; `k1_profile` keeps one filter or a prefix
 of the score terms. `static_base_edge_inputs` derives the card's cases
 from it: each filter bit alone, 0-3 score terms, one partial tile (N = 8),
-an N that is not a multiple of 4, a misaligned row and P = 65537."""
+an N that is not a multiple of 4, a misaligned row and P = 65537.
+
+K16 / K17 (`static_reject_cases`, `dyn_reject_cases`): the first-rejector
+attribution over the K1 cluster's static filters and over `_dyn_raw`'s
+dynamic parts: a filter without a mask between two with one, every node
+rejected by the first filter, rows all false and all true, F = 1 and 9,
+columns out of the filters' default order, one part of each kind alone, a
+start mask all false, and the scalar paths (N = 13, misaligned rows)."""
 
 from __future__ import annotations
 
@@ -623,12 +630,14 @@ def scan_profile(config, name):
                                                         E("NodeAffinity", 1)])))])
 
 
-def scan_inputs(snap, opts: dict):
+def scan_inputs(snap, opts: dict, full: bool = False):
     """A case's `ScanInputs` from its (narrowed) port snapshot: K1's plain
     static base under the case's profile, packed, then its edit — "signed
     zeros": every feasible static-base entry -7 except -0.0 at node 9 and
     +0.0 at node 25 (a tie: the lower index wins); "interleave pads": the
-    rank order with a pad pod after every valid one."""
+    rank order with a pad pod after every valid one. `full`: the full
+    outputs' inputs (the base without the fit test, the per-step
+    attribution asked for)."""
     from .. import config
     from ..core.cycle import sampling_window
     from ..framework.interfaces import CycleContext
@@ -639,8 +648,8 @@ def scan_inputs(snap, opts: dict):
     fw = Framework.from_config(scan_profile(config, opts.get("profile")))
     ctx = CycleContext(snap)
     base = sb.static_base_plain(sb.static_base_inputs(
-        fw, ctx, fit=True, sampling=sampling_window(snap, 0)))
-    x = sc.scan_commit_inputs(fw, ctx, base, fw.extra_init(ctx))
+        fw, ctx, fit=not full, sampling=sampling_window(snap, 0)))
+    x = sc.scan_commit_inputs(fw, ctx, base, fw.extra_init(ctx), rejects=full)
     edit = opts.get("edit")
     if edit == "signed zeros":
         live = x.sbase > sc.NEG_INF / 2
@@ -657,7 +666,7 @@ def scan_inputs(snap, opts: dict):
     return x
 
 
-def scan_cases(device="cpu", tags=None) -> dict:
+def scan_cases(device="cpu", tags=None, full: bool = False) -> dict:
     """{tag: ScanInputs} of K13's edge cases (`scan_objects`), encoded and
     packed by the port on `device`, on the kernel's 16 CTAs (node n in CTA
     `scan_cta(n, N)`): N = 13 (three CTAs own no node), 8193 and 16 * 512 +
@@ -669,7 +678,8 @@ def scan_cases(device="cpu", tags=None) -> dict:
     counted in a zone other CTAs read, required
     affinity bootstrapped by total == 0, anti-affinity written by one pod
     and read by the next, host-port conflicts between consecutive pods,
-    pad pods interleaved in the rank order, R = 1 and R = 8."""
+    pad pods interleaved in the rank order, R = 1 and R = 8; `full`: their
+    full outputs' inputs (`scan_inputs`)."""
     from .. import models
 
     out = {}
@@ -677,7 +687,7 @@ def scan_cases(device="cpu", tags=None) -> dict:
         enc = models.SnapshotEncoder(device=device, **(
             {"resource_names": opts["resources"]} if "resources" in opts else {}))
         snap = enc.encode(nodes, pods, existing)
-        out[tag] = scan_inputs(prepare(snap, opts), opts)
+        out[tag] = scan_inputs(prepare(snap, opts), opts, full)
     return out
 
 
@@ -1624,3 +1634,133 @@ def prefilter_args(raw: dict, device) -> tuple:
 def prefilter_cases(device="cpu") -> dict:
     """{tag: K7's argument tuple} of `prefilter_raw_cases` on `device`."""
     return {t: prefilter_args(x, device) for t, x in prefilter_raw_cases().items()}
+
+
+# ---- K16 `static_rejects`, K17 `dyn_rejects` --------------------------------
+
+STATIC_REJECT_TAGS = (
+    "default filters, a mask operand", "rows all false", "rows all true",
+    "seeded rows", "every node rejected by the first filter", "F = 1",
+    "filters in another order", "N = 13, scalar path", "N = 8, one partial tile",
+    "misaligned rows, scalar path", "P = 2049 x N = 64")
+DYN_REJECT_TAGS = (
+    "every part kind, F = 9", "rows all false", "rows all true",
+    "every node rejected by the first part", "F = 1", "a start mask all false",
+    "a plane alone", "a FitMask alone", "a PortMask alone", "Q = 0",
+    "parts in another column order", "B = 13, N = 13", "N = 8199, a partial tile",
+    "misaligned planes, scalar path")
+_VB_COLUMN = 6  # VolumeBinding's index among the default filters
+
+
+def static_reject_cases(device="cpu") -> dict:
+    """{tag: (StaticBaseInputs, rows bool [P] or None)} of K16's edge cases
+    (STATIC_REJECT_TAGS), from `k1_objects` under the default filters
+    (F = 9: NodeResourcesFit, with no static mask, between NodePorts and
+    VolumeBinding, whose mask operand is a seeded plane here), without fit
+    and sampling; each case changes one thing."""
+    from .. import models
+    from ..framework.interfaces import CycleContext
+    from ..framework.runtime import Framework
+    from ..ops import static_base as sb
+
+    nodes, pods, existing = k1_objects(models)
+    snap = models.SnapshotEncoder(device=device).encode(nodes, pods, existing)
+    x = sb.static_base_inputs(Framework.from_config(), CycleContext(snap))
+    P, N = x.shape
+    rng = np.random.default_rng(1416)
+    x = dataclasses.replace(
+        x, flags=x.flags | sb.F_MASK, columns=x.columns[:5] + (_VB_COLUMN,),
+        mask=torch.from_numpy(rng.random((P, N)) < 0.8).to(device))
+    assert x.n_filters == 9 and x.columns == (0, 1, 2, 3, 4, _VB_COLUMN)
+
+    def rows(a):
+        return torch.from_numpy(np.asarray(a, bool)).to(device)
+
+    out = {"default filters, a mask operand": (x, None),
+           "rows all false": (x, rows(np.zeros(P))),
+           "rows all true": (x, rows(np.ones(P))),
+           "seeded rows": (x, rows(rng.random(P) < 0.5)),
+           "every node rejected by the first filter": (
+               dataclasses.replace(x, node_unsched=torch.ones_like(x.node_unsched)), None),
+           "F = 1": (dataclasses.replace(x, flags=sb.F_TAINT, n_filters=1,
+                                         columns=(-1, -1, 0, -1, -1, -1)), None),
+           "filters in another order": (dataclasses.replace(
+               x, n_filters=7, columns=(5, 3, 6, 0, 2, 1)), rows(rng.random(P) < 0.7)),
+           "N = 13, scalar path": (_narrow(x, 13), None),
+           "N = 8, one partial tile": (_narrow(x, 8), None),
+           "misaligned rows, scalar path": (_misaligned(x), None),
+           "P = 2049 x N = 64": (_tile_pods(_narrow(x, 64), 2049), None)}
+    assert tuple(out) == STATIC_REJECT_TAGS
+    return out
+
+
+def dyn_reject_raw_cases() -> dict:
+    """{tag: numpy inputs} of K17's edge cases (DYN_REJECT_TAGS): `_dyn_raw`
+    rows (its static base as the start mask, its mask planes, FitMask and
+    PortMask operands) with each part's column: by default ports at 4, fit
+    at 5 and the planes at 7 and 8 of F = 9 (the default filters' order,
+    VolumeBinding's 6 without a part), `rows` its act flags."""
+    rng = np.random.default_rng(1417)
+    base = dict(ports=True, Q=5, MP=3)
+    cols = {"port": 4, "fit": 5, "planes": (7, 8), "F": 9}
+    out = {}
+
+    def case(x, **kw):
+        return dict(x, cols=dict(cols, **kw))
+
+    x = _dyn_raw(rng, 72, 96, 4, **base)
+    out["every part kind, F = 9"] = case(x)
+    y = dict(x, act=np.zeros(72, bool))
+    out["rows all false"] = case(y)
+    out["rows all true"] = case(dict(x, act=None))
+    y = dict(x, mplanes=[np.zeros_like(x["mplanes"][0])] + x["mplanes"][1:])
+    out["every node rejected by the first part"] = case(y, planes=(0, 8))
+    y = _dyn_raw(rng, 40, 64, 4, n_mplanes=0)
+    out["F = 1"] = case(y, fit=0, F=1, planes=())
+    y = dict(x, vsbase=np.full_like(x["vsbase"], _NEG_INF))
+    out["a start mask all false"] = case(y)
+    y = _dyn_raw(rng, 40, 64, 4, n_mplanes=1)
+    out["a plane alone"] = case(dict(y, fit=False), planes=(2,), F=3)
+    y = _dyn_raw(rng, 40, 64, 4, n_mplanes=0)
+    out["a FitMask alone"] = case(y, fit=1, F=3, planes=())
+    y = _dyn_raw(rng, 40, 64, 4, n_mplanes=0, **base)
+    out["a PortMask alone"] = case(dict(y, fit=False), port=0, F=2, planes=())
+    y = _dyn_raw(rng, 40, 64, 4, ports=True, Q=0, MP=2)
+    y["ids"][:] = -1
+    out["Q = 0"] = case(y)
+    out["parts in another column order"] = case(x, port=3, fit=0, planes=(2, 1), F=4)
+    out["B = 13, N = 13"] = case(_dyn_raw(rng, 13, 13, 4, ports=True, Q=4, MP=3))
+    out["N = 8199, a partial tile"] = case(_dyn_raw(rng, 5, 8199, 4, ports=True, Q=2))
+    out["misaligned planes, scalar path"] = case(dict(x, misaligned=True))
+    assert tuple(out) == DYN_REJECT_TAGS
+    return out
+
+
+def dyn_reject_inputs(raw: dict, device) -> tuple:
+    """(start, parts, F, rows) of `dyn_rejects_*` for one raw case:
+    start = its static base > NEG_INF / 2, each part with its column."""
+    from ..ops import dyn_round as dr
+
+    def t(a):
+        if a is None:
+            return None
+        v = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if raw.get("misaligned"):  # one element past an allocation's start
+            buf = torch.empty((v.numel() + 1,), dtype=v.dtype, device=device)
+            w = buf[1:].view(v.shape)
+            w.copy_(v)
+            return w
+        return v
+
+    c = raw["cols"]
+    parts = [(col, t(m)) for col, m in zip(c["planes"], raw["mplanes"])]
+    if raw["fit"]:
+        parts.append((c["fit"], dr.FitMask(*(t(raw[k]) for k in ("preq", "alloc", "nreq")))))
+    if raw["ids"] is not None:
+        parts.append((c["port"], dr.PortMask(t(raw["ids"]), t(raw["claimed"]))))
+    return t(raw["vsbase"] > _NEG_INF * 0.5), tuple(parts), c["F"], t(raw["act"])
+
+
+def dyn_reject_cases(device="cpu") -> dict:
+    """{tag: `dyn_reject_inputs`} of K17's edge cases."""
+    return {tag: dyn_reject_inputs(raw, device) for tag, raw in dyn_reject_raw_cases().items()}

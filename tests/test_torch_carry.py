@@ -8,8 +8,8 @@
 - The reference's churn loop (tests/test_carry.py: 10 nodes, 70 pods with
   priorities and affinity, 6 frames of 18 replaced pods): the port's
   carry cycle (`build_packed_cycle_carry_fn` over `CarryKeeper`) bit-equal
-  to the reference's on the same objects and to the port's fresh rounds
-  cycle; the carried `sbase` and `mp` equal to a fresh `carry_init` after
+  to the reference's on the same objects (the engine's round counters
+  included) and to the port's fresh rounds cycle; the carried `sbase` and `mp` equal to a fresh `carry_init` after
   every update; packed preemption equal to the reference's and to
   `build_preemption_fn`.
 - NodePorts' coupling to the existing pods: a running pod with a host
@@ -42,7 +42,7 @@ from test_torch_encoding import assert_same_snapshot, fixture
 from test_torch_volumes import PORT, REF, objects
 
 RESULT = ("assignment", "node_requested", "unschedulable", "gang_dropped", "reject_counts",
-          "pv_claimed")
+          "pv_claimed", "rounds_used", "accepted_per_round", "diag_per_round")
 PREEMPTION = ("nominated", "victims", "num_preemptors")
 
 
@@ -146,7 +146,7 @@ class PortDriver:
         _same_carry(carry, fresh)  # the cycle leaves the carry as it was
         pre = port_cycle.build_packed_preemption_fn(spec, device="cpu")(w, b, out, stable)
         # the fresh rounds cycle and preemption on the frame's snapshot
-        d = port_cycle.build_cycle_fn(commit_mode="rounds", device="cpu")(frame.snap)
+        d = port_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(frame.snap)
         _same(out, d, ("assignment", "node_requested", "unschedulable", "gang_dropped",
                        "placed_round"))
         _same(pre, port_cycle.build_preemption_fn(device="cpu")(frame.snap, d), PREEMPTION)

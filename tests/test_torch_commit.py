@@ -367,9 +367,10 @@ DYN_CASES = [(f, "default") for f in HOOK_FIXTURES + ["cfg2", "mixed"]] + [
 @pytest.mark.parametrize("name,profile", DYN_CASES)
 def test_framework_dyn_and_extra_update_step_by_step(name, profile):
     """The framework's per-pod composition: every dynamic filter ANDed onto
-    the static row, the weighted dynamic scores summed as the reference's
-    compiled step sums them, and each plugin's state folded, at successive
-    steps, under profiles that move the sum."""
+    the static row, each filter's first rejections counted, the weighted
+    dynamic scores summed as the reference's compiled step sums them, and
+    each plugin's state folded, at successive steps, under profiles that
+    move the sum."""
     import k8s_scheduler_tpu.config as ref_config
     import k8s_scheduler_tpu_torch.config as port_config
 
@@ -378,7 +379,7 @@ def test_framework_dyn_and_extra_update_step_by_step(name, profile):
     fw = Framework.from_config(_profile(port_config, profile))
 
     def ref_dyn(snap, p, nr, ext, row):
-        return ref_fw.dyn(_ref_ctx(snap, ref_fw), p, nr, ext, row)[:2]
+        return ref_fw.dyn(_ref_ctx(snap, ref_fw), p, nr, ext, row)
 
     def ref_update(snap, ext, p, node, ok):
         return ref_fw.extra_update(_ref_ctx(snap, ref_fw), ext, p, node, ok)
@@ -392,8 +393,9 @@ def test_framework_dyn_and_extra_update_step_by_step(name, profile):
     req = np.asarray(c.ref.pod_requested)
     for p, node, ok in _steps(c, 8):
         row = c.feasible[p]
-        want_m, want_s = ref_dyn(c.ref, jnp.int32(p), nr, ref_ext, row)
-        got_m, got_s = fw.dyn(ctx, _i32(p), _t(nr), ext, _t(row))
+        want_m, want_s, want_r = ref_dyn(c.ref, jnp.int32(p), nr, ref_ext, row)
+        got_m, got_s, got_r = fw.dyn(ctx, _i32(p), _t(nr), ext, _t(row))
+        _eq(got_r, want_r, f"rejects p{p}")
         if isinstance(got_s, commit.Product):  # one bare product, rounded alone
             got_s = got_s.x * got_s.c
         _eq(got_m, want_m, f"mask p{p}")
@@ -438,7 +440,7 @@ def test_lone_balanced_score_adds_to_the_static_score(name):
     for p, _, _ in _steps(c, 8):
         row = c.feasible[p]
         want = ref_step(c.ref, jnp.int32(p), nr, ref_ext, row, sscore[p].numpy())
-        m, dyn = fw.dyn(ctx, _i32(p), _t(nr), ext, _t(row))
+        m, dyn, _ = fw.dyn(ctx, _i32(p), _t(nr), ext, _t(row))
         assert isinstance(dyn, commit.Product)
         _eq(torch.where(m, commit.add_static(sscore[p], dyn), -1e9), want, f"score p{p}")
 
@@ -463,7 +465,7 @@ def test_one_resource_scan_matches_reference(profile):
     rows = {}
 
     def dyn_fn(p, nr, ext, row):
-        m, d = fw.dyn(ctx, p, nr, ext, row)
+        m, d, _ = fw.dyn(ctx, p, nr, ext, row)
         rows[int(p)] = torch.where(m & row, commit.add_static(sscore[int(p)], d),
                                    commit.NEG_INF)
         return m, d

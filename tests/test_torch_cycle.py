@@ -8,9 +8,9 @@ sweep resolves, nominated pods, node sampling on clusters past the
 100-node floor, and resource scores averaged over three or four
 resources. The reference's own validity oracle holds the port's
 placements too. `build_cycle_fn()` runs the reference's default engine,
-the scan (ROADMAP C5). Engines and outputs the port does not cover yet raise
-NotImplementedError; entry points never run on the CPU unasked; the port
-imports nothing of JAX or the JAX package."""
+the scan, and its default outputs, the full ones (ROADMAP C5). Engines the
+port does not cover yet raise NotImplementedError; entry points never run
+on the CPU unasked; the port imports nothing of JAX or the JAX package."""
 
 from __future__ import annotations
 
@@ -153,10 +153,10 @@ def test_cycle_bit_equal_to_reference(case):
 @pytest.mark.parametrize("feature", ["bound_pvc", "unbound_pvc"])
 def test_cycle_raises_on_uncovered_features(feature):
     """A snapshot with a volume claim now schedules through VolumeBinding,
-    bit-equal to the reference; what the port does not cover with volumes
-    either — the scan engine's per-pod VolumeBinding hooks (ROADMAP A8b)
-    and the full outputs with their claim bitmap (A9) — raises instead of
-    scheduling."""
+    bit-equal to the reference, and its full outputs decide alike; what the
+    port does not cover with volumes —
+    the scan engine's per-pod VolumeBinding hooks (ROADMAP A8b) — raises
+    instead of scheduling."""
     from k8s_scheduler_tpu.models.api import (PersistentVolume,
                                               PersistentVolumeClaim, StorageClass)
 
@@ -176,15 +176,17 @@ def test_cycle_raises_on_uncovered_features(feature):
     )
     assert port_snap.has_volumes
     want = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency")(ref_snap)
-    got = build_cycle_fn(commit_mode="rounds", device="cpu")(port_snap)
+    got = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(port_snap)
     np.testing.assert_array_equal(got.assignment.numpy(), np.asarray(want.assignment))
     # bound: placed on any node (the PV has no affinity); unbound Immediate
     # claim: unschedulable
     assert (int(got.assignment[0]) >= 0) == bound
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        build_cycle_fn(commit_mode="scan", device="cpu")(port_snap)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        build_cycle_fn(outputs="full", device="cpu")
+        build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(port_snap)
+    full = build_cycle_fn(commit_mode="rounds", outputs="full", device="cpu")(port_snap)
+    assert torch.equal(full.assignment, got.assignment)
+    assert full.reject_counts.shape == (port_snap.P, 9)
+    assert full.pv_claimed.shape == port_snap.pv_avail.shape
 
 
 # fixtures where the scan and rounds engines place differently (the
@@ -203,7 +205,7 @@ def test_default_engine_is_the_reference_default(name):
         ref_snap.array_fields(), {k: getattr(ref_snap, k) for k in AUX_FIELDS},
         device="cpu",
     )
-    got = build_cycle_fn(device="cpu")(port_snap)
+    got = build_cycle_fn(outputs="latency", device="cpu")(port_snap)
     for field in ("assignment", "node_requested", "unschedulable", "gang_dropped"):
         np.testing.assert_array_equal(getattr(got, field).numpy(),
                                       np.asarray(getattr(want, field)), err_msg=field)
@@ -211,8 +213,7 @@ def test_default_engine_is_the_reference_default(name):
 
 def test_build_cycle_fn_defaults_match_reference():
     """Every parameter the two `build_cycle_fn`s share has the same
-    default, except `outputs`: "latency" in the port until the diagnosis
-    outputs are ported (ROADMAP A9; C5's open half)."""
+    default, `outputs` ("full") included (ROADMAP C5)."""
     import inspect
 
     ref = inspect.signature(ref_cycle.build_cycle_fn).parameters
@@ -221,10 +222,8 @@ def test_build_cycle_fn_defaults_match_reference():
     assert shared == ["framework", "gang_scheduling", "commit_mode", "max_rounds",
                       "percentage_of_nodes_to_score", "rounds_kw", "outputs"]
     for k in shared:
-        if k == "outputs":
-            assert (ref[k].default, port[k].default) == ("full", "latency")
-        else:
-            assert port[k].default == ref[k].default, k
+        assert port[k].default == ref[k].default, k
+    assert port["outputs"].default == "full"
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

@@ -89,7 +89,7 @@ def test_forced_plain_versions_give_the_same_cycle(name):
     function forced to its plain version, launching nothing."""
     _, want, got, port_snap = _run(name)
     kernel_build.reset_launch_counts()
-    plain = build_cycle_fn(commit_mode="rounds", device="cpu", **PLAIN)(port_snap)
+    plain = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu", **PLAIN)(port_snap)
     _assert_same(plain, want)
     assert all(v == 0 for v in kernel_build.launch_counts.values())
     placed = got.assignment >= 0
@@ -113,6 +113,6 @@ def test_affinity_entry_point_on_cpu():
         .pod_affinity("topology.kubernetes.io/zone", {"app": "db"}).created(2.0).obj(),
     ]
     snap = SnapshotEncoder(device="cpu").encode(nodes, pods)
-    a = build_cycle_fn(commit_mode="rounds", device="cpu")(snap).assignment[:3].tolist()
+    a = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(snap).assignment[:3].tolist()
     assert min(a) >= 0 and a[0] != a[1]
     assert (a[2] < 2) == (a[0] < 2) or (a[2] < 2) == (a[1] < 2)

@@ -420,7 +420,7 @@ def run_both(name, kw=None, profile="default"):
     else:
         want = _ref_cycle(tuple(sorted(kw.items())))(ref_snap)
     port_snap = carry(ref_snap)
-    got = build_cycle_fn(commit_mode="scan", device="cpu", **port_kw)(port_snap)
+    got = build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu", **port_kw)(port_snap)
     return (nodes, pods, existing, groups), want, got, port_snap
 
 
@@ -537,12 +537,12 @@ def test_scan_cycle_refuses_volumes(bound):
     snap = carry(ref_snap)
     assert snap.has_volumes
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        build_cycle_fn(commit_mode="scan", device="cpu")(snap)
+        build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(snap)
     cfg = [port_config, ref_config]
     no_vb = [c.SchedulerConfiguration(profiles=[c.Profile(plugins=c.Plugins(
         filter=c.PluginSet(disabled=["VolumeBinding"])))]) for c in cfg]
     got = build_cycle_fn(Framework.from_config(no_vb[0]), commit_mode="scan",
-                         device="cpu")(snap)
+                         outputs="latency", device="cpu")(snap)
     want = ref_cycle.build_cycle_fn(ref_runtime.Framework.from_config(no_vb[1]),
                                     commit_mode="scan", outputs="latency")(ref_snap)
     assert_same(got, want)
@@ -567,7 +567,7 @@ def test_scan_entry_point_on_cpu():
             PPod("web").req({"cpu": "1"}).labels({"app": "web"})
             .pod_affinity("topology.kubernetes.io/zone", {"app": "db"}).created(2.0).obj()]
     snap = SnapshotEncoder(device="cpu").encode(nodes, pods)
-    d = build_cycle_fn(commit_mode="scan", device="cpu")(snap)
+    d = build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(snap)
     a = d.assignment[:3].tolist()
     assert min(a) >= 0 and a[0] != a[1]
     assert (a[2] < 2) == (a[0] < 2) or (a[2] < 2) == (a[1] < 2)

@@ -98,7 +98,7 @@ def test_forced_plain_volume_kernels_give_the_same_cycle(name):
     forced, launching nothing."""
     want, _, port_snap = _run(name)
     kernel_build.reset_launch_counts()
-    _assert_same(build_cycle_fn(commit_mode="rounds", device="cpu", **PLAIN)(port_snap),
+    _assert_same(build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu", **PLAIN)(port_snap),
                  want)
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
@@ -144,7 +144,7 @@ def test_volume_preemption_bit_equal_to_reference(name):
     want_d = ref_cycle.build_cycle_fn(commit_mode="rounds", outputs="latency")(ref_snap)
     want = ref_cycle.build_preemption_fn()(ref_snap, want_d)
     port_snap = carry(ref_snap)
-    d = build_cycle_fn(commit_mode="rounds", device="cpu")(port_snap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(port_snap)
     _assert_same(d, want_d)
     got = build_preemption_fn(device="cpu")(port_snap, d)
     _assert_same(got, want, ("nominated", "victims", "num_preemptors"))
@@ -174,7 +174,7 @@ def test_volume_entry_point_on_cpu():
         nodes, pods, pvcs=pvcs, pvs=pvs,
         storage_classes=[StorageClass("local", VOLUME_BINDING_WAIT, provisioner=False)])
     assert snap.has_volumes and snap.pv_avail[0]
-    d = build_cycle_fn(commit_mode="rounds", device="cpu")(snap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(snap)
     assert d.assignment[:2].tolist() == [2, -1]
     assert d.unschedulable[:2].tolist() == [False, True]
 

@@ -139,7 +139,7 @@ def _rounds_guard_calls(workload):
         calls.append(args)
         return guard_sweep.guard_sweep_plain(*args)
 
-    build_cycle_fn(commit_mode="rounds", device="cpu", guard_sweep_fn=rec)(snap)
+    build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu", guard_sweep_fn=rec)(snap)
     return snap, calls
 
 

@@ -174,11 +174,16 @@ def test_wrappers_use_plain_versions_on_cpu():
     d = kernel_cases.dyn_cases("cpu")["B = 13, N = 13"]
     assert torch.equal(dyn_round.dyn_mask(*d["mask"])[0], dyn_round.dyn_mask_plain(*d["mask"])[0])
     assert torch.equal(dyn_round.dyn_score(*d["score"]), dyn_round.dyn_score_plain(*d["score"]))
+    sx, srows = kernel_cases.static_reject_cases("cpu")["seeded rows"]
+    assert torch.equal(static_base.static_rejects(sx, srows),
+                       static_base.static_rejects_plain(sx, srows))
+    r = kernel_cases.dyn_reject_cases("cpu")["every part kind, F = 9"]
+    assert torch.equal(dyn_round.dyn_rejects(*r), dyn_round.dyn_rejects_plain(*r))
     assert set(kernel_build.launch_counts) == {
         "static_base", "claim_pass", "interpod_terms", "interpod_norm",
         "affinity_update", "capacity", "guard_sweep", "preempt_prefilter",
         "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold",
-        "scan_commit", "dyn_mask", "dyn_score"}
+        "scan_commit", "dyn_mask", "dyn_score", "static_rejects", "dyn_rejects"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
 

@@ -425,7 +425,7 @@ def run_both(name, args=None):
     want = ref_cycle.build_preemption_fn(ref_fw)(ref_snap, want_dec)
     port_snap = carry(ref_snap)
     fw = Framework.from_config(_framework_config(PORT, args))
-    got_dec = build_cycle_fn(framework=fw, commit_mode="rounds", device="cpu")(port_snap)
+    got_dec = build_cycle_fn(framework=fw, commit_mode="rounds", outputs="latency", device="cpu")(port_snap)
     for f in ("assignment", "node_requested", "gang_dropped"):
         np.testing.assert_array_equal(getattr(got_dec, f).numpy(),
                                       np.asarray(getattr(want_dec, f)), err_msg=f)
@@ -503,7 +503,7 @@ def test_forced_plain_stages_give_the_same_result():
     plain = build_preemption_fn(device="cpu", prefilter_fn=preemption.prefilter_plain,
                                 whatif_fn=preemption.nonresource_ok_plain,
                                 claim_fn=preemption.claim_loop_plain)
-    d = build_cycle_fn(commit_mode="rounds", device="cpu")(snap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(snap)
     assert_same_result(plain(snap, d), want)
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
@@ -516,7 +516,7 @@ def test_preemption_entry_point_on_cpu():
     existing = [(m.MakePod("low").req({"cpu": "1500m"}).priority(1).obj(), "n0")]
     pods = [m.MakePod("urgent").req({"cpu": "1"}).priority(10).obj()]
     snap = m.SnapshotEncoder(device="cpu").encode(nodes, pods, existing)
-    d = build_cycle_fn(commit_mode="rounds", device="cpu")(snap)
+    d = build_cycle_fn(commit_mode="rounds", outputs="latency", device="cpu")(snap)
     r = build_preemption_fn(device="cpu")(snap, d)
     assert int(d.assignment[0]) == -1
     assert int(r.nominated[0]) == 0 and r.victims[:1].tolist() == [True]

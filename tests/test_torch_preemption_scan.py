@@ -45,7 +45,7 @@ def run_both(name):
     want = ref_cycle.build_preemption_fn(ref_fw)(ref_snap, want_dec)
     port_snap = carry(ref_snap)
     fw = Framework.from_config(_framework_config(PORT, None))
-    got_dec = build_cycle_fn(framework=fw, commit_mode="scan", device="cpu")(port_snap)
+    got_dec = build_cycle_fn(framework=fw, commit_mode="scan", outputs="latency", device="cpu")(port_snap)
     assert_same(got_dec, want_dec)
     got = build_preemption_fn(framework=fw, device="cpu")(port_snap, got_dec)
     return got, want, got_dec, pods
