@@ -34,7 +34,8 @@ Phases:
   2. build    — nvcc builds every csrc/*.cu at once (one process per
                 source; with --prev-csrc, also an earlier design's
                 sources of PREV_KERNELS (K9, K4, K13, K6, K12, K11, K8,
-                K7),
+                K7, and K1 / K14 / K15 with the earlier K16 / K17 in
+                `static_base.cu` and `dyn_round.cu`),
                 timed beside the kernels as prev_device_ms), Triton
                 compiles K2 `claim_pass` meanwhile; then K5 `capacity`, K1
                 `static_base`, K9 `preempt_claim`, K4 `affinity_update` and
@@ -78,13 +79,16 @@ Phases:
                 last node at N = 8199 and 13, an exact fit at equality,
                 negative free room, R = 1 and 8, MPN = 1 and 16, C = 1 and
                 256, node_valid false on the only fit, prefix rooms out of
-                order, tables read from L2); K16 `static_rejects` on
+                order, tables read from L2); K16 `static_rejects` (with
+                and without its survivors plane) on
                 `static_reject_cases` and K17 `dyn_rejects` on
                 `dyn_reject_cases` (a filter without a mask between two
                 with one, every node rejected by the first filter, rows all
-                false and all true, F = 1 and 9, columns out of the filters'
-                order, one part of each kind alone, a start mask all false,
-                N = 8 and 13, misaligned rows, P = 2049, N = 8199), and K13's
+                false and all true, F = 1, 9 and 32, columns out of the
+                filters' order, one part of each kind alone, a start mask
+                all false, N = 8, 13, 31, 32, 33 and 8199, misaligned rows,
+                P = 2049, pods pinned to nodes 31 and 32, Ts = 33, a row
+                whose every node survives, a fit part alone at N = 33), and K13's
                 full mode on the scan cases' full inputs (the per-step
                 rejects too);
   3. slice 1  — a warm cycle, the same cycle on the plain versions (same
@@ -213,11 +217,14 @@ Phases:
                 `build_diagnosis_fn` fed the carry cycle's assignment,
                 node_requested and pv_claimed: equal to the program on the
                 plain versions, rows nonzero only for valid unplaced pods,
-                one K16 and one K17 launch a 2048-pod window, the first
+                one K16 (its survivors plane the window's start mask) and
+                one K17 launch a 2048-pod window and no K1, the first
                 three unplaced pods' FailedScheduling lines, events ms a
-                frame and a window; K16 and K17 timed by CUDA-graph
-                replays on the full cycle's and the diagnosis windows'
-                calls.
+                frame and a window; K16 and K17 held against their plain
+                versions on every recorded call of the full cycles and
+                the diagnosis windows, and timed by CUDA-graph replays on
+                the full cycle's and a diagnosis window's calls (with
+                --prev-csrc beside the earlier design on the same calls).
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -254,7 +261,8 @@ EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 CARRY_FRAMES, CARRY_REPLACED, CARRY_BOUND = 4, 200, 500  # the carry phase's churn
 CARRY_SEED = 205
 PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold",
-                "pv_choice", "preempt_whatif", "preempt_prefilter")
+                "pv_choice", "preempt_whatif", "preempt_prefilter", "static_base",
+                "dyn_round")
 
 
 def log(msg: str) -> None:
@@ -855,10 +863,11 @@ def scan_full_edge_checks(torch, dev) -> dict:
 
 
 def reject_edge_checks(torch, dev) -> dict:
-    """K16 `static_rejects` and K17 `dyn_rejects` against their plain
-    versions on the seeded edge cases (`utils/kernel_cases.
-    static_reject_cases`, `dyn_reject_cases`), bit for bit; {case: [rows,
-    F, nodes counted]}."""
+    """K16 `static_rejects` (with and without its survivors plane) and K17
+    `dyn_rejects` against their plain versions on the seeded edge cases
+    (`utils/kernel_cases.static_reject_cases`, `dyn_reject_cases`), bit for
+    bit; {case: [rows, F, nodes counted]}."""
+    from k8s_scheduler_tpu_torch.kernel_variants import rejects_equal
     from k8s_scheduler_tpu_torch.ops import dyn_round as dr
     from k8s_scheduler_tpu_torch.ops import static_base as sb
     from k8s_scheduler_tpu_torch.utils.kernel_cases import (dyn_reject_cases,
@@ -869,6 +878,10 @@ def reject_edge_checks(torch, dev) -> dict:
         k = sb.static_rejects_cuda(x, rows)
         check(torch.equal(k, sb.static_rejects_plain(x, rows)),
               f"static_rejects differs from its plain version ({tag})")
+        check(rejects_equal(sb.static_rejects_cuda(x, rows, True),
+                            sb.static_rejects_plain(x, rows, True)),
+              f"static_rejects with its survivors plane differs from its plain version "
+              f"({tag})")
         out[f"K16 {tag}"] = [*k.shape, int(k.sum())]
     for tag, args in dyn_reject_cases(dev).items():
         k = dr.dyn_rejects_cuda(*args)
@@ -2158,34 +2171,39 @@ def scan_phase(torch, kb, fw, dev, nodes, existing, pending, snaps, smi, slice1_
     return {"kernels": {"scan_commit": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
-def static_reject_cost(torch, x, rows=None) -> tuple[int, int]:
-    """(bytes, operations) K16 must move and do on these inputs: every
-    operand its tests read, once (the per-pod ids and port slots, the node
-    vectors and port lists, the toleration table, the requirement rows,
-    the mask operand, `rows`), the i32 [P, F] output written once; a test
-    a (pod, node) pair for each filter the flags name, and its count."""
+def static_reject_cost(torch, x, rows=None, survivors=False) -> tuple[int, int]:
+    """(bytes, operations) of K16's function on these inputs, whatever
+    implements it: the rows it needs (every row with the survivors plane,
+    else the counted ones); every operand its tests read, once (the per-pod
+    ids and port slots, the node vectors and port lists, the toleration
+    table, the requirement table, the needed rows of the mask operand,
+    `rows`), the i32 [P, F] output and the survivors plane written once; a
+    test a 32-node word and needed row for each filter the flags name (a
+    word of bits is one operation)."""
     from k8s_scheduler_tpu_torch.ops import static_base as sb
 
     P, N = x.shape
+    need = P if survivors or rows is None else int(rows.sum())
     b = nbytes(x.pod_node_name, x.pod_tolset, x.pod_req_id, x.pod_sel_req_id, x.pod_ports,
                x.node_valid, x.node_unsched, x.node_taintset, x.node_used_ports, x.sched,
-               x.req, rows) + P * x.n_filters * 4
+               x.req, rows) + P * x.n_filters * 4 + (P * N if survivors else 0)
     if x.flags & sb.F_MASK:
-        b += nbytes(x.mask)
+        b += need * N
     tests = sum(bool(x.flags & bit) for _, bit in sb.REJECT_TESTS)
-    return b, P * N * (tests + 1)
+    return b, need * (-(-N // 32)) * tests
 
 
 def dyn_reject_cost(torch, start, parts, F, rows) -> tuple[int, int]:
-    """(bytes, operations) K17 must move and do: the start mask, each part's
-    operands (a plane; a FitMask's requests and node tables; a PortMask's
-    ids and claimed bitmap) and `rows` read once, the i32 [B, F] output
-    written once; a test a (row, node) pair for each part (R compares for
-    the fit), and its count."""
+    """(bytes, operations) of K17's function on these inputs: the counted
+    rows' bytes of the start mask and of each plane, a FitMask's requests
+    and node tables, a PortMask's ids and claimed bitmap and `rows` read
+    once, the i32 [B, F] output written once; a test a (counted row, node)
+    pair for each part (R compares for the fit), and its count."""
     from k8s_scheduler_tpu_torch.ops import dyn_round as dr
 
     B, N = start.shape
-    b, per = nbytes(start, rows) + B * F * 4, 1
+    need = B if rows is None else int(rows.sum())
+    b, per = need * N + nbytes(rows) + B * F * 4, 1
     for _, p in parts:
         if isinstance(p, dr.FitMask):
             b += nbytes(*p)
@@ -2194,55 +2212,98 @@ def dyn_reject_cost(torch, start, parts, F, rows) -> tuple[int, int]:
             b += nbytes(*p)
             per += p.pod_port_ids.shape[1]
         else:
-            b += nbytes(p)
+            b += need * N
             per += 1
-    return b, B * N * per
+    return b, need * N * per
 
 
-def reject_kernel_entries(torch, full_stats, carry_stats) -> dict:
-    """K16's and K17's lines of the kernel table, timed on the calls the
-    full rounds cycle (no volumes) recorded: K16 over every pod row, K17 on
-    the final window; and on the diagnosis program's first window of the
-    carry phase's last frame (no volumes). `device_ms` by CUDA-graph
-    replays; launches over the full cycles and the diagnosis frames."""
-    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
+def reject_kernel_entries(torch, full_stats, carry_stats, prev_libs) -> dict:
+    """K16's and K17's lines of the kernel table. Each kernel is held
+    against its plain version on every call that the full rounds cycles
+    (with and without volumes) and the diagnosis programs' windows (both
+    carry variants) recorded, K16's window calls with the survivors plane;
+    timed on the full rounds cycle's call (no volumes: K16 over every pod
+    row, K17 on the final window) and on the first diagnosis window of the
+    carry phase's last frame (no volumes), `device_ms` by CUDA-graph
+    replays; with --prev-csrc, the earlier design (K16 and K17 in
+    csrc/static_base.cu and csrc/dyn_round.cu) on the same calls, K16's
+    window without the plane (that design had none); launches over the
+    full cycles and the diagnosis frames."""
+    from k8s_scheduler_tpu_torch.kernel_variants import (device_ms, prev_static_rejects,
+                                                         rejects_equal, with_library)
     from k8s_scheduler_tpu_torch.ops import dyn_round as dr
     from k8s_scheduler_tpu_torch.ops import static_base as sb
 
+    recorded = {"static_rejects": [], "dyn_rejects": []}
+    for tag, (c16, c17) in full_stats["calls"].items():
+        recorded["static_rejects"] += [(f"full {tag}", a) for a in c16.values()]
+        recorded["dyn_rejects"] += [(f"full {tag}", a) for a in c17.values()]
+    for v, c in carry_stats.items():
+        c16, c17 = c["diagnosis"]["calls"]
+        tag = "diagnosis, volumes" if v else "diagnosis"
+        recorded["static_rejects"] += [(tag, a) for a in c16.values()]
+        recorded["dyn_rejects"] += [(tag, a) for a in c17.values()]
     full16, full17 = full_stats["calls"]["rounds"]
     diag16, diag17 = carry_stats[False]["diagnosis"]["calls"]
     launches = {k: full_stats["launches"][k] + sum(c["diagnosis"]["launches"][k]
                                                     for c in carry_stats.values())
                 for k in ("static_rejects", "dyn_rejects")}
+
+    def prev16(a):  # the earlier K16: no survivors plane
+        return prev_static_rejects(prev_libs["static_base"], a[0], *a[1:2])
+
+    def prev17(a):
+        return with_library("dyn_rejects", prev_libs["dyn_round"],
+                            lambda: dr.dyn_rejects_cuda(*a))
+
     out = {}
-    for name, fn, plain, cost, full_call, diag_call, replaces in (
+    for name, fn, plain, cost, full_call, diag_call, replaces, prev in (
             ("static_rejects", sb.static_rejects_cuda, sb.static_rejects_plain,
              static_reject_cost, full16[0], diag16.get(0),
-             "k8s_scheduler_tpu/framework/runtime.py:79"),
+             "k8s_scheduler_tpu/framework/runtime.py:79",
+             prev16 if "static_base" in prev_libs else None),
             ("dyn_rejects", dr.dyn_rejects_cuda, dr.dyn_rejects_plain, dyn_reject_cost,
-             full17[0], diag17.get(0), "k8s_scheduler_tpu/framework/runtime.py:223")):
+             full17[0], diag17.get(0), "k8s_scheduler_tpu/framework/runtime.py:223",
+             prev17 if "dyn_round" in prev_libs else None)):
+        for tag, a in recorded[name]:
+            got = fn(*a)
+            check(rejects_equal(got, plain(*a)),
+                  f"{name} differs from its plain version on a recorded call ({tag})")
+            if prev is not None:
+                check(torch.equal(got[0] if isinstance(got, tuple) else got, prev(a)),
+                      f"{name}: the earlier design counts otherwise on a recorded call ({tag})")
         a = full_call
         ms = time_ms(torch, lambda: fn(*a), 10)
         dms = device_ms(lambda: fn(*a), 10)
         pms = time_ms(torch, lambda: plain(*a), 2)
         nb, ops = cost(torch, *a)
-        extra = {"rows": a[0].shape[0], "nodes": a[0].shape[1]}
+        extra = {"rows": a[0].shape[0], "nodes": a[0].shape[1],
+                 "calls_held": len(recorded[name])}
+        if prev is not None:
+            extra["prev_device_ms"] = device_ms(lambda: prev(a), 10)
         if diag_call is not None:
             d = diag_call
             nb_d, ops_d = cost(torch, *d)
             extra.update(window_device_ms=device_ms(lambda: fn(*d), 10),
                          window_plain_ms=time_ms(torch, lambda: plain(*d), 2),
                          window_bound_ms=bound(nb_d, ops_d)[0], window_rows=d[0].shape[0])
+            if name == "static_rejects":
+                extra["window_survivors"] = len(d) > 2 and bool(d[2])
+            if prev is not None:
+                extra["window_prev_device_ms"] = device_ms(lambda: prev(d), 10)
         out[name] = kernel_entry(
-            name, "cuda", f"k8s_scheduler_tpu_torch/csrc/"
-            f"{'static_base' if name == 'static_rejects' else 'dyn_round'}.cu",
+            name, "cuda", f"k8s_scheduler_tpu_torch/csrc/{name}.cu",
             replaces, launches[name], 0.0, ms, dms, pms, nb, ops,
             launches_by_path={"full cycles": full_stats["launches"][name],
                               "diagnosis": launches[name] - full_stats["launches"][name]},
             **extra)
-        log(f"phase kernel {name}: {extra['rows']} rows x {extra['nodes']} nodes (the full "
-            f"rounds cycle's call): kernel {ms:.4f} ms events, {dms:.4f} ms device, plain "
-            f"{pms:.3f} ms, bound {bound(nb, ops)[0]:.4f} ms ({bound(nb, ops)[1]}); the "
+        held = "; the earlier design counts alike" if prev else ""
+        was = f" (the earlier design {extra['prev_device_ms']:.4f})" if prev else ""
+        log(f"phase kernel {name}: equal to its plain version on {len(recorded[name])} "
+            f"recorded calls (full cycles and diagnosis windows{held}); "
+            f"{extra['rows']} rows x {extra['nodes']} nodes (the full "
+            f"rounds cycle's call): kernel {ms:.4f} ms events, {dms:.4f} ms device{was}"
+            f", plain {pms:.3f} ms, bound {bound(nb, ops)[0]:.4f} ms ({bound(nb, ops)[1]}); the "
             f"diagnosis window: {json.dumps({k: v for k, v in extra.items() if 'window' in k})}"
             f"; launches {launches[name]}")
     return out
@@ -2437,17 +2498,16 @@ def diagnosis_frame(torch, kb, fw, dev, spec, w, b, stable, r, snap, tag, smi) -
     from k8s_scheduler_tpu_torch.ops import static_base as sb
 
     pk = plain_kwargs()
-    rec16 = Recorder(sb.static_rejects_cuda, keep=(0,))
-    rec17 = Recorder(dr.dyn_rejects_cuda, keep=(0,))
+    rec16 = Recorder(sb.static_rejects_cuda, keep=None)
+    rec17 = Recorder(dr.dyn_rejects_cuda, keep=None)
     diag_r = build_diagnosis_fn(spec, fw, device=dev, static_rejects_fn=rec16,
                                 dyn_rejects_fn=rec17)
     diag_k = build_diagnosis_fn(spec, fw, device=dev)
     diag_p = build_diagnosis_fn(spec, fw, device=dev, **{
-        k: pk[k] for k in ("static_base_fn", "static_rejects_fn", "dyn_rejects_fn",
-                           "interpod_terms_fn", "affinity_update_fn", "volume_mask_fn",
-                           "pv_fold_fn")})
+        k: pk[k] for k in ("static_rejects_fn", "dyn_rejects_fn", "interpod_terms_fn",
+                           "affinity_update_fn", "volume_mask_fn", "pv_fold_fn")})
     args = (w, b, stable, r.assignment, r.node_requested, r.pv_claimed)
-    diag_r(*args)  # warm; the first window's K16 / K17 calls recorded
+    diag_r(*args)  # warm; every window's K16 / K17 calls recorded
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     kb.reset_launch_counts()  # the program's path: counts read just after
@@ -2468,6 +2528,8 @@ def diagnosis_frame(torch, kb, fw, dev, spec, w, b, stable, r, snap, tag, smi) -
     check(launched["static_rejects"] == windows and launched["dyn_rejects"] == windows,
           f"{tag}: K16 / K17 launched {launched['static_rejects']} / "
           f"{launched['dyn_rejects']} times over {windows} windows")
+    check(launched["static_base"] == 0, f"{tag}: the diagnosis program launched K1 "
+          f"{launched['static_base']} times (K16's survivors are its start mask)")
     order = torch.argsort(torch.where(unplaced, snap.pod_order.to(torch.int32),
                                       torch.iinfo(torch.int32).max), stable=True)
     n = int(snap.num_nodes)
@@ -2839,6 +2901,8 @@ def main(argv=None) -> int:
     mask_equal, k1_err = compare_static_base(torch, sb, x)
     k1_ms = time_ms(torch, lambda: sb.static_base_cuda(x), 20)
     k1_dev = device_ms(lambda: sb.static_base_cuda(x), 10)
+    k1_prev = prev_ms(torch, kb, prev_libs, "static_base", lambda: sb.static_base_cuda(x), 10,
+                      timer=device_ms)
     k1_fill_ms = time_ms(torch, lambda: torch.empty((P, N), device=dev).fill_(sb.NEG_INF),
                          20)
     k1_plain_ms = time_ms(torch, lambda: sb.static_base_plain(x), 3)
@@ -2846,7 +2910,8 @@ def main(argv=None) -> int:
                                     if isinstance(v, torch.Tensor)])
     k1_ops = P * N * (2 * len(x.terms) + 2)
     log(f"phase kernel static_base: [{P}, {N}] mask equal {mask_equal}, "
-        f"max|err| {k1_err}; kernel {k1_ms:.3f} ms ({k1_dev:.4f} ms device), "
+        f"max|err| {k1_err}; kernel {k1_ms:.3f} ms ({k1_dev:.4f} ms device; the "
+        f"earlier source {k1_prev}), "
         f"torch.empty(P, N).fill_(-1e9) {k1_fill_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
         f"bound {bound(k1_bytes, k1_ops)[0]:.3f} ms (bytes {k1_bytes})")
 
@@ -2895,7 +2960,8 @@ def main(argv=None) -> int:
     kernels["static_base"] = kernel_entry(
         "static_base", "cuda", "k8s_scheduler_tpu_torch/csrc/static_base.cu",
         "k8s_scheduler_tpu/ops/rounds.py:338", launches1["static_base"], k1_err,
-        k1_ms, k1_dev, k1_plain_ms, k1_bytes, k1_ops, fill_ms=k1_fill_ms)
+        k1_ms, k1_dev, k1_plain_ms, k1_bytes, k1_ops, fill_ms=k1_fill_ms,
+        prev_device_ms=k1_prev)
     kernels["claim_pass"] = kernel_entry(
         "claim_pass", "triton", "k8s_scheduler_tpu_torch/ops/claim_pass.py",
         "k8s_scheduler_tpu/ops/rounds.py:805", launches1["claim_pass"], k2_err,
@@ -2965,19 +3031,35 @@ def main(argv=None) -> int:
     k15_ms = time_ms(torch, lambda: dr.dyn_score_cuda(*s_args), 20)
     k15_dev = device_ms(lambda: dr.dyn_score_cuda(*s_args), 10)
     k15_plain = time_ms(torch, lambda: dr.dyn_score_plain(*s_args), 3)
+    k14_prev = prev_ms(torch, kb, prev_libs, "dyn_round", lambda: dr.dyn_mask_cuda(*m_args),
+                       10, timer=device_ms)
+    k15_prev = prev_ms(torch, kb, prev_libs, "dyn_round", lambda: dr.dyn_score_cuda(*s_args),
+                       10, timer=device_ms)
     k15a_dev = device_ms(lambda: dr.dyn_score_cuda(*anchors[0]), 50)
     k15a_plain = time_ms(torch, lambda: dr.dyn_score_plain(*anchors[0]), 20)
     k14_bytes, k14_ops, k15_bytes, k15_ops = dyn_bytes(torch, dr, m_args, s_args)
+    # the bounds beyond round 0: K14's mean over every mask call of the
+    # cycle, K15's over the later rounds' score calls (the anchors apart)
+    m_calls = [a for _, a in sorted(rec_dyn[0].args.items())]
+    s_later = [a for _, a in sorted(s_calls.items()) if a[0] is not None][1:]
+    k14_mean_bound = sum(bound(*dyn_bytes(torch, dr, m, s_args)[:2])[0]
+                         for m in m_calls) / len(m_calls)
+    k15_later_bound = sum(bound(*dyn_bytes(torch, dr, m_args, c)[2:])[0]
+                          for c in s_later) / max(len(s_later), 1)
     peak_k = dyn_peak_mib(torch, dr.dyn_mask_cuda, dr.dyn_score_cuda, m_args, s_args)
     peak_p = dyn_peak_mib(torch, dr.dyn_mask_plain, dr.dyn_score_plain, m_args, s_args)
     B14, N14 = m_args[0].shape
     log(f"phase kernel dyn_mask + dyn_score: equal to their plain versions bit for bit on "
         f"every call of the cycle ({n_dyn[0]} mask calls, {n_dyn[1]} score calls, {n_dyn[2]} "
         f"of them score anchors); round 0 [{B14}, {N14}], {len(m_args[1])} mask parts, "
-        f"{len(s_args[1])} score terms: dyn_mask {k14_ms:.3f} ms ({k14_dev:.4f} ms device), "
+        f"{len(s_args[1])} score terms (the earlier source, device: {k14_prev}, {k15_prev}): "
+        f"dyn_mask {k14_ms:.3f} ms ({k14_dev:.4f} ms device), "
         f"plain {k14_plain:.3f} ms, bound {bound(k14_bytes, k14_ops)[0]:.4f} ms (bytes "
         f"{k14_bytes}); dyn_score {k15_ms:.3f} ms ({k15_dev:.4f} ms device), plain "
         f"{k15_plain:.3f} ms, bound {bound(k15_bytes, k15_ops)[0]:.4f} ms (bytes {k15_bytes}); "
+        f"bounds beyond round 0: dyn_mask's mean over the cycle's {len(m_calls)} calls "
+        f"{k14_mean_bound:.4f} ms, dyn_score's over {len(s_later)} later rounds "
+        f"{k15_later_bound:.4f} ms; "
         f"score anchor [1, {N14}] {k15a_dev:.4f} ms device, plain {k15a_plain:.3f} ms; "
         f"round-0 peak memory of the two stages: kernels {peak_k:.1f} MiB, plain versions "
         f"{peak_p:.1f} MiB")
@@ -3275,7 +3357,7 @@ def main(argv=None) -> int:
         c["launches"]["static_base"] for c in carry_stats.values())
     for k in ("preempt_prefilter", "preempt_whatif", "preempt_claim"):
         kernels[k]["carry_launches"] = sum(c["launches"][k] for c in carry_stats.values())
-    kernels.update(reject_kernel_entries(torch, full_stats, carry_stats))
+    kernels.update(reject_kernel_entries(torch, full_stats, carry_stats, prev_libs))
 
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
@@ -3300,13 +3382,15 @@ def main(argv=None) -> int:
         "dyn_mask", "cuda", "k8s_scheduler_tpu_torch/csrc/dyn_round.cu",
         "k8s_scheduler_tpu/framework/runtime.py:202", launches["dyn_mask"], 0.0,
         k14_ms, k14_dev, k14_plain, k14_bytes, k14_ops, launches_by_path=by_path["dyn_mask"],
-        round0_peak_mib=peak_k, plain_round0_peak_mib=peak_p)
+        round0_peak_mib=peak_k, plain_round0_peak_mib=peak_p, prev_device_ms=k14_prev,
+        mean_bound_ms=k14_mean_bound)
     kernels["dyn_score"] = kernel_entry(
         "dyn_score", "cuda", "k8s_scheduler_tpu_torch/csrc/dyn_round.cu",
         "k8s_scheduler_tpu/framework/runtime.py:202", launches["dyn_score"], 0.0,
         k15_ms, k15_dev, k15_plain, k15_bytes, k15_ops, launches_by_path=by_path["dyn_score"],
         anchor_device_ms=k15a_dev, anchor_plain_ms=k15a_plain,
-        anchor_replaces="k8s_scheduler_tpu/framework/runtime.py:242")
+        anchor_replaces="k8s_scheduler_tpu/framework/runtime.py:242", prev_device_ms=k15_prev,
+        later_bound_ms=k15_later_bound)
     kernels["guard_sweep"] = kernel_entry(
         "guard_sweep", "cuda", "k8s_scheduler_tpu_torch/csrc/guard_sweep.cu",
         "k8s_scheduler_tpu/ops/rounds.py:342", launches["guard_sweep"], 0.0,

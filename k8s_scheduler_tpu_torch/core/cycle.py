@@ -685,7 +685,6 @@ def build_diagnosis_fn(
     extender_args: bool = False,
     donate: bool = False,
     device=None,
-    static_base_fn: Callable = static_base_ops.static_base,
     static_rejects_fn: Callable = static_base_ops.static_rejects,
     dyn_rejects_fn: Callable = dyn_round_ops.dyn_rejects,
     interpod_terms_fn: Callable = interpod_terms_ops.interpod_terms,
@@ -704,8 +703,9 @@ def build_diagnosis_fn(
     replayed one where given. Then rank-ordered windows of `window` unplaced
     pods (the last clamped to end at P, so it may repeat earlier pods, whose
     rows come out the same): per window K16 from node_valid for the static
-    filters, K1 without fit and sampling for the static mask, and K17 over
-    the dynamic parts (K3, K10) from it. The host reads the unplaced count
+    filters, with the chain's remainder (node_valid and every static filter,
+    the reference's start mask) over every row of the window, and K17 over
+    the dynamic parts (K3, K10) from that mask. The host reads the unplaced count
     once. `device` None means the card; the `*_fn` arguments select other
     kernel functions (the plain versions: the run the kernels are held
     against). Extender verdicts wait for ROADMAP A10 (`extender_args=True`
@@ -749,8 +749,7 @@ def build_diagnosis_fn(
             vsnap = rounds_ops._pod_view(snap, ids)
             vctx = ctx.view(vsnap, mp[:, ids])
             x = static_base_ops.static_base_inputs(fw, vctx)
-            smask = static_base_fn(x) > static_base_ops.NEG_INF / 2
-            srej = static_rejects_fn(x, act)
+            srej, smask = static_rejects_fn(x, act, True)
             drej = fw.dyn_rejects(vctx, node_requested, extra, smask, rows=act)
             rej.index_copy_(0, ids, srej + drej)
         return rej

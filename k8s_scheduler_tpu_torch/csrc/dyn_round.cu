@@ -27,13 +27,8 @@
 //        add). With no static row it is the score anchor: a lone product is
 //        rounded once.
 //
-//   K17  rejects[b, c]  = the nodes n with start[b, n] whose first failing
-//        part, in column order, is the part of column c (each part at its
-//        filter's index), for the rows b with rows[b] (all without rows):
-//        k8s_scheduler_tpu/framework/runtime.py:223 attribute_rejects over
-//        :202 dyn_batched's per-filter masks, as the rounds cycle's final
-//        window (core/cycle.py:638-665) and the diagnosis program's windows
-//        (:1492-1495) use it.
+// K17 dyn_rejects, the first-rejector counts over the same parts, is
+// csrc/dyn_rejects.cu.
 //
 // K14 writes both planes when the caller gives act (the round: the K3
 // norms take `feasible`, as the reference's do, and the claim pass takes
@@ -63,14 +58,6 @@
 // division and the sqrt alone 0.1 ms each). The launcher takes the
 // vector path when N is a multiple of 4 and every plane pointer is aligned
 // for its width; otherwise the same kernel runs with a guard per node.
-//
-// K17 shares K14's tiles, staging and part tests: each part's test goes
-// into its own 4 flags, a node's first rejector is the smallest column
-// that fails where the start mask holds, a warp sums a column's nodes with
-// one __reduce_add_sync, the warps add into the group's [32][F] table in
-// shared memory, and each block adds a row's nonzero counts to the output
-// with one integer atomic (exact in any order). Bound on an H100: bytes,
-// the start mask and the planes (one byte an element) of the B x N window.
 //
 // Bit-equality: the masks are bool ANDs, their order free. The arithmetic
 // is the plain version's, op for op, under --fmad=false: the slack's fma
@@ -288,100 +275,6 @@ __global__ void __launch_bounds__(kThreads) dyn_mask_kernel(MaskArgs a) {
         for (int i = 0; i < 4; ++i) f[i] = f[i] && act_s[k];
       }
       store4<kVec>(a.mask + row, n0, N, f);
-    }
-  }
-}
-
-// K17: first-rejector counts of K14's parts, each part at its column (the
-// filter's index); `m` carries the parts as K14 takes them (its act flags
-// are the rows to count, its vsbase, mask and feas unused)
-struct RejArgs {
-  MaskArgs m;
-  const uint8_t* start;  // [B, N] the mask the chain starts from
-  int* out;              // [B, F], zeroed by the caller
-  int F, fit_col, port_col;
-  int plane_col[kMaxPlanes];
-};
-
-constexpr int kMaxF = 32;  // ops/dyn_round.py MAX_FILTERS
-constexpr int kNoCol = 1 << 30;
-
-// the warp's count of nodes whose first rejector is column c, into the
-// group's shared row (lanes agree on c; every lane takes part)
-__device__ __forceinline__ void count_col(int c, const int (&first)[4], int* cnt_row) {
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) n += first[i] == c;
-  n = __reduce_add_sync(0xffffffffu, n);
-  if ((threadIdx.x & 31) == 0 && n > 0) atomicAdd(cnt_row + c, n);
-}
-
-// a node's first rejector so far: where the chain still holds it (start)
-// and part column c rejects it, the smaller column
-__device__ __forceinline__ void reject_at(int c, const bool (&st)[4], const bool (&t)[4],
-                                          int (&first)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (st[i] && !t[i]) first[i] = min(first[i], c);
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) dyn_rejects_kernel(RejArgs ra) {
-  const MaskArgs& a = ra.m;
-  extern __shared__ float smem[];
-  float* room_s = smem;                           // [R][kTile] (kMaskFit)
-  float* req_s = room_s + (size_t)a.R * kTile;    // [kPodGroup][R] (kMaskFit)
-  __shared__ uint8_t act_s[kPodGroup], port_s[kPodGroup];
-  __shared__ int cnt_s[kPodGroup][kMaxF];
-
-  const int N = a.N, F = ra.F, flags = a.flags;
-  const int tile0 = blockIdx.x * kTile;
-  const int n0 = tile0 + 4 * threadIdx.x;
-  const bool on = n0 < N;  // threads past N take part in the warp sums with no node
-  if (flags & kMaskFit) stage_room(a, tile0, room_s);
-  const int groups = (a.B + kPodGroup - 1) / kPodGroup;
-  for (int gi = blockIdx.y; gi < groups; gi += gridDim.y) {
-    const int b0 = gi * kPodGroup;
-    const int nb = min(kPodGroup, a.B - b0);
-    __syncthreads();  // the previous group's counts are out (and the room staged)
-    stage_group(a, b0, nb, req_s, act_s, port_s);
-    for (int k = threadIdx.x; k < nb * kMaxF; k += kThreads) cnt_s[k / kMaxF][k % kMaxF] = 0;
-    __syncthreads();
-
-    for (int k = 0; k < nb; ++k) {
-      if (!act_s[k]) continue;  // a row that counts nothing (uniform)
-      const int b = b0 + k;
-      const size_t row = (size_t)b * N;
-      bool st[4] = {false, false, false, false};
-      if (on) load4<kVec>(ra.start + row, n0, N, st);
-      int first[4] = {kNoCol, kNoCol, kNoCol, kNoCol};
-      if (on) {
-#pragma unroll
-        for (int j = 0; j < kMaxPlanes; ++j) {
-          if (j >= a.n_planes) break;
-          bool t[4] = {true, true, true, true};
-          and_plane<kVec>(a.planes[j], row, n0, N, t);
-          reject_at(ra.plane_col[j], st, t, first);
-        }
-        if (flags & kMaskFit) {
-          bool t[4] = {true, true, true, true};
-          and_fit(a, req_s, room_s, k, t);
-          reject_at(ra.fit_col, st, t, first);
-        }
-        if (port_s[k]) {
-          bool t[4] = {true, true, true, true};
-          and_ports(a, b, n0, t);
-          reject_at(ra.port_col, st, t, first);
-        }
-      }
-      for (int j = 0; j < a.n_planes; ++j) count_col(ra.plane_col[j], first, cnt_s[k]);
-      if (flags & kMaskFit) count_col(ra.fit_col, first, cnt_s[k]);
-      if (flags & kMaskPorts) count_col(ra.port_col, first, cnt_s[k]);
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < nb * F; k += kThreads) {
-      const int v = cnt_s[k / F][k % F];
-      if (v > 0) atomicAdd(ra.out + (size_t)(b0 + k / F) * F + k % F, v);
     }
   }
 }
@@ -639,43 +532,6 @@ extern "C" int dyn_score_launch(int B, int N, int R, int n_terms, int flags,
                 : launch(dyn_score_kernel<true, 8>, grid, smem, st, &a))
           : (r4 ? launch(dyn_score_kernel<false, 4>, grid, smem, st, &a)
                 : launch(dyn_score_kernel<false, 8>, grid, smem, st, &a));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-extern "C" int dyn_rejects_launch(int B, int N, int R, int MP, int Q, const float* req,
-                                  const float* alloc, const float* nreq, const int* ids,
-                                  const uint8_t* claimed, const void* const* planes,
-                                  int n_planes, const int* plane_col, int fit_col,
-                                  const uint8_t* start, int port_col, int F,
-                                  const uint8_t* rows, int* out, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (R > kMaxR || n_planes > kMaxPlanes || F < 1 || F > kMaxF)
-    return (int)cudaErrorInvalidValue;
-  RejArgs ra;
-  MaskArgs& a = ra.m;
-  a.B = B; a.N = N; a.R = R; a.MP = MP; a.Q = Q; a.n_planes = n_planes;
-  a.flags = (req ? kMaskFit : 0) | (ids && Q > 0 ? kMaskPorts : 0) | (rows ? kMaskAct : 0);
-  a.vsbase = nullptr; a.act = rows; a.req = req; a.alloc = alloc; a.nreq = nreq;
-  a.ids = ids; a.claimed = claimed; a.mask = nullptr; a.feas = nullptr;
-  ra.start = start; ra.out = out; ra.F = F; ra.fit_col = fit_col; ra.port_col = port_col;
-  if (((a.flags & kMaskFit) && (fit_col < 0 || fit_col >= F)) ||
-      ((a.flags & kMaskPorts) && (port_col < 0 || port_col >= F)))
-    return (int)cudaErrorInvalidValue;
-  bool vec = N % 4 == 0 && aligned(start, 4);
-  for (int j = 0; j < kMaxPlanes; ++j) {
-    const bool used = j < n_planes;
-    a.planes[j] = used ? static_cast<const uint8_t*>(planes[j]) : nullptr;
-    ra.plane_col[j] = used ? plane_col[j] : 0;
-    if (used && (plane_col[j] < 0 || plane_col[j] >= F)) return (int)cudaErrorInvalidValue;
-    if (used) vec = vec && aligned(planes[j], 4);
-  }
-  const size_t smem = (a.flags & kMaskFit) ? (size_t)R * (kTile + kPodGroup) * sizeof(float) : 0;
-  const cudaError_t err =
-      vec ? launch(dyn_rejects_kernel<true>, grid_of(B, N, kMaxGridY), smem,
-                   (cudaStream_t)stream, &ra)
-          : launch(dyn_rejects_kernel<false>, grid_of(B, N, kMaxGridY), smem,
-                   (cudaStream_t)stream, &ra);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

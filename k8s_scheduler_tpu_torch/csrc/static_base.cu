@@ -48,16 +48,8 @@
 // per-element __fmaf_rn chain in term order (zero terms included) under
 // --fmad=false, then the fminf/fmaxf clip and NEG_INF where masked.
 //
-// K16 static_rejects (the full outputs' static attribution, beside it):
-// k8s_scheduler_tpu/framework/runtime.py:79 Framework.static's
-// :223 attribute_rejects over the static filters' masks — for each pod row,
-// the valid nodes each static filter rejects first in the framework's
-// filter order. It shares this kernel's tiles, staging and per-node tests
-// (each into its own flags); the counts leave through shared memory and
-// one integer atomic a (row, filter) and block. Bound on an H100: bytes,
-// the mask operand's one byte an element where VolumeBinding has one, else
-// the per-pod ids and the small tables; without the operand it is bound by
-// its [P, N] tests (operations).
+// K16 static_rejects, the static filters' first-rejector counts over the
+// same inputs, is csrc/static_rejects.cu (bit-sliced words).
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a --fmad=false ...
 
@@ -210,8 +202,7 @@ __device__ __forceinline__ Pod stage_pod(const Args& a, int p, int tile0, bool t
 }
 
 // The static filters' tests of one pod at the thread's kPerThread nodes
-// from n0, each ANDed into ok (static_base_kernel ANDs them all into one
-// mask, static_rejects_kernel each into its own).
+// from n0, each ANDed into ok.
 
 // NodeName: the pinned node only (pin >= 0), or no node (pin == -2)
 __device__ __forceinline__ void and_node_name(const Pod& q, int n0, bool* ok) {
@@ -431,142 +422,13 @@ __global__ void __launch_bounds__(kThreads, 3) static_base_kernel(Args a) {
   }
 }
 
-// K16 static_rejects: per pod row, the valid nodes that each static filter
-// rejects first in the framework's filter order (its column), the row's
-// counts added to out[p, column]. The tests are static_base_kernel's, each
-// into its own flags; a node's first rejector is the smallest column that
-// fails among the tests of the flags set (the column order is the filter
-// order, so no order needs to be walked). A warp sums a column's nodes
-// with one __reduce_add_sync, the warps add into the group's [32][F] table
-// in shared memory, and each block adds a row's nonzero counts with one
-// integer atomic (exact in any order).
-constexpr int kTests = 6;  // ops/static_base.py REJECT_TESTS, in this order
-constexpr int kMaxF = 32;  // ops/static_base.py MAX_FILTERS
-constexpr int kNoCol = 1 << 30;
-
-struct RejArgs {
-  int F;
-  int col[kTests];      // each test's column (-1: not a filter of the framework)
-  const uint8_t* rows;  // [P] the rows to count (null: every row)
-  int* out;             // [P, F], zeroed by the caller
-};
-
-__device__ __forceinline__ void reject_at(int c, const bool* base, const bool* t, int* first) {
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i)
-    if (base[i] && !t[i]) first[i] = min(first[i], c);
-}
-
-// the warp's nodes whose first rejector is column c, into the group's row
-__device__ __forceinline__ void count_col(int c, const int* first, int* cnt_row) {
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) n += first[i] == c;
-  n = __reduce_add_sync(0xffffffffu, n);
-  if ((threadIdx.x & 31) == 0 && n > 0) atomicAdd(cnt_row + c, n);
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 3) static_rejects_kernel(Args a, RejArgs r) {
-  __shared__ Pod pods[kPodGroup];
-  __shared__ uint8_t on_s[kPodGroup];
-  __shared__ int cnt_s[kPodGroup][kMaxF];
-
-  const int flags = a.flags, N = a.N, F = r.F;
-  const int tile0 = blockIdx.x * kTile;
-  const int n0 = tile0 + 4 * threadIdx.x;
-  const bool active = n0 < N;  // threads past N take part in the warp sums with no node
-  const bool ts_bits = a.Ts <= kMaxTs;
-  bool valid[kPerThread], unsched[kPerThread];
-  int ts[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) valid[i] = unsched[i] = false, ts[i] = 0;
-  if (active) {
-    loadn<kVec>(a.node_valid, n0, N, valid);
-    loadn<kVec>(a.node_unsched, n0, N, unsched);
-    loadn<kVec>(a.node_taintset, n0, N, ts);
-  }
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) ts[i] = clampi(ts[i], 0, a.Ts - 1);
-
-  const int groups = (a.P + kPodGroup - 1) / kPodGroup;
-  for (int gi = blockIdx.y; gi < groups; gi += gridDim.y) {
-    const int p0 = gi * kPodGroup;
-    const int np = min(kPodGroup, a.P - p0);
-    __syncthreads();  // the previous group's counts are out
-    if (threadIdx.x < np) {
-      pods[threadIdx.x] = stage_pod(a, p0 + threadIdx.x, tile0, ts_bits);
-      on_s[threadIdx.x] = r.rows ? r.rows[p0 + threadIdx.x] : 1;
-    }
-    for (int k = threadIdx.x; k < np * kMaxF; k += kThreads) cnt_s[k / kMaxF][k % kMaxF] = 0;
-    __syncthreads();
-
-    for (int k = 0; k < np; ++k) {
-      if (!on_s[k]) continue;  // a row that counts nothing (uniform)
-      const Pod q = pods[k];
-      const int p = p0 + k;
-      int first[kPerThread];
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) first[i] = kNoCol;
-      if (active) {
-        bool t[kPerThread];
-        if (flags & kUnsched) {
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) t[i] = !unsched[i];
-          reject_at(r.col[0], valid, t, first);
-        }
-        if ((flags & kNodeName) && q.pin != -1) {
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) t[i] = true;
-          and_node_name(q, n0, t);
-          reject_at(r.col[1], valid, t, first);
-        }
-        if (flags & kTaint) {
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) t[i] = true;
-          if (ts_bits) and_taint_bits(q, ts, t);
-          else and_taint_rows(a, q, ts, t);
-          reject_at(r.col[2], valid, t, first);
-        }
-        if (flags & kAffinity) {
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) t[i] = true;
-          and_requirements<kVec>(a, q, n0, t);
-          reject_at(r.col[3], valid, t, first);
-        }
-        if ((flags & kPorts) && q.has_port) {
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) t[i] = true;
-          and_ports(a, p, n0, t);
-          reject_at(r.col[4], valid, t, first);
-        }
-        if (flags & kMask) {
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) t[i] = true;
-          and_mask<kVec>(a, p, n0, t);
-          reject_at(r.col[5], valid, t, first);
-        }
-      }
-      const int bits[kTests] = {kUnsched, kNodeName, kTaint, kAffinity, kPorts, kMask};
-#pragma unroll
-      for (int j = 0; j < kTests; ++j)
-        if (flags & bits[j]) count_col(r.col[j], first, cnt_s[k]);
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < np * F; k += kThreads) {
-      const int v = cnt_s[k / F][k % F];
-      if (v > 0) atomicAdd(r.out + (size_t)(p0 + k / F) * F + k % F, v);
-    }
-  }
-}
-
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 }  // namespace
 
-// the launchers' common parameters (ops/static_base.py _common_args)
+// the launcher's parameters after the output (ops/static_base.py _common_args)
 #define STATIC_PARAMS                                                            \
   int P, int N, int R, const int *pod_node_name, const int *pod_tolset,            \
       const int *pod_req_id, const int *pod_sel_req_id, const int *pod_pref_id,    \
@@ -644,33 +506,5 @@ extern "C" int static_base_launch(float* out, STATIC_PARAMS) {
     }
     static_base_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   }
-  return (int)cudaGetLastError();
-}
-
-// K16: `cols` [kTests] each test's column, `rows` [P] or null, `out` [P, F]
-// zeroed; the inputs take neither fit nor sampling (the reference's
-// Framework.static has neither)
-extern "C" int static_rejects_launch(int* out, STATIC_PARAMS, int F, const int* cols,
-                                     const uint8_t* rows) {
-  if (P <= 0 || N <= 0) return 0;
-  if (F < 1 || F > kMaxF || (flags & (kFit | kSample))) return (int)cudaErrorInvalidValue;
-  Args a = pack_args(nullptr, P, N, R, pod_node_name, pod_tolset, pod_req_id,
-                     pod_sel_req_id, pod_pref_id, pod_imageset, pod_ports, MPp,
-                     pod_requested, samp_off, samp_k, samp_n, node_valid, node_unsched,
-                     node_taintset, node_used_ports, MUP, node_room, sched, tscore, Tl, Ts,
-                     req, Rq, pref, Pf, img, Is, flags, term0, term1, term2, w0, w1, w2,
-                     n_terms, stream, mask);
-  RejArgs r;
-  r.F = F; r.rows = rows; r.out = out;
-  const int bits[kTests] = {kUnsched, kNodeName, kTaint, kAffinity, kPorts, kMask};
-  for (int j = 0; j < kTests; ++j) {
-    r.col[j] = cols[j];
-    if ((flags & bits[j]) && (cols[j] < 0 || cols[j] >= F)) return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid = grid_of(a);
-  if (vector_path(a))
-    static_rejects_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, r);
-  else
-    static_rejects_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, r);
   return (int)cudaGetLastError();
 }

@@ -2,18 +2,20 @@
 the small kernels on the main path, and timed variants of K13
 `scan_commit`, K9 `preempt_claim`, K4 `affinity_update`, K6 `guard_sweep`,
 K12 `pv_fold`, K11 `pv_choice`, K8 `preempt_whatif`, K7 `preempt_prefilter`,
-K15 `dyn_score`, K5 `capacity` and K1 `static_base`, built from edited copies of their sources, on full-size
+K15 `dyn_score`, K5 `capacity`, K1 `static_base`, K16 `static_rejects` and
+K17 `dyn_rejects`, built from edited copies of their sources, on full-size
 inputs recorded from the main path.
 
     python3 -m k8s_scheduler_tpu_torch.kernel_variants [--csrc DIR] [--out PATH]
         [--kernels scan_commit,small,preempt_claim,affinity_update,guard_sweep,pv_fold,
                    pv_choice,preempt_whatif,preempt_prefilter,dyn_score,capacity,
-                   static_base]
+                   static_base,rejects]
 
 `--csrc` names the directory whose `scan_commit.cu`, `preempt_claim.cu`,
 `affinity_update.cu`, `guard_sweep.cu`, `pv_fold.cu`, `pv_choice.cu`,
-`preempt_whatif.cu`, `preempt_prefilter.cu`, `dyn_round.cu`, `capacity.cu` and
-`static_base.cu` are varied (default: the package's own `csrc/`; an
+`preempt_whatif.cu`, `preempt_prefilter.cu`, `dyn_round.cu`, `capacity.cu`,
+`static_base.cu`, `static_rejects.cu` and `dyn_rejects.cu` are varied
+(default: the package's own `csrc/`; an
 earlier checkout's `csrc/` times that design on the same inputs, K13, K4,
 K6 and K12 through their earlier C interfaces where they differ,
 `prev_scan_commit`, `prev_affinity_update`, `prev_guard_sweep` and
@@ -99,7 +101,20 @@ Inputs, BASELINE config #4's cluster size (5000 nodes, 12000 running,
   K1     slice 1's inputs (config #2's pending mix, seed 101; fit and node
          sampling) and the volume phase's (config #4 with local and zonal
          PVs, seed 201; VolumeBinding's mask operand), beside
-         `torch.empty(P, N).fill_(-1e9)`, the write floor.
+         `torch.empty(P, N).fill_(-1e9)`, the write floor;
+  K16    the full rounds cycle's call of config #4's workload (seed 202,
+         every pod row), its first 2048 rows with the survivors plane (a
+         diagnosis window's shape), and the same cycle with local and zonal
+         volumes (seed 201, the mask operand): the kernel, its floor
+         (every launch, the marks, the packing and the valid words, the
+         chain and the warp sums and stores, no test), the count launch
+         alone (no marks, no packing), a lane's words one at a time (no
+         chunk of four), 4 and 16 warps (pod rows) a block;
+  K17    the same cycles' final-window calls: the kernel, its floor (the
+         launch, the room staged, the warp sums and the flush, no load or
+         test), the loads and the chain without the fit test, no room
+         staged, one and four blocks an SM, groups of 32 rows, 128 threads
+         a block.
 
 Device times come from calls captured in a CUDA graph and replayed between
 CUDA events (`device_ms`: a small kernel's wrapper takes longer on the host
@@ -391,6 +406,43 @@ PREFILTER_EXACT = ("today", "tables from L2 (nothing staged)",
                    "elig counted for every candidate (no reuse across a priority)")
 
 # the variants that compute the kernel's function: held against it
+STATIC_REJECT_VARIANTS = {
+    "today": [],
+    "floor (every launch, packing, valid words, chain, sums and stores; no test)": [
+        ("        word_tests(a, q, w, sched_w, ok[c]);",
+         "        for (int t = 0; t < kTests; ++t) ok[c][t] = ~0u;"),
+        ("      if (q.mrow)\n", "      if (false)\n"), ("      if (q.ports)\n", "      if (false)\n")],
+    "count launch alone (no marks, no packing)": [
+        ("    if (list) mark_kernel<<<marks < kMaxGrid ? marks : kMaxGrid, kPackThreads, 0, "
+         "st>>>(a);", "    (void)marks;"),
+        ("    pack_kernel<<<grid, kPackThreads, 0, st>>>(a);", "    (void)grid;")],
+    "words one at a time (no chunk)": [("constexpr int kChunk = 4;", "constexpr int kChunk = 1;")],
+    "4 warps a block": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+    "16 warps a block": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+}
+STATIC_REJECT_EXACT = ("today", "words one at a time (no chunk)", "4 warps a block",
+                       "16 warps a block")
+DYN_REJECT_VARIANTS = {
+    "today": [],
+    "floor (launch, room staged, warp sums and flush; no load or test)": [
+        ("      if (on && kVec) {\n        raw[0] =", "      if (false) {\n        raw[0] ="),
+        ("      if (on && kVec) {\n        st = bits16", "      if (false) {\n        st = bits16"),
+        ("      } else if (on) {\n        st = load16(",
+         "      } else if (false) {\n        st = load16("),
+        ("          fit && on ? fit16(", "          false ? fit16("),
+        ("      const unsigned pm = port_s[k] && on ?", "      const unsigned pm = false ?")],
+    "loads and chain, no fit test": [("          fit && on ? fit16(", "          false ? fit16(")],
+    "no room staged (the fit test on unset shared memory)": [
+        ("      stage_room(a, tile0, room_s);", "      (void)tile0;")],
+    "one block an SM": [("constexpr int kTargetBlocks = 264;",
+                         "constexpr int kTargetBlocks = 132;")],
+    "four blocks an SM": [("constexpr int kTargetBlocks = 264;",
+                           "constexpr int kTargetBlocks = 528;")],
+    "groups of 32 rows": [("constexpr int kRows = 8;", "constexpr int kRows = 32;")],
+    "128 threads a block": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+}
+DYN_REJECT_EXACT = ("today", "one block an SM", "four blocks an SM", "groups of 32 rows",
+                    "128 threads a block")
 DYN_SCORE_EXACT = ("today", "resources unrolled to 8 (the first design)",
                    "128 pod groups a column of blocks", "at most 40 registers")
 
@@ -940,6 +992,132 @@ def time_pv_fold_variants(dev, csrc: Path, calls: list, check: bool) -> dict:
     return out
 
 
+def prev_static_rejects(lib, x, rows=None):
+    """The earlier K16 (`static_rejects_kernel` of csrc/static_base.cu, on
+    K1's tiles and per-node tests) through its C interface: K1's launcher
+    arguments after the output, then F, the columns and `rows`; no
+    survivors plane."""
+    import ctypes
+
+    from .ops import static_base as sb
+    from .ops.kernel_build import checked, raise_on_error
+
+    fn = lib.static_rejects_launch
+    if fn.argtypes is None:
+        fn.argtypes = sb._ARGTYPES + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    P, N = x.shape
+    dev = x.node_valid.device
+    args, _keep = sb._common_args(x, "static_rejects")
+    rw = None if rows is None else checked("static_rejects", rows, torch.bool, (P,), dev)
+    out = torch.zeros((P, x.n_filters), dtype=torch.int32, device=dev)
+    raise_on_error("static_rejects (the earlier design)", fn(
+        sb._ptr(out), *args, x.n_filters, (ctypes.c_int * len(sb.REJECT_TESTS))(*x.columns),
+        sb._ptr(rw)))
+    return out
+
+
+def rejects_equal(a, b) -> bool:
+    """Two K16 / K17 results equal: counts, or (counts, survivors)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+    return torch.equal(a, b)
+
+
+def record_reject_calls(dev) -> dict:
+    """{input: K16's or K17's arguments}: the full rounds cycle's K16 call
+    (every pod row) and K17 call (the final window) on config #4's workload
+    (seed 202) and with local and zonal volumes (seed 201), and K16 on the
+    first 2048 rows of the first with the survivors plane."""
+    from .core.cycle import build_cycle_fn
+    from .models import SnapshotEncoder
+    from .ops import dyn_round as dr
+    from .ops import static_base as sb
+    from .utils import synth
+
+    enc = SnapshotEncoder(device=dev)
+    nodes, existing, pending = synth.config4_workload((201, 202), N_NODES, N_EXISTING,
+                                                      N_PENDING)
+    ex, pods, pvcs, pvs, classes = synth.config4_volumes(nodes, existing, pending[201],
+                                                         seed=201)
+    snaps = {"config #4": enc.encode(nodes, pending[202], existing),
+             "volumes": enc.encode(nodes, pods, ex, pvcs=pvcs, pvs=pvs,
+                                   storage_classes=classes)}
+    calls: dict = {"static_rejects": {}, "dyn_rejects": {}}
+    for tag, snap in snaps.items():
+        def k16(*a, tag=tag):
+            calls["static_rejects"][tag] = a
+            return sb.static_rejects_cuda(*a)
+
+        def k17(*a, tag=tag):
+            calls["dyn_rejects"][tag] = a
+            return dr.dyn_rejects_cuda(*a)
+
+        build_cycle_fn(commit_mode="rounds", device=dev, static_rejects_fn=k16,
+                       dyn_rejects_fn=k17)(snap)
+    x = calls["static_rejects"]["config #4"][0]
+    pods = {f.name: getattr(x, f.name)[:2048] for f in dataclasses.fields(x)
+            if f.name.startswith("pod_") or f.name == "samp_off"}
+    calls["static_rejects"]["2048 rows, survivors"] = (
+        dataclasses.replace(x, **pods), None, True)
+    torch.cuda.synchronize()
+    return calls
+
+
+def time_reject_variants(dev, csrc: Path, check: bool) -> dict:
+    """K16's and K17's variants (STATIC_REJECT_VARIANTS, DYN_REJECT_VARIANTS)
+    in device time on `record_reject_calls`' inputs; the exact variants
+    held against the kernel there, and with the package's own sources the
+    kernels first held against their plain versions on them and on
+    `kernel_cases.static_reject_cases` / `dyn_reject_cases`."""
+    from .ops import dyn_round as dr
+    from .ops import static_base as sb
+
+    calls = record_reject_calls(dev)
+    kernels = {"static_rejects": (sb.static_rejects_cuda, sb.static_rejects_plain,
+                                  STATIC_REJECT_VARIANTS, STATIC_REJECT_EXACT),
+               "dyn_rejects": (dr.dyn_rejects_cuda, dr.dyn_rejects_plain,
+                               DYN_REJECT_VARIANTS, DYN_REJECT_EXACT)}
+
+    if check:
+        from .utils import kernel_cases
+
+        edge = {"static_rejects": [(x, r) for x, r in
+                                   kernel_cases.static_reject_cases(dev).values()],
+                "dyn_rejects": list(kernel_cases.dyn_reject_cases(dev).values())}
+        for name, (fn, plain, _, _) in kernels.items():
+            for a in list(calls[name].values()) + edge[name]:
+                if not rejects_equal(fn(*a), plain(*a)):
+                    raise RuntimeError(f"{name} differs from its plain version")
+            print(f"{name} equal to its plain version on {len(calls[name])} inputs and "
+                  f"{len(edge[name])} edge cases", flush=True)
+    table = {}
+    for name, (fn, _, variants, exact) in kernels.items():
+        libs = build_variants(name, csrc, variants)
+        inputs = calls[name]
+        want = {t: fn(*a) for t, a in inputs.items()}
+        shapes = {t: list(a[0].shape) for t, a in inputs.items()}
+        out = {"inputs": shapes}
+        print(f"{name}: inputs {json.dumps(shapes)}", flush=True)
+        for v, lib in libs.items():
+            if lib is None:
+                out[v] = "not applicable"
+                continue
+
+            def run(a, lib=lib):
+                return with_library(name, lib, lambda: fn(*a))
+            if v in exact:
+                for t, a in inputs.items():
+                    if not rejects_equal(run(a), want[t]):
+                        raise RuntimeError(f"{name} variant {v!r} differs ({t})")
+            row = {t: device_ms(lambda: run(a), 20) for t, a in inputs.items()}
+            out[v] = row
+            print(f"  {name} {v:80s} "
+                  + "  ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()), flush=True)
+        table[name] = out
+    return table
+
+
 def static_base_cases(dev):
     """{case: StaticBaseInputs} of slice 1 and the volume phase."""
     from .core.cycle import sampling_window
@@ -1473,7 +1651,8 @@ def main(argv=None) -> int:
                     help="comma list of sections: small, preempt_claim, affinity_update, "
                          "guard_sweep, pv_fold, pv_choice, preempt_whatif, preempt_prefilter, "
                          "dyn_score, "
-                         "capacity, static_base, scan_commit (default all)")
+                         "capacity, static_base, rejects (K16 and K17), scan_commit "
+                         "(default all)")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(",")) if args.kernels != "all" else None
 
@@ -1533,6 +1712,9 @@ def main(argv=None) -> int:
         del calls
     if on("static_base"):
         table.update(time_static_base_variants(dev, csrc, own))
+        out.write_text(json.dumps(table, indent=1))
+    if on("rejects"):
+        table.update(time_reject_variants(dev, csrc, own))
     for src, text in kb.build_logs.items():
         usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         if src in VARIANT_OF:

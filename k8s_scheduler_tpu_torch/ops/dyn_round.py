@@ -37,9 +37,11 @@ that every filter gives (K3 `interpod_norm` runs between them):
 
 The plain versions (`dyn_mask_plain`, `dyn_score_plain`, `dyn_rejects_plain`) are the plugin
 arithmetic of `ops/resources.py` and the one-hot port test; the kernels
-(csrc/dyn_round.cu) compute the same per element in one pass each, bit for
-bit. Bound on an H100: bytes of the [B, N] planes (vsbase, the plane
-inputs, the outputs)."""
+(csrc/dyn_round.cu K14 and K15, csrc/dyn_rejects.cu K17) compute the same
+per element in one pass each, bit for bit. Bound on an H100: bytes of the
+[B, N] planes (vsbase, the start mask, the plane inputs, the outputs). K17
+turns 16 nodes a thread of each plane into a 16-bit mask and walks the
+parts in column order on the masks, a `__popc` a count."""
 
 from __future__ import annotations
 
@@ -280,6 +282,14 @@ def _library():
             [ctypes.c_int] * 5 + [ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float]
             + [ctypes.c_void_p] * 2)
         lib.dyn_score_launch.restype = ctypes.c_int
+    return lib
+
+
+def _rejects_library():
+    """K17's library (csrc/dyn_rejects.cu; the earlier design, in
+    csrc/dyn_round.cu, had the same C interface)."""
+    lib = load_cuda_library("dyn_rejects")
+    if lib.dyn_rejects_launch.argtypes is None:
         lib.dyn_rejects_launch.argtypes = (
             [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -341,11 +351,11 @@ def dyn_mask(vsbase, parts, act_v=None):
     return fn(vsbase, parts, act_v)
 
 
-MAX_FILTERS = 32  # csrc/dyn_round.cu kMaxF: columns of a reject table
+MAX_FILTERS = 32  # csrc/dyn_rejects.cu kMaxF: columns of a reject table
 
 
 def dyn_rejects_cuda(start, parts, F: int, rows=None):
-    """Launch K17 of csrc/dyn_round.cu on the current stream."""
+    """Launch K17 (csrc/dyn_rejects.cu) on the current stream."""
     c = "dyn_rejects"
     B, N = start.shape
     dev = start.device
@@ -379,7 +389,7 @@ def dyn_rejects_cuda(start, parts, F: int, rows=None):
         ids = checked(c, pm.pod_port_ids, torch.int32, (B, MP), dev)
         claimed = checked(c, pm.claimed, torch.bool, (N, Q), dev)
     out = torch.zeros((B, F), dtype=torch.int32, device=dev)
-    err = _library().dyn_rejects_launch(
+    err = _rejects_library().dyn_rejects_launch(
         B, N, R, MP, Q, ptr(req), ptr(alloc), ptr(nreq), ptr(ids), ptr(claimed),
         _ptrs([t for _, t in planes]), len(planes),
         (ctypes.c_int * MAX_PLANES)(*[col for col, _ in planes]), fit_col,

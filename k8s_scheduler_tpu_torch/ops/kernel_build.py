@@ -47,6 +47,8 @@ CUDA_KERNELS: dict[str, tuple[str, ...]] = {
     "pv_fold": ("--fmad=false",),
     "scan_commit": ("--fmad=false",),
     "dyn_round": ("--fmad=false",),
+    "static_rejects": (),
+    "dyn_rejects": ("--fmad=false",),
 }
 
 launch_counts: dict[str, int] = {

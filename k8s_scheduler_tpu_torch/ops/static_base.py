@@ -24,15 +24,21 @@ takes the same kernel with scalar loads and stores (the launcher checks
 the pointers). The score is the same `__fmaf_rn` chain in term order, so
 the kernel is bit-equal to `static_base_plain`.
 
-K16 `static_rejects` (the same source, `static_rejects_kernel`) takes the
-same inputs without fit and sampling (`Framework.static`, the reference's
+K16 `static_rejects` (`csrc/static_rejects.cu`) takes the same inputs
+without fit and sampling (`Framework.static`, the reference's
 `framework/runtime.py:79`, has neither) and gives the reference's
 first-rejector attribution over the static filters (`runtime.py:223
 attribute_rejects`): i32 [P, F], column i the valid nodes that filter i
 (the framework's order) rejects and no earlier filter does, for the rows
-that `rows` (bool [P]) selects. It shares K1's per-node tests; the counts
-are integer sums, exact in any order. `static_rejects_plain` is its plain
-version."""
+that `rows` (bool [P]) selects; with `survivors=True` also the chain's
+remainder, bool [P, N] over every row: node_valid and every static filter,
+the diagnosis program's start mask (K1's mask without fit and sampling).
+It works on bit-sliced words: a first launch packs the node-side tables
+(valid, schedulable, each toleration set's tolerated nodes, the
+requirement rows; of a table of more than PACK_ALL rows only those the
+pods name) into 32-node words, then a warp a pod row walks them, a test a
+word, and counts each column with `__popc`; the counts are integer sums,
+exact in any order. `static_rejects_plain` is its plain version."""
 
 from __future__ import annotations
 
@@ -68,12 +74,13 @@ _FILTER_BITS = {
 # static filters whose [P, N] mask another kernel computes: ANDed into the
 # one mask operand
 _MASK_OPERAND = ("VolumeBinding",)
-# K16's tests, in csrc/static_base.cu's order: the filter each one is, and
-# its bit (VolumeBinding's is the mask operand's)
+# K16's tests, in csrc/static_rejects.cu's order: the filter each one is,
+# and its bit (VolumeBinding's is the mask operand's)
 REJECT_TESTS = (("NodeUnschedulable", F_UNSCHED), ("NodeName", F_NODENAME),
                 ("TaintToleration", F_TAINT), ("NodeAffinity", F_AFFINITY),
                 ("NodePorts", F_PORTS), ("VolumeBinding", F_MASK))
-MAX_FILTERS = 32  # csrc/static_base.cu kMaxF
+MAX_FILTERS = 32  # csrc/static_rejects.cu kMaxF
+PACK_ALL = 64  # kPackAll: a table of more rows packs only those the pods name
 _SCORE_TERMS = {
     "ImageLocality": TERM_IMAGE,
     "NodeAffinity": TERM_PREF,
@@ -316,15 +323,12 @@ def _library():
     if lib.static_base_launch.argtypes is None:
         lib.static_base_launch.argtypes = _ARGTYPES
         lib.static_base_launch.restype = ctypes.c_int
-        lib.static_rejects_launch.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p,
-                                                          ctypes.c_void_p]
-        lib.static_rejects_launch.restype = ctypes.c_int
     return lib
 
 
 def _common_args(x: StaticBaseInputs, kernel: str) -> tuple[list, list]:
-    """The launchers' common arguments after the output (csrc
-    STATIC_PARAMS) and the tensors they point into, checked."""
+    """K1's launcher arguments after the output (csrc STATIC_PARAMS) and
+    the tensors they point into, checked."""
     P, N = x.shape
     dev = x.node_valid.device
     R = x.pod_requested.shape[1]
@@ -385,16 +389,25 @@ def static_base(x: StaticBaseInputs) -> torch.Tensor:
     return static_base_plain(x)
 
 
-def static_rejects_plain(x: StaticBaseInputs, rows=None) -> torch.Tensor:
+def static_rejects_plain(x: StaticBaseInputs, rows=None, survivors: bool = False):
     """K16's function in plain torch: the reference's attribution over the
-    static filters' masks, in column order, from node_valid."""
+    static filters' masks, in column order, from node_valid; with
+    `survivors` also the chain's remainder (every row)."""
     P, N = x.shape
     masks = _filter_masks(x)
     per_filter = [None] * x.n_filters
     for (_, bit), col in zip(REJECT_TESTS, x.columns):
         if col >= 0 and bit in masks:
             per_filter[col] = masks[bit]
-    return first_rejects(x.node_valid[None, :].expand(P, N), per_filter, rows)
+    valid = x.node_valid[None, :].expand(P, N)
+    counts = first_rejects(valid, per_filter, rows)
+    if not survivors:
+        return counts
+    rem = valid
+    for m in per_filter:
+        if m is not None:
+            rem = rem & m
+    return counts, rem
 
 
 def _check_reject_inputs(x: StaticBaseInputs) -> None:
@@ -403,30 +416,76 @@ def _check_reject_inputs(x: StaticBaseInputs) -> None:
     if not 0 < x.n_filters <= MAX_FILTERS:
         raise ValueError(f"static_rejects: {x.n_filters} filters; the kernel takes 1 to "
                          f"{MAX_FILTERS}")
+    cols = [c for (_, bit), c in zip(REJECT_TESTS, x.columns) if x.flags & bit]
+    if len(set(cols)) != len(cols) or not all(0 <= c < x.n_filters for c in cols):
+        raise ValueError(f"static_rejects: columns {cols} are not distinct columns of "
+                         f"{x.n_filters}")
 
 
-def static_rejects_cuda(x: StaticBaseInputs, rows=None) -> torch.Tensor:
-    """Launch K16 (csrc/static_base.cu static_rejects_kernel) on the current
-    stream."""
+_REJ_ARGTYPES = (
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 8
+)
+
+
+def _rejects_library():
+    lib = load_cuda_library("static_rejects")
+    if lib.static_rejects_launch.argtypes is None:
+        lib.static_rejects_launch.argtypes = _REJ_ARGTYPES
+        lib.static_rejects_launch.restype = ctypes.c_int
+    return lib
+
+
+def static_rejects_cuda(x: StaticBaseInputs, rows=None, survivors: bool = False):
+    """Launch K16 (csrc/static_rejects.cu: the rows the pods name, their
+    words packed, then the counts) on the current stream."""
     k = "static_rejects"
     _check_reject_inputs(x)
     P, N = x.shape
     dev = x.node_valid.device
-    args, _keep = _common_args(x, k)
-    rw = None if rows is None else checked(k, rows, torch.bool, (P,), dev)
-    out = torch.zeros((P, x.n_filters), dtype=torch.int32, device=dev)
-    err = _library().static_rejects_launch(
-        _ptr(out), *args, x.n_filters,
-        (ctypes.c_int * len(REJECT_TESTS))(*x.columns), _ptr(rw))
+
+    def i32(t, *shape):
+        return checked(k, t, torch.int32, shape, dev)
+
+    def u8(t, *shape):
+        return checked(k, t, torch.bool, shape, dev).view(torch.uint8)
+
+    Tl, Ts = x.sched.shape
+    Rq = x.req.shape[0]
+    MPp, MUP = x.pod_ports.shape[1], x.node_used_ports.shape[1]
+    keep = [  # references held across the launch
+        i32(x.pod_node_name, P), i32(x.pod_tolset, P), i32(x.pod_req_id, P),
+        i32(x.pod_sel_req_id, P), i32(x.pod_ports, P, MPp),
+        u8(x.node_valid, N), u8(x.node_unsched, N), i32(x.node_taintset, N),
+        i32(x.node_used_ports, N, MUP), u8(x.sched, Tl, Ts), u8(x.req, Rq, N),
+        u8(x.mask, P, N) if x.flags & F_MASK else None,
+        None if rows is None else u8(rows, P),
+    ]
+    used = lst = None
+    if Tl + Rq > PACK_ALL:  # mark the rows the pods name, pack those alone
+        used = torch.zeros((Tl + Rq + 1,), dtype=torch.int32, device=dev)
+        lst = torch.empty((Tl + Rq,), dtype=torch.int32, device=dev)
+    words = torch.empty(((2 + Tl + Rq) * (-(-N // 32)),), dtype=torch.int32, device=dev)
+    out = torch.empty((P, x.n_filters), dtype=torch.int32, device=dev)
+    surv = torch.empty((P, N), dtype=torch.bool, device=dev) if survivors else None
+    err = _rejects_library().static_rejects_launch(
+        P, N, x.flags, *[_ptr(t) for t in keep[:5]], MPp,
+        *[_ptr(t) for t in keep[5:9]], MUP, _ptr(keep[9]), Tl, Ts, _ptr(keep[10]), Rq,
+        _ptr(keep[11]), x.n_filters, (ctypes.c_int * len(REJECT_TESTS))(*x.columns),
+        _ptr(keep[12]), _ptr(used), _ptr(lst), _ptr(words), _ptr(out), _ptr(surv),
+        stream_of(dev))
     raise_on_error(k, err)
     count_launch(k)
-    return out
+    return out if surv is None else (out, surv)
 
 
-def static_rejects(x: StaticBaseInputs, rows=None) -> torch.Tensor:
-    """i32 [P, F] static first-rejector counts: the kernel on CUDA, the
-    plain version on CPU."""
+def static_rejects(x: StaticBaseInputs, rows=None, survivors: bool = False):
+    """i32 [P, F] static first-rejector counts (and with `survivors` the
+    bool [P, N] remainder of the chain): the kernel on CUDA, the plain
+    version on CPU."""
     if x.node_valid.device.type == "cuda":
-        return static_rejects_cuda(x, rows)
+        return static_rejects_cuda(x, rows, survivors)
     _check_reject_inputs(x)
-    return static_rejects_plain(x, rows)
+    return static_rejects_plain(x, rows, survivors)

@@ -1642,13 +1642,17 @@ STATIC_REJECT_TAGS = (
     "default filters, a mask operand", "rows all false", "rows all true",
     "seeded rows", "every node rejected by the first filter", "F = 1",
     "filters in another order", "N = 13, scalar path", "N = 8, one partial tile",
-    "misaligned rows, scalar path", "P = 2049 x N = 64")
+    "misaligned rows, scalar path", "P = 2049 x N = 64", "N = 31", "N = 32", "N = 33",
+    "N = 8199, a partial last word", "pods pinned to nodes 31 and 32",
+    "Ts = 33, past the bit table", "F = 32", "a row whose every node survives",
+    "a mask operand with odd-length rows")
 DYN_REJECT_TAGS = (
     "every part kind, F = 9", "rows all false", "rows all true",
     "every node rejected by the first part", "F = 1", "a start mask all false",
     "a plane alone", "a FitMask alone", "a PortMask alone", "Q = 0",
     "parts in another column order", "B = 13, N = 13", "N = 8199, a partial tile",
-    "misaligned planes, scalar path")
+    "misaligned planes, scalar path", "N = 31", "N = 32", "N = 33", "F = 32",
+    "a row whose every node survives", "a FitMask alone at N = 33")
 _VB_COLUMN = 6  # VolumeBinding's index among the default filters
 
 
@@ -1690,8 +1694,49 @@ def static_reject_cases(device="cpu") -> dict:
            "N = 8, one partial tile": (_narrow(x, 8), None),
            "misaligned rows, scalar path": (_misaligned(x), None),
            "P = 2049 x N = 64": (_tile_pods(_narrow(x, 64), 2049), None)}
+    # the 32-node words' edges: a last word of 31, 32 and 33 nodes, and of 7
+    for n in (31, 32, 33):
+        out[f"N = {n}"] = (_narrow(x, n), rows(rng.random(P) < 0.8))
+    out["N = 8199, a partial last word"] = (_tile_nodes(x, 8199), None)
+    pin = x.pod_node_name.clone()
+    pin[0::4], pin[1::4], pin[2::8] = 31, 32, -2
+    out["pods pinned to nodes 31 and 32"] = (dataclasses.replace(x, pod_node_name=pin), None)
+    Tl = x.sched.shape[0]
+    ts = rng.integers(-1, 35, N)  # -1 and 33-34 clamp to the table's ends
+    out["Ts = 33, past the bit table"] = (dataclasses.replace(
+        x, sched=torch.from_numpy(rng.random((Tl, 33)) < 0.7).to(device),
+        tscore=torch.from_numpy(rng.random((Tl, 33)).astype(np.float32)).to(device),
+        node_taintset=torch.from_numpy(ts.astype(np.int32)).to(device)), None)
+    out["F = 32"] = (dataclasses.replace(x, n_filters=32, columns=(3, 9, 14, 20, 27, 31)),
+                     rows(rng.random(P) < 0.7))
+    # pod 0 passes every test at every node: a new toleration set that
+    # tolerates every taint set, no pin, requirement row or port
+    y = _narrow(x, 96)  # three whole words, the vector path
+    pod0 = {f: getattr(y, f).clone() for f in (
+        "pod_tolset", "pod_node_name", "pod_req_id", "pod_sel_req_id", "pod_ports", "mask")}
+    pod0["pod_tolset"][0] = Tl
+    for f in ("pod_node_name", "pod_req_id", "pod_sel_req_id", "pod_ports"):
+        pod0[f][0] = -1
+    pod0["mask"][0] = True
+    out["a row whose every node survives"] = (dataclasses.replace(
+        y, **pod0, node_unsched=torch.zeros_like(y.node_unsched),
+        sched=torch.cat([y.sched, torch.ones_like(y.sched[:1])]),
+        tscore=torch.cat([y.tscore, torch.zeros_like(y.tscore[:1])])), None)
+    y = _narrow(x, 45)
+    out["a mask operand with odd-length rows"] = (dataclasses.replace(
+        y, mask=torch.from_numpy(rng.random((P, 45)) < 0.5).to(device)), None)
     assert tuple(out) == STATIC_REJECT_TAGS
     return out
+
+
+def _tile_nodes(x, n: int):
+    """The inputs with their nodes repeated to n nodes."""
+    idx = torch.arange(n, device=x.node_valid.device) % x.shape[1]
+    node = {f: getattr(x, f)[idx].contiguous() for f in (
+        "node_valid", "node_unsched", "node_taintset", "node_used_ports", "node_room")}
+    rows = {f: getattr(x, f)[:, idx].contiguous() for f in ("req", "pref", "img")}
+    mask = None if x.mask is None else x.mask[:, idx].contiguous()
+    return dataclasses.replace(x, **node, **rows, mask=mask)
 
 
 def dyn_reject_raw_cases() -> dict:
@@ -1732,6 +1777,21 @@ def dyn_reject_raw_cases() -> dict:
     out["B = 13, N = 13"] = case(_dyn_raw(rng, 13, 13, 4, ports=True, Q=4, MP=3))
     out["N = 8199, a partial tile"] = case(_dyn_raw(rng, 5, 8199, 4, ports=True, Q=2))
     out["misaligned planes, scalar path"] = case(dict(x, misaligned=True))
+    # the 16-node vectors' and 32-node words' edges
+    for n in (31, 32, 33):
+        out[f"N = {n}"] = case(_dyn_raw(rng, 24, n, 4, **base))
+    out["F = 32"] = case(x, port=5, fit=17, planes=(2, 31), F=32)
+    y = _dyn_raw(rng, 20, 64, 4, **base)
+    y["vsbase"][0] = 1.0
+    y["nreq"][:] = 0.0  # the room is the allocatable and its slack
+    y["preq"][0] = 0.0
+    y["ids"][0] = -1
+    for m in y["mplanes"]:
+        m[0] = True
+    y["act"][0] = True
+    out["a row whose every node survives"] = case(y)
+    y = _dyn_raw(rng, 40, 33, 4, n_mplanes=0)
+    out["a FitMask alone at N = 33"] = case(y, fit=1, F=3, planes=())
     assert tuple(out) == DYN_REJECT_TAGS
     return out
 

@@ -7,7 +7,8 @@ their bits), inputs made with numpy from a seed or by the synth generators:
 - K16's and K17's plain versions (`static_rejects_plain`,
   `dyn_rejects_plain`) on their seeded edge cases
   (`utils/kernel_cases.static_reject_cases`, `dyn_reject_cases`) against
-  the reference's attribution over the same per-filter masks;
+  the reference's attribution over the same per-filter masks; K16's
+  survivors plane against K1's mask without fit and sampling;
 - `scan_commit_plain`'s full outputs (the per-step rejects) against the
   reference's `greedy_commit` with its framework's per-pod hooks on K13's
   edge cases;
@@ -20,7 +21,8 @@ their bits), inputs made with numpy from a seed or by the synth generators:
   unplaced pods outnumber the window and the last window, clamped to end
   at P, overlaps the one before: 120 pods with affinity on 3 nodes, and
   config #4's mix with volumes at 24 nodes; `failed_scheduling_message`
-  on its rows.
+  on its rows; each window's start mask, K16's survivors plane, against
+  K1's mask without fit and sampling.
 
 Each reference program is built and run once per module."""
 
@@ -132,6 +134,11 @@ def test_framework_static_matches_reference(name):
     assert int(got[2].sum()) > 0
 
 
+# the edge cases, built once a module (no test changes them)
+_static_cases = functools.lru_cache(maxsize=None)(kernel_cases.static_reject_cases)
+_dyn_cases = functools.lru_cache(maxsize=None)(kernel_cases.dyn_reject_cases)
+
+
 def _ref_chain(base, per_filter, rows):
     return np.asarray(_REF_FW.attribute_rejects(
         jnp.asarray(base.numpy()),
@@ -144,7 +151,7 @@ def test_static_rejects_plain_matches_reference_chain(tag):
     """K16's plain version: each static filter's mask from the inputs'
     tables at its column (None where a filter has none), chained from
     node_valid by the reference's `attribute_rejects`."""
-    x, rows = kernel_cases.static_reject_cases()[tag]
+    x, rows = _static_cases()[tag]
     P, N = x.shape
     masks = static_base._filter_masks(x)
     per_filter = [None] * x.n_filters
@@ -158,12 +165,27 @@ def test_static_rejects_plain_matches_reference_chain(tag):
         assert (got[:, 1:] == 0).all() and (got[:, 0] == x.node_valid.sum()).all()
 
 
+@pytest.mark.parametrize("tag", kernel_cases.STATIC_REJECT_TAGS)
+def test_static_rejects_plain_survivors_match_static_base(tag):
+    """K16's survivors plane in plain torch: the chain's remainder over every
+    row, whatever `rows` says, equals K1's mask without fit and sampling
+    (the diagnosis program's former start mask), and the counts are those
+    without the plane."""
+    x, rows = _static_cases()[tag]
+    counts, surv = static_base.static_rejects_plain(x, rows, survivors=True)
+    _eq(surv, static_base.static_base_plain(x) > static_base.NEG_INF / 2, tag)
+    _eq(counts, static_base.static_rejects_plain(x, rows), tag)
+    got = static_base.static_rejects(x, rows, True)
+    _eq(got[0], counts, tag)
+    _eq(got[1], surv, tag)
+
+
 @pytest.mark.parametrize("tag", kernel_cases.DYN_REJECT_TAGS)
 def test_dyn_rejects_plain_matches_reference_chain(tag):
     """K17's plain version: each dynamic part's mask (K14's plain part
     arithmetic) at its column, chained from the start mask by the
     reference's `attribute_rejects`."""
-    start, parts, F, rows = kernel_cases.dyn_reject_cases()[tag]
+    start, parts, F, rows = _dyn_cases()[tag]
     per_filter = [None] * F
     for col, part in parts:
         per_filter[col] = dyn_round._plain_part(part)
@@ -297,9 +319,14 @@ def _diagnosis(name, window):
         frame.wbuf, frame.bbuf, pstable)
     cyc = port_cycle.build_packed_cycle_carry_fn(frame.spec, device="cpu")(
         frame.wbuf, frame.bbuf, pstable, carry)
-    got = port_cycle.build_diagnosis_fn(frame.spec, window=window, device="cpu")(
-        frame.wbuf, frame.bbuf, pstable, cyc.assignment, cyc.node_requested, cyc.pv_claimed)
-    return want_cycle, want, cyc, got, frame.snap
+
+    def run(**kernels):
+        return port_cycle.build_diagnosis_fn(frame.spec, window=window, device="cpu",
+                                             **kernels)(
+            frame.wbuf, frame.bbuf, pstable, cyc.assignment, cyc.node_requested,
+            cyc.pv_claimed)
+
+    return want_cycle, want, cyc, run(), frame.snap, run
 
 
 DIAGNOSIS = [("churn", 70), ("volumes", 140)]
@@ -307,7 +334,7 @@ DIAGNOSIS = [("churn", 70), ("volumes", 140)]
 
 @pytest.mark.parametrize("name,window", DIAGNOSIS)
 def test_diagnosis_matches_reference(name, window):
-    want_cycle, want, cyc, got, snap = _diagnosis(name, window)
+    want_cycle, want, cyc, got, snap, _ = _diagnosis(name, window)
     _eq(cyc.assignment, want_cycle.assignment, "assignment")
     _eq(got, want, "rejects")
     unplaced = (snap.pod_valid & (cyc.assignment < 0)).numpy()
@@ -320,7 +347,7 @@ def test_diagnosis_matches_reference(name, window):
 
 @pytest.mark.parametrize("name,window", DIAGNOSIS)
 def test_failed_scheduling_message_matches_reference(name, window):
-    _, want, cyc, got, snap = _diagnosis(name, window)
+    _, want, cyc, got, snap, _ = _diagnosis(name, window)
     names = Framework.from_config().filter_names
     assert names == ref_runtime.Framework.from_config().filter_names
     rows = np.flatnonzero((snap.pod_valid & (cyc.assignment < 0)).numpy())
@@ -332,6 +359,26 @@ def test_failed_scheduling_message_matches_reference(name, window):
             ref_events.failed_scheduling_message(n, pairs_want)
     assert failed_scheduling_message(n, [(names[0], 0)]) == \
         ref_events.failed_scheduling_message(n, [(names[0], 0)])
+
+
+@pytest.mark.parametrize("name,window", DIAGNOSIS)
+def test_diagnosis_start_mask_is_the_static_survivors(name, window):
+    """Each window's start mask is K16's survivors plane: on every window it
+    equals K1's mask without fit and sampling (`static_base_plain(x) >
+    NEG_INF / 2`, the start mask the program built before), and the program
+    stays bit-equal to the reference's."""
+    _, want, _, _, _, run = _diagnosis(name, window)
+    windows = []
+
+    def static_rejects(x, rows=None, survivors=False):
+        assert survivors
+        counts, surv = static_base.static_rejects_plain(x, rows, survivors)
+        _eq(surv, static_base.static_base_plain(x) > static_base.NEG_INF / 2, "start mask")
+        windows.append(int(rows.sum()))
+        return counts, surv
+
+    _eq(run(static_rejects_fn=static_rejects), want, "rejects")
+    assert len(windows) >= 2 and all(n > 0 for n in windows)
 
 
 def test_diagnosis_refuses_what_is_not_ported():
