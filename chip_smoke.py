@@ -182,12 +182,21 @@ Phases:
                 and through the volume gate;
   8. carry    — the device-carry latency path that serving runs, on config
                 #4's workload and again with `config4_volumes`: a full
-                `SnapshotEncoder.encode_packed` (one pinned upload a
-                buffer), `build_stable_state_fn`, `CarryKeeper` (carry_init:
-                K1 over every row), then 4 churn frames, each binding the
-                previous frame's first 500 placements into the running set
-                (their slots refilled by fresh draws of config #4's mix)
-                and replacing 200 other slots: the keeper's update (K1 on
+                `SnapshotEncoder.encode_packed` (the encoder sized by
+                `pad_existing` and `pad_pods_per_node` for the phase; one
+                upload a buffer from its pinned arena),
+                `build_stable_state_fn`, `CarryKeeper` (carry_init: K1 over
+                every row), then 4 churn frames, each binding the previous
+                frame's first 500 placements into the running set (their
+                slots refilled by fresh draws of config #4's mix) and
+                replacing 200 other slots, each encoded by the delta path
+                with the existing-set fold (a frame that takes the full
+                path fails the phase unless a pad or interning rule of the
+                reference demands it) and by a second encoder that full-
+                encodes every frame: the two frames' host buffers equal
+                bit for bit, the delta's dirty slots a superset of the full
+                encode's row comparison, each frame's path, delta_profile
+                and encode ms beside the full encode's logged; the keeper's update (K1 on
                 the dirty bucket's rows, scattered into the carried static
                 base), `build_packed_cycle_carry_fn` and
                 `build_packed_preemption_fn`, launch counts read around
@@ -260,6 +269,7 @@ EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 # timed against --prev-csrc
 CARRY_FRAMES, CARRY_REPLACED, CARRY_BOUND = 4, 200, 500  # the carry phase's churn
 CARRY_SEED = 205
+CARRY_MPN = 16  # pad_pods_per_node: the running pods a node holds after the churn
 PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold",
                 "pv_choice", "preempt_whatif", "preempt_prefilter", "static_base",
                 "dyn_round")
@@ -2572,7 +2582,13 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
                                                                   seed=seed)
         vol = dict(pvcs=pvcs, pvs=pvs, storage_classes=classes)
     names = [nd.name for nd in nodes]
-    enc = SnapshotEncoder(device=dev)
+    # the serving knobs, sized for the phase: every frame's bound pods fold
+    # into E, and the hot nodes' depth into MPN, without a regime change
+    knobs = dict(pad_existing=len(running) + CARRY_FRAMES * CARRY_BOUND,
+                 pad_pods_per_node=CARRY_MPN)
+    enc = SnapshotEncoder(device=dev, **knobs)
+    full_enc = SnapshotEncoder(device=dev, incremental=False, **knobs)
+    paths = []
     cycle_f = build_cycle_fn(fw, commit_mode="rounds", outputs="latency", device=dev)
     pre_f = build_preemption_fn(fw, device=dev)
     keeper, assignment, updates, prev_spec = None, None, 0, None
@@ -2594,11 +2610,39 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
             for i, p in zip(slots, fresh):
                 pods[i] = p
         torch.cuda.synchronize()
+        n_delta, n_fold = enc.delta_hits, enc.fold_hits
         t0 = time.time()
         frame = enc.encode_packed(nodes, pods, running, **vol)
         encode_ms = (time.time() - t0) * 1e3
         upload_ms = enc.last_upload_ms()
         w, b, spec = frame.wbuf, frame.bbuf, frame.spec
+        path = ("full" if enc.delta_hits == n_delta
+                else "delta + fold" if enc.fold_hits > n_fold else "delta")
+        t0 = time.time()
+        full = full_enc.encode_packed(nodes, pods, running, **vol)
+        full_ms = (time.time() - t0) * 1e3
+        full_enc.last_upload_ms()
+        check(full.spec.key() == spec.key()
+              and all(np.array_equal(a, c) for a, c in zip(enc.host_buffers(),
+                                                           full_enc.host_buffers())),
+              f"{tag} frame {f}: the {path} frame's host buffers differ from a full encode's")
+        if frame.dirty is not None:
+            check(full.dirty is not None and set(full.dirty.tolist()) <= set(frame.dirty.tolist()),
+                  f"{tag} frame {f}: dirty misses rows a full encode finds changed")
+        del full
+        why = enc.full_reason if path == "full" else ""
+        if f:
+            check(path == "delta + fold" or (path == "full" and any(
+                  w_ in why for w_ in ("pad", "interning", "capability", "inter-pod", "256"))),
+                  f"{tag} frame {f}: {path} path ({why or 'no fold'}): the running list grew "
+                  f"by a pure append")
+        paths.append({"path": path, "encode_ms": round(encode_ms, 1),
+                      "full_encode_ms": round(full_ms, 1)})
+        prof = {k: round(v, 2) for k, v in enc.delta_profile.items()}
+        log(f"phase {tag} frame {f}: encode path {path}{f' ({why})' if why else ''}, "
+            f"{encode_ms:.1f} ms host against {full_ms:.1f} ms for a full encode of the "
+            f"same objects (host buffers bit-equal; delta_profile ms {json.dumps(prof)}) "
+            f"| {smi}")
 
         # the carry path: counts set to 0 just before, read just after
         ev = events(5)
@@ -2710,7 +2754,8 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
     check(updates > 0, f"{tag}: no frame updated the carry (every one rebuilt it)")
     check(counts["static_base"] == CARRY_FRAMES + 1,
           f"{tag}: K1 ran {counts['static_base']} times over {CARRY_FRAMES + 1} frames")
-    return {"launches": counts, "ms": ms, "diagnosis": diag}
+    log(f"phase {tag} encode paths: {json.dumps(paths)}")
+    return {"launches": counts, "ms": ms, "diagnosis": diag, "encode": paths}
 
 
 def main(argv=None) -> int:

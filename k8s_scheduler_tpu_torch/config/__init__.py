@@ -5,4 +5,5 @@ from .types import (  # noqa: F401
     Profile,
     SchedulerConfiguration,
     default_plugins,
+    load_config,
 )

@@ -1,8 +1,10 @@
 """Config API subset: the part of `k8s_scheduler_tpu/config/types.py` the
-rounds-engine slice reads — profiles with per-extension-point plugin
-sets and args, the default plugin sets and weights, `commit_mode`,
-`gang_scheduling` and `percentage_of_nodes_to_score`. The port keeps its
-own copy; YAML loading and the serving knobs wait for the host slice."""
+port reads — profiles with per-extension-point plugin sets and args
+(queueSort, filter, postFilter, score), the default plugin sets and
+weights, `commit_mode`, `gang_scheduling` and
+`percentage_of_nodes_to_score`, and `load_config` for those fields under
+their upstream names. The port keeps its own copy; the serving knobs wait
+for the host slice (ROADMAP A10)."""
 
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ class PluginSet:
 
 @dataclass
 class Plugins:
+    queue_sort: PluginSet = field(default_factory=PluginSet)
     filter: PluginSet = field(default_factory=PluginSet)
     post_filter: PluginSet = field(default_factory=PluginSet)
     score: PluginSet = field(default_factory=PluginSet)
@@ -96,3 +99,47 @@ def default_plugins() -> dict[str, list[PluginEntry]]:
         "score": [PluginEntry(n, w) for n, w in _DEFAULT_SCORES],
         "post_filter": [PluginEntry(n) for n in _DEFAULT_POST_FILTERS],
     }
+
+
+def _plugin_set_from_dict(d: dict) -> PluginSet:
+    return PluginSet(
+        enabled=[PluginEntry(e["name"], e.get("weight", 1)) for e in d.get("enabled", [])],
+        disabled=[e["name"] if isinstance(e, dict) else e for e in d.get("disabled", [])],
+    )
+
+
+# (upstream extension-point name, Plugins attribute) for the points the port reads
+_POINTS = (("queueSort", "queue_sort"), ("filter", "filter"),
+           ("postFilter", "post_filter"), ("score", "score"))
+
+
+def load_config(source: "str | dict") -> SchedulerConfiguration:
+    """A configuration from a dict (or a YAML string or file path, where
+    PyYAML is installed) with upstream field names, as the reference's
+    `load_config` reads them, for the fields this subset has."""
+    if isinstance(source, str):
+        import yaml
+
+        if "\n" not in source and source.endswith((".yaml", ".yml", ".json")):
+            with open(source) as f:
+                source = yaml.safe_load(f)
+        else:
+            source = yaml.safe_load(source)
+    data = source or {}
+    profiles = []
+    for pd in data.get("profiles", [{}]):
+        plugins = Plugins()
+        for point, attr in _POINTS:
+            if point in pd.get("plugins", {}):
+                setattr(plugins, attr, _plugin_set_from_dict(pd["plugins"][point]))
+        profiles.append(Profile(
+            scheduler_name=pd.get("schedulerName", "default-scheduler"),
+            plugins=plugins,
+            plugin_config={e["name"]: e.get("args", {}) for e in pd.get("pluginConfig", [])},
+        ))
+    return SchedulerConfiguration(
+        profiles=profiles or [Profile()],
+        percentage_of_nodes_to_score=data.get("percentageOfNodesToScore", 0),
+        gang_scheduling=data.get("gangScheduling", True),
+        commit_mode=data.get("commitMode", "rounds"),
+    )

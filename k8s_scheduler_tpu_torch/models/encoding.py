@@ -32,21 +32,28 @@ reference's order.
 `encode_packed` returns an `EncodedFrame`: the snapshot packed into two
 device buffers (`models/packing.py`) and the pod slots whose rows changed
 since the previous frame, for the device-resident carry
-(`core/cycle.py build_carry_fns`). It runs the full encode and finds the
-changed rows by comparing them with the previous frame's.
-
-Not in this slice (ROADMAP A1): the delta/fold/arena encode paths.
+(`core/cycle.py build_carry_fns`). The packed host buffers are a
+persistent arena (pinned on the card: the upload's source), whose field
+views a frame rewrites in place. The incremental encode of the reference
+(`encode_packed`'s delta path): when only the pending side changed, only
+the dirty pod slots' rows are rewritten; when the running list changed by
+a pure append or a pure tail removal, the stable side is folded in place
+first (`_try_fold_existing`). Anything else takes the full encode. Either
+way the frame is bit for bit a full encode of the same objects.
+`ingest_pod` parses an arriving pod's row ahead of the flush.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from ..framework.queuesort import PrioritySort, QueueSortPlugin
 from ..utils.device import resolve_device
 from . import api
 from .api import (
@@ -104,10 +111,12 @@ class EncodedFrame(NamedTuple):
     """encode_packed's result: the device buffers, their spec, a snapshot
     whose fields are views into them, and which pod slots changed.
     `dirty` is None when the carry key changed (every row must be rebuilt)
-    and else an i32 array of slot ids: every slot whose row of a pod-axis
-    field changed since the previous frame, plus, when the existing set
-    moved NodePorts' used ports, every slot of a pod that names a host
-    port."""
+    and else an i32 array of slot ids: at least every slot whose row of a
+    pod-axis field changed since the previous frame (the full path compares
+    the rows; the delta path takes the slots whose pod object changed or
+    was reported mutated, the slots emptied and those whose port ids
+    moved), plus, when the existing set moved NodePorts' used ports, every
+    slot of a pod that names a host port."""
 
     wbuf: torch.Tensor
     bbuf: torch.Tensor
@@ -258,14 +267,17 @@ def _num_or_nan(s: str) -> float:
         return float("nan")
 
 
-def priority_rank(priorities: np.ndarray, creation: np.ndarray) -> np.ndarray:
-    """PrioritySort queue rank: priority desc, creation asc, index as the
-    final deterministic tie-break. i32 [n] rank per pod."""
-    n = priorities.shape[0]
-    order_key = np.lexsort((np.arange(n), creation[:n], -priorities[:n]))
-    out = np.empty(n, np.int32)
-    out[order_key] = np.arange(n, dtype=np.int32)
-    return out
+def _scatter_at(dst: np.ndarray, idx: np.ndarray, rows, pad) -> None:
+    """dst[idx[k], :len(rows[k])] = rows[k], the rest of each of those rows
+    `pad`: one fancy-index write for the batch (every row fits `dst`'s
+    width; a [n, a, b] field is written through its [n, a * b] view)."""
+    dst[idx] = pad
+    lens = np.fromiter((len(r) for r in rows), np.int64, len(rows))
+    total = int(lens.sum())
+    if total:
+        starts = np.cumsum(lens) - lens
+        dst[np.repeat(idx, lens), np.arange(total) - np.repeat(starts, lens)] = (
+            np.concatenate([r for r in rows if len(r)]))
 
 
 @dataclass
@@ -472,16 +484,47 @@ def pref_raw_bound(pod_terms, pod_w, pod_tsc, exist_terms, exist_w) -> float:
 class SnapshotEncoder:
     """Builds `ClusterSnapshot`s. Holds the interners and the derived intern
     tables so every id is stable across encodes, and caches per-object
-    encoded rows and the stable (node/existing) side like the reference."""
+    encoded rows and the stable (node/existing) side like the reference.
+
+    The serving knobs are the reference's (`models/encoding.py:397-436`):
+    `pad_pods` / `pad_nodes` fix the P / N pads (else the power-of-two
+    bucket through `hysteresis_pad`), `pad_existing` and
+    `pad_pods_per_node` pre-size the sticky E and MPN pads an existing-set
+    fold would otherwise outgrow mid-serving, `pad_ma` / `pad_mc` the
+    sticky per-pod term pads, `pad_hysteresis_pct` the down-step margin of
+    the P / N buckets; `queue_sort` is the profile's queueSort plugin
+    (`framework/queuesort.py`, default PrioritySort), which owns
+    `pod_order`. `incremental=False` makes every `encode_packed` a full
+    encode (a reference for the delta path's frames)."""
 
     def __init__(
         self,
         resource_names: Sequence[str] = api.DEFAULT_RESOURCES,
         device=None,
+        *,
+        pad_pods: int | None = None,
+        pad_nodes: int | None = None,
+        queue_sort: QueueSortPlugin | None = None,
+        pad_existing: int | None = None,
+        pad_pods_per_node: int | None = None,
+        pad_ma: int | None = None,
+        pad_mc: int | None = None,
+        pad_hysteresis_pct: float = 0.0,
+        incremental: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         self.strings = StringInterner()
         self.resource_names = list(resource_names)
+        self.pad_pods = pad_pods
+        self.pad_nodes = pad_nodes
+        self.pad_existing = pad_existing
+        self.pad_pods_per_node = pad_pods_per_node
+        self.pad_ma = pad_ma
+        self.pad_mc = pad_mc
+        self.pad_hysteresis_pct = float(pad_hysteresis_pct)
+        self._held_pads: dict[str, int] = {}  # last pad used per hysteresis dim
+        self.queue_sort = queue_sort if queue_sort is not None else PrioritySort()
+        self.incremental = incremental
         # persistent intern tables (grow-only; ids stable across encodes)
         self._exprs_t = _InternTable()  # rows: (key, op, vals, num)
         self._reqs_t = _InternTable()  # rows: tuple of terms (expr-id tuples)
@@ -514,15 +557,45 @@ class SnapshotEncoder:
         self._vol_sig = None
         self._vol_epoch = 0
         self._carry_key = None
-        # encode_packed: the previous frame's regime, pod rows and used
-        # ports, and pinned host buffers with the events around their last
-        # upload
-        self._frame_key = None
-        self._frame_rows: dict[str, np.ndarray] = {}
-        self._frame_ports: np.ndarray | None = None
-        self._pinned = None
+        # the delta path's state, stashed by every full encode; the arena:
+        # host buffers (pinned on the card) and numpy views of its fields
+        self._delta_state: dict | None = None
+        self._arena_synced = False
+        self._arena: dict[str, np.ndarray] | None = None
+        self._arena_spec = None
+        self._host: tuple[torch.Tensor, torch.Tensor] | None = None
         self._upload_done = None
+        # the previous frame's regime: (carry key, pack layout)
+        self._frame_key = None
         self.last_changed_slots: np.ndarray | None = None
+        # counters; `delta_profile` holds the last delta encode's ms per
+        # segment (detect, rows, ports, fold, apply, order, ingest) and is
+        # empty after a full encode, whose cause `full_reason` names
+        self.full_encodes = 0
+        self.delta_hits = 0
+        self.fold_hits = 0
+        self.ingest_hits = 0
+        self.ingest_misses = 0
+        self.delta_profile: dict[str, float] = {}
+        self.full_reason = ""
+        # admission-time rows (ingest_pod), keyed by id(pod) with the pod held
+        self._staged: dict[int, tuple[Any, dict]] = {}
+        self._staged_grew = False
+        self._ingest_ms = 0.0
+
+    def hysteresis_pad(self, dim: str, candidate: int, real: int) -> int:
+        """The P / N pad to use for this encode given the bucket-rounded
+        `candidate` and the `real` count behind it: up-steps at once; a
+        down-step only when the real count leaves at least
+        `pad_hysteresis_pct` percent of headroom in the smaller bucket, so
+        a count oscillating around a boundary holds the larger regime. The
+        identity on `candidate` with the knob at 0."""
+        held = self._held_pads.get(dim, 0)
+        pct = self.pad_hysteresis_pct
+        if candidate >= held or pct <= 0.0 or real <= candidate * (1.0 - pct / 100.0):
+            self._held_pads[dim] = candidate
+            return candidate
+        return held
 
     def _stick(self, key: str, val: int) -> int:
         val = max(val, self._sticky_dims.get(key, 0))
@@ -533,6 +606,18 @@ class SnapshotEncoder:
         cur = self._sticky_flags.get(key, False) or bool(val)
         self._sticky_flags[key] = cur
         return cur
+
+    def _table_lens(self) -> tuple:
+        """Sizes of every grow-only interning structure a cached row can
+        reference: if one grows while a row is built, the stable side's
+        finalized tables lack the entry and the delta path must fall back
+        to a full encode."""
+        return (
+            len(self.strings), len(self.resource_names), len(self._exprs_t),
+            len(self._reqs_t), len(self._prefs_t), len(self._tols_t),
+            len(self._taints_t), len(self._sels_t), len(self._imgsets_t),
+            len(self._image_ids), len(self._group_ids), len(self._topo_keys),
+        )
 
     def _resources_vec(self, req: dict[str, float]) -> np.ndarray:
         idx = self._rn_idx
@@ -565,6 +650,94 @@ class SnapshotEncoder:
                                         pdbs=pdbs)
         return snapshot_from_numpy(fields, aux, self.device)
 
+    # ------------------------------------------------------------------
+    # The packed frame and its incremental encode (reference
+    # `models/encoding.py:1769-2567`). Contract for the delta path, as the
+    # reference's: callers keep one list object per stable side and replace
+    # or append to it when it changes (never rewrite an element in place);
+    # pod objects are immutable once handed to the encoder, except
+    # `nominated_node_name`, whose in-place change is reported through
+    # `mutated_ids`.
+    # ------------------------------------------------------------------
+
+    # (field, row key, pad) of the pending side's 2-D fields and of its
+    # 3-D fields (written through their [P, -1] views), and the scalar
+    # fields' pads (the full path's initial values)
+    _PEND_2D = (
+        ("pod_requested", "reqvec", 0.0),
+        ("pod_label_keys", "lab_k", -1),
+        ("pod_label_vals", "lab_v", -1),
+        ("pod_ports", "ports", -1),
+        ("pod_pref_aff_w", "pref_w", 0.0),
+        ("pod_tsc_skew", "tsc_skew", 0),
+        ("pod_vol_mode", "vol_mode", -1),
+        ("pod_vol_req", "vol_req", -1),
+        ("pod_vol_class", "vol_cls", -1),
+        ("pod_vol_size", "vol_size", 0.0),
+    )
+    _PEND_3D = (
+        ("pod_aff_terms", "aff", -1),
+        ("pod_anti_terms", "anti", -1),
+        ("pod_pref_aff", "pref", -1),
+        ("pod_tsc", "tsc", -1),
+    )
+    _PEND_SCALAR = (
+        ("pod_priority", "prio"),
+        ("pod_req_id", "req_id"),
+        ("pod_pref_id", "pref_id"),
+        ("pod_sel_req_id", "sel_req_id"),
+        ("pod_tolset", "tolset"),
+        ("pod_group", "gid"),
+        ("pod_imageset", "imageset"),
+        ("pod_can_preempt", "can_preempt"),
+    )
+    _PEND_SCALAR_PAD = {
+        "pod_priority": 0, "pod_req_id": -1, "pod_pref_id": -1,
+        "pod_sel_req_id": -1, "pod_tolset": 0, "pod_group": -1,
+        "pod_imageset": 0, "pod_can_preempt": False,
+        "pod_node_name": -1, "pod_nominated": -1,
+    }
+    # (field, row key, pad) of the running side's row fields
+    _EXIST_ROWS = (
+        ("exist_requested", "reqvec", 0.0),
+        ("exist_label_keys", "lab_k", -1),
+        ("exist_label_vals", "lab_v", -1),
+        ("exist_ports", "ports", -1),
+        ("exist_anti_terms", "anti", -1),
+        ("exist_pref_aff", "pref", -1),
+        ("exist_pref_aff_w", "pref_w", 0.0),
+    )
+
+    def ingest_pod(self, pod: Pod) -> bool:
+        """Admission-time encode (reference `:1856`): parse `pod`'s row now,
+        ahead of the flush, so the next delta finds it staged and skips the
+        parse (`ingest_hits`; the staging ms show as the `ingest` segment
+        of the next `delta_profile`). If the parse grew an interning table,
+        the next `encode_packed` takes the full path once. Returns True if
+        a row was staged; without a delta state yet, counts an
+        `ingest_misses` and stages nothing."""
+        ds = self._delta_state
+        if ds is None:
+            self.ingest_misses += 1
+            return False
+        t0 = time.perf_counter()
+        lens0 = self._table_lens()
+        try:
+            d = ds["pod_rowdata"](pod)
+        except Exception:
+            self.ingest_misses += 1
+            return False
+        if self._table_lens() != lens0:
+            self._staged_grew = True
+        self._staged[id(pod)] = (pod, d)
+        self._ingest_ms += (time.perf_counter() - t0) * 1e3
+        return True
+
+    def clear_ingest(self) -> None:
+        """Drop staged rows no flush consumed (pods dropped between
+        admission and the flush)."""
+        self._staged.clear()
+
     def encode_packed(
         self,
         nodes: Sequence[Node],
@@ -575,22 +748,55 @@ class SnapshotEncoder:
         pvs: Sequence[api.PersistentVolume] = (),
         storage_classes: Sequence[api.StorageClass] = (),
         pdbs: Sequence[api.PodDisruptionBudget] = (),
+        mutated_ids: frozenset | set = frozenset(),
     ) -> EncodedFrame:
         """Encode, pack and upload in one step (reference
-        `models/encoding.py:1898`, without its incremental delta encode:
-        ROADMAP A1). The buffers are new device tensors each frame, so an
-        earlier frame's snapshot stays valid.
+        `models/encoding.py:1898`). The buffers are new device tensors each
+        frame (copies on the CPU), so an earlier frame's snapshot stays
+        valid; the host arena they come from is rewritten by the next call.
+
+        The delta path (`_encode_delta`) runs when the nodes, volumes and
+        PDBs are the previous frame's objects and the running list is too
+        or changed by a pure append or tail removal (`_try_fold_existing`);
+        it falls back to the full encode on a new pad, interning growth or
+        a dim overflow (`full_reason` names the cause). `full_encodes`,
+        `delta_hits` and `fold_hits` count the paths.
 
         `dirty` (see `EncodedFrame`) is None on the first frame and
         whenever the carry key changes: `_carry_key`, the reference's rule
         (node objects, volumes, pads and interning dims, not the
         existing-pod set or PDBs), with the pack layout (pod pads, the
-        capability flags, the distinct-port axis). Else it compares every
-        pod row of every pod-axis field but the queue rank bit for bit with
-        the previous frame's (a superset of the rows whose carried tables
-        change, never a subset), and adds every port-bearing slot when
-        NodePorts' used ports moved. `last_changed_slots` holds the
-        compared rows alone, as the reference's does."""
+        capability flags, the distinct-port axis). On the full path it
+        compares every pod row of every pod-axis field but the queue rank
+        bit for bit with the arena's (the previous frame's), and adds every
+        port-bearing slot when NodePorts' used ports moved; the delta path
+        gives a superset of those rows. `last_changed_slots` holds the rows
+        alone, without the port-bearing slots."""
+        ds = self._delta_state
+        if self._staged_grew:
+            self._staged_grew = False
+            ds = None
+            self.full_reason = "an ingested row grew an interning table"
+        elif not self.incremental:
+            ds = None
+            self.full_reason = "incremental encode off"
+        elif ds is None:
+            self.full_reason = "no earlier full encode"
+        if ds is not None and self._stable_except_existing_ok(
+                ds, nodes, pvcs, pvs, storage_classes, pdbs):
+            frame = self._encode_delta(ds, pending, existing, pod_groups, mutated_ids)
+            if frame is not None:
+                self.delta_hits += 1
+                return frame
+        self.full_encodes += 1
+        self.delta_profile = {}
+        return self._encode_full(nodes, pending, existing, pod_groups, pvcs, pvs,
+                                 storage_classes, pdbs)
+
+    def _encode_full(self, nodes, pending, existing, pod_groups, pvcs, pvs,
+                     storage_classes, pdbs) -> EncodedFrame:
+        """The full path: encode, compare the pod rows with the arena's for
+        `dirty`, then write every field into the arena."""
         from . import packing
 
         fields, aux = self.encode_numpy(
@@ -603,56 +809,452 @@ class SnapshotEncoder:
             fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
             fields["exist_pref_aff"], fields["exist_pref_aff_w"]))
         spec = packing.spec_of_fields(fields, aux)
-        wbuf, bbuf = self._upload(fields, spec)
-        snap = packing.unpack(wbuf, bbuf, spec)
-
         key = (self._carry_key, spec.layout_key())
-        rows = {n: _bits(a).copy() for n, a in fields.items()
-                if n.startswith("pod_") and n not in _UNCARRIED_POD_FIELDS}
-        ports = fields["node_used_ports"].copy()
         dirty = None
         self.last_changed_slots = None
-        if key == self._frame_key:
+        if key == self._frame_key:  # the arena holds the previous frame, same layout
+            A = self._arena
             P = fields["pod_valid"].shape[0]
             changed = np.zeros(P, bool)
-            for n, a in rows.items():
-                changed |= (a != self._frame_rows[n]).reshape(P, -1).any(axis=1)
+            for n, a in fields.items():
+                if n.startswith("pod_") and n not in _UNCARRIED_POD_FIELDS:
+                    changed |= (_bits(a) != _bits(A[n])).reshape(P, -1).any(axis=1)
             self.last_changed_slots = np.nonzero(changed)[0].astype(np.int32)
-            if not np.array_equal(ports, self._frame_ports):
+            if not np.array_equal(fields["node_used_ports"], A["node_used_ports"]):
                 changed |= (fields["pod_ports"] >= 0).any(axis=1)
             dirty = np.nonzero(changed)[0].astype(np.int32)
-        self._frame_key, self._frame_rows, self._frame_ports = key, rows, ports
+        self._install_arena(fields, spec)
+        self._frame_key = key
         self._carry_key = key  # the regime key a CarryKeeper compares
-        return EncodedFrame(wbuf, bbuf, spec, snap, dirty)
+        return self._emit(spec, dirty)
 
-    def _upload(self, fields, spec) -> tuple[torch.Tensor, torch.Tensor]:
-        """Pack `fields` and copy the two buffers to the encoder's device:
-        on the card from pinned host buffers (kept across frames; the next
-        frame waits for this frame's copies before it packs over them), one
-        asynchronous copy each."""
-        from . import packing
+    def _stable_except_existing_ok(self, ds, nodes, pvcs, pvs, storage_classes,
+                                   pdbs) -> bool:
+        """Are the nodes, volumes, PDBs and fixed pads the last full
+        encode's (list identity first, element identity when the list was
+        rebuilt; PDBs' disruptionsAllowed by value)? Names the cause in
+        `full_reason` when not."""
+        why = None
+        if not self._arena_synced:
+            why = "a direct encode() since the last packed frame"
+        elif ds["pads"][:2] != (self.pad_pods, self.pad_nodes):
+            why = "pad_pods / pad_nodes changed"
+        elif ds["nodes_ids"] != (id(nodes), len(nodes)) and (
+                tuple(id(nd) for nd in nodes) != ds["nodes_elems"]):
+            why = "the node objects changed"
+        elif ds["vol_ids"] != (id(pvcs), len(pvcs), id(pvs), len(pvs),
+                               id(storage_classes), len(storage_classes)) and (
+                ds["vol_elems"] != (tuple(id(c) for c in pvcs), tuple(id(v) for v in pvs),
+                                    tuple(id(c) for c in storage_classes))):
+            why = "the volume objects changed"
+        elif ds["pdb_ids"] != (id(pdbs), len(pdbs)) and (
+                tuple(id(b) for b in pdbs) != ds["pdb_elems"][0]):
+            why = "the PDB objects changed"
+        elif tuple(b.disruptions_allowed for b in pdbs) != ds["pdb_elems"][1]:
+            why = "a PDB's disruptionsAllowed changed"
+        if why is not None:
+            self.full_reason = why
+        return why is None
 
-        if self.device.type != "cuda":
-            w, b = packing.pack(fields, spec)
-            return torch.from_numpy(w.view(np.int32)), torch.from_numpy(b)
+    def _bail(self, why: str) -> None:
+        self.full_reason = why
+        return None
+
+    def _encode_delta(self, ds, pending, existing, pod_groups, mutated_ids):
+        """The fast path (reference `:2275`): rewrite only the dirty pod
+        slots' rows in the arena, after folding a changed running list.
+        Every check comes before the first write to the arena, so a bail
+        (None: take the full path) leaves it holding the previous frame."""
+        t0 = time.perf_counter()
+        prof = self.delta_profile = {}
+        if self._ingest_ms:
+            prof["ingest"] = self._ingest_ms  # spent in ingest_pod, before this call
+            self._ingest_ms = 0.0
+
+        def mark(name):
+            nonlocal t0
+            t = time.perf_counter()
+            prof[name] = prof.get(name, 0.0) + (t - t0) * 1e3
+            t0 = t
+
+        dims = ds["dims"]
+        P = ds["pads"][2]
+        p_real = len(pending)
+        if (self.pad_pods or self.hysteresis_pad("P", _pow2_bucket(p_real), p_real)) != P:
+            return self._bail(f"{p_real} pending pods move the P pad from {P}")
+        if ds["exist_ids"] == (id(existing), len(existing)):
+            new_exist = None
+        else:
+            new_exist = tuple((id(p), nm) for p, nm in existing)
+            if new_exist == ds["exist_elems"]:  # the same pods in a new list
+                ds["exist_ids"] = (id(existing), len(existing))
+                new_exist = None
+        ids, rows, refs = ds["pend_ids"], ds["pend_rows"], ds["pend_refs"]
+        n_prev = ds["p_real"]
+        if n_prev < p_real:
+            ids += [0] * (p_real - n_prev)
+            rows += [None] * (p_real - n_prev)
+            refs += [None] * (p_real - n_prev)
+        now = [id(p) for p in pending]
+        changed = [i for i in range(p_real) if ids[i] != now[i] or ids[i] in mutated_ids]
+        mark("detect")
+
+        rowdata = ds["pod_rowdata"]
+        lens0 = self._table_lens()
+        staged = self._staged
+        new_rows = []
+        for i in changed:
+            p = pending[i]
+            if staged:
+                ent = staged.pop(now[i], None)
+                if ent is not None and ent[0] is p:
+                    self.ingest_hits += 1
+            new_rows.append(rowdata(p))
+        mark("rows")
+        if self._table_lens() != lens0:
+            return self._bail("a dirty pod's row grew an interning table")
+        flag_aff, flag_tsc, flag_vol, flag_mvol = ds["flags"]
+        for d in new_rows:
+            if (len(d["lab_k"]) > dims["MPL"] or d["n_aff"] > dims["MA"]
+                    or len(d["ports"]) > dims["MPorts"] or len(d["tsc_skew"]) > dims["MC"]
+                    or len(d["vol_mode"]) > dims["MVol"] or len(d["reqvec"]) > dims["R"]):
+                return self._bail("a dirty pod overflows a sticky pad dim")
+            if ((not flag_aff and d["n_aff"] > 0) or (not flag_tsc and len(d["tsc_skew"]))
+                    or (not flag_vol and len(d["vol_mode"]))
+                    or (not flag_mvol and len(d["vol_mode"]) >= 2)):
+                return self._bail("a dirty pod turns a capability flag on")
+        port_set = ds["port_set"]
+        for i, d in zip(changed, new_rows):
+            ids[i], refs[i], rows[i] = now[i], pending[i], d
+            if len(d["ports"]):
+                port_set.add(i)
+            else:
+                port_set.discard(i)
+        port_set.difference_update(range(p_real, n_prev))
+        # the distinct-port axis, re-interned in slot order (the full path's)
+        port_slots = sorted(port_set)
+        port_tab: dict[int, int] = {}
+        port_id_rows = [
+            np.array([port_tab.setdefault(int(ep), len(port_tab)) for ep in rows[i]["ports"]],
+                     np.int32)
+            for i in port_slots
+        ]
+        if _pad_dim(len(port_tab), 4) > dims["Q"]:
+            return self._bail("the distinct host ports outgrow the Q pad")
+        mark("ports")
+
+        self._wait_upload()  # the arena is the last upload's source
+        fold_ports = False
+        if new_exist is not None:
+            why = self._try_fold_existing(ds, existing, new_exist)
+            if why is not None:
+                return self._bail(why)
+            fold_ports = ds.pop("fold_port_dirty", False)
+            self.fold_hits += 1
+            mark("fold")
+
+        # ---- every check passed: write the arena ----
+        A = self._arena
+        creation = ds["creation"]
+        if changed:
+            idx = np.asarray(changed, np.int64)
+            for name, key, pad in self._PEND_2D:
+                _scatter_at(A[name], idx, [d[key] for d in new_rows], pad)
+            for name, key, pad in self._PEND_3D:
+                _scatter_at(A[name].reshape(P, -1), idx, [d[key] for d in new_rows], pad)
+            for name, key in self._PEND_SCALAR:
+                A[name][idx] = [d[key] for d in new_rows]
+            creation[idx] = [d["creation"] for d in new_rows]
+            nidx = ds["node_index"]
+            A["pod_node_name"][idx] = [
+                nidx.get(pending[i].spec.node_name, -2) if pending[i].spec.node_name else -1
+                for i in changed]
+            A["pod_nominated"][idx] = [
+                nidx.get(pending[i].nominated_node_name, -1)
+                if pending[i].nominated_node_name else -1 for i in changed]
+        mark("apply")
+        if p_real != n_prev:
+            A["pod_valid"][:] = False
+            A["pod_valid"][:p_real] = True
+            if p_real < n_prev:
+                self._clear_slots(slice(p_real, n_prev))
+                creation[p_real:n_prev] = 0.0
+            del ids[p_real:], rows[p_real:], refs[p_real:]
+            ds["p_real"] = p_real
+            A["num_pending"][...] = p_real
+        ppi = A["pod_port_ids"]
+        old_ppi = ppi.copy()
+        ppi[:] = -1
+        if port_slots:
+            _scatter_at(ppi, np.asarray(port_slots, np.int64), port_id_rows, -1)
+        po = A["pod_order"]
+        po[:] = np.iinfo(np.int32).max
+        if p_real:
+            po[:p_real] = self.queue_sort.rank(pending, A["pod_priority"][:p_real],
+                                               creation[:p_real])
+        gm = A["group_min_member"]
+        gm[:] = 0
+        declared = {g.name: g.min_member for g in pod_groups}
+        for name, gi in self._group_ids.items():
+            gm[gi] = declared.get(name, 0)
+        self._cycle_index += 1
+        A["cycle_index"][...] = self._cycle_index
+        bound = pref_raw_bound(A["pod_pref_aff"], A["pod_pref_aff_w"], A["pod_tsc"],
+                               A["exist_pref_aff"], A["exist_pref_aff_w"])
+        spec = self._arena_spec = dataclasses.replace(self._arena_spec, aux=tuple(
+            (k, bound if k == "pref_raw_bound" else v) for k, v in self._arena_spec.aux))
+        mark("order")
+
+        # the rows that changed: the new or mutated pods', the emptied
+        # slots', those whose port ids moved; plus, after a fold that moved
+        # used ports, every port-bearing slot
+        moved = np.zeros(P, bool)
+        moved[changed] = True
+        moved[p_real:n_prev] = True
+        moved |= (old_ppi != ppi).any(axis=1)
+        self.last_changed_slots = np.nonzero(moved)[0].astype(np.int32)
+        if fold_ports:
+            moved[port_slots] = True
+        self._sweep_pod_cache(pending, existing)
+        return self._emit(spec, np.nonzero(moved)[0].astype(np.int32))
+
+    def _sweep_pod_cache(self, pending, existing) -> None:
+        """Drop the cached rows of pods no longer pending, running or staged
+        once the cache holds twice the live set (both paths sweep: serving
+        takes the delta path almost every frame)."""
+        if len(self._pod_cache) > 2 * max(len(pending) + len(existing) + len(self._staged), 1):
+            live = ({id(p) for p in pending} | {id(p) for p, _ in existing}
+                    | self._staged.keys())
+            self._pod_cache = {k: v for k, v in self._pod_cache.items() if k in live}
+
+    def _clear_slots(self, sl) -> None:
+        """Reset pending-side arena rows to the full path's pad values (slots
+        no pod backs after the pending set shrank)."""
+        A = self._arena
+        for name, _key, pad in self._PEND_2D + self._PEND_3D:
+            A[name][sl] = pad
+        for name, pad in self._PEND_SCALAR_PAD.items():
+            A[name][sl] = pad
+
+    def _try_fold_existing(self, ds, existing, new) -> str | None:
+        """The incremental existing-set fold (reference `:2007`): bring the
+        cached stable side and the arena up to date in place when the
+        running list changed by a pure append (pods bound since the last
+        frame) or a pure tail removal. Returns None on success, else the
+        reason for a full encode (which rebuilds the stable side from
+        scratch: `_stable_key` still names the old list, so a partly
+        updated stable side is discarded). The arena is written last, after
+        every check.
+
+        Exactness, as the reference states it: `node_requested` of the
+        affected nodes is re-summed from their remaining members in
+        ascending slot order (an f32 subtraction is not the inverse of the
+        full path's accumulation); their used-port lists are rebuilt member
+        ascending; their `node_pods` rows by the full path's lexsort;
+        `exist_start` is re-based when the oldest pod changes; `exist_pdb`
+        comes from `_pdb_matches` in list order. Unlike the reference's
+        (which needs its C++ row writer), the appended rows are written
+        from `pod_rowdata`, so every pod the parser covers folds."""
+        st = self._stable
+        if "exist_creation_abs" not in st:
+            return "no stable side to fold into"
+        old = ds["exist_elems"]
+        n_old, n_new = len(old), len(new)
+        if not ((n_new > n_old and new[:n_old] == old)
+                or (n_new < n_old and old[:n_new] == new)):
+            return "the running list changed other than by an append or a tail removal"
+        L = min(n_old, n_new)
+        exist_req = st["exist_requested"]
+        E = exist_req.shape[0]
+        if n_new > E:
+            return "the running pods outgrow the E pad"
+        exist_node, exist_ports = st["exist_node"], st["exist_ports"]
+        exist_group, ca = st["exist_group"], st["exist_creation_abs"]
+        affected: set[int] = set()
+        port_nodes: set[int] = set()
+
+        if n_new < n_old:  # ---- tail removal ----
+            sl = np.arange(L, n_old)
+            en = exist_node[sl]
+            g = exist_group[sl]
+            np.subtract.at(st["group_existing_count"], g[g >= 0], 1)
+            affected.update(int(x) for x in en[en >= 0])
+            port_nodes.update(int(x) for x in en[(en >= 0) & (exist_ports[sl, 0] >= 0)])
+            for name, _key, pad in self._EXIST_ROWS:
+                st[name][sl] = pad
+            st["exist_priority"][sl] = 0
+            st["exist_pdb"][sl] = -1
+            st["exist_start"][sl] = 0.0
+            st["exist_valid"][sl] = False
+            exist_node[sl] = -1
+            exist_group[sl] = -1
+            ca[sl] = 0.0
+            if affected:  # re-summed, never subtracted
+                nr = st["node_requested"]
+                an = np.fromiter(affected, np.int64)
+                nr[an] = 0.0
+                en_rem = exist_node[:n_new]
+                mem = np.flatnonzero(np.isin(en_rem, an))  # ascending slots
+                if mem.size:
+                    np.add.at(nr, en_rem[mem], exist_req[mem])
+        else:  # ---- pure append ----
+            app = existing[L:]
+            rowdata = ds["pod_rowdata"]
+            lens0 = self._table_lens()
+            arows = [rowdata(p) for p, _ in app]
+            if self._table_lens() != lens0:
+                return "an appended running pod's row grew an interning table"
+            dims = ds["dims"]
+            flag_aff = ds["flags"][0]
+            for d in arows:
+                if (len(d["lab_k"]) > dims["MPL"] or d["n_aff"] > dims["MA"]
+                        or len(d["ports"]) > exist_ports.shape[1]
+                        or len(d["reqvec"]) > dims["R"]):
+                    return "an appended running pod overflows a sticky pad dim"
+                if not flag_aff and (len(d["anti"]) or len(d["pref"])):
+                    return "an appended running pod turns inter-pod affinity on"
+            slots = np.arange(L, n_new, dtype=np.int64)
+            for name, key, pad in self._EXIST_ROWS:
+                _scatter_at(st[name].reshape(E, -1), slots, [d[key] for d in arows], pad)
+            st["exist_priority"][slots] = [d["prio"] for d in arows]
+            exist_group[slots] = [d["gid"] for d in arows]
+            ca[slots] = [d["creation"] for d in arows]
+            nidx = ds["node_index"]
+            en_new = np.array([nidx.get(nm, -1) for _, nm in app], np.int32)
+            exist_node[slots] = en_new
+            st["exist_valid"][slots] = True
+            m = en_new >= 0
+            np.add.at(st["node_requested"], en_new[m], exist_req[slots][m])
+            g = exist_group[slots]
+            np.add.at(st["group_existing_count"], g[g >= 0], 1)
+            affected.update(int(x) for x in en_new[m])
+            port_nodes.update(int(x) for x in en_new[m & (exist_ports[slots, 0] >= 0)])
+            pdbs = st["__refs"][5]
+            if pdbs:
+                for j, (p, _nm) in enumerate(app):
+                    row, b = st["exist_pdb"][L + j], 0
+                    for gi, pdb in enumerate(pdbs):
+                        if b >= MB:
+                            break
+                        if _pdb_matches(pdb, p):
+                            row[b] = gi
+                            b += 1
+
+        en_all = exist_node[:n_new]
+        # used-port lists of the affected nodes, member slots ascending
+        if port_nodes:
+            if len(port_nodes) > 256:
+                return "more than 256 nodes' used ports moved"
+            nup = st["node_used_ports"]
+            for n in port_nodes:
+                ports = [int(x) for s in np.flatnonzero(en_all == n)
+                         for x in exist_ports[s] if x >= 0]
+                if len(ports) > nup.shape[1]:
+                    return "a node's used ports outgrow the MUP pad"
+                nup[n] = -1
+                nup[n, :len(ports)] = ports
+        # victim-table rows of the affected nodes, the full path's lexsort
+        if affected:
+            npods = st["node_pods"]
+            an = np.fromiter(affected, np.int64)
+            e_ids = np.flatnonzero(np.isin(en_all, an))
+            npods[an] = -1
+            if e_ids.size:
+                order_v = np.lexsort((-e_ids, st["exist_priority"][e_ids], en_all[e_ids]))
+                se = e_ids[order_v].astype(np.int32)
+                sn = en_all[se]
+                starts = np.r_[True, sn[1:] != sn[:-1]]
+                col = np.arange(sn.size) - np.maximum.accumulate(
+                    np.where(starts, np.arange(sn.size), 0))
+                if int(col.max()) >= npods.shape[1]:
+                    return "a node's running pods outgrow the MPN pad"
+                npods[sn, col] = se
+        # start times, re-based when the oldest pod changed
+        base = float(ca[:n_new].min()) if n_new else 0.0
+        if base != st["start_base"]:
+            st["exist_start"][:n_new] = (ca[:n_new] - base).astype(np.float32)
+            st["start_base"] = base
+        elif n_new > n_old:
+            st["exist_start"][L:n_new] = (ca[L:n_new] - base).astype(np.float32)
+        st["e_real"] = n_new
+
+        # ---- mirror into the arena ----
+        A = self._arena
+        rng = slice(L, max(n_old, n_new))
+        for name in ([n for n, _k, _p in self._EXIST_ROWS]
+                     + ["exist_node", "exist_priority", "exist_pdb", "exist_valid"]):
+            A[name][rng] = st[name][rng]
+        for name in ("exist_start", "node_requested", "node_pods", "node_used_ports",
+                     "group_existing_count"):
+            A[name][...] = st[name]
+        A["num_existing"][...] = n_new
+
+        # ---- identity bookkeeping ----
+        refs = st["__refs"]
+        st["__refs"] = (refs[0], [p for p, _ in existing]) + tuple(refs[2:])
+        k = self._stable_key
+        self._stable_key = (k[0], new) + k[2:]
+        ds["exist_ids"] = (id(existing), len(existing))
+        ds["exist_elems"] = new
+        if port_nodes:  # NodePorts' static rows read node_used_ports
+            ds["fold_port_dirty"] = True
+        return None
+
+    def _wait_upload(self) -> None:
         if self._upload_done is not None:
             self._upload_done[1].synchronize()
-        hw, hb = self._pinned or (None, None)
-        if hw is None or hw.numel() < spec.n_words or hb.numel() < spec.n_bytes:
-            hw = torch.empty(spec.n_words, dtype=torch.int32, pin_memory=True)
-            hb = torch.empty(spec.n_bytes, dtype=torch.uint8, pin_memory=True)
-            self._pinned = (hw, hb)
-        hw, hb = hw[:spec.n_words], hb[:spec.n_bytes]
-        packing.pack(fields, spec, out=(hw.numpy().view(np.uint32), hb.numpy()))
-        wbuf = torch.empty(spec.n_words, dtype=torch.int32, device=self.device)
-        bbuf = torch.empty(spec.n_bytes, dtype=torch.uint8, device=self.device)
-        self._upload_done = (torch.cuda.Event(enable_timing=True),
-                             torch.cuda.Event(enable_timing=True))
-        self._upload_done[0].record()
-        wbuf.copy_(hw, non_blocking=True)
-        bbuf.copy_(hb, non_blocking=True)
-        self._upload_done[1].record()
-        return wbuf, bbuf
+
+    def _install_arena(self, fields, spec) -> None:
+        """Write every field into the arena (reference `_install_arena`,
+        `:2532`), allocating it anew when the pack layout changed: on the
+        card pinned host memory, the upload's source; fields start on
+        16-byte boundaries (`PackSpec`), the bytes between them are 0."""
+        from . import packing
+
+        self._wait_upload()
+        if self._arena_spec is None or self._arena_spec.layout_key() != spec.layout_key():
+            pin = self.device.type == "cuda"
+            hw = torch.zeros(spec.n_words, dtype=torch.int32, pin_memory=pin)
+            hb = torch.zeros(spec.n_bytes, dtype=torch.uint8, pin_memory=pin)
+            w, b = hw.numpy(), hb.numpy()
+            views = {}
+            for name, dt, shape, off in spec.words:
+                n = packing._size(shape)
+                views[name] = w[off:off + n].view(np.dtype(dt)).reshape(shape)
+            for name, shape, off in spec.bools:
+                n = packing._size(shape)
+                views[name] = b[off:off + n].view(np.bool_).reshape(shape)
+            self._host, self._arena = (hw, hb), views
+        for name, v in self._arena.items():
+            v[...] = fields[name]
+        self._arena_spec = spec
+        self._arena_synced = True
+
+    def _emit(self, spec, dirty) -> EncodedFrame:
+        """The frame of the arena's current contents: on the card fresh
+        device buffers, one asynchronous copy each from the pinned arena
+        (the next write to the arena waits for them); on the CPU copies."""
+        from . import packing
+
+        hw, hb = self._host
+        if self.device.type == "cuda":
+            wbuf = torch.empty(spec.n_words, dtype=torch.int32, device=self.device)
+            bbuf = torch.empty(spec.n_bytes, dtype=torch.uint8, device=self.device)
+            self._upload_done = (torch.cuda.Event(enable_timing=True),
+                                 torch.cuda.Event(enable_timing=True))
+            self._upload_done[0].record()
+            wbuf.copy_(hw, non_blocking=True)
+            bbuf.copy_(hb, non_blocking=True)
+            self._upload_done[1].record()
+        else:
+            wbuf, bbuf = hw.clone(), hb.clone()
+        return EncodedFrame(wbuf, bbuf, spec, packing.unpack(wbuf, bbuf, spec), dirty)
+
+    def host_buffers(self) -> tuple[np.ndarray, np.ndarray]:
+        """The arena's (u32 words, u8 bytes): the last frame's host buffers,
+        valid until the next encode call writes them."""
+        hw, hb = self._host
+        return hw.numpy().view(np.uint32), hb.numpy()
 
     def last_upload_ms(self) -> float | None:
         """Device ms of the last frame's two copies (CUDA events around
@@ -680,9 +1282,15 @@ class SnapshotEncoder:
 
         n_real, p_real, e_real = len(nodes), len(pending), len(existing)
         self._cycle_index += 1
-        N = _pow2_bucket(n_real)
-        P = _pow2_bucket(p_real)
-        E = self._stick("E", _pow2_bucket(e_real) if e_real else 8)
+        N = self.pad_nodes or self.hysteresis_pad("N", _pow2_bucket(n_real), n_real)
+        P = self.pad_pods or self.hysteresis_pad("P", _pow2_bucket(p_real), p_real)
+        # E is sticky (a fold appends in place), pad_existing folded into
+        # its bucket so a grown e_real never needs a larger one
+        E = self._stick(
+            "E",
+            _pow2_bucket(max(e_real, self.pad_existing or 0))
+            if (e_real or self.pad_existing) else 8,
+        )
 
         node_index = {nd.name: i for i, nd in enumerate(nodes)}
         names_now = tuple(nd.name for nd in nodes)
@@ -1041,11 +1649,7 @@ class SnapshotEncoder:
         all_rows = pend_rows + exist_rows
 
         # mark-and-sweep the caches against the live object set
-        live_pods = {id(p) for p in pending} | {id(p) for p, _ in existing}
-        if len(self._pod_cache) > 2 * max(len(live_pods), 1):
-            self._pod_cache = {
-                k: v for k, v in self._pod_cache.items() if k in live_pods
-            }
+        self._sweep_pod_cache(pending, existing)
         live_nodes = {id(nd) for nd in nodes}
         if len(self._node_cache) > 2 * max(len(live_nodes), 1):
             self._node_cache = {
@@ -1059,23 +1663,25 @@ class SnapshotEncoder:
             "MPL", _pad_dim(max([len(d["lab_k"]) for d in all_rows] + [1]), 8)
         )
         MA = self._stick(
-            "MA", _pad_dim(max([d["n_aff"] for d in all_rows] + [1]), 2)
+            "MA", _pad_dim(max([d["n_aff"] for d in all_rows] + [1, self.pad_ma or 0]), 2)
         )
 
         # ---- stable-side cache: everything derived from nodes/existing
         # alone, keyed on object identities plus every grow-only
         # interning dimension the arrays bake in ----
+        def table_dims() -> tuple:
+            return (len(exprs_t.rows), len(reqs_t.rows), len(prefs_t.rows),
+                    len(tols_t.rows), len(taints_t.rows), len(sels_t.rows),
+                    len(imgsets_t.rows), len(image_ids), len(group_ids),
+                    len(topo_keys))
+
         stable_key = (
             tuple(id(nd) for nd in nodes),
             tuple((id(p), nm) for p, nm in existing),
             vol_sig,
             tuple((id(b), b.disruptions_allowed) for b in pdbs),
             self._node_epoch, N, E, R, MPL, MA,
-            len(exprs_t.rows), len(reqs_t.rows), len(prefs_t.rows),
-            len(tols_t.rows), len(taints_t.rows), len(sels_t.rows),
-            len(imgsets_t.rows), len(image_ids), len(group_ids),
-            len(topo_keys),
-        )
+        ) + table_dims()
         if self._stable_key == stable_key:
             st = self._stable
         else:
@@ -1088,6 +1694,11 @@ class SnapshotEncoder:
             # strong refs keep cached id()s from being reused
             st["__refs"] = (list(nodes), [p for p, _ in existing], list(pvs),
                             list(pvcs), list(storage_classes), list(pdbs))
+            # keyed on the tables as built: the PV table interns its
+            # requirements on the way (the reference keys on the dims
+            # before, so its next full encode rebuilds the stable side once
+            # and moves the carry key where volumes exist)
+            stable_key = stable_key[:10] + table_dims()
             self._stable_key = stable_key
             self._stable = st
         # the reference's carry key: the carried [P, N] static base and
@@ -1136,7 +1747,7 @@ class SnapshotEncoder:
 
         MC = self._stick(
             "MC",
-            _pad_dim(max([len(d["tsc_skew"]) for d in pend_rows] + [1]), 2),
+            _pad_dim(max([len(d["tsc_skew"]) for d in pend_rows] + [1, self.pad_mc or 0]), 2),
         )
         pod_tsc = np.full((P, MC, 3), -1, np.int32)
         pod_tsc_skew = np.zeros((P, MC), np.int32)
@@ -1186,10 +1797,13 @@ class SnapshotEncoder:
                 for j, enc_port in enumerate(d["ports"]):
                     pod_port_ids[i, j] = port_ids_t.intern(int(enc_port))
 
+        # the queue rank, by the profile's queueSort plugin
         pod_order = np.full(P, np.iinfo(np.int32).max, np.int32)
+        creation = np.zeros(P, np.float64)
         if p_real:
-            creation = np.array([d["creation"] for d in pend_rows], np.float64)
-            pod_order[:p_real] = priority_rank(pod_prio[:p_real], creation)
+            creation[:p_real] = [d["creation"] for d in pend_rows]
+            pod_order[:p_real] = self.queue_sort.rank(pending, pod_prio[:p_real],
+                                                      creation[:p_real])
 
         exist_anti = st["exist_anti"]
         exist_pref = st["exist_pref"]
@@ -1276,6 +1890,41 @@ class SnapshotEncoder:
                 "mvol", bool(((pod_vol_mode >= 0).sum(axis=1) >= 2).any())
             ),
         }
+
+        # ---- what the delta path needs (reference `:1717-1765`); the
+        # pod_rowdata closure stays valid while the stable side is
+        # unchanged, which the delta path's identity checks and
+        # `_table_lens` cover ----
+        self._delta_state = {
+            "pod_rowdata": pod_rowdata,
+            "node_index": node_index,
+            "pend_ids": [id(p) for p in pending],
+            "pend_refs": list(pending),
+            "pend_rows": list(pend_rows),
+            # port-bearing slots, kept up to date by the delta path
+            "port_set": {i for i, d in enumerate(pend_rows) if len(d["ports"])},
+            "creation": creation,
+            "p_real": p_real,
+            "dims": {"R": R, "MPL": MPL, "MA": MA, "MPorts": MPorts, "MC": MC,
+                     "MVol": MVol, "Q": aux["num_distinct_ports"]},
+            "pads": (self.pad_pods, self.pad_nodes, P),
+            "nodes_ids": (id(nodes), len(nodes)),
+            "nodes_elems": tuple(id(nd) for nd in nodes),
+            "exist_ids": (id(existing), len(existing)),
+            "exist_elems": stable_key[1],
+            "vol_ids": (id(pvcs), len(pvcs), id(pvs), len(pvs),
+                        id(storage_classes), len(storage_classes)),
+            "vol_elems": (tuple(id(c) for c in pvcs), tuple(id(v) for v in pvs),
+                          tuple(id(c) for c in storage_classes)),
+            "pdb_ids": (id(pdbs), len(pdbs)),
+            "pdb_elems": (tuple(id(b) for b in pdbs),
+                          tuple(b.disruptions_allowed for b in pdbs)),
+            "flags": (aux["has_inter_pod_affinity"], aux["has_topology_spread"],
+                      aux["has_volumes"], aux["has_multi_volume"]),
+        }
+        # a direct encode() leaves the arena behind: the next packed frame
+        # takes the full path
+        self._arena_synced = False
         return fields, aux
 
     def _pv_tables(self, pvs, pvcs, compile_node_affinity_required) -> dict:
@@ -1350,6 +1999,9 @@ class SnapshotEncoder:
         exist_valid = np.zeros(E, bool)
         exist_valid[:e_real] = True
         exist_group = np.full(E, -1, np.int32)
+        # absolute creation times (f64) let a fold re-base exist_start exactly
+        exist_creation_abs = np.zeros(E, np.float64)
+        exist_creation_abs[:e_real] = [d["creation"] for d in exist_rows]
         _fill_scalars(exist_prio, [d["prio"] for d in exist_rows])
         _fill_scalars(exist_group, [d["gid"] for d in exist_rows])
         _fill_scalars(exist_start, [d["creation"] - start_base for d in exist_rows])
@@ -1389,11 +2041,13 @@ class SnapshotEncoder:
                 np.where(starts, np.arange(sn.size), 0)
             )
             col = np.arange(sn.size) - group_start
-            MPN = self._stick("MPN", _pad_dim(int(col.max()) + 1, 8))
+            # pad_pods_per_node folds into the bucket, as E's pad
+            MPN = self._stick(
+                "MPN", _pad_dim(max(int(col.max()) + 1, self.pad_pods_per_node or 0), 8))
             node_pods = np.full((N, MPN), -1, np.int32)
             node_pods[sn, col] = se
         else:
-            MPN = self._stick("MPN", _pad_dim(1, 8))
+            MPN = self._stick("MPN", _pad_dim(max(1, self.pad_pods_per_node or 0), 8))
             node_pods = np.full((N, MPN), -1, np.int32)
 
         # ---- topology domains (flat ids across keys) ----
@@ -1533,5 +2187,8 @@ class SnapshotEncoder:
             ts_effect=ts_effect, ts_valid=ts_valid, sel_exprs=sel_exprs,
             imgset_sizes=imgset_sizes,
             group_existing_count=group_existing_count,
+            # what an existing-set fold reads (_try_fold_existing)
+            exist_group=exist_group, exist_creation_abs=exist_creation_abs,
+            start_base=start_base, e_real=e_real,
         )
         return st

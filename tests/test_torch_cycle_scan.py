@@ -407,7 +407,18 @@ def _ref_cycle(kw: tuple):
 
 
 def run_both(name, kw=None, profile="default"):
-    """(objects, reference decision, port decision, port snapshot)."""
+    """(objects, reference decision, port decision, port snapshot), computed
+    once per (name, kw, profile) in this file: the bit-equality and oracle
+    tests read the same runs. Read-only."""
+    return _run_both(name, tuple(sorted((kw or {}).items())), profile)
+
+
+@functools.cache
+def _run_both(name, kw_items, profile):
+    return _run_both_fresh(name, dict(kw_items), profile)
+
+
+def _run_both_fresh(name, kw=None, profile="default"):
     kw = dict(kw or {})
     nodes, pods, existing, groups = FIXTURES[name]()
     ref_snap = ref_models.SnapshotEncoder().encode(nodes, pods, existing, groups)
@@ -513,7 +524,7 @@ def test_scan_cycle_under_other_profiles(name, profile):
 
 def test_scan_cycle_launches_no_kernel_on_cpu():
     kernel_build.reset_launch_counts()
-    _, want, got, _ = run_both("affinity_cfg4")
+    _, want, got, _ = _run_both_fresh("affinity_cfg4")
     assert_same(got, want)
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 

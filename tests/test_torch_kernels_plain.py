@@ -34,6 +34,7 @@ against these plain versions on the card by chip_smoke.py).
 
 from __future__ import annotations
 
+import functools
 import types
 
 import jax
@@ -891,15 +892,23 @@ def test_scan_tags_name_every_case():
     assert tuple(kernel_cases.scan_objects(ref_models)) == kernel_cases.SCAN_TAGS
 
 
+@functools.cache
 def _scan_case(tag):
     """(reference snapshot, port ScanInputs, opts) of one K13 edge case:
     the objects encoded by the reference, cut as the case says, carried to
-    the port and packed there."""
+    the port and packed there (once per case in this file; read-only)."""
     nodes, pods, existing, opts = kernel_cases.scan_objects(ref_models, (tag,))[tag]
     enc = ref_models.SnapshotEncoder(**(
         {"resource_names": opts["resources"]} if "resources" in opts else {}))
     ref = kernel_cases.prepare(enc.encode(nodes, pods, existing), opts)
     return ref, kernel_cases.scan_inputs(_carry(ref), opts), opts
+
+
+@functools.cache
+def _scan_plain(tag):
+    """`scan_commit_plain` on one K13 edge case, run once per case in this
+    file (two tests read it; read-only)."""
+    return scan_commit.scan_commit_plain(_scan_case(tag)[1])
 
 
 def _reference_scan(ref, x, opts):
@@ -938,7 +947,7 @@ def test_scan_plain_edge_cases_match_reference(tag):
     hooks bit for bit: assignment, requested resources, the port bitmap
     and the four affinity tables."""
     ref, x, opts = _scan_case(tag)
-    got = scan_commit.scan_commit_plain(x)
+    got = _scan_plain(tag)
     want = _reference_scan(ref, x, opts)
     np.testing.assert_array_equal(got.assignment.numpy(), np.asarray(want.assignment))
     np.testing.assert_array_equal(_bits(got.node_requested.numpy()),
@@ -957,7 +966,7 @@ def test_scan_edge_cases_exercise_their_situation(tag):
     scan, on the kernel's 16 CTAs (CTA c owns the slice of ceil(N / 16)
     nodes from c * ceil(N / 16))."""
     _, x, _ = _scan_case(tag)
-    res = scan_commit.scan_commit_plain(x)
+    res = _scan_plain(tag)
     P, N = x.shape
     ranked = [p for p in x.order.tolist() if x.pod_valid[p]]
     a = res.assignment.tolist()
@@ -1078,7 +1087,7 @@ def test_scan_pod_rows_and_order():
     ranked = [p for p in x.order.tolist() if x.pod_valid[p]]
     assert int(nv) == len(ranked) and vorder[:len(ranked)].tolist() == ranked
     flags = rows[:, lay["flags"]]
-    final = scan_commit.scan_commit_plain(x).state
+    final = _scan_plain("N=13").state
     has_pref = (x.pref_terms[..., 0] >= 0).any(1)
     soft = ((x.tsc[..., 0] >= 0) & (x.tsc[..., 2] == 1)).any(1)
     hard = ((x.tsc[..., 0] >= 0) & (x.tsc[..., 2] == 0)).any(1)

@@ -415,7 +415,15 @@ def _framework_config(pkg, args):
 
 
 def run_both(name, args=None):
-    """(port result, reference result, port snapshot, pods, existing)."""
+    """(port result, reference result, port snapshot, pods, existing),
+    computed once per (name, args) in this file: several tests read the
+    same fixture's runs. Read-only."""
+    return _run_both(name, tuple(sorted((args or {}).items())))
+
+
+@functools.cache
+def _run_both(name, arg_items):
+    args = dict(arg_items)
     nodes, pods, existing, pdbs = FIXTURES[name](REF)
     enc_kw = {"pad_pods": 16, "pad_nodes": 8} if name in _WHATIF else {}
     ref_snap = ref_models.SnapshotEncoder(**enc_kw).encode(nodes, pods, existing, pdbs=pdbs)
