@@ -21,7 +21,7 @@ running pods, 10000 pending pods, padded P=16384, N=8192):
            its cycles, which makes config #4 whole, and the scan phase runs
            the same snapshots through the scan engine;
   volumes  config #4's workload with local and zonal persistent volumes,
-           cycles and preemption;
+           cycles and preemption, in the rounds engine and in the scan;
 
 and the device-carry latency path serving runs (`encode_packed`, the
 carried static base, the packed cycle and preemption, and off the
@@ -33,7 +33,7 @@ Phases:
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every csrc/*.cu at once (one process per
                 source; with --prev-csrc, also an earlier design's
-                sources of PREV_KERNELS (K9, K4, K13, K6, K12, K11, K8,
+                sources of PREV_KERNELS (K9, K4, K6, K12, K11, K8,
                 K7, and K1 / K14 / K15 with the earlier K16 / K17 in
                 `static_base.cu` and `dyn_round.cu`),
                 timed beside the kernels as prev_device_ms), Triton
@@ -58,7 +58,14 @@ Phases:
                 matched selectors counted in a zone other slices read,
                 affinity bootstrapped by total == 0, anti-affinity and host
                 ports between consecutive pods, pad pods interleaved, R = 1
-                and 8; each case's cluster and slice printed; K14 `dyn_mask`
+                and 8, and with volumes: V = 31, 32 and 33 (the claim
+                bitmap's word edges), a node with an empty PV list, only
+                global PVs, two pods contending for one PV, two 8-slot pods
+                under the dominance groups, dynamic provisioning and
+                requirement id -2, a nominated node the volume mask
+                rejects, a gang that unwinds after claiming (the claim
+                bitmaps equal too); each case's cluster and slice printed;
+                K14 `dyn_mask`
                 and K15 `dyn_score`, K15 also as the score anchor, on
                 `dyn_cases`: zero allocatable, an exact fit at the slack,
                 full nodes, R = 1 and 8, Q = 0, pad port slots, every row
@@ -179,7 +186,20 @@ Phases:
                 round, then DefaultPreemption after each cycle (K10 once
                 per pass), equal to its plain versions (K9 to
                 `claim_loop_plain` on each pass), nominations valid
-                and through the volume gate;
+                and through the volume gate; then the scan leg: the gang
+                edge case's full scan cycle equal to the plain versions'
+                (its claims released by one K12 refold), K13's volume
+                instance equal to `scan_commit_plain` (assignment,
+                node_requested, ports, the affinity tables and the claim
+                bitmap) on all of seed 202's pending pods in the latency
+                mode and, in the full mode (the VolumeBinding column
+                too), on its first 2048 with full N and V, its us a step
+                at full size with
+                VolumeBinding on and off on one snapshot, three timed scan
+                cycles with one launch each of the volume instance whose
+                placements are checked as the scan phase's and for volumes
+                from the scan's own claim bitmap, and DefaultPreemption
+                after each equal to the plain versions';
   8. carry    — the device-carry latency path that serving runs, on config
                 #4's workload and again with `config4_volumes`: a full
                 `SnapshotEncoder.encode_packed` (the encoder sized by
@@ -270,7 +290,7 @@ EXACT_F32 = 2**24  # integer-valued f32 sums are exact below this
 CARRY_FRAMES, CARRY_REPLACED, CARRY_BOUND = 4, 200, 500  # the carry phase's churn
 CARRY_SEED = 205
 CARRY_MPN = 16  # pad_pods_per_node: the running pods a node holds after the churn
-PREV_KERNELS = ("preempt_claim", "affinity_update", "scan_commit", "guard_sweep", "pv_fold",
+PREV_KERNELS = ("preempt_claim", "affinity_update", "guard_sweep", "pv_fold",
                 "pv_choice", "preempt_whatif", "preempt_prefilter", "static_base",
                 "dyn_round")
 
@@ -840,8 +860,9 @@ def affinity_update_edge_checks(torch, dev) -> list[str]:
 
 def scan_edge_checks(torch, dev) -> dict:
     """K13 against `scan_commit_plain` on the seeded edge cases
-    (`utils/kernel_cases.scan_cases`): all seven outputs equal; {case: the
-    launch's cluster and slice}."""
+    (`utils/kernel_cases.scan_cases`, the volume cases included): all seven
+    outputs and the claim bitmap equal; {case: the launch's cluster and
+    slice}."""
     from k8s_scheduler_tpu_torch.kernel_variants import scans_equal
     from k8s_scheduler_tpu_torch.ops import scan_commit as sc
     from k8s_scheduler_tpu_torch.utils.kernel_cases import scan_cases
@@ -1607,6 +1628,7 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
         snaps[s] = enc.encode(nodes, pods, ex, pvcs=pvcs, pvs=pvs, storage_classes=classes)
         torch.cuda.synchronize()
         encode_ms[str(s)] = round((time.time() - t0) * 1e3, 1)
+    cut_draw = drawn[AFF_TIMED_SEEDS[0]]  # the scan leg's 2048-pod cut
     del drawn
     snap0 = snaps[AFF_WARM_SEED]
     P, N = snap0.P, snap0.N
@@ -1903,8 +1925,257 @@ def volumes_phase(torch, kb, fw, dev, nodes, existing, pending, smi, plain_kerne
             prev_mean_device_ms=k12_prev_mean, prev_contended_device_ms=k12_prev_cont,
             cluster=k12_shape["cluster"]),
     }
+    scan_stats = volumes_scan_leg(torch, kb, fw, dev, nodes, snaps, cut_draw, smi,
+                                  plain_kernels)
+    entries.update(scan_stats.pop("kernels"))
     return {"kernels": entries, "ms": ms, "pre_ms": pre_ms,
-            "dyn_launches": {k: launches[k] for k in ("dyn_mask", "dyn_score")}}
+            "dyn_launches": {k: launches[k] for k in ("dyn_mask", "dyn_score")},
+            "scan": scan_stats}
+
+
+def scan_volume_bytes(torch, x) -> tuple[int, int]:
+    """(bytes, operations) K13's volume path adds on this run's data: the
+    valid pods' volume slots, the node lists and the global list, the
+    listed PVs' class and capacity, the requirement rows the unbound slots
+    name, the bitmap read and written; per step of a pod with an unbound
+    slot, each node's list entries tested against each slot and subset."""
+    V, MVol, n_sub = x.vol
+    t = x.vol_tables
+    valid = x.pod_valid
+    nv = int(valid.sum())
+    L, G = t.node_pv.shape[0], t.global_pv.shape[0]
+    unb = valid & (x.vol_mode == 1).any(1)
+    rids = x.vol_req[unb][x.vol_mode[unb] == 1]
+    n_rows = int(torch.unique(rids[rids >= 0]).numel())
+    b = (nv * MVol * 20 + (x.shape[1] + 1) * 4 + (L + G) * 4 + V * 8
+         + n_rows * x.shape[1] + 2 * V)
+    ops = int(unb.sum()) * (L + x.shape[1] * G) * (3 * MVol + n_sub)
+    return b, ops
+
+
+def volumes_scan_leg(torch, kb, fw, dev, nodes, snaps, cut_draw, smi, plain_kernels) -> dict:
+    """The volumes phase's scan leg (phase 7): config #4's volume snapshots
+    through `build_cycle_fn(commit_mode="scan")`, K13's volume instance
+    against `scan_commit_plain` (the first timed seed in the latency mode,
+    its 2048-pod cut with full N and V in the full mode), K13's us a step
+    at full size with
+    VolumeBinding on and off on one snapshot, three timed cycles whose
+    placements and claims are checked, DefaultPreemption after each.
+    Returns {"kernels": {...}, "ms": [...], "pre_ms": [...]}."""
+    from k8s_scheduler_tpu_torch.config import (PluginSet, Plugins, Profile,
+                                                SchedulerConfiguration)
+    from k8s_scheduler_tpu_torch.core.cycle import (_preemption_gate_rows, build_cycle_fn,
+                                                    build_preemption_fn, sampling_window)
+    from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, VolumeKernels
+    from k8s_scheduler_tpu_torch.framework.runtime import Framework
+    from k8s_scheduler_tpu_torch.kernel_variants import kernel_ms, states_equal
+    from k8s_scheduler_tpu_torch import models as port_models
+    from k8s_scheduler_tpu_torch.models import SnapshotEncoder
+    from k8s_scheduler_tpu_torch.ops import preempt_claim as k9
+    from k8s_scheduler_tpu_torch.ops import preemption as pre
+    from k8s_scheduler_tpu_torch.ops import scan_commit as sc
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.ops import volume_mask as k10
+    from k8s_scheduler_tpu_torch.ops import volumes as vol
+    from k8s_scheduler_tpu_torch.utils import kernel_cases as kc
+
+    def packed(snap, fw_=fw, full=False):
+        ctx = CycleContext(snap)
+        sbase = sb.static_base_cuda(sb.static_base_inputs(
+            fw_, ctx, fit=not full, sampling=sampling_window(snap, 0)))
+        return sc.scan_commit_inputs(fw_, ctx, sbase, fw_.extra_init(ctx), rejects=full)
+
+    def kernel_vs_plain(xc, tag):
+        check(bool(xc.flags & sc.F_VOLUMES), f"{tag}: the scan inputs carry no volumes")
+        rk = sc.scan_commit_cuda(xc)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        rp = sc.scan_commit_plain(xc)
+        end.record()
+        torch.cuda.synchronize()
+        eq = {"assignment": torch.equal(rk.assignment, rp.assignment),
+              "node_requested": torch.equal(rk.node_requested, rp.node_requested),
+              "ports": torch.equal(rk.ports, rp.ports),
+              "affinity tables": states_equal(rk.state, rp.state),
+              "pv_claimed": torch.equal(rk.pv_claimed, rp.pv_claimed)}
+        if xc.full:
+            eq["rejects"] = torch.equal(rk.rejects, rp.rejects)
+        log(f"phase volumes scan, kernel scan_commit, {tag}: kernel == plain: "
+            f"{json.dumps(eq)}; placed {int((rk.assignment >= 0).sum())}, "
+            f"{int(rk.pv_claimed.sum())} PVs claimed | {smi}")
+        check(all(eq.values()), f"scan_commit with volumes differs from its plain version "
+                                f"({tag})")
+        return rk, start.elapsed_time(end)
+
+    seed = AFF_TIMED_SEEDS[0]
+    # the gang edge case's full scan cycle: the unwound members' claims
+    # released by the refold (K12) over the survivors
+    tag = "a gang that unwinds after claiming"
+    g_nodes, g_pods, g_ex, g_opts = kc.scan_volume_objects(port_models, (tag,))[tag]
+    gsnap = kc.encode_case(SnapshotEncoder(device=dev), g_nodes, g_pods, g_ex, g_opts)
+    kb.reset_launch_counts()
+    gk = build_cycle_fn(fw, commit_mode="scan", device=dev)(gsnap)
+    torch.cuda.synchronize()
+    g_launch = dict(kb.launch_counts)
+    gp = build_cycle_fn(fw, commit_mode="scan", device=dev, **plain_kwargs())(gsnap)
+    eq = results_equal(torch, gk, gp)
+    check(all(eq.values()) and g_launch["scan_commit"] == 1 and g_launch["pv_fold"] == 1,
+          f"the gang edge case's full scan cycle differs from the plain versions' ({eq}) or "
+          f"took other launches ({g_launch})")
+    check(torch.nonzero(gk.pv_claimed).flatten().tolist() == [2] and bool(gk.gang_dropped.any()),
+          "the gang edge case did not unwind its claims")
+    log(f"phase volumes scan, gang edge case: full scan cycle equal to the plain versions' "
+        f"(every field), the unwound members' claims released by one K12 refold")
+    cycle_s = build_cycle_fn(fw, commit_mode="scan", outputs="latency", device=dev)
+    t0 = time.time()
+    dw = cycle_s(snaps[AFF_WARM_SEED])
+    torch.cuda.synchronize()
+    log(f"phase volumes scan warm-up cycle: {(time.time() - t0) * 1e3:.1f} ms, placed "
+        f"{int((dw.assignment >= 0).sum())}")
+    del dw
+
+    # ---- K13's volume instance against scan_commit_plain: the full mode
+    # on the cut, then the latency mode at full size ----
+    ex, pods, pvcs, pvs, classes = cut_draw
+    snap_cut = SnapshotEncoder(device=dev).encode(nodes, pods[:SCAN_CUT], ex, pvcs=pvcs,
+                                                  pvs=pvs, storage_classes=classes)
+    check(snap_cut.pv_avail.shape == snaps[seed].pv_avail.shape,
+          "the cut's PV table is not the full one")
+    xf = packed(snap_cut, full=True)
+    rf, _ = kernel_vs_plain(xf, f"full mode, the first {SCAN_CUT} pending pods of seed "
+                                f"{seed} (full N and V)")
+    col = fw.filter_names.index("VolumeBinding")
+    log(f"phase volumes scan, kernel scan_commit full mode: VolumeBinding's column "
+        f"{col} counts {int(rf.rejects[:, col].sum())} first rejections over "
+        f"{int((rf.rejects[:, col] > 0).sum())} pods, equal to the plain version's")
+    del xf, rf, snap_cut
+    # full size: the kernel against its plain version on the first timed
+    # seed's snapshot, then against the same snapshot with VolumeBinding off
+    x = packed(snaps[seed])
+    nv = int(x.pod_valid.sum())
+    R = x.pod_requested.shape[1]
+    rk, full_plain = kernel_vs_plain(x, f"full size, seed {seed}")
+    # K13's us a step on the same snapshot with VolumeBinding on and off
+    no_vb = Framework.from_config(SchedulerConfiguration(profiles=[Profile(
+        plugins=Plugins(filter=PluginSet(disabled=["VolumeBinding"])))]))
+    x_off = packed(snaps[seed], no_vb)
+    check(not x_off.flags & sc.F_VOLUMES, "the profile without VolumeBinding packs volumes")
+    shape = sc.scan_shape(x)
+    shape_off = sc.scan_shape(x_off)
+    on_ms = time_ms(torch, lambda: sc.scan_commit_cuda(x), 3)
+    on_dev = profiled_device_ms(torch, lambda: sc.scan_commit_cuda(x), 2)
+    on_kernel = kernel_ms(lambda: sc.scan_commit_cuda(x), 2, "scan_kernel")
+    off_kernel = kernel_ms(lambda: sc.scan_commit_cuda(x_off), 2, "scan_kernel")
+    on_kernel2 = kernel_ms(lambda: sc.scan_commit_cuda(x), 2, "scan_kernel")
+    V, MVol, n_sub = x.vol
+    walkers = int((x.pod_valid & (x.vol_mode == 1).any(1)).sum())
+    vb_bytes, vb_ops = scan_volume_bytes(torch, x)
+    full_bytes = scan_bytes(torch, x, rk) + vb_bytes
+    full_ops = nv * x.shape[1] * (10 * R + 8) + vb_ops
+    k13_bound, k13_by = bound(full_bytes, full_ops)
+    log(f"phase volumes scan, kernel scan_commit us a step: VolumeBinding on "
+        f"{1e3 * on_kernel / nv:.3f} (again {1e3 * on_kernel2 / nv:.3f}), off "
+        f"{1e3 * off_kernel / nv:.3f} on the same snapshot ({nv} steps, {walkers} of them "
+        f"pods with an unbound slot; V={V}, MVol={MVol}, {n_sub} slot subsets, L="
+        f"{x.vol_tables.node_pv.shape[0]} list entries, G={x.vol_tables.global_pv.shape[0]}); "
+        f"kernel alone {on_kernel:.3f} / {off_kernel:.3f} ms, wrapper {on_ms:.3f} ms "
+        f"({on_dev:.3f} device, torch.profiler), plain {full_plain:.1f} ms "
+        f"({full_plain / nv:.3f} ms a step), bound {k13_bound:.4f} ms ({k13_by}); "
+        f"cluster {shape['cluster']} ({shape['smem']} bytes of "
+        f"shared memory a CTA, {shape['smem'] - shape_off['smem']} more than without "
+        f"volumes) | {smi}")
+    del x, x_off, rk
+
+    # ---- the scan main path with volumes: counts set to 0 just before,
+    # read just after ----
+    seen, finals = [], {}
+
+    def scan_fn(xs):
+        seen.append(bool(xs.flags & sc.F_VOLUMES))
+        r = sc.scan_commit(xs)
+        finals[len(seen)] = r.pv_claimed
+        return r
+
+    cycle_t = build_cycle_fn(fw, commit_mode="scan", outputs="latency", device=dev,
+                             scan_commit_fn=scan_fn)
+    results, launches = timed_cycles(torch, kb, cycle_t, snaps, AFF_TIMED_SEEDS)
+    log(f"phase volumes scan launches over {len(AFF_TIMED_SEEDS)} cycles: "
+        f"{json.dumps(launches)}")
+    n = len(AFF_TIMED_SEEDS)
+    check(launches["scan_commit"] == n and seen == [True] * n,
+          "the volume scan took other than one K13 launch of its volume instance a cycle")
+    check(launches["static_base"] == n and launches["volume_mask"] == n,
+          "K1 / K10 (static) not once per volume scan cycle")
+    check(all(launches[k] == 0 for k in ("claim_pass", "capacity", "pv_choice", "dyn_mask")),
+          "a scan cycle launched the rounds engine's kernels")
+    claims = Recorder(k9.preempt_claim, keep=None)
+    pre_k = build_preemption_fn(fw, device=dev, claim_fn=claims)
+    pre_p = build_preemption_fn(fw, device=dev, prefilter_fn=pre.prefilter_plain,
+                                whatif_fn=pre.nonresource_ok_plain,
+                                claim_fn=pre.claim_loop_plain,
+                                volume_mask_fn=vol.volume_mask_plain)
+    ms, pre_ms = [], []
+    kb.reset_launch_counts()
+    for i, (s, d, dev_ms, host_ms) in enumerate(results):
+        snap = snaps[s]
+        claimed = finals[i + 1]
+        vk = VolumeKernels(vol.volume_mask_plain, vol.pv_choice_plain,
+                           lambda *a, c=claimed: c)
+        ctx, _ = check_placements(torch, snap, d, fw, plain_kernels, vk,
+                                  unplaced_infeasible=False)
+        n_anti, n_aff, n_spread = check_scan_affinity(torch, snap, d, ctx)
+        n_b, n_u, n_c, n_dyn = check_volumes(torch, snap, d, ctx.volume_tables, claimed)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rk = pre_k(snap, d)
+        end.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(end)
+        rp = pre_p(snap, d)
+        same = {f: torch.equal(getattr(rk, f), getattr(rp, f))
+                for f in ("nominated", "victims", "num_preemptors")}
+        check(all(same.values()), f"seed {s}: preemption after the volume scan differs from "
+              f"the plain versions' pass: {same}")
+        n_nom, n_vict, _ = check_preemption(torch, snap, d, rk, _preemption_gate_rows(
+            fw, CycleContext(snap)), pre.DEFAULT_SCAN_BUDGET)
+        nom = rk.nominated
+        ids = torch.nonzero(nom >= 0, as_tuple=True)[0]
+        gate = k10.volume_mask_cuda(snap, CycleContext(snap).volume_tables, None, False)
+        check(bool(gate[ids, nom[ids].long()].all()), "a nominated node fails the volume gate")
+        ms.append(round(dev_ms, 1))
+        pre_ms.append(round(p_ms, 2))
+        log(f"phase volumes scan cycle seed {s}: device {dev_ms:.1f} ms, host {host_ms:.1f} "
+            f"ms, placed {int((d.assignment >= 0).sum())}, unschedulable "
+            f"{int(d.unschedulable.sum())}; valid: capacity, static masks, at each pod's "
+            f"step {n_anti} anti terms, {n_aff} affinity terms, {n_spread} DoNotSchedule "
+            f"constraints; {n_b} bound claims on their PVs' nodes, {n_u} unbound slots "
+            f"placed, {n_c} static PVs claimed once each, {n_dyn} slots riding dynamic; "
+            f"preemption after it {p_ms:.2f} ms device, {n_nom} nominations, {n_vict} "
+            f"victims, kernels == plain, nominations valid incl. the volume gate | {smi}")
+    pre_launch = dict(kb.launch_counts)
+    check(pre_launch["preempt_claim"] >= n and pre_launch["scan_commit"] == 0,
+          "preemption after the volume scan did not run its kernels")
+    n_claims = claims_equal(torch, claims, "preemption after the volume scan")
+    log(f"phase volumes scan preemption: K9 equal to claim_loop_plain bit for bit on all "
+        f"{n_claims} passes")
+    del results
+
+    # ms, device_ms, plain_ms and the bound at full size (the inputs both
+    # ran on)
+    entry = kernel_entry(
+        "scan_commit_volumes", "cuda", "k8s_scheduler_tpu_torch/csrc/scan_commit.cu",
+        "k8s_scheduler_tpu/framework/plugins.py:250", launches["scan_commit"], 0.0,
+        on_ms, on_dev, full_plain, full_bytes, full_ops, device_ms_by="torch.profiler",
+        inputs=f"the pending pods of seed {seed}, full size", kernel_alone_ms=on_kernel,
+        us_per_step=1e3 * on_kernel / nv,
+        us_per_step_without_volumebinding=1e3 * off_kernel / nv,
+        extra_replaces=["k8s_scheduler_tpu/framework/plugins.py:267",
+                        "k8s_scheduler_tpu/ops/volumes.py:242",
+                        "k8s_scheduler_tpu/ops/volumes.py:400",
+                        "k8s_scheduler_tpu/ops/volumes.py:567"],
+        cluster=shape["cluster"])
+    return {"kernels": {"scan_commit_volumes": entry}, "ms": ms, "pre_ms": pre_ms}
 
 
 def check_scan_affinity(torch, snap, d, ctx):
@@ -3450,7 +3721,9 @@ def main(argv=None) -> int:
         f"{timed}, preemption device ms {pre_stats['ms']}, scan cycle device ms "
         f"{scan_stats['ms']}, scan preemption device ms {scan_stats['pre_ms']}, volumes "
         f"cycle device ms {vol_stats['ms']}, volumes preemption device ms "
-        f"{vol_stats['pre_ms']}, carry cycle device ms {carry_stats[False]['ms']}, with "
+        f"{vol_stats['pre_ms']}, volumes scan cycle device ms {vol_stats['scan']['ms']}, "
+        f"volumes scan preemption device ms {vol_stats['scan']['pre_ms']}, carry cycle "
+        f"device ms {carry_stats[False]['ms']}, with "
         f"volumes {carry_stats[True]['ms']}, full cycles "
         f"{json.dumps(full_stats['ms'])}, diagnosis ms a frame "
         f"{[c['diagnosis']['ms'] for c in carry_stats.values()]}, peak memory "

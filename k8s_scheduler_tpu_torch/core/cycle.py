@@ -23,11 +23,12 @@ static mask (K10) over the candidates.
 
 The scan engine (`commit_mode="scan"`, the strict one-pod-at-a-time
 ScheduleOne commit) replaces the rounds engine with one launch of K13
-`scan_commit` over the same static base; volumes are not in it yet
-(ROADMAP A8b).
+`scan_commit` over the same static base, VolumeBinding's per-pod hooks
+included (the unbound residue against the claim bitmap, which the kernel
+keeps in each CTA's shared memory, and each placement's claims).
 
 This package builds the cycle of both engines, with inter-pod affinity,
-topology spread and (rounds only) volumes, and preemption after either:
+topology spread and volumes, and preemption after either:
 its latency outputs (`outputs="latency"`, a `CycleDecision`) and its full
 outputs (`outputs="full"`, the default as in the reference: a
 `CycleResult` with the per-filter reject counts, the PV claim bitmap and
@@ -265,10 +266,6 @@ def build_cycle_fn(
             diag_per_round=rres.diag_per_round, placed_round=d.placed_round)
 
     def scan_cycle(snap, ctx):
-        if snap.has_volumes and any(f.name == "VolumeBinding" for f in fw.filters):
-            raise NotImplementedError(
-                "commit_mode 'scan' on a snapshot with volumes: VolumeBinding's "
-                "per-pod hooks are ROADMAP A8b (the rounds engine covers volumes)")
         # K1's fit test against the cycle-start state only removes nodes the
         # scan's fit test would reject at every step (node_requested only
         # grows during the scan); its clip to +-1e6 is the identity on the
@@ -292,7 +289,9 @@ def build_cycle_fn(
         return CycleResult(
             assignment, node_req, unsched, dropped,
             reject_counts=srej + res.rejects,
-            pv_claimed=_pv_claimed_of(snap, {}),
+            pv_claimed=_pv_claimed_after_unwind(
+                snap, ctx, {} if res.pv_claimed is None else {"VolumeBinding": res.pv_claimed},
+                assignment, dropped),
             rounds_used=torch.zeros((), dtype=i32, device=snap.device),
             accepted_per_round=torch.zeros((max_rounds,), dtype=i32, device=snap.device),
             diag_per_round=torch.zeros((max_rounds, 3), dtype=i32, device=snap.device),

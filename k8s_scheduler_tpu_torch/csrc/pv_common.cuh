@@ -1,6 +1,7 @@
-// pv_common.cuh: what the three volume kernels (volume_mask.cu, pv_choice.cu,
-// pv_fold.cu) share — the per-node lists of available PVs, a pod's volume
-// slots, the per-slot candidacy test, and the SDR-safe claim choice.
+// pv_common.cuh: what the volume kernels (volume_mask.cu, pv_choice.cu,
+// pv_fold.cu, and scan_commit.cu's VolumeBinding instance) share — the
+// per-node lists of available PVs, a pod's volume slots, the per-slot
+// candidacy test, and the SDR-safe claim choice.
 //
 // The PV lists (ops/volumes.py VolumeTables): node_pv[node_off[n] ..
 // node_off[n+1]) are the available PVs whose nodeAffinity admits node n,
@@ -8,7 +9,8 @@
 // usable for slot t iff mode_t == 1, pv_class[v] == class_t and
 // pv_cap[v] + 1e-3f >= size_t (in f32, as the reference), and it is not
 // claimed. Claim bitmaps are read with __ldcg (L2, never the read-only or
-// L1 path), because pv_fold.cu writes them inside its launch.
+// L1 path), because pv_fold.cu writes them inside its launch; scan_commit.cu
+// keeps its bitmap in shared memory and tests it through choose_by.
 
 #pragma once
 
@@ -111,19 +113,21 @@ __device__ __forceinline__ bool in_mine(const int* mine, int n_mine, int v) {
   return false;
 }
 
-// The PV claimant b's slot j claims at node n against `claimed` (and, in
-// the contention-free simulation, excluding the PVs in `mine`), or -1:
-// ops/volumes.py chosen_pv (single-volume) or chosen_pv_sdr (multi-volume)
-// for one row. `pending` holds the claimant's unresolved slots (bit j
-// included iff slot j is active).
-__device__ int choose(const Ctx& c, const Sdr& sdr, const Slots& s, int n, int j,
-                      unsigned pending, const uint8_t* claimed, const int* mine,
-                      int n_mine) {
+// The PV claimant b's slot j claims at node n, or -1: ops/volumes.py
+// chosen_pv (single-volume) or chosen_pv_sdr (multi-volume) for one row.
+// `claimed(v)` says whether PV v is taken; `mine(v)` whether the claimant
+// itself chose it for an earlier slot in the same pass (the contention-free
+// simulation; the single-volume path does not read it). `pending` holds
+// the claimant's unresolved slots (bit j included iff slot j is active).
+template <class Claimed, class Mine>
+__device__ __forceinline__ int choose_by(const Ctx& c, const Sdr& sdr, const Slots& s,
+                                         int n, int j, unsigned pending, Claimed claimed,
+                                         Mine mine) {
   if (!((pending >> j) & 1u)) return -1;
   if (!sdr.multi) {
     int best = -1;
     for_each_pv(c, n, [&](int v) {
-      if (claimed_at(claimed, v)) return true;
+      if (claimed(v)) return true;
       if ((cand_bits(c, s, v) >> j) & 1u) { best = v; return false; }
       return true;
     });
@@ -137,9 +141,7 @@ __device__ int choose(const Ctx& c, const Sdr& sdr, const Slots& s, int n, int j
     if (t == j) dyn_j = d;
     if (((pending >> t) & 1u) && s.mode[t] == 1 && !d) needy |= 1u << t;
   }
-  auto usable = [&](int v) {
-    return !claimed_at(claimed, v) && !in_mine(mine, n_mine, v);
-  };
+  auto usable = [&](int v) { return !claimed(v) && !mine(v); };
   unsigned eff[kMaxSub];
   int need[kMaxSub], cnt[kMaxSub];
   int n_sub = 0;
@@ -195,6 +197,16 @@ __device__ int choose(const Ctx& c, const Sdr& sdr, const Slots& s, int n, int j
   if (best_safe >= 0) return best_safe;
   if (dyn_j) return -1;
   return best_any;
+}
+
+// choose_by against a claim bitmap in device memory (one byte a PV) and the
+// PVs in `mine`
+__device__ int choose(const Ctx& c, const Sdr& sdr, const Slots& s, int n, int j,
+                      unsigned pending, const uint8_t* claimed, const int* mine,
+                      int n_mine) {
+  return choose_by(c, sdr, s, n, j, pending,
+                   [&](int v) { return claimed_at(claimed, v); },
+                   [&](int v) { return in_mine(mine, n_mine, v); });
 }
 
 }  // namespace pv

@@ -5,8 +5,9 @@
 // over the priority-ordered pending set — with the per-pod hooks of the
 // default plugin set (k8s_scheduler_tpu/framework/plugins.py NodePorts,
 // NodeResourcesFit, NodeResourcesBalancedAllocation, InterPodAffinity,
-// PodTopologySpread; k8s_scheduler_tpu/ops/interpod.py:151-315). For each
-// valid pod p in rank order:
+// PodTopologySpread; k8s_scheduler_tpu/ops/interpod.py:151-315; VolumeBinding,
+// framework/plugins.py:250 / :267 over ops/volumes.py:242 / :400 / :567). For
+// each valid pod p in rank order:
 //   feasible[n] = sbase[p, n] > NEG_INF / 2 (K1: every static filter)
 //                 & no host port of p claimed at n this cycle
 //                 & p's request fits (allocatable - requested) + slack
@@ -15,6 +16,10 @@
 //                   pod's anti term over n whose selector matches p
 //                 & DoNotSchedule: count + 1 - min over the key's domains
 //                   <= maxSkew, n has the key
+//                 & VolumeBinding's unbound residue: each unbound slot served
+//                   by an unclaimed candidate PV that n admits or by dynamic
+//                   provisioning at n; Hall's condition over the slot
+//                   subsets of a multi-volume pod
 //   score[n]    = sbase + the dynamic scores in the framework's order
 //                 (fit, balanced allocation, affinity normalised by max
 //                 |raw| over feasible nodes, spread by max raw), weighted
@@ -23,9 +28,9 @@
 //   best        = the nominated node if feasible, else the first index of
 //                 the maximum; committed when feasible
 // and the commit: assignment, requested resources, claimed ports, the
-// affinity counts of p's matched selectors in best's domains, and the
+// affinity counts of p's matched selectors in best's domains, the
 // anti-presence / preferred-weight rows of p's own terms over the nodes
-// of best's domains.
+// of best's domains, and the static PVs p's unbound slots claim at best.
 //
 // Bound on an H100: latency — P dependent steps of O(N) work each. Bytes
 // (the [P, N] static base once) take a tenth of a millisecond; a step is
@@ -84,6 +89,21 @@
 // minimum and a CTA and cluster barrier for the maxima when the pod needs
 // them.
 //
+// VolumeBinding (the kVol instance, a template flag as the full mode is: a
+// snapshot without volumes or a profile without the plugin runs an
+// instance with no volume code): each CTA stages the claim bitmap into
+// shared memory as ceil(V / 32) words, its own replica, read only there
+// (it changes inside the launch). A step of a pod with an unbound slot
+// (pod flag kPodVol; the others take a block-uniform skip) tests each of a
+// thread's nodes by walking the node's PV list and the global list
+// (pv_common.cuh for_each_pv, cand_bits) against the replica, counting per
+// slot subset for a multi-volume pod with two or more slots that cannot
+// ride dynamic provisioning there. After the exchange, thread 0 of every
+// CTA makes the winner's claims in its own replica with pv::choose_by at
+// the winner's node — the same deterministic choice in every CTA, so the
+// replicas stay equal with no exchange; CTA 0 writes the bitmap out. A
+// claim is on the step's path (the next step's barrier waits for it).
+//
 // Exactness: the per-node arithmetic is the one-block design's; minimum,
 // maximum and the first-index argmax are exact in any partition; counts
 // and totals take integer +1s; each preferred-weight column is updated by
@@ -98,6 +118,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "pv_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -119,18 +141,21 @@ constexpr int kWhenDoNotSchedule = 0, kWhenScheduleAnyway = 1;
 
 // flag bits and score-term codes (ops/scan_commit.py mirrors these)
 constexpr int kPorts = 1, kFit = 2, kAffinity = 4, kSpread = 8, kPortState = 16,
-              kState = 32, kTables = 64, kMost = 128, kFitOnes = 256, kBalAll = 512;
+              kState = 32, kTables = 64, kMost = 128, kFitOnes = 256, kBalAll = 512,
+              kVolumes = 1024;
 // kTermConst: BalancedAllocation over one resource, folded to the constant
 // 100 * w its weight slot holds (a bare value)
 constexpr int kTermFit = 1, kTermBalanced = 2, kTermAffinity = 3, kTermSpread = 4,
               kTermConst = 5;
 // pod flags: a DoNotSchedule constraint; a raw affinity / spread score
 // that can be nonzero (else its normalisation maximum is 0 everywhere); an
-// invalid pod row (the full mode walks it without a commit)
-constexpr int kPodHard = 1, kPodAffNorm = 2, kPodSprNorm = 4, kPodInvalid = 8;
+// invalid pod row (the full mode walks it without a commit); an unbound
+// volume slot (the kVol instance)
+constexpr int kPodHard = 1, kPodAffNorm = 2, kPodSprNorm = 4, kPodInvalid = 8,
+              kPodVol = 16;
 // the full mode's dynamic parts, in the order of their fail bits: NodePorts,
-// NodeResourcesFit, InterPodAffinity, PodTopologySpread
-constexpr int kParts = 4;
+// NodeResourcesFit, InterPodAffinity, PodTopologySpread, VolumeBinding
+constexpr int kParts = 5;
 
 // ops/scan_commit.py ScanArgs mirrors this struct field for field
 struct Args {
@@ -143,14 +168,18 @@ struct Args {
   int bal_mask;  // resources BalancedAllocation averages
   // shared memory layout (byte offsets) and its size
   int o_slot3, o_slot2, o_wbest, o_wred, o_smin, o_dptr, o_rows, o_mbar, o_total, o_alloc,
-      o_slack, o_nreq, o_ndom, o_pbits, o_wcnt, smem;
+      o_slack, o_nreq, o_ndom, o_pbits, o_cbits, o_vsub, o_wcnt, smem;
   // a pod row (int offsets): request (f32 bits) [R], port ids [MP], required
   // terms [MA, 2], self-match [MA], anti terms [MA, 2], preferred terms
   // [MA, 2], their weights (f32 bits) [MA], constraints [MC, 3], skews [MC],
   // the first kPodSels matched selectors, where the list starts, its length,
-  // the nominated node and its domains [K], pod flags, the pod
+  // the nominated node and its domains [K], pod flags, the pod; the kVol
+  // instance: the volume slots' modes, requirement ids, classes and sizes
+  // (f32 bits) [MVol] and per anchor slot its dominance group's slot bits
+  // [MVol]
   int r_req, r_ports, r_aff, r_self, r_anti, r_pref, r_prefw, r_tsc, r_skew, r_sels,
-      r_sel0, r_nsel, r_nom, r_nomdom, r_flags, r_p;
+      r_sel0, r_nsel, r_nom, r_nomdom, r_flags, r_p, r_vmode, r_vrid, r_vcls, r_vsize,
+      r_vmem;
   const float* sbase;          // [P, N]
   const int* vorder;           // [P] the valid pods in rank order
   const int* nv;               // [1] how many
@@ -175,6 +204,21 @@ struct Args {
   int* rejects;                // [P, F], zeroed by the caller
   int F;
   int rej_col[kParts];         // each part's column (-1: no such filter)
+  // the kVol instance (ops/volumes.py VolumeTables; pv_common.cuh Ctx): V
+  // PVs, MVol slots a pod, G global PVs, Rq requirement rows, n_sub slot
+  // subsets (the singletons first), vmulti: Hall's condition applies
+  int V, MVol, G, Rq, n_sub, vmulti;
+  const int* node_off;         // [N + 1]
+  const int* node_pv;          // [L]
+  const int* global_pv;        // [G]
+  const int* pv_class;         // [V]
+  const float* pv_cap;         // [V]
+  const uint8_t* req;          // [Rq, N]
+  const int* subs;             // [n_sub] slot bits
+  const unsigned* sdr_mask;    // pv::Sdr's subset masks
+  const int* sdr_off;          // [MVol + 1]
+  const uint8_t* claimed_in;   // [V] at cycle start
+  uint8_t* claimed_out;        // [V] after the commit (CTA 0)
 };
 
 // a node's key: hi the score's order-preserving word, lo ~index (the lower
@@ -511,6 +555,93 @@ __device__ __forceinline__ void send_rec(uint32_t dst, uint32_t mbar, const Rec&
   st_async4(dst + 32, mbar, r.dom[4], r.dom[5], r.dom[6], r.dom[7]);
 }
 
+// ---- VolumeBinding (the kVol instance) ----
+
+__device__ __forceinline__ pv::Ctx vol_ctx(const Args& a) {
+  pv::Ctx c;
+  c.N = a.N; c.V = a.V; c.Rq = a.Rq; c.MVol = a.MVol; c.G = a.G;
+  c.node_off = a.node_off; c.node_pv = a.node_pv; c.global_pv = a.global_pv;
+  c.pv_class = a.pv_class; c.pv_cap = a.pv_cap; c.req = a.req;
+  c.vol_mode = c.vol_req = c.vol_class = nullptr;  // the slots come from the pod row
+  c.vol_size = nullptr;
+  return c;
+}
+
+// the pod's volume slots from its row
+__device__ __forceinline__ void vol_slots(const Args& a, const int* pod, pv::Slots& s) {
+#pragma unroll
+  for (int t = 0; t < pv::kMaxVol; ++t) {
+    const bool in = t < a.MVol;
+    s.mode[t] = in ? pod[a.r_vmode + t] : -1;
+    s.rid[t] = in ? pod[a.r_vrid + t] : -1;
+    s.cls[t] = in ? pod[a.r_vcls + t] : -1;
+    s.size[t] = in ? __int_as_float(pod[a.r_vsize + t]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ bool bit_at(const uint32_t* cbits, int v) {
+  return (cbits[v >> 5] >> (v & 31)) & 1u;
+}
+
+// VolumeBinding's unbound residue at node n (ops/volumes.py
+// volume_mask_unbound_row): every unbound slot served by an unclaimed
+// candidate of n's list or the global list, or by dynamic provisioning at
+// n; a multi-volume pod with two or more slots that need a static PV at n
+// (needy), Hall's condition over its slot subsets (avail >= need; a subset
+// with fewer than two needy slots holds by the singletons) and, above 6
+// slots, over each anchor's dominance group, whose union is the anchor's
+// own candidates (the singleton count)
+__device__ __forceinline__ bool vol_ok(const Args& a, const pv::Ctx& c, const pv::Slots& s,
+                                       const int* pod, int n, const uint32_t* cbits,
+                                       const int* vsub) {
+  unsigned needy = 0;
+  for (int t = 0; t < a.MVol; ++t)
+    if (s.mode[t] == 1 && !pv::dyn_at(c, s, t, n)) needy |= 1u << t;
+  if (!needy) return true;
+  const bool hall = a.vmulti && __popc(needy) >= 2;
+  int cnt[pv::kMaxSub];
+  if (hall)
+    for (int k = 0; k < a.n_sub; ++k) cnt[k] = 0;
+  unsigned has = 0;
+  pv::for_each_pv(c, n, [&](int v) {
+    if (bit_at(cbits, v)) return true;
+    const unsigned b = pv::cand_bits(c, s, v);
+    has |= b;
+    if (hall && b)
+      for (int k = 0; k < a.n_sub; ++k) cnt[k] += (b & (unsigned)vsub[k]) != 0u;
+    return hall || (needy & ~has) != 0u;  // without Hall: stop once each slot is served
+  });
+  if (needy & ~has) return false;
+  if (!hall) return true;
+  for (int k = a.MVol; k < a.n_sub; ++k)
+    if (cnt[k] < __popc((unsigned)vsub[k] & needy)) return false;
+  if (a.MVol > 6)
+    for (int g = 0; g < a.MVol; ++g)
+      if (cnt[g] < __popc((unsigned)pod[a.r_vmem + g] & needy)) return false;
+  return true;
+}
+
+// the winner's claims at `node` in this CTA's replica (framework/plugins.py
+// VolumeBinding.extra_update): the slots in index order, each by
+// pv::choose_by against the replica (the SDR-safe choice for a
+// multi-volume snapshot), each claim seen by the next slot
+__device__ __forceinline__ void vol_claim(const Args& a, const pv::Ctx& c, const int* pod,
+                                          int node, uint32_t* cbits) {
+  pv::Slots s;
+  vol_slots(a, pod, s);
+  const pv::Sdr sdr{a.sdr_mask, a.sdr_off, a.vmulti};
+  unsigned pending = 0;
+  for (int t = 0; t < a.MVol; ++t)
+    if (s.mode[t] == 1) pending |= 1u << t;
+  for (int t = 0; t < a.MVol; ++t) {
+    const int ch = pv::choose_by(
+        c, sdr, s, node, t, pending, [&](int v) { return bit_at(cbits, v); },
+        [](int) { return false; });
+    if (ch >= 0) cbits[ch >> 5] |= 1u << (ch & 31);
+    pending &= ~(1u << t);
+  }
+}
+
 // the full mode's counts of one step: each warp's nodes whose first failing
 // part (the smallest column among the parts that reject a node the static
 // base admits) is part j, into wcnt[warp][j]
@@ -547,7 +678,7 @@ __device__ __forceinline__ void add_parts(const Args& a, const int* wcnt, int p,
   if (n > 0) atomicAdd(a.rejects + (size_t)p * a.F + a.rej_col[lane], n);
 }
 
-template <bool kFull>
+template <bool kFull, bool kVol>
 __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -567,6 +698,8 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   uint64_t* mbar = at<uint64_t>(smem, a.o_mbar);  // [2] the winner records' arrival
   float* total = at<float>(smem, a.o_total);   // [S]
   int* wcnt = at<int>(smem, a.o_wcnt);         // [kWarps][kParts] (kFull)
+  uint32_t* cbits = at<uint32_t>(smem, a.o_cbits);  // [ceil(V / 32)] claims (kVol)
+  int* vsub = at<int>(smem, a.o_vsub);         // [n_sub] slot subsets (kVol)
   Slice s{ns, at<float>(smem, a.o_alloc), at<float>(smem, a.o_slack),
           at<float>(smem, a.o_nreq), at<int>(smem, a.o_ndom), at<uint32_t>(smem, a.o_pbits),
           me == 0 ? a.counts : a.counts_rep + (size_t)(me - 1) * a.rep_stride};
@@ -599,6 +732,15 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   }
   for (int i = tid; i < a.S; i += kThreads) total[i] = a.total[i];
   for (int i = tid; i <= K; i += kThreads) dptr[i] = a.dom_ptr[i];
+  if constexpr (kVol) {
+    for (int w = tid; w < (a.V + 31) / 32; w += kThreads) {
+      uint32_t bits = 0;
+      for (int v = w * 32; v < min(a.V, w * 32 + 32); ++v)
+        bits |= (uint32_t)(a.claimed_in[v] != 0) << (v & 31);
+      cbits[w] = bits;
+    }
+    for (int i = tid; i < a.n_sub; i += kThreads) vsub[i] = a.subs[i];
+  }
   if (me > 0) {
     const size_t m = (size_t)a.S * a.D;
     const float4* src = reinterpret_cast<const float4*>(a.counts);
@@ -609,6 +751,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   if (me == 0)
     for (int i = tid; i < a.P; i += kThreads) a.assignment[i] = -1;
   const int nv = *a.nv;
+  const pv::Ctx vc = kVol ? vol_ctx(a) : pv::Ctx{};
 
   if (tid < 2)
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&mbar[tid])));
@@ -697,6 +840,9 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
     unsigned failb[kPer];
     float araw[kPer], sraw[kPer];
     float aff_hi = 0.0f, spr_hi = 0.0f;
+    const bool vol_pod = kVol && (pflags & kPodVol);
+    pv::Slots vs;
+    if (vol_pod) vol_slots(a, pod, vs);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       araw[i] = sraw[i] = 0.0f;
@@ -704,8 +850,15 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
       const int ln = tid + i * kThreads;
       if (ln >= nn) continue;
       const int n = n0 + ln;
-      const bool f = node_mask<kFull>(a, s, pod, ln, n, sb_cur[i], minc, total, failb[i]);
+      bool f = node_mask<kFull>(a, s, pod, ln, n, sb_cur[i], minc, total, failb[i]);
       if (kFull && !(sb_cur[i] > kNegInf / 2)) failb[i] = 0;  // the static base's rejection
+      // VolumeBinding: the full mode tests every node the static base
+      // admits (its first rejector is the smallest failing column)
+      if (vol_pod && (kFull ? sb_cur[i] > kNegInf / 2 : f) &&
+          !vol_ok(a, vc, vs, pod, n, cbits, vsub)) {
+        f = false;
+        if constexpr (kFull) failb[i] |= 16u;
+      }
       if (n == nom_n) nomf = f;
       if (!f) continue;
       feas |= 1u << i;
@@ -793,6 +946,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k)
         dom[k] = k >= K ? -1 : nom_ok ? pod[a.r_nomdom + k] : win.dom[k];
+      if (vol_pod && tid == 0) vol_claim(a, vc, pod, bn, cbits);
       const int bl = bn - n0;
       if (bl >= 0 && bl < nn && tid == bl % kThreads) {  // the node's thread
         a.assignment[pod[a.r_p]] = bn;
@@ -857,17 +1011,21 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
   }
   if (me == 0)
     for (int i = tid; i < a.S; i += kThreads) a.total[i] = total[i];
+  if (kVol && me == 0)
+    for (int v = tid; v < a.V; v += kThreads) a.claimed_out[v] = bit_at(cbits, v);
   cluster.sync();  // no CTA leaves while another may still address it
 }
 
-// the latency instance, or the full mode's where the caller gives rejects
-const void* kernel_of(bool full) {
-  return full ? (const void*)scan_kernel<true> : (const void*)scan_kernel<false>;
+// the latency instance, or the full mode's where the caller gives rejects;
+// each with the volume path (kVolumes) or without
+const void* kernel_of(bool full, bool vol) {
+  if (vol) return full ? (const void*)scan_kernel<true, true> : (const void*)scan_kernel<false, true>;
+  return full ? (const void*)scan_kernel<true, false> : (const void*)scan_kernel<false, false>;
 }
 
 cudaError_t configure(const Args& a, cudaStream_t st, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
-  const void* fn = kernel_of(a.rejects != nullptr);
+  const void* fn = kernel_of(a.rejects != nullptr, (a.flags & kVolumes) != 0);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
@@ -892,8 +1050,8 @@ extern "C" int scan_commit_args_size() { return (int)sizeof(Args); }
 
 // how many clusters of `csize` CTAs with `smem` bytes each the card can
 // hold at once (0: it cannot schedule one), of the latency instance or
-// (`full`) the full mode's
-extern "C" int scan_commit_clusters(int csize, int smem, int full, int* clusters) {
+// (`full`) the full mode's, with (`vol`) or without the volume path
+extern "C" int scan_commit_clusters(int csize, int smem, int full, int vol, int* clusters) {
   if (csize < 1 || csize > kMaxCluster || smem < 0 || (size_t)smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   Args a{};
@@ -901,11 +1059,12 @@ extern "C" int scan_commit_clusters(int csize, int smem, int full, int* clusters
   a.smem = smem;
   int dummy = 0;
   a.rejects = full ? &dummy : nullptr;  // selects the instance only
+  a.flags = vol ? kVolumes : 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(a, nullptr, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel_of(full != 0), &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel_of(full != 0, vol != 0), &cfg);
 }
 
 // `args` points at an Args (an opaque pointer: a type of the anonymous
@@ -920,12 +1079,23 @@ extern "C" int scan_commit_launch(const void* args, void* stream) {
       (a.csize > 1 && a.rep_stride % 4 != 0) ||
       (a.rejects != nullptr && (a.F < 1 || a.o_wcnt < 0)))
     return (int)cudaErrorInvalidValue;
+  const bool vol = (a.flags & kVolumes) != 0;
+  if (vol && (a.V < 1 || a.MVol < 1 || a.MVol > pv::kMaxVol || a.n_sub < a.MVol ||
+              a.n_sub > pv::kMaxSub || a.Rq < 1 || a.G < 0 || a.node_off == nullptr ||
+              a.pv_class == nullptr || a.pv_cap == nullptr || a.req == nullptr ||
+              a.subs == nullptr || a.sdr_mask == nullptr || a.sdr_off == nullptr ||
+              a.claimed_in == nullptr || a.claimed_out == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(a, (cudaStream_t)stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  e = a.rejects != nullptr ? cudaLaunchKernelEx(&cfg, scan_kernel<true>, a)
-                           : cudaLaunchKernelEx(&cfg, scan_kernel<false>, a);
+  if (vol)
+    e = a.rejects != nullptr ? cudaLaunchKernelEx(&cfg, scan_kernel<true, true>, a)
+                             : cudaLaunchKernelEx(&cfg, scan_kernel<false, true>, a);
+  else
+    e = a.rejects != nullptr ? cudaLaunchKernelEx(&cfg, scan_kernel<true, false>, a)
+                             : cudaLaunchKernelEx(&cfg, scan_kernel<false, false>, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,7 @@ from ..ops import ports as ports_ops
 from ..ops import preemption as preemption_ops
 from ..ops import resources as res_ops
 from ..ops import taints as taints_ops
+from ..ops import volumes as volumes_ops
 from ..ops.commit import Constant, OneResourceFit, Product
 from ..ops.interpod import take_row
 from .interfaces import CycleContext, PluginBase
@@ -249,12 +250,44 @@ class VolumeBinding(PluginBase):
         return torch.zeros((ctx.snap.pv_avail.shape[0],), dtype=torch.bool,
                            device=ctx.snap.device)
 
+    def dyn_mask(self, ctx: CycleContext, p, node_requested, extra):
+        # the scan step's row of the unbound residue (the batched form
+        # would redo [P, N] work at each of P steps)
+        if not self._has_static_claims(ctx.snap):
+            return None
+        return volumes_ops.volume_mask_unbound_row(
+            ctx.snap, ctx.volume_tables, extra[self.name], p)
+
     def dyn_mask_batched(self, ctx: CycleContext, node_requested, extra,
                          shared):
         if not self._has_static_claims(ctx.snap):
             return None
         return ctx.volume_kernels.volume_mask(ctx.snap, ctx.volume_tables,
                                               extra[self.name], True)
+
+    def extra_update(self, ctx: CycleContext, extra, p, node, committed):
+        """One scan step's claims: slots in index order, a multi-volume pod
+        by the SDR-safe choice, each claim seen by the next slot; a step
+        that does not commit claims nothing."""
+        if extra is None:
+            return extra
+        snap = ctx.snap
+        tables = ctx.volume_tables
+        V = extra.shape[0]
+        multi = volumes_ops._multi(snap)
+        claimed = extra
+        pending = take_row(snap.pod_vol_mode, p) == 1  # [MVol]
+        for t in range(snap.pod_vol_mode.shape[1]):
+            if multi:
+                ch = volumes_ops.chosen_pv_sdr_row(snap, tables, claimed, node, p, pending, t)
+            else:
+                ch = volumes_ops.chosen_pv_row(snap, tables, claimed, node, p, t)
+            ch = torch.where(committed, ch, -1).reshape(1)
+            at = ch.clamp(0, V - 1).long()
+            claimed = claimed.index_copy(0, at, claimed.index_select(0, at) | (ch >= 0))
+            pending = pending.clone()
+            pending[t] = False
+        return claimed
 
     def extra_update_batched(self, ctx: CycleContext, extra, accepted,
                              node_of):

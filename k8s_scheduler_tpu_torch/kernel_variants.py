@@ -1215,11 +1215,14 @@ def scan_with(lib, cluster=None):
 
 def scans_equal(a, b) -> bool:
     """Two scan commits' seven outputs equal (`torch.equal`, as the smoke's
-    full-size comparison)."""
+    full-size comparison), and their claim bitmaps where VolumeBinding
+    runs."""
     return (torch.equal(a.assignment, b.assignment)
             and torch.equal(a.node_requested, b.node_requested)
             and torch.equal(a.ports, b.ports)
-            and states_equal(a.state, b.state))
+            and states_equal(a.state, b.state)
+            and (a.pv_claimed is None) == (b.pv_claimed is None)
+            and (a.pv_claimed is None or torch.equal(a.pv_claimed, b.pv_claimed)))
 
 
 def scan_full_inputs(dev, seed: int = 202):

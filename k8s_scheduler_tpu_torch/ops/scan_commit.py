@@ -4,7 +4,7 @@ launch.
 Reference: `k8s_scheduler_tpu/ops/commit.py:63 greedy_commit` (a
 `lax.scan` over the priority-ordered pending set) with the default plugin
 set's per-pod hooks (`framework/plugins.py`, `ops/interpod.py:151-315`,
-`ops/resources.py`), minus VolumeBinding's (ROADMAP A8b).
+`ops/resources.py`, VolumeBinding's `ops/volumes.py:242 / :400 / :567`).
 
 `scan_commit_inputs` packs the operands once per cycle: the static base
 from K1, the rank order, the per-pod terms, the running state (requested
@@ -25,6 +25,17 @@ be nonzero). The wrapper packs each pod's operands into one row
 `launch_shape` gives a launch's slices and shared memory without a card.
 `scan_commit` picks the kernel for CUDA tensors and the plain version for
 CPU ones. Latency-bound on an H100: P dependent steps.
+
+VolumeBinding (`F_VOLUMES`, where its claim bitmap is in the plugins'
+state: a snapshot with volumes and static PVs) runs in the same launch,
+in the kernel's instance with the volume path compiled in: each CTA keeps
+a replica of the claim bitmap in shared memory (ceil(V / 32) words); a
+pod with an unbound slot (`POD_VOL`) tests each node against it by
+walking the node's PV list and the global one (`volumes.VolumeTables`),
+with Hall's condition over the subset masks for a multi-volume pod; after
+the exchange every CTA makes the winner's claims in its own replica the
+same way (the slots in index order, the SDR-safe choice of
+csrc/pv_common.cuh), and CTA 0 writes the bitmap out (`pv_claimed`).
 
 The full outputs (`scan_commit_inputs(..., rejects=True)`) add the
 reference's per-step reject attribution (`ops/commit.py:60`, `:84`,
@@ -49,6 +60,8 @@ import torch
 from ..framework.plugins import _score_resource_weights
 from ..models.encoding import WHEN_DO_NOT_SCHEDULE, WHEN_SCHEDULE_ANYWAY
 from . import interpod as ip
+from . import volume_mask as vm
+from . import volumes
 from .commit import CommitResult, greedy_commit
 from .dyn_round import balanced_is_constant, one_resource_fit
 from .kernel_build import (checked, count_launch, load_cuda_library, raise_on_error,
@@ -68,30 +81,38 @@ CLUSTER, CLUSTER_PORTABLE = 16, 8
 MAX_NODES = CLUSTER * THREADS * NODES_A_THREAD  # 16384
 MAX_NODES_PORTABLE = CLUSTER_PORTABLE * THREADS * NODES_A_THREAD  # 8192
 SMEM_LIMIT = 232448  # shared memory bytes a CTA can use (227 KB)
+MAX_SUBSETS = 64  # csrc/pv_common.cuh kMaxSub: a pod's slot subsets
 POD_SELS = 8  # matched selectors carried in a pod row (kPodSels)
 REC_BYTES, WARPS = 48, THREADS // 32  # sizeof(Rec), kWarps
-POD_HARD, POD_AFF_NORM, POD_SPR_NORM, POD_INVALID = 1, 2, 4, 8  # pod flags (kPod*)
+# pod flags (kPod*); POD_VOL: an unbound volume slot (the volume instance)
+POD_HARD, POD_AFF_NORM, POD_SPR_NORM, POD_INVALID, POD_VOL = 1, 2, 4, 8, 16
 # the full mode's dynamic parts, in csrc/scan_commit.cu's fail-bit order
-REJECT_PARTS = ("NodePorts", "NodeResourcesFit", "InterPodAffinity", "PodTopologySpread")
+REJECT_PARTS = ("NodePorts", "NodeResourcesFit", "InterPodAffinity", "PodTopologySpread",
+                "VolumeBinding")
+# a pod row's fields; the last five (its volume slots: mode, requirement id,
+# class, size as f32 bits, and per anchor slot the bits of the slots in its
+# dominance group) are MVol wide in the volume instance, else empty
 _ROW_FIELDS = ("req", "ports", "aff", "self", "anti", "pref", "prefw", "tsc", "skew",
-               "sels", "sel0", "nsel", "nom", "nomdom", "flags", "p")
+               "sels", "sel0", "nsel", "nom", "nomdom", "flags", "p",
+               "vmode", "vrid", "vcls", "vsize", "vmem")
 _SMEM_FIELDS = ("slot3", "slot2", "wbest", "wred", "smin", "dptr", "rows", "mbar", "total",
-                "alloc", "slack", "nreq", "ndom", "pbits", "wcnt")
+                "alloc", "slack", "nreq", "ndom", "pbits", "cbits", "vsub", "wcnt")
 
 # flag bits and score-term codes (csrc/scan_commit.cu mirrors these)
 F_PORTS, F_FIT, F_AFFINITY, F_SPREAD, F_PORT_STATE, F_STATE, F_TABLES, F_MOST = (
     1, 2, 4, 8, 16, 32, 64, 128
 )
 # the fit weights are all 1 (the sum adds rounded products); every resource
-# is BalancedAllocation's (its variance sum fuses the squares)
-F_FIT_ONES, F_BAL_ALL = 256, 512
+# is BalancedAllocation's (its variance sum fuses the squares); VolumeBinding's
+# per-pod hooks (the claim bitmap in the plugins' state)
+F_FIT_ONES, F_BAL_ALL, F_VOLUMES = 256, 512, 1024
 # T_CONST: BalancedAllocation over one resource, the constant 100 * w its
 # weight holds (the reference folds it: ROADMAP C7)
 T_FIT, T_BALANCED, T_AFFINITY, T_SPREAD, T_CONST = 1, 2, 3, 4, 5
 
 # the plugins whose per-pod hooks the kernel implements
 _COVERED = ("NodePorts", "NodeResourcesFit", "NodeResourcesBalancedAllocation",
-            "InterPodAffinity", "PodTopologySpread")
+            "InterPodAffinity", "PodTopologySpread", "VolumeBinding")
 _PER_POD_HOOKS = ("dyn_mask", "dyn_score", "extra_update")
 
 
@@ -139,6 +160,20 @@ class ScanInputs:
     # for the latency outputs
     reject_cols: tuple[int, ...] | None = None
     n_filters: int = 0
+    # VolumeBinding (F_VOLUMES; None without it): the PV lists and
+    # requirement rows, the PVs' class and capacity, the claim bitmap at
+    # cycle start, the pods' volume slots, and per pod and anchor slot the
+    # bits of its dominance group (multi-volume above 6 slots, else 0)
+    vol_tables: volumes.VolumeTables | None = None
+    pv_class: torch.Tensor | None = None  # i32 [V]
+    pv_cap: torch.Tensor | None = None  # f32 [V]
+    pv_claimed: torch.Tensor | None = None  # bool [V]
+    vol_mode: torch.Tensor | None = None  # i32 [P, MVol]
+    vol_req: torch.Tensor | None = None  # i32 [P, MVol]
+    vol_class: torch.Tensor | None = None  # i32 [P, MVol]
+    vol_size: torch.Tensor | None = None  # f32 [P, MVol]
+    vol_member: torch.Tensor | None = None  # i32 [P, MVol]
+    vol_multi: bool = False  # MVol >= 2 and a multi-volume pod: Hall's condition
 
     @property
     def full(self) -> bool:
@@ -148,6 +183,16 @@ class ScanInputs:
     def shape(self) -> tuple[int, int]:
         return tuple(self.sbase.shape)
 
+    @property
+    def vol(self) -> tuple[int, int, int]:
+        """(V, MVol, subset masks) of the volume instance; zeros without
+        it."""
+        if not self.flags & F_VOLUMES:
+            return 0, 0, 0
+        MVol = self.vol_mode.shape[1]
+        return (self.pv_class.shape[0], MVol,
+                MVol + (len(volumes._hall_subsets(MVol)) if self.vol_multi else 0))
+
 
 @dataclasses.dataclass
 class ScanResult:
@@ -156,6 +201,7 @@ class ScanResult:
     ports: torch.Tensor  # bool [N, Q]
     state: ip.AffinityState  # the affinity state after the commit
     rejects: torch.Tensor | None = None  # i32 [P, F] (the full outputs)
+    pv_claimed: torch.Tensor | None = None  # bool [V] (VolumeBinding's claims)
 
 
 def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int):
@@ -262,6 +308,20 @@ def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict,
     if ports is None:
         ports = torch.zeros((N, max(int(snap.num_distinct_ports), 1)),
                             dtype=torch.bool, device=dev)
+    vol = {}
+    if "VolumeBinding" in names and "VolumeBinding" in extra:
+        flags |= F_VOLUMES
+        multi = volumes._multi(snap)
+        MVol = snap.pod_vol_mode.shape[1]
+        member = torch.zeros((P, MVol), dtype=i32, device=dev)
+        if multi and MVol > 6:
+            bits = 1 << torch.arange(MVol, dtype=i32, device=dev)
+            member = (vm._membership_table(snap).to(i32) * bits).sum(2, dtype=i32)
+        vol = dict(vol_tables=ctx.volume_tables, pv_class=snap.pv_class,
+                   pv_cap=snap.pv_capacity, pv_claimed=extra["VolumeBinding"],
+                   vol_mode=snap.pod_vol_mode, vol_req=snap.pod_vol_req,
+                   vol_class=snap.pod_vol_class, vol_size=snap.pod_vol_size,
+                   vol_member=member, vol_multi=multi)
     return ScanInputs(
         fw=fw, ctx=ctx, extra=extra, flags=flags, terms=tuple(terms),
         fit_w100=tuple(fit_w100), fit_rwsum=fit_rwsum, bal_cols=tuple(bal_cols),
@@ -278,7 +338,7 @@ def scan_commit_inputs(fw, ctx, sbase: torch.Tensor, extra: dict,
         sel_ptr=sel_ptr, sel_list=sel_list,
         reject_cols=tuple(fw.filter_names.index(n) if n in fw.filter_names else -1
                           for n in REJECT_PARTS) if rejects else None,
-        n_filters=len(fw.filters),
+        n_filters=len(fw.filters), **vol,
     )
 
 
@@ -286,7 +346,8 @@ def _result(x: ScanInputs, res: CommitResult) -> ScanResult:
     state = next((v for v in res.extra.values() if isinstance(v, ip.AffinityState)),
                  x.state)
     return ScanResult(res.assignment, res.node_requested,
-                      res.extra.get("NodePorts", x.ports), state, res.dyn_aux)
+                      res.extra.get("NodePorts", x.ports), state, res.dyn_aux,
+                      res.extra.get("VolumeBinding"))
 
 
 def scan_commit_plain(x: ScanInputs) -> ScanResult:
@@ -326,7 +387,7 @@ def exact_range_bound(x: ScanInputs) -> float:
 
 def _dims(x: ScanInputs) -> tuple[int, ...]:
     """(P, N, R, MP, MA, MC, K, S, D, Q), or ValueError on what the kernel
-    does not take (the node limit is `launch_shape`'s)."""
+    does not take (the node and PV limits are `launch_shape`'s)."""
     P, N = x.shape
     R = x.pod_requested.shape[1]
     MP = x.pod_port_ids.shape[1]
@@ -341,14 +402,20 @@ def _dims(x: ScanInputs) -> tuple[int, ...]:
             f"scan_commit: R={R} MP={MP} MA={MA} MC={MC} K={K} terms={len(x.terms)} over "
             f"the kernel's limits ({MAX_RESOURCES}, {MAX_PORTS}, {MAX_TERMS}, "
             f"{MAX_CONSTRAINTS}, {MAX_KEYS}, 4)")
-    launch_shape(N, R, K, Q, S, row_layout(R, MP, MA, MC, K)["W"])
+    V, MVol, n_sub = x.vol
+    if MVol > vm.MAX_VOLUME_SLOTS:
+        raise ValueError(f"scan_commit: {MVol} volume slots per pod over "
+                         f"{vm.MAX_VOLUME_SLOTS}")
+    launch_shape(N, R, K, Q, S, row_layout(R, MP, MA, MC, K, MVol)["W"], V=V, n_sub=n_sub)
     return P, N, R, MP, MA, MC, K, S, D, Q
 
 
-def row_layout(R: int, MP: int, MA: int, MC: int, K: int) -> dict[str, int]:
+def row_layout(R: int, MP: int, MA: int, MC: int, K: int, MVol: int = 0) -> dict[str, int]:
     """Where each field of a pod row starts (ints; csrc `Args.r_*`) and the
-    row's width W."""
-    widths = (R, MP, 2 * MA, MA, 2 * MA, 2 * MA, MA, 3 * MC, MC, POD_SELS, 1, 1, 1, K, 1, 1)
+    row's width W; `MVol` the volume slots of the volume instance (0
+    without it)."""
+    widths = (R, MP, 2 * MA, MA, 2 * MA, 2 * MA, MA, 3 * MC, MC, POD_SELS, 1, 1, 1, K, 1, 1,
+              MVol, MVol, MVol, MVol, MVol)
     out, off = {}, 0
     for f, w in zip(_ROW_FIELDS, widths):
         out[f] = off
@@ -358,14 +425,16 @@ def row_layout(R: int, MP: int, MA: int, MC: int, K: int) -> dict[str, int]:
 
 
 def smem_layout(ns: int, R: int, K: int, QW: int, S: int, W: int,
-                full: bool = False) -> dict[str, int]:
+                full: bool = False, V: int = 0, n_sub: int = 0) -> dict[str, int]:
     """A CTA's shared memory (csrc `Args.o_*`, byte offsets, 16-aligned)
     for a slice of ns nodes, and its size `smem` (`full`: with the full
-    mode's per-warp counts, after everything else)."""
+    mode's per-warp counts, after everything else; `V`, `n_sub`: the
+    volume instance's claim bitmap of ceil(V / 32) words and its subset
+    masks)."""
     sizes = (2 * CLUSTER * REC_BYTES, 2 * CLUSTER * 8, WARPS * REC_BYTES, WARPS * 8,
              MAX_CONSTRAINTS * WARPS * 4, (K + 1) * 4, 2 * W * 4, 2 * 8, S * 4,
              R * ns * 4, R * ns * 4, R * ns * 4, K * ns * 4, QW * ns * 4,
-             WARPS * len(REJECT_PARTS) * 4 if full else 0)
+             -(-V // 32) * 4, n_sub * 4, WARPS * len(REJECT_PARTS) * 4 if full else 0)
     out, off = {}, 0
     for f, b in zip(_SMEM_FIELDS, sizes):
         out[f] = off
@@ -375,10 +444,13 @@ def smem_layout(ns: int, R: int, K: int, QW: int, S: int, W: int,
 
 
 def launch_shape(N: int, R: int, K: int, Q: int, S: int, W: int,
-                 cluster: int = CLUSTER, full: bool = False) -> dict:
+                 cluster: int = CLUSTER, full: bool = False, V: int = 0,
+                 n_sub: int = 0) -> dict:
     """The launch for N nodes on a cluster of `cluster` CTAs (`full`: the
-    full outputs' instance): the slice a CTA owns, nodes a thread and the
-    shared memory layout; ValueError naming the limit the inputs pass."""
+    full outputs' instance; `V`, `n_sub`: the volume instance's PVs and
+    subset masks): the slice a CTA owns, nodes a thread and the shared
+    memory layout; ValueError naming the limit the inputs pass (no
+    fallback: a claim bitmap that does not fit beside the slice raises)."""
     ns = -(-N // cluster)
     if ns > THREADS * NODES_A_THREAD:
         raise ValueError(
@@ -387,14 +459,21 @@ def launch_shape(N: int, R: int, K: int, Q: int, S: int, W: int,
             f"({THREADS * NODES_A_THREAD} a CTA: {MAX_NODES} with {CLUSTER}, "
             f"{MAX_NODES_PORTABLE} on a card that schedules only the portable "
             f"{CLUSTER_PORTABLE})")
-    lay = smem_layout(ns, R, K, -(-Q // 32), S, W, full)
+    if n_sub > MAX_SUBSETS:
+        raise ValueError(f"scan_commit: {n_sub} slot subsets over {MAX_SUBSETS}")
+    lay = smem_layout(ns, R, K, -(-Q // 32), S, W, full, V, n_sub)
     if lay["smem"] > SMEM_LIMIT:
         raise ValueError(
             f"scan_commit: {lay['smem']} bytes of shared memory a CTA for a slice of {ns} "
-            f"nodes (R={R}, K={K}, Q={Q}) and S={S} selector totals; a CTA has at most "
-            f"{SMEM_LIMIT}")
+            f"nodes (R={R}, K={K}, Q={Q}), S={S} selector totals and a claim bitmap of "
+            f"V={V} PVs ({-(-V // 32) * 4} bytes); a CTA has at most {SMEM_LIMIT}")
     return {"cluster": cluster, "slice": ns, "nodes_a_thread": -(-ns // THREADS),
             "smem": lay["smem"], "layout": lay}
+
+
+# the volume instance's operands (csrc `Args`, in order)
+_VOL_PTRS = ("node_off", "node_pv", "global_pv", "pv_class", "pv_cap", "req", "subs",
+             "sdr_mask", "sdr_off", "claimed_in", "claimed_out")
 
 
 class ScanArgs(ctypes.Structure):
@@ -413,6 +492,8 @@ class ScanArgs(ctypes.Structure):
             "dom_list", "sel_list", "assignment", "node_req", "ports", "counts",
             "counts_rep", "total", "anti", "pref", "rejects")]
         + [("F", ctypes.c_int), ("rej_col", ctypes.c_int * len(REJECT_PARTS))]
+        + [(f, ctypes.c_int) for f in ("V", "MVol", "G", "Rq", "n_sub", "vmulti")]
+        + [(f, ctypes.c_void_p) for f in _VOL_PTRS]
     )
 
 
@@ -424,7 +505,7 @@ def _library():
         lib.scan_commit_launch.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
         lib.scan_commit_launch.restype = ctypes.c_int
         lib.scan_commit_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_int)]
+                                             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.scan_commit_clusters.restype = ctypes.c_int
     return lib
 
@@ -436,18 +517,20 @@ def scan_shape(x: ScanInputs, cluster: int = CLUSTER) -> dict:
     cannot hold the inputs; RuntimeError naming each shape tried when the
     card schedules none."""
     P, N, R, MP, MA, MC, K, S, D, Q = _dims(x)
-    W = row_layout(R, MP, MA, MC, K)["W"]
-    shapes, tried = [launch_shape(N, R, K, Q, S, W, cluster, x.full)], []
+    V, MVol, n_sub = x.vol
+    W = row_layout(R, MP, MA, MC, K, MVol)["W"]
+    shapes, tried = [launch_shape(N, R, K, Q, S, W, cluster, x.full, V, n_sub)], []
     if cluster != CLUSTER_PORTABLE:
         try:
-            shapes.append(launch_shape(N, R, K, Q, S, W, CLUSTER_PORTABLE, x.full))
+            shapes.append(launch_shape(N, R, K, Q, S, W, CLUSTER_PORTABLE, x.full, V, n_sub))
         except ValueError as e:
             tried.append(str(e))
     lib = _library()
     for shape in shapes:
         n = ctypes.c_int(0)
         raise_on_error("scan_commit", lib.scan_commit_clusters(
-            shape["cluster"], shape["smem"], int(x.full), ctypes.byref(n)))
+            shape["cluster"], shape["smem"], int(x.full), int(bool(x.flags & F_VOLUMES)),
+            ctypes.byref(n)))
         if n.value >= 1:
             return shape
         tried.append(f"the card schedules no cluster of {shape['cluster']} CTAs with "
@@ -462,7 +545,9 @@ def pod_flags(x: ScanInputs) -> torch.Tensor:
     nonzero at cycle start or written by a valid pod's preferred term),
     POD_SPR_NORM where its raw spread score can (a ScheduleAnyway
     constraint). Without them a maximum is 0 on every node and the kernel
-    skips its exchange."""
+    skips its exchange. POD_VOL (the volume instance) where the pod has an
+    unbound volume slot: the others skip VolumeBinding's test and claims;
+    POD_INVALID (the full outputs) on a pad row."""
     P = x.shape[0]
     dev = x.sbase.device
     key, when = x.tsc[..., 0], x.tsc[..., 2]
@@ -491,6 +576,8 @@ def pod_flags(x: ScanInputs) -> torch.Tensor:
         flags |= POD_SPR_NORM * ((key >= 0) & (when == WHEN_SCHEDULE_ANYWAY)).any(1).int()
     if x.full:
         flags |= POD_INVALID * (~x.pod_valid).int()
+    if x.flags & F_VOLUMES:
+        flags |= POD_VOL * (x.vol_mode == 1).any(1).int()
     return flags
 
 
@@ -516,6 +603,9 @@ def pod_rows(x: ScanInputs) -> torch.Tensor:
             x.node_domains[x.pod_nominated.clamp(0, x.shape[1] - 1).long()],
             pod_flags(x)[:, None],
             torch.arange(P, device=dev)[:, None]]
+    if x.flags & F_VOLUMES:
+        cols += [x.vol_mode, x.vol_req, x.vol_class, x.vol_size.contiguous().view(i32),
+                 x.vol_member]
     return torch.cat([c.to(i32) for c in cols], 1).contiguous()
 
 
@@ -590,7 +680,27 @@ def scan_commit_cuda(x: ScanInputs, cluster: int = CLUSTER) -> ScanResult:
     counts_rep = torch.empty(max(c - 1, 1) * rep_stride, dtype=f32, device=dev)
     terms = list(x.terms) + [(0, 0.0)] * (4 - len(x.terms))
     w100 = list(x.fit_w100) + [0.0] * (MAX_RESOURCES - R)
-    rl = row_layout(R, MP, MA, MC, K)
+    V, MVol, n_sub = x.vol
+    rl = row_layout(R, MP, MA, MC, K, MVol)
+    vol, claimed, dims = {}, None, dict(V=V, MVol=MVol, n_sub=n_sub)
+    if x.flags & F_VOLUMES:
+        t = x.vol_tables
+        Rq = t.req.shape[0]
+        sdr_mask, sdr_off = vm.sdr_tables(MVol, str(dev))
+        claimed = checked(k, x.pv_claimed, b8, (V,), dev).clone()
+        vol = dict(zip(_VOL_PTRS, (
+            checked(k, t.node_off, i32, (N + 1,), dev),
+            checked(k, t.node_pv, i32, (t.node_pv.shape[0],), dev),
+            checked(k, t.global_pv, i32, (t.global_pv.shape[0],), dev),
+            checked(k, x.pv_class, i32, (V,), dev), checked(k, x.pv_cap, f32, (V,), dev),
+            checked(k, t.req, b8, (Rq, N), dev),
+            vm._subset_masks(MVol, x.vol_multi, str(dev)), sdr_mask, sdr_off,
+            checked(k, x.pv_claimed, b8, (V,), dev), claimed)))
+        keep += list(vol.values())
+        dims.update(G=t.global_pv.shape[0], Rq=Rq, vmulti=int(x.vol_multi))
+        for f, want in (("vol_mode", i32), ("vol_req", i32), ("vol_class", i32),
+                        ("vol_size", f32), ("vol_member", i32)):
+            checked(k, getattr(x, f), want, (P, MVol), dev)
     a = ScanArgs(
         P=P, N=N, R=R, MP=MP, MA=MA, MC=MC, K=K, S=S, D=D, Q=Q, QW=-(-Q // 32), W=rl["W"],
         flags=x.flags, csize=c, ns=shape["slice"], rep_stride=rep_stride,
@@ -608,12 +718,14 @@ def scan_commit_cuda(x: ScanInputs, cluster: int = CLUSTER) -> ScanResult:
         ports=ports.data_ptr(), counts=counts.data_ptr(), counts_rep=counts_rep.data_ptr(),
         total=total.data_ptr(), anti=anti.data_ptr(), pref=pref.data_ptr(),
         rejects=0 if rejects is None else rejects.data_ptr(), F=x.n_filters,
-        rej_col=(ctypes.c_int * len(REJECT_PARTS))(*(x.reject_cols or (-1,) * 4)))
+        rej_col=(ctypes.c_int * len(REJECT_PARTS))(
+            *(x.reject_cols or (-1,) * len(REJECT_PARTS))),
+        **dims, **{f: t.data_ptr() for f, t in vol.items()})
     err = _library().scan_commit_launch(ctypes.byref(a), stream_of(dev))
     raise_on_error(k, err)
     count_launch(k)
     return ScanResult(assignment, node_req, ports,
-                      ip.AffinityState(counts, total, anti, pref), rejects)
+                      ip.AffinityState(counts, total, anti, pref), rejects, claimed)
 
 
 def scan_commit(x: ScanInputs) -> ScanResult:

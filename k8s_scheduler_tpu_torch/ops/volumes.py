@@ -32,6 +32,7 @@ import itertools
 import torch
 
 from . import labels as labels_ops
+from .interpod import take_row
 
 _CAP_EPS = 1e-3  # added in f32: a no-op at 400 GiB, as in the reference
 _BIG = 2**31 - 1
@@ -240,6 +241,109 @@ def chosen_pv_sdr(snap, req, pv_claimed, node_of, pending_slots, j, mine=None):
 
 def _multi(snap) -> bool:
     return snap.pod_vol_mode.shape[1] >= 2 and bool(snap.has_multi_volume)
+
+
+# ---- the scan engine's per-step row twins (one pod p, i32 0-d) ----
+#
+# They read `VolumeTables`, built once per cycle (`CycleContext.volume_tables`),
+# in the kernel's representation: a count over all nodes is a segment sum
+# over the per-node PV lists plus the global list, O(L + G), and the PVs
+# usable at one node are a column of the requirement table gathered by the
+# PVs' requirement ids, O(Rq + V). Rows are taken by `take_row`, never by
+# indexing with a 0-d tensor, which would synchronise with the host.
+
+
+def _row_cands(snap, p):
+    """bool [V] per slot: slot t's class/size candidacy of pod p (mode 1)."""
+    MVol = snap.pod_vol_mode.shape[1]
+    mode, cls, size = (take_row(t, p) for t in (snap.pod_vol_mode, snap.pod_vol_class,
+                                                 snap.pod_vol_size))
+    cap = snap.pv_capacity + _CAP_EPS
+    return [(snap.pv_class == cls[t]) & (cap >= size[t]) & (mode[t] == 1)
+            for t in range(MVol)]
+
+
+def _avail(tables: VolumeTables, u):
+    """i32 [N]: per node, the members of `u` (bool [V]) on its PV list or
+    on the global list."""
+    x = u[tables.node_pv.long()].to(torch.int32)
+    cs = torch.zeros((x.shape[0] + 1,), dtype=torch.int32, device=u.device)
+    cs[1:] = torch.cumsum(x, 0, dtype=torch.int32)
+    off = tables.node_off.long()
+    return cs[off[1:]] - cs[off[:-1]] + u[tables.global_pv.long()].sum(dtype=torch.int32)
+
+
+def volume_mask_unbound_row(snap, tables: VolumeTables, pv_claimed, p):
+    """bool [N]: pod p's row of `volume_mask_unbound` (reference
+    `ops/volumes.py:242`): each unbound slot served by an unclaimed
+    candidate the node admits or by dynamic provisioning, and, multi-
+    volume, Hall's condition over the pod's slot subsets (the dominance
+    groups above 6 slots)."""
+    req = tables.req
+    free = ~pv_claimed
+    Rq = req.shape[0]
+    MVol = snap.pod_vol_mode.shape[1]
+    modes, rids = take_row(snap.pod_vol_mode, p), take_row(snap.pod_vol_req, p)
+    cands = _row_cands(snap, p)
+
+    def avail(u):  # i32 [N]: the unclaimed PVs of u each node admits
+        return _avail(tables, u & free)
+
+    ok = torch.ones((snap.N,), dtype=torch.bool, device=snap.device)
+    needy = []
+    for j in range(MVol):
+        mode, rid = modes[j], rids[j]
+        rid_row = torch.where(rid >= 0, take_row(req, rid.clamp(0, Rq - 1)), True)
+        dyn_ok = torch.where(rid == -2, False, rid_row)
+        ok = ok & torch.where(mode == 1, (avail(cands[j]) > 0) | dyn_ok, True)
+        needy.append(((mode == 1) & ~dyn_ok).to(torch.int32))
+    if MVol >= 2 and snap.has_multi_volume:
+        for sub in _hall_subsets(MVol):
+            u = cands[sub[0]]
+            for j in sub[1:]:
+                u = u | cands[j]
+            ok = ok & (avail(u) >= sum(needy[j] for j in sub))
+        if MVol > 6:
+            for a in range(MVol):
+                need = sum(_membership(cands, a, t).to(torch.int32) * needy[t]
+                           for t in range(MVol))
+                ok = ok & (avail(cands[a]) >= need)
+    return ok
+
+
+def _column(snap, tables: VolumeTables, pv_claimed, node):
+    """bool [V]: the unclaimed PVs usable at `node` (i32 0-d)."""
+    n = node.clamp(0, snap.N - 1).long().reshape(1)
+    col = labels_ops.take_rows(tables.req.index_select(1, n), snap.pv_req_id, True)[:, 0]
+    return col & snap.pv_avail & ~pv_claimed
+
+
+def chosen_pv_row(snap, tables: VolumeTables, pv_claimed, node, p, j):
+    """i32 0-d: the lowest-index available unclaimed candidate of pod p's
+    slot j at `node`, -1 for none (reference `ops/volumes.py:400`)."""
+    V = snap.pv_avail.shape[0]
+    cand = _row_cands(snap, p)[j] & _column(snap, tables, pv_claimed, node)
+    ids = torch.arange(V, dtype=torch.int32, device=cand.device)
+    best = torch.where(cand, ids, V).amin().to(torch.int32)
+    return torch.where(best < V, best, -1)
+
+
+def chosen_pv_sdr_row(snap, tables: VolumeTables, pv_claimed, node, p, pending_row, j):
+    """i32 0-d: the SDR-safe claim of pod p's slot j at `node` against the
+    other pending needy slots of `pending_row` (bool [MVol]); -1 for none
+    (reference `ops/volumes.py:567`)."""
+    MVol = snap.pod_vol_mode.shape[1]
+    req = tables.req
+    Rq = req.shape[0]
+    at_node = _column(snap, tables, pv_claimed, node)
+    rid = take_row(snap.pod_vol_req, p)
+    picked = take_row(req.T, node.clamp(0, snap.N - 1))[rid.clamp(0, Rq - 1).long()]
+    dyn = torch.where(rid == -2, False, torch.where(rid >= 0, picked, True))
+    cands = [(c & at_node)[None, :] for c in _row_cands(snap, p)]
+    needy = (pending_row & (take_row(snap.pod_vol_mode, p) == 1) & ~dyn)[None, :]
+    active = pending_row[j]
+    ch = _sdr_safe_choice(cands[j] & active, cands, needy, dyn[j][None], MVol, j)[0]
+    return torch.where(active, ch, -1)
 
 
 def chosen_pv_slots(snap, req, pv_claimed, node_of, active):

@@ -13,13 +13,19 @@ DefaultPreemption (`build_preemption_fn`) on its decision, as a serving
 host runs them.
 
     python3 -m k8s_scheduler_tpu_torch.profile_cycle [--cycles 2] [--out PATH]
+    python3 -m k8s_scheduler_tpu_torch.profile_cycle --plain-scan 512 [--out PATH]
 
 Prints, per workload, for the cycles and for the preemption passes
 separately: wall ms,
 summed device-kernel ms, the device busy share (kernel time over wall
 time; one stream, so kernels never overlap), device-activity count, the
 hand kernels' launch counts, and the device kernels ranked by total time —
-with the card's name and power limit. Needs a CUDA device."""
+with the card's name and power limit. With `--plain-scan PODS`, only the
+scan engine's plain commit (`scan_commit_plain`, the run K13 is held
+against) on the volumes workload's first PODS pending pods, with
+VolumeBinding on and off: per step, wall ms, device-kernel ms and
+activities, host syncs (`torch.cuda.set_sync_debug_mode`), and the host
+operators ranked by their own CPU time. Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -72,15 +78,81 @@ def _report(title, n, wall_ms, by_name, launches, top):
     return lines
 
 
+def _plain_scan(pods: int, top: int, smi: str) -> list[str]:
+    """The plain scan's step on the volumes workload (seed 202, its first
+    `pods` pending pods, all nodes and PVs), VolumeBinding on and off."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from .config import PluginSet, Plugins, Profile, SchedulerConfiguration
+    from .core.cycle import build_cycle_fn
+    from .framework.runtime import Framework
+    from .models import SnapshotEncoder
+    from .ops import scan_commit as sc
+    from .utils import synth
+
+    dev = torch.device("cuda")
+    nodes, existing, pending = synth.config4_workload((202,))
+    ex, pods_, pvcs, pvs, classes = synth.config4_volumes(nodes, existing, pending[202],
+                                                          seed=202)
+    snap = SnapshotEncoder(device=dev).encode(nodes, pods_[:pods], ex, pvcs=pvcs, pvs=pvs,
+                                              storage_classes=classes)
+    steps = int(snap.pod_valid.sum())
+    off = Framework.from_config(SchedulerConfiguration(profiles=[Profile(
+        plugins=Plugins(filter=PluginSet(disabled=["VolumeBinding"])))]))
+    lines = [f"card: {smi}",
+             f"plain scan (scan_commit_plain) on config #4 with volumes, seed 202, the first "
+             f"{pods} pending pods ({steps} steps), {snap.N} nodes, "
+             f"{snap.pv_avail.shape[0]} PVs"]
+    for tag, fw in (("VolumeBinding on", None), ("VolumeBinding off", off)):
+        cycle = build_cycle_fn(fw, commit_mode="scan", outputs="latency", device=dev,
+                               scan_commit_fn=sc.scan_commit_plain)
+        cycle(snap)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            cycle(snap)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cycle(snap)
+            torch.cuda.synchronize()
+        dev_us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        lines += [f"{tag}: wall {wall:.1f} ms, {wall / steps:.3f} ms a step; device "
+                  f"kernels {sum(dev_us) / 1e3 / steps:.3f} ms and {len(dev_us) / steps:.1f} "
+                  f"activities a step; {syncs / steps:.2f} host syncs a step",
+                  "  host operators by own CPU time (ms a step, calls a step, name):"]
+        ranked = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+        for a in ranked[:top]:
+            lines.append(f"  {a.self_cpu_time_total / 1e3 / steps:9.4f}  "
+                         f"{a.count / steps:7.1f}  {a.key[:100]}")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cycles", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None, help="also write the report here")
+    ap.add_argument("--plain-scan", type=int, default=0, metavar="PODS",
+                    help="profile only the plain scan's step on the volumes workload's "
+                         "first PODS pending pods")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_cycle: no CUDA device", file=sys.stderr)
         return 2
+    if args.plain_scan:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+        return _write(_plain_scan(args.plain_scan, args.top, smi), args.out)
     from .core.cycle import build_cycle_fn, build_preemption_fn
     from .models import SnapshotEncoder
     from .ops import dyn_round as dr
@@ -131,10 +203,14 @@ def main(argv=None) -> int:
                      args.top),
         ]
         del snaps, decisions
+    return _write(lines, args.out)
+
+
+def _write(lines, out) -> int:
     report = "\n".join(lines)
     print(report)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(report + "\n")
     return 0
 

@@ -591,6 +591,156 @@ def scan_objects(m, tags=None) -> dict:
     return {t: f() for t, f in cases.items() if tags is None or t in tags}
 
 
+SCAN_VOLUME_TAGS = (
+    "V=31", "V=32", "V=33", "a node with an empty list", "only global PVs",
+    "two pods contending for one PV", "an 8-slot pod under the dominance groups",
+    "dynamic provisioning and rid == -2", "a nominated node the volume mask rejects",
+    "a gang that unwinds after claiming")
+_GIB = 2**30
+
+
+def scan_volume_objects(m, tags=None) -> dict:
+    """{tag: (nodes, pods, existing, opts)} of K13's volume edge cases
+    (SCAN_VOLUME_TAGS, or those of `tags`), made with a models module of
+    either package: 40 nodes in three zones (padded to 64: four a CTA, the
+    real ones over ten of the kernel's 16 CTAs), pods created in order. `opts["volumes"]` holds the
+    encoder's pvcs / pvs / storage_classes, `opts["groups"]` its pod groups,
+    `opts["narrow_pvs"]` the PV count the PV axis is cut to (the encoder
+    pads it to a multiple of 4). Classes: `local` (WaitForFirstConsumer, no
+    provisioner: requirement id -2), `zonal` (a provisioner whose
+    allowedTopologies admit zone z2) and `any` (a provisioner for any
+    node):
+      - V = 31, 32, 33: PV i pinned to node i % 20, the big nodes 10-12
+        hold PVs 10-12 and 30-32, so the bitmap's word edges are claimed
+        (V = 33: a two-slot pod too, the SDR-safe path);
+      - a node with an empty list: PVs on nodes 0-19 only, the big node 35
+        none; a claim no PV fits;
+      - only global PVs: six PVs without nodeAffinity, big nodes in three
+        CTAs, eight claimants;
+      - two pods contending for one PV on a big node, then a claim that
+        rides dynamic provisioning anywhere;
+      - an 8-slot pod under the dominance groups: two such pods over two
+        nodes' eight PVs each (`eight_slot_dominance`'s sizes);
+      - dynamic provisioning and rid == -2: zonal claims that ride
+        provisioning in z2 or take a static zonal PV in z0, local claims
+        with one PV, and a pod with one of each;
+      - a nominated node the volume mask rejects: its one PV claimed by the
+        pod before;
+      - a gang that unwinds after claiming: three members of a gang of
+        minMember 3, two PVs their size, then a solo claimant of a third."""
+    a = m.api
+    host = HOST
+
+    def pin(name, node, cap, cls="local"):
+        return a.PersistentVolume(name, capacity=cap * _GIB, storage_class=cls,
+                                  node_affinity=(a.NodeSelectorTerm((
+                                      a.NodeSelectorRequirement(host, "In", (node,)),)),))
+
+    def claims(prefix, sizes, cls="local"):
+        return [a.PersistentVolumeClaim(f"{prefix}{j}", storage_class=cls, request=z * _GIB)
+                for j, z in enumerate(sizes)]
+
+    def pod(name, t, *vols, cpu="500m"):
+        b = _pod(m, name, cpu=cpu).created(float(t))
+        for c in vols:
+            b = b.volume(c)
+        return b
+
+    zonal_term = (a.NodeSelectorTerm((a.NodeSelectorRequirement(ZONE, "In", ("z2",)),)),)
+    classes = [a.StorageClass("local", a.VOLUME_BINDING_WAIT, provisioner=False),
+               a.StorageClass("zonal", a.VOLUME_BINDING_WAIT, allowed_topologies=zonal_term),
+               a.StorageClass("any", a.VOLUME_BINDING_WAIT)]
+
+    def vols(pvs, pvcs):
+        return {"volumes": dict(pvs=pvs, pvcs=pvcs, storage_classes=classes)}
+
+    cases = {}
+
+    def word_edges(V, two_slot):
+        nodes = _scan_nodes(m, 40, big=(10, 11, 12))
+        pvs = [pin(f"pv-{i}", f"node-{i % 20}", 10) for i in range(V)]
+        pvcs = claims("c", [5] * 8) + (claims("d", [5, 5]) if two_slot else [])
+        pods = [pod(f"p{j}", j, f"c{j}").obj() for j in range(8)]
+        if two_slot:
+            pods.append(pod("w", 8, "d0", "d1").obj())
+        return nodes, pods, [], {**vols(pvs, pvcs), "narrow_pvs": V}
+
+    cases["V=31"] = lambda: word_edges(31, False)
+    cases["V=32"] = lambda: word_edges(32, False)
+    cases["V=33"] = lambda: word_edges(33, True)
+
+    def empty_list():
+        nodes = _scan_nodes(m, 40, big=(35,))
+        pvs = [pin(f"pv-{i}", f"node-{i}", 10) for i in range(20)]
+        pvcs = claims("c", [5, 5, 5, 50])
+        pods = [pod(f"p{j}", j, f"c{j}").obj() for j in range(4)] + [pod("free", 4).obj()]
+        return nodes, pods, [], vols(pvs, pvcs)
+
+    cases["a node with an empty list"] = empty_list
+
+    def global_only():
+        nodes = _scan_nodes(m, 40, big=(5, 21, 37))
+        pvs = [a.PersistentVolume(f"pv-{i}", capacity=c * _GIB, storage_class="local")
+               for i, c in enumerate((10, 10, 2, 2, 10, 10))]
+        pvcs = claims("c", [5, 1, 5, 1, 5, 5, 1, 1])
+        return nodes, [pod(f"p{j}", j, f"c{j}").obj() for j in range(8)], [], vols(pvs, pvcs)
+
+    cases["only global PVs"] = global_only
+
+    def contending():
+        nodes = _scan_nodes(m, 40, big=(25,))
+        pvcs = claims("c", [5, 5]) + claims("e", [5], "any")
+        pods = [pod("p0", 0, "c0").obj(), pod("p1", 1, "c1").obj(), pod("p2", 2, "e0").obj()]
+        return nodes, pods, [], vols([pin("pv-0", "node-25", 10)], pvcs)
+
+    cases["two pods contending for one PV"] = contending
+
+    def eight_slots():
+        nodes = _scan_nodes(m, 40, big=(7, 29))
+        caps = ((10, 10, 10, 2, 2, 2, 2, 2), (10, 10, 10, 10, 2, 2, 2, 2))
+        pvs = [pin(f"pv-{k}-{i}", f"node-{n}", c)
+               for k, n in enumerate((7, 29)) for i, c in enumerate(caps[k])]
+        sizes = (1, 8, 8, 8, 1, 1, 1, 1)
+        pvcs = claims("a", sizes) + claims("b", sizes)
+        pods = [pod("wa", 0, *[f"a{j}" for j in range(8)]).obj(),
+                pod("wb", 1, *[f"b{j}" for j in range(8)]).obj()]
+        return nodes, pods, [], vols(pvs, pvcs)
+
+    cases["an 8-slot pod under the dominance groups"] = eight_slots
+
+    def dynamic():
+        nodes = _scan_nodes(m, 40, big=(3, 30))
+        pvs = [pin("pv-z0", "node-1", 10, "zonal"), pin("pv-l", "node-3", 10)]
+        pvcs = claims("z", [5, 5, 5], "zonal") + claims("l", [5, 5, 5]) + claims("y", [5], "any")
+        pods = [pod("z0", 0, "z0").obj(), pod("l0", 1, "l0").obj(), pod("z1", 2, "z1").obj(),
+                pod("l1", 3, "l1").obj(), pod("zl", 4, "z2", "l2").obj(),
+                pod("y0", 5, "y0").obj()]
+        return nodes, pods, [], vols(pvs, pvcs)
+
+    cases["dynamic provisioning and rid == -2"] = dynamic
+
+    def nominated():
+        nodes = _scan_nodes(m, 40, big=(9,))
+        pvs = [pin("pv-9", "node-9", 10), pin("pv-2", "node-2", 10), pin("pv-33", "node-33", 10)]
+        pvcs = claims("c", [5, 5])
+        pods = [pod("p0", 0, "c0").obj(), pod("p1", 1, "c1").nominated("node-9").obj()]
+        return nodes, pods, [], vols(pvs, pvcs)
+
+    cases["a nominated node the volume mask rejects"] = nominated
+
+    def gang():
+        nodes = _scan_nodes(m, 40, big=(14, 27))
+        pvs = [pin("pv-14", "node-14", 10), pin("pv-27", "node-27", 10),
+               pin("pv-5", "node-5", 2)]
+        pvcs = claims("g", [5, 5, 5]) + claims("s", [1])
+        pods = [pod(f"g{j}", j, f"g{j}").group("job").obj() for j in range(3)]
+        pods.append(pod("solo", 3, "s0").obj())
+        return nodes, pods, [], {**vols(pvs, pvcs), "groups": [a.PodGroup("job", 3)]}
+
+    cases["a gang that unwinds after claiming"] = gang
+    return {t: f() for t, f in cases.items() if tags is None or t in tags}
+
+
 _RESOURCE_FIELDS = ("node_allocatable", "node_requested", "pod_requested", "exist_requested")
 
 
@@ -606,7 +756,19 @@ def prepare(snap, opts: dict):
         snap = narrow_nodes(snap)
     if "keep_resources" in opts:
         snap = narrow_resources(snap, opts["keep_resources"])
+    if "narrow_pvs" in opts:
+        V = opts["narrow_pvs"]
+        snap = dataclasses.replace(snap, **{
+            f.name: getattr(snap, f.name)[:V] for f in dataclasses.fields(snap)
+            if f.name.startswith("pv_")})
     return snap
+
+
+def encode_case(enc, nodes, pods, existing, opts):
+    """A case's objects through an encoder of either package (its pod
+    groups and volumes, where it has them)."""
+    return enc.encode(nodes, pods, existing, opts.get("groups", []),
+                      **opts.get("volumes", {}))
 
 
 def narrow_nodes(snap):
@@ -678,15 +840,17 @@ def scan_cases(device="cpu", tags=None, full: bool = False) -> dict:
     counted in a zone other CTAs read, required
     affinity bootstrapped by total == 0, anti-affinity written by one pod
     and read by the next, host-port conflicts between consecutive pods,
-    pad pods interleaved in the rank order, R = 1 and R = 8; `full`: their
-    full outputs' inputs (`scan_inputs`)."""
+    pad pods interleaved in the rank order, R = 1 and R = 8, and the
+    volume cases (`scan_volume_objects`); `full`: their full outputs'
+    inputs (`scan_inputs`)."""
     from .. import models
 
     out = {}
-    for tag, (nodes, pods, existing, opts) in scan_objects(models, tags).items():
+    objs = {**scan_objects(models, tags), **scan_volume_objects(models, tags)}
+    for tag, (nodes, pods, existing, opts) in objs.items():
         enc = models.SnapshotEncoder(device=device, **(
             {"resource_names": opts["resources"]} if "resources" in opts else {}))
-        snap = enc.encode(nodes, pods, existing)
+        snap = encode_case(enc, nodes, pods, existing, opts)
         out[tag] = scan_inputs(prepare(snap, opts), opts, full)
     return out
 

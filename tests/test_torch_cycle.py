@@ -152,11 +152,10 @@ def test_cycle_bit_equal_to_reference(case):
 
 @pytest.mark.parametrize("feature", ["bound_pvc", "unbound_pvc"])
 def test_cycle_raises_on_uncovered_features(feature):
-    """A snapshot with a volume claim now schedules through VolumeBinding,
-    bit-equal to the reference, and its full outputs decide alike; what the
-    port does not cover with volumes —
-    the scan engine's per-pod VolumeBinding hooks (ROADMAP A8b) — raises
-    instead of scheduling."""
+    """A snapshot with a volume claim schedules through VolumeBinding in
+    both engines, bit-equal to the reference's engine of the same name (the
+    scan through VolumeBinding's per-pod hooks), and its full outputs
+    decide alike."""
     from k8s_scheduler_tpu.models.api import (PersistentVolume,
                                               PersistentVolumeClaim, StorageClass)
 
@@ -181,8 +180,12 @@ def test_cycle_raises_on_uncovered_features(feature):
     # bound: placed on any node (the PV has no affinity); unbound Immediate
     # claim: unschedulable
     assert (int(got.assignment[0]) >= 0) == bound
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(port_snap)
+    want_s = ref_cycle.build_cycle_fn(commit_mode="scan", outputs="latency")(ref_snap)
+    got_s = build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(port_snap)
+    for f in ("assignment", "node_requested", "unschedulable", "gang_dropped"):
+        np.testing.assert_array_equal(getattr(got_s, f).numpy(), np.asarray(getattr(want_s, f)),
+                                      err_msg=f)
+    assert (int(got_s.assignment[0]) >= 0) == bound
     full = build_cycle_fn(commit_mode="rounds", outputs="full", device="cpu")(port_snap)
     assert torch.equal(full.assignment, got.assignment)
     assert full.reject_counts.shape == (port_snap.P, 9)

@@ -13,7 +13,8 @@ self-anti-affinity, spread skew); host-port contention; node sampling on
 more than 100 nodes; profiles that move the score sum. Where the
 reference agrees with the sequential oracle (`oracle.schedule`, the
 `run_both` check of those test files), the port must too. A snapshot with
-volumes raises NotImplementedError naming ROADMAP A8b."""
+volumes schedules through VolumeBinding's per-pod hooks, bit-equal too
+(tests/test_torch_cycle_scan_volumes.py holds every volume fixture)."""
 
 from __future__ import annotations
 
@@ -531,10 +532,11 @@ def test_scan_cycle_launches_no_kernel_on_cpu():
 
 @pytest.mark.parametrize("bound", [True, False])
 def test_scan_cycle_refuses_volumes(bound):
-    """VolumeBinding's per-pod hooks are ROADMAP A8b: a snapshot with
-    volumes raises instead of scheduling without them; without the plugin
-    in the profile the scan runs (and ignores volumes, as the reference
-    does)."""
+    """A snapshot with volumes schedules through VolumeBinding's per-pod
+    hooks, bit-equal to the reference's scan (a bound claim on a PV without
+    affinity places, an unbound Immediate claim does not); without the
+    plugin in the profile the scan runs too (and ignores volumes, as the
+    reference does)."""
     from k8s_scheduler_tpu.models.api import (PersistentVolume, PersistentVolumeClaim,
                                               StorageClass)
 
@@ -547,8 +549,9 @@ def test_scan_cycle_refuses_volumes(bound):
         pvcs=[pvc], pvs=[pv], storage_classes=[StorageClass("fast")])
     snap = carry(ref_snap)
     assert snap.has_volumes
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(snap)
+    got_vb = build_cycle_fn(commit_mode="scan", outputs="latency", device="cpu")(snap)
+    assert_same(got_vb, ref_cycle.build_cycle_fn(commit_mode="scan", outputs="latency")(ref_snap))
+    assert (int(got_vb.assignment[0]) >= 0) == bound
     cfg = [port_config, ref_config]
     no_vb = [c.SchedulerConfiguration(profiles=[c.Profile(plugins=c.Plugins(
         filter=c.PluginSet(disabled=["VolumeBinding"])))]) for c in cfg]
