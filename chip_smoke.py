@@ -26,7 +26,9 @@ running pods, 10000 pending pods, padded P=16384, N=8192):
 and the device-carry latency path serving runs (`encode_packed`, the
 carried static base, the packed cycle and preemption, and off the
 decision path `build_diagnosis_fn`) over churn frames of config #4's
-workload, with and without volumes (phases 8 and 9).
+workload, with and without volumes (phases 8 and 9), and the serving host
+over them: the port's `Scheduler` driven through its informer handlers
+and `schedule_cycle()` (phase 10).
 
 Phases:
 
@@ -253,7 +255,27 @@ Phases:
                 versions on every recorded call of the full cycles and
                 the diagnosis windows, and timed by CUDA-graph replays on
                 the full cycle's and a diagnosis window's calls (with
-                --prev-csrc beside the earlier design on the same calls).
+                --prev-csrc beside the earlier design on the same calls);
+ 10. serving  — the port's `Scheduler` over config #4's workload (seed
+                202) through the informer handlers (5000 `on_node_add`,
+                12000 bound `on_pod_add`, 10000 pending `on_pod_add`), a
+                logical clock, and a binder that confirms each bind: 5
+                `schedule_cycle()`s on the carry path with 500 arrivals
+                and 200 deletes of running pods between cycles, then 2
+                cycles of a second Scheduler with `commitMode: scan` (the
+                packed path); each beside a `forced_sync=True` twin fed
+                the same events, whose bindings, nominations, evictions
+                and CycleStats must be equal; every cycle's bindings
+                checked by `check_placements` on its frame; the hand
+                kernels' names in torch.profiler's trace of one cycle;
+                the decision path's host syncs (`set_sync_debug_mode`
+                from the cycle's start to its decision fetch) listed by
+                site, none allowed in the serving layer itself; per cycle
+                the wall ms and its split (encode, dispatch, decision
+                fetch, apply and bind, diagnosis lag), the carry update's
+                and cycle's events ms, the fetch bytes and placed /
+                unschedulable / nominated; launch counts over the serving
+                cycles (`serving_launches` in the kernel table).
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -3029,6 +3051,264 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
     return {"launches": counts, "ms": ms, "diagnosis": diag, "encode": paths}
 
 
+SERVE_CYCLES, SERVE_ARRIVALS, SERVE_DELETES = 5, 500, 200  # phase 10's churn
+SERVE_SCAN_CYCLES = 2
+SERVE_SEED = 202
+
+
+def hand_kernel_names(source: str) -> set[str]:
+    """The device function names a kernel source defines: `__global__`
+    functions of a CUDA source, `@triton.jit` functions of a Python one."""
+    import re
+
+    text = (Path(__file__).resolve().parent / source).read_text()
+    if source.endswith(".py"):
+        return set(re.findall(r"@triton\.jit\s+def\s+(\w+)", text))
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                          text))
+
+
+class ServeCluster:
+    """Stands in for the API server in phase 10: records binds (each one
+    confirmed at once, as an informer echo would) and evictions (each one
+    echoed back as the pod's delete)."""
+
+    def __init__(self):
+        self.binds: list[tuple[str, str]] = []
+        self.evictions: list[tuple[str, str]] = []
+        self.sched = None
+
+    def bind(self, pod, node):
+        self.binds.append((pod.name, node))
+        self.sched.cache.confirm(pod.uid)
+
+    def evict(self, pod, node):
+        self.evictions.append((pod.name, node))
+        self.sched.on_pod_delete(pod.uid)
+
+
+def serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels) -> dict:
+    """Phase 10: the port's `Scheduler` serving config #4's workload through
+    its informer handlers and `schedule_cycle()`: SERVE_CYCLES carry-path
+    cycles with churn between them (SERVE_ARRIVALS new pods, SERVE_DELETES
+    running pods deleted), then SERVE_SCAN_CYCLES cycles of a second
+    Scheduler with `commitMode: scan` (the packed path), each beside a
+    `forced_sync=True` twin driven by the same events. Launch counts are
+    set to 0 just before each serving cycle and summed just after (the
+    twins' cycles are the comparison and are not counted). Returns the
+    counts and the per-cycle numbers."""
+    import copy
+    import warnings
+
+    import numpy as np
+
+    from k8s_scheduler_tpu_torch.config import SchedulerConfiguration
+    from k8s_scheduler_tpu_torch.core import Scheduler
+    from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels
+    from k8s_scheduler_tpu_torch.models import packing
+    from k8s_scheduler_tpu_torch.utils import synth
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.time()
+    rng = np.random.default_rng(SERVE_SEED)
+    running_uids = [p.uid for p, _ in existing]
+    arrivals = [synth.make_pods(SERVE_ARRIVALS, seed=SERVE_SEED + 1000 + c,
+                                name_prefix=f"serve{c}-", **synth.CONFIG4_PENDING)
+                for c in range(SERVE_CYCLES)]
+    deletes = [[running_uids[i] for i in rng.choice(len(running_uids), SERVE_DELETES,
+                                                    replace=False)]
+               for _ in range(SERVE_CYCLES)]
+    counts = dict.fromkeys(kb.launch_counts, 0)
+    lines = []
+
+    def make(mode, forced):
+        # pads sized for the phase: the binds folding in keep one regime
+        cfg = SchedulerConfiguration(
+            commit_mode=mode, forced_sync=forced,
+            pad_existing=len(existing) + len(pending[SERVE_SEED])
+            + SERVE_CYCLES * SERVE_ARRIVALS,
+            pad_pods_per_node=2 * CARRY_MPN)
+        cl = ServeCluster()
+        sch = Scheduler(cfg, binder=cl.bind, evictor=cl.evict, now=clock, device=dev)
+        cl.sched = sch
+        t0 = time.time()
+        for nd in nodes:
+            sch.on_node_add(nd)
+        for pod, node in existing:
+            sch.on_pod_add(pod, node)
+        # each scheduler its own pending objects: a nomination mutates its pod
+        for pod in copy.deepcopy(pending[SERVE_SEED]):
+            sch.on_pod_add(pod)
+        return sch, cl, (time.time() - t0) * 1e3
+
+    clock_t = [0.0]
+
+    def clock():
+        return clock_t[0]
+
+    def outcome(sch, cl, nb, ne):
+        return (cl.binds[nb:], cl.evictions[ne:],
+                [(p.name, n) for p, n in sch.last_nominations],
+                [(p.name, n) for p, n in sch.last_evictions])
+
+    def frame_of(sch):
+        """The last cycle's frame and result, from its pipeline handle."""
+        entry = max((e for e in sch._packed.values() if e["fns"][6]._last is not None),
+                    key=lambda e: e["fns"][6].stats["t_dispatch_start"])
+        h = entry["fns"][6]._last
+        return packing.unpack(h._wbuf, h._bbuf, entry["spec"]), h.result, entry["fns"][0]
+
+    def sync_sites(sch):
+        """One cycle with the sync debug mode on from its start to the end
+        of its decision fetch (the decision path): (file:line, count) of
+        every synchronizing call."""
+        orig = sch._apply_phase
+
+        def apply(*a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            return orig(*a, **k)
+
+        sch._apply_phase = apply
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = sch.schedule_cycle()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                sch._apply_phase = orig
+        sites: dict[str, int] = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                key = f"{Path(w.filename).name}:{w.lineno}"
+                sites[key] = sites.get(key, 0) + 1
+        return st, sites
+
+    out = {"cycles": []}
+    for mode, n_cycles in (("rounds", SERVE_CYCLES), ("scan", SERVE_SCAN_CYCLES)):
+        sch, cl, feed_ms = make(mode, False)
+        twin, tcl, _ = make(mode, True)
+        log(f"phase serving {mode}: {len(nodes)} on_node_add, {len(existing)} on_pod_add "
+            f"bound, {len(pending[SERVE_SEED])} pending on_pod_add: {feed_ms:.0f} ms of "
+            f"handlers a scheduler (a forced_sync twin gets the same events)")
+        for c in range(n_cycles):
+            if c:  # churn, the same events to both
+                for sch_ in (sch, twin):
+                    for pod in copy.deepcopy(arrivals[c]):  # each its own objects
+                        sch_.on_pod_add(pod)
+                    for uid in deletes[c]:
+                        sch_.on_pod_delete(uid)
+            clock_t[0] += 1.0
+            nb, ne, tnb, tne = len(cl.binds), len(cl.evictions), len(tcl.binds), len(tcl.evictions)
+            enc = sch._encoder
+            paths0 = (enc.full_encodes, enc.delta_hits, enc.fold_hits)
+            kb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if mode == "rounds" and c == 2:
+                st, sites = sync_sites(sch)
+            elif c == 1:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    st = sch.schedule_cycle()
+                    torch.cuda.synchronize()
+                names = {e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA}
+                sites = None
+            else:
+                st, sites = sch.schedule_cycle(), None
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+            launched = dict(kb.launch_counts)
+            for k, v in launched.items():
+                counts[k] += v
+            got = outcome(sch, cl, nb, ne)
+            snap, res, _cyc = frame_of(sch)
+            tst = twin.schedule_cycle()
+            want = outcome(twin, tcl, tnb, tne)
+            check(got == want and vars(st) | {"cycle_seconds": 0}
+                  == vars(tst) | {"cycle_seconds": 0},
+                  f"serving {mode} cycle {c}: bindings / nominations / evictions differ "
+                  f"from the forced_sync twin's")
+            n_pods = st.attempted
+            check(len(got[0]) == int((res.assignment[:n_pods] >= 0).sum()),
+                  f"serving {mode} cycle {c}: binds != placements")
+            check_placements(torch, snap, res, sch.framework, AffinityKernels.plain(),
+                             unplaced_infeasible=(mode == "rounds"))
+            rec = sch.flight.last_record()
+            ph, mk = rec.phases, rec.marks
+            apply_ms = (mk["postfilter_end"] - mk["apply_start"]) * 1e3
+            path = ("full (the packed path)" if mode == "scan" else
+                    "full" if enc.full_encodes > paths0[0] else
+                    "delta + fold" if enc.fold_hits > paths0[2] else "delta")
+            row = {"mode": mode, "cycle": c, "wall_ms": round(wall_ms, 1),
+                   # the schedulers run on a logical clock (the twins must see
+                   # the same backoff expiries): the host phases from the
+                   # flight record's perf_counter marks
+                   "encode_ms": round((mk["dispatch_start"] - mk["encode_start"]) * 1e3, 1),
+                   "dispatch_ms": round(ph.get("dispatch_ms", 0.0), 1),
+                   "decision_fetch_ms": round(ph.get("decision_wait_ms", 0.0), 2),
+                   "carry_events_ms": round(ph.get("carry_events_ms", 0.0), 2),
+                   "cycle_events_ms": round(ph.get("cycle_events_ms", 0.0), 2),
+                   "apply_bind_ms": round(apply_ms, 1),
+                   "diag_lag_ms": round(ph.get("diag_lag_ms", 0.0), 1),
+                   "fetch_bytes": rec.counts["fetch_bytes"],
+                   "placed": st.scheduled, "unschedulable": st.unschedulable,
+                   "nominated": st.preemptors, "victims": st.victims,
+                   "encode_path": path}
+            out["cycles"].append(row)
+            log(f"phase serving {mode} cycle {c}: schedule_cycle {wall_ms:.1f} ms wall "
+                f"(encode {row['encode_ms']}, dispatch {row['dispatch_ms']}, decision fetch "
+                f"{row['decision_fetch_ms']}, apply and bind {row['apply_bind_ms']}, "
+                f"diagnosis lag {row['diag_lag_ms']} ms; events: carry "
+                f"{row['carry_events_ms']}, cycle {row['cycle_events_ms']} ms"
+                f"{', under torch.profiler' if c == 1 else ''}), fetch {row['fetch_bytes']} bytes, "
+                f"{n_pods} pods: placed {st.scheduled}, unschedulable {st.unschedulable}, "
+                f"nominated {st.preemptors}, victims {st.victims}; encode path {path}; "
+                f"launches {json.dumps({k: v for k, v in launched.items() if v})}; equal to "
+                f"the forced_sync twin, every binding valid | {smi}")
+            if sites is not None:
+                # the rounds engine's per-round stop test, and the known syncs
+                # of the programs (ROADMAP A10b): the gang unwind's nonzero and
+                # the label / match tables of a changed stable side or of the
+                # carry's dirty rows (labels.py, interpod.py and the torch
+                # functions they call)
+                known = {"rounds.py", "commit.py", "labels.py", "interpod.py",
+                         "functional.py", "__init__.py"}
+                other = {k: v for k, v in sites.items() if k.split(":")[0] not in known}
+                log(f"phase serving {mode} cycle {c}: host syncs on the decision path "
+                    f"(set_sync_debug_mode('warn') from the cycle's start to its decision "
+                    f"fetch, the fetch an event wait): {json.dumps(sites)}")
+                check(not other, f"host syncs on the decision path beyond the known "
+                      f"sites: {other}")
+                out["sync_sites"] = sites
+            if c == 1:
+                hand = set()
+                missing = []
+                for k, v in launched.items():
+                    if not v or k not in kernels:
+                        continue
+                    ns = hand_kernel_names(kernels[k]["source"])
+                    hand |= ns
+                    if not any(any(n in e for n in ns) for e in names):
+                        missing.append(k)
+                seen = sorted({e for e in names if any(n in e for n in hand)})
+                log(f"phase serving {mode} cycle {c}: torch.profiler kernel names of the "
+                    f"hand kernels: {json.dumps(seen)}")
+                check(not missing, f"serving {mode}: launched kernels {missing} not in the "
+                      f"profile")
+        del sch, twin, cl, tcl
+        torch.cuda.empty_cache()
+    want = ["static_base", "claim_pass", "capacity", "guard_sweep", "interpod_terms",
+            "interpod_norm", "affinity_update", "dyn_mask", "dyn_score", "preempt_prefilter",
+            "preempt_whatif", "preempt_claim", "static_rejects", "dyn_rejects", "scan_commit"]
+    for k in want:
+        check(counts.get(k, 0) > 0, f"kernel {k} was not launched in the serving cycles")
+    log(f"phase serving launches over {SERVE_CYCLES} carry and {SERVE_SCAN_CYCLES} scan "
+        f"cycles: {json.dumps(counts)}; the phase took {time.time() - t_phase:.1f} s")
+    out["launches"] = counts
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3675,6 +3955,9 @@ def main(argv=None) -> int:
         kernels[k]["carry_launches"] = sum(c["launches"][k] for c in carry_stats.values())
     kernels.update(reject_kernel_entries(torch, full_stats, carry_stats, prev_libs))
 
+    # ============ serving: the Scheduler over config #4's workload ============
+    serve_stats = serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels)
+
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
@@ -3713,6 +3996,9 @@ def main(argv=None) -> int:
         k6_ms, k6_dev, k6_plain_ms, k6_bytes, k6_ops,
         bound_all_ms=bound(k6_bytes_all, k6_ops)[0], mean_device_ms=k6_mean,
         prev_device_ms=k6_prev, prev_mean_device_ms=k6_prev_mean)
+    for k, v in serve_stats["launches"].items():
+        if k in kernels:
+            kernels[k]["serving_launches"] = v
     for k in kernels.values():
         log(f"  kernel {k['name']:17s} ms {k['ms']:9.3f}  device {k['device_ms']:9.4f}  "
             f"bound {k['bound_ms']:8.4f} ({k['bound_by']})  plain {k['plain_ms']:9.3f}  "

@@ -1,4 +1,5 @@
 from .types import (  # noqa: F401
+    Extender,
     PluginEntry,
     Plugins,
     PluginSet,

@@ -1,10 +1,15 @@
 """Config API subset: the part of `k8s_scheduler_tpu/config/types.py` the
 port reads — profiles with per-extension-point plugin sets and args
 (queueSort, filter, postFilter, score), the default plugin sets and
-weights, `commit_mode`, `gang_scheduling` and
-`percentage_of_nodes_to_score`, and `load_config` for those fields under
-their upstream names. The port keeps its own copy; the serving knobs wait
-for the host slice (ROADMAP A10)."""
+weights, `commit_mode`, `gang_scheduling`,
+`percentage_of_nodes_to_score`, the serving fields the `Scheduler` reads
+(backoff, `forced_sync`, the flight recorder and SLO, the degradation
+ladder, the dispatch deadline, the encoder's pads, `extenders`) and the
+fields of features later slices port (`multi_cycle_k`,
+`speculative_dispatch`, `compile_cache_dir`, `shard_devices`,
+`fault_spec`: the `Scheduler` refuses a configuration that turns one on),
+with the reference's defaults, and `load_config` for those fields under
+their upstream names. The port keeps its own copy."""
 
 from __future__ import annotations
 
@@ -52,13 +57,68 @@ class Profile:
 
 
 @dataclass
+class Extender:
+    """HTTP scheduler-extender config (upstream `Extender` in
+    KubeSchedulerConfiguration): filter/prioritize/bind delegation to an
+    external webhook. `carry_verdicts` is the operator's assertion that
+    the Filter/Prioritize verdicts are deterministic per pod (the
+    reference keeps its device-carry path then)."""
+
+    url_prefix: str
+    filter_verb: str = ""
+    prioritize_verb: str = ""
+    bind_verb: str = ""
+    weight: int = 1
+    http_timeout_seconds: float = 5.0
+    ignorable: bool = False  # errors don't fail the pod's attempt
+    carry_verdicts: bool = False
+
+
+@dataclass
 class SchedulerConfiguration:
     profiles: list[Profile] = field(default_factory=lambda: [Profile()])
     percentage_of_nodes_to_score: int = 0  # 0 = adaptive (upstream default)
+    pod_initial_backoff_seconds: float = 1.0
+    pod_max_backoff_seconds: float = 10.0
     gang_scheduling: bool = True
     # in-cycle commitment engine: "rounds" or "scan" (build_cycle_fn's
     # commit_mode)
     commit_mode: str = "rounds"
+    extenders: list[Extender] = field(default_factory=list)
+    # the encoder's sticky pads (0 = size from the first snapshot)
+    pad_existing: int = 0
+    pad_pods_per_node: int = 0
+    pad_ma: int = 0
+    pad_mc: int = 0
+    # block every pipeline dispatch to completion (identical results)
+    forced_sync: bool = False
+    # flight recorder ring capacity (0 disables recording, the observer
+    # and the speculative warm builds)
+    flight_recorder_size: int = 512
+    # latency SLO over the observer's window (0 disables the objective)
+    slo_p99_ms: float = 0.0
+    slo_window_cycles: int = 1024
+    # multi-cycle dispatch (ROADMAP A11); 1 = every cycle alone
+    multi_cycle_k: int = 1
+    multi_cycle_max_wait_ms: float = 5.0
+    # down-step margin of the P / N pad buckets (0 = immediate)
+    pad_hysteresis_pct: float = 0.0
+    # persistent compiled-program cache (ROADMAP A10b); "" = off
+    compile_cache_dir: str = ""
+    # multi-device carry (ROADMAP A13); 0 / 1 = one device
+    shard_devices: int = 0
+    # warm-build the adjacent pad regime off the serving thread
+    speculative_compile: bool = True
+    # depth-2 speculative dispatch, multi-cycle path only (ROADMAP A11)
+    speculative_dispatch: bool = True
+    # admission-time encode, multi-cycle path only (a no-op at K = 1)
+    incremental_encode: bool = False
+    # bound on the blocking decision fetch in ms (0 = unbounded)
+    dispatch_deadline_ms: float = 0.0
+    # clean cycles before the degradation ladder steps back up
+    degrade_promote_cycles: int = 8
+    # fault injection spec (ROADMAP A10b); "" disarms
+    fault_spec: str = ""
 
     def profile(self, scheduler_name: str = "default-scheduler") -> Profile:
         for p in self.profiles:
@@ -101,6 +161,20 @@ def default_plugins() -> dict[str, list[PluginEntry]]:
     }
 
 
+def _duration_seconds(v) -> float:
+    """Upstream serializes durations as strings ('5s', '500ms', '1m30s');
+    accept those and plain numbers."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    import re
+
+    total = 0.0
+    for num, unit in re.findall(r"([0-9.]+)(h|m(?!s)|s|ms|us|ns)", str(v)):
+        total += float(num) * {"h": 3600.0, "m": 60.0, "s": 1.0,
+                               "ms": 1e-3, "us": 1e-6, "ns": 1e-9}[unit]
+    return total or 5.0
+
+
 def _plugin_set_from_dict(d: dict) -> PluginSet:
     return PluginSet(
         enabled=[PluginEntry(e["name"], e.get("weight", 1)) for e in d.get("enabled", [])],
@@ -140,6 +214,40 @@ def load_config(source: "str | dict") -> SchedulerConfiguration:
     return SchedulerConfiguration(
         profiles=profiles or [Profile()],
         percentage_of_nodes_to_score=data.get("percentageOfNodesToScore", 0),
+        pod_initial_backoff_seconds=data.get("podInitialBackoffSeconds", 1.0),
+        pod_max_backoff_seconds=data.get("podMaxBackoffSeconds", 10.0),
         gang_scheduling=data.get("gangScheduling", True),
         commit_mode=data.get("commitMode", "rounds"),
+        pad_existing=int(data.get("padExisting", 0)),
+        pad_pods_per_node=int(data.get("padPodsPerNode", 0)),
+        pad_ma=int(data.get("padMa", 0)),
+        pad_mc=int(data.get("padMc", 0)),
+        forced_sync=bool(data.get("forcedSync", False)),
+        flight_recorder_size=int(data.get("flightRecorderSize", 512)),
+        slo_p99_ms=float(data.get("sloP99Ms", 0.0)),
+        slo_window_cycles=int(data.get("sloWindowCycles", 1024)),
+        multi_cycle_k=int(data.get("multiCycleK", 1)),
+        multi_cycle_max_wait_ms=float(data.get("multiCycleMaxWaitMs", 5.0)),
+        pad_hysteresis_pct=float(data.get("padHysteresisPct", 0.0)),
+        compile_cache_dir=str(data.get("compileCacheDir", "")),
+        shard_devices=int(data.get("shardDevices", 0)),
+        speculative_compile=bool(data.get("speculativeCompile", True)),
+        speculative_dispatch=bool(data.get("speculativeDispatch", True)),
+        incremental_encode=bool(data.get("incrementalEncode", False)),
+        dispatch_deadline_ms=float(data.get("dispatchDeadlineMs", 0.0)),
+        degrade_promote_cycles=int(data.get("degradePromoteCycles", 8)),
+        fault_spec=str(data.get("faultSpec", "")),
+        extenders=[
+            Extender(
+                url_prefix=e["urlPrefix"],
+                filter_verb=e.get("filterVerb", ""),
+                prioritize_verb=e.get("prioritizeVerb", ""),
+                bind_verb=e.get("bindVerb", ""),
+                weight=e.get("weight", 1),
+                http_timeout_seconds=_duration_seconds(e.get("httpTimeout", 5.0)),
+                ignorable=e.get("ignorable", False),
+                carry_verdicts=e.get("carryVerdicts", False),
+            )
+            for e in data.get("extenders", [])
+        ],
     )

@@ -45,8 +45,11 @@ the rounds cycle over the carry (`build_packed_cycle_carry_fn`),
 preemption on the packed frame (`build_packed_preemption_fn`) and the
 off-path diagnosis program (`build_diagnosis_fn`: every unplaced pod's
 FailedScheduling attribution, K16 and K17 over windows of them). The
-multi-cycle / arena builders are ROADMAP items A11-A13; extender verdicts
-A10."""
+packed full cycle `build_packed_cycle_fn` (what serving runs when the
+carry path is off: the scan engine) and the `_Resilient` retry wrapper
+with its failure classes (`classify_failure`) serve the `Scheduler`
+(`core/scheduler.py`). The multi-cycle / arena builders are ROADMAP items
+A11-A13; extender verdicts A10b."""
 
 from __future__ import annotations
 
@@ -137,12 +140,19 @@ def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
 
 def sampling_mask(snap, pct: int) -> torch.Tensor:
     """bool [P, N] form of `sampling_window` (the reference's
-    `sampling_mask`)."""
-    win = sampling_window(snap, pct)
-    if win is None:
+    `sampling_mask`), its window length and modulus computed on the device
+    from the snapshot's node count and cycle index: no host sync."""
+    if pct >= 100:
         return torch.ones((snap.P, snap.N), dtype=torch.bool, device=snap.device)
-    off, k, mod = win
-    col = torch.arange(snap.N, dtype=torch.int32, device=snap.device)[None, :]
+    n = snap.num_nodes.to(torch.int64)
+    adaptive = torch.clamp(50 - n // 125, min=5) if pct <= 0 else pct
+    k = torch.clamp(n * adaptive // 100, min=100)
+    mod = torch.clamp(n, min=1)
+    off = wrap_i32(
+        snap.pod_order.to(torch.int64) * 75347
+        + snap.cycle_index.to(torch.int64) * 31337
+    ) % mod
+    col = torch.arange(snap.N, dtype=torch.int64, device=snap.device)[None, :]
     return ((col - off[:, None]) % mod) < k
 
 
@@ -163,6 +173,93 @@ def _gang_unwind(snap, assignment, node_requested):
         commit_ops.CommitResult(assignment, node_requested, None), dropped,
         snap.pod_requested)
     return res.assignment, res.node_requested, dropped
+
+
+# failure signatures of a device or dispatch error (the reference's
+# classes, `core/cycle.py:206-265`): a transport flake of a remote dispatch
+# (nothing corrupted: re-invoke), and a wedged device — on the card CUDA's
+# sticky errors, which leave the process's context unusable until a
+# restart (the reference's wedge: fail fast). The reference's third class,
+# a corrupt cached XLA executable, has no counterpart here.
+_WEDGE_MARKERS = (
+    "illegal memory access",
+    "unspecified launch failure",
+    "device-side assert",
+)
+_TRANSPORT_MARKERS = (
+    "remote_compile",
+    "remote_execute",
+    "response body closed",
+    "read body",
+    "connection reset",
+    "broken pipe",
+    "connection refused",
+    "unexpected eof",
+)
+
+
+def is_transport_error(e: BaseException) -> bool:
+    """True when `e` looks like a transport flake (retryable) rather than
+    a program error."""
+    msg = str(e).lower()
+    return any(m in msg for m in _TRANSPORT_MARKERS)
+
+
+def classify_failure(e: BaseException) -> str:
+    """Failure class of a device/dispatch error, by the precedence
+    `_Resilient` recovers with: transport, then wedge, else other. Feeds
+    `scheduler_fetch_failures_total{class}` and the degradation ladder's
+    transition reasons."""
+    if is_transport_error(e):
+        return "transport"
+    if any(m in str(e) for m in _WEDGE_MARKERS):
+        return "wedge"
+    return "other"
+
+
+# per-process strike log: (program name, kind) -> count, mirrored into
+# global_metrics()'s scheduler_program_retry_strikes_total
+RESILIENT_STRIKES: dict[tuple[str, str], int] = {}
+
+
+def _record_strike(program: str, kind: str) -> None:
+    key = (program, kind)
+    RESILIENT_STRIKES[key] = RESILIENT_STRIKES.get(key, 0) + 1
+    try:
+        from ..metrics.metrics import global_metrics
+
+        global_metrics().program_retry_strikes.labels(program=program, kind=kind).inc()
+    except Exception:
+        # the strike itself is the trace; a broken registry must not break
+        # the serving path it observes
+        pass
+
+
+class _Resilient:
+    """Retry wrapper for a built program (reference `core/cycle.py:273`),
+    around a plain callable: a transport flake re-invokes after a short
+    backoff (at most three attempts); a wedge records its strike and
+    raises at once; anything else raises. Every strike is counted in
+    `RESILIENT_STRIKES`."""
+
+    def __init__(self, fn: Callable, name: str) -> None:
+        self._fn = fn
+        self.__name__ = name
+
+    def __call__(self, *a, **k):
+        for attempt in range(3):
+            try:
+                return self._fn(*a, **k)
+            except Exception as e:
+                cls = classify_failure(e)
+                if cls == "wedge":
+                    _record_strike(self.__name__, "backend_wedge")
+                if cls != "transport" or attempt == 2:
+                    raise
+                _record_strike(self.__name__, "transport")
+                import time
+
+                time.sleep(0.5 * (attempt + 1))
 
 
 def build_cycle_fn(
@@ -191,8 +288,11 @@ def build_cycle_fn(
     dyn_rejects_fn: Callable = dyn_round_ops.dyn_rejects,
 ) -> Callable:
     """The cycle for a framework (default: the default plugin set) on one
-    device: `cycle(snapshot) -> CycleResult` (`outputs="full"`, the
-    default, as in the reference) or `CycleDecision` (`"latency"`).
+    device: `cycle(snapshot, stable=None) -> CycleResult`
+    (`outputs="full"`, the default, as in the reference) or
+    `CycleDecision` (`"latency"`); `stable`, the output of
+    `build_stable_state_fn` for the snapshot's frame, seeds the context's
+    stable tables instead of computing them again.
 
     `device` None means the card (raises without one). The default
     kernel functions (`static_base_fn`, `claim_pass_fn`, `interpod_terms_fn`,
@@ -240,13 +340,17 @@ def build_cycle_fn(
                   guard_sweep_fn=guard_sweep_fn)
     pct = percentage_of_nodes_to_score
 
-    def cycle(snap):
+    def cycle(snap, stable=None):
         if snap.device.type != dev.type:
             raise ValueError(
                 f"snapshot on {snap.device}, cycle built for {dev}"
             )
         ctx = CycleContext(snap, kernels, volume_kernels=vkernels,
                            dyn_kernels=dkernels)
+        if stable is not None:
+            # the stable tables (build_stable_state_fn) seed the context
+            # instead of being computed again
+            ctx._cache.update(stable)
         if commit_mode == "scan":
             return scan_cycle(snap, ctx)
         x = static_base_ops.static_base_inputs(fw, ctx, fit=True,
@@ -442,6 +546,23 @@ def build_preemption_fn(
         )
 
     return post_filter
+
+
+def build_packed_cycle_fn(spec, **kw) -> Callable:
+    """`build_cycle_fn` on packed buffers (reference `core/cycle.py:784`):
+    `packed(wbuf, bbuf, stable=None)` unpacks the frame (`models/
+    packing.py`) and runs the cycle of `build_cycle_fn(**kw)` on it (the
+    full outputs by default), the stable tables seeding its context. The
+    `Scheduler` serves with it when the carry path is off (the scan
+    engine). Wrapped in `_Resilient`."""
+    from ..models import packing
+
+    cycle = build_cycle_fn(**kw)
+
+    def packed(wbuf, bbuf, stable=None):
+        return cycle(packing.unpack(wbuf, bbuf, spec), stable)
+
+    return _Resilient(packed, "packed_cycle")
 
 
 # --------------------------------------------------------------------------

@@ -64,6 +64,80 @@ class PackSpec:
         raise KeyError(name)
 
 
+# The pad dimensions whose changes make a new program regime: name ->
+# (snapshot field, axis) to read the padded size from (reference
+# `models/packing.py:50`). P / N the pod / node pads, E the existing-pod
+# pad, MPN the per-node victim depth, MA the per-pod (anti-)affinity term
+# pad, MC the per-pod topology-spread pad. core/observe.py diffs
+# consecutive signatures to attribute which dimension flipped.
+SIGNATURE_DIMS = (
+    ("P", "pod_valid", 0),
+    ("N", "node_valid", 0),
+    ("E", "exist_valid", 0),
+    ("MPN", "node_pods", 1),
+    ("MA", "pod_aff_terms", 1),
+    ("MC", "pod_tsc", 1),
+)
+
+
+def shape_signature(spec: PackSpec) -> tuple[tuple[str, int], ...]:
+    """Named pad-regime signature of a PackSpec (reference `:64`): a
+    stable tuple of (dimension, padded size) pairs."""
+    shapes: dict[str, tuple[int, ...]] = {
+        name: shape for name, _dt, shape, _off in spec.words}
+    shapes.update({name: shape for name, shape, _off in spec.bools})
+    out = []
+    for dim, fld, axis in SIGNATURE_DIMS:
+        shp = shapes.get(fld)
+        if shp is not None and len(shp) > axis:
+            out.append((dim, int(shp[axis])))
+    return tuple(out)
+
+
+def respec(spec: PackSpec, dims: "dict[str, int]") -> PackSpec | None:
+    """A PackSpec with its P and/or N pad rewritten to an adjacent regime
+    size without re-encoding (reference `:83`): the speculative warm build
+    needs the neighbouring regime's exact spec. Every `pod_*` field
+    carries P on axis 0 and every `node_*` field N on axis 0, and no other
+    axis scales with them; the extender verdict planes ([P, N]) would
+    break that, so their presence refuses the rewrite (None), as does a
+    result whose signature does not carry the new sizes. Offsets are
+    recomputed with the port's alignment; aux is kept."""
+    prefixes = {"P": "pod_", "N": "node_"}
+    if not dims or any(d not in prefixes for d in dims):
+        return None
+    names = {n for n, _dt, _sh, _off in spec.words}
+    names.update(n for n, _sh, _off in spec.bools)
+    if names & {"pod_extender_mask", "pod_extender_score"}:
+        return None
+    old_sizes = dict(shape_signature(spec))
+
+    def rewrite(name: str, shape: tuple) -> tuple:
+        for dim, new in dims.items():
+            if name.startswith(prefixes[dim]):
+                if not shape or shape[0] != old_sizes.get(dim):
+                    return shape
+                return (int(new),) + tuple(shape[1:])
+        return shape
+
+    words, bools = [], []
+    wo = bo = 0
+    for name, dt, shape, _off in spec.words:
+        shape = rewrite(name, shape)
+        words.append((name, dt, shape, wo))
+        wo = _up(wo + _size(shape), ALIGN_WORDS)
+    for name, shape, _off in spec.bools:
+        shape = rewrite(name, shape)
+        bools.append((name, shape, bo))
+        bo = _up(bo + _size(shape), ALIGN_BYTES)
+    out = PackSpec(words=tuple(words), bools=tuple(bools), n_words=max(wo, 1),
+                   n_bytes=max(bo, 1), aux=spec.aux)
+    got = dict(shape_signature(out))
+    if any(got.get(dim) != int(new) for dim, new in dims.items()):
+        return None
+    return out
+
+
 def _size(shape) -> int:
     return int(np.prod(shape, dtype=np.int64)) if shape else 1
 

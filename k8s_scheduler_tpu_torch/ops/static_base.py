@@ -187,8 +187,10 @@ def static_base_inputs(fw, ctx, *, fit: bool = False,
     # TaintToleration normalizes by the max count over VALID nodes per pod;
     # that max depends only on the pod's toleration set
     Ts = sched.shape[1]
-    present = torch.zeros(Ts, dtype=torch.bool, device=dev)
-    present[snap.node_taintset[snap.node_valid].long()] = True
+    # which toleration-set rows a valid node carries: invalid nodes write
+    # the extra row Ts (an index_fill, no boolean gather and so no sync)
+    present = torch.zeros(Ts + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(snap.node_valid, snap.node_taintset.long(), Ts), True)[:Ts]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     mx = torch.where(present[None, :], prefer, zero).amax(dim=1, keepdim=True)
     tscore = taints_ops.taint_score_table(prefer, mx)

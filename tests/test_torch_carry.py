@@ -40,6 +40,7 @@ from k8s_scheduler_tpu_torch.models import packing
 from test_torch_cycle_volumes import _preemption_objects
 from test_torch_encoding import assert_same_snapshot, fixture
 from test_torch_volumes import PORT, REF, objects
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RESULT = ("assignment", "node_requested", "unschedulable", "gang_dropped", "reject_counts",
           "pv_claimed", "rounds_used", "accepted_per_round", "diag_per_round")

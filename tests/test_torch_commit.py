@@ -48,6 +48,7 @@ from k8s_scheduler_tpu_torch.ops import static_base as sb
 from k8s_scheduler_tpu_torch.utils import kernel_cases
 from test_torch_interpod import _eq, _port_state, _state_eq, carry, case
 from test_torch_encoding import fixture
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 I32 = torch.int32
 

@@ -31,6 +31,7 @@ from k8s_scheduler_tpu import oracle
 from k8s_scheduler_tpu_torch.core.cycle import build_cycle_fn
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
 from test_torch_encoding import fixture
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

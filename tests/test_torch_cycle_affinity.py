@@ -26,6 +26,7 @@ from k8s_scheduler_tpu_torch.models import MakeNode, MakePod, SnapshotEncoder
 from k8s_scheduler_tpu_torch.ops import (affinity_update, capacity, guard_sweep,
                                          interpod_terms, kernel_build)
 from test_torch_interpod import AFFINITY_FIXTURES, affinity_fixture, carry
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = ("assignment", "node_requested", "unschedulable", "gang_dropped")
 

@@ -40,6 +40,7 @@ from k8s_scheduler_tpu_torch.ops import kernel_build
 from test_torch_commit import RESOURCE_PROFILES, _profile
 from test_torch_cycle import ref_objects
 from test_torch_interpod import AFFINITY_FIXTURES, affinity_fixture, carry
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = ("assignment", "node_requested", "unschedulable", "gang_dropped")
 HOST = "kubernetes.io/hostname"

@@ -46,20 +46,10 @@ from k8s_scheduler_tpu_torch.ops import scan_commit as sc
 from k8s_scheduler_tpu_torch.ops import volumes as port_vol
 from k8s_scheduler_tpu_torch.utils import kernel_cases
 from test_torch_volumes import FIXTURES, Case, carry, reference_snapshot
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 DECISIONS = ("assignment", "node_requested", "unschedulable", "gang_dropped")
 FULL = ("gang_unwind", "gang_survivor", "two_pvs_4", "eight_slot_dominance", "cfg4_volumes")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's plain scans, whose steps are many
-    small ops: with several test workers sharing the cores, idle pool
-    threads made a cfg4 scan 30x slower. Restored after each test."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(a):

@@ -28,6 +28,7 @@ from k8s_scheduler_tpu_torch.models.api import (VOLUME_BINDING_WAIT, PersistentV
                                                 PersistentVolumeClaim, StorageClass)
 from k8s_scheduler_tpu_torch.ops import kernel_build, volumes
 from test_torch_volumes import FIXTURES, REF, carry, objects, reference_snapshot, to_api
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = ("assignment", "node_requested", "unschedulable", "gang_dropped")
 PLAIN = dict(volume_mask_fn=volumes.volume_mask_plain,

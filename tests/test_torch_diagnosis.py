@@ -58,6 +58,7 @@ from test_torch_carry import _churn_pods
 from test_torch_cycle import _sampled
 from test_torch_encoding import fixture
 from test_torch_volumes import PORT, REF, _cfg4_volumes, objects
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RESULT = ("assignment", "node_requested", "unschedulable", "gang_dropped", "reject_counts",
           "pv_claimed", "rounds_used", "accepted_per_round", "diag_per_round")

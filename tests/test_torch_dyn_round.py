@@ -36,6 +36,7 @@ from k8s_scheduler_tpu_torch.ops import rounds, static_base
 from k8s_scheduler_tpu_torch.utils import kernel_cases as kc
 from test_torch_commit import _c7_objects, _profile
 from test_torch_encoding import fixture
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 NEG_INF = rounds.NEG_INF
 

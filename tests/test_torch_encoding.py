@@ -24,6 +24,7 @@ from k8s_scheduler_tpu_torch.models.encoding import (
     AUX_FIELDS,
     snapshot_from_numpy,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _mixed(m):

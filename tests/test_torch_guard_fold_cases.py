@@ -38,6 +38,7 @@ from k8s_scheduler_tpu_torch.models import SnapshotEncoder
 from k8s_scheduler_tpu_torch.ops import guard_sweep, pv_fold, volumes
 from k8s_scheduler_tpu_torch.utils import kernel_cases, synth
 from test_torch_kernels_plain import _reference_guard, _sequential_guard
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # ---- K6 --------------------------------------------------------------------
 

@@ -32,6 +32,7 @@ import k8s_scheduler_tpu_torch.utils.synth as port_synth
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
 from k8s_scheduler_tpu_torch.ops import interpod as ip
 from k8s_scheduler_tpu_torch.utils import kernel_cases
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"

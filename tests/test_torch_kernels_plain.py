@@ -60,6 +60,7 @@ from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, dyn_round, guard_
                                          scan_commit, static_base)
 from k8s_scheduler_tpu_torch.utils import kernel_cases
 from test_torch_encoding import reference_snapshot
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 def _carry(ref):
     return snapshot_from_numpy(

@@ -44,6 +44,7 @@ from k8s_scheduler_tpu_torch.ops import (
 )
 from test_torch_commit import RESOURCE_PROFILES, _profile
 from test_torch_encoding import fixture, reference_snapshot
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=["mixed", "cfg2"])

@@ -47,6 +47,7 @@ from k8s_scheduler_tpu_torch.models.encoding import (
     AUX_FIELDS,
     pref_raw_bound,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REF_FOLDS = ref_native.pod_rows_into is not None  # the reference's fold can run
 

@@ -38,6 +38,7 @@ from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.ops import kernel_build, preemption
 from test_torch_encoding import assert_same_snapshot
 from test_torch_interpod import carry
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"

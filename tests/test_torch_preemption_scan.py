@@ -28,6 +28,7 @@ from test_torch_cycle_scan import assert_same
 from test_torch_interpod import carry
 from test_torch_preemption import (_WHATIF, FIXTURES, PORT, REF, _framework_config,
                                    assert_same_result)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def run_both(name):

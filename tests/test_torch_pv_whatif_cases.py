@@ -36,6 +36,7 @@ from k8s_scheduler_tpu.framework.interfaces import CycleContext as RefContext
 from k8s_scheduler_tpu_torch.models import encoding
 from k8s_scheduler_tpu_torch.ops import preemption, volumes
 from k8s_scheduler_tpu_torch.utils import kernel_cases as kc
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # ---- K11 -------------------------------------------------------------------
 

@@ -27,6 +27,7 @@ from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_nu
 from k8s_scheduler_tpu_torch.ops import rounds, static_base
 from test_torch_commit import _profile
 from test_torch_encoding import reference_snapshot
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 @pytest.mark.parametrize("fixture", ["cfg2", "c1"])
 @pytest.mark.parametrize("profile", ["balanced_static", "fit_three_static",

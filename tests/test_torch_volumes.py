@@ -35,6 +35,7 @@ from k8s_scheduler_tpu_torch.ops import kernel_build, labels
 from k8s_scheduler_tpu_torch.ops import pv_choice, pv_fold, volume_mask
 from k8s_scheduler_tpu_torch.utils import synth as port_synth
 from test_torch_encoding import assert_same_snapshot
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 GiB = 2**30
 ZONE = "topology.kubernetes.io/zone"
