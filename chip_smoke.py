@@ -28,7 +28,8 @@ carried static base, the packed cycle and preemption, and off the
 decision path `build_diagnosis_fn`) over churn frames of config #4's
 workload, with and without volumes (phases 8 and 9), and the serving host
 over them: the port's `Scheduler` driven through its informer handlers
-and `schedule_cycle()` (phase 10).
+and `schedule_cycle()` (phase 10), then with HTTP extenders and their
+verdicts through every program (phase 11).
 
 Phases:
 
@@ -275,7 +276,33 @@ Phases:
                 fetch, apply and bind, diagnosis lag), the carry update's
                 and cycle's events ms, the fetch bytes and placed /
                 unschedulable / nominated; launch counts over the serving
-                cycles (`serving_launches` in the kernel table).
+                cycles (`serving_launches` in the kernel table); after
+                each Scheduler's cycles the port's HTTP server on port 0
+                answers /healthz, /metrics and /debug/flightrecorder with
+                200, and /metrics' scheduled attempts equal the binds the
+                stand-in API server recorded.
+ 11. extenders — HTTP-extender verdicts through every program, on config
+                #4 (seed 202) with seeded verdict planes (7 in 8 pairs pass,
+                scores 0-10 x 3, and x 200000 past K1's 1e6 clip): K1's
+                extender instances (rounds and scan, both score scales), K18
+                `extender_merge` (verdicts and the sampling window, each
+                alone, ragged tiles) and K16's per-pod base (a 2048-row
+                window, N=13 and 8176 too) held bit for bit against their
+                plain versions at 16384 x 8192 and timed; the planes'
+                upload timed; `build_cycle_fn` with the verdicts in both
+                engines (both scales) against its twin on K1's plain
+                version, every placement on a node the filter passed; then
+                the serving leg: a webhook extender in a child process
+                (filter: a hash of pod and node not 0 mod 8; prioritize: the
+                hash mod 11, weight 3) and the port's `Scheduler` over
+                config #4's 5000 nodes and 12000 running pods, with a cut
+                of the pending set (EXT_PENDING pods and EXT_HUGE that fit
+                nowhere): 1 + EXT_CHURN carry-path cycles with
+                `carryVerdicts` (`ExtenderVerdictKeeper`: a sweep, then
+                updates of the replicas that arrive) and 2 packed-path
+                cycles without, each beside a `forced_sync` twin, every
+                binding valid and on a node the filter passed, the
+                diagnosis from each window's node_valid & emask.
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -3039,7 +3066,7 @@ def carry_phase(torch, kb, fw, dev, nodes, existing, pending, smi, volumes: bool
         f"{json.dumps(counts)}")
     want = ["static_base", "claim_pass", "capacity", "guard_sweep", "interpod_terms",
             "interpod_norm", "affinity_update", "dyn_mask", "dyn_score", "preempt_prefilter",
-            "preempt_whatif", "preempt_claim"]
+            "preempt_whatif", "preempt_claim", "extender_merge"]
     if volumes:
         want += ["volume_mask", "pv_choice", "pv_fold"]
     for k in want:
@@ -3085,6 +3112,41 @@ class ServeCluster:
     def evict(self, pod, node):
         self.evictions.append((pod.name, node))
         self.sched.on_pod_delete(pod.uid)
+
+
+def http_probe(sch, cl, tag: str) -> None:
+    """The port's HTTP server over a serving Scheduler on port 0: /healthz,
+    /metrics and /debug/flightrecorder answer 200, and /metrics' bind
+    counter (scheduler_schedule_attempts_total{result="scheduled"}) equals
+    the binds the stand-in API server recorded."""
+    import urllib.request
+
+    from k8s_scheduler_tpu_torch.cmd.httpserver import (staleness_healthz,
+                                                        start_http_server, stop_http_server)
+
+    server = start_http_server(
+        sch.metrics, port=0, recorder=sch.flight, pod_timeline=sch.pod_timeline,
+        observer=sch.observer,
+        healthz=staleness_healthz(None, sch.flight, 0.0, sch.observer, sch.ladder))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        bodies = {}
+        for route in ("/healthz", "/metrics", "/debug/flightrecorder?last=4"):
+            with urllib.request.urlopen(base + route, timeout=30) as r:
+                check(r.status == 200, f"serving {tag}: {route} answered {r.status}")
+                bodies[route] = r.read().decode()
+        scheduled = sum(float(ln.rsplit(" ", 1)[1]) for ln in bodies["/metrics"].splitlines()
+                        if ln.startswith("scheduler_schedule_attempts_total{")
+                        and 'result="scheduled"' in ln)
+        check(scheduled == len(cl.binds), f"serving {tag}: /metrics counts {scheduled} "
+              f"scheduled attempts, the API server saw {len(cl.binds)} binds")
+        n_rec = len(json.loads(bodies["/debug/flightrecorder?last=4"])["cycles"])
+        log(f"phase serving {tag}: the HTTP server on port 0 answered /healthz "
+            f"{json.loads(bodies['/healthz'])['ok']}, /metrics "
+            f"({len(bodies['/metrics'])} bytes; scheduled attempts {scheduled:.0f} == "
+            f"{len(cl.binds)} binds) and /debug/flightrecorder ({n_rec} records) with 200")
+    finally:
+        check(stop_http_server(server), f"serving {tag}: the HTTP server did not stop")
 
 
 def serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels) -> dict:
@@ -3296,17 +3358,400 @@ def serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels) -> dic
                     f"hand kernels: {json.dumps(seen)}")
                 check(not missing, f"serving {mode}: launched kernels {missing} not in the "
                       f"profile")
+        http_probe(sch, cl, mode)
         del sch, twin, cl, tcl
         torch.cuda.empty_cache()
     want = ["static_base", "claim_pass", "capacity", "guard_sweep", "interpod_terms",
             "interpod_norm", "affinity_update", "dyn_mask", "dyn_score", "preempt_prefilter",
-            "preempt_whatif", "preempt_claim", "static_rejects", "dyn_rejects", "scan_commit"]
+            "preempt_whatif", "preempt_claim", "static_rejects", "dyn_rejects", "scan_commit",
+            "extender_merge"]
     for k in want:
         check(counts.get(k, 0) > 0, f"kernel {k} was not launched in the serving cycles")
     log(f"phase serving launches over {SERVE_CYCLES} carry and {SERVE_SCAN_CYCLES} scan "
         f"cycles: {json.dumps(counts)}; the phase took {time.time() - t_phase:.1f} s")
     out["launches"] = counts
     return out
+
+
+# ---- phase 11: HTTP extenders and their verdicts ---------------------------
+
+EXT_SEED = 211
+EXT_WEIGHT = 3.0  # the webhook extender's weight
+EXT_CLIP_WEIGHT = 200000.0  # a weight whose scores cross K1's 1e6 clip
+EXT_WINDOW = 2048  # the diagnosis window of K16's per-pod base
+# the serving leg's cut of the pending set (see PERF.md §4): a
+# filter-and-prioritize round at 5000 nodes costs tens of ms of host time a
+# pod, so the leg schedules EXT_PENDING pods (+ EXT_HUGE that fit nowhere,
+# for the diagnosis), then EXT_ARRIVALS arrivals a churn cycle: replicas of
+# pods of the cut under new names (a Deployment scaling out), so the frame
+# takes the delta encode, and its changed slots alone consult the webhooks
+EXT_PENDING, EXT_HUGE, EXT_ARRIVALS, EXT_CHURN = 400, 8, 50, 3
+
+
+def _ext_hash(uid: str, node: str) -> int:
+    import zlib
+
+    return zlib.crc32(f"{uid}|{node}".encode())
+
+
+def _serve_webhook(port_queue) -> None:
+    """The phase's scheduler extender, in a child process: its filter drops
+    the nodes where a hash of (pod uid, node name) is 0 mod 8, its
+    prioritize scores each node with that hash mod 11."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            uid = body["Pod"]["metadata"]["uid"]
+            if self.path.endswith("/filter"):
+                out = {"NodeNames": [n for n in body["NodeNames"]
+                                     if _ext_hash(uid, n) % 8 != 0]}
+            else:
+                out = {"Items": [{"Host": n, "Score": _ext_hash(uid, n) % 11}
+                                 for n in body["NodeNames"]]}
+            data = json.dumps(out).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *a):
+            pass
+
+    class Server(ThreadingHTTPServer):
+        request_queue_size = 128  # the prepass's 16 workers connect at once
+        daemon_threads = True
+
+    srv = Server(("127.0.0.1", 0), Handler)
+    port_queue.put(srv.server_address[1])
+    srv.serve_forever()
+
+
+def extender_planes(torch, snap, gen, weight: float):
+    """Seeded verdict planes on the device as the packed path carries them:
+    bool [P, N] (7 in 8 pairs pass) and f32 [P, N] (0-10 times `weight`),
+    mask True and score 0 on the pad rows and columns."""
+    P, N = snap.P, snap.N
+    dev = snap.device
+    real = snap.pod_valid[:, None] & snap.node_valid[None, :]
+    em = torch.rand((P, N), generator=gen, device=dev) < 0.875
+    es = torch.randint(0, 11, (P, N), generator=gen, device=dev).to(torch.float32) * weight
+    return em | ~real, torch.where(real, es, torch.zeros((), device=dev))
+
+
+def extender_phase(torch, kb, dev, nodes, existing, pending, smi) -> dict:
+    """Phase 11 (module docstring). Returns {"kernels": K1's extender
+    instance, K16's per-pod base and K18 as kernel-table entries, "serving":
+    the serving leg's numbers}."""
+    import copy
+    import dataclasses
+    import multiprocessing
+
+    from k8s_scheduler_tpu_torch.config import Extender, SchedulerConfiguration
+    from k8s_scheduler_tpu_torch.core import Scheduler
+    from k8s_scheduler_tpu_torch.core.cycle import (build_cycle_fn, sampling_params,
+                                                    sampling_window)
+    from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels, CycleContext
+    from k8s_scheduler_tpu_torch.framework.runtime import Framework
+    from k8s_scheduler_tpu_torch.kernel_variants import device_ms
+    from k8s_scheduler_tpu_torch.models import MakePod, SnapshotEncoder, packing
+    from k8s_scheduler_tpu_torch.ops import extender_merge as em_ops
+    from k8s_scheduler_tpu_torch.ops import rounds as rounds_ops
+    from k8s_scheduler_tpu_torch.ops import static_base as sb
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    t_phase = time.time()
+    fw = Framework.from_config()
+    plain = AffinityKernels.plain()
+    gen = torch.Generator(device=dev).manual_seed(EXT_SEED)
+    snap = SnapshotEncoder(device=dev).encode(nodes, pending[SERVE_SEED], existing)
+    P, N = snap.P, snap.N
+    em, es = extender_planes(torch, snap, gen, EXT_WEIGHT)
+    esnap = dataclasses.replace(snap, has_extender=True, pod_extender_mask=em,
+                                pod_extender_score=es)
+    _, es_big = extender_planes(torch, snap, gen, EXT_CLIP_WEIGHT)
+    bsnap = dataclasses.replace(esnap, pod_extender_score=es_big)
+    log(f"phase extenders data: config #4 (seed {SERVE_SEED}) at P={P} N={N}, seeded "
+        f"verdicts: {float(em.float().mean()):.4f} of the pairs pass, scores 0-10 x "
+        f"{EXT_WEIGHT} (and x {EXT_CLIP_WEIGHT}: max {float(es_big.max()):.0f})")
+
+    # the packed path uploads the planes every cycle: 5 B a pair
+    host = torch.empty((P * N * 5,), dtype=torch.uint8, pin_memory=True)
+    up_ms = time_ms(torch, lambda: host.to(dev, non_blocking=True), 5)
+    log(f"phase extenders verdict planes' upload: {P * N * 5} bytes (bool + f32 [{P}, "
+        f"{N}]) host to device {up_ms:.3f} ms (pinned, warm)")
+    del host
+
+    # ---- K1's extender instances against the plain version at full pads ----
+    xs = {
+        "rounds": sb.static_base_inputs(fw, CycleContext(esnap), fit=True,
+                                        sampling=sampling_window(snap, 0)),
+        "scan": sb.static_base_inputs(fw, CycleContext(esnap), fit=True, clip=False,
+                                      sampling=sampling_window(snap, 0)),
+        "rounds, scores past the clip": sb.static_base_inputs(
+            fw, CycleContext(bsnap), fit=True, sampling=sampling_window(snap, 0)),
+        "scan, scores past the clip": sb.static_base_inputs(
+            fw, CycleContext(bsnap), fit=True, clip=False, sampling=sampling_window(snap, 0)),
+    }
+    for tag, x in xs.items():
+        compare_static_base(torch, sb, x, f"(extender operands, {tag})")
+    x = xs["rounds"]
+    k1e_ms = time_ms(torch, lambda: sb.static_base_cuda(x), 20)
+    k1e_dev = device_ms(lambda: sb.static_base_cuda(x), 10)
+    k1e_plain = time_ms(torch, lambda: sb.static_base_plain(x), 2)
+    k1e_bytes = P * N * 4 + nbytes(*[v for v in vars(x).values()
+                                     if isinstance(v, torch.Tensor)])
+    k1e_ops = P * N * (2 * len(x.terms) + 4)
+    log(f"phase kernel static_base (extender operands): [{P}, {N}] equal to "
+        f"static_base_plain bit for bit on {len(xs)} instances ({', '.join(xs)}); kernel "
+        f"{k1e_ms:.3f} ms ({k1e_dev:.4f} ms device), plain {k1e_plain:.3f} ms, bound "
+        f"{bound(k1e_bytes, k1e_ops)[0]:.3f} ms (bytes {k1e_bytes})")
+    del xs
+
+    # ---- K18 against its plain version: the merge and the window ----
+    sbase = sb.static_base_cuda(sb.static_base_inputs(fw, CycleContext(snap)))  # the carry
+    samp = sampling_params(snap, 0)
+    for tag, args in (("verdicts and window", (em, es, samp)), ("verdicts", (em, es, None)),
+                      ("window alone (the main path's carry cycle)", (None, None, samp))):
+        check(bits_equal(torch, em_ops.extender_merge_triton(sbase, *args),
+                         em_ops.extender_merge_plain(sbase, *args)),
+              f"extender_merge differs from its plain version ({tag})")
+    for n in (13, 2049):  # a ragged tile, one node past a tile
+        a = (sbase[:64, :n].contiguous(), em[:64, :n].contiguous(), es[:64, :n].contiguous(),
+             (samp[0][:64], samp[1], samp[2]))
+        check(bits_equal(torch, em_ops.extender_merge_triton(*a),
+                         em_ops.extender_merge_plain(*a)),
+              f"extender_merge differs from its plain version at N={n}")
+    k18 = lambda: em_ops.extender_merge_triton(sbase, em, es, samp)  # noqa: E731
+    k18_ms = time_ms(torch, k18, 20)
+    k18_dev = device_ms(k18, 20)
+    k18_plain = time_ms(torch, lambda: em_ops.extender_merge_plain(sbase, em, es, samp), 3)
+    k18_bytes = P * N * (4 + 1 + 4 + 4) + nbytes(samp[0]) + 16
+    k18_ops = P * N * 4
+    # the window alone, the main path's carry cycle: against the torch
+    # composition it replaced (`sampling_mask` and a `torch.where`)
+    k18w_dev = device_ms(lambda: em_ops.extender_merge_triton(sbase, None, None, samp), 20)
+    k18w_plain = time_ms(torch, lambda: em_ops.extender_merge_plain(sbase, None, None, samp), 5)
+    k18w_bound = bound(P * N * 8 + nbytes(samp[0]) + 16, P * N * 3)[0]
+    log(f"phase kernel extender_merge: [{P}, {N}] equal to extender_merge_plain bit for bit "
+        f"(verdicts and window, verdicts alone, window alone; ragged tiles N=13, 2049); "
+        f"kernel {k18_ms:.3f} ms ({k18_dev:.4f} ms device), plain {k18_plain:.3f} ms, "
+        f"bound {bound(k18_bytes, k18_ops)[0]:.3f} ms (bytes {k18_bytes}); the window "
+        f"alone (the main path's carry cycle) {k18w_dev:.4f} ms device against the torch "
+        f"composition it replaced {k18w_plain:.3f} ms, bound {k18w_bound:.3f} ms")
+
+    # ---- K16's per-pod base against its plain version on a 2048-row window ----
+    order = torch.argsort(torch.where(snap.pod_valid, snap.pod_order.to(torch.int32),
+                                      torch.iinfo(torch.int32).max), stable=True)
+    ids = order[:EXT_WINDOW]
+    act = snap.pod_valid[ids]
+    ids32 = ids.to(torch.int32)
+    vsnap = rounds_ops._pod_view(snap, ids)
+    xr = sb.reject_inputs(sb.static_base_inputs(fw, CycleContext(vsnap)))
+    k16 = lambda: sb.static_rejects_cuda(xr, act, True, base=(em, ids32))  # noqa: E731
+    got, want = k16(), sb.static_rejects_plain(xr, act, True, base=(em, ids32))
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "static_rejects with the per-pod base differs from its plain version")
+    check(not torch.equal(got[1], sb.static_rejects_plain(xr, act, True)[1]),
+          "the per-pod base changed no survivor")
+    for n in (13, 8192 - 16):  # the scalar path, a row of 511 whole words
+        xn = dataclasses.replace(xr, node_valid=xr.node_valid[:n].contiguous(),
+                                 node_unsched=xr.node_unsched[:n].contiguous(),
+                                 node_taintset=xr.node_taintset[:n].contiguous(),
+                                 node_used_ports=xr.node_used_ports[:n].contiguous(),
+                                 req=xr.req[:, :n].contiguous())
+        bn = (em[:, :n].contiguous(), ids32)
+        a, b = sb.static_rejects_cuda(xn, act, True, base=bn), \
+            sb.static_rejects_plain(xn, act, True, base=bn)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"static_rejects with the per-pod base differs at N={n}")
+    k16_ms = time_ms(torch, k16, 20)
+    k16_dev = device_ms(k16, 20)
+    k16_plain = time_ms(torch, lambda: sb.static_rejects_plain(xr, act, True,
+                                                                base=(em, ids32)), 3)
+    B = EXT_WINDOW
+    k16_bytes = B * N * 2 + B * xr.n_filters * 4 + nbytes(
+        ids32, act, xr.node_valid, xr.node_unsched, xr.node_taintset, xr.sched, xr.req)
+    k16_ops = B * (N // 32) * 8
+    log(f"phase kernel static_rejects (per-pod base): [{B}, {N}] window equal to "
+        f"static_rejects_plain bit for bit (counts and survivors; also N=13 and "
+        f"N={8192 - 16}); kernel {k16_ms:.4f} ms ({k16_dev:.4f} ms device), plain "
+        f"{k16_plain:.3f} ms, bound {bound(k16_bytes, k16_ops)[0]:.4f} ms (bytes {k16_bytes})")
+    del sbase, vsnap, xr, got, want
+
+    # ---- build_cycle_fn with the verdicts, both engines, at full size ----
+    cycle_ms = {}
+    launches = dict.fromkeys(kb.launch_counts, 0)
+    for engine in ("rounds", "scan"):
+        for s_tag, s_ in (("", esnap), (", scores past the clip", bsnap)):
+            cyc = build_cycle_fn(commit_mode=engine, outputs="latency", device=dev)
+            twin = build_cycle_fn(commit_mode=engine, outputs="latency", device=dev,
+                                  static_base_fn=sb.static_base_plain)
+            kb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            dk = cyc(s_)
+            torch.cuda.synchronize()
+            cycle_ms[engine + s_tag] = round((time.time() - t0) * 1e3, 1)
+            for k, v in kb.launch_counts.items():
+                launches[k] += v
+            dp = twin(s_)
+            same = same_decisions(torch, dk, dp)
+            check(all(same.values()), f"{engine}{s_tag} cycle with verdicts differs from "
+                  f"its plain-K1 twin: {same}")
+            a = dk.assignment
+            placed = torch.nonzero(s_.pod_valid & (a >= 0), as_tuple=True)[0]
+            check(bool(s_.pod_extender_mask[placed, a[placed].long()].all()),
+                  f"{engine}{s_tag}: a pod placed on a node its extender filtered out")
+            check_placements(torch, s_, dk, fw, plain, unplaced_infeasible=engine == "rounds")
+            log(f"phase extenders {engine} cycle{s_tag}: {cycle_ms[engine + s_tag]} ms "
+                f"(events of the first call), placed {len(placed)}, equal to the plain-K1 "
+                f"twin, every placement on a node the filter passed; valid")
+    check(launches["static_base_ext"] >= 4 and launches["static_base"] == 0,
+          "K1's extender instance did not run in the cycles with verdicts")
+    del esnap, bsnap, em, es, es_big, snap, dk, dp
+
+    # ---- the serving leg: the Scheduler with the webhook in a child process ----
+    ctx = multiprocessing.get_context("spawn")
+    port_q = ctx.Queue()
+    proc = ctx.Process(target=_serve_webhook, args=(port_q,), daemon=True)
+    proc.start()
+    serve = {"cycles": []}
+    counts = dict.fromkeys(kb.launch_counts, 0)
+    try:
+        url = f"http://127.0.0.1:{port_q.get(timeout=120)}/ext"
+        cut = pending[SERVE_SEED][:EXT_PENDING] + [
+            MakePod(f"huge{i}").req({"cpu": "4000"}).priority(50).created(1e6 + i).obj()
+            for i in range(EXT_HUGE)]
+        def replica(pod, name):
+            p = copy.deepcopy(pod)
+            p.metadata.name, p.metadata.uid = name, f"{p.metadata.namespace}/{name}"
+            return p
+
+        arrivals = [[replica(p, f"ext{c}-{i}") for i, p in enumerate(cut[:EXT_ARRIVALS])]
+                    for c in range(EXT_CHURN + 1)]
+        clock_t = [0.0]
+
+        def make(carry, forced):
+            cfg = SchedulerConfiguration(
+                forced_sync=forced,
+                extenders=[Extender(url, filter_verb="filter", prioritize_verb="prioritize",
+                                    weight=int(EXT_WEIGHT), carry_verdicts=carry)],
+                pad_existing=len(existing) + len(cut) + EXT_CHURN * EXT_ARRIVALS,
+                pad_pods_per_node=2 * CARRY_MPN)
+            cl = ServeCluster()
+            sch = Scheduler(cfg, binder=cl.bind, evictor=cl.evict, now=lambda: clock_t[0],
+                            device=dev)
+            cl.sched = sch
+            for nd in nodes:
+                sch.on_node_add(nd)
+            for pod, node in existing:
+                sch.on_pod_add(pod, node)
+            for pod in copy.deepcopy(cut):
+                sch.on_pod_add(pod)
+            return sch, cl
+
+        for carry, n_cycles in ((True, 1 + EXT_CHURN), (False, 2)):
+            tag = "carry path" if carry else "packed path"
+            sch, cl = make(carry, False)
+            twin, tcl = make(carry, True)
+            check(sch._use_carry == carry, f"{tag}: the Scheduler took the other chain")
+            for c in range(n_cycles):
+                if c:
+                    for sch_ in (sch, twin):
+                        for pod in copy.deepcopy(arrivals[c]):
+                            sch_.on_pod_add(pod)
+                clock_t[0] += 1.0
+                nb, tnb = len(cl.binds), len(tcl.binds)
+                kb.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                st = sch.schedule_cycle()
+                torch.cuda.synchronize()
+                wall_ms = (time.time() - t0) * 1e3
+                for k, v in kb.launch_counts.items():
+                    counts[k] += v
+                tst = twin.schedule_cycle()
+                check(cl.binds[nb:] == tcl.binds[tnb:]
+                      and [(p.name, n) for p, n in sch.last_nominations]
+                      == [(p.name, n) for p, n in twin.last_nominations]
+                      and vars(st) | {"cycle_seconds": 0} == vars(tst) | {"cycle_seconds": 0},
+                      f"serving with extenders, {tag} cycle {c}: differs from the "
+                      f"forced_sync twin")
+                entry = max((e for e in sch._packed.values() if e["fns"][6]._last is not None),
+                            key=lambda e: e["fns"][6].stats["t_dispatch_start"])
+                h = entry["fns"][6]._last
+                fsnap = packing.unpack(h._wbuf, h._bbuf, entry["spec"])
+                keeper = entry["fns"][5]
+                if keeper is not None:  # the carried planes
+                    fsnap = dataclasses.replace(fsnap, has_extender=True,
+                                                pod_extender_mask=keeper.emask,
+                                                pod_extender_score=keeper.escore)
+                check(fsnap.has_extender, f"{tag}: the frame carries no verdicts")
+                res = h.result
+                a = res.assignment
+                placed = torch.nonzero(fsnap.pod_valid & (a >= 0), as_tuple=True)[0]
+                check(bool(fsnap.pod_extender_mask[placed, a[placed].long()].all()),
+                      f"{tag} cycle {c}: a pod placed on a node its extender filtered out")
+                check(len(cl.binds) - nb == int((a[:st.attempted] >= 0).sum()),
+                      f"{tag} cycle {c}: binds != placements")
+                check_placements(torch, fsnap, res, sch.framework, plain)
+                rec = sch.flight.last_record()
+                mk = rec.marks
+                row = {"path": tag, "cycle": c, "pods": st.attempted,
+                       "wall_ms": round(wall_ms, 1),
+                       "encode_ms": round((mk["dispatch_start"] - mk["encode_start"]) * 1e3, 1),
+                       "placed": st.scheduled, "unschedulable": st.unschedulable,
+                       "bind_errors": st.bind_errors,
+                       "carry_events_ms": round(rec.phases.get("carry_events_ms", 0.0), 2),
+                       "cycle_events_ms": round(rec.phases.get("cycle_events_ms", 0.0), 2),
+                       "frame_bytes": entry["spec"].n_words * 4 + entry["spec"].n_bytes}
+                if keeper is not None:
+                    row.update(keeper=keeper.last, consulted=keeper.consulted,
+                               keeper_ms=round(keeper.last_ms, 1),
+                               encode_path=sch._encoder.full_reason
+                               if sch._encoder.delta_profile == {} else "delta")
+                serve["cycles"].append(row)
+                log(f"phase extenders serving, {tag} cycle {c}: {json.dumps(row)}; equal to "
+                    f"the forced_sync twin, every binding valid and on a node the filter "
+                    f"passed | {smi}")
+            if carry:
+                check(any(r.get("keeper") == "update" for r in serve["cycles"]),
+                      "the verdict keeper never updated the changed slots alone")
+            del sch, twin, cl, tcl
+            torch.cuda.empty_cache()
+    finally:
+        proc.terminate()
+        proc.join(10)
+    for k in ("static_base", "static_base_ext", "extender_merge", "static_rejects_base",
+              "dyn_rejects", "claim_pass", "capacity", "dyn_mask", "dyn_score"):
+        check(counts[k] > 0, f"kernel {k} was not launched in the serving leg with extenders")
+    log(f"phase extenders serving launches: {json.dumps(counts)}; cycles with verdicts' "
+        f"launches: {json.dumps({k: v for k, v in launches.items() if v})}; the phase took "
+        f"{time.time() - t_phase:.1f} s")
+    serve["launches"] = counts
+    kern = {
+        "static_base (extender operands)": kernel_entry(
+            "static_base (extender operands)", "cuda",
+            "k8s_scheduler_tpu_torch/csrc/static_base.cu",
+            "k8s_scheduler_tpu/core/cycle.py:574", launches["static_base_ext"]
+            + counts["static_base_ext"], 0.0, k1e_ms, k1e_dev, k1e_plain, k1e_bytes, k1e_ops,
+            launches_by_path={"cycles with verdicts": launches["static_base_ext"],
+                              "serving": counts["static_base_ext"]}),
+        "extender_merge": kernel_entry(
+            "extender_merge", "triton", "k8s_scheduler_tpu_torch/ops/extender_merge.py",
+            "k8s_scheduler_tpu/core/cycle.py:1349", counts["extender_merge"], 0.0, k18_ms,
+            k18_dev, k18_plain, k18_bytes, k18_ops, window_device_ms=k18w_dev,
+            window_plain_ms=k18w_plain, window_bound_ms=k18w_bound),
+        "static_rejects (per-pod base)": kernel_entry(
+            "static_rejects (per-pod base)", "cuda",
+            "k8s_scheduler_tpu_torch/csrc/static_rejects.cu",
+            "k8s_scheduler_tpu/core/cycle.py:1482", counts["static_rejects_base"], 0.0, k16_ms,
+            k16_dev, k16_plain, k16_bytes, k16_ops),
+    }
+    return {"kernels": kern, "serving": serve, "cycle_ms": cycle_ms, "upload_ms": up_ms}
 
 
 def main(argv=None) -> int:
@@ -3958,6 +4403,12 @@ def main(argv=None) -> int:
     # ============ serving: the Scheduler over config #4's workload ============
     serve_stats = serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels)
 
+    # ============ extenders: the verdicts through every program ============
+    ext_stats = extender_phase(torch, kb, dev, nodes, existing, pending, smi)
+    kernels.update(ext_stats.pop("kernels"))
+    kernels["extender_merge"]["carry_launches"] = sum(
+        c["launches"]["extender_merge"] for c in carry_stats.values())
+
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
@@ -4012,7 +4463,8 @@ def main(argv=None) -> int:
         f"device ms {carry_stats[False]['ms']}, with "
         f"volumes {carry_stats[True]['ms']}, full cycles "
         f"{json.dumps(full_stats['ms'])}, diagnosis ms a frame "
-        f"{[c['diagnosis']['ms'] for c in carry_stats.values()]}, peak memory "
+        f"{[c['diagnosis']['ms'] for c in carry_stats.values()]}, cycles with extender "
+        f"verdicts ms {json.dumps(ext_stats['cycle_ms'])}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

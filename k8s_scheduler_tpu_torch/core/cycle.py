@@ -48,8 +48,12 @@ FailedScheduling attribution, K16 and K17 over windows of them). The
 packed full cycle `build_packed_cycle_fn` (what serving runs when the
 carry path is off: the scan engine) and the `_Resilient` retry wrapper
 with its failure classes (`classify_failure`) serve the `Scheduler`
-(`core/scheduler.py`). The multi-cycle / arena builders are ROADMAP items
-A11-A13; extender verdicts A10b."""
+(`core/scheduler.py`). HTTP-extender verdicts enter the fresh cycle
+through the snapshot (`pod_extender_mask` / `pod_extender_score`: K1's
+extender operands), the carry cycle and the diagnosis program through
+device planes that `ExtenderVerdictKeeper` keeps (K18 `extender_merge`
+over the carried base; K16's per-pod base). The multi-cycle / arena
+builders are ROADMAP items A11-A13."""
 
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ from ..ops import capacity as capacity_ops
 from ..ops import claim_pass as claim_pass_ops
 from ..ops import commit as commit_ops
 from ..ops import dyn_round as dyn_round_ops
+from ..ops import extender_merge as extender_merge_ops
 from ..ops import guard_sweep as guard_sweep_ops
 from ..ops import interpod_terms as interpod_terms_ops
 from ..ops import preempt_claim as preempt_claim_ops
@@ -138,12 +143,12 @@ def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
     return off.to(torch.int32), k, mod
 
 
-def sampling_mask(snap, pct: int) -> torch.Tensor:
-    """bool [P, N] form of `sampling_window` (the reference's
-    `sampling_mask`), its window length and modulus computed on the device
-    from the snapshot's node count and cycle index: no host sync."""
+def sampling_params(snap, pct: int):
+    """`sampling_window` on the device: (offset i32 [P], window length i64
+    [], modulus i64 []) computed from the snapshot's node count and cycle
+    index (no host sync); None when every node is a candidate."""
     if pct >= 100:
-        return torch.ones((snap.P, snap.N), dtype=torch.bool, device=snap.device)
+        return None
     n = snap.num_nodes.to(torch.int64)
     adaptive = torch.clamp(50 - n // 125, min=5) if pct <= 0 else pct
     k = torch.clamp(n * adaptive // 100, min=100)
@@ -152,8 +157,7 @@ def sampling_mask(snap, pct: int) -> torch.Tensor:
         snap.pod_order.to(torch.int64) * 75347
         + snap.cycle_index.to(torch.int64) * 31337
     ) % mod
-    col = torch.arange(snap.N, dtype=torch.int64, device=snap.device)[None, :]
-    return ((col - off[:, None]) % mod) < k
+    return off.to(torch.int32), k, mod
 
 
 def _gang_unwind(snap, assignment, node_requested):
@@ -372,11 +376,11 @@ def build_cycle_fn(
     def scan_cycle(snap, ctx):
         # K1's fit test against the cycle-start state only removes nodes the
         # scan's fit test would reject at every step (node_requested only
-        # grows during the scan); its clip to +-1e6 is the identity on the
-        # default plugins' static scores (held by tests/test_torch_commit.py).
-        # The full outputs leave the fit test to the scan: the reference
-        # counts those nodes under NodeResourcesFit at every step
-        x = static_base_ops.static_base_inputs(fw, ctx, fit=lean,
+        # grows during the scan); no clip, as the reference's scan takes the
+        # static score (with the extenders' added) as it is. The full
+        # outputs leave the fit test to the scan: the reference counts
+        # those nodes under NodeResourcesFit at every step
+        x = static_base_ops.static_base_inputs(fw, ctx, fit=lean, clip=False,
                                                sampling=sampling_window(snap, pct))
         res = scan_commit_fn(scan_commit_ops.scan_commit_inputs(
             fw, ctx, static_base_fn(x), fw.extra_init(ctx), rejects=not lean))
@@ -712,6 +716,109 @@ class CarryKeeper:
         return self.carry
 
 
+class ExtenderVerdictKeeper:
+    """The HTTP-extender verdicts kept on the device across cycles
+    (reference `core/cycle.py:1201-1301`): emask bool [P, N] and escore
+    f32 [P, N], re-consulting the webhooks only for the changed pod slots
+    (the encoder's dirty set), the behaviour `Extender.carry_verdicts`
+    opts into (the operator asserts the verdicts are deterministic per
+    pod and node set). Pad rows and columns hold mask True and score 0, as
+    the packed path's planes. A regime-key change, a missing dirty set or
+    one over the bucket makes a full sweep. Per-slot error messages are
+    carried with the verdicts, and every errored slot is consulted again
+    each cycle (its pod is requeued with backoff, not parked behind an
+    all-False row). An update is an `index_copy_` of the re-consulted
+    rows alone into the planes (the reference pads them to the bucket for
+    its static shapes; the bucket stays the sweep threshold)."""
+
+    def __init__(self, spec, device=None):
+        P = N = None
+        for name, _dt, shape, _off in spec.words:
+            if name == "pod_priority":
+                P = shape[0]
+            elif name == "node_taintset":
+                N = shape[0]
+        self.P, self.N = P, N
+        self.device = resolve_device(device)
+        self.bucket = min(P, 1 << (max(256, P // 4) - 1).bit_length())
+        self.key = None
+        self.emask = self.escore = None
+        self.errors: dict[int, str] = {}
+        self.last = None  # "sweep", "update" or "none": what the last state() ran
+        self.consulted = 0  # pod rows the last state() sent to the webhooks
+        self.last_ms = 0.0  # host ms of the last state(): webhooks and uploads
+
+    def _rows(self, extenders, pods, nodes):
+        from ..framework.host import run_extender_prepass
+
+        m, s, errs = run_extender_prepass(extenders, pods, nodes)
+        n_real = len(nodes)
+        mrows = np.ones((len(pods), self.N), bool)
+        srows = np.zeros((len(pods), self.N), np.float32)
+        if m is not None:
+            mrows[:, :n_real] = m
+            srows[:, :n_real] = s
+        self.consulted = len(pods)
+        return mrows, srows, errs
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def state(self, extenders, pending, nodes, dirty, regime_key):
+        """(emask, escore) on the device for this frame: `dirty` the
+        frame's changed slots (None: all), `regime_key` the pack layout and
+        the encoder's carry key."""
+        import time
+
+        t0 = time.perf_counter()
+        try:
+            return self._state(extenders, pending, nodes, dirty, regime_key)
+        finally:
+            self.last_ms = (time.perf_counter() - t0) * 1e3
+
+    def _state(self, extenders, pending, nodes, dirty, regime_key):
+        self.consulted = 0
+        full = (
+            self.key != regime_key
+            or self.emask is None
+            or dirty is None
+            or len(dirty) > self.bucket
+        )
+        if full:
+            mrows, srows, errs = self._rows(extenders, pending, nodes)
+            em = np.ones((self.P, self.N), bool)
+            es = np.zeros((self.P, self.N), np.float32)
+            em[: len(pending)] = mrows
+            es[: len(pending)] = srows
+            self.emask, self.escore = self._upload(em), self._upload(es)
+            self.errors = dict(errs)
+            self.key = regime_key
+            self.last = "sweep"
+            return self.emask, self.escore
+        # the changed slots and every slot with a carried error: a
+        # transient webhook failure is retried each cycle
+        rows_idx = sorted(
+            {int(i) for i in dirty if i < len(pending)}
+            | {i for i in self.errors if i < len(pending)}
+        )
+        self.last = "none"
+        if rows_idx:
+            mrows, srows, errs = self._rows(
+                extenders, [pending[i] for i in rows_idx], nodes)
+            for i in rows_idx:
+                self.errors.pop(i, None)
+            for j, msg in errs.items():
+                self.errors[rows_idx[j]] = msg
+            ix = self._upload(np.asarray(rows_idx, np.int64))
+            self.emask.index_copy_(0, ix, self._upload(mrows))
+            self.escore.index_copy_(0, ix, self._upload(srows))
+            self.last = "update"
+        return self.emask, self.escore
+
+
 def build_packed_cycle_carry_fn(
     spec,
     framework: Framework | None = None,
@@ -723,21 +830,23 @@ def build_packed_cycle_carry_fn(
     device=None,
 ) -> Callable:
     """The latency-path cycle (reference `core/cycle.py:1304`):
-    `cycle(wbuf, bbuf, stable, carry) -> CycleResult`. The static base and
-    matched-pending come from the carry (`build_carry_fns`, `CarryKeeper`)
-    instead of being rebuilt; the cycle applies the node-sampling window
-    to the carried base, runs the rounds engine with the same kernels as
+    `cycle(wbuf, bbuf, stable, carry, emask=None, escore=None) ->
+    CycleResult`. The static base and matched-pending come from the carry
+    (`build_carry_fns`, `CarryKeeper`) instead of being rebuilt; the cycle
+    merges the HTTP-extender verdicts into the carried base (with
+    `extender_args` the device planes `emask` / `escore` of
+    `ExtenderVerdictKeeper`, else a snapshot's own, when it has them) and
+    applies the node-sampling window to it in one pass (K18
+    `extender_merge`; its plain version on the CPU),
+    then runs the rounds engine with the same kernels as
     `build_cycle_fn(commit_mode="rounds")` (K2-K6, K10-K12, K14, K15 on
     the card, their plain versions on the CPU) and the gang unwind,
     and returns the claim bitmap of the surviving placements and the
     engine's round counters; its reject counts are zeros, as the
     reference's (attribution is `build_diagnosis_fn`'s, off the decision
     path). Decisions are bit-equal to the reference's carry cycle and to
-    the fresh rounds cycle on the same frame (tests/test_torch_carry.py).
-
-    Extender verdicts wait for ROADMAP A10: `extender_args=True` raises."""
-    if extender_args:
-        raise NotImplementedError("extender verdicts are not ported yet (ROADMAP A10)")
+    the fresh rounds cycle on the same frame (tests/test_torch_carry.py,
+    tests/test_torch_extenders.py)."""
     from ..models import packing
 
     kw = dict(rounds_kw or {})
@@ -747,16 +856,23 @@ def build_packed_cycle_carry_fn(
     dev = resolve_device(device)
     fw = framework or Framework.from_config()
 
-    def cycle(wbuf, bbuf, stable, carry) -> CycleResult:
+    def cycle(wbuf, bbuf, stable, carry, emask=None, escore=None) -> CycleResult:
         snap = packing.unpack(wbuf, bbuf, spec)
         _on_device(snap, dev, "cycle")
         ctx = CycleContext(snap)
         ctx._cache.update(stable)
         ctx._cache["matched_pending"] = carry["mp"]
+        if extender_args:
+            if emask is None or escore is None:
+                raise ValueError("carry cycle built with extender_args takes emask and escore")
+        elif snap.has_extender:
+            emask, escore = snap.pod_extender_mask, snap.pod_extender_score
+        else:
+            emask = escore = None
+        samp = sampling_params(snap, percentage_of_nodes_to_score)
         sbase = carry["sbase"]
-        if percentage_of_nodes_to_score < 100:
-            sbase = torch.where(sampling_mask(snap, percentage_of_nodes_to_score), sbase,
-                                static_base_ops.NEG_INF)
+        if emask is not None or samp is not None:
+            sbase = extender_merge_ops.extender_merge(sbase, emask, escore, samp)
         d, rres = _rounds_decision(fw, ctx, sbase, gang_scheduling, max_rounds, kw)
         return CycleResult(
             d.assignment, d.node_requested, d.unschedulable, d.gang_dropped,
@@ -814,7 +930,7 @@ def build_diagnosis_fn(
 ) -> Callable:
     """The diagnosis program (reference `core/cycle.py:1425`), off the
     decision path: `diagnose(wbuf, bbuf, stable, assignment, node_requested,
-    pv_claimed=None) -> i32 [P, F]`, the FailedScheduling attribution of
+    pv_claimed=None, emask=None) -> i32 [P, F]`, the FailedScheduling attribution of
     every valid unplaced pod (static + dynamic against the cycle's final
     state; other rows zero).
 
@@ -825,14 +941,15 @@ def build_diagnosis_fn(
     rows come out the same): per window K16 from node_valid for the static
     filters, with the chain's remainder (node_valid and every static filter,
     the reference's start mask) over every row of the window, and K17 over
-    the dynamic parts (K3, K10) from that mask. The host reads the unplaced count
-    once. `device` None means the card; the `*_fn` arguments select other
-    kernel functions (the plain versions: the run the kernels are held
-    against). Extender verdicts wait for ROADMAP A10 (`extender_args=True`
-    raises); `donate` is accepted and changes nothing (the reference's
-    buffer donation has no counterpart here)."""
-    if extender_args:
-        raise NotImplementedError("extender verdicts are not ported yet (ROADMAP A10)")
+    the dynamic parts (K3, K10) from that mask. With `extender_args` the
+    window starts from node_valid & emask[ids] (the carried verdicts, the
+    reference's `:1482-1485`): K16's per-pod base, the plane's rows read in
+    place; without it a snapshot's own verdicts are ignored, as in the
+    reference. The host reads the unplaced count once. `device` None means
+    the card; the `*_fn` arguments select other kernel functions (the plain
+    versions: the run the kernels are held against). `donate` is accepted
+    and changes nothing (the reference's buffer donation has no
+    counterpart here)."""
     del donate
     from ..models import packing
 
@@ -844,9 +961,12 @@ def build_diagnosis_fn(
     vkernels = VolumeKernels(volume_mask=volume_mask_fn, pv_fold=pv_fold_fn)
     dkernels = DynKernels(dyn_rejects=dyn_rejects_fn)
 
-    def diagnose(wbuf, bbuf, stable, assignment, node_requested, pv_claimed=None):
+    def diagnose(wbuf, bbuf, stable, assignment, node_requested, pv_claimed=None,
+                 emask=None):
         snap = packing.unpack(wbuf, bbuf, spec)
         _on_device(snap, dev, "diagnosis")
+        if extender_args and emask is None:
+            raise ValueError("diagnosis built with extender_args takes emask")
         P = snap.P
         B = min(window, P)
         ctx = CycleContext(snap, kernels, volume_kernels=vkernels, dyn_kernels=dkernels)
@@ -868,8 +988,12 @@ def build_diagnosis_fn(
             act = unplaced[ids]
             vsnap = rounds_ops._pod_view(snap, ids)
             vctx = ctx.view(vsnap, mp[:, ids])
-            x = static_base_ops.static_base_inputs(fw, vctx)
-            srej, smask = static_rejects_fn(x, act, True)
+            x = static_base_ops.reject_inputs(static_base_ops.static_base_inputs(fw, vctx))
+            if extender_args:
+                srej, smask = static_rejects_fn(x, act, True,
+                                               base=(emask, ids.to(torch.int32)))
+            else:
+                srej, smask = static_rejects_fn(x, act, True)
             drej = fw.dyn_rejects(vctx, node_requested, extra, smask, rows=act)
             rej.index_copy_(0, ids, srej + drej)
         return rej

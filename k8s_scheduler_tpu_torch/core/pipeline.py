@@ -515,12 +515,10 @@ class ServingPipeline:
         were never fetched while require_decision_fetch. `device_put=False`
         takes device buffers as they are (a numpy arena is still copied:
         `_cpu_safe_buffers`). `pin` is the reference's strong reference
-        for its carry key and is not needed here; extender verdicts
-        (`emask`, `escore`) are ROADMAP A10b."""
+        for its carry key and is not needed here. The carried extender
+        verdicts (`emask`, `escore`: `ExtenderVerdictKeeper`'s device
+        planes) go to the carry cycle, and `emask` to the diagnosis."""
         del pin
-        if emask is not None or escore is not None:
-            raise NotImplementedError(
-                "extender verdicts are not ported yet (ROADMAP A10b)")
         if (
             self.require_decision_fetch
             and self._last is not None
@@ -548,7 +546,7 @@ class ServingPipeline:
             carry = self._keeper.state(wbuf, bbuf, stable, dirty, carry_key)
             if evs:
                 evs[1].record()
-            result = self._cycle_fn(wbuf, bbuf, stable, carry)
+            result = self._cycle_fn(wbuf, bbuf, stable, carry, emask, escore)
         else:
             if evs:
                 evs[1].record()

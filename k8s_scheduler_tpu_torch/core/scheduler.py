@@ -9,15 +9,21 @@ losers and routes them back through the backoff / unschedulable tiers with
 their FailedScheduling reasons (the diagnosis program on the carry path).
 
 Two program chains, as in the reference (`_use_carry`):
-- the device-carry path (`commitMode: rounds`, the default): the
+- the device-carry path (`commitMode: rounds`, the default, with no HTTP
+  extender or with every extender setting `carryVerdicts`): the
   encoder's `encode_packed` frame, the stable tables
   (`build_stable_state_fn`, memoized per stable side), the carried static
-  base (`CarryKeeper`), `build_packed_cycle_carry_fn`, and off the
-  decision path `build_diagnosis_fn`;
-- the packed path (`commitMode: scan`): a full encode packed into the
-  pipeline's upload slot and `build_packed_cycle_fn` (its full outputs
-  carry the reject counts);
-both with `build_packed_preemption_fn`. On the card the cycle launches the
+  base (`CarryKeeper`), the carried extender verdicts
+  (`ExtenderVerdictKeeper`: the webhooks consulted for the changed pods
+  only), `build_packed_cycle_carry_fn`, and off the decision path
+  `build_diagnosis_fn`;
+- the packed path (`commitMode: scan`, or extenders without
+  `carryVerdicts`): a full encode packed into the pipeline's upload slot,
+  with every pending pod's extender verdicts as the snapshot's planes, and
+  `build_packed_cycle_fn` (its full outputs carry the reject counts);
+both with `build_packed_preemption_fn`. A pod whose non-ignorable extender
+failed retries with backoff (a `BindError`); a bind-verb extender binds in
+place of the binder. On the card the cycle launches the
 hand kernels through the programs' default kernel functions; a Scheduler
 built for the card raises where there is no CUDA device (`device="cpu"`
 runs the plain versions, as the tests do).
@@ -31,8 +37,8 @@ sequential execution.
 Not in this slice, and refused when a configuration turns them on:
 multi-cycle dispatch and speculation (`multiCycleK` > 1, ROADMAP A11), the
 persistent compile cache (`compileCacheDir`), fault injection
-(`faultSpec`), durable state (`state=`) and HTTP extenders (ROADMAP A10b),
-and multi-device serving (`shardDevices` > 1, ROADMAP A13)."""
+(`faultSpec`) and durable state (`state=`) (ROADMAP A10b), and
+multi-device serving (`shardDevices` > 1, ROADMAP A13)."""
 
 from __future__ import annotations
 
@@ -122,8 +128,6 @@ def _refuse_unported(config: SchedulerConfiguration, state) -> None:
          "(ROADMAP A10b)"),
         (state is not None,
          "durable state (state=) is not ported yet (ROADMAP A10b)"),
-        (bool(config.extenders),
-         "HTTP extenders (extenders:) are not ported yet (ROADMAP A10b)"),
     )
     for on, why in checks:
         if on:
@@ -226,8 +230,12 @@ class Scheduler:
         self._pvs: dict[str, object] = {}  # name -> PV
         self._storage_classes: dict[str, object] = {}
         self._pdbs: dict[str, object] = {}  # "ns/name" -> PDB
-        # host-side extension points (Reserve/Permit/PreBind/PostBind)
+        # host-side extension points (Reserve/Permit/PreBind/PostBind) and
+        # HTTP scheduler extenders (framework/host.py)
+        from ..framework.host import HTTPExtender
+
         self.host_plugins = list(host_plugins or [])
+        self.extenders = [HTTPExtender(c) for c in self.config.extenders]
         # per-cycle decision log: what the last schedule_cycle nominated
         # (preemptors) and evicted (victims)
         self.last_nominations: list[tuple[Pod, str]] = []
@@ -277,7 +285,27 @@ class Scheduler:
         self.n_devices = 1
         self.metrics.shard_devices.set(self.n_devices)
         self._collective_payload: dict[str, int] = {}
-        self._use_carry = self.config.commit_mode == "rounds"
+        # extenders keep the carry path when every one opts into the
+        # verdict carry (carryVerdicts: its Filter/Prioritize verdicts are
+        # deterministic per pod, so rows persist on the device and only
+        # changed pods consult the webhook again)
+        self._extender_carry = bool(self.extenders) and all(
+            e.config.carry_verdicts for e in self.extenders
+        )
+        self._use_carry = self.config.commit_mode == "rounds" and (
+            not self.extenders or self._extender_carry
+        )
+        if (self.config.commit_mode == "rounds" and self.extenders
+                and not self._extender_carry):
+            # their verdicts may be stateful: every cycle consults every
+            # pod and takes the full encode and the in-cycle attribution
+            logging.getLogger(__name__).warning(
+                "scheduler: %d HTTP extender(s) configured without "
+                "carryVerdicts - the device-carry latency path is "
+                "DISABLED; cycles take the full re-encode + in-cycle "
+                "attribution path",
+                len(self.extenders),
+            )
         # per-profile in-place-mutation reports (the delta arena must
         # re-read a nominated pod's slot)
         self._nominated_mut: dict[str, set[int]] = {n: set() for n in names}
@@ -329,14 +357,17 @@ class Scheduler:
         fw = self.frameworks[profile]
         dev = self.device
         if self._use_carry:
+            ext = self._extender_carry
             cyc = _Resilient(build_packed_cycle_carry_fn(
                 spec, framework=fw,
                 gang_scheduling=self._cycle_kw["gang_scheduling"],
                 percentage_of_nodes_to_score=self._cycle_kw[
                     "percentage_of_nodes_to_score"],
+                extender_args=ext,
                 device=dev,
             ), "packed_cycle_carry")
-            diag = _Resilient(build_diagnosis_fn(spec, fw, device=dev), "diagnosis")
+            diag = _Resilient(build_diagnosis_fn(spec, fw, extender_args=ext, device=dev),
+                              "diagnosis")
         else:
             cyc = build_packed_cycle_fn(spec, framework=fw, device=dev,
                                         **self._cycle_kw)
@@ -360,7 +391,7 @@ class Scheduler:
         thread. The port has no ahead-of-time compile: a build is the
         program closures (the kernels build at first use, cached per
         process by `ops/kernel_build.py`)."""
-        from .cycle import CarryKeeper
+        from .cycle import CarryKeeper, ExtenderVerdictKeeper
         from .pipeline import ServingPipeline
 
         fw = self.frameworks[profile]
@@ -368,6 +399,8 @@ class Scheduler:
         cyc, preempt, diag = self._programs(spec, profile)
         keeper = (CarryKeeper(spec, fw, device=self.device)
                   if self._use_carry else None)
+        ext_keeper = (ExtenderVerdictKeeper(spec, device=self.device)
+                      if self._use_carry and self._extender_carry else None)
         pipe = ServingPipeline(
             cyc,
             keeper=keeper,
@@ -383,7 +416,7 @@ class Scheduler:
         fns = (
             cyc, preempt,
             _Resilient(build_stable_state_fn(spec, device=self.device), "stable"),
-            keeper, diag, None, pipe,
+            keeper, diag, ext_keeper, pipe,
         )
         return {
             "fns": fns,
@@ -621,16 +654,32 @@ class Scheduler:
     def _encode_packed_host(self, encoder, nodes, pending, existing, kw):
         """The packed path's frame: a full encode (the reference's
         `encoder.encode` + `packing.make_spec` + `packing.pack`) into host
-        buffers, for the pipeline to upload."""
+        buffers, for the pipeline to upload, and the extenders' per-pod
+        errors. With extenders, every pending pod's verdicts (the prepass)
+        ride in the frame as the snapshot's planes, mask True and score 0
+        on the pads."""
+        from ..framework.host import run_extender_prepass
         from ..models import packing
 
         fields, aux = encoder.encode_numpy(nodes, pending, existing, **kw)
+        errors: dict[int, str] = {}
+        if self.extenders:
+            emask, escore, errors = run_extender_prepass(self.extenders, pending, nodes)
+            if emask is not None:
+                P, N = fields["pod_valid"].shape[0], fields["node_valid"].shape[0]
+                full_mask = np.ones((P, N), bool)
+                full_score = np.zeros((P, N), np.float32)
+                full_mask[: len(pending), : len(nodes)] = emask
+                full_score[: len(pending), : len(nodes)] = escore
+                fields = dict(fields, pod_extender_mask=full_mask,
+                              pod_extender_score=full_score)
+                aux = dict(aux, has_extender=True)
         aux = dict(aux, pref_raw_bound=pref_raw_bound(
             fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
             fields["exist_pref_aff"], fields["exist_pref_aff_w"]))
         spec = packing.spec_of_fields(fields, aux)
         wbuf, bbuf = packing.pack(fields, spec)
-        return wbuf, bbuf, spec
+        return wbuf, bbuf, spec, errors
 
     def _schedule_profile(
         self, profile: str, pending: list[Pod], stats: CycleStats,
@@ -669,17 +718,23 @@ class Scheduler:
         t_start = self._now()
         if self._use_carry:
             mut = self._nominated_mut[profile]
+            full_before = encoder.full_encodes
             # encode, pack and the one host->device upload of the frame
             wbuf, bbuf, spec, _snap, dirty = encoder.encode_packed(
                 nodes, pending, existing, mutated_ids=frozenset(mut), **kw
             )
             mut.clear()
+            # the extenders' changed slots: the pods whose content changed
+            # (not the NodePorts repair slots of `dirty`); everything after a
+            # full encode, whose rows the reference does not compare
+            ext_dirty = (None if encoder.full_encodes != full_before
+                         else encoder.last_changed_slots)
         else:
-            wbuf, bbuf, spec = self._encode_packed_host(
+            wbuf, bbuf, spec, extender_errors = self._encode_packed_host(
                 encoder, nodes, pending, existing, kw)
             dirty = None
         (
-            pcycle, ppreempt, stable_fn, keeper, diag, _ek, pipe,
+            pcycle, ppreempt, stable_fn, keeper, diag, ext_keeper, pipe,
         ) = self._packed_fns(spec, profile)
         try:
             if not self._use_carry:
@@ -703,6 +758,18 @@ class Scheduler:
         pipe.note_encode(t_encode - t_start)
         try:
             if self._use_carry:
+                ext_mask = ext_score = None
+                if ext_keeper is not None:
+                    # the carried verdicts: the webhooks consulted for the
+                    # changed slots and the errored ones; rows stay on the
+                    # device
+                    ext_mask, ext_score = ext_keeper.state(
+                        self.extenders, pending, nodes, ext_dirty,
+                        (spec.layout_key(), getattr(encoder, "_carry_key", None)),
+                    )
+                    extender_errors = {
+                        i: m for i, m in ext_keeper.errors.items() if i < len(pending)
+                    }
                 handle = pipe.dispatch(
                     wbuf, bbuf, stable,
                     dirty=dirty,
@@ -710,6 +777,7 @@ class Scheduler:
                         spec.layout_key(), id(enc_st),
                         getattr(encoder, "_carry_key", None),
                     ),
+                    emask=ext_mask, escore=ext_score,
                     device_put=False,  # encode_packed uploaded the frame
                 )
             else:
@@ -1115,8 +1183,12 @@ class Scheduler:
         )
 
     def _bind(self, pod: Pod, node_name: str) -> None:
-        """Bind through the injected binder (a bind-verb extender would
-        replace it: ROADMAP A10b)."""
+        """Bind, delegating to the first bind-verb extender (upstream: an
+        extender with a bind verb replaces the default binder)."""
+        for ext in self.extenders:
+            if ext.is_binder:
+                ext.bind(pod, node_name)
+                return
         self.binder(pod, node_name)
 
     def _update_gauges(self) -> None:

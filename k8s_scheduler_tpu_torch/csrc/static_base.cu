@@ -8,18 +8,33 @@
 // (k8s_scheduler_tpu/framework/runtime.py:103), optionally ANDed with
 // core/cycle.py sampling_mask and resources.fit_mask_single against the
 // snapshot's node_requested, and with a bool [P, N] mask operand
-// (VolumeBinding's static mask, computed by volume_mask.cu).
+// (VolumeBinding's static mask, computed by volume_mask.cu). With the HTTP
+// extenders' verdicts (kExt; k8s_scheduler_tpu/core/cycle.py:574-580):
+//   smask & pod_extender_mask, sscore + pod_extender_score, then the clip,
+// so the clip bounds the sum as the reference's does. The scan engine's
+// instance (kNoClip) leaves the score unclipped: the reference's scan
+// (ops/commit.py greedy_commit) takes the static score as it is.
 //
 // mask  = node_valid & NodeUnschedulable & NodeName & toleration-pair lookup
 //         & requirement rows (pod_req_id, pod_sel_req_id) & no host-port
 //         conflict & [fit] & [sampling window] & [mask operand]
-// score = fused multiply-add of the weighted static plugin scores in the
-//         framework's order (ImageLocality, NodeAffinity preferred,
-//         TaintToleration by default), the same single roundings XLA's
-//         contraction gives the reference.
+// score = the weighted static plugin scores in the framework's order
+//         (ImageLocality, NodeAffinity preferred, TaintToleration by
+//         default), each product rounded, added in order, with kExt the
+//         extender score added last: the roundings of the reference's
+//         compiled base (its static-score fusion ends in the where and the
+//         clip, and contracts no product). The scan's instance (kNoClip)
+//         follows the scan's compiled static score, whose fusion ends in
+//         the add, where the first two summands' add may fuse one of
+//         their products (kSumShift's steps, the rule at ops/static_base.py
+//         scan_sum_steps); the wrapper passes TaintToleration's unscaled
+//         factor and its 100 as (v, w) where its weight is 1 (held by
+//         tests/test_torch_extenders.py against the reference's base as the
+//         compiled cycle computes it).
 //
 // Bound on an H100: bytes. The only [P, N]-sized traffic is the output
-// (4 B per element, 537 MB at P=16384, N=8192: 0.16 ms); per-pod values
+// (4 B per element, 537 MB at P=16384, N=8192: 0.16 ms) and, with kExt,
+// the verdict planes (5 B per element more: 0.36 ms in all); per-pod values
 // and the small deduplicated tables ([Tl, Ts], [Rq, N], [Pf, N], [Is, N])
 // stay in L2.
 //
@@ -45,8 +60,9 @@
 // a view at an odd offset).
 //
 // Bit-equality: the mask is a bool AND, its order free; the score keeps the
-// per-element __fmaf_rn chain in term order (zero terms included) under
-// --fmad=false, then the fminf/fmaxf clip and NEG_INF where masked.
+// reference's roundings (__fmul_rn / __fadd_rn in term order, __fmaf_rn
+// where fused) under --fmad=false, then the fminf/fmaxf clip and NEG_INF
+// where masked.
 //
 // K16 static_rejects, the static filters' first-rejector counts over the
 // same inputs, is csrc/static_rejects.cu (bit-sliced words).
@@ -68,7 +84,12 @@ constexpr int kMaxTs = 32;  // taint sets held as one bit each
 
 // filter bits (ops/static_base.py mirrors these)
 constexpr int kUnsched = 1, kNodeName = 2, kTaint = 4, kAffinity = 8,
-              kPorts = 16, kFit = 32, kSample = 64, kMask = 128;
+              kPorts = 16, kFit = 32, kSample = 64, kMask = 128, kExt = 256,
+              kNoClip = 512;
+// the static score's summands (the terms, then with kExt the extender's
+// score) are added in order; the step that adds summand k >= 1 is plain or
+// fuses a product (2 bits a step from kSumShift; ops/static_base.py SUM_*)
+constexpr int kSumShift = 10, kSumAdd = 0, kSumFuseNew = 1, kSumFuseFirst = 2;
 // score term codes
 constexpr int kTermImage = 1, kTermPref = 2, kTermTaint = 3;
 
@@ -102,6 +123,8 @@ struct Args {
   const float* img;  // [Is, N]
   int Is;
   const uint8_t* mask;  // [P, N] (kMask)
+  const uint8_t* emask;  // [P, N] extender verdicts (kExt)
+  const float* escore;   // [P, N] weighted extender scores (kExt)
   int flags;
   int term[3];
   float weight[3];
@@ -258,16 +281,52 @@ __device__ __forceinline__ void and_ports(const Args& a, int p, int n0, bool* ok
   }
 }
 
-// the mask operand's row of pod p (VolumeBinding's static mask)
+// summand j of pod p's static score at the thread's nodes into v, and its
+// scale: term j's row and weight (0 where the pod has no such row), or past
+// the terms the extender's score and 1 (tsc: the pod's staged
+// TaintToleration row when ts_bits)
+template <bool kVec, bool kExtScore>
+__device__ __forceinline__ float load_summand(const Args& a, const Pod& q, int p, int j, int n0,
+                                              const int* ts, const float* tsc, bool ts_bits,
+                                              float* v) {
+  const int N = a.N;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) v[i] = 0.0f;
+  if (kExtScore && j >= a.n_terms) {
+    loadn<kVec>(a.escore + (size_t)p * N, n0, N, v);
+    return 1.0f;
+  }
+  const int term = a.term[j];
+  if (term == kTermImage) {
+    if (q.iid >= 0) loadn<kVec>(a.img + (size_t)q.iid * N, n0, N, v);
+  } else if (term == kTermPref) {
+    if (q.fid >= 0) loadn<kVec>(a.pref + (size_t)q.fid * N, n0, N, v);
+  } else if (term == kTermTaint && ts_bits) {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) v[i] = tsc[ts[i]];
+  } else if (term == kTermTaint) {
+    const float* row = a.tscore + (size_t)q.tl * a.Ts;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) v[i] = __ldg(row + ts[i]);
+  }
+  return a.weight[j];
+}
+
+// a bool [P, N] operand's row of pod p (VolumeBinding's static mask, the
+// extender verdicts)
 template <bool kVec>
-__device__ __forceinline__ void and_mask(const Args& a, int p, int n0, bool* ok) {
+__device__ __forceinline__ void and_mask(const uint8_t* mask, const Args& a, int p, int n0,
+                                         bool* ok) {
   bool b[kPerThread];
-  loadn<kVec>(a.mask + (size_t)p * a.N, n0, a.N, b);
+  loadn<kVec>(mask + (size_t)p * a.N, n0, a.N, b);
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) ok[i] = ok[i] && b[i];
 }
 
-template <bool kVec>
+// kSum: 0 the static terms alone (no kExt), 1 with the extender's operands,
+// 2 with the sum steps the flags name (the scan's instance), the extender's
+// operands or not; the paths a kind does not take are compiled out
+template <bool kVec, int kSum>
 __global__ void __launch_bounds__(kThreads, 3) static_base_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* room_s = reinterpret_cast<float*>(smem4);  // [R][kTile] (kFit)
@@ -369,7 +428,10 @@ __global__ void __launch_bounds__(kThreads, 3) static_base_kernel(Args a) {
         }
       }
       if (flags & kMask) {
-        and_mask<kVec>(a, p, n0, ok);
+        and_mask<kVec>(a.mask, a, p, n0, ok);
+      }
+      if (kSum > 0 && (flags & kExt)) {
+        and_mask<kVec>(a.emask, a, p, n0, ok);
       }
       bool any = false;
 #pragma unroll
@@ -378,32 +440,41 @@ __global__ void __launch_bounds__(kThreads, 3) static_base_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) s[i] = 0.0f;
       if (any) {
+        // the summands (the terms, then the extender's score) in order,
+        // each step plain or fused (kSumShift); where the step adding
+        // summand 1 fuses summand 0's product, summand 1 goes in first
+        const int n_sum = a.n_terms + ((kSum > 0 && (flags & kExt)) ? 1 : 0);
+        const bool first_fused =
+            kSum == 2 && n_sum >= 2 && ((flags >> kSumShift) & 3) == kSumFuseFirst;
+        float v[kPerThread];
+        if (first_fused) {
+          float c = load_summand<kVec, (kSum > 0)>(a, q, p, 1, n0, ts, tsc_s[k], ts_bits, v);
 #pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          if (t >= a.n_terms) break;
-          float v[kPerThread];
+          for (int i = 0; i < kPerThread; ++i) s[i] = __fmul_rn(c, v[i]);
+          c = load_summand<kVec, (kSum > 0)>(a, q, p, 0, n0, ts, tsc_s[k], ts_bits, v);
 #pragma unroll
-          for (int i = 0; i < kPerThread; ++i) v[i] = 0.0f;
-          if (a.term[t] == kTermImage) {
-            if (q.iid >= 0) loadn<kVec>(a.img + (size_t)q.iid * N, n0, N, v);
-          } else if (a.term[t] == kTermPref) {
-            if (q.fid >= 0) loadn<kVec>(a.pref + (size_t)q.fid * N, n0, N, v);
-          } else if (a.term[t] == kTermTaint && ts_bits) {
+          for (int i = 0; i < kPerThread; ++i) s[i] = __fmaf_rn(c, v[i], s[i]);
+        }
 #pragma unroll
-            for (int i = 0; i < kPerThread; ++i) v[i] = tsc_s[k][ts[i]];
-          } else if (a.term[t] == kTermTaint) {
-            const float* row = a.tscore + (size_t)q.tl * a.Ts;
+        for (int j = 0; j < (kSum > 0 ? 4 : 3); ++j) {
+          if (j >= n_sum) break;
+          if (first_fused && j < 2) continue;
+          const float c =
+              load_summand<kVec, (kSum > 0)>(a, q, p, j, n0, ts, tsc_s[k], ts_bits, v);
+          const int mode =
+              kSum == 2 && j > 0 ? (flags >> (kSumShift + 2 * (j - 1))) & 3 : kSumAdd;
 #pragma unroll
-            for (int i = 0; i < kPerThread; ++i) v[i] = __ldg(row + ts[i]);
+          for (int i = 0; i < kPerThread; ++i) {
+            if (j == 0) s[i] = __fmul_rn(c, v[i]);
+            else if (mode == kSumFuseNew) s[i] = __fmaf_rn(c, v[i], s[i]);
+            else s[i] = __fadd_rn(s[i], __fmul_rn(c, v[i]));
           }
-#pragma unroll
-          for (int i = 0; i < kPerThread; ++i) s[i] = __fmaf_rn(a.weight[t], v[i], s[i]);
         }
       }
       float o[kPerThread];
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i)
-        o[i] = ok[i] ? fminf(fmaxf(s[i], -1e6f), 1e6f) : kNegInf;
+        o[i] = !ok[i] ? kNegInf : (flags & kNoClip) ? s[i] : fminf(fmaxf(s[i], -1e6f), 1e6f);
       float* dst = a.out + (size_t)p * N + n0;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
@@ -439,7 +510,8 @@ bool aligned(const void* p, uintptr_t bytes) {
       const float *node_room, const uint8_t *sched, const float *tscore, int Tl,    \
       int Ts, const uint8_t *req, int Rq, const float *pref, int Pf,                \
       const float *img, int Is, int flags, int term0, int term1, int term2,         \
-      float w0, float w1, float w2, int n_terms, void *stream, const uint8_t *mask
+      float w0, float w1, float w2, int n_terms, void *stream, const uint8_t *mask,  \
+      const uint8_t *emask, const float *escore
 
 namespace {
 
@@ -457,6 +529,8 @@ Args pack_args(float* out, STATIC_PARAMS) {
   a.sched = sched; a.tscore = tscore; a.Tl = Tl; a.Ts = Ts;
   a.req = req; a.Rq = Rq; a.pref = pref; a.Pf = Pf; a.img = img; a.Is = Is;
   a.mask = mask;
+  a.emask = emask;
+  a.escore = escore;
   a.flags = flags;
   a.term[0] = term0; a.term[1] = term1; a.term[2] = term2;
   a.weight[0] = w0; a.weight[1] = w1; a.weight[2] = w2;
@@ -469,7 +543,8 @@ Args pack_args(float* out, STATIC_PARAMS) {
 bool vector_path(const Args& a) {
   return a.N % 4 == 0 && aligned(a.pref, 16) && aligned(a.img, 16) &&
          aligned(a.node_taintset, 16) && aligned(a.req, 4) && aligned(a.mask, 4) &&
-         aligned(a.node_valid, 4) && aligned(a.node_unsched, 4);
+         aligned(a.emask, 4) && aligned(a.escore, 16) && aligned(a.node_valid, 4) &&
+         aligned(a.node_unsched, 4);
 }
 
 dim3 grid_of(const Args& a) {
@@ -486,25 +561,19 @@ extern "C" int static_base_launch(float* out, STATIC_PARAMS) {
                      samp_k, samp_n, node_valid, node_unsched, node_taintset,
                      node_used_ports, MUP, node_room, sched, tscore, Tl, Ts, req, Rq, pref,
                      Pf, img, Is, flags, term0, term1, term2, w0, w1, w2, n_terms, stream,
-                     mask);
+                     mask, emask, escore);
   const bool vec = vector_path(a) && aligned(out, 16);
+  const int sum = (flags >> kSumShift) != 0 ? 2 : (flags & kExt) ? 1 : 0;
   const size_t smem = (flags & kFit) ? (size_t)R * (kTile + kPodGroup) * sizeof(float) : 0;
-  const dim3 grid = grid_of(a);
-  cudaError_t err;
-  if (vec) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(static_base_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    static_base_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-  } else {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(static_base_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    static_base_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  void (*const kernels[2][3])(Args) = {
+      {static_base_kernel<false, 0>, static_base_kernel<false, 1>, static_base_kernel<false, 2>},
+      {static_base_kernel<true, 0>, static_base_kernel<true, 1>, static_base_kernel<true, 2>}};
+  void (*kernel)(Args) = kernels[vec][sum];
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  kernel<<<grid_of(a), kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -14,14 +14,20 @@
 //                        0 on the rows that `rows` leaves out)
 //   survivors[p, n]    = node_valid[n] & every test passes (every row)
 //
+// With a per-pod base (base_rows, base_ids) the chain starts from
+// node_valid[n] & base_rows[base_ids[p], n] instead of node_valid[n]: the
+// diagnosis program's windows with the carried HTTP-extender verdicts
+// (k8s_scheduler_tpu/core/cycle.py:1482-1485, base = node_valid &
+// emask[ids]), the verdict plane's rows read in place (no gather).
+//
 // The tests (ops/static_base.py REJECT_TESTS, in this order):
 // NodeUnschedulable, NodeName, TaintToleration, NodeAffinity (the pod's
 // requirement rows), NodePorts (the pod's host ports against the ports
 // held at the node) and the mask operand (VolumeBinding's static mask);
 // each at its filter's column of the framework's order.
 //
-// Bound on an H100: bytes, the mask operand's byte a pair where there is
-// one and the survivors plane's where it is asked for; without either, the
+// Bound on an H100: bytes, the mask operand's and the per-pod base's byte
+// a pair where there is one and the survivors plane's where it is asked for; without either, the
 // per-pod ids and the tables (a few MB: under a microsecond), and the
 // kernel runs at the cost of its launches (mark, pack, count) and of the
 // latency of a pod row's loads.
@@ -41,7 +47,8 @@
 //     read once. A word's tests: NodeUnschedulable one load, NodeName one
 //     bit of one word, TaintToleration the pod's toleration row,
 //     NodeAffinity two rows ANDed, NodePorts (a pod with ports only) a node
-//     a lane and a ballot a word, the mask operand 16-byte streaming loads
+//     a lane and a ballot a word, the mask operand and the per-pod base's
+//     row (ANDed into the valid word) 16-byte streaming loads
 //     turned into bits (a warp's 32 words as two whole 512-byte stretches,
 //     the halves exchanged by shuffles). The chain walks the tests in
 //     column order from the valid word: fail = rem & ~ok, count[rank] +=
@@ -107,6 +114,8 @@ struct Args {
   uint32_t* words;    // [2 + Tl + Rq][W]
   int* out;           // [P, F]
   uint8_t* surv;      // [P, N] (null: not asked for)
+  const uint8_t* base_rows;  // [Pb, N] the per-pod base's rows (null: node_valid alone)
+  const int* base_ids;       // [P] each pod's row of base_rows
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -253,6 +262,7 @@ struct PodRow {
   const uint32_t* rrow;  // its requirement rows' words (null: none)
   const uint32_t* srow;
   const uint8_t* mrow;  // its row of the mask operand (null: none)
+  const uint8_t* brow;  // its row of the per-pod base (null: none)
 };
 
 // the tests of one pod row at word w (NodePorts and the mask operand are
@@ -299,6 +309,7 @@ __global__ void __launch_bounds__(kThreads) count_kernel(Args a) {
     if (flags & kPorts)
       for (int s = 0; s < a.MPp; ++s) q.ports |= a.pod_ports[(size_t)p * a.MPp + s] >= 0;
     q.mrow = (flags & kMask) ? a.mask + (size_t)p * N : nullptr;
+    q.brow = a.base_rows ? a.base_rows + (size_t)a.base_ids[p] * N : nullptr;
     uint8_t* surv = a.surv ? a.surv + (size_t)p * N : nullptr;
 
     unsigned cnt[kTests];
@@ -314,6 +325,9 @@ __global__ void __launch_bounds__(kThreads) count_kernel(Args a) {
         base[c] = w < W ? valid_w[w] : 0u;
         word_tests(a, q, w, sched_w, ok[c]);
       }
+      if (q.brow)
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) base[c] &= mask_words<kVec>(q.brow, w0 + 32 * c, N, lane);
       if (q.mrow)
 #pragma unroll
         for (int c = 0; c < kChunk; ++c) ok[c][5] = mask_words<kVec>(q.mrow, w0 + 32 * c, N, lane);
@@ -370,8 +384,9 @@ cudaError_t launch_count(const Args& a, cudaStream_t st) {
 // [P] or null; `used` [Tl + Rq + 1] zeroed and `list` [Tl + Rq] scratch
 // where Tl + Rq > kPackAll (else null: every row packed), `words` [2 + Tl
 // + Rq, ceil(N / 32)] scratch; `out` [P, F] (every element written);
-// `survivors` [P, N] or null. The inputs take neither fit nor sampling
-// (the reference's Framework.static has neither).
+// `survivors` [P, N] or null; `base_rows` [Pb, N] and `base_ids` [P] (each
+// in [0, Pb)) or both null. The inputs take neither fit nor sampling (the
+// reference's Framework.static has neither).
 extern "C" int static_rejects_launch(
     int P, int N, int flags, const int* pod_node_name, const int* pod_tolset,
     const int* pod_req_id, const int* pod_sel_req_id, const int* pod_ports, int MPp,
@@ -379,9 +394,11 @@ extern "C" int static_rejects_launch(
     const int* node_used_ports, int MUP, const uint8_t* sched, int Tl, int Ts,
     const uint8_t* req, int Rq, const uint8_t* mask, int F, const int* cols,
     const uint8_t* rows, int* used, int* list, uint32_t* words, int* out,
-    uint8_t* survivors, void* stream) {
+    uint8_t* survivors, const uint8_t* base_rows, const int* base_ids, int Pb,
+    void* stream) {
   if (P <= 0) return 0;
   if (N < 0 || F < 1 || F > kMaxF || ((flags & kTaint) && (Tl < 1 || Ts < 1)) ||
+      ((base_rows != nullptr) != (base_ids != nullptr)) || (base_rows && Pb < 1) ||
       ((Tl + Rq > kPackAll) != (list != nullptr)) ||
       (flags & ~(kUnsched | kNodeName | kTaint | kAffinity | kPorts | kMask)))
     return (int)cudaErrorInvalidValue;
@@ -395,6 +412,8 @@ extern "C" int static_rejects_launch(
   a.mask = mask; a.rows = rows; a.F = F; a.used = used; a.list = list; a.words = words;
   a.out = out;
   a.surv = survivors;
+  a.base_rows = base_rows;
+  a.base_ids = base_ids;
   // the tests the flags name, by column: the chain's ranks
   int n = 0;
   unsigned taken = 0;  // the columns named so far
@@ -429,7 +448,8 @@ extern "C" int static_rejects_launch(
     if (err != cudaSuccess) return (int)err;
   }
   const bool vec = N % 16 == 0 && (!(flags & kMask) || aligned(mask, 16)) &&
-                   (!survivors || aligned(survivors, 16));
+                   (!survivors || aligned(survivors, 16)) &&
+                   (!base_rows || aligned(base_rows, 16));
   const cudaError_t err = vec ? (in_order ? launch_count<true, true>(a, st)
                                           : launch_count<true, false>(a, st))
                               : (in_order ? launch_count<false, true>(a, st)

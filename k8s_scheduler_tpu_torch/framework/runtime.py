@@ -2,10 +2,11 @@
 enabled plugin for its mask/score fragments — batched for the rounds
 engine, per pod for the scan engine — and ANDs / weighted-sums them.
 
-Weighted sums reproduce the reference's compiled arithmetic: XLA contracts
-`score + w * v` into one fused multiply-add, so each term here is folded
-with `resources._fma` (a weight of 1 makes it a plain add either way). A
-dynamic score that ends in a multiply by a constant (BalancedAllocation's
+Weighted sums reproduce the reference's compiled arithmetic. The dynamic
+sums contract `score + w * v` into one fused multiply-add (each term folded
+with `resources._fma`; a weight of 1 makes it a plain add either way); the
+static score sum (`static_lean`, K1's) contracts none: each product is
+rounded, then added in order. A dynamic score that ends in a multiply by a constant (BalancedAllocation's
 `* 100`, the resource scores' `* 1 / weight sum`) comes as its factors, a
 `commit.Product`, and `dyn_round.sum_terms` fuses that multiply where the
 compiled program does. The batched path (the rounds engine's) runs in two
@@ -23,18 +24,16 @@ import torch
 from ..config import SchedulerConfiguration, default_plugins
 from ..ops import static_base as static_base_ops
 from ..ops.dyn_round import first_rejects, sum_terms
-from ..ops.resources import _fma
 from .interfaces import CycleContext, PluginBase
 from .registry import Registry, default_registry
 
 
 def _accumulate(total, weight: float, value: torch.Tensor) -> torch.Tensor:
-    """total + weight * value with one rounding (total None = 0)."""
+    """total + weight * value, the product rounded first (total None = 0):
+    the reference's compiled static-score sum contracts no product."""
     if total is None:
         total = torch.zeros_like(value, dtype=torch.float32)
-    if weight == 1.0:  # the fused form of a unit weight is a plain add
-        return total + value
-    return _fma(value, weight, total)
+    return total + value * weight
 
 
 class Framework:

@@ -1004,11 +1004,13 @@ def prev_static_rejects(lib, x, rows=None):
 
     fn = lib.static_rejects_launch
     if fn.argtypes is None:
-        fn.argtypes = sb._ARGTYPES + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        # K1's interface before the extender operands (its last two)
+        fn.argtypes = sb._ARGTYPES[:-2] + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     P, N = x.shape
     dev = x.node_valid.device
     args, _keep = sb._common_args(x, "static_rejects")
+    args = args[:-2]
     rw = None if rows is None else checked("static_rejects", rows, torch.bool, (P,), dev)
     out = torch.zeros((P, x.n_filters), dtype=torch.int32, device=dev)
     raise_on_error("static_rejects (the earlier design)", fn(

@@ -9,11 +9,14 @@ and label sets for every metric the port's serving code writes (the
 read), histograms (per-bucket counts) and summaries, each
 with `.labels(...)` children, read with `get()` (a histogram's or summary's
 sum) and `count`. `scheduler_build_info` carries torch, CUDA and the
-device name where the reference's carries jax and its backend. The text
-exposition and its HTTP endpoint are the CLI slice's (ROADMAP A10b)."""
+device name where the reference's carries jax and its backend.
+`SchedulerMetrics.expose()` writes the Prometheus text exposition (format
+0.0.4) as prometheus_client's `generate_latest` does, but the `_created`
+timestamps; `cmd/httpserver.py` serves it at /metrics."""
 
 from __future__ import annotations
 
+import math
 import threading
 import time as _time
 from typing import Callable
@@ -36,6 +39,36 @@ class Registry:
 
     def __init__(self) -> None:
         self.metrics: list[_Metric] = []
+
+    def expose(self) -> bytes:
+        """The Prometheus text exposition of every metric."""
+        return "".join(m.expose() for m in self.metrics).encode("utf-8")
+
+
+def _go_float(d: float) -> str:
+    """A sample value as Prometheus's Go client prints it (prometheus_client's
+    `floatToGoString`)."""
+    d = float(d)
+    if d == math.inf:
+        return "+Inf"
+    if d == -math.inf:
+        return "-Inf"
+    if math.isnan(d):
+        return "NaN"
+    s = repr(d)
+    dot = s.find(".")
+    if d > 0 and dot > 6:  # Go switches to exponents sooner than Python
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _label_text(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    esc = {k: v.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+           for k, v in labels.items()}
+    return "{" + ",".join(f'{k}="{esc[k]}"' for k in sorted(esc)) + "}"
 
 
 class _Child:
@@ -142,6 +175,36 @@ class _Metric:
 
     def get(self) -> float:
         return self._only().get()
+
+    def expose(self) -> str:
+        """This metric's family in the text exposition: HELP, TYPE, then a
+        child's samples in creation order (a histogram's cumulative
+        buckets, `_count`, `_sum`)."""
+        name = self.name
+        if self.kind == "counter" and not name.endswith("_total"):
+            name += "_total"
+        doc = self.documentation.replace("\\", "\\\\").replace("\n", "\\n")
+        out = [f"# HELP {name} {doc}\n", f"# TYPE {name} {self.kind}\n"]
+        with self._lock:
+            children = list(self._children.items())
+        for values, child in children:
+            labels = dict(zip(self.labelnames, values))
+            if self.kind in ("counter", "gauge"):
+                out.append(f"{name}{_label_text(labels)} {_go_float(child.get())}\n")
+                continue
+            with child._lock:
+                counts, count, total = list(child._counts), child._count, child._value
+            if self.kind == "histogram":
+                acc = 0
+                for bound, n in zip(child._buckets, counts):
+                    acc += n
+                    le = _label_text({**labels, "le": _go_float(bound)})
+                    out.append(f"{name}_bucket{le} {_go_float(acc)}\n")
+                le = _label_text({**labels, "le": "+Inf"})
+                out.append(f"{name}_bucket{le} {_go_float(count)}\n")
+            out.append(f"{name}_count{_label_text(labels)} {_go_float(count)}\n")
+            out.append(f"{name}_sum{_label_text(labels)} {_go_float(total)}\n")
+        return "".join(out)
 
 
 class Counter(_Metric):
@@ -316,6 +379,17 @@ class SchedulerMetrics:
             "Seconds since SchedulerMetrics construction.", registry=r)
         _t0 = _time.monotonic()
         self.uptime.set_function(lambda: float(int(_time.monotonic() - _t0)))
+        # ---- leader election (cmd/leaderelection.py FileLease) ----
+        self.leader_state = Gauge(
+            "scheduler_leader_state",
+            "1 = this process holds the leader lease (or runs without "
+            "election), 0 = standby. Evaluated at scrape time.",
+            registry=r)
+        self.leader_lease_age = Gauge(
+            "scheduler_leader_lease_age_seconds",
+            "Age of the lease heartbeat as observed by this process "
+            "(grows past leaseDuration when the active is dead).",
+            registry=r)
         self.program_retry_strikes = Counter(
             "scheduler_program_retry_strikes_total",
             "Program retries absorbed by the resilience wrapper (kind = "
@@ -354,6 +428,10 @@ class SchedulerMetrics:
 
     def set_build_info(self, info: dict[str, str] | None = None) -> None:
         self.build_info.labels(**(info or build_fingerprint())).set(1)
+
+    def expose(self) -> bytes:
+        """The Prometheus text exposition (the /metrics payload)."""
+        return self.registry.expose()
 
 
 def build_fingerprint() -> dict[str, str]:

@@ -403,7 +403,11 @@ class ClusterSnapshot:
 
     pdb_allowed: torch.Tensor  # i32 [GP]
 
+    # HTTP-extender verdicts (computed on the host after the encode, set by
+    # dataclasses.replace; None unless `has_extender`)
     has_extender: bool = False
+    pod_extender_mask: torch.Tensor | None = None  # bool [P, N]
+    pod_extender_score: torch.Tensor | None = None  # f32 [P, N] weighted
     # host-side bound on the inter-pod raw score sums (pref_raw_bound)
     pref_raw_bound: float = 0.0
 
@@ -431,11 +435,14 @@ ARRAY_FIELDS = tuple(
     f.name for f in dataclasses.fields(ClusterSnapshot)
     if f.type == "torch.Tensor"
 )
+# the extender verdict planes: array fields only when `has_extender`
+EXTENDER_FIELDS = ("pod_extender_mask", "pod_extender_score")
 # the reference snapshot's non-array fields (pref_raw_bound is the port's,
 # derived from the arrays)
 AUX_FIELDS = tuple(
     f.name for f in dataclasses.fields(ClusterSnapshot)
     if f.type != "torch.Tensor" and f.name != "pref_raw_bound"
+    and f.name not in EXTENDER_FIELDS
 )
 
 
@@ -447,15 +454,12 @@ def snapshot_from_numpy(
     fields. One tensor per field, copied to `device` with its dtype
     unchanged, so both packages compute on identical inputs."""
     dev = resolve_device(device)
-    if aux.get("has_extender"):
-        raise NotImplementedError(
-            "HTTP-extender verdicts are not ported yet (ROADMAP A10)"
-        )
-    missing = [n for n in ARRAY_FIELDS if n not in fields]
+    names = ARRAY_FIELDS + (EXTENDER_FIELDS if aux.get("has_extender") else ())
+    missing = [n for n in names if n not in fields]
     if missing:
         raise ValueError(f"snapshot fields missing: {missing}")
     kw = {n: torch.from_numpy(np.array(fields[n], order="C")).to(dev)
-          for n in ARRAY_FIELDS}
+          for n in names}
     kw.update({n: aux[n] for n in AUX_FIELDS if n in aux})
     kw["pref_raw_bound"] = pref_raw_bound(
         fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
@@ -802,9 +806,6 @@ class SnapshotEncoder:
         fields, aux = self.encode_numpy(
             nodes, pending, existing, pod_groups, pvcs=pvcs, pvs=pvs,
             storage_classes=storage_classes, pdbs=pdbs)
-        if aux.get("has_extender"):
-            raise NotImplementedError(
-                "HTTP-extender verdicts are not ported yet (ROADMAP A10)")
         aux = dict(aux, pref_raw_bound=pref_raw_bound(
             fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
             fields["exist_pref_aff"], fields["exist_pref_aff_w"]))

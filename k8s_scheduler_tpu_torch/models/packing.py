@@ -17,7 +17,14 @@ starts on a 16-byte boundary of its buffer: the kernels' vector loads need
 aligned rows. `aux` also holds the port's `pref_raw_bound` (K3's exactness
 bound, computed on the host from the pending set); `layout_key` is the
 spec without it, the part that programs and device-resident state depend
-on."""
+on.
+
+A snapshot with HTTP-extender verdicts (`has_extender`) carries its bool
+[P, N] mask plane in the byte buffer and its f32 [P, N] score plane in
+the word buffer, like any array field: 5 B a pod-node pair more to
+upload every cycle (the packed path re-consults the webhooks every
+cycle, so it uploads them every cycle; the carry path keeps them on the
+device instead, `core/cycle.ExtenderVerdictKeeper`)."""
 
 from __future__ import annotations
 
@@ -214,8 +221,6 @@ def unpack(wbuf: torch.Tensor, bbuf: torch.Tensor, spec: PackSpec) -> ClusterSna
         raise ValueError(f"unpack: want int32 words and uint8 bytes, got {wbuf.dtype} "
                          f"and {bbuf.dtype}")
     kw = dict(spec.aux)
-    if kw.get("has_extender"):
-        raise NotImplementedError("HTTP-extender verdicts are not ported yet (ROADMAP A10)")
     for name, dt, shape, off in spec.words:
         kw[name] = wbuf[off:off + _size(shape)].view(_TORCH[dt]).view(shape)
     for name, shape, off in spec.bools:

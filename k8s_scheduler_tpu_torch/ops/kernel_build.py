@@ -57,6 +57,7 @@ launch_counts: dict[str, int] = {
     "preempt_prefilter": 0, "preempt_whatif": 0, "preempt_claim": 0,
     "volume_mask": 0, "pv_choice": 0, "pv_fold": 0, "scan_commit": 0,
     "dyn_mask": 0, "dyn_score": 0, "static_rejects": 0, "dyn_rejects": 0,
+    "extender_merge": 0, "static_base_ext": 0, "static_rejects_base": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build

@@ -64,15 +64,21 @@ def taint_filter_mask(snap) -> torch.Tensor:  # bool [P, N]
     return _pair_lookup(schedulable, snap.pod_tolset, snap.node_taintset) > 0.5
 
 
+def taint_factor_table(prefer: torch.Tensor, counts_max: torch.Tensor) -> torch.Tensor:
+    """`taint_score_table` before its scale by 100: (1 - count / max), or 1
+    when no node has such taints."""
+    return torch.where(
+        counts_max > 0,
+        1.0 - prefer / torch.clamp(counts_max, min=1e-9),
+        torch.ones((), device=prefer.device),
+    )
+
+
 def taint_score_table(prefer: torch.Tensor, counts_max: torch.Tensor) -> torch.Tensor:
     """Normalized TaintToleration score from untolerated-PreferNoSchedule
     counts and their per-pod (or per-toleration-set) max over valid nodes:
     (1 - count / max) * 100, or 100 when no node has such taints."""
-    return torch.where(
-        counts_max > 0,
-        (1.0 - prefer / torch.clamp(counts_max, min=1e-9)) * 100.0,
-        torch.full((), 100.0, device=prefer.device),
-    )
+    return taint_factor_table(prefer, counts_max) * 100.0
 
 
 def taint_score(snap) -> torch.Tensor:  # f32 [P, N] in [0, 100]

@@ -166,8 +166,9 @@ def _narrow(x, n: int):
     node = {f: getattr(x, f)[:n].contiguous() for f in (
         "node_valid", "node_unsched", "node_taintset", "node_used_ports", "node_room")}
     rows = {f: getattr(x, f)[:, :n].contiguous() for f in ("req", "pref", "img")}
-    mask = None if x.mask is None else x.mask[:, :n].contiguous()
-    return dataclasses.replace(x, **node, **rows, mask=mask,
+    cut = {f: None if getattr(x, f) is None else getattr(x, f)[:, :n].contiguous()
+           for f in ("mask", "emask", "escore")}
+    return dataclasses.replace(x, **node, **rows, **cut,
                                samp_n=min(x.samp_n, n), samp_k=min(x.samp_k, n // 2))
 
 
@@ -182,7 +183,8 @@ def _misaligned(x):
 
     return dataclasses.replace(x, **{f: off(getattr(x, f)) for f in (
         "node_valid", "node_unsched", "node_taintset", "req", "pref", "img")},
-        mask=None if x.mask is None else off(x.mask))
+        **{f: None if getattr(x, f) is None else off(getattr(x, f))
+           for f in ("mask", "emask", "escore")})
 
 
 def _tile_pods(x, P: int):
@@ -191,14 +193,17 @@ def _tile_pods(x, P: int):
     pod = {f: getattr(x, f)[idx].contiguous() for f in (
         "pod_node_name", "pod_tolset", "pod_req_id", "pod_sel_req_id", "pod_pref_id",
         "pod_imageset", "pod_ports", "pod_requested", "samp_off")}
-    mask = None if x.mask is None else x.mask[idx].contiguous()
-    return dataclasses.replace(x, **pod, mask=mask)
+    rows = {f: None if getattr(x, f) is None else getattr(x, f)[idx].contiguous()
+            for f in ("mask", "emask", "escore")}
+    return dataclasses.replace(x, **pod, **rows)
 
 
 def static_base_edge_inputs(device) -> dict:
     """{tag: StaticBaseInputs} of the card's K1 edge cases, from
     `k1_objects` under the default filters and scores, with sampling, the
-    fit filter and a seeded mask operand (every bit set)."""
+    fit filter and a seeded mask operand (every bit set); then with seeded
+    extender verdicts (scores past the 1e6 clip included), clipped and not,
+    and every sum step of the scan's arithmetic."""
     from .. import models
     from ..core.cycle import sampling_window
     from ..framework.interfaces import CycleContext
@@ -225,6 +230,25 @@ def static_base_edge_inputs(device) -> dict:
     cases["N=13, scalar path"] = _narrow(x, 13)
     cases["misaligned rows, scalar path"] = _misaligned(x)
     cases["P=65537 x N=64"] = _tile_pods(_narrow(x, 64), 65537)
+    ex = dataclasses.replace(
+        x, flags=x.flags | sb.F_EXT,
+        emask=torch.from_numpy(rng.random((P, N)) < 0.85).to(device),
+        escore=torch.from_numpy((rng.integers(0, 11, (P, N)) * rng.choice(
+            [3.0, 1.5, 250000.0], (P, 1))).astype(np.float32)).to(device))
+    cases["extender, 3 terms"] = ex
+    cases["extender, no clip"] = dataclasses.replace(ex, flags=ex.flags | sb.F_NOCLIP)
+    for k in range(3):
+        cases[f"extender, {k} score terms"] = dataclasses.replace(ex, terms=ex.terms[:k])
+    for steps in ((sb.SUM_FUSE_NEW, 0, 0), (sb.SUM_FUSE_FIRST, 0, 0),
+                  (sb.SUM_FUSE_FIRST, sb.SUM_FUSE_NEW, 0)):
+        flags = ex.flags | sb.F_NOCLIP
+        for k, mode in enumerate(steps):
+            flags |= mode << (sb.SUM_SHIFT + 2 * k)
+        cases[f"extender, sum steps {steps}"] = dataclasses.replace(ex, flags=flags)
+    cases["extender, lone term fused"] = dataclasses.replace(
+        ex, terms=ex.terms[2:], flags=ex.flags | sb.F_NOCLIP | sb.SUM_FUSE_FIRST << sb.SUM_SHIFT)
+    cases["extender, N=13, scalar path"] = _narrow(ex, 13)
+    cases["extender, misaligned rows, scalar path"] = _misaligned(ex)
     return cases
 
 

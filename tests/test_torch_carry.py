@@ -242,6 +242,4 @@ def test_packed_preemption_matches_reference_on_a_volume_gate():
 
 def test_carry_entry_points_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError):
-        port_cycle.build_packed_cycle_carry_fn(None, extender_args=True, device="cpu")
-    with pytest.raises(NotImplementedError):
         port_cycle.build_packed_cycle_carry_fn(None, rounds_kw={"shortlist": 8}, device="cpu")

@@ -37,10 +37,10 @@ import k8s_scheduler_tpu.ops.interpod as ref_ip
 import k8s_scheduler_tpu.ops.resources as ref_res
 import k8s_scheduler_tpu.utils.synth as ref_synth
 from k8s_scheduler_tpu_torch.config import Profile, SchedulerConfiguration
-from k8s_scheduler_tpu_torch.core.cycle import sampling_mask, sampling_window
+from k8s_scheduler_tpu_torch.core.cycle import sampling_params, sampling_window
 from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext, PluginBase
 from k8s_scheduler_tpu_torch.framework.runtime import Framework
-from k8s_scheduler_tpu_torch.ops import commit, kernel_build
+from k8s_scheduler_tpu_torch.ops import commit, extender_merge, kernel_build
 from k8s_scheduler_tpu_torch.ops import interpod as ip
 from k8s_scheduler_tpu_torch.ops import resources as res
 from k8s_scheduler_tpu_torch.ops import scan_commit as sc
@@ -55,6 +55,17 @@ I32 = torch.int32
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
+
+
+def sampling_mask(snap, pct: int) -> torch.Tensor:
+    """bool [P, N]: the nodes the port's sampling window keeps
+    (`sampling_params`, applied by K18's plain version as the carry cycle
+    applies it); the reference's `sampling_mask`."""
+    samp = sampling_params(snap, pct)
+    if samp is None:
+        return torch.ones((snap.P, snap.N), dtype=torch.bool)
+    zero = torch.zeros((snap.P, snap.N), dtype=torch.float32)
+    return extender_merge.extender_merge_plain(zero, None, None, samp) > sb.NEG_INF / 2
 
 
 # ---------------------------------------------------------------------------

@@ -383,8 +383,6 @@ def test_diagnosis_start_mask_is_the_static_survivors(name, window):
 
 
 def test_diagnosis_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        port_cycle.build_diagnosis_fn(None, extender_args=True, device="cpu")
     with pytest.raises(ValueError):
         port_cycle.build_cycle_fn(outputs="diagnosis", device="cpu")
 

@@ -54,8 +54,9 @@ from k8s_scheduler_tpu_torch.core.cycle import sampling_window
 from k8s_scheduler_tpu_torch.framework.interfaces import CycleContext
 from k8s_scheduler_tpu_torch.framework.runtime import Framework
 from k8s_scheduler_tpu_torch.models.encoding import AUX_FIELDS, snapshot_from_numpy
-from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, dyn_round, guard_sweep,
-                                         interpod_terms, kernel_build, preempt_claim,
+from k8s_scheduler_tpu_torch.ops import (capacity, claim_pass, dyn_round, extender_merge,
+                                         guard_sweep, interpod_terms, kernel_build,
+                                         preempt_claim,
                                          preempt_prefilter, preempt_whatif, preemption,
                                          scan_commit, static_base)
 from k8s_scheduler_tpu_torch.utils import kernel_cases
@@ -181,11 +182,17 @@ def test_wrappers_use_plain_versions_on_cpu():
                        static_base.static_rejects_plain(sx, srows))
     r = kernel_cases.dyn_reject_cases("cpu")["every part kind, F = 9"]
     assert torch.equal(dyn_round.dyn_rejects(*r), dyn_round.dyn_rejects_plain(*r))
+    m = torch.randn(5, 9)
+    em, es = torch.rand(5, 9) < 0.7, torch.randn(5, 9)
+    samp = (torch.arange(5, dtype=torch.int32), torch.tensor(4), torch.tensor(7))
+    assert torch.equal(extender_merge.extender_merge(m, em, es, samp),
+                       extender_merge.extender_merge_plain(m, em, es, samp))
     assert set(kernel_build.launch_counts) == {
         "static_base", "claim_pass", "interpod_terms", "interpod_norm",
         "affinity_update", "capacity", "guard_sweep", "preempt_prefilter",
         "preempt_whatif", "preempt_claim", "volume_mask", "pv_choice", "pv_fold",
-        "scan_commit", "dyn_mask", "dyn_score", "static_rejects", "dyn_rejects"}
+        "scan_commit", "dyn_mask", "dyn_score", "static_rejects", "dyn_rejects",
+        "extender_merge", "static_base_ext", "static_rejects_base"}
     assert all(v == 0 for v in kernel_build.launch_counts.values())
 
 

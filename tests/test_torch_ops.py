@@ -42,7 +42,7 @@ from k8s_scheduler_tpu_torch.ops import (
     rounds,
     taints,
 )
-from test_torch_commit import RESOURCE_PROFILES, _profile
+from test_torch_commit import RESOURCE_PROFILES, _profile, sampling_mask
 from test_torch_encoding import fixture, reference_snapshot
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -338,7 +338,7 @@ def test_sampling_mask(pct):
             r.array_fields(), {k: getattr(r, k) for k in AUX_FIELDS}, device="cpu"
         )
         want = jax.jit(ref_cycle.sampling_mask, static_argnums=1)(r, pct)
-        assert_exact(port_cycle.sampling_mask(port, pct), want)
+        assert_exact(sampling_mask(port, pct), want)
 
 
 def _wide_reference():

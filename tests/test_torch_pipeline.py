@@ -212,13 +212,16 @@ def test_expired_deadline_raises_and_steps_the_ladder():
 
 @pytest.mark.parametrize("pct", [0, 30, 100])
 def test_device_sampling_mask_equals_the_host_window(pct):
-    """The carry cycle's `sampling_mask` computes the node-sampling window
-    on the device (no host sync on the decision path); it equals the
-    window `sampling_window` gives K1 from host integers, on a cluster
-    past the 100-node floor and over several cycle indices."""
+    """The carry cycle computes the node-sampling window on the device
+    (`sampling_params`, applied by K18 `extender_merge`: no host sync on
+    the decision path); it equals the window `sampling_window` gives K1
+    from host integers, on a cluster past the 100-node floor and over
+    several cycle indices."""
     import torch
 
-    from k8s_scheduler_tpu_torch.core.cycle import sampling_mask, sampling_window
+    from k8s_scheduler_tpu_torch.core.cycle import sampling_params, sampling_window
+    from k8s_scheduler_tpu_torch.ops.extender_merge import extender_merge
+    from k8s_scheduler_tpu_torch.ops.static_base import NEG_INF
 
     nodes = [MakeNode(f"n{i}").capacity({"cpu": "4"}).obj() for i in range(260)]
     pods = [MakePod(f"p{i}").req({"cpu": "1"}).priority(i % 3).obj() for i in range(40)]
@@ -233,7 +236,11 @@ def test_device_sampling_mask_equals_the_host_window(pct):
             col = torch.arange(snap.N, dtype=torch.int32)[None, :]
             want = ((col - off[:, None]) % mod) < k
             assert not bool(want.all())  # the window really cuts
-        assert torch.equal(sampling_mask(snap, pct), want)
+        samp = sampling_params(snap, pct)
+        assert (samp is None) == (win is None)
+        got = (torch.ones((snap.P, snap.N), dtype=torch.bool) if samp is None else
+               extender_merge(torch.zeros((snap.P, snap.N)), None, None, samp) > NEG_INF / 2)
+        assert torch.equal(got, want)
 
 
 def test_resilient_retries_transport_flakes_and_fails_fast_on_a_wedge():

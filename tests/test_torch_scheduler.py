@@ -18,11 +18,11 @@ the two must agree exactly on:
 Fixtures: the reference `tests/test_pipeline.py _workload()` (gang
 unwind, a preemptor, an infeasible pod) over the carry path and the scan
 (the packed path); four cycles of churn (binds folding in, pod deletes, a
-node add, volumes) on the carry path; two profiles. HTTP extenders are
-ROADMAP A10b: the port refuses them (`test_unported_serving_features_
-raise`). Each fixture keeps one pad regime (pad bucket 64, fixed widths),
-so the reference compiles its programs once; each side runs once per
-fixture (cached) and the tests compare the recorded cycles."""
+node add, volumes) on the carry path; two profiles. HTTP extenders have
+their own differential, tests/test_torch_extenders.py. Each fixture keeps
+one pad regime (pad bucket 64, fixed widths), so the reference compiles
+its programs once; each side runs once per fixture (cached) and the tests
+compare the recorded cycles."""
 
 from __future__ import annotations
 
@@ -197,18 +197,25 @@ def _cycle_record(s, rec: Recorder, st, n_binds, n_evict, n_records) -> dict:
     }
 
 
-def drive(side: str, name: str, commit_mode: str = "rounds", **sched_kw) -> list[dict]:
+def drive(side: str, name: str, commit_mode: str = "rounds", configure=None,
+          keep: list | None = None, **sched_kw) -> list[dict]:
     """Run fixture `name` through one package's Scheduler; one record a
-    cycle."""
+    cycle. `configure(config module, configuration)` may return another
+    configuration (the side's own config classes); `keep` receives the
+    Scheduler."""
     m = REF if side == "ref" else PORT
     core, cfg_mod = (ref_core, ref_config) if side == "ref" else (port_core, port_config)
     clock, rec = FakeClock(), Recorder()
     kw = dict(sched_kw)
     if side == "port":
         kw["device"] = "cpu"
-    s = core.Scheduler(_config(cfg_mod, name, commit_mode), binder=rec.bind,
-                       evictor=rec.evict, now=clock, **kw)
+    cfg = _config(cfg_mod, name, commit_mode)
+    if configure is not None:
+        cfg = configure(cfg_mod, cfg)
+    s = core.Scheduler(cfg, binder=rec.bind, evictor=rec.evict, now=clock, **kw)
     rec.sched = s
+    if keep is not None:
+        keep.append(s)
     out = []
     nb = ne = nr = 0
     last_binds: list = []
@@ -285,9 +292,6 @@ def test_fixture_exercises_what_it_claims(name, commit_mode):
     ({"compile_cache_dir": "/nonexistent"}, "A10b"),
     ({"shard_devices": 2}, "A13"),
     ({"fault_spec": "fetch_hang@cycle=1:ms=10"}, "A10b"),
-    ({"extenders": [port_config.Extender("http://127.0.0.1:1")]}, "A10b"),
-    ({"extenders": [port_config.Extender("http://127.0.0.1:1", carry_verdicts=True)]},
-     "A10b"),
 ])
 def test_unported_serving_features_raise(kw, item):
     cfg = port_config.SchedulerConfiguration(**kw)
