@@ -4,6 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--prev-csrc DIR]
 
+(`--durable-child DIR` is internal: phase 12 starts the script again with
+it, as the active of its failover check.)
+
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
 engine latency cycle `build_cycle_fn(commit_mode="rounds", outputs=
 "latency")(snapshot)`, and the scan engine's (`commit_mode="scan"`,
@@ -29,7 +32,9 @@ decision path `build_diagnosis_fn`) over churn frames of config #4's
 workload, with and without volumes (phases 8 and 9), and the serving host
 over them: the port's `Scheduler` driven through its informer handlers
 and `schedule_cycle()` (phase 10), then with HTTP extenders and their
-verdicts through every program (phase 11).
+verdicts through every program (phase 11), then with durable state, the
+admission front door, spans, the black box and a fault plan, and a
+failover to a standby (phase 12).
 
 Phases:
 
@@ -303,6 +308,32 @@ Phases:
                 cycles without, each beside a `forced_sync` twin, every
                 binding valid and on a node the filter passed, the
                 diagnosis from each window's node_valid & emask.
+ 12. durable  — the port's `Scheduler` on the carry path over config #4
+                (seed 202): 5000 nodes and 12000 running pods through the
+                informer handlers, the 10000 pending pods submitted through
+                `AdmissionController.submit` in 4 batches, one before each
+                of 4 cycles, binds confirmed by `self_confirming_front_door`'s
+                informer play; the active with a `DurableState` in a
+                temporary directory (snapshotIntervalSeconds 0), spans at
+                rate 1.0, a `BlackBox` under <stateDir>/blackbox and the plan
+                DURABLE_PLAN (a transport `device_error` in cycle 2, a 20 ms
+                `fetch_delay` in cycle 3), its decisions equal cycle by
+                cycle to a twin's without any of them (run first, in the
+                same call), the transport fault absorbed by the retry, every
+                binding valid, no pod bound twice, no acked pod lost; then
+                the same active in a child process on the card
+                (`--durable-child`), SIGKILLed after its second cycle's
+                flush, its digests equal to the in-process active's; a
+                standby `Scheduler` on its directory restores the child's
+                last digest in its constructor, requeues the in-flight pods
+                and runs the rest of the backlog equal to the twin, under
+                the same checks; the `stateless` rung forced at the end
+                seals a clean snapshot and dumps a bundle that
+                `load_bundle` reads. Printed: journal records and bytes,
+                journaling ms on the serving thread a cycle, the snapshot's
+                ms, the standby's restore ms, submit-to-ack and
+                submit-to-bind p50 / p99, the cycles' wall against the
+                twin's, the bundle's bytes.
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -3114,6 +3145,17 @@ class ServeCluster:
         self.sched.on_pod_delete(pod.uid)
 
 
+def last_frame(sch):
+    """A serving Scheduler's last cycle: its frame (unpacked from the
+    pipeline handle's upload) and its result."""
+    from k8s_scheduler_tpu_torch.models import packing
+
+    entry = max((e for e in sch._packed.values() if e["fns"][6]._last is not None),
+                key=lambda e: e["fns"][6].stats["t_dispatch_start"])
+    h = entry["fns"][6]._last
+    return packing.unpack(h._wbuf, h._bbuf, entry["spec"]), h.result
+
+
 def http_probe(sch, cl, tag: str) -> None:
     """The port's HTTP server over a serving Scheduler on port 0: /healthz,
     /metrics and /debug/flightrecorder answer 200, and /metrics' bind
@@ -3167,7 +3209,6 @@ def serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels) -> dic
     from k8s_scheduler_tpu_torch.config import SchedulerConfiguration
     from k8s_scheduler_tpu_torch.core import Scheduler
     from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels
-    from k8s_scheduler_tpu_torch.models import packing
     from k8s_scheduler_tpu_torch.utils import synth
     from torch.profiler import ProfilerActivity, profile
 
@@ -3212,13 +3253,6 @@ def serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels) -> dic
         return (cl.binds[nb:], cl.evictions[ne:],
                 [(p.name, n) for p, n in sch.last_nominations],
                 [(p.name, n) for p, n in sch.last_evictions])
-
-    def frame_of(sch):
-        """The last cycle's frame and result, from its pipeline handle."""
-        entry = max((e for e in sch._packed.values() if e["fns"][6]._last is not None),
-                    key=lambda e: e["fns"][6].stats["t_dispatch_start"])
-        h = entry["fns"][6]._last
-        return packing.unpack(h._wbuf, h._bbuf, entry["spec"]), h.result, entry["fns"][0]
 
     def sync_sites(sch):
         """One cycle with the sync debug mode on from its start to the end
@@ -3284,7 +3318,7 @@ def serving_phase(torch, kb, dev, nodes, existing, pending, smi, kernels) -> dic
             for k, v in launched.items():
                 counts[k] += v
             got = outcome(sch, cl, nb, ne)
-            snap, res, _cyc = frame_of(sch)
+            snap, res = last_frame(sch)
             tst = twin.schedule_cycle()
             want = outcome(twin, tcl, tnb, tne)
             check(got == want and vars(st) | {"cycle_seconds": 0}
@@ -3754,6 +3788,492 @@ def extender_phase(torch, kb, dev, nodes, existing, pending, smi) -> dict:
     return {"kernels": kern, "serving": serve, "cycle_ms": cycle_ms, "upload_ms": up_ms}
 
 
+# ---- phase 12: durable state, the front door, spans, the black box, faults --
+
+DURABLE_PLAN = "seed=7;device_error@cycle=2:kind=transport:n=1;fetch_delay@cycle=3:ms=20"
+DURABLE_BATCHES = 4  # the pending set's submissions, one before each cycle
+DURABLE_KILL_AFTER = 2  # the child is SIGKILLed after this cycle's flush
+DURABLE_SPAN_RING = 65536
+DURABLE_CHILD_WAIT_S = 240.0
+
+
+def durable_batches(pods) -> list:
+    """Config #4's pending set cut into DURABLE_BATCHES submissions."""
+    n = -(-len(pods) // DURABLE_BATCHES)
+    return [pods[i:i + n] for i in range(0, len(pods), n)]
+
+
+def pct(values, q: float) -> float:
+    """The q-quantile (nearest rank) of `values`."""
+    v = sorted(values)
+    return v[min(len(v) - 1, max(0, int(round(q * len(v) + 0.5)) - 1))] if v else 0.0
+
+
+class DurableCluster:
+    """Stands in for the API server in phase 12: records binds (each bind's
+    host time and count by pod) and evictions (each one echoed back as the
+    pod's delete). The front door's informer play confirms the binds after
+    each cycle (`self_confirming_front_door`)."""
+
+    def __init__(self):
+        self.binds: list[tuple[str, str]] = []
+        self.bind_t: dict[str, float] = {}
+        self.bind_count: dict[str, int] = {}
+        self.evictions: list[tuple[str, str]] = []
+        self.evicted: list[str] = []  # uids, a bound submitted pod among them
+        self.sched = None
+
+    def bind(self, pod, node):
+        self.binds.append((pod.name, node))
+        self.bind_t.setdefault(pod.uid, time.perf_counter())
+        self.bind_count[pod.uid] = self.bind_count.get(pod.uid, 0) + 1
+
+    def evict(self, pod, node):
+        self.evictions.append((pod.name, node))
+        self.evicted.append(pod.uid)
+        self.sched.on_pod_delete(pod.uid)
+
+
+class JournalTimer:
+    """Host time the serving thread spends journaling on one Scheduler: the
+    codec's dicts, `DurableState._emit` and its record appends (a batch
+    scope's flush included), outermost calls only."""
+
+    def __init__(self, sched):
+        import k8s_scheduler_tpu_torch.internal.cache as cache_mod
+        from k8s_scheduler_tpu_torch.state import codec
+
+        self.s = 0.0
+        self._depth = 0
+        self._main = threading.get_ident()
+        self._cache_mod = cache_mod
+        st = sched.state
+        cache_mod._codec()
+        cache_mod._pod_to_state = self._timed(codec.pod_to_state)
+        cache_mod._node_to_state = self._timed(codec.node_to_state)
+        emit = self._timed(st._emit)
+        sched.queue._journal = sched.cache._journal = emit
+        st._append_record = self._timed(st._append_record)
+
+    def _timed(self, fn):
+        def wrapped(*a, **k):
+            if threading.get_ident() != self._main or self._depth:
+                return fn(*a, **k)
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s += time.perf_counter() - t0
+                self._depth -= 1
+        return wrapped
+
+    def close(self) -> None:
+        from k8s_scheduler_tpu_torch.state import codec
+
+        self._cache_mod._pod_to_state = codec.pod_to_state
+        self._cache_mod._node_to_state = codec.node_to_state
+
+
+class DurableServer:
+    """One Scheduler of phase 12 on the carry path with its front door
+    (`AdmissionController`, `self_confirming_front_door`): with `state_dir`
+    a `DurableState` there (snapshotIntervalSeconds 0); `armed` adds the
+    fault plan DURABLE_PLAN (the config's faultSpec), spans at rate 1.0 and
+    a `BlackBox` under <stateDir>/blackbox; `box` the black box alone."""
+
+    def __init__(self, dev, n_existing, clock, state_dir=None, armed=False, box=False):
+        from k8s_scheduler_tpu_torch.config import SchedulerConfiguration
+        from k8s_scheduler_tpu_torch.core import Scheduler
+        from k8s_scheduler_tpu_torch.core import blackbox, spans
+        from k8s_scheduler_tpu_torch.service.admission import (AdmissionController,
+                                                               self_confirming_front_door)
+        from k8s_scheduler_tpu_torch.state import DurableState
+
+        cfg = SchedulerConfiguration(pad_existing=n_existing + N_PENDING,
+                                     pad_pods_per_node=2 * CARRY_MPN,
+                                     fault_spec=DURABLE_PLAN if armed else "")
+        self.cl = DurableCluster()
+        self.span_counts: dict[str, int] = {}
+        if armed:
+            spans.arm(spans.SpanRecorder(capacity=DURABLE_SPAN_RING), rate=1.0,
+                      counter=lambda n: self.span_counts.__setitem__(
+                          n, self.span_counts.get(n, 0) + 1))
+        state = (DurableState(state_dir, snapshot_interval_seconds=0)
+                 if state_dir is not None else None)
+        t0 = time.perf_counter()
+        self.sched = Scheduler(cfg, binder=self.cl.bind, evictor=self.cl.evict, now=clock,
+                               state=state, device=dev)
+        self.ctor_ms = (time.perf_counter() - t0) * 1e3
+        self.cl.sched = self.sched
+        self.box = None
+        if armed or box:
+            self.box = blackbox.arm(blackbox.BlackBox(
+                os.path.join(state_dir, "blackbox"), retention=cfg.blackbox_retention,
+                config={"faultSpec": cfg.fault_spec}, recorder=self.sched.flight,
+                observer=self.sched.observer,
+                spans_recorder=spans.RECORDER if armed else None, ladder=self.sched.ladder,
+                fault_plan=self.sched._fault_plan, events=self.sched.events))
+        self.adm = AdmissionController(self.sched)
+        self.door = self_confirming_front_door(self.sched, self.adm)
+        self.timer = JournalTimer(self.sched) if state is not None else None
+        self.submit_t: dict[str, float] = {}
+        self.acked: list[str] = []
+        self.ack_ms: list[float] = []
+
+    def feed(self, nodes, existing) -> float:
+        """Config #4's cluster through the informer handlers; ms."""
+        t0 = time.perf_counter()
+        for nd in nodes:
+            self.sched.on_node_add(nd)
+        for pod, node in existing:
+            self.sched.on_pod_add(pod, node)
+        if self.sched.state is not None:
+            self.sched.state.journal.flush()
+        return (time.perf_counter() - t0) * 1e3
+
+    def submit(self, pods) -> None:
+        t0 = time.perf_counter()
+        res = self.adm.submit(pods)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(res.ok and res.accepted == len(pods), f"durable: a submission of {len(pods)} "
+              f"pods was not accepted: {res.reason}")
+        check(res.durable == (self.sched.state is not None),
+              f"durable: the ack's durability is {res.durable}")
+        for p in pods:
+            self.submit_t[p.uid] = t0
+        self.acked += [p.uid for p in pods]
+        self.ack_ms.append(ms)
+
+    def cycle(self, torch):
+        """One serve-loop step (the cycle, then the binds' confirmation):
+        (stats, wall ms, journal ms on the serving thread, outcome)."""
+        s = self.sched
+        nb, ne = len(self.cl.binds), len(self.cl.evictions)
+        if self.timer is not None:
+            self.timer.s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = self.door.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        jms = self.timer.s * 1e3 if self.timer is not None else 0.0
+        outcome = (self.cl.binds[nb:], self.cl.evictions[ne:],
+                   [(p.name, n) for p, n in s.last_nominations],
+                   [(p.name, n) for p, n in s.last_evictions],
+                   {k: v for k, v in vars(st).items() if k != "cycle_seconds"})
+        return st, wall, jms, outcome
+
+    def check_cycle(self, torch, st, tag) -> None:
+        """The cycle's bindings against its frame (`check_placements`)."""
+        from k8s_scheduler_tpu_torch.framework.interfaces import AffinityKernels
+
+        snap, res = last_frame(self.sched)
+        check(st.scheduled == int((res.assignment[:st.attempted] >= 0).sum()),
+              f"durable {tag}: binds != placements")
+        check_placements(torch, snap, res, self.sched.framework, AffinityKernels.plain())
+
+    def digest(self) -> str:
+        from k8s_scheduler_tpu_torch.state import state_digest
+
+        return state_digest(self.sched.queue, self.sched.cache)
+
+    def lost(self, evicted=()) -> list[str]:
+        """Acked uids the Scheduler no longer knows: neither pending in the
+        queue nor assumed or bound in the cache, nor preempted after
+        their bind (an eviction deletes the pod)."""
+        gone = set(self.cl.evicted) | set(evicted)
+        known = {p.uid for p in self.sched.queue.all_pending()}
+        return [u for u in self.acked
+                if u not in known and u not in gone and not self.sched.cache.has_pod(u)]
+
+    def close(self) -> None:
+        from k8s_scheduler_tpu_torch.core import blackbox, faults, spans
+
+        if self.timer is not None:
+            self.timer.close()
+        st = self.sched.state
+        if st is not None and not st.status()["sealed"]:
+            st.journal.flush()
+            st.journal.close()
+        spans.disarm()
+        blackbox.disarm()
+        faults.disarm()
+
+
+def durable_child(state_dir: str) -> int:
+    """`chip_smoke.py --durable-child DIR`: phase 12's active on the card in
+    a process of its own, over config #4 as the parent drives it; after each
+    cycle's journal flush a line {cycle, digest, binds, acked} in
+    DIR/child.jsonl, and after the DURABLE_KILL_AFTER-th a `done` line,
+    then it waits for its SIGKILL."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    nodes, existing, pending = synth.config4_workload((SERVE_SEED,), N_NODES, N_EXISTING,
+                                                      N_PENDING)
+    batches = durable_batches(pending[SERVE_SEED])
+    clock_t = [0.0]
+    srv = DurableServer(dev, len(existing), lambda: clock_t[0], state_dir, armed=True)
+    srv.feed(nodes, existing)
+    with open(os.path.join(state_dir, "child.jsonl"), "a") as out:
+        for c in range(DURABLE_KILL_AFTER):
+            srv.submit(batches[c])
+            clock_t[0] += 1.0
+            srv.cycle(torch)
+            srv.sched.state.journal.flush()
+            out.write(json.dumps({"cycle": c, "digest": srv.digest(), "binds": srv.cl.binds,
+                                  "acked": srv.acked, "evicted": srv.cl.evicted}) + "\n")
+            out.flush()
+        out.write("done\n")
+        out.flush()
+    while True:  # the kill lands on a fully durable boundary
+        time.sleep(1.0)
+
+
+def durable_phase(torch, kb, dev, nodes, existing, pending, smi) -> dict:
+    """Phase 12: the port's Scheduler with durable state, the front door,
+    spans, the black box and a fault plan over config #4 (the carry path):
+    decisions equal to a twin's without any of them; a SIGKILLed child
+    process's last digest restored by a standby on the card, which then
+    recovers the in-flight pods and runs the rest of the backlog; the
+    stateless rung's bundle. Launch counts of the active's cycles alone."""
+    import shutil
+    import signal
+    import tempfile
+
+    from k8s_scheduler_tpu_torch.core import faults
+    from k8s_scheduler_tpu_torch.core.blackbox import load_bundle
+    from k8s_scheduler_tpu_torch.core.cycle import RESILIENT_STRIKES
+    from k8s_scheduler_tpu_torch.core.degrade import RUNG_STATELESS
+    from k8s_scheduler_tpu_torch.internal.cache import SchedulerCache
+    from k8s_scheduler_tpu_torch.internal.queue import SchedulingQueue
+    from k8s_scheduler_tpu_torch.state import DurableState, state_digest
+
+    import copy
+
+    t_phase = time.time()
+    n_cycles = DURABLE_BATCHES
+    pods = pending[SERVE_SEED]
+    root = tempfile.mkdtemp(prefix="chip-smoke-durable-")
+    out: dict = {}
+    try:
+        # ---- the twin: no state, spans, black box or faults ----
+        clock_t = [0.0]
+        twin = DurableServer(dev, len(existing), lambda: clock_t[0])
+        twin_feed = twin.feed(nodes, existing)
+        batches = durable_batches(copy.deepcopy(pods))
+        want, twin_wall = [], []
+        for c in range(n_cycles):
+            twin.submit(batches[c])
+            clock_t[0] += 1.0
+            _st, wall, _j, outcome = twin.cycle(torch)
+            want.append(outcome)
+            twin_wall.append(round(wall, 1))
+        twin.close()
+        del twin
+        torch.cuda.empty_cache()
+
+        # ---- the active: durable state, spans at 1.0, the black box, the plan ----
+        clock_t = [0.0]
+        strikes0 = sum(RESILIENT_STRIKES.values())
+        act_dir = os.path.join(root, "active")
+        act = DurableServer(dev, len(existing), lambda: clock_t[0], act_dir, armed=True)
+        act_feed = act.feed(nodes, existing)
+        batches = durable_batches(copy.deepcopy(pods))
+        counts = dict.fromkeys(kb.launch_counts, 0)
+        walls, jms, digests = [], [], []
+        for c in range(n_cycles):
+            act.submit(batches[c])
+            clock_t[0] += 1.0
+            kb.reset_launch_counts()
+            st, wall, j, outcome = act.cycle(torch)
+            for k, v in kb.launch_counts.items():
+                counts[k] += v
+            walls.append(round(wall, 1))
+            jms.append(round(j, 2))
+            check(outcome == want[c], f"durable cycle {c}: bindings / nominations / "
+                  f"evictions / stats differ from the twin's")
+            act.check_cycle(torch, st, f"cycle {c}")
+            act.sched.state.journal.flush()
+            digests.append(act.digest())
+            log(f"phase durable cycle {c}: {st.attempted} pods, placed {st.scheduled}, "
+                f"unschedulable {st.unschedulable}, nominated {st.preemptors}, victims "
+                f"{st.victims}; schedule_cycle wall {wall:.1f} ms (the twin's "
+                f"{twin_wall[c]}), journaling on the serving thread {j:.2f} ms; equal to the "
+                f"twin, every binding valid | {smi}")
+        fired = sorted({(e["point"], e["cycle"]) for e in faults.plan().log})
+        check(fired == [("device_error", 2), ("fetch_delay", 3)],
+              f"durable: the plan fired {fired}")
+        check(act.sched.ladder.rung == 0 and act.sched.ladder.degradations == 0,
+              "durable: the transport fault was not absorbed by the retry")
+        check(sum(RESILIENT_STRIKES.values()) == strikes0 + 1,
+              "durable: the transport fault's retry was not counted")
+        check(all(v == 1 for v in act.cl.bind_count.values()), "durable: a pod bound twice")
+        lost = act.lost()
+        check(not lost, f"durable: {len(lost)} acked pods lost: {lost[:4]}")
+        js = act.sched.state.journal.status()
+        t0 = time.perf_counter()
+        act.sched.state.snapshot()
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        snap_bytes = act.sched.state.last_snapshot["bytes"]
+        bind_ms = [(t - act.submit_t[u]) * 1e3 for u, t in act.cl.bind_t.items()]
+        ack_ms = [ms for ms, b in zip(act.ack_ms, batches) for _ in b]
+        out.update(
+            journal_records=js["appended"], journal_bytes=js["bytes_written"],
+            journal_fsyncs=js["fsync_count"], journal_ms_a_cycle=jms, snapshot_ms=round(snap_ms, 1),
+            snapshot_bytes=snap_bytes, submit_ack_ms=[round(x, 1) for x in act.ack_ms],
+            submit_ack_p50_ms=round(pct(ack_ms, 0.5), 1),
+            submit_ack_p99_ms=round(pct(ack_ms, 0.99), 1),
+            submit_bind_p50_ms=round(pct(bind_ms, 0.5), 1),
+            submit_bind_p99_ms=round(pct(bind_ms, 0.99), 1),
+            wall_ms=walls, twin_wall_ms=twin_wall, feed_ms=round(act_feed, 1),
+            twin_feed_ms=round(twin_feed, 1), spans=dict(act.span_counts), launches=counts)
+        log(f"phase durable journal: {js['appended']} records, {js['bytes_written']} bytes, "
+            f"{js['fsync_count']} fsyncs (the writer thread's group commits); journaling on "
+            f"the serving thread ms a cycle {jms}; snapshot write {snap_ms:.1f} ms "
+            f"({snap_bytes} bytes); handlers {act_feed:.0f} ms (the twin's {twin_feed:.0f}) | "
+            f"{smi}")
+        log(f"phase durable front door: 4 submissions of {len(batches[0])} pods, "
+            f"submit-to-ack ms {out['submit_ack_ms']} (p50 {out['submit_ack_p50_ms']}, p99 "
+            f"{out['submit_ack_p99_ms']} over the pods), submit-to-bind p50 "
+            f"{out['submit_bind_p50_ms']} ms, p99 {out['submit_bind_p99_ms']} ms over "
+            f"{len(bind_ms)} bound pods; spans {json.dumps(act.span_counts)} | {smi}")
+        log(f"phase durable serving-cycle wall ms with state, spans and faults {walls} "
+            f"against the twin's {twin_wall} (same call); the plan fired {fired}, absorbed "
+            f"(rung 0); launches {json.dumps({k: v for k, v in counts.items() if v})}")
+        act.close()
+        del act
+        torch.cuda.empty_cache()
+
+        # ---- failover: the active in a child process, SIGKILLed ----
+        child_dir = os.path.join(root, "child")
+        os.makedirs(child_dir)
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        with open(os.path.join(child_dir, "child.log"), "w") as clog:
+            child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                      "--durable-child", child_dir], cwd=here,
+                                     stdout=clog, stderr=subprocess.STDOUT)
+        lines_path = os.path.join(child_dir, "child.jsonl")
+        try:
+            deadline = time.monotonic() + DURABLE_CHILD_WAIT_S
+            done = False
+            while time.monotonic() < deadline:
+                if os.path.exists(lines_path):
+                    with open(lines_path) as f:
+                        done = "done" in f.read().split("\n")
+                if done:
+                    break
+                if child.poll() is not None:
+                    break
+                time.sleep(0.05)
+            if not done:
+                with open(os.path.join(child_dir, "child.log")) as f:
+                    tail = f.read()[-4000:]
+                check(False, f"durable: the child never reached its flush (exit "
+                      f"{child.poll()}):\n{tail}")
+        finally:
+            if child.poll() is None:
+                child.send_signal(signal.SIGKILL)
+            child.wait()
+        child_s = time.perf_counter() - t0
+        with open(lines_path) as f:
+            rows = [json.loads(x) for x in f.read().split("\n") if x.startswith("{")]
+        check([r["cycle"] for r in rows] == list(range(DURABLE_KILL_AFTER)),
+              "durable: the child's flush lines")
+        check([r["digest"] for r in rows] == digests[:DURABLE_KILL_AFTER],
+              "durable: the child's digests differ from the in-process active's")
+        last = rows[-1]
+        q, c = SchedulingQueue(), SchedulerCache()
+        bare = DurableState(child_dir, snapshot_interval_seconds=0)
+        bare.restore_into(q, c)
+        bare.journal.close()
+        check(state_digest(q, c) == last["digest"],
+              "durable: the restored digest differs from the killed child's last one")
+        n_flight = sum(1 for u in q._in_flight if u not in q._deleted_in_flight)
+        clock_t = [float(DURABLE_KILL_AFTER)]
+        q._now = lambda: clock_t[0]
+        recovered = q.recover_in_flight()
+        standby = DurableServer(dev, len(existing), lambda: clock_t[0], child_dir, box=True)
+        restore = standby.sched.state.last_restore
+        check(standby.digest() == state_digest(q, c),
+              "durable: the standby's state differs from the restore with its in-flight "
+              "pods recovered")
+        log(f"phase durable failover: the child (the active in its own process on the card) "
+            f"SIGKILLed after cycle {DURABLE_KILL_AFTER}'s flush, {child_s:.1f} s from its "
+            f"start; its digests equal the in-process active's; the standby restored "
+            f"{restore['records_replayed']} records in {restore['seconds'] * 1e3:.1f} ms "
+            f"(snapshot {restore['snapshot']}; its constructor {standby.ctor_ms:.0f} ms) to "
+            f"the child's last digest {last['digest'][:12]}, then requeued {recovered} "
+            f"in-flight pods ({n_flight} untombstoned at the kill) | {smi}")
+        standby.acked = list(last["acked"])
+        child_binds = {name for name, _n in last["binds"]}
+        for c in range(DURABLE_KILL_AFTER, n_cycles):
+            standby.submit(batches[c])
+            clock_t[0] += 1.0
+            st, wall, _j, outcome = standby.cycle(torch)
+            standby.check_cycle(torch, st, f"standby cycle {c}")
+            # the sampling window rotates with the encoder's cycle index,
+            # which a standby restarts (it is not durable state, in the
+            # reference either): its nodes may differ from the twin's
+            moved = len(set(outcome[0]) - set(want[c][0]))
+            log(f"phase durable standby cycle {c}: placed {st.scheduled} of {st.attempted} "
+                f"(the twin {want[c][4]['scheduled']} of {want[c][4]['attempted']}; "
+                f"{moved} bindings not the twin's: the sampling window restarts with the "
+                f"standby's cycle index), wall {wall:.1f} ms; every binding valid")
+        names = [name for name, _n in standby.cl.binds]
+        check(len(set(names)) == len(names) and not (set(names) & child_binds),
+              "durable: a pod bound twice across the failover")
+        lost = standby.lost(last["evicted"])
+        check(not lost, f"durable: {len(lost)} acked pods lost across the failover: "
+              f"{lost[:4]}")
+        # ---- the stateless rung: seal, detach, the black box ----
+        sealed = standby.digest()
+        while standby.sched.ladder.rung < RUNG_STATELESS:
+            standby.sched.ladder.degrade("forced by the smoke run")
+        bundles = standby.box.status()["bundles"]
+        check(len(bundles) == 1 and bundles[0].endswith("-stateless.json"),
+              f"durable: the stateless rung left bundles {bundles}")
+        path = os.path.join(child_dir, "blackbox", bundles[0])
+        bundle = load_bundle(path)
+        check(bundle["trigger"] == "stateless" and bundle["flight"]["records"],
+              "durable: the bundle does not read back")
+        q2, c2 = SchedulingQueue(), SchedulerCache()
+        st2 = DurableState(child_dir, snapshot_interval_seconds=0)
+        stats2 = st2.restore_into(q2, c2)
+        st2.journal.close()
+        check(stats2["clean_shutdown"] and stats2["records_replayed"] == 0
+              and state_digest(q2, c2) == sealed, "durable: the sealed snapshot")
+        out.update(restore_ms=round(restore["seconds"] * 1e3, 1),
+                   restore_records=restore["records_replayed"], recovered=recovered,
+                   bundle_bytes=os.path.getsize(path), child_s=round(child_s, 1))
+        log(f"phase durable black box: the stateless rung sealed a clean snapshot (a "
+            f"takeover replays 0 records) and dumped {bundles[0]}, "
+            f"{out['bundle_bytes']} bytes, read back by load_bundle; the phase took "
+            f"{time.time() - t_phase:.1f} s | {smi}")
+        standby.close()
+        del standby
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_k = ["static_base", "claim_pass", "capacity", "guard_sweep", "interpod_terms",
+              "interpod_norm", "affinity_update", "dyn_mask", "dyn_score",
+              "preempt_prefilter", "preempt_whatif", "preempt_claim", "static_rejects",
+              "dyn_rejects", "extender_merge"]
+    for k in want_k:
+        check(counts.get(k, 0) > 0, f"kernel {k} was not launched in the durable cycles")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3764,10 +4284,15 @@ def main(argv=None) -> int:
                     help="a directory holding an earlier design's sources of "
                          "PREV_KERNELS: timed beside the kernels on the same inputs, "
                          "as prev_device_ms")
+    ap.add_argument("--durable-child", default=None, metavar="DIR",
+                    help="internal: phase 12's active in a process of its own, journaling "
+                         "into DIR until the parent SIGKILLs it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.durable_child:
+        return durable_child(args.durable_child)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -4409,6 +4934,9 @@ def main(argv=None) -> int:
     kernels["extender_merge"]["carry_launches"] = sum(
         c["launches"]["extender_merge"] for c in carry_stats.values())
 
+    # ============ durable: state, the front door, spans, black box, faults ============
+    dur_stats = durable_phase(torch, kb, dev, nodes, existing, pending, smi)
+
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
@@ -4450,6 +4978,9 @@ def main(argv=None) -> int:
     for k, v in serve_stats["launches"].items():
         if k in kernels:
             kernels[k]["serving_launches"] = v
+    for k, v in dur_stats["launches"].items():
+        if k in kernels:
+            kernels[k]["durable_launches"] = v
     for k in kernels.values():
         log(f"  kernel {k['name']:17s} ms {k['ms']:9.3f}  device {k['device_ms']:9.4f}  "
             f"bound {k['bound_ms']:8.4f} ({k['bound_by']})  plain {k['plain_ms']:9.3f}  "
@@ -4464,7 +4995,8 @@ def main(argv=None) -> int:
         f"volumes {carry_stats[True]['ms']}, full cycles "
         f"{json.dumps(full_stats['ms'])}, diagnosis ms a frame "
         f"{[c['diagnosis']['ms'] for c in carry_stats.values()]}, cycles with extender "
-        f"verdicts ms {json.dumps(ext_stats['cycle_ms'])}, peak memory "
+        f"verdicts ms {json.dumps(ext_stats['cycle_ms'])}, durable serving-cycle wall ms "
+        f"{dur_stats['wall_ms']} (the twin's {dur_stats['twin_wall_ms']}), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

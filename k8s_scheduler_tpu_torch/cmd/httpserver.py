@@ -13,23 +13,34 @@ production debugging:
 - `/debug/flightrecorder?last=N` — the last N cycle records as JSON plus
   the derived window stats;
 - `/debug/traces?last=N|pod=<uid>|trace=<id>` — a Chrome-trace/Perfetto
-  JSON download of the pipeline's overlapped lanes; `pod=` slices to the
-  cycles that touched that pod (joined through the pod timeline's
-  per-attempt cycle seqs), `trace=` to the cycles stamped with that trace
+  JSON download of the pipeline's overlapped lanes, with the per-pod
+  trace-span tracks (core/spans.py) merged in when a span recorder is
+  given; `pod=` slices to the cycles that touched that pod (joined
+  through the pod timeline's per-attempt cycle seqs and the spans' seq
+  attrs) and to its spans, `trace=` to the cycles and spans of one trace
   id. `/debug/trace` is the deprecated alias (same handler, `Deprecation`
   header);
 - `/debug/explain?pod=<uid>` — the pod's state, its attempts, the
-  first-rejecting plugin of each failed one, and the anomalies that
-  overlapped its cycles;
+  first-rejecting plugin of each failed one, its trace spans' durations,
+  the front door's shed/retry history, and the anomalies that overlapped
+  its cycles;
 - `/debug/pods/<uid>` — the per-pod scheduling timeline;
 - `/debug/anomalies?last=N[&tenant=<id>]` — the cycle observer's typed
-  anomaly ring with per-tenant counts and its status.
+  anomaly ring with per-tenant counts and its status;
+- `/debug/state` — durable-state health (journal lag and segments, fsync
+  latency, last snapshot and last restore) with the degradation ladder's
+  transition ring, when a `DurableState` is given;
+- `POST /submit` — the front door's thin HTTP path: a JSON body
+  `{"pods": [<state/codec pod dicts>]}` admitted through the
+  `AdmissionController` (200 on accept, 429 + Retry-After on shed, 400 on
+  invalid pods, 413 past the body cap, 503 while draining), a W3C
+  `traceparent` request header joining the submission's trace and the
+  effective traceparent echoed as a response header.
 
-The reference's routes over sources this package does not have yet
-(durable state's /debug/state, the metrics history's /debug/metrics/history
-and /debug/dashboard, the alert rules' /debug/alerts, the admission front
-door's POST /submit; ROADMAP A10b) answer as the reference's do when their
-source is not configured: 404, and 405 for the POST.
+The reference's routes over sources this package does not have yet (the
+metrics history's /debug/metrics/history and /debug/dashboard, the alert
+rules' /debug/alerts; ROADMAP A10b) answer as the reference's do when
+their source is not configured: 404.
 
 Served with the stdlib http.server on a daemon thread that
 `stop_http_server` joins. HEAD is answered for every GET route; any other
@@ -38,12 +49,18 @@ method gets 405 with an Allow header."""
 from __future__ import annotations
 
 import json
+import math
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
 from ..metrics import SchedulerMetrics
+
+# POST /submit body cap (the gRPC default's 4 MB message limit): the front
+# door's bounded-memory contract holds on the HTTP path too — a giant
+# Content-Length is refused before any read
+_MAX_SUBMIT_BODY_BYTES = 4 << 20
 
 
 def _parse_last(query: str, default: int = 128) -> int:
@@ -60,6 +77,7 @@ def staleness_healthz(
     max_age_seconds: float,
     observer=None,  # core/observe.CycleObserver | None
     ladder=None,  # core/degrade.DegradationLadder | None
+    admission=None,  # service/admission.AdmissionController | None
 ) -> Callable[[], tuple[bool, dict]]:
     """Health closure with flight-recorder staleness: reports
     `last_cycle_age_s` and flips to not-ok (503) once no scheduling cycle
@@ -69,7 +87,9 @@ def staleness_healthz(
     carries the SLO burn status and `degraded: true` on a fast-window burn
     (still 200: budget burn is a paging signal); with a `ladder` the
     current degradation rung, and any rung below `normal` also reports
-    `degraded: true` (still 200: the ladder is recovering)."""
+    `degraded: true` (still 200: the ladder is recovering); with an
+    `admission` controller its status, and `degraded: true` while the
+    front door would shed an arriving submission right now."""
 
     def healthz() -> tuple[bool, dict]:
         detail = dict(base()) if base is not None else {}
@@ -96,6 +116,12 @@ def staleness_healthz(
                     f"degradation ladder at rung {st['rung']} "
                     f"({st['name']}): {st['last_reason']}",
                 )
+        if admission is not None:
+            detail["admission"] = admission.status()
+            shed_now = admission.overloaded()
+            if shed_now:
+                detail["degraded"] = True
+                detail.setdefault("degraded_reason", f"admission shedding: {shed_now}")
         return ok, detail
 
     return healthz
@@ -112,15 +138,21 @@ def start_http_server(
     healthz: Callable[[], tuple[bool, dict]] | None = None,
     recorder=None,  # core/flight_recorder.FlightRecorder | None
     pod_timeline: Callable[[str], dict | None] | None = None,
+    state=None,  # state.DurableState | None
     observer=None,  # core/observe.CycleObserver | None
+    admission=None,  # service/admission.AdmissionController | None
+    spans_recorder=None,  # core/spans.SpanRecorder | None
 ) -> ThreadingHTTPServer:
     """Serve /healthz, /readyz, /metrics and the /debug endpoints; returns
     the running server (its port at `.server_address[1]`; port=0 picks
     one). `recorder` enables /debug/flightrecorder and /debug/traces (and
     the /debug/trace alias); `pod_timeline` (usually
     `Scheduler.pod_timeline`) enables /debug/pods/<uid>, /debug/explain
-    and the /debug/traces?pod= filter; `observer` enables
-    /debug/anomalies."""
+    and the /debug/traces?pod= filter; `state` enables /debug/state;
+    `observer` enables /debug/anomalies; `admission` enables
+    `POST /submit`; `spans_recorder` (the armed span ring) merges the
+    per-pod trace tracks into /debug/traces and the span durations into
+    /debug/explain."""
     health_fn = healthz or (lambda: (True, {}))
 
     class Handler(BaseHTTPRequestHandler):
@@ -149,6 +181,8 @@ def start_http_server(
                 return self._explain_route(uid)
             if path == "/debug/anomalies" and observer is not None:
                 return self._anomalies_route(query)
+            if path == "/debug/state" and state is not None:
+                return _json(200, state.status())
             if path.startswith("/debug/pods/") and pod_timeline is not None:
                 uid = urllib.parse.unquote(path[len("/debug/pods/"):])
                 tl = pod_timeline(uid) if uid else None
@@ -186,18 +220,31 @@ def start_http_server(
             else:
                 last = None if (pod_uid or trace_id) else 128
             recs = recorder.snapshot(last=last)
+            span_list = None
+            if spans_recorder is not None:
+                if trace_id:
+                    span_list = spans_recorder.for_trace(trace_id)
+                elif pod_uid:
+                    span_list = spans_recorder.for_uid(pod_uid)
+                else:
+                    span_list = spans_recorder.snapshot()
             if pod_uid:
                 if pod_timeline is None:
                     return 404, "text/plain", b"pod filter needs the pod timeline", {}
                 tl = pod_timeline(pod_uid)
-                if tl is None:
+                if tl is None and not span_list:
                     return _json(404, {"error": f"pod {pod_uid!r} not seen"})
-                seqs = {e["cycle"] for e in tl.get("events", ())
+                seqs = {e["cycle"] for e in (tl or {}).get("events", ())
                         if e.get("cycle", -1) >= 0}
+                # spans carry the cycle seq as their exemplar attr: the
+                # reverse join keeps the cycles when the timeline aged out
+                for sp in span_list or ():
+                    if sp.attrs.get("seq", -1) >= 0:
+                        seqs.add(sp.attrs["seq"])
                 recs = [r for r in recs if r.seq in seqs]
             if trace_id:
                 recs = [r for r in recs if trace_id in r.trace_ids]
-            trace = to_chrome_trace(recs, epoch=recorder.epoch)
+            trace = to_chrome_trace(recs, epoch=recorder.epoch, spans=span_list)
             return (200, "application/json", json.dumps(trace).encode(),
                     {"Content-Disposition": 'attachment; filename="scheduler-trace.json"'})
 
@@ -228,6 +275,21 @@ def start_http_server(
                 "first_rejector": rejectors[0] if rejectors else "",
                 "last_rejector": rejectors[-1] if rejectors else "",
             }
+            if admission is not None:
+                # the front door's shed/retry history (present even when
+                # tracing is unarmed)
+                payload["admission_history"] = admission.history_for(uid)
+            if spans_recorder is not None:
+                sp = spans_recorder.for_uid(uid)
+                payload["spans"] = [x.to_dict(epoch=spans_recorder.epoch) for x in sp]
+                totals: dict[str, float] = {}
+                for x in sp:
+                    totals[x.name] = totals.get(x.name, 0.0) + max(x.t1 - x.t0, 0.0) * 1e3
+                payload["span_totals_ms"] = {k: round(v, 4) for k, v in totals.items()}
+                payload["trace_ids"] = sorted({x.trace_id for x in sp})
+                for x in sp:
+                    if x.attrs.get("seq", -1) >= 0:
+                        cycles.add(x.attrs["seq"])
             if observer is not None:
                 payload["anomalies"] = [a for a in observer.anomalies(last=512)
                                         if a.get("seq", -1) in cycles]
@@ -259,9 +321,62 @@ def start_http_server(
             self.end_headers()
             self.wfile.write(body)
 
-        # a read-only surface: every mutating verb is a client error (405 +
-        # Allow), not the stdlib's 501
-        do_POST = _method_not_allowed  # noqa: N815
+        def _submit_route(self) -> tuple[int, bytes, dict[str, str]]:
+            """POST /submit: pods travel as state/codec dicts (the
+            journal's own pod format), so the HTTP wire needs no second
+            codec."""
+            from ..state.codec import pod_from_state
+
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                if length > _MAX_SUBMIT_BODY_BYTES:
+                    return (413, json.dumps({"error": "submission body too large",
+                                             "max_bytes": _MAX_SUBMIT_BODY_BYTES}).encode(),
+                            {})
+                body = json.loads(self.rfile.read(length) or b"{}")
+                pods = [pod_from_state(d) for d in body.get("pods", ())]
+            except (ValueError, KeyError, TypeError) as e:
+                return 400, json.dumps({"error": f"unparseable submission: {e}"}).encode(), {}
+            res = admission.submit(pods, traceparent=self.headers.get("traceparent", ""))
+            payload = {
+                "accepted": res.accepted,
+                "shed": res.shed,
+                "invalid": list(res.invalid),
+                "reason": res.reason,
+                "durable": res.durable,
+                "queue_depth": res.queue_depth,
+            }
+            if res.invalid:
+                status, extra = 400, {}
+            elif res.reason == "draining":
+                status, extra = 503, {}
+            elif res.shed:
+                # RFC 7231 delta-seconds is an integer: the hint rounds up
+                status = 429
+                extra = {"Retry-After": str(max(1, math.ceil(res.retry_after_ms / 1e3)))}
+            else:
+                status, extra = 200, {}
+            if res.traceparent:
+                # the effective trace context (the caller's own header, or
+                # the head-sampled root the scheduler minted)
+                extra = dict(extra, traceparent=res.traceparent)
+            return status, json.dumps(payload).encode(), extra
+
+        def do_POST(self):  # noqa: N802 — the one mutating route
+            if admission is None or urllib.parse.urlsplit(self.path).path != "/submit":
+                self._method_not_allowed()
+                return
+            status, body, extra = self._submit_route()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in extra.items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        # every other mutating verb is a client error on a read-only
+        # surface (405 + Allow), not the stdlib's 501
         do_PUT = _method_not_allowed  # noqa: N815
         do_DELETE = _method_not_allowed  # noqa: N815
         do_PATCH = _method_not_allowed  # noqa: N815

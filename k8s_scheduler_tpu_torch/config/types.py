@@ -4,10 +4,11 @@ port reads — profiles with per-extension-point plugin sets and args
 weights, `commit_mode`, `gang_scheduling`,
 `percentage_of_nodes_to_score`, the serving fields the `Scheduler` reads
 (backoff, `forced_sync`, the flight recorder and SLO, the degradation
-ladder, the dispatch deadline, the encoder's pads, `extenders`) and the
-fields of features later slices port (`multi_cycle_k`,
-`speculative_dispatch`, `compile_cache_dir`, `shard_devices`,
-`fault_spec`: the `Scheduler` refuses a configuration that turns one on),
+ladder, the dispatch deadline, the encoder's pads, `extenders`, fault
+injection, durable state, the front door, tracing and the black box) and
+the fields of features later slices port (`multi_cycle_k`,
+`speculative_dispatch`, `compile_cache_dir`, `shard_devices`: the
+`Scheduler` refuses a configuration that turns one on),
 with the reference's defaults, and `load_config` for those fields under
 their upstream names. The port keeps its own copy."""
 
@@ -117,8 +118,28 @@ class SchedulerConfiguration:
     dispatch_deadline_ms: float = 0.0
     # clean cycles before the degradation ladder steps back up
     degrade_promote_cycles: int = 8
-    # fault injection spec (ROADMAP A10b); "" disarms
+    # fault injection (core/faults.py): a FaultPlan spec like
+    # "fetch_hang@cycle=40:ms=5000" (env SCHED_FAULTS when this is
+    # empty); "" disarms
     fault_spec: str = ""
+    # the front door (service/admission.py): bound on the admission
+    # queue (pending pods in every queue tier); a Submit that would pass
+    # it is shed whole with a retry-after hint. 0 disables the bound.
+    admission_queue_depth: int = 65536
+    # retry-after hint (ms) of a shed submission (HTTP Retry-After)
+    admission_retry_after_ms: float = 250.0
+    # pod-lifecycle tracing (core/spans.py): head-sampling probability of
+    # a submission without a traceparent (deterministic per pod uid);
+    # 0 leaves tracing unarmed, 1 traces every pod
+    trace_sample_rate: float = 1.0 / 64.0
+    # durable state (state/): directory of the write-ahead journal and
+    # the snapshots; "" disables durability
+    state_dir: str = ""
+    # snapshot cadence in seconds (0 = journal only, never compact)
+    snapshot_interval_seconds: float = 60.0
+    # crash black box (core/blackbox.py): bundles kept under
+    # <stateDir>/blackbox/ (0 disables capture)
+    blackbox_retention: int = 8
 
     def profile(self, scheduler_name: str = "default-scheduler") -> Profile:
         for p in self.profiles:
@@ -237,6 +258,12 @@ def load_config(source: "str | dict") -> SchedulerConfiguration:
         dispatch_deadline_ms=float(data.get("dispatchDeadlineMs", 0.0)),
         degrade_promote_cycles=int(data.get("degradePromoteCycles", 8)),
         fault_spec=str(data.get("faultSpec", "")),
+        admission_queue_depth=int(data.get("admissionQueueDepth", 65536)),
+        admission_retry_after_ms=float(data.get("admissionRetryAfterMs", 250.0)),
+        trace_sample_rate=float(data.get("traceSampleRate", 1.0 / 64.0)),
+        state_dir=str(data.get("stateDir", "")),
+        snapshot_interval_seconds=_duration_seconds(data.get("snapshotInterval", 60.0)),
+        blackbox_retention=int(data.get("blackboxRetention", 8)),
         extenders=[
             Extender(
                 url_prefix=e["urlPrefix"],

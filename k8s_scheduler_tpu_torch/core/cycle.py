@@ -85,6 +85,7 @@ from ..ops import static_base as static_base_ops
 from ..ops import volume_mask as volume_mask_ops
 from ..ops.argsel import wrap_i32
 from ..utils.device import resolve_device
+from . import faults as _faults
 
 
 @dataclasses.dataclass
@@ -181,10 +182,16 @@ def _gang_unwind(snap, assignment, node_requested):
 
 # failure signatures of a device or dispatch error (the reference's
 # classes, `core/cycle.py:206-265`): a transport flake of a remote dispatch
-# (nothing corrupted: re-invoke), and a wedged device — on the card CUDA's
-# sticky errors, which leave the process's context unusable until a
-# restart (the reference's wedge: fail fast). The reference's third class,
-# a corrupt cached XLA executable, has no counterpart here.
+# (nothing corrupted: re-invoke); a kernel image that does not fit the
+# device (the reference's corrupt cached executable: on the card a stale
+# or foreign build of a kernel library — retried, as the reference retries
+# after clearing its executable cache); and a wedged device — on the card
+# CUDA's sticky errors, which leave the process's context unusable until a
+# restart (the reference's wedge: fail fast).
+_CORRUPT_MARKERS = (
+    "no kernel image is available",
+    "invalid device function",
+)
 _WEDGE_MARKERS = (
     "illegal memory access",
     "unspecified launch failure",
@@ -211,12 +218,15 @@ def is_transport_error(e: BaseException) -> bool:
 
 def classify_failure(e: BaseException) -> str:
     """Failure class of a device/dispatch error, by the precedence
-    `_Resilient` recovers with: transport, then wedge, else other. Feeds
-    `scheduler_fetch_failures_total{class}` and the degradation ladder's
-    transition reasons."""
+    `_Resilient` recovers with: transport, then corrupt, then wedge, else
+    other. Feeds `scheduler_fetch_failures_total{class}` and the
+    degradation ladder's transition reasons."""
+    msg = str(e)
     if is_transport_error(e):
         return "transport"
-    if any(m in str(e) for m in _WEDGE_MARKERS):
+    if any(m in msg for m in _CORRUPT_MARKERS):
+        return "corrupt"
+    if any(m in msg for m in _WEDGE_MARKERS):
         return "wedge"
     return "other"
 
@@ -242,9 +252,12 @@ def _record_strike(program: str, kind: str) -> None:
 class _Resilient:
     """Retry wrapper for a built program (reference `core/cycle.py:273`),
     around a plain callable: a transport flake re-invokes after a short
-    backoff (at most three attempts); a wedge records its strike and
-    raises at once; anything else raises. Every strike is counted in
-    `RESILIENT_STRIKES`."""
+    backoff, a kernel image that does not fit re-invokes at once (at most
+    three attempts either way); a wedge records its strike and raises at
+    once; anything else raises. Every strike is counted in
+    `RESILIENT_STRIKES`. An armed fault plan's `device_error` raises
+    inside the retried call, so the injected fault walks the same
+    recovery."""
 
     def __init__(self, fn: Callable, name: str) -> None:
         self._fn = fn
@@ -253,13 +266,18 @@ class _Resilient:
     def __call__(self, *a, **k):
         for attempt in range(3):
             try:
+                if _faults.ARMED:
+                    _faults.raise_device_error()
                 return self._fn(*a, **k)
             except Exception as e:
                 cls = classify_failure(e)
                 if cls == "wedge":
                     _record_strike(self.__name__, "backend_wedge")
-                if cls != "transport" or attempt == 2:
+                if cls not in ("transport", "corrupt") or attempt == 2:
                     raise
+                if cls == "corrupt":
+                    _record_strike(self.__name__, "executable_cache")
+                    continue
                 _record_strike(self.__name__, "transport")
                 import time
 

@@ -1,8 +1,8 @@
 """The port's copy of `k8s_scheduler_tpu/core/flight_recorder.py` (pure Python, the
-reference's names and structure), with pure-Python copies of the two
-functions it imports lazily there: `overlap_from_records`
-(reference `core/profiling.py:255`) and `spans_to_chrome_events`
-(reference `core/spans.py:431`).
+reference's names and structure), with a pure-Python copy of the function
+it imports lazily there: `overlap_from_records` (reference
+`core/profiling.py:255`); the span tracks come from the port's
+`core/spans.py`.
 
 Cycle flight recorder: bounded per-cycle phase marks + pod timelines.
 
@@ -45,6 +45,8 @@ import dataclasses
 import threading
 import time as _time
 from typing import Any, Callable, Iterable
+
+from .spans import spans_to_chrome_events
 
 # chrome-trace lane (tid) layout: one process, three threads. Perfetto
 # renders each tid as its own track, so the overlap between the host
@@ -568,7 +570,7 @@ def to_chrome_trace(
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
-# ---- copies of the reference's helpers (core/profiling.py, core/spans.py) --
+# ---- a copy of the reference's helper (core/profiling.py) ----------------
 
 
 def overlap_from_records(
@@ -602,51 +604,3 @@ def overlap_from_records(
         else 0.0,
     }
 
-
-TRACE_TRACK_PID = 2
-
-
-def spans_to_chrome_events(spans: Iterable, epoch: float = 0.0) -> "list[dict]":
-    """Chrome-trace events for per-trace tracks (the reference's
-    `core/spans.spans_to_chrome_events`): one tid per trace_id (named by
-    the trace's pod uids), each span an `X` slice whose args carry the
-    span/parent ids and attrs. A span is any object with `name`,
-    `trace_id`, `span_id`, `parent`, `t0`, `t1` and `attrs`."""
-    events: "list[dict]" = []
-    tids: "dict[str, int]" = {}
-    uids: "dict[str, set]" = {}
-    tenants: "dict[str, set]" = {}
-    spans = list(spans)
-    for s in spans:
-        tid = tids.setdefault(s.trace_id, len(tids) + 1)
-        uid = s.attrs.get("uid")
-        if uid:
-            uids.setdefault(s.trace_id, set()).add(uid)
-        tn = s.attrs.get("tenant")
-        if tn:
-            tenants.setdefault(s.trace_id, set()).add(tn)
-    if not tids:
-        return events
-    events.append({"name": "process_name", "ph": "M", "pid": TRACE_TRACK_PID,
-                   "args": {"name": "pod traces"}})
-    for trace_id, tid in tids.items():
-        pods = ",".join(sorted(uids.get(trace_id, ()))) or "?"
-        tn = ",".join(sorted(tenants.get(trace_id, ())))
-        prefix = f"tenant {tn} " if tn else ""
-        events.append({"name": "thread_name", "ph": "M", "pid": TRACE_TRACK_PID,
-                       "tid": tid,
-                       "args": {"name": f"{prefix}trace {trace_id[:8]} pod={pods}"}})
-        events.append({"name": "thread_sort_index", "ph": "M",
-                       "pid": TRACE_TRACK_PID, "tid": tid,
-                       "args": {"sort_index": tid}})
-    for s in spans:
-        events.append({
-            "name": s.name, "ph": "X", "pid": TRACE_TRACK_PID,
-            "tid": tids[s.trace_id],
-            "ts": round((s.t0 - epoch) * 1e6, 3),
-            "dur": round(max(s.t1 - s.t0, 0.0) * 1e6, 3),
-            "cat": "pod-trace",
-            "args": {"trace_id": s.trace_id, "span_id": s.span_id,
-                     "parent": s.parent, **s.attrs},
-        })
-    return events

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from . import faults as _faults
 
 
 class DispatchDeadlineExceeded(RuntimeError):
@@ -395,8 +396,19 @@ class ServingPipeline:
         return self._fetch_bytes_total
 
     def fetch_decisions(self, fn):
-        """Run the one blocking wait of the decision path, under the
-        watchdog when `dispatch_deadline_s` > 0."""
+        """Run the one blocking wait of the decision path with the fault
+        hooks and (when `dispatch_deadline_s` > 0) the watchdog applied.
+        `fetch_delay` sleeps OUTSIDE the bounded call (a slow transfer:
+        visible latency); `fetch_hang` sleeps INSIDE it (a wedged transfer:
+        exactly what the deadline bounds)."""
+        if _faults.ARMED:
+            _faults.sleep_point("fetch_delay")
+            inner = fn
+
+            def fn():
+                _faults.sleep_point("fetch_hang")
+                return inner()
+
         d = self.dispatch_deadline_s
         if d and d > 0:
             return self._fetch_worker.run(fn, d)

@@ -34,14 +34,27 @@ winners bind before the preemption and diagnosis programs are enqueued
 cache before cycle k+1's encode reads it. `forced_sync` restores
 sequential execution.
 
+Durable state (`state=`, a `state.DurableState`): attached in the
+constructor — the snapshot and journal tail restored, then every queue and
+cache mutation journaled, and the pods in flight at a predecessor's crash
+requeued — one journal batch record a cycle's apply phase, interval
+snapshots between cycles, and seal-and-detach at the `stateless` rung. The
+front door (`service/admission.py`) closes each pod's submit->bind window
+at its bind; armed tracing (`core/spans.py`) stamps the dispatch, decision,
+apply, bind and preemption spans of every sampled pod; an armed black box
+(`core/blackbox.py`) dumps a bundle at a watchdog abort and at the
+`stateless` rung; a fault plan (`faultSpec` / SCHED_FAULTS,
+`core/faults.py`) is armed in the constructor and stamps its cycle index
+(and any clock skew) at the top of each cycle.
+
 Not in this slice, and refused when a configuration turns them on:
 multi-cycle dispatch and speculation (`multiCycleK` > 1, ROADMAP A11), the
-persistent compile cache (`compileCacheDir`), fault injection
-(`faultSpec`) and durable state (`state=`) (ROADMAP A10b), and
+persistent compile cache (`compileCacheDir`, ROADMAP A10b), and
 multi-device serving (`shardDevices` > 1, ROADMAP A13)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -83,6 +96,9 @@ from .degrade import (
     RUNG_STATELESS,
     DegradationLadder,
 )
+from . import blackbox as _blackbox
+from . import faults as _faults
+from . import spans as _spans
 from .events import EventRecorder, failed_scheduling_message
 from .flight_recorder import FlightRecorder
 
@@ -109,7 +125,7 @@ def _pad(n: int, bucket: int = 64) -> int:
     return ((n + bucket - 1) // bucket) * bucket
 
 
-def _refuse_unported(config: SchedulerConfiguration, state) -> None:
+def _refuse_unported(config: SchedulerConfiguration) -> None:
     """Serving features later slices port: a configuration that turns one
     on is refused by name, never ignored."""
     cc = config.compile_cache_dir
@@ -123,11 +139,6 @@ def _refuse_unported(config: SchedulerConfiguration, state) -> None:
         (int(config.shard_devices) > 1,
          f"shardDevices={config.shard_devices} (multi-device serving) is not "
          "ported yet (ROADMAP A13)"),
-        (bool(config.fault_spec or os.environ.get("SCHED_FAULTS", "")),
-         "faultSpec / SCHED_FAULTS (fault injection) is not ported yet "
-         "(ROADMAP A10b)"),
-        (state is not None,
-         "durable state (state=) is not ported yet (ROADMAP A10b)"),
     )
     for on, why in checks:
         if on:
@@ -148,12 +159,14 @@ class Scheduler:
         forced_sync: bool | None = None,  # None = config.forced_sync
         flight_recorder: FlightRecorder | None = None,  # None = build from
         # config.flight_recorder_size (0 disables recording)
-        state: "object | None" = None,  # durable state: ROADMAP A10b
+        state: "object | None" = None,  # state.DurableState | None:
+        # attach() restores any existing state BEFORE the first cycle (the
+        # standby-takeover path) and starts journaling mutations
         device=None,  # None = the card (raises without one); "cpu" runs
         # the plain versions
     ) -> None:
         self.config = config or SchedulerConfiguration()
-        _refuse_unported(self.config, state)
+        _refuse_unported(self.config)
         self.device = resolve_device(device)
         names = [p.scheduler_name for p in self.config.profiles]
         if len(set(names)) != len(names):
@@ -178,6 +191,21 @@ class Scheduler:
         )
         self.binder = binder or (lambda pod, node: None)
         self.evictor = evictor or (lambda pod, node: None)
+        # the submission front door (service/admission.py) attaches itself
+        # here so _bind can close the submit->bind window and
+        # _commit_record can stamp it on the cycle record
+        self.admission = None
+        # durable state: restore-then-journal, after queue/cache exist and
+        # before any cycle, so a standby that just won the lease resumes
+        # with the exact backoff deadlines, attempt counts and assumed pods
+        # the dead active had journaled
+        self.state = state
+        if state is not None:
+            state.attach(self.queue, self.cache)
+            # pods that were mid-cycle when the previous leader died have
+            # no outcome records: requeue them (journaled), or the first
+            # pop_ready would drop them with no informer to re-deliver
+            self.queue.recover_in_flight()
         self.events = events or EventRecorder()
         if flight_recorder is not None:
             self.flight: FlightRecorder | None = flight_recorder
@@ -218,11 +246,24 @@ class Scheduler:
             observer=self.observer,
             on_transition=self._on_rung_transition,
         )
+        if state is not None:
+            # /debug/state shows the current rung next to the journal
+            state.degradation = self.ladder
         # watchdog bound on the blocking decision fetch (0 = unbounded)
         self._dispatch_deadline_s = (
             max(float(self.config.dispatch_deadline_ms), 0.0) / 1e3
         )
+        # fault injection (core/faults.py): armed process-globally from
+        # config faultSpec / env SCHED_FAULTS; unarmed, every hook is a
+        # dead branch
+        self._fault_plan = None
         self._cycle_counter = 0
+        fault_spec = self.config.fault_spec or os.environ.get("SCHED_FAULTS", "")
+        if fault_spec:
+            self._fault_plan = _faults.FaultPlan.parse(fault_spec)
+            _faults.arm(self._fault_plan)
+            logging.getLogger(__name__).warning(
+                "fault injection ARMED: %s", fault_spec)
         self._now = now
         self._pad_bucket = pad_bucket
         self._groups: dict[str, PodGroup] = {}
@@ -285,6 +326,12 @@ class Scheduler:
         self.n_devices = 1
         self.metrics.shard_devices.set(self.n_devices)
         self._collective_payload: dict[str, int] = {}
+        # one device, no mesh (multi-device serving is ROADMAP A13): the
+        # layout /debug/state shows next to the journal
+        self._shard_status = {"n_devices": self.n_devices, "mesh": None,
+                              "collective_payload_bytes": self._collective_payload}
+        if state is not None:
+            state.sharding = self._shard_status
         # extenders keep the carry path when every one opts into the
         # verdict carry (carryVerdicts: its Filter/Prioritize verdicts are
         # deterministic per pod, so rows persist on the device and only
@@ -538,6 +585,10 @@ class Scheduler:
     def on_pod_delete(self, pod_uid: str) -> None:
         self.cache.remove_pod(pod_uid)
         self.queue.delete(pod_uid)
+        if self.admission is not None:
+            # a pod deleted before binding leaves the front door's
+            # accepted-pending set, or its uid stays "already pending"
+            self.admission.note_delete(pod_uid)
         self.queue.move_all_to_active_or_backoff(EVENT_POD_DELETE)
         if self.flight is not None:
             self.flight.pod_event(pod_uid, "", "Deleted")
@@ -599,6 +650,11 @@ class Scheduler:
         self._cycle_counter += 1
         self._cycle_fault = False
         t0 = self._now()
+        if _faults.ARMED:
+            # the ambient cycle index of the fault rules' windows, and the
+            # clock_skew injection point
+            _faults.set_cycle(self._cycle_counter)
+            t0 += _faults.skew_s()
         stats = CycleStats()
         self.last_nominations = []
         self.last_evictions = []
@@ -613,6 +669,8 @@ class Scheduler:
         if not pending_all:
             # gauges track deletions / moves between non-empty cycles too
             self._update_gauges()
+            if self.state is not None:
+                self.state.maybe_snapshot()
             return stats
         stats.attempted += len(pending_all)
         self.metrics.cycle_pods.observe(len(pending_all))
@@ -649,6 +707,11 @@ class Scheduler:
         if stats.attempted > 0 and not self._cycle_fault:
             self.ladder.note_clean_cycle(seq=self._cycle_counter)
         self._update_gauges()
+        if self.state is not None:
+            # interval-gated journal compaction, after cycle_seconds is
+            # stamped: snapshots ride between cycles, never inside the
+            # bind path
+            self.state.maybe_snapshot()
         return stats
 
     def _encode_packed_host(self, encoder, nodes, pending, existing, kw):
@@ -893,6 +956,12 @@ class Scheduler:
         for k, v in (extra_marks or {}).items():
             rec.mark(k, v)
         rec.phases.update(extra_phases or {})
+        if self.admission is not None:
+            # front door: worst admission-accept -> bind latency among this
+            # record's binds (collected by _bind via note_bind)
+            sb_ms = self.admission.take_bind_latency_ms()
+            if sb_ms > 0.0:
+                rec.phases["submit_bind_ms"] = sb_ms
         rec.sig = _packing.shape_signature(spec)
         if compile_source:
             rec.compile_source = compile_source
@@ -923,7 +992,35 @@ class Scheduler:
             ),
             **(extra_counts or {}),
         )
+        if _spans.ARMED:
+            self._emit_cycle_spans(rec, pending)
         self.flight.commit(rec)
+
+    def _emit_cycle_spans(self, rec, pending) -> None:
+        """Armed-only: this record's serve-side spans (dispatch,
+        decision.row, apply.fold) for every sampled pod it carried, and the
+        record's `trace_ids` exemplar join. All windows come from the
+        record's own marks (the recorder's perf_counter clock, the span
+        ring's base too)."""
+        ctxs = []
+        for p in pending:
+            c = _spans.ctx_for(p.uid)
+            if c is not None:
+                ctxs.append((p.uid, c))
+        if not ctxs:
+            return
+        m = rec.marks
+        d0, d1 = m.get("dispatch_start"), m.get("dispatch_end")
+        r0, r1 = m.get("decision_start"), m.get("decision_end")
+        a0, a1 = m.get("apply_start"), m.get("winners_end")
+        for uid, c in ctxs:
+            if d0 is not None and d1 is not None:
+                _spans.record_span("dispatch", c, d0, d1, uid=uid, seq=rec.seq)
+            if r0 is not None and r1 is not None:
+                _spans.record_span("decision.row", c, r0, r1, uid=uid, seq=rec.seq)
+            if a0 is not None and a1 is not None:
+                _spans.record_span("apply.fold", c, a0, a1, uid=uid, seq=rec.seq)
+        rec.trace_ids = tuple(dict.fromkeys(c.trace_id for _u, c in ctxs))
 
     def _cycle_failed(
         self,
@@ -969,20 +1066,43 @@ class Scheduler:
                 rung=new_rung,
             )
             self.flight.commit(rec)
+        if _blackbox.ARMED and cls == "deadline":
+            # a watchdog-aborted dispatch is a black-box trigger: capture
+            # the rings now — a later kill -9 must still find this bundle
+            _blackbox.trigger("watchdog", f"profile={profile} seq={seq} {e}")
 
     def _on_rung_transition(self, old: int, new: int, reason: str) -> None:
         """A rung's side effects (outside the ladder lock). `sequential`
         and `forced_sync` are read at dispatch time; `retrace` drops every
         memoized program set and stable table so the next cycle rebuilds
-        them; `stateless` would seal durable state, which this slice does
-        not have."""
+        them; `stateless` seals durable state for failover and detaches
+        it, pins the ladder's floor there, and dumps the black box."""
         if new >= old and new >= RUNG_RETRACE:
             with self._packed_lock:
                 self._packed.clear()
             self._dev_stable.clear()
+        if new >= RUNG_STATELESS and old < RUNG_STATELESS and self.state is not None:
+            # seal-for-failover: a final snapshot + journal close, so the
+            # standby restores a clean boundary; then detach so this
+            # process's further mutations stop journaling
+            try:
+                self.state.seal()
+                self.state.detach()
+                logging.getLogger(__name__).warning(
+                    "durable state sealed + detached for failover "
+                    "(degradation rung 'stateless'): %s", reason)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "seal-for-failover failed; continuing stateless "
+                    "(journal tail on disk is the fallback)")
+            # durability is gone for this process either way: the ladder
+            # never reports "normal" while mutations go unjournaled
+            self.ladder.floor = RUNG_STATELESS
         if new >= RUNG_STATELESS and old < RUNG_STATELESS:
             logging.getLogger(__name__).warning(
                 "degradation rung 'stateless' reached: %s", reason)
+            if _blackbox.ARMED:
+                _blackbox.trigger("stateless", reason)
 
     def _apply_phase(
         self,
@@ -1005,8 +1125,11 @@ class Scheduler:
         preemption force, loser requeue, victim eviction. Winners and
         losers are classified once with numpy, the per-plugin attribution
         is forced once as a matrix (`reject_counts_fn()`), outcome metrics
-        batch per cycle; per-pod calls that carry semantics — assume, host
-        plugins, bind, events, timelines — stay per pod, in slot order.
+        batch per cycle, and every journal record of the fold coalesces
+        into ONE batch record (`state.batch()`, which replays to the digest
+        of N single records); per-pod calls that carry semantics — assume,
+        host plugins, bind, events, timelines — stay per pod, in slot
+        order.
 
         `force_pre()` enqueues the deferred programs and forces the
         cycle's preemption output: `(nominated[:P_real] | None,
@@ -1033,148 +1156,169 @@ class Scheduler:
         a = np.asarray(assignment[: len(pending)])
         win_idx = np.flatnonzero(a >= 0)
         lose_idx = np.flatnonzero(a < 0)
-        n_bound = 0
-        for i in win_idx:
-            i = int(i)
-            pod = pending[i]
-            node_name = nodes[int(a[i])].name
-            try:
-                # a per-pod error (the uid raced to bound via an informer
-                # echo mid-cycle) must not kill the loop
-                self.cache.assume(pod, node_name)
-            except ValueError:
-                stats.bind_errors += 1
-                _pev(pod, "BindError", node=node_name, stage="assume")
-                self.metrics.observe_attempt("error", per_pod_s(), profile)
-                continue
-            # Reserve -> Permit -> PreBind host extension points
-            try:
-                run_reserve_permit_prebind(self.host_plugins, pod, node_name)
-            except HostPluginRejection as rej:
-                self.cache.forget(pod.uid)
-                if rej.point == "PreBind":
-                    # transient pre-bind failure: retry with backoff
+        # ONE journal group-append per cycle: every record the fold emits
+        # (assume / bind / requeue / evict) buffers into a single batch
+        # record, appended when the scope exits
+        batch_cm = (self.state.batch() if self.state is not None
+                    else contextlib.nullcontext())
+        with batch_cm:
+            n_bound = 0
+            for i in win_idx:
+                i = int(i)
+                pod = pending[i]
+                node_name = nodes[int(a[i])].name
+                try:
+                    # a per-pod error (the uid raced to bound via an informer
+                    # echo mid-cycle) must not kill the loop
+                    self.cache.assume(pod, node_name)
+                except ValueError:
+                    stats.bind_errors += 1
+                    _pev(pod, "BindError", node=node_name, stage="assume")
+                    self.metrics.observe_attempt("error", per_pod_s(), profile)
+                    continue
+                # Reserve -> Permit -> PreBind host extension points
+                try:
+                    run_reserve_permit_prebind(self.host_plugins, pod, node_name)
+                except HostPluginRejection as rej:
+                    self.cache.forget(pod.uid)
+                    if rej.point == "PreBind":
+                        # transient pre-bind failure: retry with backoff
+                        self.queue.requeue_backoff(pod)
+                        stats.bind_errors += 1
+                        _pev(pod, "BindError", node=node_name,
+                             stage="PreBind", plugin=rej.plugin)
+                        self.metrics.observe_attempt("error", per_pod_s(), profile)
+                    else:
+                        # Reserve / Permit veto: unschedulable, attributed to
+                        # the vetoing host plugin
+                        self.events.failed_scheduling(
+                            pod, f"{rej.plugin} rejected at {rej.point}: {rej.reason}"
+                        )
+                        self.queue.requeue_unschedulable(pod, reasons=(rej.plugin,))
+                        stats.unschedulable += 1
+                        _pev(pod, "Rejected", node=node_name,
+                             stage=rej.point, plugin=rej.plugin)
+                        self.metrics.observe_attempt(
+                            "unschedulable", per_pod_s(), profile)
+                    continue
+                t_bind = self._now()
+                try:
+                    self._bind(pod, node_name)
+                except Exception:
+                    run_unreserve(self.host_plugins, pod, node_name)
+                    self.cache.forget(pod.uid)
                     self.queue.requeue_backoff(pod)
                     stats.bind_errors += 1
-                    _pev(pod, "BindError", node=node_name,
-                         stage="PreBind", plugin=rej.plugin)
+                    _pev(pod, "BindError", node=node_name, stage="bind")
                     self.metrics.observe_attempt("error", per_pod_s(), profile)
-                else:
-                    # Reserve / Permit veto: unschedulable, attributed to
-                    # the vetoing host plugin
-                    self.events.failed_scheduling(
-                        pod, f"{rej.plugin} rejected at {rej.point}: {rej.reason}"
+                    continue
+                self.metrics.binding_duration.observe(self._now() - t_bind)
+                self.cache.finish_binding(pod.uid)
+                run_post_bind(self.host_plugins, pod, node_name)
+                self.events.scheduled(pod, node_name)
+                _pev(pod, "Bound", node=node_name)
+                stats.scheduled += 1
+                self.metrics.pod_scheduling_attempts.observe(
+                    self.queue.attempts_of(pod.uid)
+                )
+                n_bound += 1
+            if n_bound:
+                self.metrics.observe_attempts("scheduled", per_pod_s(), profile, n_bound)
+
+            # losers: enqueue the deferred programs and force preemption now
+            t_winners = self._now()
+            if rec is not None:
+                rec.mark("winners_end", fr.now())
+            nominated, victims = force_pre()
+            t_post = self._now()
+            if rec is not None:
+                rec.mark("postfilter_end", fr.now())
+            self.metrics.cycle_duration.labels(phase="postfilter").observe(
+                t_post - t_winners
+            )
+
+            rej_mat = None
+            n_unsched = 0
+            reason_incs: dict[str, int] = {}
+            for i in lose_idx:
+                i = int(i)
+                pod = pending[i]
+                if i in extender_errors:
+                    self.queue.requeue_backoff(pod)
+                    stats.bind_errors += 1
+                    _pev(pod, "BindError", stage="extender")
+                    self.metrics.observe_attempt("error", per_pod_s(), profile)
+                    continue
+                if nominated is not None and nominated[i] >= 0:
+                    pod.nominated_node_name = nodes[int(nominated[i])].name
+                    _pev(pod, "Nominated", node=pod.nominated_node_name)
+                    # in-place mutation: the delta encoder must re-read this
+                    # pod's slot next cycle
+                    self._nominated_mut[profile].add(id(pod))
+                    self.last_nominations.append((pod, pod.nominated_node_name))
+                    stats.preemptors += 1
+                if gang_dropped[i]:
+                    reasons = ("Coscheduling",)
+                    message = (
+                        f"pod group {pod.spec.pod_group!r} did not "
+                        "reach minMember; all-or-nothing placement "
+                        "rolled back"
                     )
-                    self.queue.requeue_unschedulable(pod, reasons=(rej.plugin,))
-                    stats.unschedulable += 1
-                    _pev(pod, "Rejected", node=node_name,
-                         stage=rej.point, plugin=rej.plugin)
-                    self.metrics.observe_attempt(
-                        "unschedulable", per_pod_s(), profile)
-                continue
-            t_bind = self._now()
-            try:
-                self._bind(pod, node_name)
-            except Exception:
-                run_unreserve(self.host_plugins, pod, node_name)
-                self.cache.forget(pod.uid)
-                self.queue.requeue_backoff(pod)
-                stats.bind_errors += 1
-                _pev(pod, "BindError", node=node_name, stage="bind")
-                self.metrics.observe_attempt("error", per_pod_s(), profile)
-                continue
-            self.metrics.binding_duration.observe(self._now() - t_bind)
-            self.cache.finish_binding(pod.uid)
-            run_post_bind(self.host_plugins, pod, node_name)
-            self.events.scheduled(pod, node_name)
-            _pev(pod, "Bound", node=node_name)
-            stats.scheduled += 1
-            self.metrics.pod_scheduling_attempts.observe(
-                self.queue.attempts_of(pod.uid)
-            )
-            n_bound += 1
-        if n_bound:
-            self.metrics.observe_attempts("scheduled", per_pod_s(), profile, n_bound)
-
-        # losers: enqueue the deferred programs and force preemption now
-        t_winners = self._now()
-        if rec is not None:
-            rec.mark("winners_end", fr.now())
-        nominated, victims = force_pre()
-        t_post = self._now()
-        if rec is not None:
-            rec.mark("postfilter_end", fr.now())
-        self.metrics.cycle_duration.labels(phase="postfilter").observe(
-            t_post - t_winners
-        )
-
-        rej_mat = None
-        n_unsched = 0
-        reason_incs: dict[str, int] = {}
-        for i in lose_idx:
-            i = int(i)
-            pod = pending[i]
-            if i in extender_errors:
-                self.queue.requeue_backoff(pod)
-                stats.bind_errors += 1
-                _pev(pod, "BindError", stage="extender")
-                self.metrics.observe_attempt("error", per_pod_s(), profile)
-                continue
-            if nominated is not None and nominated[i] >= 0:
-                pod.nominated_node_name = nodes[int(nominated[i])].name
-                _pev(pod, "Nominated", node=pod.nominated_node_name)
-                # in-place mutation: the delta encoder must re-read this
-                # pod's slot next cycle
-                self._nominated_mut[profile].add(id(pod))
-                self.last_nominations.append((pod, pod.nominated_node_name))
-                stats.preemptors += 1
-            if gang_dropped[i]:
-                reasons = ("Coscheduling",)
-                message = (
-                    f"pod group {pod.spec.pod_group!r} did not "
-                    "reach minMember; all-or-nothing placement "
-                    "rolled back"
+                else:
+                    if rej_mat is None:
+                        rej_mat = reject_counts_fn()
+                    per_plugin = list(zip(filter_names, rej_mat[i]))
+                    reasons = tuple(name for name, n in per_plugin if n > 0)
+                    message = failed_scheduling_message(len(nodes), per_plugin)
+                for r in reasons:
+                    reason_incs[r] = reason_incs.get(r, 0) + 1
+                _pev(pod, "Unschedulable", plugin=reasons[0] if reasons else "")
+                self.events.failed_scheduling(pod, message)
+                self.queue.requeue_unschedulable(pod, reasons=reasons)
+                stats.unschedulable += 1
+                n_unsched += 1
+            for r, cnt in reason_incs.items():
+                self.metrics.unschedulable_reasons.labels(
+                    plugin=r, profile=profile
+                ).inc(cnt)
+            if n_unsched:
+                self.metrics.observe_attempts(
+                    "unschedulable", per_pod_s(), profile, n_unsched
                 )
-            else:
-                if rej_mat is None:
-                    rej_mat = reject_counts_fn()
-                per_plugin = list(zip(filter_names, rej_mat[i]))
-                reasons = tuple(name for name, n in per_plugin if n > 0)
-                message = failed_scheduling_message(len(nodes), per_plugin)
-            for r in reasons:
-                reason_incs[r] = reason_incs.get(r, 0) + 1
-            _pev(pod, "Unschedulable", plugin=reasons[0] if reasons else "")
-            self.events.failed_scheduling(pod, message)
-            self.queue.requeue_unschedulable(pod, reasons=reasons)
-            stats.unschedulable += 1
-            n_unsched += 1
-        for r, cnt in reason_incs.items():
-            self.metrics.unschedulable_reasons.labels(
-                plugin=r, profile=profile
-            ).inc(cnt)
-        if n_unsched:
-            self.metrics.observe_attempts(
-                "unschedulable", per_pod_s(), profile, n_unsched
-            )
 
-        if victims is not None and victims.any():
-            # victims belong to the preemptor nominated onto their node
-            preemptor_by_node = {
-                node: pod.name for pod, node in self.last_nominations
-            }
-            n_vict = 0
-            for e in np.flatnonzero(victims):
-                vpod, vnode = existing[int(e)]
-                self.evictor(vpod, vnode)
-                self.last_evictions.append((vpod, vnode))
-                _pev(vpod, "Evicted", node=vnode,
-                     preemptor=preemptor_by_node.get(vnode, ""))
-                self.events.preempted(
-                    vpod, preemptor_by_node.get(vnode, "<pending>")
+            if victims is not None and victims.any():
+                # victims belong to the preemptor nominated onto their node
+                preemptor_by_node = {
+                    node: pod.name for pod, node in self.last_nominations
+                }
+                # armed-only: the preemptor pod by node, so a victim's span
+                # joins the PREEMPTOR's trace
+                preemptor_pod_by_node = (
+                    {node: pod for pod, node in self.last_nominations}
+                    if _spans.ARMED else {}
                 )
-                n_vict += 1
-            stats.victims += n_vict
-            self.metrics.preemption_victims.observe(n_vict)
+                n_vict = 0
+                for e in np.flatnonzero(victims):
+                    vpod, vnode = existing[int(e)]
+                    t_ev0 = _spans.now() if _spans.ARMED else 0.0
+                    self.evictor(vpod, vnode)
+                    self.last_evictions.append((vpod, vnode))
+                    _pev(vpod, "Evicted", node=vnode,
+                         preemptor=preemptor_by_node.get(vnode, ""))
+                    self.events.preempted(
+                        vpod, preemptor_by_node.get(vnode, "<pending>")
+                    )
+                    if _spans.ARMED:
+                        pre = preemptor_pod_by_node.get(vnode)
+                        c = _spans.ctx_for(pre.uid) if pre is not None else None
+                        if c is not None:
+                            _spans.record_span(
+                                "preempt.victim", c, t_ev0, _spans.now(),
+                                uid=pre.uid, victim=vpod.uid, node=vnode,
+                                seq=rec.seq if rec is not None else -1)
+                    n_vict += 1
+                stats.victims += n_vict
+                self.metrics.preemption_victims.observe(n_vict)
 
         # apply = winner bind loop + loser requeue loop (the preemption
         # force between them is the "postfilter" phase)
@@ -1184,12 +1328,24 @@ class Scheduler:
 
     def _bind(self, pod: Pod, node_name: str) -> None:
         """Bind, delegating to the first bind-verb extender (upstream: an
-        extender with a bind verb replaces the default binder)."""
+        extender with a bind verb replaces the default binder). A bind
+        that returns closes the pod's submit->bind window at the front
+        door and stamps its bind.confirm span; a raising one is a bind
+        error and does neither."""
+        t_b0 = _spans.now() if _spans.ARMED else 0.0
         for ext in self.extenders:
             if ext.is_binder:
                 ext.bind(pod, node_name)
-                return
-        self.binder(pod, node_name)
+                break
+        else:
+            self.binder(pod, node_name)
+        if self.admission is not None:
+            self.admission.note_bind(pod.uid)
+        if _spans.ARMED:
+            c = _spans.ctx_for(pod.uid)
+            if c is not None:
+                _spans.record_span("bind.confirm", c, t_b0, _spans.now(),
+                                   uid=pod.uid, node=node_name)
 
     def _update_gauges(self) -> None:
         self.metrics.set_pending(self.queue.pending_counts())
@@ -1202,6 +1358,10 @@ class Scheduler:
         if self.flight is not None and self.flight.cycles:
             d = self.flight.derived()
             self.metrics.pipeline_overlap.set(d["overlap_ratio"])
+        if self.admission is not None:
+            # the cycle refresh keeps the gauge falling as the queue drains
+            # when no new submission arrives to re-stamp it
+            self.metrics.admission_queue_depth.set(self.admission.queue_depth())
 
     def pod_timeline(self, uid: str) -> dict | None:
         """The per-pod scheduling timeline: the flight recorder's pod

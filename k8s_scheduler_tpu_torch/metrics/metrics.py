@@ -5,7 +5,8 @@ with the card does not have.
 `SchedulerMetrics` keeps the reference's metric names, help strings' gist
 and label sets for every metric the port's serving code writes (the
 `Scheduler`, `ServingPipeline`, `CycleObserver`, `DegradationLadder`,
-`CompileWarmer`): counters, gauges (with `set_function`, evaluated when
+`CompileWarmer`, `DurableState`, `AdmissionController`, the span
+recorder): counters, gauges (with `set_function`, evaluated when
 read), histograms (per-bucket counts) and summaries, each
 with `.labels(...)` children, read with `get()` (a histogram's or summary's
 sum) and `count`. `scheduler_build_info` carries torch, CUDA and the
@@ -367,8 +368,29 @@ class SchedulerMetrics:
         self.fetch_failures = Counter(
             "scheduler_fetch_failures_total",
             "Consumed cycles whose blocking decision fetch raised, by "
-            "failure class (transport | wedge | deadline | other).",
+            "failure class (transport | corrupt | wedge | deadline | other).",
             ["class"], registry=r)
+        # ---- submission front door (service/admission.py) ----
+        self.admission_total = Counter(
+            "scheduler_admission_total",
+            "Submitted pods by admission outcome (accepted | shed | "
+            "invalid); shed = explicit backpressure, never silent loss.",
+            ["outcome"], registry=r)
+        self.admission_queue_depth = Gauge(
+            "scheduler_admission_queue_depth",
+            "Admission queue depth (pending pods across all queue "
+            "tiers) as of the last submit or cycle.", registry=r)
+        self.submit_ack = Histogram(
+            "scheduler_submit_ack_seconds",
+            "Submit-to-ack latency of accepted submissions, including "
+            "the WAL-before-ack group-fsync barrier.",
+            buckets=_DURATION_BUCKETS, registry=r)
+        # ---- pod-lifecycle tracing (core/spans.py) ----
+        self.trace_spans = Counter(
+            "scheduler_trace_spans_total",
+            "Pod-lifecycle trace spans recorded, by span name (the "
+            "core/spans.SPAN_NAMES inventory; serves /debug/traces).",
+            ["name"], registry=r)
         self.build_info = Gauge(
             "scheduler_build_info",
             "Constant 1 gauge carrying the build/runtime fingerprint as "
@@ -379,6 +401,43 @@ class SchedulerMetrics:
             "Seconds since SchedulerMetrics construction.", registry=r)
         _t0 = _time.monotonic()
         self.uptime.set_function(lambda: float(int(_time.monotonic() - _t0)))
+        # ---- durable state (state/: journal + snapshots + restore) ----
+        self.journal_appends = Counter(
+            "scheduler_journal_appends_total",
+            "Write-ahead-journal records appended, by logical op.",
+            ["op"], registry=r)
+        self.journal_bytes = Counter(
+            "scheduler_journal_bytes_total",
+            "Encoded journal bytes written to segment files.", registry=r)
+        self.journal_fsync = Histogram(
+            "scheduler_journal_fsync_seconds",
+            "Group-commit fsync latency (one fsync per drained batch, "
+            "issued only by the journal writer thread).",
+            buckets=_DURATION_BUCKETS, registry=r)
+        self.journal_buffer = Gauge(
+            "scheduler_journal_buffer_depth",
+            "Journal records appended but not yet durable (journal lag).",
+            registry=r)
+        self.journal_segments = Gauge(
+            "scheduler_journal_segments",
+            "Journal segment files currently on disk.", registry=r)
+        self.snapshot_writes = Counter(
+            "scheduler_snapshot_writes_total",
+            "Snapshot compactions written durably.", registry=r)
+        self.snapshot_duration = Histogram(
+            "scheduler_snapshot_duration_seconds",
+            "Snapshot dump+write+prune latency.",
+            buckets=_DURATION_BUCKETS, registry=r)
+        self.snapshot_bytes = Gauge(
+            "scheduler_snapshot_last_bytes",
+            "Size of the newest durable snapshot.", registry=r)
+        self.restore_records = Gauge(
+            "scheduler_snapshot_last_restore_records",
+            "Journal records replayed by the most recent restore "
+            "(0 after a clean-shutdown takeover).", registry=r)
+        self.restore_duration = Gauge(
+            "scheduler_snapshot_last_restore_seconds",
+            "Duration of the most recent snapshot+tail restore.", registry=r)
         # ---- leader election (cmd/leaderelection.py FileLease) ----
         self.leader_state = Gauge(
             "scheduler_leader_state",
@@ -393,7 +452,7 @@ class SchedulerMetrics:
         self.program_retry_strikes = Counter(
             "scheduler_program_retry_strikes_total",
             "Program retries absorbed by the resilience wrapper (kind = "
-            "transport | backend_wedge).",
+            "transport | executable_cache | backend_wedge).",
             ["program", "kind"], registry=r)
 
     # ---- convenience recorders ------------------------------------------

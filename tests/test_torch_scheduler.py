@@ -291,7 +291,6 @@ def test_fixture_exercises_what_it_claims(name, commit_mode):
     ({"multi_cycle_k": 4}, "A11"),
     ({"compile_cache_dir": "/nonexistent"}, "A10b"),
     ({"shard_devices": 2}, "A13"),
-    ({"fault_spec": "fetch_hang@cycle=1:ms=10"}, "A10b"),
 ])
 def test_unported_serving_features_raise(kw, item):
     cfg = port_config.SchedulerConfiguration(**kw)
@@ -303,8 +302,6 @@ def test_unported_entry_points_raise():
     s = port_core.Scheduler(device="cpu")
     with pytest.raises(NotImplementedError, match="A10b"):
         s.profile_cycle()
-    with pytest.raises(NotImplementedError, match="A10b"):
-        port_core.Scheduler(device="cpu", state=object())
     with pytest.raises(NotImplementedError, match="A11"):
         port_core.ServingPipeline(lambda *a: None, device="cpu").dispatch_multi()
 
