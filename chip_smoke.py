@@ -5,7 +5,8 @@ NVIDIA GPU.
     python3 chip_smoke.py [--prev-csrc DIR]
 
 (`--durable-child DIR` is internal: phase 12 starts the script again with
-it, as the active of its failover check.)
+it, as the active of its failover check; so is `--compile-child DIR
+--compile-role cold|warm`, phase 13's two processes on one kernel cache.)
 
 Drives the port's main path — `SnapshotEncoder.encode` then the rounds-
 engine latency cycle `build_cycle_fn(commit_mode="rounds", outputs=
@@ -34,7 +35,9 @@ over them: the port's `Scheduler` driven through its informer handlers
 and `schedule_cycle()` (phase 10), then with HTTP extenders and their
 verdicts through every program (phase 11), then with durable state, the
 admission front door, spans, the black box and a fault plan, and a
-failover to a standby (phase 12).
+failover to a standby (phase 12), then a warm restart from the persistent
+kernel cache, the profiling pass, the watchtower and the fuzz
+differential against the oracle (phase 13).
 
 Phases:
 
@@ -334,6 +337,32 @@ Phases:
                 ms, the standby's restore ms, submit-to-ack and
                 submit-to-bind p50 / p99, the cycles' wall against the
                 twin's, the bundle's bytes.
+ 13. compile  — (a) two child processes (`--compile-child`) on one empty
+                `compileCacheDir`, each a `Scheduler` over config #4 (seed
+                202) that loads every CUDA library (a thread each) and the
+                Triton kernels, then serves COMPILE_CYCLES carry cycles
+                and prints a digest of each cycle's bindings: the cold one,
+                with `faultSpec` cache_torn@n=1, runs nvcc for all 15
+                sources and lands one torn entry; the warm one must run
+                nvcc once (the torn entry, refused loudly), take the other
+                14 from the cache, build no Triton kernel and give the cold
+                one's digests. (b) In the warm one: `profile_cycle(
+                repeats=3)` (per-plugin ms on the card, both histograms
+                filled), `trace_cycle` on a third carry cycle (the trace's
+                bytes and device-kernel events), the watchtower armed
+                before the cycles (`arm_watchtower`, the built-in rules
+                scaled by 0.01), its three endpoints answering 200, and a
+                black-box bundle with `alerts` and `metrics_history`. (c)
+                Here: the clean corpus files replay clean on the card, the
+                tiebreak file with its bug fails with `divergence/binds`
+                through K13's last-max instance (`scan_commit_tie_last`;
+                it and K9's, built together under the bug, are first held
+                against the mutated plain versions on K13's and K9's
+                seeded edge cases), the tenant file is refused (ROADMAP
+                A12), then seeded `run_case` traces (plain, durable,
+                incremental in turn) for FUZZ_SECONDS with zero failures.
+                The first log line of phase 1 says whether grpc and
+                google.protobuf import on this machine.
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -3890,9 +3919,12 @@ class DurableServer:
                                                                self_confirming_front_door)
         from k8s_scheduler_tpu_torch.state import DurableState
 
+        # no kernel cache (a state dir would derive one, and its child and
+        # standby would build every kernel cold): phase 13 measures it
         cfg = SchedulerConfiguration(pad_existing=n_existing + N_PENDING,
                                      pad_pods_per_node=2 * CARRY_MPN,
-                                     fault_spec=DURABLE_PLAN if armed else "")
+                                     fault_spec=DURABLE_PLAN if armed else "",
+                                     compile_cache_dir="off")
         self.cl = DurableCluster()
         self.span_counts: dict[str, int] = {}
         if armed:
@@ -4274,6 +4306,359 @@ def durable_phase(torch, kb, dev, nodes, existing, pending, smi) -> dict:
     return out
 
 
+COMPILE_CYCLES = 2  # phase 13's serving cycles a child
+COMPILE_CHILD_WAIT_S = 300.0
+FUZZ_SECONDS = 45.0  # phase 13's seeded run_case traces: as many as this allows
+FUZZ_CORPUS = ("attribution_static_dyn_split", "tiebreak_argmax_last")
+
+
+def grpc_fact() -> str:
+    """Whether grpc and google.protobuf import here, with their versions or
+    the error (the gRPC shim's prerequisite, ROADMAP A10b)."""
+    out = []
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            m = __import__(mod, fromlist=["__version__"])
+            out.append(f"{mod} {getattr(m, '__version__', '?')}")
+        except Exception as e:  # any import failure is the fact to record
+            out.append(f"{mod} missing ({type(e).__name__}: {e})")
+    return "; ".join(out)
+
+
+def triton_builds(root: str) -> int:
+    """Kernels Triton compiled into its cache directory (one cubin each)."""
+    n = 0
+    for _, _, files in os.walk(root):
+        n += sum(f.endswith(".cubin") for f in files)
+    return n
+
+
+def compile_child(cache_dir: str, role: str) -> int:
+    """`chip_smoke.py --compile-child DIR --compile-role cold|warm`: phase
+    13's process with the persistent kernel cache at DIR. It opens the
+    cache through a `Scheduler` with `compileCacheDir` DIR (the cold one
+    with `faultSpec` cache_torn@n=1), loads every CUDA library (one thread
+    each) and compiles the Triton kernels, feeds config #4 (seed 202)
+    through the handlers and runs COMPILE_CYCLES carry serving cycles; the
+    warm one then runs `profile_cycle(repeats=3)`, `trace_cycle` on a
+    further carry cycle, the watchtower (armed before the cycles, the
+    built-in rules scaled by 0.01) and its three endpoints, and dumps a
+    black-box bundle. Its last stdout line is one JSON object."""
+    import hashlib
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    t_proc = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from k8s_scheduler_tpu_torch.cmd.httpserver import start_http_server, stop_http_server
+    from k8s_scheduler_tpu_torch.cmd.watchtower import arm_watchtower, disarm_watchtower
+    from k8s_scheduler_tpu_torch.config import SchedulerConfiguration
+    from k8s_scheduler_tpu_torch.core import Scheduler, blackbox, faults
+    from k8s_scheduler_tpu_torch.core.profiling import TRACE_FILE, trace_cycle
+    from k8s_scheduler_tpu_torch.metrics.rules import builtin_rules, scale_rules
+    from k8s_scheduler_tpu_torch.ops import claim_pass as cp
+    from k8s_scheduler_tpu_torch.ops import extender_merge as em
+    from k8s_scheduler_tpu_torch.ops import kernel_build as kb
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    warm = role == "warm"
+    nodes, existing, pending = synth.config4_workload((SERVE_SEED,), N_NODES, N_EXISTING,
+                                                      N_PENDING)
+    clock_t = [0.0]
+    cfg = SchedulerConfiguration(
+        compile_cache_dir=cache_dir, fault_spec="" if warm else "cache_torn@n=1",
+        pad_existing=len(existing) + len(pending[SERVE_SEED]),
+        pad_pods_per_node=2 * CARRY_MPN, metrics_ticker_seconds=0.2)
+    cl = ServeCluster()
+    t_ready0 = time.perf_counter()
+    sch = Scheduler(cfg, binder=cl.bind, evictor=cl.evict, now=lambda: clock_t[0],
+                    device=dev)
+    cl.sched = sch
+    cc = sch._compile_cache
+    triton_dir = os.environ["TRITON_CACHE_DIR"]
+    tri0 = triton_builds(triton_dir)
+    errs: list[BaseException] = []
+
+    def load(name):
+        try:
+            kb.load_cuda_library(name)
+        except BaseException as e:  # re-raised on the main thread below
+            errs.append(e)
+
+    threads = [threading.Thread(target=load, args=(n,)) for n in kb.CUDA_KERNELS]
+    for th in threads:
+        th.start()
+    z = torch.zeros((2, 8), device=dev)
+    zb = torch.zeros((2, 8), dtype=torch.bool, device=dev)
+    cp.claim_pass_triton(z, ~zb, zb, zb[:, 0], None,
+                         torch.zeros(2, dtype=torch.int32, device=dev),
+                         torch.full((2,), -1, dtype=torch.int32, device=dev))
+    em.extender_merge_triton(z, sampling=(torch.zeros(2, dtype=torch.int32, device=dev),
+                                          torch.tensor(8, device=dev),
+                                          torch.tensor(8, device=dev)))
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if errs:
+        raise errs[0]
+    ready_s = time.perf_counter() - t_ready0
+    stats = {"role": role, "nvcc": int(kb.build_stats["nvcc"]),
+             "hits": int(kb.build_stats["hits"]), "misses": int(kb.build_stats["misses"]),
+             "load_s": round(kb.build_stats["load_s"], 4), "ready_s": round(ready_s, 2),
+             "process_to_ready_s": round(time.perf_counter() - t_proc, 2),
+             "triton_builds": triton_builds(triton_dir) - tri0,
+             "triton_in_cache": os.path.abspath(triton_dir).startswith(
+                 os.path.abspath(cache_dir)),
+             "entries": cc.status()["entries"], "entry_bytes": cc.entry_bytes(),
+             "fired": sorted(faults.plan().fired_points()) if faults.plan() else [],
+             "metric_hits": sch.metrics.compile_cache_hits.get(),
+             "metric_misses": sch.metrics.compile_cache_misses.get()}
+    store = engine = None
+    if warm:
+        store, engine = arm_watchtower(cfg, sch, rules=scale_rules(builtin_rules(), 0.01))
+    t0 = time.perf_counter()
+    for nd in nodes:
+        sch.on_node_add(nd)
+    for pod, node in existing:
+        sch.on_pod_add(pod, node)
+    for pod in pending[SERVE_SEED]:
+        sch.on_pod_add(pod)
+    stats["feed_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+    digests, walls = [], []
+    for c in range(COMPILE_CYCLES):
+        nb = len(cl.binds)
+        clock_t[0] += 1.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sch.schedule_cycle()
+        torch.cuda.synchronize()
+        walls.append(round((time.perf_counter() - t0) * 1e3, 1))
+        digests.append(hashlib.sha256(json.dumps(sorted(cl.binds[nb:])).encode())
+                       .hexdigest()[:16])
+        check(st.scheduled == len(cl.binds) - nb, f"compile child: cycle {c} binds")
+    stats.update(digests=digests, cycle_wall_ms=walls, bound=len(cl.binds),
+                 triton_builds_after_cycles=triton_builds(triton_dir) - tri0)
+    if warm:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_watch_")
+        # the profiling pass over the pods the cycles left pending
+        t0 = time.perf_counter()
+        report = sch.profile_cycle(repeats=3)
+        stats["profile_s"] = round(time.perf_counter() - t0, 2)
+        stats["profile_ms"] = {k: round(v["seconds"] * 1e3, 4) for k, v in report.items()}
+        stats["profile_pending"] = len(list(sch.queue.all_pending()))
+        n_plugin = sum(c.count for c in sch.metrics.plugin_duration._children.values())
+        n_point = sum(c.count for c in sch.metrics.extension_point_duration._children.values())
+        check(report and n_plugin > 0 and n_point > 0,
+              f"compile child: profile_cycle filled {n_plugin} / {n_point} histogram samples")
+        stats["histogram_samples"] = {"plugin": n_plugin, "extension_point": n_point}
+        # one more carry cycle under torch.profiler, 500 arrivals of
+        # config #4's mix
+        for pod in synth.make_pods(SERVE_ARRIVALS, seed=SERVE_SEED + 1000,
+                                   name_prefix="trace-", **synth.CONFIG4_PENDING):
+            sch.on_pod_add(pod)
+        clock_t[0] += 1.0
+        trace_cycle(lambda _: sch.schedule_cycle(), None, tmp)
+        path = os.path.join(tmp, TRACE_FILE)
+        with open(path) as f:
+            ev = json.load(f).get("traceEvents", [])
+        stats["trace_bytes"] = os.path.getsize(path)
+        stats["trace_kernels"] = sum(1 for e in ev if e.get("cat") == "kernel")
+        check(stats["trace_kernels"] > 0, "compile child: the cycle's trace has no kernel")
+        # the watchtower's endpoints and the black box
+        time.sleep(0.5)  # a few ticks of the registry sampler
+        srv = start_http_server(sch.metrics, port=0, recorder=sch.flight,
+                                observer=sch.observer, tsdb=store, alerts=engine,
+                                dashboard=cfg.debug_dashboard)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        scraped = {}
+        try:
+            for route in ("/debug/metrics/history", "/debug/alerts", "/debug/dashboard"):
+                with urllib.request.urlopen(base + route, timeout=30) as r:
+                    check(r.status == 200, f"compile child: {route} answered {r.status}")
+                    scraped[route] = len(r.read())
+        finally:
+            stop_http_server(srv)
+        inv = store.families()
+        stats.update(scraped_bytes=scraped, history_families=len(inv),
+                     history_series=store.status()["series"], ticks=store.ticks,
+                     alert_evaluations=engine.status()["evaluations"],
+                     alerts_fired=engine.status()["fired_total"])
+        box = blackbox.BlackBox(os.path.join(tmp, "blackbox"), recorder=sch.flight,
+                                observer=sch.observer, tsdb=store, engine=engine,
+                                ladder=sch.ladder, events=sch.events)
+        bpath = box.dump("smoke", "phase 13")
+        bundle = blackbox.load_bundle(bpath)
+        check("alerts" in bundle and "metrics_history" in bundle,
+              f"compile child: the bundle lacks alerts / metrics_history: {sorted(bundle)}")
+        stats["bundle_bytes"] = os.path.getsize(bpath)
+        stats["bundle_series"] = len(bundle["metrics_history"]["series"])
+        disarm_watchtower(sch, store)
+    faults.disarm()
+    print(json.dumps({"compile_child": stats}))
+    return 0
+
+
+def run_compile_child(cache_dir: str, role: str) -> dict:
+    """One phase-13 child on the card; its stats line."""
+    t0 = time.time()
+    # without this process's TRITON_CACHE_DIR (phase 2 compiled into it):
+    # the child's Triton kernels compile under the kernel cache's tree
+    env = {k: v for k, v in os.environ.items() if k != "TRITON_CACHE_DIR"}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--compile-child", cache_dir,
+         "--compile-role", role],
+        capture_output=True, text=True, timeout=COMPILE_CHILD_WAIT_S, env=env)
+    if proc.returncode != 0:
+        log(f"phase compile {role} child stderr tail:\n{proc.stderr[-4000:]}")
+    check(proc.returncode == 0, f"the {role} compile child exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"compile_child"')]
+    check(bool(lines), f"the {role} compile child printed no stats")
+    refused = [ln for ln in proc.stderr.splitlines() if "REFUSING" in ln]
+    out = json.loads(lines[-1])["compile_child"]
+    out["refused"] = refused
+    out["wall_s"] = round(time.time() - t0, 1)
+    return out
+
+
+def compile_phase(torch, kb, dev, smi) -> dict:
+    """Phase 13: (a) the persistent kernel cache across two processes, cold
+    then warm, on one empty directory; (b) in the warm one the profiling
+    pass, a traced cycle and the watchtower; (c) here, the fuzz differential
+    on the card: the corpus, the tiebreak bug through K13's last-max
+    instance, seeded `run_case` traces (plain, durable, incremental) for
+    FUZZ_SECONDS. Returns the phase's numbers."""
+    import tempfile
+
+    from k8s_scheduler_tpu_torch.fuzz import (engine_bug, generate_trace, replay_artifact,
+                                              run_case)
+
+    t_phase = time.time()
+    out: dict = {}
+    # ---- (a) + (b) ----
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_kscc_")
+    cold = run_compile_child(cache_dir, "cold")
+    log(f"phase compile cold child: {json.dumps(cold)} | {smi}")
+    warm = run_compile_child(cache_dir, "warm")
+    log(f"phase compile warm child: {json.dumps(warm)} | {smi}")
+    n_cuda = len(kb.CUDA_KERNELS)
+    check(cold["nvcc"] == n_cuda and cold["misses"] == n_cuda and cold["hits"] == 0,
+          f"cold child: {cold['nvcc']} nvcc runs, {cold['hits']} hits, {cold['misses']} misses")
+    check(cold["fired"] == ["cache_torn"], f"cold child: faults fired {cold['fired']}")
+    check(warm["nvcc"] == 1 and warm["misses"] == 1 and warm["hits"] == n_cuda - 1,
+          f"warm child: {warm['nvcc']} nvcc runs, {warm['hits']} hits, "
+          f"{warm['misses']} misses (want 1, {n_cuda - 1}, 1)")
+    check(len(warm["refused"]) == 1, f"warm child refused {len(warm['refused'])} entries")
+    check(warm["metric_hits"] == n_cuda - 1 and warm["metric_misses"] == 1,
+          "warm child: the compile-cache metric families disagree with the counts")
+    check(cold["triton_in_cache"] and warm["triton_in_cache"],
+          "a child's Triton kernels compiled outside the kernel cache's tree")
+    check(cold["triton_builds_after_cycles"] > 0 and warm["triton_builds_after_cycles"] == 0,
+          f"Triton builds: cold {cold['triton_builds_after_cycles']}, warm "
+          f"{warm['triton_builds_after_cycles']}")
+    check(cold["digests"] == warm["digests"],
+          f"binding digests differ: cold {cold['digests']}, warm {warm['digests']}")
+    log(f"phase compile: the warm child ran nvcc once (the torn entry, refused: "
+        f"{warm['refused'][0].strip()[-120:]}), took {warm['hits']} libraries from the "
+        f"cache in {warm['load_s']:.3f} s; kernels ready cold {cold['ready_s']} s, warm "
+        f"{warm['ready_s']} s; Triton builds cold {cold['triton_builds_after_cycles']}, warm "
+        f"{warm['triton_builds_after_cycles']}; entries {warm['entries']}, "
+        f"{warm['entry_bytes']} bytes; "
+        f"digests equal {cold['digests']}")
+    out.update(cold=cold, warm=warm)
+    # ---- (c) the fuzzer on the card ----
+    # the harness's last-max instances of K13 and K9, built now (one nvcc
+    # each, together), held against their plain versions under the same
+    # mutation on the seeded edge cases
+    with engine_bug("tiebreak"):
+        t0 = time.time()
+        errs: list[BaseException] = []
+
+        def build(name):
+            try:
+                kb.load_cuda_library(name)
+            except BaseException as e:  # re-raised on the main thread below
+                errs.append(e)
+
+        ths = [threading.Thread(target=build, args=(n,)) for n in kb.HARNESS_KERNELS]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        if errs:
+            raise errs[0]
+        build_s = time.time() - t0
+        kb.reset_launch_counts()
+        n_scan = len(scan_edge_checks(torch, dev))
+        n_claim = len(claim_edge_checks(torch, dev))
+        h = dict(kb.harness_launch_counts)
+        check(h["scan_commit_tie_last"] == n_scan and h["preempt_claim_tie_last"] == n_claim
+              and kb.launch_counts["scan_commit"] == 0 and kb.launch_counts["preempt_claim"] == 0,
+              f"the tie-break mutation launched {json.dumps(h)}")
+    log(f"phase fuzz harness instances: scan_commit_tie_last and preempt_claim_tie_last "
+        f"built in {build_s:.1f} s, equal to the mutated plain versions on {n_scan} K13 "
+        f"and {n_claim} K9 edge cases")
+    out["harness_build_s"] = round(build_s, 1)
+    corpus = Path(__file__).resolve().parent / "tests" / "corpus"
+    for name in FUZZ_CORPUS:
+        t0 = time.time()
+        fails = replay_artifact(str(corpus / f"{name}.json"), device=dev)
+        check(fails == [], f"corpus {name} did not replay clean: {fails}")
+        log(f"phase fuzz corpus {name}: clean ({(time.time() - t0) * 1e3:.0f} ms)")
+    kb.reset_launch_counts()
+    t0 = time.time()
+    fails = replay_artifact(str(corpus / "tiebreak_argmax_last.json"), with_bug=True,
+                            device=dev)
+    tie = {**kb.launch_counts, **kb.harness_launch_counts}
+    check([f.cls for f in fails] == ["divergence/binds"],
+          f"tiebreak bug: {[str(f) for f in fails]}")
+    check(tie["scan_commit_tie_last"] > 0 and tie["scan_commit"] == 0,
+          f"tiebreak bug: K13 launches {tie['scan_commit']}, its last-max instance "
+          f"{tie['scan_commit_tie_last']}")
+    log(f"phase fuzz tiebreak bug: {fails[0]} through K13's last-max instance "
+        f"({tie['scan_commit_tie_last']} launches, {(time.time() - t0) * 1e3:.0f} ms; K9's "
+        f"instance {tie['preempt_claim_tie_last']})")
+    out["tie_last_launches"] = tie["scan_commit_tie_last"]
+    try:
+        replay_artifact(str(corpus / "tenant_row_skew_cross_leak.json"), device=dev)
+        check(False, "the tenant corpus file was not refused")
+    except NotImplementedError as e:
+        check("A12" in str(e), f"tenant refusal names no ROADMAP item: {e}")
+        log(f"phase fuzz tenant_row_skew_cross_leak: refused ({e})")
+    kb.reset_launch_counts()
+    counts = {"plain": 0, "durable": 0, "incremental": 0}
+    failures: list[str] = []
+    t0 = time.time()
+    seed = 0
+    while time.time() - t0 < FUZZ_SECONDS:
+        kind = ("plain", "durable", "incremental")[seed % 3]
+        tr = generate_trace(seed, multi_cycle=False)
+        if kind == "incremental":
+            tr.config["incremental_encode"] = True
+        state = tempfile.mkdtemp(prefix="chip_smoke_fuzz_") + "/state" if kind == "durable" else ""
+        f = run_case(tr, state_dir=state, device=dev)
+        failures += [f"seed {seed} {kind}: {x}" for x in f]
+        counts[kind] += 1
+        seed += 1
+    fuzz_s = time.time() - t0
+    launches = {k: v for k, v in {**kb.launch_counts, **kb.harness_launch_counts}.items()
+                if v}
+    log(f"phase fuzz seeded run_case: {sum(counts.values())} traces in {fuzz_s:.1f} s "
+        f"({json.dumps(counts)}), {len(failures)} failures; launches {json.dumps(launches)}")
+    check(not failures, f"seeded fuzz failures: {failures[:5]}")
+    check(launches.get("scan_commit", 0) > 0, "the seeded traces launched no K13")
+    out.update(fuzz_traces=counts, fuzz_s=round(fuzz_s, 1), fuzz_launches=launches,
+               seconds=round(time.time() - t_phase, 1))
+    log(f"phase compile + fuzz took {out['seconds']} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4287,12 +4672,19 @@ def main(argv=None) -> int:
     ap.add_argument("--durable-child", default=None, metavar="DIR",
                     help="internal: phase 12's active in a process of its own, journaling "
                          "into DIR until the parent SIGKILLs it")
+    ap.add_argument("--compile-child", default=None, metavar="DIR",
+                    help="internal: phase 13's process with the persistent kernel cache "
+                         "at DIR")
+    ap.add_argument("--compile-role", default="cold", choices=("cold", "warm"),
+                    help="internal: which of phase 13's two processes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.durable_child:
         return durable_child(args.durable_child)
+    if args.compile_child:
+        return compile_child(args.compile_child, args.compile_role)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -4329,6 +4721,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi_line()
     log(f"phase device: {name} x{torch.cuda.device_count()} | nvidia-smi: {smi} "
         f"| torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"phase device, the gRPC shim's packages: {grpc_fact()}")
 
     # ---- 2. build: one nvcc per CUDA source, all at once, while Triton
     # compiles K2 ----
@@ -4937,6 +5330,11 @@ def main(argv=None) -> int:
     # ============ durable: state, the front door, spans, black box, faults ============
     dur_stats = durable_phase(torch, kb, dev, nodes, existing, pending, smi)
 
+    # ============ compile cache, profiling, watchtower, the fuzzer ============
+    comp_stats = compile_phase(torch, kb, dev, smi)
+    kernels["scan_commit"]["tie_last_launches"] = comp_stats["tie_last_launches"]
+    kernels["scan_commit"]["fuzz_launches"] = comp_stats["fuzz_launches"].get("scan_commit", 0)
+
     kernels["interpod_terms"] = kernel_entry(
         "interpod_terms", "cuda", "k8s_scheduler_tpu_torch/csrc/interpod_terms.cu",
         "k8s_scheduler_tpu/ops/interpod.py:374", launches["interpod_terms"], 0.0,
@@ -4996,7 +5394,9 @@ def main(argv=None) -> int:
         f"{json.dumps(full_stats['ms'])}, diagnosis ms a frame "
         f"{[c['diagnosis']['ms'] for c in carry_stats.values()]}, cycles with extender "
         f"verdicts ms {json.dumps(ext_stats['cycle_ms'])}, durable serving-cycle wall ms "
-        f"{dur_stats['wall_ms']} (the twin's {dur_stats['twin_wall_ms']}), peak memory "
+        f"{dur_stats['wall_ms']} (the twin's {dur_stats['twin_wall_ms']}), kernels ready "
+        f"cold / warm {comp_stats['cold']['ready_s']} / {comp_stats['warm']['ready_s']} s, "
+        f"fuzz traces {json.dumps(comp_stats['fuzz_traces'])}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

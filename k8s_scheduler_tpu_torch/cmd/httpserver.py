@@ -30,6 +30,15 @@ production debugging:
 - `/debug/state` — durable-state health (journal lag and segments, fsync
   latency, last snapshot and last restore) with the degradation ladder's
   transition ring, when a `DurableState` is given;
+- `/debug/metrics/history?family=&labels=k=v,...&window=&step=` — the
+  in-process metrics history (metrics/tsdb.py): raw points (step<1) or
+  1 s / 1 m aggregate buckets; without `family` the stored-series
+  inventory;
+- `/debug/alerts` — active and resolved alert-rule firings with their wall
+  timestamps, and every rule's state (metrics/rules.py);
+- `/debug/dashboard` — a dependency-free HTML sparkline page over the
+  history API (inline SVG, no external assets); 404 when `dashboard` is
+  off;
 - `POST /submit` — the front door's thin HTTP path: a JSON body
   `{"pods": [<state/codec pod dicts>]}` admitted through the
   `AdmissionController` (200 on accept, 429 + Retry-After on shed, 400 on
@@ -37,10 +46,7 @@ production debugging:
   `traceparent` request header joining the submission's trace and the
   effective traceparent echoed as a response header.
 
-The reference's routes over sources this package does not have yet (the
-metrics history's /debug/metrics/history and /debug/dashboard, the alert
-rules' /debug/alerts; ROADMAP A10b) answer as the reference's do when
-their source is not configured: 404.
+A route whose source is not given answers 404, as the reference's do.
 
 Served with the stdlib http.server on a daemon thread that
 `stop_http_server` joins. HEAD is answered for every GET route; any other
@@ -61,6 +67,82 @@ from ..metrics import SchedulerMetrics
 # door's bounded-memory contract holds on the HTTP path too — a giant
 # Content-Length is refused before any read
 _MAX_SUBMIT_BODY_BYTES = 4 << 20
+
+
+# /debug/dashboard: dependency-free sparkline page over the history
+# API. Inline SVG + fetch() only — no external assets, so it renders
+# from an airgapped box exactly like every other debug endpoint.
+_DASHBOARD_HTML = b"""<!doctype html>
+<html><head><meta charset="utf-8"><title>scheduler watchtower</title>
+<style>
+ body{font:13px monospace;background:#111;color:#ddd;margin:1em}
+ h1{font-size:15px} .fam{display:inline-block;width:340px;margin:4px;
+ padding:6px;background:#1b1b1b;border:1px solid #333;vertical-align:top}
+ .fam b{display:block;font-size:11px;overflow:hidden;white-space:nowrap}
+ .lbl{color:#8a8;font-size:10px} .val{color:#fc6;float:right}
+ svg{width:100%;height:42px;background:#161616}
+ polyline{fill:none;stroke:#6cf;stroke-width:1}
+ #alerts{padding:6px;margin:4px}
+ .firing{color:#f66;font-weight:bold} .quiet{color:#6a6}
+</style></head><body>
+<h1>scheduler watchtower &mdash; metrics history + alerts</h1>
+<div id="alerts">loading alerts&hellip;</div>
+<div id="grid">loading series&hellip;</div>
+<script>
+const W=330,H=42;
+function spark(pts){
+ if(pts.length<2)return'<svg></svg>';
+ const xs=pts.map(p=>p[0]),ys=pts.map(p=>p[p.length>2?5:1]);
+ const x0=Math.min(...xs),x1=Math.max(...xs);
+ const y0=Math.min(...ys),y1=Math.max(...ys);
+ const pl=pts.map((p,i)=>{
+  const x=(xs[i]-x0)/Math.max(x1-x0,1e-9)*W;
+  const y=H-2-(ys[i]-y0)/Math.max(y1-y0,1e-9)*(H-4);
+  return x.toFixed(1)+','+y.toFixed(1)}).join(' ');
+ return'<svg viewBox="0 0 '+W+' '+H+'"><polyline points="'+pl+
+  '"/></svg>';
+}
+async function drawAlerts(){
+ try{
+  const a=await(await fetch('/debug/alerts')).json();
+  const act=a.active||[];
+  document.getElementById('alerts').innerHTML=act.length
+   ?'<span class="firing">FIRING: '+act.map(x=>x.rule+' ['+x.severity+
+     '] value='+Number(x.value).toPrecision(4)).join(' &middot; ')+
+     '</span>'
+   :'<span class="quiet">no active alerts ('+
+     (a.fired_total||0)+' lifetime firings, '+
+     (a.resolved||[]).length+' resolved in window)</span>';
+ }catch(e){
+  document.getElementById('alerts').textContent=
+   'alerts endpoint unavailable';
+ }
+}
+async function draw(){
+ const inv=await(await fetch('/debug/metrics/history')).json();
+ const fams=(inv.families||[]).slice(0,48);
+ const out=[];
+ for(const f of fams){
+  const q=await(await fetch('/debug/metrics/history?family='+
+   encodeURIComponent(f.family)+'&window=900&step=1')).json();
+  for(const s of (q.series||[]).slice(0,4)){
+   const pts=s.points||[];if(!pts.length)continue;
+   const last=pts[pts.length-1];
+   const v=last[last.length>2?5:1];
+   const lbl=Object.entries(s.labels||{}).map(([k,x])=>k+'='+x)
+    .join(',');
+   out.push('<div class="fam"><b>'+f.family+
+    '<span class="val">'+Number(v).toPrecision(5)+'</span></b>'+
+    '<span class="lbl">'+(lbl||'&nbsp;')+'</span>'+spark(pts)+
+    '</div>');
+  }
+ }
+ document.getElementById('grid').innerHTML=
+  out.join('')||'no series stored yet';
+}
+drawAlerts();draw();setInterval(()=>{drawAlerts();draw()},15000);
+</script></body></html>
+"""
 
 
 def _parse_last(query: str, default: int = 128) -> int:
@@ -142,6 +224,9 @@ def start_http_server(
     observer=None,  # core/observe.CycleObserver | None
     admission=None,  # service/admission.AdmissionController | None
     spans_recorder=None,  # core/spans.SpanRecorder | None
+    tsdb=None,  # metrics/tsdb.MetricsTSDB | None
+    alerts=None,  # metrics/rules.RuleEngine | None
+    dashboard: bool = True,
 ) -> ThreadingHTTPServer:
     """Serve /healthz, /readyz, /metrics and the /debug endpoints; returns
     the running server (its port at `.server_address[1]`; port=0 picks
@@ -152,7 +237,9 @@ def start_http_server(
     `observer` enables /debug/anomalies; `admission` enables
     `POST /submit`; `spans_recorder` (the armed span ring) merges the
     per-pod trace tracks into /debug/traces and the span durations into
-    /debug/explain."""
+    /debug/explain; `tsdb` (the armed metrics history) enables
+    /debug/metrics/history and, unless `dashboard` is False,
+    /debug/dashboard; `alerts` (the rules engine) enables /debug/alerts."""
     health_fn = healthz or (lambda: (True, {}))
 
     class Handler(BaseHTTPRequestHandler):
@@ -181,6 +268,12 @@ def start_http_server(
                 return self._explain_route(uid)
             if path == "/debug/anomalies" and observer is not None:
                 return self._anomalies_route(query)
+            if path == "/debug/metrics/history" and tsdb is not None:
+                return self._history_route(query)
+            if path == "/debug/alerts" and alerts is not None:
+                return _json(200, alerts.status())
+            if path == "/debug/dashboard" and tsdb is not None and dashboard:
+                return 200, "text/html; charset=utf-8", _DASHBOARD_HTML, {}
             if path == "/debug/state" and state is not None:
                 return _json(200, state.status())
             if path.startswith("/debug/pods/") and pod_timeline is not None:
@@ -190,6 +283,28 @@ def start_http_server(
                     return _json(404, {"error": f"pod {uid!r} not seen"})
                 return _json(200, tl)
             return 404, "text/plain", b"not found", {}
+
+        def _history_route(self, query: str):
+            """The metrics-history query surface: `family=` one family
+            (absent: the stored-series inventory), `labels=k=v,k2=v2` a
+            subset selector, `window=` seconds back from now (default 300),
+            `step=` the tier (>=60 -> 1 m buckets, >=1 -> 1 s, else raw)."""
+            qs = urllib.parse.parse_qs(query)
+            family = (qs.get("family") or [""])[0]
+            if not family:
+                return _json(200, {"families": tsdb.families(), **tsdb.status()})
+            labels: dict[str, str] = {}
+            for pair in (qs.get("labels") or [""])[0].split(","):
+                if "=" in pair:
+                    k, _, v = pair.partition("=")
+                    labels[k.strip()] = v.strip()
+            try:
+                window = float((qs.get("window") or ["300"])[0])
+                step = float((qs.get("step") or ["0"])[0])
+            except ValueError:
+                return _json(400, {"error": "window/step must be numbers"})
+            return _json(200, tsdb.query(family, labels=labels, window_s=window,
+                                         step_s=step))
 
         def _anomalies_route(self, query: str):
             events = observer.anomalies(last=_parse_last(query))

@@ -5,10 +5,11 @@ weights, `commit_mode`, `gang_scheduling`,
 `percentage_of_nodes_to_score`, the serving fields the `Scheduler` reads
 (backoff, `forced_sync`, the flight recorder and SLO, the degradation
 ladder, the dispatch deadline, the encoder's pads, `extenders`, fault
-injection, durable state, the front door, tracing and the black box) and
-the fields of features later slices port (`multi_cycle_k`,
-`speculative_dispatch`, `compile_cache_dir`, `shard_devices`: the
-`Scheduler` refuses a configuration that turns one on),
+injection, durable state, the front door, tracing, the black box, the
+persistent kernel cache and the watchtower) and the fields of features
+later slices port (`multi_cycle_k`, `speculative_dispatch`,
+`shard_devices`: the `Scheduler` refuses a configuration that turns one
+on),
 with the reference's defaults, and `load_config` for those fields under
 their upstream names. The port keeps its own copy."""
 
@@ -104,7 +105,9 @@ class SchedulerConfiguration:
     multi_cycle_max_wait_ms: float = 5.0
     # down-step margin of the P / N pad buckets (0 = immediate)
     pad_hysteresis_pct: float = 0.0
-    # persistent compiled-program cache (ROADMAP A10b); "" = off
+    # the persistent kernel cache (core/compile_cache.py): "" derives
+    # <stateDir>/compile_cache when stateDir is set, else off; "off" /
+    # "none" turn it off even with a state dir
     compile_cache_dir: str = ""
     # multi-device carry (ROADMAP A13); 0 / 1 = one device
     shard_devices: int = 0
@@ -137,9 +140,23 @@ class SchedulerConfiguration:
     state_dir: str = ""
     # snapshot cadence in seconds (0 = journal only, never compact)
     snapshot_interval_seconds: float = 60.0
+    # the watchtower (metrics/tsdb.py + metrics/rules.py): per-series raw
+    # ring capacity of the in-process metrics history; `arm_watchtower`
+    # arms the store and the built-in alert rules when > 0 (0 disables
+    # history, rules and dashboard)
+    metrics_history_samples: int = 512
+    # wall-ticker cadence (seconds) sampling the registry's gauges (0 =
+    # cycle-driven samples only)
+    metrics_ticker_seconds: float = 2.0
+    # extra alert rules (YAML/JSON list of rule objects) appended to the
+    # built-in pack ("" = the built-in pack only)
+    alert_rules_file: str = ""
     # crash black box (core/blackbox.py): bundles kept under
     # <stateDir>/blackbox/ (0 disables capture)
     blackbox_retention: int = 8
+    # /debug/dashboard (needs the watchtower armed); False turns just the
+    # page off, the history and alerts endpoints stay
+    debug_dashboard: bool = True
 
     def profile(self, scheduler_name: str = "default-scheduler") -> Profile:
         for p in self.profiles:
@@ -263,7 +280,11 @@ def load_config(source: "str | dict") -> SchedulerConfiguration:
         trace_sample_rate=float(data.get("traceSampleRate", 1.0 / 64.0)),
         state_dir=str(data.get("stateDir", "")),
         snapshot_interval_seconds=_duration_seconds(data.get("snapshotInterval", 60.0)),
+        metrics_history_samples=int(data.get("metricsHistorySamples", 512)),
+        metrics_ticker_seconds=float(data.get("metricsTickerSeconds", 2.0)),
+        alert_rules_file=str(data.get("alertRulesFile", "")),
         blackbox_retention=int(data.get("blackboxRetention", 8)),
+        debug_dashboard=bool(data.get("debugDashboard", True)),
         extenders=[
             Extender(
                 url_prefix=e["urlPrefix"],

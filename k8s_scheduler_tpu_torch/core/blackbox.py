@@ -30,9 +30,9 @@ chrome trace for Perfetto), spans, anomalies, active/resolved alerts,
 the ladder transition ring, and the fault-plan log. Retention is
 bounded (`blackboxRetention` newest bundles kept, oldest deleted
 first); `load_bundle` reads one back. The metric history and the alerts
-(`tsdb`, `engine`) stay absent until `metrics/tsdb.py` and
-`metrics/rules.py` are ported (ROADMAP A10b); a box wired without them
-dumps what it has.
+(`metrics_history`, `alerts`) fill when the box is wired with the armed
+store and rules engine (`cmd/watchtower.arm_watchtower`); a box wired
+without them dumps what it has.
 
 Dumps are throttled (`MIN_INTERVAL_S` per trigger kind) so a
 crash-looping serve loop cannot turn the black box into a disk-filling

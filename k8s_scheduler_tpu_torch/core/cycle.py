@@ -243,9 +243,10 @@ def _record_strike(program: str, kind: str) -> None:
         from ..metrics.metrics import global_metrics
 
         global_metrics().program_retry_strikes.labels(program=program, kind=kind).inc()
-    except Exception:
-        # the strike itself is the trace; a broken registry must not break
-        # the serving path it observes
+    except Exception:  # schedlint: disable=RB001 -- deliberately silent:
+        # the strike itself IS the trace (RESILIENT_STRIKES + the caller's
+        # retry log); a broken metrics registry must not break the serving
+        # path it observes
         pass
 
 

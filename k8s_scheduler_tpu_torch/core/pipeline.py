@@ -76,7 +76,7 @@ class _FetchWorker:
                 return  # abandoned after a deadline expiry
             try:
                 box["v"] = fn()
-            except BaseException as e:  # delivered whole to the serve thread
+            except BaseException as e:  # schedlint: disable=RB001 -- not swallowed: delivered whole to the waiting serve thread, which classifies + attributes it
                 box["e"] = e
             finally:
                 done.set()
@@ -436,8 +436,7 @@ class ServingPipeline:
                     FETCH_FAILED,
                     f"cycle decision fetch failed ({cls}): {e}"[:400],
                 )
-        except Exception:
-            # the original error re-raises right after this call
+        except Exception:  # schedlint: disable=RB001 -- deliberately silent: the original error re-raises right after this call and carries the story; attribution must never hold the ordering guard hostage
             pass
         return cls
 

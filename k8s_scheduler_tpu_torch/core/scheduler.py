@@ -45,11 +45,13 @@ apply, bind and preemption spans of every sampled pod; an armed black box
 (`core/blackbox.py`) dumps a bundle at a watchdog abort and at the
 `stateless` rung; a fault plan (`faultSpec` / SCHED_FAULTS,
 `core/faults.py`) is armed in the constructor and stamps its cycle index
-(and any clock skew) at the top of each cycle.
+(and any clock skew) at the top of each cycle. `compileCacheDir` (or
+`<stateDir>/compile_cache`) opens the persistent kernel cache for the
+process (`core/compile_cache.py`); `profile_cycle` runs the per-plugin
+profiling pass (`core/profiling.py`).
 
 Not in this slice, and refused when a configuration turns them on:
-multi-cycle dispatch and speculation (`multiCycleK` > 1, ROADMAP A11), the
-persistent compile cache (`compileCacheDir`, ROADMAP A10b), and
+multi-cycle dispatch and speculation (`multiCycleK` > 1, ROADMAP A11) and
 multi-device serving (`shardDevices` > 1, ROADMAP A13)."""
 
 from __future__ import annotations
@@ -128,14 +130,10 @@ def _pad(n: int, bucket: int = 64) -> int:
 def _refuse_unported(config: SchedulerConfiguration) -> None:
     """Serving features later slices port: a configuration that turns one
     on is refused by name, never ignored."""
-    cc = config.compile_cache_dir
     checks = (
         (int(config.multi_cycle_k) > 1,
          f"multiCycleK={config.multi_cycle_k} (multi-cycle dispatch and its "
          "depth-2 speculation) is not ported yet (ROADMAP A11)"),
-        (bool(cc) and cc.lower() not in ("off", "none"),
-         "compileCacheDir (the persistent compile cache) is not ported yet "
-         "(ROADMAP A10b)"),
         (int(config.shard_devices) > 1,
          f"shardDevices={config.shard_devices} (multi-device serving) is not "
          "ported yet (ROADMAP A13)"),
@@ -317,6 +315,25 @@ class Scheduler:
         self._last_build_s = 0.0
         self._last_compile_source = "cold"
         self._packed_lock = _threading.Lock()
+        # the persistent kernel cache (core/compile_cache.py): the nvcc
+        # libraries under compileCacheDir, or the state dir's compile_cache/
+        # subtree; the kernels are process-wide, so the cache opens for the
+        # process (utils/compilation_cache.py)
+        cc_dir = self.config.compile_cache_dir
+        if cc_dir.lower() in ("off", "none"):
+            # explicit opt-out even with a state dir: "" means derive, not off
+            cc_dir = ""
+        elif not cc_dir and state is not None:
+            cc_dir = getattr(state, "compile_cache_path", "")
+        self._compile_cache = None
+        if cc_dir:
+            from ..utils.compilation_cache import enable_compilation_cache
+
+            self._compile_cache = enable_compilation_cache(cc_dir, metrics=self.metrics)
+            if state is not None:
+                # /debug/state shows hit / miss / entry counts next to the
+                # journal the same directory tree holds
+                state.compile_cache = self._compile_cache
         self._warmer = None
         if self.config.speculative_compile and self.observer is not None:
             from .compile_cache import CompileWarmer
@@ -1399,10 +1416,30 @@ class Scheduler:
         return out
 
     def profile_cycle(self, repeats: int = 3) -> dict:
-        """The per-plugin profiling pass (reference `core/profiling.py`)
-        is ROADMAP A10b."""
-        raise NotImplementedError(
-            "profile_cycle (core/profiling.py) is not ported yet (ROADMAP A10b)")
+        """The sampled per-plugin observability pass: times each enabled
+        plugin's functions alone over the CURRENT pending set and cluster
+        state (the queue is not drained), filling the upstream per-plugin
+        and per-extension-point histograms. Not the hot path."""
+        from .profiling import profile_plugins
+
+        pending = list(self.queue.all_pending())
+        nodes = self.cache.nodes()
+        if not pending or not nodes:
+            return {}
+        self._encoder.pad_pods = self._encoder.hysteresis_pad(
+            "P", _pad(len(pending), self._pad_bucket), len(pending))
+        self._encoder.pad_nodes = self._encoder.hysteresis_pad(
+            "N", _pad(len(nodes), self._pad_bucket), len(nodes))
+        snap = self._encoder.encode(
+            nodes,
+            pending,
+            self.cache.existing_pods(),
+            pod_groups=list(self._groups.values()),
+            pvcs=list(self._pvcs.values()),
+            pvs=list(self._pvs.values()),
+            storage_classes=list(self._storage_classes.values()),
+        )
+        return profile_plugins(self.framework, snap, self.metrics, repeats)
 
     def run(self, max_cycles: int | None = None,
             idle_sleep: float = 0.01) -> None:

@@ -87,6 +87,14 @@ constexpr size_t kSmemLimit = 232448;  // 227 KB a block
 constexpr int kMaxR = 8;     // ops/preempt_claim.py MAX_RESOURCES
 constexpr int kMaxMB = 4;    // ops/preempt_claim.py MAX_PDBS_PER_POD
 constexpr uint8_t kValid = 1, kHasPdb = 2, kPortClaimed = 4;
+#ifndef CLAIM_TIE_LAST
+#define CLAIM_TIE_LAST 0
+#endif
+// the fuzz harness's last-max tie-break (fuzz/replay.py engine_bug
+// "tiebreak"; ops/kernel_build.py HARNESS_KERNELS builds it apart as
+// preempt_claim_tie_last): the key's last word is 0x7fffffff - the node
+// index, so the largest index wins a tie (and never reads as the none key)
+constexpr bool kTieLast = CLAIM_TIE_LAST != 0;
 
 struct Args {
   int C2, N, MPN, R, MB, GP, Q, MP;
@@ -132,7 +140,9 @@ struct Args {
 struct alignas(16) Rec {
   uint32_t k[6];
   int kmin, kcf;
-  __device__ __forceinline__ int idx() const { return (int)k[5]; }
+  __device__ __forceinline__ int idx() const {
+    return kTieLast ? (int)(0x7fffffffu - k[5]) : (int)k[5];
+  }
   __device__ __forceinline__ bool none() const { return k[5] == 0xffffffffu; }
 };
 
@@ -263,7 +273,7 @@ __device__ Rec node_key(const Args& a, const Slice& s, int ln, int n, const uint
                            (unsigned)s.pprio[(size_t)ln * (M + 1) + kc]));
   key.k[3] = (uint32_t)(kmin - kc);
   key.k[4] = ord_f32(-s.vstart[(size_t)ln * M + last]);
-  key.k[5] = (uint32_t)n;
+  key.k[5] = kTieLast ? 0x7fffffffu - (uint32_t)n : (uint32_t)n;
   key.kmin = kmin;
   key.kcf = kc | ((fl & kHasPdb) ? 1 << 30 : 0);
   return key;

@@ -137,6 +137,14 @@ constexpr int kMaxMC = 8;  // MAX_CONSTRAINTS
 constexpr int kMaxK = 8;   // MAX_KEYS
 constexpr int kPodSels = 8;  // POD_SELS: matched selectors carried in a pod row
 constexpr float kNegInf = -1e9f;
+#ifndef SCAN_TIE_LAST
+#define SCAN_TIE_LAST 0
+#endif
+// the fuzz harness's last-max tie-break (fuzz/replay.py engine_bug
+// "tiebreak"; ops/kernel_build.py HARNESS_KERNELS builds it apart as
+// scan_commit_tie_last): the key's index word is the node index itself, so
+// the largest index wins a tie
+constexpr bool kTieLast = SCAN_TIE_LAST != 0;
 constexpr int kWhenDoNotSchedule = 0, kWhenScheduleAnyway = 1;
 
 // flag bits and score-term codes (ops/scan_commit.py mirrors these)
@@ -907,7 +915,8 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
       const int ln = tid + i * kThreads;
       const float sc = node_score(a, s, pod, ln, sb_cur[i], araw[i], aff_hi, sraw[i], spr_hi);
       if (!(sc > -INFINITY)) continue;
-      const uint32_t hi = ord_f32(sc), lo = ~(uint32_t)(n0 + ln);
+      const uint32_t hi = ord_f32(sc);
+      const uint32_t lo = kTieLast ? (uint32_t)(n0 + ln) : ~(uint32_t)(n0 + ln);
       if (hi > best.hi || (hi == best.hi && lo > best.lo)) {
         best.hi = hi;
         best.lo = lo;
@@ -936,7 +945,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Args a) {
     if (kFull) ++ex;
     const Rec win = warp_best(lane < csize ? slot3[xpar * kMaxCluster + lane] : none_rec(), K);
     const bool nom_ok = nom >= 0 && win.nomf;
-    const int bn = nom_ok ? nom_n : (int)~win.lo;
+    const int bn = nom_ok ? nom_n : kTieLast ? (int)win.lo : (int)~win.lo;
     const bool ok = nom_ok || win.hi != 0u;
 
     // ---- the commit ----

@@ -568,9 +568,12 @@ def build_variants(name: str, csrc: Path, variants: dict) -> dict:
         except BaseException as e:  # re-raised below
             errs.append(e)
 
-    threads = [threading.Thread(target=one, args=(v, p)) for v, p in srcs.items() if p]
-    for th in threads:
-        th.start()
+    threads = []
+    for v, p in srcs.items():
+        if p:
+            th = threading.Thread(target=one, args=(v, p))
+            th.start()
+            threads.append(th)
     for th in threads:
         th.join()
     if errs:

@@ -13,7 +13,35 @@ sum) and `count`. `scheduler_build_info` carries torch, CUDA and the
 device name where the reference's carries jax and its backend.
 `SchedulerMetrics.expose()` writes the Prometheus text exposition (format
 0.0.4) as prometheus_client's `generate_latest` does, but the `_created`
-timestamps; `cmd/httpserver.py` serves it at /metrics."""
+timestamps; `cmd/httpserver.py` serves it at /metrics. `Registry.collect()`
+yields each metric's samples (name, labels, value) as prometheus_client's
+does, which the metrics history's ticker reads (`metrics/tsdb.py`).
+
+Families with a bullet here name what the repo's inventory checks read:
+
+- scheduler_cycle_phase_seconds{phase} — streaming per-phase latency
+  attribution of every committed cycle record; phases: total, encode,
+  fold, encode_ingest, encode_finalize, dispatch, device,
+  decision_fetch, bind, postfilter, diag_lag, compile, batch_wait,
+  device_share, first_bind, submit_bind (the inventory is
+  core/observe.PHASES)
+- scheduler_trace_spans_total{name} — pod-lifecycle trace spans
+  recorded, by span name (submit.validate | submit.journal |
+  ack.barrier | mc.buffer_wait | encode.ingest | flush.finalize |
+  dispatch | dispatch.speculative | decision.row | apply.fold |
+  bind.confirm | preempt.victim; the inventory is core/spans.SPAN_NAMES)
+- scheduler_plugin_execution_duration_seconds{plugin,extension_point,status}
+  and scheduler_framework_extension_point_duration_seconds{extension_point,status}
+  — the per-plugin profiling pass (core/profiling.py,
+  `Scheduler.profile_cycle`): each plugin's functions timed alone
+- scheduler_compile_cache_hits_total, scheduler_compile_cache_misses_total,
+  scheduler_compile_cache_loads_seconds — the persistent kernel cache
+  (core/compile_cache.py): libraries taken from the store, libraries nvcc
+  built with the cache open (entry absent, torn or of another
+  fingerprint), and the seconds a hit takes
+- scheduler_alerts_total{rule,severity} — alert-rule firings of the
+  watchtower (metrics/rules.py; one increment per ok->firing transition)
+"""
 
 from __future__ import annotations
 
@@ -44,6 +72,31 @@ class Registry:
     def expose(self) -> bytes:
         """The Prometheus text exposition of every metric."""
         return "".join(m.expose() for m in self.metrics).encode("utf-8")
+
+    def collect(self) -> list["_Family"]:
+        """Every metric's samples, as prometheus_client's collect() gives
+        them (a gauge's `set_function` is called now): a counter's or
+        gauge's value, a histogram's `_bucket`s, `_count` and `_sum`."""
+        return [_Family(m.name, m.samples()) for m in self.metrics]
+
+
+class Sample(tuple):
+    """(name, labels, value), the fields of prometheus_client's Sample."""
+
+    __slots__ = ()
+
+    def __new__(cls, name: str, labels: dict, value: float):
+        return tuple.__new__(cls, (name, labels, value))
+
+    name = property(lambda self: self[0])
+    labels = property(lambda self: self[1])
+    value = property(lambda self: self[2])
+
+
+class _Family:
+    def __init__(self, name: str, samples: list[Sample]) -> None:
+        self.name = name
+        self.samples = samples
 
 
 def _go_float(d: float) -> str:
@@ -177,6 +230,32 @@ class _Metric:
     def get(self) -> float:
         return self._only().get()
 
+    def samples(self) -> list[Sample]:
+        """This metric's samples (see `Registry.collect`)."""
+        name = self.name
+        if self.kind == "counter" and not name.endswith("_total"):
+            name += "_total"
+        with self._lock:
+            children = list(self._children.items())
+        out = []
+        for values, child in children:
+            labels = dict(zip(self.labelnames, values))
+            if self.kind in ("counter", "gauge"):
+                out.append(Sample(name, labels, child.get()))
+                continue
+            with child._lock:
+                counts, count, total = list(child._counts), child._count, child._value
+            if self.kind == "histogram":
+                acc = 0
+                for bound, n in zip(child._buckets, counts):
+                    acc += n
+                    out.append(Sample(f"{name}_bucket", {**labels, "le": _go_float(bound)},
+                                      float(acc)))
+                out.append(Sample(f"{name}_bucket", {**labels, "le": "+Inf"}, float(count)))
+            out.append(Sample(f"{name}_count", labels, float(count)))
+            out.append(Sample(f"{name}_sum", labels, total))
+        return out
+
     def expose(self) -> str:
         """This metric's family in the text exposition: HELP, TYPE, then a
         child's samples in creation order (a histogram's cumulative
@@ -266,6 +345,15 @@ class SchedulerMetrics:
             "scheduler_cache_size",
             "Scheduler cache size, by type (nodes|pods|assumed_pods).",
             ["type"], registry=r)
+        self.extension_point_duration = Histogram(
+            "scheduler_framework_extension_point_duration_seconds",
+            "Latency for running all plugins of a specific extension point.",
+            ["extension_point", "status"], buckets=_DURATION_BUCKETS, registry=r)
+        self.plugin_duration = Histogram(
+            "scheduler_plugin_execution_duration_seconds",
+            "Duration for running a plugin at a specific extension point.",
+            ["plugin", "extension_point", "status"], buckets=_DURATION_BUCKETS,
+            registry=r)
         # ---- batched-cycle additions ----
         self.cycle_duration = Histogram(
             "scheduler_cycle_duration_seconds",
@@ -352,6 +440,18 @@ class SchedulerMetrics:
             "Per-cycle cross-device collective payload of the current "
             "regime's cycle program (0 = one device).",
             ["profile"], registry=r)
+        self.compile_cache_hits = Counter(
+            "scheduler_compile_cache_hits_total",
+            "Kernel libraries loaded from the persistent kernel cache "
+            "instead of built by nvcc.", registry=r)
+        self.compile_cache_misses = Counter(
+            "scheduler_compile_cache_misses_total",
+            "Kernel libraries nvcc built with the cache open (entry "
+            "absent, corrupt, or fingerprint-mismatched).", registry=r)
+        self.compile_cache_loads = Histogram(
+            "scheduler_compile_cache_loads_seconds",
+            "Time to verify and land a cached kernel library (replaces "
+            "an nvcc build).", buckets=_DURATION_BUCKETS, registry=r)
         self.compile_cache_speculative = Counter(
             "scheduler_compile_cache_speculative_builds_total",
             "Adjacent pad regimes pre-built by the speculative warm "
@@ -396,6 +496,11 @@ class SchedulerMetrics:
             "Constant 1 gauge carrying the build/runtime fingerprint as "
             "labels (python | torch | cuda | device | git).",
             ["python", "torch", "cuda", "device", "git"], registry=r)
+        self.alerts = Counter(
+            "scheduler_alerts_total",
+            "Watchtower alert-rule firings by rule name and severity "
+            "(one increment per ok->firing transition).",
+            ["rule", "severity"], registry=r)
         self.uptime = Gauge(
             "scheduler_uptime_seconds",
             "Seconds since SchedulerMetrics construction.", registry=r)

@@ -17,12 +17,10 @@ CUDA tensors and the plain version for CPU tensors."""
 
 from __future__ import annotations
 
-import os
-
 import torch
 
-from . import argsel
-from .kernel_build import BUILD_DIR, count_launch
+from . import argsel, kernel_build
+from .kernel_build import count_launch
 
 NEG_INF = -1e9
 # Claim scores are rounded to integers before the hash tie-break (the
@@ -67,8 +65,8 @@ def _kernel():
     global _KERNEL
     if _KERNEL is not None:
         return _KERNEL
-    # Triton's compile cache stays inside the package's build directory
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    # Triton's compile cache stays inside the build directory
+    kernel_build.triton_cache_dir()
     import triton
     import triton.language as tl
 

@@ -20,7 +20,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .argsel import argmax_first
+from . import argsel
 from .resources import _fma
 
 NEG_INF = -1e9
@@ -133,7 +133,7 @@ def greedy_commit(
         nom_raw = pod_nominated.index_select(0, pi)  # [1]
         nom = nom_raw.clamp(0, N - 1).long()
         nom_ok = (nom_raw >= 0) & feasible.index_select(0, nom)
-        best = torch.where(nom_ok, nom, argmax_first(score).long().reshape(1))  # [1]
+        best = torch.where(nom_ok, nom, argsel.argmax_first(score).long().reshape(1))  # [1]
         ok = feasible.index_select(0, best) & pod_valid.index_select(0, pi)  # [1]
         assignment.index_copy_(0, pi, torch.where(ok, best, -1).to(torch.int32))
         node_req.index_add_(0, best, torch.where(

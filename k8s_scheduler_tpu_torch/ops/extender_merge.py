@@ -27,11 +27,10 @@ tensors and the plain version for CPU tensors."""
 
 from __future__ import annotations
 
-import os
-
 import torch
 
-from .kernel_build import BUILD_DIR, checked, count_launch
+from . import kernel_build
+from .kernel_build import checked, count_launch
 
 NEG_INF = -1e9
 BLOCK_N = 2048
@@ -63,7 +62,7 @@ def _kernel():
     global _KERNEL
     if _KERNEL is not None:
         return _KERNEL
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    kernel_build.triton_cache_dir()
     import triton
     import triton.language as tl
 

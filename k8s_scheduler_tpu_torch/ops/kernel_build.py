@@ -4,12 +4,25 @@ CUDA C++ sources under `csrc/` are compiled with nvcc for `sm_90a` into
 shared libraries with a plain C interface, loaded with ctypes, at first
 use, into `k8s_scheduler_tpu_torch/_build/` (git-ignored). A library is
 named after a hash of its source and flags, so an edited source never
-reuses a stale build. Triton kernels compile into `_build/triton/` unless
-TRITON_CACHE_DIR says otherwise.
+reuses a stale build. Triton kernels compile into `<build dir>/triton/`
+unless TRITON_CACHE_DIR says otherwise (`triton_cache_dir`).
+
+With the persistent kernel cache open (`open_cache`, which
+`utils/compilation_cache.enable_compilation_cache` and a `Scheduler` with
+`compileCacheDir` call), the process builds into that cache's directory
+instead, and every library goes through `core/compile_cache.CompileCache`:
+a hit writes the verified payload under the library's hashed name (tmp,
+fsync, rename) and loads it; a miss, or an entry refused as torn, runs
+nvcc and stores the result. `build_stats` counts a process's nvcc runs,
+hits, misses and load seconds. A library already loaded in the process is
+never reloaded.
 
 `launch_counts` counts, per kernel, the launches each wrapper made; a
 caller resets it before a run to show which kernels that run went
-through."""
+through. `HARNESS_KERNELS` are builds of a source with a deliberate
+engine mutation (`fuzz/replay.py engine_bug`), built and launched only
+while the mutation is active (`TIE_LAST`), under their own names, and
+counted in `harness_launch_counts`."""
 
 from __future__ import annotations
 
@@ -19,6 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -51,6 +65,16 @@ CUDA_KERNELS: dict[str, tuple[str, ...]] = {
     "dyn_rejects": ("--fmad=false",),
 }
 
+# name -> (source under csrc/, flags): the fuzz harness's last-max
+# tie-break of K13 and K9 (fuzz/replay.py engine_bug("tiebreak"))
+HARNESS_KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
+    "scan_commit_tie_last": ("scan_commit", ("--fmad=false", "-DSCAN_TIE_LAST=1")),
+    "preempt_claim_tie_last": ("preempt_claim", ("--fmad=false", "-DCLAIM_TIE_LAST=1")),
+}
+# set while engine_bug("tiebreak") is active: the scan and the preemption
+# claim launch their HARNESS_KERNELS instance
+TIE_LAST = False
+
 launch_counts: dict[str, int] = {
     "static_base": 0, "claim_pass": 0, "interpod_terms": 0, "interpod_norm": 0,
     "affinity_update": 0, "capacity": 0, "guard_sweep": 0,
@@ -59,17 +83,25 @@ launch_counts: dict[str, int] = {
     "dyn_mask": 0, "dyn_score": 0, "static_rejects": 0, "dyn_rejects": 0,
     "extender_merge": 0, "static_base_ext": 0, "static_rejects_base": 0,
 }
+# the HARNESS_KERNELS' launches, apart from the main path's
+harness_launch_counts: dict[str, int] = dict.fromkeys(HARNESS_KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's -Xptxas=-v report per fresh build
+# this process's library builds: nvcc runs, cache hits and misses, seconds
+# spent taking hits from the cache
+build_stats: dict[str, float] = {"nvcc": 0, "hits": 0, "misses": 0, "load_s": 0.0}
+_stats_lock = threading.Lock()
+_CACHE = None  # core/compile_cache.CompileCache while a cache is open
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, harness_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def count_launch(name: str) -> None:
-    launch_counts[name] += 1
+    (harness_launch_counts if name in harness_launch_counts else launch_counts)[name] += 1
 
 
 def nvcc_path() -> str:
@@ -82,41 +114,124 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _count(field: str, amount: float = 1) -> None:
+    with _stats_lock:
+        build_stats[field] += amount
+
+
+def triton_cache_dir() -> str:
+    """Where Triton compiles its kernels: TRITON_CACHE_DIR, set to
+    `<build dir>/triton` unless the environment already sets it. Called
+    before a Triton kernel's first launch."""
+    return os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+
+
+def set_build_dir(path) -> None:
+    """Build (and take cache hits) into `path` from now on. Libraries this
+    process already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
+def open_cache(cache) -> None:
+    """Route every later library load through `cache` (a
+    `core/compile_cache.CompileCache`); None closes it."""
+    global _CACHE
+    _CACHE = cache
+
+
+def _spec(name: str) -> tuple[str, tuple[str, ...]]:
+    """(source name, flags without the include path) of library `name`."""
+    if name in HARNESS_KERNELS:
+        base, extra = HARNESS_KERNELS[name]
+        return base, NVCC_FLAGS + extra
+    return name, NVCC_FLAGS + CUDA_KERNELS[name]
+
+
+def _target(name: str, src: Path | None = None, include: Path | None = None):
+    """(source, its flags with the include path, the text the build
+    depends on, the flags without the path, <build dir>/lib<name>-<hash>.so)
+    of library `name`; the hash covers the source, the headers of
+    `include` and the flags, not where the checkout lies."""
+    base, flags0 = _spec(name)
+    src = src or CSRC_DIR / f"{base}.cu"
+    include = include or src.parent
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(include.glob("*.cuh")))
+    digest = hashlib.sha1(text + repr(flags0).encode()).hexdigest()[:12]
+    return src, flags0 + (f"-I{include}",), text, flags0, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def run_nvcc(src: Path, flags: tuple[str, ...], out: Path) -> str:
+    """nvcc `src` with `flags` into the shared library `out`; its stderr
+    (the -Xptxas=-v report)."""
+    proc = subprocess.run([nvcc_path(), *flags, "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stderr
+
+
+def _build(name: str, src: Path, flags: tuple[str, ...], out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # per process and thread: an earlier checkout's identical source builds
+    # to the same library in another thread at once
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    log = run_nvcc(src, flags, tmp)
+    os.replace(tmp, out)
+    _count("nvcc")
+    build_logs[name if src.parent == CSRC_DIR else str(src)] = log
+
+
 def build_cuda_library(name: str, src: Path | None = None,
                        include: Path | None = None) -> Path:
-    """Compile csrc/<name>.cu, or the source `src` with <name>'s flags and
-    the headers of `include` (default: the source's own directory), into
-    _build/lib<name>-<hash>.so (cached; the hash covers the source, those
-    headers and the flags)."""
-    src = src or CSRC_DIR / f"{name}.cu"
-    include = include or src.parent
-    flags = NVCC_FLAGS + CUDA_KERNELS[name] + (f"-I{include}",)
-    text = src.read_bytes() + b"".join(h.read_bytes()
-                                       for h in sorted(include.glob("*.cuh")))
-    digest = hashlib.sha1(text + repr(flags).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    """Compile csrc/<name>.cu (a HARNESS_KERNELS name: its source with its
+    flags), or the source `src` with <name>'s flags and the headers of
+    `include` (default: the source's own directory), into
+    <build dir>/lib<name>-<hash>.so, unless that file exists."""
+    src, flags, _, _, out = _target(name, src, include)
     if not out.exists():
+        _build(name, src, flags, out)
+    return out
+
+
+def _through_cache(name: str, cc) -> Path:
+    """csrc/<name>'s library by way of the open cache: a hit lands the
+    verified payload under the library's hashed name; a miss (an entry
+    refused as torn among them) runs nvcc and stores the result. A file
+    already in the build directory is not trusted: it was not verified."""
+    from ..core.compile_cache import cache_key
+
+    src, flags, text, flags0, out = _target(name)
+    key = cache_key(name, hashlib.sha256(text).hexdigest()[:16], flags0, cc._fingerprint)
+    t0 = time.perf_counter()
+    payload = cc.load(key)
+    if payload is not None:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # per process and thread: an earlier checkout's identical source
-        # builds to the same library in another thread at once
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *flags, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}"
-            )
+        with open(tmp, "wb") as f:
+            f.write(payload)
+            f.flush()
+            os.fsync(f.fileno())
         os.replace(tmp, out)
-        build_logs[name if src.parent == CSRC_DIR else str(src)] = proc.stderr
+        dt = time.perf_counter() - t0
+        cc.note_hit(dt)
+        _count("hits")
+        _count("load_s", dt)
+        return out
+    cc.note_miss()
+    _count("misses")
+    t0 = time.perf_counter()
+    _build(name, src, flags, out)
+    cc.store(key, out.read_bytes(), build_seconds=time.perf_counter() - t0)
     return out
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_cuda_library(name)))
+        cc = _CACHE
+        path = build_cuda_library(name) if cc is None else _through_cache(name, cc)
+        lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
 

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from . import kernel_build
 from .kernel_build import (checked, count_launch, load_cuda_library, ptr,
                            raise_on_error, stream_of)
 from .preemption import ClaimCarry, ClaimInputs, claim_carry0, claim_loop_plain
@@ -29,8 +30,14 @@ MAX_NODES = 16 * 2048
 MAX_NODES_PORTABLE = 8 * 2048
 
 
+def _name() -> str:
+    """The library launched: K9, or its last-max tie-break instance while
+    the fuzz harness's engine_bug("tiebreak") is active."""
+    return "preempt_claim_tie_last" if kernel_build.TIE_LAST else "preempt_claim"
+
+
 def _library():
-    lib = load_cuda_library("preempt_claim")
+    lib = load_cuda_library(_name())
     if lib.preempt_claim_launch.argtypes is None:
         lib.preempt_claim_launch.argtypes = (
             [ctypes.c_int] * 8 + [ctypes.c_void_p] * 24 + [ctypes.c_void_p]
@@ -107,7 +114,7 @@ def preempt_claim_cuda(x: ClaimInputs) -> tuple[torch.Tensor, ClaimCarry]:
         ptr(noms), ptr(cy.k_claimed), ptr(cy.nominated_req), ptr(cy.victims),
         ptr(cy.pdb_used), ptr(cy.claimed_q), stream_of(dev))
     raise_on_error(k, err)
-    count_launch(k)
+    count_launch(_name())
     return noms, cy
 
 

@@ -42,7 +42,8 @@ import torch
 
 from ..models import encoding as enc
 from . import interpod as interpod_ops
-from .argsel import argmax_first, wrap_i32
+from . import argsel
+from .argsel import wrap_i32
 from .resources import fit_slack
 
 DEFAULT_BUDGET = 256  # candidates prefiltered per cycle
@@ -400,7 +401,7 @@ def claim_loop_plain(x: ClaimInputs) -> tuple[torch.Tensor, ClaimCarry]:
         for key, big in keys:
             kk = torch.where(best, key, big)
             best = best & (kk == kk.amin())
-        b = argmax_first(best.to(torch.int32), dim=0).long()
+        b = argsel.argmax_first(best.to(torch.int32), dim=0).long()
         do = x.live[rank] & candidate.any()
         noms[rank] = torch.where(do, b.to(torch.int32), -1)
         kcb, kmb = kc[b], k_min[b]

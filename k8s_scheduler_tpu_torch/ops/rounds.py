@@ -43,7 +43,7 @@ from ..models import encoding as enc
 from . import guard_sweep as gs
 from . import interpod as interpod_ops
 from .capacity import capacity
-from .claim_pass import NEG_INF, claim_pass
+from .claim_pass import NEG_INF, claim_pass  # schedlint: disable=HY001 -- NEG_INF is re-exported: rounds.NEG_INF is the rounds engine's infeasible score its callers read
 from .resources import fit_slack
 
 MS_MATCH = 4  # guard-active selectors tracked per pod (overflow = defer)

@@ -64,6 +64,7 @@ from . import volume_mask as vm
 from . import volumes
 from .commit import CommitResult, greedy_commit
 from .dyn_round import balanced_is_constant, one_resource_fit
+from . import kernel_build
 from .kernel_build import (checked, count_launch, load_cuda_library, raise_on_error,
                            stream_of)
 from .resources import MAX_NODE_SCORE, _reciprocal, fit_slack
@@ -497,8 +498,14 @@ class ScanArgs(ctypes.Structure):
     )
 
 
+def _name() -> str:
+    """The library launched: K13, or its last-max tie-break instance while
+    the fuzz harness's engine_bug("tiebreak") is active."""
+    return "scan_commit_tie_last" if kernel_build.TIE_LAST else "scan_commit"
+
+
 def _library():
-    lib = load_cuda_library("scan_commit")
+    lib = load_cuda_library(_name())
     if lib.scan_commit_launch.argtypes is None:
         if lib.scan_commit_args_size() != ctypes.sizeof(ScanArgs):
             raise RuntimeError("scan_commit: ScanArgs does not match csrc/scan_commit.cu Args")
@@ -723,7 +730,7 @@ def scan_commit_cuda(x: ScanInputs, cluster: int = CLUSTER) -> ScanResult:
         **dims, **{f: t.data_ptr() for f, t in vol.items()})
     err = _library().scan_commit_launch(ctypes.byref(a), stream_of(dev))
     raise_on_error(k, err)
-    count_launch(k)
+    count_launch(_name())
     return ScanResult(assignment, node_req, ports,
                       ip.AffinityState(counts, total, anti, pref), rejects, claimed)
 

@@ -45,13 +45,12 @@ WALL_GAUGES = ("scheduler_uptime_seconds", "scheduler_last_cycle_age_seconds",
                "scheduler_cycle_phase_p50_seconds", "scheduler_cycle_phase_p99_seconds",
                "scheduler_pipeline_overlap_ratio", "scheduler_slo_burn_rate",
                "scheduler_slo_error_budget_remaining", "scheduler_build_info")
-# the reference's families of modules not ported yet (ROADMAP A10b-A12):
-# durable state, admission, tenancy, multi-cycle, the compile cache, spans,
-# alert rules, profiling
+# the reference's families these servers' schedulers do not feed alike
+# (durable state, admission, spans) or of modules not ported yet (ROADMAP
+# A11, A12: tenancy, multi-cycle)
 UNPORTED_FAMILIES = ("scheduler_admission", "scheduler_journal", "scheduler_snapshot",
                      "scheduler_submit", "scheduler_tenan", "scheduler_multicycle",
-                     "scheduler_compile_cache", "scheduler_trace_spans", "scheduler_alerts",
-                     "scheduler_framework_extension_point", "scheduler_plugin_execution")
+                     "scheduler_trace_spans")
 
 
 def _request(url, method="GET"):

@@ -288,9 +288,8 @@ def test_fixture_exercises_what_it_claims(name, commit_mode):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"multi_cycle_k": 4}, "A11"),
-    ({"compile_cache_dir": "/nonexistent"}, "A10b"),
-    ({"shard_devices": 2}, "A13"),
+    pytest.param({"multi_cycle_k": 4}, "A11", id="kw0-A11"),
+    pytest.param({"shard_devices": 2}, "A13", id="kw2-A13"),
 ])
 def test_unported_serving_features_raise(kw, item):
     cfg = port_config.SchedulerConfiguration(**kw)
@@ -299,11 +298,26 @@ def test_unported_serving_features_raise(kw, item):
 
 
 def test_unported_entry_points_raise():
-    s = port_core.Scheduler(device="cpu")
+    from k8s_scheduler_tpu_torch import fuzz
+
     with pytest.raises(NotImplementedError, match="A10b"):
-        s.profile_cycle()
+        fuzz.run_api_case(fuzz.generate_trace(1, multi_cycle=False))
     with pytest.raises(NotImplementedError, match="A11"):
         port_core.ServingPipeline(lambda *a: None, device="cpu").dispatch_multi()
+
+
+def test_compile_cache_dir_and_profile_cycle_are_served(tmp_path, monkeypatch):
+    """compileCacheDir opens the persistent kernel cache (no longer
+    refused); profile_cycle runs the profiling pass."""
+    from k8s_scheduler_tpu_torch.ops import kernel_build as kb
+
+    monkeypatch.setattr(kb, "BUILD_DIR", kb.BUILD_DIR)
+    monkeypatch.setattr(kb, "_CACHE", None)
+    monkeypatch.setenv("TRITON_CACHE_DIR", str(tmp_path / "triton"))
+    cfg = port_config.SchedulerConfiguration(compile_cache_dir=str(tmp_path / "kscc"))
+    s = port_core.Scheduler(cfg, device="cpu")
+    assert s._compile_cache.dir == str(tmp_path / "kscc") and kb._CACHE is s._compile_cache
+    assert s.profile_cycle() == {}
 
 
 def test_scheduler_for_the_card_raises_without_one():
