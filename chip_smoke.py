@@ -202,9 +202,9 @@ Phases:
                 (its claims released by one K12 refold), K13's volume
                 instance equal to `scan_commit_plain` (assignment,
                 node_requested, ports, the affinity tables and the claim
-                bitmap) on all of seed 202's pending pods in the latency
-                mode and, in the full mode (the VolumeBinding column
-                too), on its first 2048 with full N and V, its us a step
+                bitmap) on seed 202's first 2048 pending pods with full
+                N and V, in the latency mode and in the full mode (the
+                VolumeBinding column too), its us a step
                 at full size with
                 VolumeBinding on and off on one snapshot, three timed scan
                 cycles with one launch each of the volume instance whose
@@ -363,6 +363,29 @@ Phases:
                 incremental in turn) for FUZZ_SECONDS with zero failures.
                 The first log line of phase 1 says whether grpc and
                 google.protobuf import on this machine.
+ 14. cli      — the port's CLI as child processes on the card, `python -m
+                k8s_scheduler_tpu_torch` (runpy under `--cli-child`, which
+                counts the multi-cycle batches' launches and host syncs),
+                each fed over gRPC by the port's `SchedulerAgent`: slice 1's
+                cluster (5000 nodes, 12000 running pods, Update RPCs of
+                1000 nodes or 2000 pods), then CLI_GROUPS arrival groups of
+                its pending mix (250-2500 pods, one Cycle RPC each, then two
+                idle ones), a gang of 8 (minMember 4) split 5 | 3 over
+                groups 1 and 2; three children in turn, `--multi-cycle-k 1`,
+                `--multi-cycle-k 4 --speculative-dispatch 0` and `4 ... 1`,
+                each with a state dir (a black box) and the watchtower.
+                Checked: the three bind streams equal each other and an
+                in-process `forced_sync` K = 1 twin's; every binding valid
+                (capacity, selectors, taints; the gang whole); a batch ran
+                more than one inner cycle and the batches launched K1, K2,
+                K5, K6, K14, K15; the speculative child adopted a batch;
+                no host sync inside the batch loop's lines or the serving
+                layer; /healthz 200 and ok, /metrics with the multi-cycle
+                families; SIGTERM exits 0 with a black-box bundle. Printed:
+                time to serving, gRPC Update / Cycle ms p50 / p99, each
+                Cycle's ms, inner cycles run a batch, device ms an inner
+                cycle, the speculation ledger, the batches' launches
+                (`multicycle_launches` in the kernel table).
 
 The second-to-last lines are the kernel table (JSON; each kernel's `ms`
 by CUDA events around eager wrapper calls, its `device_ms` from a CUDA
@@ -379,6 +402,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -2158,13 +2182,18 @@ def volumes_scan_leg(torch, kb, fw, dev, nodes, snaps, cut_draw, smi, plain_kern
     log(f"phase volumes scan, kernel scan_commit full mode: VolumeBinding's column "
         f"{col} counts {int(rf.rejects[:, col].sum())} first rejections over "
         f"{int((rf.rejects[:, col] > 0).sum())} pods, equal to the plain version's")
-    del xf, rf, snap_cut
-    # full size: the kernel against its plain version on the first timed
-    # seed's snapshot, then against the same snapshot with VolumeBinding off
+    # the latency mode against its plain version on the same cut (phase 6
+    # holds the scan's instance without volumes at full size; the full-size
+    # plain run with volumes took 150 s and pays for phase 14)
+    _rl, cut_plain = kernel_vs_plain(packed(snap_cut), f"latency mode, the first {SCAN_CUT} "
+                                     f"pending pods of seed {seed} (full N and V)")
+    del xf, rf, snap_cut, _rl
+    # full size: the kernel alone on the first timed seed's snapshot, then
+    # on the same snapshot with VolumeBinding off
     x = packed(snaps[seed])
     nv = int(x.pod_valid.sum())
     R = x.pod_requested.shape[1]
-    rk, full_plain = kernel_vs_plain(x, f"full size, seed {seed}")
+    rk = sc.scan_commit_cuda(x)
     # K13's us a step on the same snapshot with VolumeBinding on and off
     no_vb = Framework.from_config(SchedulerConfiguration(profiles=[Profile(
         plugins=Plugins(filter=PluginSet(disabled=["VolumeBinding"])))]))
@@ -2189,8 +2218,9 @@ def volumes_scan_leg(torch, kb, fw, dev, nodes, snaps, cut_draw, smi, plain_kern
         f"pods with an unbound slot; V={V}, MVol={MVol}, {n_sub} slot subsets, L="
         f"{x.vol_tables.node_pv.shape[0]} list entries, G={x.vol_tables.global_pv.shape[0]}); "
         f"kernel alone {on_kernel:.3f} / {off_kernel:.3f} ms, wrapper {on_ms:.3f} ms "
-        f"({on_dev:.3f} device, torch.profiler), plain {full_plain:.1f} ms "
-        f"({full_plain / nv:.3f} ms a step), bound {k13_bound:.4f} ms ({k13_by}); "
+        f"({on_dev:.3f} device, torch.profiler), plain {cut_plain:.1f} ms on the "
+        f"{SCAN_CUT}-pod cut ({cut_plain / SCAN_CUT:.3f} ms a step), bound {k13_bound:.4f} "
+        f"ms ({k13_by}); "
         f"cluster {shape['cluster']} ({shape['smem']} bytes of "
         f"shared memory a CTA, {shape['smem'] - shape_off['smem']} more than without "
         f"volumes) | {smi}")
@@ -2270,13 +2300,14 @@ def volumes_scan_leg(torch, kb, fw, dev, nodes, snaps, cut_draw, smi, plain_kern
         f"{n_claims} passes")
     del results
 
-    # ms, device_ms, plain_ms and the bound at full size (the inputs both
-    # ran on)
+    # ms, device_ms and the bound at full size; plain_ms on the SCAN_CUT-pod
+    # cut of the same seed (full N and V), where the plain version is held
     entry = kernel_entry(
         "scan_commit_volumes", "cuda", "k8s_scheduler_tpu_torch/csrc/scan_commit.cu",
         "k8s_scheduler_tpu/framework/plugins.py:250", launches["scan_commit"], 0.0,
-        on_ms, on_dev, full_plain, full_bytes, full_ops, device_ms_by="torch.profiler",
-        inputs=f"the pending pods of seed {seed}, full size", kernel_alone_ms=on_kernel,
+        on_ms, on_dev, cut_plain, full_bytes, full_ops, device_ms_by="torch.profiler",
+        inputs=f"the pending pods of seed {seed}, full size", plain_pods=SCAN_CUT,
+        kernel_alone_ms=on_kernel,
         us_per_step=1e3 * on_kernel / nv,
         us_per_step_without_volumebinding=1e3 * off_kernel / nv,
         extra_replaces=["k8s_scheduler_tpu/framework/plugins.py:267",
@@ -4659,6 +4690,371 @@ def compile_phase(torch, kb, dev, smi) -> dict:
     return out
 
 
+# ---- phase 14: the CLI and the gRPC shim, multi-cycle and speculative ------
+
+# arrival groups of phase 14 (slice 1's pending mix), and a gang of
+# make_gang_pods(1) whose 8 members split 5 | 3 over groups 1 and 2: its
+# minMember is cut to 4, so the first part binds and the stragglers join it
+# through the batch loop's placed-count carry
+CLI_GROUPS = (2500, 250, 1200, 600, 1800, 400, 900, 2000)
+CLI_GANG_MIN, CLI_GANG_SPLIT = 4, 5
+CLI_SEED = 1414
+CLI_VARIANTS = (("k1", 1, 0), ("k4", 4, 0), ("k4_spec", 4, 1))
+CLI_SERVE_WAIT_S = 300.0
+
+
+def cli_child(report: str, cli_args: list) -> int:
+    """`chip_smoke.py --cli-child REPORT -- ARGS`: `python -m
+    k8s_scheduler_tpu_torch ARGS` in this process (runpy, as `-m` does),
+    with launch counting around the multi-cycle batches: every
+    `dispatch_multi` call's kernel launches, CUDA-event device ms, inner
+    cycles run and host-sync sites (`set_sync_debug_mode("warn")` for the
+    call), and each batch's deferred preemption / diagnosis launches. At
+    exit REPORT holds them and the process's launch counts."""
+    import atexit
+    import inspect
+    import runpy
+    import warnings
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from k8s_scheduler_tpu_torch.core import cycle as cy
+    from k8s_scheduler_tpu_torch.core import pipeline as pl
+    from k8s_scheduler_tpu_torch.ops import kernel_build as kb
+
+    src, lo = inspect.getsourcelines(cy.build_packed_multicycle_fn)
+    rep = {"batches": [], "deferred": {}, "loop_lines": [lo, lo + len(src)]}
+
+    def delta(before):
+        return {k: v - before.get(k, 0) for k, v in kb.launch_counts.items()
+                if v - before.get(k, 0)}
+
+    orig_multi = pl.ServingPipeline.dispatch_multi
+
+    def dispatch_multi(self, *a, **k):
+        before = dict(kb.launch_counts)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ev[0].record()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                h = orig_multi(self, *a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            ev[1].record()
+        torch.cuda.synchronize()
+        sites: dict = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                key = f"{Path(w.filename).name}:{w.lineno}"
+                sites[key] = sites.get(key, 0) + 1
+        rep["batches"].append({
+            "n": int(a[3]), "cycles_run": int(h.result.cycles_run),
+            "speculative": bool(k.get("speculative")), "continuation": k.get("carry0") is not None,
+            "device_ms": ev[0].elapsed_time(ev[1]), "launches": delta(before),
+            "sync_sites": sites})
+        return h
+
+    def deferred(name):
+        orig = getattr(pl.MultiCycleHandle, name)
+
+        def fn(self, *a, **k):
+            before = dict(kb.launch_counts)
+            out = orig(self, *a, **k)
+            for kk, v in delta(before).items():
+                rep["deferred"][kk] = rep["deferred"].get(kk, 0) + v
+            return out
+
+        setattr(pl.MultiCycleHandle, name, fn)
+
+    pl.ServingPipeline.dispatch_multi = dispatch_multi
+    for name in ("dispatch_preemption", "dispatch_diagnosis"):
+        deferred(name)
+
+    def dump():
+        rep["total"] = {k: v for k, v in kb.launch_counts.items() if v}
+        with open(report, "w") as f:
+            json.dump(rep, f)
+
+    atexit.register(dump)
+    sys.argv = ["k8s_scheduler_tpu_torch", *cli_args]
+    runpy.run_module("k8s_scheduler_tpu_torch", run_name="__main__", alter_sys=True)
+    return 0
+
+
+def cli_objects():
+    """Phase 14's workload: slice 1's cluster (5000 nodes, 12000 running
+    pods) and CLI_GROUPS arrival groups of its pending mix, the gang's
+    members spliced into groups 1 and 2. Returns (nodes, existing, groups,
+    pod_group)."""
+    from k8s_scheduler_tpu_torch.models.api import PodGroup
+    from k8s_scheduler_tpu_torch.utils import synth
+
+    nodes, existing, pend = synth.config4_cluster_config2_pending(
+        (CLI_SEED,), N_NODES, N_EXISTING, sum(CLI_GROUPS))
+    pods = pend[CLI_SEED]
+    groups, i = [], 0
+    for n in CLI_GROUPS:
+        groups.append(pods[i:i + n])
+        i += n
+    gang, pgs = synth.make_gang_pods(1, replicas=8, seed=CLI_SEED)
+    groups[1] = gang[:CLI_GANG_SPLIT] + groups[1]
+    groups[2] = gang[CLI_GANG_SPLIT:] + groups[2]
+    return nodes, existing, groups, PodGroup(pgs[0].name, CLI_GANG_MIN)
+
+
+def cli_bindings_valid(nodes, existing, binds, pods_by_uid, group) -> list:
+    """Every binding in stream order against the oracle's per-node state:
+    capacity (every resource and the pod count), node selectors and
+    affinity, taints, unschedulable nodes; and the gang whole or dropped.
+    Returns the violations."""
+    from k8s_scheduler_tpu_torch import oracle
+
+    st = oracle.OracleState.build(nodes, existing)
+    index = {nd.name: i for i, nd in enumerate(nodes)}
+    bad = []
+    for uid, node in binds:
+        pod, i = pods_by_uid[uid], index[node]
+        for f in (oracle.filter_node_resources_fit, oracle.filter_node_unschedulable,
+                  oracle.filter_node_affinity, oracle.filter_taint_toleration,
+                  oracle.filter_node_name):
+            if not f(pod, st, i):
+                bad.append(f"{uid} -> {node}: {f.__name__}")
+        st.add(i, pod)
+    members = [u for u, _n in binds if pods_by_uid[u].spec.pod_group == group.name]
+    if members and len(members) < group.min_member:
+        bad.append(f"gang {group.name}: {len(members)} members bound < {group.min_member}")
+    return bad
+
+
+def cli_twin(torch, dev, nodes, existing, groups, group):
+    """The in-process forced_sync twin: a K = 1 `Scheduler` fed the events
+    the CLI children get (bound pods, the gang's group, one arrival group a
+    cycle, each bind confirmed as the agent confirms it, two idle cycles).
+    Returns the bind stream."""
+    import copy
+
+    from k8s_scheduler_tpu_torch.config import SchedulerConfiguration
+    from k8s_scheduler_tpu_torch.core import Scheduler
+
+    binds: list = []
+    sch = Scheduler(SchedulerConfiguration(forced_sync=True, multi_cycle_max_wait_ms=1e9),
+                    binder=lambda p, n: binds.append((p, n)), device=dev)
+    for nd in nodes:
+        sch.on_node_add(nd)
+    for pod, node in existing:
+        sch.on_pod_add(pod, node)
+    sch.add_pod_group(group)
+    out = []
+    for g in groups + [[], []]:
+        for p in copy.deepcopy(g):
+            sch.on_pod_add(p)
+        sch.schedule_cycle()
+        for p, n in binds:
+            sch.on_pod_update(p, n)
+        out += [(p.uid, n) for p, n in binds]
+        binds.clear()
+    del sch
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_run(variant: str, k: int, spec: int, nodes, existing, groups, group, tmp: str) -> dict:
+    """One CLI child: started, fed over gRPC by the port's `SchedulerAgent`,
+    probed over HTTP, SIGTERMed. Returns its binds, RPC times, report and
+    the checks' readings."""
+    import signal
+    import subprocess
+    import urllib.request
+
+    from k8s_scheduler_tpu_torch.service.client import SchedulerAgent, SchedulerClient
+
+    sd = os.path.join(tmp, variant)
+    os.makedirs(sd, exist_ok=True)
+    report = os.path.join(sd, "report.json")
+    logf = os.path.join(sd, "child.log")
+    args = ["--address", "127.0.0.1:0", "--http-port", "0", "--state-dir",
+            os.path.join(sd, "state"), "--compile-cache-dir", "off",
+            "--snapshot-interval", "0", "--multi-cycle-k", str(k),
+            "--multi-cycle-max-wait-ms", "1e9", "--speculative-dispatch", str(spec)]
+    t0 = time.time()
+    with open(logf, "w") as lf:
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cli-child",
+                                  report, "--", *args], stdout=lf, stderr=subprocess.STDOUT)
+    ports: dict = {}
+    try:
+        while time.time() - t0 < CLI_SERVE_WAIT_S and child.poll() is None:
+            text = open(logf).read()
+            for key, pat in (("grpc", r"listening on port (\d+)"),
+                             ("http", r"serving /healthz /metrics on port (\d+)")):
+                hit = re.search(pat, text)
+                if hit:
+                    ports[key] = int(hit.group(1))
+            if "http" in ports:
+                break
+            time.sleep(0.05)
+        ready_s = time.time() - t0
+        check("http" in ports, f"cli {variant}: the child did not serve in "
+              f"{CLI_SERVE_WAIT_S:.0f} s:\n{open(logf).read()[-3000:]}")
+        client = SchedulerClient(f"127.0.0.1:{ports['grpc']}")
+        rpc = {"update": [], "cycle": []}
+        for name in ("update", "cycle"):
+            fn = getattr(client, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                rpc[_name].append((time.perf_counter() - t) * 1e3)
+                return out
+
+            setattr(client, name, timed)
+        binds: list = []
+        agent = SchedulerAgent(client, lambda uid, name, ns, node: binds.append((uid, node)))
+        t_feed = time.time()
+        for i in range(0, len(nodes), 1000):
+            with agent.batched():
+                for nd in nodes[i:i + 1000]:
+                    agent.upsert_node(nd)
+        for i in range(0, len(existing), 2000):
+            with agent.batched():
+                for pod, node in existing[i:i + 2000]:
+                    agent.upsert_pod(pod, node)
+        agent.add_pod_group(group)
+        feed_s = time.time() - t_feed
+        n_feed = len(rpc["update"])
+        per_cycle = []
+        for g in list(groups) + [[], []]:
+            if g:
+                with agent.batched():
+                    for p in g:
+                        agent.upsert_pod(p)
+            nb = len(binds)
+            agent.run_cycle()
+            per_cycle.append(len(binds) - nb)
+        bodies = {}
+        for route in ("/healthz", "/metrics"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{ports['http']}{route}",
+                                        timeout=30) as r:
+                check(r.status == 200, f"cli {variant}: {route} answered {r.status}")
+                bodies[route] = r.read().decode()
+        client.close()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    text = open(logf).read()
+    check(rc == 0, f"cli {variant}: the child exited {rc} on SIGTERM:\n{text[-3000:]}")
+    bb = os.path.join(sd, "state", "blackbox")
+    bundles = sorted(n for n in os.listdir(bb) if "sigterm" in n) if os.path.isdir(bb) else []
+    check(bundles and "black box dumped" in text,
+          f"cli {variant}: no black-box bundle at SIGTERM:\n{text[-3000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    metrics = bodies["/metrics"]
+    fams = {ln.split("{")[0].split(" ")[0] for ln in metrics.splitlines()
+            if ln and not ln.startswith("#")}
+    spec_led = {o: sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+                       if ln.startswith("scheduler_speculation_total{")
+                       and f'outcome="{o}"' in ln)
+                for o in ("adopted", "abandoned", "redispatched")}
+    return {"binds": binds, "per_cycle": per_cycle, "ready_s": ready_s, "feed_s": feed_s,
+            "rpc": rpc, "n_feed_updates": n_feed, "report": rep, "fams": fams,
+            "speculation": spec_led, "healthz": json.loads(bodies["/healthz"]),
+            "bundles": bundles}
+
+
+def cli_phase(torch, kb, dev, smi) -> dict:
+    """Phase 14 (module docstring). Returns the launches of the children's
+    multi-cycle batches and their deferred programs, and the readings."""
+    import tempfile
+
+    t_phase = time.time()
+    nodes, existing, groups, group = cli_objects()
+    pods_by_uid = {p.uid: p for g in groups for p in g}
+    t0 = time.time()
+    twin = cli_twin(torch, dev, nodes, existing, groups, group)
+    log(f"phase cli: the in-process forced_sync twin (K = 1) served {len(CLI_GROUPS)} groups "
+        f"({sum(CLI_GROUPS)} pods + the gang's 8) in {time.time() - t0:.1f} s: "
+        f"{len(twin)} binds")
+    bad = cli_bindings_valid(nodes, existing, twin, pods_by_uid, group)
+    check(not bad, f"cli: invalid bindings in the twin's stream: {bad[:5]}")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="cli-", dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        for variant, k, spec in CLI_VARIANTS:
+            r = cli_run(variant, k, spec, nodes, existing, groups, group, tmp)
+            runs[variant] = r
+            rep = r["report"]
+            batches = rep["batches"]
+            cyc = [b["cycles_run"] for b in batches]
+            inner = [round(b["device_ms"] / max(b["cycles_run"], 1), 2) for b in batches]
+            loop_launch: dict = {}
+            for b in batches:
+                for kk, v in b["launches"].items():
+                    loop_launch[kk] = loop_launch.get(kk, 0) + v
+            r["loop_launches"] = loop_launch
+            upd, cy_ms = r["rpc"]["update"], r["rpc"]["cycle"]
+            log(f"phase cli {variant}: python -m k8s_scheduler_tpu_torch --multi-cycle-k {k} "
+                f"--speculative-dispatch {spec}: serving {r['ready_s']:.1f} s after start; "
+                f"feed {r['feed_s']:.1f} s ({r['n_feed_updates']} Update RPCs); gRPC Update "
+                f"ms p50 / p99 {pct(upd, 0.5):.1f} / {pct(upd, 0.99):.1f} over {len(upd)}, "
+                f"Cycle ms p50 / p99 {pct(cy_ms, 0.5):.1f} / {pct(cy_ms, 0.99):.1f} over "
+                f"{len(cy_ms)} (each Cycle RPC one schedule_cycle: ms "
+                f"{[round(x, 1) for x in cy_ms]}); binds per Cycle {r['per_cycle']}; "
+                f"batches (inner cycles run) {cyc}, device ms an inner cycle {inner}, "
+                f"speculative {[b['speculative'] for b in batches]}; speculation ledger "
+                f"{json.dumps(r['speculation'])}; the batches' launches "
+                f"{json.dumps(loop_launch)}, their deferred programs' "
+                f"{json.dumps(rep['deferred'])}; /healthz ok {r['healthz'].get('ok')}; "
+                f"bundle {r['bundles'][-1]} | {smi}")
+            check(r["binds"] == twin, f"cli {variant}: the bind stream differs from the "
+                  f"forced_sync twin's ({len(r['binds'])} / {len(twin)} binds)")
+            check(r["healthz"].get("ok") is True, f"cli {variant}: /healthz not ok")
+            for fam in ("scheduler_multicycle_batch_cycles_count",
+                        "scheduler_multicycle_inner_cycles_total",
+                        "scheduler_schedule_attempts_total"):
+                check(fam in r["fams"], f"cli {variant}: /metrics lacks {fam}")
+            # the loop's own code adds no host sync (the cycle body's known
+            # sites are phase 10's), nor the serving layer
+            loop = rep["loop_lines"]
+            for b in batches:
+                own = {s: n for s, n in b["sync_sites"].items()
+                       if s.split(":")[0] in ("pipeline.py", "scheduler.py")
+                       or (s.split(":")[0] == "cycle.py"
+                           and loop[0] <= int(s.split(":")[1]) < loop[1])}
+                check(not own, f"cli {variant}: host syncs in the batch loop or the serving "
+                      f"layer: {own}")
+            if k > 1:
+                check(any(c > 1 for c in cyc), f"cli {variant}: no batch ran more than one "
+                      f"inner cycle ({cyc})")
+                for kk in ("static_base", "claim_pass", "capacity", "guard_sweep",
+                           "dyn_mask", "dyn_score"):
+                    check(loop_launch.get(kk, 0) > 0, f"cli {variant}: the batch loop "
+                          f"launched no {kk}")
+            if spec:
+                check(r["speculation"]["adopted"] > 0,
+                      f"cli {variant}: no speculative batch adopted ({r['speculation']})")
+        sites = sorted({s for r in runs.values() for b in r["report"]["batches"]
+                        for s in b["sync_sites"]})
+        log(f"phase cli: host-sync sites inside the batches' dispatch (set_sync_debug_mode"
+            f"('warn')): {json.dumps(sites)}; none in the loop's lines "
+            f"(core/cycle.py:{runs['k4']['report']['loop_lines']}) or the serving layer")
+    totals: dict = {}
+    for r in runs.values():
+        for kk, v in list(r["loop_launches"].items()) + list(r["report"]["deferred"].items()):
+            totals[kk] = totals.get(kk, 0) + v
+    log(f"phase cli: the three children's bind streams equal each other and the twin's "
+        f"({len(twin)} binds, every binding valid, the gang whole); multi-cycle launches "
+        f"(batches and their deferred programs) {json.dumps(totals)}; the phase took "
+        f"{time.time() - t_phase:.1f} s | {smi}")
+    return {"launches": totals, "binds": len(twin)}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4677,10 +5073,22 @@ def main(argv=None) -> int:
                          "at DIR")
     ap.add_argument("--compile-role", default="cold", choices=("cold", "warm"),
                     help="internal: which of phase 13's two processes")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cli_args = None
+    if "--cli-child" in argv and "--" in argv:
+        # phase 14's CLI child: everything after "--" is the CLI's own
+        cut = argv.index("--")
+        argv, cli_args = argv[:cut], argv[cut + 1:]
+    ap.add_argument("--cli-child", default=None, metavar="REPORT",
+                    help="internal: phase 14's `python -m k8s_scheduler_tpu_torch` child, "
+                         "its batch launch counts written to REPORT at exit (CLI arguments "
+                         "after --)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.cli_child:
+        return cli_child(args.cli_child, cli_args or [])
     if args.durable_child:
         return durable_child(args.durable_child)
     if args.compile_child:
@@ -5332,6 +5740,8 @@ def main(argv=None) -> int:
 
     # ============ compile cache, profiling, watchtower, the fuzzer ============
     comp_stats = compile_phase(torch, kb, dev, smi)
+    # ============ the CLI and the gRPC shim, multi-cycle and speculative ============
+    cli_stats = cli_phase(torch, kb, dev, smi)
     kernels["scan_commit"]["tie_last_launches"] = comp_stats["tie_last_launches"]
     kernels["scan_commit"]["fuzz_launches"] = comp_stats["fuzz_launches"].get("scan_commit", 0)
 
@@ -5379,6 +5789,9 @@ def main(argv=None) -> int:
     for k, v in dur_stats["launches"].items():
         if k in kernels:
             kernels[k]["durable_launches"] = v
+    for k, v in cli_stats["launches"].items():
+        if k in kernels:
+            kernels[k]["multicycle_launches"] = v
     for k in kernels.values():
         log(f"  kernel {k['name']:17s} ms {k['ms']:9.3f}  device {k['device_ms']:9.4f}  "
             f"bound {k['bound_ms']:8.4f} ({k['bound_by']})  plain {k['plain_ms']:9.3f}  "
@@ -5396,7 +5809,8 @@ def main(argv=None) -> int:
         f"verdicts ms {json.dumps(ext_stats['cycle_ms'])}, durable serving-cycle wall ms "
         f"{dur_stats['wall_ms']} (the twin's {dur_stats['twin_wall_ms']}), kernels ready "
         f"cold / warm {comp_stats['cold']['ready_s']} / {comp_stats['warm']['ready_s']} s, "
-        f"fuzz traces {json.dumps(comp_stats['fuzz_traces'])}, peak memory "
+        f"fuzz traces {json.dumps(comp_stats['fuzz_traces'])}, CLI binds "
+        f"{cli_stats['binds']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.time() - t_start:.0f}s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,20 +1,13 @@
-"""Config API subset: the part of `k8s_scheduler_tpu/config/types.py` the
-port reads — profiles with per-extension-point plugin sets and args
-(queueSort, filter, postFilter, score), the default plugin sets and
-weights, `commit_mode`, `gang_scheduling`,
-`percentage_of_nodes_to_score`, the serving fields the `Scheduler` reads
-(backoff, `forced_sync`, the flight recorder and SLO, the degradation
-ladder, the dispatch deadline, the encoder's pads, `extenders`, fault
-injection, durable state, the front door, tracing, the black box, the
-persistent kernel cache and the watchtower) and the fields of features
-later slices port (`multi_cycle_k`, `speculative_dispatch`,
-`shard_devices`: the `Scheduler` refuses a configuration that turns one
-on),
-with the reference's defaults, and `load_config` for those fields under
-their upstream names. The port keeps its own copy."""
+"""The config API: the port's copy of `k8s_scheduler_tpu/config/types.py`
+— profiles with per-extension-point plugin sets and args (every point
+upstream names), the default plugin sets and weights, every serving
+field with the reference's defaults, and `load_config`, which reads every
+field the reference's reads under its upstream name. `shard_devices` > 1
+is read but refused by the `Scheduler` (ROADMAP A13)."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -46,9 +39,14 @@ class PluginSet:
 @dataclass
 class Plugins:
     queue_sort: PluginSet = field(default_factory=PluginSet)
+    pre_filter: PluginSet = field(default_factory=PluginSet)
     filter: PluginSet = field(default_factory=PluginSet)
     post_filter: PluginSet = field(default_factory=PluginSet)
+    pre_score: PluginSet = field(default_factory=PluginSet)
     score: PluginSet = field(default_factory=PluginSet)
+    reserve: PluginSet = field(default_factory=PluginSet)
+    permit: PluginSet = field(default_factory=PluginSet)
+    bind: PluginSet = field(default_factory=PluginSet)
 
 
 @dataclass
@@ -97,10 +95,13 @@ class SchedulerConfiguration:
     # flight recorder ring capacity (0 disables recording, the observer
     # and the speculative warm builds)
     flight_recorder_size: int = 512
+    # /healthz staleness deadline: 503 when no cycle completed within this
+    # many seconds (0 = never stale; cmd/main.py)
+    health_max_cycle_age_seconds: float = 0.0
     # latency SLO over the observer's window (0 disables the objective)
     slo_p99_ms: float = 0.0
     slo_window_cycles: int = 1024
-    # multi-cycle dispatch (ROADMAP A11); 1 = every cycle alone
+    # multi-cycle dispatch: up to K arrival groups a dispatch; 1 = every cycle alone
     multi_cycle_k: int = 1
     multi_cycle_max_wait_ms: float = 5.0
     # down-step margin of the P / N pad buckets (0 = immediate)
@@ -113,7 +114,7 @@ class SchedulerConfiguration:
     shard_devices: int = 0
     # warm-build the adjacent pad regime off the serving thread
     speculative_compile: bool = True
-    # depth-2 speculative dispatch, multi-cycle path only (ROADMAP A11)
+    # depth-2 speculative dispatch, multi-cycle path only
     speculative_dispatch: bool = True
     # admission-time encode, multi-cycle path only (a no-op at K = 1)
     incremental_encode: bool = False
@@ -220,15 +221,16 @@ def _plugin_set_from_dict(d: dict) -> PluginSet:
     )
 
 
-# (upstream extension-point name, Plugins attribute) for the points the port reads
-_POINTS = (("queueSort", "queue_sort"), ("filter", "filter"),
-           ("postFilter", "post_filter"), ("score", "score"))
+# (upstream extension-point name, Plugins attribute), every point the reference reads
+_POINTS = (("queueSort", "queue_sort"), ("preFilter", "pre_filter"), ("filter", "filter"),
+           ("postFilter", "post_filter"), ("preScore", "pre_score"), ("score", "score"),
+           ("reserve", "reserve"), ("permit", "permit"), ("bind", "bind"))
 
 
 def load_config(source: "str | dict") -> SchedulerConfiguration:
     """A configuration from a dict (or a YAML string or file path, where
     PyYAML is installed) with upstream field names, as the reference's
-    `load_config` reads them, for the fields this subset has."""
+    `load_config` reads them: every field it reads."""
     if isinstance(source, str):
         import yaml
 
@@ -262,6 +264,7 @@ def load_config(source: "str | dict") -> SchedulerConfiguration:
         pad_mc=int(data.get("padMc", 0)),
         forced_sync=bool(data.get("forcedSync", False)),
         flight_recorder_size=int(data.get("flightRecorderSize", 512)),
+        health_max_cycle_age_seconds=_duration_seconds(data.get("healthMaxCycleAge", 0.0)),
         slo_p99_ms=float(data.get("sloP99Ms", 0.0)),
         slo_window_cycles=int(data.get("sloWindowCycles", 1024)),
         multi_cycle_k=int(data.get("multiCycleK", 1)),
@@ -299,3 +302,7 @@ def load_config(source: "str | dict") -> SchedulerConfiguration:
             for e in data.get("extenders", [])
         ],
     )
+
+
+def to_dict(cfg: SchedulerConfiguration) -> dict:
+    return dataclasses.asdict(cfg)

@@ -12,8 +12,7 @@ disk.
 Triggers (each wired at its site, one module-flag check when unarmed —
 the core/faults.py arming pattern):
 
-- `sigterm`       — the CLI's shutdown path (the reference's cmd/main.py;
-                    its port is ROADMAP A10b's next item)
+- `sigterm`       — the CLI's shutdown path (cmd/main.py)
 - `stateless`     — the degradation ladder entering RUNG_STATELESS
                     (Scheduler._on_rung_transition)
 - `watchdog`      — a dispatch watchdog deadline abort

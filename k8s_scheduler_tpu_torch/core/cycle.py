@@ -52,8 +52,11 @@ with its failure classes (`classify_failure`) serve the `Scheduler`
 through the snapshot (`pod_extender_mask` / `pod_extender_score`: K1's
 extender operands), the carry cycle and the diagnosis program through
 device planes that `ExtenderVerdictKeeper` keeps (K18 `extender_merge`
-over the carried base; K16's per-pod base). The multi-cycle / arena
-builders are ROADMAP items A11-A13."""
+over the carried base; K16's per-pod base). The multi-cycle program
+(`build_packed_multicycle_fn`, `MultiCycleResult`,
+`multicycle_unsupported_reason`) runs up to K of those cycles per dispatch
+with the capacity and gang carry threaded on the device. The tenant arena
+builder is ROADMAP A12."""
 
 from __future__ import annotations
 
@@ -120,6 +123,55 @@ class CycleResult:
     diag_per_round: torch.Tensor  # i32 [max_rounds, 3] a round's (live
     # claims, capacity rejections, guard revocations), summed over passes
     placed_round: torch.Tensor  # i32 [P] as CycleDecision's
+
+
+@dataclasses.dataclass
+class MultiCycleResult:
+    """Stacked decisions of one multi-cycle dispatch (K inner cycles,
+    `build_packed_multicycle_fn`). Rows past `cycles_run` were never
+    executed (early exit on drain) and carry the init fill (-1 / False /
+    zeros)."""
+
+    assignment: torch.Tensor  # i32 [K, P] node index or -1
+    unschedulable: torch.Tensor  # bool [K, P]
+    gang_dropped: torch.Tensor  # bool [K, P]
+    attempted: torch.Tensor  # bool [K, P] inner cycle i's pod_valid
+    node_requested: torch.Tensor  # f32 [K, N, R] post-inner-cycle state:
+    # row i feeds that inner cycle's deferred diagnosis / preemption
+    cycles_run: int  # inner cycles executed (the host loop's count)
+    # the loop's final carry, so a depth-2 speculative batch chains device
+    # to device (`ServingPipeline.dispatch_multi(carry0=...)`)
+    carry_node_requested: torch.Tensor  # f32 [N, R] post-batch capacity
+    carry_gplaced: torch.Tensor  # i32 [G] members placed by this batch
+
+
+def multicycle_unsupported_reason(snap, check_ports: bool = True) -> str | None:
+    """Why this snapshot is outside the multi-cycle envelope (None = in;
+    reference `core/cycle.py:109`). The K-cycle loop carries exactly two
+    pieces of cross-cycle state, `node_requested` and the per-group placed
+    counts, which is exact (bit-identical to K sequential dispatches with
+    host bind-folding between them) precisely when no capability reads
+    other existing-pod-derived state: inter-pod affinity / topology spread,
+    volumes, pending host ports and extenders fall back to sequential
+    single-cycle dispatches. `snap` is a `ClusterSnapshot` or the host
+    encode's `(fields, aux)` pair. The host-port test reads the pending
+    pods' port ids (one device read for a device snapshot); the batch
+    program, which the host has gated already, skips it
+    (`check_ports=False`)."""
+    if isinstance(snap, tuple):
+        fields, aux = snap
+        flags, ports = aux.get, fields.get("pod_port_ids")
+    else:
+        flags, ports = (lambda k, d=False: getattr(snap, k, d)), snap.pod_port_ids
+    for flag, why in (("has_extender", "extender"),
+                      ("has_inter_pod_affinity", "inter_pod_affinity"),
+                      ("has_topology_spread", "topology_spread"),
+                      ("has_volumes", "volumes")):
+        if flags(flag, False):
+            return why
+    if check_ports and ports is not None and bool((ports >= 0).any()):
+        return "host_ports"
+    return None
 
 
 def sampling_window(snap, pct: int) -> tuple[torch.Tensor, int, int] | None:
@@ -586,6 +638,119 @@ def build_packed_cycle_fn(spec, **kw) -> Callable:
         return cycle(packing.unpack(wbuf, bbuf, spec), stable)
 
     return _Resilient(packed, "packed_cycle")
+
+
+def build_packed_multicycle_fn(
+    spec,
+    framework: Framework | None = None,
+    k: int = 4,
+    gang_scheduling: bool = True,
+    commit_mode: str = "rounds",
+    max_rounds: int = 64,
+    percentage_of_nodes_to_score: int = 0,
+    rounds_kw: dict | None = None,
+    carry_in: bool = False,
+    device=None,
+) -> Callable:
+    """The multi-cycle serving program (reference `core/cycle.py:865`): up
+    to `k` scheduling cycles per dispatch.
+
+    `multicycle(wbufs [K, W], bbufs [K, B], stable, n_cycles, *carry0,
+    counts=None) -> MultiCycleResult`: row i is the packed frame the host
+    would have dispatched as cycle i (its own pending group, ranks,
+    cycle_index), all encoded against the pre-batch cache. The loop threads
+    what the host fold would have produced: inner cycle i+1 schedules
+    against cycle i's post-commit `node_requested`, and the per-group
+    placed counts fold into `group_existing_count`, so a gang that spans
+    inner cycles still reaches minMember. The inner body is the
+    single-dispatch cycle (`build_cycle_fn(outputs="latency")`): on the
+    card each inner cycle launches the fresh rounds body's hand kernels.
+
+    The reference's `lax.while_loop` is a host loop over the rows that adds
+    no host sync of its own: the early exit on drain (stop at `n_cycles`
+    or once every remaining row has no valid pod) is decided from `counts`,
+    the per-row valid-pod counts the host knows when it stacks the feed
+    (computed from the stacked rows, one sync, when not given).
+
+    `carry_in=True` builds the continuation variant (depth-2 speculative
+    dispatch): two extra arguments `(node_req0 f32 [N, R], gplaced0 i32
+    [G])`, a predecessor batch's `carry_node_requested` / `carry_gplaced`
+    still on the device, seed the loop instead of the snapshot's fields.
+    Chaining batch B onto batch A this way is bit-identical to one combined
+    [A; B] batch. Wrapped in `_Resilient`."""
+    from ..models import packing
+
+    if commit_mode not in ("scan", "rounds"):
+        raise ValueError(f"unknown commit_mode {commit_mode!r}")
+    if k < 1:
+        raise ValueError(f"multi-cycle k must be >= 1, got {k}")
+    cycle = build_cycle_fn(
+        framework, gang_scheduling, commit_mode, max_rounds,
+        percentage_of_nodes_to_score, rounds_kw, outputs="latency", device=device)
+    pv_off = pv_p = None
+    for name, shape, off in spec.bools:
+        if name == "pod_valid":
+            pv_off, pv_p = off, int(shape[0])
+    if pv_off is None:  # pragma: no cover - every spec carries pod_valid
+        raise ValueError("spec has no pod_valid field")
+
+    def multicycle(wbufs, bbufs, stable, n_cycles, *carry0, counts=None):
+        snap0 = packing.unpack(wbufs[0], bbufs[0], spec)
+        reason = multicycle_unsupported_reason(snap0, check_ports=False)
+        if reason is not None:
+            # the scheduler gates before building this program; reaching
+            # here is a caller's bug, and a wrong answer would be far worse
+            raise ValueError(
+                f"multi-cycle loop unsupported for this snapshot: {reason} "
+                "(carry would go stale across inner cycles)")
+        dev = snap0.device
+        P = snap0.P
+        N, R = snap0.node_requested.shape
+        G = snap0.group_min_member.shape[0]
+        if counts is None:
+            counts = (bbufs[:, pv_off:pv_off + pv_p] != 0).sum(dim=1).tolist()
+        counts = [int(c) for c in counts] + [0] * (k - len(counts))
+        remaining = [sum(counts[i:]) for i in range(k)] + [0]
+        if carry_in:
+            node_req0 = carry0[0].to(torch.float32)
+            gplaced0 = carry0[1].to(torch.int32)
+        else:
+            node_req0 = snap0.node_requested
+            gplaced0 = torch.zeros((G,), dtype=torch.int32, device=dev)
+        a_out = torch.full((k, P), -1, dtype=torch.int32, device=dev)
+        u_out = torch.zeros((k, P), dtype=torch.bool, device=dev)
+        d_out = torch.zeros((k, P), dtype=torch.bool, device=dev)
+        act_out = torch.zeros((k, P), dtype=torch.bool, device=dev)
+        nr_out = torch.zeros((k, N, R), dtype=torch.float32, device=dev)
+        node_req, gplaced = node_req0, gplaced0
+        i, limit = 0, min(int(n_cycles), k)
+        while i < limit and remaining[i] > 0:
+            snap = snap0 if i == 0 else packing.unpack(wbufs[i], bbufs[i], spec)
+            snap = dataclasses.replace(
+                snap, node_requested=node_req,
+                group_existing_count=snap.group_existing_count + gplaced)
+            dec = cycle(snap, stable)
+            placed = snap.pod_valid & (dec.assignment >= 0)
+            gid = snap.pod_group.clamp(0, G - 1).long()
+            add = ((snap.pod_group >= 0) & placed).to(torch.int32)
+            gplaced = gplaced + torch.zeros((G,), dtype=torch.int32, device=dev).index_add_(
+                0, gid, add)
+            a_out[i] = torch.where(snap.pod_valid, dec.assignment, -1)
+            u_out[i] = dec.unschedulable
+            d_out[i] = dec.gang_dropped
+            act_out[i] = snap.pod_valid
+            nr_out[i] = dec.node_requested
+            node_req = dec.node_requested
+            i += 1
+        return MultiCycleResult(
+            assignment=a_out, unschedulable=u_out, gang_dropped=d_out,
+            attempted=act_out, node_requested=nr_out, cycles_run=i,
+            carry_node_requested=node_req,
+            # a continuation's carry already holds the predecessor's counts:
+            # report only this batch's, so chains add deltas
+            carry_gplaced=gplaced - gplaced0)
+
+    return _Resilient(multicycle, "multicycle_cont" if carry_in else "multicycle")
 
 
 # --------------------------------------------------------------------------

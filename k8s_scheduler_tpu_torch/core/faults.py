@@ -29,10 +29,9 @@ real fault class strikes):
 - `clock_skew`     — the scheduler's cycle-clock read jumps by `ms`
   (derived stats must tolerate a stepping clock).
 
-`cache_torn` and `cache_enospc` parse exactly as in the reference, but
-they cannot fire yet: their hooks sit in the persistent compile cache's
-store, which the port refuses until `compileCacheDir` is ported (ROADMAP
-A10b's next item).
+`cache_torn` and `cache_enospc` parse exactly as in the reference and fire
+at the persistent kernel cache's store (`core/compile_cache.py`), which
+`compileCacheDir` / `stateDir` open.
 
 Plan syntax (config `faultSpec`, env `SCHED_FAULTS`):
 

@@ -32,8 +32,19 @@ no overlap. On the CPU (the tests) every step runs eagerly and a host
 buffer is copied before dispatch (`_cpu_safe_buffers`), so a deferred
 program never reads an arena the next encode rewrote.
 
-`MultiCycleHandle`, `dispatch_multi` and depth-2 speculation are ROADMAP
-A11: `dispatch_multi` raises."""
+Multi-cycle batches (`dispatch_multi`, `MultiCycleHandle`): K stacked
+frames in one dispatch of `core/cycle.build_packed_multicycle_fn`, whose
+decisions are slimmed per inner cycle and copied into pinned host memory
+row by row, each with its event, so `decisions_row(i)` waits for row i
+alone and the apply loop binds cycle i's winners while later rows are in
+flight. A batch counts as the in-flight cycle for the ordering guard.
+Depth-2 speculation relaxes it: `dispatch_multi(speculative=True,
+carry0=...)` dispatches batch B chained on batch A's device-resident carry
+while A is unfetched (a third slot holds it); the caller then
+`adopt_speculative()`s or `abandon_speculative()`s it. The cycle programs'
+own host syncs (the rounds' stop test and the sites PERF.md lists) make a
+speculative dispatch return only once B's rounds have run, so speculation
+here moves when the host applies, not when the device runs."""
 
 from __future__ import annotations
 
@@ -129,6 +140,37 @@ def build_decision_slim_fn(num_nodes: int):
         a = assignment.to(torch.int16) if narrow else assignment
         flags = unschedulable.to(torch.uint8) | (gang_dropped.to(torch.uint8) << 1)
         return a, flags
+
+    return slim
+
+
+def build_multicycle_slim_rows_fn(num_nodes: int):
+    """The streamed multi-cycle slimming (reference `core/pipeline.py:181`):
+    stacked [K, P] decisions in, one (assignment i16|i32 [P], flags u8 [P])
+    pair per row out. Flag bits: 0 = unschedulable, 1 = gang_dropped, 2 =
+    attempted (the pod was valid in that inner cycle: "not this cycle's
+    pod" differs from "placed at node 0"). `build_multicycle_slim_fn`'s
+    stacked variant is the same rows stacked."""
+    narrow = num_nodes < (1 << 15)
+
+    def slim(assignment, unschedulable, gang_dropped, attempted, rows: int):
+        a = assignment.to(torch.int16) if narrow else assignment
+        flags = (unschedulable.to(torch.uint8) | (gang_dropped.to(torch.uint8) << 1)
+                 | (attempted.to(torch.uint8) << 2))
+        return [(a[i], flags[i]) for i in range(rows)]
+
+    return slim
+
+
+def build_multicycle_slim_fn(num_nodes: int):
+    """Stacked multi-cycle slimming (reference `core/pipeline.py:160`):
+    (assignment i16|i32 [K, P], flags u8 [K, P], cycles_run)."""
+    rows = build_multicycle_slim_rows_fn(num_nodes)
+
+    def slim(assignment, unschedulable, gang_dropped, attempted, cycles_run):
+        out = rows(assignment, unschedulable, gang_dropped, attempted, assignment.shape[0])
+        return (torch.stack([a for a, _ in out]), torch.stack([f for _, f in out]),
+                int(cycles_run))
 
     return slim
 
@@ -313,6 +355,187 @@ class CycleHandle:
         self._wbuf = self._bbuf = self._stable = self._emask = None
 
 
+class MultiCycleHandle:
+    """One in-flight multi-cycle batch (reference `core/pipeline.py:417`):
+    the stacked device results and per-row slim payloads. `decisions_row(i)`
+    waits for row i's copy alone; the handle counts as fetched (the
+    ordering guard releases) once every live row (`n_live`) was fetched.
+    Inner cycle i's deferred programs (diagnosis, preemption) run lazily on
+    row i of the stacked buffers and the loop's post-cycle-i
+    `node_requested`."""
+
+    def __init__(self, pipe, result, slim, wbufs, bbufs, stable, n_live: int,
+                 speculative: bool = False):
+        self._pipe = pipe
+        self.result = result  # MultiCycleResult on the device
+        self._slim = slim  # [(host a, host flags, event | None)] per live row
+        self._wbufs = wbufs
+        self._bbufs = bbufs
+        self._stable = stable
+        self.n_live = n_live
+        self.speculative = speculative
+        self._rows: dict[int, tuple] = {}
+        self._t_decisions = None
+        self._diag: dict[int, object] = {}
+        self._pre: dict[int, object] = {}
+        # inner cycle i -> (lag_s, t_done): when its attribution became
+        # available, stamped at first force
+        self.diag_lag: dict[int, tuple[float, float]] = {}
+        self._stats_seed: dict = {}
+        self.fetched = False
+
+    def _consumed(self, e: BaseException) -> None:
+        """A failed fetch consumes the batch: the ordering guard releases
+        and the failure class is stamped before the re-raise."""
+        self._pipe.note_fetch_failure(e)
+        self.fetched = True
+        self.release()
+        self._pipe._note_inflight()
+
+    def decisions_row(self, i: int):
+        """Inner cycle i's decisions as numpy — (assignment i32 [P],
+        unschedulable bool [P], gang_dropped bool [P], attempted bool [P])
+        — waiting for row i's slim copy only. The first row stamps
+        `t_first_decision`."""
+        hit = self._rows.get(i)
+        if hit is not None:
+            return hit
+        now = self._pipe._now
+        t0 = now()
+        st = self._pipe.stats
+        st.setdefault("t_decision_start", t0)
+
+        def wait():
+            a, flags, ev = self._slim[i]
+            if ev is not None:
+                ev.synchronize()
+            return a.numpy(), flags.numpy()
+
+        try:
+            a, flags = self._pipe.fetch_decisions(wait)
+        except Exception as e:  # schedlint: disable=RB001 -- not swallowed: _consumed stamps the failure class before the re-raise
+            self._consumed(e)
+            raise
+        t1 = now()
+        self._t_decisions = t1
+        st["decision_wait_ms"] = st.get("decision_wait_ms", 0.0) + (t1 - t0) * 1e3
+        st["t_decision_end"] = t1
+        st.setdefault("t_first_decision", t1)
+        from . import spans as _spans
+
+        if _spans.ARMED:
+            st.setdefault("decision_rows", []).append((i, t0, t1))
+        nbytes = int(a.nbytes + flags.nbytes)
+        st["fetch_bytes"] = st.get("fetch_bytes", 0) + nbytes
+        self._pipe._fetch_bytes_total += nbytes
+        m = self._pipe._metrics
+        if m is not None:
+            m.cycle_duration.labels(phase="decision_fetch").observe(t1 - t0)
+            m.decision_fetch_bytes.inc(nbytes)
+        row = (np.asarray(a, dtype=np.int32), (flags & 1) != 0, (flags & 2) != 0,
+               (flags & 4) != 0)
+        self._rows[i] = row
+        if len(self._rows) >= self.n_live and not self.fetched:
+            self.fetched = True
+            self._pipe._note_inflight()
+        return row
+
+    def cycles_run(self) -> int:
+        """Inner cycles the loop executed (a host count: no transfer)."""
+        return int(self.result.cycles_run)
+
+    def decisions(self):
+        """(assignment i32 [K, P], unschedulable, gang_dropped, attempted
+        bool [K, P], cycles_run) as numpy: every live row, stacked."""
+        rows = [self.decisions_row(i) for i in range(self.n_live)]
+        K, P = self.result.assignment.shape if self.result is not None else (self.n_live, 0)
+        out = [np.full((K, P), -1, np.int32)] + [np.zeros((K, P), bool) for _ in range(3)]
+        for i, r in enumerate(rows):
+            for o, v in zip(out, r):
+                o[i] = v
+        return (*out, self.cycles_run())
+
+    def _inner_decision(self, i: int):
+        from .cycle import CycleDecision
+
+        r = self.result
+        return CycleDecision(assignment=r.assignment[i], node_requested=r.node_requested[i],
+                             unschedulable=r.unschedulable[i],
+                             gang_dropped=r.gang_dropped[i],
+                             placed_round=torch.where(r.assignment[i] >= 0, 0, -1))
+
+    def dispatch_preemption(self, i: int):
+        """Enqueue inner cycle i's preemption PostFilter. As in the
+        reference, candidates and victims come from the batch-start
+        existing set: a pod bound by an earlier inner cycle becomes
+        evictable from the next batch on."""
+        if i not in self._pre and self._pipe._preempt_fn is not None:
+            self._pre[i] = self._pipe._preempt_fn(
+                self._wbufs[i], self._bbufs[i], self._inner_decision(i), self._stable)
+        return self._pre.get(i)
+
+    def dispatch_diagnosis(self, i: int):
+        """Enqueue inner cycle i's FailedScheduling diagnosis (the
+        pipeline's `multi_diag_fn`: the batch's decisions are lean)."""
+        fn = self._pipe.multi_diag_fn or self._pipe._diag_fn
+        if i not in self._diag and fn is not None:
+            r = self.result
+            self._diag[i] = fn(self._wbufs[i], self._bbufs[i], self._stable,
+                               r.assignment[i], r.node_requested[i])
+            if self._pipe.forced_sync:
+                _sync(self._diag[i])
+                self._stamp_diag_lag(i)
+        return self._diag.get(i)
+
+    def _stamp_diag_lag(self, i: int) -> None:
+        if self._t_decisions is None or i in self.diag_lag:
+            return
+        t_done = self._pipe._now()
+        lag_s = max(0.0, t_done - self._t_decisions)
+        self.diag_lag[i] = (lag_s, t_done)
+        m = self._pipe._metrics
+        if m is not None:
+            m.cycle_duration.labels(phase="diag_lag").observe(lag_s)
+
+    def reject_counts(self, i: int):
+        d = self.dispatch_diagnosis(i)
+        if d is None:
+            return None
+        arr = d.cpu().numpy()
+        self._stamp_diag_lag(i)
+        return arr
+
+    def reject_counts_matrix(self, i: int, n: int):
+        """Inner cycle i's per-plugin attribution as one [n, F] matrix."""
+        return np.asarray(self.reject_counts(i))[:n]
+
+    def block(self):
+        """Wait for everything in flight (forced_sync), bounded as a fetch."""
+        def wait_all():
+            _sync(self.result.assignment)
+            for _a, _f, ev in self._slim:
+                if ev is not None:
+                    ev.synchronize()
+
+        try:
+            self._pipe.fetch_decisions(wait_all)
+        except Exception as e:
+            # a consumed batch: the class stamped, the guard released
+            self._pipe.note_fetch_failure(e)
+            self.fetched = True
+            self.release()
+            self._pipe._note_inflight()
+            raise
+        return self
+
+    def release(self):
+        self.result = self._slim = None
+        self._wbufs = self._bbufs = self._stable = None
+        self._diag = {}
+        self._pre = {}
+        self.diag_lag = {}
+
+
 def _sync(x) -> None:
     """Wait for the device work behind `x` (a tensor, a dataclass of
     tensors or None): the current stream's work, on the card."""
@@ -379,6 +602,14 @@ class ServingPipeline:
         self._staging: list = [None] * len(self._slots)
         self._uploaded: list = [None] * len(self._slots)
         self._slim_fn = None
+        self._multi_slim_fn = None
+        # the multi-cycle programs (the Scheduler assigns them per regime):
+        # the batch loop, its per-row diagnosis, the carry-in continuation
+        self.multi_fn = None
+        self.multi_diag_fn = None
+        self.multi_cont_fn = None
+        self._spec = None  # the in-flight speculative batch
+        self.speculation = {"adopted": 0, "abandoned": 0, "redispatched": 0}
         self._last = None
         self._n = 0
         self._fetch_bytes_total = 0
@@ -471,9 +702,10 @@ class ServingPipeline:
         if dev.type != "cuda" or wbuf.device.type == "cuda":
             return wbuf, bbuf
         st = self._staging[slot]
-        if st is None or st[0].numel() != wbuf.numel() or st[1].numel() != bbuf.numel():
-            st = (torch.empty(wbuf.numel(), dtype=torch.int32, pin_memory=True),
-                  torch.empty(bbuf.numel(), dtype=torch.uint8, pin_memory=True))
+        if st is None or st[0].shape != wbuf.shape or st[1].shape != bbuf.shape:
+            # per slot, shaped as the buffers (a multi-cycle batch stacks K)
+            st = (torch.empty(wbuf.shape, dtype=torch.int32, pin_memory=True),
+                  torch.empty(bbuf.shape, dtype=torch.uint8, pin_memory=True))
             self._staging[slot] = st
         if self._uploaded[slot] is not None:
             self._uploaded[slot].synchronize()
@@ -594,9 +826,135 @@ class ServingPipeline:
             self.stats["encode_hidden_ms"] = 0.0
         return handle
 
-    def dispatch_multi(self, *a, **k):
-        raise NotImplementedError(
-            "multi-cycle dispatch is not ported yet (ROADMAP A11)")
+    def _speculation_outcome(self, outcome: str) -> None:
+        self.speculation[outcome] += 1
+        counter = getattr(self._metrics, "speculation", None) if self._metrics else None
+        if counter is not None:
+            counter.labels(outcome=outcome).inc()
+
+    def adopt_speculative(self) -> MultiCycleHandle:
+        """The predecessor's host fold matched the speculation's predicate:
+        the speculative batch becomes the current one."""
+        h = self._spec
+        if h is None:
+            raise RuntimeError("adopt_speculative: no speculation in flight")
+        self._spec = None
+        self._last = h
+        self.stats = dict(h._stats_seed)
+        self._speculation_outcome("adopted")
+        return h
+
+    def abandon_speculative(self) -> None:
+        """Drop the in-flight speculative batch (its results are never
+        observed) and free its slot. A no-op with none in flight, so
+        failure paths may call it unconditionally."""
+        h = self._spec
+        if h is None:
+            return
+        self._spec = None
+        h.fetched = True
+        h.release()
+        for i, s in enumerate(self._slots):
+            if s is h:
+                self._slots[i] = None
+        self._speculation_outcome("abandoned")
+        self._note_inflight()
+
+    def note_redispatch(self) -> None:
+        """Ledger mark: an abandoned speculation's groups re-dispatched."""
+        self._speculation_outcome("redispatched")
+
+    def _fetch_rows(self, rows):
+        """Per-row slim copies into pinned host memory, each with its event
+        (the card); on the CPU the tensors themselves."""
+        return [self._fetch_slim(a, f) for a, f in rows]
+
+    def dispatch_multi(
+        self,
+        wbufs,
+        bbufs,
+        stable,
+        n_cycles: int,
+        *,
+        device_put: bool = True,
+        carry0=None,
+        speculative: bool = False,
+        counts=None,
+    ) -> MultiCycleHandle:
+        """Upload + dispatch one multi-cycle batch (stacked [K, ...] frames,
+        up to `n_cycles` inner cycles; reference `core/pipeline.py:1002`).
+        Shares the single-dispatch ordering guard. `speculative=True` is the
+        depth-2 relaxation: dispatched while its predecessor is unfetched,
+        held aside until `adopt_speculative()` / `abandon_speculative()`.
+        `carry0 = (carry_node_requested, carry_gplaced)` chains the
+        predecessor's device-resident carry through `multi_cont_fn`.
+        `counts` are the rows' valid-pod counts (the drain exit)."""
+        fn = self.multi_fn
+        if carry0 is not None:
+            fn = self.multi_cont_fn
+            if fn is None:
+                raise RuntimeError(
+                    "ServingPipeline.dispatch_multi: carry0 given but no "
+                    "continuation program (pipe.multi_cont_fn)")
+        if fn is None:
+            raise RuntimeError(
+                "ServingPipeline.dispatch_multi: no multi-cycle program "
+                "(pipe.multi_fn = build_packed_multicycle_fn(...))")
+        if self._spec is not None:
+            raise RuntimeError(
+                "ServingPipeline: dispatch_multi with an unresolved "
+                "speculative batch in flight")
+        if (not speculative and self.require_decision_fetch
+                and self._last is not None and not self._last.fetched):
+            raise RuntimeError(
+                "ServingPipeline: multi-cycle batch dispatched before the "
+                "previous cycle's decisions were fetched (speculative=True "
+                "is the sanctioned depth-2 path)")
+        t0 = self._now()
+        slot = self._claim_slot()
+        if device_put:
+            wbufs, bbufs = self._upload(slot, wbufs, bbufs)
+        else:
+            wbufs, bbufs = _cpu_safe_buffers(wbufs, bbufs)
+        if carry0 is not None:
+            result = fn(wbufs, bbufs, stable, int(n_cycles), *carry0, counts=counts)
+        else:
+            result = fn(wbufs, bbufs, stable, int(n_cycles), counts=counts)
+        if self._multi_slim_fn is None:
+            self._multi_slim_fn = build_multicycle_slim_rows_fn(
+                result.node_requested.shape[1])
+        live = min(int(n_cycles), result.assignment.shape[0])
+        slim = self._fetch_rows(self._multi_slim_fn(
+            result.assignment, result.unschedulable, result.gang_dropped,
+            result.attempted, live))
+        handle = MultiCycleHandle(self, result, slim, wbufs, bbufs, stable,
+                                  n_live=live, speculative=speculative)
+        self._slots[slot] = handle
+        if speculative:
+            self._spec = handle
+        else:
+            self._last = handle
+        self._n += 1
+        t1 = self._now()
+        stats = {"dispatch_ms": (t1 - t0) * 1e3, "slot": slot, "multi_cycles": int(n_cycles),
+                 "t_dispatch_start": t0, "t_dispatch_end": t1}
+        if self._pending_encode_ms is not None:
+            stats["encode_ms"] = self._pending_encode_ms
+            self._pending_encode_ms = None
+        if speculative:
+            # the in-flight batch keeps its stage report; adoption installs
+            # this one
+            handle._stats_seed = stats
+            self.stats["spec_dispatch_ms"] = stats["dispatch_ms"]
+        else:
+            self.stats = stats
+        if self._metrics is not None:
+            self._metrics.cycle_duration.labels(phase="dispatch").observe(t1 - t0)
+        self._note_inflight()
+        if self.forced_sync and not speculative:
+            handle.block()
+            self.stats["encode_hidden_ms"] = 0.0
+        return handle
 
     def inflight(self) -> int:
         """Dispatched cycles whose decisions were not fetched yet."""

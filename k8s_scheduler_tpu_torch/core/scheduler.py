@@ -50,9 +50,21 @@ apply, bind and preemption spans of every sampled pod; an armed black box
 process (`core/compile_cache.py`); `profile_cycle` runs the per-plugin
 profiling pass (`core/profiling.py`).
 
-Not in this slice, and refused when a configuration turns them on:
-multi-cycle dispatch and speculation (`multiCycleK` > 1, ROADMAP A11) and
-multi-device serving (`shardDevices` > 1, ROADMAP A13)."""
+Multi-cycle serving (`multiCycleK` > 1, reference `core/scheduler.py:
+1576-2559`): each profile's arrival groups coalesce until K are buffered,
+the arrival stream pauses or the oldest ages past `multiCycleMaxWaitMs`,
+then one dispatch of `core/cycle.build_packed_multicycle_fn` runs them as
+inner cycles, applied row by row through `_apply_phase` (binds, journal
+records, events and flight records per inner cycle, as K sequential
+dispatches would). Batches outside the exactness envelope fall back to
+sequential dispatches (sticky per profile, but per batch for pending host
+ports). `speculativeDispatch` splits a flush depth-2: row 0 alone, the rest
+chained on its device carry and adopted or abandoned on the fold's
+predicate digest (`speculation_ledger`). `incrementalEncode` stages each
+buffered pod's row at buffer time (`_ingest_group`).
+
+Refused when a configuration turns it on: multi-device serving
+(`shardDevices` > 1, ROADMAP A13)."""
 
 from __future__ import annotations
 
@@ -96,6 +108,7 @@ from .degrade import (
     RUNG_FORCED_SYNC,
     RUNG_RETRACE,
     RUNG_STATELESS,
+    RUNG_SEQUENTIAL,
     DegradationLadder,
 )
 from . import blackbox as _blackbox
@@ -131,9 +144,6 @@ def _refuse_unported(config: SchedulerConfiguration) -> None:
     """Serving features later slices port: a configuration that turns one
     on is refused by name, never ignored."""
     checks = (
-        (int(config.multi_cycle_k) > 1,
-         f"multiCycleK={config.multi_cycle_k} (multi-cycle dispatch and its "
-         "depth-2 speculation) is not ported yet (ROADMAP A11)"),
         (int(config.shard_devices) > 1,
          f"shardDevices={config.shard_devices} (multi-device serving) is not "
          "ported yet (ROADMAP A13)"),
@@ -373,6 +383,25 @@ class Scheduler:
         # per-profile in-place-mutation reports (the delta arena must
         # re-read a nominated pod's slot)
         self._nominated_mut: dict[str, set[int]] = {n: set() for n in names}
+        # multi-cycle serving: per-profile arrival groups coalesce in
+        # _mc_groups until a flush; _mc_fns memoizes the per-regime batch
+        # programs; _mc_off pins the profiles whose workload left the
+        # exactness envelope (sticky capability flags)
+        self._mc_k = max(int(self.config.multi_cycle_k), 1)
+        self._mc_wait_s = max(float(self.config.multi_cycle_max_wait_ms), 0.0) / 1e3
+        self._mc_groups: dict[str, list[tuple[float, list[Pod]]]] = {n: [] for n in names}
+        self._mc_fns: dict = {}
+        self._mc_off: dict[str, str] = {}
+        # profiles whose delta arena a batch's host encodes left stale: the
+        # next single-cycle record is stamped post_batch=1
+        self._mc_stale_arena: set[str] = set()
+        # incrementalEncode: ingest seconds since the last flush, and the
+        # flush's phase stamps awaiting inner record 0
+        self._ingest_s: dict[str, float] = {}
+        self._flush_phases: dict[str, dict] = {}
+        if self.extenders:
+            # verdicts are consulted per host cycle: no batching
+            self._mc_off = {n: "extender" for n in names}
 
     # ---- the packed programs ---------------------------------------------
 
@@ -474,7 +503,8 @@ class Scheduler:
             metrics=self.metrics,
             events=self.events,
             dispatch_deadline_s=self._dispatch_deadline_s,
-            slots=2,
+            # depth-2 speculation keeps two batches in flight: a third slot
+            slots=(3 if self.config.speculative_dispatch and self._mc_k > 1 else 2),
             device=self.device,
         )
         fns = (
@@ -682,15 +712,34 @@ class Scheduler:
                 self.flight.pod_event(pod.uid, pod.name, "Expired", node=node)
         self.queue.flush_unschedulable_timeout()
 
-        pending_all = self.queue.pop_ready()
-        if not pending_all:
+        # multi-cycle batching is gated on the degradation ladder: at or
+        # below the `sequential` rung every cycle dispatches alone
+        mc_on = self._mc_k > 1 and self.ladder.rung < RUNG_SEQUENTIAL
+        if self._mc_k > 1 and not mc_on:
+            # drain buffered groups as single-cycle dispatches BEFORE this
+            # cycle's non-hold pop replaces the in-flight set
+            for name in self._profile_order:
+                buf = self._mc_groups[name]
+                if not buf:
+                    continue
+                self._mc_groups[name] = []
+                for _t_enq, g in buf:
+                    stats.attempted += len(g)
+                    self._schedule_profile(name, g, stats, t0)
+                self.queue.retire_in_flight([p.uid for _t_enq, g in buf for p in g])
+        mc_buffered = mc_on and any(self._mc_groups[n] for n in self._profile_order)
+        # hold-pop while groups are buffered: their in-flight entries must
+        # survive until the flush applies their outcomes
+        pending_all = self.queue.pop_ready(hold=mc_buffered)
+        if not pending_all and not mc_buffered and stats.attempted == 0:
             # gauges track deletions / moves between non-empty cycles too
             self._update_gauges()
             if self.state is not None:
                 self.state.maybe_snapshot()
             return stats
-        stats.attempted += len(pending_all)
-        self.metrics.cycle_pods.observe(len(pending_all))
+        if pending_all:
+            stats.attempted += len(pending_all)
+            self.metrics.cycle_pods.observe(len(pending_all))
 
         by_prof: dict[str, list[Pod]] = {n: [] for n in self._profile_order}
         for pod in pending_all:
@@ -714,8 +763,14 @@ class Scheduler:
 
         for name in self._profile_order:
             group = by_prof[name]
-            if group:
+            if mc_on and name not in self._mc_off:
+                self._coalesce(name, group, stats, t0)
+            elif group:
                 self._schedule_profile(name, group, stats, t0)
+                if self._mc_k > 1:
+                    # other profiles' buffers may keep every pop holding:
+                    # this profile's outcomes are applied, retire them
+                    self.queue.retire_in_flight([p.uid for p in group])
 
         stats.cycle_seconds = self._now() - t0
         self.metrics.cycle_duration.labels(phase="total").observe(
@@ -924,10 +979,24 @@ class Scheduler:
             fold_ms = encoder.delta_profile.get("fold")
             if fold_ms:
                 extra_phases["fold_ms"] = float(fold_ms)
+            if self.config.incremental_encode:
+                # a lone buffered group flushed through this path with
+                # staged rows: its encode was the finalize
+                ing_s = self._ingest_s.pop(profile, 0.0)
+                if ing_s > 0.0:
+                    fin_s = max(t_encode - t_start, 0.0)
+                    extra_phases["encode_ingest_ms"] = ing_s * 1e3
+                    extra_phases["encode_finalize_ms"] = fin_s * 1e3
+                    self.metrics.encode_finalize.observe(fin_s)
             if self._packed_builds > builds_before:
                 extra_phases["compile_ms"] = self._last_build_s * 1e3
                 extra_counts["regime_flip"] = 1
                 compile_source = self._last_compile_source
+            if profile in self._mc_stale_arena:
+                # the first single-cycle dispatch after a batch: a full
+                # re-encode here is the batch's doing, not a fold miss
+                self._mc_stale_arena.discard(profile)
+                extra_counts["post_batch"] = 1
             self._commit_record(
                 rec, st, spec, encoder, pending, nodes, stats,
                 _before, profile_gang_dropped,
@@ -938,6 +1007,664 @@ class Scheduler:
             if "diag_lag_ms" in st:
                 self.metrics.diag_lag.observe(st["diag_lag_ms"] / 1e3)
         self._maybe_speculate(profile, spec)
+
+    # ---- multi-cycle serving (reference core/scheduler.py:1576-2559) -----
+
+    def _coalesce(self, name: str, group: "list[Pod]", stats: CycleStats,
+                  t0: float) -> None:
+        """Buffer this pop's arrival group for profile `name` and flush the
+        buffer as one multi-cycle dispatch when it holds K groups, the
+        arrival stream paused (an empty pop) or the oldest group aged past
+        `multiCycleMaxWaitMs`."""
+        buf = self._mc_groups[name]
+        if group:
+            buf.append((t0, group))
+            if self.config.incremental_encode:
+                # admission-time incremental encode: stage each buffered
+                # pod's row now, in the buffering pop's shadow
+                self._ingest_group(name, group)
+        if not buf:
+            return
+        if not (len(buf) >= self._mc_k or not group or (t0 - buf[0][0]) >= self._mc_wait_s):
+            # buffered, not dispatched: attempted at the flush
+            stats.attempted -= len(group)
+            return
+        self._mc_groups[name] = []
+        if _spans.ARMED:
+            # mc.buffer_wait: group enqueue -> this flush, one span per
+            # sampled pod, ending at the recorder clock
+            t_flush = _spans.now()
+            for t_enq, g in buf:
+                wait_s = max(t0 - t_enq, 0.0)
+                for p in g:
+                    c = _spans.ctx_for(p.uid)
+                    if c is not None:
+                        _spans.record_span("mc.buffer_wait", c, t_flush - wait_s, t_flush,
+                                           uid=p.uid, groups=len(buf))
+        # a pod is attempted in the cycle whose dispatch carries it
+        stats.attempted += sum(len(g) for _t, g in buf) - len(group)
+        if len(buf) == 1:
+            # a lone group gains nothing from the stacked path
+            self._schedule_profile(name, buf[0][1], stats, t0)
+        else:
+            self._schedule_profile_multi(name, buf, stats, t0)
+        # outcomes applied: hold pops only accumulate, so retire explicitly
+        self.queue.retire_in_flight([p.uid for _t_enq, g in buf for p in g])
+        if self.config.incremental_encode:
+            # staged rows the flush did not consume must not outlive it
+            self._encoders[name].clear_ingest()
+            self._ingest_s.pop(name, None)
+
+    def _mc_programs(self, spec, profile: str):
+        """The memoized multi-cycle programs of one packed regime:
+        (multicycle, diagnosis, continuation or None), counted into
+        `_packed_builds` like every program build (true LRU)."""
+        key = (spec.key(), profile)
+        with self._packed_lock:
+            entry = self._mc_fns.get(key)
+            if entry is not None:
+                self._mc_fns.pop(key)
+                self._mc_fns[key] = entry  # move-to-end on hit
+                return entry["fns"]
+        entry = self._build_mc_entry(spec, profile)
+        with self._packed_lock:
+            cur = self._mc_fns.setdefault(key, entry)
+            self._mc_fns.pop(key)
+            self._mc_fns[key] = cur
+            self._packed_builds += 1
+            self._last_build_s = entry["build_s"]
+            self._last_compile_source = entry["source"]
+            while len(self._mc_fns) > 4 * len(self.frameworks):
+                self._mc_fns.pop(next(iter(self._mc_fns)))
+        return cur["fns"]
+
+    def _build_mc_entry(self, spec, profile: str) -> dict:
+        """One regime's multi-cycle programs: the batch loop, the per-row
+        diagnosis (the batch's decisions are lean, so every regime needs
+        one, scan regimes too) and, under speculativeDispatch, the carry-in
+        continuation."""
+        from .cycle import build_diagnosis_fn, build_packed_multicycle_fn
+
+        t_build = _time.perf_counter()
+        fw = self.frameworks[profile]
+        mfn = build_packed_multicycle_fn(spec, framework=fw, k=self._mc_k, device=self.device,
+                                         **self._cycle_kw)
+        mdiag = _Resilient(build_diagnosis_fn(spec, fw, device=self.device), "diagnosis")
+        mcont = None
+        if self.config.speculative_dispatch:
+            mcont = build_packed_multicycle_fn(spec, framework=fw, k=self._mc_k, carry_in=True,
+                                               device=self.device, **self._cycle_kw)
+        return {"fns": (mfn, mdiag, mcont), "build_s": _time.perf_counter() - t_build,
+                "source": "cold"}
+
+    def _ingest_group(self, profile: str, group: "list[Pod]") -> None:
+        """Stage each newly buffered pod's arena row (incrementalEncode,
+        `SnapshotEncoder.ingest_pod`), so the flush's delta encode skips
+        the parse; the staging seconds accumulate for the flush record's
+        encode_ingest_ms."""
+        enc = self._encoders[profile]
+        t_ing = self._now()
+        for p in group:
+            enc.ingest_pod(p)
+        ing_s = max(self._now() - t_ing, 0.0)
+        self._ingest_s[profile] = self._ingest_s.get(profile, 0.0) + ing_s
+        self.metrics.encode_ingest.observe(ing_s)
+        if _spans.ARMED:
+            t1 = _spans.now()
+            for p in group:
+                c = _spans.ctx_for(p.uid)
+                if c is not None:
+                    _spans.record_span("encode.ingest", c, t1 - ing_s, t1, uid=p.uid,
+                                       pods=len(group))
+
+    def _host_frame(self, encoder, nodes, pending, existing, kw):
+        """One group's full host encode: (fields, aux, spec) — the
+        reference's plain `encode` + `packing.make_spec`."""
+        from ..models import packing
+
+        fields, aux = encoder.encode_numpy(nodes, pending, existing, **kw)
+        aux = dict(aux, pref_raw_bound=pref_raw_bound(
+            fields["pod_pref_aff"], fields["pod_pref_aff_w"], fields["pod_tsc"],
+            fields["exist_pref_aff"], fields["exist_pref_aff_w"]))
+        return fields, aux, packing.spec_of_fields(fields, aux)
+
+    def _stack(self, rows, spec):
+        """Stack packed rows into the [K, W] / [K, B] multi-cycle feed,
+        zero past the real rows (host arrays; the pipeline uploads), and
+        the rows' valid-pod counts (the loop's drain exit)."""
+        wbufs = np.zeros((self._mc_k, spec.n_words), np.uint32)
+        bbufs = np.zeros((self._mc_k, spec.n_bytes), np.uint8)
+        for i, (wr, br) in enumerate(rows):
+            wbufs[i], bbufs[i] = wr, br
+        pv = [off for name, _shape, off in spec.bools if name == "pod_valid"][0]
+        P = [int(shape[0]) for name, shape, _off in spec.bools if name == "pod_valid"][0]
+        counts = [int((bbufs[i, pv:pv + P] != 0).sum()) for i in range(len(rows))]
+        return wbufs, bbufs, counts
+
+    def _pack_rows(self, frames, spec):
+        from ..models import packing
+
+        return [packing.pack(fields, spec) for fields, _aux in frames]
+
+    def _encode_groups_host(self, profile, encoder, groups, nodes, existing, kw):
+        """The flush's groups through full host encodes, all against the
+        pre-batch cache. A later group that grew an interning table (past
+        row 0's regime, or within its padding: row 0's stable tables lack
+        the entries) re-encodes the batch once with the sampling rotation
+        rewound. Returns (frames, spec, None) or (None, None, reason)."""
+        from .cycle import multicycle_unsupported_reason
+
+        def one_pass():
+            frames, specs, lens0 = [], [], None
+            for _t_enq, g in groups:
+                fields, aux, sp = self._host_frame(encoder, nodes, g, existing, kw)
+                if lens0 is None:
+                    # row 0's tables are the batch's stable side
+                    lens0 = encoder._table_lens()
+                reason = multicycle_unsupported_reason((fields, aux))
+                if reason is not None:
+                    return None, None, reason, lens0
+                frames.append((fields, aux))
+                specs.append(sp)
+            return frames, specs, None, lens0
+
+        ci0 = encoder._cycle_index
+        frames, specs, reason, lens0 = one_pass()
+        if frames is None:
+            # the fall-back's dispatches re-stamp the same sampling rotation
+            encoder._cycle_index = ci0
+            return None, None, reason
+        if encoder._table_lens() != lens0 or any(sp.key() != specs[0].key() for sp in specs[1:]):
+            encoder._cycle_index = ci0
+            frames, specs, reason, lens0 = one_pass()
+            if frames is None:
+                encoder._cycle_index = ci0
+                return None, None, reason
+            if any(sp.key() != specs[0].key() for sp in specs[1:]):
+                # cannot happen with grow-only tables; refuse to guess
+                return None, None, None
+        return frames, specs[0], None
+
+    def _encode_groups_packed(self, profile, encoder, groups, nodes, existing, kw):
+        """The flush's groups through the packed delta arena
+        (incrementalEncode): each group folds via `encode_packed` (staged
+        rows make it an O(dirty) apply) and its host row is copied out
+        before the next encode rewrites the arena. Returns (rows, spec,
+        None) or (None, None, reason | None)."""
+        from .cycle import multicycle_unsupported_reason
+
+        mut = frozenset(self._nominated_mut[profile])
+
+        def one_pass():
+            rows, specs, lens0 = [], [], None
+            for _t_enq, g in groups:
+                f = encoder.encode_packed(nodes, g, existing, mutated_ids=mut, **kw)
+                if lens0 is None:
+                    lens0 = encoder._table_lens()
+                reason = multicycle_unsupported_reason(f.snap)
+                if reason is not None:
+                    return None, None, reason, lens0
+                hw, hb = encoder.host_buffers()
+                rows.append((hw.copy(), hb.copy()))
+                specs.append(f.spec)
+            return rows, specs, None, lens0
+
+        ci0 = encoder._cycle_index
+        rows, specs, reason, lens0 = one_pass()
+        if rows is None:
+            encoder._cycle_index = ci0
+            return None, None, reason
+        if encoder._table_lens() != lens0 or any(sp.key() != specs[0].key() for sp in specs[1:]):
+            encoder._cycle_index = ci0
+            rows, specs, reason, lens0 = one_pass()
+            if rows is None:
+                encoder._cycle_index = ci0
+                return None, None, reason
+            if (encoder._table_lens() != lens0
+                    or any(sp.key() != specs[0].key() for sp in specs[1:])):
+                return None, None, None
+        self._nominated_mut[profile].clear()
+        return rows, specs[0], None
+
+    def _stamp_finalize(self, profile: str, fin_s: float, pods=()) -> None:
+        """Observe the flush's finalize window and park the ingest /
+        finalize stamps for the batch's inner record 0."""
+        fin_s = max(fin_s, 0.0)
+        ing_s = self._ingest_s.pop(profile, 0.0)
+        self.metrics.encode_finalize.observe(fin_s)
+        self._flush_phases[profile] = {"encode_finalize_ms": fin_s * 1e3,
+                                       "encode_ingest_ms": ing_s * 1e3}
+        if _spans.ARMED and pods:
+            t1 = _spans.now()
+            for p in pods:
+                c = _spans.ctx_for(p.uid)
+                if c is not None:
+                    _spans.record_span("flush.finalize", c, t1 - fin_s, t1, uid=p.uid)
+
+    def _mc_fall_back(self, profile: str, groups, stats: CycleStats, t0: float,
+                      reason: "str | None") -> None:
+        """Dispatch `groups` as sequential single-cycle dispatches: the
+        batch left the exactness envelope. Sticky capability reasons pin
+        the profile out of batching for the process; host ports is a
+        per-batch reason (a later port-free batch is exact again)."""
+        log = logging.getLogger(__name__)
+        if reason == "host_ports":
+            log.info("multi-cycle batch for profile %r fell back to sequential "
+                     "dispatches: pending set carries host ports", profile)
+        elif reason is not None and profile not in self._mc_off:
+            self._mc_off[profile] = reason
+            log.warning("multi-cycle serving disabled for profile %r: workload left "
+                        "the exactness envelope (%s)", profile, reason)
+        for _t_enq, g in groups:
+            self._schedule_profile(profile, g, stats, t0)
+
+    def _mc_setup(self, profile, spec):
+        """The regime's packed programs with the batch programs installed
+        on its pipeline: (preempt, stable_fn, pipe)."""
+        (_pc, ppreempt, stable_fn, _keeper, _diag, _ek, pipe) = self._packed_fns(spec, profile)
+        pipe.multi_fn, pipe.multi_diag_fn, pipe.multi_cont_fn = self._mc_programs(spec, profile)
+        return ppreempt, stable_fn, pipe
+
+    def _schedule_profile_multi(self, profile: str, groups, stats: CycleStats,
+                                t0: float) -> None:
+        """Dispatch the buffered arrival groups as one multi-cycle batch:
+        group i becomes inner cycle i. Under `speculativeDispatch` the flush
+        splits depth-2 (`_schedule_profile_multi_spec`); either way the
+        decision rows stream back per inner cycle (`_apply_mc_rows`) and
+        each is applied through `_apply_phase` in batch order."""
+        fr = self.flight
+        nodes = self.cache.nodes()
+        existing = self.cache.existing_pods()
+        kw = dict(
+            pod_groups=list(self._groups.values()),
+            pvcs=list(self._pvcs.values()),
+            pvs=list(self._pvs.values()),
+            storage_classes=list(self._storage_classes.values()),
+            pdbs=list(self._pdbs.values()),
+        )
+        # one spec for every row: pad to the largest group
+        mc_pods = max(len(g) for _, g in groups)
+        encoder = self._encoders[profile]
+        encoder.pad_pods = encoder.hysteresis_pad("P", _pad(mc_pods, self._pad_bucket), mc_pods)
+        encoder.pad_nodes = encoder.hysteresis_pad("N", _pad(len(nodes), self._pad_bucket),
+                                                   len(nodes))
+        builds_before = self._packed_builds
+        t_batch = self._now()
+        t_batch_rec = fr.now() if fr is not None else 0.0
+        inc = self.config.incremental_encode
+        if not inc:
+            # the host encodes bypass the delta arena
+            self._mc_stale_arena.add(profile)
+        if (self.config.speculative_dispatch and len(groups) >= 2 and not self.forced_sync
+                and self.ladder.rung < RUNG_SEQUENTIAL
+                and (self.observer is None or self.observer.speculation_ok(profile))):
+            self._schedule_profile_multi_spec(profile, groups, stats, t0, t_batch,
+                                              t_batch_rec, builds_before, nodes, existing, kw)
+            return
+        if inc:
+            rows, spec, reason = self._encode_groups_packed(profile, encoder, groups, nodes,
+                                                            existing, kw)
+        else:
+            frames, spec, reason = self._encode_groups_host(profile, encoder, groups, nodes,
+                                                            existing, kw)
+            rows = None if frames is None else self._pack_rows(frames, spec)
+        if rows is None:
+            self._mc_fall_back(profile, groups, stats, t0, reason)
+            return
+        ppreempt, stable_fn, pipe = self._mc_setup(profile, spec)
+        n = len(groups)
+        wbufs, bbufs, counts = self._stack(rows, spec)
+        batch_pods = [p for _t_enq, g in groups for p in g]
+        try:
+            wbufs, bbufs = pipe.upload(wbufs, bbufs)
+            stable = self._stable_state(spec, stable_fn, wbufs[0], bbufs[0], encoder)
+        except Exception as e:
+            self._cycle_failed(profile, batch_pods, e, stats, t0, None)
+            return
+        t_encode = self._now()
+        self.metrics.cycle_duration.labels(phase="encode").observe(t_encode - t_batch)
+        if inc:
+            self._stamp_finalize(profile, t_encode - t_batch, pods=batch_pods)
+        pipe.forced_sync = self.forced_sync or self.ladder.rung >= RUNG_FORCED_SYNC
+        pipe.dispatch_deadline_s = self._dispatch_deadline_s
+        pipe.note_encode(t_encode - t_batch)
+        # a failed batch dispatch consumes the whole batch before any bind
+        try:
+            handle = pipe.dispatch_multi(wbufs, bbufs, stable, n, device_put=False,
+                                         counts=counts)
+        except Exception as e:
+            self._cycle_failed(profile, batch_pods, e, stats, t0, None)
+            return
+        self.metrics.multicycle_batch.observe(n)
+        applied, exc = self._apply_mc_rows(
+            profile, handle, groups, spec, encoder, stats, t0, t_batch, t_batch_rec, nodes,
+            existing, ppreempt, builds_before, batch_n=n, stamp_first_bind=True,
+            stamp_compile=True)
+        self.metrics.multicycle_cycles.inc(applied)
+        if exc is not None:
+            # groups already applied stay bound; the unapplied tail requeues
+            rest = [p for _t_enq, g in groups[applied:] for p in g]
+            self._cycle_failed(profile, rest, exc, stats, t0, None)
+            return
+        self._maybe_speculate(profile, spec)
+
+    @staticmethod
+    def _fold_digest(scheduled: int, unschedulable: int, bind_errors: int,
+                     victims: int) -> tuple:
+        """Digest of one host fold's observable cache effects: the
+        speculation's predicate (every winner binds, nothing else changes)
+        against what the apply loop did. Named counts, so an abandon can
+        log which one diverged."""
+        return (("scheduled", scheduled), ("unschedulable", unschedulable),
+                ("bind_errors", bind_errors), ("victims", victims))
+
+    def _apply_mc_rows(self, profile, handle, group_slice, spec, encoder, stats, t0, t_batch,
+                       t_batch_rec, nodes, existing, ppreempt, builds_before, batch_n: int,
+                       stamp_first_bind: bool = False, stamp_compile: bool = False,
+                       resolve_after_first=None):
+        """Streamed apply of one dispatched batch: fetch decision row i,
+        apply group i through `_apply_phase`, commit its flight record.
+        `resolve_after_first(a_row, before)`, the speculation predicate,
+        runs after group 0's apply and returns its record's tag. Returns
+        (applied, exc): `exc` is the fetch failure that stopped the walk.
+        Rows the loop never ran (a scheduler bug) requeue loudly with
+        `MultiCycleUnran`."""
+        fr = self.flight
+        log = logging.getLogger(__name__)
+        pipe = handle._pipe
+        st: dict = {}
+        device_win_s = 0.0
+        total_attempted = sum(len(g) for _t, g in group_slice) or 1
+        applied = 0
+        exc = None
+        for gi, (t_enq, pending) in enumerate(group_slice):
+            try:
+                a_full, _u_full, gd_full, att_full = handle.decisions_row(gi)
+            except Exception as e:  # schedlint: disable=RB001 -- not swallowed: decisions_row attributed it and the caller routes it through _cycle_failed
+                exc = e
+                break
+            if gi == 0:
+                st = pipe.stage_report()
+                device_win_s = max(st.get("t_decision_end", 0.0)
+                                   - st.get("t_dispatch_end", 0.0), 0.0)
+                self.metrics.cycle_duration.labels(phase="device").observe(device_win_s)
+            if pending and not att_full[: len(pending)].any():
+                break
+            rec = fr.start(profile) if fr is not None else None
+            before = (stats.scheduled, stats.unschedulable, stats.bind_errors,
+                      stats.preemptors, stats.victims)
+            if rec is not None:
+                # the record's window opens at the batch flush
+                rec.t_start = t_batch_rec
+                rec.mark("encode_start", t_batch_rec)
+            try:
+                self._apply_mc_row(profile, handle, gi, pending, a_full, gd_full, spec, encoder,
+                                   stats, t0, t_batch, nodes, existing, ppreempt, builds_before,
+                                   batch_n, stamp_first_bind, stamp_compile, resolve_after_first,
+                                   rec, st, device_win_s, total_attempted, t_enq, before)
+            except Exception:  # schedlint: disable=RB001 -- not swallowed: releases the ordering guard, then re-raises to schedule_cycle
+                handle.fetched = True
+                handle.release()
+                pipe._note_inflight()
+                raise
+            applied += 1
+        if exc is None and applied < len(group_slice):
+            log.error("multi-cycle dispatch ran %d of %d inner cycles; requeueing the "
+                      "unran groups", applied, len(group_slice))
+            handle.fetched = True
+            handle.release()
+            pipe._note_inflight()
+            for _t_enq, g in group_slice[applied:]:
+                for pod in g:
+                    self.queue.requeue_backoff(pod, event="MultiCycleUnran")
+                    stats.bind_errors += 1
+        return applied, exc
+
+    def _apply_mc_row(self, profile, handle, gi, pending, a_full, gd_full, spec, encoder, stats,
+                      t0, t_batch, nodes, existing, ppreempt, builds_before, batch_n,
+                      stamp_first_bind, stamp_compile, resolve_after_first, rec, st,
+                      device_win_s, total_attempted, t_enq, before) -> None:
+        """One inner cycle's apply and record commit."""
+        framework = self.frameworks[profile]
+        a_i = a_full[: len(pending)]
+        gd_i = gd_full[: len(pending)]
+        profile_gang_dropped = int(gd_i.sum())
+        stats.gang_dropped += profile_gang_dropped
+        self.metrics.decisions.inc(len(pending) * len(nodes))
+        losers = bool((a_i < 0).any())
+        if losers:
+            handle.dispatch_diagnosis(gi)
+        _rej_box: list = []
+
+        def reject_counts_fn():
+            # one force of inner cycle gi's [P, F] attribution matrix
+            if not _rej_box:
+                _rej_box.append(handle.reject_counts_matrix(gi, len(pending)))
+            return _rej_box[0]
+
+        pre_handle = None
+        if ppreempt is not None and losers:
+            self.metrics.preemption_attempts.inc()
+            pre_handle = handle.dispatch_preemption(gi)
+
+        def force_pre():
+            if pre_handle is None:
+                return None, None
+            return (pre_handle.nominated.cpu().numpy()[: len(pending)],
+                    pre_handle.victims.cpu().numpy()[: len(existing)])
+
+        self._apply_phase(profile, framework, pending, nodes, existing, a_i, gd_i, {},
+                          reject_counts_fn, force_pre, stats, t0, rec, self._now())
+        speculation = ""
+        if gi == 0 and resolve_after_first is not None:
+            # group 0's fold landed: adopt or abandon the continuation
+            speculation = resolve_after_first(a_i, before)
+        if rec is None:
+            return
+        # batched decomposition: the group's wait for the batch, and its
+        # share of the batch's device window by attempted pods
+        extra_phases: dict = {
+            "batch_wait_ms": max(t_batch - t_enq, 0.0) * 1e3,
+            "device_share_ms": device_win_s * len(pending) / total_attempted * 1e3,
+        }
+        extra_marks: dict = {}
+        extra_counts: dict = {"multi_cycle_k": batch_n}
+        if gi == 0:
+            extra_phases.update(self._flush_phases.pop(profile, {}))
+        if gi == 0 and stamp_first_bind and "t_first_decision" in st and rec.t_start:
+            extra_phases["first_bind_ms"] = max(st["t_first_decision"] - rec.t_start, 0.0) * 1e3
+        dl = handle.diag_lag.get(gi)
+        if dl is not None:
+            lag_s, t_done = dl
+            extra_phases["diag_lag_ms"] = lag_s * 1e3
+            extra_marks["diag_done"] = t_done
+            self.metrics.diag_lag.observe(lag_s)
+        compile_source = ""
+        if gi == 0 and stamp_compile and self._packed_builds > builds_before:
+            extra_phases["compile_ms"] = self._last_build_s * 1e3
+            extra_counts["regime_flip"] = 1
+            compile_source = self._last_compile_source
+        # batch-wide marks land on inner record 0 only (the dispatch's)
+        st_i = st if gi == 0 else {"slot": st.get("slot", -1)}
+        row_window = None
+        if _spans.ARMED:
+            row_window = {ri: (r0, r1) for ri, r0, r1 in st.get("decision_rows", ())}.get(gi)
+        self._commit_record(
+            rec, st_i, spec, encoder, pending, nodes, stats, before, profile_gang_dropped,
+            fetch_bytes=int(st.get("fetch_bytes", 0)) if gi == 0 else 0,
+            extra_phases=extra_phases, extra_marks=extra_marks, extra_counts=extra_counts,
+            compile_source=compile_source, speculation=speculation, row_window=row_window)
+
+    def _schedule_profile_multi_spec(self, profile, groups, stats, t0, t_batch, t_batch_rec,
+                                     builds_before, nodes, existing, kw) -> None:
+        """The depth-2 speculative split of one flushed batch: batch A =
+        row 0 alone, batch B = the remaining rows, encoded in A's shadow
+        and dispatched speculatively, chained on A's device carry. After
+        A's row-0 fold the predicate digest (`_fold_digest`: every winner
+        bound, no bind error, no eviction) adopts B — bit-identical to the
+        combined [A; B] batch — or abandons it and re-dispatches the rows
+        against the true post-fold state."""
+        from .cycle import multicycle_unsupported_reason
+
+        log = logging.getLogger(__name__)
+        encoder = self._encoders[profile]
+        n = len(groups)
+        rest_groups = groups[1:]
+        batch_pods = [p for _t_enq, g in groups for p in g]
+        inc = self.config.incremental_encode
+        mut = frozenset(self._nominated_mut[profile]) if inc else None
+
+        def encode_row(g):
+            if inc:
+                f = encoder.encode_packed(nodes, g, existing, mutated_ids=mut, **kw)
+                hw, hb = encoder.host_buffers()
+                return (hw.copy(), hb.copy()), f.spec, multicycle_unsupported_reason(f.snap)
+            fields, aux, sp = self._host_frame(encoder, nodes, g, existing, kw)
+            return (fields, aux), sp, multicycle_unsupported_reason((fields, aux))
+
+        ci_pre = encoder._cycle_index
+        row0, spec, reason = encode_row(groups[0][1])
+        if reason is not None:
+            encoder._cycle_index = ci_pre
+            self._mc_fall_back(profile, groups, stats, t0, reason)
+            return
+        # growth watermark: B's rows may not reference entries A's lack
+        lens0 = encoder._table_lens()
+        # the sampling rotation after row 0: rows 1..n-1 that are dispatched
+        # again (skipped, abandoned, left the envelope) re-stamp the indices
+        # of their first encode, as the combined batch and K sequential
+        # dispatches stamp them (the reference re-encodes them past it)
+        ci_a = encoder._cycle_index
+        ppreempt, stable_fn, pipe = self._mc_setup(profile, spec)
+        rows_a = [row0] if inc else self._pack_rows([row0], spec)
+        wa, ba, counts_a = self._stack(rows_a, spec)
+        try:
+            wa, ba = pipe.upload(wa, ba)
+            stable = self._stable_state(spec, stable_fn, wa[0], ba[0], encoder)
+        except Exception as e:
+            self._cycle_failed(profile, batch_pods, e, stats, t0, None)
+            return
+        t_encode = self._now()
+        self.metrics.cycle_duration.labels(phase="encode").observe(t_encode - t_batch)
+        pipe.forced_sync = False
+        pipe.dispatch_deadline_s = self._dispatch_deadline_s
+        pipe.note_encode(t_encode - t_batch)
+        try:
+            handle_a = pipe.dispatch_multi(wa, ba, stable, 1, device_put=False, counts=counts_a)
+        except Exception as e:
+            self._cycle_failed(profile, batch_pods, e, stats, t0, None)
+            return
+
+        # rows 1..n-1 encode in A's dispatch shadow
+        t_enc_b0 = self._now()
+        rows_b, specs_b = [], []
+        bad_reason = None
+        for _t_enq, g in rest_groups:
+            row, sp, bad_reason = encode_row(g)
+            if bad_reason is not None:
+                break
+            rows_b.append(row)
+            specs_b.append(sp)
+        if inc:
+            if bad_reason is None:
+                self._nominated_mut[profile].clear()
+            self._stamp_finalize(profile, (t_encode - t_batch) + (self._now() - t_enc_b0),
+                                 pods=batch_pods)
+        handle_b = None
+        if bad_reason is None:
+            if encoder._table_lens() != lens0 or any(sp.key() != spec.key() for sp in specs_b):
+                log.info("speculative batch for profile %r skipped: rows 1..%d grew the "
+                         "interning tables past row 0's", profile, n - 1)
+            else:
+                packed = rows_b if inc else self._pack_rows(rows_b, spec)
+                wb, bb, counts_b = self._stack(packed, spec)
+                pipe.note_encode(self._now() - t_enc_b0)
+                try:
+                    wb, bb = pipe.upload(wb, bb)
+                    handle_b = pipe.dispatch_multi(
+                        wb, bb, stable, n - 1, device_put=False, counts=counts_b,
+                        carry0=(handle_a.result.carry_node_requested,
+                                handle_a.result.carry_gplaced),
+                        speculative=True)
+                except Exception as e:  # schedlint: disable=RB001 -- the speculation failing never fails the batch: B re-dispatches after A's fold
+                    log.warning("speculative dispatch failed for profile %r (%s); "
+                                "re-dispatching sequentially", profile, e)
+                    handle_b = None
+
+        outcome: dict = {}
+
+        def resolve(a_row, before):
+            wins = int((a_row >= 0).sum())
+            predicted = self._fold_digest(wins, len(a_row) - wins, 0, 0)
+            sb, ub, bb_, _pb, vb = before
+            actual = self._fold_digest(stats.scheduled - sb, stats.unschedulable - ub,
+                                       stats.bind_errors - bb_, stats.victims - vb)
+            outcome["predicted"], outcome["actual"] = predicted, actual
+            if handle_b is None:
+                outcome["tag"] = "none"
+            elif actual == predicted:
+                pipe.adopt_speculative()
+                outcome["tag"] = "adopted"
+            else:
+                pipe.abandon_speculative()
+                outcome["tag"] = "abandoned"
+            return outcome["tag"]
+
+        self.metrics.multicycle_batch.observe(n)
+        try:
+            applied_a, exc_a = self._apply_mc_rows(
+                profile, handle_a, groups[:1], spec, encoder, stats, t0, t_batch, t_batch_rec,
+                nodes, existing, ppreempt, builds_before, batch_n=n, stamp_first_bind=True,
+                stamp_compile=True, resolve_after_first=resolve)
+        except BaseException:  # schedlint: disable=RB001 -- a leak guard: the speculation's slot must not outlive the batch; the error re-raises
+            pipe.abandon_speculative()
+            raise
+        if exc_a is not None:
+            pipe.abandon_speculative()
+            self._cycle_failed(profile, batch_pods, exc_a, stats, t0, None)
+            return
+        if applied_a == 0:
+            pipe.abandon_speculative()
+            for _t_enq, g in rest_groups:
+                for pod in g:
+                    self.queue.requeue_backoff(pod, event="MultiCycleUnran")
+                    stats.bind_errors += 1
+            return
+        tag = outcome.get("tag", "none")
+        if tag == "adopted":
+            applied_b, exc_b = self._apply_mc_rows(
+                profile, handle_b, rest_groups, spec, encoder, stats, t0, t_batch,
+                t_batch_rec, nodes, existing, ppreempt, builds_before, batch_n=n)
+            self.metrics.multicycle_cycles.inc(applied_a + applied_b)
+            if exc_b is not None:
+                rest = [p for _t_enq, g in rest_groups[applied_b:] for p in g]
+                self._cycle_failed(profile, rest, exc_b, stats, t0, None)
+                return
+        else:
+            self.metrics.multicycle_cycles.inc(applied_a)
+            encoder._cycle_index = ci_a
+            if tag == "abandoned":
+                pipe.note_redispatch()
+                diverged = [f"{name} {pv}->{av}" for (name, pv), (_n2, av)
+                            in zip(outcome["predicted"], outcome["actual"]) if pv != av]
+                log.info("speculative batch abandoned for profile %r (host fold diverged "
+                         "from the predicate digest: %s); re-dispatching %d group(s)",
+                         profile, ", ".join(diverged), len(rest_groups))
+            if bad_reason is not None:
+                self._mc_fall_back(profile, rest_groups, stats, t0, bad_reason)
+            elif len(rest_groups) == 1:
+                self._schedule_profile(profile, rest_groups[0][1], stats, t0)
+            else:
+                self._schedule_profile_multi(profile, rest_groups, stats, t0)
+        self._maybe_speculate(profile, spec)
+
+    def speculation_ledger(self) -> dict:
+        """The depth-2 speculation ledger {'adopted', 'abandoned',
+        'redispatched'}, read from this scheduler's
+        scheduler_speculation_total{outcome} counters (they survive the
+        regime pipelines' eviction)."""
+        return {o: int(self.metrics.speculation.labels(outcome=o).get())
+                for o in ("adopted", "abandoned", "redispatched")}
 
     def _commit_record(
         self,
@@ -955,10 +1682,14 @@ class Scheduler:
         extra_marks: "dict | None" = None,
         extra_counts: "dict | None" = None,
         compile_source: str = "",
+        speculation: str = "",
+        row_window: "tuple | None" = None,
     ) -> None:
         """Assemble + commit one cycle flight record: pipeline stage
         marks / phases, pad-regime signature, queue depths, and the
-        per-profile outcome deltas."""
+        per-profile outcome deltas. `speculation` is a depth-2 outcome
+        (adopted | abandoned | none); `row_window` an inner cycle's streamed
+        decision window."""
         from ..models import packing as _packing
         from .cycle import RESILIENT_STRIKES
 
@@ -982,6 +1713,9 @@ class Scheduler:
         rec.sig = _packing.shape_signature(spec)
         if compile_source:
             rec.compile_source = compile_source
+        if speculation:
+            # one sample per speculation: the observer's thrash EWMA
+            rec.speculation = speculation
         qc = self.queue.pending_counts()
         sb, ub, bb, pb, vb = before
         rec.counts.update(
@@ -1010,15 +1744,17 @@ class Scheduler:
             **(extra_counts or {}),
         )
         if _spans.ARMED:
-            self._emit_cycle_spans(rec, pending)
+            self._emit_cycle_spans(rec, pending, speculation, row_window)
         self.flight.commit(rec)
 
-    def _emit_cycle_spans(self, rec, pending) -> None:
+    def _emit_cycle_spans(self, rec, pending, speculation: str = "",
+                          row_window: "tuple | None" = None) -> None:
         """Armed-only: this record's serve-side spans (dispatch,
-        decision.row, apply.fold) for every sampled pod it carried, and the
-        record's `trace_ids` exemplar join. All windows come from the
-        record's own marks (the recorder's perf_counter clock, the span
-        ring's base too)."""
+        dispatch.speculative, decision.row, apply.fold) for every sampled
+        pod it carried, and the record's `trace_ids` exemplar join. All
+        windows come from the record's own marks (the recorder's
+        perf_counter clock, the span ring's base too); `row_window`
+        overrides the decision window for an inner cycle of a batch."""
         ctxs = []
         for p in pending:
             c = _spans.ctx_for(p.uid)
@@ -1028,11 +1764,19 @@ class Scheduler:
             return
         m = rec.marks
         d0, d1 = m.get("dispatch_start"), m.get("dispatch_end")
-        r0, r1 = m.get("decision_start"), m.get("decision_end")
+        r0, r1 = row_window or (m.get("decision_start"), m.get("decision_end"))
         a0, a1 = m.get("apply_start"), m.get("winners_end")
         for uid, c in ctxs:
             if d0 is not None and d1 is not None:
                 _spans.record_span("dispatch", c, d0, d1, uid=uid, seq=rec.seq)
+            if speculation in ("adopted", "abandoned"):
+                # the speculative continuation this batch resolved, on the
+                # dispatch window it rode
+                _spans.record_span(
+                    "dispatch.speculative", c,
+                    d0 if d0 is not None else rec.t_start,
+                    d1 if d1 is not None else rec.t_start,
+                    uid=uid, seq=rec.seq, outcome=speculation)
             if r0 is not None and r1 is not None:
                 _spans.record_span("decision.row", c, r0, r1, uid=uid, seq=rec.seq)
             if a0 is not None and a1 is not None:

@@ -42,9 +42,8 @@ module makes that whole life one trace:
 
 `SPAN_NAMES` below is the pinned span inventory. Stdlib-only (no torch /
 numpy) so the state layer, tools and tests can import it without a
-device. The multi-cycle path's stamp sites (`mc.buffer_wait`,
-`encode.ingest`, `flush.finalize`, `dispatch.speculative`) come with that
-path (ROADMAP A11); the names stay in the inventory.
+device. The multi-cycle path stamps `mc.buffer_wait`, `encode.ingest`,
+`flush.finalize` and `dispatch.speculative` (core/scheduler.py).
 """
 
 from __future__ import annotations

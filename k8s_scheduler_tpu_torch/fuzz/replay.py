@@ -34,18 +34,23 @@ bounds every injected hang, the ladder recovers to rung 0 on the
 recovery tail, and (with a state dir) the journal restores to a
 digest-identical queue/cache.
 
-The port's incremental variant (`config["incremental_encode"]` on a
-single-cycle trace) replays the trace twice on the device-carry path —
-the encoder's delta path (`encode_packed` with its fold) and every frame
-a full encode (`SnapshotEncoder.incremental = False`) — and requires the
-decision streams and the dispatched packed arenas equal (the reference's
-variant is the multi-cycle admission-time ingest, ROADMAP A11).
+Multi-cycle traces (`multi_cycle_k` > 1) compare the flattened streams
+with the oracle's. The incremental variant on a multi-cycle trace is the
+reference's: admission-time ingest on against off, per-cycle streams and
+dispatched arenas equal, staged rows consumed. On a single-cycle trace
+(`config["incremental_encode"]` set by hand) the port replays it twice on
+the device-carry path — the encoder's delta path (`encode_packed` with its
+fold) and every frame a full encode — and requires the decision streams
+and the dispatched packed arenas equal. Speculative traces compare the
+engine against itself with speculation off (`compare_speculative`).
 
-Refused by name, never ignored: `via_api`, `run_api_case` and
-`compare_via_api` (the gRPC shim, ROADMAP A10b's CLI item); multi-cycle
-and speculative traces and `compare_speculative` (A11); sharded traces
-(A13); tenant traces, `run_tenant_case` and the `tenant_row_skew` bug
-(A12).
+The arrivals-via-API variant (`replay_engine(via_api=True)`,
+`run_api_case`) routes every arrival through the port's gRPC shim on a
+localhost channel and compares the stream with direct enqueue's
+(`compare_via_api`).
+
+Refused by name, never ignored: sharded traces (A13); tenant traces,
+`run_tenant_case` and the `tenant_row_skew` bug (A12).
 """
 
 from __future__ import annotations
@@ -74,10 +79,6 @@ from .trace import (
     trace_to_dict,
 )
 
-_API = ("the gRPC shim (arrivals via Submit / NodeChurn) is not ported yet "
-        "(ROADMAP A10b, the CLI and gRPC item)")
-_MULTI = ("multi-cycle and speculative dispatch traces are not ported yet "
-          "(ROADMAP A11)")
 _SHARDED = "sharded traces (shardDevices > 1) are not ported yet (ROADMAP A13)"
 _TENANT = ("multi-tenant traces and the tenant arena are not ported yet "
            "(ROADMAP A12)")
@@ -206,8 +207,6 @@ def _refuse_unported(cfgd: dict) -> None:
     """Trace variants later slices port: refused by name, never ignored."""
     if cfgd.get("tenancy"):
         raise NotImplementedError(_TENANT)
-    if int(cfgd.get("multi_cycle_k", 1)) > 1 or cfgd.get("speculative_dispatch"):
-        raise NotImplementedError(_MULTI)
     if int(cfgd.get("shard_devices", 0)) > 1:
         raise NotImplementedError(_SHARDED)
 
@@ -227,13 +226,18 @@ def replay_engine(
     `carry` serves the trace on the device-carry path (`commitMode:
     rounds`, the delta encode) in place of its scan, and `full_encode`
     makes every frame a full encode: the incremental variant's two sides,
-    compared engine against engine, never against the oracle. `via_api` is
-    refused (ROADMAP A10b)."""
+    compared engine against engine, never against the oracle.
+
+    `via_api` routes every pending-pod arrival through a real gRPC Submit
+    round trip and every node add/update/delete through NodeChurn (the
+    port's server on a localhost channel, the wire conversion and the
+    admission layer) instead of the direct informer calls. Deletions and
+    bound-pod confirmations stay direct, the admission depth bound is
+    lifted, and the harness still drives `schedule_cycle` itself, so any
+    stream difference from the direct engine is the API path's doing."""
     from ..config import SchedulerConfiguration
     from ..core import Scheduler, faults
 
-    if via_api:
-        raise NotImplementedError(_API)
     cfgd = trace.config
     if not carry:
         _require_scan_mode(cfgd)
@@ -317,6 +321,28 @@ def replay_engine(
 
     sched.queue.requeue_backoff = backoff_capture
 
+    api_server = None
+    api_client = None
+    if via_api:
+        from concurrent import futures as _futures
+
+        import grpc as _grpc
+
+        from ..service.client import SchedulerClient
+        from ..service.server import SchedulerService, add_to_server
+
+        svc = SchedulerService(scheduler=sched)
+        # the servicer rebinds the binder to its Cycle collector; the
+        # replay's capture binder must win (the harness never calls Cycle)
+        sched.binder = lambda pod, node: cycle_binds.append((pod, node))
+        svc.enable_front_door(queue_depth=0)
+        api_server = _grpc.server(_futures.ThreadPoolExecutor(max_workers=2),
+                                  options=(("grpc.so_reuseport", 0),))
+        add_to_server(svc, api_server)
+        api_port = api_server.add_insecure_port("127.0.0.1:0")
+        api_server.start()
+        api_client = SchedulerClient(f"127.0.0.1:{api_port}")
+
     objs = materialize(trace)
     pdbs = objs["pdbs"]
     groups = objs["pod_groups"]
@@ -350,7 +376,10 @@ def replay_engine(
                 if op == "add_pod":
                     all_pods[ev["pod"].uid] = ev["pod"]
                     added.add(ev["pod"].uid)
-                    sched.on_pod_add(ev["pod"])
+                    if api_client is not None:
+                        _api_submit(api_client, ev["pod"], ci, failures, sched)
+                    else:
+                        sched.on_pod_add(ev["pod"])
                 elif op == "add_bound_pod":
                     all_pods[ev["pod"].uid] = ev["pod"]
                     added.add(ev["pod"].uid)
@@ -361,11 +390,20 @@ def replay_engine(
                     bound_now.discard(ev["uid"])
                     sched.on_pod_delete(ev["uid"])
                 elif op == "add_node":
-                    sched.on_node_add(ev["node"])
+                    if api_client is not None:
+                        api_client.node_churn(adds=[ev["node"]])
+                    else:
+                        sched.on_node_add(ev["node"])
                 elif op == "update_node":
-                    sched.on_node_update(ev["node"])
+                    if api_client is not None:
+                        api_client.node_churn(updates=[ev["node"]])
+                    else:
+                        sched.on_node_update(ev["node"])
                 elif op == "delete_node":
-                    sched.on_node_delete(ev["name"])
+                    if api_client is not None:
+                        api_client.node_churn(deletes=[ev["name"]])
+                    else:
+                        sched.on_node_delete(ev["name"])
                 else:
                     raise ValueError(f"unknown trace op {op!r}")
             existing_before = sched.cache.existing_pods()
@@ -444,6 +482,12 @@ def replay_engine(
             ) if faults.plan() is not None else [],
             # the encoders' paths: the incremental variant asserts the
             # delta path actually ran
+            # depth-2 speculation outcomes (all zero without
+            # speculativeDispatch): the variant asserts the path ran
+            "speculation": sched.speculation_ledger(),
+            # admission-time ingest (the multi-cycle incremental variant)
+            "ingest": {"hits": sum(int(e.ingest_hits) for e in encs),
+                       "misses": sum(int(e.ingest_misses) for e in encs)},
             "encode": {
                 "full": sum(int(e.full_encodes) for e in encs),
                 "delta": sum(int(e.delta_hits) for e in encs),
@@ -454,12 +498,34 @@ def replay_engine(
         }
     finally:
         faults.disarm()
+        if api_client is not None:
+            with contextlib.suppress(Exception):
+                api_client.close()
+        if api_server is not None:
+            with contextlib.suppress(Exception):
+                api_server.stop(grace=0)
         if state is not None:
             with contextlib.suppress(Exception):
                 state.journal.flush()
             with contextlib.suppress(Exception):
                 state.journal.close()
     return ReplayResult(records, failures, all_binds, stats)
+
+
+def _api_submit(client, pod, cycle: int, failures: list, sched) -> None:
+    """One Submit round trip; a rejection is recorded as a failure (the
+    unbounded front door must accept every generated arrival) and the pod
+    falls back to direct enqueue so the stream comparison still runs."""
+    import grpc as _grpc
+
+    try:
+        client.submit([pod])
+    except _grpc.RpcError as e:
+        failures.append(Failure(
+            "via_api/rejected", cycle,
+            f"Submit({pod.uid}) -> {e.code().name}: {e.details()}",
+        ))
+        sched.on_pod_add(pod)
 
 
 def _chaos_checks(trace, sched, walls, state_dir) -> list[Failure]:
@@ -698,20 +764,38 @@ _PER_CYCLE_KEYS = (
 
 
 def compare(trace: Trace, eng: ReplayResult, orc: ReplayResult) -> list[Failure]:
-    """Bit-equality of the two decision streams, cycle by cycle (first
-    diverging cycle + field named). Multi-cycle traces (the flattened
-    comparison of the reference) are refused (ROADMAP A11)."""
-    if int(trace.config.get("multi_cycle_k", 1)) > 1:
-        raise NotImplementedError(_MULTI)
+    """Bit-equality of the two decision streams. Single-cycle serving
+    compares cycle by cycle (first diverging cycle + field named);
+    multi-cycle serving compares the flattened streams — coalescing moves
+    WHEN outcomes land (to the flush cycle), never what they are or their
+    order."""
     out: list[Failure] = []
-    for er, orr in zip(eng.records, orc.records):
-        for key in _PER_CYCLE_KEYS:
-            if er[key] != orr[key]:
-                out.append(Failure(
-                    f"divergence/{key}", er["cycle"],
-                    f"engine={er[key]!r} oracle={orr[key]!r}",
-                ))
-        if out:
+    if int(trace.config.get("multi_cycle_k", 1)) <= 1:
+        for er, orr in zip(eng.records, orc.records):
+            for key in _PER_CYCLE_KEYS:
+                if er[key] != orr[key]:
+                    out.append(Failure(
+                        f"divergence/{key}", er["cycle"],
+                        f"engine={er[key]!r} oracle={orr[key]!r}",
+                    ))
+            if out:
+                return out
+        return out
+    for key in ("binds", "unschedulable", "nominated", "evicted", "gang_dropped"):
+        e, o = eng.stream(key), orc.stream(key)
+        if key == "gang_dropped":
+            # sorted per record, and a flush record merges K inner cycles:
+            # compare the multiset (the ordered truth rides the
+            # unschedulable stream)
+            e, o = sorted(e), sorted(o)
+        if e != o:
+            i = next((j for j, (a, b) in enumerate(zip(e, o)) if a != b),
+                     min(len(e), len(o)))
+            out.append(Failure(
+                f"divergence/{key}", -1,
+                f"stream differs from element {i}: engine={e[i:i+3]!r} "
+                f"oracle={o[i:i+3]!r} (lengths {len(e)}/{len(o)})",
+            ))
             return out
     return out
 
@@ -751,36 +835,77 @@ def _capture_arenas(out: list):
     from ..core.pipeline import ServingPipeline
 
     orig_d = ServingPipeline.dispatch
+    orig_m = ServingPipeline.dispatch_multi
 
     def host_bytes(buf) -> bytes:
-        return _np.asarray(buf.cpu() if hasattr(buf, "cpu") else buf).tobytes()
+        a = _np.asarray(buf.cpu() if hasattr(buf, "cpu") else buf)
+        return a.view(_np.uint8).tobytes()
 
     def dispatch(self, wbuf, bbuf, *a, **kw):
         out.append(("1", host_bytes(wbuf), host_bytes(bbuf)))
         return orig_d(self, wbuf, bbuf, *a, **kw)
 
+    def dispatch_multi(self, wbufs, bbufs, *a, **kw):
+        out.append(("K", host_bytes(wbufs), host_bytes(bbufs)))
+        return orig_m(self, wbufs, bbufs, *a, **kw)
+
     ServingPipeline.dispatch = dispatch
+    ServingPipeline.dispatch_multi = dispatch_multi
     try:
         yield
     finally:
         ServingPipeline.dispatch = orig_d
+        ServingPipeline.dispatch_multi = orig_m
 
 
 def compare_speculative(eng_on: ReplayResult, eng_off: ReplayResult) -> list[Failure]:
-    """Refused: depth-2 speculative dispatch is ROADMAP A11."""
-    raise NotImplementedError(_MULTI)
+    """Per-cycle bit-equality of the speculative engine against the
+    non-speculative engine on the same trace: adoption and abandonment
+    must not change what is decided, when it lands, or in what order (the
+    two share the batching cadence, so even cycle placement must match)."""
+    out: list[Failure] = []
+    for er, orr in zip(eng_on.records, eng_off.records):
+        for key in _PER_CYCLE_KEYS + ("requeues", "rung"):
+            if er[key] != orr[key]:
+                out.append(Failure(
+                    f"speculation/{key}", er["cycle"],
+                    f"spec-on={er[key]!r} spec-off={orr[key]!r}",
+                ))
+        if out:
+            return out
+    return out
 
 
 def compare_via_api(eng_api: ReplayResult, eng_direct: ReplayResult) -> list[Failure]:
-    """Refused: the arrivals-via-API variant needs the gRPC shim (ROADMAP
-    A10b's CLI item)."""
-    raise NotImplementedError(_API)
+    """Per-cycle bit-equality of the arrivals-via-API engine against the
+    direct-enqueue engine on the same trace. Both share the exact cadence
+    (same trace, same K, same frozen clock), so even cycle placement must
+    match: any difference is the Submit / NodeChurn path perturbing state
+    (conversion loss, ordering drift, admission side effects)."""
+    out: list[Failure] = []
+    for er, orr in zip(eng_api.records, eng_direct.records):
+        for key in _PER_CYCLE_KEYS + ("requeues", "rung"):
+            if er[key] != orr[key]:
+                out.append(Failure(
+                    f"via_api/{key}", er["cycle"],
+                    f"via-api={er[key]!r} direct={orr[key]!r}",
+                ))
+        if out:
+            return out
+    return out
 
 
-def run_api_case(trace: Trace) -> list[Failure]:
-    """Refused: the arrivals-via-API variant needs the gRPC shim (ROADMAP
-    A10b's CLI item)."""
-    raise NotImplementedError(_API)
+def run_api_case(trace: Trace, *, device=None) -> list[Failure]:
+    """The arrivals-via-API variant: replay the trace with every arrival
+    through real Submit / NodeChurn RPCs, then again with direct enqueue,
+    and require bit-equal streams (engine bugs cancel out; this variant
+    hunts API-path bugs)."""
+    eng_api = replay_engine(trace, via_api=True, device=device)
+    failures = list(eng_api.failures)
+    eng_direct = replay_engine(trace, device=device)
+    failures.extend(eng_direct.failures)
+    failures.extend(compare_via_api(eng_api, eng_direct))
+    return failures
 
 
 def run_tenant_case(trace: Trace, *, bug: "str | None" = None) -> list[Failure]:
@@ -803,21 +928,61 @@ def run_case(
     delta path never switched off — a variant that silently fell back to
     full encodes would otherwise be a permanent green (a frame the encoder
     finds structurally ineligible, `full_reason`, is no fault). The port's
-    one incremental encode at K = 1 is the
-    device-carry path's delta encode (the reference's variant is the
-    multi-cycle admission-time ingest, ROADMAP A11), so both sides serve on
-    that path. Tenant, multi-cycle, speculative and sharded traces are
-    refused by name."""
+    one incremental encode at K = 1 is the device-carry path's delta
+    encode, so both sides serve on that path.
+
+    On a multi-cycle trace the incremental variant is the reference's:
+    admission-time ingest on against off (same cadence), per-cycle streams
+    and dispatched arenas equal, staged rows consumed at flush. Speculative
+    traces compare the engine against itself with speculation off and fail
+    when nothing was speculated. Tenant and sharded traces are refused by
+    name."""
     if trace.config.get("tenancy"):
         return run_tenant_case(trace, bug=bug)
     _refuse_unported(trace.config)
+    multi = int(trace.config.get("multi_cycle_k", 1)) > 1
     inc = bool(trace.config.get("incremental_encode")) and not trace.chaos
     arenas_on: list = []
     cap = _capture_arenas(arenas_on) if inc else contextlib.nullcontext()
     with engine_bug(bug), cap:
-        eng = replay_engine(trace, state_dir=state_dir, carry=inc, device=device)
+        eng = replay_engine(trace, state_dir=state_dir, carry=inc and not multi,
+                            device=device)
     failures = list(eng.failures)
     if trace.chaos:
+        return failures
+    if inc and multi:
+        off = trace_from_dict(trace_to_dict(trace))
+        off.config["incremental_encode"] = False
+        arenas_off: list = []
+        with engine_bug(bug), _capture_arenas(arenas_off):
+            eng_off = replay_engine(off, device=device)
+        failures.extend(eng_off.failures)
+        failures.extend(compare_incremental(eng, eng_off))
+        if arenas_on != arenas_off:
+            i = next((j for j, (a, b) in enumerate(zip(arenas_on, arenas_off)) if a != b),
+                     min(len(arenas_on), len(arenas_off)))
+            failures.append(Failure(
+                "incremental/arena", -1,
+                f"dispatched packed arenas diverge at dispatch {i} "
+                f"(counts {len(arenas_on)}/{len(arenas_off)})"))
+        ing = eng.stats.get("ingest", {})
+        if not ing.get("hits", 0):
+            failures.append(Failure(
+                "incremental/never_exercised", -1,
+                f"incrementalEncode trace consumed no staged row at flush (ledger {ing})"))
+        return failures
+    if trace.config.get("speculative_dispatch"):
+        off = trace_from_dict(trace_to_dict(trace))
+        off.config["speculative_dispatch"] = False
+        with engine_bug(bug):
+            eng_off = replay_engine(off, device=device)
+        failures.extend(eng_off.failures)
+        failures.extend(compare_speculative(eng, eng_off))
+        led = eng.stats.get("speculation", {})
+        if not (led.get("adopted", 0) + led.get("abandoned", 0)):
+            failures.append(Failure(
+                "speculation/never_exercised", -1,
+                f"speculativeDispatch trace dispatched no speculative batch (ledger {led})"))
         return failures
     if inc:
         off = trace_from_dict(trace_to_dict(trace))

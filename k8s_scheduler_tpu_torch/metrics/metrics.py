@@ -25,6 +25,10 @@ Families with a bullet here name what the repo's inventory checks read:
   decision_fetch, bind, postfilter, diag_lag, compile, batch_wait,
   device_share, first_bind, submit_bind (the inventory is
   core/observe.PHASES)
+- scheduler_multicycle_batch_cycles — inner scheduling cycles per
+  multi-cycle device dispatch (1 = a degenerate single-cycle batch)
+- scheduler_multicycle_inner_cycles_total — scheduling cycles served
+  through multi-cycle dispatches (vs one dispatch per cycle)
 - scheduler_trace_spans_total{name} — pod-lifecycle trace spans
   recorded, by span name (submit.validate | submit.journal |
   ack.barrier | mc.buffer_wait | encode.ingest | flush.finalize |
@@ -426,6 +430,16 @@ class SchedulerMetrics:
         self.slo_budget_remaining = Gauge(
             "scheduler_slo_budget_remaining",
             "Fraction of the slow-window SLO violation budget left.",
+            registry=r)
+        self.multicycle_batch = Histogram(
+            "scheduler_multicycle_batch_cycles",
+            "Inner scheduling cycles per multi-cycle device dispatch "
+            "(multiCycleK coalescing; 1 = a degenerate batch).",
+            buckets=(1, 2, 4, 8, 16, 32), registry=r)
+        self.multicycle_cycles = Counter(
+            "scheduler_multicycle_inner_cycles_total",
+            "Scheduling cycles served through multi-cycle dispatches "
+            "(each paid dispatch_rt/K instead of a full round trip).",
             registry=r)
         self.speculation = Counter(
             "scheduler_speculation_total",

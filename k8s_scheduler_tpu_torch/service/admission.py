@@ -4,8 +4,8 @@ port's copy of `k8s_scheduler_tpu/service/admission.py`: the same
 Two pieces:
 
 - `AdmissionController` — the admission layer behind the HTTP server's
-  `POST /submit` (cmd/httpserver.py; the reference's gRPC Submit comes
-  with the CLI, ROADMAP A10b). A submission is accepted ATOMICALLY or
+  `POST /submit` (cmd/httpserver.py) and the gRPC `Submit` /
+  `NodeChurn` (service/server.py). A submission is accepted ATOMICALLY or
   rejected whole:
 
   * **invalid** (missing uid/name, duplicate uid — within the request,
@@ -36,8 +36,8 @@ Two pieces:
   cycling until the active tier is empty — no pod stranded between ack
   and dispatch — and only then does the caller seal durable state.
 
-The port has no multi-cycle coalescing buffers yet (ROADMAP A11), so the
-admission queue is the scheduling queue alone. Per-tenant admission
+The admission depth counts the scheduling queue and the multi-cycle
+coalescing buffers; a drain waits for both to empty. Per-tenant admission
 (`tenants=`, the tenancy registry) is refused by name until ROADMAP A12
 ports the registry.
 
@@ -145,11 +145,17 @@ class AdmissionController:
     # ---- depth ------------------------------------------------------------
 
     def queue_depth(self) -> int:
-        """Pending pods across all queue tiers (the reference adds the
-        multi-cycle coalescing groups, which the port does not have yet:
-        ROADMAP A11). The queue's own lock makes the read consistent; the
-        bound is a memory guard, not an exactness contract."""
-        return len(self.scheduler.queue)
+        """Pending pods across all queue tiers plus pods buffered in the
+        multi-cycle coalescing groups (popped but not dispatched).
+        Approximate by design (the serve loop mutates the buffers
+        concurrently): the bound is a memory guard, not an exactness
+        contract."""
+        s = self.scheduler
+        n = len(s.queue)
+        for bufs in list(s._mc_groups.values()):
+            for _t, group in list(bufs):
+                n += len(group)
+        return n
 
     # ---- admission history (the /debug/explain join) ----------------------
 
@@ -551,6 +557,9 @@ class FrontDoor:
                 )
                 self.admission.close()
 
+    def _buffered(self) -> bool:
+        return any(self.scheduler._mc_groups.values())
+
     def _run_loop(self) -> None:
         s = self.scheduler
         while not self._stop.is_set():
@@ -579,15 +588,16 @@ class FrontDoor:
                 self._stop.wait(self._failure_backoff)
                 continue
             if self._draining.is_set():
-                # drain condition: nothing ready (backoff/unschedulable
-                # pods are durable in the sealed state and legitimately
-                # outlive the drain — they are parked, not stranded
-                # between ack and dispatch)
-                if s.queue.pending_counts().get("active", 0) == 0:
+                # drain condition: nothing ready AND nothing coalescing
+                # (backoff/unschedulable pods are durable in the sealed
+                # state and legitimately outlive the drain — they are
+                # parked, not stranded between ack and dispatch)
+                if (s.queue.pending_counts().get("active", 0) == 0
+                        and not self._buffered()):
                     self._drained.set()
                     return
                 continue  # drain at full cadence, no idle sleep
-            if stats.attempted == 0:
+            if stats.attempted == 0 and not self._buffered():
                 self._stop.wait(self._idle_sleep)
 
     def begin_drain(self) -> None:
@@ -637,10 +647,9 @@ def self_confirming_front_door(service, admission) -> FrontDoor:
     confirmation provides); the confirmed bind is journaled, so a
     failover restores it bound instead of re-schedulable.
 
-    `service` is the reference's `SchedulerService` (its `scheduler` and
-    `run_local_cycle`); until the port's gRPC shim lands (ROADMAP A10b)
-    it may be the `Scheduler` itself, whose `schedule_cycle` is the
-    cycle."""
+    `service` is a `service.server.SchedulerService` (its `scheduler` and
+    `run_local_cycle`, the CLI's case) or the `Scheduler` itself, whose
+    `schedule_cycle` is the cycle."""
     confirm_q: collections.deque = collections.deque()
     sched = getattr(service, "scheduler", service)
     cycle_fn = getattr(service, "run_local_cycle", sched.schedule_cycle)

@@ -1,8 +1,7 @@
 """DurableState (the port's copy of `k8s_scheduler_tpu/state/manager.py`):
 wires the journal into a live queue/cache, restores, snapshots, seals.
 
-Lifecycle (the reference's cmd/main.py drives it; its port is ROADMAP
-A10b's next item):
+Lifecycle (the CLI, cmd/main.py, drives it):
 
     state = DurableState(state_dir, snapshot_interval_seconds=60)
     # Scheduler.__init__ calls:

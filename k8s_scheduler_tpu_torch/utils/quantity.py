@@ -63,3 +63,16 @@ def parse_quantity(q: "str | int | float", as_millis: bool = False) -> float:
         val = float(s)
     return val * 1000.0 if as_millis else val
 
+
+def format_millis(millis: float) -> str:
+    """Inverse of parse_quantity(as_millis=True): exact round-trip, so
+    sub-millicore requests ("500u" = 0.5m) survive the wire ("1500m",
+    "500u", "2")."""
+    if millis == int(millis):
+        if int(millis) % 1000 == 0:
+            return str(int(millis) // 1000)
+        return f"{int(millis)}m"
+    nanos = millis * 1e6  # millicores -> nanocores
+    if nanos == int(nanos) and int(nanos) % 1000 == 0:
+        return f"{int(nanos) // 1000}u"
+    return f"{int(round(nanos))}n"

@@ -47,9 +47,9 @@ WALL_GAUGES = ("scheduler_uptime_seconds", "scheduler_last_cycle_age_seconds",
                "scheduler_slo_error_budget_remaining", "scheduler_build_info")
 # the reference's families these servers' schedulers do not feed alike
 # (durable state, admission, spans) or of modules not ported yet (ROADMAP
-# A11, A12: tenancy, multi-cycle)
+# A12: tenancy); the multi-cycle families are compared
 UNPORTED_FAMILIES = ("scheduler_admission", "scheduler_journal", "scheduler_snapshot",
-                     "scheduler_submit", "scheduler_tenan", "scheduler_multicycle",
+                     "scheduler_submit", "scheduler_tenan",
                      "scheduler_trace_spans")
 
 

@@ -7,10 +7,11 @@ and its refusals, against the reference's `fuzz/`.
 - The shrinker reaches the reference's minimum on the synthetic checkers
   and preserves the failure class; its input is not mutated.
 - The committed corpus loads to the reference's artifacts.
+- The modes ported since run clean: `via_api` / `run_api_case` /
+  `compare_via_api` (the gRPC shim), multi-cycle, speculative and
+  multi-cycle incremental traces and `compare_speculative`.
 - Every mode the port waits for raises a refusal naming its ROADMAP item:
-  `via_api`, `run_api_case`, `compare_via_api` (A10b, the CLI and gRPC
-  shim), multi-cycle and speculative traces and `compare_speculative`
-  (A11), sharded traces (A13), tenant traces, `run_tenant_case` and the
+  sharded traces (A13), tenant traces, `run_tenant_case` and the
   `tenant_row_skew` bug (A12); rounds traces are refused as in the
   reference; `engine_bug` patches and restores.
 Every comparison is exact."""
@@ -185,20 +186,29 @@ def _refused(fn, item):
 
 
 def test_via_api_modes_are_refused():
+    """Ported with the gRPC shim (the name is kept from when the modes were
+    refused): arrivals through Submit / NodeChurn give the direct engine's
+    records, cycle by cycle."""
     t = fuzz.generate_trace(1, multi_cycle=False)
-    _refused(lambda: fuzz.replay_engine(t, via_api=True, device="cpu"), "A10b")
-    _refused(lambda: fuzz.run_api_case(t), "A10b")
-    _refused(lambda: replay.compare_via_api(None, None), "A10b")
+    api = fuzz.replay_engine(t, via_api=True, device="cpu")
+    direct = fuzz.replay_engine(t, device="cpu")
+    assert api.failures == [] and replay.compare_via_api(api, direct) == []
+    assert api.records == direct.records and api.binds
+    assert fuzz.run_api_case(t, device="cpu") == []
 
 
 @pytest.mark.parametrize("kw", [{"multi_cycle": True}, {"speculative": True},
                                 {"incremental": True}])
 def test_multicycle_traces_are_refused(kw):
+    """Ported with multi-cycle dispatch (the name is kept from when these
+    traces were refused): each variant runs clean, and the multi-cycle
+    engine's flattened streams equal the oracle's."""
     t = fuzz.generate_trace(2, **kw)
-    _refused(lambda: fuzz.run_case(t, device="cpu"), "A11")
-    _refused(lambda: fuzz.replay_engine(t, device="cpu"), "A11")
-    _refused(lambda: replay.compare(t, None, None), "A11")
-    _refused(lambda: replay.compare_speculative(None, None), "A11")
+    assert int(t.config["multi_cycle_k"]) == 4
+    assert fuzz.run_case(t, device="cpu") == []
+    eng = fuzz.replay_engine(t, device="cpu")
+    assert replay.compare(t, eng, fuzz.replay_oracle(t)) == []
+    assert replay.compare_speculative(eng, eng) == []
 
 
 def test_sharded_traces_are_refused():

@@ -292,18 +292,26 @@ def test_fixture_exercises_what_it_claims(name, commit_mode):
     pytest.param({"shard_devices": 2}, "A13", id="kw2-A13"),
 ])
 def test_unported_serving_features_raise(kw, item):
+    """shardDevices > 1 stays refused by name (A13); multiCycleK > 1 is
+    served since A11 was ported (its case keeps its id)."""
     cfg = port_config.SchedulerConfiguration(**kw)
+    if item == "A11":
+        assert port_core.Scheduler(cfg, device="cpu")._mc_k == 4
+        return
     with pytest.raises(NotImplementedError, match=item):
         port_core.Scheduler(cfg, device="cpu")
 
 
 def test_unported_entry_points_raise():
+    """The entry points these refusals stood for are ported: the via-API
+    fuzz case runs clean, and `dispatch_multi` without a batch program
+    says which program to install."""
     from k8s_scheduler_tpu_torch import fuzz
 
-    with pytest.raises(NotImplementedError, match="A10b"):
-        fuzz.run_api_case(fuzz.generate_trace(1, multi_cycle=False))
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_core.ServingPipeline(lambda *a: None, device="cpu").dispatch_multi()
+    assert fuzz.run_api_case(fuzz.generate_trace(1, multi_cycle=False), device="cpu") == []
+    with pytest.raises(RuntimeError, match="multi_fn"):
+        port_core.ServingPipeline(lambda *a: None, device="cpu").dispatch_multi(
+            None, None, None, 1)
 
 
 def test_compile_cache_dir_and_profile_cycle_are_served(tmp_path, monkeypatch):

@@ -358,8 +358,11 @@ def test_arm_watchtower_samples_a_serving_scheduler(tmp_path):
             s.on_pod_add(p)
         for _ in range(2):
             s.schedule_cycle()
+        # Wait for two ticks taken after the cycles: the ticker starts at
+        # arm_watchtower, so earlier ticks may all predate the counters.
+        after = store.ticks + 2
         deadline = time.time() + 10.0
-        while store.ticks < 2 and time.time() < deadline:
+        while store.ticks < after and time.time() < deadline:
             time.sleep(0.02)
         fams = {f["family"] for f in store.families()}
         assert "cycle_phase_ms" in fams and "cycle_count" in fams
